@@ -1,0 +1,32 @@
+"""libpga_tpu_torch: the PyTorch / CUDA port of libpga_tpu for one
+NVIDIA H100.
+
+This slice runs ``PGA.run`` on float32 genomes through one hand-written
+CUDA kernel per generation (``csrc/deme_breed.cu``). The JAX package
+``libpga_tpu`` stays the reference; nothing here imports it or JAX.
+"""
+
+from libpga_tpu_torch.api import (
+    pga_create_population,
+    pga_deinit,
+    pga_get_best,
+    pga_init,
+    pga_run,
+    pga_set_objective_function,
+)
+from libpga_tpu_torch.config import PGAConfig
+from libpga_tpu_torch.engine import PGA, PopulationHandle
+from libpga_tpu_torch.population import Population
+
+__all__ = [
+    "PGA",
+    "PGAConfig",
+    "Population",
+    "PopulationHandle",
+    "pga_create_population",
+    "pga_deinit",
+    "pga_get_best",
+    "pga_init",
+    "pga_run",
+    "pga_set_objective_function",
+]

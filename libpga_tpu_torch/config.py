@@ -1,0 +1,67 @@
+"""Runtime configuration of the PyTorch port.
+
+The subset of ``libpga_tpu.config.PGAConfig`` that ``PGA.run`` reads on
+the fused deme path, plus the device the solver runs on. Field names
+match the JAX package except ``deme_size``, which is the JAX package's
+``pallas_deme_size`` (rows per selection deme; on the GPU it fixes which
+rows form a cohort, not a VMEM block).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from libpga_tpu_torch.ops.select import resolve_selection
+
+
+@dataclasses.dataclass(frozen=True)
+class PGAConfig:
+    """Configuration for a port ``PGA`` solver.
+
+    Attributes:
+      tournament_size: candidates per tournament, 1..16 (the deme
+        kernel samples the winner in rank space, so cost is
+        k-independent; 16 is the JAX kernel's contractual cap).
+      selection: "tournament", "truncation" or "linear_rank".
+      selection_param: truncation tau or linear-rank pressure s; None
+        takes the strategy's default.
+      mutation_rate: probability a child receives a point mutation.
+      elitism: top individuals carried unchanged into rows 0..e-1.
+      deme_size: preferred rows per deme (power of two in [128, 1024]);
+        None picks the JAX package's measured default, so both packages
+        group the same rows into the same cohorts.
+      gene_dtype: torch.float32 only in this slice.
+      seed: base seed of the solver's ``torch.Generator``; None draws
+        one from OS entropy.
+      device: "cuda" (default) or "cpu". There is no automatic CPU
+        fallback: a missing card is an error, not a slower run.
+    """
+
+    tournament_size: int = 2
+    selection: str = "tournament"
+    selection_param: Optional[float] = None
+    mutation_rate: float = 0.01
+    elitism: int = 0
+    deme_size: Optional[int] = None
+    gene_dtype: torch.dtype = torch.float32
+    seed: Optional[int] = None
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if not 1 <= self.tournament_size <= 16:
+            raise ValueError("tournament_size must be in 1..16")
+        resolve_selection(self.selection, self.selection_param)
+        if not 0.0 <= self.mutation_rate <= 1.0:
+            raise ValueError("mutation_rate must be in [0, 1]")
+        if self.elitism < 0:
+            raise ValueError("elitism must be >= 0")
+        if self.gene_dtype != torch.float32:
+            raise NotImplementedError(
+                f"gene_dtype {self.gene_dtype} is not ported yet: bfloat16"
+                " genomes are a later slice (ROADMAP Queue B, B1/B3 bf16)"
+            )
+        if torch.device(self.device).type not in ("cuda", "cpu"):
+            raise ValueError(f"device must be 'cuda' or 'cpu', got {self.device!r}")

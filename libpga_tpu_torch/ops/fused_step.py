@@ -1,0 +1,700 @@
+"""The fused deme breed: the torch counterpart of
+``libpga_tpu/ops/pallas_step.py``.
+
+One generation ranks every deme's scores (plain torch, outside the
+kernel, as JAX does with ``lax.sort``), then breeds every deme in ONE
+launch of the hand-written CUDA kernel ``csrc/deme_breed.cu``: rank-space
+selection, uniform crossover, point (or gaussian/swap) mutation, and for
+onemax/onemax_bits the child's score, written to the child's physical row.
+
+Two row maps come from the JAX package and are semantics, not launch
+shapes: they decide which rows form a selection cohort and where each
+child lands.
+
+- **ping-pong** (the JAX default for fused objectives when its mixing
+  gate admits, e.g. 1,048,576x100): parity 0 reads consecutive slabs,
+  parity 1 strided combs; child chunk ``u`` of deme ``d`` lands at group
+  chunk ``u*D + d`` (``pingpong_child_rows``). The parity alternates by
+  generation.
+- **riffle** (everything else, e.g. 40,000x100, whose 157 demes admit no
+  ping-pong D): deme ``g`` reads rows ``[g*K, (g+1)*K)`` and its child
+  ``k`` lands at row ``k*G + g``.
+
+The geometry code below is copied from ``pallas_step.py`` with its VMEM
+arithmetic unchanged, so the port picks the same ``(layout, K, D, Pp)``
+as ``make_pallas_breed``. On the GPU the VMEM model decides nothing about
+the launch; it only fixes the grouping, which has to match.
+
+On the GPU one block per deme cannot write in place: a ping-pong group's
+interleaved child rows belong to other blocks. The run loop therefore
+ping-pongs between two ``(Pp, L)`` buffers (2 x 419 MB at 1,048,576x100).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from libpga_tpu_torch.objectives.classic import (
+    FUSED_NONE,
+    FUSED_ONEMAX,
+    FUSED_ONEMAX_BITS,
+)
+from libpga_tpu_torch.ops import kernels
+from libpga_tpu_torch.ops.evaluate import evaluate
+from libpga_tpu_torch.ops.select import (
+    resolve_selection,
+    winner_fraction,
+    winner_ranks,
+)
+
+LANE = 128
+MUTATE_KINDS = ("point", "gaussian", "swap")
+
+# ---------------------------------------------------------------------
+# Geometry (copied from libpga_tpu/ops/pallas_step.py:185-372, 1701-1932)
+# ---------------------------------------------------------------------
+
+
+def pingpong_quantum(gene_dtype=torch.float32) -> int:
+    """Chunk granularity of the parity-1 comb (8 rows for float32)."""
+    return 16 if gene_dtype == torch.bfloat16 else 8
+
+
+def pingpong_admissible(W: int, Pp: int, q: int) -> bool:
+    """True when the parity pair fully mixes: ``W/q >= Pp/W``."""
+    if W <= 0 or W % q or Pp % W:
+        return False
+    return (W // q) >= (Pp // W)
+
+
+def pingpong_group_rows(parity: int, i: int, *, W: int, S: int, q: int):
+    """Physical rows group ``i`` reads and writes under ``parity``."""
+    if parity == 0:
+        return np.arange(i * W, (i + 1) * W, dtype=np.int64)
+    A = W // q
+    a = np.arange(A, dtype=np.int64)[:, None]
+    o = np.arange(q, dtype=np.int64)[None, :]
+    return (a * (S * q) + i * q + o).reshape(-1)
+
+
+def pingpong_perm(parity: int, Pp: int, W: int, q: int):
+    """READ map: entry ``g*W + x`` is the physical row of group ``g``'s
+    local row ``x`` (read deme d = local rows [d*K, (d+1)*K))."""
+    S = Pp // W
+    return np.concatenate([
+        pingpong_group_rows(parity, i, W=W, S=S, q=q) for i in range(S)
+    ])
+
+
+def pingpong_child_rows(
+    parity: int, Pp: int, K: int, q: int, D: int, B: int = 1
+):
+    """WRITE map: entry ``g*W + dd*K + k`` is the physical row where
+    group ``g``'s deme ``dd``'s child ``k`` lands (child chunk ``u`` of
+    deme ``d`` at sub-block chunk ``u*D + d``)."""
+    W = B * D * K
+    S = Pp // W
+    T = K // q
+    rows = np.empty(Pp, np.int64)
+    for g in range(S):
+        grp = pingpong_group_rows(parity, g, W=W, S=S, q=q)
+        for b in range(B):
+            for d in range(D):
+                dd = b * D + d
+                u = np.arange(T)[:, None]
+                o = np.arange(q)[None, :]
+                m = b * D * T + u * D + d
+                local = (m * q + o).reshape(-1)
+                rows[g * W + dd * K : g * W + (dd + 1) * K] = grp[local]
+    return rows
+
+
+def _valid_deme(k: int) -> bool:
+    return bool(k) and not (k & (k - 1)) and 128 <= k <= 1024
+
+
+def _scoped_vmem_bytes(K: int, D: int, Lp: int, gene_bytes: int) -> int:
+    blocks = 2 * D * K * Lp * gene_bytes
+    cubes = K * K * (4 + 2 + 2)
+    rows = K * Lp * (3 * 4 + 4 + (4 if gene_bytes == 4 else 0))
+    return blocks + cubes + rows
+
+
+_SCOPED_VMEM_LIMIT = 14_500_000
+_BLOCK_BYTES_LIMIT = 8_650_000
+
+
+def _blocks_fit(K: int, D: int, Lp: int, gene_bytes: int) -> bool:
+    return (
+        4 * D * K * Lp * gene_bytes <= _BLOCK_BYTES_LIMIT
+        and _scoped_vmem_bytes(K, D, Lp, gene_bytes) <= _SCOPED_VMEM_LIMIT
+    )
+
+
+def _pick_deme_size(
+    pop_size: int, preferred: int, genome_lanes: int = LANE,
+    gene_bytes: int = 4,
+):
+    """Exact power-of-two divisors first, then the healthiest padded
+    fit (tails under K/4 rows rejected; wastes up to 12.5% count as
+    equal, then the preferred size, then the larger deme). None for
+    populations under 128 rows or with only degenerate tails."""
+
+    def fits(k: int) -> bool:
+        return _blocks_fit(k, 1, genome_lanes, gene_bytes)
+
+    if _valid_deme(preferred) and fits(preferred) and pop_size % preferred == 0:
+        return preferred
+    for k in (1024, 512, 256, 128):
+        if fits(k) and pop_size % k == 0:
+            return k
+    if pop_size < 128:
+        return None
+    best = None
+    for k in (1024, 512, 256, 128):
+        if k > pop_size or not fits(k):
+            continue
+        g = -(-pop_size // k)
+        tail = pop_size - (g - 1) * k
+        if tail < max(k // 4, 2):
+            continue
+        waste = g * k - pop_size
+        rank = (
+            waste if waste > pop_size // 8 else 0,
+            0 if k == preferred else 1,
+            -k,
+        )
+        if best is None or rank < best[0]:
+            best = (rank, k)
+    return best[1] if best else None
+
+
+def auto_deme_size(gene_dtype=torch.float32, const_carrying: bool = False) -> int:
+    """The JAX package's deme default: 512, except 256 for float32
+    objectives that carry kernel constants."""
+    if const_carrying and gene_dtype != torch.bfloat16:
+        return 256
+    return 512
+
+
+ONE_GEN_D_POOL = (32, 16, 8, 4, 2, 1)
+
+
+def one_gen_d_default(gene_dtype=torch.float32, const_carrying: bool = False) -> int:
+    if gene_dtype == torch.bfloat16:
+        return 4
+    return 16 if const_carrying else 8
+
+
+@dataclasses.dataclass
+class Geometry:
+    """Resolved breed geometry. ``G`` demes of ``K`` rows over ``Pp``
+    padded rows; ``D`` demes per group (ping-pong: ``S`` groups of
+    ``W = D*K`` rows, parity-1 comb quantum ``q``)."""
+
+    layout: str
+    P: int
+    L: int
+    K: int
+    G: int
+    D: int
+    Pp: int
+    q: int
+    _maps: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False
+    )
+
+    @property
+    def S(self) -> int:
+        return self.Pp // (self.D * self.K)
+
+    @property
+    def parities(self) -> int:
+        return 2 if self.layout == "pingpong" else 1
+
+    def mode(self, parity: int) -> int:
+        """Row-map id the kernel takes: 0/1 ping-pong parity, 2 riffle."""
+        return 2 if self.layout == "riffle" else parity
+
+    def row_maps(self, parity: int, device) -> tuple:
+        """``(read, write)`` int64 tensors of shape (G, K): the physical
+        row read for cohort slot (g, k), and the physical row child
+        (g, k) is written to. Cached per parity and device."""
+        key = (self.mode(parity), str(device))
+        if key not in self._maps:
+            K, G = self.K, self.G
+            if self.layout == "riffle":
+                read = np.arange(self.Pp, dtype=np.int64)
+                write = (
+                    np.arange(K, dtype=np.int64)[None, :] * G
+                    + np.arange(G, dtype=np.int64)[:, None]
+                )
+            else:
+                W = self.D * K
+                read = pingpong_perm(parity, self.Pp, W, self.q)
+                write = pingpong_child_rows(parity, self.Pp, K, self.q, self.D)
+            self._maps[key] = (
+                torch.as_tensor(read.reshape(G, K), device=device),
+                torch.as_tensor(write.reshape(G, K), device=device),
+            )
+        return self._maps[key]
+
+
+def resolve_geometry(
+    pop_size: int,
+    genome_len: int,
+    *,
+    deme_size: Optional[int] = None,
+    tournament_size: int = 2,
+    selection: str = "tournament",
+    selection_param: Optional[float] = None,
+    fused: bool = True,
+    layout: Optional[str] = None,
+) -> Optional[Geometry]:
+    """What ``make_pallas_breed`` would build for float32 genes, uniform
+    crossover and a builtin mutation: the ``_kernel_shape`` gates and
+    fit, then the ping-pong branch of ``_resolve_layout`` (fused breeds
+    take ping-pong whenever a D admits it; ``layout`` forces one).
+    None where the JAX factory declines (tournament size outside 1..16,
+    under 128 rows, or only degenerate padded fits)."""
+    if not 1 <= tournament_size <= 16:
+        return None
+    resolve_selection(selection, selection_param)
+    if layout not in (None, "riffle", "pingpong"):
+        raise ValueError(
+            f"unknown layout {layout!r}: expected 'riffle' or 'pingpong'"
+        )
+    if not deme_size:
+        deme_size = auto_deme_size()
+    Lp = math.ceil(genome_len / LANE) * LANE
+    K = _pick_deme_size(pop_size, deme_size, genome_lanes=Lp, gene_bytes=4)
+    if K is None:
+        return None
+    G = math.ceil(pop_size / K)
+    Pp = G * K
+    q = pingpong_quantum()
+    d_candidates = [
+        d for d in ONE_GEN_D_POOL if G % d == 0 and _blocks_fit(K, d, Lp, 4)
+    ] or [1]
+    D = next((d for d in d_candidates if d <= one_gen_d_default()), 1)
+    want = layout == "pingpong" or (layout is None and fused)
+    if want:
+        for d2 in sorted(d for d in d_candidates if d >= D):
+            if G % d2 == 0 and pingpong_admissible(d2 * K, Pp, q):
+                return Geometry("pingpong", pop_size, genome_len, K, G, d2, Pp, q)
+        if layout == "pingpong":
+            raise ValueError(
+                "layout='pingpong' requested but no demes-per-step"
+                f" satisfies the mixing gate (K={K}, G={G})"
+            )
+    return Geometry("riffle", pop_size, genome_len, K, G, D, Pp, q)
+
+
+# ---------------------------------------------------------------------
+# Ranks (plain torch, outside the kernel)
+# ---------------------------------------------------------------------
+
+PAD_TIE = 0xFFFFFFFF
+
+
+def draw_tie_words(generator: torch.Generator, n: int, device) -> torch.Tensor:
+    """A fresh 31-bit tie word per cohort slot (JAX: ``bits >> 1``)."""
+    return torch.randint(
+        0, 2**31, (n,), generator=generator, device=device, dtype=torch.int64
+    )
+
+
+def compute_ranks(
+    scores: torch.Tensor, geom: Geometry, parity: int, tie: torch.Tensor
+) -> torch.Tensor:
+    """In-deme ranks (0 = best) of the parity's cohorts, ``(G, K)``
+    int32. ``scores`` are (Pp,) in physical order; ``tie`` (Pp,) int64
+    words in [0, 2^31) in cohort order. Total order: score descending
+    with NaN as -inf, then tie word ascending; pad rows get the maximal
+    word, so they rank after every real row. One stable sort on a packed
+    int64 key (order-preserving score bits << 32 | tie word)."""
+    read, _ = geom.row_maps(parity, scores.device)
+    s = scores[read]
+    # NaN ranks with -inf; +0.0 canonicalises -0.0 (JAX's sort treats
+    # the two zeros as equal).
+    s = torch.where(torch.isnan(s), -torch.inf, s) + 0.0
+    bits = (-s).view(torch.int32).to(torch.int64)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    tie = torch.where(read >= geom.P, PAD_TIE, tie.view(geom.G, geom.K))
+    packed = (key << 32) | tie
+    order = torch.sort(packed, dim=1, stable=True).indices
+    iota = torch.arange(geom.K, device=scores.device).expand(geom.G, geom.K)
+    ranks = torch.empty_like(order).scatter_(1, order, iota)
+    return ranks.to(torch.int32)
+
+
+# ---------------------------------------------------------------------
+# Random draws: injected, or Philox4x32-10 as the kernel computes it
+# ---------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Draws:
+    """Every random number one breed consumes, per deme ``g`` and child
+    ``k``: ``sel_u`` (G, K, 2) parent draws; ``cross`` (G, K, L) uint8
+    crossover bits (1 takes parent 2); ``mut_u`` (G, K, 4) point/swap
+    draws; ``gauss`` (3, G, K, L) gate/u1/u2 planes for gaussian
+    mutation (else None)."""
+
+    sel_u: torch.Tensor
+    cross: torch.Tensor
+    mut_u: torch.Tensor
+    gauss: Optional[torch.Tensor] = None
+
+
+def zero_draws(G: int, K: int, L: int, mutate: str = "point", device="cpu") -> Draws:
+    """All-zero draws: the JAX interpret-mode PRNG's output."""
+    z = dict(device=device)
+    return Draws(
+        sel_u=torch.zeros((G, K, 2), **z),
+        cross=torch.zeros((G, K, L), dtype=torch.uint8, **z),
+        mut_u=torch.zeros((G, K, 4), **z),
+        gauss=torch.zeros((3, G, K, L), **z) if mutate == "gaussian" else None,
+    )
+
+
+_MASK32 = 0xFFFFFFFF
+STREAM_SEL, STREAM_MUT, STREAM_CROSS, STREAM_GAUSS = 0, 1, 2, 0x40000000
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """32x32 -> (hi, lo) product of a constant and uint32 values held
+    in int64, split into 16-bit halves so nothing overflows."""
+    p_lo = b * (a & 0xFFFF)
+    p_hi = b * (a >> 16)
+    t = ((p_hi & 0xFFFF) << 16) + p_lo
+    return (p_hi >> 16) + (t >> 32), t & _MASK32
+
+
+def philox4x32(key: torch.Tensor, c0, c1, c2, c3):
+    """Philox4x32-10 on int64 tensors holding uint32 values; ``key`` is
+    the launch seed (int64 tensor of one element: low word, high word).
+    Returns the four output words. ``csrc/deme_breed.cu`` computes the
+    same function."""
+    seed = key.reshape(())
+    k0 = seed & _MASK32
+    k1 = (seed >> 32) & _MASK32
+    for r in range(10):
+        if r:
+            k0 = (k0 + 0x9E3779B9) & _MASK32
+            k1 = (k1 + 0xBB67AE85) & _MASK32
+        hi0, lo0 = _mulhilo(0xD2511F53, c0)
+        hi1, lo1 = _mulhilo(0xCD9E8D57, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _to_uniform(word: torch.Tensor) -> torch.Tensor:
+    return (word >> 8).to(torch.float32) * 2.0**-24
+
+
+def philox_draws(
+    seed: torch.Tensor, G: int, K: int, L: int, mutate: str = "point"
+) -> Draws:
+    """The draws the kernel's production mode generates for launch seed
+    ``seed``: counter ``(k, g, stream, 0)`` with stream 0 = selection,
+    1 = mutation, 2+t = crossover bits of genes [128t, 128t+128) (gene
+    ``128t + 32w + b`` takes bit ``b`` of word ``w``), and
+    ``0x40000000 + l`` = gaussian gate/u1/u2 of gene ``l``. Uniforms are
+    ``(bits >> 8) * 2^-24``."""
+    dev = seed.device
+    k = torch.arange(K, device=dev, dtype=torch.int64)[None, :].expand(G, K)
+    g = torch.arange(G, device=dev, dtype=torch.int64)[:, None].expand(G, K)
+    zero = torch.zeros((), device=dev, dtype=torch.int64)
+
+    def call(stream):
+        return philox4x32(seed, k, g, zero + stream, zero)
+
+    w = call(STREAM_SEL)
+    sel_u = torch.stack([_to_uniform(w[0]), _to_uniform(w[1])], dim=-1)
+    w = call(STREAM_MUT)
+    mut_u = torch.stack([_to_uniform(x) for x in w], dim=-1)
+    ntiles = -(-L // 128)
+    shifts = torch.arange(32, device=dev, dtype=torch.int64)
+    tiles = []
+    for t in range(ntiles):
+        words = torch.stack(call(STREAM_CROSS + t), dim=-1)  # (G, K, 4)
+        tiles.append(((words[..., None] >> shifts) & 1).reshape(G, K, 128))
+    cross = torch.cat(tiles, dim=-1)[..., :L].to(torch.uint8)
+    gauss = None
+    if mutate == "gaussian":
+        gl = torch.arange(L, device=dev, dtype=torch.int64)
+        w = philox4x32(
+            seed, k[..., None], g[..., None], STREAM_GAUSS + gl, zero
+        )
+        gauss = torch.stack([_to_uniform(x) for x in w[:3]])
+    return Draws(sel_u=sel_u, cross=cross, mut_u=mut_u, gauss=gauss)
+
+
+# ---------------------------------------------------------------------
+# The plain version of the kernel
+# ---------------------------------------------------------------------
+
+
+def breed_children(
+    cohorts: torch.Tensor,
+    ranks: torch.Tensor,
+    valid: torch.Tensor,
+    draws: Draws,
+    *,
+    tournament_size: int,
+    selection: str,
+    selection_param: Optional[float],
+    mutate: str,
+    mparams: torch.Tensor,
+    elite_rows: int = 0,
+) -> torch.Tensor:
+    """Breed the K children of each of N demes: the torch counterpart of
+    ``_deme_child`` (uniform crossover; point, gaussian or swap
+    mutation). ``cohorts`` (N, K, L) float32 rows in cohort order;
+    ``ranks`` (N, K) in-deme ranks (a permutation of 0..K-1, 0 = best);
+    ``valid`` (N,) float32 real-row counts V; ``draws`` sized (N, K, .);
+    ``mparams`` (2,) float32 [rate, sigma]. ``elite_rows`` > 0 makes
+    children 0..e-1 verbatim copies of ranks 0..e-1 (the JAX core's
+    per-deme elites). Returns (N, K, L)."""
+    N, K, L = cohorts.shape
+    dev = cohorts.device
+    rate, sigma = mparams[0], mparams[1]
+    param = resolve_selection(selection, selection_param)
+    x = winner_fraction(selection, param, tournament_size, draws.sel_u)
+    V = valid.reshape(N, 1, 1)
+    wr = winner_ranks(x, V)  # (N, K, 2)
+    row = torch.arange(K, device=dev)
+    if elite_rows:
+        forced = torch.minimum(row.to(torch.float32)[None, :], V[:, :, 0] - 1.0)
+        elite = (row < elite_rows)[None, :, None]
+        wr = torch.where(elite, forced.to(torch.int64)[..., None], wr)
+    row_of_rank = torch.empty_like(ranks, dtype=torch.int64).scatter_(
+        1, ranks.to(torch.int64), row.expand(N, K)
+    )
+    n = torch.arange(N, device=dev)[:, None]
+    p1 = cohorts[n, torch.gather(row_of_rank, 1, wr[..., 0])]
+    p2 = cohorts[n, torch.gather(row_of_rank, 1, wr[..., 1])]
+    child = torch.where(draws.cross.bool(), p2, p1)
+    may_mutate = torch.ones((N, K), dtype=torch.bool, device=dev)
+    if elite_rows:
+        child = torch.where(elite, p1, child)
+        may_mutate = may_mutate & (row >= elite_rows)[None, :]
+    cols = torch.arange(L, device=dev)
+    u = draws.mut_u
+    if mutate == "point":
+        pos = torch.floor(u[..., 0] * L).to(torch.int64)
+        fire = (u[..., 1] < rate) & may_mutate
+        hit = (cols == pos[..., None]) & fire[..., None]
+        child = torch.where(hit, u[..., 2:3], child)
+    elif mutate == "gaussian":
+        gate, u1, u2 = draws.gauss
+        u1 = torch.clamp(u1, 1e-7, 1.0 - 1e-7)
+        two_pi = 2.0 * torch.tensor(math.pi, dtype=torch.float32)
+        normal = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(two_pi * u2)
+        mutated = torch.clamp(child + sigma * normal, 0.0, 1.0 - 1e-7)
+        fire = (gate < rate) & may_mutate[..., None]
+        child = torch.where(fire, mutated, child)
+    elif mutate == "swap":
+        pi = torch.floor(u[..., 0] * L).to(torch.int64)
+        pj = torch.floor(u[..., 1] * L).to(torch.int64)
+        fire = ((u[..., 2] < rate) & may_mutate)[..., None]
+        ohi = cols == pi[..., None]
+        ohj = cols == pj[..., None]
+        gi = torch.sum(torch.where(ohi, child, 0.0), dim=-1, keepdim=True)
+        gj = torch.sum(torch.where(ohj, child, 0.0), dim=-1, keepdim=True)
+        child = torch.where(ohi & fire, gj, child)
+        child = torch.where(ohj & fire, gi, child)
+    else:
+        raise ValueError(f"unknown mutate kind {mutate!r}; one of {MUTATE_KINDS}")
+    return child
+
+
+def fused_scores(obj_id: int, child: torch.Tensor) -> torch.Tensor:
+    """The scores the kernel computes for a fused objective id."""
+    if obj_id == FUSED_ONEMAX:
+        return torch.sum(child, dim=-1)
+    if obj_id == FUSED_ONEMAX_BITS:
+        return torch.sum((child >= 0.5).to(torch.float32), dim=-1)
+    raise ValueError(f"objective id {obj_id} is not fused")
+
+
+def deme_breed_reference(
+    genomes: torch.Tensor,
+    ranks: torch.Tensor,
+    geom: Geometry,
+    parity: int,
+    draws: Draws,
+    *,
+    tournament_size: int = 2,
+    selection: str = "tournament",
+    selection_param: Optional[float] = None,
+    mutate: str = "point",
+    mparams: torch.Tensor,
+    obj_id: int = FUSED_NONE,
+    out: Optional[torch.Tensor] = None,
+):
+    """The plain version of the deme-breed kernel: one generation over
+    all ``G`` demes of ``genomes`` (Pp, L), children placed by the
+    parity's row map. A deme's valid count V is how many of its read
+    rows are real (< P), at least 1: the ping-pong alive-mask sum and
+    the riffle's positional ``max(min(K, P - g*K), 1)`` are both this.
+    Returns ``(children (Pp, L), scores (Pp,) or None)``; scores of pad
+    rows (>= P) are -inf."""
+    read, write = geom.row_maps(parity, genomes.device)
+    valid = torch.clamp((read < geom.P).sum(dim=1), min=1).to(torch.float32)
+    child = breed_children(
+        genomes[read], ranks, valid, draws,
+        tournament_size=tournament_size, selection=selection,
+        selection_param=selection_param, mutate=mutate, mparams=mparams,
+    )
+    if out is None:
+        out = torch.empty_like(genomes)
+    out[write.reshape(-1)] = child.reshape(-1, geom.L)
+    if obj_id == FUSED_NONE:
+        return out, None
+    s = fused_scores(obj_id, child)
+    s = torch.where(write >= geom.P, -torch.inf, s)
+    scores = torch.empty(geom.Pp, device=genomes.device)
+    scores[write.reshape(-1)] = s.reshape(-1)
+    return out, scores
+
+
+def deme_breed(
+    genomes: torch.Tensor,
+    ranks: torch.Tensor,
+    geom: Geometry,
+    parity: int,
+    *,
+    seed: Optional[torch.Tensor] = None,
+    draws: Optional[Draws] = None,
+    out: Optional[torch.Tensor] = None,
+    **kw,
+):
+    """One breed launch. On a CUDA tensor it launches the kernel (and
+    raises if that fails); on a CPU tensor it runs the plain version.
+    Exactly one of ``seed`` (int64 tensor of one element: production
+    Philox mode) or ``draws`` (injected mode) is given."""
+    if (seed is None) == (draws is None):
+        raise ValueError("pass exactly one of seed= or draws=")
+    if genomes.is_cuda:
+        return kernels.deme_breed_cuda(
+            genomes, ranks, geom, parity, seed=seed, draws=draws, out=out,
+            **kw,
+        )
+    if draws is None:
+        draws = philox_draws(
+            seed, geom.G, geom.K, geom.L, kw.get("mutate", "point")
+        )
+    return deme_breed_reference(
+        genomes, ranks, geom, parity, draws, out=out, **kw
+    )
+
+
+def carry_elites(g_prev, s_prev, g2, s2, elitism: int) -> None:
+    """Top-e of the previous generation into rows 0..e-1 of the new
+    one, scores included (``_carry_elites``). Pad rows carry -inf, so
+    they are never elites. Updates ``g2``/``s2`` in place."""
+    top_s, top_i = torch.topk(s_prev, elitism)
+    g2[:elitism] = g_prev[top_i]
+    s2[:elitism] = top_s
+
+
+# ---------------------------------------------------------------------
+# Breed and run loop
+# ---------------------------------------------------------------------
+
+
+def make_fused_breed(
+    pop_size: int,
+    genome_len: int,
+    objective: Callable,
+    *,
+    deme_size: Optional[int] = None,
+    tournament_size: int = 2,
+    selection: str = "tournament",
+    selection_param: Optional[float] = None,
+    mutation_rate: float = 0.01,
+    elitism: int = 0,
+    device="cuda",
+):
+    """One generation of the deme path for a fixed shape and objective,
+    the counterpart of ``make_pallas_breed``'s breed: ranks, one
+    deme-breed launch (point mutation), unfused scoring where the
+    objective has no fused id, elitism. Returns ``breed(genomes (Pp, L),
+    scores (Pp,), parity, generator, out=None) -> (genomes, scores)``,
+    both in physical row order; children go into ``out`` when given
+    (never ``genomes`` itself). ``breed.geom`` is the geometry."""
+    obj_id = getattr(objective, "fused_id", FUSED_NONE)
+    geom = resolve_geometry(
+        pop_size, genome_len, deme_size=deme_size,
+        tournament_size=tournament_size, selection=selection,
+        selection_param=selection_param, fused=obj_id != FUSED_NONE,
+    )
+    if geom is None:
+        raise ValueError(
+            f"no deme geometry for {pop_size}x{genome_len}: the deme path"
+            " needs >= 128 rows, a padded tail of >= K/4 rows and"
+            " tournament_size in 1..16 (the XLA panmictic path is not"
+            " ported)"
+        )
+    kw = dict(
+        tournament_size=tournament_size, selection=selection,
+        selection_param=selection_param, mutate="point", obj_id=obj_id,
+        mparams=torch.tensor([mutation_rate, 0.0], device=device),
+    )
+
+    def breed(genomes, scores, parity, generator, out=None):
+        tie = draw_tie_words(generator, geom.Pp, genomes.device)
+        ranks = compute_ranks(scores, geom, parity, tie)
+        seed = torch.randint(
+            0, 2**63 - 1, (1,), generator=generator, device=genomes.device,
+        )
+        g2, s2 = deme_breed(genomes, ranks, geom, parity, seed=seed, out=out, **kw)
+        if s2 is None:
+            s2 = torch.full((geom.Pp,), -torch.inf, device=genomes.device)
+            s2[: geom.P] = evaluate(objective, g2[: geom.P])
+        if elitism:
+            carry_elites(genomes, scores, g2, s2, elitism)
+        return g2, s2
+
+    breed.geom = geom
+    return breed
+
+
+def make_fused_run(pop_size: int, genome_len: int, objective: Callable, **kw):
+    """The run loop of ``make_pallas_run``: pad once to Pp, score the
+    initial population, alternate the parity by generation, and check
+    the target before every breed, so the generation that reaches it is
+    the one returned. ``kw`` goes to :func:`make_fused_breed`. Returns
+    ``run(genomes (P, L), n, target, generator) -> (genomes (P, L),
+    scores (P,), gens)``.
+
+    Without a target no score leaves the device during the loop (JAX's
+    loop also stops on a NaN best score even without a target; the port
+    checks only when a target is given)."""
+    breed = make_fused_breed(pop_size, genome_len, objective, **kw)
+    geom = breed.geom
+
+    def run(genomes, n, target, generator):
+        P, Pp, L = geom.P, geom.Pp, geom.L
+        g = torch.zeros((Pp, L), device=genomes.device)
+        g[:P] = genomes
+        s = torch.full((Pp,), -torch.inf, device=genomes.device)
+        s[:P] = evaluate(objective, genomes)
+        spare = torch.empty_like(g)
+        gens = 0
+        while gens < n:
+            if target is not None and not s.max().item() < target:
+                break
+            g2, s = breed(g, s, gens % geom.parities, generator, out=spare)
+            spare, g = g, g2
+            gens += 1
+        return g[:P], s[:P], gens
+
+    return run
