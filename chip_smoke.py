@@ -18,7 +18,25 @@ Phases, each printing one line; any failure exits non-zero:
   5. PGA.run through the public pga_* API at 1,048,576x100 and
      40,000x100 OneMax: launches must equal generations and the best
      score must rise; a target run must stop at the exact generation.
-     Then a torch.profiler window: device time per generation by kernel.
+     Then a torch.profiler window: device time per generation by kernel;
+  6. gp_compare: the GP evaluator kernel (csrc/gp_eval.cu) against its
+     plain torch version on the same inputs, in both modes (compacted
+     programs, B2; raw genomes with static trips, B2'), at the main
+     shape (65,536 programs x 32 tokens x 1,024 samples; the plain
+     version on a fixed 8,192-row slice that holds the longest programs)
+     and the bench shape (1,024 x 16 x 64), for two knob settings and
+     both dispatch modes of the plain version, on well-formed, noise and
+     overflow populations: within GP_TOL, -inf where the plain version
+     has -inf. Times both with CUDA events beside the bound;
+  7. gp_run: PGA.run symbolic regression of Nguyen-12 at the main shape
+     through the public API (symbolic_regression, subtree crossover,
+     gp_mutate, install_population of random programs): evaluator
+     launches must equal evaluations, the deme kernel must not launch,
+     and the best and the median -RMSE must rise; then a
+     torch.profiler window; then the same path with
+     GPConfig(optimize=False), which scores through B2'; then the
+     exact-recovery target run of tools/gp_smoke.py's configuration,
+     which must stop at score 0.0.
 Then one JSON line of per-kernel numbers, the card's name and power
 limit, and last the result line.
 """
@@ -42,12 +60,29 @@ REPLACES = {
 RUN_GENS = 200
 WARMUP_GENS = 5
 PROFILE_GENS = 20
+GP_TOL = 1e-5  # rtol = atol: the sums over samples run in another order
+GP_SHAPES = {"main": (65_536, 32, 1024), "bench": (1024, 16, 64)}  # P, T, B
+GP_PLAIN_ROWS = 8192
+GP_REPLACES = {
+    "opt": "libpga_tpu/ops/gp_eval.py:334",  # kernel_opt
+    "static": "libpga_tpu/ops/gp_eval.py:309",  # kernel
+}
+GP_RUN_GENS = 20
+GP_STATIC_RUN_GENS = 5
+GP_PROFILE_GENS = 3
 # Philox statistics bands (n ~ 1e6 children, 1e8 genes): the standard
 # errors are ~2e-4 or smaller, so these bands are > 5 sigma wide.
 MEAN_RANK_BAND = (1 / 3 - 0.004, 1 / 3 + 0.002)  # E = 1/3 - O(1/K)
 CROSS_BAND = (0.495, 0.505)
 MUTATION_RATE = 0.01
 MUTATION_BAND = (0.0095, 0.0105)
+
+
+def nguyen12(a, b):
+    """Nguyen-12 (Uy et al., 2011), the gp_run target: no random program
+    of 32 tokens over the default function set holds it, so the best
+    score must climb."""
+    return a**4 - a**3 + 0.5 * b**2 - b
 
 
 class SmokeError(RuntimeError):
@@ -202,8 +237,8 @@ def phase_philox_stats(fs, device):
     check(MUTATION_BAND[0] <= mutated <= MUTATION_BAND[1], f"mutation rate {mutated}")
 
 
-def profile_generations(port, pga, wall_ms_per_gen: float) -> dict:
-    """Device time per generation, by kernel, over PROFILE_GENS more
+def profile_generations(port, pga, wall_ms_per_gen: float, gens: int = PROFILE_GENS) -> dict:
+    """Device time per generation, by kernel, over ``gens`` more
     generations under torch.profiler, and the device's busy share: that
     time over the unprofiled wall time per generation."""
     import torch
@@ -211,19 +246,19 @@ def profile_generations(port, pga, wall_ms_per_gen: float) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        port.pga_run(pga, PROFILE_GENS)
+        port.pga_run(pga, gens)
         torch.cuda.synchronize()
     # Device-side events only (kernels, copies): the host-side aten op
     # that launched a kernel carries the same device time again.
     rows = sorted(
-        ((e.key, e.self_device_time_total / 1e3 / PROFILE_GENS)
+        ((e.key, e.self_device_time_total / 1e3 / gens)
          for e in prof.key_averages()
          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
         key=lambda r: -r[1],
     )
     device_ms = sum(ms for _, ms in rows)
     return {
-        "profiled_gens": PROFILE_GENS,
+        "profiled_gens": gens,
         "device_ms_per_gen": device_ms if rows else "not measured",
         "device_busy_share": device_ms / wall_ms_per_gen if rows else "not measured",
         "top_device_ms_per_gen": [[name[:70], ms] for name, ms in rows[:8]],
@@ -285,6 +320,179 @@ def phase_run(port, kernels, results):
                       "gens": gens, "best": best, "best_one_gen_earlier": prev}), flush=True)
     check(0 < gens < 10_000 and best >= target > prev, "target early stop")
 
+def gp_populations(gpmod, P, T, gen, device):
+    """(name, GPConfig, genomes) on the card: random well-formed programs
+    of the default function set, uniform-noise genes (the skip rule), and
+    programs of the full function set with exp chains planted in every
+    eighth row (the -inf path)."""
+    import torch
+
+    gp = gpmod.GPConfig(max_nodes=T, n_vars=2)
+    full = gpmod.GPConfig(
+        max_nodes=T, n_vars=2, unary=("neg", "sin", "cos", "sqrt", "abs", "exp", "log"),
+        binary=("add", "sub", "mul", "div", "min", "max"),
+    )
+    over = gpmod.random_population(gen, P, full)
+    chain = torch.from_numpy(gpmod.encode_program([("var", 0)] + ["exp"] * 5, full)).to(device)
+    over[::8] = chain
+    return [
+        ("well_formed", gp, gpmod.random_population(gen, P, gp)),
+        ("noise", gp, torch.rand((P, 2 * T), generator=gen, device=device)),
+        ("overflow", full, over),
+    ]
+
+
+def phase_gp_compare(device, results):
+    """The GP evaluator kernel against its plain version, both modes, at
+    the main and bench shapes; times at the default knobs."""
+    import torch
+
+    from libpga_tpu_torch import gp as gpmod
+    from libpga_tpu_torch.gp.encoding import program_structure
+    from libpga_tpu_torch.ops import gp_eval as ge
+
+    for shape, (P, T, B) in GP_SHAPES.items():
+        X, y = gpmod.make_dataset(lambda a, b: a * b + a, n_samples=B, n_vars=2, seed=0)
+        xt = torch.from_numpy(X.T.copy()).to(device)
+        yt = torch.from_numpy(y).to(device)
+        gen = torch.Generator(device=device).manual_seed(P + T)
+        for pop_name, gp, g in gp_populations(gpmod, P, T, gen, device):
+            prog = gpmod.optimize_for_eval(g, gp)
+            live = program_structure(g, gp).length
+            # The plain version covers every row at the bench shape, and
+            # at the main shape a fixed slice: the 4,096 longest programs
+            # and the first rows.
+            if P > GP_PLAIN_ROWS:
+                key = prog.length * (T + 1) + live
+                longest = torch.topk(key, GP_PLAIN_ROWS // 2).indices
+                rest = torch.ones(P, dtype=torch.bool, device=device)
+                rest[longest] = False
+                idx = torch.cat([longest, torch.nonzero(rest)[: GP_PLAIN_ROWS // 2, 0]])
+            else:
+                idx = torch.arange(P, device=device)
+            sub_prog = gpmod.EvalProgram(prog.ops[idx], prog.args[idx], prog.length[idx])
+            for mode in ("opt", "static"):
+                errs, neg_inf = [], 0
+                for knobs in ({}, {"stack_depth": 2 * T, "opcode_block": 4}):
+                    fn = ge.make_gp_eval(gp, X, y, optimize=mode == "opt", **knobs)
+                    got = fn(prog if mode == "opt" else g)[idx]
+                    for dispatch in ("dense", "blocked"):
+                        want = ge.gp_eval_reference(
+                            sub_prog if mode == "opt" else g[idx], xt, yt, gp,
+                            dispatch=dispatch, **knobs,
+                            **({"seg_rows": 1024} if mode == "opt" else {}),
+                        )
+                        torch.cuda.synchronize()
+                        check(torch.equal(torch.isinf(got), torch.isinf(want)),
+                              f"gp {shape} {pop_name} {mode} {knobs} {dispatch}: -inf rows differ")
+                        check(not bool(torch.isnan(got).any()), f"gp {shape} {pop_name} {mode}: NaN score")
+                        fin = torch.isfinite(want)
+                        close = torch.isclose(got[fin], want[fin], rtol=GP_TOL, atol=GP_TOL)
+                        err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+                        check(bool(close.all()), f"gp {shape} {pop_name} {mode} {knobs} {dispatch}: error {err}")
+                        errs.append(err)
+                        neg_inf = int(torch.isinf(want).sum())
+                line = {"phase": "gp_compare", "shape": shape, "P": P, "T": T, "B": B,
+                        "population": pop_name, "mode": mode, "compared_rows": int(idx.numel()),
+                        "max_abs_err": max(errs), "tol": GP_TOL, "neg_inf_rows": neg_inf,
+                        "mean_live_length": float(
+                            (prog.length if mode == "opt" else live).float().mean())}
+                r = results.setdefault(mode, {})
+                r["max_abs_err"] = max(r.get("max_abs_err", 0.0), max(errs))
+                if pop_name == "well_formed":
+                    fn = ge.make_gp_eval(gp, X, y, optimize=mode == "opt")
+                    arg = prog if mode == "opt" else g
+                    ms = cuda_ms(lambda: fn(arg), 20)
+                    if mode == "opt":
+                        plain = lambda: ge.gp_eval_reference(prog, xt, yt, gp, seg_rows=8192)  # noqa: E731
+                    else:
+                        plain = lambda: ge.gp_eval_reference(g, xt, yt, gp)  # noqa: E731
+                    plain_ms = cuda_ms(plain, 2)
+                    n = ge.token_counts(prog if mode == "opt" else g, gp)
+                    cost = ge.gp_plan_cost(fn.plan(P), P, gp, B, live_tokens=n["live"],
+                                           function_tokens=n["functions"],
+                                           optimize=mode == "opt")
+                    line.update(kernel_ms=ms, plain_ms=plain_ms, bound_ms=1e3 * cost["bound_s"],
+                                bound_by=cost["bound_by"], bound_bytes=cost["bytes"],
+                                bound_operations=cost["operations"],
+                                mean_function_tokens=n["functions"] / P, plan=fn.plan(P))
+                    r[shape] = dict(ms=ms, plain_ms=plain_ms, bound_ms=1e3 * cost["bound_s"],
+                                    bound_by=cost["bound_by"],
+                                    mean_live_length=line["mean_live_length"],
+                                    mean_function_tokens=n["functions"] / P)
+                print(json.dumps(line), flush=True)
+
+
+def gp_solver(port, gpmod, gp, P, X, y, seed, **config):
+    """A PGA set up for symbolic regression through the public API."""
+    import torch
+
+    pga = port.PGA(seed=seed, config=port.PGAConfig(**config))
+    pga.set_objective(gpmod.symbolic_regression(X, y, gp=gp))
+    pga.set_crossover(gpmod.make_subtree_crossover(gp))
+    pga.set_mutate(gpmod.make_gp_mutate(gp))
+    gen = torch.Generator(device=pga.device).manual_seed(seed)
+    h = pga.install_population(gpmod.random_population(gen, P, gp))
+    return pga, h
+
+
+def phase_gp_run(port, kernels, results):
+    """PGA.run symbolic regression of Nguyen-12 at the main shape; then
+    with the optimizer off (B2'); then the exact-recovery target run."""
+    import torch
+
+    from libpga_tpu_torch import gp as gpmod
+
+    P, T, B = GP_SHAPES["main"]
+    X, y = gpmod.make_dataset(nguyen12, n_samples=B, n_vars=2, seed=0)
+    for mode, optimize in (("opt", True), ("static", False)):
+        gp = gpmod.GPConfig(max_nodes=T, n_vars=2, optimize=optimize)
+        pga, h = gp_solver(port, gpmod, gp, P, X, y, seed=3, selection="truncation", elitism=2)
+        check(not pga.uses_deme_kernel(P, 2 * T), "GP run would take the deme kernel")
+        start = pga._objective.rows(pga.population(h).genomes)
+        start_best = float(start.max())
+        start_median = float(start.median())
+        gens = GP_RUN_GENS if optimize else GP_STATIC_RUN_GENS
+        check(pga.run(1) == 1, "gp warm-up")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        check(pga.run(gens) == gens, f"gp {mode}: generations")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        _, best = pga.get_best_with_score(h)
+        median = float(pga.population(h).scores.median())
+        live = gpmod.mean_live_length(pga.population(h).genomes, gp)
+        line = {"phase": "gp_run", "mode": mode, "shape": [P, T, B], "gens": gens,
+                "launches": launches, "ms_per_gen": 1e3 * seconds / gens,
+                "gens_per_s": gens / seconds, "start_best": start_best, "best": best,
+                "start_median": start_median, "median": median,
+                "mean_live_length_end": live}
+        print(json.dumps(line), flush=True)
+        key = f"gp_eval_{mode}"
+        check(launches[key] == gens + 1, f"gp {mode}: {launches[key]} evaluator launches for {gens + 1} evaluations")
+        check(sum(launches.values()) == gens + 1, f"gp {mode}: other kernels launched {launches}")
+        check(best > start_best, f"gp {mode}: best {start_best} -> {best}")
+        check(median > start_median, f"gp {mode}: median {start_median} -> {median}")
+        results.setdefault(mode, {})["launches"] = launches[key]
+        if optimize:
+            print(json.dumps({"phase": "gp_profile", "shape": [P, T, B], **profile_generations(
+                port, pga, 1e3 * seconds / gens, GP_PROFILE_GENS)}), flush=True)
+        port.pga_deinit(pga)
+
+    # Exact recovery (tools/gp_smoke.py's configuration) stops at 0.0.
+    gp = gpmod.GPConfig(max_nodes=8, n_vars=2, consts=(1.0, 2.0), unary=("neg",),
+                        binary=("add", "sub", "mul"))
+    X, y = gpmod.make_dataset(lambda a, b: a * a + b, n_samples=32, n_vars=2, seed=0)
+    pga, h = gp_solver(port, gpmod, gp, 128, X, y, seed=0, selection="truncation", elitism=2)
+    pga.set_mutate(gpmod.make_gp_mutate(gp, 0.4, 0.6))
+    gens = pga.run(200, target=0.0)
+    best_g, best = pga.get_best_with_score(h)
+    print(json.dumps({"phase": "gp_target", "gens": gens, "best": best,
+                      "expression": gpmod.decode_expression(best_g, gp)}), flush=True)
+    check(gens < 200 and best == 0.0, f"gp exact recovery: {gens} generations, best {best}")
+
 
 def main() -> int:
     import torch
@@ -317,6 +525,9 @@ def main() -> int:
     phase_compare(fs, onemax, device, results)
     phase_philox_stats(fs, device)
     phase_run(port, kernels, results)
+    gp_results = {}
+    phase_gp_compare(device, gp_results)
+    phase_gp_run(port, kernels, gp_results)
 
     entries = []
     for layout, r in results.items():
@@ -326,6 +537,19 @@ def main() -> int:
             "replaces": REPLACES[layout], "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+        })
+    for mode, r in gp_results.items():
+        main_r, bench_r = r["main"], r["bench"]
+        entries.append({
+            "name": f"gp_eval[{mode}]", "route": "cuda",
+            "source": "libpga_tpu_torch/csrc/gp_eval.cu",
+            "replaces": GP_REPLACES[mode], "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": main_r["ms"], "plain_ms": main_r["plain_ms"],
+            "bound_ms": main_r["bound_ms"], "bound_by": main_r["bound_by"], "library_ms": None,
+            "mean_live_length": main_r["mean_live_length"],
+            "mean_function_tokens": main_r["mean_function_tokens"],
+            "bench_shape": {k: bench_r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "mean_live_length", "mean_function_tokens")},
         })
     print(json.dumps({"kernels": entries}))
     print(smi)

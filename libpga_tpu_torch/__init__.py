@@ -1,9 +1,13 @@
 """libpga_tpu_torch: the PyTorch / CUDA port of libpga_tpu for one
 NVIDIA H100.
 
-This slice runs ``PGA.run`` on float32 genomes through one hand-written
-CUDA kernel per generation (``csrc/deme_breed.cu``). The JAX package
-``libpga_tpu`` stays the reference; nothing here imports it or JAX.
+``PGA.run`` on float32 genomes launches one hand-written CUDA kernel per
+generation (``csrc/deme_breed.cu``), or takes the panmictic path (whole-
+population selection and operators in torch) for small populations and
+set operators. GP symbolic regression (``libpga_tpu_torch.gp``) runs on
+the panmictic path and scores every generation with one launch of the
+stack-machine kernel ``csrc/gp_eval.cu``. The JAX package ``libpga_tpu``
+stays the reference; nothing here imports it or JAX.
 """
 
 from libpga_tpu_torch.api import (

@@ -1,7 +1,7 @@
 """Runtime configuration of the PyTorch port.
 
-The subset of ``libpga_tpu.config.PGAConfig`` that ``PGA.run`` reads on
-the fused deme path, plus the device the solver runs on. Field names
+The subset of ``libpga_tpu.config.PGAConfig`` that ``PGA.run`` reads,
+plus the device the solver runs on. Field names
 match the JAX package except ``deme_size``, which is the JAX package's
 ``pallas_deme_size`` (rows per selection deme; on the GPU it fixes which
 rows form a cohort, not a VMEM block).
@@ -38,6 +38,10 @@ class PGAConfig:
         one from OS entropy.
       device: "cuda" (default) or "cpu". There is no automatic CPU
         fallback: a missing card is an error, not a slower run.
+      use_deme_kernel: True (default) lets ``PGA.run`` take the fused
+        deme path where its geometry admits the shape and no operator is
+        set; False always takes the panmictic path. This is the JAX
+        package's ``use_pallas`` (its None, "auto", is True here).
     """
 
     tournament_size: int = 2
@@ -49,6 +53,7 @@ class PGAConfig:
     gene_dtype: torch.dtype = torch.float32
     seed: Optional[int] = None
     device: str = "cuda"
+    use_deme_kernel: bool = True
 
     def __post_init__(self):
         if not 1 <= self.tournament_size <= 16:

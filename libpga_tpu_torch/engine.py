@@ -1,10 +1,21 @@
 """The solver: the subset of ``libpga_tpu.engine.PGA`` that drives
-``PGA.run`` on the fused deme path.
+``PGA.run``.
 
-Every generation of ``run`` is one launch of the deme-breed kernel
-(``ops/fused_step.py``) on the card, or its plain version when the
-solver's device is the CPU. There is no fallback between the two: the
-device is the config's, and a missing card is an error.
+``run`` takes one of two loops, as the JAX package does:
+
+- the fused deme path (``ops/fused_step.py``): every generation is one
+  launch of the deme-breed kernel on the card, or its plain version when
+  the solver's device is the CPU;
+- the panmictic path (:func:`make_run_loop`, ``ops/step.py``): whole-
+  population selection, then the crossover and mutation operators in
+  plain torch, then the objective (for GP, the evaluator kernel). It
+  runs when a crossover or mutation operator is set, when
+  ``PGAConfig.use_deme_kernel`` is False (JAX's ``use_pallas=False``),
+  or when the deme geometry declines the shape (under 128 rows, or only
+  degenerate padded fits).
+
+There is no fallback between device and CPU: the device is the
+config's, and a missing card is an error.
 """
 
 from __future__ import annotations
@@ -17,8 +28,28 @@ import numpy as np
 import torch
 
 from libpga_tpu_torch.config import PGAConfig
-from libpga_tpu_torch.ops.fused_step import make_fused_run
+from libpga_tpu_torch.ops.crossover import uniform_crossover
+from libpga_tpu_torch.ops.evaluate import evaluate
+from libpga_tpu_torch.ops.fused_step import make_fused_run, resolve_geometry
+from libpga_tpu_torch.ops.mutate import make_point_mutate
+from libpga_tpu_torch.ops.step import make_breed, run_generations
 from libpga_tpu_torch.population import Population, create_population
+
+
+def make_run_loop(obj: Callable, breed: Callable) -> Callable:
+    """The panmictic run loop (``libpga_tpu/engine.py:191-207``): score
+    generation 0, then breed and score, stopping at the first generation
+    whose best reaches the target or is NaN. Returns ``run(genomes, n,
+    target, generator) -> (genomes, scores, gens)``."""
+
+    def run(genomes, n, target, generator):
+        def step(g, s, gen):
+            g2 = breed(g, s, generator)
+            return g2, evaluate(obj, g2)
+
+        return run_generations(step, genomes, evaluate(obj, genomes), n, target)
+
+    return run
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,8 +70,8 @@ class PGA:
         pga.run(100)
         best = pga.get_best(pop)
 
-    ``launches`` counts the breed launches this solver issued (one per
-    generation run).
+    ``launches`` counts the deme-breed launches this solver issued (one
+    per generation on the deme path; the panmictic path launches none).
     """
 
     def __init__(self, seed: Optional[int] = None, config: Optional[PGAConfig] = None):
@@ -59,7 +90,9 @@ class PGA:
         self.generator.manual_seed(seed)
         self._populations: list = []
         self._objective: Optional[Callable] = None
-        self._runs: Dict[Tuple[int, int], Callable] = {}
+        self._crossover: Optional[Callable] = None
+        self._mutate: Optional[Callable] = None
+        self._runs: Dict[Tuple[int, int], Tuple[Callable, bool]] = {}
         self.launches = 0
 
     # ----------------------------------------------------------- populations
@@ -113,6 +146,22 @@ class PGA:
         self._objective = fn
         self._runs.clear()
 
+    def set_crossover(self, fn: Optional[Callable]) -> None:
+        """Crossover ``(p1, p2, rand) -> child`` with ``.batched`` and
+        ``.rand_cols`` (e.g. ``gp.make_subtree_crossover``); None restores
+        the default uniform crossover. Setting one routes ``run`` to the
+        panmictic path."""
+        self._crossover = fn
+        self._runs.clear()
+
+    def set_mutate(self, fn: Optional[Callable]) -> None:
+        """Mutation ``(genome, rand) -> genome`` with ``.batched`` and
+        ``.rand_cols`` (e.g. ``gp.make_gp_mutate``); None restores the
+        default point mutation at ``config.mutation_rate``. Setting one
+        routes ``run`` to the panmictic path."""
+        self._mutate = fn
+        self._runs.clear()
+
     def _require_objective(self) -> Callable:
         if self._objective is None:
             raise RuntimeError(
@@ -122,17 +171,44 @@ class PGA:
 
     # ------------------------------------------------------------------- run
 
-    def _run_fn(self, size: int, genome_len: int) -> Callable:
+    def uses_deme_kernel(self, size: int, genome_len: int) -> bool:
+        """Whether ``run`` takes the deme path for this shape (else the
+        panmictic path; see the module docstring)."""
+        c = self.config
+        return (
+            self._crossover is None and self._mutate is None
+            and c.use_deme_kernel
+            and resolve_geometry(
+                size, genome_len, deme_size=c.deme_size,
+                tournament_size=c.tournament_size, selection=c.selection,
+                selection_param=c.selection_param,
+            ) is not None
+        )
+
+    def _run_fn(self, size: int, genome_len: int) -> Tuple[Callable, bool]:
         key = (size, genome_len)
         if key not in self._runs:
             c = self.config
-            self._runs[key] = make_fused_run(
-                size, genome_len, self._require_objective(),
-                deme_size=c.deme_size, tournament_size=c.tournament_size,
-                selection=c.selection, selection_param=c.selection_param,
-                mutation_rate=c.mutation_rate, elitism=c.elitism,
-                device=self.device,
-            )
+            obj = self._require_objective()
+            deme = self.uses_deme_kernel(size, genome_len)
+            if deme:
+                fn = make_fused_run(
+                    size, genome_len, obj,
+                    deme_size=c.deme_size, tournament_size=c.tournament_size,
+                    selection=c.selection, selection_param=c.selection_param,
+                    mutation_rate=c.mutation_rate, elitism=c.elitism,
+                    device=self.device,
+                )
+            else:
+                fn = make_run_loop(obj, make_breed(
+                    self._crossover or uniform_crossover,
+                    self._mutate or make_point_mutate(c.mutation_rate),
+                    tournament_size=c.tournament_size,
+                    selection_kind=c.selection,
+                    selection_param=c.selection_param,
+                    elitism=c.elitism,
+                ))
+            self._runs[key] = (fn, deme)
         return self._runs[key]
 
     def run(
@@ -142,16 +218,17 @@ class PGA:
         population: Optional[PopulationHandle] = None,
     ) -> int:
         """Run up to ``n`` generations on the first population (or
-        ``population``). Stops as soon as a generation's best score
-        reaches ``target``; that generation is the one kept. Returns the
-        number of generations run."""
+        ``population``). Stops at the first generation whose best score
+        reaches ``target`` or is NaN; that generation is the one kept.
+        Returns the number of generations run."""
         self._require_objective()
         handle = population or PopulationHandle(0)
         pop = self._populations[handle.index]
-        fn = self._run_fn(pop.size, pop.genome_len)
+        fn, deme = self._run_fn(pop.size, pop.genome_len)
         genomes, scores, gens = fn(pop.genomes, int(n), target, self.generator)
         self._populations[handle.index] = Population(genomes=genomes, scores=scores)
-        self.launches += gens
+        if deme:
+            self.launches += gens
         return gens
 
     # -------------------------------------------------------- best extraction

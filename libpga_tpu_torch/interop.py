@@ -1,10 +1,14 @@
-"""Carry a population across from the JAX package.
+"""Carry state across from the JAX package.
 
-A GA's state is its population. ``state_from_numpy`` takes
+A GA has no weights: its state is its population (genomes and scores)
+and, for GP, the encoding and the dataset. ``state_from_numpy`` takes
 ``np.asarray(pga.population(h).genomes)`` (and optionally the scores)
 from a ``libpga_tpu`` solver and returns the port's
 :class:`~libpga_tpu_torch.population.Population`, which
-``PGA.install_population`` accepts. Only numpy crosses the boundary.
+``PGA.install_population`` accepts; ``gp_config_from_fields`` rebuilds a
+``GPConfig`` from any object with its fields; ``eval_program_from_numpy``
+takes a compacted program as three arrays. Only numpy and plain Python
+values cross the boundary.
 """
 
 from __future__ import annotations
@@ -14,7 +18,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from libpga_tpu_torch.gp.encoding import GPConfig
+from libpga_tpu_torch.gp.optimize import EvalProgram
 from libpga_tpu_torch.population import Population
+
+GP_FIELDS = (
+    "max_nodes", "n_vars", "consts", "unary", "binary", "min_nodes",
+    "stack_depth", "opcode_block", "optimize", "dispatch",
+)
 
 
 def state_from_numpy(
@@ -34,4 +45,23 @@ def state_from_numpy(
     return Population(
         genomes=torch.from_numpy(g.copy()).to(device),
         scores=torch.from_numpy(s.copy()).to(device),
+    )
+
+
+def gp_config_from_fields(obj) -> GPConfig:
+    """The port's :class:`GPConfig` with the field values of ``obj`` (for
+    example the JAX package's ``GPConfig``)."""
+    kw = {f: getattr(obj, f) for f in GP_FIELDS}
+    for f in ("consts", "unary", "binary"):
+        kw[f] = tuple(kw[f])
+    return GPConfig(**kw)
+
+
+def eval_program_from_numpy(ops, args, length, device="cuda") -> EvalProgram:
+    """A compacted program from its three arrays: ``ops`` (P, T) int32
+    over the extended table, ``args`` (P, T) float32, ``length`` (P,)."""
+    return EvalProgram(
+        ops=torch.from_numpy(np.array(ops, np.int32)).to(device),
+        args=torch.from_numpy(np.array(args, np.float32)).to(device),
+        length=torch.from_numpy(np.array(length, np.int32)).to(device),
     )

@@ -10,5 +10,15 @@ import torch
 
 
 def evaluate(obj: Callable[[torch.Tensor], torch.Tensor], genomes: torch.Tensor) -> torch.Tensor:
-    """Score every row of ``genomes``; returns ``(pop,)`` float32."""
-    return obj(genomes.to(torch.float32)).to(torch.float32)
+    """Score every row of ``genomes``; returns ``(pop,)`` float32.
+
+    An objective with a whole-population ``.rows`` form is scored through
+    it, after its ``.prepare_eval`` hook where it has one (the GP
+    objective compacts programs into a transient ``EvalProgram`` there;
+    the stored genomes are untouched)."""
+    genomes = genomes.to(torch.float32)
+    rows = getattr(obj, "rows", None)
+    if rows is None:
+        return obj(genomes).to(torch.float32)
+    prep = getattr(obj, "prepare_eval", None)
+    return rows(genomes if prep is None else prep(genomes)).to(torch.float32)

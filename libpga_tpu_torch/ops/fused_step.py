@@ -46,6 +46,7 @@ from libpga_tpu_torch.objectives.classic import (
 )
 from libpga_tpu_torch.ops import kernels
 from libpga_tpu_torch.ops.evaluate import evaluate
+from libpga_tpu_torch.ops.step import run_generations
 from libpga_tpu_torch.ops.select import (
     resolve_selection,
     winner_fraction,
@@ -640,8 +641,8 @@ def make_fused_breed(
         raise ValueError(
             f"no deme geometry for {pop_size}x{genome_len}: the deme path"
             " needs >= 128 rows, a padded tail of >= K/4 rows and"
-            " tournament_size in 1..16 (the XLA panmictic path is not"
-            " ported)"
+            " tournament_size in 1..16 (PGA.run takes the panmictic path"
+            " there)"
         )
     kw = dict(
         tournament_size=tournament_size, selection=selection,
@@ -669,15 +670,15 @@ def make_fused_breed(
 
 def make_fused_run(pop_size: int, genome_len: int, objective: Callable, **kw):
     """The run loop of ``make_pallas_run``: pad once to Pp, score the
-    initial population, alternate the parity by generation, and check
-    the target before every breed, so the generation that reaches it is
-    the one returned. ``kw`` goes to :func:`make_fused_breed`. Returns
-    ``run(genomes (P, L), n, target, generator) -> (genomes (P, L),
-    scores (P,), gens)``.
+    initial population, alternate the parity by generation, and stop at
+    the first generation whose best score reaches the target or is NaN
+    (``ops/step.run_generations``), which is the one returned. ``kw``
+    goes to :func:`make_fused_breed`. Returns ``run(genomes (P, L), n,
+    target, generator) -> (genomes (P, L), scores (P,), gens)``.
 
-    Without a target no score leaves the device during the loop (JAX's
-    loop also stops on a NaN best score even without a target; the port
-    checks only when a target is given)."""
+    The children of a generation go to the buffer that held the one
+    before, so the previous generation is intact when its stop flag is
+    read, one generation late."""
     breed = make_fused_breed(pop_size, genome_len, objective, **kw)
     geom = breed.geom
 
@@ -687,14 +688,14 @@ def make_fused_run(pop_size: int, genome_len: int, objective: Callable, **kw):
         g[:P] = genomes
         s = torch.full((Pp,), -torch.inf, device=genomes.device)
         s[:P] = evaluate(objective, genomes)
-        spare = torch.empty_like(g)
-        gens = 0
-        while gens < n:
-            if target is not None and not s.max().item() < target:
-                break
-            g2, s = breed(g, s, gens % geom.parities, generator, out=spare)
-            spare, g = g, g2
-            gens += 1
+        spare = [torch.empty_like(g)]
+
+        def step(g, s, gen):
+            g2, s2 = breed(g, s, gen % geom.parities, generator, out=spare[0])
+            spare[0] = g
+            return g2, s2
+
+        g, s, gens = run_generations(step, g, s, n, target)
         return g[:P], s[:P], gens
 
     return run

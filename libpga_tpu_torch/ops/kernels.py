@@ -7,8 +7,10 @@ loaded with ``ctypes``. The library goes into ``libpga_tpu_torch/_build/``
 source, so an edited source is rebuilt. Nothing here runs at import
 time: this module imports on machines without ``nvcc`` or a card.
 
-``LAUNCHES`` counts kernel launches by row-map layout; a wrapper adds
-one where it launches its kernel and nowhere else.
+``LAUNCHES`` counts kernel launches: the deme breed by row-map layout,
+the GP evaluator by mode (compacted programs, or raw genomes with static
+trips). A wrapper adds one where it launches its kernel and nowhere
+else.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # selection arithmetic rounds exactly as the plain torch version does.
 NVCC_FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {"pingpong": 0, "riffle": 0}
+LAUNCHES = {"pingpong": 0, "riffle": 0, "gp_eval_opt": 0, "gp_eval_static": 0}
 
 SEL_IDS = {"tournament": 0, "truncation": 1, "linear_rank": 2}
 MUTATE_IDS = {"point": 0, "gaussian": 1, "swap": 2}
@@ -89,25 +91,52 @@ def build_all(verbose: bool = False) -> None:
             fut.result()
 
 
-def _library(name: str = "deme_breed") -> ctypes.CDLL:
+def _bindings() -> dict:
+    """ctypes signatures of each source's C entry points: source name ->
+    {function: (argtypes, restype)}. Pointers and the stream are
+    ``c_void_p`` (a plain int would be cut to 32 bits)."""
+    p, i, f, s = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_char_p
+    return {
+        "deme_breed": {
+            "deme_breed_launch": ([
+                p, p, p, p, p,          # gin, gout, sout, ranks, mparams
+                p, p, p, p, p,          # sel_u, cross, mut_u, gauss, seed
+                i, i, i, i, i,          # P, Pp, L, K, G
+                i, i, i, i,             # mode, S, D, q
+                i, i, f,                # sel kind, tournament size, sel param
+                i, i,                   # mutate kind, objective id
+                p,                      # stream
+            ], i),
+            "deme_breed_error_string": ([i], s),
+        },
+        "gp_eval": {
+            "gp_eval_launch": ([
+                p, p, p, p,             # genomes, ops, args, length
+                p, p, p, p, p,          # xt, y, consts, fids, out
+                i, i, i, i, i, i, i,    # P, T, B, n_vars, n_consts, n_ops, S
+                i, i, i,                # tpp, ppb, shared-memory bytes
+                p,                      # stream
+            ], i),
+            "gp_eval_error_string": ([i], s),
+        },
+    }
+
+
+def _library(name: str) -> ctypes.CDLL:
     if name in _libs:
         return _libs[name]
     lib = ctypes.CDLL(str(build(name)))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.deme_breed_launch.argtypes = [
-        p, p, p, p, p,          # gin, gout, sout, ranks, mparams
-        p, p, p, p, p,          # sel_u, cross, mut_u, gauss, seed
-        i, i, i, i, i,          # P, Pp, L, K, G
-        i, i, i, i,             # mode, S, D, q
-        i, i, f,                # sel kind, tournament size, sel param
-        i, i,                   # mutate kind, objective id
-        p,                      # stream
-    ]
-    lib.deme_breed_launch.restype = ctypes.c_int
-    lib.deme_breed_error_string.argtypes = [ctypes.c_int]
-    lib.deme_breed_error_string.restype = ctypes.c_char_p
+    for fn, (argtypes, restype) in _bindings()[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
     _libs[name] = lib
     return lib
+
+
+def _raise_on(rc: int, lib, name: str) -> None:
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg}")
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -176,7 +205,7 @@ def deme_breed_cuda(
     else:
         _check(seed, "seed", torch.int64, (1,), dev)
     scores = torch.empty(Pp, device=dev) if obj_id else None
-    lib = _library()
+    lib = _library("deme_breed")
     rc = lib.deme_breed_launch(
         genomes.data_ptr(), out.data_ptr(), _ptr(scores), ranks.data_ptr(),
         mparams.data_ptr(),
@@ -189,10 +218,68 @@ def deme_breed_cuda(
         MUTATE_IDS[mutate], int(obj_id),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError(
-            "deme_breed launch failed: "
-            + lib.deme_breed_error_string(rc).decode()
-        )
+    _raise_on(rc, lib, "deme_breed")
     LAUNCHES[geom.layout] += 1
     return out, scores
+
+
+def gp_eval_cuda(
+    *,
+    xt: torch.Tensor,
+    y: torch.Tensor,
+    consts: torch.Tensor,
+    fids: torch.Tensor,
+    plan: dict,
+    genomes: Optional[torch.Tensor] = None,
+    prog=None,
+    max_nodes: int,
+    n_ops: int,
+) -> torch.Tensor:
+    """Launch ``csrc/gp_eval.cu`` on the current stream: the kernel
+    counterpart of ``ops/gp_eval.py``'s plain scorers. Exactly one of
+    ``genomes`` (P, 2T) float32 (static trips, ``LAUNCHES["gp_eval_static"]``)
+    or ``prog`` (an ``EvalProgram``, ``LAUNCHES["gp_eval_opt"]``) is
+    given. ``plan`` is a ``gp_eval_plan`` dict for this P and B. Returns
+    (P,) float32 scores. Raises on bad arguments or a failed launch;
+    never runs anything else in the kernel's place."""
+    if (genomes is None) == (prog is None):
+        raise ValueError("pass exactly one of genomes= or prog=")
+    first = genomes if genomes is not None else prog.ops
+    dev = first.device
+    if dev.type != "cuda":
+        raise ValueError("gp_eval_cuda needs CUDA tensors")
+    T = max_nodes
+    n_vars, B = xt.shape
+    n_consts = consts.shape[0]
+    _check(xt, "xt", torch.float32, (n_vars, B), dev)
+    _check(y, "y", torch.float32, (B,), dev)
+    _check(consts, "consts", torch.float32, (n_consts,), dev)
+    _check(fids, "fids", torch.int32, (n_ops + 1,), dev)
+    if genomes is not None:
+        P = genomes.shape[0]
+        _check(genomes, "genomes", torch.float32, (P, 2 * T), dev)
+        ops = args = length = None
+        mode = "gp_eval_static"
+    else:
+        P = prog.ops.shape[0]
+        ops, args, length = prog.ops, prog.args, prog.length
+        _check(ops, "ops", torch.int32, (P, T), dev)
+        _check(args, "args", torch.float32, (P, T), dev)
+        _check(length, "length", torch.int32, (P,), dev)
+        mode = "gp_eval_opt"
+    if plan["samples"] != B or plan["pop"] != P or plan["max_nodes"] != T:
+        raise ValueError(f"plan is for {plan['pop']}x{plan['max_nodes']}x{plan['samples']}, not {P}x{T}x{B}")
+    out = torch.empty(P, device=dev)
+    lib = _library("gp_eval")
+    rc = lib.gp_eval_launch(
+        _ptr(genomes), _ptr(ops), _ptr(args), _ptr(length),
+        xt.data_ptr(), y.data_ptr(), consts.data_ptr(), fids.data_ptr(),
+        out.data_ptr(),
+        P, T, B, n_vars, n_consts, n_ops, int(plan["stack_depth"]),
+        int(plan["threads_per_program"]), int(plan["programs_per_block"]),
+        int(plan["smem_bytes"]),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, lib, "gp_eval")
+    LAUNCHES[mode] += 1
+    return out

@@ -1,4 +1,5 @@
-"""Rank-space parent selection (plain PyTorch).
+"""Parent selection (plain PyTorch): the rank-space formulas of the deme
+kernel, and the panmictic strategies of the XLA path.
 
 Copies of ``libpga_tpu.ops.select.resolve_selection`` and
 ``rank_fraction_icdf`` plus the tournament inverse CDF of the JAX deme
@@ -10,6 +11,9 @@ is contracted).
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import torch
 
@@ -83,3 +87,119 @@ def winner_ranks(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     Two-sided clamp: ``x*V`` can round up to V in float32."""
     r = torch.floor(x * valid)
     return torch.minimum(torch.clamp(r, min=0.0), valid - 1.0).to(torch.int64)
+
+
+# ---------------------------------------------------------------------
+# Panmictic selection (copies of libpga_tpu/ops/select.py:20-195). Each
+# strategy takes its draws as tensors, or draws them from ``generator``.
+# ---------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SelectDraws:
+    """The random numbers one selection of ``num`` winners consumes:
+    ``idx`` (num, k) candidate rows for tournaments; ``tie`` (pop,)
+    uint32 words held in int64 and ``u`` (num,) float32 uniforms for the
+    rank strategies. A field left None is drawn from the generator."""
+
+    idx: Optional[torch.Tensor] = None
+    tie: Optional[torch.Tensor] = None
+    u: Optional[torch.Tensor] = None
+
+
+def tournament_select(
+    scores: torch.Tensor,
+    num: int,
+    k: int = 2,
+    *,
+    generator: Optional[torch.Generator] = None,
+    idx: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``num`` independent k-way tournaments over ``scores`` (higher is
+    better); returns (num,) int64 winner rows. k=2 is the branchless
+    pairwise form (ties and NaN go as ``>=`` says: to the first
+    candidate unless it is NaN); other k take the first maximum
+    (argmax, NaN counting as the largest)."""
+    pop = scores.shape[0]
+    if idx is None:
+        idx = torch.randint(
+            0, pop, (num, k), generator=generator, device=scores.device
+        )
+    idx = idx.long()
+    if k == 2:
+        i1, i2 = idx[:, 0], idx[:, 1]
+        return torch.where(scores[i1] >= scores[i2], i1, i2)
+    win = torch.argmax(scores[idx], dim=-1)
+    return torch.gather(idx, 1, win[:, None])[:, 0]
+
+
+def _score_order_key(scores: torch.Tensor) -> torch.Tensor:
+    """int64 key ascending in ``-scores`` under JAX's float sort order:
+    -0.0 equals +0.0, NaN sorts last (worst)."""
+    ns = (-scores.to(torch.float32)) + 0.0
+    bits = ns.view(torch.int32).to(torch.int64)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    return torch.where(torch.isnan(ns), 0x7FFFFFFF, key)
+
+
+def rank_order(scores: torch.Tensor, tie: torch.Tensor) -> torch.Tensor:
+    """Rows best-first (rank r -> row): score descending, then the tie
+    word ascending, then the row. One stable sort of a packed int64 key
+    (as ``fused_step.compute_ranks`` does)."""
+    packed = (_score_order_key(scores) << 32) | tie.to(torch.int64)
+    return torch.sort(packed, stable=True).indices
+
+
+def draw_ties(generator, n: int, device) -> torch.Tensor:
+    """Fresh uint32 tie words (JAX: ``random.bits``), held in int64."""
+    return torch.randint(
+        0, 2**32, (n,), generator=generator, device=device, dtype=torch.int64
+    )
+
+
+def _rank_select(kind, scores, num, param, generator, tie, u):
+    pop = scores.shape[0]
+    param = resolve_selection(kind, param)
+    if tie is None:
+        tie = draw_ties(generator, pop, scores.device)
+    if u is None:
+        u = torch.rand((num,), generator=generator, device=scores.device)
+    order = rank_order(scores, tie)
+    x = rank_fraction_icdf(kind, param, u.to(torch.float32))
+    r = torch.clamp((x * pop).to(torch.int32), 0, pop - 1)
+    return order[r.long()]
+
+
+def truncation_select(scores, num, tau, *, generator=None, tie=None, u=None):
+    """``num`` parents uniform over the top ``ceil(tau * pop)`` ranks."""
+    return _rank_select("truncation", scores, num, tau, generator, tie, u)
+
+
+def linear_rank_select(scores, num, pressure, *, generator=None, tie=None, u=None):
+    """Linear ranking with pressure ``s`` in (1, 2]: rank-fraction
+    density ``s - 2(s-1)x``."""
+    return _rank_select("linear_rank", scores, num, pressure, generator, tie, u)
+
+
+def select_parent_pairs(
+    scores: torch.Tensor,
+    num_children: int,
+    k: int = 2,
+    kind: str = "tournament",
+    param: Optional[float] = None,
+    *,
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[SelectDraws] = None,
+):
+    """Two selections per child -> ``(p1_idx, p2_idx)``, each
+    (num_children,): ``2 * num_children`` winners, split in halves."""
+    d = draws or SelectDraws()
+    num = 2 * num_children
+    if kind == "tournament":
+        winners = tournament_select(scores, num, k, generator=generator, idx=d.idx)
+    elif kind in ("truncation", "linear_rank"):
+        winners = _rank_select(kind, scores, num, param, generator, d.tie, d.u)
+    else:
+        resolve_selection(kind, param)  # raises with the canonical message
+        raise AssertionError("unreachable")
+    return winners[:num_children], winners[num_children:]

@@ -1,17 +1,22 @@
-"""The deme-breed CUDA kernel (libpga_tpu_torch/csrc/deme_breed.cu)
-against its plain torch version, on the card. These tests skip on a
+"""The CUDA kernels (libpga_tpu_torch/csrc/deme_breed.cu and gp_eval.cu)
+against their plain torch versions, on the card. These tests skip on a
 machine without one. They import neither JAX nor the JAX package, so
 they run where only torch is installed:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
+from libpga_tpu_torch.gp import encoding as enc
+from libpga_tpu_torch.gp.encoding import GPConfig
+from libpga_tpu_torch.gp.optimize import optimize_for_eval
 from libpga_tpu_torch.objectives import onemax, onemax_bits
 from libpga_tpu_torch.ops import fused_step as fs
 from libpga_tpu_torch.ops import kernels
+from libpga_tpu_torch.ops.gp_eval import gp_eval_reference, make_gp_eval
 
 
 @pytest.fixture
@@ -95,4 +100,69 @@ def test_engine_on_card_counts_one_launch_per_generation(cuda_device):
     kernels.reset_launches()
     assert pga_run(p, 12) == 12
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {"pingpong": 0, "riffle": 12}
+    assert kernels.LAUNCHES == {
+        "pingpong": 0, "riffle": 12, "gp_eval_opt": 0, "gp_eval_static": 0
+    }
+
+
+# ---------------------------------------------------------------- gp_eval
+
+EXP_GP = GPConfig(max_nodes=8, n_vars=1, unary=("exp", "log", "sqrt"),
+                  binary=("mul", "add", "min", "max"))
+
+
+def _gp_case(name, device):
+    """(gp, genomes, X, y) with numpy inputs from a seed: well-formed
+    programs, uniform-noise genes (the skip rule), or exp chains over
+    large inputs (the -inf path)."""
+    rng = np.random.default_rng(len(name))
+    if name == "overflow":
+        gp = EXP_GP
+        X = rng.uniform(-60, 90, (70, 1)).astype(np.float32)
+        g = rng.uniform(0, 1, (500, gp.genome_len)).astype(np.float32)
+        g[:50] = enc.encode_program([("var", 0), "exp", "exp"], gp)
+    else:
+        gp = GPConfig(max_nodes=16, n_vars=2)
+        X = rng.uniform(-1, 1, (100, 2)).astype(np.float32)
+        if name == "noise":
+            g = rng.uniform(0, 1, (1000, gp.genome_len)).astype(np.float32)
+        else:
+            rand = rng.uniform(0, 1, (1000, enc.grow_rand_cols(gp))).astype(np.float32)
+            g = enc.random_program_genes(torch.from_numpy(rand), gp).numpy()
+    y = (X[:, 0] * X[:, -1] + X[:, 0]).astype(np.float32)
+    return gp, torch.from_numpy(g).to(device), X, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["well_formed", "noise", "overflow"])
+@pytest.mark.parametrize("knobs", [{}, {"stack_depth": 32, "opcode_block": 4}])
+@pytest.mark.parametrize("optimize", [True, False])
+def test_gp_eval_kernel_equals_plain_on_card(cuda_device, case, knobs, optimize):
+    """B2 (compacted programs) and B2' (raw genomes, static trips) equal
+    the plain version within rtol = atol = 1e-5 (the sums over samples
+    run in another order); -inf exactly where the plain version has it."""
+    gp, g, X, y = _gp_case(case, cuda_device)
+    for B in (y.shape[0], 20):  # ragged warps; several programs per block
+        fn = make_gp_eval(gp, X[:B], y[:B], optimize=optimize, **knobs)
+        mode = "gp_eval_opt" if optimize else "gp_eval_static"
+        before = kernels.LAUNCHES[mode]
+        got = fn(g)
+        assert kernels.LAUNCHES[mode] == before + 1
+        xt = torch.from_numpy(np.ascontiguousarray(X[:B].T)).to(cuda_device)
+        m = optimize_for_eval(g, gp) if optimize else g
+        want = gp_eval_reference(m, xt, torch.from_numpy(y[:B]).to(cuda_device), gp, **knobs)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        fin = torch.isfinite(want)
+        torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+        if case == "overflow":
+            assert bool(torch.isinf(got[:50]).all())
+
+
+@pytest.mark.cuda
+def test_gp_eval_kernel_rejects_bad_arguments(cuda_device):
+    gp = GPConfig(max_nodes=8, n_vars=2)
+    X = np.zeros((10, 2), np.float32)
+    fn = make_gp_eval(gp, X, np.zeros(10, np.float32), optimize=False)
+    with pytest.raises(ValueError, match="genomes"):
+        fn(torch.zeros((4, 10), device=cuda_device))
