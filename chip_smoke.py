@@ -36,7 +36,24 @@ Phases, each printing one line; any failure exits non-zero:
      torch.profiler window; then the same path with
      GPConfig(optimize=False), which scores through B2'; then the
      exact-recovery target run of tools/gp_smoke.py's configuration,
-     which must stop at score 0.0.
+     which must stop at score 0.0;
+  8. tsp_compare: the order-breed kernel (csrc/deme_breed.cu's
+     order_breed_kernel: order crossover, swap mutation, fused TSP score)
+     against its plain torch version at 8,192x1,000 (fused TSP over
+     random_tsp_coords(1000, seed=2)) and 1,000x100 (unfused, padded to
+     1,024 rows), with injected and with Philox draws: genomes equal,
+     scores within TSP_RTOL and -inf on the same rows. Times both with
+     CUDA events beside the byte bound and the walk's dependent chain;
+  9. tsp_run: PGA.run through pga_init, pga_create_population,
+     pga_set_objective_function, pga_set_crossover_function
+     (order_preserving_crossover) and pga_set_mutate_function
+     (make_swap_mutate(0.5)): 200 generations at 8,192x1,000 (launches
+     of the order kernel equal generations and nothing else launches,
+     the best score rises strictly, the best tour's duplicate count
+     falls), then a torch.profiler window (tsp_profile); and 1,000
+     generations of the reference driver's 1,000x100 over
+     random_tsp_matrix(100, seed=7), whose best tour must visit all 100
+     cities.
 Then one JSON line of per-kernel numbers, the card's name and power
 limit, and last the result line.
 """
@@ -68,6 +85,11 @@ GP_REPLACES = {
     "static": "libpga_tpu/ops/gp_eval.py:309",  # kernel
 }
 GP_RUN_GENS = 20
+TSP_SHAPES = {"main": (8192, 1000), "reference": (1000, 100)}
+TSP_RTOL = 1e-5  # both sum the edges in l order; the gate allows reordering
+TSP_RUN_GENS = {"main": 200, "reference": 1000}
+TSP_REPLACES = "libpga_tpu/ops/pallas_step.py:653"  # _deme_child, order branch
+TSP_ALSO_REPLACES = "libpga_tpu/ops/pallas_step.py:819"  # _tsp_eval_gene_major
 GP_STATIC_RUN_GENS = 5
 GP_PROFILE_GENS = 3
 # Philox statistics bands (n ~ 1e6 children, 1e8 genes): the standard
@@ -494,6 +516,180 @@ def phase_gp_run(port, kernels, results):
     check(gens < 200 and best == 0.0, f"gp exact recovery: {gens} generations, best {best}")
 
 
+def tsp_objective(shape: str):
+    """The objective of a TSP shape: the fused coordinate TSP at the main
+    shape, the reference driver's planted-path matrix at the other."""
+    from libpga_tpu_torch import objectives as obj
+
+    P, L = TSP_SHAPES[shape]
+    if shape == "main":
+        return obj.make_tsp_coords(obj.random_tsp_coords(L, seed=2), duplicate_mode="genes")
+    return obj.make_tsp(obj.random_tsp_matrix(L, seed=7))
+
+
+def order_bound(geom, fused: bool, n_cities: int) -> tuple:
+    """Least time (ms) for one order breed and what sets it: the larger
+    of the bytes it must move (genomes, ranks and coordinates read once,
+    children and scores written once) over the memory rate, and its
+    float32 operations (two decodes per gene in the walk; with the fused
+    score a decode, two differences, two squares, two adds, a sqrt and
+    the sum per gene) over the float32 rate. Also returns the dependent
+    chain of each thread: L walk steps, plus L scoring steps if fused."""
+    L = geom.L
+    nbytes = geom.Pp * L * 4 * 2 + geom.G * geom.K * 4
+    ops = geom.Pp * L * 4
+    if fused:
+        nbytes += geom.Pp * 4 + min(n_cities, L) * 8
+        ops += geom.Pp * L * 10
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            L * (2 if fused else 1))
+
+
+def phase_tsp_compare(fs, device, results):
+    """The order kernel against its plain version at both TSP shapes,
+    injected and Philox draws; times both."""
+    import torch
+
+    from libpga_tpu_torch.objectives.classic import FUSED_TSP
+
+    for shape, (P, L) in TSP_SHAPES.items():
+        tsp = tsp_objective(shape)
+        fused = getattr(tsp, "fused_id", 0) == FUSED_TSP
+        geom = fs.resolve_geometry(P, L, crossover="order", fused=fused)
+        check(geom.layout == "riffle" and geom.D == 1, f"tsp {shape}: geometry {geom}")
+        gen = torch.Generator(device=device).manual_seed(P + L)
+        g = torch.rand((geom.Pp, L), generator=gen, device=device)
+        g[P:] = 0.0
+        s = torch.full((geom.Pp,), -torch.inf, device=device)
+        s[:P] = tsp.rows(g[:P])
+        ranks = fs.compute_ranks(s, geom, 0, fs.draw_tie_words(gen, geom.Pp, device))
+        kw = dict(mutate="swap", crossover="order",
+                  mparams=torch.tensor([0.5, 0.0], device=device))
+        if fused:
+            kw.update(obj_id=FUSED_TSP, coords=tsp.coords.to(device), penalty=tsp.penalty)
+        injected = fs.Draws(
+            sel_u=torch.rand((geom.G, geom.K, 2), generator=gen, device=device), cross=None,
+            mut_u=torch.rand((geom.G, geom.K, 4), generator=gen, device=device),
+            fill=torch.rand((geom.G, geom.K, L), generator=gen, device=device),
+        )
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+        errs = []
+        for mode, draws in (("injected", injected), ("philox", None)):
+            if draws is None:
+                got = fs.deme_breed(g, ranks, geom, 0, seed=seed, **kw)
+                draws = fs.philox_draws(seed, geom.G, geom.K, L, "swap", crossover="order")
+            else:
+                got = fs.deme_breed(g, ranks, geom, 0, draws=draws, **kw)
+            want = fs.deme_breed_reference(g, ranks, geom, 0, draws, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], want[0]), f"tsp {shape} {mode}: genomes differ")
+            if fused:
+                check(torch.equal(torch.isinf(got[1]), torch.isinf(want[1])),
+                      f"tsp {shape} {mode}: -inf rows differ")
+                check(bool(torch.isinf(got[1][P:]).all()) and bool(torch.isfinite(got[1][:P]).all()),
+                      f"tsp {shape} {mode}: pad rows not -inf or real rows not finite")
+                a, b = got[1][:P], want[1][:P]
+                check(bool(torch.isclose(a, b, rtol=TSP_RTOL, atol=0.0).all()),
+                      f"tsp {shape} {mode}: score error {float((a - b).abs().max())}")
+                errs.append(float((a - b).abs().max()))
+            else:
+                check(got[1] is None and want[1] is None, f"tsp {shape} {mode}: unfused scores")
+                errs.append(0.0)
+        out = torch.empty_like(g)
+        ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seed, out=out, **kw), 20)
+        plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
+            g, ranks, geom, 0, fs.philox_draws(seed, geom.G, geom.K, L, "swap", crossover="order"),
+            **kw), 2)
+        bound_ms, bound_by, chain = order_bound(geom, fused, tsp.coords.shape[0] if fused else 0)
+        r = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 chain_steps=chain, max_abs_err=max(errs), K=geom.K, G=geom.G, Pp=geom.Pp)
+        if fused:
+            # The walk alone (no score: half the dependent chain), and the
+            # fused launch on permutation parents (no fallback draws).
+            walk = {k: v for k, v in kw.items() if k not in ("obj_id", "coords", "penalty")}
+            r["walk_only_ms"] = cuda_ms(
+                lambda: fs.deme_breed(g, ranks, geom, 0, seed=seed, out=out, **walk), 20)
+            perm = torch.argsort(torch.rand((geom.Pp, L), generator=gen, device=device), dim=1)
+            perm = (perm.to(torch.float32) + 0.5) / L
+            r["permutation_parents_ms"] = cuda_ms(
+                lambda: fs.deme_breed(perm, ranks, geom, 0, seed=seed, out=out, **kw), 20)
+        results[shape] = r
+        print(json.dumps({"phase": "tsp_compare", "shape": shape, "P": P, "L": L,
+                          "fused": fused, "genomes_equal": True, "score_rtol": TSP_RTOL,
+                          "kernel_ms": ms, "ms_over_bound": ms / bound_ms, **r}), flush=True)
+
+
+def tour(genome):
+    """(cities, duplicate genes) of one genome (a tensor or an array)."""
+    import torch
+
+    from libpga_tpu_torch.objectives.classic import duplicate_genes, tsp_cities
+
+    cities = tsp_cities(torch.as_tensor(genome)[None])
+    return cities[0].cpu().numpy(), int(duplicate_genes(cities)[0])
+
+
+def phase_tsp_run(port, kernels, results):
+    """PGA.run of the TSP path through the pga_* API at both shapes."""
+    import torch
+
+    from libpga_tpu_torch.ops.crossover import order_preserving_crossover
+    from libpga_tpu_torch.ops.mutate import make_swap_mutate
+
+    for shape, (P, L) in TSP_SHAPES.items():
+        tsp = tsp_objective(shape)
+        pga = port.pga_init(seed=1)
+        h = port.pga_create_population(pga, P, L)
+        port.pga_set_objective_function(pga, tsp)
+        port.pga_set_crossover_function(pga, order_preserving_crossover)
+        port.pga_set_mutate_function(pga, make_swap_mutate(0.5))
+        check(pga.uses_deme_kernel(P, L), f"tsp {shape}: not on the deme path")
+        start = tsp.rows(pga.population(h).genomes)
+        start_best = float(start.max())
+        _, start_dups = tour(pga.population(h).genomes[int(torch.argmax(start))])
+        gens = TSP_RUN_GENS[shape]
+        check(port.pga_run(pga, WARMUP_GENS) == WARMUP_GENS, f"tsp {shape}: warm-up")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        ran = port.pga_run(pga, gens)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        genome, best = pga.get_best_with_score(h)
+        cities, dups = tour(genome)
+        line = {"phase": "tsp_run", "shape": shape, "P": P, "L": L, "gens": ran,
+                "launches": launches, "gens_per_s": ran / seconds,
+                "ms_per_gen": 1e3 * seconds / ran,
+                "kernel_ms_per_gen": results[shape]["ms"],
+                "start_best": start_best, "best": best,
+                "start_best_duplicates": start_dups, "best_duplicates": dups,
+                "best_distinct_cities": L - dups}
+        if shape == "main":
+            line["best_tour_length"] = -(best + tsp.penalty * dups)
+        else:
+            from libpga_tpu_torch.objectives import random_tsp_matrix
+
+            m = random_tsp_matrix(L, seed=7)
+            line.update(best_tour_length=float(m[cities[:-1], cities[1:]].sum()),
+                        planted_path_length=10.0 * (L - 1))
+        print(json.dumps(line), flush=True)
+        check(ran == gens, f"tsp {shape}: ran {ran} generations")
+        check(launches["order"] == gens and sum(launches.values()) == gens,
+              f"tsp {shape}: launches {launches} for {gens} generations")
+        check(best > start_best, f"tsp {shape}: best {start_best} -> {best}")
+        if shape == "main":
+            check(dups < start_dups, f"tsp main: duplicates {start_dups} -> {dups}")
+            results[shape]["launches"] = launches["order"]
+            print(json.dumps({"phase": "tsp_profile", "shape": shape, "P": P, "L": L,
+                              **profile_generations(port, pga, 1e3 * seconds / ran)}), flush=True)
+        else:
+            check(dups == 0, f"tsp reference: best tour visits {L - dups} of {L} cities")
+            results[shape]["launches"] = launches["order"]
+        port.pga_deinit(pga)
+
+
 def main() -> int:
     import torch
 
@@ -528,6 +724,9 @@ def main() -> int:
     gp_results = {}
     phase_gp_compare(device, gp_results)
     phase_gp_run(port, kernels, gp_results)
+    tsp_results = {}
+    phase_tsp_compare(fs, device, tsp_results)
+    phase_tsp_run(port, kernels, tsp_results)
 
     entries = []
     for layout, r in results.items():
@@ -551,6 +750,17 @@ def main() -> int:
             "bench_shape": {k: bench_r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                    "mean_live_length", "mean_function_tokens")},
         })
+    main_r, ref_r = tsp_results["main"], tsp_results["reference"]
+    entries.append({
+        "name": "order_breed[tsp]", "route": "cuda",
+        "source": "libpga_tpu_torch/csrc/deme_breed.cu",
+        "replaces": TSP_REPLACES, "also_replaces": TSP_ALSO_REPLACES,
+        "launches": main_r["launches"], "max_abs_err": max(main_r["max_abs_err"], ref_r["max_abs_err"]),
+        "ms": main_r["ms"], "plain_ms": main_r["plain_ms"], "bound_ms": main_r["bound_ms"],
+        "bound_by": main_r["bound_by"], "library_ms": None, "chain_steps": main_r["chain_steps"],
+        "reference_shape": {k: ref_r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "chain_steps", "launches")},
+    })
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

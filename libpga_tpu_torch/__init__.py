@@ -2,9 +2,10 @@
 NVIDIA H100.
 
 ``PGA.run`` on float32 genomes launches one hand-written CUDA kernel per
-generation (``csrc/deme_breed.cu``), or takes the panmictic path (whole-
-population selection and operators in torch) for small populations and
-set operators. GP symbolic regression (``libpga_tpu_torch.gp``) runs on
+generation (``csrc/deme_breed.cu``: uniform crossover, or order
+crossover with the fused TSP score), or takes the panmictic path
+(whole-population selection and operators in torch) for small
+populations and operators without a kernel form. GP symbolic regression (``libpga_tpu_torch.gp``) runs on
 the panmictic path and scores every generation with one launch of the
 stack-machine kernel ``csrc/gp_eval.cu``. The JAX package ``libpga_tpu``
 stays the reference; nothing here imports it or JAX.
@@ -16,6 +17,8 @@ from libpga_tpu_torch.api import (
     pga_get_best,
     pga_init,
     pga_run,
+    pga_set_crossover_function,
+    pga_set_mutate_function,
     pga_set_objective_function,
 )
 from libpga_tpu_torch.config import PGAConfig
@@ -32,5 +35,7 @@ __all__ = [
     "pga_get_best",
     "pga_init",
     "pga_run",
+    "pga_set_crossover_function",
+    "pga_set_mutate_function",
     "pga_set_objective_function",
 ]

@@ -36,6 +36,18 @@ def pga_set_objective_function(pga: PGA, fn: Union[Callable, str]) -> None:
     pga.set_objective(fn)
 
 
+def pga_set_crossover_function(pga: PGA, fn: Optional[Callable]) -> None:
+    """Set the crossover operator (``pga.h:85``); None restores the
+    default uniform crossover."""
+    pga.set_crossover(fn)
+
+
+def pga_set_mutate_function(pga: PGA, fn: Optional[Callable]) -> None:
+    """Set the mutation operator (``pga.h:78``); None restores the
+    default point mutation."""
+    pga.set_mutate(fn)
+
+
 def pga_run(pga: PGA, n: int, target: Optional[float] = None) -> int:
     """Run the GA on the first population, stopping early at ``target``."""
     return pga.run(n, target=target)

@@ -1,18 +1,26 @@
 """The solver: the subset of ``libpga_tpu.engine.PGA`` that drives
 ``PGA.run``.
 
-``run`` takes one of two loops, as the JAX package does:
+``run`` takes one of two loops, routed by operator kind as the JAX
+package's ``_pallas_gate`` routes them (``engine.py:855-984``):
 
 - the fused deme path (``ops/fused_step.py``): every generation is one
-  launch of the deme-breed kernel on the card, or its plain version when
-  the solver's device is the CPU;
+  launch of a breed kernel on the card (uniform crossover: the
+  deme-breed kernel; order crossover: the order-breed kernel, which also
+  scores the coordinate TSP), or its plain version when the solver's
+  device is the CPU. It runs when both operators have a kernel kind:
+  crossover ``uniform`` (none set, or ``uniform_crossover``) or
+  ``order`` (``order_preserving_crossover``); mutation ``point`` (none
+  set: point at ``config.mutation_rate``), ``gaussian`` or ``swap``
+  (``make_*_mutate``, told apart by ``.func``), with their rate and
+  sigma as the kernel's runtime parameters;
 - the panmictic path (:func:`make_run_loop`, ``ops/step.py``): whole-
   population selection, then the crossover and mutation operators in
   plain torch, then the objective (for GP, the evaluator kernel). It
-  runs when a crossover or mutation operator is set, when
+  runs when an operator has no kernel kind (the GP operators), when
   ``PGAConfig.use_deme_kernel`` is False (JAX's ``use_pallas=False``),
-  or when the deme geometry declines the shape (under 128 rows, or only
-  degenerate padded fits).
+  or when the deme geometry declines the shape (under 128 rows, only
+  degenerate padded fits, or an order walk too long for any deme).
 
 There is no fallback between device and CPU: the device is the
 config's, and a missing card is an error.
@@ -21,6 +29,7 @@ config's, and a missing card is an error.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import os
 from typing import Callable, Dict, Optional, Tuple, Union
 
@@ -28,7 +37,8 @@ import numpy as np
 import torch
 
 from libpga_tpu_torch.config import PGAConfig
-from libpga_tpu_torch.ops.crossover import uniform_crossover
+from libpga_tpu_torch.ops import mutate as _mutate_ops
+from libpga_tpu_torch.ops.crossover import order_preserving_crossover, uniform_crossover
 from libpga_tpu_torch.ops.evaluate import evaluate
 from libpga_tpu_torch.ops.fused_step import make_fused_run, resolve_geometry
 from libpga_tpu_torch.ops.mutate import make_point_mutate
@@ -70,8 +80,9 @@ class PGA:
         pga.run(100)
         best = pga.get_best(pop)
 
-    ``launches`` counts the deme-breed launches this solver issued (one
-    per generation on the deme path; the panmictic path launches none).
+    ``launches`` counts the breed-kernel launches this solver issued
+    (one per generation on the deme path; the panmictic path launches
+    none).
     """
 
     def __init__(self, seed: Optional[int] = None, config: Optional[PGAConfig] = None):
@@ -148,19 +159,63 @@ class PGA:
 
     def set_crossover(self, fn: Optional[Callable]) -> None:
         """Crossover ``(p1, p2, rand) -> child`` with ``.batched`` and
-        ``.rand_cols`` (e.g. ``gp.make_subtree_crossover``); None restores
-        the default uniform crossover. Setting one routes ``run`` to the
-        panmictic path."""
+        ``.rand_cols`` (e.g. ``order_preserving_crossover`` or
+        ``gp.make_subtree_crossover``); None restores the default uniform
+        crossover. A builtin kind keeps ``run`` on the deme path; any
+        other operator routes it to the panmictic path."""
         self._crossover = fn
         self._runs.clear()
 
     def set_mutate(self, fn: Optional[Callable]) -> None:
         """Mutation ``(genome, rand) -> genome`` with ``.batched`` and
-        ``.rand_cols`` (e.g. ``gp.make_gp_mutate``); None restores the
-        default point mutation at ``config.mutation_rate``. Setting one
-        routes ``run`` to the panmictic path."""
+        ``.rand_cols`` (e.g. ``make_swap_mutate(0.5)`` or
+        ``gp.make_gp_mutate``); None restores the default point mutation
+        at ``config.mutation_rate``. A builtin kind keeps ``run`` on the
+        deme path; any other operator routes it to the panmictic path."""
         self._mutate = fn
         self._runs.clear()
+
+    def _crossover_kind(self) -> Optional[str]:
+        """The deme kernels' crossover kind of the active operator
+        ("uniform" or "order"), or None for one without a kernel form."""
+        if self._crossover is None or self._crossover is uniform_crossover:
+            return "uniform"
+        if self._crossover is order_preserving_crossover:
+            return "order"
+        return None
+
+    def _mutate_kind(self) -> Optional[str]:
+        """The deme kernels' mutation kind of the active operator
+        ("point", "gaussian" or "swap", by its ``.func``), or None."""
+        if self._mutate is None:
+            return "point"
+        return {
+            _mutate_ops.point_mutate: "point",
+            _mutate_ops.gaussian_mutate: "gaussian",
+            _mutate_ops.swap_mutate: "swap",
+        }.get(getattr(self._mutate, "func", None))
+
+    def _operator_param(self, name: str, default: float) -> float:
+        """A parameter of the active mutation: its attribute, else a
+        ``functools.partial``'s keyword, else its function's default,
+        else ``default``."""
+        v = getattr(self._mutate, name, None)
+        if v is None:
+            v = (getattr(self._mutate, "keywords", None) or {}).get(name)
+        if v is None:
+            func = getattr(self._mutate, "func", None)
+            param = inspect.signature(func).parameters.get(name) if func else None
+            if param is not None and param.default is not inspect.Parameter.empty:
+                v = param.default
+        return default if v is None else v
+
+    def _mutate_params(self) -> Tuple[float, float]:
+        """The mutation's [rate, sigma], the deme kernels' runtime
+        parameters: gaussian defaults 0.1 / 0.1; otherwise the
+        operator's rate (the config's when none is set) and sigma 0."""
+        if self._mutate_kind() == "gaussian":
+            return (self._operator_param("rate", 0.1), self._operator_param("sigma", 0.1))
+        return (self._operator_param("rate", self.config.mutation_rate), 0.0)
 
     def _require_objective(self) -> Callable:
         if self._objective is None:
@@ -175,13 +230,14 @@ class PGA:
         """Whether ``run`` takes the deme path for this shape (else the
         panmictic path; see the module docstring)."""
         c = self.config
+        cross = self._crossover_kind()
         return (
-            self._crossover is None and self._mutate is None
+            cross is not None and self._mutate_kind() is not None
             and c.use_deme_kernel
             and resolve_geometry(
                 size, genome_len, deme_size=c.deme_size,
                 tournament_size=c.tournament_size, selection=c.selection,
-                selection_param=c.selection_param,
+                selection_param=c.selection_param, crossover=cross,
             ) is not None
         )
 
@@ -196,7 +252,8 @@ class PGA:
                     size, genome_len, obj,
                     deme_size=c.deme_size, tournament_size=c.tournament_size,
                     selection=c.selection, selection_param=c.selection_param,
-                    mutation_rate=c.mutation_rate, elitism=c.elitism,
+                    crossover=self._crossover_kind(), mutate=self._mutate_kind(),
+                    mparams=self._mutate_params(), elitism=c.elitism,
                     device=self.device,
                 )
             else:

@@ -4,8 +4,12 @@
 
 from libpga_tpu_torch.objectives.classic import (
     ackley,
+    make_tsp,
+    make_tsp_coords,
     onemax,
     onemax_bits,
+    random_tsp_coords,
+    random_tsp_matrix,
     rastrigin,
     sphere,
 )
@@ -41,4 +45,5 @@ def names():
 __all__ = [
     "register", "get", "names",
     "onemax", "onemax_bits", "sphere", "rastrigin", "ackley",
+    "make_tsp", "make_tsp_coords", "random_tsp_coords", "random_tsp_matrix",
 ]

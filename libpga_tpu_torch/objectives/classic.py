@@ -3,18 +3,21 @@ higher is better. Torch counterparts of the rowwise forms in
 ``libpga_tpu/objectives/classic.py``, with the same float32 constants
 and operation order.
 
-``fused_id`` marks the objectives the deme-breed kernel scores inside
-the breed (``csrc/deme_breed.cu``: 1 = onemax, 2 = onemax_bits); the
-others are scored by their rowwise form after an unfused breed.
+``fused_id`` marks the objectives the deme-breed kernels score inside
+the breed (``csrc/deme_breed.cu``: 1 = onemax, 2 = onemax_bits, 3 = the
+coordinate TSP of ``make_tsp_coords(duplicate_mode="genes")``, fused
+only with order crossover); the others are scored by their rowwise form
+after an unfused breed.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-FUSED_NONE, FUSED_ONEMAX, FUSED_ONEMAX_BITS = 0, 1, 2
+FUSED_NONE, FUSED_ONEMAX, FUSED_ONEMAX_BITS, FUSED_TSP = 0, 1, 2, 3
 
 
 def _objective(rows_fn, fused_id=FUSED_NONE):
@@ -66,3 +69,132 @@ onemax_bits = _objective(_onemax_bits, FUSED_ONEMAX_BITS)
 sphere = _objective(_sphere)
 rastrigin = _objective(_rastrigin)
 ackley = _objective(_ackley)
+
+
+# ---------------------------------------------------------------------
+# TSP (libpga_tpu/objectives/classic.py:171-396)
+# ---------------------------------------------------------------------
+
+
+def tsp_cities(m: torch.Tensor) -> torch.Tensor:
+    """City of every gene: ``clamp(floor(g * L), 0, L - 1)`` in float32,
+    as int64 (the reference's ``int(g[i] * L)``, test3/test.cu:31-32)."""
+    L = m.shape[1]
+    return torch.clamp(torch.floor(m * L).to(torch.int64), 0, L - 1)
+
+
+def _city_counts(cities: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """(P, n_buckets) float32 occupancy counts of each city."""
+    counts = torch.zeros(
+        (cities.shape[0], n_buckets), dtype=torch.float32, device=cities.device
+    )
+    return counts.scatter_add_(1, cities, torch.ones_like(cities, dtype=torch.float32))
+
+
+def duplicate_genes(cities: torch.Tensor) -> torch.Tensor:
+    """(P,) float32 count of genes whose city an earlier gene holds:
+    ``L - distinct cities``."""
+    L = cities.shape[1]
+    return L - torch.sum((_city_counts(cities, L) > 0).to(torch.float32), dim=1)
+
+
+def tour_edges(cities: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """(P, L-1) open-path edge lengths ``sqrt(dx^2 + dy^2 + 1e-12)``
+    between consecutive cities, the lookup into ``xy`` (C, 2) clamped
+    to C-1."""
+    pts = xy[torch.clamp(cities, max=xy.shape[0] - 1)]  # (P, L, 2)
+    d = pts[:, 1:] - pts[:, :-1]
+    return torch.sqrt(torch.sum(d * d, dim=-1) + 1e-12)
+
+
+def _per_device(t: torch.Tensor):
+    """``get(device)``: ``t`` on ``device``, copied there once."""
+    copies = {}
+
+    def get(device):
+        key = str(device)
+        if key not in copies:
+            copies[key] = t.to(device)
+        return copies[key]
+
+    return get
+
+
+def make_tsp(city_matrix, duplicate_penalty: float = 10_000.0):
+    """TSP over a distance matrix (the reference's third driver,
+    test3/test.cu:26-46): fitness = -(path length + penalty per ordered
+    duplicate pair, ``sum_c n_c^2 - L``). Cities decode in [0, L); the
+    matrix lookup clamps to C-1 when L > C. Rowwise, with ``.rows``."""
+    matrix = _per_device(torch.as_tensor(np.asarray(city_matrix, dtype=np.float32)))
+    C = matrix("cpu").shape[0]
+
+    def tsp_rows(m: torch.Tensor) -> torch.Tensor:
+        L = m.shape[1]
+        cities = tsp_cities(m)
+        mat = matrix(m.device)
+        hop = torch.clamp(cities, max=C - 1)
+        length = torch.sum(mat[hop[:, :-1], hop[:, 1:]], dim=1)
+        counts = _city_counts(cities, max(C, L))
+        dups = torch.sum(counts * counts, dim=1) - L
+        return -(length + duplicate_penalty * dups)
+
+    tsp_rows.rows = tsp_rows
+    return _objective(tsp_rows)
+
+
+def make_tsp_coords(
+    coords, duplicate_penalty: float = 10_000.0, duplicate_mode: str = "pairs"
+):
+    """Euclidean TSP over city coordinates ``(C, 2)``: fitness = -(open
+    path length, each edge ``sqrt(dx^2 + dy^2 + 1e-12)``, + penalty x
+    duplicates). ``duplicate_mode`` "pairs" counts ordered duplicate
+    pairs (as :func:`make_tsp`); "genes" counts duplicate genes, ``L -
+    distinct cities``, and marks the objective fused (``FUSED_TSP``):
+    with order crossover the breed kernel scores each child, reading
+    ``.coords`` (float32, exact; the TPU kernel's bf16 hi/lo table
+    recovers them to ~1e-3) and ``.penalty``."""
+    if duplicate_mode not in ("pairs", "genes"):
+        raise ValueError(
+            f"duplicate_mode must be 'pairs' or 'genes', got {duplicate_mode!r}"
+        )
+    xy = torch.as_tensor(np.asarray(coords, dtype=np.float32)).reshape(-1, 2)
+    C = xy.shape[0]
+    xy_on = _per_device(xy)
+
+    def tsp_rows(m: torch.Tensor) -> torch.Tensor:
+        L = m.shape[1]
+        cities = tsp_cities(m)
+        if duplicate_mode == "pairs":
+            counts = _city_counts(cities, max(C, L))
+            dups = torch.sum(counts * counts, dim=1) - L
+        else:
+            dups = duplicate_genes(cities)
+        length = torch.sum(tour_edges(cities, xy_on(m.device)), dim=1)
+        return -(length + duplicate_penalty * dups)
+
+    tsp_rows.rows = tsp_rows
+    if duplicate_mode == "genes":
+        tsp_rows.coords = xy
+        tsp_rows.penalty = float(duplicate_penalty)
+        return _objective(tsp_rows, FUSED_TSP)
+    return _objective(tsp_rows)
+
+
+def random_tsp_coords(n_cities: int, seed: int = 0, scale: float = 1000.0):
+    """Uniform-random city coordinates in a ``scale``-sized square."""
+    rng = np.random.default_rng(seed)
+    return (rng.random((n_cities, 2)) * scale).astype(np.float32)
+
+
+def random_tsp_matrix(
+    n_cities: int, seed: int = 0, low: float = 10.0, high: float = 1000.0
+):
+    """Random distance matrix with a planted cheap path ``i -> i+1`` of
+    weight ``low`` (test3/gen.c:27-38): the tour 0, 1, ..., L-1 has
+    length ``low * (L - 1)``."""
+    rng = np.random.default_rng(seed)
+    m = rng.uniform(low, high, size=(n_cities, n_cities)).astype(np.float32)
+    np.fill_diagonal(m, 0.0)
+    idx = np.arange(n_cities - 1)
+    m[idx, idx + 1] = low
+    return m

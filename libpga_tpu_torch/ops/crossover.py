@@ -1,11 +1,14 @@
-"""Crossover operators of the panmictic path (the default of
-``libpga_tpu/ops/crossover.py:20-31``). A crossover is ``(p1, p2, rand)
--> child``; ``.batched`` is its whole-population form over ``(P, L)``
-rows and a ``(P, rand_cols)`` uniform block (``rand_cols`` absent: L)."""
+"""Crossover operators of the panmictic path (``libpga_tpu/ops/
+crossover.py``: uniform, ``:20-31``; order-preserving, ``:61-132``). A
+crossover is ``(p1, p2, rand) -> child``; ``.batched`` is its whole-
+population form over ``(P, L)`` rows and a ``(P, rand_cols)`` uniform
+block (``rand_cols`` absent: L)."""
 
 from __future__ import annotations
 
 import torch
+
+from libpga_tpu_torch.objectives.classic import tsp_cities
 
 
 def uniform_crossover(p1: torch.Tensor, p2: torch.Tensor, rand: torch.Tensor) -> torch.Tensor:
@@ -15,3 +18,40 @@ def uniform_crossover(p1: torch.Tensor, p2: torch.Tensor, rand: torch.Tensor) ->
 
 
 uniform_crossover.batched = uniform_crossover
+
+
+def order_walk(p1: torch.Tensor, p2: torch.Tensor, fill: torch.Tensor) -> torch.Tensor:
+    """The order-preserving walk on ``(N, L)`` rows (the reference TSP
+    driver's crossover, test3/test.cu:48-64): left to right, take p1's
+    gene if its city (``tsp_cities``) is unvisited, else p2's if that
+    city is unvisited, else ``fill``'s. A city is marked visited only
+    when a parent's gene is taken, never by the fallback. An L-step loop
+    carrying an (N, L) visited matrix; the plain version of the walk in
+    ``csrc/deme_breed.cu``'s order kernel."""
+    N, L = p1.shape
+    c1, c2 = tsp_cities(p1), tsp_cities(p2)
+    visited = torch.zeros((N, L), dtype=torch.bool, device=p1.device)
+    child = torch.empty_like(p1)
+    rows = torch.arange(N, device=p1.device)
+    for l in range(L):
+        a, b = c1[:, l], c2[:, l]
+        take1 = ~visited[rows, a]
+        take2 = ~take1 & ~visited[rows, b]
+        child[:, l] = torch.where(
+            take1, p1[:, l], torch.where(take2, p2[:, l], fill[:, l])
+        )
+        city = torch.where(take1, a, b)
+        visited[rows, city] = visited[rows, city] | take1 | take2
+    return child
+
+
+def order_preserving_crossover(
+    p1: torch.Tensor, p2: torch.Tensor, rand: torch.Tensor
+) -> torch.Tensor:
+    """Uniqueness-preserving crossover for permutation-coded genomes on
+    ``(L,)`` rows: :func:`order_walk` with ``rand`` as the fallback
+    genes. ``.batched`` is :func:`order_walk` itself."""
+    return order_walk(p1[None], p2[None], rand[None])[0]
+
+
+order_preserving_crossover.batched = order_walk

@@ -3,9 +3,21 @@
 
 One generation ranks every deme's scores (plain torch, outside the
 kernel, as JAX does with ``lax.sort``), then breeds every deme in ONE
-launch of the hand-written CUDA kernel ``csrc/deme_breed.cu``: rank-space
-selection, uniform crossover, point (or gaussian/swap) mutation, and for
-onemax/onemax_bits the child's score, written to the child's physical row.
+launch of a hand-written CUDA kernel of ``csrc/deme_breed.cu``, chosen
+by the crossover kind the engine routes (``engine.PGA._crossover_kind``):
+
+- **uniform** (``deme_breed_kernel``): rank-space selection, uniform
+  crossover, point, gaussian or swap mutation, and for onemax /
+  onemax_bits the child's score;
+- **order** (``order_breed_kernel``, the TSP path): rank-space
+  selection, the order-preserving walk (a parent's gene where its city
+  is unvisited, else the ``fill`` draw), point, gaussian or swap
+  mutation, and the fused score of onemax, onemax_bits or the coordinate
+  TSP of ``make_tsp_coords(duplicate_mode="genes")``.
+
+The mutation's [rate, sigma] are runtime inputs. The score is written to
+the child's physical row; an objective without a fused form is scored by
+its rowwise form after the breed.
 
 Two row maps come from the JAX package and are semantics, not launch
 shapes: they decide which rows form a selection cohort and where each
@@ -17,13 +29,14 @@ child lands.
   chunk ``u*D + d`` (``pingpong_child_rows``). The parity alternates by
   generation.
 - **riffle** (everything else, e.g. 40,000x100, whose 157 demes admit no
-  ping-pong D): deme ``g`` reads rows ``[g*K, (g+1)*K)`` and its child
-  ``k`` lands at row ``k*G + g``.
+  ping-pong D, and every order-crossover breed): deme ``g`` reads rows
+  ``[g*K, (g+1)*K)`` and its child ``k`` lands at row ``k*G + g``.
 
 The geometry code below is copied from ``pallas_step.py`` with its VMEM
-arithmetic unchanged, so the port picks the same ``(layout, K, D, Pp)``
-as ``make_pallas_breed``. On the GPU the VMEM model decides nothing about
-the launch; it only fixes the grouping, which has to match.
+arithmetic unchanged (the order walk's scratch included), so the port
+picks the same ``(layout, K, D, Pp)`` as ``make_pallas_breed``. On the
+GPU the VMEM model decides nothing about the launch; it only fixes the
+grouping, which has to match.
 
 On the GPU one block per deme cannot write in place: a ping-pong group's
 interleaved child rows belong to other blocks. The run loop therefore
@@ -34,7 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,8 +56,13 @@ from libpga_tpu_torch.objectives.classic import (
     FUSED_NONE,
     FUSED_ONEMAX,
     FUSED_ONEMAX_BITS,
+    FUSED_TSP,
+    duplicate_genes,
+    tour_edges,
+    tsp_cities,
 )
 from libpga_tpu_torch.ops import kernels
+from libpga_tpu_torch.ops.crossover import order_walk
 from libpga_tpu_torch.ops.evaluate import evaluate
 from libpga_tpu_torch.ops.step import run_generations
 from libpga_tpu_torch.ops.select import (
@@ -54,6 +72,7 @@ from libpga_tpu_torch.ops.select import (
 )
 
 LANE = 128
+CROSSOVER_KINDS = ("uniform", "order")
 MUTATE_KINDS = ("point", "gaussian", "swap")
 
 # ---------------------------------------------------------------------
@@ -130,24 +149,37 @@ _SCOPED_VMEM_LIMIT = 14_500_000
 _BLOCK_BYTES_LIMIT = 8_650_000
 
 
-def _blocks_fit(K: int, D: int, Lp: int, gene_bytes: int) -> bool:
+def _blocks_fit(
+    K: int, D: int, Lp: int, gene_bytes: int, extra_scoped: int = 0
+) -> bool:
     return (
         4 * D * K * Lp * gene_bytes <= _BLOCK_BYTES_LIMIT
-        and _scoped_vmem_bytes(K, D, Lp, gene_bytes) <= _SCOPED_VMEM_LIMIT
+        and _scoped_vmem_bytes(K, D, Lp, gene_bytes) + extra_scoped
+        <= _SCOPED_VMEM_LIMIT
     )
+
+
+def _order_scratch_bytes(K: int, L: int, Lp: int) -> int:
+    """The order walk's VMEM scratch (``_order_scratch_shapes``): five
+    (Lp, K) 32-bit planes and the visited bitmask, ceil(L/32) words per
+    column padded to a multiple of 8 sublanes (at least 8)."""
+    Wp = max(8, math.ceil(math.ceil(L / 32) / 8) * 8)
+    return (5 * Lp * K + Wp * K) * 4
 
 
 def _pick_deme_size(
     pop_size: int, preferred: int, genome_lanes: int = LANE,
-    gene_bytes: int = 4,
+    gene_bytes: int = 4, fits: Optional[Callable[[int], bool]] = None,
 ):
     """Exact power-of-two divisors first, then the healthiest padded
     fit (tails under K/4 rows rejected; wastes up to 12.5% count as
     equal, then the preferred size, then the larger deme). None for
-    populations under 128 rows or with only degenerate tails."""
-
-    def fits(k: int) -> bool:
-        return _blocks_fit(k, 1, genome_lanes, gene_bytes)
+    populations under 128 rows or with only degenerate tails. ``fits``
+    is the caller's VMEM admission test (default: the one-generation
+    model at D=1)."""
+    if fits is None:
+        def fits(k: int) -> bool:
+            return _blocks_fit(k, 1, genome_lanes, gene_bytes)
 
     if _valid_deme(preferred) and fits(preferred) and pop_size % preferred == 0:
         return preferred
@@ -256,31 +288,52 @@ def resolve_geometry(
     selection_param: Optional[float] = None,
     fused: bool = True,
     layout: Optional[str] = None,
+    crossover: str = "uniform",
 ) -> Optional[Geometry]:
-    """What ``make_pallas_breed`` would build for float32 genes, uniform
-    crossover and a builtin mutation: the ``_kernel_shape`` gates and
-    fit, then the ping-pong branch of ``_resolve_layout`` (fused breeds
-    take ping-pong whenever a D admits it; ``layout`` forces one).
-    None where the JAX factory declines (tournament size outside 1..16,
-    under 128 rows, or only degenerate padded fits)."""
+    """What ``make_pallas_breed`` would build for float32 genes, a
+    builtin crossover kind and a builtin mutation: the ``_kernel_shape``
+    gates and fit, then the ping-pong branch of ``_resolve_layout``
+    (fused breeds take ping-pong whenever a D admits it; ``layout``
+    forces one). Order crossover counts the walk's scratch in every fit
+    (the deme pick included, so a long genome takes a smaller K), pins D
+    to 1 and is riffle-only. None where the JAX factory declines
+    (tournament size outside 1..16, under 128 rows, only degenerate
+    padded fits, or no K whose order scratch fits)."""
     if not 1 <= tournament_size <= 16:
         return None
+    if crossover not in CROSSOVER_KINDS:
+        raise ValueError(f"unknown crossover kind {crossover!r}; one of {CROSSOVER_KINDS}")
     resolve_selection(selection, selection_param)
     if layout not in (None, "riffle", "pingpong"):
         raise ValueError(
             f"unknown layout {layout!r}: expected 'riffle' or 'pingpong'"
         )
+    order = crossover == "order"
+    if order and layout == "pingpong":
+        raise ValueError(
+            "layout='pingpong' is not available here: order crossover is riffle-only"
+        )
     if not deme_size:
         deme_size = auto_deme_size()
     Lp = math.ceil(genome_len / LANE) * LANE
-    K = _pick_deme_size(pop_size, deme_size, genome_lanes=Lp, gene_bytes=4)
+
+    def fit(k: int, d: int) -> bool:
+        extra = _order_scratch_bytes(k, genome_len, Lp) if order else 0
+        return _blocks_fit(k, d, Lp, 4, extra)
+
+    K = _pick_deme_size(
+        pop_size, deme_size, genome_lanes=Lp, gene_bytes=4,
+        fits=lambda k: fit(k, 1),
+    )
     if K is None:
         return None
     G = math.ceil(pop_size / K)
     Pp = G * K
     q = pingpong_quantum()
+    if order:
+        return Geometry("riffle", pop_size, genome_len, K, G, 1, Pp, q)
     d_candidates = [
-        d for d in ONE_GEN_D_POOL if G % d == 0 and _blocks_fit(K, d, Lp, 4)
+        d for d in ONE_GEN_D_POOL if G % d == 0 and fit(K, d)
     ] or [1]
     D = next((d for d in d_candidates if d <= one_gen_d_default()), 1)
     want = layout == "pingpong" or (layout is None and fused)
@@ -343,29 +396,39 @@ def compute_ranks(
 class Draws:
     """Every random number one breed consumes, per deme ``g`` and child
     ``k``: ``sel_u`` (G, K, 2) parent draws; ``cross`` (G, K, L) uint8
-    crossover bits (1 takes parent 2); ``mut_u`` (G, K, 4) point/swap
-    draws; ``gauss`` (3, G, K, L) gate/u1/u2 planes for gaussian
-    mutation (else None)."""
+    crossover bits (1 takes parent 2; uniform crossover, else None);
+    ``mut_u`` (G, K, 4) point/swap draws; ``gauss`` (3, G, K, L)
+    gate/u1/u2 planes for gaussian mutation (else None); ``fill``
+    (G, K, L) the order walk's fallback genes (order crossover, else
+    None: JAX prefills every child position with a uniform draw, and a
+    position keeps it only where neither parent's city is unvisited)."""
 
     sel_u: torch.Tensor
-    cross: torch.Tensor
+    cross: Optional[torch.Tensor]
     mut_u: torch.Tensor
     gauss: Optional[torch.Tensor] = None
+    fill: Optional[torch.Tensor] = None
 
 
-def zero_draws(G: int, K: int, L: int, mutate: str = "point", device="cpu") -> Draws:
+def zero_draws(
+    G: int, K: int, L: int, mutate: str = "point", device="cpu",
+    crossover: str = "uniform",
+) -> Draws:
     """All-zero draws: the JAX interpret-mode PRNG's output."""
     z = dict(device=device)
+    order = crossover == "order"
     return Draws(
         sel_u=torch.zeros((G, K, 2), **z),
-        cross=torch.zeros((G, K, L), dtype=torch.uint8, **z),
+        cross=None if order else torch.zeros((G, K, L), dtype=torch.uint8, **z),
         mut_u=torch.zeros((G, K, 4), **z),
         gauss=torch.zeros((3, G, K, L), **z) if mutate == "gaussian" else None,
+        fill=torch.zeros((G, K, L), **z) if order else None,
     )
 
 
 _MASK32 = 0xFFFFFFFF
-STREAM_SEL, STREAM_MUT, STREAM_CROSS, STREAM_GAUSS = 0, 1, 2, 0x40000000
+STREAM_SEL, STREAM_MUT, STREAM_CROSS = 0, 1, 2
+STREAM_FILL, STREAM_GAUSS = 0x20000000, 0x40000000
 
 
 def _mulhilo(a: int, b: torch.Tensor):
@@ -400,12 +463,15 @@ def _to_uniform(word: torch.Tensor) -> torch.Tensor:
 
 
 def philox_draws(
-    seed: torch.Tensor, G: int, K: int, L: int, mutate: str = "point"
+    seed: torch.Tensor, G: int, K: int, L: int, mutate: str = "point",
+    crossover: str = "uniform",
 ) -> Draws:
-    """The draws the kernel's production mode generates for launch seed
+    """The draws the kernels' production mode generates for launch seed
     ``seed``: counter ``(k, g, stream, 0)`` with stream 0 = selection,
     1 = mutation, 2+t = crossover bits of genes [128t, 128t+128) (gene
-    ``128t + 32w + b`` takes bit ``b`` of word ``w``), and
+    ``128t + 32w + b`` takes bit ``b`` of word ``w``; uniform crossover
+    only), ``0x20000000 + t`` = the order walk's fallback genes 4t..4t+3
+    (gene ``4t + j`` takes word ``j``; order crossover only), and
     ``0x40000000 + l`` = gaussian gate/u1/u2 of gene ``l``. Uniforms are
     ``(bits >> 8) * 2^-24``."""
     dev = seed.device
@@ -416,25 +482,31 @@ def philox_draws(
     def call(stream):
         return philox4x32(seed, k, g, zero + stream, zero)
 
+    def per_gene(stream0, n):
+        """The four words of calls ``stream0 + t``, t < n, each (G, K, n)."""
+        t = torch.arange(n, device=dev, dtype=torch.int64)
+        return philox4x32(seed, k[..., None], g[..., None], stream0 + t, zero)
+
     w = call(STREAM_SEL)
     sel_u = torch.stack([_to_uniform(w[0]), _to_uniform(w[1])], dim=-1)
     w = call(STREAM_MUT)
     mut_u = torch.stack([_to_uniform(x) for x in w], dim=-1)
-    ntiles = -(-L // 128)
-    shifts = torch.arange(32, device=dev, dtype=torch.int64)
-    tiles = []
-    for t in range(ntiles):
-        words = torch.stack(call(STREAM_CROSS + t), dim=-1)  # (G, K, 4)
-        tiles.append(((words[..., None] >> shifts) & 1).reshape(G, K, 128))
-    cross = torch.cat(tiles, dim=-1)[..., :L].to(torch.uint8)
+    cross = fill = None
+    if crossover == "order":
+        words = torch.stack(per_gene(STREAM_FILL, -(-L // 4)), dim=-1)
+        fill = _to_uniform(words.reshape(G, K, -1)[..., :L])
+    else:
+        ntiles = -(-L // 128)
+        shifts = torch.arange(32, device=dev, dtype=torch.int64)
+        tiles = []
+        for t in range(ntiles):
+            words = torch.stack(call(STREAM_CROSS + t), dim=-1)  # (G, K, 4)
+            tiles.append(((words[..., None] >> shifts) & 1).reshape(G, K, 128))
+        cross = torch.cat(tiles, dim=-1)[..., :L].to(torch.uint8)
     gauss = None
     if mutate == "gaussian":
-        gl = torch.arange(L, device=dev, dtype=torch.int64)
-        w = philox4x32(
-            seed, k[..., None], g[..., None], STREAM_GAUSS + gl, zero
-        )
-        gauss = torch.stack([_to_uniform(x) for x in w[:3]])
-    return Draws(sel_u=sel_u, cross=cross, mut_u=mut_u, gauss=gauss)
+        gauss = torch.stack([_to_uniform(x) for x in per_gene(STREAM_GAUSS, L)[:3]])
+    return Draws(sel_u=sel_u, cross=cross, mut_u=mut_u, gauss=gauss, fill=fill)
 
 
 # ---------------------------------------------------------------------
@@ -454,15 +526,18 @@ def breed_children(
     mutate: str,
     mparams: torch.Tensor,
     elite_rows: int = 0,
+    crossover: str = "uniform",
 ) -> torch.Tensor:
     """Breed the K children of each of N demes: the torch counterpart of
-    ``_deme_child`` (uniform crossover; point, gaussian or swap
+    ``_deme_child`` (uniform or order crossover; point, gaussian or swap
     mutation). ``cohorts`` (N, K, L) float32 rows in cohort order;
     ``ranks`` (N, K) in-deme ranks (a permutation of 0..K-1, 0 = best);
     ``valid`` (N,) float32 real-row counts V; ``draws`` sized (N, K, .);
     ``mparams`` (2,) float32 [rate, sigma]. ``elite_rows`` > 0 makes
     children 0..e-1 verbatim copies of ranks 0..e-1 (the JAX core's
-    per-deme elites). Returns (N, K, L)."""
+    per-deme elites; order crossover is not the identity on equal
+    parents, so the elite child is set to parent 1 after the walk).
+    Returns (N, K, L)."""
     N, K, L = cohorts.shape
     dev = cohorts.device
     rate, sigma = mparams[0], mparams[1]
@@ -481,7 +556,15 @@ def breed_children(
     n = torch.arange(N, device=dev)[:, None]
     p1 = cohorts[n, torch.gather(row_of_rank, 1, wr[..., 0])]
     p2 = cohorts[n, torch.gather(row_of_rank, 1, wr[..., 1])]
-    child = torch.where(draws.cross.bool(), p2, p1)
+    if crossover == "order":
+        child = order_walk(
+            p1.reshape(N * K, L), p2.reshape(N * K, L),
+            draws.fill.reshape(N * K, L),
+        ).reshape(N, K, L)
+    elif crossover == "uniform":
+        child = torch.where(draws.cross.bool(), p2, p1)
+    else:
+        raise ValueError(f"unknown crossover kind {crossover!r}; one of {CROSSOVER_KINDS}")
     may_mutate = torch.ones((N, K), dtype=torch.bool, device=dev)
     if elite_rows:
         child = torch.where(elite, p1, child)
@@ -516,12 +599,36 @@ def breed_children(
     return child
 
 
-def fused_scores(obj_id: int, child: torch.Tensor) -> torch.Tensor:
-    """The scores the kernel computes for a fused objective id."""
+def tsp_scores(
+    child: torch.Tensor, coords: torch.Tensor, penalty: float
+) -> torch.Tensor:
+    """The fused TSP score of ``child`` (..., L): -(open-path length +
+    penalty x (L - distinct cities)), each edge ``sqrt(dx^2 + dy^2 +
+    1e-12)`` with the coordinate lookup clamped to C-1, the edges summed
+    one by one in l order as the kernel sums them (JAX's
+    ``_tsp_eval_gene_major`` does too)."""
+    L = child.shape[-1]
+    cities = tsp_cities(child.reshape(-1, L))
+    edge = tour_edges(cities, coords)
+    total = torch.zeros(cities.shape[0], device=child.device)
+    for l in range(L - 1):
+        total = total + edge[:, l]
+    dups = duplicate_genes(cities)
+    return (-(total + penalty * dups)).reshape(child.shape[:-1])
+
+
+def fused_scores(
+    obj_id: int, child: torch.Tensor, coords: Optional[torch.Tensor] = None,
+    penalty: float = 0.0,
+) -> torch.Tensor:
+    """The scores the kernels compute for a fused objective id
+    (``FUSED_TSP`` reads ``coords`` (C, 2) and ``penalty``)."""
     if obj_id == FUSED_ONEMAX:
         return torch.sum(child, dim=-1)
     if obj_id == FUSED_ONEMAX_BITS:
         return torch.sum((child >= 0.5).to(torch.float32), dim=-1)
+    if obj_id == FUSED_TSP:
+        return tsp_scores(child, coords, penalty)
     raise ValueError(f"objective id {obj_id} is not fused")
 
 
@@ -539,12 +646,17 @@ def deme_breed_reference(
     mparams: torch.Tensor,
     obj_id: int = FUSED_NONE,
     out: Optional[torch.Tensor] = None,
+    crossover: str = "uniform",
+    coords: Optional[torch.Tensor] = None,
+    penalty: float = 0.0,
 ):
-    """The plain version of the deme-breed kernel: one generation over
-    all ``G`` demes of ``genomes`` (Pp, L), children placed by the
-    parity's row map. A deme's valid count V is how many of its read
-    rows are real (< P), at least 1: the ping-pong alive-mask sum and
-    the riffle's positional ``max(min(K, P - g*K), 1)`` are both this.
+    """The plain version of the deme-breed kernels (uniform crossover:
+    ``deme_breed_kernel``; order crossover: ``order_breed_kernel``): one
+    generation over all ``G`` demes of ``genomes`` (Pp, L), children
+    placed by the parity's row map. A deme's valid count V is how many
+    of its read rows are real (< P), at least 1: the ping-pong
+    alive-mask sum and the riffle's positional ``max(min(K, P - g*K),
+    1)`` are both this. ``coords``/``penalty`` serve ``FUSED_TSP``.
     Returns ``(children (Pp, L), scores (Pp,) or None)``; scores of pad
     rows (>= P) are -inf."""
     read, write = geom.row_maps(parity, genomes.device)
@@ -553,13 +665,14 @@ def deme_breed_reference(
         genomes[read], ranks, valid, draws,
         tournament_size=tournament_size, selection=selection,
         selection_param=selection_param, mutate=mutate, mparams=mparams,
+        crossover=crossover,
     )
     if out is None:
         out = torch.empty_like(genomes)
     out[write.reshape(-1)] = child.reshape(-1, geom.L)
     if obj_id == FUSED_NONE:
         return out, None
-    s = fused_scores(obj_id, child)
+    s = fused_scores(obj_id, child, coords, penalty)
     s = torch.where(write >= geom.P, -torch.inf, s)
     scores = torch.empty(geom.Pp, device=genomes.device)
     scores[write.reshape(-1)] = s.reshape(-1)
@@ -577,20 +690,27 @@ def deme_breed(
     out: Optional[torch.Tensor] = None,
     **kw,
 ):
-    """One breed launch. On a CUDA tensor it launches the kernel (and
-    raises if that fails); on a CPU tensor it runs the plain version.
-    Exactly one of ``seed`` (int64 tensor of one element: production
-    Philox mode) or ``draws`` (injected mode) is given."""
+    """One breed launch. On a CUDA tensor it launches the kernel of the
+    crossover kind (``kw["crossover"]``: uniform, the deme-breed kernel;
+    order, the order-breed kernel) and raises if that fails; on a CPU
+    tensor it runs the plain version. Exactly one of ``seed`` (int64
+    tensor of one element: production Philox mode) or ``draws``
+    (injected mode) is given."""
     if (seed is None) == (draws is None):
         raise ValueError("pass exactly one of seed= or draws=")
     if genomes.is_cuda:
-        return kernels.deme_breed_cuda(
+        launch = (
+            kernels.order_breed_cuda if kw.get("crossover") == "order"
+            else kernels.deme_breed_cuda
+        )
+        return launch(
             genomes, ranks, geom, parity, seed=seed, draws=draws, out=out,
             **kw,
         )
     if draws is None:
         draws = philox_draws(
-            seed, geom.G, geom.K, geom.L, kw.get("mutate", "point")
+            seed, geom.G, geom.K, geom.L, kw.get("mutate", "point"),
+            kw.get("crossover", "uniform"),
         )
     return deme_breed_reference(
         genomes, ranks, geom, parity, draws, out=out, **kw
@@ -620,35 +740,47 @@ def make_fused_breed(
     tournament_size: int = 2,
     selection: str = "tournament",
     selection_param: Optional[float] = None,
-    mutation_rate: float = 0.01,
+    crossover: str = "uniform",
+    mutate: str = "point",
+    mparams: Sequence[float] = (0.01, 0.0),
     elitism: int = 0,
     device="cuda",
 ):
     """One generation of the deme path for a fixed shape and objective,
-    the counterpart of ``make_pallas_breed``'s breed: ranks, one
-    deme-breed launch (point mutation), unfused scoring where the
-    objective has no fused id, elitism. Returns ``breed(genomes (Pp, L),
-    scores (Pp,), parity, generator, out=None) -> (genomes, scores)``,
-    both in physical row order; children go into ``out`` when given
-    (never ``genomes`` itself). ``breed.geom`` is the geometry."""
+    the counterpart of ``make_pallas_breed``'s breed: ranks, one launch
+    of the kernel of the crossover kind, unfused scoring where the
+    objective has no fused id, elitism. ``mparams`` is the mutation's
+    [rate, sigma]. The fused TSP score
+    pairs with order crossover only: with uniform crossover that
+    objective is scored by its rowwise form, as in JAX. Returns
+    ``breed(genomes (Pp, L), scores (Pp,), parity, generator, out=None)
+    -> (genomes, scores)``, both in physical row order; children go into
+    ``out`` when given (never ``genomes`` itself). ``breed.geom`` is the
+    geometry."""
     obj_id = getattr(objective, "fused_id", FUSED_NONE)
+    if obj_id == FUSED_TSP and crossover != "order":
+        obj_id = FUSED_NONE
     geom = resolve_geometry(
         pop_size, genome_len, deme_size=deme_size,
         tournament_size=tournament_size, selection=selection,
         selection_param=selection_param, fused=obj_id != FUSED_NONE,
+        crossover=crossover,
     )
     if geom is None:
         raise ValueError(
             f"no deme geometry for {pop_size}x{genome_len}: the deme path"
-            " needs >= 128 rows, a padded tail of >= K/4 rows and"
-            " tournament_size in 1..16 (PGA.run takes the panmictic path"
-            " there)"
+            " needs >= 128 rows, a padded tail of >= K/4 rows, a K whose"
+            " order-walk scratch fits and tournament_size in 1..16"
+            " (PGA.run takes the panmictic path there)"
         )
     kw = dict(
         tournament_size=tournament_size, selection=selection,
-        selection_param=selection_param, mutate="point", obj_id=obj_id,
-        mparams=torch.tensor([mutation_rate, 0.0], device=device),
+        selection_param=selection_param, mutate=mutate, obj_id=obj_id,
+        mparams=torch.tensor(list(mparams), dtype=torch.float32, device=device),
+        crossover=crossover,
     )
+    if obj_id == FUSED_TSP:
+        kw.update(coords=objective.coords.to(device), penalty=objective.penalty)
 
     def breed(genomes, scores, parity, generator, out=None):
         tie = draw_tie_words(generator, geom.Pp, genomes.device)

@@ -7,10 +7,11 @@ loaded with ``ctypes``. The library goes into ``libpga_tpu_torch/_build/``
 source, so an edited source is rebuilt. Nothing here runs at import
 time: this module imports on machines without ``nvcc`` or a card.
 
-``LAUNCHES`` counts kernel launches: the deme breed by row-map layout,
-the GP evaluator by mode (compacted programs, or raw genomes with static
-trips). A wrapper adds one where it launches its kernel and nowhere
-else.
+``LAUNCHES`` counts kernel launches: the uniform-crossover deme breed
+by row-map layout ("pingpong", "riffle"), the order-crossover breed
+("order"), the GP evaluator by mode (compacted programs, or raw genomes
+with static trips). A wrapper adds one where it launches its kernel and
+nowhere else.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from libpga_tpu_torch.objectives.classic import FUSED_TSP
 from libpga_tpu_torch.ops.select import resolve_selection
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -35,10 +37,13 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # selection arithmetic rounds exactly as the plain torch version does.
 NVCC_FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {"pingpong": 0, "riffle": 0, "gp_eval_opt": 0, "gp_eval_static": 0}
+LAUNCHES = {
+    "pingpong": 0, "riffle": 0, "order": 0, "gp_eval_opt": 0, "gp_eval_static": 0,
+}
 
 SEL_IDS = {"tournament": 0, "truncation": 1, "linear_rank": 2}
 MUTATE_IDS = {"point": 0, "gaussian": 1, "swap": 2}
+ORDER_THREADS = 64  # children per block of order_breed_kernel
 
 _libs: dict = {}
 
@@ -107,6 +112,15 @@ def _bindings() -> dict:
                 i, i,                   # mutate kind, objective id
                 p,                      # stream
             ], i),
+            "order_breed_launch": ([
+                p, p, p, p, p,          # gin, gout, sout, ranks, mparams
+                p, p, p, p, p,          # sel_u, fill, mut_u, gauss, seed
+                p, i, f,                # coords, C, penalty
+                i, i, i, i, i,          # P, Pp, L, K, G
+                i, i, f,                # sel kind, tournament size, sel param
+                i, i,                   # mutate kind, objective id
+                p,                      # stream
+            ], i),
             "deme_breed_error_string": ([i], s),
         },
         "gp_eval": {
@@ -169,15 +183,22 @@ def deme_breed_cuda(
     mutate: str = "point",
     mparams: torch.Tensor,
     obj_id: int = 0,
+    crossover: str = "uniform",
 ):
-    """Launch ``csrc/deme_breed.cu`` on the current stream: the kernel
-    counterpart of ``fused_step.deme_breed_reference`` (same arguments).
+    """Launch ``deme_breed_kernel`` of ``csrc/deme_breed.cu`` on the
+    current stream: the kernel counterpart of
+    ``fused_step.deme_breed_reference`` (same arguments, uniform
+    crossover).
     Production mode takes ``seed`` (int64, one element, on the card);
     injected mode takes ``draws``. Raises on bad arguments or a failed
     launch; never runs anything else in the kernel's place."""
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("deme_breed_cuda needs CUDA tensors")
+    if crossover != "uniform":
+        raise ValueError(f"deme_breed_cuda breeds uniform crossover, not {crossover!r}")
+    if obj_id not in (0, 1, 2):
+        raise ValueError(f"objective id {obj_id} is not fused with uniform crossover")
     G, K, L, Pp = geom.G, geom.K, geom.L, geom.Pp
     if not 1 <= K <= 1024:
         raise ValueError(f"deme size {K} outside 1..1024")
@@ -220,6 +241,96 @@ def deme_breed_cuda(
     )
     _raise_on(rc, lib, "deme_breed")
     LAUNCHES[geom.layout] += 1
+    return out, scores
+
+
+def order_breed_cuda(
+    genomes: torch.Tensor,
+    ranks: torch.Tensor,
+    geom,
+    parity: int,
+    *,
+    seed: Optional[torch.Tensor] = None,
+    draws=None,
+    out: Optional[torch.Tensor] = None,
+    tournament_size: int = 2,
+    selection: str = "tournament",
+    selection_param: Optional[float] = None,
+    mutate: str = "swap",
+    mparams: torch.Tensor,
+    obj_id: int = 0,
+    crossover: str = "order",
+    coords: Optional[torch.Tensor] = None,
+    penalty: float = 0.0,
+):
+    """Launch ``order_breed_kernel`` of ``csrc/deme_breed.cu`` on the
+    current stream: the kernel counterpart of
+    ``fused_step.deme_breed_reference(..., crossover="order")`` (same
+    arguments; riffle geometry only). Production mode takes ``seed``
+    (int64, one element, on the card); injected mode takes ``draws``
+    with the ``fill`` plane. ``obj_id`` 3 (fused TSP) takes ``coords``
+    (C, 2) float32 on the card and ``penalty``. Raises on bad arguments
+    or a failed launch; never runs anything else in the kernel's
+    place."""
+    dev = genomes.device
+    if dev.type != "cuda":
+        raise ValueError("order_breed_cuda needs CUDA tensors")
+    if crossover != "order":
+        raise ValueError(f"order_breed_cuda breeds order crossover, not {crossover!r}")
+    if geom.layout != "riffle":
+        raise ValueError("order crossover runs on the riffle layout only")
+    G, K, L, Pp = geom.G, geom.K, geom.L, geom.Pp
+    if K % ORDER_THREADS or not 1 <= K <= 1024:
+        raise ValueError(f"deme size {K} is not a multiple of {ORDER_THREADS} in 1..1024")
+    if not 1 <= tournament_size <= 16:
+        raise ValueError(f"tournament_size {tournament_size} outside 1..16")
+    _check(genomes, "genomes", torch.float32, (Pp, L), dev)
+    _check(ranks, "ranks", torch.int32, (G, K), dev)
+    _check(mparams, "mparams", torch.float32, (2,), dev)
+    if mutate not in MUTATE_IDS:
+        raise ValueError(f"unknown mutate kind {mutate!r}")
+    C = 0
+    if obj_id == FUSED_TSP:
+        if coords is None or coords.ndim != 2:
+            raise ValueError("the fused TSP score needs coords of shape (C, 2)")
+        C = coords.shape[0]
+        _check(coords, "coords", torch.float32, (C, 2), dev)
+        if C < 1:
+            raise ValueError("coords holds no city")
+    param = resolve_selection(selection, selection_param)
+    if out is None:
+        out = torch.empty_like(genomes)
+    _check(out, "out", torch.float32, (Pp, L), dev)
+    if out.data_ptr() == genomes.data_ptr():
+        raise ValueError("out must not alias genomes: blocks read rows other blocks write")
+    sel_u = fill = mut_u = gauss = None
+    if draws is not None:
+        sel_u, fill, mut_u, gauss = draws.sel_u, draws.fill, draws.mut_u, draws.gauss
+        _check(sel_u, "sel_u", torch.float32, (G, K, 2), dev)
+        if fill is None:
+            raise ValueError("injected order draws need the fill plane")
+        _check(fill, "fill", torch.float32, (G, K, L), dev)
+        _check(mut_u, "mut_u", torch.float32, (G, K, 4), dev)
+        if mutate == "gaussian":
+            _check(gauss, "gauss", torch.float32, (3, G, K, L), dev)
+    else:
+        _check(seed, "seed", torch.int64, (1,), dev)
+    scores = torch.empty(Pp, device=dev) if obj_id else None
+    lib = _library("deme_breed")
+    rc = lib.order_breed_launch(
+        genomes.data_ptr(), out.data_ptr(), _ptr(scores), ranks.data_ptr(),
+        mparams.data_ptr(),
+        _ptr(sel_u), _ptr(fill), _ptr(mut_u), _ptr(gauss),
+        _ptr(seed if draws is None else None),
+        _ptr(coords if obj_id == FUSED_TSP else None), C, float(penalty),
+        geom.P, Pp, L, K, G,
+        SEL_IDS[selection], tournament_size,
+        0.0 if param is None else float(param),
+        MUTATE_IDS[mutate], int(obj_id),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, lib, "deme_breed")
+    LAUNCHES["order"] += 1
     return out, scores
 
 

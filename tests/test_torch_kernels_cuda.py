@@ -1,5 +1,6 @@
-"""The CUDA kernels (libpga_tpu_torch/csrc/deme_breed.cu and gp_eval.cu)
-against their plain torch versions, on the card. These tests skip on a
+"""The CUDA kernels (libpga_tpu_torch/csrc/deme_breed.cu, both its
+uniform and its order breed, and gp_eval.cu) against their plain torch
+versions, on the card. These tests skip on a
 machine without one. They import neither JAX nor the JAX package, so
 they run where only torch is installed:
 
@@ -13,7 +14,7 @@ import torch
 from libpga_tpu_torch.gp import encoding as enc
 from libpga_tpu_torch.gp.encoding import GPConfig
 from libpga_tpu_torch.gp.optimize import optimize_for_eval
-from libpga_tpu_torch.objectives import onemax, onemax_bits
+from libpga_tpu_torch.objectives import make_tsp_coords, onemax, onemax_bits, random_tsp_coords
 from libpga_tpu_torch.ops import fused_step as fs
 from libpga_tpu_torch.ops import kernels
 from libpga_tpu_torch.ops.gp_eval import gp_eval_reference, make_gp_eval
@@ -101,8 +102,101 @@ def test_engine_on_card_counts_one_launch_per_generation(cuda_device):
     assert pga_run(p, 12) == 12
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {
-        "pingpong": 0, "riffle": 12, "gp_eval_opt": 0, "gp_eval_static": 0
+        "pingpong": 0, "riffle": 12, "order": 0, "gp_eval_opt": 0, "gp_eval_static": 0
     }
+
+
+# ------------------------------------------------------------ order breed
+
+# (P, L, C, selection, selection_param, k, mutate, objective): objective
+# "tsp" is the fused coordinate TSP over C cities (C != L exercises the
+# clamped lookup), "onemax" the fused onemax, None unfused. P=1000 pads.
+ORDER_VARIANTS = [
+    (8192, 1000, 1000, "tournament", None, 2, "swap", "tsp"),
+    (1000, 100, 100, "tournament", None, 2, "swap", None),
+    (1000, 100, 60, "truncation", 0.3, 3, "swap", "tsp"),
+    (300, 40, 40, "linear_rank", 1.7, 2, "point", "onemax"),
+    (256, 130, 200, "tournament", None, 4, "gaussian", "tsp"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ORDER_VARIANTS, ids=lambda v: f"{v[0]}x{v[1]}-{v[6]}-{v[7]}")
+def test_order_kernel_equals_plain_on_card(cuda_device, variant):
+    """The order kernel equals its plain version on the same inputs, in
+    production (Philox) and injected mode: genomes exactly (gaussian
+    within 1e-6: log and cos may differ in the last ulp), TSP scores
+    within rtol 1e-5 (both sum the edges in l order), -inf on pad rows."""
+    P, L, C, sel, param, k, mutate, obj = variant
+    geom = fs.resolve_geometry(P, L, tournament_size=k, selection=sel,
+                               selection_param=param, crossover="order")
+    gen = torch.Generator(device=cuda_device).manual_seed(P + L)
+    g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device)
+    g[P:] = 0.0
+    s = torch.rand(geom.Pp, generator=gen, device=cuda_device)
+    s[P:] = -torch.inf
+    kw = dict(tournament_size=k, selection=sel, selection_param=param, mutate=mutate,
+              mparams=torch.tensor([0.5, 0.05], device=cuda_device), crossover="order")
+    if obj == "tsp":
+        tsp = make_tsp_coords(random_tsp_coords(C, seed=2), duplicate_mode="genes")
+        kw.update(obj_id=tsp.fused_id, coords=tsp.coords.to(cuda_device), penalty=tsp.penalty)
+    elif obj == "onemax":
+        kw.update(obj_id=onemax.fused_id)
+    ranks = fs.compute_ranks(s, geom, 0, fs.draw_tie_words(gen, geom.Pp, cuda_device))
+    seed = torch.randint(0, 2**62, (1,), generator=gen, device=cuda_device)
+    draws = fs.philox_draws(seed, geom.G, geom.K, L, mutate, crossover="order")
+    want = fs.deme_breed_reference(g, ranks, geom, 0, draws, **kw)
+    before = kernels.LAUNCHES["order"]
+    for got in (fs.deme_breed(g, ranks, geom, 0, seed=seed, **kw),
+                fs.deme_breed(g, ranks, geom, 0, draws=draws, **kw)):
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6 if mutate == "gaussian" else 0.0)
+        if obj is None:
+            assert got[1] is None and want[1] is None
+            continue
+        assert torch.equal(torch.isinf(got[1]), torch.isinf(want[1]))
+        assert bool(torch.isinf(got[1][P:]).all()) and bool(torch.isfinite(got[1][:P]).all())
+        tol = dict(rtol=1e-5, atol=0.0) if obj == "tsp" else dict(rtol=0.0, atol=1e-3)
+        torch.testing.assert_close(got[1][:P], want[1][:P], **tol)
+    assert kernels.LAUNCHES["order"] == before + 2
+
+
+@pytest.mark.cuda
+def test_order_kernel_rejects_bad_arguments(cuda_device):
+    geom = fs.resolve_geometry(1000, 100, crossover="order")
+    g = torch.rand((geom.Pp, 100), device=cuda_device)
+    ranks = torch.zeros((geom.G, geom.K), dtype=torch.int32, device=cuda_device)
+    seed = torch.tensor([1], dtype=torch.int64, device=cuda_device)
+    kw = dict(mparams=torch.tensor([0.5, 0.0], device=cuda_device), crossover="order")
+    with pytest.raises(ValueError, match="coords"):
+        fs.deme_breed(g, ranks, geom, 0, seed=seed, obj_id=3, **kw)
+    with pytest.raises(ValueError, match="fill"):
+        fs.deme_breed(g, ranks, geom, 0, draws=fs.zero_draws(
+            geom.G, geom.K, 100, device=cuda_device), **kw)
+    with pytest.raises(ValueError, match="riffle"):
+        kernels.order_breed_cuda(g[:1024], ranks[:, :512].contiguous(),
+                                 fs.resolve_geometry(1024, 100), 0, seed=seed, **kw)
+
+
+@pytest.mark.cuda
+def test_tsp_run_on_card_launches_the_order_kernel(cuda_device):
+    from libpga_tpu_torch import (pga_create_population, pga_init, pga_run,
+                                  pga_set_crossover_function, pga_set_mutate_function,
+                                  pga_set_objective_function)
+    from libpga_tpu_torch.ops.crossover import order_preserving_crossover
+    from libpga_tpu_torch.ops.mutate import make_swap_mutate
+
+    p = pga_init(0)
+    h = pga_create_population(p, 2048, 200)
+    tsp = make_tsp_coords(random_tsp_coords(200, seed=2), duplicate_mode="genes")
+    pga_set_objective_function(p, tsp)
+    pga_set_crossover_function(p, order_preserving_crossover)
+    pga_set_mutate_function(p, make_swap_mutate(0.5))
+    kernels.reset_launches()
+    assert pga_run(p, 10) == 10
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["order"] == 10 and sum(kernels.LAUNCHES.values()) == 10
+    torch.testing.assert_close(p.population(h).scores, tsp.rows(p.population(h).genomes),
+                               rtol=1e-5, atol=1e-3)
 
 
 # ---------------------------------------------------------------- gp_eval
