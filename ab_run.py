@@ -2,11 +2,16 @@
 """Time ``PGA.run`` OneMax of two checkouts of the port on one card, in
 turns (A, B, B, A), each in its own process:
 
-    python3 ab_run.py PARENT_DIR [CHANGE_DIR]
+    python3 ab_run.py PARENT_DIR [CHANGE_DIR] [--generations-per-launch T]
 
 CHANGE_DIR defaults to the checkout holding this script. Prints one JSON
 line per turn: wall milliseconds per generation of three 200-generation
-runs (after a 5-generation warm-up) at 1,048,576x100 and 40,000x100.
+runs (after a warm-up of 5 generations, or of one launch) at
+1,048,576x100 and 40,000x100, and under ``kernel_ms`` the breed kernel's
+device milliseconds per launch over 48 more generations under
+torch.profiler. With ``--generations-per-launch T`` both
+checkouts run ``PGAConfig(generations_per_launch=T)``, the
+multi-generation kernel.
 """
 
 from __future__ import annotations
@@ -19,16 +24,20 @@ from pathlib import Path
 SHAPES = ((1 << 20, 100), (40_000, 100))
 
 CHILD = r"""
-import json, sys, time
+import json, re, sys, time
 sys.path.insert(0, sys.argv[1])
+T = int(sys.argv[2])
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 import libpga_tpu_torch as port
-out = {}
+out, kernel_ms = {}, {}
 for P, L in %r:
-    pga = port.pga_init(seed=1)
+    config = port.PGAConfig(generations_per_launch=T) if T > 1 else None
+    pga = port.pga_init(seed=1, config=config)
     port.pga_create_population(pga, P, L)
     port.pga_set_objective_function(pga, "onemax")
-    port.pga_run(pga, 5)
+    port.pga_run(pga, max(5, T))
     torch.cuda.synchronize()
     ms = []
     for _ in range(3):
@@ -37,25 +46,40 @@ for P, L in %r:
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0) / 200)
     out["%%dx%%d" %% (P, L)] = ms
-print(json.dumps(out))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        port.pga_run(pga, 48)
+        torch.cuda.synchronize()
+    kernel_ms["%%dx%%d" %% (P, L)] = {
+        re.search(r"\w*breed_kernel", e.key).group(): e.self_device_time_total / 1e3 / e.count
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and "breed_kernel" in e.key}
+print(json.dumps({"ms_per_gen": out, "kernel_ms": kernel_ms}))
 """ % (SHAPES,)
 
 
 def main() -> int:
-    if len(sys.argv) < 2:
+    args = sys.argv[1:]
+    per_launch = 1
+    if "--generations-per-launch" in args:
+        at = args.index("--generations-per-launch")
+        per_launch = int(args[at + 1])
+        del args[at : at + 2]
+    if not args:
         print(__doc__, file=sys.stderr)
         return 2
-    roots = {"A": Path(sys.argv[1]).resolve(),
-             "B": Path(sys.argv[2]).resolve() if len(sys.argv) > 2
+    roots = {"A": Path(args[0]).resolve(),
+             "B": Path(args[1]).resolve() if len(args) > 1
              else Path(__file__).resolve().parent}
     for turn in "ABBA":
-        res = subprocess.run([sys.executable, "-c", CHILD, str(roots[turn])],
-                             capture_output=True, text=True, timeout=600)
+        res = subprocess.run(
+            [sys.executable, "-c", CHILD, str(roots[turn]), str(per_launch)],
+            capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
             print(res.stderr[-2000:], file=sys.stderr)
             return 1
         print(json.dumps({"turn": turn, "root": roots[turn].name,
-                          "ms_per_gen": json.loads(res.stdout)}), flush=True)
+                          "generations_per_launch": per_launch,
+                          **json.loads(res.stdout)}), flush=True)
     return 0
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build and drive the PyTorch port (libpga_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--log FILE]
 
 Phases, each printing one line; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi);
@@ -53,14 +53,46 @@ Phases, each printing one line; any failure exits non-zero:
      falls), then a torch.profiler window (tsp_profile); and 1,000
      generations of the reference driver's 1,000x100 over
      random_tsp_matrix(100, seed=7), whose best tour must visit all 100
-     cities.
-Then one JSON line of per-kernel numbers, the card's name and power
-limit, and last the result line.
+     cities;
+ 10. fused_objectives: the deme-breed kernel's in-kernel sphere,
+     rastrigin and ackley scores against the plain version at 65,536x100
+     (ping-pong) and 40,000x100 (riffle): genomes equal, scores within
+     FUSED_RTOL;
+ 11. multigen_compare: the multi-generation kernel (csrc/deme_breed.cu's
+     multigen_breed_kernel) against its plain torch version on the same
+     inputs, with injected and with Philox draws: 1,048,576x100 (riffle,
+     D=4, 3 steps), 40,000x100 (padded riffle; 0, 1, 3 and 8 steps,
+     per-deme elitism 2, a target that freezes some groups, onemax_bits),
+     524,288x100 (ping-pong, both parities, 3 steps, a target) and
+     1,000x100 (padded ping-pong, both parities): genomes and scores
+     equal element for element (the plain version sums scores in the
+     kernel's order); rastrigin at 1 step within FUSED_RTOL, and what 3
+     steps give, printed. Times by CUDA events: the kernel at 1, 4, 8, 16
+     and 32 steps at the shapes of multigen_run, the plain version at 3
+     and 8, beside the bound;
+ 12. multigen_run: PGA.run through pga_init(config=PGAConfig(
+     generations_per_launch=8)), pga_create_population,
+     pga_set_objective_function and pga_run: 200 generations at
+     1,048,576x100, 40,000x100 and 524,288x100 (25 launches of the
+     multigen kernel and of nothing else; the best score rises) beside
+     the same run at one generation per launch; 203 generations land on
+     203 in 26 launches; a target run stops at a multiple of 8 with the
+     best at or above the target; a sweep of 1, 4, 8, 16 and 32
+     generations per launch at 40,000x100 and 1,048,576x100, up and down;
+     then a torch.profiler window.
+The earlier OneMax, GP and TSP runs keep their depths; the whole script
+takes about two minutes on the card. Then one JSON line of per-kernel numbers, the card's name and power
+limit, and last the result line. With --log FILE every line printed
+also goes to that file (a tool that shows only the end of a long output
+can bring the file back whole).
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -92,6 +124,14 @@ TSP_REPLACES = "libpga_tpu/ops/pallas_step.py:653"  # _deme_child, order branch
 TSP_ALSO_REPLACES = "libpga_tpu/ops/pallas_step.py:819"  # _tsp_eval_gene_major
 GP_STATIC_RUN_GENS = 5
 GP_PROFILE_GENS = 3
+FUSED_RTOL = 1e-5  # sphere/rastrigin/ackley: sums reordered, cosf/expf/sqrtf of two libraries
+FUSED_SHAPES = {"pingpong": (65_536, 100), "riffle": (40_000, 100)}
+MULTIGEN_T = 8
+MULTIGEN_SWEEP = (1, 4, 8, 16, 32)
+# layout of the multigen geometry -> the shapes PGA.run drives it at
+MULTIGEN_RUN_SHAPES = {"riffle": [(1 << 20, 100), (40_000, 100)], "pingpong": [(524_288, 100)]}
+MULTIGEN_REPLACES = "libpga_tpu/ops/pallas_step.py:1460"  # _multigen_kernel
+MULTIGEN_PROFILE_GENS = 40
 # Philox statistics bands (n ~ 1e6 children, 1e8 genes): the standard
 # errors are ~2e-4 or smaller, so these bands are > 5 sigma wide.
 MEAN_RANK_BAND = (1 / 3 - 0.004, 1 / 3 + 0.002)  # E = 1/3 - O(1/K)
@@ -109,6 +149,22 @@ def nguyen12(a, b):
 
 class SmokeError(RuntimeError):
     pass
+
+
+class Tee:
+    """A text stream that writes to two streams."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self):
+        for stream in self.streams:
+            stream.flush()
 
 
 def check(ok: bool, what: str) -> None:
@@ -690,6 +746,301 @@ def phase_tsp_run(port, kernels, results):
         port.pga_deinit(pga)
 
 
+def phase_fused_objectives(fs, device, results):
+    """The deme-breed kernel's in-kernel sphere, rastrigin and ackley
+    scores against the plain version, in both row-map layouts."""
+    import torch
+
+    from libpga_tpu_torch import objectives as obj
+
+    for layout, (P, L) in FUSED_SHAPES.items():
+        geom = fs.resolve_geometry(P, L)
+        check(geom.layout == layout, f"fused {P}x{L}: layout {geom.layout}")
+        gen = torch.Generator(device=device).manual_seed(P)
+        g, s = population(geom, gen, device)
+        ranks = fs.compute_ranks(s, geom, 0, fs.draw_tie_words(gen, geom.Pp, device))
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+        errs = {}
+        for name in ("sphere", "rastrigin", "ackley"):
+            o = obj.get(name)
+            kw = dict(mparams=torch.tensor([0.05, 0.0], device=device), obj_id=o.fused_id)
+            got = fs.deme_breed(g, ranks, geom, 0, seed=seed, **kw)
+            want = fs.deme_breed_reference(
+                g, ranks, geom, 0, fs.philox_draws(seed, geom.G, geom.K, L), **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], want[0]), f"fused {name} {layout}: genomes differ")
+            check(bool(torch.isinf(got[1][P:]).all()), f"fused {name} {layout}: pad scores")
+            a, b = got[1][:P], want[1][:P]
+            rel = float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+            check(bool(torch.isclose(a, b, rtol=FUSED_RTOL, atol=0.0).all()),
+                  f"fused {name} {layout}: score rel error {rel}")
+            rows = o(got[0][:P])
+            check(bool(torch.isclose(a, rows, rtol=FUSED_RTOL, atol=0.0).all()),
+                  f"fused {name} {layout}: kernel score against the rowwise form")
+            errs[name] = rel
+        results[layout]["fused_objective_rel_err"] = errs
+        print(json.dumps({"phase": "fused_objectives", "layout": layout, "shape": [P, L],
+                          "genomes_equal": True, "max_rel_err": errs, "rtol": FUSED_RTOL}),
+              flush=True)
+
+
+def multigen_bound(geom, steps: int) -> tuple:
+    """Least time (ms) for one multigen launch and what sets it: the
+    larger of the bytes it must move whatever ``steps`` is (population
+    and scores read once and written once) over the memory rate, and the
+    float32 operations the function needs per sub-generation (K*log2(K)
+    compares to rank a deme, a crossover select and a score add per
+    gene; loads are not operations) over the float32 rate."""
+    nbytes = 2 * geom.Pp * geom.L * 4 + 2 * geom.Pp * 4
+    ops = steps * (geom.K * math.log2(geom.K) * geom.G + 2 * geom.Pp * geom.L)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def multigen_draws(fs, geom, steps, gen, device):
+    """Random injected draws of ``steps`` sub-generations."""
+    import torch
+
+    G, K, L, T = geom.G, geom.K, geom.L, max(steps, 1)
+    return fs.Draws(
+        sel_u=torch.rand((T, G, K, 2), generator=gen, device=device),
+        cross=(torch.rand((T, G, K, L), generator=gen, device=device) < 0.5).to(torch.uint8),
+        mut_u=torch.rand((T, G, K, 4), generator=gen, device=device),
+        tie=torch.randint(0, 2**32, (T, G, K), generator=gen, device=device),
+    )
+
+
+def phase_multigen_compare(fs, kernels, device, results):
+    """The multigen kernel against its plain version; times the kernel
+    over a sweep of step counts and the plain version at 3 steps."""
+    import torch
+
+    from libpga_tpu_torch import objectives as obj
+
+    # (case, P, L, parity, steps, elitism, target, objective)
+    cases = [
+        ("riffle-1M", 1 << 20, 100, 0, 3, 0, None, "onemax"),
+        ("riffle-40k-steps0", 40_000, 100, 0, 0, 0, None, "onemax"),
+        ("riffle-40k-steps1", 40_000, 100, 0, 1, 0, None, "onemax"),
+        ("riffle-40k-steps3", 40_000, 100, 0, 3, 0, None, "onemax"),
+        ("riffle-40k-steps8", 40_000, 100, 0, 8, 0, None, "onemax"),
+        ("riffle-40k-elitism2", 40_000, 100, 0, 3, 2, None, "onemax"),
+        ("riffle-40k-target", 40_000, 100, 0, 3, 0, 58.0, "onemax"),
+        ("riffle-40k-bits", 40_000, 100, 0, 3, 0, 63.0, "onemax_bits"),
+        ("pingpong0-512k", 524_288, 100, 0, 3, 0, None, "onemax"),
+        ("pingpong1-512k", 524_288, 100, 1, 3, 0, None, "onemax"),
+        ("pingpong1-512k-target-elitism2", 524_288, 100, 1, 3, 2, 67.0, "onemax_bits"),
+        ("pingpong0-padded", 1000, 100, 0, 3, 0, None, "onemax"),
+        ("pingpong1-padded", 1000, 100, 1, 3, 0, None, "onemax"),
+    ]
+    mparams = torch.tensor([0.05, 0.0], device=device)
+    for name, P, L, parity, steps, e, target, oname in cases:
+        o = obj.get(oname)
+        geom = fs.resolve_geometry(P, L, multigen=True, elitism=e)
+        check(geom.layout == name.split("-")[0].rstrip("01"), f"{name}: layout {geom.layout}")
+        gen = torch.Generator(device=device).manual_seed(P + parity + steps)
+        g, _ = population(geom, gen, device)
+        s = torch.full((geom.Pp,), -torch.inf, device=device)
+        s[:P] = o(g[:P])
+        kw = dict(mparams=mparams, obj_id=o.fused_id, elitism=e)
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+        tgt = float("inf") if target is None else target
+        errs, frozen = [], None
+        for mode in (dict(draws=multigen_draws(fs, geom, steps, gen, device)), dict(seed=seed)):
+            got = fs.multigen_breed(g, s, geom, parity, steps, target, **mode, **kw)
+            want = fs.multigen_breed_reference(g, s, geom, parity, steps, tgt, **mode, **kw)
+            torch.cuda.synchronize()
+            tag = f"{name} {'injected' if 'draws' in mode else 'philox'}"
+            check(torch.equal(got[0], want[0]), f"{tag}: genomes differ")
+            check(torch.equal(torch.isinf(got[1]), torch.isinf(want[1]))
+                  and bool(torch.isinf(got[1][P:]).all()), f"{tag}: -inf rows differ")
+            fin = torch.isfinite(want[1])
+            err = float((got[1][fin] - want[1][fin]).abs().max())
+            check(err <= SCORE_ATOL, f"{tag}: score error {err}")
+            errs.append(err)
+            if target is not None:
+                read, _ = geom.row_maps(parity, device)
+                best = torch.where(read < P, s[read], -torch.inf).reshape(geom.S, -1).amax(dim=1)
+                frozen = int((best >= target).sum())
+                check(0 < frozen < geom.S, f"{tag}: {frozen} of {geom.S} groups frozen at entry")
+            if steps:
+                check(not torch.equal(got[0], g), f"{tag}: nothing bred")
+        print(json.dumps({"phase": "multigen_compare", "case": name, "shape": [P, L],
+                          "layout": geom.layout, "K": geom.K, "D": geom.D, "S": geom.S,
+                          "Pp": geom.Pp, "steps": steps, "elitism": e, "target": target,
+                          "groups_frozen_at_entry": frozen, "objective": oname,
+                          "genomes_equal": True, "scores_equal": max(errs) == 0.0,
+                          "max_abs_err": max(errs), "score_atol": SCORE_ATOL}), flush=True)
+        r = results.setdefault(geom.layout, {})
+        r["max_abs_err"] = max(r.get("max_abs_err", 0.0), max(errs))
+
+    # Rastrigin: cosf on the card against torch.cos. One step is gated;
+    # three steps are reported (a last-bit score difference can swap two
+    # ranks, after which the genomes differ).
+    P, L = 40_000, 100
+    geom = fs.resolve_geometry(P, L, multigen=True)
+    gen = torch.Generator(device=device).manual_seed(5)
+    g, _ = population(geom, gen, device)
+    s = torch.full((geom.Pp,), -torch.inf, device=device)
+    s[:P] = obj.rastrigin(g[:P])
+    seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+    kw = dict(seed=seed, mparams=mparams, obj_id=obj.rastrigin.fused_id)
+    line = {"phase": "multigen_compare", "case": "riffle-40k-rastrigin", "shape": [P, L]}
+    for steps in (1, 3):
+        got = fs.multigen_breed(g, s, geom, 0, steps, None, **kw)
+        want = fs.multigen_breed_reference(g, s, geom, 0, steps, float("inf"), **kw)
+        torch.cuda.synchronize()
+        rows_equal = float((got[0] == want[0]).all(dim=1).float().mean())
+        a, b = got[1][:P], want[1][:P]
+        rel = float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+        line[f"steps{steps}"] = {"rows_equal_share": rows_equal, "score_max_rel_err": rel,
+                                 "scores_equal_share": float((a == b).float().mean())}
+        if steps == 1:
+            check(rows_equal == 1.0, "multigen rastrigin, 1 step: genomes differ")
+            check(bool(torch.isclose(a, b, rtol=FUSED_RTOL, atol=0.0).all()),
+                  f"multigen rastrigin, 1 step: score rel error {rel}")
+    print(json.dumps(line), flush=True)
+
+    # Times, at the shapes multigen_run drives.
+    for layout, shapes in MULTIGEN_RUN_SHAPES.items():
+        for P, L in shapes:
+            geom = fs.resolve_geometry(P, L, multigen=True)
+            gen = torch.Generator(device=device).manual_seed(P)
+            g, s = population(geom, gen, device)
+            seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+            kw = dict(seed=seed, mparams=mparams, obj_id=obj.onemax.fused_id)
+            out = torch.empty_like(g)
+            work = [torch.empty_like(g), torch.empty_like(g)]
+            sweep = {}
+            for T in MULTIGEN_SWEEP:
+                ms = cuda_ms(lambda: fs.multigen_breed(
+                    g, s, geom, 0, T, None, out=out, work=work, **kw), 10 if P > 100_000 else 50)
+                bound_ms, bound_by = multigen_bound(geom, T)
+                sweep[T] = {"ms": ms, "ms_per_gen": ms / T, "bound_ms": bound_ms,
+                            "bound_by": bound_by}
+            plain = {T: cuda_ms(lambda: fs.multigen_breed_reference(
+                g, s, geom, 0, T, float("inf"), **kw), 2) for T in (3, MULTIGEN_T)}
+            print(json.dumps({"phase": "multigen_times", "shape": [P, L], "layout": geom.layout,
+                              "K": geom.K, "D": geom.D, "S": geom.S,
+                              "kernel_by_steps": sweep,
+                              "plain_ms_by_steps": plain}),
+                  flush=True)
+            results[layout].setdefault("shapes", {})[P] = dict(
+                ms=sweep[MULTIGEN_T]["ms"], bound_ms=sweep[MULTIGEN_T]["bound_ms"],
+                bound_by=sweep[MULTIGEN_T]["bound_by"], plain_ms=plain[MULTIGEN_T],
+                plain_ms_at_3_steps=plain[3],
+                ms_by_steps={T: v["ms"] for T, v in sweep.items()})
+
+
+def multigen_solver(port, P, L, T, seed=1):
+    """A OneMax solver through the pga_* API at T generations per launch
+    (None: the default, one)."""
+    pga = port.pga_init(seed=seed, config=port.PGAConfig(generations_per_launch=T))
+    h = port.pga_create_population(pga, P, L)
+    port.pga_set_objective_function(pga, "onemax")
+    return pga, h
+
+
+def timed_run(port, pga, gens):
+    """(generations run, seconds) of one pga_run, synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ran = port.pga_run(pga, gens)
+    torch.cuda.synchronize()
+    return ran, time.perf_counter() - t0
+
+
+def phase_multigen_run(port, kernels, results):
+    """PGA.run with generations_per_launch=8 through the pga_* API."""
+    import torch
+
+    T = MULTIGEN_T
+    for layout, shapes in MULTIGEN_RUN_SHAPES.items():
+        for P, L in shapes:
+            pga, h = multigen_solver(port, P, L, T)
+            start_best = float(pga.population(h).genomes.sum(dim=1).max())
+            check(port.pga_run(pga, T) == T, "multigen warm-up")
+            kernels.reset_launches()
+            gens, seconds = timed_run(port, pga, RUN_GENS)
+            launches = dict(kernels.LAUNCHES)
+            _, best = pga.get_best_with_score(h)
+            pop = pga.population(h)
+            check(gens == RUN_GENS, f"multigen {P}: ran {gens} generations")
+            check(launches["multigen"] == RUN_GENS // T and sum(launches.values()) == RUN_GENS // T,
+                  f"multigen {P}: launches {launches} for {gens} generations at T={T}")
+            check(best > start_best + 10.0 and best < L, f"multigen {P}: best {start_best} -> {best}")
+            check(bool(torch.isclose(pop.scores, pop.genomes.sum(dim=1), rtol=0, atol=SCORE_ATOL).all()),
+                  f"multigen {P}: scores are not the genomes' onemax")
+            # The same run at one generation per launch, in the same call.
+            one, _ = multigen_solver(port, P, L, None)
+            port.pga_run(one, WARMUP_GENS)
+            gens1, seconds1 = timed_run(port, one, RUN_GENS)
+            port.pga_deinit(one)
+            shape_r = results[layout]["shapes"][P]
+            line = {"phase": "multigen_run", "layout": layout, "shape": [P, L],
+                    "generations_per_launch": T, "gens": gens, "launches": launches,
+                    "gens_per_s": gens / seconds, "ms_per_gen": 1e3 * seconds / gens,
+                    "one_per_launch_gens_per_s": gens1 / seconds1,
+                    "one_per_launch_ms_per_gen": 1e3 * seconds1 / gens1,
+                    "kernel_ms_per_launch": shape_r["ms"],
+                    "bound_ms_per_launch": shape_r["bound_ms"],
+                    "start_best": start_best, "best": best}
+            print(json.dumps(line), flush=True)
+            shape_r.update(launches=launches["multigen"], ms_per_gen=line["ms_per_gen"],
+                           one_per_launch_ms_per_gen=line["one_per_launch_ms_per_gen"])
+            print(json.dumps({"phase": "multigen_profile", "layout": layout, "shape": [P, L],
+                              "generations_per_launch": T, **profile_generations(
+                                  port, pga, 1e3 * seconds / gens, MULTIGEN_PROFILE_GENS)}),
+                  flush=True)
+            port.pga_deinit(pga)
+
+    # 203 generations land on 203: 25 launches of 8 and one of 3.
+    P, L = MAIN_SHAPES["riffle"]
+    pga, _ = multigen_solver(port, P, L, T)
+    kernels.reset_launches()
+    gens = port.pga_run(pga, 203)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(json.dumps({"phase": "multigen_remainder", "shape": [P, L], "gens": gens,
+                      "launches": launches, "solver_launches": pga.launches}), flush=True)
+    check(gens == 203 and launches["multigen"] == 26 and pga.launches == 26
+          and sum(launches.values()) == 26, f"multigen remainder: {gens} generations, {launches}")
+    port.pga_deinit(pga)
+
+    # Target: the stop is seen once per launch; the achiever is kept.
+    target = 70.0
+    pga, h = multigen_solver(port, P, L, T, seed=2)
+    gens = port.pga_run(pga, 10_000, target=target)
+    best = pga.get_best_with_score(h)[1]
+    earlier, h2 = multigen_solver(port, P, L, T, seed=2)
+    port.pga_run(earlier, gens - T)
+    prev = earlier.get_best_with_score(h2)[1]
+    print(json.dumps({"phase": "multigen_target", "shape": [P, L], "target": target,
+                      "generations_per_launch": T, "gens": gens, "best": best,
+                      "best_one_launch_earlier": prev}), flush=True)
+    check(0 < gens < 10_000 and gens % T == 0 and best >= target > prev,
+          f"multigen target: {gens} generations, best {best}, a launch earlier {prev}")
+    port.pga_deinit(pga)
+    port.pga_deinit(earlier)
+
+    # Generations per launch, up and then down the sweep, in one process.
+    for P, L in (MAIN_SHAPES["riffle"], MAIN_SHAPES["pingpong"]):
+        readings = {T: [] for T in MULTIGEN_SWEEP}
+        for T in MULTIGEN_SWEEP + MULTIGEN_SWEEP[::-1]:
+            pga, _ = multigen_solver(port, P, L, T)
+            port.pga_run(pga, max(T, WARMUP_GENS))
+            gens, seconds = timed_run(port, pga, RUN_GENS)
+            check(gens == RUN_GENS, f"multigen sweep T={T}: ran {gens}")
+            readings[T].append(1e3 * seconds / gens)
+            port.pga_deinit(pga)
+        print(json.dumps({"phase": "multigen_sweep", "shape": [P, L], "gens": RUN_GENS,
+                          "ms_per_gen_by_generations_per_launch": readings,
+                          "gens_per_s": {T: [1e3 / v for v in r] for T, r in readings.items()}}),
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -706,6 +1057,19 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--log", type=Path, help="also write every printed line to this file")
+    log = parser.parse_args().log
+    if log is None:
+        return drive(torch, port, onemax, fs, kernels)
+    log.parent.mkdir(parents=True, exist_ok=True)
+    with open(log, "w") as f, contextlib.redirect_stdout(Tee(sys.stdout, f)):
+        return drive(torch, port, onemax, fs, kernels)
+
+
+def drive(torch, port, onemax, fs, kernels) -> int:
+    """Every phase, then the kernels line, the card's line and the
+    result line."""
     device = torch.device("cuda", 0)
     smi = nvidia_smi()
     print(json.dumps({"phase": "device", "name": torch.cuda.get_device_name(0),
@@ -727,6 +1091,10 @@ def main() -> int:
     tsp_results = {}
     phase_tsp_compare(fs, device, tsp_results)
     phase_tsp_run(port, kernels, tsp_results)
+    phase_fused_objectives(fs, device, results)
+    mg_results = {}
+    phase_multigen_compare(fs, kernels, device, mg_results)
+    phase_multigen_run(port, kernels, mg_results)
 
     entries = []
     for layout, r in results.items():
@@ -736,6 +1104,24 @@ def main() -> int:
             "replaces": REPLACES[layout], "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "fused_objective_rel_err": r["fused_objective_rel_err"],
+        })
+    for layout, r in mg_results.items():
+        # ms, plain_ms, bound and launches: T = 8 at the layout's first
+        # run shape.
+        (P, L), rest = MULTIGEN_RUN_SHAPES[layout][0], MULTIGEN_RUN_SHAPES[layout][1:]
+        first = r["shapes"][P]
+        entries.append({
+            "name": f"multigen_breed[{layout}]", "route": "cuda",
+            "source": "libpga_tpu_torch/csrc/deme_breed.cu",
+            "replaces": MULTIGEN_REPLACES, "launches": first["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": None,
+            "shape": [P, L], "steps": MULTIGEN_T,
+            "plain_ms_at_3_steps": first["plain_ms_at_3_steps"],
+            "ms_by_steps": first["ms_by_steps"],
+            "other_shapes": {str(p): r["shapes"][p] for p, _ in rest},
         })
     for mode, r in gp_results.items():
         main_r, bench_r = r["main"], r["bench"]

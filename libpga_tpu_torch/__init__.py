@@ -3,7 +3,9 @@ NVIDIA H100.
 
 ``PGA.run`` on float32 genomes launches one hand-written CUDA kernel per
 generation (``csrc/deme_breed.cu``: uniform crossover, or order
-crossover with the fused TSP score), or takes the panmictic path
+crossover with the fused TSP score; with
+``PGAConfig(generations_per_launch=T)`` one launch of the
+multi-generation kernel per T generations), or takes the panmictic path
 (whole-population selection and operators in torch) for small
 populations and operators without a kernel form. GP symbolic regression (``libpga_tpu_torch.gp``) runs on
 the panmictic path and scores every generation with one launch of the

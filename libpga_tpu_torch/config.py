@@ -2,9 +2,11 @@
 
 The subset of ``libpga_tpu.config.PGAConfig`` that ``PGA.run`` reads,
 plus the device the solver runs on. Field names
-match the JAX package except ``deme_size``, which is the JAX package's
-``pallas_deme_size`` (rows per selection deme; on the GPU it fixes which
-rows form a cohort, not a VMEM block).
+match the JAX package except ``deme_size``, ``generations_per_launch``
+and ``layout``, which drop the JAX package's ``pallas_`` prefix
+(``deme_size``: rows per selection deme; on the GPU it fixes which rows
+form a cohort, not a VMEM block), and ``use_deme_kernel``, its
+``use_pallas``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,18 @@ class PGAConfig:
       deme_size: preferred rows per deme (power of two in [128, 1024]);
         None picks the JAX package's measured default, so both packages
         group the same rows into the same cohorts.
+      generations_per_launch: generations bred per launch of the deme
+        path (JAX's ``pallas_generations_per_launch``). None (default)
+        or 1: the one-generation kernels. T > 1: the multi-generation
+        kernel, where it admits the run (a rowwise-fused objective,
+        uniform crossover, ``elitism < K // 4``); the target is then
+        checked once per launch, elitism is per deme, and demes regroup
+        only between launches. Where it declines, ``PGA.run`` warns and
+        breeds one generation per launch.
+      layout: row map of the deme kernels (JAX's ``pallas_layout``):
+        None (default) picks ping-pong where its mixing gate admits,
+        else the riffle; "riffle" or "pingpong" forces one ("pingpong"
+        raises where inadmissible).
       gene_dtype: torch.float32 only in this slice.
       seed: base seed of the solver's ``torch.Generator``; None draws
         one from OS entropy.
@@ -50,6 +64,8 @@ class PGAConfig:
     mutation_rate: float = 0.01
     elitism: int = 0
     deme_size: Optional[int] = None
+    generations_per_launch: Optional[int] = None
+    layout: Optional[str] = None
     gene_dtype: torch.dtype = torch.float32
     seed: Optional[int] = None
     device: str = "cuda"
@@ -63,6 +79,10 @@ class PGAConfig:
             raise ValueError("mutation_rate must be in [0, 1]")
         if self.elitism < 0:
             raise ValueError("elitism must be >= 0")
+        if self.generations_per_launch is not None and self.generations_per_launch < 1:
+            raise ValueError("generations_per_launch must be >= 1")
+        if self.layout not in (None, "riffle", "pingpong"):
+            raise ValueError("layout must be None, 'riffle' or 'pingpong'")
         if self.gene_dtype != torch.float32:
             raise NotImplementedError(
                 f"gene_dtype {self.gene_dtype} is not ported yet: bfloat16"

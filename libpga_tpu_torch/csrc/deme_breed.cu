@@ -1,6 +1,8 @@
-// deme_breed.cu: one generation of the fused deme breed on Hopper, in two
-// kernels: deme_breed_kernel (uniform crossover) and, at the end of this
-// file, order_breed_kernel (order crossover and the fused TSP score).
+// deme_breed.cu: the fused deme breed on Hopper, in three kernels:
+// deme_breed_kernel (one generation, uniform crossover), order_breed_kernel
+// (one generation, order crossover and the fused TSP score) and, at the end
+// of this file, multigen_breed_kernel (up to T generations per launch with
+// the ranks computed inside the kernel).
 //
 // deme_breed_kernel replaces, in libpga_tpu/ops/pallas_step.py:
 //   _pp_breed_kernel (ping-pong row maps, parity 0 and 1),
@@ -14,8 +16,9 @@
 // row_of_rank[] in shared memory, so a winner rank is a direct gather
 // (JAX gathers with a bf16 hi/lo one-hot matmul, accurate to ~1e-5; the
 // gather here is exact). Then uniform crossover, point / gaussian / swap
-// mutation, and for onemax / onemax_bits the child's score. Each child is
-// written to the physical row its row map names:
+// mutation, and for a rowwise-fused objective (onemax, onemax_bits, sphere,
+// rastrigin, ackley) the child's score. Each child is written to the
+// physical row its row map names:
 //   mode 0/1 ping-pong parity 0/1: child chunk u of deme d of a group
 //            lands at group chunk u*D + d (pingpong_child_rows);
 //   mode 2   riffle: child k of deme g lands at row k*G + g.
@@ -25,10 +28,12 @@
 //
 // Randomness. Production mode: Philox4x32-10, key = the launch seed (one
 // int64 on the card, drawn from the engine's torch.Generator), counter =
-// (child k, deme g, stream, 0); stream 0 = selection, 1 = mutation,
-// 2+t = crossover bits of genes [128t, 128t+128), 0x40000000+l = gaussian
-// draws of gene l. Uniforms are (bits >> 8) * 2^-24. Injected mode reads
-// the draw tensors the plain version consumes (seed == nullptr).
+// (child k, deme g, stream, sub-generation: 0 in the one-generation
+// kernels); stream 0 = selection, 1 = mutation, 2+t = crossover bits of
+// genes [128t, 128t+128), 0x40000000+l = gaussian draws of gene l,
+// 0x60000000 = the rank tie word of row k (multigen only). Uniforms are
+// (bits >> 8) * 2^-24. Injected mode reads the draw tensors the plain
+// version consumes (seed == nullptr).
 //
 // Bound. Memory: a generation must read the population once and write
 // it once, P*L*4 bytes each way: 0.84 GB at 1,048,576x100, >= 0.25 ms at
@@ -42,7 +47,8 @@
 // block reads a row another block writes. Philox calls of one child are
 // spread over the warp's lanes and their words shuffled to the lanes that
 // need them. Reaching the bound (TMA, persistent blocks, a CUDA graph
-// around the run loop, several generations per launch) is later work.
+// around the run loop) is later work; several generations per launch is
+// multigen_breed_kernel below.
 //
 // Built with --fmad=false so the float32 selection arithmetic is not
 // contracted into multiply-adds and rounds as the torch version does.
@@ -56,7 +62,10 @@ namespace {
 enum { MODE_PP0 = 0, MODE_PP1 = 1, MODE_RIFFLE = 2 };
 enum { SEL_TOURNAMENT = 0, SEL_TRUNCATION = 1, SEL_LINEAR_RANK = 2 };
 enum { MUT_POINT = 0, MUT_GAUSSIAN = 1, MUT_SWAP = 2 };
-enum { OBJ_NONE = 0, OBJ_ONEMAX = 1, OBJ_ONEMAX_BITS = 2, OBJ_TSP = 3 };
+enum {
+  OBJ_NONE = 0, OBJ_ONEMAX = 1, OBJ_ONEMAX_BITS = 2, OBJ_TSP = 3,
+  OBJ_SPHERE = 4, OBJ_RASTRIGIN = 5, OBJ_ACKLEY = 6
+};
 
 constexpr int THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
@@ -65,6 +74,9 @@ constexpr uint32_t STREAM_MUT = 1u;
 constexpr uint32_t STREAM_CROSS = 2u;
 constexpr uint32_t STREAM_FILL = 0x20000000u;
 constexpr uint32_t STREAM_GAUSS = 0x40000000u;
+constexpr uint32_t STREAM_TIE = 0x60000000u;
+constexpr float TWO_PI = (float)(2.0 * 3.14159265358979323846);
+constexpr float U1_HI = (float)(1.0 - 1e-7);
 
 struct Geometry {
   int P, Pp, L, K, G, mode, S, D, q;
@@ -81,6 +93,7 @@ struct Draws {
   const float* mut_u;      // (G, K, 4)
   const float* gauss;      // (3, G, K, L)
   const long long* seed;   // production mode when non-null
+  const long long* tie;    // (G, K) 32-bit rank tie words (multigen, injected mode)
 };
 
 __device__ __forceinline__ uint4 philox(uint32_t k0, uint32_t k1, uint4 c) {
@@ -148,6 +161,218 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
+// One gene's terms of a rowwise objective, added to the lane's partial
+// sums: `a` is the objective's sum, `b` ackley's cosine sum. The float32
+// constants and the operation order are objectives/classic.py's.
+__device__ __forceinline__ void obj_add(int obj, float c, float& a, float& b) {
+  if (obj == OBJ_ONEMAX_BITS) {
+    a += c >= 0.5f ? 1.0f : 0.0f;
+  } else if (obj == OBJ_SPHERE) {
+    const float x = -5.12f + c * 10.24f;
+    a += x * x;
+  } else if (obj == OBJ_RASTRIGIN) {
+    const float x = -5.12f + c * 10.24f;
+    a += x * x - 10.0f * cosf(TWO_PI * x);
+  } else if (obj == OBJ_ACKLEY) {
+    const float x = -32.768f + c * 65.536f;
+    a += x * x;
+    b += cosf(TWO_PI * x);
+  } else {
+    a += c;
+  }
+}
+
+// The objective's score from its sums over all L genes.
+__device__ __forceinline__ float obj_finish(int obj, float a, float b, int L) {
+  if (obj == OBJ_SPHERE) return -a;
+  if (obj == OBJ_RASTRIGIN) return -((float)(10.0 * L) + a);
+  if (obj == OBJ_ACKLEY) {
+    const float n = (float)L;
+    const float s1 = sqrtf(a / n), s2 = b / n;
+    return -(-20.0f * expf(-0.2f * s1) - expf(s2) + 20.0f + (float)2.718281828459045);
+  }
+  return a;
+}
+
+template <bool LDG>
+__device__ __forceinline__ float load_gene(const float* p) {
+  if constexpr (LDG) return __ldg(p);
+  return *p;
+}
+
+// What a warp needs to breed one child, fixed for the launch.
+struct BreedCtx {
+  bool philox_mode;
+  uint32_t k0, k1;   // Philox key: the launch seed
+  int L, ntiles, ncalls;
+  size_t plane;      // G*K*L, the stride of the injected gaussian planes
+  float rate, sigma;
+  int mutate, obj;
+};
+
+// The selection and mutation draws of one child, and in production mode
+// the round-0 Philox words of this lane's call.
+struct ChildRand {
+  uint4 w;
+  float su0, su1, mu0, mu1, mu2;
+};
+
+// Draws of child k of deme g in sub-generation t (the fourth counter
+// word). Round 0 of Philox calls: lane c computes call c (0 = selection,
+// 1 = mutation, 2+tile = crossover bits). `child` = g*K + k indexes the
+// injected tensors.
+__device__ __forceinline__ ChildRand child_rand(
+    const BreedCtx& cx, const Draws& dr, int k, int g, uint32_t t, int lane, size_t child) {
+  ChildRand r;
+  r.w = make_uint4(0u, 0u, 0u, 0u);
+  if (cx.philox_mode) {
+    if (lane < cx.ncalls) r.w = philox(cx.k0, cx.k1, make_uint4(k, g, lane, t));
+    r.su0 = to_uniform(__shfl_sync(FULL, r.w.x, 0));
+    r.su1 = to_uniform(__shfl_sync(FULL, r.w.y, 0));
+    r.mu0 = to_uniform(__shfl_sync(FULL, r.w.x, 1));
+    r.mu1 = to_uniform(__shfl_sync(FULL, r.w.y, 1));
+    r.mu2 = to_uniform(__shfl_sync(FULL, r.w.z, 1));
+  } else {
+    r.su0 = dr.sel_u[child * 2];
+    r.su1 = dr.sel_u[child * 2 + 1];
+    r.mu0 = dr.mut_u[child * 4];
+    r.mu1 = dr.mut_u[child * 4 + 1];
+    r.mu2 = dr.mut_u[child * 4 + 2];
+  }
+  return r;
+}
+
+// One warp crosses parents p1 and p2 into `out`, mutates (unless
+// !may_mutate: an elite copy) and sums the objective's terms of the child as
+// written: each lane adds its genes l = lane, lane+32, ... in that order,
+// then the lanes combine through the warp_sum butterfly; the plain version
+// (fused_step.warp_order_scores) sums in the same order. Returns the sums in
+// `a` and `b` on every lane.
+template <bool LDG>
+__device__ __forceinline__ void breed_genes(
+    const BreedCtx& cx, const Draws& dr, const float* p1, const float* p2, float* out,
+    ChildRand r, int k, int g, uint32_t t, int lane, size_t child, bool may_mutate,
+    float& a, float& b) {
+  const int L = cx.L, mutate = cx.mutate, obj = cx.obj;
+  // point: gene pos takes mu2 when mu1 < rate; swap: genes pos, pj
+  // exchange when mu2 < rate.
+  const int pos = (int)floorf(r.mu0 * (float)L);
+  const int pj = (int)floorf(r.mu1 * (float)L);
+  const bool fire = may_mutate && (mutate == MUT_SWAP ? r.mu2 < cx.rate : r.mu1 < cx.rate);
+  a = 0.0f;
+  b = 0.0f;
+
+  // Mutates gene l of the crossed child, writes it and adds its terms.
+  auto finish = [&](int l, float c) {
+    if (mutate == MUT_POINT) {
+      if (fire && l == pos) c = r.mu2;
+    } else if (mutate == MUT_GAUSSIAN) {
+      float gate, u1, u2;
+      if (cx.philox_mode) {
+        const uint4 z = philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_GAUSS + l, t));
+        gate = to_uniform(z.x);
+        u1 = to_uniform(z.y);
+        u2 = to_uniform(z.z);
+      } else {
+        const size_t at = child * L + l;
+        gate = dr.gauss[at];
+        u1 = dr.gauss[cx.plane + at];
+        u2 = dr.gauss[2 * cx.plane + at];
+      }
+      u1 = fminf(fmaxf(u1, 1e-7f), U1_HI);
+      const float normal = sqrtf(-2.0f * logf(u1)) * cosf(TWO_PI * u2);
+      const float m = fminf(fmaxf(c + cx.sigma * normal, 0.0f), U1_HI);
+      if (may_mutate && gate < cx.rate) c = m;
+    }
+    out[l] = c;
+    obj_add(obj, c, a, b);
+  };
+  // A tile is 128 genes, four per lane. The lane fetches its four parent
+  // genes (bit set: parent 2) before it writes any, so the loads are in
+  // flight together, and finishes them in l order.
+  auto tile = [&](int base, uint32_t b0, uint32_t b1, uint32_t b2, uint32_t b3) {
+    const int l0 = base + lane, l1 = l0 + 32, l2 = l0 + 64, l3 = l0 + 96;
+    float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, c3 = 0.0f;
+    if (l0 < L) c0 = load_gene<LDG>((b0 ? p2 : p1) + l0);
+    if (l1 < L) c1 = load_gene<LDG>((b1 ? p2 : p1) + l1);
+    if (l2 < L) c2 = load_gene<LDG>((b2 ? p2 : p1) + l2);
+    if (l3 < L) c3 = load_gene<LDG>((b3 ? p2 : p1) + l3);
+    if (l0 < L) finish(l0, c0);
+    if (l1 < L) finish(l1, c1);
+    if (l2 < L) finish(l2, c2);
+    if (l3 < L) finish(l3, c3);
+  };
+
+  if (cx.philox_mode) {
+    uint4 w = r.w;
+    for (int base = 0; base < cx.ncalls; base += 32) {
+      if (base) {
+        const uint32_t c = base + lane;
+        w = c < (uint32_t)cx.ncalls ? philox(cx.k0, cx.k1, make_uint4(k, g, c, t))
+                                    : make_uint4(0u, 0u, 0u, 0u);
+      }
+      const int t_hi = min(base + 30, cx.ntiles);
+      for (int i = max(base - 2, 0); i < t_hi; ++i) {
+        const int src = i + (int)STREAM_CROSS - base;
+        const uint32_t b0 = __shfl_sync(FULL, w.x, src);
+        const uint32_t b1 = __shfl_sync(FULL, w.y, src);
+        const uint32_t b2 = __shfl_sync(FULL, w.z, src);
+        const uint32_t b3 = __shfl_sync(FULL, w.w, src);
+        tile(128 * i, (b0 >> lane) & 1u, (b1 >> lane) & 1u, (b2 >> lane) & 1u,
+             (b3 >> lane) & 1u);
+      }
+    }
+  } else {
+    const uint8_t* bits = dr.cross + child * L;
+    for (int base = 0; base < L; base += 128) {
+      const int l0 = base + lane;
+      tile(base, l0 < L ? bits[l0] : 0u, l0 + 32 < L ? bits[l0 + 32] : 0u,
+           l0 + 64 < L ? bits[l0 + 64] : 0u, l0 + 96 < L ? bits[l0 + 96] : 0u);
+    }
+  }
+
+  if (mutate == MUT_SWAP && fire && pos < L && pj < L) {
+    __syncwarp();
+    if (lane == 0) {
+      const float x = out[pos], y = out[pj];
+      out[pos] = y;
+      out[pj] = x;
+    }
+    __syncwarp();
+    if (obj != OBJ_NONE) {
+      // The score is of the child as written: sum again after the swap.
+      a = 0.0f;
+      b = 0.0f;
+      for (int l = lane; l < L; l += 32) obj_add(obj, out[l], a, b);
+    }
+  }
+  if (obj != OBJ_NONE) {
+    a = warp_sum(a);
+    b = warp_sum(b);
+  }
+}
+
+__device__ __forceinline__ BreedCtx breed_ctx(
+    const Draws& dr, const float* mparams, const Geometry& geo, int mutate, int obj) {
+  BreedCtx cx;
+  cx.philox_mode = dr.seed != nullptr;
+  cx.k0 = cx.k1 = 0u;
+  if (cx.philox_mode) {
+    const unsigned long long s = (unsigned long long)dr.seed[0];
+    cx.k0 = (uint32_t)s;
+    cx.k1 = (uint32_t)(s >> 32);
+  }
+  cx.L = geo.L;
+  cx.ntiles = (geo.L + 127) / 128;
+  cx.ncalls = 2 + cx.ntiles;  // Philox calls per child
+  cx.plane = (size_t)geo.G * geo.K * geo.L;
+  cx.rate = mparams[0];
+  cx.sigma = mparams[1];
+  cx.mutate = mutate;
+  cx.obj = obj;
+  return cx;
+}
+
 __global__ void __launch_bounds__(THREADS) deme_breed_kernel(
     const float* __restrict__ gin, float* __restrict__ gout, float* __restrict__ sout,
     const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr,
@@ -169,119 +394,23 @@ __global__ void __launch_bounds__(THREADS) deme_breed_kernel(
   __syncthreads();
 
   const float V = (float)max(s_valid, 1);
-  const float rate = mparams[0], sigma = mparams[1];
-  const bool philox_mode = dr.seed != nullptr;
-  uint32_t k0 = 0, k1 = 0;
-  if (philox_mode) {
-    const unsigned long long s = (unsigned long long)dr.seed[0];
-    k0 = (uint32_t)s;
-    k1 = (uint32_t)(s >> 32);
-  }
-  const int ntiles = (L + 127) / 128;
-  const int ncalls = 2 + ntiles;  // Philox calls per child
-  const size_t plane = (size_t)geo.G * K * L;
-  const float two_pi = 2.0f * 3.14159265358979323846f;
-  const float u1_hi = (float)(1.0 - 1e-7);
+  const BreedCtx cx = breed_ctx(dr, mparams, geo, mutate, obj);
 
   for (int k = warp; k < K; k += blockDim.x >> 5) {
     const size_t child = (size_t)g * K + k;
-    // Round 0 of Philox calls: lane c computes call c (0 = selection,
-    // 1 = mutation, 2+t = crossover tile t).
-    uint4 w = make_uint4(0u, 0u, 0u, 0u);
-    if (philox_mode && lane < ncalls) w = philox(k0, k1, make_uint4(k, g, lane, 0u));
-    float su0, su1, mu0, mu1, mu2;
-    if (philox_mode) {
-      su0 = to_uniform(__shfl_sync(FULL, w.x, 0));
-      su1 = to_uniform(__shfl_sync(FULL, w.y, 0));
-      mu0 = to_uniform(__shfl_sync(FULL, w.x, 1));
-      mu1 = to_uniform(__shfl_sync(FULL, w.y, 1));
-      mu2 = to_uniform(__shfl_sync(FULL, w.z, 1));
-    } else {
-      su0 = dr.sel_u[child * 2];
-      su1 = dr.sel_u[child * 2 + 1];
-      mu0 = dr.mut_u[child * 4];
-      mu1 = dr.mut_u[child * 4 + 1];
-      mu2 = dr.mut_u[child * 4 + 2];
-    }
-    const int r1 = winner_rank(winner_fraction(sel, su0), V);
-    const int r2 = winner_rank(winner_fraction(sel, su1), V);
+    const ChildRand r = child_rand(cx, dr, k, g, 0u, lane, child);
+    const int r1 = winner_rank(winner_fraction(sel, r.su0), V);
+    const int r2 = winner_rank(winner_fraction(sel, r.su1), V);
     const int s1 = min(max(row_of_rank[r1], 0), K - 1);
     const int s2 = min(max(row_of_rank[r2], 0), K - 1);
     const float* p1 = gin + (size_t)read_row(geo, g, s1) * L;
     const float* p2 = gin + (size_t)read_row(geo, g, s2) * L;
     const int orow = write_row(geo, g, k);
-    float* out = gout + (size_t)orow * L;
-
-    // point: gene pos takes mu2 when mu1 < rate; swap: genes pi, pj
-    // exchange when mu2 < rate.
-    const int pos = (int)floorf(mu0 * (float)L);
-    const int pj = (int)floorf(mu1 * (float)L);
-    const bool fire = mutate == MUT_SWAP ? mu2 < rate : mu1 < rate;
-    float acc = 0.0f;
-
-    auto gene = [&](int l, uint32_t bit) {
-      if (l >= L) return;
-      float c = bit ? __ldg(p2 + l) : __ldg(p1 + l);
-      if (mutate == MUT_POINT) {
-        if (fire && l == pos) c = mu2;
-      } else if (mutate == MUT_GAUSSIAN) {
-        float gate, u1, u2;
-        if (philox_mode) {
-          const uint4 z = philox(k0, k1, make_uint4(k, g, STREAM_GAUSS + l, 0u));
-          gate = to_uniform(z.x);
-          u1 = to_uniform(z.y);
-          u2 = to_uniform(z.z);
-        } else {
-          const size_t at = child * L + l;
-          gate = dr.gauss[at];
-          u1 = dr.gauss[plane + at];
-          u2 = dr.gauss[2 * plane + at];
-        }
-        u1 = fminf(fmaxf(u1, 1e-7f), u1_hi);
-        const float normal = sqrtf(-2.0f * logf(u1)) * cosf(two_pi * u2);
-        const float m = fminf(fmaxf(c + sigma * normal, 0.0f), u1_hi);
-        if (gate < rate) c = m;
-      }
-      out[l] = c;
-      acc += obj == OBJ_ONEMAX_BITS ? (c >= 0.5f ? 1.0f : 0.0f) : c;
-    };
-
-    if (philox_mode) {
-      for (int base = 0; base < ncalls; base += 32) {
-        if (base) {
-          const uint32_t c = base + lane;
-          w = c < (uint32_t)ncalls ? philox(k0, k1, make_uint4(k, g, c, 0u))
-                                   : make_uint4(0u, 0u, 0u, 0u);
-        }
-        const int t_hi = min(base + 30, ntiles);
-        for (int t = max(base - 2, 0); t < t_hi; ++t) {
-          const int src = t + (int)STREAM_CROSS - base;
-          const uint32_t b0 = __shfl_sync(FULL, w.x, src);
-          const uint32_t b1 = __shfl_sync(FULL, w.y, src);
-          const uint32_t b2 = __shfl_sync(FULL, w.z, src);
-          const uint32_t b3 = __shfl_sync(FULL, w.w, src);
-          gene(128 * t + lane, (b0 >> lane) & 1u);
-          gene(128 * t + 32 + lane, (b1 >> lane) & 1u);
-          gene(128 * t + 64 + lane, (b2 >> lane) & 1u);
-          gene(128 * t + 96 + lane, (b3 >> lane) & 1u);
-        }
-      }
-    } else {
-      for (int l = lane; l < L; l += 32) gene(l, dr.cross[child * L + l]);
-    }
-
-    if (mutate == MUT_SWAP) {
-      __syncwarp();
-      if (lane == 0 && fire && pos < L && pj < L) {
-        const float a = out[pos], b = out[pj];
-        out[pos] = b;
-        out[pj] = a;
-      }
-    }
-    if (obj != OBJ_NONE) {
-      acc = warp_sum(acc);
-      if (lane == 0) sout[orow] = orow < geo.P ? acc : -INFINITY;
-    }
+    float a, b;
+    breed_genes<true>(cx, dr, p1, p2, gout + (size_t)orow * L, r, k, g, 0u, lane, child,
+                      true, a, b);
+    if (obj != OBJ_NONE && lane == 0)
+      sout[orow] = orow < geo.P ? obj_finish(obj, a, b, L) : -INFINITY;
   }
 }
 
@@ -292,8 +421,8 @@ __global__ void __launch_bounds__(THREADS) deme_breed_kernel(
 // Replaces, in libpga_tpu/ops/pallas_step.py, _breed_kernel's order-crossover
 // case: the order branch of _deme_child (:653-732; scratch _order_scratch_shapes,
 // :403), its point / gaussian / swap mutation (:764-813), and the gene-major
-// fused TSP scorer _tsp_eval_gene_major (:819-943), or a fused onemax /
-// onemax_bits. Riffle row map only (order crossover pins D = 1 and is
+// fused TSP scorer _tsp_eval_gene_major (:819-943), or a rowwise-fused
+// objective. Riffle row map only (order crossover pins D = 1 and is
 // riffle-only in JAX): cohort slot k of deme g is row g*K + k, child k lands
 // at row k*G + g.
 //
@@ -308,7 +437,8 @@ __global__ void __launch_bounds__(THREADS) deme_breed_kernel(
 // the walk (no clamp: u < 1). Then, for OBJ_TSP, a second walk over the child
 // scores -(open-path length + penalty * (L - distinct cities)), each edge
 // sqrtf(dx*dx + dy*dy + 1e-12f), summed in l order with the coordinate lookup
-// clamped to C-1; onemax / onemax_bits sum the child in l order.
+// clamped to C-1; the rowwise-fused objectives (onemax, onemax_bits, sphere,
+// rastrigin, ackley) sum the child's terms in l order.
 //
 // Design. The TPU kernel walks gene-major with sublane bitmask reductions
 // (Mosaic has no per-lane control flow) and gathers coordinates with a bf16
@@ -417,8 +547,6 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
   const int pj = (int)floorf(mu1 * (float)L);
   const bool fire = mutate == MUT_SWAP ? mu2 < rate : mu1 < rate;
   const size_t plane = (size_t)G * K * L;
-  const float two_pi = 2.0f * 3.14159265358979323846f;
-  const float u1_hi = (float)(1.0 - 1e-7);
 
   for (int w = 0; w < W; ++w) vis[w * ORDER_THREADS] = 0u;
 #pragma unroll 4
@@ -457,9 +585,9 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
         u1 = dr.gauss[plane + at];
         u2 = dr.gauss[2 * plane + at];
       }
-      u1 = fminf(fmaxf(u1, 1e-7f), u1_hi);
-      const float normal = sqrtf(-2.0f * logf(u1)) * cosf(two_pi * u2);
-      const float m = fminf(fmaxf(c + sigma * normal, 0.0f), u1_hi);
+      u1 = fminf(fmaxf(u1, 1e-7f), U1_HI);
+      const float normal = sqrtf(-2.0f * logf(u1)) * cosf(TWO_PI * u2);
+      const float m = fminf(fmaxf(c + sigma * normal, 0.0f), U1_HI);
       if (gate < rate) c = m;
     }
     out[l] = c;
@@ -492,12 +620,250 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
     }
     score = -(total + penalty * dups);
   } else {
-    for (int l = 0; l < L; ++l) {
-      const float c = out[l];
-      score += obj == OBJ_ONEMAX_BITS ? (c >= 0.5f ? 1.0f : 0.0f) : c;
-    }
+    float a = 0.0f, b = 0.0f;
+    for (int l = 0; l < L; ++l) obj_add(obj, out[l], a, b);
+    score = obj_finish(obj, a, b, L);
   }
   sout[orow] = orow < geo.P ? score : -INFINITY;
+}
+
+
+// ---------------------------------------------------------------------------
+// multigen_breed_kernel: up to T generations per launch (B4).
+//
+// Replaces, in libpga_tpu/ops/pallas_step.py, _multigen_kernel (:1460) with
+// its in-kernel ranks _kernel_ranks (:1398), as built by make_pallas_multigen
+// (:2724) and driven by _multigen_run_loop (:2991). The plain PyTorch version
+// is fused_step.multigen_breed_reference; the kernel computes exactly that
+// function, scores included.
+//
+// What it computes. Block i owns group i: D demes of K rows, read in the
+// parity's cohort order (read_row), private to the block for the whole
+// launch. `steps` (0 = identity up to the row permutation) and `target`
+// (+inf = never) are runtime arguments, so one build serves every chunk and
+// remainder. Each sub-generation t < steps:
+//   (a) frozen = the maximum score over the group's alive rows >= target
+//       (false when an alive score is NaN, as a maximum that propagates NaN
+//       compares): a frozen group keeps genomes and scores, so an individual
+//       that reaches the target mid-launch survives to the launch's end;
+//   (b) ranks per deme from the scores: descending score, NaN and dead rows
+//       as -inf, ties by a fresh random word per row per sub-generation whose
+//       low 10 bits are the row's index in its deme ((bits >> 2) & ~1023 | k,
+//       so the order is strict), dead rows keyed 0x7FFFFC00 | k so they rank
+//       at or after V. Score and tie word pack into one signed 64-bit key;
+//       rank[j] = the number of keys below key[j], counted by one thread per
+//       row over the deme's K keys in shared memory; row_of_rank inverts it;
+//   (c) every child as deme_breed_kernel breeds it (rank-space selection,
+//       uniform crossover, point / gaussian / swap mutation), except that
+//       children k < elitism are verbatim copies of ranks 0..e-1 (per-deme
+//       elitism), and the child's rowwise-fused score;
+//   (d) the deme's K rows are replaced by its K children: demes are fixed
+//       for the launch, the row maps apply once, at its end.
+// A row is alive when its read row is below P (the ping-pong alive mask; the
+// riffle tail deme's positional count); alive is per cohort slot and static
+// for the launch. Write-back: child k of deme g to write_row(g, k), its score
+// beside it, -inf on rows >= P.
+//
+// Bound. Bytes: the population and its scores read once and written once,
+// 2*Pp*L*4 + 2*Pp*4, whatever `steps` is (0.253 ms at 1,048,576x100, 9.7 us
+// at 40,000x100 at 3.35 TB/s). Operations the function needs per
+// sub-generation (loads are not operations): K*log2(K) compares to rank a
+// deme, plus 2*Pp*L for crossover and score, over 67 TFLOP/s float32: about
+// 0.0033 ms per sub-generation at 1,048,576x100, so bytes set the bound at
+// every step count measured (up to 32). The K*K rank count below is this
+// kernel's choice, not the function's need.
+//
+// Design. Children of sub-generation t must not overwrite parents other warps still read, so a deme needs two copies; two
+// copies of a K = 512, L = 100 deme (410 KB) exceed a block's 227 KB of
+// shared memory. The group's working copies therefore live in two global
+// work buffers in cohort order (row g*K + k): sub-generation 0 reads `gin`
+// through read_row, the last one writes `gout` through write_row, the ones
+// between alternate the work buffers. A group's slice is 0.1-0.8 MB and is
+// re-read from L2 where the launch's groups fit there (32 MB at 40,000x100;
+// at 1,048,576x100 the buffers stream from device memory). Scores, keys,
+// row_of_rank and alive flags stay in shared memory (17 bytes per row,
+// <= 35 KB). __syncthreads() between the phases is the only synchronisation;
+// `steps` is a kernel argument, so every thread runs the same trips. One warp
+// per child with lanes over genes, as deme_breed_kernel; blocks of 1,024
+// threads measured faster than 256 or 512 at every shape tried. Keeping a
+// K = 256 deme's two copies in shared memory is later work.
+//
+// Randomness. Philox4x32-10 keyed by the launch seed, counter (k, g, stream,
+// t) with the streams of deme_breed_kernel and 0x60000000 for the tie word
+// (word x of the call); t = 0 reproduces the one-generation kernels' draws.
+// A frozen group draws nothing, and since the counter carries t the later
+// sub-generations' draws are the same either way. Injected mode reads draw
+// tensors with a leading sub-generation axis.
+
+constexpr int MG_THREADS = 1024;  // per block, one block per group
+constexpr int MG_MAX_D = 16;
+
+struct MultigenIO {
+  const float* gin;    // (Pp, L) physical order
+  const float* sin;    // (Pp,)
+  float* gout;         // (Pp, L), never gin
+  float* sout;         // (Pp,)
+  float* work0;        // (Pp, L) cohort order; used when steps >= 2
+  float* work1;        // (Pp, L) cohort order; used when steps >= 3
+  int steps;
+  float target;
+};
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__global__ void __launch_bounds__(MG_THREADS) multigen_breed_kernel(
+    MultigenIO io, const float* __restrict__ mparams, Draws dr0, Geometry geo, Selection sel,
+    int mutate, int obj, int elitism) {
+  extern __shared__ long long mg_smem[];
+  __shared__ float s_max[32];
+  __shared__ int s_nan[32];
+  __shared__ int s_valid[MG_MAX_D];
+  __shared__ int s_frozen;
+  const int K = geo.K, D = geo.D, L = geo.L, W = D * K;
+  long long* key = mg_smem;                                      // W
+  float* score = reinterpret_cast<float*>(key + W);              // W
+  int* row_of_rank = reinterpret_cast<int*>(score + W);          // W
+  unsigned char* alive = reinterpret_cast<unsigned char*>(row_of_rank + W);  // W
+  const int i = blockIdx.x, tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  const int steps = io.steps;
+  const float target = io.target;
+  const size_t GK = (size_t)geo.G * K;
+
+  if (tid < D) s_valid[tid] = 0;
+  __syncthreads();
+  for (int x = tid; x < W; x += nthr) {
+    const int d = x / K, k = x - d * K;
+    const int row = read_row(geo, i * D + d, k);
+    score[x] = io.sin[row];
+    alive[x] = row < geo.P;
+    if (row < geo.P) atomicAdd(&s_valid[d], 1);
+  }
+  __syncthreads();
+
+  const BreedCtx cx = breed_ctx(dr0, mparams, geo, mutate, obj);
+  const float* src = io.gin;  // physical order at t = 0, then a work buffer
+
+  for (int t = 0; t < steps; ++t) {
+    // (a) the freeze flag of this sub-generation
+    float m = -INFINITY;
+    int nan = 0;
+    for (int x = tid; x < W; x += nthr) {
+      if (!alive[x]) continue;
+      const float s = score[x];
+      if (s != s) nan = 1;
+      else m = fmaxf(m, s);
+    }
+    m = warp_max(m);
+    nan = __any_sync(FULL, nan);
+    if (lane == 0) {
+      s_max[warp] = m;
+      s_nan[warp] = nan;
+    }
+    // (b) the packed rank keys
+    for (int x = tid; x < W; x += nthr) {
+      const int d = x / K, k = x - d * K;
+      const size_t child = (size_t)(i * D + d) * K + k;
+      float s = score[x];
+      uint32_t tw;
+      if (alive[x]) {
+        const uint32_t bits =
+            cx.philox_mode
+                ? philox(cx.k0, cx.k1, make_uint4(k, i * D + d, STREAM_TIE, t)).x
+                : (uint32_t)dr0.tie[(size_t)t * GK + child];
+        tw = ((bits >> 2) & ~1023u) | (uint32_t)k;
+        if (s != s) s = -INFINITY;
+      } else {
+        tw = 0x7FFFFC00u | (uint32_t)k;
+        s = -INFINITY;
+      }
+      const int sb = __float_as_int(-(s + 0.0f));  // +0.0: one zero
+      const int ordered = sb ^ ((sb >> 31) & 0x7FFFFFFF);
+      key[x] = (long long)ordered * 4294967296LL + (long long)tw;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      m = lane < nwarps ? s_max[lane] : -INFINITY;
+      nan = lane < nwarps ? s_nan[lane] : 0;
+      m = warp_max(m);
+      nan = __any_sync(FULL, nan);
+      if (lane == 0) s_frozen = !nan && m >= target;
+    }
+    __syncthreads();
+    const bool frozen = s_frozen != 0;
+    if (!frozen) {
+      for (int x = tid; x < W; x += nthr) {
+        const int base = (x / K) * K;
+        const long long mine = key[x];
+        int r = 0;
+#pragma unroll 8
+        for (int j = 0; j < K; ++j) r += key[base + j] < mine;
+        row_of_rank[base + r] = x - base;
+      }
+    }
+    __syncthreads();
+
+    // (c) breed, or copy where frozen
+    const bool first = t == 0, last = t == steps - 1;
+    float* dst = (t & 1) ? io.work1 : io.work0;
+    Draws dr = dr0;
+    if (!cx.philox_mode) {
+      dr.sel_u += (size_t)t * GK * 2;
+      dr.cross += (size_t)t * GK * L;
+      dr.mut_u += (size_t)t * GK * 4;
+      if (dr.gauss) dr.gauss += (size_t)t * 3 * cx.plane;
+    }
+    for (int c = warp; c < W; c += nwarps) {
+      const int d = c / K, k = c - d * K, g = i * D + d;
+      const size_t child = (size_t)g * K + k;
+      auto parent = [&](int slot) {
+        return src + (first ? (size_t)read_row(geo, g, slot) : (size_t)g * K + slot) * L;
+      };
+      float* out = last ? io.gout + (size_t)write_row(geo, g, k) * L : dst + child * L;
+      if (frozen) {
+        const float* p = parent(k);
+        for (int l = lane; l < L; l += 32) out[l] = p[l];
+        continue;
+      }
+      const float V = (float)max(s_valid[d], 1);
+      const ChildRand r = child_rand(cx, dr, k, g, (uint32_t)t, lane, child);
+      const bool elite = k < elitism;
+      int r1, r2;
+      if (elite) {
+        r1 = r2 = (int)fminf((float)k, V - 1.0f);
+      } else {
+        r1 = winner_rank(winner_fraction(sel, r.su0), V);
+        r2 = winner_rank(winner_fraction(sel, r.su1), V);
+      }
+      const int s1 = min(max(row_of_rank[d * K + r1], 0), K - 1);
+      const int s2 = min(max(row_of_rank[d * K + r2], 0), K - 1);
+      float a, b;
+      breed_genes<false>(cx, dr, parent(s1), parent(s2), out, r, k, g, (uint32_t)t, lane,
+                         child, !elite, a, b);
+      if (lane == 0) score[c] = obj_finish(obj, a, b, L);
+    }
+    __syncthreads();
+    src = dst;
+  }
+
+  // Write-back: rows only when no sub-generation ran; scores always.
+  if (steps <= 0) {
+    for (int c = warp; c < W; c += nwarps) {
+      const int d = c / K, k = c - d * K, g = i * D + d;
+      const float* p = io.gin + (size_t)read_row(geo, g, k) * L;
+      float* out = io.gout + (size_t)write_row(geo, g, k) * L;
+      for (int l = lane; l < L; l += 32) out[l] = p[l];
+    }
+  }
+  for (int x = tid; x < W; x += nthr) {
+    const int d = x / K, k = x - d * K;
+    const int orow = write_row(geo, i * D + d, k);
+    io.sout[orow] = orow < geo.P ? score[x] : -INFINITY;
+  }
 }
 
 }  // namespace
@@ -539,5 +905,28 @@ extern "C" int order_breed_launch(
   }
   order_breed_kernel<<<G * (K / ORDER_THREADS), ORDER_THREADS, smem, (cudaStream_t)stream>>>(
       gin, gout, sout, ranks, mparams, dr, coords, C, penalty, geo, sel, mutate, obj);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int multigen_breed_launch(
+    const float* gin, const float* sin, float* gout, float* sout, float* work0, float* work1,
+    int steps, float target, const float* mparams, const float* sel_u,
+    const unsigned char* cross, const float* mut_u, const float* gauss, const long long* tie,
+    const long long* seed, int P, int Pp, int L, int K, int G, int mode, int S, int D, int q,
+    int sel_kind, int tk, float sel_param, int mutate, int obj, int elitism, void* stream) {
+  if (D < 1 || D > MG_MAX_D) return (int)cudaErrorInvalidValue;
+  const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
+  const Selection sel{sel_kind, tk, sel_param};
+  const Draws dr{sel_u, cross, mut_u, gauss, seed, tie};
+  const MultigenIO io{gin, sin, gout, sout, work0, work1, steps, target};
+  // Keys, scores, row_of_rank and alive flags of the group's D*K rows.
+  const int smem = D * K * (8 + 4 + 4 + 1);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        multigen_breed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  multigen_breed_kernel<<<S, MG_THREADS, smem, (cudaStream_t)stream>>>(
+      io, mparams, dr, geo, sel, mutate, obj, elitism);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,11 @@ package's ``_pallas_gate`` routes them (``engine.py:855-984``):
   launch of a breed kernel on the card (uniform crossover: the
   deme-breed kernel; order crossover: the order-breed kernel, which also
   scores the coordinate TSP), or its plain version when the solver's
-  device is the CPU. It runs when both operators have a kernel kind:
+  device is the CPU. With ``PGAConfig.generations_per_launch`` = T > 1
+  one launch of the multi-generation kernel breeds up to T generations
+  (``make_multigen_run``); where that declines, the run warns and
+  breeds one generation per launch, as ``make_pallas_run`` does. It
+  runs when both operators have a kernel kind:
   crossover ``uniform`` (none set, or ``uniform_crossover``) or
   ``order`` (``order_preserving_crossover``); mutation ``point`` (none
   set: point at ``config.mutation_rate``), ``gaussian`` or ``swap``
@@ -31,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import inspect
 import os
+import warnings
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -40,7 +45,11 @@ from libpga_tpu_torch.config import PGAConfig
 from libpga_tpu_torch.ops import mutate as _mutate_ops
 from libpga_tpu_torch.ops.crossover import order_preserving_crossover, uniform_crossover
 from libpga_tpu_torch.ops.evaluate import evaluate
-from libpga_tpu_torch.ops.fused_step import make_fused_run, resolve_geometry
+from libpga_tpu_torch.ops.fused_step import (
+    make_fused_run,
+    make_multigen_run,
+    resolve_geometry,
+)
 from libpga_tpu_torch.ops.mutate import make_point_mutate
 from libpga_tpu_torch.ops.step import make_breed, run_generations
 from libpga_tpu_torch.population import Population, create_population
@@ -80,9 +89,10 @@ class PGA:
         pga.run(100)
         best = pga.get_best(pop)
 
-    ``launches`` counts the breed-kernel launches this solver issued
-    (one per generation on the deme path; the panmictic path launches
-    none).
+    ``launches`` counts the breed launches of the runs this solver
+    returned: on the deme path one per generation, or one per
+    ``generations_per_launch`` generations (the last launch of a run
+    may breed fewer); the panmictic path launches none.
     """
 
     def __init__(self, seed: Optional[int] = None, config: Optional[PGAConfig] = None):
@@ -103,7 +113,8 @@ class PGA:
         self._objective: Optional[Callable] = None
         self._crossover: Optional[Callable] = None
         self._mutate: Optional[Callable] = None
-        self._runs: Dict[Tuple[int, int], Tuple[Callable, bool]] = {}
+        # shape -> (run function, generations per launch; 0 = panmictic)
+        self._runs: Dict[Tuple[int, int], Tuple[Callable, int]] = {}
         self.launches = 0
 
     # ----------------------------------------------------------- populations
@@ -241,22 +252,38 @@ class PGA:
             ) is not None
         )
 
-    def _run_fn(self, size: int, genome_len: int) -> Tuple[Callable, bool]:
+    def _run_fn(self, size: int, genome_len: int) -> Tuple[Callable, int]:
+        """The run function of a shape and its generations per launch
+        (0 on the panmictic path)."""
         key = (size, genome_len)
         if key not in self._runs:
             c = self.config
             obj = self._require_objective()
-            deme = self.uses_deme_kernel(size, genome_len)
-            if deme:
-                fn = make_fused_run(
-                    size, genome_len, obj,
+            if self.uses_deme_kernel(size, genome_len):
+                kw = dict(
                     deme_size=c.deme_size, tournament_size=c.tournament_size,
                     selection=c.selection, selection_param=c.selection_param,
                     crossover=self._crossover_kind(), mutate=self._mutate_kind(),
                     mparams=self._mutate_params(), elitism=c.elitism,
-                    device=self.device,
+                    layout=c.layout, device=self.device,
                 )
+                per_launch = c.generations_per_launch or 1
+                fn = None
+                if per_launch > 1:
+                    fn = make_multigen_run(size, genome_len, obj, per_launch, **kw)
+                    if fn is None:
+                        warnings.warn(
+                            f"generations_per_launch={per_launch} requested but the"
+                            " multi-generation kernel declined (objective without a"
+                            " rowwise fused form, elitism too large for the deme, or"
+                            " no geometry): breeding one generation per launch",
+                            stacklevel=3,
+                        )
+                        per_launch = 1
+                if fn is None:
+                    fn = make_fused_run(size, genome_len, obj, **kw)
             else:
+                per_launch = 0
                 fn = make_run_loop(obj, make_breed(
                     self._crossover or uniform_crossover,
                     self._mutate or make_point_mutate(c.mutation_rate),
@@ -265,7 +292,7 @@ class PGA:
                     selection_param=c.selection_param,
                     elitism=c.elitism,
                 ))
-            self._runs[key] = (fn, deme)
+            self._runs[key] = (fn, per_launch)
         return self._runs[key]
 
     def run(
@@ -277,15 +304,20 @@ class PGA:
         """Run up to ``n`` generations on the first population (or
         ``population``). Stops at the first generation whose best score
         reaches ``target`` or is NaN; that generation is the one kept.
-        Returns the number of generations run."""
+        Returns the number of generations run: without a target exactly
+        ``n``. With ``config.generations_per_launch`` = T > 1 the target
+        is checked once per launch, so an early stop returns a multiple
+        of T (up to T - 1 past the reaching generation); the individual
+        that reached the target is kept, because its deme group stops
+        breeding inside the launch."""
         self._require_objective()
         handle = population or PopulationHandle(0)
         pop = self._populations[handle.index]
-        fn, deme = self._run_fn(pop.size, pop.genome_len)
+        fn, per_launch = self._run_fn(pop.size, pop.genome_len)
         genomes, scores, gens = fn(pop.genomes, int(n), target, self.generator)
         self._populations[handle.index] = Population(genomes=genomes, scores=scores)
-        if deme:
-            self.launches += gens
+        if per_launch:
+            self.launches += -(-gens // per_launch)
         return gens
 
     # -------------------------------------------------------- best extraction

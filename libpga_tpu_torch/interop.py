@@ -7,8 +7,9 @@ from a ``libpga_tpu`` solver and returns the port's
 :class:`~libpga_tpu_torch.population.Population`, which
 ``PGA.install_population`` accepts; ``gp_config_from_fields`` rebuilds a
 ``GPConfig`` from any object with its fields; ``eval_program_from_numpy``
-takes a compacted program as three arrays. Only numpy and plain Python
-values cross the boundary.
+takes a compacted program as three arrays; ``pga_config_from_fields``
+rebuilds a solver configuration under the port's field names. Only numpy
+and plain Python values cross the boundary.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from libpga_tpu_torch.config import PGAConfig
 from libpga_tpu_torch.gp.encoding import GPConfig
 from libpga_tpu_torch.gp.optimize import EvalProgram
 from libpga_tpu_torch.population import Population
@@ -26,6 +28,32 @@ GP_FIELDS = (
     "max_nodes", "n_vars", "consts", "unary", "binary", "min_nodes",
     "stack_depth", "opcode_block", "optimize", "dispatch",
 )
+
+# The port's PGAConfig field <- the JAX package's.
+PGA_FIELDS = {
+    "tournament_size": "tournament_size",
+    "selection": "selection",
+    "selection_param": "selection_param",
+    "mutation_rate": "mutation_rate",
+    "elitism": "elitism",
+    "seed": "seed",
+    "deme_size": "pallas_deme_size",
+    "generations_per_launch": "pallas_generations_per_launch",
+    "layout": "pallas_layout",
+}
+
+
+def pga_config_from_fields(obj, device: str = "cuda") -> PGAConfig:
+    """The port's :class:`PGAConfig` with the field values of ``obj``
+    (for example the JAX package's ``PGAConfig``): ``pallas_deme_size``,
+    ``pallas_generations_per_launch`` and ``pallas_layout`` lose their
+    prefix, and ``use_pallas`` (None = auto) becomes ``use_deme_kernel``
+    (True unless False). float32 genes only."""
+    kw = {ours: getattr(obj, theirs) for ours, theirs in PGA_FIELDS.items()}
+    return PGAConfig(
+        use_deme_kernel=getattr(obj, "use_pallas", None) is not False,
+        device=device, **kw,
+    )
 
 
 def state_from_numpy(

@@ -4,9 +4,12 @@ higher is better. Torch counterparts of the rowwise forms in
 and operation order.
 
 ``fused_id`` marks the objectives the deme-breed kernels score inside
-the breed (``csrc/deme_breed.cu``: 1 = onemax, 2 = onemax_bits, 3 = the
-coordinate TSP of ``make_tsp_coords(duplicate_mode="genes")``, fused
-only with order crossover); the others are scored by their rowwise form
+the breed (``csrc/deme_breed.cu``): every builtin the JAX package gives a
+``kernel_rowwise`` form (1 = onemax, 2 = onemax_bits, 4 = sphere,
+5 = rastrigin, 6 = ackley: ``ROWWISE_FUSED``, which also admit several
+generations per launch), and 3 = the coordinate TSP of
+``make_tsp_coords(duplicate_mode="genes")``, fused only with order
+crossover. An objective without an id is scored by its rowwise form
 after an unfused breed.
 """
 
@@ -18,6 +21,10 @@ import numpy as np
 import torch
 
 FUSED_NONE, FUSED_ONEMAX, FUSED_ONEMAX_BITS, FUSED_TSP = 0, 1, 2, 3
+FUSED_SPHERE, FUSED_RASTRIGIN, FUSED_ACKLEY = 4, 5, 6
+ROWWISE_FUSED = (
+    FUSED_ONEMAX, FUSED_ONEMAX_BITS, FUSED_SPHERE, FUSED_RASTRIGIN, FUSED_ACKLEY,
+)
 
 
 def _objective(rows_fn, fused_id=FUSED_NONE):
@@ -66,9 +73,9 @@ def _ackley(m: torch.Tensor) -> torch.Tensor:
 
 onemax = _objective(_onemax, FUSED_ONEMAX)
 onemax_bits = _objective(_onemax_bits, FUSED_ONEMAX_BITS)
-sphere = _objective(_sphere)
-rastrigin = _objective(_rastrigin)
-ackley = _objective(_ackley)
+sphere = _objective(_sphere, FUSED_SPHERE)
+rastrigin = _objective(_rastrigin, FUSED_RASTRIGIN)
+ackley = _objective(_ackley, FUSED_ACKLEY)
 
 
 # ---------------------------------------------------------------------

@@ -41,6 +41,16 @@ grouping, which has to match.
 On the GPU one block per deme cannot write in place: a ping-pong group's
 interleaved child rows belong to other blocks. The run loop therefore
 ping-pongs between two ``(Pp, L)`` buffers (2 x 419 MB at 1,048,576x100).
+
+**Several generations per launch** (``PGAConfig.generations_per_launch``
+= T > 1, the counterpart of ``make_pallas_multigen`` and
+``_multigen_run_loop``): ``multigen_breed_kernel`` breeds up to T
+generations of every group of D demes in one launch, ranking each deme
+inside the kernel (:func:`kernel_ranks`), with per-deme elitism, a
+per-group target freeze and a runtime step count. Demes are fixed for a
+launch; the row maps apply once, at its end. Its geometry
+(``resolve_geometry(multigen=True)``) differs from the one-generation
+one, and it needs a rowwise-fused objective.
 """
 
 from __future__ import annotations
@@ -53,10 +63,13 @@ import numpy as np
 import torch
 
 from libpga_tpu_torch.objectives.classic import (
+    FUSED_ACKLEY,
     FUSED_NONE,
-    FUSED_ONEMAX,
     FUSED_ONEMAX_BITS,
+    FUSED_RASTRIGIN,
+    FUSED_SPHERE,
     FUSED_TSP,
+    ROWWISE_FUSED,
     duplicate_genes,
     tour_edges,
     tsp_cities,
@@ -159,6 +172,20 @@ def _blocks_fit(
     )
 
 
+def _multigen_blocks_fit(
+    K: int, D: int, Lp: int, gene_bytes: int, extra_scoped: int = 0
+) -> bool:
+    """The multi-generation kernel's VMEM gate: the one-generation model
+    plus the genome and score scratch and the in-kernel rank cube."""
+    scratch = D * K * Lp * gene_bytes + 4 * D * K
+    return (
+        4 * D * K * Lp * gene_bytes + scratch <= _BLOCK_BYTES_LIMIT
+        and _scoped_vmem_bytes(K, D, Lp, gene_bytes)
+        + scratch + 8 * K * K + extra_scoped
+        <= _SCOPED_VMEM_LIMIT
+    )
+
+
 def _order_scratch_bytes(K: int, L: int, Lp: int) -> int:
     """The order walk's VMEM scratch (``_order_scratch_shapes``): five
     (Lp, K) 32-bit planes and the visited bitmask, ceil(L/32) words per
@@ -216,6 +243,8 @@ def auto_deme_size(gene_dtype=torch.float32, const_carrying: bool = False) -> in
 
 
 ONE_GEN_D_POOL = (32, 16, 8, 4, 2, 1)
+MULTIGEN_D_POOL = (16, 8, 4, 2, 1)
+MULTIGEN_D_DEFAULT = 8
 
 
 def one_gen_d_default(gene_dtype=torch.float32, const_carrying: bool = False) -> int:
@@ -289,16 +318,31 @@ def resolve_geometry(
     fused: bool = True,
     layout: Optional[str] = None,
     crossover: str = "uniform",
+    multigen: bool = False,
+    elitism: int = 0,
+    demes_per_step: Optional[int] = None,
 ) -> Optional[Geometry]:
-    """What ``make_pallas_breed`` would build for float32 genes, a
-    builtin crossover kind and a builtin mutation: the ``_kernel_shape``
-    gates and fit, then the ping-pong branch of ``_resolve_layout``
-    (fused breeds take ping-pong whenever a D admits it; ``layout``
-    forces one). Order crossover counts the walk's scratch in every fit
-    (the deme pick included, so a long genome takes a smaller K), pins D
-    to 1 and is riffle-only. None where the JAX factory declines
-    (tournament size outside 1..16, under 128 rows, only degenerate
-    padded fits, or no K whose order scratch fits)."""
+    """What ``make_pallas_breed`` (or, with ``multigen``,
+    ``make_pallas_multigen``) would build for float32 genes, a builtin
+    crossover kind and a builtin mutation: the ``_kernel_shape`` gates
+    and fit, then ``_resolve_layout`` (fused breeds take ping-pong
+    whenever a D admits it; ``layout`` forces one; an explicit
+    ``demes_per_step`` is rounded down to a candidate and never bumped).
+    Order crossover counts the walk's scratch in every fit (the deme
+    pick included, so a long genome takes a smaller K), pins D to 1 and
+    is riffle-only.
+
+    ``multigen`` takes the multi-generation kernel's VMEM model, its D
+    pool (16..1, default 8) and always counts as fused; it declines when
+    ``elitism >= K // 4`` (per-deme elites would fill the deme), and
+    per-deme elitism on a padded population stays on the riffle (a pad
+    row could take a parity-1 cohort's elite slot). ``elitism`` is read
+    only there: the one-generation path carries global elites outside
+    the kernel.
+
+    None where the JAX factory declines (tournament size outside 1..16,
+    under 128 rows, only degenerate padded fits, no K whose order
+    scratch fits, or the multigen elitism gate)."""
     if not 1 <= tournament_size <= 16:
         return None
     if crossover not in CROSSOVER_KINDS:
@@ -316,10 +360,13 @@ def resolve_geometry(
     if not deme_size:
         deme_size = auto_deme_size()
     Lp = math.ceil(genome_len / LANE) * LANE
+    blocks_fit = _multigen_blocks_fit if multigen else _blocks_fit
+    d_pool = MULTIGEN_D_POOL if multigen else ONE_GEN_D_POOL
+    d_default = MULTIGEN_D_DEFAULT if multigen else one_gen_d_default()
 
     def fit(k: int, d: int) -> bool:
         extra = _order_scratch_bytes(k, genome_len, Lp) if order else 0
-        return _blocks_fit(k, d, Lp, 4, extra)
+        return blocks_fit(k, d, Lp, 4, extra)
 
     K = _pick_deme_size(
         pop_size, deme_size, genome_lanes=Lp, gene_bytes=4,
@@ -327,26 +374,36 @@ def resolve_geometry(
     )
     if K is None:
         return None
+    if multigen and elitism >= K // 4:
+        return None
     G = math.ceil(pop_size / K)
     Pp = G * K
     q = pingpong_quantum()
     if order:
         return Geometry("riffle", pop_size, genome_len, K, G, 1, Pp, q)
-    d_candidates = [
-        d for d in ONE_GEN_D_POOL if G % d == 0 and fit(K, d)
-    ] or [1]
-    D = next((d for d in d_candidates if d <= one_gen_d_default()), 1)
-    want = layout == "pingpong" or (layout is None and fused)
-    if want:
-        for d2 in sorted(d for d in d_candidates if d >= D):
-            if G % d2 == 0 and pingpong_admissible(d2 * K, Pp, q):
-                return Geometry("pingpong", pop_size, genome_len, K, G, d2, Pp, q)
-        if layout == "pingpong":
+    d_candidates = [d for d in d_pool if G % d == 0 and fit(K, d)] or [1]
+    D = next((d for d in d_candidates if d <= (demes_per_step or d_default)), 1)
+    riffle = Geometry("riffle", pop_size, genome_len, K, G, D, Pp, q)
+    explicit = layout == "pingpong"
+    if layout == "riffle" or not (explicit or fused or multigen):
+        return riffle
+    if multigen and Pp != pop_size and elitism > 0:
+        if explicit:
             raise ValueError(
-                "layout='pingpong' requested but no demes-per-step"
-                f" satisfies the mixing gate (K={K}, G={G})"
+                "layout='pingpong' is not available here: per-deme elitism on a"
+                " padded population would write elites into pad rows under parity 1"
             )
-    return Geometry("riffle", pop_size, genome_len, K, G, D, Pp, q)
+        return riffle
+    pool = [D] if demes_per_step else sorted(d for d in d_candidates if d >= D)
+    for d2 in pool:
+        if G % d2 == 0 and pingpong_admissible(d2 * K, Pp, q):
+            return Geometry("pingpong", pop_size, genome_len, K, G, d2, Pp, q)
+    if explicit:
+        raise ValueError(
+            "layout='pingpong' requested but no demes-per-step"
+            f" satisfies the mixing gate (K={K}, G={G})"
+        )
+    return riffle
 
 
 # ---------------------------------------------------------------------
@@ -363,6 +420,19 @@ def draw_tie_words(generator: torch.Generator, n: int, device) -> torch.Tensor:
     )
 
 
+def _ranks_by_key(s: torch.Tensor, tie: torch.Tensor) -> torch.Tensor:
+    """Ranks (0 = best) along the last axis of ``s`` (N, K) under the
+    total order: score descending, then ``tie`` (int64, < 2^32)
+    ascending. One stable sort on a packed int64 key (order-preserving
+    bits of -s << 32 | tie). +0.0 canonicalises -0.0: the two zeros
+    compare equal."""
+    bits = (-(s + 0.0)).view(torch.int32).to(torch.int64)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    order = torch.sort((key << 32) | tie, dim=1, stable=True).indices
+    iota = torch.arange(s.shape[1], device=s.device).expand(s.shape)
+    return torch.empty_like(order).scatter_(1, order, iota).to(torch.int32)
+
+
 def compute_ranks(
     scores: torch.Tensor, geom: Geometry, parity: int, tie: torch.Tensor
 ) -> torch.Tensor:
@@ -370,21 +440,30 @@ def compute_ranks(
     int32. ``scores`` are (Pp,) in physical order; ``tie`` (Pp,) int64
     words in [0, 2^31) in cohort order. Total order: score descending
     with NaN as -inf, then tie word ascending; pad rows get the maximal
-    word, so they rank after every real row. One stable sort on a packed
-    int64 key (order-preserving score bits << 32 | tie word)."""
+    word, so they rank after every real row."""
     read, _ = geom.row_maps(parity, scores.device)
     s = scores[read]
-    # NaN ranks with -inf; +0.0 canonicalises -0.0 (JAX's sort treats
-    # the two zeros as equal).
-    s = torch.where(torch.isnan(s), -torch.inf, s) + 0.0
-    bits = (-s).view(torch.int32).to(torch.int64)
-    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    s = torch.where(torch.isnan(s), -torch.inf, s)
     tie = torch.where(read >= geom.P, PAD_TIE, tie.view(geom.G, geom.K))
-    packed = (key << 32) | tie
-    order = torch.sort(packed, dim=1, stable=True).indices
-    iota = torch.arange(geom.K, device=scores.device).expand(geom.G, geom.K)
-    ranks = torch.empty_like(order).scatter_(1, order, iota)
-    return ranks.to(torch.int32)
+    return _ranks_by_key(s, tie)
+
+
+def kernel_ranks(
+    scores: torch.Tensor, tie: torch.Tensor, alive: torch.Tensor
+) -> torch.Tensor:
+    """The ranks the multi-generation kernel computes inside a launch
+    (the plain ``_kernel_ranks``), ``(N, K)`` int32 for N demes.
+    ``scores`` (N, K) float32 in cohort order; ``tie`` (N, K) int64
+    holding a fresh 32-bit random word per row; ``alive`` (N, K) bool,
+    the real rows. Descending score with NaN and dead rows as -inf; ties
+    by ``((word >> 2) & ~1023) | lane`` (the lane index in the low 10
+    bits makes the order strict); dead rows are keyed ``0x7FFFFC00 |
+    lane``, above every real key, so they rank at or after V.
+    ``rank[j]`` is the number of rows strictly before row j."""
+    lane = torch.arange(scores.shape[1], device=scores.device)
+    s = torch.where(torch.isnan(scores) | ~alive, -torch.inf, scores)
+    t = torch.where(alive, ((tie >> 2) & ~1023) | lane, 0x7FFFFC00 | lane)
+    return _ranks_by_key(s, t)
 
 
 # ---------------------------------------------------------------------
@@ -401,34 +480,48 @@ class Draws:
     gate/u1/u2 planes for gaussian mutation (else None); ``fill``
     (G, K, L) the order walk's fallback genes (order crossover, else
     None: JAX prefills every child position with a uniform draw, and a
-    position keeps it only where neither parent's city is unvisited)."""
+    position keeps it only where neither parent's city is unvisited);
+    ``tie`` (G, K) int64 holding a 32-bit word per row, the in-kernel
+    ranks' tie break (multigen, else None). The multigen launch takes
+    the same tensors with a leading sub-generation axis; :meth:`at`
+    gives one sub-generation's."""
 
     sel_u: torch.Tensor
     cross: Optional[torch.Tensor]
     mut_u: torch.Tensor
     gauss: Optional[torch.Tensor] = None
     fill: Optional[torch.Tensor] = None
+    tie: Optional[torch.Tensor] = None
+
+    def at(self, t: int) -> "Draws":
+        """Sub-generation ``t`` of draws with a leading axis."""
+        parts = (getattr(self, f.name) for f in dataclasses.fields(self))
+        return Draws(*(None if x is None else x[t] for x in parts))
 
 
 def zero_draws(
     G: int, K: int, L: int, mutate: str = "point", device="cpu",
-    crossover: str = "uniform",
+    crossover: str = "uniform", steps: Optional[int] = None,
 ) -> Draws:
-    """All-zero draws: the JAX interpret-mode PRNG's output."""
+    """All-zero draws: the JAX interpret-mode PRNG's output. ``steps``
+    gives every tensor a leading axis of that many sub-generations and
+    adds the tie words (the multigen launch's draws)."""
     z = dict(device=device)
     order = crossover == "order"
+    lead = () if steps is None else (steps,)
     return Draws(
-        sel_u=torch.zeros((G, K, 2), **z),
-        cross=None if order else torch.zeros((G, K, L), dtype=torch.uint8, **z),
-        mut_u=torch.zeros((G, K, 4), **z),
-        gauss=torch.zeros((3, G, K, L), **z) if mutate == "gaussian" else None,
-        fill=torch.zeros((G, K, L), **z) if order else None,
+        sel_u=torch.zeros(lead + (G, K, 2), **z),
+        cross=None if order else torch.zeros(lead + (G, K, L), dtype=torch.uint8, **z),
+        mut_u=torch.zeros(lead + (G, K, 4), **z),
+        gauss=torch.zeros(lead + (3, G, K, L), **z) if mutate == "gaussian" else None,
+        fill=torch.zeros(lead + (G, K, L), **z) if order else None,
+        tie=None if steps is None else torch.zeros(lead + (G, K), dtype=torch.int64, **z),
     )
 
 
 _MASK32 = 0xFFFFFFFF
 STREAM_SEL, STREAM_MUT, STREAM_CROSS = 0, 1, 2
-STREAM_FILL, STREAM_GAUSS = 0x20000000, 0x40000000
+STREAM_FILL, STREAM_GAUSS, STREAM_TIE = 0x20000000, 0x40000000, 0x60000000
 
 
 def _mulhilo(a: int, b: torch.Tensor):
@@ -464,28 +557,31 @@ def _to_uniform(word: torch.Tensor) -> torch.Tensor:
 
 def philox_draws(
     seed: torch.Tensor, G: int, K: int, L: int, mutate: str = "point",
-    crossover: str = "uniform",
+    crossover: str = "uniform", sub_generation: int = 0, tie: bool = False,
 ) -> Draws:
     """The draws the kernels' production mode generates for launch seed
-    ``seed``: counter ``(k, g, stream, 0)`` with stream 0 = selection,
-    1 = mutation, 2+t = crossover bits of genes [128t, 128t+128) (gene
-    ``128t + 32w + b`` takes bit ``b`` of word ``w``; uniform crossover
-    only), ``0x20000000 + t`` = the order walk's fallback genes 4t..4t+3
-    (gene ``4t + j`` takes word ``j``; order crossover only), and
-    ``0x40000000 + l`` = gaussian gate/u1/u2 of gene ``l``. Uniforms are
-    ``(bits >> 8) * 2^-24``."""
+    ``seed``: counter ``(k, g, stream, sub_generation)`` (the
+    one-generation kernels always count sub-generation 0) with stream
+    0 = selection, 1 = mutation, 2+t = crossover bits of genes [128t,
+    128t+128) (gene ``128t + 32w + b`` takes bit ``b`` of word ``w``;
+    uniform crossover only), ``0x20000000 + t`` = the order walk's
+    fallback genes 4t..4t+3 (gene ``4t + j`` takes word ``j``; order
+    crossover only), ``0x40000000 + l`` = gaussian gate/u1/u2 of gene
+    ``l``, and with ``tie`` ``0x60000000`` = the rank tie word of row k
+    (word 0; the multigen kernel). Uniforms are ``(bits >> 8) * 2^-24``."""
     dev = seed.device
     k = torch.arange(K, device=dev, dtype=torch.int64)[None, :].expand(G, K)
     g = torch.arange(G, device=dev, dtype=torch.int64)[:, None].expand(G, K)
     zero = torch.zeros((), device=dev, dtype=torch.int64)
+    sub = zero + sub_generation
 
     def call(stream):
-        return philox4x32(seed, k, g, zero + stream, zero)
+        return philox4x32(seed, k, g, zero + stream, sub)
 
     def per_gene(stream0, n):
         """The four words of calls ``stream0 + t``, t < n, each (G, K, n)."""
         t = torch.arange(n, device=dev, dtype=torch.int64)
-        return philox4x32(seed, k[..., None], g[..., None], stream0 + t, zero)
+        return philox4x32(seed, k[..., None], g[..., None], stream0 + t, sub)
 
     w = call(STREAM_SEL)
     sel_u = torch.stack([_to_uniform(w[0]), _to_uniform(w[1])], dim=-1)
@@ -506,7 +602,10 @@ def philox_draws(
     gauss = None
     if mutate == "gaussian":
         gauss = torch.stack([_to_uniform(x) for x in per_gene(STREAM_GAUSS, L)[:3]])
-    return Draws(sel_u=sel_u, cross=cross, mut_u=mut_u, gauss=gauss, fill=fill)
+    return Draws(
+        sel_u=sel_u, cross=cross, mut_u=mut_u, gauss=gauss, fill=fill,
+        tie=call(STREAM_TIE)[0] if tie else None,
+    )
 
 
 # ---------------------------------------------------------------------
@@ -617,16 +716,57 @@ def tsp_scores(
     return (-(total + penalty * dups)).reshape(child.shape[:-1])
 
 
+def _warp_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the order a warp of the uniform-breed
+    kernels sums a child's terms: lane ``i`` adds terms i, i+32, i+64,
+    ... one by one from 0.0, then the 32 partials combine through the
+    xor butterfly ``v = v + v[i ^ o]``, o = 16, 8, 4, 2, 1. Float32
+    results equal the kernels' bit for bit."""
+    L = x.shape[-1]
+    x = torch.nn.functional.pad(x, (0, -L % 32)).reshape(*x.shape[:-1], -1, 32)
+    v = torch.zeros_like(x[..., 0, :])
+    for j in range(x.shape[-2]):
+        v = v + x[..., j, :]
+    lanes = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ o]
+    return v[..., 0]
+
+
+def rowwise_scores(obj_id: int, child: torch.Tensor, warp_order: bool = False) -> torch.Tensor:
+    """The score of a rowwise-fused objective over ``child`` (..., L),
+    with the float32 constants and operation order of
+    ``objectives/classic.py`` (the kernels' ``obj_add`` and
+    ``obj_finish``). ``warp_order`` sums the per-gene terms as the
+    uniform-breed kernels do (:func:`_warp_order_sum`), so the result
+    equals theirs exactly; otherwise ``torch.sum`` (within a few ulps)."""
+    L = child.shape[-1]
+    total = _warp_order_sum if warp_order else (lambda x: torch.sum(x, dim=-1))
+    if obj_id == FUSED_ONEMAX_BITS:
+        return total((child >= 0.5).to(torch.float32))
+    if obj_id == FUSED_SPHERE:
+        x = -5.12 + child * 10.24
+        return -total(x * x)
+    if obj_id == FUSED_RASTRIGIN:
+        x = -5.12 + child * 10.24
+        return -(10.0 * L + total(x * x - 10.0 * torch.cos(2.0 * math.pi * x)))
+    if obj_id == FUSED_ACKLEY:
+        x = -32.768 + child * 65.536
+        s1 = torch.sqrt(total(x * x) / L)
+        s2 = total(torch.cos(2.0 * math.pi * x)) / L
+        return -(-20.0 * torch.exp(-0.2 * s1) - torch.exp(s2) + 20.0 + math.e)
+    return total(child)  # onemax
+
+
 def fused_scores(
     obj_id: int, child: torch.Tensor, coords: Optional[torch.Tensor] = None,
     penalty: float = 0.0,
 ) -> torch.Tensor:
-    """The scores the kernels compute for a fused objective id
-    (``FUSED_TSP`` reads ``coords`` (C, 2) and ``penalty``)."""
-    if obj_id == FUSED_ONEMAX:
-        return torch.sum(child, dim=-1)
-    if obj_id == FUSED_ONEMAX_BITS:
-        return torch.sum((child >= 0.5).to(torch.float32), dim=-1)
+    """The scores the one-generation kernels compute for a fused
+    objective id (``FUSED_TSP`` reads ``coords`` (C, 2) and
+    ``penalty``), up to the order of their float32 sums."""
+    if obj_id in ROWWISE_FUSED:
+        return rowwise_scores(obj_id, child)
     if obj_id == FUSED_TSP:
         return tsp_scores(child, coords, penalty)
     raise ValueError(f"objective id {obj_id} is not fused")
@@ -717,6 +857,108 @@ def deme_breed(
     )
 
 
+def multigen_breed_reference(
+    genomes: torch.Tensor,
+    scores: torch.Tensor,
+    geom: Geometry,
+    parity: int,
+    steps: int,
+    target: float = math.inf,
+    *,
+    seed: Optional[torch.Tensor] = None,
+    draws: Optional[Draws] = None,
+    tournament_size: int = 2,
+    selection: str = "tournament",
+    selection_param: Optional[float] = None,
+    mutate: str = "point",
+    mparams: torch.Tensor,
+    obj_id: int,
+    elitism: int = 0,
+    out: Optional[torch.Tensor] = None,
+    crossover: str = "uniform",
+):
+    """The plain version of ``multigen_breed_kernel`` (and of
+    ``_multigen_kernel``): ``steps`` generations of every group of
+    ``geom`` (``S`` groups of ``D`` demes), the demes fixed for the
+    launch in the parity's cohort order.
+
+    ``genomes`` (Pp, L) and raw ``scores`` (Pp,) come in physical order
+    (pad rows: any genes, -inf). A cohort slot is alive when its read
+    row is below P; a deme's valid count V is its alive slots, at least
+    1. Each sub-generation t: a group whose best alive score has reached
+    ``target`` is frozen (a NaN among them compares false) and keeps its
+    rows and scores; every other deme is ranked by
+    :func:`kernel_ranks`, bred by :func:`breed_children` with
+    ``elite_rows=elitism`` (children 0..e-1 copy ranks 0..e-1 unmutated)
+    and scored in the kernel's summation order. The draws of
+    sub-generation t are ``draws.at(t)`` (injected) or the Philox draws
+    of ``seed`` with ``t`` as the fourth counter word, the same whether
+    or not a group is frozen. At the end child k of deme g lands at the
+    parity's write row, scores beside it, -inf on rows >= P. ``steps``
+    0 is that permutation alone.
+
+    Returns ``(genomes (Pp, L), scores (Pp,))``; rows go into ``out``
+    when given."""
+    if (seed is None) == (draws is None):
+        raise ValueError("pass exactly one of seed= or draws=")
+    if crossover != "uniform":
+        raise NotImplementedError(
+            "several generations per launch with order crossover is not ported"
+            " yet (ROADMAP Queue B, B4's order-crossover case)"
+        )
+    if obj_id not in ROWWISE_FUSED:
+        raise ValueError(f"objective id {obj_id} has no rowwise fused form: multigen needs one")
+    G, K, L, D = geom.G, geom.K, geom.L, geom.D
+    read, write = geom.row_maps(parity, genomes.device)
+    alive = read < geom.P
+    valid = torch.clamp(alive.sum(dim=1), min=1).to(torch.float32)
+    g, s = genomes[read], scores[read]
+    for t in range(int(steps)):
+        best = torch.where(alive, s, -torch.inf).reshape(geom.S, D * K).amax(dim=1)
+        frozen = (best >= target).repeat_interleave(D)[:, None]  # (G, 1); NaN: False
+        d = draws.at(t) if draws is not None else philox_draws(
+            seed, G, K, L, mutate, sub_generation=t, tie=True)
+        child = breed_children(
+            g, kernel_ranks(s, d.tie, alive), valid, d,
+            tournament_size=tournament_size, selection=selection,
+            selection_param=selection_param, mutate=mutate, mparams=mparams,
+            elite_rows=elitism,
+        )
+        s = torch.where(frozen, s, rowwise_scores(obj_id, child, warp_order=True))
+        g = torch.where(frozen[..., None], g, child)
+    if out is None:
+        out = torch.empty_like(genomes)
+    out[write.reshape(-1)] = g.reshape(-1, L)
+    s_out = torch.empty(geom.Pp, device=genomes.device)
+    s_out[write.reshape(-1)] = torch.where(write >= geom.P, -torch.inf, s).reshape(-1)
+    return out, s_out
+
+
+def multigen_breed(
+    genomes: torch.Tensor,
+    scores: torch.Tensor,
+    geom: Geometry,
+    parity: int,
+    steps: int,
+    target: Optional[float] = None,
+    *,
+    out: Optional[torch.Tensor] = None,
+    work=None,
+    **kw,
+):
+    """One multi-generation launch: ``steps`` generations of every group
+    (see :func:`multigen_breed_reference`). On a CUDA tensor it launches
+    ``multigen_breed_kernel`` and raises if that fails (``work``: its
+    scratch buffers); on a CPU tensor it runs the plain version. Exactly
+    one of ``seed=`` (production Philox mode) or ``draws=`` (injected
+    mode, with a leading sub-generation axis) is given in ``kw``."""
+    target = math.inf if target is None else float(target)
+    if genomes.is_cuda:
+        return kernels.multigen_breed_cuda(
+            genomes, scores, geom, parity, steps, target, out=out, work=work, **kw)
+    return multigen_breed_reference(genomes, scores, geom, parity, steps, target, out=out, **kw)
+
+
 def carry_elites(g_prev, s_prev, g2, s2, elitism: int) -> None:
     """Top-e of the previous generation into rows 0..e-1 of the new
     one, scores included (``_carry_elites``). Pad rows carry -inf, so
@@ -744,15 +986,17 @@ def make_fused_breed(
     mutate: str = "point",
     mparams: Sequence[float] = (0.01, 0.0),
     elitism: int = 0,
+    layout: Optional[str] = None,
     device="cuda",
 ):
     """One generation of the deme path for a fixed shape and objective,
     the counterpart of ``make_pallas_breed``'s breed: ranks, one launch
     of the kernel of the crossover kind, unfused scoring where the
     objective has no fused id, elitism. ``mparams`` is the mutation's
-    [rate, sigma]. The fused TSP score
-    pairs with order crossover only: with uniform crossover that
-    objective is scored by its rowwise form, as in JAX. Returns
+    [rate, sigma]; ``layout`` forces a row map (JAX's ``pallas_layout``).
+    The fused TSP score pairs with order crossover only: with uniform
+    crossover that objective is scored by its rowwise form, as in JAX.
+    Returns
     ``breed(genomes (Pp, L), scores (Pp,), parity, generator, out=None)
     -> (genomes, scores)``, both in physical row order; children go into
     ``out`` when given (never ``genomes`` itself). ``breed.geom`` is the
@@ -764,7 +1008,7 @@ def make_fused_breed(
         pop_size, genome_len, deme_size=deme_size,
         tournament_size=tournament_size, selection=selection,
         selection_param=selection_param, fused=obj_id != FUSED_NONE,
-        crossover=crossover,
+        crossover=crossover, layout=layout,
     )
     if geom is None:
         raise ValueError(
@@ -830,4 +1074,116 @@ def make_fused_run(pop_size: int, genome_len: int, objective: Callable, **kw):
         g, s, gens = run_generations(step, g, s, n, target)
         return g[:P], s[:P], gens
 
+    return run
+
+
+def make_fused_multigen(
+    pop_size: int,
+    genome_len: int,
+    objective: Callable,
+    *,
+    deme_size: Optional[int] = None,
+    tournament_size: int = 2,
+    selection: str = "tournament",
+    selection_param: Optional[float] = None,
+    crossover: str = "uniform",
+    mutate: str = "point",
+    mparams: Sequence[float] = (0.01, 0.0),
+    elitism: int = 0,
+    layout: Optional[str] = None,
+    device="cuda",
+):
+    """The multi-generation breed for a fixed shape and objective, the
+    counterpart of ``make_pallas_multigen``. Returns ``launch(genomes
+    (Pp, L), scores (Pp,), parity, steps, target, generator, out=None,
+    work=None) -> (genomes, scores)`` in physical row order, with
+    ``launch.geom``; ``elitism`` is per deme, inside the kernel.
+
+    None where the JAX factory declines: the objective has no rowwise
+    fused form (the coordinate TSP's fused score is gene-major, not
+    rowwise), the geometry declines, or ``elitism >= K // 4``. Order
+    crossover with a rowwise-fused objective, which JAX breeds here,
+    raises ``NotImplementedError``: that case of the kernel is not
+    ported yet."""
+    obj_id = getattr(objective, "fused_id", FUSED_NONE)
+    if obj_id not in ROWWISE_FUSED:
+        return None
+    geom = resolve_geometry(
+        pop_size, genome_len, deme_size=deme_size,
+        tournament_size=tournament_size, selection=selection,
+        selection_param=selection_param, crossover=crossover, layout=layout,
+        multigen=True, elitism=elitism,
+    )
+    if geom is None:
+        return None
+    if crossover != "uniform":
+        raise NotImplementedError(
+            "generations_per_launch > 1 with order crossover and a rowwise-fused"
+            " objective is not ported yet (ROADMAP Queue B, B4's order-crossover"
+            " case); run with generations_per_launch=1"
+        )
+    kw = dict(
+        tournament_size=tournament_size, selection=selection,
+        selection_param=selection_param, mutate=mutate, obj_id=obj_id,
+        mparams=torch.tensor(list(mparams), dtype=torch.float32, device=device),
+        elitism=elitism,
+    )
+
+    def launch(genomes, scores, parity, steps, target, generator, out=None, work=None):
+        seed = torch.randint(
+            0, 2**63 - 1, (1,), generator=generator, device=genomes.device,
+        )
+        return multigen_breed(
+            genomes, scores, geom, parity, steps, target, seed=seed, out=out,
+            work=work, **kw,
+        )
+
+    launch.geom = geom
+    return launch
+
+
+def make_multigen_run(
+    pop_size: int, genome_len: int, objective: Callable, generations_per_launch: int, **kw
+):
+    """The run loop of ``_multigen_run_loop`` over :func:`make_fused_multigen`
+    (``kw``), or None where that declines. Returns ``run(genomes (P, L),
+    n, target, generator) -> (genomes (P, L), scores (P,), gens)``: pad
+    once to Pp, score generation 0, then launch chunks of
+    ``min(T, n - gens)`` generations, the parity alternating by launch,
+    until ``n`` or the first launch whose best reaches the target or is
+    NaN. The count lands exactly on ``n``; a target stop is reported at
+    launch granularity (a multiple of T), its achiever kept by the
+    kernel's group freeze.
+
+    A launch's children go to the buffer that held the launch before,
+    and the kernel's work buffers are neither, so the previous launch is
+    intact when its stop flag is read one launch late
+    (``ops/step.run_generations``)."""
+    T = int(generations_per_launch)
+    launch = make_fused_multigen(pop_size, genome_len, objective, **kw)
+    if launch is None:
+        return None
+    geom = launch.geom
+
+    def run(genomes, n, target, generator):
+        P, Pp, L = geom.P, geom.Pp, geom.L
+        g = torch.zeros((Pp, L), device=genomes.device)
+        g[:P] = genomes
+        s = torch.full((Pp,), -torch.inf, device=genomes.device)
+        s[:P] = evaluate(objective, genomes)
+        spare = [torch.empty_like(g)]
+        work = [torch.empty_like(g) for _ in range(min(T - 1, 2))] if g.is_cuda else None
+
+        def step(g, s, gen):
+            g2, s2 = launch(
+                g, s, (gen // T) % geom.parities, min(T, n - gen), target,
+                generator, out=spare[0], work=work,
+            )
+            spare[0] = g
+            return g2, s2
+
+        g, s, gens = run_generations(step, g, s, n, target, stride=T)
+        return g[:P], s[:P], gens
+
+    run.geom = geom
     return run

@@ -9,9 +9,10 @@ time: this module imports on machines without ``nvcc`` or a card.
 
 ``LAUNCHES`` counts kernel launches: the uniform-crossover deme breed
 by row-map layout ("pingpong", "riffle"), the order-crossover breed
-("order"), the GP evaluator by mode (compacted programs, or raw genomes
-with static trips). A wrapper adds one where it launches its kernel and
-nowhere else.
+("order"), the multi-generation breed ("multigen", one per launch
+whatever its step count), the GP evaluator by mode (compacted programs,
+or raw genomes with static trips). A wrapper adds one where it launches
+its kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from libpga_tpu_torch.objectives.classic import FUSED_TSP
+from libpga_tpu_torch.objectives.classic import FUSED_NONE, FUSED_TSP, ROWWISE_FUSED
 from libpga_tpu_torch.ops.select import resolve_selection
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -38,12 +39,14 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {
-    "pingpong": 0, "riffle": 0, "order": 0, "gp_eval_opt": 0, "gp_eval_static": 0,
+    "pingpong": 0, "riffle": 0, "order": 0, "multigen": 0,
+    "gp_eval_opt": 0, "gp_eval_static": 0,
 }
 
 SEL_IDS = {"tournament": 0, "truncation": 1, "linear_rank": 2}
 MUTATE_IDS = {"point": 0, "gaussian": 1, "swap": 2}
 ORDER_THREADS = 64  # children per block of order_breed_kernel
+MULTIGEN_MAX_D = 16  # demes per block of multigen_breed_kernel
 
 _libs: dict = {}
 
@@ -119,6 +122,16 @@ def _bindings() -> dict:
                 i, i, i, i, i,          # P, Pp, L, K, G
                 i, i, f,                # sel kind, tournament size, sel param
                 i, i,                   # mutate kind, objective id
+                p,                      # stream
+            ], i),
+            "multigen_breed_launch": ([
+                p, p, p, p, p, p,       # gin, sin, gout, sout, work0, work1
+                i, f, p,                # steps, target, mparams
+                p, p, p, p, p, p,       # sel_u, cross, mut_u, gauss, tie, seed
+                i, i, i, i, i,          # P, Pp, L, K, G
+                i, i, i, i,             # mode, S, D, q
+                i, i, f,                # sel kind, tournament size, sel param
+                i, i, i,                # mutate kind, objective id, elitism
                 p,                      # stream
             ], i),
             "deme_breed_error_string": ([i], s),
@@ -197,7 +210,7 @@ def deme_breed_cuda(
         raise ValueError("deme_breed_cuda needs CUDA tensors")
     if crossover != "uniform":
         raise ValueError(f"deme_breed_cuda breeds uniform crossover, not {crossover!r}")
-    if obj_id not in (0, 1, 2):
+    if obj_id != FUSED_NONE and obj_id not in ROWWISE_FUSED:
         raise ValueError(f"objective id {obj_id} is not fused with uniform crossover")
     G, K, L, Pp = geom.G, geom.K, geom.L, geom.Pp
     if not 1 <= K <= 1024:
@@ -289,6 +302,8 @@ def order_breed_cuda(
     _check(mparams, "mparams", torch.float32, (2,), dev)
     if mutate not in MUTATE_IDS:
         raise ValueError(f"unknown mutate kind {mutate!r}")
+    if obj_id not in (FUSED_NONE, FUSED_TSP) and obj_id not in ROWWISE_FUSED:
+        raise ValueError(f"objective id {obj_id} is not fused with order crossover")
     C = 0
     if obj_id == FUSED_TSP:
         if coords is None or coords.ndim != 2:
@@ -332,6 +347,114 @@ def order_breed_cuda(
     _raise_on(rc, lib, "deme_breed")
     LAUNCHES["order"] += 1
     return out, scores
+
+
+def multigen_breed_cuda(
+    genomes: torch.Tensor,
+    scores: torch.Tensor,
+    geom,
+    parity: int,
+    steps: int,
+    target: float,
+    *,
+    seed: Optional[torch.Tensor] = None,
+    draws=None,
+    out: Optional[torch.Tensor] = None,
+    work=None,
+    tournament_size: int = 2,
+    selection: str = "tournament",
+    selection_param: Optional[float] = None,
+    mutate: str = "point",
+    mparams: torch.Tensor,
+    obj_id: int,
+    elitism: int = 0,
+    crossover: str = "uniform",
+):
+    """Launch ``multigen_breed_kernel`` of ``csrc/deme_breed.cu`` on the
+    current stream: the kernel counterpart of
+    ``fused_step.multigen_breed_reference`` (same arguments). ``steps``
+    generations (0 = the row permutation only) of every group of
+    ``geom`` in one launch, a group freezing once its best reaches
+    ``target``. Production mode takes ``seed`` (int64, one element, on
+    the card); injected mode takes ``draws`` whose tensors carry a
+    leading axis of at least ``steps`` sub-generations and the ``tie``
+    words. ``work`` is a pair of (Pp, L) scratch tensors (made here when
+    None and ``steps`` needs them: one from 2 steps, two from 3).
+    Returns ``(genomes (Pp, L), scores (Pp,))`` in physical row order. Raises on bad arguments or a failed
+    launch; never runs anything else in the kernel's place."""
+    dev = genomes.device
+    if dev.type != "cuda":
+        raise ValueError("multigen_breed_cuda needs CUDA tensors")
+    if crossover != "uniform":
+        raise ValueError(f"multigen_breed_cuda breeds uniform crossover, not {crossover!r}")
+    if obj_id not in ROWWISE_FUSED:
+        raise ValueError(f"objective id {obj_id} has no rowwise fused form: multigen needs one")
+    G, K, L, Pp, D = geom.G, geom.K, geom.L, geom.Pp, geom.D
+    if not 1 <= K <= 1024:
+        raise ValueError(f"deme size {K} outside 1..1024")
+    if not 1 <= D <= MULTIGEN_MAX_D or G % D:
+        raise ValueError(f"{D} demes per group outside 1..{MULTIGEN_MAX_D} or not dividing {G}")
+    if not 1 <= tournament_size <= 16:
+        raise ValueError(f"tournament_size {tournament_size} outside 1..16")
+    if not 0 <= elitism < K:
+        raise ValueError(f"elitism {elitism} outside 0..{K - 1}")
+    steps = int(steps)
+    if steps < 0:
+        raise ValueError(f"steps {steps} is negative")
+    if mutate not in MUTATE_IDS:
+        raise ValueError(f"unknown mutate kind {mutate!r}")
+    _check(genomes, "genomes", torch.float32, (Pp, L), dev)
+    _check(scores, "scores", torch.float32, (Pp,), dev)
+    _check(mparams, "mparams", torch.float32, (2,), dev)
+    param = resolve_selection(selection, selection_param)
+    if out is None:
+        out = torch.empty_like(genomes)
+    _check(out, "out", torch.float32, (Pp, L), dev)
+    if out.data_ptr() == genomes.data_ptr():
+        raise ValueError("out must not alias genomes: blocks read rows other blocks write")
+    work = list(work or ())
+    while len(work) < min(max(steps - 1, 0), 2):
+        work.append(torch.empty_like(genomes))
+    for n, w in enumerate(work):
+        _check(w, f"work[{n}]", torch.float32, (Pp, L), dev)
+        if w.data_ptr() in (genomes.data_ptr(), out.data_ptr()):
+            raise ValueError("a work buffer must not alias genomes or out")
+    work += [None, None]
+    sel_u = cross = mut_u = gauss = tie = None
+    if draws is not None:
+        sel_u, cross, mut_u, gauss, tie = (
+            draws.sel_u, draws.cross, draws.mut_u, draws.gauss, draws.tie)
+        T = sel_u.shape[0]
+        if T < steps:
+            raise ValueError(f"injected draws hold {T} sub-generations, steps is {steps}")
+        _check(sel_u, "sel_u", torch.float32, (T, G, K, 2), dev)
+        _check(cross, "cross", torch.uint8, (T, G, K, L), dev)
+        _check(mut_u, "mut_u", torch.float32, (T, G, K, 4), dev)
+        if tie is None:
+            raise ValueError("injected multigen draws need the tie words")
+        _check(tie, "tie", torch.int64, (T, G, K), dev)
+        if mutate == "gaussian":
+            _check(gauss, "gauss", torch.float32, (T, 3, G, K, L), dev)
+    else:
+        _check(seed, "seed", torch.int64, (1,), dev)
+    s_out = torch.empty(Pp, device=dev)
+    lib = _library("deme_breed")
+    rc = lib.multigen_breed_launch(
+        genomes.data_ptr(), scores.data_ptr(), out.data_ptr(), s_out.data_ptr(),
+        _ptr(work[0]), _ptr(work[1]),
+        steps, float(target), mparams.data_ptr(),
+        _ptr(sel_u), _ptr(cross), _ptr(mut_u), _ptr(gauss), _ptr(tie),
+        _ptr(seed if draws is None else None),
+        geom.P, Pp, L, K, G,
+        geom.mode(parity), geom.S, D, geom.q,
+        SEL_IDS[selection], tournament_size,
+        0.0 if param is None else float(param),
+        MUTATE_IDS[mutate], int(obj_id), int(elitism),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, lib, "deme_breed")
+    LAUNCHES["multigen"] += 1
+    return out, s_out
 
 
 def gp_eval_cuda(

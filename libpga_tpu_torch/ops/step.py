@@ -123,33 +123,37 @@ class _StopCheck:
         return not best < self.target  # NaN compares false: stop
 
 
-def run_generations(step: Callable, genomes, scores, n: int, target: Optional[float]):
+def run_generations(
+    step: Callable, genomes, scores, n: int, target: Optional[float], stride: int = 1
+):
     """Breed up to ``n`` generations with ``step(genomes, scores, gen) ->
-    (genomes, scores)``, stopping at the first generation whose best
-    score reaches ``target`` or is NaN (without a target, ``max < inf``
-    is false only for NaN), as the JAX run loop's ``max(s) < target``
-    does. Returns ``(genomes, scores, gens)`` of the generation kept.
+    (genomes, scores)``, stopping at the first step whose best score
+    reaches ``target`` or is NaN (without a target, ``max < inf`` is
+    false only for NaN), as the JAX run loops' ``max(s) < target`` does.
+    A step advances ``stride`` generations (the last one ``n - gen``:
+    the count lands on ``n``); with ``stride`` > 1 a stop is therefore
+    reported at a multiple of ``stride``. Returns ``(genomes, scores,
+    gens)`` of the step kept.
 
-    The stop flag of generation g is read after generation g+1 has been
-    queued, so the host never waits on the device's current work; when
-    it says stop, generation g+1 is dropped and g returned. A ``step``
-    must therefore leave its inputs intact.
+    The stop flag of a step is read after the next step has been queued,
+    so the host never waits on the device's current work; when it says
+    stop, the next step's result is dropped. A ``step`` must therefore
+    leave its inputs intact.
 
-    A run that stops so pays for one generation it throws away: the
-    step's breed and scoring (about one generation's wall time), one
-    more launch of each of its kernels than the generations returned
-    (``kernels.LAUNCHES`` reads ``gens + 1``), and the generator has
-    advanced past that generation's draws. A run of all ``n``
-    generations wastes nothing, but pays for the per-generation maximum
-    and its copy to the host."""
+    A run that stops so pays for one step it throws away: its breed and
+    scoring (about one step's wall time), one more launch of each of its
+    kernels than the steps returned, and the generator has advanced past
+    that step's draws. A run of all ``n`` generations wastes nothing,
+    but pays for the per-step maximum and its copy to the host."""
     check = _StopCheck(math.inf if target is None else float(target), scores.device)
     check.post(scores, 0)
-    gens = 0
+    gens = steps = 0
     while gens < n:
         g2, s2 = step(genomes, scores, gens)
-        if check.stop(gens % 2):
+        if check.stop(steps % 2):
             break
-        gens += 1
-        check.post(s2, gens % 2)
+        gens = min(gens + stride, n)
+        steps += 1
+        check.post(s2, steps % 2)
         genomes, scores = g2, s2
     return genomes, scores, gens

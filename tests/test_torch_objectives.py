@@ -42,6 +42,9 @@ def test_evaluate_matches_jax(name):
 def test_registry():
     assert set(NAMES) <= set(objectives.names())
     assert objectives.onemax.fused_id and objectives.onemax_bits.fused_id
-    assert not getattr(objectives.sphere, "fused_id", 0)
+    # every builtin with a kernel_rowwise form in JAX is fused here too
+    for name in NAMES:
+        assert hasattr(jax_objectives.get(name), "kernel_rowwise")
+        assert objectives.get(name).fused_id in objectives.classic.ROWWISE_FUSED
     with pytest.raises(KeyError, match="registered"):
         objectives.get("no_such_objective")
