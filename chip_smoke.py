@@ -79,7 +79,27 @@ Phases, each printing one line; any failure exits non-zero:
      203 in 26 launches; a target run stops at a multiple of 8 with the
      best at or above the target; a sweep of 1, 4, 8, 16 and 32
      generations per launch at 40,000x100 and 1,048,576x100, up and down;
-     then a torch.profiler window.
+     then a torch.profiler window;
+ 13. expr_compare: the expression breed (csrc/expr_breed.cu with hooks
+     generated from expressions) against its plain torch version on the
+     same inputs, with injected and with Philox draws, in every row map:
+     NK (n=64, k=3) at 4,194,304x64 and padded at 1,000x64, the deceptive
+     trap(5) at 1,048,576x60 (both parities), the reference knapsack at
+     4,096x6, and OneMax 1,048,576x100 with one-point and arithmetic
+     crossover (their expression equivalents) and the creep mutation
+     expression (and at 40,000x100, riffle): genomes equal (within 2 ulp
+     where a breeding hook calls a transcendental or **), scores within
+     EXPR_RTOL and EXPR_ATOL_PER_GENE * L, -inf on pad rows. Times both
+     with CUDA events beside the byte bound;
+ 14. nk_run, trap_run, knapsack_run, expr_ops_run: PGA.run through the
+     pga_* API: NK at 4,194,304x64 and the trap at 1,048,576x60 for 50
+     generations after a warm-up (the best must rise), the knapsack at
+     4,096x6 for 30 (its best beside the optimum 285), OneMax
+     1,048,576x100 with one-point, arithmetic and creep for 50 each beside
+     the builtin uniform/point run: launches of the expression breed equal
+     generations and nothing else launches; gens/s and, from a
+     torch.profiler window of as many generations, the device's busy
+     share.
 The earlier OneMax, GP and TSP runs keep their depths; the whole script
 takes about two minutes on the card. Then one JSON line of per-kernel numbers, the card's name and power
 limit, and last the result line. With --log FILE every line printed
@@ -132,6 +152,12 @@ MULTIGEN_SWEEP = (1, 4, 8, 16, 32)
 MULTIGEN_RUN_SHAPES = {"riffle": [(1 << 20, 100), (40_000, 100)], "pingpong": [(524_288, 100)]}
 MULTIGEN_REPLACES = "libpga_tpu/ops/pallas_step.py:1460"  # _multigen_kernel
 MULTIGEN_PROFILE_GENS = 40
+EXPR_RTOL = 1e-5  # fused expression scores: float32 sums in another order
+EXPR_ATOL_PER_GENE = 1e-5
+EXPR_REPLACES = "libpga_tpu/ops/pallas_step.py:946"  # _breed_kernel, expression branches
+EXPR_ALSO_REPLACES = "libpga_tpu/ops/pallas_step.py:1173"  # _pp_breed_kernel, same branches
+EXPR_GENS = {"nk": 50, "trap": 50, "knapsack": 30, "ops": 50}
+CREEP = "where(r < rate, g + sigma * (2*r2 - 1), g)"
 # Philox statistics bands (n ~ 1e6 children, 1e8 genes): the standard
 # errors are ~2e-4 or smaller, so these bands are > 5 sigma wide.
 MEAN_RANK_BAND = (1 / 3 - 0.004, 1 / 3 + 0.002)  # E = 1/3 - O(1/K)
@@ -1041,6 +1067,242 @@ def phase_multigen_run(port, kernels, results):
               flush=True)
 
 
+def expr_workloads():
+    """name -> (P, L, objective, crossover, mutate) of the expression
+    slice, as PGA.run gets them; crossover / mutate None are the
+    defaults (uniform, point at the config's rate)."""
+    from libpga_tpu_torch import objectives as obj
+    from libpga_tpu_torch.ops import crossover as cx
+    from libpga_tpu_torch.ops.breed_expr import mutate_from_expression
+
+    return {
+        "nk": (1 << 22, 64, obj.make_nk_landscape(64, 3, seed=0), None, None),
+        "trap": (1 << 20, 60, obj.make_deceptive_trap(5), None, None),
+        "knapsack": (4096, 6, obj.default_knapsack, None, None),
+        "one_point": (1 << 20, 100, obj.onemax, cx.one_point_crossover, None),
+        "arithmetic": (1 << 20, 100, obj.onemax, cx.arithmetic_crossover, None),
+        "creep": (1 << 20, 100, obj.onemax, None,
+                  mutate_from_expression(CREEP, rate=0.05, sigma=0.1)),
+    }
+
+
+def expr_kinds(port, objective, crossover, mutate):
+    """The deme kernel's kinds for these operators, as the solver routes
+    them: (crossover kind, mutate kind, mparams, expression objective,
+    builtin objective id)."""
+    pga = port.PGA(seed=0, config=port.PGAConfig(device="cpu"))
+    pga.set_objective(objective)
+    pga.set_crossover(crossover)
+    pga.set_mutate(mutate)
+    expr_obj = getattr(objective, "expr_fused", None)
+    return (pga._crossover_kind(), pga._mutate_kind(), pga._mutate_params(), expr_obj,
+            0 if expr_obj is not None else getattr(objective, "fused_id", 0))
+
+
+def expr_programs(port):
+    """The generated units of every expression workload, for the build."""
+    from libpga_tpu_torch.ops import expr_cuda
+    from libpga_tpu_torch.ops.fused_step import is_expression
+
+    progs = []
+    for P, L, objective, crossover, mutate in expr_workloads().values():
+        c, m, _, o, _ = expr_kinds(port, objective, crossover, mutate)
+        progs.append(expr_cuda.program_for(
+            c if is_expression(c) else None, m if is_expression(m) else None, o))
+    return progs
+
+
+def expr_bound(geom, program) -> tuple:
+    """Least time (ms) for one expression breed and what sets it: the
+    larger of the bytes it must move (genomes and ranks read once,
+    children and scores written once, the constant buffer read once)
+    over the memory rate, and its float32 operations (a select per gene
+    and every per-gene statement the generated hooks evaluate) over the
+    float32 rate."""
+    nbytes = (2 * geom.Pp * geom.L + 2 * geom.Pp) * 4 + program.consts.nbytes
+    ops = geom.Pp * geom.L * (2 + program.source.count("const float t"))
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _ulps(a, b):
+    import torch
+
+    def key(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(2**31) - i, i)
+
+    return (key(a) - key(b)).abs()
+
+
+def phase_expr_compare(port, fs, device, results):
+    """The expression breed against its plain version on the same inputs,
+    injected and Philox draws, every row map; times both at the
+    workloads' shapes."""
+    import torch
+
+    from libpga_tpu_torch.ops import expr_cuda
+    from libpga_tpu_torch.ops.fused_step import is_expression
+
+    loads = expr_workloads()
+    # (case, workload, P, L, parity, layout expected, timed)
+    cases = [
+        ("nk-4M", "nk", None, None, 0, "riffle", True),
+        ("nk-padded", "nk", 1000, 64, 1, "pingpong", False),
+        ("trap-1M-p0", "trap", None, None, 0, "pingpong", True),
+        ("trap-1M-p1", "trap", None, None, 1, "pingpong", False),
+        ("knapsack", "knapsack", None, None, 0, "pingpong", True),
+        ("one_point-1M-p0", "one_point", None, None, 0, "pingpong", True),
+        ("one_point-1M-p1", "one_point", None, None, 1, "pingpong", False),
+        ("arithmetic-1M-p1", "arithmetic", None, None, 1, "pingpong", True),
+        ("creep-1M-p0", "creep", None, None, 0, "pingpong", True),
+        ("creep-40k-riffle", "creep", 40_000, 100, 0, "riffle", False),
+        ("one_point-padded", "one_point", 1000, 100, 1, "pingpong", False),
+    ]
+    for name, load, P, L, parity, want_layout, timed in cases:
+        P0, L0, objective, crossover, mutate = loads[load]
+        P, L = P or P0, L or L0
+        cross, mut, mparams, expr_obj, obj_id = expr_kinds(port, objective, crossover, mutate)
+        program = expr_cuda.program_for(cross if is_expression(cross) else None,
+                                        mut if is_expression(mut) else None, expr_obj)
+        geom = fs.resolve_geometry(P, L, crossover=cross, const_carrying=bool(
+            getattr(expr_obj, "kernel_rowwise_consts", ())))
+        check(geom.layout == want_layout, f"expr {name}: layout {geom.layout}")
+        gen = torch.Generator(device=device).manual_seed(P + L + parity)
+        g = torch.rand((geom.Pp, L), generator=gen, device=device)
+        g[P:] = 0.0
+        s = torch.full((geom.Pp,), -torch.inf, device=device)
+        s[:P] = objective(g[:P])
+        ranks = fs.compute_ranks(s, geom, parity, fs.draw_tie_words(gen, geom.Pp, device))
+        kw = dict(crossover=cross, mutate=mut, obj_id=obj_id, objective=expr_obj,
+                  mparams=torch.tensor(list(mparams), dtype=torch.float32, device=device))
+        injected = fs.zero_draws(geom.G, geom.K, L, mut, device, cross)
+        injected.sel_u = torch.rand(injected.sel_u.shape, generator=gen, device=device)
+        injected.mut_u = torch.rand(injected.mut_u.shape, generator=gen, device=device)
+        injected.cross = (torch.rand((geom.G, geom.K, L), generator=gen, device=device) < 0.5).to(torch.uint8)
+        if injected.expr_gene is not None:
+            injected.expr_gene = torch.rand(injected.expr_gene.shape, generator=gen, device=device)
+            injected.expr_row = torch.rand(injected.expr_row.shape, generator=gen, device=device)
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+        errs, ulps = [], 0
+        for mode, draws in (("injected", injected), ("philox", None)):
+            if draws is None:
+                got = fs.deme_breed(g, ranks, geom, parity, seed=seed, **kw)
+                draws = fs.philox_draws(seed, geom.G, geom.K, L, mut, cross)
+            else:
+                got = fs.deme_breed(g, ranks, geom, parity, draws=draws, **kw)
+            want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
+            torch.cuda.synchronize()
+            if program.transcendental:
+                ulps = max(ulps, int(_ulps(got[0], want[0]).max()))
+                check(ulps <= 2, f"expr {name} {mode}: genomes {ulps} ulp apart")
+            else:
+                check(torch.equal(got[0], want[0]), f"expr {name} {mode}: genomes differ")
+            real = torch.arange(geom.Pp, device=device) < P
+            check(bool(torch.isinf(got[1][~real]).all()), f"expr {name} {mode}: pad scores not -inf")
+            a, b = got[1][real], want[1][real]
+            close = torch.isclose(a, b, rtol=EXPR_RTOL, atol=EXPR_ATOL_PER_GENE * L)
+            err = float((a - b).abs().max())
+            check(bool(close.all()), f"expr {name} {mode}: score error {err}")
+            errs.append(err)
+            del draws, want, got
+        line = {"phase": "expr_compare", "case": name, "workload": load, "shape": [P, L],
+                "parity": parity, "layout": geom.layout, "K": geom.K, "D": geom.D, "Pp": geom.Pp,
+                "genomes_equal": ulps == 0, "genome_max_ulps": ulps, "max_abs_err": max(errs),
+                "score_rtol": EXPR_RTOL, "score_atol": EXPR_ATOL_PER_GENE * L,
+                "obj_rows": program.obj_rows, "warps_per_block": fs.kernels.expr_warps(
+                    geom.K, L, program.obj_rows)}
+        r = results.setdefault(load, {})
+        r["max_abs_err"] = max(r.get("max_abs_err", 0.0), max(errs))
+        if timed:
+            out = torch.empty_like(g)
+            ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, parity, seed=seed, out=out, **kw), 20)
+            plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
+                g, ranks, geom, parity, fs.philox_draws(seed, geom.G, geom.K, L, mut, cross), **kw), 3)
+            bound_ms, bound_by = expr_bound(geom, program)
+            line.update(kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                        ms_over_bound=ms / bound_ms)
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     shape=[P, L], layout=geom.layout, K=geom.K, D=geom.D)
+        print(json.dumps(line), flush=True)
+        del g, s, ranks, injected
+        torch.cuda.empty_cache()
+
+
+def phase_expr_runs(port, kernels, results):
+    """PGA.run of every expression workload through the pga_* API, and the
+    builtin uniform/point OneMax run beside the operator runs."""
+    import torch
+
+    loads = expr_workloads()
+    for name, (P, L, objective, crossover, mutate) in loads.items():
+        phase = {"nk": "nk_run", "trap": "trap_run", "knapsack": "knapsack_run"}.get(name, "expr_ops_run")
+        gens = EXPR_GENS.get(name, EXPR_GENS["ops"])
+        pga = port.pga_init(seed=11)
+        h = port.pga_create_population(pga, P, L)
+        port.pga_set_objective_function(pga, objective)
+        port.pga_set_crossover_function(pga, crossover)
+        port.pga_set_mutate_function(pga, mutate)
+        check(pga.uses_deme_kernel(P, L), f"{name}: not on the deme path")
+        start_best = float(objective(pga.population(h).genomes).max())
+        check(port.pga_run(pga, 2) == 2, f"{name}: warm-up")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        ran = port.pga_run(pga, gens)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        genome, best = pga.get_best_with_score(h)
+        line = {"phase": phase, "workload": name, "shape": [P, L], "gens": ran,
+                "launches": launches, "gens_per_s": ran / seconds, "ms_per_gen": 1e3 * seconds / ran,
+                "kernel_ms_per_gen": results[name].get("ms"), "start_best": start_best,
+                "best": best, "best_rescored": float(objective(torch.as_tensor(genome, device=pga.device)[None])[0])}
+        if name == "knapsack":
+            line.update(optimum=285.0, best_counts=[int(x) for x in (genome * 2.0).astype("int64")])
+        print(json.dumps(line), flush=True)
+        check(ran == gens, f"{name}: ran {ran} generations")
+        check(launches["expr"] == gens and sum(launches.values()) == gens,
+              f"{name}: launches {launches} for {gens} generations")
+        check(math.isfinite(best) and abs(line["best_rescored"] - best) <= EXPR_ATOL_PER_GENE * L
+              + EXPR_RTOL * abs(best), f"{name}: best {best} is not its genome's score")
+        if name in ("nk", "trap"):
+            check(best > start_best, f"{name}: best {start_best} -> {best}")
+        results[name]["launches"] = launches["expr"]
+        results[name]["ms_per_gen"] = line["ms_per_gen"]
+        if name != "knapsack":
+            # As many generations as the timed run: each pga_run scores its
+            # initial population once, so both windows carry that share.
+            prof = profile_generations(port, pga, 1e3 * seconds / ran, gens)
+            results[name]["device_busy_share"] = prof["device_busy_share"]
+            print(json.dumps({"phase": f"{phase}_profile", "workload": name, "shape": [P, L],
+                              **prof}), flush=True)
+        port.pga_deinit(pga)
+        del pga
+        torch.cuda.empty_cache()
+
+    # The builtin uniform/point OneMax run at the operators' shape.
+    P, L = 1 << 20, 100
+    pga = port.pga_init(seed=11)
+    port.pga_create_population(pga, P, L)
+    port.pga_set_objective_function(pga, "onemax")
+    port.pga_run(pga, 2)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ran = port.pga_run(pga, EXPR_GENS["ops"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    print(json.dumps({"phase": "expr_ops_run", "workload": "builtin_uniform_point", "shape": [P, L],
+                      "gens": ran, "launches": launches, "gens_per_s": ran / seconds,
+                      "ms_per_gen": 1e3 * seconds / ran,
+                      "best": pga.get_best_with_score(port.PopulationHandle(0))[1]}), flush=True)
+    check(launches["pingpong"] == ran and sum(launches.values()) == ran,
+          f"builtin run: launches {launches}")
+    port.pga_deinit(pga)
+
+
 def main() -> int:
     import torch
 
@@ -1077,9 +1339,13 @@ def drive(torch, port, onemax, fs, kernels) -> int:
                       "torch": torch.__version__, "cuda": torch.version.cuda}), flush=True)
 
     t0 = time.perf_counter()
-    kernels.build_all(verbose=True)
+    programs = expr_programs(port)
+    unit_seconds = kernels.build_all(verbose=True, programs=programs)
+    generated = {k: v for k, v in unit_seconds.items() if k.startswith("expr_breed")}
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
-                      "sources": sorted(p.name for p in kernels.CSRC.glob("*.cu"))}), flush=True)
+                      "sources": sorted(p.name for p in kernels.CSRC.glob("*.cu")),
+                      "unit_seconds": unit_seconds, "generated_units": len(generated),
+                      "generated_seconds_max": max(generated.values())}), flush=True)
 
     results = {"pingpong": {}, "riffle": {}}
     phase_compare(fs, onemax, device, results)
@@ -1095,6 +1361,9 @@ def drive(torch, port, onemax, fs, kernels) -> int:
     mg_results = {}
     phase_multigen_compare(fs, kernels, device, mg_results)
     phase_multigen_run(port, kernels, mg_results)
+    expr_results = {}
+    phase_expr_compare(port, fs, device, expr_results)
+    phase_expr_runs(port, kernels, expr_results)
 
     entries = []
     for layout, r in results.items():
@@ -1147,6 +1416,16 @@ def drive(torch, port, onemax, fs, kernels) -> int:
         "reference_shape": {k: ref_r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                    "chain_steps", "launches")},
     })
+    for name, r in expr_results.items():
+        entries.append({
+            "name": f"expr_breed[{name}]", "route": "cuda",
+            "source": "libpga_tpu_torch/csrc/expr_breed.cu",
+            "replaces": EXPR_REPLACES, "also_replaces": EXPR_ALSO_REPLACES,
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "shape": r["shape"], "layout": r["layout"],
+            "ms_per_gen": r["ms_per_gen"], "device_busy_share": r.get("device_busy_share"),
+        })
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,11 @@ NVIDIA H100.
 generation (``csrc/deme_breed.cu``: uniform crossover, or order
 crossover with the fused TSP score; with
 ``PGAConfig(generations_per_launch=T)`` one launch of the
-multi-generation kernel per T generations), or takes the panmictic path
-(whole-population selection and operators in torch) for small
-populations and operators without a kernel form. GP symbolic regression (``libpga_tpu_torch.gp``) runs on
+multi-generation kernel per T generations; with an expression
+crossover, mutation or objective, one launch of the expression breed,
+``csrc/expr_breed.cu`` with hooks generated from the expressions), or
+takes the panmictic path (whole-population selection and operators in
+torch) for small populations and operators without a kernel form. GP symbolic regression (``libpga_tpu_torch.gp``) runs on
 the panmictic path and scores every generation with one launch of the
 stack-machine kernel ``csrc/gp_eval.cu``. The JAX package ``libpga_tpu``
 stays the reference; nothing here imports it or JAX.
@@ -25,13 +27,30 @@ from libpga_tpu_torch.api import (
 )
 from libpga_tpu_torch.config import PGAConfig
 from libpga_tpu_torch.engine import PGA, PopulationHandle
+from libpga_tpu_torch.objectives import (
+    ExpressionError,
+    default_knapsack,
+    from_expression,
+    make_deceptive_trap,
+    make_knapsack,
+    make_nk_landscape,
+)
+from libpga_tpu_torch.ops.breed_expr import crossover_from_expression, mutate_from_expression
 from libpga_tpu_torch.population import Population
 
 __all__ = [
+    "ExpressionError",
     "PGA",
     "PGAConfig",
     "Population",
     "PopulationHandle",
+    "crossover_from_expression",
+    "default_knapsack",
+    "from_expression",
+    "make_deceptive_trap",
+    "make_knapsack",
+    "make_nk_landscape",
+    "mutate_from_expression",
     "pga_create_population",
     "pga_deinit",
     "pga_get_best",

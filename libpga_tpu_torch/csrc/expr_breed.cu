@@ -1,0 +1,283 @@
+// expr_breed.cu: the one-generation deme breed with expression hooks (B6),
+// a template. ops/expr_cuda.py writes the hooks (expr_crossover,
+// expr_mutate, expr_objective) and the macros EXPR_CROSS, EXPR_MUT,
+// EXPR_OBJ, EXPR_OBJ_ROWS, EXPR_GENE_STREAMS and EXPR_ROW_STREAMS in front
+// of this text; ops/kernels.py compiles the whole with nvcc (-I csrc,
+// --fmad=false, no fast math), keyed by a hash of it. This file alone does
+// not compile.
+//
+// Replaces, in libpga_tpu/ops/pallas_step.py, the expression branches of
+// _deme_child (callable crossover :636-647, callable mutation :750-763) and
+// the fused kernel_rowwise objectives that carry constants (:1143-1146), in
+// _breed_kernel (:946, riffle) and _pp_breed_kernel (:1173, ping-pong
+// parities 0 and 1). The plain PyTorch version is
+// libpga_tpu_torch/ops/fused_step.py::deme_breed_reference with an
+// expression crossover, mutation or objective; JAX traces the jnp that
+// objectives/expr.py and ops/breed_expr.py emit, this kernel runs the same
+// syntax trees lowered to C++.
+//
+// What it computes: deme_breed_kernel's breed (rank-space selection from
+// row_of_rank[] in shared memory, exact parent gathers, the row maps of
+// breed_core.cuh), with three hooks:
+//   crossover: expr_crossover(p1[l], p2[l], r, r2, q, q2, l, L, consts) per
+//              gene, else uniform crossover (the deme kernel's bits);
+//   mutation:  expr_mutate(c, r, r2, q, q2, l, L, rate, sigma, consts) per
+//              gene, rate and sigma read from mparams (so an annealing
+//              schedule reuses one build), else point / gaussian / swap;
+//   objective: expr_objective over the child as written, else a builtin
+//              rowwise-fused id (onemax, onemax_bits, sphere, rastrigin,
+//              ackley) or none.
+// Each warp breeds one child into its row of shared memory (swap mutation
+// exchanges two genes there), writes it to its physical row with coalesced
+// stores, then scores it from that row; expr_objective may use EXPR_OBJ_ROWS
+// more rows of L floats per warp for values that roll() reads. Pad children
+// (row >= P) score -inf.
+//
+// Randomness. Production mode: the deme kernel's Philox streams (selection
+// 0, mutation 1, crossover bits 2+t, gaussian 0x40000000+l) and, only for
+// the streams the hooks read, STREAM_EXPR_GENE / STREAM_EXPR_ROW
+// (breed_core.cuh): a per-gene plane's call serves four genes, lane i of a
+// tile computing the call of genes 128*tile + 4i .. 4i+3 and shuffling each
+// word to the lane that holds its gene. Injected mode reads the planes
+// ex.gene (4, G, K, L) and words ex.row (G, K, 4) the plain version reads.
+//
+// Bound. Bytes: the population read once and written once plus the scores
+// and the constant tables, (2*Pp*L + 2*Pp)*4 bytes: 0.651 ms for NK at
+// 4,194,304x64, 0.153 ms for the trap at 1,048,576x60, 0.253 ms for OneMax
+// at 1,048,576x100 at 3.35 TB/s. The arithmetic of these expressions (a
+// few operations per gene, one Philox call per four genes per stream) is
+// far below the card's rate. The design is deme_breed_kernel's: one block
+// per deme, one warp per child, lanes over genes; the shared row adds a
+// store and two loads per gene. Blocks run 8 warps, fewer where the
+// per-warp rows would not fit in 227 KB of shared memory (the wrapper picks
+// the count).
+
+#include "breed_core.cuh"
+
+namespace {
+
+struct ExprDraws {
+  const float* gene;  // (4, G, K, L): crossover r, r2, mutation r, r2 (injected mode)
+  const float* row;   // (G, K, 4): crossover q, q2, mutation q, q2 (injected mode)
+};
+
+// v[j][m]: per-gene plane j of gene 128*tile + lane + 32*m, for the planes
+// the hooks read (EXPR_GENE_STREAMS), else 0.
+__device__ __forceinline__ void gene_draws(
+    const BreedCtx& cx, const ExprDraws& ex, int k, int g, int tile, int lane, size_t child,
+    float (&v)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) v[j][m] = 0.0f;
+    if (!((EXPR_GENE_STREAMS >> j) & 1)) continue;
+    if (cx.philox_mode) {
+      const uint32_t call = STREAM_EXPR_GENE + ((uint32_t)j << 22) + 32u * tile + lane;
+      const uint4 w = philox(cx.k0, cx.k1, make_uint4(k, g, call, 0u));
+      const int pick = lane & 3;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int src = (lane >> 2) + 8 * m;
+        const uint32_t x = __shfl_sync(FULL, w.x, src), y = __shfl_sync(FULL, w.y, src);
+        const uint32_t z = __shfl_sync(FULL, w.z, src), t = __shfl_sync(FULL, w.w, src);
+        v[j][m] = to_uniform(pick == 0 ? x : pick == 1 ? y : pick == 2 ? z : t);
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int l = 128 * tile + lane + 32 * m;
+        if (l < cx.L) v[j][m] = ex.gene[(size_t)j * cx.plane + child * cx.L + l];
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) expr_breed_kernel(
+    const float* __restrict__ gin, float* __restrict__ gout, float* __restrict__ sout,
+    const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr, ExprDraws ex,
+    const float* __restrict__ cb, Geometry geo, Selection sel, int mutate, int obj) {
+  extern __shared__ int smem[];
+  __shared__ int s_valid;
+  const int g = blockIdx.x, K = geo.K, L = geo.L;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  int* row_of_rank = smem;
+  float* grow = reinterpret_cast<float*>(smem + K) + (size_t)warp * (1 + EXPR_OBJ_ROWS) * L;
+  float* erows = grow + L;
+  (void)erows;
+  (void)cb;
+  if (threadIdx.x == 0) s_valid = 0;
+  __syncthreads();
+  int alive = 0;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const int r = ranks[(size_t)g * K + k];
+    if (r >= 0 && r < K) row_of_rank[r] = k;
+    alive += read_row(geo, g, k) < geo.P;
+  }
+  alive = warp_sum(alive);
+  if (lane == 0) atomicAdd(&s_valid, alive);
+  __syncthreads();
+
+  const float V = (float)max(s_valid, 1);
+  BreedCtx cx = breed_ctx(dr, mparams, geo, mutate, obj);
+  if (EXPR_CROSS) cx.ncalls = 2;  // selection and mutation: no crossover bits
+  const bool scored = EXPR_OBJ || obj != OBJ_NONE;
+
+  for (int k = warp; k < K; k += nwarps) {
+    const size_t child = (size_t)g * K + k;
+    const ChildRand r = child_rand(cx, dr, k, g, 0u, lane, child);
+    const int r1 = winner_rank(winner_fraction(sel, r.su0), V);
+    const int r2 = winner_rank(winner_fraction(sel, r.su1), V);
+    const int s1 = min(max(row_of_rank[r1], 0), K - 1);
+    const int s2 = min(max(row_of_rank[r2], 0), K - 1);
+    const float* p1 = gin + (size_t)read_row(geo, g, s1) * L;
+    const float* p2 = gin + (size_t)read_row(geo, g, s2) * L;
+    const int orow = write_row(geo, g, k);
+
+    float xq[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // crossover q, q2, mutation q, q2
+    if (EXPR_ROW_STREAMS) {
+      if (cx.philox_mode) {
+        const uint4 w = philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_EXPR_ROW, 0u));
+        xq[0] = to_uniform(w.x);
+        xq[1] = to_uniform(w.y);
+        xq[2] = to_uniform(w.z);
+        xq[3] = to_uniform(w.w);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if ((EXPR_ROW_STREAMS >> j) & 1) xq[j] = ex.row[child * 4 + j];
+      }
+    }
+    // Builtin point / swap mutation: gene pos takes mu2 when mu1 < rate;
+    // genes pos, pj exchange when mu2 < rate.
+    const int pos = (int)floorf(r.mu0 * (float)L);
+    const int pj = (int)floorf(r.mu1 * (float)L);
+    const bool fire = !EXPR_MUT && (mutate == MUT_SWAP ? r.mu2 < cx.rate : r.mu1 < cx.rate);
+
+    // Tile i: genes 128*i + lane + 32*m, m < 4; bit m of `bits` is the
+    // uniform crossover's bit of gene m (set: parent 2).
+    auto tile = [&](int i, uint32_t bits) {
+      float gd[4][4];
+      gene_draws(cx, ex, k, g, i, lane, child, gd);
+      (void)bits;
+      float c[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int l = 128 * i + lane + 32 * m;
+        c[m] = 0.0f;
+        if (l < L) {
+#if EXPR_CROSS
+          c[m] = expr_crossover(__ldg(p1 + l), __ldg(p2 + l), gd[0][m], gd[1][m], xq[0], xq[1],
+                                l, L, cb);
+#else
+          c[m] = __ldg((((bits >> m) & 1u) ? p2 : p1) + l);
+#endif
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int l = 128 * i + lane + 32 * m;
+        if (l >= L) continue;
+        float x = c[m];
+#if EXPR_MUT
+        x = expr_mutate(x, gd[2][m], gd[3][m], xq[2], xq[3], l, L, cx.rate, cx.sigma, cb);
+#else
+        if (mutate == MUT_POINT) {
+          if (fire && l == pos) x = r.mu2;
+        } else if (mutate == MUT_GAUSSIAN) {
+          x = gauss_mutate(cx, dr, x, k, g, 0u, l, child, true);
+        }
+#endif
+        grow[l] = x;
+      }
+    };
+
+#if EXPR_CROSS
+    for (int i = 0; i < cx.ntiles; ++i) tile(i, 0u);
+#else
+    if (cx.philox_mode) {
+      // Crossover bits of tile i: call 2 + i, computed 32 calls at a time
+      // by the warp's lanes as deme_breed_kernel does.
+      uint4 w = r.w;
+      for (int base = 0; base < cx.ncalls; base += 32) {
+        if (base) {
+          const uint32_t c = base + lane;
+          w = c < (uint32_t)cx.ncalls ? philox(cx.k0, cx.k1, make_uint4(k, g, c, 0u))
+                                      : make_uint4(0u, 0u, 0u, 0u);
+        }
+        const int t_hi = min(base + 30, cx.ntiles);
+        for (int i = max(base - 2, 0); i < t_hi; ++i) {
+          const int src = i + (int)STREAM_CROSS - base;
+          const uint32_t b0 = __shfl_sync(FULL, w.x, src), b1 = __shfl_sync(FULL, w.y, src);
+          const uint32_t b2 = __shfl_sync(FULL, w.z, src), b3 = __shfl_sync(FULL, w.w, src);
+          tile(i, ((b0 >> lane) & 1u) | (((b1 >> lane) & 1u) << 1) |
+                      (((b2 >> lane) & 1u) << 2) | (((b3 >> lane) & 1u) << 3));
+        }
+      }
+    } else {
+      const uint8_t* bits = dr.cross + child * L;
+      for (int i = 0; i < cx.ntiles; ++i) {
+        uint32_t b = 0u;
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int l = 128 * i + lane + 32 * m;
+          if (l < L && bits[l]) b |= 1u << m;
+        }
+        tile(i, b);
+      }
+    }
+#endif
+    __syncwarp();
+    if (!EXPR_MUT && mutate == MUT_SWAP && fire && pos < L && pj < L) {
+      if (lane == 0) {
+        const float x = grow[pos];
+        grow[pos] = grow[pj];
+        grow[pj] = x;
+      }
+      __syncwarp();
+    }
+    float* out = gout + (size_t)orow * L;
+    for (int l = lane; l < L; l += 32) out[l] = grow[l];
+    if (scored) {
+#if EXPR_OBJ
+      const float score = expr_objective(grow, erows, L, lane, cb);
+#else
+      float a = 0.0f, b = 0.0f;
+      for (int l = lane; l < L; l += 32) obj_add(obj, grow[l], a, b);
+      const float score = obj_finish(obj, warp_sum(a), warp_sum(b), L);
+#endif
+      if (lane == 0) sout[orow] = orow < geo.P ? score : -INFINITY;
+    }
+    __syncwarp();  // the next child overwrites this warp's rows
+  }
+}
+
+}  // namespace
+
+extern "C" int expr_breed_launch(
+    const float* gin, float* gout, float* sout, const int* ranks, const float* mparams,
+    const float* sel_u, const unsigned char* cross, const float* mut_u, const float* gauss,
+    const float* xgene, const float* xrow, const long long* seed, const float* consts, int P,
+    int Pp, int L, int K, int G, int mode, int S, int D, int q, int sel_kind, int tk,
+    float sel_param, int mutate, int obj, int warps, void* stream) {
+  if (warps < 1 || warps > THREADS / 32) return (int)cudaErrorInvalidValue;
+  const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
+  const Selection sel{sel_kind, tk, sel_param};
+  const Draws dr{sel_u, cross, mut_u, gauss, seed, nullptr};
+  const ExprDraws ex{xgene, xrow};
+  // row_of_rank, then each warp's child row and objective rows. Above
+  // 48 KB it needs the attribute; past the block's 227 KB the attribute
+  // call fails and its error returns.
+  const size_t smem = (size_t)K * sizeof(int) + (size_t)warps * (1 + EXPR_OBJ_ROWS) * L * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        expr_breed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  expr_breed_kernel<<<G, warps * 32, smem, (cudaStream_t)stream>>>(
+      gin, gout, sout, ranks, mparams, dr, ex, consts, geo, sel, mutate, obj);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* expr_breed_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

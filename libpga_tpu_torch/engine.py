@@ -13,11 +13,20 @@ package's ``_pallas_gate`` routes them (``engine.py:855-984``):
   (``make_multigen_run``); where that declines, the run warns and
   breeds one generation per launch, as ``make_pallas_run`` does. It
   runs when both operators have a kernel kind:
-  crossover ``uniform`` (none set, or ``uniform_crossover``) or
-  ``order`` (``order_preserving_crossover``); mutation ``point`` (none
-  set: point at ``config.mutation_rate``), ``gaussian`` or ``swap``
-  (``make_*_mutate``, told apart by ``.func``), with their rate and
-  sigma as the kernel's runtime parameters;
+  crossover ``uniform`` (none set, or ``uniform_crossover``), ``order``
+  (``order_preserving_crossover``) or an expression operator
+  (``crossover_from_expression``; ``one_point_crossover`` and
+  ``arithmetic_crossover`` map to the cached expression equivalents of
+  JAX's ``_CROSSOVER_EXPRS``); mutation ``point`` (none set: point at
+  ``config.mutation_rate``), ``gaussian`` or ``swap`` (``make_*_mutate``,
+  told apart by ``.func``) or an expression operator
+  (``mutate_from_expression``), with their rate and sigma as the
+  kernel's runtime parameters. An expression operator, or an objective
+  with an expression form (``expr_fused``), runs the generated
+  expression breed kernel. Where JAX breeds a case the port does not yet
+  (several generations per launch with an expression, order crossover
+  with an expression mutation or objective), ``run`` raises
+  ``NotImplementedError`` naming the ROADMAP item;
 - the panmictic path (:func:`make_run_loop`, ``ops/step.py``): whole-
   population selection, then the crossover and mutation operators in
   plain torch, then the objective (for GP, the evaluator kernel). It
@@ -43,9 +52,16 @@ import torch
 
 from libpga_tpu_torch.config import PGAConfig
 from libpga_tpu_torch.ops import mutate as _mutate_ops
-from libpga_tpu_torch.ops.crossover import order_preserving_crossover, uniform_crossover
+from libpga_tpu_torch.ops.breed_expr import crossover_from_expression
+from libpga_tpu_torch.ops.crossover import (
+    arithmetic_crossover,
+    one_point_crossover,
+    order_preserving_crossover,
+    uniform_crossover,
+)
 from libpga_tpu_torch.ops.evaluate import evaluate
 from libpga_tpu_torch.ops.fused_step import (
+    is_expression,
     make_fused_run,
     make_multigen_run,
     resolve_geometry,
@@ -115,6 +131,7 @@ class PGA:
         self._mutate: Optional[Callable] = None
         # shape -> (run function, generations per launch; 0 = panmictic)
         self._runs: Dict[Tuple[int, int], Tuple[Callable, int]] = {}
+        self._compiled: Dict[str, Callable] = {}  # cached expression equivalents
         self.launches = 0
 
     # ----------------------------------------------------------- populations
@@ -172,8 +189,11 @@ class PGA:
         """Crossover ``(p1, p2, rand) -> child`` with ``.batched`` and
         ``.rand_cols`` (e.g. ``order_preserving_crossover`` or
         ``gp.make_subtree_crossover``); None restores the default uniform
-        crossover. A builtin kind keeps ``run`` on the deme path; any
-        other operator routes it to the panmictic path."""
+        crossover. A builtin kind or an expression operator
+        (``crossover_from_expression``, and ``one_point_crossover`` /
+        ``arithmetic_crossover`` through their expression equivalents)
+        keeps ``run`` on the deme path; any other operator routes it to
+        the panmictic path."""
         self._crossover = fn
         self._runs.clear()
 
@@ -181,25 +201,52 @@ class PGA:
         """Mutation ``(genome, rand) -> genome`` with ``.batched`` and
         ``.rand_cols`` (e.g. ``make_swap_mutate(0.5)`` or
         ``gp.make_gp_mutate``); None restores the default point mutation
-        at ``config.mutation_rate``. A builtin kind keeps ``run`` on the
-        deme path; any other operator routes it to the panmictic path."""
+        at ``config.mutation_rate``. A builtin kind or an expression
+        operator (``mutate_from_expression``) keeps ``run`` on the deme
+        path; any other operator routes it to the panmictic path."""
         self._mutate = fn
         self._runs.clear()
 
-    def _crossover_kind(self) -> Optional[str]:
-        """The deme kernels' crossover kind of the active operator
-        ("uniform" or "order"), or None for one without a kernel form."""
+    # The deme path's expression equivalents of the builtin crossovers
+    # without a kernel kind (JAX's ``_CROSSOVER_EXPRS``, the same source
+    # strings): one-point draws its cut from the per-row stream q (the
+    # builtin from rand[0]: another stream, the same distribution);
+    # arithmetic blends with a per-gene uniform weight.
+    CROSSOVER_EXPRS = {
+        "one_point": "where(i < floor(q * L), p1, p2)",
+        "arithmetic": "r * p1 + (1 - r) * p2",
+    }
+
+    def _crossover_expr_equivalent(self, name: str) -> Callable:
+        if name not in self._compiled:
+            self._compiled[name] = crossover_from_expression(self.CROSSOVER_EXPRS[name])
+        return self._compiled[name]
+
+    def _crossover_kind(self):
+        """The deme kernels' crossover kind of the active operator:
+        "uniform", "order", an expression operator (itself, or for
+        ``one_point_crossover`` / ``arithmetic_crossover`` the cached
+        expression equivalent), or None for one without a kernel form."""
         if self._crossover is None or self._crossover is uniform_crossover:
             return "uniform"
         if self._crossover is order_preserving_crossover:
             return "order"
+        if self._crossover is one_point_crossover:
+            return self._crossover_expr_equivalent("one_point")
+        if self._crossover is arithmetic_crossover:
+            return self._crossover_expr_equivalent("arithmetic")
+        if is_expression(self._crossover):
+            return self._crossover
         return None
 
-    def _mutate_kind(self) -> Optional[str]:
+    def _mutate_kind(self):
         """The deme kernels' mutation kind of the active operator
-        ("point", "gaussian" or "swap", by its ``.func``), or None."""
+        ("point", "gaussian" or "swap", by its ``.func``; an expression
+        operator is itself), or None."""
         if self._mutate is None:
             return "point"
+        if is_expression(self._mutate):
+            return self._mutate
         return {
             _mutate_ops.point_mutate: "point",
             _mutate_ops.gaussian_mutate: "gaussian",
@@ -222,10 +269,16 @@ class PGA:
 
     def _mutate_params(self) -> Tuple[float, float]:
         """The mutation's [rate, sigma], the deme kernels' runtime
-        parameters: gaussian defaults 0.1 / 0.1; otherwise the
-        operator's rate (the config's when none is set) and sigma 0."""
-        if self._mutate_kind() == "gaussian":
+        parameters: gaussian defaults 0.1 / 0.1; an expression operator
+        its ``.rate`` (the config's when none is set) and ``.sigma``
+        (default 0); otherwise the operator's rate (the config's when
+        none is set) and sigma 0."""
+        kind = self._mutate_kind()
+        if kind == "gaussian":
             return (self._operator_param("rate", 0.1), self._operator_param("sigma", 0.1))
+        if is_expression(kind):
+            return (self._operator_param("rate", self.config.mutation_rate),
+                    self._operator_param("sigma", 0.0))
         return (self._operator_param("rate", self.config.mutation_rate), 0.0)
 
     def _require_objective(self) -> Callable:
@@ -242,6 +295,7 @@ class PGA:
         panmictic path; see the module docstring)."""
         c = self.config
         cross = self._crossover_kind()
+        expr_obj = getattr(self._objective, "expr_fused", None)
         return (
             cross is not None and self._mutate_kind() is not None
             and c.use_deme_kernel
@@ -249,6 +303,7 @@ class PGA:
                 size, genome_len, deme_size=c.deme_size,
                 tournament_size=c.tournament_size, selection=c.selection,
                 selection_param=c.selection_param, crossover=cross,
+                const_carrying=bool(getattr(expr_obj, "kernel_rowwise_consts", ())),
             ) is not None
         )
 

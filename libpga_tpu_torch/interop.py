@@ -8,12 +8,15 @@ from a ``libpga_tpu`` solver and returns the port's
 ``PGA.install_population`` accepts; ``gp_config_from_fields`` rebuilds a
 ``GPConfig`` from any object with its fields; ``eval_program_from_numpy``
 takes a compacted program as three arrays; ``pga_config_from_fields``
-rebuilds a solver configuration under the port's field names. Only numpy
-and plain Python values cross the boundary.
+rebuilds a solver configuration under the port's field names;
+``expression_objective_from_jax`` rebuilds an expression objective from
+its source and constants. Only numpy and plain Python values cross the
+boundary.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Optional
 
 import numpy as np
@@ -22,6 +25,7 @@ import torch
 from libpga_tpu_torch.config import PGAConfig
 from libpga_tpu_torch.gp.encoding import GPConfig
 from libpga_tpu_torch.gp.optimize import EvalProgram
+from libpga_tpu_torch.objectives.expr import _CONSTANTS, _KEYWORDS, _tokenize, from_expression
 from libpga_tpu_torch.population import Population
 
 GP_FIELDS = (
@@ -93,3 +97,36 @@ def eval_program_from_numpy(ops, args, length, device="cuda") -> EvalProgram:
         args=torch.from_numpy(np.array(args, np.float32)).to(device),
         length=torch.from_numpy(np.array(length, np.int32)).to(device),
     )
+
+
+def expression_objective_from_jax(fn):
+    """The port's ``from_expression`` objective for a JAX
+    ``from_expression`` objective ``fn``: its ``.expression`` and its
+    ``kernel_rowwise_consts``, which hold the referenced constants in
+    sorted name order, each ``atleast_2d``. The names are the
+    expression's names that are neither builtins nor ``name = ...``
+    bindings; a constant is restored to its registered rank (a scalar,
+    a vector, or an (n, L) table) from its shape and, for a (1, n)
+    ``gather`` table, from the registered kind JAX's rowwise form keeps
+    (``table_kinds``)."""
+    toks = _tokenize(fn.expression)
+    bound = {toks[k][1] for k in range(len(toks) - 1)
+             if toks[k][0] == "name" and toks[k + 1][1] == "="}
+    names = sorted({t for kind, t, _ in toks if kind == "name"}
+                   - set(_KEYWORDS) - set(_CONSTANTS) - bound)
+    arrays = [np.asarray(c, np.float32) for c in fn.kernel_rowwise_consts]
+    if len(names) != len(arrays):
+        raise ValueError(
+            f"{fn.expression!r} names constants {names} but carries {len(arrays)}"
+        )
+    closure = inspect.getclosurevars(fn.kernel_rowwise).nonlocals
+    kinds = closure.get("table_kinds", {})
+    consts = {}
+    for name, a in zip(names, arrays):
+        if a.shape == (1, 1):
+            consts[name] = a.reshape(())
+        elif a.shape[0] == 1 and kinds.get(name) != "per_locus":
+            consts[name] = a.reshape(-1)
+        else:
+            consts[name] = a
+    return from_expression(fn.expression, **consts)

@@ -4,6 +4,10 @@
 
 from libpga_tpu_torch.objectives.classic import (
     ackley,
+    default_knapsack,
+    make_deceptive_trap,
+    make_knapsack,
+    make_nk_landscape,
     make_tsp,
     make_tsp_coords,
     onemax,
@@ -13,6 +17,7 @@ from libpga_tpu_torch.objectives.classic import (
     rastrigin,
     sphere,
 )
+from libpga_tpu_torch.objectives.expr import ExpressionError, from_expression
 
 _REGISTRY = {
     "onemax": onemax,
@@ -20,6 +25,7 @@ _REGISTRY = {
     "sphere": sphere,
     "rastrigin": rastrigin,
     "ackley": ackley,
+    "knapsack": default_knapsack,
 }
 
 
@@ -43,7 +49,8 @@ def names():
 
 
 __all__ = [
-    "register", "get", "names",
+    "register", "get", "names", "from_expression", "ExpressionError",
     "onemax", "onemax_bits", "sphere", "rastrigin", "ackley",
+    "make_knapsack", "default_knapsack", "make_nk_landscape", "make_deceptive_trap",
     "make_tsp", "make_tsp_coords", "random_tsp_coords", "random_tsp_matrix",
 ]

@@ -1,8 +1,10 @@
 """Crossover operators of the panmictic path (``libpga_tpu/ops/
-crossover.py``: uniform, ``:20-31``; order-preserving, ``:61-132``). A
-crossover is ``(p1, p2, rand) -> child``; ``.batched`` is its whole-
-population form over ``(P, L)`` rows and a ``(P, rand_cols)`` uniform
-block (``rand_cols`` absent: L)."""
+crossover.py``: uniform, ``:20-31``; one-point and arithmetic,
+``:34-58``; order-preserving, ``:61-132``). A crossover is ``(p1, p2,
+rand) -> child``; ``.batched`` is its whole-population form over ``(P,
+L)`` rows and a ``(P, rand_cols)`` uniform block (``rand_cols`` absent:
+L). On the deme path the engine runs one-point and arithmetic crossover
+as their expression equivalents (``engine.PGA.CROSSOVER_EXPRS``)."""
 
 from __future__ import annotations
 
@@ -18,6 +20,32 @@ def uniform_crossover(p1: torch.Tensor, p2: torch.Tensor, rand: torch.Tensor) ->
 
 
 uniform_crossover.batched = uniform_crossover
+
+
+def _one_point_batched(p1: torch.Tensor, p2: torch.Tensor, rand: torch.Tensor) -> torch.Tensor:
+    L = p1.shape[1]
+    cut = torch.floor(rand[:, 0] * L).to(torch.int32)
+    pos = torch.arange(L, dtype=torch.int32, device=p1.device)[None, :]
+    return torch.where(pos < cut[:, None], p1, p2)
+
+
+def one_point_crossover(p1: torch.Tensor, p2: torch.Tensor, rand: torch.Tensor) -> torch.Tensor:
+    """One cut at ``floor(rand[0] * L)``: the prefix from p1, the suffix
+    from p2."""
+    return _one_point_batched(p1[None], p2[None], rand[None])[0]
+
+
+one_point_crossover.batched = _one_point_batched
+one_point_crossover.rand_cols = 1
+
+
+def arithmetic_crossover(p1: torch.Tensor, p2: torch.Tensor, rand: torch.Tensor) -> torch.Tensor:
+    """Per-gene convex blend ``a*p1 + (1-a)*p2`` with ``a = rand``
+    (real-coded GAs). Elementwise, so it is its own batched form."""
+    return rand * p1 + (1.0 - rand) * p2
+
+
+arithmetic_crossover.batched = arithmetic_crossover
 
 
 def order_walk(p1: torch.Tensor, p2: torch.Tensor, fill: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,14 @@ by the crossover kind the engine routes (``engine.PGA._crossover_kind``):
   selection, the order-preserving walk (a parent's gene where its city
   is unvisited, else the ``fill`` draw), point, gaussian or swap
   mutation, and the fused score of onemax, onemax_bits or the coordinate
-  TSP of ``make_tsp_coords(duplicate_mode="genes")``.
+  TSP of ``make_tsp_coords(duplicate_mode="genes")``;
+- **expression** (``expr_breed_kernel`` of ``csrc/expr_breed.cu``, B6):
+  where the crossover or mutation is an expression operator
+  (``ops/breed_expr.py``) or the objective has an expression form
+  (``expr_fused``: ``from_expression``, knapsack, NK, the trap), the
+  template kernel with generated hooks breeds and scores; a hook that is
+  not an expression stays builtin (uniform crossover; point, gaussian or
+  swap mutation; a builtin fused objective).
 
 The mutation's [rate, sigma] are runtime inputs. The score is written to
 the child's physical row; an objective without a fused form is scored by
@@ -76,6 +83,7 @@ from libpga_tpu_torch.objectives.classic import (
 )
 from libpga_tpu_torch.ops import kernels
 from libpga_tpu_torch.ops.crossover import order_walk
+from libpga_tpu_torch.ops.expr_cuda import streams
 from libpga_tpu_torch.ops.evaluate import evaluate
 from libpga_tpu_torch.ops.step import run_generations
 from libpga_tpu_torch.ops.select import (
@@ -87,6 +95,13 @@ from libpga_tpu_torch.ops.select import (
 LANE = 128
 CROSSOVER_KINDS = ("uniform", "order")
 MUTATE_KINDS = ("point", "gaussian", "swap")
+
+
+def is_expression(kind) -> bool:
+    """Whether a crossover or mutation kind is an expression operator
+    (``ops/breed_expr.py``: it carries ``.kernel_rows``), not a builtin
+    kind name."""
+    return callable(kind) and getattr(kind, "kernel_rows", None) is not None
 
 # ---------------------------------------------------------------------
 # Geometry (copied from libpga_tpu/ops/pallas_step.py:185-372, 1701-1932)
@@ -317,10 +332,11 @@ def resolve_geometry(
     selection_param: Optional[float] = None,
     fused: bool = True,
     layout: Optional[str] = None,
-    crossover: str = "uniform",
+    crossover="uniform",
     multigen: bool = False,
     elitism: int = 0,
     demes_per_step: Optional[int] = None,
+    const_carrying: bool = False,
 ) -> Optional[Geometry]:
     """What ``make_pallas_breed`` (or, with ``multigen``,
     ``make_pallas_multigen``) would build for float32 genes, a builtin
@@ -340,11 +356,19 @@ def resolve_geometry(
     only there: the one-generation path carries global elites outside
     the kernel.
 
+    ``crossover`` may be an expression operator: it is shaped as uniform
+    crossover is (JAX's ``_kernel_shape`` admits callable kinds).
+    ``const_carrying`` (a fused objective with kernel constants: NK,
+    knapsack) takes JAX's deme default of 256 rows and demes-per-step
+    default of 16.
+
     None where the JAX factory declines (tournament size outside 1..16,
     under 128 rows, only degenerate padded fits, no K whose order
     scratch fits, or the multigen elitism gate)."""
     if not 1 <= tournament_size <= 16:
         return None
+    if is_expression(crossover):
+        crossover = "uniform"
     if crossover not in CROSSOVER_KINDS:
         raise ValueError(f"unknown crossover kind {crossover!r}; one of {CROSSOVER_KINDS}")
     resolve_selection(selection, selection_param)
@@ -358,11 +382,13 @@ def resolve_geometry(
             "layout='pingpong' is not available here: order crossover is riffle-only"
         )
     if not deme_size:
-        deme_size = auto_deme_size()
+        deme_size = auto_deme_size(const_carrying=const_carrying)
     Lp = math.ceil(genome_len / LANE) * LANE
     blocks_fit = _multigen_blocks_fit if multigen else _blocks_fit
     d_pool = MULTIGEN_D_POOL if multigen else ONE_GEN_D_POOL
-    d_default = MULTIGEN_D_DEFAULT if multigen else one_gen_d_default()
+    d_default = (
+        MULTIGEN_D_DEFAULT if multigen else one_gen_d_default(const_carrying=const_carrying)
+    )
 
     def fit(k: int, d: int) -> bool:
         extra = _order_scratch_bytes(k, genome_len, Lp) if order else 0
@@ -482,9 +508,13 @@ class Draws:
     None: JAX prefills every child position with a uniform draw, and a
     position keeps it only where neither parent's city is unvisited);
     ``tie`` (G, K) int64 holding a 32-bit word per row, the in-kernel
-    ranks' tie break (multigen, else None). The multigen launch takes
-    the same tensors with a leading sub-generation axis; :meth:`at`
-    gives one sub-generation's."""
+    ranks' tie break (multigen, else None); the expression operators'
+    streams (``ops/breed_expr.py``, else None): ``expr_gene`` (4, G, K,
+    L) per-gene planes crossover ``r``, ``r2``, mutation ``r``, ``r2``,
+    and ``expr_row`` (G, K, 4) per-row words crossover ``q``, ``q2``,
+    mutation ``q``, ``q2`` (a plane no hook reads is zeros). The
+    multigen launch takes the same tensors with a leading sub-generation
+    axis; :meth:`at` gives one sub-generation's."""
 
     sel_u: torch.Tensor
     cross: Optional[torch.Tensor]
@@ -492,6 +522,8 @@ class Draws:
     gauss: Optional[torch.Tensor] = None
     fill: Optional[torch.Tensor] = None
     tie: Optional[torch.Tensor] = None
+    expr_gene: Optional[torch.Tensor] = None
+    expr_row: Optional[torch.Tensor] = None
 
     def at(self, t: int) -> "Draws":
         """Sub-generation ``t`` of draws with a leading axis."""
@@ -500,14 +532,16 @@ class Draws:
 
 
 def zero_draws(
-    G: int, K: int, L: int, mutate: str = "point", device="cpu",
-    crossover: str = "uniform", steps: Optional[int] = None,
+    G: int, K: int, L: int, mutate="point", device="cpu",
+    crossover="uniform", steps: Optional[int] = None,
 ) -> Draws:
     """All-zero draws: the JAX interpret-mode PRNG's output. ``steps``
     gives every tensor a leading axis of that many sub-generations and
-    adds the tie words (the multigen launch's draws)."""
+    adds the tie words (the multigen launch's draws). An expression
+    crossover or mutation adds the expression streams."""
     z = dict(device=device)
     order = crossover == "order"
+    expr = is_expression(crossover) or is_expression(mutate)
     lead = () if steps is None else (steps,)
     return Draws(
         sel_u=torch.zeros(lead + (G, K, 2), **z),
@@ -516,12 +550,15 @@ def zero_draws(
         gauss=torch.zeros(lead + (3, G, K, L), **z) if mutate == "gaussian" else None,
         fill=torch.zeros(lead + (G, K, L), **z) if order else None,
         tie=None if steps is None else torch.zeros(lead + (G, K), dtype=torch.int64, **z),
+        expr_gene=torch.zeros(lead + (4, G, K, L), **z) if expr else None,
+        expr_row=torch.zeros(lead + (G, K, 4), **z) if expr else None,
     )
 
 
 _MASK32 = 0xFFFFFFFF
 STREAM_SEL, STREAM_MUT, STREAM_CROSS = 0, 1, 2
 STREAM_FILL, STREAM_GAUSS, STREAM_TIE = 0x20000000, 0x40000000, 0x60000000
+STREAM_EXPR_GENE, STREAM_EXPR_ROW = 0x70000000, 0x71000000
 
 
 def _mulhilo(a: int, b: torch.Tensor):
@@ -556,8 +593,8 @@ def _to_uniform(word: torch.Tensor) -> torch.Tensor:
 
 
 def philox_draws(
-    seed: torch.Tensor, G: int, K: int, L: int, mutate: str = "point",
-    crossover: str = "uniform", sub_generation: int = 0, tie: bool = False,
+    seed: torch.Tensor, G: int, K: int, L: int, mutate="point",
+    crossover="uniform", sub_generation: int = 0, tie: bool = False,
 ) -> Draws:
     """The draws the kernels' production mode generates for launch seed
     ``seed``: counter ``(k, g, stream, sub_generation)`` (the
@@ -568,7 +605,12 @@ def philox_draws(
     fallback genes 4t..4t+3 (gene ``4t + j`` takes word ``j``; order
     crossover only), ``0x40000000 + l`` = gaussian gate/u1/u2 of gene
     ``l``, and with ``tie`` ``0x60000000`` = the rank tie word of row k
-    (word 0; the multigen kernel). Uniforms are ``(bits >> 8) * 2^-24``."""
+    (word 0; the multigen kernel). Expression operators (``crossover`` /
+    ``mutate`` from ``ops/breed_expr.py``) add the streams they read
+    (``expr_cuda.streams``): per-gene plane j of gene l is word ``l & 3``
+    of call ``0x70000000 + (j << 22) + (l >> 2)``, and the per-row words
+    are the four words of call ``0x71000000``; an unread plane is zeros.
+    Uniforms are ``(bits >> 8) * 2^-24``."""
     dev = seed.device
     k = torch.arange(K, device=dev, dtype=torch.int64)[None, :].expand(G, K)
     g = torch.arange(G, device=dev, dtype=torch.int64)[:, None].expand(G, K)
@@ -591,7 +633,7 @@ def philox_draws(
     if crossover == "order":
         words = torch.stack(per_gene(STREAM_FILL, -(-L // 4)), dim=-1)
         fill = _to_uniform(words.reshape(G, K, -1)[..., :L])
-    else:
+    elif crossover == "uniform":
         ntiles = -(-L // 128)
         shifts = torch.arange(32, device=dev, dtype=torch.int64)
         tiles = []
@@ -602,9 +644,20 @@ def philox_draws(
     gauss = None
     if mutate == "gaussian":
         gauss = torch.stack([_to_uniform(x) for x in per_gene(STREAM_GAUSS, L)[:3]])
+    expr_gene = expr_row = None
+    planes, words = streams(crossover if is_expression(crossover) else None,
+                            mutate if is_expression(mutate) else None)
+    if is_expression(crossover) or is_expression(mutate):
+        expr_gene = torch.zeros((4, G, K, L), device=dev)
+        for j in planes:
+            w = torch.stack(per_gene(STREAM_EXPR_GENE + (j << 22), -(-L // 4)), dim=-1)
+            expr_gene[j] = _to_uniform(w.reshape(G, K, -1)[..., :L])
+        expr_row = torch.zeros((G, K, 4), device=dev)
+        if words:
+            expr_row = torch.stack([_to_uniform(x) for x in call(STREAM_EXPR_ROW)], dim=-1)
     return Draws(
         sel_u=sel_u, cross=cross, mut_u=mut_u, gauss=gauss, fill=fill,
-        tie=call(STREAM_TIE)[0] if tie else None,
+        tie=call(STREAM_TIE)[0] if tie else None, expr_gene=expr_gene, expr_row=expr_row,
     )
 
 
@@ -622,14 +675,15 @@ def breed_children(
     tournament_size: int,
     selection: str,
     selection_param: Optional[float],
-    mutate: str,
+    mutate,
     mparams: torch.Tensor,
     elite_rows: int = 0,
-    crossover: str = "uniform",
+    crossover="uniform",
 ) -> torch.Tensor:
     """Breed the K children of each of N demes: the torch counterpart of
-    ``_deme_child`` (uniform or order crossover; point, gaussian or swap
-    mutation). ``cohorts`` (N, K, L) float32 rows in cohort order;
+    ``_deme_child`` (uniform, order or expression crossover; point,
+    gaussian, swap or expression mutation: an expression operator's
+    ``kernel_rows`` reads the ``expr_gene`` / ``expr_row`` draws). ``cohorts`` (N, K, L) float32 rows in cohort order;
     ``ranks`` (N, K) in-deme ranks (a permutation of 0..K-1, 0 = best);
     ``valid`` (N,) float32 real-row counts V; ``draws`` sized (N, K, .);
     ``mparams`` (2,) float32 [rate, sigma]. ``elite_rows`` > 0 makes
@@ -655,7 +709,12 @@ def breed_children(
     n = torch.arange(N, device=dev)[:, None]
     p1 = cohorts[n, torch.gather(row_of_rank, 1, wr[..., 0])]
     p2 = cohorts[n, torch.gather(row_of_rank, 1, wr[..., 1])]
-    if crossover == "order":
+    if is_expression(crossover):
+        r, r2, q, q2 = _expr_inputs(draws, 0, N * K, L)
+        child = crossover.kernel_rows(
+            p1.reshape(N * K, L), p2.reshape(N * K, L), r, r2, q, q2, true_len=L,
+        ).reshape(N, K, L)
+    elif crossover == "order":
         child = order_walk(
             p1.reshape(N * K, L), p2.reshape(N * K, L),
             draws.fill.reshape(N * K, L),
@@ -670,7 +729,13 @@ def breed_children(
         may_mutate = may_mutate & (row >= elite_rows)[None, :]
     cols = torch.arange(L, device=dev)
     u = draws.mut_u
-    if mutate == "point":
+    if is_expression(mutate):
+        r, r2, q, q2 = _expr_inputs(draws, 2, N * K, L)
+        mutated = mutate.kernel_rows(
+            child.reshape(N * K, L), r, r2, q, q2, rate, sigma, true_len=L,
+        ).reshape(N, K, L)
+        child = torch.where(may_mutate[..., None], mutated, child)
+    elif mutate == "point":
         pos = torch.floor(u[..., 0] * L).to(torch.int64)
         fire = (u[..., 1] < rate) & may_mutate
         hit = (cols == pos[..., None]) & fire[..., None]
@@ -696,6 +761,17 @@ def breed_children(
     else:
         raise ValueError(f"unknown mutate kind {mutate!r}; one of {MUTATE_KINDS}")
     return child
+
+
+def _expr_inputs(draws: Draws, first: int, rows: int, L: int):
+    """``(r, r2, q, q2)`` of one expression operator, as ``kernel_rows``
+    takes them: per-gene (rows, L), per-row (rows, 1); ``first`` is 0
+    for the crossover's streams, 2 for the mutation's."""
+    g, w = draws.expr_gene, draws.expr_row
+    return (
+        g[first].reshape(rows, L), g[first + 1].reshape(rows, L),
+        w[..., first].reshape(rows, 1), w[..., first + 1].reshape(rows, 1),
+    )
 
 
 def tsp_scores(
@@ -760,11 +836,16 @@ def rowwise_scores(obj_id: int, child: torch.Tensor, warp_order: bool = False) -
 
 def fused_scores(
     obj_id: int, child: torch.Tensor, coords: Optional[torch.Tensor] = None,
-    penalty: float = 0.0,
+    penalty: float = 0.0, objective: Optional[Callable] = None,
 ) -> torch.Tensor:
     """The scores the one-generation kernels compute for a fused
     objective id (``FUSED_TSP`` reads ``coords`` (C, 2) and
-    ``penalty``), up to the order of their float32 sums."""
+    ``penalty``) or an expression objective (``objective``, a
+    ``from_expression`` objective: its ``kernel_rowwise``), up to the
+    order of their float32 sums."""
+    if objective is not None:
+        L = child.shape[-1]
+        return objective.kernel_rowwise(child.reshape(-1, L)).reshape(child.shape[:-1])
     if obj_id in ROWWISE_FUSED:
         return rowwise_scores(obj_id, child)
     if obj_id == FUSED_TSP:
@@ -782,22 +863,26 @@ def deme_breed_reference(
     tournament_size: int = 2,
     selection: str = "tournament",
     selection_param: Optional[float] = None,
-    mutate: str = "point",
+    mutate="point",
     mparams: torch.Tensor,
     obj_id: int = FUSED_NONE,
     out: Optional[torch.Tensor] = None,
-    crossover: str = "uniform",
+    crossover="uniform",
     coords: Optional[torch.Tensor] = None,
     penalty: float = 0.0,
+    objective: Optional[Callable] = None,
 ):
     """The plain version of the deme-breed kernels (uniform crossover:
-    ``deme_breed_kernel``; order crossover: ``order_breed_kernel``): one
+    ``deme_breed_kernel``; order crossover: ``order_breed_kernel``; an
+    expression crossover, mutation or ``objective``:
+    ``expr_breed_kernel``): one
     generation over all ``G`` demes of ``genomes`` (Pp, L), children
     placed by the parity's row map. A deme's valid count V is how many
     of its read rows are real (< P), at least 1: the ping-pong
     alive-mask sum and the riffle's positional ``max(min(K, P - g*K),
-    1)`` are both this. ``coords``/``penalty`` serve ``FUSED_TSP``.
-    Returns ``(children (Pp, L), scores (Pp,) or None)``; scores of pad
+    1)`` are both this. ``coords``/``penalty`` serve ``FUSED_TSP``;
+    ``objective`` (a ``from_expression`` objective) scores in place of
+    ``obj_id``. Returns ``(children (Pp, L), scores (Pp,) or None)``; scores of pad
     rows (>= P) are -inf."""
     read, write = geom.row_maps(parity, genomes.device)
     valid = torch.clamp((read < geom.P).sum(dim=1), min=1).to(torch.float32)
@@ -810,9 +895,9 @@ def deme_breed_reference(
     if out is None:
         out = torch.empty_like(genomes)
     out[write.reshape(-1)] = child.reshape(-1, geom.L)
-    if obj_id == FUSED_NONE:
+    if obj_id == FUSED_NONE and objective is None:
         return out, None
-    s = fused_scores(obj_id, child, coords, penalty)
+    s = fused_scores(obj_id, child, coords, penalty, objective)
     s = torch.where(write >= geom.P, -torch.inf, s)
     scores = torch.empty(geom.Pp, device=genomes.device)
     scores[write.reshape(-1)] = s.reshape(-1)
@@ -831,18 +916,22 @@ def deme_breed(
     **kw,
 ):
     """One breed launch. On a CUDA tensor it launches the kernel of the
-    crossover kind (``kw["crossover"]``: uniform, the deme-breed kernel;
-    order, the order-breed kernel) and raises if that fails; on a CPU
-    tensor it runs the plain version. Exactly one of ``seed`` (int64
-    tensor of one element: production Philox mode) or ``draws``
-    (injected mode) is given."""
+    hooks (an expression crossover, mutation or ``kw["objective"]``: the
+    expression breed kernel; else by ``kw["crossover"]``: uniform, the
+    deme-breed kernel; order, the order-breed kernel) and raises if that
+    fails; on a CPU tensor it runs the plain version. Exactly one of
+    ``seed`` (int64 tensor of one element: production Philox mode) or
+    ``draws`` (injected mode) is given."""
     if (seed is None) == (draws is None):
         raise ValueError("pass exactly one of seed= or draws=")
     if genomes.is_cuda:
-        launch = (
-            kernels.order_breed_cuda if kw.get("crossover") == "order"
-            else kernels.deme_breed_cuda
-        )
+        if (is_expression(kw.get("crossover")) or is_expression(kw.get("mutate"))
+                or kw.get("objective") is not None):
+            launch = kernels.expr_breed_cuda
+        elif kw.get("crossover") == "order":
+            launch = kernels.order_breed_cuda
+        else:
+            launch = kernels.deme_breed_cuda
         return launch(
             genomes, ranks, geom, parity, seed=seed, draws=draws, out=out,
             **kw,
@@ -982,8 +1071,8 @@ def make_fused_breed(
     tournament_size: int = 2,
     selection: str = "tournament",
     selection_param: Optional[float] = None,
-    crossover: str = "uniform",
-    mutate: str = "point",
+    crossover="uniform",
+    mutate="point",
     mparams: Sequence[float] = (0.01, 0.0),
     elitism: int = 0,
     layout: Optional[str] = None,
@@ -991,24 +1080,46 @@ def make_fused_breed(
 ):
     """One generation of the deme path for a fixed shape and objective,
     the counterpart of ``make_pallas_breed``'s breed: ranks, one launch
-    of the kernel of the crossover kind, unfused scoring where the
-    objective has no fused id, elitism. ``mparams`` is the mutation's
-    [rate, sigma]; ``layout`` forces a row map (JAX's ``pallas_layout``).
-    The fused TSP score pairs with order crossover only: with uniform
+    of the kernel of the hooks, unfused scoring where the objective has
+    no fused form, elitism. ``crossover`` / ``mutate`` are builtin kind
+    names or expression operators (``ops/breed_expr.py``); the objective
+    fuses by its builtin ``fused_id`` or its expression form
+    (``expr_fused``; one with kernel constants is const-carrying, which
+    shapes the geometry as in JAX). ``mparams`` is the mutation's [rate,
+    sigma]; ``layout`` forces a row map (JAX's ``pallas_layout``). The
+    fused TSP score pairs with order crossover only: with uniform
     crossover that objective is scored by its rowwise form, as in JAX.
-    Returns
+    Order crossover with an expression mutation or objective, which JAX
+    breeds, raises ``NotImplementedError`` (not ported yet). Returns
     ``breed(genomes (Pp, L), scores (Pp,), parity, generator, out=None)
     -> (genomes, scores)``, both in physical row order; children go into
     ``out`` when given (never ``genomes`` itself). ``breed.geom`` is the
     geometry."""
     obj_id = getattr(objective, "fused_id", FUSED_NONE)
+    expr_obj = getattr(objective, "expr_fused", None)
+    if expr_obj is not None:
+        obj_id = FUSED_NONE
     if obj_id == FUSED_TSP and crossover != "order":
         obj_id = FUSED_NONE
+    if crossover == "order" and (is_expression(mutate) or expr_obj is not None):
+        raise NotImplementedError(
+            "order crossover with an expression mutation or an expression objective is"
+            " not ported yet (ROADMAP Queue B, B6's order-kernel cases)"
+        )
+    for op in (crossover, mutate, expr_obj):
+        pin = getattr(op, "pinned_genome_len", None)
+        if pin and pin != genome_len:
+            raise ValueError(
+                f"expression {op.expression!r} uses length-{pin} vector constants but"
+                f" the population genome length is {genome_len}"
+            )
     geom = resolve_geometry(
         pop_size, genome_len, deme_size=deme_size,
         tournament_size=tournament_size, selection=selection,
-        selection_param=selection_param, fused=obj_id != FUSED_NONE,
+        selection_param=selection_param,
+        fused=obj_id != FUSED_NONE or expr_obj is not None,
         crossover=crossover, layout=layout,
+        const_carrying=bool(getattr(expr_obj, "kernel_rowwise_consts", ())),
     )
     if geom is None:
         raise ValueError(
@@ -1025,6 +1136,8 @@ def make_fused_breed(
     )
     if obj_id == FUSED_TSP:
         kw.update(coords=objective.coords.to(device), penalty=objective.penalty)
+    if expr_obj is not None:
+        kw.update(objective=expr_obj)
 
     def breed(genomes, scores, parity, generator, out=None):
         tie = draw_tie_words(generator, geom.Pp, genomes.device)
@@ -1041,6 +1154,7 @@ def make_fused_breed(
         return g2, s2
 
     breed.geom = geom
+    breed.kw = kw
     return breed
 
 
@@ -1086,8 +1200,8 @@ def make_fused_multigen(
     tournament_size: int = 2,
     selection: str = "tournament",
     selection_param: Optional[float] = None,
-    crossover: str = "uniform",
-    mutate: str = "point",
+    crossover="uniform",
+    mutate="point",
     mparams: Sequence[float] = (0.01, 0.0),
     elitism: int = 0,
     layout: Optional[str] = None,
@@ -1102,9 +1216,17 @@ def make_fused_multigen(
     None where the JAX factory declines: the objective has no rowwise
     fused form (the coordinate TSP's fused score is gene-major, not
     rowwise), the geometry declines, or ``elitism >= K // 4``. Order
-    crossover with a rowwise-fused objective, which JAX breeds here,
-    raises ``NotImplementedError``: that case of the kernel is not
-    ported yet."""
+    crossover with a rowwise-fused objective, and any expression
+    crossover, mutation or objective, which JAX breeds here, raise
+    ``NotImplementedError``: those cases of the kernel are not ported
+    yet."""
+    if (is_expression(crossover) or is_expression(mutate)
+            or getattr(objective, "expr_fused", None) is not None):
+        raise NotImplementedError(
+            "generations_per_launch > 1 with an expression crossover, mutation or"
+            " objective is not ported yet (ROADMAP Queue B, B6's multigen cases);"
+            " run with generations_per_launch=1"
+        )
     obj_id = getattr(objective, "fused_id", FUSED_NONE)
     if obj_id not in ROWWISE_FUSED:
         return None

@@ -4,15 +4,20 @@
 library with a plain C interface (``-gencode arch=compute_90a,code=sm_90a``),
 loaded with ``ctypes``. The library goes into ``libpga_tpu_torch/_build/``
 (listed in ``.gitignore``) under a name that carries a hash of the
-source, so an edited source is rebuilt. Nothing here runs at import
-time: this module imports on machines without ``nvcc`` or a card.
+source and the headers it includes, so an edited source is rebuilt.
+``csrc/expr_breed.cu`` is a template: each breed with expression hooks
+gets its own unit, the hooks that ``ops/expr_cuda.py`` generates followed
+by the template, written to ``_build/expr_breed-<hash>.cu`` and built the
+same way (:func:`build_expr`). Nothing here runs at import time: this
+module imports on machines without ``nvcc`` or a card.
 
 ``LAUNCHES`` counts kernel launches: the uniform-crossover deme breed
 by row-map layout ("pingpong", "riffle"), the order-crossover breed
 ("order"), the multi-generation breed ("multigen", one per launch
-whatever its step count), the GP evaluator by mode (compacted programs,
-or raw genomes with static trips). A wrapper adds one where it launches
-its kernel and nowhere else.
+whatever its step count), the expression breed ("expr", every row map),
+the GP evaluator by mode (compacted programs, or raw genomes with static
+trips). A wrapper adds one where it launches its kernel and nowhere
+else.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
@@ -29,6 +35,7 @@ from typing import Optional
 import torch
 
 from libpga_tpu_torch.objectives.classic import FUSED_NONE, FUSED_TSP, ROWWISE_FUSED
+from libpga_tpu_torch.ops import expr_cuda
 from libpga_tpu_torch.ops.select import resolve_selection
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -39,16 +46,20 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {
-    "pingpong": 0, "riffle": 0, "order": 0, "multigen": 0,
+    "pingpong": 0, "riffle": 0, "order": 0, "multigen": 0, "expr": 0,
     "gp_eval_opt": 0, "gp_eval_static": 0,
 }
+TEMPLATES = ("expr_breed",)  # sources built only with generated hooks in front
 
 SEL_IDS = {"tournament": 0, "truncation": 1, "linear_rank": 2}
 MUTATE_IDS = {"point": 0, "gaussian": 1, "swap": 2}
 ORDER_THREADS = 64  # children per block of order_breed_kernel
 MULTIGEN_MAX_D = 16  # demes per block of multigen_breed_kernel
+EXPR_MAX_WARPS = 8  # warps per block of expr_breed_kernel (THREADS / 32)
+SMEM_BLOCK_BYTES = 232_448  # shared memory a block may use on Hopper
 
 _libs: dict = {}
+_expr_libs: dict = {}  # generated source -> built library path
 
 
 def reset_launches() -> None:
@@ -63,19 +74,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build(name: str = "deme_breed", verbose: bool = False) -> Path:
-    """Compile ``csrc/<name>.cu`` into ``_build/lib<name>-<hash>.so``
-    unless that file exists. Returns its path; raises on failure."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib = BUILD / f"lib{name}-{digest}.so"
+def _digest(source: bytes) -> str:
+    """Hash of a unit: its text, every header under ``csrc/`` and the
+    flags."""
+    h = hashlib.sha256(source)
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _compile(src: Path, lib: Path, verbose: bool) -> Path:
     if lib.exists():
         return lib
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS]
+    cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC)]
     if verbose:
         cmd += ["-Xptxas", "-v"]
     cmd += ["-o", str(tmp), str(src)]
@@ -90,13 +104,54 @@ def build(name: str = "deme_breed", verbose: bool = False) -> Path:
     return lib
 
 
-def build_all(verbose: bool = False) -> None:
-    """Build every kernel source, one nvcc per source, all started
-    together."""
-    names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
-        for fut in [pool.submit(build, n, verbose) for n in names]:
-            fut.result()
+def build(name: str = "deme_breed", verbose: bool = False) -> Path:
+    """Compile ``csrc/<name>.cu`` into ``_build/lib<name>-<hash>.so``
+    unless that file exists. Returns its path; raises on failure."""
+    src = CSRC / f"{name}.cu"
+    return _compile(src, BUILD / f"lib{name}-{_digest(src.read_bytes())}.so", verbose)
+
+
+def expr_unit(program) -> str:
+    """The text of an expression breed's unit: the generated hooks
+    (``program.source``), then the template ``csrc/expr_breed.cu``."""
+    return program.source + "\n" + (CSRC / "expr_breed.cu").read_text()
+
+
+def build_expr(program, verbose: bool = False) -> Path:
+    """Compile an expression breed's unit into
+    ``_build/libexpr_breed-<hash>.so`` unless that file exists; the unit's
+    text is kept beside it as ``expr_breed-<hash>.cu``."""
+    text = expr_unit(program)
+    digest = _digest(text.encode())
+    lib = BUILD / f"libexpr_breed-{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD.mkdir(parents=True, exist_ok=True)
+    src = BUILD / f"expr_breed-{digest}.cu"
+    tmp = src.with_suffix(f".{os.getpid()}.tmp")
+    tmp.write_text(text)
+    os.replace(tmp, src)
+    return _compile(src, lib, verbose)
+
+
+def build_all(verbose: bool = False, programs=()) -> dict:
+    """Build every kernel source (the templates only through
+    ``programs``, expression units from ``ops/expr_cuda.generate``), one
+    nvcc per unit, all started together. Returns the seconds each unit's
+    build took (0 where its library existed), by source name or
+    ``expr_breed[i]`` for ``programs[i]``."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu") if p.stem not in TEMPLATES)
+
+    def timed(fn, arg):
+        t0 = time.perf_counter()
+        fn(arg, verbose)
+        return time.perf_counter() - t0
+
+    jobs = [(n, build, n) for n in names]
+    jobs += [(f"expr_breed[{i}]", build_expr, p) for i, p in enumerate(programs)]
+    with ThreadPoolExecutor(max_workers=max(len(jobs), 1)) as pool:
+        futs = {key: pool.submit(timed, fn, arg) for key, fn, arg in jobs}
+        return {key: fut.result() for key, fut in futs.items()}
 
 
 def _bindings() -> dict:
@@ -136,6 +191,19 @@ def _bindings() -> dict:
             ], i),
             "deme_breed_error_string": ([i], s),
         },
+        "expr_breed": {
+            "expr_breed_launch": ([
+                p, p, p, p, p,          # gin, gout, sout, ranks, mparams
+                p, p, p, p,             # sel_u, cross, mut_u, gauss
+                p, p, p, p,             # expression planes, row words, seed, consts
+                i, i, i, i, i,          # P, Pp, L, K, G
+                i, i, i, i,             # mode, S, D, q
+                i, i, f,                # sel kind, tournament size, sel param
+                i, i, i,                # mutate kind, objective id, warps per block
+                p,                      # stream
+            ], i),
+            "expr_breed_error_string": ([i], s),
+        },
         "gp_eval": {
             "gp_eval_launch": ([
                 p, p, p, p,             # genomes, ops, args, length
@@ -149,14 +217,17 @@ def _bindings() -> dict:
     }
 
 
-def _library(name: str) -> ctypes.CDLL:
-    if name in _libs:
-        return _libs[name]
-    lib = ctypes.CDLL(str(build(name)))
+def _library(name: str, path: Optional[Path] = None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` or, for a template,
+    the built unit at ``path``; cached by path."""
+    key = name if path is None else str(path)
+    if key in _libs:
+        return _libs[key]
+    lib = ctypes.CDLL(str(path or build(name)))
     for fn, (argtypes, restype) in _bindings()[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
-    _libs[name] = lib
+    _libs[key] = lib
     return lib
 
 
@@ -455,6 +526,131 @@ def multigen_breed_cuda(
     _raise_on(rc, lib, "deme_breed")
     LAUNCHES["multigen"] += 1
     return out, s_out
+
+
+def expr_warps(K: int, L: int, obj_rows: int) -> int:
+    """Warps per block of ``expr_breed_kernel``: up to 8, fewer where
+    each warp's child row and ``obj_rows`` objective rows of L floats do
+    not fit beside ``row_of_rank`` in a block's shared memory."""
+    per_warp = (1 + obj_rows) * L * 4
+    warps = min(EXPR_MAX_WARPS, (SMEM_BLOCK_BYTES - 1024 - 4 * K) // per_warp)
+    if warps < 1:
+        raise ValueError(
+            f"genome length {L} with {obj_rows} objective rows needs {per_warp} bytes of"
+            f" shared memory per warp: more than a block holds beside a deme of {K}"
+        )
+    return warps
+
+
+def expr_breed_cuda(
+    genomes: torch.Tensor,
+    ranks: torch.Tensor,
+    geom,
+    parity: int,
+    *,
+    seed: Optional[torch.Tensor] = None,
+    draws=None,
+    out: Optional[torch.Tensor] = None,
+    tournament_size: int = 2,
+    selection: str = "tournament",
+    selection_param: Optional[float] = None,
+    mutate="point",
+    mparams: torch.Tensor,
+    obj_id: int = 0,
+    crossover="uniform",
+    objective=None,
+):
+    """Launch ``expr_breed_kernel``, the template ``csrc/expr_breed.cu``
+    with the hooks generated for this breed (``expr_cuda.program_for``;
+    built at first use, :func:`build_expr`), on the current stream: the
+    kernel counterpart of ``fused_step.deme_breed_reference`` with an
+    expression crossover or mutation (an operator of
+    ``ops/breed_expr.py``) or objective (``objective``, a
+    ``from_expression`` objective; else ``obj_id`` names a builtin
+    rowwise-fused one). Uniform crossover and point / gaussian / swap
+    mutation stay builtin where no expression replaces them; every row
+    map. Production mode takes ``seed``; injected mode takes ``draws``
+    with the expression planes ``expr_gene`` (4, G, K, L) and words
+    ``expr_row`` (G, K, 4) where the hooks read them. Raises on bad
+    arguments or a failed build or launch; never runs anything else in
+    the kernel's place."""
+    dev = genomes.device
+    if dev.type != "cuda":
+        raise ValueError("expr_breed_cuda needs CUDA tensors")
+    cross_op = crossover if callable(crossover) else None
+    mut_op = mutate if callable(mutate) else None
+    if cross_op is None and crossover != "uniform":
+        raise ValueError(f"expr_breed_cuda breeds uniform or expression crossover, not {crossover!r}")
+    if mut_op is None and mutate not in MUTATE_IDS:
+        raise ValueError(f"unknown mutate kind {mutate!r}")
+    if objective is not None:
+        obj_id = FUSED_NONE
+    elif obj_id != FUSED_NONE and obj_id not in ROWWISE_FUSED:
+        raise ValueError(f"objective id {obj_id} is not fused with the expression breed")
+    if cross_op is None and mut_op is None and objective is None:
+        raise ValueError("no expression hook: the builtin breed is deme_breed_cuda")
+    G, K, L, Pp = geom.G, geom.K, geom.L, geom.Pp
+    for op in (cross_op, mut_op, objective):
+        pin = getattr(op, "pinned_genome_len", None)
+        if pin and pin != L:
+            raise ValueError(f"expression {op.expression!r} is pinned to genome length {pin}, not {L}")
+    if not 1 <= K <= 1024:
+        raise ValueError(f"deme size {K} outside 1..1024")
+    if not 1 <= tournament_size <= 16:
+        raise ValueError(f"tournament_size {tournament_size} outside 1..16")
+    _check(genomes, "genomes", torch.float32, (Pp, L), dev)
+    _check(ranks, "ranks", torch.int32, (G, K), dev)
+    _check(mparams, "mparams", torch.float32, (2,), dev)
+    param = resolve_selection(selection, selection_param)
+    program = expr_cuda.program_for(cross_op, mut_op, objective)
+    warps = expr_warps(K, L, program.obj_rows)
+    if out is None:
+        out = torch.empty_like(genomes)
+    _check(out, "out", torch.float32, (Pp, L), dev)
+    if out.data_ptr() == genomes.data_ptr():
+        raise ValueError("out must not alias genomes: blocks read rows other blocks write")
+    sel_u = cross = mut_u = gauss = xgene = xrow = None
+    if draws is not None:
+        sel_u, mut_u = draws.sel_u, draws.mut_u
+        _check(sel_u, "sel_u", torch.float32, (G, K, 2), dev)
+        _check(mut_u, "mut_u", torch.float32, (G, K, 4), dev)
+        if cross_op is None:
+            cross = draws.cross
+            _check(cross, "cross", torch.uint8, (G, K, L), dev)
+        if mutate == "gaussian":
+            gauss = draws.gauss
+            _check(gauss, "gauss", torch.float32, (3, G, K, L), dev)
+        if program.gene_planes:
+            xgene = draws.expr_gene
+            if xgene is None:
+                raise ValueError("injected draws need the expression planes expr_gene")
+            _check(xgene, "expr_gene", torch.float32, (4, G, K, L), dev)
+        if program.row_words:
+            xrow = draws.expr_row
+            if xrow is None:
+                raise ValueError("injected draws need the expression words expr_row")
+            _check(xrow, "expr_row", torch.float32, (G, K, 4), dev)
+    else:
+        _check(seed, "seed", torch.int64, (1,), dev)
+    scores = torch.empty(Pp, device=dev) if (objective is not None or obj_id) else None
+    if program.source not in _expr_libs:
+        _expr_libs[program.source] = build_expr(program)
+    lib = _library("expr_breed", _expr_libs[program.source])
+    rc = lib.expr_breed_launch(
+        genomes.data_ptr(), out.data_ptr(), _ptr(scores), ranks.data_ptr(),
+        mparams.data_ptr(),
+        _ptr(sel_u), _ptr(cross), _ptr(mut_u), _ptr(gauss), _ptr(xgene), _ptr(xrow),
+        _ptr(seed if draws is None else None), program.consts_on(dev).data_ptr(),
+        geom.P, Pp, L, K, G,
+        geom.mode(parity), geom.S, geom.D, geom.q,
+        SEL_IDS[selection], tournament_size,
+        0.0 if param is None else float(param),
+        MUTATE_IDS.get(mutate, 0) if mut_op is None else 0, int(obj_id), warps,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, lib, "expr_breed")
+    LAUNCHES["expr"] += 1
+    return out, scores
 
 
 def gp_eval_cuda(

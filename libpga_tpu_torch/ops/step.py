@@ -48,7 +48,8 @@ def make_breed(
 ) -> Callable:
     """``breed(genomes (P, L), scores (P,), generator=None, *, draws=None)
     -> next genomes``. Operators carry ``.batched`` (whole-population
-    form; a plain per-row callable is vmapped) and ``.rand_cols``
+    form, as the expression operators of ``ops/breed_expr.py`` and the
+    builtins do; a plain per-row callable is vmapped) and ``.rand_cols``
     (uniforms per individual; absent: L). Without ``draws`` the breed
     takes the selection's draws, then the crossover's, then the
     mutation's from ``generator``."""

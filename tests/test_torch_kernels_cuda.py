@@ -1,6 +1,6 @@
 """The CUDA kernels (libpga_tpu_torch/csrc/deme_breed.cu: its uniform,
-order and multi-generation breeds; and gp_eval.cu) against their plain
-torch versions, on the card. These tests skip on a
+order and multi-generation breeds; expr_breed.cu with generated hooks;
+and gp_eval.cu) against their plain torch versions, on the card. These tests skip on a
 machine without one. They import neither JAX nor the JAX package, so
 they run where only torch is installed:
 
@@ -111,7 +111,7 @@ def test_engine_on_card_counts_one_launch_per_generation(cuda_device):
     assert pga_run(p, 12) == 12
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {
-        "pingpong": 0, "riffle": 12, "order": 0, "multigen": 0,
+        "pingpong": 0, "riffle": 12, "order": 0, "multigen": 0, "expr": 0,
         "gp_eval_opt": 0, "gp_eval_static": 0,
     }
 
@@ -417,3 +417,187 @@ def test_gp_eval_kernel_rejects_bad_arguments(cuda_device):
     fn = make_gp_eval(gp, X, np.zeros(10, np.float32), optimize=False)
     with pytest.raises(ValueError, match="genomes"):
         fn(torch.zeros((4, 10), device=cuda_device))
+
+
+# ------------------------------------------------------- expression breed
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 units in the last place between ``a`` and ``b``."""
+    def key(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(2**31) - i, i)
+
+    return (key(a) - key(b)).abs()
+
+
+def _expr_case(name):
+    """(crossover, mutate, objective, obj_id) of an expression case."""
+    from libpga_tpu_torch import objectives as po
+    from libpga_tpu_torch.ops import breed_expr as bx
+
+    creep = bx.mutate_from_expression("where(r < rate, g + sigma * (2*r2 - 1), g)", rate=0.05, sigma=0.1)
+    one_point = bx.crossover_from_expression("where(i < floor(q * L), p1, p2)")
+    arith = bx.crossover_from_expression("r * p1 + (1 - r) * p2")
+    return {
+        "nk": ("uniform", "point", po.make_nk_landscape(64, 3, seed=0).expr_fused, 0),
+        "trap": ("uniform", "point", po.make_deceptive_trap(5).expr_fused, 0),
+        "knapsack": ("uniform", "gaussian", po.default_knapsack.expr_fused, 0),
+        "one_point+creep": (one_point, creep, None, onemax.fused_id),
+        "arithmetic+swap": (arith, "swap", None, onemax_bits.fused_id),
+        "uniform+creep+sin": ("uniform", creep, po.from_expression("sum(sin(g * 3)) + max(g)"), 0),
+        "all+unscored": (arith, bx.mutate_from_expression("where(q2 < 0.5, g, r)"), None, 0),
+    }[name]
+
+
+EXPR_VARIANTS = [
+    # (case, P, L, layout)
+    ("nk", 4096, 64, None),
+    ("nk", 1000, 64, "riffle"),
+    ("trap", 4096, 60, None),
+    ("knapsack", 1000, 6, None),
+    ("one_point+creep", 8192, 100, None),
+    ("one_point+creep", 1000, 100, "riffle"),
+    ("arithmetic+swap", 2100, 130, None),
+    ("uniform+creep+sin", 4096, 40, None),
+    ("all+unscored", 1000, 20, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", EXPR_VARIANTS, ids=lambda v: f"{v[0]}-{v[1]}x{v[2]}-{v[3]}")
+def test_expr_kernel_equals_plain_on_card(cuda_device, variant):
+    """The generated expression kernel equals its plain version on the
+    same inputs, in production (Philox) and injected mode, every parity
+    of the layout: genomes exactly (within 2 ulp where a hook calls a
+    transcendental or ``**``), scores within rtol 1e-5 / atol 1e-5 * L,
+    -inf on pad rows; one launch counted in LAUNCHES["expr"]."""
+    from libpga_tpu_torch.ops import expr_cuda
+
+    name, P, L, layout = variant
+    cross, mut, objective, obj_id = _expr_case(name)
+    expr_ops = [op for op in (cross, mut) if fs.is_expression(op)]
+    program = expr_cuda.program_for(
+        cross if fs.is_expression(cross) else None, mut if fs.is_expression(mut) else None, objective)
+    geom = fs.resolve_geometry(
+        P, L, layout=layout, crossover=cross,
+        const_carrying=bool(getattr(objective, "kernel_rowwise_consts", ())),
+    )
+    gen = torch.Generator(device=cuda_device).manual_seed(P + L)
+    g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device)
+    s = torch.rand(geom.Pp, generator=gen, device=cuda_device)
+    s[P:] = -torch.inf
+    kw = dict(crossover=cross, mutate=mut, obj_id=obj_id, objective=objective,
+              mparams=torch.tensor([0.3, 0.05], device=cuda_device))
+    scored = objective is not None or obj_id != 0
+    for parity in range(geom.parities):
+        ranks = fs.compute_ranks(s, geom, parity, fs.draw_tie_words(gen, geom.Pp, cuda_device))
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=cuda_device)
+        draws = fs.philox_draws(seed, geom.G, geom.K, L, mut, cross)
+        want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
+        injected = fs.zero_draws(geom.G, geom.K, L, mut, cuda_device, cross)
+        for f in ("sel_u", "mut_u", "expr_row"):
+            if getattr(injected, f) is not None:
+                setattr(injected, f, torch.rand_like(getattr(injected, f)))
+        if injected.expr_gene is not None:
+            injected.expr_gene = torch.rand_like(injected.expr_gene)
+        if mut == "gaussian":
+            injected.gauss = torch.rand((3, geom.G, geom.K, L), generator=gen, device=cuda_device)
+        injected.cross = (torch.rand((geom.G, geom.K, L), device=cuda_device) < 0.5).to(torch.uint8)
+        want_inj = fs.deme_breed_reference(g, ranks, geom, parity, injected, **kw)
+        before = kernels.LAUNCHES["expr"]
+        for got, ref in ((fs.deme_breed(g, ranks, geom, parity, seed=seed, **kw), want),
+                         (fs.deme_breed(g, ranks, geom, parity, draws=injected, **kw), want_inj)):
+            torch.cuda.synchronize()
+            if mut == "gaussian":  # log and cos of two libraries
+                torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-6)
+            elif program.transcendental:
+                assert int(_ulps(got[0], ref[0]).max()) <= 2
+            else:
+                assert torch.equal(got[0], ref[0])
+            if not scored:
+                assert got[1] is None and ref[1] is None
+                continue
+            real = torch.arange(geom.Pp, device=cuda_device) < P
+            assert bool(torch.isinf(got[1][~real]).all())
+            torch.testing.assert_close(got[1][real], ref[1][real], rtol=1e-5, atol=1e-5 * L)
+        assert kernels.LAUNCHES["expr"] == before + 2
+        assert expr_ops or objective is not None
+
+
+@pytest.mark.cuda
+def test_expr_philox_streams_are_uniform(cuda_device):
+    """The kernel's own expression draws, read from its output: a
+    crossover ``r`` and a mutation ``r2`` per gene, a crossover ``q``
+    per row. Means 1/2, a quarter below 1/4, neighbouring genes and the
+    two per-gene streams uncorrelated (bands > 5 sigma at 2^20 x 64)."""
+    from libpga_tpu_torch.ops import breed_expr as bx
+
+    P, L = 1 << 20, 64
+    geom = fs.resolve_geometry(P, L)
+    g = torch.rand((geom.Pp, L), device=cuda_device)
+    s = torch.rand(geom.Pp, device=cuda_device)
+    ranks = fs.compute_ranks(s, geom, 0, fs.draw_tie_words(None, geom.Pp, cuda_device))
+    seed = torch.tensor([12345], dtype=torch.int64, device=cuda_device)
+    mp = torch.tensor([0.0, 0.0], device=cuda_device)
+    r_cross, _ = fs.deme_breed(g, ranks, geom, 0, seed=seed, mparams=mp, mutate="point",
+                               crossover=bx.crossover_from_expression("r + 0 * p1"))
+    r2_mut, _ = fs.deme_breed(g, ranks, geom, 0, seed=seed, mparams=mp,
+                              mutate=bx.mutate_from_expression("r2 + 0 * g"))
+    q_row, _ = fs.deme_breed(g, ranks, geom, 0, seed=seed, mparams=mp, mutate="point",
+                             crossover=bx.crossover_from_expression("q + 0 * p1"))
+    torch.cuda.synchronize()
+    for name, x in (("cross r", r_cross), ("mut r2", r2_mut)):
+        assert abs(float(x.mean()) - 0.5) < 5e-4, name
+        assert abs(float((x < 0.25).float().mean()) - 0.25) < 5e-4, name
+        a, b = x[:, :-1].reshape(-1) - 0.5, x[:, 1:].reshape(-1) - 0.5
+        assert abs(float((a * b).mean()) * 12) < 3e-3, name
+    corr = float(((r_cross - 0.5) * (r2_mut - 0.5)).mean()) * 12
+    assert abs(corr) < 3e-3
+    assert bool((q_row == q_row[:, :1]).all())
+    q = q_row[:, 0]
+    assert abs(float(q.mean()) - 0.5) < 2e-3
+    assert abs(float((q < 0.25).float().mean()) - 0.25) < 2e-3
+
+
+@pytest.mark.cuda
+def test_expr_kernel_rejects_bad_arguments(cuda_device):
+    from libpga_tpu_torch.ops import breed_expr as bx
+
+    geom = fs.resolve_geometry(1000, 20)
+    g = torch.rand((geom.Pp, 20), device=cuda_device)
+    ranks = torch.zeros((geom.G, geom.K), dtype=torch.int32, device=cuda_device)
+    seed = torch.tensor([1], dtype=torch.int64, device=cuda_device)
+    mp = torch.tensor([0.01, 0.0], device=cuda_device)
+    mx = bx.mutate_from_expression("where(r < rate, r2, g)")
+    with pytest.raises(ValueError, match="alias"):
+        kernels.expr_breed_cuda(g, ranks, geom, 0, seed=seed, mparams=mp, mutate=mx, out=g)
+    with pytest.raises(ValueError, match="no expression hook"):
+        kernels.expr_breed_cuda(g, ranks, geom, 0, seed=seed, mparams=mp)
+    with pytest.raises(ValueError, match="pinned"):
+        kernels.expr_breed_cuda(g, ranks, geom, 0, seed=seed, mparams=mp, mutate=bx.mutate_from_expression(
+            "g * w", w=np.ones(7, np.float32)))
+    draws = fs.zero_draws(geom.G, geom.K, 20, mx, cuda_device)
+    draws.expr_gene = None
+    with pytest.raises(ValueError, match="expr_gene"):
+        kernels.expr_breed_cuda(g, ranks, geom, 0, draws=draws, mparams=mp, mutate=mx)
+
+
+@pytest.mark.cuda
+def test_engine_on_card_runs_expressions_through_the_expr_kernel(cuda_device):
+    from libpga_tpu_torch import PGA
+    from libpga_tpu_torch import objectives as po
+    from libpga_tpu_torch.ops.crossover import one_point_crossover
+
+    for objective, cross in ((po.make_nk_landscape(64, 3), None), ("onemax", one_point_crossover)):
+        pga = PGA(seed=0)
+        h = pga.create_population(4096, 64)
+        pga.set_objective(objective)
+        pga.set_crossover(cross)
+        kernels.reset_launches()
+        assert pga.run(7) == 7
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["expr"] == 7 and sum(kernels.LAUNCHES.values()) == 7
+        pop = pga.population(h)
+        want = pga._objective(pop.genomes)
+        torch.testing.assert_close(pop.scores, want, rtol=1e-5, atol=1e-4)
