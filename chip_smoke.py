@@ -99,9 +99,26 @@ Phases, each printing one line; any failure exits non-zero:
      the builtin uniform/point run: launches of the expression breed equal
      generations and nothing else launches; gens/s and, from a
      torch.profiler window of as many generations, the device's busy
-     share.
+     share;
+ 15. expr_multigen_compare: the expression multi-generation kernel
+     (csrc/expr_breed.cu's expr_multigen_kernel) against its plain torch
+     version on the same inputs, with injected and with Philox draws, in
+     every row map (riffle, ping-pong parity 0 and 1, padded), at 0, 1, 3
+     and 8 steps, with per-deme elites and a target that freezes half the
+     groups: NK at 4,194,304x64, the trap at 1,048,576x60 and 40,000x60,
+     the knapsack at 4,096x6, OneMax with creep mutation and with one-point
+     crossover at 40,000x100 and 1,048,576x100 (and smaller shapes for the
+     other row maps): genomes and scores equal element for element, or
+     within 2 ulp after a transcendental hook at one step. Times the
+     kernel at 1 and 8 steps and the plain version at 8, beside the bound;
+ 16. expr_multigen_run, expr_multigen_profile: PGA.run of those eight
+     workloads through the pga_* API at generations_per_launch=8 (launches
+     of expr_multigen_kernel equal ceil(gens / 8) and nothing else
+     launches; scores are the genomes' objective; the knapsack reaches
+     285) beside the same run at one generation per launch, then a
+     torch.profiler window over as many generations.
 The earlier OneMax, GP and TSP runs keep their depths; the whole script
-takes about two minutes on the card. Then one JSON line of per-kernel numbers, the card's name and power
+takes about three minutes on the card. Then one JSON line of per-kernel numbers, the card's name and power
 limit, and last the result line. With --log FILE every line printed
 also goes to that file (a tool that shows only the end of a long output
 can bring the file back whole).
@@ -158,6 +175,19 @@ EXPR_REPLACES = "libpga_tpu/ops/pallas_step.py:946"  # _breed_kernel, expression
 EXPR_ALSO_REPLACES = "libpga_tpu/ops/pallas_step.py:1173"  # _pp_breed_kernel, same branches
 EXPR_GENS = {"nk": 50, "trap": 50, "knapsack": 30, "ops": 50}
 CREEP = "where(r < rate, g + sigma * (2*r2 - 1), g)"
+EXPR_MG_T = 8
+EXPR_MG_REPLACES = "libpga_tpu/ops/pallas_step.py:1460"  # _multigen_kernel, expression cases
+# workload -> (layout, K, D, S) of make_pallas_multigen at its shape
+EXPR_MG_GEOMETRY = {
+    "nk-4M": ("riffle", 256, 8, 2048), "trap-1M": ("riffle", 512, 4, 512),
+    "trap-40k": ("riffle", 256, 1, 157), "knapsack": ("pingpong", 256, 8, 2),
+    "creep-40k": ("riffle", 256, 1, 157), "creep-1M": ("riffle", 512, 4, 512),
+    "one_point-40k": ("riffle", 256, 1, 157), "one_point-1M": ("riffle", 512, 4, 512),
+}
+EXPR_MG_GENS = {"nk-4M": 50, "trap-1M": 50, "trap-40k": 200, "knapsack": 30,
+                "creep-40k": 200, "creep-1M": 200, "one_point-40k": 200, "one_point-1M": 200}
+# A breeding hook with transcendentals (sqrt, log, cos): genes within 2 ulp.
+GAUSS_EXPR = "where(r < rate, g + sigma * sqrt(-2 * log(r2 + 1e-7)) * cos(6.2831855 * q), g)"
 # Philox statistics bands (n ~ 1e6 children, 1e8 genes): the standard
 # errors are ~2e-4 or smaller, so these bands are > 5 sigma wide.
 MEAN_RANK_BAND = (1 / 3 - 0.004, 1 / 3 + 0.002)  # E = 1/3 - O(1/K)
@@ -1105,10 +1135,13 @@ def expr_programs(port):
     from libpga_tpu_torch.ops.fused_step import is_expression
 
     progs = []
-    for P, L, objective, crossover, mutate in expr_workloads().values():
+    loads = [*expr_workloads().values(), *expr_multigen_workloads().values()]
+    for P, L, objective, crossover, mutate in loads:
         c, m, _, o, _ = expr_kinds(port, objective, crossover, mutate)
-        progs.append(expr_cuda.program_for(
-            c if is_expression(c) else None, m if is_expression(m) else None, o))
+        prog = expr_cuda.program_for(
+            c if is_expression(c) else None, m if is_expression(m) else None, o)
+        if all(prog is not q for q in progs):
+            progs.append(prog)
     return progs
 
 
@@ -1303,6 +1336,252 @@ def phase_expr_runs(port, kernels, results):
     port.pga_deinit(pga)
 
 
+def expr_multigen_workloads():
+    """name -> (P, L, objective, crossover, mutate) of the expression
+    workloads bred at several generations per launch, as PGA.run gets
+    them (None: uniform crossover, point mutation); the runs drive those
+    of EXPR_MG_GENS, and gauss-40k is compared only."""
+    from libpga_tpu_torch import objectives as obj
+    from libpga_tpu_torch.ops import crossover as cx
+    from libpga_tpu_torch.ops.breed_expr import mutate_from_expression
+
+    creep = mutate_from_expression(CREEP, rate=0.05, sigma=0.1)
+    trap = obj.make_deceptive_trap(5)
+    return {
+        "nk-4M": (1 << 22, 64, obj.make_nk_landscape(64, 3, seed=0), None, None),
+        "trap-1M": (1 << 20, 60, trap, None, None),
+        "trap-40k": (40_000, 60, trap, None, None),
+        "knapsack": (4096, 6, obj.default_knapsack, None, None),
+        "creep-40k": (40_000, 100, obj.onemax, None, creep),
+        "creep-1M": (1 << 20, 100, obj.onemax, None, creep),
+        "one_point-40k": (40_000, 100, obj.onemax, cx.one_point_crossover, None),
+        "one_point-1M": (1 << 20, 100, obj.onemax, cx.one_point_crossover, None),
+        "gauss-40k": (40_000, 100, obj.onemax, None,
+                      mutate_from_expression(GAUSS_EXPR, rate=0.05, sigma=0.1)),
+    }
+
+
+def expr_multigen_bound(geom, program, steps: int) -> tuple:
+    """Least time (ms) for one expression multigen launch and what sets
+    it: the larger of the bytes it must move whatever ``steps`` is
+    (population and scores read once and written once, the constant
+    buffer read once) over the memory rate, and per sub-generation the
+    float32 operations the function needs (K*log2(K) compares to rank a
+    deme, a select per gene and every per-gene statement the generated
+    hooks evaluate) over the float32 rate."""
+    nbytes = (2 * geom.Pp * geom.L + 2 * geom.Pp) * 4 + program.consts.nbytes
+    per_gene = 2 + program.source.count("const float t")
+    ops = steps * (geom.K * math.log2(geom.K) * geom.G + geom.Pp * geom.L * per_gene)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def expr_multigen_draws(fs, geom, steps, mut, cross, gen, device):
+    """Random injected draws of ``steps`` sub-generations, the expression
+    planes and row words included where the hooks read them."""
+    import torch
+
+    z = fs.zero_draws(geom.G, geom.K, geom.L, mut, device, cross, steps=max(steps, 1))
+
+    def rand(t):
+        return torch.rand(t.shape, generator=gen, device=device)
+
+    z.sel_u, z.mut_u = rand(z.sel_u), rand(z.mut_u)
+    z.cross = torch.randint(0, 2, z.cross.shape, generator=gen, device=device, dtype=torch.uint8)
+    z.tie = torch.randint(0, 2**32, z.tie.shape, generator=gen, device=device)
+    if z.expr_gene is not None:
+        z.expr_gene, z.expr_row = rand(z.expr_gene), rand(z.expr_row)
+    return z
+
+
+def phase_expr_multigen_compare(port, fs, device, results):
+    """The expression multigen kernel against its plain version on the
+    same inputs, injected and Philox draws, every row map, 1, 3 and 8
+    steps, per-deme elites and a target that freezes some groups; times
+    the kernel at 1 and 8 steps and the plain version at 8 at each
+    workload's full shape."""
+    import torch
+
+    from libpga_tpu_torch.ops import expr_cuda
+    from libpga_tpu_torch.ops.fused_step import is_expression
+
+    loads = expr_multigen_workloads()
+    # (case, workload, P, L, parity, steps, elitism, freeze, layout expected);
+    # P, L None: the workload's shape, timed; freeze: a target at the
+    # median of the groups' entry bests.
+    cases = [
+        ("nk-4M", "nk-4M", None, None, 0, 8, 0, False, "riffle"),
+        ("nk-65k-p1-e2-freeze", "nk-4M", 65_536, 64, 1, 3, 2, True, "pingpong"),
+        ("nk-padded-p1", "nk-4M", 1000, 64, 1, 3, 0, False, "pingpong"),
+        ("trap-1M", "trap-1M", None, None, 0, 8, 0, False, "riffle"),
+        ("trap-40k", "trap-40k", None, None, 0, 8, 0, False, "riffle"),
+        ("trap-40k-e2-freeze", "trap-40k", None, None, 0, 3, 2, True, "riffle"),
+        ("knapsack", "knapsack", None, None, 0, 8, 0, False, "pingpong"),
+        ("knapsack-p1-e2", "knapsack", 4096, 6, 1, 3, 2, False, "pingpong"),
+        ("knapsack-p0-steps1", "knapsack", 4096, 6, 0, 1, 0, False, "pingpong"),
+        ("creep-40k", "creep-40k", None, None, 0, 8, 0, False, "riffle"),
+        ("creep-1M", "creep-1M", None, None, 0, 8, 0, False, "riffle"),
+        ("creep-65k-p0-freeze", "creep-1M", 65_536, 100, 0, 3, 0, True, "pingpong"),
+        ("one_point-40k", "one_point-40k", None, None, 0, 8, 0, False, "riffle"),
+        ("one_point-1M", "one_point-1M", None, None, 0, 8, 0, False, "riffle"),
+        ("one_point-40k-e2-steps1", "one_point-40k", 40_000, 100, 0, 1, 2, False, "riffle"),
+        ("one_point-padded-p0", "one_point-1M", 1000, 100, 0, 3, 0, False, "pingpong"),
+        ("one_point-padded-p1-steps0", "one_point-1M", 1000, 100, 1, 0, 0, False, "pingpong"),
+        ("gauss-40k-steps1", "gauss-40k", 40_000, 100, 0, 1, 0, False, "riffle"),
+    ]
+    for name, load, P, L, parity, steps, e, freeze, want_layout in cases:
+        P0, L0, objective, crossover, mutate = loads[load]
+        timed = P is None
+        P, L = P or P0, L or L0
+        cross, mut, mparams, expr_obj, obj_id = expr_kinds(port, objective, crossover, mutate)
+        program = expr_cuda.program_for(cross if is_expression(cross) else None,
+                                        mut if is_expression(mut) else None, expr_obj)
+        geom = fs.resolve_geometry(P, L, crossover=cross, multigen=True, elitism=e,
+                                   const_carrying=bool(getattr(expr_obj, "kernel_rowwise_consts", ())))
+        check(geom.layout == want_layout, f"expr multigen {name}: layout {geom.layout}")
+        if timed:
+            check((geom.layout, geom.K, geom.D, geom.S) == EXPR_MG_GEOMETRY[load],
+                  f"expr multigen {name}: geometry {geom}")
+        gen = torch.Generator(device=device).manual_seed(P + L + parity + steps)
+        g = torch.rand((geom.Pp, L), generator=gen, device=device)
+        g[P:] = 0.0
+        s = torch.full((geom.Pp,), -torch.inf, device=device)
+        s[:P] = objective(g[:P])
+        kw = dict(crossover=cross, mutate=mut, obj_id=obj_id, elitism=e,
+                  mparams=torch.tensor(list(mparams), dtype=torch.float32, device=device))
+        if expr_obj is not None:
+            kw.update(objective=expr_obj)
+        target, frozen = None, None
+        if freeze:
+            read, _ = geom.row_maps(parity, device)
+            best = torch.where(read < P, s[read], -torch.inf).reshape(geom.S, -1).amax(dim=1)
+            target = float(best.median())
+            frozen = int((best >= target).sum())
+            check(0 < frozen < geom.S, f"expr multigen {name}: {frozen} of {geom.S} groups frozen")
+        tgt = math.inf if target is None else target
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+        errs, ulps = [], 0
+        for mode in (dict(draws=expr_multigen_draws(fs, geom, steps, mut, cross, gen, device)),
+                     dict(seed=seed)):
+            tag = f"expr multigen {name} {'injected' if 'draws' in mode else 'philox'}"
+            got = fs.multigen_breed(g, s, geom, parity, steps, target, **mode, **kw)
+            want = fs.multigen_breed_reference(g, s, geom, parity, steps, tgt, **mode, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(torch.isinf(got[1]), torch.isinf(want[1]))
+                  and bool(torch.isinf(got[1][P:]).all()), f"{tag}: -inf rows differ")
+            fin = torch.isfinite(want[1])
+            if program.transcendental:
+                check(steps <= 1, f"{tag}: transcendental hooks are compared at one step")
+                ulps = max(ulps, int(_ulps(got[0], want[0]).max()))
+                check(ulps <= 2, f"{tag}: genomes {ulps} ulp apart")
+                a, b = got[1][fin], want[1][fin]
+                check(bool(torch.isclose(a, b, rtol=EXPR_RTOL, atol=EXPR_ATOL_PER_GENE * L).all()),
+                      f"{tag}: score error {float((a - b).abs().max())}")
+            else:
+                check(torch.equal(got[0], want[0]), f"{tag}: genomes differ")
+                check(torch.equal(got[1][fin], want[1][fin]), f"{tag}: scores differ")
+            errs.append(float((got[1][fin] - want[1][fin]).abs().max()))
+            if steps:
+                check(not torch.equal(got[0], g), f"{tag}: nothing bred")
+            del got, want
+        line = {"phase": "expr_multigen_compare", "case": name, "workload": load, "shape": [P, L],
+                "parity": parity, "steps": steps, "elitism": e, "target": target,
+                "groups_frozen_at_entry": frozen, "layout": geom.layout, "K": geom.K,
+                "D": geom.D, "S": geom.S, "Pp": geom.Pp, "genomes_equal": ulps == 0,
+                "genome_max_ulps": ulps, "scores_equal": max(errs) == 0.0,
+                "max_abs_err": max(errs), "obj_rows": program.obj_rows,
+                "warps_per_block": fs.kernels.expr_warps(geom.K, L, program.obj_rows, D=geom.D)}
+        r = results.setdefault(load, {})
+        r["max_abs_err"] = max(r.get("max_abs_err", 0.0), max(errs))
+        if timed:
+            out = torch.empty_like(g)
+            work = [torch.empty_like(g), torch.empty_like(g)]
+            big = geom.Pp * L > 10_000_000
+            ms = {T: cuda_ms(lambda: fs.multigen_breed(
+                g, s, geom, 0, T, None, seed=seed, out=out, work=work, **kw), 10 if big else 50)
+                for T in (1, EXPR_MG_T)}
+            plain_ms = cuda_ms(lambda: fs.multigen_breed_reference(
+                g, s, geom, 0, EXPR_MG_T, math.inf, seed=seed, **kw), 1)
+            bound_ms, bound_by = expr_multigen_bound(geom, program, EXPR_MG_T)
+            line.update(kernel_ms_by_steps=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, ms_over_bound=ms[EXPR_MG_T] / bound_ms)
+            r.update(ms=ms[EXPR_MG_T], ms_at_1_step=ms[1], plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, shape=[P, L], layout=geom.layout, K=geom.K, D=geom.D)
+            del out, work
+        print(json.dumps(line), flush=True)
+        del g, s
+        torch.cuda.empty_cache()
+
+
+def phase_expr_multigen_runs(port, kernels, results):
+    """PGA.run of every expression workload through the pga_* API at
+    generations_per_launch=8 beside the same run at one generation per
+    launch, then a torch.profiler window over as many generations."""
+    import torch
+
+    T = EXPR_MG_T
+    loads = expr_multigen_workloads()
+    for name, gens in EXPR_MG_GENS.items():
+        P, L, objective, crossover, mutate = loads[name]
+
+        def solver(per_launch):
+            pga = port.pga_init(seed=13, config=port.PGAConfig(generations_per_launch=per_launch))
+            h = port.pga_create_population(pga, P, L)
+            port.pga_set_objective_function(pga, objective)
+            port.pga_set_crossover_function(pga, crossover)
+            port.pga_set_mutate_function(pga, mutate)
+            check(pga.uses_deme_kernel(P, L), f"{name}: not on the deme path")
+            return pga, h
+
+        pga, h = solver(T)
+        geom = pga._run_fn(P, L)[0].geom
+        check((geom.layout, geom.K, geom.D, geom.S) == EXPR_MG_GEOMETRY[name],
+              f"{name}: geometry {geom}")
+        start_best = float(objective(pga.population(h).genomes).max())
+        check(port.pga_run(pga, T) == T, f"{name}: warm-up")
+        kernels.reset_launches()
+        ran, seconds = timed_run(port, pga, gens)
+        launches = dict(kernels.LAUNCHES)
+        genome, best = pga.get_best_with_score(h)
+        pop = pga.population(h)
+        rescored = objective(pop.genomes)
+        check(ran == gens, f"{name}: ran {ran} generations")
+        check(launches["expr_multigen"] == -(-gens // T) and sum(launches.values()) == -(-gens // T),
+              f"{name}: launches {launches} for {gens} generations at T={T}")
+        check(bool(torch.isfinite(pop.scores).all()) and bool(torch.isclose(
+            pop.scores, rescored, rtol=EXPR_RTOL, atol=EXPR_ATOL_PER_GENE * L).all()),
+              f"{name}: scores are not the genomes' objective")
+        check(best >= start_best, f"{name}: best {start_best} -> {best}")
+        if name == "knapsack":
+            check(best == 285.0, f"knapsack: best {best}, optimum 285")
+        one, _ = solver(None)
+        port.pga_run(one, 2)
+        kernels.reset_launches()
+        ran1, seconds1 = timed_run(port, one, gens)
+        check(kernels.LAUNCHES["expr"] == gens, f"{name}: one per launch {kernels.LAUNCHES}")
+        port.pga_deinit(one)
+        r = results[name]
+        line = {"phase": "expr_multigen_run", "workload": name, "shape": [P, L],
+                "generations_per_launch": T, "gens": ran, "launches": launches,
+                "gens_per_s": ran / seconds, "ms_per_gen": 1e3 * seconds / ran,
+                "one_per_launch_gens_per_s": ran1 / seconds1,
+                "one_per_launch_ms_per_gen": 1e3 * seconds1 / ran1,
+                "kernel_ms_per_launch": r["ms"], "kernel_ms_per_gen": r["ms"] / T,
+                "bound_ms_per_launch": r["bound_ms"], "start_best": start_best, "best": best}
+        if name == "knapsack":
+            line.update(optimum=285.0, best_counts=[int(x) for x in (genome * 2.0).astype("int64")])
+        print(json.dumps(line), flush=True)
+        prof = profile_generations(port, pga, 1e3 * seconds / ran, gens)
+        print(json.dumps({"phase": "expr_multigen_profile", "workload": name, "shape": [P, L],
+                          "generations_per_launch": T, **prof}), flush=True)
+        r.update(launches=launches["expr_multigen"], ms_per_gen=line["ms_per_gen"],
+                 one_per_launch_ms_per_gen=line["one_per_launch_ms_per_gen"],
+                 device_busy_share=prof["device_busy_share"], best=best)
+        port.pga_deinit(pga)
+        del pga, pop, rescored
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1364,6 +1643,9 @@ def drive(torch, port, onemax, fs, kernels) -> int:
     expr_results = {}
     phase_expr_compare(port, fs, device, expr_results)
     phase_expr_runs(port, kernels, expr_results)
+    expr_mg_results = {}
+    phase_expr_multigen_compare(port, fs, device, expr_mg_results)
+    phase_expr_multigen_runs(port, kernels, expr_mg_results)
 
     entries = []
     for layout, r in results.items():
@@ -1425,6 +1707,19 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "shape": r["shape"], "layout": r["layout"],
             "ms_per_gen": r["ms_per_gen"], "device_busy_share": r.get("device_busy_share"),
+        })
+    for name in EXPR_MG_GENS:
+        # ms, plain_ms, bound and launches: T = 8 at the workload's shape.
+        r = expr_mg_results[name]
+        entries.append({
+            "name": f"expr_multigen[{name}]", "route": "cuda",
+            "source": "libpga_tpu_torch/csrc/expr_breed.cu", "replaces": EXPR_MG_REPLACES,
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "shape": r["shape"], "layout": r["layout"], "steps": EXPR_MG_T,
+            "ms_at_1_step": r["ms_at_1_step"], "ms_per_gen": r["ms_per_gen"],
+            "one_per_launch_ms_per_gen": r["one_per_launch_ms_per_gen"],
+            "device_busy_share": r["device_busy_share"], "best": r["best"],
         })
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -24,9 +24,10 @@ class PGAConfig:
     """Configuration for a port ``PGA`` solver.
 
     Attributes:
-      tournament_size: candidates per tournament, 1..16 (the deme
-        kernel samples the winner in rank space, so cost is
-        k-independent; 16 is the JAX kernel's contractual cap).
+      tournament_size: candidates per tournament, >= 1. The deme
+        kernels sample the winner in rank space for k in 1..16 (the JAX
+        kernel's contractual cap); a larger k takes the panmictic path,
+        as JAX's takes its XLA path.
       selection: "tournament", "truncation" or "linear_rank".
       selection_param: truncation tau or linear-rank pressure s; None
         takes the strategy's default.
@@ -72,8 +73,8 @@ class PGAConfig:
     use_deme_kernel: bool = True
 
     def __post_init__(self):
-        if not 1 <= self.tournament_size <= 16:
-            raise ValueError("tournament_size must be in 1..16")
+        if self.tournament_size < 1:
+            raise ValueError("tournament_size must be >= 1")
         resolve_selection(self.selection, self.selection_param)
         if not 0.0 <= self.mutation_rate <= 1.0:
             raise ValueError("mutation_rate must be in [0, 1]")

@@ -62,12 +62,6 @@
 
 namespace {
 
-template <bool LDG>
-__device__ __forceinline__ float load_gene(const float* p) {
-  if constexpr (LDG) return __ldg(p);
-  return *p;
-}
-
 // One warp crosses parents p1 and p2 into `out`, mutates (unless
 // !may_mutate: an elite copy) and sums the objective's terms of the child as
 // written: each lane adds its genes l = lane, lane+32, ... in that order,
@@ -452,7 +446,10 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
 // A row is alive when its read row is below P (the ping-pong alive mask; the
 // riffle tail deme's positional count); alive is per cohort slot and static
 // for the launch. Write-back: child k of deme g to write_row(g, k), its score
-// beside it, -inf on rows >= P.
+// beside it, -inf on rows >= P. Steps (a), (b), (d), the selection of (c)
+// and the write-back are multigen_group of breed_core.cuh, which
+// expr_multigen_kernel (expr_breed.cu) shares; this kernel gives it the
+// builtin breed of one child, breed_genes.
 //
 // Bound. Bytes: the population and its scores read once and written once,
 // 2*Pp*L*4 + 2*Pp*4, whatever `steps` is (0.253 ms at 1,048,576x100, 9.7 us
@@ -485,175 +482,20 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
 // sub-generations' draws are the same either way. Injected mode reads draw
 // tensors with a leading sub-generation axis.
 
-constexpr int MG_THREADS = 1024;  // per block, one block per group
-constexpr int MG_MAX_D = 16;
-
-struct MultigenIO {
-  const float* gin;    // (Pp, L) physical order
-  const float* sin;    // (Pp,)
-  float* gout;         // (Pp, L), never gin
-  float* sout;         // (Pp,)
-  float* work0;        // (Pp, L) cohort order; used when steps >= 2
-  float* work1;        // (Pp, L) cohort order; used when steps >= 3
-  int steps;
-  float target;
-};
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
 __global__ void __launch_bounds__(MG_THREADS) multigen_breed_kernel(
     MultigenIO io, const float* __restrict__ mparams, Draws dr0, Geometry geo, Selection sel,
     int mutate, int obj, int elitism) {
   extern __shared__ long long mg_smem[];
-  __shared__ float s_max[32];
-  __shared__ int s_nan[32];
-  __shared__ int s_valid[MG_MAX_D];
-  __shared__ int s_frozen;
-  const int K = geo.K, D = geo.D, L = geo.L, W = D * K;
-  long long* key = mg_smem;                                      // W
-  float* score = reinterpret_cast<float*>(key + W);              // W
-  int* row_of_rank = reinterpret_cast<int*>(score + W);          // W
-  unsigned char* alive = reinterpret_cast<unsigned char*>(row_of_rank + W);  // W
-  const int i = blockIdx.x, tid = threadIdx.x, nthr = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
-  const int steps = io.steps;
-  const float target = io.target;
-  const size_t GK = (size_t)geo.G * K;
-
-  if (tid < D) s_valid[tid] = 0;
-  __syncthreads();
-  for (int x = tid; x < W; x += nthr) {
-    const int d = x / K, k = x - d * K;
-    const int row = read_row(geo, i * D + d, k);
-    score[x] = io.sin[row];
-    alive[x] = row < geo.P;
-    if (row < geo.P) atomicAdd(&s_valid[d], 1);
-  }
-  __syncthreads();
-
   const BreedCtx cx = breed_ctx(dr0, mparams, geo, mutate, obj);
-  const float* src = io.gin;  // physical order at t = 0, then a work buffer
-
-  for (int t = 0; t < steps; ++t) {
-    // (a) the freeze flag of this sub-generation
-    float m = -INFINITY;
-    int nan = 0;
-    for (int x = tid; x < W; x += nthr) {
-      if (!alive[x]) continue;
-      const float s = score[x];
-      if (s != s) nan = 1;
-      else m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    nan = __any_sync(FULL, nan);
-    if (lane == 0) {
-      s_max[warp] = m;
-      s_nan[warp] = nan;
-    }
-    // (b) the packed rank keys
-    for (int x = tid; x < W; x += nthr) {
-      const int d = x / K, k = x - d * K;
-      const size_t child = (size_t)(i * D + d) * K + k;
-      float s = score[x];
-      uint32_t tw;
-      if (alive[x]) {
-        const uint32_t bits =
-            cx.philox_mode
-                ? philox(cx.k0, cx.k1, make_uint4(k, i * D + d, STREAM_TIE, t)).x
-                : (uint32_t)dr0.tie[(size_t)t * GK + child];
-        tw = ((bits >> 2) & ~1023u) | (uint32_t)k;
-        if (s != s) s = -INFINITY;
-      } else {
-        tw = 0x7FFFFC00u | (uint32_t)k;
-        s = -INFINITY;
-      }
-      const int sb = __float_as_int(-(s + 0.0f));  // +0.0: one zero
-      const int ordered = sb ^ ((sb >> 31) & 0x7FFFFFFF);
-      key[x] = (long long)ordered * 4294967296LL + (long long)tw;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      m = lane < nwarps ? s_max[lane] : -INFINITY;
-      nan = lane < nwarps ? s_nan[lane] : 0;
-      m = warp_max(m);
-      nan = __any_sync(FULL, nan);
-      if (lane == 0) s_frozen = !nan && m >= target;
-    }
-    __syncthreads();
-    const bool frozen = s_frozen != 0;
-    if (!frozen) {
-      for (int x = tid; x < W; x += nthr) {
-        const int base = (x / K) * K;
-        const long long mine = key[x];
-        int r = 0;
-#pragma unroll 8
-        for (int j = 0; j < K; ++j) r += key[base + j] < mine;
-        row_of_rank[base + r] = x - base;
-      }
-    }
-    __syncthreads();
-
-    // (c) breed, or copy where frozen
-    const bool first = t == 0, last = t == steps - 1;
-    float* dst = (t & 1) ? io.work1 : io.work0;
-    Draws dr = dr0;
-    if (!cx.philox_mode) {
-      dr.sel_u += (size_t)t * GK * 2;
-      dr.cross += (size_t)t * GK * L;
-      dr.mut_u += (size_t)t * GK * 4;
-      if (dr.gauss) dr.gauss += (size_t)t * 3 * cx.plane;
-    }
-    for (int c = warp; c < W; c += nwarps) {
-      const int d = c / K, k = c - d * K, g = i * D + d;
-      const size_t child = (size_t)g * K + k;
-      auto parent = [&](int slot) {
-        return src + (first ? (size_t)read_row(geo, g, slot) : (size_t)g * K + slot) * L;
-      };
-      float* out = last ? io.gout + (size_t)write_row(geo, g, k) * L : dst + child * L;
-      if (frozen) {
-        const float* p = parent(k);
-        for (int l = lane; l < L; l += 32) out[l] = p[l];
-        continue;
-      }
-      const float V = (float)max(s_valid[d], 1);
-      const ChildRand r = child_rand(cx, dr, k, g, (uint32_t)t, lane, child);
-      const bool elite = k < elitism;
-      int r1, r2;
-      if (elite) {
-        r1 = r2 = (int)fminf((float)k, V - 1.0f);
-      } else {
-        r1 = winner_rank(winner_fraction(sel, r.su0), V);
-        r2 = winner_rank(winner_fraction(sel, r.su1), V);
-      }
-      const int s1 = min(max(row_of_rank[d * K + r1], 0), K - 1);
-      const int s2 = min(max(row_of_rank[d * K + r2], 0), K - 1);
-      float a, b;
-      breed_genes<false>(cx, dr, parent(s1), parent(s2), out, r, k, g, (uint32_t)t, lane,
-                         child, !elite, a, b);
-      if (lane == 0) score[c] = obj_finish(obj, a, b, L);
-    }
-    __syncthreads();
-    src = dst;
-  }
-
-  // Write-back: rows only when no sub-generation ran; scores always.
-  if (steps <= 0) {
-    for (int c = warp; c < W; c += nwarps) {
-      const int d = c / K, k = c - d * K, g = i * D + d;
-      const float* p = io.gin + (size_t)read_row(geo, g, k) * L;
-      float* out = io.gout + (size_t)write_row(geo, g, k) * L;
-      for (int l = lane; l < L; l += 32) out[l] = p[l];
-    }
-  }
-  for (int x = tid; x < W; x += nthr) {
-    const int d = x / K, k = x - d * K;
-    const int orow = write_row(geo, i * D + d, k);
-    io.sout[orow] = orow < geo.P ? score[x] : -INFINITY;
-  }
+  const int lane = threadIdx.x & 31;
+  auto breed_child = [&](const Draws& dr, uint32_t t, int g, int k, size_t child,
+                         const float* p1, const float* p2, float* out, const ChildRand& r,
+                         bool elite) {
+    float a, b;
+    breed_genes<false>(cx, dr, p1, p2, out, r, k, g, t, lane, child, !elite, a, b);
+    return obj_finish(obj, a, b, geo.L);
+  };
+  multigen_group(io, geo, cx, dr0, sel, elitism, mg_smem, breed_child);
 }
 
 }  // namespace
@@ -710,7 +552,7 @@ extern "C" int multigen_breed_launch(
   const Draws dr{sel_u, cross, mut_u, gauss, seed, tie};
   const MultigenIO io{gin, sin, gout, sout, work0, work1, steps, target};
   // Keys, scores, row_of_rank and alive flags of the group's D*K rows.
-  const int smem = D * K * (8 + 4 + 4 + 1);
+  const int smem = D * K * MG_ROW_BYTES;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         multigen_breed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -1,5 +1,7 @@
-// expr_breed.cu: the one-generation deme breed with expression hooks (B6),
-// a template. ops/expr_cuda.py writes the hooks (expr_crossover,
+// expr_breed.cu: the deme breed with expression hooks (B6), a template, in
+// two kernels: expr_breed_kernel (one generation) and, at the end of this
+// file, expr_multigen_kernel (up to T generations per launch, B6 x B4); one
+// build of a hook set serves both. ops/expr_cuda.py writes the hooks (expr_crossover,
 // expr_mutate, expr_objective) and the macros EXPR_CROSS, EXPR_MUT,
 // EXPR_OBJ, EXPR_OBJ_ROWS, EXPR_GENE_STREAMS and EXPR_ROW_STREAMS in front
 // of this text; ops/kernels.py compiles the whole with nvcc (-I csrc,
@@ -40,6 +42,7 @@
 // tile computing the call of genes 128*tile + 4i .. 4i+3 and shuffling each
 // word to the lane that holds its gene. Injected mode reads the planes
 // ex.gene (4, G, K, L) and words ex.row (G, K, 4) the plain version reads.
+// The counter's fourth word is the sub-generation: 0 here.
 //
 // Bound. Bytes: the population read once and written once plus the scores
 // and the constant tables, (2*Pp*L + 2*Pp)*4 bytes: 0.651 ms for NK at
@@ -61,11 +64,11 @@ struct ExprDraws {
   const float* row;   // (G, K, 4): crossover q, q2, mutation q, q2 (injected mode)
 };
 
-// v[j][m]: per-gene plane j of gene 128*tile + lane + 32*m, for the planes
-// the hooks read (EXPR_GENE_STREAMS), else 0.
+// v[j][m]: per-gene plane j of gene 128*tile + lane + 32*m in sub-generation
+// t, for the planes the hooks read (EXPR_GENE_STREAMS), else 0.
 __device__ __forceinline__ void gene_draws(
-    const BreedCtx& cx, const ExprDraws& ex, int k, int g, int tile, int lane, size_t child,
-    float (&v)[4][4]) {
+    const BreedCtx& cx, const ExprDraws& ex, int k, int g, uint32_t t, int tile, int lane,
+    size_t child, float (&v)[4][4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
 #pragma unroll
@@ -73,14 +76,14 @@ __device__ __forceinline__ void gene_draws(
     if (!((EXPR_GENE_STREAMS >> j) & 1)) continue;
     if (cx.philox_mode) {
       const uint32_t call = STREAM_EXPR_GENE + ((uint32_t)j << 22) + 32u * tile + lane;
-      const uint4 w = philox(cx.k0, cx.k1, make_uint4(k, g, call, 0u));
+      const uint4 w = philox(cx.k0, cx.k1, make_uint4(k, g, call, t));
       const int pick = lane & 3;
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
         const int src = (lane >> 2) + 8 * m;
         const uint32_t x = __shfl_sync(FULL, w.x, src), y = __shfl_sync(FULL, w.y, src);
-        const uint32_t z = __shfl_sync(FULL, w.z, src), t = __shfl_sync(FULL, w.w, src);
-        v[j][m] = to_uniform(pick == 0 ? x : pick == 1 ? y : pick == 2 ? z : t);
+        const uint32_t z = __shfl_sync(FULL, w.z, src), u = __shfl_sync(FULL, w.w, src);
+        v[j][m] = to_uniform(pick == 0 ? x : pick == 1 ? y : pick == 2 ? z : u);
       }
     } else {
 #pragma unroll
@@ -90,6 +93,142 @@ __device__ __forceinline__ void gene_draws(
       }
     }
   }
+}
+
+// One warp breeds child k of deme g (sub-generation t; `child` = g*K + k)
+// from parents p1 and p2 into its shared row `grow`: the crossover hook, else
+// uniform crossover; then the mutation hook, else point / gaussian / swap.
+// `ex` is at sub-generation t in injected mode. LDG reads the parents
+// through the read-only path: the one-generation kernel may, the
+// multi-generation kernel may not (its parents from t = 1 on are rows that
+// other warps of the block wrote earlier in the launch). Ends with the row
+// complete and the warp synchronised.
+template <bool LDG>
+__device__ __forceinline__ void expr_child(
+    const BreedCtx& cx, const Draws& dr, const ExprDraws& ex, const float* p1, const float* p2,
+    float* grow, const ChildRand& r, int k, int g, uint32_t t, int lane, size_t child,
+    const float* __restrict__ cb) {
+  const int L = cx.L;
+  (void)cb;
+  float xq[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // crossover q, q2, mutation q, q2
+  if (EXPR_ROW_STREAMS) {
+    if (cx.philox_mode) {
+      const uint4 w = philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_EXPR_ROW, t));
+      xq[0] = to_uniform(w.x);
+      xq[1] = to_uniform(w.y);
+      xq[2] = to_uniform(w.z);
+      xq[3] = to_uniform(w.w);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if ((EXPR_ROW_STREAMS >> j) & 1) xq[j] = ex.row[child * 4 + j];
+    }
+  }
+  // Builtin point / swap mutation: gene pos takes mu2 when mu1 < rate;
+  // genes pos, pj exchange when mu2 < rate.
+  const int pos = (int)floorf(r.mu0 * (float)L);
+  const int pj = (int)floorf(r.mu1 * (float)L);
+  const bool fire = !EXPR_MUT && (cx.mutate == MUT_SWAP ? r.mu2 < cx.rate : r.mu1 < cx.rate);
+
+  // Tile i: genes 128*i + lane + 32*m, m < 4; bit m of `bits` is the
+  // uniform crossover's bit of gene m (set: parent 2).
+  auto tile = [&](int i, uint32_t bits) {
+    float gd[4][4];
+    gene_draws(cx, ex, k, g, t, i, lane, child, gd);
+    (void)bits;
+    float c[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int l = 128 * i + lane + 32 * m;
+      c[m] = 0.0f;
+      if (l < L) {
+#if EXPR_CROSS
+        c[m] = expr_crossover(load_gene<LDG>(p1 + l), load_gene<LDG>(p2 + l), gd[0][m],
+                              gd[1][m], xq[0], xq[1], l, L, cb);
+#else
+        c[m] = load_gene<LDG>((((bits >> m) & 1u) ? p2 : p1) + l);
+#endif
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int l = 128 * i + lane + 32 * m;
+      if (l >= L) continue;
+      float x = c[m];
+#if EXPR_MUT
+      x = expr_mutate(x, gd[2][m], gd[3][m], xq[2], xq[3], l, L, cx.rate, cx.sigma, cb);
+#else
+      if (cx.mutate == MUT_POINT) {
+        if (fire && l == pos) x = r.mu2;
+      } else if (cx.mutate == MUT_GAUSSIAN) {
+        x = gauss_mutate(cx, dr, x, k, g, t, l, child, true);
+      }
+#endif
+      grow[l] = x;
+    }
+  };
+
+#if EXPR_CROSS
+  for (int i = 0; i < cx.ntiles; ++i) tile(i, 0u);
+#else
+  if (cx.philox_mode) {
+    // Crossover bits of tile i: call 2 + i, computed 32 calls at a time
+    // by the warp's lanes as deme_breed_kernel does.
+    uint4 w = r.w;
+    for (int base = 0; base < cx.ncalls; base += 32) {
+      if (base) {
+        const uint32_t c = base + lane;
+        w = c < (uint32_t)cx.ncalls ? philox(cx.k0, cx.k1, make_uint4(k, g, c, t))
+                                    : make_uint4(0u, 0u, 0u, 0u);
+      }
+      const int t_hi = min(base + 30, cx.ntiles);
+      for (int i = max(base - 2, 0); i < t_hi; ++i) {
+        const int src = i + (int)STREAM_CROSS - base;
+        const uint32_t b0 = __shfl_sync(FULL, w.x, src), b1 = __shfl_sync(FULL, w.y, src);
+        const uint32_t b2 = __shfl_sync(FULL, w.z, src), b3 = __shfl_sync(FULL, w.w, src);
+        tile(i, ((b0 >> lane) & 1u) | (((b1 >> lane) & 1u) << 1) |
+                    (((b2 >> lane) & 1u) << 2) | (((b3 >> lane) & 1u) << 3));
+      }
+    }
+  } else {
+    const uint8_t* bits = dr.cross + child * L;
+    for (int i = 0; i < cx.ntiles; ++i) {
+      uint32_t b = 0u;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int l = 128 * i + lane + 32 * m;
+        if (l < L && bits[l]) b |= 1u << m;
+      }
+      tile(i, b);
+    }
+  }
+#endif
+  __syncwarp();
+  if (!EXPR_MUT && cx.mutate == MUT_SWAP && fire && pos < L && pj < L) {
+    if (lane == 0) {
+      const float x = grow[pos];
+      grow[pos] = grow[pj];
+      grow[pj] = x;
+    }
+    __syncwarp();
+  }
+}
+
+// The score of the child in the warp's row `grow` (on every lane): the
+// objective hook, else the builtin rowwise-fused objective `obj`, its terms
+// summed per lane over l = lane, lane+32, ... and combined by warp_sum.
+__device__ __forceinline__ float expr_score(
+    const float* grow, float* erows, int obj, int L, int lane, const float* __restrict__ cb) {
+  (void)erows;
+  (void)cb;
+#if EXPR_OBJ
+  (void)obj;
+  return expr_objective(grow, erows, L, lane, cb);
+#else
+  float a = 0.0f, b = 0.0f;
+  for (int l = lane; l < L; l += 32) obj_add(obj, grow[l], a, b);
+  return obj_finish(obj, warp_sum(a), warp_sum(b), L);
+#endif
 }
 
 __global__ void __launch_bounds__(THREADS) expr_breed_kernel(
@@ -103,8 +242,6 @@ __global__ void __launch_bounds__(THREADS) expr_breed_kernel(
   int* row_of_rank = smem;
   float* grow = reinterpret_cast<float*>(smem + K) + (size_t)warp * (1 + EXPR_OBJ_ROWS) * L;
   float* erows = grow + L;
-  (void)erows;
-  (void)cb;
   if (threadIdx.x == 0) s_valid = 0;
   __syncthreads();
   int alive = 0;
@@ -132,123 +269,90 @@ __global__ void __launch_bounds__(THREADS) expr_breed_kernel(
     const float* p1 = gin + (size_t)read_row(geo, g, s1) * L;
     const float* p2 = gin + (size_t)read_row(geo, g, s2) * L;
     const int orow = write_row(geo, g, k);
-
-    float xq[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // crossover q, q2, mutation q, q2
-    if (EXPR_ROW_STREAMS) {
-      if (cx.philox_mode) {
-        const uint4 w = philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_EXPR_ROW, 0u));
-        xq[0] = to_uniform(w.x);
-        xq[1] = to_uniform(w.y);
-        xq[2] = to_uniform(w.z);
-        xq[3] = to_uniform(w.w);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if ((EXPR_ROW_STREAMS >> j) & 1) xq[j] = ex.row[child * 4 + j];
-      }
-    }
-    // Builtin point / swap mutation: gene pos takes mu2 when mu1 < rate;
-    // genes pos, pj exchange when mu2 < rate.
-    const int pos = (int)floorf(r.mu0 * (float)L);
-    const int pj = (int)floorf(r.mu1 * (float)L);
-    const bool fire = !EXPR_MUT && (mutate == MUT_SWAP ? r.mu2 < cx.rate : r.mu1 < cx.rate);
-
-    // Tile i: genes 128*i + lane + 32*m, m < 4; bit m of `bits` is the
-    // uniform crossover's bit of gene m (set: parent 2).
-    auto tile = [&](int i, uint32_t bits) {
-      float gd[4][4];
-      gene_draws(cx, ex, k, g, i, lane, child, gd);
-      (void)bits;
-      float c[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int l = 128 * i + lane + 32 * m;
-        c[m] = 0.0f;
-        if (l < L) {
-#if EXPR_CROSS
-          c[m] = expr_crossover(__ldg(p1 + l), __ldg(p2 + l), gd[0][m], gd[1][m], xq[0], xq[1],
-                                l, L, cb);
-#else
-          c[m] = __ldg((((bits >> m) & 1u) ? p2 : p1) + l);
-#endif
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int l = 128 * i + lane + 32 * m;
-        if (l >= L) continue;
-        float x = c[m];
-#if EXPR_MUT
-        x = expr_mutate(x, gd[2][m], gd[3][m], xq[2], xq[3], l, L, cx.rate, cx.sigma, cb);
-#else
-        if (mutate == MUT_POINT) {
-          if (fire && l == pos) x = r.mu2;
-        } else if (mutate == MUT_GAUSSIAN) {
-          x = gauss_mutate(cx, dr, x, k, g, 0u, l, child, true);
-        }
-#endif
-        grow[l] = x;
-      }
-    };
-
-#if EXPR_CROSS
-    for (int i = 0; i < cx.ntiles; ++i) tile(i, 0u);
-#else
-    if (cx.philox_mode) {
-      // Crossover bits of tile i: call 2 + i, computed 32 calls at a time
-      // by the warp's lanes as deme_breed_kernel does.
-      uint4 w = r.w;
-      for (int base = 0; base < cx.ncalls; base += 32) {
-        if (base) {
-          const uint32_t c = base + lane;
-          w = c < (uint32_t)cx.ncalls ? philox(cx.k0, cx.k1, make_uint4(k, g, c, 0u))
-                                      : make_uint4(0u, 0u, 0u, 0u);
-        }
-        const int t_hi = min(base + 30, cx.ntiles);
-        for (int i = max(base - 2, 0); i < t_hi; ++i) {
-          const int src = i + (int)STREAM_CROSS - base;
-          const uint32_t b0 = __shfl_sync(FULL, w.x, src), b1 = __shfl_sync(FULL, w.y, src);
-          const uint32_t b2 = __shfl_sync(FULL, w.z, src), b3 = __shfl_sync(FULL, w.w, src);
-          tile(i, ((b0 >> lane) & 1u) | (((b1 >> lane) & 1u) << 1) |
-                      (((b2 >> lane) & 1u) << 2) | (((b3 >> lane) & 1u) << 3));
-        }
-      }
-    } else {
-      const uint8_t* bits = dr.cross + child * L;
-      for (int i = 0; i < cx.ntiles; ++i) {
-        uint32_t b = 0u;
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const int l = 128 * i + lane + 32 * m;
-          if (l < L && bits[l]) b |= 1u << m;
-        }
-        tile(i, b);
-      }
-    }
-#endif
-    __syncwarp();
-    if (!EXPR_MUT && mutate == MUT_SWAP && fire && pos < L && pj < L) {
-      if (lane == 0) {
-        const float x = grow[pos];
-        grow[pos] = grow[pj];
-        grow[pj] = x;
-      }
-      __syncwarp();
-    }
+    expr_child<true>(cx, dr, ex, p1, p2, grow, r, k, g, 0u, lane, child, cb);
     float* out = gout + (size_t)orow * L;
     for (int l = lane; l < L; l += 32) out[l] = grow[l];
     if (scored) {
-#if EXPR_OBJ
-      const float score = expr_objective(grow, erows, L, lane, cb);
-#else
-      float a = 0.0f, b = 0.0f;
-      for (int l = lane; l < L; l += 32) obj_add(obj, grow[l], a, b);
-      const float score = obj_finish(obj, warp_sum(a), warp_sum(b), L);
-#endif
+      const float score = expr_score(grow, erows, obj, L, lane, cb);
       if (lane == 0) sout[orow] = orow < geo.P ? score : -INFINITY;
     }
     __syncwarp();  // the next child overwrites this warp's rows
   }
+}
+
+// ---------------------------------------------------------------------------
+// expr_multigen_kernel: up to T generations per launch with expression hooks
+// (B6 x B4).
+//
+// Replaces, in libpga_tpu/ops/pallas_step.py, _multigen_kernel (:1460) with
+// _kernel_ranks (:1398) in its expression cases: callable crossover / mutate
+// kinds (cross_consts / mut_consts, :1534-1542) and fused objectives that
+// carry constants (const_refs, obj(child, *consts), :1670-1673), as
+// make_pallas_multigen (:2724) builds them and pl.pallas_call (:2872) runs
+// them. The plain PyTorch version is fused_step.multigen_breed_reference with
+// an expression crossover, mutation or objective; the kernel computes exactly
+// that function, scores included (the plain version sums every reduction of
+// the objective in this kernel's lane order, objectives/expr.warp_order_sum).
+//
+// What it computes: multigen_breed_kernel's loop (multigen_group of
+// breed_core.cuh: the freeze flag, in-kernel ranks, selection, per-deme
+// elites, the write-back), with the children of expr_breed_kernel. Each warp
+// breeds its child into its row of shared memory through the hooks
+// (expr_child), copies it to the work buffer (or, in the last
+// sub-generation, to its physical row) and scores it from that row with the
+// objective hook or the builtin fused objective. An elite child (k <
+// elitism) is a verbatim copy of its rank-k parent: no hook runs on it. The
+// expression draws carry the sub-generation t as Philox's fourth counter
+// word, like every other stream; in injected mode the planes are (T, 4, G, K,
+// L) and the row words (T, G, K, 4).
+//
+// Bound. As multigen_breed_kernel's: the population and its scores read once
+// and written once, (2*Pp*L + 2*Pp)*4 bytes, whatever the step count: 0.651
+// ms for NK at 4,194,304x64, 0.153 ms for the trap at 1,048,576x60, 0.253 ms
+// for OneMax at 1,048,576x100 and 9.7 us at 40,000x100, at 3.35 TB/s. The
+// operations (K*log2(K) compares per deme and a few per gene for every
+// statement of the hooks, per sub-generation) stay below that at T = 8 for
+// these expressions (chip_smoke.py's expr_multigen_bound counts them).
+//
+// Design. Parents are read with plain loads (see expr_child). Shared memory
+// holds the group's keys, scores, row_of_rank and alive flags (17 bytes per
+// row) and, after them, each warp's child row and EXPR_OBJ_ROWS objective
+// rows of L floats; the wrapper picks the warp count (up to 32) that fits in
+// 227 KB. Blocks are of up to 1,024 threads, as the builtin kernel's.
+
+__global__ void __launch_bounds__(MG_THREADS) expr_multigen_kernel(
+    MultigenIO io, const float* __restrict__ mparams, Draws dr0, ExprDraws ex0,
+    const float* __restrict__ cb, Geometry geo, Selection sel, int mutate, int obj,
+    int elitism) {
+  extern __shared__ long long mg_smem[];
+  const int L = geo.L, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* grow = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(mg_smem) +
+                                         mg_rows_bytes(geo.D * geo.K)) +
+                (size_t)warp * (1 + EXPR_OBJ_ROWS) * L;
+  float* erows = grow + L;
+  BreedCtx cx = breed_ctx(dr0, mparams, geo, mutate, obj);
+  if (EXPR_CROSS) cx.ncalls = 2;  // selection and mutation: no crossover bits
+  const size_t GK = (size_t)geo.G * geo.K;
+  auto breed_child = [&](const Draws& dr, uint32_t t, int g, int k, size_t child,
+                         const float* p1, const float* p2, float* out, const ChildRand& r,
+                         bool elite) {
+    if (elite) {
+      for (int l = lane; l < L; l += 32) grow[l] = p1[l];
+      __syncwarp();
+    } else {
+      ExprDraws ex = ex0;
+      if (!cx.philox_mode) {
+        if (ex.gene) ex.gene += (size_t)t * 4 * cx.plane;
+        if (ex.row) ex.row += (size_t)t * GK * 4;
+      }
+      expr_child<false>(cx, dr, ex, p1, p2, grow, r, k, g, t, lane, child, cb);
+    }
+    for (int l = lane; l < L; l += 32) out[l] = grow[l];
+    const float score = expr_score(grow, erows, obj, L, lane, cb);
+    __syncwarp();  // the next child overwrites this warp's rows
+    return score;
+  };
+  multigen_group(io, geo, cx, dr0, sel, elitism, mg_smem, breed_child);
 }
 
 }  // namespace
@@ -275,6 +379,35 @@ extern "C" int expr_breed_launch(
   }
   expr_breed_kernel<<<G, warps * 32, smem, (cudaStream_t)stream>>>(
       gin, gout, sout, ranks, mparams, dr, ex, consts, geo, sel, mutate, obj);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int expr_multigen_launch(
+    const float* gin, const float* sin, float* gout, float* sout, float* work0, float* work1,
+    int steps, float target, const float* mparams, const float* sel_u,
+    const unsigned char* cross, const float* mut_u, const float* gauss, const long long* tie,
+    const float* xgene, const float* xrow, const long long* seed, const float* consts, int P,
+    int Pp, int L, int K, int G, int mode, int S, int D, int q, int sel_kind, int tk,
+    float sel_param, int mutate, int obj, int elitism, int warps, void* stream) {
+  if (D < 1 || D > MG_MAX_D || warps < 1 || warps > MG_THREADS / 32)
+    return (int)cudaErrorInvalidValue;
+  const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
+  const Selection sel{sel_kind, tk, sel_param};
+  const Draws dr{sel_u, cross, mut_u, gauss, seed, tie};
+  const ExprDraws ex{xgene, xrow};
+  const MultigenIO io{gin, sin, gout, sout, work0, work1, steps, target};
+  // The group's keys, scores, row_of_rank and alive flags, then each warp's
+  // child row and objective rows. Past the block's 227 KB the attribute call
+  // fails and its error returns.
+  const size_t smem =
+      mg_rows_bytes(D * K) + (size_t)warps * (1 + EXPR_OBJ_ROWS) * L * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        expr_multigen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  expr_multigen_kernel<<<S, warps * 32, smem, (cudaStream_t)stream>>>(
+      io, mparams, dr, ex, consts, geo, sel, mutate, obj, elitism);
   return (int)cudaGetLastError();
 }
 

@@ -23,9 +23,9 @@ package's ``_pallas_gate`` routes them (``engine.py:855-984``):
   (``mutate_from_expression``), with their rate and sigma as the
   kernel's runtime parameters. An expression operator, or an objective
   with an expression form (``expr_fused``), runs the generated
-  expression breed kernel. Where JAX breeds a case the port does not yet
-  (several generations per launch with an expression, order crossover
-  with an expression mutation or objective), ``run`` raises
+  expression breed kernel (at T > 1 its multi-generation entry). Where
+  JAX breeds a case the port does not yet (order crossover with an
+  expression mutation or objective, or at T > 1), ``run`` raises
   ``NotImplementedError`` naming the ROADMAP item;
 - the panmictic path (:func:`make_run_loop`, ``ops/step.py``): whole-
   population selection, then the crossover and mutation operators in
@@ -33,7 +33,10 @@ package's ``_pallas_gate`` routes them (``engine.py:855-984``):
   runs when an operator has no kernel kind (the GP operators), when
   ``PGAConfig.use_deme_kernel`` is False (JAX's ``use_pallas=False``),
   or when the deme geometry declines the shape (under 128 rows, only
-  degenerate padded fits, or an order walk too long for any deme).
+  degenerate padded fits, an order walk too long for any deme, or a
+  tournament of more than 16). An operator without a kernel kind on a
+  card warns once per cause, as JAX's ``_warn_xla_fallback`` does; the
+  GP operators (``xla_only``) stay quiet.
 
 There is no fallback between device and CPU: the device is the
 config's, and a missing card is an error.
@@ -68,6 +71,7 @@ from libpga_tpu_torch.ops.fused_step import (
 )
 from libpga_tpu_torch.ops.mutate import make_point_mutate
 from libpga_tpu_torch.ops.step import make_breed, run_generations
+from libpga_tpu_torch.ops.topk import best_genome, top_k_genomes
 from libpga_tpu_torch.population import Population, create_population
 
 
@@ -307,6 +311,38 @@ class PGA:
             ) is not None
         )
 
+    def _deme_backend_ok(self) -> bool:
+        """Whether the deme kernels can run: the solver's device is a
+        card (JAX's ``_pallas_backend_ok``, a real TPU)."""
+        return self.device.type == "cuda"
+
+    def _warn_panmictic_fallback(self) -> None:
+        """JAX's ``_warn_xla_fallback``: where the deme kernels could run
+        (``use_deme_kernel`` on, a card) but the crossover or mutation
+        has no kernel kind, say that the run takes the panmictic path.
+        The GP operators (``xla_only``) have no kernel form by design and
+        stay quiet. One warning per distinct cause (Python's default
+        filter shows a message once per call site)."""
+        if not (self.config.use_deme_kernel and self._deme_backend_ok()):
+            return
+        missing = [
+            name
+            for name, kind, op in (
+                ("crossover", self._crossover_kind(), self._crossover),
+                ("mutation", self._mutate_kind(), self._mutate),
+            )
+            if kind is None and not getattr(op, "xla_only", False)
+        ]
+        if missing:
+            warnings.warn(
+                f"custom {' and '.join(missing)} operator(s) have no in-kernel form"
+                " — this run falls back to the panmictic operator path. Use a"
+                " builtin operator, or compile the operator with"
+                " ops.breed_expr.crossover_from_expression / mutate_from_expression"
+                " to keep the fused deme path.",
+                stacklevel=4,
+            )
+
     def _run_fn(self, size: int, genome_len: int) -> Tuple[Callable, int]:
         """The run function of a shape and its generations per launch
         (0 on the panmictic path)."""
@@ -330,7 +366,7 @@ class PGA:
                         warnings.warn(
                             f"generations_per_launch={per_launch} requested but the"
                             " multi-generation kernel declined (objective without a"
-                            " rowwise fused form, elitism too large for the deme, or"
+                            " rowwise fused or expression form, elitism too large for the deme, or"
                             " no geometry): breeding one generation per launch",
                             stacklevel=3,
                         )
@@ -339,6 +375,7 @@ class PGA:
                     fn = make_fused_run(size, genome_len, obj, **kw)
             else:
                 per_launch = 0
+                self._warn_panmictic_fallback()
                 fn = make_run_loop(obj, make_breed(
                     self._crossover or uniform_crossover,
                     self._mutate or make_point_mutate(c.mutation_rate),
@@ -364,7 +401,11 @@ class PGA:
         is checked once per launch, so an early stop returns a multiple
         of T (up to T - 1 past the reaching generation); the individual
         that reached the target is kept, because its deme group stops
-        breeding inside the launch."""
+        breeding inside the launch. T > 1 breeds builtin and expression
+        hooks alike (objectives with a rowwise fused or an expression
+        form; uniform or expression crossover); order crossover raises
+        ``NotImplementedError``, and any other objective warns and
+        breeds one generation per launch."""
         self._require_objective()
         handle = population or PopulationHandle(0)
         pop = self._populations[handle.index]
@@ -378,16 +419,19 @@ class PGA:
     # -------------------------------------------------------- best extraction
 
     def get_best_with_score(self, handle: PopulationHandle) -> Tuple[np.ndarray, float]:
+        """Best genome and its score: the first row of
+        :meth:`get_best_top` (``ops/topk.py``)."""
         pop = self._populations[handle.index]
-        i = int(torch.argmax(pop.scores))
-        return pop.genomes[i].cpu().numpy(), float(pop.scores[i])
+        g, s = best_genome(pop.genomes, pop.scores)
+        return g.cpu().numpy(), float(s)
 
     def get_best(self, handle: PopulationHandle) -> np.ndarray:
         """Best genome of one population."""
         return self.get_best_with_score(handle)[0]
 
     def get_best_top(self, handle: PopulationHandle, k: int) -> np.ndarray:
-        """Top-k genomes, best first; ``k`` is clamped to the size."""
+        """Top-k genomes, best first, in ``lax.top_k``'s order (the lower
+        index first among equal scores); ``k`` is clamped to the size."""
         pop = self._populations[handle.index]
-        _, idx = torch.topk(pop.scores, min(k, pop.size))
-        return pop.genomes[idx].cpu().numpy()
+        g, _ = top_k_genomes(pop.genomes, pop.scores, min(k, pop.size))
+        return g.cpu().numpy()

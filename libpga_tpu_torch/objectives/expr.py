@@ -407,10 +407,31 @@ def gather_codes(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.nan_to_num(c, nan=0.0).to(torch.int64)
 
 
+def warp_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the order a warp of the breed kernels
+    sums a child's terms: lane ``i`` adds terms i, i+32, i+64, ... one by
+    one from 0.0, then the 32 partials combine through the xor butterfly
+    ``v = v + v[i ^ o]``, o = 16, 8, 4, 2, 1. Float32 results equal the
+    kernels' bit for bit."""
+    L = x.shape[-1]
+    x = torch.nn.functional.pad(x, (0, -L % 32)).reshape(*x.shape[:-1], -1, 32)
+    v = torch.zeros_like(x[..., 0, :])
+    for j in range(x.shape[-2]):
+        v = v + x[..., j, :]
+    lanes = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ o]
+    return v[..., 0]
+
+
 def _emit(node, env) -> torch.Tensor:
     """Evaluate the AST over a (P, L) gene block ``env['g']``. Values
     broadcast: literals and scalar constants are 0-d, elementwise values
-    (P, L) or (1, L), reductions (P, 1)."""
+    (P, L) or (1, L), reductions (P, 1). With ``env['warp_order']`` the
+    sums (``sum``, ``mean``, ``dot``) run in the breed kernels' order
+    (:func:`warp_order_sum`) and ``mean`` divides elementwise by L, so
+    the scores equal the kernels' bit for bit (``min``/``max`` are exact
+    in any order)."""
     kind = node[0]
     if kind == "num":
         return _f32(node[1])
@@ -458,7 +479,10 @@ def _emit(node, env) -> torch.Tensor:
         if op == "*":
             return a * b
         if op == "/":
-            return a / b
+            # A 0-d CPU divisor of a card tensor would be applied as a
+            # multiply by its reciprocal; on the card it divides, as the
+            # kernels do.
+            return a / (b.to(a.device) if b.device != a.device else b)
         if op == "%":
             return torch.remainder(a, b)
         if op == "**":
@@ -470,14 +494,13 @@ def _emit(node, env) -> torch.Tensor:
         return _ELEMENTWISE[fname](vals[0])
     if fname == "where":
         return torch.where(vals[0] != 0.0, vals[1], vals[2])
-    if fname == "dot":
-        return torch.sum(
-            torch.broadcast_to(vals[0] * vals[1], env["shape"]), dim=1, keepdim=True
-        )
     if fname in ("min", "max") and len(vals) == 2:
         return (torch.minimum if fname == "min" else torch.maximum)(*vals)
-    v = torch.broadcast_to(vals[0], env["shape"])
-    return _REDUCE[fname](v, dim=1, keepdim=True)
+    v = torch.broadcast_to(vals[0] * vals[1] if fname == "dot" else vals[0], env["shape"])
+    if env.get("warp_order") and fname in ("sum", "mean", "dot"):
+        s = warp_order_sum(v)[:, None]
+        return s / torch.full_like(s, env["shape"][1]) if fname == "mean" else s
+    return _REDUCE["sum" if fname == "dot" else fname](v, dim=1, keepdim=True)
 
 
 def gene_env(shape, device, true_len=None) -> dict:
@@ -519,7 +542,8 @@ def from_expression(expr: str, **consts) -> Callable:
     for an expression that does not reduce to one score per genome.
 
     The result carries ``.kernel_rowwise`` (itself: ``rows(m,
-    *consts)``), ``.kernel_rowwise_consts`` (the referenced constants,
+    *consts, warp_order=False)``; ``warp_order=True`` sums as the breed
+    kernels do, bit for bit), ``.kernel_rowwise_consts`` (the referenced constants,
     2-D, in sorted name order), ``.expression``,
     ``.pinned_genome_len`` and, for the code generator, ``.ast``,
     ``.const_names``, ``.const_arrays`` (as registered) and
@@ -572,11 +596,11 @@ def from_expression(expr: str, **consts) -> Callable:
     const_names = sorted(const_vals)
     defaults = const_tensors([const_vals[n] for n in const_names])
 
-    def rows(m: torch.Tensor, *cargs) -> torch.Tensor:
+    def rows(m: torch.Tensor, *cargs, warp_order: bool = False) -> torch.Tensor:
         m = m.to(torch.float32)
         env = gene_env(m.shape, m.device)
         env.update(
-            g=m, table_kinds=table_kinds,
+            g=m, table_kinds=table_kinds, warp_order=warp_order,
             consts=dict(zip(const_names, cargs or defaults(m.device))),
         )
         out = _emit(ast, env)

@@ -57,7 +57,10 @@ inside the kernel (:func:`kernel_ranks`), with per-deme elitism, a
 per-group target freeze and a runtime step count. Demes are fixed for a
 launch; the row maps apply once, at its end. Its geometry
 (``resolve_geometry(multigen=True)``) differs from the one-generation
-one, and it needs a rowwise-fused objective.
+one, and it needs a rowwise-fused or an expression objective. With an
+expression crossover, mutation or objective ``expr_multigen_kernel`` of
+the generated expression unit breeds (B6 x B4): the same loop, the
+children of the expression breed.
 """
 
 from __future__ import annotations
@@ -81,6 +84,7 @@ from libpga_tpu_torch.objectives.classic import (
     tour_edges,
     tsp_cities,
 )
+from libpga_tpu_torch.objectives.expr import warp_order_sum
 from libpga_tpu_torch.ops import kernels
 from libpga_tpu_torch.ops.crossover import order_walk
 from libpga_tpu_torch.ops.expr_cuda import streams
@@ -91,6 +95,7 @@ from libpga_tpu_torch.ops.select import (
     winner_fraction,
     winner_ranks,
 )
+from libpga_tpu_torch.ops.topk import top_k
 
 LANE = 128
 CROSSOVER_KINDS = ("uniform", "order")
@@ -102,6 +107,14 @@ def is_expression(kind) -> bool:
     (``ops/breed_expr.py``: it carries ``.kernel_rows``), not a builtin
     kind name."""
     return callable(kind) and getattr(kind, "kernel_rows", None) is not None
+
+
+def _expression_hooked(kw: dict) -> bool:
+    """Whether a breed's keywords name an expression crossover, mutation
+    or objective: the breed then launches the generated expression
+    unit's kernel."""
+    return (is_expression(kw.get("crossover")) or is_expression(kw.get("mutate"))
+            or kw.get("objective") is not None)
 
 # ---------------------------------------------------------------------
 # Geometry (copied from libpga_tpu/ops/pallas_step.py:185-372, 1701-1932)
@@ -792,32 +805,15 @@ def tsp_scores(
     return (-(total + penalty * dups)).reshape(child.shape[:-1])
 
 
-def _warp_order_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis in the order a warp of the uniform-breed
-    kernels sums a child's terms: lane ``i`` adds terms i, i+32, i+64,
-    ... one by one from 0.0, then the 32 partials combine through the
-    xor butterfly ``v = v + v[i ^ o]``, o = 16, 8, 4, 2, 1. Float32
-    results equal the kernels' bit for bit."""
-    L = x.shape[-1]
-    x = torch.nn.functional.pad(x, (0, -L % 32)).reshape(*x.shape[:-1], -1, 32)
-    v = torch.zeros_like(x[..., 0, :])
-    for j in range(x.shape[-2]):
-        v = v + x[..., j, :]
-    lanes = torch.arange(32, device=x.device)
-    for o in (16, 8, 4, 2, 1):
-        v = v + v[..., lanes ^ o]
-    return v[..., 0]
-
-
 def rowwise_scores(obj_id: int, child: torch.Tensor, warp_order: bool = False) -> torch.Tensor:
     """The score of a rowwise-fused objective over ``child`` (..., L),
     with the float32 constants and operation order of
     ``objectives/classic.py`` (the kernels' ``obj_add`` and
     ``obj_finish``). ``warp_order`` sums the per-gene terms as the
-    uniform-breed kernels do (:func:`_warp_order_sum`), so the result
+    breed kernels do (``objectives/expr.warp_order_sum``), so the result
     equals theirs exactly; otherwise ``torch.sum`` (within a few ulps)."""
     L = child.shape[-1]
-    total = _warp_order_sum if warp_order else (lambda x: torch.sum(x, dim=-1))
+    total = warp_order_sum if warp_order else (lambda x: torch.sum(x, dim=-1))
     if obj_id == FUSED_ONEMAX_BITS:
         return total((child >= 0.5).to(torch.float32))
     if obj_id == FUSED_SPHERE:
@@ -925,8 +921,7 @@ def deme_breed(
     if (seed is None) == (draws is None):
         raise ValueError("pass exactly one of seed= or draws=")
     if genomes.is_cuda:
-        if (is_expression(kw.get("crossover")) or is_expression(kw.get("mutate"))
-                or kw.get("objective") is not None):
+        if _expression_hooked(kw):
             launch = kernels.expr_breed_cuda
         elif kw.get("crossover") == "order":
             launch = kernels.order_breed_cuda
@@ -959,15 +954,18 @@ def multigen_breed_reference(
     tournament_size: int = 2,
     selection: str = "tournament",
     selection_param: Optional[float] = None,
-    mutate: str = "point",
+    mutate="point",
     mparams: torch.Tensor,
-    obj_id: int,
+    obj_id: int = FUSED_NONE,
     elitism: int = 0,
     out: Optional[torch.Tensor] = None,
-    crossover: str = "uniform",
+    crossover="uniform",
+    objective: Optional[Callable] = None,
 ):
-    """The plain version of ``multigen_breed_kernel`` (and of
-    ``_multigen_kernel``): ``steps`` generations of every group of
+    """The plain version of the multi-generation kernels
+    (``multigen_breed_kernel``; with an expression crossover, mutation
+    or ``objective``, ``expr_multigen_kernel``) and of
+    ``_multigen_kernel``: ``steps`` generations of every group of
     ``geom`` (``S`` groups of ``D`` demes), the demes fixed for the
     launch in the parity's cohort order.
 
@@ -978,8 +976,12 @@ def multigen_breed_reference(
     ``target`` is frozen (a NaN among them compares false) and keeps its
     rows and scores; every other deme is ranked by
     :func:`kernel_ranks`, bred by :func:`breed_children` with
-    ``elite_rows=elitism`` (children 0..e-1 copy ranks 0..e-1 unmutated)
-    and scored in the kernel's summation order. The draws of
+    ``elite_rows=elitism`` (children 0..e-1 copy ranks 0..e-1, no hook
+    applied) and scored in the kernel's summation order: a builtin
+    rowwise-fused ``obj_id``, or the expression ``objective`` (a
+    ``from_expression`` objective) through its ``kernel_rowwise(...,
+    warp_order=True)``. ``crossover`` / ``mutate`` are builtin kinds or
+    expression operators (``ops/breed_expr.py``). The draws of
     sub-generation t are ``draws.at(t)`` (injected) or the Philox draws
     of ``seed`` with ``t`` as the fourth counter word, the same whether
     or not a group is frozen. At the end child k of deme g lands at the
@@ -990,12 +992,12 @@ def multigen_breed_reference(
     when given."""
     if (seed is None) == (draws is None):
         raise ValueError("pass exactly one of seed= or draws=")
-    if crossover != "uniform":
+    if crossover == "order":
         raise NotImplementedError(
             "several generations per launch with order crossover is not ported"
             " yet (ROADMAP Queue B, B4's order-crossover case)"
         )
-    if obj_id not in ROWWISE_FUSED:
+    if objective is None and obj_id not in ROWWISE_FUSED:
         raise ValueError(f"objective id {obj_id} has no rowwise fused form: multigen needs one")
     G, K, L, D = geom.G, geom.K, geom.L, geom.D
     read, write = geom.row_maps(parity, genomes.device)
@@ -1006,14 +1008,18 @@ def multigen_breed_reference(
         best = torch.where(alive, s, -torch.inf).reshape(geom.S, D * K).amax(dim=1)
         frozen = (best >= target).repeat_interleave(D)[:, None]  # (G, 1); NaN: False
         d = draws.at(t) if draws is not None else philox_draws(
-            seed, G, K, L, mutate, sub_generation=t, tie=True)
+            seed, G, K, L, mutate, crossover, sub_generation=t, tie=True)
         child = breed_children(
             g, kernel_ranks(s, d.tie, alive), valid, d,
             tournament_size=tournament_size, selection=selection,
             selection_param=selection_param, mutate=mutate, mparams=mparams,
-            elite_rows=elitism,
+            elite_rows=elitism, crossover=crossover,
         )
-        s = torch.where(frozen, s, rowwise_scores(obj_id, child, warp_order=True))
+        if objective is not None:
+            cs = objective.kernel_rowwise(child.reshape(-1, L), warp_order=True).reshape(G, K)
+        else:
+            cs = rowwise_scores(obj_id, child, warp_order=True)
+        s = torch.where(frozen, s, cs)
         g = torch.where(frozen[..., None], g, child)
     if out is None:
         out = torch.empty_like(genomes)
@@ -1037,22 +1043,25 @@ def multigen_breed(
 ):
     """One multi-generation launch: ``steps`` generations of every group
     (see :func:`multigen_breed_reference`). On a CUDA tensor it launches
-    ``multigen_breed_kernel`` and raises if that fails (``work``: its
+    the kernel of the hooks (an expression crossover, mutation or
+    ``kw["objective"]``: ``expr_multigen_kernel``; else
+    ``multigen_breed_kernel``) and raises if that fails (``work``: its
     scratch buffers); on a CPU tensor it runs the plain version. Exactly
     one of ``seed=`` (production Philox mode) or ``draws=`` (injected
     mode, with a leading sub-generation axis) is given in ``kw``."""
     target = math.inf if target is None else float(target)
     if genomes.is_cuda:
-        return kernels.multigen_breed_cuda(
-            genomes, scores, geom, parity, steps, target, out=out, work=work, **kw)
+        launch = kernels.expr_multigen_cuda if _expression_hooked(kw) else kernels.multigen_breed_cuda
+        return launch(genomes, scores, geom, parity, steps, target, out=out, work=work, **kw)
     return multigen_breed_reference(genomes, scores, geom, parity, steps, target, out=out, **kw)
 
 
 def carry_elites(g_prev, s_prev, g2, s2, elitism: int) -> None:
     """Top-e of the previous generation into rows 0..e-1 of the new
-    one, scores included (``_carry_elites``). Pad rows carry -inf, so
-    they are never elites. Updates ``g2``/``s2`` in place."""
-    top_s, top_i = torch.topk(s_prev, elitism)
+    one, scores included (``_carry_elites``), in ``lax.top_k``'s order
+    (``ops/topk.py``). Pad rows carry -inf, so they are never elites.
+    Updates ``g2``/``s2`` in place."""
+    top_s, top_i = top_k(s_prev, elitism)
     g2[:elitism] = g_prev[top_i]
     s2[:elitism] = top_s
 
@@ -1208,37 +1217,42 @@ def make_fused_multigen(
     device="cuda",
 ):
     """The multi-generation breed for a fixed shape and objective, the
-    counterpart of ``make_pallas_multigen``. Returns ``launch(genomes
-    (Pp, L), scores (Pp,), parity, steps, target, generator, out=None,
-    work=None) -> (genomes, scores)`` in physical row order, with
-    ``launch.geom``; ``elitism`` is per deme, inside the kernel.
+    counterpart of ``make_pallas_multigen``. ``crossover`` / ``mutate``
+    are builtin kind names or expression operators; the objective fuses
+    by its builtin rowwise ``fused_id`` or its expression form
+    (``expr_fused``; one with kernel constants is const-carrying, which
+    shapes the geometry as in JAX). Returns ``launch(genomes (Pp, L),
+    scores (Pp,), parity, steps, target, generator, out=None, work=None)
+    -> (genomes, scores)`` in physical row order, with ``launch.geom``;
+    ``elitism`` is per deme, inside the kernel.
 
-    None where the JAX factory declines: the objective has no rowwise
-    fused form (the coordinate TSP's fused score is gene-major, not
-    rowwise), the geometry declines, or ``elitism >= K // 4``. Order
-    crossover with a rowwise-fused objective, and any expression
-    crossover, mutation or objective, which JAX breeds here, raise
-    ``NotImplementedError``: those cases of the kernel are not ported
-    yet."""
-    if (is_expression(crossover) or is_expression(mutate)
-            or getattr(objective, "expr_fused", None) is not None):
-        raise NotImplementedError(
-            "generations_per_launch > 1 with an expression crossover, mutation or"
-            " objective is not ported yet (ROADMAP Queue B, B6's multigen cases);"
-            " run with generations_per_launch=1"
-        )
-    obj_id = getattr(objective, "fused_id", FUSED_NONE)
-    if obj_id not in ROWWISE_FUSED:
+    None where the JAX factory declines: the objective has neither a
+    rowwise fused form nor an expression form (the coordinate TSP's
+    fused score is gene-major, not rowwise), the geometry declines, or
+    ``elitism >= K // 4``. Order crossover, which JAX breeds here,
+    raises ``NotImplementedError``: that case of the kernel is not
+    ported yet."""
+    expr_obj = getattr(objective, "expr_fused", None)
+    obj_id = FUSED_NONE if expr_obj is not None else getattr(objective, "fused_id", FUSED_NONE)
+    if expr_obj is None and obj_id not in ROWWISE_FUSED:
         return None
+    for op in (crossover, mutate, expr_obj):
+        pin = getattr(op, "pinned_genome_len", None)
+        if pin and pin != genome_len:
+            raise ValueError(
+                f"expression {op.expression!r} uses length-{pin} vector constants but"
+                f" the population genome length is {genome_len}"
+            )
     geom = resolve_geometry(
         pop_size, genome_len, deme_size=deme_size,
         tournament_size=tournament_size, selection=selection,
         selection_param=selection_param, crossover=crossover, layout=layout,
         multigen=True, elitism=elitism,
+        const_carrying=bool(getattr(expr_obj, "kernel_rowwise_consts", ())),
     )
     if geom is None:
         return None
-    if crossover != "uniform":
+    if crossover == "order":
         raise NotImplementedError(
             "generations_per_launch > 1 with order crossover and a rowwise-fused"
             " objective is not ported yet (ROADMAP Queue B, B4's order-crossover"
@@ -1248,8 +1262,10 @@ def make_fused_multigen(
         tournament_size=tournament_size, selection=selection,
         selection_param=selection_param, mutate=mutate, obj_id=obj_id,
         mparams=torch.tensor(list(mparams), dtype=torch.float32, device=device),
-        elitism=elitism,
+        elitism=elitism, crossover=crossover,
     )
+    if expr_obj is not None:
+        kw.update(objective=expr_obj)
 
     def launch(genomes, scores, parity, steps, target, generator, out=None, work=None):
         seed = torch.randint(

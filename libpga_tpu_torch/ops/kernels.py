@@ -8,16 +8,17 @@ source and the headers it includes, so an edited source is rebuilt.
 ``csrc/expr_breed.cu`` is a template: each breed with expression hooks
 gets its own unit, the hooks that ``ops/expr_cuda.py`` generates followed
 by the template, written to ``_build/expr_breed-<hash>.cu`` and built the
-same way (:func:`build_expr`). Nothing here runs at import time: this
+same way (:func:`build_expr`); the unit holds both the one-generation and
+the multi-generation kernel of those hooks. Nothing here runs at import time: this
 module imports on machines without ``nvcc`` or a card.
 
 ``LAUNCHES`` counts kernel launches: the uniform-crossover deme breed
 by row-map layout ("pingpong", "riffle"), the order-crossover breed
 ("order"), the multi-generation breed ("multigen", one per launch
-whatever its step count), the expression breed ("expr", every row map),
-the GP evaluator by mode (compacted programs, or raw genomes with static
-trips). A wrapper adds one where it launches its kernel and nowhere
-else.
+whatever its step count), the expression breed ("expr", every row map)
+and its multi-generation form ("expr_multigen"), the GP evaluator by
+mode (compacted programs, or raw genomes with static trips). A wrapper
+adds one where it launches its kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -47,15 +48,17 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fP
 
 LAUNCHES = {
     "pingpong": 0, "riffle": 0, "order": 0, "multigen": 0, "expr": 0,
-    "gp_eval_opt": 0, "gp_eval_static": 0,
+    "expr_multigen": 0, "gp_eval_opt": 0, "gp_eval_static": 0,
 }
 TEMPLATES = ("expr_breed",)  # sources built only with generated hooks in front
 
 SEL_IDS = {"tournament": 0, "truncation": 1, "linear_rank": 2}
 MUTATE_IDS = {"point": 0, "gaussian": 1, "swap": 2}
 ORDER_THREADS = 64  # children per block of order_breed_kernel
-MULTIGEN_MAX_D = 16  # demes per block of multigen_breed_kernel
+MULTIGEN_MAX_D = 16  # demes per block of the multi-generation kernels
+MULTIGEN_ROW_BYTES = 17  # their shared memory per group row (MG_ROW_BYTES)
 EXPR_MAX_WARPS = 8  # warps per block of expr_breed_kernel (THREADS / 32)
+EXPR_MULTIGEN_MAX_WARPS = 32  # of expr_multigen_kernel (MG_THREADS / 32)
 SMEM_BLOCK_BYTES = 232_448  # shared memory a block may use on Hopper
 
 _libs: dict = {}
@@ -200,6 +203,17 @@ def _bindings() -> dict:
                 i, i, i, i,             # mode, S, D, q
                 i, i, f,                # sel kind, tournament size, sel param
                 i, i, i,                # mutate kind, objective id, warps per block
+                p,                      # stream
+            ], i),
+            "expr_multigen_launch": ([
+                p, p, p, p, p, p,       # gin, sin, gout, sout, work0, work1
+                i, f, p,                # steps, target, mparams
+                p, p, p, p, p,          # sel_u, cross, mut_u, gauss, tie
+                p, p, p, p,             # expression planes, row words, seed, consts
+                i, i, i, i, i,          # P, Pp, L, K, G
+                i, i, i, i,             # mode, S, D, q
+                i, i, f,                # sel kind, tournament size, sel param
+                i, i, i, i,             # mutate kind, objective id, elitism, warps per block
                 p,                      # stream
             ], i),
             "expr_breed_error_string": ([i], s),
@@ -420,6 +434,76 @@ def order_breed_cuda(
     return out, scores
 
 
+def _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mparams) -> int:
+    """The checks both multi-generation wrappers make; returns ``steps``
+    as an int."""
+    dev = genomes.device
+    G, K, L, Pp, D = geom.G, geom.K, geom.L, geom.Pp, geom.D
+    if not 1 <= K <= 1024:
+        raise ValueError(f"deme size {K} outside 1..1024")
+    if not 1 <= D <= MULTIGEN_MAX_D or G % D:
+        raise ValueError(f"{D} demes per group outside 1..{MULTIGEN_MAX_D} or not dividing {G}")
+    if not 1 <= tournament_size <= 16:
+        raise ValueError(f"tournament_size {tournament_size} outside 1..16")
+    if not 0 <= elitism < K:
+        raise ValueError(f"elitism {elitism} outside 0..{K - 1}")
+    steps = int(steps)
+    if steps < 0:
+        raise ValueError(f"steps {steps} is negative")
+    _check(genomes, "genomes", torch.float32, (Pp, L), dev)
+    _check(scores, "scores", torch.float32, (Pp,), dev)
+    _check(mparams, "mparams", torch.float32, (2,), dev)
+    return steps
+
+
+def _multigen_buffers(genomes, out, work, steps: int):
+    """``(out, [work0, work1])``: the children's buffer and the kernel's
+    two scratch buffers (made where None and ``steps`` needs them: one
+    from 2 steps, two from 3; None where unused), none aliasing
+    ``genomes`` or each other."""
+    dev, shape = genomes.device, tuple(genomes.shape)
+    if out is None:
+        out = torch.empty_like(genomes)
+    _check(out, "out", torch.float32, shape, dev)
+    if out.data_ptr() == genomes.data_ptr():
+        raise ValueError("out must not alias genomes: blocks read rows other blocks write")
+    work = list(work or ())
+    while len(work) < min(max(steps - 1, 0), 2):
+        work.append(torch.empty_like(genomes))
+    for n, w in enumerate(work):
+        _check(w, f"work[{n}]", torch.float32, shape, dev)
+        if w.data_ptr() in (genomes.data_ptr(), out.data_ptr()):
+            raise ValueError("a work buffer must not alias genomes or out")
+    return out, work + [None, None]
+
+
+def _multigen_draws(draws, seed, geom, steps: int, cross_bits: bool, mutate, dev):
+    """``(sel_u, cross, mut_u, gauss, tie)`` of an injected multigen
+    launch, each with a leading axis of T >= ``steps`` sub-generations
+    (``cross`` where ``cross_bits``, ``gauss`` for gaussian mutation;
+    else None), or all None in production mode (``seed`` checked)."""
+    G, K, L = geom.G, geom.K, geom.L
+    if draws is None:
+        _check(seed, "seed", torch.int64, (1,), dev)
+        return None, None, None, None, None
+    T = draws.sel_u.shape[0]
+    if T < steps:
+        raise ValueError(f"injected draws hold {T} sub-generations, steps is {steps}")
+    _check(draws.sel_u, "sel_u", torch.float32, (T, G, K, 2), dev)
+    _check(draws.mut_u, "mut_u", torch.float32, (T, G, K, 4), dev)
+    if draws.tie is None:
+        raise ValueError("injected multigen draws need the tie words")
+    _check(draws.tie, "tie", torch.int64, (T, G, K), dev)
+    cross = gauss = None
+    if cross_bits:
+        cross = draws.cross
+        _check(cross, "cross", torch.uint8, (T, G, K, L), dev)
+    if mutate == "gaussian":
+        gauss = draws.gauss
+        _check(gauss, "gauss", torch.float32, (T, 3, G, K, L), dev)
+    return draws.sel_u, cross, draws.mut_u, gauss, draws.tie
+
+
 def multigen_breed_cuda(
     genomes: torch.Tensor,
     scores: torch.Tensor,
@@ -460,54 +544,13 @@ def multigen_breed_cuda(
         raise ValueError(f"multigen_breed_cuda breeds uniform crossover, not {crossover!r}")
     if obj_id not in ROWWISE_FUSED:
         raise ValueError(f"objective id {obj_id} has no rowwise fused form: multigen needs one")
-    G, K, L, Pp, D = geom.G, geom.K, geom.L, geom.Pp, geom.D
-    if not 1 <= K <= 1024:
-        raise ValueError(f"deme size {K} outside 1..1024")
-    if not 1 <= D <= MULTIGEN_MAX_D or G % D:
-        raise ValueError(f"{D} demes per group outside 1..{MULTIGEN_MAX_D} or not dividing {G}")
-    if not 1 <= tournament_size <= 16:
-        raise ValueError(f"tournament_size {tournament_size} outside 1..16")
-    if not 0 <= elitism < K:
-        raise ValueError(f"elitism {elitism} outside 0..{K - 1}")
-    steps = int(steps)
-    if steps < 0:
-        raise ValueError(f"steps {steps} is negative")
     if mutate not in MUTATE_IDS:
         raise ValueError(f"unknown mutate kind {mutate!r}")
-    _check(genomes, "genomes", torch.float32, (Pp, L), dev)
-    _check(scores, "scores", torch.float32, (Pp,), dev)
-    _check(mparams, "mparams", torch.float32, (2,), dev)
+    G, K, L, Pp, D = geom.G, geom.K, geom.L, geom.Pp, geom.D
+    steps = _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mparams)
     param = resolve_selection(selection, selection_param)
-    if out is None:
-        out = torch.empty_like(genomes)
-    _check(out, "out", torch.float32, (Pp, L), dev)
-    if out.data_ptr() == genomes.data_ptr():
-        raise ValueError("out must not alias genomes: blocks read rows other blocks write")
-    work = list(work or ())
-    while len(work) < min(max(steps - 1, 0), 2):
-        work.append(torch.empty_like(genomes))
-    for n, w in enumerate(work):
-        _check(w, f"work[{n}]", torch.float32, (Pp, L), dev)
-        if w.data_ptr() in (genomes.data_ptr(), out.data_ptr()):
-            raise ValueError("a work buffer must not alias genomes or out")
-    work += [None, None]
-    sel_u = cross = mut_u = gauss = tie = None
-    if draws is not None:
-        sel_u, cross, mut_u, gauss, tie = (
-            draws.sel_u, draws.cross, draws.mut_u, draws.gauss, draws.tie)
-        T = sel_u.shape[0]
-        if T < steps:
-            raise ValueError(f"injected draws hold {T} sub-generations, steps is {steps}")
-        _check(sel_u, "sel_u", torch.float32, (T, G, K, 2), dev)
-        _check(cross, "cross", torch.uint8, (T, G, K, L), dev)
-        _check(mut_u, "mut_u", torch.float32, (T, G, K, 4), dev)
-        if tie is None:
-            raise ValueError("injected multigen draws need the tie words")
-        _check(tie, "tie", torch.int64, (T, G, K), dev)
-        if mutate == "gaussian":
-            _check(gauss, "gauss", torch.float32, (T, 3, G, K, L), dev)
-    else:
-        _check(seed, "seed", torch.int64, (1,), dev)
+    out, work = _multigen_buffers(genomes, out, work, steps)
+    sel_u, cross, mut_u, gauss, tie = _multigen_draws(draws, seed, geom, steps, True, mutate, dev)
     s_out = torch.empty(Pp, device=dev)
     lib = _library("deme_breed")
     rc = lib.multigen_breed_launch(
@@ -528,18 +571,81 @@ def multigen_breed_cuda(
     return out, s_out
 
 
-def expr_warps(K: int, L: int, obj_rows: int) -> int:
-    """Warps per block of ``expr_breed_kernel``: up to 8, fewer where
-    each warp's child row and ``obj_rows`` objective rows of L floats do
-    not fit beside ``row_of_rank`` in a block's shared memory."""
+def expr_warps(K: int, L: int, obj_rows: int, D: Optional[int] = None) -> int:
+    """Warps per block of ``expr_breed_kernel`` (``D`` None: up to 8,
+    beside ``row_of_rank``) or of ``expr_multigen_kernel`` (a group of
+    ``D`` demes: up to 32, beside the group's 17 bytes per row): fewer
+    where each warp's child row and ``obj_rows`` objective rows of L
+    floats do not fit in a block's shared memory (1 KB kept for the
+    kernel's static arrays)."""
     per_warp = (1 + obj_rows) * L * 4
-    warps = min(EXPR_MAX_WARPS, (SMEM_BLOCK_BYTES - 1024 - 4 * K) // per_warp)
+    if D is None:
+        most, fixed = EXPR_MAX_WARPS, 4 * K
+    else:
+        most, fixed = EXPR_MULTIGEN_MAX_WARPS, -(-D * K * MULTIGEN_ROW_BYTES // 16) * 16
+    warps = min(most, (SMEM_BLOCK_BYTES - 1024 - fixed) // per_warp)
     if warps < 1:
         raise ValueError(
             f"genome length {L} with {obj_rows} objective rows needs {per_warp} bytes of"
-            f" shared memory per warp: more than a block holds beside a deme of {K}"
+            f" shared memory per warp: more than a block holds beside {fixed} bytes of"
+            " rank state"
         )
     return warps
+
+
+def _expr_hooks(crossover, mutate, objective, obj_id: int, L: int, who: str, multigen=False):
+    """``(crossover op or None, mutate op or None, obj_id)`` of a breed
+    with expression hooks, checked: a builtin crossover is uniform, a
+    builtin mutation point / gaussian / swap, a builtin objective
+    rowwise-fused (or, one generation per launch, none); at least one
+    hook is an expression; none is pinned to another genome length. An
+    expression ``objective`` sets ``obj_id`` to none."""
+    cross_op = crossover if callable(crossover) else None
+    mut_op = mutate if callable(mutate) else None
+    if cross_op is None and crossover != "uniform":
+        raise ValueError(f"{who} breeds uniform or expression crossover, not {crossover!r}")
+    if mut_op is None and mutate not in MUTATE_IDS:
+        raise ValueError(f"unknown mutate kind {mutate!r}")
+    if objective is not None:
+        obj_id = FUSED_NONE
+    elif multigen and obj_id not in ROWWISE_FUSED:
+        raise ValueError(f"objective id {obj_id} has no rowwise fused form: multigen needs one")
+    elif obj_id != FUSED_NONE and obj_id not in ROWWISE_FUSED:
+        raise ValueError(f"objective id {obj_id} is not fused with the expression breed")
+    if cross_op is None and mut_op is None and objective is None:
+        builtin = "multigen_breed_cuda" if multigen else "deme_breed_cuda"
+        raise ValueError(f"no expression hook: the builtin breed is {builtin}")
+    for op in (cross_op, mut_op, objective):
+        pin = getattr(op, "pinned_genome_len", None)
+        if pin and pin != L:
+            raise ValueError(f"expression {op.expression!r} is pinned to genome length {pin}, not {L}")
+    return cross_op, mut_op, obj_id
+
+
+def _expr_draws(draws, program, lead: tuple, geom, dev):
+    """``(expr_gene, expr_row)`` of injected draws, checked where the
+    hooks read them (else None): planes ``lead + (4, G, K, L)``, words
+    ``lead + (G, K, 4)``."""
+    G, K, L = geom.G, geom.K, geom.L
+    xgene = xrow = None
+    if program.gene_planes:
+        xgene = draws.expr_gene
+        if xgene is None:
+            raise ValueError("injected draws need the expression planes expr_gene")
+        _check(xgene, "expr_gene", torch.float32, lead + (4, G, K, L), dev)
+    if program.row_words:
+        xrow = draws.expr_row
+        if xrow is None:
+            raise ValueError("injected draws need the expression words expr_row")
+        _check(xrow, "expr_row", torch.float32, lead + (G, K, 4), dev)
+    return xgene, xrow
+
+
+def _expr_library(program) -> ctypes.CDLL:
+    """The loaded unit of ``program``'s hooks, built at first use."""
+    if program.source not in _expr_libs:
+        _expr_libs[program.source] = build_expr(program)
+    return _library("expr_breed", _expr_libs[program.source])
 
 
 def expr_breed_cuda(
@@ -577,23 +683,8 @@ def expr_breed_cuda(
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("expr_breed_cuda needs CUDA tensors")
-    cross_op = crossover if callable(crossover) else None
-    mut_op = mutate if callable(mutate) else None
-    if cross_op is None and crossover != "uniform":
-        raise ValueError(f"expr_breed_cuda breeds uniform or expression crossover, not {crossover!r}")
-    if mut_op is None and mutate not in MUTATE_IDS:
-        raise ValueError(f"unknown mutate kind {mutate!r}")
-    if objective is not None:
-        obj_id = FUSED_NONE
-    elif obj_id != FUSED_NONE and obj_id not in ROWWISE_FUSED:
-        raise ValueError(f"objective id {obj_id} is not fused with the expression breed")
-    if cross_op is None and mut_op is None and objective is None:
-        raise ValueError("no expression hook: the builtin breed is deme_breed_cuda")
     G, K, L, Pp = geom.G, geom.K, geom.L, geom.Pp
-    for op in (cross_op, mut_op, objective):
-        pin = getattr(op, "pinned_genome_len", None)
-        if pin and pin != L:
-            raise ValueError(f"expression {op.expression!r} is pinned to genome length {pin}, not {L}")
+    cross_op, mut_op, obj_id = _expr_hooks(crossover, mutate, objective, obj_id, L, "expr_breed_cuda")
     if not 1 <= K <= 1024:
         raise ValueError(f"deme size {K} outside 1..1024")
     if not 1 <= tournament_size <= 16:
@@ -620,22 +711,11 @@ def expr_breed_cuda(
         if mutate == "gaussian":
             gauss = draws.gauss
             _check(gauss, "gauss", torch.float32, (3, G, K, L), dev)
-        if program.gene_planes:
-            xgene = draws.expr_gene
-            if xgene is None:
-                raise ValueError("injected draws need the expression planes expr_gene")
-            _check(xgene, "expr_gene", torch.float32, (4, G, K, L), dev)
-        if program.row_words:
-            xrow = draws.expr_row
-            if xrow is None:
-                raise ValueError("injected draws need the expression words expr_row")
-            _check(xrow, "expr_row", torch.float32, (G, K, 4), dev)
+        xgene, xrow = _expr_draws(draws, program, (), geom, dev)
     else:
         _check(seed, "seed", torch.int64, (1,), dev)
     scores = torch.empty(Pp, device=dev) if (objective is not None or obj_id) else None
-    if program.source not in _expr_libs:
-        _expr_libs[program.source] = build_expr(program)
-    lib = _library("expr_breed", _expr_libs[program.source])
+    lib = _expr_library(program)
     rc = lib.expr_breed_launch(
         genomes.data_ptr(), out.data_ptr(), _ptr(scores), ranks.data_ptr(),
         mparams.data_ptr(),
@@ -651,6 +731,76 @@ def expr_breed_cuda(
     _raise_on(rc, lib, "expr_breed")
     LAUNCHES["expr"] += 1
     return out, scores
+
+
+def expr_multigen_cuda(
+    genomes: torch.Tensor,
+    scores: torch.Tensor,
+    geom,
+    parity: int,
+    steps: int,
+    target: float,
+    *,
+    seed: Optional[torch.Tensor] = None,
+    draws=None,
+    out: Optional[torch.Tensor] = None,
+    work=None,
+    tournament_size: int = 2,
+    selection: str = "tournament",
+    selection_param: Optional[float] = None,
+    mutate="point",
+    mparams: torch.Tensor,
+    obj_id: int = 0,
+    elitism: int = 0,
+    crossover="uniform",
+    objective=None,
+):
+    """Launch ``expr_multigen_kernel``, the multi-generation entry of
+    the expression breed's unit (the same build as :func:`expr_breed_cuda`
+    for these hooks), on the current stream: the kernel counterpart of
+    ``fused_step.multigen_breed_reference`` with an expression crossover,
+    mutation or ``objective`` (same arguments as
+    :func:`multigen_breed_cuda`, plus ``objective``). Injected ``draws``
+    carry a leading axis of at least ``steps`` sub-generations, the tie
+    words and, where the hooks read them, ``expr_gene`` (T, 4, G, K, L)
+    and ``expr_row`` (T, G, K, 4). Returns ``(genomes (Pp, L), scores
+    (Pp,))`` in physical row order. Raises on bad arguments or a failed
+    build or launch; never runs anything else in the kernel's place."""
+    dev = genomes.device
+    if dev.type != "cuda":
+        raise ValueError("expr_multigen_cuda needs CUDA tensors")
+    G, K, L, Pp, D = geom.G, geom.K, geom.L, geom.Pp, geom.D
+    cross_op, mut_op, obj_id = _expr_hooks(crossover, mutate, objective, obj_id, L,
+                                           "expr_multigen_cuda", multigen=True)
+    steps = _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mparams)
+    param = resolve_selection(selection, selection_param)
+    program = expr_cuda.program_for(cross_op, mut_op, objective)
+    warps = expr_warps(K, L, program.obj_rows, D=D)
+    out, work = _multigen_buffers(genomes, out, work, steps)
+    sel_u, cross, mut_u, gauss, tie = _multigen_draws(
+        draws, seed, geom, steps, cross_op is None, mutate, dev)
+    xgene = xrow = None
+    if draws is not None:
+        xgene, xrow = _expr_draws(draws, program, (draws.sel_u.shape[0],), geom, dev)
+    s_out = torch.empty(Pp, device=dev)
+    lib = _expr_library(program)
+    rc = lib.expr_multigen_launch(
+        genomes.data_ptr(), scores.data_ptr(), out.data_ptr(), s_out.data_ptr(),
+        _ptr(work[0]), _ptr(work[1]),
+        steps, float(target), mparams.data_ptr(),
+        _ptr(sel_u), _ptr(cross), _ptr(mut_u), _ptr(gauss), _ptr(tie),
+        _ptr(xgene), _ptr(xrow), _ptr(seed if draws is None else None),
+        program.consts_on(dev).data_ptr(),
+        geom.P, Pp, L, K, G,
+        geom.mode(parity), geom.S, D, geom.q,
+        SEL_IDS[selection], tournament_size,
+        0.0 if param is None else float(param),
+        MUTATE_IDS.get(mutate, 0) if mut_op is None else 0, int(obj_id), int(elitism), warps,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, lib, "expr_breed")
+    LAUNCHES["expr_multigen"] += 1
+    return out, s_out
 
 
 def gp_eval_cuda(

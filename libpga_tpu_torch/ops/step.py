@@ -20,6 +20,7 @@ from typing import Callable, Optional
 import torch
 
 from libpga_tpu_torch.ops.select import SelectDraws, draw_ties, select_parent_pairs
+from libpga_tpu_torch.ops.topk import top_k
 
 
 @dataclasses.dataclass
@@ -84,7 +85,7 @@ def make_breed(
         children = cross(genomes[p1_idx], genomes[p2_idx], draws.cross)
         nxt = mut(children, draws.mut)
         if elitism > 0:
-            elite = torch.topk(scores, elitism).indices
+            elite = top_k(scores, elitism)[1]
             nxt = torch.cat([genomes[elite], nxt[elitism:]])
         return nxt.to(genomes.dtype)
 

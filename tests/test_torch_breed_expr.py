@@ -370,24 +370,65 @@ def test_opaque_operator_has_no_kernel_kind():
     assert pp._crossover_kind() is None
 
 
-# (e) what is not ported raises; small populations go panmictic -------------
+# (e) several generations per launch; what is not ported raises; small
+# populations go panmictic ------------------------------------------------
 
 
-def test_expression_with_several_generations_per_launch_raises():
-    pp = PGA(seed=0, config=PGAConfig(device="cpu", generations_per_launch=4))
-    pp.create_population(1024, 16)
-    pp.set_objective("onemax")
-    pp.set_mutate(pbx.mutate_from_expression("where(r < rate, r2, g)"))
-    with pytest.raises(NotImplementedError, match="B6"):
-        pp.run(4)
+def _multigen_run_equals_jax(monkeypatch, objective, mutate, rate, n=6, T=4, P=1024, L=16):
+    """``PGA.run(n)`` at ``generations_per_launch=T`` on the CPU (the
+    multigen plain version, zero draws) against JAX's interpret-mode
+    ``_multigen_run_loop`` from the same population: geometry, launches,
+    generation count, genomes within GENE_ATOL and scores within L*1e-5.
+    ``objective`` / ``mutate``: (JAX, port) pairs, mutate None = point."""
+    pp = PGA(seed=0, config=PGAConfig(device="cpu", generations_per_launch=T))
+    h = pp.create_population(P, L)
+    pp.set_objective(objective[1])
+    pp.set_mutate(mutate[1])
+    g = pp.population(h).genomes.numpy().copy()
+
+    def zero_draws(seed, G, K, L, mutate="point", crossover="uniform", sub_generation=0, tie=False):
+        return fs.zero_draws(G, K, L, mutate, crossover=crossover, steps=1).at(0)
+
+    monkeypatch.setattr(fs, "philox_draws", zero_draws)
+    assert pp.run(n) == n and pp.launches == -(-n // T)
+    jobj = objective[0]
+    with _interpret():
+        bm = ps.make_pallas_multigen(
+            P, L, crossover_kind="uniform", mutate_kind=mutate[0] or "point",
+            fused_obj=jobj.kernel_rowwise,
+            fused_consts=tuple(getattr(jobj, "kernel_rowwise_consts", ())),
+            mutation_rate=rate, mutation_sigma=0.0)
+        run = ps._multigen_run_loop(jobj, bm, P, L, T, donate=False)
+        gj, sj, gens = run(jnp.asarray(g), jax.random.key(0), jnp.int32(n), jnp.float32(jnp.inf),
+                           bm.default_params)
+    geom = pp._run_fn(P, L)[0].geom
+    assert (geom.layout, geom.K, geom.D, geom.Pp) == (bm.layout, bm.K, bm.D, bm.Pp)
+    assert int(gens) == n
+    pop = pp.population(h)
+    np.testing.assert_allclose(pop.genomes.numpy(), np.asarray(gj), rtol=0, atol=GENE_ATOL)
+    np.testing.assert_allclose(pop.scores.numpy(), np.asarray(sj), rtol=0, atol=L * 1e-5)
 
 
-def test_const_objective_with_several_generations_per_launch_raises():
-    pp = PGA(seed=0, config=PGAConfig(device="cpu", generations_per_launch=4))
-    pp.create_population(1024, 16)
-    pp.set_objective(from_expression("dot(w, g)", w=np.ones(16, np.float32)))
-    with pytest.raises(NotImplementedError, match="B6"):
-        pp.run(4)
+def test_expression_with_several_generations_per_launch_raises(monkeypatch):
+    """An expression mutation at ``generations_per_launch=4``, once
+    refused, now breeds through the multi-generation path (B6 x B4) and
+    equals JAX's."""
+    expr = "where(r < rate, g * 0.5 + r2 + 0.25, g)"
+    _multigen_run_equals_jax(
+        monkeypatch, (jax_get("onemax"), "onemax"),
+        (jbx.mutate_from_expression(expr, rate=0.3), pbx.mutate_from_expression(expr, rate=0.3)),
+        rate=0.3)
+
+
+def test_const_objective_with_several_generations_per_launch_raises(monkeypatch):
+    """An objective with kernel constants at ``generations_per_launch=4``,
+    once refused, now breeds through the multi-generation path
+    (const-carrying geometry) and equals JAX's."""
+    w = np.linspace(0.0, 2.0, 16).astype(np.float32)
+    _multigen_run_equals_jax(
+        monkeypatch,
+        (jax_from_expression("dot(w, g)", w=w), from_expression("dot(w, g)", w=w)),
+        (None, None), rate=0.01)
 
 
 @pytest.mark.parametrize("what", ["mutate", "objective"])

@@ -85,7 +85,8 @@ def test_error_paths():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.PGAConfig(gene_dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        port.PGAConfig(tournament_size=17)
+        port.PGAConfig(tournament_size=0)
+    assert port.PGAConfig(tournament_size=17).tournament_size == 17  # panmictic, as in JAX
 
 
 def test_cuda_default_without_a_card_raises():

@@ -601,3 +601,110 @@ def test_engine_on_card_runs_expressions_through_the_expr_kernel(cuda_device):
         pop = pga.population(h)
         want = pga._objective(pop.genomes)
         torch.testing.assert_close(pop.scores, want, rtol=1e-5, atol=1e-4)
+
+
+EXPR_MULTIGEN_VARIANTS = [
+    # (case, P, L, layout, parity, steps, elitism)
+    ("nk", 4096, 64, None, 0, 3, 0),
+    ("nk", 1000, 64, None, 1, 2, 0),
+    ("trap", 4096, 60, "riffle", 0, 5, 2),
+    ("knapsack", 4096, 6, None, 1, 3, 2),
+    ("one_point+creep", 8192, 100, None, 0, 3, 0),
+    ("one_point+creep", 1000, 100, "riffle", 0, 1, 2),
+    ("arithmetic+swap", 2100, 130, None, 0, 3, 0),
+    ("all+unscored", 1024, 20, None, 0, 0, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", EXPR_MULTIGEN_VARIANTS,
+                         ids=lambda v: f"{v[0]}-{v[1]}x{v[2]}-{v[3]}-p{v[4]}-s{v[5]}-e{v[6]}")
+def test_expr_multigen_kernel_equals_plain_on_card(cuda_device, variant):
+    """The expression multi-generation kernel equals its plain version on
+    the same inputs, Philox and injected draws: genomes and scores
+    exactly (the plain version sums in the kernel's order), or within 2
+    ulp / rtol 1e-5 after a transcendental hook at one step; one launch
+    counted in LAUNCHES["expr_multigen"] per call."""
+    from libpga_tpu_torch.ops import expr_cuda
+
+    name, P, L, layout, parity, steps, e = variant
+    cross, mut, objective, obj_id = _expr_case(name)
+    if objective is None and obj_id == 0:
+        obj_id = onemax.fused_id  # the multi-generation kernels always score
+    program = expr_cuda.program_for(
+        cross if fs.is_expression(cross) else None, mut if fs.is_expression(mut) else None, objective)
+    geom = fs.resolve_geometry(
+        P, L, layout=layout, crossover=cross, multigen=True, elitism=e,
+        const_carrying=bool(getattr(objective, "kernel_rowwise_consts", ())),
+    )
+    gen = torch.Generator(device=cuda_device).manual_seed(P + L + steps)
+    g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device)
+    s = torch.rand(geom.Pp, generator=gen, device=cuda_device)
+    s[P:] = -torch.inf
+    kw = dict(crossover=cross, mutate=mut, obj_id=obj_id, elitism=e,
+              mparams=torch.tensor([0.3, 0.05], device=cuda_device))
+    if objective is not None:
+        kw.update(objective=objective)
+    seed = torch.randint(0, 2**62, (1,), generator=gen, device=cuda_device)
+    draws = fs.zero_draws(geom.G, geom.K, L, mut, cuda_device, cross, steps=max(steps, 1))
+    for f in ("sel_u", "mut_u", "expr_gene", "expr_row", "gauss"):
+        if getattr(draws, f) is not None:
+            setattr(draws, f, torch.rand_like(getattr(draws, f)))
+    draws.cross = (torch.rand_like(draws.cross, dtype=torch.float32) < 0.5).to(torch.uint8)
+    draws.tie = torch.randint(0, 2**32, draws.tie.shape, generator=gen, device=cuda_device)
+    before = kernels.LAUNCHES["expr_multigen"]
+    for mode in (dict(seed=seed), dict(draws=draws)):
+        got = fs.multigen_breed(g, s, geom, parity, steps, None, **mode, **kw)
+        want = fs.multigen_breed_reference(g, s, geom, parity, steps, **mode, **kw)
+        torch.cuda.synchronize()
+        if program.transcendental and steps > 1:
+            continue  # a last-ulp score difference may reorder the next step's ranks
+        if program.transcendental:
+            assert int(_ulps(got[0], want[0]).max()) <= 2
+            torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5 * L)
+        else:
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+        assert bool(torch.isinf(got[1][P:]).all())
+    assert kernels.LAUNCHES["expr_multigen"] == before + 2
+
+
+@pytest.mark.cuda
+def test_expr_multigen_kernel_rejects_bad_arguments(cuda_device):
+    from libpga_tpu_torch.ops import breed_expr as bx
+
+    geom = fs.resolve_geometry(1024, 20, multigen=True)
+    g = torch.rand((geom.Pp, 20), device=cuda_device)
+    s = torch.rand(geom.Pp, device=cuda_device)
+    seed = torch.tensor([1], dtype=torch.int64, device=cuda_device)
+    mp = torch.tensor([0.01, 0.0], device=cuda_device)
+    mx = bx.mutate_from_expression("where(r < rate, r2, g)")
+    kw = dict(seed=seed, mparams=mp, obj_id=onemax.fused_id)
+    with pytest.raises(ValueError, match="alias"):
+        kernels.expr_multigen_cuda(g, s, geom, 0, 2, float("inf"), mutate=mx, out=g, **kw)
+    with pytest.raises(ValueError, match="no expression hook"):
+        kernels.expr_multigen_cuda(g, s, geom, 0, 2, float("inf"), **kw)
+    with pytest.raises(ValueError, match="rowwise fused"):
+        kernels.expr_multigen_cuda(g, s, geom, 0, 2, float("inf"), mutate=mx, seed=seed, mparams=mp,
+                                   obj_id=0)
+    draws = fs.zero_draws(geom.G, geom.K, 20, mx, cuda_device, steps=1)
+    with pytest.raises(ValueError, match="sub-generations"):
+        kernels.expr_multigen_cuda(g, s, geom, 0, 2, float("inf"), draws=draws, mparams=mp,
+                                   obj_id=onemax.fused_id, mutate=mx)
+
+
+@pytest.mark.cuda
+def test_engine_on_card_runs_expressions_several_generations_per_launch(cuda_device):
+    from libpga_tpu_torch import PGA, PGAConfig
+    from libpga_tpu_torch import objectives as po
+
+    pga = PGA(seed=0, config=PGAConfig(generations_per_launch=8))
+    h = pga.create_population(4096, 6)
+    pga.set_objective(po.default_knapsack)
+    kernels.reset_launches()
+    assert pga.run(30) == 30
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["expr_multigen"] == 4 and sum(kernels.LAUNCHES.values()) == 4
+    pop = pga.population(h)
+    torch.testing.assert_close(pop.scores, pga._objective(pop.genomes), rtol=0, atol=1e-4)
+    assert pga.get_best_with_score(h)[1] == 285.0
