@@ -116,9 +116,34 @@ Phases, each printing one line; any failure exits non-zero:
      of expr_multigen_kernel equal ceil(gens / 8) and nothing else
      launches; scores are the genomes' objective; the knapsack reaches
      285) beside the same run at one generation per launch, then a
-     torch.profiler window over as many generations.
+     torch.profiler window over as many generations;
+ 17. order_expr_compare: order crossover in the expression breed
+     (csrc/expr_breed.cu's expr_order_kernel) against its plain version on
+     the same inputs, injected and Philox draws: the Euclidean tour
+     written as an expression (TOUR_EXPR over random_tsp_coords(200,
+     seed=2)) with swap and with the creep expression at 65,536x200 (and
+     padded at 1,000x200), the coordinate TSP with the creep expression
+     on its random keys at 8,192x1,000: genomes equal, scores within
+     EXPR_RTOL / EXPR_ATOL_PER_GENE * L (the tour) or TSP_RTOL, -inf on
+     pad rows. Times both beside the bound and the walk's chain;
+ 18. order_multigen_compare: the multi-generation kernels' order case
+     (expr_multigen_kernel<true> with the tour at 65,536x200,
+     multigen_breed_kernel<true> with OneMax at 40,000x100) against the
+     plain version, injected and Philox draws, at 0, 1, 3 and 8 steps,
+     elites and half the groups frozen: genomes and scores equal. Times
+     the kernel at 1 and 8 steps and the plain version at 8;
+ 19. order_runs: PGA.run through pga_init, pga_create_population,
+     pga_set_objective_function, pga_set_crossover_function
+     (order_preserving_crossover) and pga_set_mutate_function: the tour
+     with make_swap_mutate(0.5) at 65,536x200 for 200 generations at T = 1
+     and at T = 8, the coordinate TSP with the creep expression at
+     8,192x1,000 for 200 at T = 1 (the best must rise), OneMax with
+     elitism 2 at 40,000x100 at T = 8 beside T = 1 (the best must not
+     fall): launches equal ceil(gens / T) and nothing else launches;
+     gens/s, the best tour's distinct cities (reported: the tour
+     expression has no duplicate penalty) and a torch.profiler window.
 The earlier OneMax, GP and TSP runs keep their depths; the whole script
-takes about three minutes on the card. Then one JSON line of per-kernel numbers, the card's name and power
+takes about two minutes on the card. Then one JSON line of per-kernel numbers, the card's name and power
 limit, and last the result line. With --log FILE every line printed
 also goes to that file (a tool that shows only the end of a long output
 can bring the file back whole).
@@ -188,6 +213,29 @@ EXPR_MG_GENS = {"nk-4M": 50, "trap-1M": 50, "trap-40k": 200, "knapsack": 30,
                 "creep-40k": 200, "creep-1M": 200, "one_point-40k": 200, "one_point-1M": 200}
 # A breeding hook with transcendentals (sqrt, log, cos): genes within 2 ulp.
 GAUSS_EXPR = "where(r < rate, g + sigma * sqrt(-2 * log(r2 + 1e-7)) * cos(6.2831855 * q), g)"
+# Order crossover with expression hooks and at several generations per
+# launch. The Euclidean tour cost of libpga_tpu/objectives/expr.py's
+# docstring, over random_tsp_coords(200, seed=2): kroA200's city count.
+TOUR_EXPR = ("c = floor(g * L);"
+             "x = gather(X, c); y = gather(Y, c);"
+             "dx = roll(x, 1) - x; dy = roll(y, 1) - y;"
+             "-sum(where(i < L - 1, sqrt(dx*dx + dy*dy + 1e-12), 0))")
+ORDER_T = 8
+ORDER_GENS = 200
+# workload -> (P, L, geometry (layout, K, D, S) at T = 1 and at T = 8)
+ORDER_GEOMETRY = {
+    "tour": ((65_536, 200), ("riffle", 256, 1, 256), ("riffle", 256, 1, 256)),
+    "tsp_creep": ((8192, 1000), ("riffle", 256, 1, 32), None),
+    "onemax": ((40_000, 100), ("riffle", 256, 1, 157), ("riffle", 256, 1, 157)),
+}
+ORDER_REPLACES = {
+    # _breed_kernel with _deme_child's order branch (:653) then a callable
+    # mutation (:750) or a fused kernel_rowwise / gene-major TSP score
+    "expr_order": "libpga_tpu/ops/pallas_step.py:946",
+    # _multigen_kernel with order_refs (:1548) handed to _deme_child (:1659)
+    "expr_multigen_order": "libpga_tpu/ops/pallas_step.py:1460",
+    "multigen_order": "libpga_tpu/ops/pallas_step.py:1460",
+}
 # Philox statistics bands (n ~ 1e6 children, 1e8 genes): the standard
 # errors are ~2e-4 or smaller, so these bands are > 5 sigma wide.
 MEAN_RANK_BAND = (1 / 3 - 0.004, 1 / 3 + 0.002)  # E = 1/3 - O(1/K)
@@ -1130,14 +1178,23 @@ def expr_kinds(port, objective, crossover, mutate):
 
 
 def expr_programs(port):
-    """The generated units of every expression workload, for the build."""
+    """The generated units of every workload with an expression hook (and
+    of the tour with the creep mutation, which order_expr_compare runs),
+    for the build."""
     from libpga_tpu_torch.ops import expr_cuda
+    from libpga_tpu_torch.ops.breed_expr import mutate_from_expression
     from libpga_tpu_torch.ops.fused_step import is_expression
 
     progs = []
-    loads = [*expr_workloads().values(), *expr_multigen_workloads().values()]
+    order = order_workloads()
+    tour_creep = (order["tour"][0], order["tour"][1],
+                  mutate_from_expression(CREEP, rate=0.05, sigma=0.1))
+    loads = [*expr_workloads().values(), *expr_multigen_workloads().values(),
+             *((None, None, *w) for w in (*order.values(), tour_creep))]
     for P, L, objective, crossover, mutate in loads:
         c, m, _, o, _ = expr_kinds(port, objective, crossover, mutate)
+        if not (is_expression(c) or is_expression(m) or o is not None):
+            continue
         prog = expr_cuda.program_for(
             c if is_expression(c) else None, m if is_expression(m) else None, o)
         if all(prog is not q for q in progs):
@@ -1582,6 +1639,333 @@ def phase_expr_multigen_runs(port, kernels, results):
         torch.cuda.empty_cache()
 
 
+def order_workloads():
+    """name -> (objective, crossover, mutate) of the order-crossover
+    slice, as PGA.run gets them: the tour expression with swap mutation
+    (cases 1 and 3), the coordinate TSP with the creep expression on its
+    random keys (case 2), OneMax with swap mutation (case 4)."""
+    from libpga_tpu_torch import objectives as obj
+    from libpga_tpu_torch.ops.breed_expr import mutate_from_expression
+    from libpga_tpu_torch.ops.crossover import order_preserving_crossover
+    from libpga_tpu_torch.ops.mutate import make_swap_mutate
+
+    xy = obj.random_tsp_coords(ORDER_GEOMETRY["tour"][0][1], seed=2)
+    tsp = obj.make_tsp_coords(obj.random_tsp_coords(ORDER_GEOMETRY["tsp_creep"][0][1], seed=2),
+                              duplicate_mode="genes")
+    return {
+        "tour": (obj.from_expression(TOUR_EXPR, X=xy[:, 0], Y=xy[:, 1]),
+                 order_preserving_crossover, make_swap_mutate(0.5)),
+        "tsp_creep": (tsp, order_preserving_crossover,
+                      mutate_from_expression(CREEP, rate=0.05, sigma=0.1)),
+        "onemax": (obj.onemax, order_preserving_crossover, make_swap_mutate(0.5)),
+    }
+
+
+def order_hooks_bound(geom, program, n_cities: int, steps: int = 1) -> tuple:
+    """Least time (ms) for one order breed with hooks and what sets it:
+    the larger of the bytes it must move whatever ``steps`` is (genomes
+    and scores read once and written once, the constant buffer and the
+    coordinates read once) over the memory rate, and per sub-generation
+    its float32 operations (the walk's two decodes per gene, a select
+    and every per-gene statement of the generated hooks, the coordinate
+    TSP's ten per gene, K*log2(K) compares per deme at T > 1) over the
+    float32 rate. Also returns each walker's dependent chain per
+    sub-generation: L walk steps, plus L scoring steps for the
+    coordinate TSP."""
+    L = geom.L
+    nbytes = (2 * geom.Pp * L + 2 * geom.Pp) * 4 + min(n_cities, L) * 8
+    per_gene = 4 + (program.source.count("const float t") if program is not None else 0)
+    per_gene += 10 if n_cities else 0
+    ops = steps * geom.Pp * L * per_gene
+    if steps > 1:
+        ops += steps * geom.K * math.log2(geom.K) * geom.G
+    if program is not None:
+        nbytes += program.consts.nbytes
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            L * (2 if n_cities else 1))
+
+
+def order_kinds(port, name):
+    """(P, L, objective, mutate kind, mparams, expression objective,
+    builtin objective id, program or None) of an order workload."""
+    from libpga_tpu_torch.ops import expr_cuda
+    from libpga_tpu_torch.ops.fused_step import is_expression
+
+    (P, L), _, _ = ORDER_GEOMETRY[name]
+    objective, crossover, mutate = order_workloads()[name]
+    cross, mut, mparams, expr_obj, obj_id = expr_kinds(port, objective, crossover, mutate)
+    assert cross == "order"
+    program = None
+    if is_expression(mut) or expr_obj is not None:
+        program = expr_cuda.program_for(None, mut if is_expression(mut) else None, expr_obj)
+    return P, L, objective, mut, mparams, expr_obj, obj_id, program
+
+
+def order_draws(fs, geom, mut, gen, device, steps=None):
+    """Random injected draws of an order breed: selection, mutation, the
+    walk's fallback plane, the expression planes the hooks read and, for
+    ``steps``, the tie words of every sub-generation."""
+    import torch
+
+    z = fs.zero_draws(geom.G, geom.K, geom.L, mut, device, "order", steps=steps)
+    for f in ("sel_u", "mut_u", "fill", "expr_gene", "expr_row", "gauss"):
+        if getattr(z, f) is not None:
+            setattr(z, f, torch.rand(getattr(z, f).shape, generator=gen, device=device))
+    if z.tie is not None:
+        z.tie = torch.randint(0, 2**32, z.tie.shape, generator=gen, device=device)
+    return z
+
+
+def order_population(objective, geom, gen, device):
+    """Random keys with zero pad rows and their scores, -inf on pads."""
+    import torch
+
+    g = torch.rand((geom.Pp, geom.L), generator=gen, device=device)
+    g[geom.P:] = 0.0
+    s = torch.full((geom.Pp,), -torch.inf, device=device)
+    s[:geom.P] = objective(g[:geom.P])
+    return g, s
+
+
+def phase_order_expr_compare(port, fs, device, results):
+    """The expression order kernel (cases 1-2) against its plain version
+    on the same inputs, injected and Philox draws; times both at the full
+    shapes beside the bound and the walk's chain."""
+    import torch
+
+    from libpga_tpu_torch.ops.breed_expr import mutate_from_expression
+
+    # (case, workload, P, L, mutation override): P None = the workload's
+    # shape, timed
+    cases = [
+        ("tour-65k", "tour", None, None, None),
+        ("tour-65k-creep", "tour", None, None, "creep"),
+        ("tour-1000-padded", "tour", 1000, None, None),
+        ("tsp_creep-8k", "tsp_creep", None, None, None),
+    ]
+    for name, load, P, _, override in cases:
+        P0, L, objective, mut, mparams, expr_obj, obj_id, program = order_kinds(port, load)
+        if override == "creep":
+            from libpga_tpu_torch.ops import expr_cuda
+
+            mut = mutate_from_expression(CREEP, rate=0.05, sigma=0.1)
+            mparams = (0.05, 0.1)
+            program = expr_cuda.program_for(None, mut, expr_obj)
+        timed = P is None
+        P = P or P0
+        geom = fs.resolve_geometry(P, L, crossover="order", const_carrying=expr_obj is not None)
+        if timed:
+            check((geom.layout, geom.K, geom.D, geom.S) == ORDER_GEOMETRY[load][1],
+                  f"order {name}: geometry {geom}")
+        gen = torch.Generator(device=device).manual_seed(P + L)
+        g, s = order_population(objective, geom, gen, device)
+        ranks = fs.compute_ranks(s, geom, 0, fs.draw_tie_words(gen, geom.Pp, device))
+        kw = dict(crossover="order", mutate=mut, obj_id=obj_id, objective=expr_obj,
+                  mparams=torch.tensor(list(mparams), dtype=torch.float32, device=device))
+        n_cities = 0
+        if obj_id:
+            n_cities = objective.coords.shape[0]
+            kw.update(coords=objective.coords.to(device), penalty=objective.penalty)
+        rtol, atol = (TSP_RTOL, 0.0) if n_cities else (EXPR_RTOL, EXPR_ATOL_PER_GENE * L)
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+        errs = []
+        for mode, draws in (("injected", order_draws(fs, geom, mut, gen, device)), ("philox", None)):
+            if draws is None:
+                got = fs.deme_breed(g, ranks, geom, 0, seed=seed, **kw)
+                draws = fs.philox_draws(seed, geom.G, geom.K, L, mut, "order")
+            else:
+                got = fs.deme_breed(g, ranks, geom, 0, draws=draws, **kw)
+            want = fs.deme_breed_reference(g, ranks, geom, 0, draws, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], want[0]), f"order {name} {mode}: genomes differ")
+            check(bool(torch.isinf(got[1][P:]).all()) and bool(torch.isfinite(got[1][:P]).all()),
+                  f"order {name} {mode}: pad rows not -inf or real rows not finite")
+            a, b = got[1][:P], want[1][:P]
+            check(bool(torch.isclose(a, b, rtol=rtol, atol=atol).all()),
+                  f"order {name} {mode}: score error {float((a - b).abs().max())}")
+            errs.append(float((a - b).abs().max()))
+            del got, want, draws
+        line = {"phase": "order_expr_compare", "case": name, "workload": load, "shape": [P, L],
+                "layout": geom.layout, "K": geom.K, "D": geom.D, "Pp": geom.Pp,
+                "genomes_equal": True, "max_abs_err": max(errs), "score_rtol": rtol,
+                "score_atol": atol, "obj_rows": program.obj_rows}
+        r = results.setdefault(f"expr_order[{load}]", {})
+        r["max_abs_err"] = max(r.get("max_abs_err", 0.0), max(errs))
+        if timed and override is None:
+            out = torch.empty_like(g)
+            ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seed, out=out, **kw), 20)
+            plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
+                g, ranks, geom, 0, fs.philox_draws(seed, geom.G, geom.K, L, mut, "order"), **kw), 2)
+            bound_ms, bound_by, chain = order_hooks_bound(geom, program, n_cities)
+            line.update(kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                        chain_steps=chain, ms_over_bound=ms / bound_ms)
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     chain_steps=chain, shape=[P, L], K=geom.K)
+        print(json.dumps(line), flush=True)
+        del g, s, ranks
+        torch.cuda.empty_cache()
+
+
+def phase_order_multigen_compare(port, fs, device, results):
+    """The multi-generation kernels' order case (3: the expression kernel
+    with the tour; 4: the builtin kernel with OneMax) against the plain
+    version, injected and Philox draws, at 0, 1, 3 and 8 steps, with
+    per-deme elites and half the groups frozen at entry; times the kernel
+    at 1 and 8 steps and the plain version at 8 at the full shapes."""
+    import torch
+
+    # (case, workload, steps, elitism, freeze, P override)
+    cases = [
+        ("tour-65k-steps8", "tour", 8, 0, False, None),
+        ("tour-65k-steps3-e2-freeze", "tour", 3, 2, True, None),
+        ("tour-65k-steps1-e2", "tour", 1, 2, False, None),
+        ("tour-4096-steps0", "tour", 0, 0, False, 4096),
+        ("onemax-40k-steps8", "onemax", 8, 0, False, None),
+        ("onemax-40k-steps3-e2-freeze", "onemax", 3, 2, True, None),
+        ("onemax-40k-steps1", "onemax", 1, 0, False, None),
+        ("onemax-1000-steps0", "onemax", 0, 0, False, 1000),
+    ]
+    for name, load, steps, e, freeze, P in cases:
+        P0, L, objective, mut, mparams, expr_obj, obj_id, program = order_kinds(port, load)
+        timed = P is None and steps == ORDER_T
+        P = P or P0
+        geom = fs.resolve_geometry(P, L, crossover="order", multigen=True, elitism=e,
+                                   const_carrying=expr_obj is not None)
+        if P == P0:
+            check((geom.layout, geom.K, geom.D, geom.S) == ORDER_GEOMETRY[load][2],
+                  f"order multigen {name}: geometry {geom}")
+        gen = torch.Generator(device=device).manual_seed(P + L + steps)
+        g, s = order_population(objective, geom, gen, device)
+        kw = dict(crossover="order", mutate=mut, obj_id=obj_id, elitism=e,
+                  mparams=torch.tensor(list(mparams), dtype=torch.float32, device=device))
+        if expr_obj is not None:
+            kw.update(objective=expr_obj)
+        target, frozen = None, None
+        if freeze:
+            read, _ = geom.row_maps(0, device)
+            best = torch.where(read < P, s[read], -torch.inf).reshape(geom.S, -1).amax(dim=1)
+            target = float(best.median())
+            frozen = int((best >= target).sum())
+            check(0 < frozen < geom.S, f"order multigen {name}: {frozen} of {geom.S} frozen")
+        tgt = math.inf if target is None else target
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+        errs = []
+        for mode in (dict(draws=order_draws(fs, geom, mut, gen, device, steps=max(steps, 1))),
+                     dict(seed=seed)):
+            tag = f"order multigen {name} {'injected' if 'draws' in mode else 'philox'}"
+            got = fs.multigen_breed(g, s, geom, 0, steps, target, **mode, **kw)
+            want = fs.multigen_breed_reference(g, s, geom, 0, steps, tgt, **mode, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], want[0]), f"{tag}: genomes differ")
+            check(torch.equal(got[1], want[1]) and bool(torch.isinf(got[1][P:]).all()),
+                  f"{tag}: scores differ")
+            errs.append(0.0)
+            if steps:
+                check(not torch.equal(got[0], g), f"{tag}: nothing bred")
+            del got, want
+        line = {"phase": "order_multigen_compare", "case": name, "workload": load,
+                "shape": [P, L], "steps": steps, "elitism": e, "target": target,
+                "groups_frozen_at_entry": frozen, "layout": geom.layout, "K": geom.K,
+                "D": geom.D, "S": geom.S, "Pp": geom.Pp, "genomes_equal": True,
+                "scores_equal": True}
+        kernel = "expr_multigen_order" if expr_obj is not None else "multigen_order"
+        r = results.setdefault(f"{kernel}[{load}]", {})
+        r["max_abs_err"] = max(r.get("max_abs_err", 0.0), max(errs))
+        if timed:
+            out = torch.empty_like(g)
+            work = [torch.empty_like(g), torch.empty_like(g)]
+            ms = {T: cuda_ms(lambda: fs.multigen_breed(
+                g, s, geom, 0, T, None, seed=seed, out=out, work=work, **kw), 20)
+                for T in (1, ORDER_T)}
+            plain_ms = cuda_ms(lambda: fs.multigen_breed_reference(
+                g, s, geom, 0, ORDER_T, math.inf, seed=seed, **kw), 1)
+            bound_ms, bound_by, chain = order_hooks_bound(geom, program, 0, ORDER_T)
+            line.update(kernel_ms_by_steps=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, chain_steps_per_generation=chain,
+                        ms_over_bound=ms[ORDER_T] / bound_ms)
+            r.update(ms=ms[ORDER_T], ms_at_1_step=ms[1], plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, chain_steps=chain * ORDER_T, shape=[P, L], K=geom.K)
+            del out, work
+        print(json.dumps(line), flush=True)
+        del g, s
+        torch.cuda.empty_cache()
+
+
+def phase_order_runs(port, kernels, results):
+    """PGA.run with order crossover through the pga_* API: the tour
+    expression at 65,536x200 at T = 1 and T = 8, the coordinate TSP with
+    the creep expression at 8,192x1,000 at T = 1 (the best must rise),
+    OneMax at 40,000x100 with elitism 2 at T = 8 beside T = 1 (a
+    permutation's genes cannot beat a random genome's sum: the best must
+    not fall); launches, gens/s, the best, a profile."""
+    import torch
+
+    # (workload, generations per launch, the counter it must launch, key)
+    runs = [
+        ("tour", 1, "expr_order", "expr_order[tour]"),
+        ("tour", ORDER_T, "expr_multigen_order", "expr_multigen_order[tour]"),
+        ("tsp_creep", 1, "expr_order", "expr_order[tsp_creep]"),
+        ("onemax", ORDER_T, "multigen_order", "multigen_order[onemax]"),
+        ("onemax", 1, "order", None),
+    ]
+    loads = order_workloads()
+    for load, T, counter, key in runs:
+        (P, L), geo1, geo8 = ORDER_GEOMETRY[load]
+        objective, crossover, mutate = loads[load]
+        elitism = 2 if load == "onemax" else 0
+        pga = port.pga_init(seed=17, config=port.PGAConfig(
+            generations_per_launch=None if T == 1 else T, elitism=elitism))
+        h = port.pga_create_population(pga, P, L)
+        port.pga_set_objective_function(pga, objective)
+        port.pga_set_crossover_function(pga, crossover)
+        port.pga_set_mutate_function(pga, mutate)
+        check(pga.uses_deme_kernel(P, L), f"order {load}: not on the deme path")
+        if T > 1:
+            geom = pga._run_fn(P, L)[0].geom
+            check((geom.layout, geom.K, geom.D, geom.S) == geo8, f"order {load}: geometry {geom}")
+        start = objective(pga.population(h).genomes)
+        start_best = float(start.max())
+        _, start_dups = tour(pga.population(h).genomes[int(torch.argmax(start))])
+        check(port.pga_run(pga, T) == T, f"order {load}: warm-up")
+        kernels.reset_launches()
+        ran, seconds = timed_run(port, pga, ORDER_GENS)
+        launches = dict(kernels.LAUNCHES)
+        genome, best = pga.get_best_with_score(h)
+        _, dups = tour(genome)
+        pop = pga.population(h)
+        rescored = objective(pop.genomes)
+        want = -(-ORDER_GENS // T)
+        line = {"phase": "order_run", "workload": load, "shape": [P, L],
+                "generations_per_launch": T, "elitism": elitism, "gens": ran, "launches": launches,
+                "gens_per_s": ran / seconds, "ms_per_gen": 1e3 * seconds / ran,
+                "start_best": start_best, "best": best,
+                "start_best_distinct_cities": L - start_dups, "best_distinct_cities": L - dups}
+        if key is not None:
+            r = results.setdefault(key, {})
+            line.update(kernel_ms_per_launch=r.get("ms"), bound_ms_per_launch=r.get("bound_ms"),
+                        chain_steps_per_launch=r.get("chain_steps"))
+        print(json.dumps(line), flush=True)
+        check(ran == ORDER_GENS, f"order {load} T={T}: ran {ran} generations")
+        check(launches[counter] == want and sum(launches.values()) == want,
+              f"order {load} T={T}: launches {launches} for {ran} generations")
+        check(best >= start_best if elitism else best > start_best,
+              f"order {load} T={T}: best {start_best} -> {best}")
+        check(bool(torch.isfinite(pop.scores).all()) and bool(torch.isclose(
+            pop.scores, rescored, rtol=EXPR_RTOL, atol=EXPR_ATOL_PER_GENE * L).all()),
+              f"order {load} T={T}: scores are not the genomes' objective")
+        if key is not None:
+            prof = profile_generations(port, pga, 1e3 * seconds / ran, ORDER_GENS)
+            print(json.dumps({"phase": "order_profile", "workload": load, "shape": [P, L],
+                              "generations_per_launch": T, **prof}), flush=True)
+            r.update(launches=launches[counter], ms_per_gen=line["ms_per_gen"],
+                     gens_per_s=line["gens_per_s"], device_busy_share=prof["device_busy_share"],
+                     best=best, best_distinct_cities=L - dups)
+        port.pga_deinit(pga)
+        del pga, pop, rescored
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1646,6 +2030,10 @@ def drive(torch, port, onemax, fs, kernels) -> int:
     expr_mg_results = {}
     phase_expr_multigen_compare(port, fs, device, expr_mg_results)
     phase_expr_multigen_runs(port, kernels, expr_mg_results)
+    order_results = {}
+    phase_order_expr_compare(port, fs, device, order_results)
+    phase_order_multigen_compare(port, fs, device, order_results)
+    phase_order_runs(port, kernels, order_results)
 
     entries = []
     for layout, r in results.items():
@@ -1720,6 +2108,24 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "ms_at_1_step": r["ms_at_1_step"], "ms_per_gen": r["ms_per_gen"],
             "one_per_launch_ms_per_gen": r["one_per_launch_ms_per_gen"],
             "device_busy_share": r["device_busy_share"], "best": r["best"],
+        })
+    for key, r in order_results.items():
+        # ms, plain_ms, bound and launches at the workload's full shape;
+        # the multigen entries at T = 8.
+        kernel = key.split("[")[0]
+        entries.append({
+            "name": key, "route": "cuda",
+            "source": "libpga_tpu_torch/csrc/" + (
+                "deme_breed.cu" if kernel == "multigen_order" else "expr_breed.cu"),
+            "replaces": ORDER_REPLACES[kernel], "also_replaces": TSP_REPLACES,
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "shape": r["shape"], "K": r["K"],
+            "steps": 1 if kernel == "expr_order" else ORDER_T,
+            "chain_steps": r["chain_steps"], "ms_at_1_step": r.get("ms_at_1_step"),
+            "ms_per_gen": r["ms_per_gen"], "gens_per_s": r["gens_per_s"],
+            "device_busy_share": r["device_busy_share"], "best": r["best"],
+            "best_distinct_cities": r["best_distinct_cities"],
         })
     print(json.dumps({"kernels": entries}))
     print(smi)

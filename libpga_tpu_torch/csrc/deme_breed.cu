@@ -2,7 +2,7 @@
 // deme_breed_kernel (one generation, uniform crossover), order_breed_kernel
 // (one generation, order crossover and the fused TSP score) and, at the end
 // of this file, multigen_breed_kernel (up to T generations per launch with
-// the ranks computed inside the kernel).
+// the ranks computed inside the kernel; uniform or order crossover).
 //
 // deme_breed_kernel replaces, in libpga_tpu/ops/pallas_step.py:
 //   _pp_breed_kernel (ping-pong row maps, parity 0 and 1),
@@ -66,9 +66,11 @@ namespace {
 // !may_mutate: an elite copy) and sums the objective's terms of the child as
 // written: each lane adds its genes l = lane, lane+32, ... in that order,
 // then the lanes combine through the warp_sum butterfly; the plain version
-// (fused_step.warp_order_scores) sums in the same order. Returns the sums in
-// `a` and `b` on every lane.
-template <bool LDG>
+// (fused_step.rowwise_scores(warp_order=True)) sums in the same order.
+// Returns the sums in `a` and `b` on every lane. ORDER: the child was walked
+// already (p1 == p2 == out, or an elite's parent): no crossover bits are
+// drawn, every gene is p1's.
+template <bool LDG, bool ORDER = false>
 __device__ __forceinline__ void breed_genes(
     const BreedCtx& cx, const Draws& dr, const float* p1, const float* p2, float* out,
     ChildRand r, int k, int g, uint32_t t, int lane, size_t child, bool may_mutate,
@@ -108,7 +110,9 @@ __device__ __forceinline__ void breed_genes(
     if (l3 < L) finish(l3, c3);
   };
 
-  if (cx.philox_mode) {
+  if constexpr (ORDER) {
+    for (int base = 0; base < L; base += 128) tile(base, 0u, 0u, 0u, 0u);
+  } else if (cx.philox_mode) {
     uint4 w = r.w;
     for (int base = 0; base < cx.ncalls; base += 32) {
       if (base) {
@@ -233,7 +237,9 @@ __global__ void __launch_bounds__(THREADS) deme_breed_kernel(
 // visited-city bitmask is ceil(L/32) words in shared memory laid out
 // [word][child], so a warp's lanes hit distinct banks; the coordinates (the
 // first min(C, L) cities, the only ones a decode in [0, L) reaches) are staged
-// in shared memory as float2 and gathered exactly. Parent reads and child
+// in shared memory as float2 and gathered exactly. The walk (order_walk) and
+// the score (tsp_walk_score) are breed_core.cuh's, which the expression and
+// multi-generation kernels' order cases share. Parent reads and child
 // writes are per-thread strided (each lane its own row): the lines of a row
 // are reused from L1 over 32 steps, and at 8,192x1,000 the 32.8 MB population
 // stays in the 50 MB L2. Coalescing them through shared-memory tiles is later
@@ -253,8 +259,6 @@ __global__ void __launch_bounds__(THREADS) deme_breed_kernel(
 // mut_u and gauss. --fmad=false and IEEE sqrtf (no fast math) keep the
 // selection and the tour arithmetic rounding as torch does.
 
-constexpr int ORDER_THREADS = 64;  // children per block
-
 struct OrderDraws {
   const float* sel_u;     // (G, K, 2)
   const float* fill;      // (G, K, L)
@@ -262,11 +266,6 @@ struct OrderDraws {
   const float* gauss;     // (3, G, K, L)
   const long long* seed;  // production mode when non-null
 };
-
-__device__ __forceinline__ int decode_city(float g, int L) {
-  const int c = (int)floorf(g * (float)L);
-  return min(max(c, 0), L - 1);
-}
 
 __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
     const float* __restrict__ gin, float* __restrict__ gout, float* __restrict__ sout,
@@ -332,28 +331,8 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
   const bool fire = mutate == MUT_SWAP ? mu2 < rate : mu1 < rate;
   const size_t plane = (size_t)G * K * L;
 
-  for (int w = 0; w < W; ++w) vis[w * ORDER_THREADS] = 0u;
-#pragma unroll 4
-  for (int l = 0; l < L; ++l) {
-    const float a = __ldg(p1 + l), b = __ldg(p2 + l);
-    const int c1 = decode_city(a, L), c2 = decode_city(b, L);
-    unsigned* w1 = vis + (c1 >> 5) * ORDER_THREADS;
-    unsigned* w2 = vis + (c2 >> 5) * ORDER_THREADS;
-    const unsigned m1 = 1u << (c1 & 31), m2 = 1u << (c2 & 31);
-    float c;
-    if (!(*w1 & m1)) {
-      c = a;
-      *w1 |= m1;
-    } else if (!(*w2 & m2)) {
-      c = b;
-      *w2 |= m2;
-    } else if (philox_mode) {
-      const uint4 z = philox(k0, k1, make_uint4(k, g, STREAM_FILL + (l >> 2), 0u));
-      const int j = l & 3;
-      c = to_uniform(j == 0 ? z.x : j == 1 ? z.y : j == 2 ? z.z : z.w);
-    } else {
-      c = dr.fill[child * L + l];
-    }
+  // Point and gaussian mutation apply per gene as the walk writes it.
+  auto mutate_gene = [=](int l, float c) {
     if (mutate == MUT_POINT) {
       if (fire && l == pos) c = mu2;
     } else if (mutate == MUT_GAUSSIAN) {
@@ -374,8 +353,10 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
       const float m = fminf(fmaxf(c + sigma * normal, 0.0f), U1_HI);
       if (gate < rate) c = m;
     }
-    out[l] = c;
-  }
+    return c;
+  };
+  const FillSource fill{philox_mode, k0, k1, k, g, 0u, philox_mode ? nullptr : dr.fill + child * L};
+  order_walk<true>(p1, p2, out, L, vis, ORDER_THREADS, fill, mutate_gene);
   if (mutate == MUT_SWAP && fire) {
     const float a = out[pos], b = out[pj];
     out[pos] = b;
@@ -385,24 +366,7 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
 
   float score = 0.0f;
   if (obj == OBJ_TSP) {
-    for (int w = 0; w < W; ++w) vis[w * ORDER_THREADS] = 0u;
-    float xp = 0.0f, yp = 0.0f, total = 0.0f, dups = 0.0f;
-#pragma unroll 4
-    for (int l = 0; l < L; ++l) {
-      const int c = decode_city(out[l], L);
-      const float2 p = xy[min(c, C - 1)];
-      if (l > 0) {
-        const float dx = p.x - xp, dy = p.y - yp;
-        total += sqrtf(dx * dx + dy * dy + 1e-12f);
-      }
-      unsigned* w = vis + (c >> 5) * ORDER_THREADS;
-      const unsigned m = 1u << (c & 31);
-      if (*w & m) dups += 1.0f;
-      *w |= m;
-      xp = p.x;
-      yp = p.y;
-    }
-    score = -(total + penalty * dups);
+    score = tsp_walk_score(out, L, vis, ORDER_THREADS, xy, C, penalty);
   } else {
     float a = 0.0f, b = 0.0f;
     for (int l = 0; l < L; ++l) obj_add(obj, out[l], a, b);
@@ -475,6 +439,23 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
 // threads measured faster than 256 or 512 at every shape tried. Keeping a
 // K = 256 deme's two copies in shared memory is later work.
 //
+// Order crossover (multigen_breed_kernel<true>; _multigen_kernel's order_refs,
+// :1548, passed to _deme_child, :1659). D is 1 and the row map the riffle, as
+// in JAX. Each sub-generation, after the ranks, every thread walks one child
+// of the group at a time (breed_core.cuh's order_walk: its visited bitmask in
+// shared memory after the group's arrays, [word][walker]) straight into the
+// child's row of the work buffer or of gout; a block barrier; then one warp
+// per child reads that row back with plain loads, applies point / gaussian /
+// swap mutation and sums the score, as breed_genes<false, true>. An elite
+// child (k < elitism) is not walked: it is its rank-k parent verbatim, as
+// JAX sets elite rows to p1 after the walk. The fallback genes are stream
+// 0x20000000 + l/4 with t as the fourth counter word, or the injected (T, G,
+// K, L) plane. Bound: the bytes above, as for uniform crossover; but each
+// sub-generation holds every walker on a dependent chain of L steps through
+// its bitmask (order_breed_kernel's), and a K = 256 group walks on 256 of the
+// block's 1,024 threads, so at L = 200 that chain, not the bytes, is
+// expected to set the time.
+//
 // Randomness. Philox4x32-10 keyed by the launch seed, counter (k, g, stream,
 // t) with the streams of deme_breed_kernel and 0x60000000 for the tie word
 // (word x of the call); t = 0 reproduces the one-generation kernels' draws.
@@ -482,21 +463,24 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
 // sub-generations' draws are the same either way. Injected mode reads draw
 // tensors with a leading sub-generation axis.
 
+template <bool ORDER>
 __global__ void __launch_bounds__(MG_THREADS) multigen_breed_kernel(
     MultigenIO io, const float* __restrict__ mparams, Draws dr0, Geometry geo, Selection sel,
     int mutate, int obj, int elitism) {
   extern __shared__ long long mg_smem[];
-  const BreedCtx cx = breed_ctx(dr0, mparams, geo, mutate, obj);
+  BreedCtx cx = breed_ctx(dr0, mparams, geo, mutate, obj);
+  if (ORDER) cx.ncalls = 2;  // selection and mutation: no crossover bits
   const int lane = threadIdx.x & 31;
   auto breed_child = [&](const Draws& dr, uint32_t t, int g, int k, size_t child,
                          const float* p1, const float* p2, float* out, const ChildRand& r,
                          bool elite) {
     float a, b;
-    breed_genes<false>(cx, dr, p1, p2, out, r, k, g, t, lane, child, !elite, a, b);
+    breed_genes<false, ORDER>(cx, dr, p1, p2, out, r, k, g, t, lane, child, !elite, a, b);
     return obj_finish(obj, a, b, geo.L);
   };
-  multigen_group(io, geo, cx, dr0, sel, elitism, mg_smem, breed_child);
+  multigen_group<ORDER>(io, geo, cx, dr0, sel, elitism, mg_smem, breed_child);
 }
+
 
 }  // namespace
 
@@ -540,25 +524,27 @@ extern "C" int order_breed_launch(
   return (int)cudaGetLastError();
 }
 
+// cross_kind 0: uniform crossover (`cross` bits); 1: order crossover (`fill`
+// genes; D must be 1).
 extern "C" int multigen_breed_launch(
     const float* gin, const float* sin, float* gout, float* sout, float* work0, float* work1,
     int steps, float target, const float* mparams, const float* sel_u,
-    const unsigned char* cross, const float* mut_u, const float* gauss, const long long* tie,
-    const long long* seed, int P, int Pp, int L, int K, int G, int mode, int S, int D, int q,
-    int sel_kind, int tk, float sel_param, int mutate, int obj, int elitism, void* stream) {
-  if (D < 1 || D > MG_MAX_D) return (int)cudaErrorInvalidValue;
+    const unsigned char* cross, const float* fill, const float* mut_u, const float* gauss,
+    const long long* tie, const long long* seed, int P, int Pp, int L, int K, int G, int mode,
+    int S, int D, int q, int sel_kind, int tk, float sel_param, int cross_kind, int mutate,
+    int obj, int elitism, void* stream) {
+  if (D < 1 || D > MG_MAX_D || (cross_kind && D != 1)) return (int)cudaErrorInvalidValue;
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
   const Selection sel{sel_kind, tk, sel_param};
-  const Draws dr{sel_u, cross, mut_u, gauss, seed, tie};
+  const Draws dr{sel_u, cross, mut_u, gauss, seed, tie, fill};
   const MultigenIO io{gin, sin, gout, sout, work0, work1, steps, target};
-  // Keys, scores, row_of_rank and alive flags of the group's D*K rows.
-  const int smem = D * K * MG_ROW_BYTES;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        multigen_breed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  multigen_breed_kernel<<<S, MG_THREADS, smem, (cudaStream_t)stream>>>(
-      io, mparams, dr, geo, sel, mutate, obj, elitism);
-  return (int)cudaGetLastError();
+  // Keys, scores, row_of_rank and alive flags of the group's D*K rows, then
+  // (order crossover) the walkers' visited bitmasks.
+  const int W = D * K;
+  if (cross_kind)
+    return launch_with_smem(multigen_breed_kernel<true>, S, MG_THREADS,
+                            mg_rows_bytes(W) + mg_walk_bytes(W, L, MG_THREADS),
+                            (cudaStream_t)stream, io, mparams, dr, geo, sel, mutate, obj, elitism);
+  return launch_with_smem(multigen_breed_kernel<false>, S, MG_THREADS, (size_t)W * MG_ROW_BYTES,
+                          (cudaStream_t)stream, io, mparams, dr, geo, sel, mutate, obj, elitism);
 }

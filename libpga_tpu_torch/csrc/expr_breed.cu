@@ -1,7 +1,9 @@
 // expr_breed.cu: the deme breed with expression hooks (B6), a template, in
-// two kernels: expr_breed_kernel (one generation) and, at the end of this
-// file, expr_multigen_kernel (up to T generations per launch, B6 x B4); one
-// build of a hook set serves both. ops/expr_cuda.py writes the hooks (expr_crossover,
+// three kernels: expr_breed_kernel (one generation), expr_order_kernel (its
+// order-crossover case) and, at the end of this file, expr_multigen_kernel
+// (up to T generations per launch, B6 x B4, uniform or order crossover); one
+// build of a hook set serves all three: the crossover kind is a runtime
+// argument. ops/expr_cuda.py writes the hooks (expr_crossover,
 // expr_mutate, expr_objective) and the macros EXPR_CROSS, EXPR_MUT,
 // EXPR_OBJ, EXPR_OBJ_ROWS, EXPR_GENE_STREAMS and EXPR_ROW_STREAMS in front
 // of this text; ops/kernels.py compiles the whole with nvcc (-I csrc,
@@ -102,8 +104,11 @@ __device__ __forceinline__ void gene_draws(
 // through the read-only path: the one-generation kernel may, the
 // multi-generation kernel may not (its parents from t = 1 on are rows that
 // other warps of the block wrote earlier in the launch). Ends with the row
-// complete and the warp synchronised.
-template <bool LDG>
+// complete and the warp synchronised. ORDER: the child was walked already and
+// p1 is that row (p2 unused): every gene is p1's, no crossover bit is drawn,
+// and only the mutation runs (a unit with order crossover has no crossover
+// hook).
+template <bool LDG, bool ORDER = false>
 __device__ __forceinline__ void expr_child(
     const BreedCtx& cx, const Draws& dr, const ExprDraws& ex, const float* p1, const float* p2,
     float* grow, const ChildRand& r, int k, int g, uint32_t t, int lane, size_t child,
@@ -171,7 +176,9 @@ __device__ __forceinline__ void expr_child(
 #if EXPR_CROSS
   for (int i = 0; i < cx.ntiles; ++i) tile(i, 0u);
 #else
-  if (cx.philox_mode) {
+  if constexpr (ORDER) {
+    for (int i = 0; i < cx.ntiles; ++i) tile(i, 0u);
+  } else if (cx.philox_mode) {
     // Crossover bits of tile i: call 2 + i, computed 32 calls at a time
     // by the warp's lanes as deme_breed_kernel does.
     uint4 w = r.w;
@@ -281,6 +288,128 @@ __global__ void __launch_bounds__(THREADS) expr_breed_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// expr_order_kernel: one generation with order crossover and expression hooks
+// (cases of B5 x B6).
+//
+// Replaces, in libpga_tpu/ops/pallas_step.py, _breed_kernel (:946) where
+// _deme_child runs the order walk (:653-732) and then a callable mutation
+// (:750-763), or scores the children with a fused kernel_rowwise objective
+// that carries constants (:1143-1146) or with _tsp_eval_gene_major (:819). The
+// plain PyTorch version is fused_step.deme_breed_reference with
+// crossover="order" and an expression mutation or objective. Riffle row map
+// only (JAX pins D = 1 and the riffle for order crossover).
+//
+// What it computes, per child: order_breed_kernel's selection and walk
+// (breed_core.cuh's order_walk, fallback genes from stream 0x20000000 + l/4
+// or the injected plane), then the mutation: the hook per gene (its planes
+// and row words as expr_breed_kernel draws them, lane i of tile m computing
+// the call of genes 128*m + 4i .. 4i+3), else point / gaussian / swap; then
+// the score of the child as written: the objective hook, a builtin
+// rowwise-fused id, or the coordinate TSP (OBJ_TSP, gene-major, summed in l
+// order as order_breed_kernel sums it).
+//
+// Design. The walk is a sequential chain of L dependent steps, one thread per
+// child; the hooks run one warp per child with lanes over genes and a shared
+// child row. So a block holds ORDER_THREADS children of one deme (as
+// order_breed_kernel: 8,192x1,000 still fills ~128 SMs) and works in phases:
+// every thread walks its child straight into the child's physical row (its
+// visited bitmask [word][child] in shared memory); a block barrier; then each
+// of the two warps takes its children in turn, reads the walked row back with
+// plain loads into its shared row, mutates it there (swap exchanges two genes
+// there), writes it back with coalesced stores and scores it from the shared
+// row; for OBJ_TSP a second barrier and each thread scores its own child from
+// the row (tsp_walk_score, the coordinates staged as float2). Shared memory:
+// row_of_rank, the bitmasks, the coordinates and each warp's child and
+// objective rows.
+//
+// Bound. Bytes: the population read once and written once plus the scores,
+// (2*Pp*L + 2*Pp)*4 (0.0313 ms at 65,536x200, 0.0196 ms at 8,192x1,000 at 3.35
+// TB/s). Operations: a few per gene for the walk and the hooks, far below the
+// card's rate. As in order_breed_kernel, each thread's walk (and the TSP
+// score's) is a chain of L dependent steps through shared memory, and the
+// walked row makes a second round trip through L2: the chain, not the bytes,
+// is expected to set the time.
+
+__global__ void __launch_bounds__(ORDER_THREADS) expr_order_kernel(
+    const float* __restrict__ gin, float* __restrict__ gout, float* __restrict__ sout,
+    const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr, ExprDraws ex,
+    const float* __restrict__ cb, const float* __restrict__ coords, int C, float penalty,
+    Geometry geo, Selection sel, int mutate, int obj) {
+  extern __shared__ int smem[];
+  const int K = geo.K, L = geo.L, G = geo.G, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int nw = (L + 31) / 32;
+  const int per_deme = K / ORDER_THREADS;
+  const int g = blockIdx.x / per_deme, first = (blockIdx.x % per_deme) * ORDER_THREADS;
+  const int Cs = obj == OBJ_TSP ? min(C, L) : 0;
+  int* row_of_rank = smem;                                          // K
+  unsigned* vis = reinterpret_cast<unsigned*>(smem + K) + tid;      // [nw][ORDER_THREADS]
+  float2* xy = reinterpret_cast<float2*>(smem + K + nw * ORDER_THREADS);  // Cs
+  float* grow = reinterpret_cast<float*>(xy + Cs) + (size_t)warp * (1 + EXPR_OBJ_ROWS) * L;
+  float* erows = grow + L;
+
+  for (int i = tid; i < K; i += ORDER_THREADS) {
+    const int r = ranks[(size_t)g * K + i];
+    if (r >= 0 && r < K) row_of_rank[r] = i;
+  }
+  for (int i = tid; i < Cs; i += ORDER_THREADS)
+    xy[i] = make_float2(coords[2 * i], coords[2 * i + 1]);
+  __syncthreads();
+
+  const float V = (float)max(min(K, geo.P - g * K), 1);
+  BreedCtx cx = breed_ctx(dr, mparams, geo, mutate, obj);
+  cx.ncalls = 2;  // selection and mutation: no crossover bits
+
+  // Phase 1: this thread walks child `first + tid` into its physical row.
+  {
+    const int k = first + tid;
+    const size_t child = (size_t)g * K + k;
+    float su0, su1;
+    if (cx.philox_mode) {
+      const uint4 w = philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_SEL, 0u));
+      su0 = to_uniform(w.x);
+      su1 = to_uniform(w.y);
+    } else {
+      su0 = dr.sel_u[child * 2];
+      su1 = dr.sel_u[child * 2 + 1];
+    }
+    const int s1 = min(max(row_of_rank[winner_rank(winner_fraction(sel, su0), V)], 0), K - 1);
+    const int s2 = min(max(row_of_rank[winner_rank(winner_fraction(sel, su1), V)], 0), K - 1);
+    const FillSource fill{cx.philox_mode, cx.k0, cx.k1, k, g, 0u,
+                          cx.philox_mode ? nullptr : dr.fill + child * L};
+    order_walk<true>(gin + ((size_t)g * K + s1) * L, gin + ((size_t)g * K + s2) * L,
+                     gout + ((size_t)k * G + g) * L, L, vis, ORDER_THREADS, fill,
+                     [](int, float x) { return x; });
+  }
+  __syncthreads();
+
+  // Phase 2: one warp per child: mutation, write-back, score.
+  const bool warp_scored = EXPR_OBJ || (obj != OBJ_NONE && obj != OBJ_TSP);
+  for (int j = warp; j < ORDER_THREADS; j += ORDER_THREADS / 32) {
+    const int k = first + j, orow = k * G + g;
+    const size_t child = (size_t)g * K + k;
+    float* out = gout + (size_t)orow * L;
+    const ChildRand r = child_rand(cx, dr, k, g, 0u, lane, child);
+    expr_child<false, true>(cx, dr, ex, out, out, grow, r, k, g, 0u, lane, child, cb);
+    for (int l = lane; l < L; l += 32) out[l] = grow[l];
+    if (warp_scored) {
+      const float score = expr_score(grow, erows, obj, L, lane, cb);
+      if (lane == 0) sout[orow] = orow < geo.P ? score : -INFINITY;
+    }
+    __syncwarp();  // the next child overwrites this warp's rows
+  }
+
+  // Phase 3 (OBJ_TSP): this thread scores its child from its row.
+  if (obj == OBJ_TSP) {
+    __syncthreads();
+    const int orow = (first + tid) * G + g;
+    const float score = tsp_walk_score(gout + (size_t)orow * L, L, vis, ORDER_THREADS, xy, C,
+                                       penalty);
+    sout[orow] = orow < geo.P ? score : -INFINITY;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // expr_multigen_kernel: up to T generations per launch with expression hooks
 // (B6 x B4).
 //
@@ -319,19 +448,30 @@ __global__ void __launch_bounds__(THREADS) expr_breed_kernel(
 // row) and, after them, each warp's child row and EXPR_OBJ_ROWS objective
 // rows of L floats; the wrapper picks the warp count (up to 32) that fits in
 // 227 KB. Blocks are of up to 1,024 threads, as the builtin kernel's.
+//
+// Order crossover (expr_multigen_kernel<true>, _multigen_kernel's
+// order_refs, :1548): multigen_group<true> walks every child of the group
+// (one thread per child, the visited bitmasks after the group's arrays) into
+// its row before the warps run; each warp then reads its walked child into
+// its shared row (expr_child<false, true>), mutates and scores it there. An
+// elite child is its rank-k parent verbatim. D is 1 and the row map the
+// riffle, as in JAX. Bound: the bytes above; but the walk is a chain of L
+// dependent steps per sub-generation on 256 of the block's threads at K =
+// 256, which is expected to set the time (65,536x200: 256 blocks on 132 SMs).
 
+template <bool ORDER>
 __global__ void __launch_bounds__(MG_THREADS) expr_multigen_kernel(
     MultigenIO io, const float* __restrict__ mparams, Draws dr0, ExprDraws ex0,
     const float* __restrict__ cb, Geometry geo, Selection sel, int mutate, int obj,
     int elitism) {
   extern __shared__ long long mg_smem[];
-  const int L = geo.L, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* grow = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(mg_smem) +
-                                         mg_rows_bytes(geo.D * geo.K)) +
+  const int L = geo.L, W = geo.D * geo.K, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t fixed = mg_rows_bytes(W) + (ORDER ? mg_walk_bytes(W, L, blockDim.x) : 0);
+  float* grow = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(mg_smem) + fixed) +
                 (size_t)warp * (1 + EXPR_OBJ_ROWS) * L;
   float* erows = grow + L;
   BreedCtx cx = breed_ctx(dr0, mparams, geo, mutate, obj);
-  if (EXPR_CROSS) cx.ncalls = 2;  // selection and mutation: no crossover bits
+  if (EXPR_CROSS || ORDER) cx.ncalls = 2;  // selection and mutation: no crossover bits
   const size_t GK = (size_t)geo.G * geo.K;
   auto breed_child = [&](const Draws& dr, uint32_t t, int g, int k, size_t child,
                          const float* p1, const float* p2, float* out, const ChildRand& r,
@@ -345,70 +485,82 @@ __global__ void __launch_bounds__(MG_THREADS) expr_multigen_kernel(
         if (ex.gene) ex.gene += (size_t)t * 4 * cx.plane;
         if (ex.row) ex.row += (size_t)t * GK * 4;
       }
-      expr_child<false>(cx, dr, ex, p1, p2, grow, r, k, g, t, lane, child, cb);
+      expr_child<false, ORDER>(cx, dr, ex, p1, p2, grow, r, k, g, t, lane, child, cb);
     }
     for (int l = lane; l < L; l += 32) out[l] = grow[l];
     const float score = expr_score(grow, erows, obj, L, lane, cb);
     __syncwarp();  // the next child overwrites this warp's rows
     return score;
   };
-  multigen_group(io, geo, cx, dr0, sel, elitism, mg_smem, breed_child);
+  multigen_group<ORDER>(io, geo, cx, dr0, sel, elitism, mg_smem, breed_child);
 }
 
 }  // namespace
 
+// cross_kind 0: expr_breed_kernel (uniform crossover or the crossover
+// hook; `warps` warps per block); 1: expr_order_kernel (order crossover,
+// riffle only, `fill` genes, ORDER_THREADS threads per block; obj may be
+// OBJ_TSP with `coords` (C, 2) and `penalty`).
 extern "C" int expr_breed_launch(
     const float* gin, float* gout, float* sout, const int* ranks, const float* mparams,
-    const float* sel_u, const unsigned char* cross, const float* mut_u, const float* gauss,
-    const float* xgene, const float* xrow, const long long* seed, const float* consts, int P,
-    int Pp, int L, int K, int G, int mode, int S, int D, int q, int sel_kind, int tk,
-    float sel_param, int mutate, int obj, int warps, void* stream) {
-  if (warps < 1 || warps > THREADS / 32) return (int)cudaErrorInvalidValue;
+    const float* sel_u, const unsigned char* cross, const float* fill, const float* mut_u,
+    const float* gauss, const float* xgene, const float* xrow, const long long* seed,
+    const float* consts, const float* coords, int C, float penalty, int P, int Pp, int L, int K,
+    int G, int mode, int S, int D, int q, int sel_kind, int tk, float sel_param, int cross_kind,
+    int mutate, int obj, int warps, void* stream) {
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
   const Selection sel{sel_kind, tk, sel_param};
-  const Draws dr{sel_u, cross, mut_u, gauss, seed, nullptr};
+  const Draws dr{sel_u, cross, mut_u, gauss, seed, nullptr, fill};
   const ExprDraws ex{xgene, xrow};
-  // row_of_rank, then each warp's child row and objective rows. Above
-  // 48 KB it needs the attribute; past the block's 227 KB the attribute
-  // call fails and its error returns.
-  const size_t smem = (size_t)K * sizeof(int) + (size_t)warps * (1 + EXPR_OBJ_ROWS) * L * 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        expr_breed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  if (cross_kind) {
+    if (EXPR_CROSS || mode != MODE_RIFFLE || K % ORDER_THREADS || (obj == OBJ_TSP && C < 1))
+      return (int)cudaErrorInvalidValue;
+    // row_of_rank, the bitmasks, the coordinates, each warp's rows.
+    const int nw = (L + 31) / 32, Cs = obj == OBJ_TSP ? (C < L ? C : L) : 0;
+    const size_t smem = (size_t)(K + nw * ORDER_THREADS) * 4 + (size_t)Cs * 8 +
+                        (size_t)(ORDER_THREADS / 32) * (1 + EXPR_OBJ_ROWS) * L * 4;
+    return launch_with_smem(expr_order_kernel, G * (K / ORDER_THREADS), ORDER_THREADS, smem,
+                            (cudaStream_t)stream, gin, gout, sout, ranks, mparams, dr, ex,
+                            consts, coords, C, penalty, geo, sel, mutate, obj);
   }
-  expr_breed_kernel<<<G, warps * 32, smem, (cudaStream_t)stream>>>(
-      gin, gout, sout, ranks, mparams, dr, ex, consts, geo, sel, mutate, obj);
-  return (int)cudaGetLastError();
+  if (warps < 1 || warps > THREADS / 32) return (int)cudaErrorInvalidValue;
+  // row_of_rank, then each warp's child row and objective rows.
+  const size_t smem = (size_t)K * sizeof(int) + (size_t)warps * (1 + EXPR_OBJ_ROWS) * L * 4;
+  return launch_with_smem(expr_breed_kernel, G, warps * 32, smem, (cudaStream_t)stream, gin,
+                          gout, sout, ranks, mparams, dr, ex, consts, geo, sel, mutate, obj);
 }
 
+// cross_kind 0: uniform crossover or the crossover hook; 1: order crossover
+// (`fill` genes, D = 1).
 extern "C" int expr_multigen_launch(
     const float* gin, const float* sin, float* gout, float* sout, float* work0, float* work1,
     int steps, float target, const float* mparams, const float* sel_u,
-    const unsigned char* cross, const float* mut_u, const float* gauss, const long long* tie,
-    const float* xgene, const float* xrow, const long long* seed, const float* consts, int P,
-    int Pp, int L, int K, int G, int mode, int S, int D, int q, int sel_kind, int tk,
-    float sel_param, int mutate, int obj, int elitism, int warps, void* stream) {
-  if (D < 1 || D > MG_MAX_D || warps < 1 || warps > MG_THREADS / 32)
+    const unsigned char* cross, const float* fill, const float* mut_u, const float* gauss,
+    const long long* tie, const float* xgene, const float* xrow, const long long* seed,
+    const float* consts, int P, int Pp, int L, int K, int G, int mode, int S, int D, int q,
+    int sel_kind, int tk, float sel_param, int cross_kind, int mutate, int obj, int elitism,
+    int warps, void* stream) {
+  if (D < 1 || D > MG_MAX_D || warps < 1 || warps > MG_THREADS / 32 ||
+      (cross_kind && (EXPR_CROSS || D != 1)))
     return (int)cudaErrorInvalidValue;
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
   const Selection sel{sel_kind, tk, sel_param};
-  const Draws dr{sel_u, cross, mut_u, gauss, seed, tie};
+  const Draws dr{sel_u, cross, mut_u, gauss, seed, tie, fill};
   const ExprDraws ex{xgene, xrow};
   const MultigenIO io{gin, sin, gout, sout, work0, work1, steps, target};
-  // The group's keys, scores, row_of_rank and alive flags, then each warp's
-  // child row and objective rows. Past the block's 227 KB the attribute call
-  // fails and its error returns.
-  const size_t smem =
-      mg_rows_bytes(D * K) + (size_t)warps * (1 + EXPR_OBJ_ROWS) * L * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        expr_multigen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  expr_multigen_kernel<<<S, warps * 32, smem, (cudaStream_t)stream>>>(
-      io, mparams, dr, ex, consts, geo, sel, mutate, obj, elitism);
-  return (int)cudaGetLastError();
+  // The group's keys, scores, row_of_rank and alive flags, (order) the
+  // walkers' bitmasks, then each warp's child row and objective rows.
+  const int threads = warps * 32;
+  const size_t smem = mg_rows_bytes(D * K) +
+                      (cross_kind ? mg_walk_bytes(D * K, L, threads) : 0) +
+                      (size_t)warps * (1 + EXPR_OBJ_ROWS) * L * sizeof(float);
+  return cross_kind
+             ? launch_with_smem(expr_multigen_kernel<true>, S, threads, smem,
+                                (cudaStream_t)stream, io, mparams, dr, ex, consts, geo, sel,
+                                mutate, obj, elitism)
+             : launch_with_smem(expr_multigen_kernel<false>, S, threads, smem,
+                                (cudaStream_t)stream, io, mparams, dr, ex, consts, geo, sel,
+                                mutate, obj, elitism);
 }
 
 extern "C" const char* expr_breed_error_string(int code) {

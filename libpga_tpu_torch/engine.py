@@ -23,10 +23,13 @@ package's ``_pallas_gate`` routes them (``engine.py:855-984``):
   (``mutate_from_expression``), with their rate and sigma as the
   kernel's runtime parameters. An expression operator, or an objective
   with an expression form (``expr_fused``), runs the generated
-  expression breed kernel (at T > 1 its multi-generation entry). Where
-  JAX breeds a case the port does not yet (order crossover with an
-  expression mutation or objective, or at T > 1), ``run`` raises
-  ``NotImplementedError`` naming the ROADMAP item;
+  expression breed kernel (at T > 1 its multi-generation entry), order
+  crossover included: a TSP written as a ``from_expression`` tour cost
+  breeds in the expression order kernel, and the coordinate TSP with an
+  expression mutation too. At T > 1 order crossover breeds in the
+  multi-generation kernels with a rowwise-fused or expression objective;
+  the coordinate TSP, whose fused score is gene-major, warns and breeds
+  one generation per launch, as in JAX;
 - the panmictic path (:func:`make_run_loop`, ``ops/step.py``): whole-
   population selection, then the crossover and mutation operators in
   plain torch, then the objective (for GP, the evaluator kernel). It
@@ -403,9 +406,9 @@ class PGA:
         that reached the target is kept, because its deme group stops
         breeding inside the launch. T > 1 breeds builtin and expression
         hooks alike (objectives with a rowwise fused or an expression
-        form; uniform or expression crossover); order crossover raises
-        ``NotImplementedError``, and any other objective warns and
-        breeds one generation per launch."""
+        form; uniform, order or expression crossover); any other
+        objective (the coordinate TSP among them) warns and breeds one
+        generation per launch."""
         self._require_objective()
         handle = population or PopulationHandle(0)
         pop = self._populations[handle.index]

@@ -14,13 +14,15 @@ by the crossover kind the engine routes (``engine.PGA._crossover_kind``):
   is unvisited, else the ``fill`` draw), point, gaussian or swap
   mutation, and the fused score of onemax, onemax_bits or the coordinate
   TSP of ``make_tsp_coords(duplicate_mode="genes")``;
-- **expression** (``expr_breed_kernel`` of ``csrc/expr_breed.cu``, B6):
-  where the crossover or mutation is an expression operator
-  (``ops/breed_expr.py``) or the objective has an expression form
-  (``expr_fused``: ``from_expression``, knapsack, NK, the trap), the
-  template kernel with generated hooks breeds and scores; a hook that is
-  not an expression stays builtin (uniform crossover; point, gaussian or
-  swap mutation; a builtin fused objective).
+- **expression** (``expr_breed_kernel`` of ``csrc/expr_breed.cu``, B6;
+  with order crossover its ``expr_order_kernel``): where the crossover
+  or mutation is an expression operator (``ops/breed_expr.py``) or the
+  objective has an expression form (``expr_fused``: ``from_expression``,
+  knapsack, NK, the trap), the template kernel with generated hooks
+  breeds and scores; a hook that is not an expression stays builtin
+  (uniform or order crossover; point, gaussian or swap mutation; a
+  builtin fused objective, or the coordinate TSP after order
+  crossover).
 
 The mutation's [rate, sigma] are runtime inputs. The score is written to
 the child's physical row; an objective without a fused form is scored by
@@ -60,7 +62,9 @@ launch; the row maps apply once, at its end. Its geometry
 one, and it needs a rowwise-fused or an expression objective. With an
 expression crossover, mutation or objective ``expr_multigen_kernel`` of
 the generated expression unit breeds (B6 x B4): the same loop, the
-children of the expression breed.
+children of the expression breed. Both take order crossover too (one
+riffle deme per group, as JAX): each sub-generation walks every child
+before the mutation and the score.
 """
 
 from __future__ import annotations
@@ -362,7 +366,8 @@ def resolve_geometry(
     is riffle-only.
 
     ``multigen`` takes the multi-generation kernel's VMEM model, its D
-    pool (16..1, default 8) and always counts as fused; it declines when
+    pool (16..1, default 8; order crossover: the walk's scratch counted,
+    D pinned to 1, the riffle) and always counts as fused; it declines when
     ``elitism >= K // 4`` (per-deme elites would fill the deme), and
     per-deme elitism on a padded population stays on the riffle (a pad
     row could take a parity-1 cohort's elite slot). ``elitism`` is read
@@ -837,11 +842,13 @@ def fused_scores(
     """The scores the one-generation kernels compute for a fused
     objective id (``FUSED_TSP`` reads ``coords`` (C, 2) and
     ``penalty``) or an expression objective (``objective``, a
-    ``from_expression`` objective: its ``kernel_rowwise``), up to the
-    order of their float32 sums."""
+    ``from_expression`` objective: its ``kernel_rowwise`` in the
+    kernels' lane order), up to the order of the builtin ids' float32
+    sums."""
     if objective is not None:
         L = child.shape[-1]
-        return objective.kernel_rowwise(child.reshape(-1, L)).reshape(child.shape[:-1])
+        return objective.kernel_rowwise(child.reshape(-1, L), warp_order=True).reshape(
+            child.shape[:-1])
     if obj_id in ROWWISE_FUSED:
         return rowwise_scores(obj_id, child)
     if obj_id == FUSED_TSP:
@@ -871,7 +878,8 @@ def deme_breed_reference(
     """The plain version of the deme-breed kernels (uniform crossover:
     ``deme_breed_kernel``; order crossover: ``order_breed_kernel``; an
     expression crossover, mutation or ``objective``:
-    ``expr_breed_kernel``): one
+    ``expr_breed_kernel``, with order crossover ``expr_order_kernel``,
+    which also takes the coordinate TSP after an expression mutation): one
     generation over all ``G`` demes of ``genomes`` (Pp, L), children
     placed by the parity's row map. A deme's valid count V is how many
     of its read rows are real (< P), at least 1: the ping-pong
@@ -967,7 +975,9 @@ def multigen_breed_reference(
     or ``objective``, ``expr_multigen_kernel``) and of
     ``_multigen_kernel``: ``steps`` generations of every group of
     ``geom`` (``S`` groups of ``D`` demes), the demes fixed for the
-    launch in the parity's cohort order.
+    launch in the parity's cohort order. Order crossover walks each
+    sub-generation's children as :func:`breed_children` does; an elite
+    child is its parent verbatim, set after the walk as in JAX.
 
     ``genomes`` (Pp, L) and raw ``scores`` (Pp,) come in physical order
     (pad rows: any genes, -inf). A cohort slot is alive when its read
@@ -992,11 +1002,6 @@ def multigen_breed_reference(
     when given."""
     if (seed is None) == (draws is None):
         raise ValueError("pass exactly one of seed= or draws=")
-    if crossover == "order":
-        raise NotImplementedError(
-            "several generations per launch with order crossover is not ported"
-            " yet (ROADMAP Queue B, B4's order-crossover case)"
-        )
     if objective is None and obj_id not in ROWWISE_FUSED:
         raise ValueError(f"objective id {obj_id} has no rowwise fused form: multigen needs one")
     G, K, L, D = geom.G, geom.K, geom.L, geom.D
@@ -1096,10 +1101,9 @@ def make_fused_breed(
     (``expr_fused``; one with kernel constants is const-carrying, which
     shapes the geometry as in JAX). ``mparams`` is the mutation's [rate,
     sigma]; ``layout`` forces a row map (JAX's ``pallas_layout``). The
-    fused TSP score pairs with order crossover only: with uniform
-    crossover that objective is scored by its rowwise form, as in JAX.
-    Order crossover with an expression mutation or objective, which JAX
-    breeds, raises ``NotImplementedError`` (not ported yet). Returns
+    fused TSP score pairs with order crossover only (with a builtin or
+    an expression mutation): with uniform crossover that objective is
+    scored by its rowwise form, as in JAX. Returns
     ``breed(genomes (Pp, L), scores (Pp,), parity, generator, out=None)
     -> (genomes, scores)``, both in physical row order; children go into
     ``out`` when given (never ``genomes`` itself). ``breed.geom`` is the
@@ -1110,11 +1114,6 @@ def make_fused_breed(
         obj_id = FUSED_NONE
     if obj_id == FUSED_TSP and crossover != "order":
         obj_id = FUSED_NONE
-    if crossover == "order" and (is_expression(mutate) or expr_obj is not None):
-        raise NotImplementedError(
-            "order crossover with an expression mutation or an expression objective is"
-            " not ported yet (ROADMAP Queue B, B6's order-kernel cases)"
-        )
     for op in (crossover, mutate, expr_obj):
         pin = getattr(op, "pinned_genome_len", None)
         if pin and pin != genome_len:
@@ -1133,8 +1132,8 @@ def make_fused_breed(
     if geom is None:
         raise ValueError(
             f"no deme geometry for {pop_size}x{genome_len}: the deme path"
-            " needs >= 128 rows, a padded tail of >= K/4 rows, a K whose"
-            " order-walk scratch fits and tournament_size in 1..16"
+            " needs >= 128 rows, a padded tail of >= K/4 rows, tournament_size"
+            " in 1..16 and, with order crossover, a K whose walk scratch fits"
             " (PGA.run takes the panmictic path there)"
         )
     kw = dict(
@@ -1228,10 +1227,9 @@ def make_fused_multigen(
 
     None where the JAX factory declines: the objective has neither a
     rowwise fused form nor an expression form (the coordinate TSP's
-    fused score is gene-major, not rowwise), the geometry declines, or
-    ``elitism >= K // 4``. Order crossover, which JAX breeds here,
-    raises ``NotImplementedError``: that case of the kernel is not
-    ported yet."""
+    fused score is gene-major, not rowwise), the geometry declines (for
+    order crossover: no K whose walk scratch fits the multi-generation
+    model), or ``elitism >= K // 4``."""
     expr_obj = getattr(objective, "expr_fused", None)
     obj_id = FUSED_NONE if expr_obj is not None else getattr(objective, "fused_id", FUSED_NONE)
     if expr_obj is None and obj_id not in ROWWISE_FUSED:
@@ -1252,12 +1250,6 @@ def make_fused_multigen(
     )
     if geom is None:
         return None
-    if crossover == "order":
-        raise NotImplementedError(
-            "generations_per_launch > 1 with order crossover and a rowwise-fused"
-            " objective is not ported yet (ROADMAP Queue B, B4's order-crossover"
-            " case); run with generations_per_launch=1"
-        )
     kw = dict(
         tournament_size=tournament_size, selection=selection,
         selection_param=selection_param, mutate=mutate, obj_id=obj_id,

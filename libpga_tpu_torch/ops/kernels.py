@@ -15,10 +15,12 @@ module imports on machines without ``nvcc`` or a card.
 ``LAUNCHES`` counts kernel launches: the uniform-crossover deme breed
 by row-map layout ("pingpong", "riffle"), the order-crossover breed
 ("order"), the multi-generation breed ("multigen", one per launch
-whatever its step count), the expression breed ("expr", every row map)
-and its multi-generation form ("expr_multigen"), the GP evaluator by
-mode (compacted programs, or raw genomes with static trips). A wrapper
-adds one where it launches its kernel and nowhere else.
+whatever its step count; "multigen_order" with order crossover), the
+expression breed ("expr", every row map; "expr_order", its order
+kernel) and its multi-generation form ("expr_multigen";
+"expr_multigen_order"), the GP evaluator by mode (compacted programs, or
+raw genomes with static trips). A wrapper adds one where it launches its
+kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -47,14 +49,16 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {
-    "pingpong": 0, "riffle": 0, "order": 0, "multigen": 0, "expr": 0,
-    "expr_multigen": 0, "gp_eval_opt": 0, "gp_eval_static": 0,
+    "pingpong": 0, "riffle": 0, "order": 0, "multigen": 0, "multigen_order": 0, "expr": 0,
+    "expr_order": 0, "expr_multigen": 0, "expr_multigen_order": 0, "gp_eval_opt": 0,
+    "gp_eval_static": 0,
 }
 TEMPLATES = ("expr_breed",)  # sources built only with generated hooks in front
 
 SEL_IDS = {"tournament": 0, "truncation": 1, "linear_rank": 2}
 MUTATE_IDS = {"point": 0, "gaussian": 1, "swap": 2}
-ORDER_THREADS = 64  # children per block of order_breed_kernel
+CROSS_IDS = {"uniform": 0, "order": 1}  # the kernels' runtime crossover kind
+ORDER_THREADS = 64  # children per block of order_breed_kernel and expr_order_kernel
 MULTIGEN_MAX_D = 16  # demes per block of the multi-generation kernels
 MULTIGEN_ROW_BYTES = 17  # their shared memory per group row (MG_ROW_BYTES)
 EXPR_MAX_WARPS = 8  # warps per block of expr_breed_kernel (THREADS / 32)
@@ -185,11 +189,11 @@ def _bindings() -> dict:
             "multigen_breed_launch": ([
                 p, p, p, p, p, p,       # gin, sin, gout, sout, work0, work1
                 i, f, p,                # steps, target, mparams
-                p, p, p, p, p, p,       # sel_u, cross, mut_u, gauss, tie, seed
+                p, p, p, p, p, p, p,    # sel_u, cross, fill, mut_u, gauss, tie, seed
                 i, i, i, i, i,          # P, Pp, L, K, G
                 i, i, i, i,             # mode, S, D, q
                 i, i, f,                # sel kind, tournament size, sel param
-                i, i, i,                # mutate kind, objective id, elitism
+                i, i, i, i,             # crossover kind, mutate kind, objective id, elitism
                 p,                      # stream
             ], i),
             "deme_breed_error_string": ([i], s),
@@ -197,23 +201,24 @@ def _bindings() -> dict:
         "expr_breed": {
             "expr_breed_launch": ([
                 p, p, p, p, p,          # gin, gout, sout, ranks, mparams
-                p, p, p, p,             # sel_u, cross, mut_u, gauss
+                p, p, p, p, p,          # sel_u, cross, fill, mut_u, gauss
                 p, p, p, p,             # expression planes, row words, seed, consts
+                p, i, f,                # coords, C, penalty
                 i, i, i, i, i,          # P, Pp, L, K, G
                 i, i, i, i,             # mode, S, D, q
                 i, i, f,                # sel kind, tournament size, sel param
-                i, i, i,                # mutate kind, objective id, warps per block
+                i, i, i, i,             # crossover kind, mutate kind, objective id, warps
                 p,                      # stream
             ], i),
             "expr_multigen_launch": ([
                 p, p, p, p, p, p,       # gin, sin, gout, sout, work0, work1
                 i, f, p,                # steps, target, mparams
-                p, p, p, p, p,          # sel_u, cross, mut_u, gauss, tie
+                p, p, p, p, p, p,       # sel_u, cross, fill, mut_u, gauss, tie
                 p, p, p, p,             # expression planes, row words, seed, consts
                 i, i, i, i, i,          # P, Pp, L, K, G
                 i, i, i, i,             # mode, S, D, q
                 i, i, f,                # sel kind, tournament size, sel param
-                i, i, i, i,             # mutate kind, objective id, elitism, warps per block
+                i, i, i, i, i,          # crossover kind, mutate kind, objective id, elitism, warps
                 p,                      # stream
             ], i),
             "expr_breed_error_string": ([i], s),
@@ -434,8 +439,10 @@ def order_breed_cuda(
     return out, scores
 
 
-def _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mparams) -> int:
-    """The checks both multi-generation wrappers make; returns ``steps``
+def _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mparams,
+                     order: bool) -> int:
+    """The checks both multi-generation wrappers make (``order``: order
+    crossover, which takes one riffle deme per group); returns ``steps``
     as an int."""
     dev = genomes.device
     G, K, L, Pp, D = geom.G, geom.K, geom.L, geom.Pp, geom.D
@@ -443,6 +450,8 @@ def _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mpa
         raise ValueError(f"deme size {K} outside 1..1024")
     if not 1 <= D <= MULTIGEN_MAX_D or G % D:
         raise ValueError(f"{D} demes per group outside 1..{MULTIGEN_MAX_D} or not dividing {G}")
+    if order and (D != 1 or geom.layout != "riffle"):
+        raise ValueError("order crossover runs one riffle deme per group (D = 1)")
     if not 1 <= tournament_size <= 16:
         raise ValueError(f"tournament_size {tournament_size} outside 1..16")
     if not 0 <= elitism < K:
@@ -477,15 +486,17 @@ def _multigen_buffers(genomes, out, work, steps: int):
     return out, work + [None, None]
 
 
-def _multigen_draws(draws, seed, geom, steps: int, cross_bits: bool, mutate, dev):
-    """``(sel_u, cross, mut_u, gauss, tie)`` of an injected multigen
+def _multigen_draws(draws, seed, geom, steps: int, crossover, mutate, dev):
+    """``(sel_u, cross, fill, mut_u, gauss, tie)`` of an injected multigen
     launch, each with a leading axis of T >= ``steps`` sub-generations
-    (``cross`` where ``cross_bits``, ``gauss`` for gaussian mutation;
-    else None), or all None in production mode (``seed`` checked)."""
+    (``cross`` for uniform crossover, ``fill`` for order crossover, none
+    of them for a crossover hook (``crossover`` None); ``gauss`` for
+    gaussian mutation; else None), or all None in production mode
+    (``seed`` checked)."""
     G, K, L = geom.G, geom.K, geom.L
     if draws is None:
         _check(seed, "seed", torch.int64, (1,), dev)
-        return None, None, None, None, None
+        return None, None, None, None, None, None
     T = draws.sel_u.shape[0]
     if T < steps:
         raise ValueError(f"injected draws hold {T} sub-generations, steps is {steps}")
@@ -494,14 +505,19 @@ def _multigen_draws(draws, seed, geom, steps: int, cross_bits: bool, mutate, dev
     if draws.tie is None:
         raise ValueError("injected multigen draws need the tie words")
     _check(draws.tie, "tie", torch.int64, (T, G, K), dev)
-    cross = gauss = None
-    if cross_bits:
+    cross = fill = gauss = None
+    if crossover == "uniform":
         cross = draws.cross
         _check(cross, "cross", torch.uint8, (T, G, K, L), dev)
+    elif crossover == "order":
+        fill = draws.fill
+        if fill is None:
+            raise ValueError("injected order draws need the fill plane")
+        _check(fill, "fill", torch.float32, (T, G, K, L), dev)
     if mutate == "gaussian":
         gauss = draws.gauss
         _check(gauss, "gauss", torch.float32, (T, 3, G, K, L), dev)
-    return draws.sel_u, cross, draws.mut_u, gauss, draws.tie
+    return draws.sel_u, cross, fill, draws.mut_u, gauss, draws.tie
 
 
 def multigen_breed_cuda(
@@ -527,90 +543,120 @@ def multigen_breed_cuda(
 ):
     """Launch ``multigen_breed_kernel`` of ``csrc/deme_breed.cu`` on the
     current stream: the kernel counterpart of
-    ``fused_step.multigen_breed_reference`` (same arguments). ``steps``
+    ``fused_step.multigen_breed_reference`` (same arguments; uniform or
+    order crossover, the latter one riffle deme per group). ``steps``
     generations (0 = the row permutation only) of every group of
     ``geom`` in one launch, a group freezing once its best reaches
     ``target``. Production mode takes ``seed`` (int64, one element, on
     the card); injected mode takes ``draws`` whose tensors carry a
     leading axis of at least ``steps`` sub-generations and the ``tie``
-    words. ``work`` is a pair of (Pp, L) scratch tensors (made here when
-    None and ``steps`` needs them: one from 2 steps, two from 3).
-    Returns ``(genomes (Pp, L), scores (Pp,))`` in physical row order. Raises on bad arguments or a failed
-    launch; never runs anything else in the kernel's place."""
+    words (order crossover: the ``fill`` plane). ``work`` is a pair of
+    (Pp, L) scratch tensors (made here when None and ``steps`` needs
+    them: one from 2 steps, two from 3). Returns ``(genomes (Pp, L),
+    scores (Pp,))`` in physical row order. Raises on bad arguments or a
+    failed launch; never runs anything else in the kernel's place."""
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("multigen_breed_cuda needs CUDA tensors")
-    if crossover != "uniform":
-        raise ValueError(f"multigen_breed_cuda breeds uniform crossover, not {crossover!r}")
+    if crossover not in CROSS_IDS:
+        raise ValueError(f"multigen_breed_cuda breeds uniform or order crossover, not {crossover!r}")
     if obj_id not in ROWWISE_FUSED:
         raise ValueError(f"objective id {obj_id} has no rowwise fused form: multigen needs one")
     if mutate not in MUTATE_IDS:
         raise ValueError(f"unknown mutate kind {mutate!r}")
     G, K, L, Pp, D = geom.G, geom.K, geom.L, geom.Pp, geom.D
-    steps = _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mparams)
+    order = crossover == "order"
+    steps = _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mparams, order)
     param = resolve_selection(selection, selection_param)
     out, work = _multigen_buffers(genomes, out, work, steps)
-    sel_u, cross, mut_u, gauss, tie = _multigen_draws(draws, seed, geom, steps, True, mutate, dev)
+    sel_u, cross, fill, mut_u, gauss, tie = _multigen_draws(
+        draws, seed, geom, steps, crossover, mutate, dev)
     s_out = torch.empty(Pp, device=dev)
     lib = _library("deme_breed")
     rc = lib.multigen_breed_launch(
         genomes.data_ptr(), scores.data_ptr(), out.data_ptr(), s_out.data_ptr(),
         _ptr(work[0]), _ptr(work[1]),
         steps, float(target), mparams.data_ptr(),
-        _ptr(sel_u), _ptr(cross), _ptr(mut_u), _ptr(gauss), _ptr(tie),
+        _ptr(sel_u), _ptr(cross), _ptr(fill), _ptr(mut_u), _ptr(gauss), _ptr(tie),
         _ptr(seed if draws is None else None),
         geom.P, Pp, L, K, G,
         geom.mode(parity), geom.S, D, geom.q,
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
-        MUTATE_IDS[mutate], int(obj_id), int(elitism),
+        CROSS_IDS[crossover], MUTATE_IDS[mutate], int(obj_id), int(elitism),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "deme_breed")
-    LAUNCHES["multigen"] += 1
+    LAUNCHES["multigen_order" if order else "multigen"] += 1
     return out, s_out
 
 
-def expr_warps(K: int, L: int, obj_rows: int, D: Optional[int] = None) -> int:
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def expr_warps(K: int, L: int, obj_rows: int, D: Optional[int] = None, order: bool = False,
+               cities: int = 0) -> int:
     """Warps per block of ``expr_breed_kernel`` (``D`` None: up to 8,
-    beside ``row_of_rank``) or of ``expr_multigen_kernel`` (a group of
-    ``D`` demes: up to 32, beside the group's 17 bytes per row): fewer
+    beside ``row_of_rank``), of ``expr_order_kernel`` (``D`` None and
+    ``order``: always ``ORDER_THREADS / 32``, beside ``row_of_rank``,
+    the walkers' visited bitmasks of ceil(L/32) words each and
+    min(``cities``, L) staged TSP coordinates) or of
+    ``expr_multigen_kernel`` (a group of ``D`` demes: up to 32, beside
+    the group's 17 bytes per row and, with ``order``, ceil(L/32) words
+    of bitmask for each child walking at once, min(D*K, threads)): fewer
     where each warp's child row and ``obj_rows`` objective rows of L
     floats do not fit in a block's shared memory (1 KB kept for the
-    kernel's static arrays)."""
+    kernel's static arrays). Raises where not even one warp fits."""
     per_warp = (1 + obj_rows) * L * 4
-    if D is None:
-        most, fixed = EXPR_MAX_WARPS, 4 * K
+    words = -(-L // 32)
+    limit = SMEM_BLOCK_BYTES - 1024
+    if D is None and order:
+        most = ORDER_THREADS // 32
+        fixed = (K + words * ORDER_THREADS) * 4 + min(cities, L) * 8
+        warps = most if fixed + most * per_warp <= limit else 0
+    elif D is None:
+        fixed = 4 * K
+        warps = min(EXPR_MAX_WARPS, (limit - fixed) // per_warp)
     else:
-        most, fixed = EXPR_MULTIGEN_MAX_WARPS, -(-D * K * MULTIGEN_ROW_BYTES // 16) * 16
-    warps = min(most, (SMEM_BLOCK_BYTES - 1024 - fixed) // per_warp)
+        W = D * K
+        rows = _round16(W * MULTIGEN_ROW_BYTES)
+        warps = EXPR_MULTIGEN_MAX_WARPS
+        while warps:
+            walk = _round16(words * min(W, 32 * warps) * 4) if order else 0
+            fixed = rows + walk
+            if fixed + warps * per_warp <= limit:
+                break
+            warps -= 1
     if warps < 1:
         raise ValueError(
             f"genome length {L} with {obj_rows} objective rows needs {per_warp} bytes of"
             f" shared memory per warp: more than a block holds beside {fixed} bytes of"
-            " rank state"
+            " rank and walk state"
         )
     return warps
 
 
 def _expr_hooks(crossover, mutate, objective, obj_id: int, L: int, who: str, multigen=False):
     """``(crossover op or None, mutate op or None, obj_id)`` of a breed
-    with expression hooks, checked: a builtin crossover is uniform, a
-    builtin mutation point / gaussian / swap, a builtin objective
-    rowwise-fused (or, one generation per launch, none); at least one
-    hook is an expression; none is pinned to another genome length. An
-    expression ``objective`` sets ``obj_id`` to none."""
+    with expression hooks, checked: a builtin crossover is uniform or
+    order, a builtin mutation point / gaussian / swap, a builtin
+    objective rowwise-fused (or, one generation per launch, none, or the
+    coordinate TSP with order crossover); at least one hook is an
+    expression; none is pinned to another genome length. An expression
+    ``objective`` sets ``obj_id`` to none."""
     cross_op = crossover if callable(crossover) else None
     mut_op = mutate if callable(mutate) else None
-    if cross_op is None and crossover != "uniform":
-        raise ValueError(f"{who} breeds uniform or expression crossover, not {crossover!r}")
+    if cross_op is None and crossover not in CROSS_IDS:
+        raise ValueError(f"{who} breeds uniform, order or expression crossover, not {crossover!r}")
     if mut_op is None and mutate not in MUTATE_IDS:
         raise ValueError(f"unknown mutate kind {mutate!r}")
+    tsp_ok = not multigen and crossover == "order"
     if objective is not None:
         obj_id = FUSED_NONE
     elif multigen and obj_id not in ROWWISE_FUSED:
         raise ValueError(f"objective id {obj_id} has no rowwise fused form: multigen needs one")
-    elif obj_id != FUSED_NONE and obj_id not in ROWWISE_FUSED:
+    elif obj_id not in (FUSED_NONE, *ROWWISE_FUSED) and not (tsp_ok and obj_id == FUSED_TSP):
         raise ValueError(f"objective id {obj_id} is not fused with the expression breed")
     if cross_op is None and mut_op is None and objective is None:
         builtin = "multigen_breed_cuda" if multigen else "deme_breed_cuda"
@@ -665,47 +711,68 @@ def expr_breed_cuda(
     obj_id: int = 0,
     crossover="uniform",
     objective=None,
+    coords: Optional[torch.Tensor] = None,
+    penalty: float = 0.0,
 ):
-    """Launch ``expr_breed_kernel``, the template ``csrc/expr_breed.cu``
-    with the hooks generated for this breed (``expr_cuda.program_for``;
-    built at first use, :func:`build_expr`), on the current stream: the
-    kernel counterpart of ``fused_step.deme_breed_reference`` with an
+    """Launch ``expr_breed_kernel`` or, for order crossover,
+    ``expr_order_kernel``, of the template ``csrc/expr_breed.cu`` with
+    the hooks generated for this breed (``expr_cuda.program_for``; built
+    at first use, :func:`build_expr`), on the current stream: the kernel
+    counterpart of ``fused_step.deme_breed_reference`` with an
     expression crossover or mutation (an operator of
     ``ops/breed_expr.py``) or objective (``objective``, a
     ``from_expression`` objective; else ``obj_id`` names a builtin
-    rowwise-fused one). Uniform crossover and point / gaussian / swap
-    mutation stay builtin where no expression replaces them; every row
-    map. Production mode takes ``seed``; injected mode takes ``draws``
-    with the expression planes ``expr_gene`` (4, G, K, L) and words
-    ``expr_row`` (G, K, 4) where the hooks read them. Raises on bad
-    arguments or a failed build or launch; never runs anything else in
-    the kernel's place."""
+    rowwise-fused one or, with order crossover, the coordinate TSP,
+    which takes ``coords`` (C, 2) float32 on the card and ``penalty``).
+    Uniform or order crossover and point / gaussian / swap mutation stay
+    builtin where no expression replaces them; every row map (order
+    crossover: the riffle). Production mode takes ``seed``; injected
+    mode takes ``draws`` with the expression planes ``expr_gene`` (4, G,
+    K, L) and words ``expr_row`` (G, K, 4) where the hooks read them
+    (order crossover: the ``fill`` plane). Raises on bad arguments or a
+    failed build or launch; never runs anything else in the kernel's
+    place."""
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("expr_breed_cuda needs CUDA tensors")
     G, K, L, Pp = geom.G, geom.K, geom.L, geom.Pp
     cross_op, mut_op, obj_id = _expr_hooks(crossover, mutate, objective, obj_id, L, "expr_breed_cuda")
+    order = crossover == "order"
     if not 1 <= K <= 1024:
         raise ValueError(f"deme size {K} outside 1..1024")
+    if order and (geom.layout != "riffle" or K % ORDER_THREADS):
+        raise ValueError(f"order crossover needs the riffle and a deme size that is a multiple"
+                         f" of {ORDER_THREADS}, not {geom.layout} K={K}")
     if not 1 <= tournament_size <= 16:
         raise ValueError(f"tournament_size {tournament_size} outside 1..16")
     _check(genomes, "genomes", torch.float32, (Pp, L), dev)
     _check(ranks, "ranks", torch.int32, (G, K), dev)
     _check(mparams, "mparams", torch.float32, (2,), dev)
+    C = 0
+    if obj_id == FUSED_TSP:
+        if coords is None or coords.ndim != 2 or coords.shape[0] < 1:
+            raise ValueError("the fused TSP score needs coords of shape (C, 2), C >= 1")
+        C = coords.shape[0]
+        _check(coords, "coords", torch.float32, (C, 2), dev)
     param = resolve_selection(selection, selection_param)
     program = expr_cuda.program_for(cross_op, mut_op, objective)
-    warps = expr_warps(K, L, program.obj_rows)
+    warps = expr_warps(K, L, program.obj_rows, order=order, cities=C)
     if out is None:
         out = torch.empty_like(genomes)
     _check(out, "out", torch.float32, (Pp, L), dev)
     if out.data_ptr() == genomes.data_ptr():
         raise ValueError("out must not alias genomes: blocks read rows other blocks write")
-    sel_u = cross = mut_u = gauss = xgene = xrow = None
+    sel_u = cross = fill = mut_u = gauss = xgene = xrow = None
     if draws is not None:
         sel_u, mut_u = draws.sel_u, draws.mut_u
         _check(sel_u, "sel_u", torch.float32, (G, K, 2), dev)
         _check(mut_u, "mut_u", torch.float32, (G, K, 4), dev)
-        if cross_op is None:
+        if order:
+            fill = draws.fill
+            if fill is None:
+                raise ValueError("injected order draws need the fill plane")
+            _check(fill, "fill", torch.float32, (G, K, L), dev)
+        elif cross_op is None:
             cross = draws.cross
             _check(cross, "cross", torch.uint8, (G, K, L), dev)
         if mutate == "gaussian":
@@ -719,17 +786,19 @@ def expr_breed_cuda(
     rc = lib.expr_breed_launch(
         genomes.data_ptr(), out.data_ptr(), _ptr(scores), ranks.data_ptr(),
         mparams.data_ptr(),
-        _ptr(sel_u), _ptr(cross), _ptr(mut_u), _ptr(gauss), _ptr(xgene), _ptr(xrow),
+        _ptr(sel_u), _ptr(cross), _ptr(fill), _ptr(mut_u), _ptr(gauss), _ptr(xgene), _ptr(xrow),
         _ptr(seed if draws is None else None), program.consts_on(dev).data_ptr(),
+        _ptr(coords if C else None), C, float(penalty),
         geom.P, Pp, L, K, G,
         geom.mode(parity), geom.S, geom.D, geom.q,
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
-        MUTATE_IDS.get(mutate, 0) if mut_op is None else 0, int(obj_id), warps,
+        CROSS_IDS["order" if order else "uniform"], MUTATE_IDS.get(mutate, 0) if mut_op is None else 0,
+        int(obj_id), warps,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "expr_breed")
-    LAUNCHES["expr"] += 1
+    LAUNCHES["expr_order" if order else "expr"] += 1
     return out, scores
 
 
@@ -760,25 +829,28 @@ def expr_multigen_cuda(
     for these hooks), on the current stream: the kernel counterpart of
     ``fused_step.multigen_breed_reference`` with an expression crossover,
     mutation or ``objective`` (same arguments as
-    :func:`multigen_breed_cuda`, plus ``objective``). Injected ``draws``
-    carry a leading axis of at least ``steps`` sub-generations, the tie
-    words and, where the hooks read them, ``expr_gene`` (T, 4, G, K, L)
-    and ``expr_row`` (T, G, K, 4). Returns ``(genomes (Pp, L), scores
-    (Pp,))`` in physical row order. Raises on bad arguments or a failed
-    build or launch; never runs anything else in the kernel's place."""
+    :func:`multigen_breed_cuda`, plus ``objective``; uniform, order or
+    expression crossover). Injected ``draws`` carry a leading axis of at
+    least ``steps`` sub-generations, the tie words (order crossover: the
+    ``fill`` plane) and, where the hooks read them, ``expr_gene`` (T, 4,
+    G, K, L) and ``expr_row`` (T, G, K, 4). Returns ``(genomes (Pp, L),
+    scores (Pp,))`` in physical row order. Raises on bad arguments or a
+    failed build or launch; never runs anything else in the kernel's
+    place."""
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("expr_multigen_cuda needs CUDA tensors")
     G, K, L, Pp, D = geom.G, geom.K, geom.L, geom.Pp, geom.D
     cross_op, mut_op, obj_id = _expr_hooks(crossover, mutate, objective, obj_id, L,
                                            "expr_multigen_cuda", multigen=True)
-    steps = _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mparams)
+    order = crossover == "order"
+    steps = _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mparams, order)
     param = resolve_selection(selection, selection_param)
     program = expr_cuda.program_for(cross_op, mut_op, objective)
-    warps = expr_warps(K, L, program.obj_rows, D=D)
+    warps = expr_warps(K, L, program.obj_rows, D=D, order=order)
     out, work = _multigen_buffers(genomes, out, work, steps)
-    sel_u, cross, mut_u, gauss, tie = _multigen_draws(
-        draws, seed, geom, steps, cross_op is None, mutate, dev)
+    sel_u, cross, fill, mut_u, gauss, tie = _multigen_draws(
+        draws, seed, geom, steps, None if cross_op is not None else crossover, mutate, dev)
     xgene = xrow = None
     if draws is not None:
         xgene, xrow = _expr_draws(draws, program, (draws.sel_u.shape[0],), geom, dev)
@@ -788,18 +860,19 @@ def expr_multigen_cuda(
         genomes.data_ptr(), scores.data_ptr(), out.data_ptr(), s_out.data_ptr(),
         _ptr(work[0]), _ptr(work[1]),
         steps, float(target), mparams.data_ptr(),
-        _ptr(sel_u), _ptr(cross), _ptr(mut_u), _ptr(gauss), _ptr(tie),
+        _ptr(sel_u), _ptr(cross), _ptr(fill), _ptr(mut_u), _ptr(gauss), _ptr(tie),
         _ptr(xgene), _ptr(xrow), _ptr(seed if draws is None else None),
         program.consts_on(dev).data_ptr(),
         geom.P, Pp, L, K, G,
         geom.mode(parity), geom.S, D, geom.q,
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
-        MUTATE_IDS.get(mutate, 0) if mut_op is None else 0, int(obj_id), int(elitism), warps,
+        CROSS_IDS["order" if order else "uniform"], MUTATE_IDS.get(mutate, 0) if mut_op is None else 0,
+        int(obj_id), int(elitism), warps,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "expr_breed")
-    LAUNCHES["expr_multigen"] += 1
+    LAUNCHES["expr_multigen_order" if order else "expr_multigen"] += 1
     return out, s_out
 
 

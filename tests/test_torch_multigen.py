@@ -748,11 +748,15 @@ def test_engine_warns_and_runs_one_generation_where_multigen_declines():
 
 
 def test_engine_order_crossover_with_a_rowwise_objective_raises():
+    """Order crossover with a rowwise-fused objective at T > 1, which
+    once raised NotImplementedError, now breeds in the multi-generation
+    breed (one riffle deme per group), ceil(gens / T) launches."""
     p, _ = _solver(P=256, L=40, generations_per_launch=2)
     p.set_crossover(order_preserving_crossover)
     p.set_mutate(make_swap_mutate(0.5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p.run(2)
+    assert p.run(3) == 3 and p.launches == 2
+    geom = p._run_fn(256, 40)[0].geom
+    assert (geom.layout, geom.D) == ("riffle", 1)
 
 
 def test_engine_layout_knob_and_config_validation():
