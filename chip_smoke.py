@@ -142,6 +142,31 @@ Phases, each printing one line; any failure exits non-zero:
      fall): launches equal ceil(gens / T) and nothing else launches;
      gens/s, the best tour's distinct cities (reported: the tour
      expression has no duplicate penalty) and a torch.profiler window.
+ 20. island_compare: the island launch of the deme, order and multigen
+     kernels (csrc/deme_breed.cu, the islands a second grid axis) against
+     its plain version on the card, against I single-population launches
+     (each with its island's seed or slice of the injected draws: bit for
+     bit) and, with one island, against the single launch, with injected
+     and with Philox draws: bench.py's 8 x 131,072x100 (ping-pong, both
+     parities), tools/bench_rastrigin.py's 8 x 16,384x30 (gaussian),
+     4 x 40,000x100 (riffle), TSP islands 4 x 8,192x200 (order, swap, the
+     fused tour score) and 8 x 131,072x100 at 8 steps (multigen). Times
+     the island launch, the loop of I single launches and the plain
+     version with CUDA events beside the bound;
+ 21. island_run: pga_run_islands at 8 x 131,072x100 OneMax, m = 10, pct =
+     0.05, 200 generations after a warm-up, at one and at 8 generations
+     per launch: launches equal 200 (one island launch per generation) or
+     20 * ceil(10 / 8), nothing else launches, the best rises, scores are
+     the genomes' onemax; gens/s, a torch.profiler window's busy share,
+     the migration's ms per epoch and the ratio to the single
+     1,048,576x100 run of phase 5 (12 at T = 8); a target run that stops at
+     an epoch boundary (an epoch earlier the best was below it); TSP
+     islands 4 x 8,192x200 for 50 generations through the order kernel;
+ 22. rastrigin_islands: the five annealing phases of
+     tools/bench_rastrigin.py (8 x 16,384x30, elitism 2, gaussian mutation,
+     migration of 5% every 20 generations, 400 generations each): the
+     best must not fall within a phase and must rise over the run; prints
+     the best Rastrigin value.
 The earlier OneMax, GP and TSP runs keep their depths; the whole script
 takes about two minutes on the card. Then one JSON line of per-kernel numbers, the card's name and power
 limit, and last the result line. With --log FILE every line printed
@@ -238,6 +263,33 @@ ORDER_REPLACES = {
 }
 # Philox statistics bands (n ~ 1e6 children, 1e8 genes): the standard
 # errors are ~2e-4 or smaller, so these bands are > 5 sigma wide.
+# The island kernels: the Pallas kernel each one's island launch replaces,
+# and the island epoch that vmaps it over the islands on the TPU.
+ISLAND_REPLACES = {
+    "deme_breed": ("libpga_tpu/ops/pallas_step.py:1173", "libpga_tpu/parallel/islands.py:110"),
+    "order_breed": ("libpga_tpu/ops/pallas_step.py:653", "libpga_tpu/parallel/islands.py:110"),
+    "multigen_breed": ("libpga_tpu/ops/pallas_step.py:1460", "libpga_tpu/parallel/islands.py:192"),
+}
+# (case, kernel, islands, island rows, genes, crossover, mutation, objective,
+# steps): bench.py's island config (8 x 131,072 x 100, BASELINE.json),
+# tools/bench_rastrigin.py's 8 x 16,384 x 30, islands of the reference's
+# OneMax shape, 40,000 rows (riffle), TSP islands with order crossover, and the
+# bench islands at T = 8. A kernel's first case is its kernels-line entry.
+ISLAND_CASES = [
+    ("onemax-8x131072", "deme_breed", 8, 131_072, 100, "uniform", "point", "onemax", 1),
+    ("rastrigin-8x16384", "deme_breed", 8, 16_384, 30, "uniform", "gaussian", "rastrigin", 1),
+    ("onemax-4x40000", "deme_breed", 4, 40_000, 100, "uniform", "point", "onemax", 1),
+    ("tsp-4x8192x200", "order_breed", 4, 8_192, 200, "order", "swap", "tsp", 1),
+    ("onemax-8x131072-T8", "multigen_breed", 8, 131_072, 100, "uniform", "point", "onemax", 8),
+]
+GAUSS_ATOL = 1e-6  # gaussian genes: logf/cosf on the card against torch's, last ulp
+ISLAND_RUN = (8, 131_072, 100)  # bench.py:341-351: islands, rows, genes
+ISLAND_M, ISLAND_PCT, ISLAND_GENS, ISLAND_T = 10, 0.05, 200, 8
+ISLAND_PROFILE_GENS = 20
+ISLAND_TSP, ISLAND_TSP_GENS = (4, 8_192, 200), 50
+RASTRIGIN_ISLANDS = (8, 16_384, 30)  # tools/bench_rastrigin.py
+RASTRIGIN_PHASES = [(0.15, 0.05), (0.15, 0.02), (0.15, 0.008), (0.15, 0.003), (0.15, 0.001)]
+RASTRIGIN_GENS, RASTRIGIN_M, RASTRIGIN_PCT, RASTRIGIN_CHUNK = 400, 20, 0.05, 100
 MEAN_RANK_BAND = (1 / 3 - 0.004, 1 / 3 + 0.002)  # E = 1/3 - O(1/K)
 CROSS_BAND = (0.495, 0.505)
 MUTATION_RATE = 0.01
@@ -419,31 +471,33 @@ def phase_philox_stats(fs, device):
     check(MUTATION_BAND[0] <= mutated <= MUTATION_BAND[1], f"mutation rate {mutated}")
 
 
-def profile_generations(port, pga, wall_ms_per_gen: float, gens: int = PROFILE_GENS) -> dict:
+def profile_generations(port, pga, wall_ms_per_gen: float, gens: int = PROFILE_GENS,
+                        run=None) -> dict:
     """Device time per generation, by kernel, over ``gens`` more
-    generations under torch.profiler, and the device's busy share: that
-    time over the unprofiled wall time per generation."""
+    generations (``run(gens)``, by default ``pga_run``) under
+    torch.profiler, and the device's busy share: that time over the
+    unprofiled wall time per generation."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        port.pga_run(pga, gens)
+        (run or (lambda n: port.pga_run(pga, n)))(gens)
         torch.cuda.synchronize()
     # Device-side events only (kernels, copies): the host-side aten op
     # that launched a kernel carries the same device time again.
     rows = sorted(
-        ((e.key, e.self_device_time_total / 1e3 / gens)
+        ((e.key, e.self_device_time_total / 1e3 / gens, e.count)
          for e in prof.key_averages()
          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
         key=lambda r: -r[1],
     )
-    device_ms = sum(ms for _, ms in rows)
+    device_ms = sum(ms for _, ms, _ in rows)
     return {
         "profiled_gens": gens,
         "device_ms_per_gen": device_ms if rows else "not measured",
         "device_busy_share": device_ms / wall_ms_per_gen if rows else "not measured",
-        "top_device_ms_per_gen": [[name[:70], ms] for name, ms in rows[:8]],
+        "top_device_ms_per_gen": [[name[:70], ms, count] for name, ms, count in rows[:8]],
     }
 
 
@@ -474,6 +528,7 @@ def phase_run(port, kernels, results):
                 "start_best": start_best, "best": best}
         print(json.dumps(line), flush=True)
         results[layout]["launches"] = launches[layout]
+        results[layout]["gens_per_s"] = gens / seconds
         check(gens == RUN_GENS, f"{layout}: ran {gens} generations")
         check(launches[layout] == gens and sum(launches.values()) == gens,
               f"{layout}: launches {launches} for {gens} generations")
@@ -1966,6 +2021,336 @@ def phase_order_runs(port, kernels, results):
         torch.cuda.empty_cache()
 
 
+def island_objective(name: str, L: int):
+    from libpga_tpu_torch import objectives as obj
+
+    if name == "tsp":
+        return obj.make_tsp_coords(obj.random_tsp_coords(L, seed=2), duplicate_mode="genes")
+    return obj.get(name)
+
+
+def island_draws(fs, geom, I, steps, cross, mutate, gen, device, multigen):
+    """Random injected draws with a leading island axis (the multigen
+    kernel's with a sub-generation axis after it)."""
+    import torch
+
+    lead = (I, steps) if multigen else (I,)
+    G, K, L = geom.G, geom.K, geom.L
+
+    def rand(*shape):
+        return torch.rand(lead + shape, generator=gen, device=device)
+
+    return fs.Draws(
+        sel_u=rand(G, K, 2),
+        cross=(rand(G, K, L) < 0.5).to(torch.uint8) if cross == "uniform" else None,
+        mut_u=rand(G, K, 4),
+        gauss=rand(3, G, K, L) if mutate == "gaussian" else None,
+        fill=rand(G, K, L) if cross == "order" else None,
+        tie=torch.randint(0, 2**32, lead + (G, K), generator=gen, device=device)
+        if multigen else None,
+    )
+
+
+def phase_island_compare(fs, device, results):
+    """Island launches of the deme, order and multigen kernels (the
+    islands a second grid axis) against their plain version, against I
+    single-population launches with each island's seed or draws, and
+    with one island against the single launch; times the island launch
+    beside its bound and beside the loop of I single launches."""
+    import torch
+
+    from libpga_tpu_torch.ops.evaluate import evaluate
+
+    for name, kernel, I, S, L, cross, mutate, oname, steps in ISLAND_CASES:
+        multigen = kernel == "multigen_breed"
+        geom = fs.resolve_geometry(S, L, crossover=cross, multigen=multigen)
+        o = island_objective(oname, L)
+        kw = dict(crossover=cross, mutate=mutate, obj_id=o.fused_id, mparams=torch.tensor(
+            [0.15, 0.05] if mutate == "gaussian" else [0.05, 0.0], device=device))
+        if oname == "tsp":
+            kw.update(coords=o.coords.to(device), penalty=o.penalty)
+        gen = torch.Generator(device=device).manual_seed(S + L + I)
+        g = torch.rand((I, geom.Pp, L), generator=gen, device=device)
+        g[:, S:] = 0.0
+        s = torch.full((I, geom.Pp), -torch.inf, device=device)
+        s[:, :S] = evaluate(o, g[:, :S].reshape(-1, L)).view(I, S)
+        seeds = torch.randint(0, 2**62, (I,), generator=gen, device=device)
+        tie = fs.draw_tie_words(gen, I * geom.Pp, device).view(I, geom.Pp)
+        G, K = geom.G, geom.K
+        real = torch.arange(geom.Pp, device=device) < S
+        errs = []
+        for parity in range(geom.parities):
+            ranks = None if multigen else fs.compute_ranks(s, geom, parity, tie)
+
+            def launch(i, n=None, plain=False, **x):
+                """Islands i .. i + n - 1 in one launch (n given), or island
+                i in a single-population launch; ``plain``: the plain
+                version of the island launch."""
+                pick = slice(i, i + n) if n else i
+                if multigen:
+                    if plain:
+                        return fs.multigen_breed_reference(
+                            g[pick], s[pick], geom, parity, steps, math.inf, **x, **kw)
+                    return fs.multigen_breed(g[pick], s[pick], geom, parity, steps, None,
+                                             islands=n, **x, **kw)
+                r = ranks[i * G:(i + (n or 1)) * G]
+                if plain:
+                    d = x.get("draws") or fs.island_philox_draws(x["seed"], G, K, L, mutate, cross)
+                    return fs.deme_breed_reference(g[pick], r, geom, parity, d, **kw)
+                return fs.deme_breed(g[pick], r, geom, parity, islands=n, **x, **kw)
+
+            draws = island_draws(fs, geom, I, steps, cross, mutate, gen, device, multigen)
+            for mode, x in (("injected", dict(draws=draws)), ("philox", dict(seed=seeds))):
+                got, want = launch(0, I, **x), launch(0, I, plain=True, **x)
+                torch.cuda.synchronize()
+                tag = f"islands {name} parity {parity} {mode}"
+                if mutate == "gaussian":
+                    check(bool(torch.isclose(got[0], want[0], rtol=0, atol=GAUSS_ATOL).all()),
+                          f"{tag}: genomes differ beyond {GAUSS_ATOL}")
+                else:
+                    check(torch.equal(got[0], want[0]), f"{tag}: genomes differ")
+                check(bool(torch.isinf(got[1][:, ~real]).all()), f"{tag}: pad scores not -inf")
+                a, b = got[1][:, real], want[1][:, real]
+                if oname == "onemax":
+                    err, tol = float((a - b).abs().max()), SCORE_ATOL
+                else:
+                    err = float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+                    tol = TSP_RTOL if oname == "tsp" else FUSED_RTOL
+                check(err <= tol, f"{tag}: score error {err} above {tol}")
+                errs.append(err)
+                for i in range(I):
+                    one = launch(i, **(dict(draws=draws.island(i)) if mode == "injected"
+                                       else dict(seed=seeds[i:i + 1])))
+                    check(torch.equal(got[0][i], one[0]) and torch.equal(got[1][i], one[1]),
+                          f"{tag}: island {i} differs from its single-population launch")
+            solo, one = launch(0, 1, seed=seeds[:1]), launch(0, seed=seeds[:1])
+            check(torch.equal(solo[0][0], one[0]) and torch.equal(solo[1][0], one[1]),
+                  f"islands {name}: one island differs from the single-population launch")
+            del draws
+
+        # Times at parity 0 (the last parity's ranks serve the loop too).
+        out = torch.empty_like(g)
+        work = [torch.empty_like(g), torch.empty_like(g)] if multigen else None
+
+        def island_launch():
+            if multigen:
+                return fs.multigen_breed(g, s, geom, 0, steps, None, seed=seeds, out=out,
+                                         work=work, islands=I, **kw)
+            return fs.deme_breed(g, ranks, geom, 0, seed=seeds, out=out, islands=I, **kw)
+
+        def single_launches():
+            for i in range(I):
+                if multigen:
+                    fs.multigen_breed(g[i], s[i], geom, 0, steps, None, seed=seeds[i:i + 1],
+                                      out=out[i], work=[w[i] for w in work], **kw)
+                else:
+                    fs.deme_breed(g[i], ranks[i * G:(i + 1) * G], geom, 0,
+                                  seed=seeds[i:i + 1], out=out[i], **kw)
+
+        reps = 10 if multigen else 20
+        ms, loop_ms = cuda_ms(island_launch, reps), cuda_ms(single_launches, reps)
+        plain_ms = cuda_ms(lambda: launch(0, I, plain=True, seed=seeds), 2)
+        if multigen:
+            bound_ms, bound_by = multigen_bound(geom, steps)
+            rank_ms = chain = None
+        else:
+            rank_ms = cuda_ms(lambda: fs.compute_ranks(s, geom, 0, tie), 20)
+            bound_ms, bound_by, chain = (order_bound(geom, True, L) if cross == "order"
+                                         else (*breed_bound(geom), None))
+        line = {"phase": "island_compare", "case": name, "kernel": kernel, "islands": I,
+                "island_shape": [S, L], "layout": geom.layout, "K": K, "D": geom.D,
+                "Pp": geom.Pp, "steps": steps, "genomes_equal": mutate != "gaussian",
+                "single_launches_equal": True, "one_island_equal": True,
+                "max_err": max(errs), "kernel_ms": ms, "loop_ms": loop_ms,
+                "loop_over_island": loop_ms / ms, "plain_ms": plain_ms, "rank_ms": rank_ms,
+                "bound_ms": I * bound_ms, "bound_by": bound_by, "chain_steps": chain,
+                "kernel_over_bound": ms / (I * bound_ms)}
+        print(json.dumps(line), flush=True)
+        r = {k: line[k] for k in ("case", "ms", "loop_ms", "plain_ms", "rank_ms", "bound_ms",
+                                  "bound_by", "layout", "K", "D", "steps")
+             if k in line} | {"ms": ms, "max_abs_err": max(errs), "shape": [I, S, L]}
+        if kernel in results:
+            results[kernel].setdefault("other_cases", {})[name] = r
+            results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], max(errs))
+        else:
+            results[kernel] = r
+        del g, s, out, work
+        torch.cuda.empty_cache()
+
+
+def island_solver(port, shape, seed, objective="onemax", **config):
+    """A solver holding ``shape`` = (islands, rows, genes) populations
+    through the pga_* API."""
+    I, S, L = shape
+    pga = port.pga_init(seed=seed, config=port.PGAConfig(**config))
+    for _ in range(I):
+        port.pga_create_population(pga, S, L)
+    port.pga_set_objective_function(pga, objective)
+    return pga
+
+
+def best_of(pga) -> float:
+    return max(pga.get_best_with_score(h)[1] for h in pga._handles())
+
+
+def phase_island_run(port, kernels, results, single, multigen):
+    """pga_run_islands at bench.py's island config: launches, gens/s,
+    busy share, the migration's ms per epoch and the ratio to the single
+    1,048,576x100 run of this script, at one and at 8 generations per
+    launch; a target run; TSP islands through the order kernel."""
+    import torch
+
+    from libpga_tpu_torch.objectives import make_tsp_coords, random_tsp_coords
+    from libpga_tpu_torch.ops.crossover import order_preserving_crossover
+    from libpga_tpu_torch.ops.mutate import make_swap_mutate
+    from libpga_tpu_torch.parallel import islands as pis
+
+    I, S, L = ISLAND_RUN
+    for T, key in ((None, "islands"), (ISLAND_T, "islands_multigen")):
+        pga = island_solver(port, ISLAND_RUN, 7, generations_per_launch=T)
+        start_best = max(float(p.genomes.sum(dim=1).max()) for p in pga._populations)
+        check(port.pga_run_islands(pga, ISLAND_M, ISLAND_M, ISLAND_PCT) == ISLAND_M, "island warm-up")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        before = pga.launches
+        t0 = time.perf_counter()
+        gens = port.pga_run_islands(pga, ISLAND_GENS, ISLAND_M, ISLAND_PCT)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        want = ISLAND_GENS if T is None else ISLAND_GENS // ISLAND_M * math.ceil(ISLAND_M / T)
+        best = best_of(pga)
+        check(gens == ISLAND_GENS, f"islands T={T}: ran {gens} generations")
+        check(launches[key] == want and sum(launches.values()) == want
+              and pga.launches - before == want,
+              f"islands T={T}: launches {launches} for {gens} generations, want {want}")
+        check(best > start_best + 10.0 and best < L, f"islands T={T}: best {start_best} -> {best}")
+        for p in pga._populations:
+            check(bool(torch.isclose(p.scores, p.genomes.sum(dim=1), rtol=0, atol=SCORE_ATOL).all()),
+                  f"islands T={T}: scores are not the genomes' onemax")
+        g = torch.stack([p.genomes for p in pga._populations])
+        s = torch.stack([p.scores for p in pga._populations])
+        # The island breed on the run's evolved islands (the random start of
+        # island_compare aside): one generation (ranks, seeds, launch), or
+        # one launch of T generations.
+        breed, out = pga._islands[(S, L, I)], torch.empty_like(g)
+        if T is None:
+            breed_ms = cuda_ms(lambda: breed(g, s, 0, pga.generator, out=out), 20)
+        else:
+            work = [torch.empty_like(g), torch.empty_like(g)]
+            breed_ms = cuda_ms(lambda: breed(g, s, 0, T, math.inf, pga.generator, out=out,
+                                             work=work), 5)
+            del work
+        migrate_ms = cuda_ms(lambda: pis.migrate_local(g, s, int(S * ISLAND_PCT), "ring"), 20)
+        del g, s, out
+        ms_per_gen = 1e3 * seconds / gens
+        ref = (single["pingpong"]["gens_per_s"] if T is None
+               else 1e3 / multigen["riffle"]["shapes"][1 << 20]["ms_per_gen"])
+        prof = profile_generations(port, pga, ms_per_gen, ISLAND_PROFILE_GENS,
+                                   run=lambda n: port.pga_run_islands(pga, n, ISLAND_M, ISLAND_PCT))
+        line = {"phase": "island_run", "islands": I, "island_shape": [S, L], "m": ISLAND_M,
+                "pct": ISLAND_PCT, "generations_per_launch": T, "gens": gens,
+                "launches": launches, "gens_per_s": gens / seconds, "ms_per_gen": ms_per_gen,
+                "migrate_ms_per_epoch": migrate_ms, "breed_ms_on_evolved_islands": breed_ms,
+                "single_1M_gens_per_s": ref, "island_over_single": (gens / seconds) / ref,
+                "start_best": start_best, "best": best, **prof}
+        print(json.dumps(line), flush=True)
+        kernel = "deme_breed" if T is None else "multigen_breed"
+        results[kernel].update(launches=launches[key], run=line)
+        port.pga_deinit(pga)
+        del pga
+        torch.cuda.empty_cache()
+
+    # Target: the stop is seen at an epoch boundary; an epoch earlier the
+    # best was below it.
+    target = 70.0
+    pga = island_solver(port, ISLAND_RUN, 8)
+    gens = port.pga_run_islands(pga, 10_000, ISLAND_M, ISLAND_PCT, target=target)
+    best = best_of(pga)
+    port.pga_deinit(pga)
+    earlier = island_solver(port, ISLAND_RUN, 8)
+    port.pga_run_islands(earlier, gens - ISLAND_M, ISLAND_M, ISLAND_PCT, target=target)
+    prev = best_of(earlier)
+    port.pga_deinit(earlier)
+    print(json.dumps({"phase": "island_target", "islands": I, "island_shape": [S, L],
+                      "target": target, "m": ISLAND_M, "gens": gens, "best": best,
+                      "best_one_epoch_earlier": prev}), flush=True)
+    check(0 < gens < 10_000 and gens % ISLAND_M == 0 and best >= target > prev,
+          f"island target: {gens} generations, best {best}, an epoch earlier {prev}")
+
+    # TSP islands: order crossover, swap mutation, the fused tour score.
+    tsp = make_tsp_coords(random_tsp_coords(ISLAND_TSP[2], seed=2), duplicate_mode="genes")
+    pga = island_solver(port, ISLAND_TSP, 9, objective=tsp)
+    port.pga_set_crossover_function(pga, order_preserving_crossover)
+    port.pga_set_mutate_function(pga, make_swap_mutate(0.5))
+    start_best = max(float(tsp(p.genomes).max()) for p in pga._populations)
+    check(port.pga_run_islands(pga, ISLAND_M, ISLAND_M, ISLAND_PCT) == ISLAND_M, "TSP islands warm-up")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    gens = port.pga_run_islands(pga, ISLAND_TSP_GENS, ISLAND_M, ISLAND_PCT)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    best = best_of(pga)
+    print(json.dumps({"phase": "island_tsp_run", "islands": ISLAND_TSP[0],
+                      "island_shape": list(ISLAND_TSP[1:]), "gens": gens, "launches": launches,
+                      "gens_per_s": gens / seconds, "ms_per_gen": 1e3 * seconds / gens,
+                      "start_best": start_best, "best": best}), flush=True)
+    check(gens == ISLAND_TSP_GENS and launches["islands_order"] == gens
+          and sum(launches.values()) == gens, f"TSP islands: launches {launches} for {gens}")
+    check(best > start_best, f"TSP islands: best {start_best} -> {best}")
+    results["order_breed"]["launches"] = launches["islands_order"]
+    port.pga_deinit(pga)
+
+
+def phase_rastrigin_islands(port, kernels):
+    """The five annealing phases of tools/bench_rastrigin.py through
+    pga_run_islands: 8 x 16,384 x 30 Rastrigin, elitism 2, gaussian
+    mutation, ring migration of 5% every 20 generations, 400 generations
+    a phase, read every 100. The best must not fall within a phase (within
+    FUSED_RTOL: each run_islands call rescores its islands with torch's
+    cos where the kernel used cosf) and must rise over the run."""
+    import torch
+
+    from libpga_tpu_torch.objectives import rastrigin
+    from libpga_tpu_torch.ops.mutate import make_gaussian_mutate
+
+    pga = island_solver(port, RASTRIGIN_ISLANDS, 11, objective="rastrigin", elitism=2)
+    start = max(float(rastrigin(p.genomes).max()) for p in pga._populations)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    phases = []
+    for rate, sigma in RASTRIGIN_PHASES:
+        port.pga_set_mutate_function(pga, make_gaussian_mutate(rate=rate, sigma=sigma))
+        bests = []
+        for _ in range(RASTRIGIN_GENS // RASTRIGIN_CHUNK):
+            ran = port.pga_run_islands(pga, RASTRIGIN_CHUNK, RASTRIGIN_M, RASTRIGIN_PCT)
+            check(ran == RASTRIGIN_CHUNK, f"rastrigin islands: ran {ran}")
+            bests.append(best_of(pga))
+        check(all(b >= a - FUSED_RTOL * abs(a) for a, b in zip(bests, bests[1:])),
+              f"rastrigin islands, sigma {sigma}: the best fell, {bests}")
+        phases.append({"rate": rate, "sigma": sigma, "best_every_100": bests})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    total = len(RASTRIGIN_PHASES) * RASTRIGIN_GENS
+    best_genome = torch.as_tensor(port.pga_get_best_all(pga),
+                                  device=pga.population(port.PopulationHandle(0)).genomes.device)[None]
+    best = float(rastrigin(best_genome)[0])
+    print(json.dumps({"phase": "rastrigin_islands", "islands": RASTRIGIN_ISLANDS[0],
+                      "island_shape": list(RASTRIGIN_ISLANDS[1:]), "elitism": 2,
+                      "m": RASTRIGIN_M, "pct": RASTRIGIN_PCT, "gens": total,
+                      "launches": launches, "seconds": seconds, "gens_per_s": total / seconds,
+                      "start_best": start, "phases": phases, "best_rastrigin": best,
+                      "genes_at_half": float((best_genome - 0.5).abs().mean())}), flush=True)
+    check(launches["islands"] == total and sum(launches.values()) == total,
+          f"rastrigin islands: launches {launches} for {total} generations")
+    check(phases[-1]["best_every_100"][-1] > start, f"rastrigin islands: best {start} -> {best}")
+    port.pga_deinit(pga)
+
+
 def main() -> int:
     import torch
 
@@ -2034,6 +2419,10 @@ def drive(torch, port, onemax, fs, kernels) -> int:
     phase_order_expr_compare(port, fs, device, order_results)
     phase_order_multigen_compare(port, fs, device, order_results)
     phase_order_runs(port, kernels, order_results)
+    island_results = {}
+    phase_island_compare(fs, device, island_results)
+    phase_island_run(port, kernels, island_results, results, mg_results)
+    phase_rastrigin_islands(port, kernels)
 
     entries = []
     for layout, r in results.items():
@@ -2126,6 +2515,19 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "ms_per_gen": r["ms_per_gen"], "gens_per_s": r["gens_per_s"],
             "device_busy_share": r["device_busy_share"], "best": r["best"],
             "best_distinct_cities": r["best_distinct_cities"],
+        })
+    for kernel, r in island_results.items():
+        # ms, plain_ms, bound and loop_ms at the kernel's first case;
+        # launches from the island run at that shape.
+        entries.append({
+            "name": f"{kernel}[islands]", "route": "cuda",
+            "source": "libpga_tpu_torch/csrc/deme_breed.cu",
+            "replaces": ISLAND_REPLACES[kernel][0], "also_replaces": ISLAND_REPLACES[kernel][1],
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "loop_ms": r["loop_ms"], "library_ms": None, "case": r["case"], "shape": r["shape"],
+            "steps": r["steps"], "rank_ms": r.get("rank_ms"),
+            "other_cases": r.get("other_cases", {}),
         })
     print(json.dumps({"kernels": entries}))
     print(smi)

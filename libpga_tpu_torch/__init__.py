@@ -9,7 +9,10 @@ multi-generation kernel per T generations; with an expression
 crossover, mutation or objective, one launch of the expression breed,
 ``csrc/expr_breed.cu`` with hooks generated from the expressions), or
 takes the panmictic path (whole-population selection and operators in
-torch) for small populations and operators without a kernel form. GP symbolic regression (``libpga_tpu_torch.gp``) runs on
+torch) for small populations and operators without a kernel form.
+``PGA.run_islands`` evolves every population as an island with
+migration (``parallel/islands.py``): on the deme path one launch of the
+same kernels breeds every island, the islands a second grid axis. GP symbolic regression (``libpga_tpu_torch.gp``) runs on
 the panmictic path and scores every generation with one launch of the
 stack-machine kernel ``csrc/gp_eval.cu``. The JAX package ``libpga_tpu``
 stays the reference; nothing here imports it or JAX.
@@ -19,8 +22,14 @@ from libpga_tpu_torch.api import (
     pga_create_population,
     pga_deinit,
     pga_get_best,
+    pga_get_best_all,
+    pga_get_best_top,
+    pga_get_best_top_all,
     pga_init,
+    pga_migrate,
+    pga_migrate_between,
     pga_run,
+    pga_run_islands,
     pga_set_crossover_function,
     pga_set_mutate_function,
     pga_set_objective_function,
@@ -54,8 +63,14 @@ __all__ = [
     "pga_create_population",
     "pga_deinit",
     "pga_get_best",
+    "pga_get_best_all",
+    "pga_get_best_top",
+    "pga_get_best_top_all",
     "pga_init",
+    "pga_migrate",
+    "pga_migrate_between",
     "pga_run",
+    "pga_run_islands",
     "pga_set_crossover_function",
     "pga_set_mutate_function",
     "pga_set_objective_function",

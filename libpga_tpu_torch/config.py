@@ -1,7 +1,7 @@
 """Runtime configuration of the PyTorch port.
 
-The subset of ``libpga_tpu.config.PGAConfig`` that ``PGA.run`` reads,
-plus the device the solver runs on. Field names
+The subset of ``libpga_tpu.config.PGAConfig`` that ``PGA.run`` and
+``PGA.run_islands`` read, plus the device the solver runs on. Field names
 match the JAX package except ``deme_size``, ``generations_per_launch``
 and ``layout``, which drop the JAX package's ``pallas_`` prefix
 (``deme_size``: rows per selection deme; on the GPU it fixes which rows
@@ -33,6 +33,12 @@ class PGAConfig:
         takes the strategy's default.
       mutation_rate: probability a child receives a point mutation.
       elitism: top individuals carried unchanged into rows 0..e-1.
+      max_populations: cap on populations per solver (the reference fixes
+        10, ``pga.h:44``; ``pga_init`` without a config sets 10); None is
+        unlimited.
+      migration_topology: the migration ring of ``PGA.run_islands``:
+        "ring" (island i sends to i + 1) or "random" (a ring over a random
+        island order, drawn anew at every migration).
       deme_size: preferred rows per deme (power of two in [128, 1024]);
         None picks the JAX package's measured default, so both packages
         group the same rows into the same cohorts.
@@ -64,6 +70,8 @@ class PGAConfig:
     selection_param: Optional[float] = None
     mutation_rate: float = 0.01
     elitism: int = 0
+    max_populations: Optional[int] = None
+    migration_topology: str = "ring"
     deme_size: Optional[int] = None
     generations_per_launch: Optional[int] = None
     layout: Optional[str] = None
@@ -80,6 +88,8 @@ class PGAConfig:
             raise ValueError("mutation_rate must be in [0, 1]")
         if self.elitism < 0:
             raise ValueError("elitism must be >= 0")
+        if self.migration_topology not in ("ring", "random"):
+            raise ValueError("migration_topology must be 'ring' or 'random'")
         if self.generations_per_launch is not None and self.generations_per_launch < 1:
             raise ValueError("generations_per_launch must be >= 1")
         if self.layout not in (None, "riffle", "pingpong"):

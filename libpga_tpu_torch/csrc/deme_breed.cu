@@ -53,6 +53,20 @@
 // around the run loop) is later work; several generations per launch is
 // multigen_breed_kernel below.
 //
+// Islands. Every kernel of this file also breeds I equal populations in one
+// launch, the islands of PGA.run_islands: the grid gains a second axis,
+// blockIdx.y = the island, and a block offsets every pointer by its island
+// (genomes and work buffers by island*Pp*L, scores by island*Pp, ranks by
+// island*G*K, injected draws by their leading island axis) and keys Philox
+// with seed[island] (breed_core.cuh: island_slice, island_draws, island_io).
+// This replaces the TPU's island path, which vmaps the kernel over the
+// islands (libpga_tpu/parallel/islands.py: make_stacked_pallas_epoch, :110,
+// and make_multigen_stacked_epoch, :192): a generation of 8 islands of
+// 131,072x100 is one launch of 2,048 deme blocks, as a 1,048,576-row
+// population is, against the same byte bound (0.25 ms). One island (grid
+// height 1) is the single-population launch, bit for bit, and an island
+// launch equals a single launch per island with that island's seed.
+//
 // Built with --fmad=false so the float32 selection arithmetic is not
 // contracted into multiply-adds and rounds as the torch version does. The
 // row maps, selection, Philox and the draws shared with expr_breed.cu are in
@@ -163,12 +177,17 @@ __device__ __forceinline__ void breed_genes(
 
 __global__ void __launch_bounds__(THREADS) deme_breed_kernel(
     const float* __restrict__ gin, float* __restrict__ gout, float* __restrict__ sout,
-    const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr,
+    const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr0,
     Geometry geo, Selection sel, int mutate, int obj) {
   extern __shared__ int row_of_rank[];
   __shared__ int s_valid;
   const int g = blockIdx.x, K = geo.K, L = geo.L;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  gin = island_slice(gin, (size_t)geo.Pp * L);
+  gout = island_slice(gout, (size_t)geo.Pp * L);
+  sout = island_slice(sout, (size_t)geo.Pp);
+  ranks = island_slice(ranks, (size_t)geo.G * K);
+  const Draws dr = island_draws(dr0, geo, 1);
   if (threadIdx.x == 0) s_valid = 0;
   __syncthreads();
   int alive = 0;
@@ -282,6 +301,16 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
   unsigned* vis = reinterpret_cast<unsigned*>(smem + K) + threadIdx.x;  // [W][ORDER_THREADS]
   float2* xy = reinterpret_cast<float2*>(smem + K + W * ORDER_THREADS);
   const int Cs = obj == OBJ_TSP ? min(C, L) : 0;
+  const size_t rows = (size_t)G * K;
+  gin = island_slice(gin, (size_t)geo.Pp * L);
+  gout = island_slice(gout, (size_t)geo.Pp * L);
+  sout = island_slice(sout, (size_t)geo.Pp);
+  ranks = island_slice(ranks, rows);
+  dr.sel_u = island_slice(dr.sel_u, rows * 2);
+  dr.fill = island_slice(dr.fill, rows * L);
+  dr.mut_u = island_slice(dr.mut_u, rows * 4);
+  dr.gauss = island_slice(dr.gauss, rows * 3 * L);
+  dr.seed = island_slice(dr.seed, 1);
 
   for (int i = threadIdx.x; i < K; i += ORDER_THREADS) {
     const int r = ranks[(size_t)g * K + i];
@@ -466,8 +495,10 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
 template <bool ORDER>
 __global__ void __launch_bounds__(MG_THREADS) multigen_breed_kernel(
     MultigenIO io, const float* __restrict__ mparams, Draws dr0, Geometry geo, Selection sel,
-    int mutate, int obj, int elitism) {
+    int mutate, int obj, int elitism, int draw_steps) {
   extern __shared__ long long mg_smem[];
+  io = island_io(io, geo);
+  dr0 = island_draws(dr0, geo, draw_steps);
   BreedCtx cx = breed_ctx(dr0, mparams, geo, mutate, obj);
   if (ORDER) cx.ncalls = 2;  // selection and mutation: no crossover bits
   const int lane = threadIdx.x & 31;
@@ -488,11 +519,11 @@ extern "C" int deme_breed_launch(
     const float* gin, float* gout, float* sout, const int* ranks, const float* mparams,
     const float* sel_u, const unsigned char* cross, const float* mut_u, const float* gauss,
     const long long* seed, int P, int Pp, int L, int K, int G, int mode, int S, int D, int q,
-    int sel_kind, int tk, float sel_param, int mutate, int obj, void* stream) {
+    int sel_kind, int tk, float sel_param, int mutate, int obj, int islands, void* stream) {
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed};
-  deme_breed_kernel<<<G, THREADS, K * sizeof(int), (cudaStream_t)stream>>>(
+  deme_breed_kernel<<<dim3(G, islands), THREADS, K * sizeof(int), (cudaStream_t)stream>>>(
       gin, gout, sout, ranks, mparams, dr, geo, sel, mutate, obj);
   return (int)cudaGetLastError();
 }
@@ -505,7 +536,8 @@ extern "C" int order_breed_launch(
     const float* gin, float* gout, float* sout, const int* ranks, const float* mparams,
     const float* sel_u, const float* fill, const float* mut_u, const float* gauss,
     const long long* seed, const float* coords, int C, float penalty, int P, int Pp, int L,
-    int K, int G, int sel_kind, int tk, float sel_param, int mutate, int obj, void* stream) {
+    int K, int G, int sel_kind, int tk, float sel_param, int mutate, int obj, int islands,
+    void* stream) {
   const Geometry geo{P, Pp, L, K, G, MODE_RIFFLE, G, 1, 8};
   const Selection sel{sel_kind, tk, sel_param};
   const OrderDraws dr{sel_u, fill, mut_u, gauss, seed};
@@ -519,20 +551,22 @@ extern "C" int order_breed_launch(
         order_breed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  order_breed_kernel<<<G * (K / ORDER_THREADS), ORDER_THREADS, smem, (cudaStream_t)stream>>>(
-      gin, gout, sout, ranks, mparams, dr, coords, C, penalty, geo, sel, mutate, obj);
+  order_breed_kernel<<<dim3(G * (K / ORDER_THREADS), islands), ORDER_THREADS, smem,
+                       (cudaStream_t)stream>>>(gin, gout, sout, ranks, mparams, dr, coords, C,
+                                               penalty, geo, sel, mutate, obj);
   return (int)cudaGetLastError();
 }
 
 // cross_kind 0: uniform crossover (`cross` bits); 1: order crossover (`fill`
-// genes; D must be 1).
+// genes; D must be 1). draw_steps: the sub-generations each island's
+// injected draws hold (their stride; unread in production mode).
 extern "C" int multigen_breed_launch(
     const float* gin, const float* sin, float* gout, float* sout, float* work0, float* work1,
     int steps, float target, const float* mparams, const float* sel_u,
     const unsigned char* cross, const float* fill, const float* mut_u, const float* gauss,
     const long long* tie, const long long* seed, int P, int Pp, int L, int K, int G, int mode,
     int S, int D, int q, int sel_kind, int tk, float sel_param, int cross_kind, int mutate,
-    int obj, int elitism, void* stream) {
+    int obj, int elitism, int draw_steps, int islands, void* stream) {
   if (D < 1 || D > MG_MAX_D || (cross_kind && D != 1)) return (int)cudaErrorInvalidValue;
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
   const Selection sel{sel_kind, tk, sel_param};
@@ -542,9 +576,11 @@ extern "C" int multigen_breed_launch(
   // (order crossover) the walkers' visited bitmasks.
   const int W = D * K;
   if (cross_kind)
-    return launch_with_smem(multigen_breed_kernel<true>, S, MG_THREADS,
+    return launch_with_smem(multigen_breed_kernel<true>, dim3(S, islands), MG_THREADS,
                             mg_rows_bytes(W) + mg_walk_bytes(W, L, MG_THREADS),
-                            (cudaStream_t)stream, io, mparams, dr, geo, sel, mutate, obj, elitism);
-  return launch_with_smem(multigen_breed_kernel<false>, S, MG_THREADS, (size_t)W * MG_ROW_BYTES,
-                          (cudaStream_t)stream, io, mparams, dr, geo, sel, mutate, obj, elitism);
+                            (cudaStream_t)stream, io, mparams, dr, geo, sel, mutate, obj, elitism,
+                            draw_steps);
+  return launch_with_smem(multigen_breed_kernel<false>, dim3(S, islands), MG_THREADS,
+                          (size_t)W * MG_ROW_BYTES, (cudaStream_t)stream, io, mparams, dr, geo,
+                          sel, mutate, obj, elitism, draw_steps);
 }

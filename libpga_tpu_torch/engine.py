@@ -41,6 +41,15 @@ package's ``_pallas_gate`` routes them (``engine.py:855-984``):
   card warns once per cause, as JAX's ``_warn_xla_fallback`` does; the
   GP operators (``xla_only``) stay quiet.
 
+``run_islands`` evolves every population as an island, migrating the
+top ``pct`` every ``m`` generations (``parallel/islands.py``). Equal
+islands routed to the deme path breed in one launch per generation for
+all islands (the islands are the kernel's second grid axis; at
+``generations_per_launch`` = T > 1, ceil(m / T) launches per epoch);
+with an expression hook, one launch per island per generation; islands
+without a kernel kind, or under 128 rows, take the panmictic epoch.
+Unequal populations run epoch by epoch through ``run`` and ``migrate``.
+
 There is no fallback between device and CPU: the device is the
 config's, and a missing card is an error.
 """
@@ -57,6 +66,7 @@ import numpy as np
 import torch
 
 from libpga_tpu_torch.config import PGAConfig
+from libpga_tpu_torch.objectives.classic import ROWWISE_FUSED
 from libpga_tpu_torch.ops import mutate as _mutate_ops
 from libpga_tpu_torch.ops.breed_expr import crossover_from_expression
 from libpga_tpu_torch.ops.crossover import (
@@ -69,12 +79,15 @@ from libpga_tpu_torch.ops.evaluate import evaluate
 from libpga_tpu_torch.ops.fused_step import (
     is_expression,
     make_fused_run,
+    make_island_breed,
+    make_island_multigen,
     make_multigen_run,
     resolve_geometry,
 )
 from libpga_tpu_torch.ops.mutate import make_point_mutate
 from libpga_tpu_torch.ops.step import make_breed, run_generations
 from libpga_tpu_torch.ops.topk import best_genome, top_k_genomes
+from libpga_tpu_torch.parallel.islands import immigrate, run_islands_stacked
 from libpga_tpu_torch.population import Population, create_population
 
 
@@ -115,7 +128,9 @@ class PGA:
     ``launches`` counts the breed launches of the runs this solver
     returned: on the deme path one per generation, or one per
     ``generations_per_launch`` generations (the last launch of a run
-    may breed fewer); the panmictic path launches none.
+    may breed fewer); an island run one per generation for all islands
+    (with an expression hook one per island), or ceil(m / T) per epoch;
+    the panmictic path launches none.
     """
 
     def __init__(self, seed: Optional[int] = None, config: Optional[PGAConfig] = None):
@@ -139,6 +154,7 @@ class PGA:
         # shape -> (run function, generations per launch; 0 = panmictic)
         self._runs: Dict[Tuple[int, int], Tuple[Callable, int]] = {}
         self._compiled: Dict[str, Callable] = {}  # cached expression equivalents
+        self._islands: dict = {}  # island breeds and runners
         self.launches = 0
 
     # ----------------------------------------------------------- populations
@@ -147,6 +163,7 @@ class PGA:
         self, size: int, genome_len: int, init: str = "random"
     ) -> PopulationHandle:
         """Uniform [0, 1) genomes from the solver's generator."""
+        self._check_population_cap()
         pop = create_population(
             self.generator, size, genome_len, init=init, device=self.device
         )
@@ -174,11 +191,26 @@ class PGA:
             )
         g = g.to(self.device, torch.float32).contiguous()
         s = s.to(self.device, torch.float32).contiguous()
+        self._check_population_cap()
         self._populations.append(Population(genomes=g, scores=s))
         return PopulationHandle(len(self._populations) - 1)
 
+    def _check_population_cap(self) -> None:
+        limit = self.config.max_populations
+        if limit is not None and len(self._populations) >= limit:
+            raise RuntimeError(f"max_populations={limit} reached")
+
     def population(self, handle: PopulationHandle) -> Population:
         return self._populations[handle.index]
+
+    def _handles(self) -> list:
+        return [PopulationHandle(i) for i in range(len(self._populations))]
+
+    def _forget_runs(self) -> None:
+        """Drop the runs, island breeds and runners built for the previous
+        objective or operators."""
+        self._runs.clear()
+        self._islands.clear()
 
     # ------------------------------------------------------------- objective
 
@@ -190,7 +222,7 @@ class PGA:
 
             fn = objectives.get(fn)
         self._objective = fn
-        self._runs.clear()
+        self._forget_runs()
 
     def set_crossover(self, fn: Optional[Callable]) -> None:
         """Crossover ``(p1, p2, rand) -> child`` with ``.batched`` and
@@ -202,7 +234,7 @@ class PGA:
         keeps ``run`` on the deme path; any other operator routes it to
         the panmictic path."""
         self._crossover = fn
-        self._runs.clear()
+        self._forget_runs()
 
     def set_mutate(self, fn: Optional[Callable]) -> None:
         """Mutation ``(genome, rand) -> genome`` with ``.batched`` and
@@ -212,7 +244,7 @@ class PGA:
         operator (``mutate_from_expression``) keeps ``run`` on the deme
         path; any other operator routes it to the panmictic path."""
         self._mutate = fn
-        self._runs.clear()
+        self._forget_runs()
 
     # The deme path's expression equivalents of the builtin crossovers
     # without a kernel kind (JAX's ``_CROSSOVER_EXPRS``, the same source
@@ -346,6 +378,29 @@ class PGA:
                 stacklevel=4,
             )
 
+    def _deme_kw(self) -> dict:
+        """The deme breeds' keywords from the config and the operators."""
+        c = self.config
+        return dict(
+            deme_size=c.deme_size, tournament_size=c.tournament_size,
+            selection=c.selection, selection_param=c.selection_param,
+            crossover=self._crossover_kind(), mutate=self._mutate_kind(),
+            mparams=self._mutate_params(), layout=c.layout, device=self.device,
+        )
+
+    def _panmictic_breed(self) -> Callable:
+        """``ops/step.make_breed`` of the active operators (uniform
+        crossover and point mutation where none is set)."""
+        c = self.config
+        return make_breed(
+            self._crossover or uniform_crossover,
+            self._mutate or make_point_mutate(c.mutation_rate),
+            tournament_size=c.tournament_size,
+            selection_kind=c.selection,
+            selection_param=c.selection_param,
+            elitism=c.elitism,
+        )
+
     def _run_fn(self, size: int, genome_len: int) -> Tuple[Callable, int]:
         """The run function of a shape and its generations per launch
         (0 on the panmictic path)."""
@@ -354,13 +409,7 @@ class PGA:
             c = self.config
             obj = self._require_objective()
             if self.uses_deme_kernel(size, genome_len):
-                kw = dict(
-                    deme_size=c.deme_size, tournament_size=c.tournament_size,
-                    selection=c.selection, selection_param=c.selection_param,
-                    crossover=self._crossover_kind(), mutate=self._mutate_kind(),
-                    mparams=self._mutate_params(), elitism=c.elitism,
-                    layout=c.layout, device=self.device,
-                )
+                kw = dict(self._deme_kw(), elitism=c.elitism)
                 per_launch = c.generations_per_launch or 1
                 fn = None
                 if per_launch > 1:
@@ -379,14 +428,7 @@ class PGA:
             else:
                 per_launch = 0
                 self._warn_panmictic_fallback()
-                fn = make_run_loop(obj, make_breed(
-                    self._crossover or uniform_crossover,
-                    self._mutate or make_point_mutate(c.mutation_rate),
-                    tournament_size=c.tournament_size,
-                    selection_kind=c.selection,
-                    selection_param=c.selection_param,
-                    elitism=c.elitism,
-                ))
+                fn = make_run_loop(obj, self._panmictic_breed())
             self._runs[key] = (fn, per_launch)
         return self._runs[key]
 
@@ -438,3 +480,187 @@ class PGA:
         pop = self._populations[handle.index]
         g, _ = top_k_genomes(pop.genomes, pop.scores, min(k, pop.size))
         return g.cpu().numpy()
+
+    def get_best_all(self) -> np.ndarray:
+        """Best genome across all populations (``pga.h:92``; a stub in the
+        reference): the first best of the first population that holds the
+        highest score."""
+        best_g, best_s = None, -float("inf")
+        for h in self._handles():
+            g, s = self.get_best_with_score(h)
+            if s > best_s:
+                best_g, best_s = g, s
+        if best_g is None:
+            raise RuntimeError("no populations")
+        return best_g
+
+    def get_best_top_all(self, k: int) -> np.ndarray:
+        """Global top-k across all populations (``pga.h:93``; a stub in the
+        reference): each population's top-k, then JAX's merge of the
+        candidates (``np.argsort`` of the negated scores)."""
+        cands_g, cands_s = [], []
+        for pop in self._populations:
+            g, s = top_k_genomes(pop.genomes, pop.scores, min(k, pop.size))
+            cands_g.append(g.cpu().numpy())
+            cands_s.append(s.cpu().numpy())
+        if len({g.shape[1] for g in cands_g}) != 1:
+            raise ValueError("get_best_top_all requires equal genome_len across populations")
+        all_g = np.concatenate(cands_g)
+        order = np.argsort(-np.concatenate(cands_s))[:k]
+        return all_g[order]
+
+    # ------------------------------------------------------------- migration
+
+    def migrate(self, pct: float, order=None) -> None:
+        """Migrate the top ``pct`` between populations (``pga.h:108-111``;
+        an empty stub in the reference): a ring over a random population
+        order, every population sending its top ``int(size * pct)`` to its
+        successor, where they replace the worst. Emigrants are taken
+        before any population receives, so an individual moves one hop.
+        ``order`` is the ring's population order; None draws it with
+        ``torch.randperm`` from the solver's generator."""
+        if not 0.0 <= pct <= 1.0:
+            raise ValueError("migration pct must be in [0, 1]")
+        n = len(self._populations)
+        if n < 2:
+            return
+        emigrants = {}
+        for i, pop in enumerate(self._populations):
+            count = int(pop.size * pct)
+            if count > 0:
+                emigrants[i] = top_k_genomes(pop.genomes, pop.scores, count)
+        if order is None:
+            order = torch.randperm(n, generator=self.generator, device=self.device)
+        order = [int(x) for x in order]
+        for i in range(n):
+            src, dst = order[i], order[(i + 1) % n]
+            if src in emigrants:
+                self._immigrate_into(dst, *emigrants[src])
+
+    def migrate_between(
+        self, src: PopulationHandle, dst: PopulationHandle, pct: float
+    ) -> None:
+        """Copy the top ``pct`` of ``src`` over the worst of ``dst``
+        (``pga.h:112-115``; an empty stub in the reference), ``int(pct *
+        min(sizes))`` individuals (0: nothing). Both need scores."""
+        if not 0.0 <= pct <= 1.0:
+            raise ValueError("migration pct must be in [0, 1]")
+        spop = self._populations[src.index]
+        count = int(min(spop.size, self._populations[dst.index].size) * pct)
+        if count == 0:
+            return
+        self._immigrate_into(dst.index, *top_k_genomes(spop.genomes, spop.scores, count))
+
+    def _immigrate_into(self, dst_index: int, emigrants, escores) -> None:
+        dpop = self._populations[dst_index]
+        if emigrants.shape[1] != dpop.genome_len:
+            raise ValueError("migration requires equal genome_len")
+        g, s = immigrate(dpop.genomes[None].clone(), dpop.scores[None].clone(),
+                         emigrants[None], escores[None])
+        self._populations[dst_index] = Population(genomes=g[0], scores=s[0])
+
+    # --------------------------------------------------------------- islands
+
+    def _island_breed(self, island_size: int, genome_len: int, islands: int):
+        """The island deme breed of ``islands`` equal populations (the
+        counterpart of JAX's ``_pallas_island_breed``), or None where the
+        deme path declines the island shape or the operators (the islands
+        then take the panmictic epoch). At ``generations_per_launch`` = T
+        > 1 the multi-generation island breed, where the objective has a
+        rowwise fused or expression form and the kernel admits the shape;
+        otherwise it warns, as JAX does, and breeds one generation per
+        launch. Cached until the objective or an operator changes."""
+        if not self.uses_deme_kernel(island_size, genome_len):
+            return None
+        key = (island_size, genome_len, islands)
+        if key in self._islands:
+            return self._islands[key]
+        c, obj = self.config, self._require_objective()
+        kw = self._deme_kw()
+        T = c.generations_per_launch
+        breed = None
+        if T is not None and T > 1:
+            if (getattr(obj, "fused_id", None) in ROWWISE_FUSED
+                    or getattr(obj, "expr_fused", None) is not None):
+                breed = make_island_multigen(island_size, genome_len, obj, islands, T,
+                                             elitism=c.elitism, **kw)
+                if breed is None:
+                    warnings.warn(
+                        f"generations_per_launch={T} requested but the island multi-generation"
+                        " kernel declined — falling back to the one-generation island path",
+                        stacklevel=3,
+                    )
+            else:
+                warnings.warn(
+                    f"generations_per_launch={T} requested but the objective has no in-kernel"
+                    " (rowwise fused or expression) form — islands fall back to the"
+                    " one-generation path",
+                    stacklevel=3,
+                )
+        if breed is None:
+            breed = make_island_breed(island_size, genome_len, obj, islands,
+                                      elitism=c.elitism, **kw)
+        self._islands[key] = breed
+        return breed
+
+    def run_islands(
+        self, n: int, m: int, pct: float, target: Optional[float] = None, mesh=None,
+    ) -> int:
+        """Island GA over ALL populations (``pga.h:144-150``; an empty stub
+        in the reference): ``n`` generations, the top ``pct`` of every
+        island migrating every ``m`` generations along
+        ``config.migration_topology``, stopping at the first epoch whose
+        best reaches ``target`` (the target is checked once per epoch).
+        Equal populations run stacked (``parallel/islands.py``): on the
+        deme path one launch breeds every island; unequal ones run epoch by
+        epoch through :meth:`run` and :meth:`migrate`. Returns the
+        generations run. ``mesh`` (sharded islands) is not ported yet."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharded islands (mesh=) are not ported yet: ROADMAP Queue A item 6 (sharding)"
+            )
+        if not self._populations:
+            raise RuntimeError("no populations")
+        obj = self._require_objective()
+        if len({(p.size, p.genome_len) for p in self._populations}) != 1:
+            return self._run_islands_hetero(n, m, pct, target)
+        stacked = torch.stack([p.genomes for p in self._populations])
+        I, S, L = stacked.shape
+        breed = self._island_breed(S, L, I)
+        if breed is None:
+            if "panmictic" not in self._islands:
+                self._warn_panmictic_fallback()
+                self._islands["panmictic"] = self._panmictic_breed()
+            breed = self._islands["panmictic"]
+        # The epoch-level elite carry: only for a deme breed whose kernel
+        # does not score the children (the others apply elitism themselves).
+        epoch_elitism = (
+            self.config.elitism if hasattr(breed, "geom") and not breed.fused else 0
+        )
+        before = getattr(breed, "launches", 0)
+        genomes, scores, gens = run_islands_stacked(
+            breed, obj, stacked, self.generator, n=n, m=m, pct=pct, target=target,
+            topology=self.config.migration_topology, runner_cache=self._islands,
+            elitism=epoch_elitism,
+        )
+        for i in range(I):
+            self._populations[i] = Population(genomes=genomes[i], scores=scores[i])
+        self.launches += getattr(breed, "launches", 0) - before
+        return gens
+
+    def _run_islands_hetero(
+        self, n: int, m: int, pct: float, target: Optional[float]
+    ) -> int:
+        """Unequal population shapes: epochs of :meth:`run` per
+        population, then :meth:`migrate` (JAX's ``_run_islands_hetero``).
+        Returns the most generations any population ran."""
+        gens = 0
+        while gens < n:
+            chunk = min(m, n - gens)
+            gens += max(self.run(chunk, target=target, population=h) for h in self._handles())
+            if target is not None:
+                if max(self.get_best_with_score(h)[1] for h in self._handles()) >= target:
+                    break
+            if gens < n:
+                self.migrate(pct)
+        return gens

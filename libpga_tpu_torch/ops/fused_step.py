@@ -65,6 +65,15 @@ the generated expression unit breeds (B6 x B4): the same loop, the
 children of the expression breed. Both take order crossover too (one
 riffle deme per group, as JAX): each sub-generation walks every child
 before the mutation and the score.
+
+**Islands** (``PGA.run_islands``): I equal populations breed in ONE launch
+of the deme, order or multi-generation kernel, the islands a second grid
+axis (:func:`make_island_breed`, :func:`make_island_multigen`). Genomes
+carry a leading island axis (I, Pp, L), the ranks of every island come
+from one sort over (I*G, K), each island has its own launch seed, and
+injected draws a leading island axis. Each island computes exactly what a
+single-population launch of its tensors and seed computes; the plain
+versions breed the islands' demes as the demes of one population.
 """
 
 from __future__ import annotations
@@ -484,12 +493,17 @@ def compute_ranks(
     int32. ``scores`` are (Pp,) in physical order; ``tie`` (Pp,) int64
     words in [0, 2^31) in cohort order. Total order: score descending
     with NaN as -inf, then tie word ascending; pad rows get the maximal
-    word, so they rank after every real row."""
+    word, so they rank after every real row.
+
+    Islands: ``scores`` and ``tie`` (I, Pp) give ``(I*G, K)``, island i's
+    demes in rows ``[i*G, (i+1)*G)``, from one sort over every island's
+    demes (JAX's flattened sort, ``pallas_step.py:2280-2330``,
+    ``:2578-2605``)."""
     read, _ = geom.row_maps(parity, scores.device)
-    s = scores[read]
+    s = scores[..., read].reshape(-1, geom.K)
     s = torch.where(torch.isnan(s), -torch.inf, s)
-    tie = torch.where(read >= geom.P, PAD_TIE, tie.view(geom.G, geom.K))
-    return _ranks_by_key(s, tie)
+    tie = torch.where(read >= geom.P, PAD_TIE, tie.reshape(-1, geom.G, geom.K))
+    return _ranks_by_key(s, tie.reshape(-1, geom.K))
 
 
 def kernel_ranks(
@@ -543,10 +557,40 @@ class Draws:
     expr_gene: Optional[torch.Tensor] = None
     expr_row: Optional[torch.Tensor] = None
 
-    def at(self, t: int) -> "Draws":
-        """Sub-generation ``t`` of draws with a leading axis."""
-        parts = (getattr(self, f.name) for f in dataclasses.fields(self))
-        return Draws(*(None if x is None else x[t] for x in parts))
+    def _map(self, fn) -> "Draws":
+        parts = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        return Draws(**{k: None if x is None else fn(k, x) for k, x in parts.items()})
+
+    def at(self, t: int, axis: int = 0) -> "Draws":
+        """Sub-generation ``t`` of draws with a sub-generation axis
+        (``axis`` 1: after an island axis)."""
+        return self._map(lambda _, x: x.select(axis, t))
+
+    def island(self, i: int) -> "Draws":
+        """Island ``i`` of draws with a leading island axis."""
+        return self._map(lambda _, x: x[i])
+
+    def flat(self) -> "Draws":
+        """Draws with a leading island axis (I, ...) as the draws of one
+        population of I*G demes: island i's deme g becomes deme i*G + g
+        (the plane-first ``gauss`` and ``expr_gene``, (I, n, G, ...),
+        become (n, I*G, ...))."""
+        def merge(name, x):
+            if name in ("gauss", "expr_gene"):
+                x = x.transpose(0, 1)
+                return x.reshape(x.shape[0], -1, *x.shape[3:])
+            return x.reshape(-1, *x.shape[2:])
+
+        return self._map(merge)
+
+
+def stack_draws(draws: Sequence[Draws]) -> Draws:
+    """One island's draws per entry, stacked on a leading island axis."""
+    return Draws(**{
+        f.name: None if getattr(draws[0], f.name) is None
+        else torch.stack([getattr(d, f.name) for d in draws])
+        for f in dataclasses.fields(Draws)
+    })
 
 
 def zero_draws(
@@ -677,6 +721,13 @@ def philox_draws(
         sel_u=sel_u, cross=cross, mut_u=mut_u, gauss=gauss, fill=fill,
         tie=call(STREAM_TIE)[0] if tie else None, expr_gene=expr_gene, expr_row=expr_row,
     )
+
+
+def island_philox_draws(seeds: torch.Tensor, *args, **kw) -> Draws:
+    """:func:`philox_draws` of an island launch: island i's draws from
+    its seed ``seeds[i]`` (``seeds`` (I,) int64), on a leading island
+    axis."""
+    return stack_draws([philox_draws(seeds[i:i + 1], *args, **kw) for i in range(seeds.shape[0])])
 
 
 # ---------------------------------------------------------------------
@@ -887,24 +938,33 @@ def deme_breed_reference(
     1)`` are both this. ``coords``/``penalty`` serve ``FUSED_TSP``;
     ``objective`` (a ``from_expression`` objective) scores in place of
     ``obj_id``. Returns ``(children (Pp, L), scores (Pp,) or None)``; scores of pad
-    rows (>= P) are -inf."""
+    rows (>= P) are -inf.
+
+    Islands: ``genomes`` (I, Pp, L), ``ranks`` (I*G, K) and ``draws``
+    with a leading island axis breed every island's demes as the demes
+    of one population (island i's deme g is deme i*G + g) and give
+    ``(children (I, Pp, L), scores (I, Pp) or None)``: island i's rows
+    are what the single-population breed of island i's tensors gives."""
     read, write = geom.row_maps(parity, genomes.device)
-    valid = torch.clamp((read < geom.P).sum(dim=1), min=1).to(torch.float32)
+    lead, Pp, L = genomes.shape[:-2], geom.Pp, geom.L
+    n = genomes[..., 0, 0].numel()
+    valid = torch.clamp((read < geom.P).sum(dim=1), min=1).to(torch.float32).repeat(n)
     child = breed_children(
-        genomes[read], ranks, valid, draws,
+        genomes.reshape(n, Pp, L)[:, read].reshape(-1, geom.K, L), ranks, valid,
+        draws.flat() if lead else draws,
         tournament_size=tournament_size, selection=selection,
         selection_param=selection_param, mutate=mutate, mparams=mparams,
         crossover=crossover,
     )
     if out is None:
         out = torch.empty_like(genomes)
-    out[write.reshape(-1)] = child.reshape(-1, geom.L)
+    out.view(n, Pp, L)[:, write.reshape(-1)] = child.reshape(n, -1, L)
     if obj_id == FUSED_NONE and objective is None:
         return out, None
-    s = fused_scores(obj_id, child, coords, penalty, objective)
+    s = fused_scores(obj_id, child, coords, penalty, objective).reshape(n, geom.G, geom.K)
     s = torch.where(write >= geom.P, -torch.inf, s)
-    scores = torch.empty(geom.Pp, device=genomes.device)
-    scores[write.reshape(-1)] = s.reshape(-1)
+    scores = torch.empty(lead + (Pp,), device=genomes.device)
+    scores.view(n, Pp)[:, write.reshape(-1)] = s.reshape(n, -1)
     return out, scores
 
 
@@ -917,6 +977,7 @@ def deme_breed(
     seed: Optional[torch.Tensor] = None,
     draws: Optional[Draws] = None,
     out: Optional[torch.Tensor] = None,
+    islands: Optional[int] = None,
     **kw,
 ):
     """One breed launch. On a CUDA tensor it launches the kernel of the
@@ -925,22 +986,28 @@ def deme_breed(
     deme-breed kernel; order, the order-breed kernel) and raises if that
     fails; on a CPU tensor it runs the plain version. Exactly one of
     ``seed`` (int64 tensor of one element: production Philox mode) or
-    ``draws`` (injected mode) is given."""
+    ``draws`` (injected mode) is given. ``islands`` = I breeds I
+    populations in one launch of the deme- or order-breed kernel (see
+    :func:`deme_breed_reference`; one seed per island, (I,)); the
+    expression kernels take one population per launch."""
     if (seed is None) == (draws is None):
         raise ValueError("pass exactly one of seed= or draws=")
     if genomes.is_cuda:
         if _expression_hooked(kw):
+            if islands is not None:
+                raise ValueError("the expression breed takes one population per launch")
             launch = kernels.expr_breed_cuda
-        elif kw.get("crossover") == "order":
-            launch = kernels.order_breed_cuda
         else:
-            launch = kernels.deme_breed_cuda
+            launch = (kernels.order_breed_cuda if kw.get("crossover") == "order"
+                      else kernels.deme_breed_cuda)
+            kw["islands"] = islands
         return launch(
             genomes, ranks, geom, parity, seed=seed, draws=draws, out=out,
             **kw,
         )
     if draws is None:
-        draws = philox_draws(
+        draw = philox_draws if islands is None else island_philox_draws
+        draws = draw(
             seed, geom.G, geom.K, geom.L, kw.get("mutate", "point"),
             kw.get("crossover", "uniform"),
         )
@@ -999,21 +1066,34 @@ def multigen_breed_reference(
     0 is that permutation alone.
 
     Returns ``(genomes (Pp, L), scores (Pp,))``; rows go into ``out``
-    when given."""
+    when given.
+
+    Islands: ``genomes`` (I, Pp, L) and ``scores`` (I, Pp), ``seed``
+    (I,) one per island, or injected ``draws`` (I, T, ...): every
+    island's groups breed as the groups of one population, and island
+    i's rows are what the single-population launch of island i's
+    tensors gives."""
     if (seed is None) == (draws is None):
         raise ValueError("pass exactly one of seed= or draws=")
     if objective is None and obj_id not in ROWWISE_FUSED:
         raise ValueError(f"objective id {obj_id} has no rowwise fused form: multigen needs one")
-    G, K, L, D = geom.G, geom.K, geom.L, geom.D
+    G, K, L, D, Pp = geom.G, geom.K, geom.L, geom.D, geom.Pp
+    lead = genomes.shape[:-2]
+    n = genomes[..., 0, 0].numel()
     read, write = geom.row_maps(parity, genomes.device)
-    alive = read < geom.P
+    alive = (read < geom.P).repeat(n, 1)
     valid = torch.clamp(alive.sum(dim=1), min=1).to(torch.float32)
-    g, s = genomes[read], scores[read]
+    g = genomes.reshape(n, Pp, L)[:, read].reshape(n * G, K, L)
+    s = scores.reshape(n, Pp)[:, read].reshape(n * G, K)
     for t in range(int(steps)):
-        best = torch.where(alive, s, -torch.inf).reshape(geom.S, D * K).amax(dim=1)
-        frozen = (best >= target).repeat_interleave(D)[:, None]  # (G, 1); NaN: False
-        d = draws.at(t) if draws is not None else philox_draws(
-            seed, G, K, L, mutate, crossover, sub_generation=t, tie=True)
+        best = torch.where(alive, s, -torch.inf).reshape(n * geom.S, D * K).amax(dim=1)
+        frozen = (best >= target).repeat_interleave(D)[:, None]  # (n*G, 1); NaN: False
+        if draws is not None:
+            d = draws.at(t, axis=1).flat() if lead else draws.at(t)
+        else:
+            draw = philox_draws if not lead else island_philox_draws
+            d = draw(seed, G, K, L, mutate, crossover, sub_generation=t, tie=True)
+            d = d.flat() if lead else d
         child = breed_children(
             g, kernel_ranks(s, d.tie, alive), valid, d,
             tournament_size=tournament_size, selection=selection,
@@ -1021,16 +1101,17 @@ def multigen_breed_reference(
             elite_rows=elitism, crossover=crossover,
         )
         if objective is not None:
-            cs = objective.kernel_rowwise(child.reshape(-1, L), warp_order=True).reshape(G, K)
+            cs = objective.kernel_rowwise(child.reshape(-1, L), warp_order=True).reshape(n * G, K)
         else:
             cs = rowwise_scores(obj_id, child, warp_order=True)
         s = torch.where(frozen, s, cs)
         g = torch.where(frozen[..., None], g, child)
     if out is None:
         out = torch.empty_like(genomes)
-    out[write.reshape(-1)] = g.reshape(-1, L)
-    s_out = torch.empty(geom.Pp, device=genomes.device)
-    s_out[write.reshape(-1)] = torch.where(write >= geom.P, -torch.inf, s).reshape(-1)
+    out.view(n, Pp, L)[:, write.reshape(-1)] = g.reshape(n, -1, L)
+    s_out = torch.empty(lead + (Pp,), device=genomes.device)
+    s = torch.where(write >= geom.P, -torch.inf, s.reshape(n, G, K))
+    s_out.view(n, Pp)[:, write.reshape(-1)] = s.reshape(n, -1)
     return out, s_out
 
 
@@ -1044,6 +1125,7 @@ def multigen_breed(
     *,
     out: Optional[torch.Tensor] = None,
     work=None,
+    islands: Optional[int] = None,
     **kw,
 ):
     """One multi-generation launch: ``steps`` generations of every group
@@ -1053,10 +1135,19 @@ def multigen_breed(
     ``multigen_breed_kernel``) and raises if that fails (``work``: its
     scratch buffers); on a CPU tensor it runs the plain version. Exactly
     one of ``seed=`` (production Philox mode) or ``draws=`` (injected
-    mode, with a leading sub-generation axis) is given in ``kw``."""
+    mode, with a leading sub-generation axis) is given in ``kw``.
+    ``islands`` = I breeds I populations in one launch of
+    ``multigen_breed_kernel`` (one seed per island); the expression
+    kernel takes one population per launch."""
     target = math.inf if target is None else float(target)
     if genomes.is_cuda:
-        launch = kernels.expr_multigen_cuda if _expression_hooked(kw) else kernels.multigen_breed_cuda
+        if _expression_hooked(kw):
+            if islands is not None:
+                raise ValueError("the expression breed takes one population per launch")
+            launch = kernels.expr_multigen_cuda
+        else:
+            launch = kernels.multigen_breed_cuda
+            kw["islands"] = islands
         return launch(genomes, scores, geom, parity, steps, target, out=out, work=work, **kw)
     return multigen_breed_reference(genomes, scores, geom, parity, steps, target, out=out, **kw)
 
@@ -1064,11 +1155,12 @@ def multigen_breed(
 def carry_elites(g_prev, s_prev, g2, s2, elitism: int) -> None:
     """Top-e of the previous generation into rows 0..e-1 of the new
     one, scores included (``_carry_elites``), in ``lax.top_k``'s order
-    (``ops/topk.py``). Pad rows carry -inf, so they are never elites.
-    Updates ``g2``/``s2`` in place."""
+    (``ops/topk.py``); with a leading island axis, per island. Pad rows
+    carry -inf, so they are never elites. Updates ``g2``/``s2`` in
+    place."""
     top_s, top_i = top_k(s_prev, elitism)
-    g2[:elitism] = g_prev[top_i]
-    s2[:elitism] = top_s
+    g2[..., :elitism, :] = torch.take_along_dim(g_prev, top_i[..., None], dim=-2)
+    s2[..., :elitism] = top_s
 
 
 # ---------------------------------------------------------------------
@@ -1269,6 +1361,7 @@ def make_fused_multigen(
         )
 
     launch.geom = geom
+    launch.kw = kw
     return launch
 
 
@@ -1317,3 +1410,114 @@ def make_multigen_run(
 
     run.geom = geom
     return run
+
+
+# ---------------------------------------------------------------------
+# Islands: every island's generation in one launch
+# ---------------------------------------------------------------------
+
+
+def make_island_breed(
+    island_size: int, genome_len: int, objective: Callable, islands: int, *,
+    elitism: int = 0, device="cuda", **kw,
+):
+    """One generation of I equal islands, the counterpart of the island
+    path's use of ``make_pallas_breed`` (``engine._pallas_island_breed``
+    and ``islands.make_stacked_pallas_epoch``): one rank sort over every
+    island's demes (:func:`compute_ranks` on (I, Pp) scores), one seed
+    per island, then ONE launch of the deme- or order-breed kernel with
+    the islands as a second grid axis. With an expression crossover,
+    mutation or objective the expression kernel breeds each island in a
+    launch of its own (I launches). An objective without a fused form is
+    scored by its rowwise form on the real rows. Where the kernel scores
+    the children (``breed.fused``), ``elitism`` carries each island's
+    top-e into its rows 0..e-1 after the breed; otherwise the breed
+    carries none and the island epoch applies it after the scoring, as
+    JAX's does. ``kw`` and the geometry are :func:`make_fused_breed`'s
+    at the island size (which, unlike JAX's island path, also fuses the
+    coordinate TSP's score with order crossover).
+
+    Returns ``breed(genomes (I, Pp, L), scores (I, Pp), parity,
+    generator, out=None) -> (genomes, scores)``, children into ``out``
+    when given (never ``genomes`` itself). ``breed.geom`` is the island
+    geometry, ``breed.fused`` whether the kernel scores the children,
+    ``breed.launches`` the kernel launches it has made."""
+    single = make_fused_breed(island_size, genome_len, objective, device=device, **kw)
+    geom, bkw = single.geom, single.kw
+    per_island = _expression_hooked(bkw)
+    fused = bkw["obj_id"] != FUSED_NONE or "objective" in bkw
+    carry = elitism if fused else 0
+    G, P, Pp, L = geom.G, geom.P, geom.Pp, geom.L
+
+    def breed(genomes, scores, parity, generator, out=None):
+        dev = genomes.device
+        tie = draw_tie_words(generator, islands * Pp, dev).view(islands, Pp)
+        ranks = compute_ranks(scores, geom, parity, tie)
+        seeds = torch.randint(0, 2**63 - 1, (islands,), generator=generator, device=dev)
+        if out is None:
+            out = torch.empty_like(genomes)
+        if per_island:
+            s2 = [deme_breed(genomes[i], ranks[i * G:(i + 1) * G], geom, parity,
+                             seed=seeds[i:i + 1], out=out[i], **bkw)[1] for i in range(islands)]
+            s2 = None if s2[0] is None else torch.stack(s2)
+        else:
+            _, s2 = deme_breed(genomes, ranks, geom, parity, seed=seeds, out=out,
+                               islands=islands, **bkw)
+        breed.launches += islands if per_island else 1
+        if s2 is None:
+            s2 = torch.full((islands, Pp), -torch.inf, device=dev)
+            s2[:, :P] = evaluate(objective, out[:, :P].reshape(-1, L)).view(islands, P)
+        if carry:
+            carry_elites(genomes, scores, out, s2, carry)
+        return out, s2
+
+    breed.geom = geom
+    breed.fused = fused
+    breed.islands = islands
+    breed.launches = 0
+    return breed
+
+
+def make_island_multigen(
+    island_size: int, genome_len: int, objective: Callable, islands: int,
+    generations_per_launch: int, **kw,
+):
+    """Several generations of I equal islands per launch, the
+    counterpart of the island path's ``make_pallas_multigen``: ONE
+    launch of the multi-generation kernel with the islands as a second
+    grid axis and one seed per island (with expression hooks, one launch
+    per island). ``kw`` and the geometry are :func:`make_fused_multigen`'s
+    at the island size; None where it declines.
+
+    Returns ``launch(genomes (I, Pp, L), scores (I, Pp), parity, steps,
+    target, generator, out=None, work=None) -> (genomes, scores)`` with
+    ``launch.geom``, ``launch.epoch_chunk`` (T, the generations a launch
+    breeds at most), ``launch.multigen`` and ``launch.launches``."""
+    single = make_fused_multigen(island_size, genome_len, objective, **kw)
+    if single is None:
+        return None
+    geom, mkw = single.geom, single.kw
+    per_island = _expression_hooked(mkw)
+
+    def launch(genomes, scores, parity, steps, target, generator, out=None, work=None):
+        seeds = torch.randint(0, 2**63 - 1, (islands,), generator=generator,
+                              device=genomes.device)
+        if out is None:
+            out = torch.empty_like(genomes)
+        if per_island:
+            s2 = torch.stack([multigen_breed(
+                genomes[i], scores[i], geom, parity, steps, target, seed=seeds[i:i + 1],
+                out=out[i], work=None if work is None else [w[i] for w in work], **mkw,
+            )[1] for i in range(islands)])
+        else:
+            _, s2 = multigen_breed(genomes, scores, geom, parity, steps, target, seed=seeds,
+                                   out=out, work=work, islands=islands, **mkw)
+        launch.launches += islands if per_island else 1
+        return out, s2
+
+    launch.geom = geom
+    launch.epoch_chunk = int(generations_per_launch)
+    launch.multigen = True
+    launch.fused = True
+    launch.launches = 0
+    return launch

@@ -19,8 +19,10 @@ whatever its step count; "multigen_order" with order crossover), the
 expression breed ("expr", every row map; "expr_order", its order
 kernel) and its multi-generation form ("expr_multigen";
 "expr_multigen_order"), the GP evaluator by mode (compacted programs, or
-raw genomes with static trips). A wrapper adds one where it launches its
-kernel and nowhere else.
+raw genomes with static trips), and an island launch of the deme, order
+or multi-generation breed once, whatever its island count ("islands",
+"islands_order", "islands_multigen", "islands_multigen_order"). A
+wrapper adds one where it launches its kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fP
 LAUNCHES = {
     "pingpong": 0, "riffle": 0, "order": 0, "multigen": 0, "multigen_order": 0, "expr": 0,
     "expr_order": 0, "expr_multigen": 0, "expr_multigen_order": 0, "gp_eval_opt": 0,
-    "gp_eval_static": 0,
+    "gp_eval_static": 0, "islands": 0, "islands_order": 0, "islands_multigen": 0,
+    "islands_multigen_order": 0,
 }
 TEMPLATES = ("expr_breed",)  # sources built only with generated hooks in front
 
@@ -174,7 +177,7 @@ def _bindings() -> dict:
                 i, i, i, i, i,          # P, Pp, L, K, G
                 i, i, i, i,             # mode, S, D, q
                 i, i, f,                # sel kind, tournament size, sel param
-                i, i,                   # mutate kind, objective id
+                i, i, i,                # mutate kind, objective id, islands
                 p,                      # stream
             ], i),
             "order_breed_launch": ([
@@ -183,7 +186,7 @@ def _bindings() -> dict:
                 p, i, f,                # coords, C, penalty
                 i, i, i, i, i,          # P, Pp, L, K, G
                 i, i, f,                # sel kind, tournament size, sel param
-                i, i,                   # mutate kind, objective id
+                i, i, i,                # mutate kind, objective id, islands
                 p,                      # stream
             ], i),
             "multigen_breed_launch": ([
@@ -194,6 +197,7 @@ def _bindings() -> dict:
                 i, i, i, i,             # mode, S, D, q
                 i, i, f,                # sel kind, tournament size, sel param
                 i, i, i, i,             # crossover kind, mutate kind, objective id, elitism
+                i, i,                   # draw steps, islands
                 p,                      # stream
             ], i),
             "deme_breed_error_string": ([i], s),
@@ -271,6 +275,16 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _island_lead(islands: Optional[int]) -> tuple:
+    """``(leading shape, island count)`` of a launch: ``((), 1)`` for a
+    single population, ``((I,), I)`` for an island launch of I >= 1."""
+    if islands is None:
+        return (), 1
+    if not 1 <= islands <= 65_535:
+        raise ValueError(f"islands {islands} outside 1..65535 (the grid's second axis)")
+    return (int(islands),), int(islands)
+
+
 def deme_breed_cuda(
     genomes: torch.Tensor,
     ranks: torch.Tensor,
@@ -287,14 +301,18 @@ def deme_breed_cuda(
     mparams: torch.Tensor,
     obj_id: int = 0,
     crossover: str = "uniform",
+    islands: Optional[int] = None,
 ):
     """Launch ``deme_breed_kernel`` of ``csrc/deme_breed.cu`` on the
     current stream: the kernel counterpart of
     ``fused_step.deme_breed_reference`` (same arguments, uniform
     crossover).
     Production mode takes ``seed`` (int64, one element, on the card);
-    injected mode takes ``draws``. Raises on bad arguments or a failed
-    launch; never runs anything else in the kernel's place."""
+    injected mode takes ``draws``. ``islands`` = I breeds I populations
+    in one launch: genomes and ``out`` (I, Pp, L), ranks (I*G, K), one
+    seed per island (I,), draws with a leading island axis; scores come
+    back (I, Pp). Raises on bad arguments or a failed launch; never runs
+    anything else in the kernel's place."""
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("deme_breed_cuda needs CUDA tensors")
@@ -307,28 +325,29 @@ def deme_breed_cuda(
         raise ValueError(f"deme size {K} outside 1..1024")
     if not 1 <= tournament_size <= 16:
         raise ValueError(f"tournament_size {tournament_size} outside 1..16")
-    _check(genomes, "genomes", torch.float32, (Pp, L), dev)
-    _check(ranks, "ranks", torch.int32, (G, K), dev)
+    lead, n = _island_lead(islands)
+    _check(genomes, "genomes", torch.float32, lead + (Pp, L), dev)
+    _check(ranks, "ranks", torch.int32, (n * G, K), dev)
     _check(mparams, "mparams", torch.float32, (2,), dev)
     if mutate not in MUTATE_IDS:
         raise ValueError(f"unknown mutate kind {mutate!r}")
     param = resolve_selection(selection, selection_param)
     if out is None:
         out = torch.empty_like(genomes)
-    _check(out, "out", torch.float32, (Pp, L), dev)
+    _check(out, "out", torch.float32, lead + (Pp, L), dev)
     if out.data_ptr() == genomes.data_ptr():
         raise ValueError("out must not alias genomes: blocks read rows other blocks write")
     sel_u = cross = mut_u = gauss = None
     if draws is not None:
         sel_u, cross, mut_u, gauss = draws.sel_u, draws.cross, draws.mut_u, draws.gauss
-        _check(sel_u, "sel_u", torch.float32, (G, K, 2), dev)
-        _check(cross, "cross", torch.uint8, (G, K, L), dev)
-        _check(mut_u, "mut_u", torch.float32, (G, K, 4), dev)
+        _check(sel_u, "sel_u", torch.float32, lead + (G, K, 2), dev)
+        _check(cross, "cross", torch.uint8, lead + (G, K, L), dev)
+        _check(mut_u, "mut_u", torch.float32, lead + (G, K, 4), dev)
         if mutate == "gaussian":
-            _check(gauss, "gauss", torch.float32, (3, G, K, L), dev)
+            _check(gauss, "gauss", torch.float32, lead + (3, G, K, L), dev)
     else:
-        _check(seed, "seed", torch.int64, (1,), dev)
-    scores = torch.empty(Pp, device=dev) if obj_id else None
+        _check(seed, "seed", torch.int64, (n,), dev)
+    scores = torch.empty(lead + (Pp,), device=dev) if obj_id else None
     lib = _library("deme_breed")
     rc = lib.deme_breed_launch(
         genomes.data_ptr(), out.data_ptr(), _ptr(scores), ranks.data_ptr(),
@@ -339,11 +358,11 @@ def deme_breed_cuda(
         geom.mode(parity), geom.S, geom.D, geom.q,
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
-        MUTATE_IDS[mutate], int(obj_id),
+        MUTATE_IDS[mutate], int(obj_id), n,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "deme_breed")
-    LAUNCHES[geom.layout] += 1
+    LAUNCHES[geom.layout if islands is None else "islands"] += 1
     return out, scores
 
 
@@ -365,6 +384,7 @@ def order_breed_cuda(
     crossover: str = "order",
     coords: Optional[torch.Tensor] = None,
     penalty: float = 0.0,
+    islands: Optional[int] = None,
 ):
     """Launch ``order_breed_kernel`` of ``csrc/deme_breed.cu`` on the
     current stream: the kernel counterpart of
@@ -372,9 +392,10 @@ def order_breed_cuda(
     arguments; riffle geometry only). Production mode takes ``seed``
     (int64, one element, on the card); injected mode takes ``draws``
     with the ``fill`` plane. ``obj_id`` 3 (fused TSP) takes ``coords``
-    (C, 2) float32 on the card and ``penalty``. Raises on bad arguments
-    or a failed launch; never runs anything else in the kernel's
-    place."""
+    (C, 2) float32 on the card and ``penalty``. ``islands`` = I breeds
+    I populations in one launch, shaped as :func:`deme_breed_cuda`'s.
+    Raises on bad arguments or a failed launch; never runs anything else
+    in the kernel's place."""
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("order_breed_cuda needs CUDA tensors")
@@ -387,8 +408,9 @@ def order_breed_cuda(
         raise ValueError(f"deme size {K} is not a multiple of {ORDER_THREADS} in 1..1024")
     if not 1 <= tournament_size <= 16:
         raise ValueError(f"tournament_size {tournament_size} outside 1..16")
-    _check(genomes, "genomes", torch.float32, (Pp, L), dev)
-    _check(ranks, "ranks", torch.int32, (G, K), dev)
+    lead, n = _island_lead(islands)
+    _check(genomes, "genomes", torch.float32, lead + (Pp, L), dev)
+    _check(ranks, "ranks", torch.int32, (n * G, K), dev)
     _check(mparams, "mparams", torch.float32, (2,), dev)
     if mutate not in MUTATE_IDS:
         raise ValueError(f"unknown mutate kind {mutate!r}")
@@ -405,22 +427,22 @@ def order_breed_cuda(
     param = resolve_selection(selection, selection_param)
     if out is None:
         out = torch.empty_like(genomes)
-    _check(out, "out", torch.float32, (Pp, L), dev)
+    _check(out, "out", torch.float32, lead + (Pp, L), dev)
     if out.data_ptr() == genomes.data_ptr():
         raise ValueError("out must not alias genomes: blocks read rows other blocks write")
     sel_u = fill = mut_u = gauss = None
     if draws is not None:
         sel_u, fill, mut_u, gauss = draws.sel_u, draws.fill, draws.mut_u, draws.gauss
-        _check(sel_u, "sel_u", torch.float32, (G, K, 2), dev)
+        _check(sel_u, "sel_u", torch.float32, lead + (G, K, 2), dev)
         if fill is None:
             raise ValueError("injected order draws need the fill plane")
-        _check(fill, "fill", torch.float32, (G, K, L), dev)
-        _check(mut_u, "mut_u", torch.float32, (G, K, 4), dev)
+        _check(fill, "fill", torch.float32, lead + (G, K, L), dev)
+        _check(mut_u, "mut_u", torch.float32, lead + (G, K, 4), dev)
         if mutate == "gaussian":
-            _check(gauss, "gauss", torch.float32, (3, G, K, L), dev)
+            _check(gauss, "gauss", torch.float32, lead + (3, G, K, L), dev)
     else:
-        _check(seed, "seed", torch.int64, (1,), dev)
-    scores = torch.empty(Pp, device=dev) if obj_id else None
+        _check(seed, "seed", torch.int64, (n,), dev)
+    scores = torch.empty(lead + (Pp,), device=dev) if obj_id else None
     lib = _library("deme_breed")
     rc = lib.order_breed_launch(
         genomes.data_ptr(), out.data_ptr(), _ptr(scores), ranks.data_ptr(),
@@ -431,19 +453,19 @@ def order_breed_cuda(
         geom.P, Pp, L, K, G,
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
-        MUTATE_IDS[mutate], int(obj_id),
+        MUTATE_IDS[mutate], int(obj_id), n,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "deme_breed")
-    LAUNCHES["order"] += 1
+    LAUNCHES["order" if islands is None else "islands_order"] += 1
     return out, scores
 
 
 def _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mparams,
-                     order: bool) -> int:
+                     order: bool, lead: tuple = ()) -> int:
     """The checks both multi-generation wrappers make (``order``: order
-    crossover, which takes one riffle deme per group); returns ``steps``
-    as an int."""
+    crossover, which takes one riffle deme per group; ``lead``: the
+    island axis of an island launch); returns ``steps`` as an int."""
     dev = genomes.device
     G, K, L, Pp, D = geom.G, geom.K, geom.L, geom.Pp, geom.D
     if not 1 <= K <= 1024:
@@ -459,8 +481,8 @@ def _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mpa
     steps = int(steps)
     if steps < 0:
         raise ValueError(f"steps {steps} is negative")
-    _check(genomes, "genomes", torch.float32, (Pp, L), dev)
-    _check(scores, "scores", torch.float32, (Pp,), dev)
+    _check(genomes, "genomes", torch.float32, lead + (Pp, L), dev)
+    _check(scores, "scores", torch.float32, lead + (Pp,), dev)
     _check(mparams, "mparams", torch.float32, (2,), dev)
     return steps
 
@@ -486,38 +508,40 @@ def _multigen_buffers(genomes, out, work, steps: int):
     return out, work + [None, None]
 
 
-def _multigen_draws(draws, seed, geom, steps: int, crossover, mutate, dev):
-    """``(sel_u, cross, fill, mut_u, gauss, tie)`` of an injected multigen
-    launch, each with a leading axis of T >= ``steps`` sub-generations
-    (``cross`` for uniform crossover, ``fill`` for order crossover, none
-    of them for a crossover hook (``crossover`` None); ``gauss`` for
-    gaussian mutation; else None), or all None in production mode
-    (``seed`` checked)."""
+def _multigen_draws(draws, seed, geom, steps: int, crossover, mutate, dev, lead: tuple = ()):
+    """``(T, (sel_u, cross, fill, mut_u, gauss, tie))`` of an injected
+    multigen launch, each tensor with a leading axis of T >= ``steps``
+    sub-generations after the island axis ``lead`` (``cross`` for
+    uniform crossover, ``fill`` for order crossover, none of them for a
+    crossover hook (``crossover`` None); ``gauss`` for gaussian
+    mutation; else None), or ``(0, all None)`` in production mode
+    (``seed`` checked: one per island)."""
     G, K, L = geom.G, geom.K, geom.L
     if draws is None:
-        _check(seed, "seed", torch.int64, (1,), dev)
-        return None, None, None, None, None, None
-    T = draws.sel_u.shape[0]
+        _check(seed, "seed", torch.int64, (lead[0] if lead else 1,), dev)
+        return 0, (None, None, None, None, None, None)
+    T = draws.sel_u.shape[len(lead)]
     if T < steps:
         raise ValueError(f"injected draws hold {T} sub-generations, steps is {steps}")
-    _check(draws.sel_u, "sel_u", torch.float32, (T, G, K, 2), dev)
-    _check(draws.mut_u, "mut_u", torch.float32, (T, G, K, 4), dev)
+    lead = lead + (T,)
+    _check(draws.sel_u, "sel_u", torch.float32, lead + (G, K, 2), dev)
+    _check(draws.mut_u, "mut_u", torch.float32, lead + (G, K, 4), dev)
     if draws.tie is None:
         raise ValueError("injected multigen draws need the tie words")
-    _check(draws.tie, "tie", torch.int64, (T, G, K), dev)
+    _check(draws.tie, "tie", torch.int64, lead + (G, K), dev)
     cross = fill = gauss = None
     if crossover == "uniform":
         cross = draws.cross
-        _check(cross, "cross", torch.uint8, (T, G, K, L), dev)
+        _check(cross, "cross", torch.uint8, lead + (G, K, L), dev)
     elif crossover == "order":
         fill = draws.fill
         if fill is None:
             raise ValueError("injected order draws need the fill plane")
-        _check(fill, "fill", torch.float32, (T, G, K, L), dev)
+        _check(fill, "fill", torch.float32, lead + (G, K, L), dev)
     if mutate == "gaussian":
         gauss = draws.gauss
-        _check(gauss, "gauss", torch.float32, (T, 3, G, K, L), dev)
-    return draws.sel_u, cross, fill, draws.mut_u, gauss, draws.tie
+        _check(gauss, "gauss", torch.float32, lead + (3, G, K, L), dev)
+    return T, (draws.sel_u, cross, fill, draws.mut_u, gauss, draws.tie)
 
 
 def multigen_breed_cuda(
@@ -540,6 +564,7 @@ def multigen_breed_cuda(
     obj_id: int,
     elitism: int = 0,
     crossover: str = "uniform",
+    islands: Optional[int] = None,
 ):
     """Launch ``multigen_breed_kernel`` of ``csrc/deme_breed.cu`` on the
     current stream: the kernel counterpart of
@@ -553,7 +578,10 @@ def multigen_breed_cuda(
     words (order crossover: the ``fill`` plane). ``work`` is a pair of
     (Pp, L) scratch tensors (made here when None and ``steps`` needs
     them: one from 2 steps, two from 3). Returns ``(genomes (Pp, L),
-    scores (Pp,))`` in physical row order. Raises on bad arguments or a
+    scores (Pp,))`` in physical row order. ``islands`` = I breeds I
+    populations in one launch: genomes, scores, ``out`` and ``work``
+    with a leading island axis (I, Pp, L) / (I, Pp), one seed per island
+    (I,), injected draws (I, T, ...). Raises on bad arguments or a
     failed launch; never runs anything else in the kernel's place."""
     dev = genomes.device
     if dev.type != "cuda":
@@ -566,12 +594,14 @@ def multigen_breed_cuda(
         raise ValueError(f"unknown mutate kind {mutate!r}")
     G, K, L, Pp, D = geom.G, geom.K, geom.L, geom.Pp, geom.D
     order = crossover == "order"
-    steps = _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mparams, order)
+    lead, n = _island_lead(islands)
+    steps = _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mparams,
+                             order, lead)
     param = resolve_selection(selection, selection_param)
     out, work = _multigen_buffers(genomes, out, work, steps)
-    sel_u, cross, fill, mut_u, gauss, tie = _multigen_draws(
-        draws, seed, geom, steps, crossover, mutate, dev)
-    s_out = torch.empty(Pp, device=dev)
+    draw_steps, (sel_u, cross, fill, mut_u, gauss, tie) = _multigen_draws(
+        draws, seed, geom, steps, crossover, mutate, dev, lead)
+    s_out = torch.empty(lead + (Pp,), device=dev)
     lib = _library("deme_breed")
     rc = lib.multigen_breed_launch(
         genomes.data_ptr(), scores.data_ptr(), out.data_ptr(), s_out.data_ptr(),
@@ -584,10 +614,12 @@ def multigen_breed_cuda(
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
         CROSS_IDS[crossover], MUTATE_IDS[mutate], int(obj_id), int(elitism),
+        draw_steps, n,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "deme_breed")
-    LAUNCHES["multigen_order" if order else "multigen"] += 1
+    key = "multigen_order" if order else "multigen"
+    LAUNCHES[key if islands is None else "islands_" + key] += 1
     return out, s_out
 
 
@@ -849,7 +881,7 @@ def expr_multigen_cuda(
     program = expr_cuda.program_for(cross_op, mut_op, objective)
     warps = expr_warps(K, L, program.obj_rows, D=D, order=order)
     out, work = _multigen_buffers(genomes, out, work, steps)
-    sel_u, cross, fill, mut_u, gauss, tie = _multigen_draws(
+    _, (sel_u, cross, fill, mut_u, gauss, tie) = _multigen_draws(
         draws, seed, geom, steps, None if cross_op is not None else crossover, mutate, dev)
     xgene = xrow = None
     if draws is not None:

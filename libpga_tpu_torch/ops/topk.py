@@ -19,12 +19,13 @@ import torch
 
 
 def top_k(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(values, indices)`` of the ``k`` best of ``scores`` (1-D
-    float32), best first: ``lax.top_k``'s rows in its order."""
+    """``(values, indices)`` of the ``k`` best of ``scores`` (float32)
+    along its last axis (one population's (P,), or islands' (I, S)),
+    best first: ``lax.top_k``'s rows in its order."""
     bits = scores.contiguous().view(torch.int32).to(torch.int64)
     key = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # monotone in the total order
-    idx = torch.sort(key, descending=True, stable=True).indices[:k]
-    return scores[idx], idx
+    idx = torch.sort(key, dim=-1, descending=True, stable=True).indices[..., :k]
+    return torch.gather(scores, -1, idx), idx
 
 
 def top_k_genomes(

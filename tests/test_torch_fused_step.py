@@ -126,6 +126,23 @@ def test_compute_ranks_equals_jax_on_distinct_scores(P, L, parity):
     np.testing.assert_array_equal(got, want.astype(np.int64))
 
 
+@pytest.mark.parametrize("P,L", [(4096, 32), (1000, 20), (600, 20)])
+@pytest.mark.parametrize("parity", [0, 1])
+def test_island_compute_ranks_equals_jax_flattened_sort(P, L, parity):
+    """Scores of three islands (I, Pp) rank in one sort over (I*G, K), as
+    JAX's island runner ranks them (``breed.compute_ranks`` on (I, Pp)),
+    for both row maps (4096 and 600 rows: ping-pong, 1000: riffle)."""
+    breed = ps.make_pallas_breed(P, L, fused_obj=jax_onemax.kernel_rowwise)
+    geom = fs.resolve_geometry(P, L)
+    rng = np.random.default_rng(8)
+    s = np.stack([rng.permutation(geom.Pp) for _ in range(3)]).astype(np.float32)
+    s[:, P:] = -np.inf
+    want = np.asarray(breed.compute_ranks(jnp.asarray(s), jax.random.key(3), parity))
+    tie = torch.randint(0, 2**31, (3, geom.Pp), generator=torch.Generator().manual_seed(1))
+    got = fs.compute_ranks(torch.from_numpy(s), geom, parity, tie).numpy()
+    np.testing.assert_array_equal(got, want.reshape(3 * geom.G, geom.K).astype(np.int64))
+
+
 # the plain Philox draws ---------------------------------------------------
 
 

@@ -1,6 +1,7 @@
 """The CUDA kernels (libpga_tpu_torch/csrc/deme_breed.cu: its uniform,
-order and multi-generation breeds; expr_breed.cu with generated hooks;
-and gp_eval.cu) against their plain torch versions, on the card. These tests skip on a
+order and multi-generation breeds, each also with an island grid axis;
+expr_breed.cu with generated hooks; and gp_eval.cu) against their plain
+torch versions, on the card. These tests skip on a
 machine without one. They import neither JAX nor the JAX package, so
 they run where only torch is installed:
 
@@ -884,3 +885,116 @@ def test_engine_on_card_breeds_order_crossover_through_the_order_kernels(cuda_de
         assert kernels.LAUNCHES[key] == launches and sum(kernels.LAUNCHES.values()) == launches
         pop = pga.population(h)
         torch.testing.assert_close(pop.scores, objective(pop.genomes), rtol=1e-5, atol=1e-3)
+
+
+# ---------------------------------------------------------------- islands
+
+# (kind, S, L, layout, mutate, objective, steps, elitism): the deme-,
+# order- and multi-generation kernels with an island grid axis.
+ISLAND_VARIANTS = [
+    ("deme", 4096, 100, "pingpong", "point", onemax, 1, 0),
+    ("deme", 2100, 64, "riffle", "swap", onemax_bits, 1, 0),
+    ("deme", 1000, 30, "pingpong", "gaussian", rastrigin, 1, 0),
+    ("order", 1024, 100, "riffle", "swap", "tsp", 1, 0),
+    ("multigen", 4096, 32, "pingpong", "point", onemax, 3, 0),
+    ("multigen", 2100, 32, "riffle", "point", onemax, 3, 2),
+    ("multigen", 1024, 50, "riffle", "swap", onemax, 3, 1),
+]
+
+
+def _island_case(kind, S, L, layout, mutate, obj, elitism, device):
+    cross = "order" if kind == "order" or (kind == "multigen" and mutate == "swap") else "uniform"
+    geom = fs.resolve_geometry(S, L, crossover=cross, multigen=kind == "multigen",
+                               elitism=elitism, layout=layout)
+    kw = dict(mutate=mutate, crossover=cross, mparams=torch.tensor([0.3, 0.05], device=device))
+    if obj == "tsp":
+        tsp = make_tsp_coords(random_tsp_coords(L, seed=2), duplicate_mode="genes")
+        kw.update(obj_id=tsp.fused_id, coords=tsp.coords.to(device), penalty=tsp.penalty)
+    else:
+        kw.update(obj_id=obj.fused_id)
+    if kind == "multigen":
+        kw.update(elitism=elitism)
+    return geom, cross, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ISLAND_VARIANTS, ids=lambda v: f"{v[0]}-{v[1]}x{v[2]}-{v[4]}")
+def test_island_launch_equals_plain_and_single_launches_on_card(cuda_device, variant):
+    """One island launch (4 islands: the kernels' second grid axis) equals
+    its plain version and 4 single-population launches, each with its
+    island's seed or slice of the injected draws, bit for bit (scores of
+    the one-generation plain version within the kernels' tolerances:
+    sums in another order); one island equals a single launch; the
+    island launch counts once under its own key."""
+    kind, S, L, layout, mutate, obj, steps, elitism = variant
+    I = 4
+    geom, cross, kw = _island_case(kind, S, L, layout, mutate, obj, elitism, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(S + L)
+    g = torch.rand((I, geom.Pp, L), generator=gen, device=cuda_device)
+    g[:, S:] = 0.0
+    s = g.sum(dim=2)
+    s[:, S:] = -torch.inf
+    seeds = torch.randint(0, 2**62, (I,), generator=gen, device=cuda_device)
+    G, K = geom.G, geom.K
+    gene_atol = 1e-6 if mutate == "gaussian" else 0.0
+    for parity in range(geom.parities):
+        if kind == "multigen":
+            target = float(s[:, :S].amax()) - 0.5  # freezes some groups
+            draws = fs.stack_draws([fs.stack_draws([
+                fs.philox_draws(seeds[i:i + 1], G, K, L, mutate, cross, sub_generation=t, tie=True)
+                for t in range(steps)]) for i in range(I)])
+            want = fs.multigen_breed_reference(g, s, geom, parity, steps, target, draws=draws, **kw)
+            key = "islands_multigen_order" if cross == "order" else "islands_multigen"
+        else:
+            tie = fs.draw_tie_words(gen, I * geom.Pp, cuda_device).view(I, -1)
+            ranks = fs.compute_ranks(s, geom, parity, tie)
+            draws = fs.island_philox_draws(seeds, G, K, L, mutate, cross)
+            want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
+            key = "islands_order" if cross == "order" else "islands"
+
+        def launch(i, islands=None, **x):
+            """Islands i .. i + islands - 1 in one launch, or island i alone
+            in a single-population launch."""
+            n = islands or 1
+            pick = slice(i, i + n) if islands else i
+            if kind == "multigen":
+                return fs.multigen_breed(g[pick], s[pick], geom, parity, steps, target,
+                                         islands=islands, **x, **kw)
+            return fs.deme_breed(g[pick], ranks[i * G:(i + n) * G], geom, parity,
+                                 islands=islands, **x, **kw)
+
+        before = kernels.LAUNCHES[key]
+        for got in (launch(0, islands=I, seed=seeds), launch(0, islands=I, draws=draws)):
+            torch.testing.assert_close(got[0], want[0], rtol=0, atol=gene_atol)
+            real = torch.arange(geom.Pp, device=cuda_device) < S
+            assert bool(torch.isinf(got[1][:, ~real]).all())
+            if kind == "multigen":
+                assert torch.equal(got[1], want[1])
+            else:
+                tol = dict(rtol=1e-5, atol=1e-3 if obj != "tsp" else 0.0)
+                torch.testing.assert_close(got[1][:, real], want[1][:, real], **tol)
+            for i in range(I):
+                one = launch(i, seed=seeds[i:i + 1])
+                assert torch.equal(got[0][i], one[0]) and torch.equal(got[1][i], one[1])
+        assert kernels.LAUNCHES[key] == before + 2
+        solo, one = launch(0, islands=1, seed=seeds[:1]), launch(0, seed=seeds[:1])
+        assert torch.equal(solo[0][0], one[0]) and torch.equal(solo[1][0], one[1])
+
+
+@pytest.mark.cuda
+def test_engine_on_card_breeds_every_island_in_one_launch(cuda_device):
+    from libpga_tpu_torch import PGAConfig, pga_create_population, pga_init
+    from libpga_tpu_torch import pga_run_islands, pga_set_objective_function
+
+    for T, launches, key in ((None, 12, "islands"), (4, 3 * 1 + 1, "islands_multigen")):
+        p = pga_init(0, PGAConfig(generations_per_launch=T))
+        for _ in range(4):
+            pga_create_population(p, 4096, 32)
+        pga_set_objective_function(p, "onemax")
+        kernels.reset_launches()
+        assert pga_run_islands(p, 12 if T is None else 13, 4, 0.05) == (12 if T is None else 13)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0), key: launches}
+        assert p.launches == launches
+        for pop in p._populations:
+            torch.testing.assert_close(pop.scores, pop.genomes.sum(dim=1), rtol=0, atol=1e-3)
