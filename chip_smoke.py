@@ -162,13 +162,43 @@ Phases, each printing one line; any failure exits non-zero:
      1,048,576x100 run of phase 5 (12 at T = 8); a target run that stops at
      an epoch boundary (an epoch earlier the best was below it); TSP
      islands 4 x 8,192x200 for 50 generations through the order kernel;
+     island_expr: the same islands with the creep expression mutation,
+     one expression launch per island (the loop of 8 launches against its
+     plain version, genomes bit for bit and scores within the expression
+     gates, timed beside 8 times the island's byte bound), and
+     20 generations of pga_run_islands (8 launches a generation);
  22. rastrigin_islands: the five annealing phases of
      tools/bench_rastrigin.py (8 x 16,384x30, elitism 2, gaussian mutation,
      migration of 5% every 20 generations, 400 generations each): the
      best must not fall within a phase and must rise over the run; prints
-     the best Rastrigin value.
+     the best Rastrigin value;
+ 23. bf16_compare: the bfloat16 cases of the kernels (gene_dtype=bfloat16)
+     against their plain versions, with injected and with Philox draws,
+     bit for bit (genomes; scores within the gates above), and against the
+     float32 kernel's children on the widened genomes, rounded to bf16
+     (one step): deme_breed at 1,048,576x100 (ping-pong K=512 D=8, both
+     parities), 40,000x100 (riffle) and with gaussian mutation at
+     65,536x100; multigen_breed at 1,048,576x100 (ping-pong D=8) and
+     40,000x100 (3 steps with elitism 2, 8 and 1 step); the expression
+     breed with the trap at 1,048,576x60 (both parities) and one-point
+     crossover at 1,048,576x100, and the trap at T = 8; the island launch
+     at 8 x 131,072x100 (each island also against its single launch).
+     Times each by CUDA events beside its 2-byte bound, the float32
+     kernel on the same shape and the plain version;
+ 24. bf16_run: PGA.run at gene_dtype=bfloat16 through the pga_* API,
+     each the main-path run of a bf16 kernel: OneMax 1,048,576x100 (200
+     generations, then a torch.profiler window) and 40,000x100, both also
+     at T = 8, the trap at 1,048,576x60 at T = 1 and T = 8, one-point at
+     1,048,576x100, and pga_run_islands at 8 x 131,072x100 (m = 10), 100
+     generations each after a warm-up: launches of the bf16 kernel equal
+     generations (ceil(gens / 8) at T = 8) and nothing else launches, the
+     genomes stay bf16, the best rises, the scores are the stored
+     genomes' objective; gens/s beside the same configuration at float32
+     over as many generations, run just before it.
+     Order crossover at bf16 runs on the panmictic path, launching
+     nothing.
 The earlier OneMax, GP and TSP runs keep their depths; the whole script
-takes about two minutes on the card. Then one JSON line of per-kernel numbers, the card's name and power
+takes about two and a half minutes on the card. Then one JSON line of per-kernel numbers, the card's name and power
 limit, and last the result line. With --log FILE every line printed
 also goes to that file (a tool that shows only the end of a long output
 can bring the file back whole).
@@ -290,6 +320,40 @@ ISLAND_TSP, ISLAND_TSP_GENS = (4, 8_192, 200), 50
 RASTRIGIN_ISLANDS = (8, 16_384, 30)  # tools/bench_rastrigin.py
 RASTRIGIN_PHASES = [(0.15, 0.05), (0.15, 0.02), (0.15, 0.008), (0.15, 0.003), (0.15, 0.001)]
 RASTRIGIN_GENS, RASTRIGIN_M, RASTRIGIN_PCT, RASTRIGIN_CHUNK = 400, 20, 0.05, 100
+# bfloat16 genomes: the kernels-line entry, the Pallas kernel it replaces
+# (at gene_dtype=bfloat16) and that kernel's pallas_call site.
+BF16_REPLACES = {
+    "deme_breed[pingpong,bf16]": ("libpga_tpu/ops/pallas_step.py:1173",
+                                  "libpga_tpu/ops/pallas_step.py:2526"),
+    "deme_breed[riffle,bf16]": ("libpga_tpu/ops/pallas_step.py:946",
+                                "libpga_tpu/ops/pallas_step.py:2257"),
+    "multigen_breed[pingpong,bf16]": ("libpga_tpu/ops/pallas_step.py:1460",
+                                      "libpga_tpu/ops/pallas_step.py:2872"),
+    "multigen_breed[riffle,bf16]": ("libpga_tpu/ops/pallas_step.py:1460",
+                                    "libpga_tpu/ops/pallas_step.py:2872"),
+    "expr_breed[trap,bf16]": ("libpga_tpu/ops/pallas_step.py:1173",
+                              "libpga_tpu/ops/pallas_step.py:2526"),
+    "expr_breed[one_point,bf16]": ("libpga_tpu/ops/pallas_step.py:1173",
+                                   "libpga_tpu/ops/pallas_step.py:2526"),
+    "expr_multigen[trap,bf16]": ("libpga_tpu/ops/pallas_step.py:1460",
+                                 "libpga_tpu/ops/pallas_step.py:2872"),
+    "deme_breed[islands,bf16]": ("libpga_tpu/ops/pallas_step.py:1173",
+                                 "libpga_tpu/parallel/islands.py:110"),
+}
+BF16_GENS = 100
+# (kernels-line entry, workload, rows, genes, generations per launch,
+# islands, launch counter, generations): the bf16 runs of PGA.run and
+# PGA.run_islands, each the main-path run of its entry.
+BF16_RUNS = [
+    ("deme_breed[pingpong,bf16]", "onemax", 1 << 20, 100, None, None, "pingpong_bf16", RUN_GENS),
+    ("deme_breed[riffle,bf16]", "onemax", 40_000, 100, None, None, "riffle_bf16", BF16_GENS),
+    ("multigen_breed[pingpong,bf16]", "onemax", 1 << 20, 100, 8, None, "multigen_bf16", BF16_GENS),
+    ("multigen_breed[riffle,bf16]", "onemax", 40_000, 100, 8, None, "multigen_bf16", BF16_GENS),
+    ("expr_breed[trap,bf16]", "trap", 1 << 20, 60, None, None, "expr_bf16", BF16_GENS),
+    ("expr_breed[one_point,bf16]", "one_point", 1 << 20, 100, None, None, "expr_bf16", BF16_GENS),
+    ("expr_multigen[trap,bf16]", "trap", 1 << 20, 60, 8, None, "expr_multigen_bf16", BF16_GENS),
+    ("deme_breed[islands,bf16]", "onemax", 131_072, 100, None, 8, "islands_bf16", BF16_GENS),
+]
 MEAN_RANK_BAND = (1 / 3 - 0.004, 1 / 3 + 0.002)  # E = 1/3 - O(1/K)
 CROSS_BAND = (0.495, 0.505)
 MUTATION_RATE = 0.01
@@ -351,13 +415,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def breed_bound(geom) -> tuple:
+def breed_bound(geom, gene_bytes: int = 4) -> tuple:
     """Least time (ms) for one breed on the card and what sets it: the
-    larger of the bytes it must move (genomes and ranks read once,
-    children and scores written once) over the memory rate, and its
-    float32 operations (a crossover select and a score add per gene)
-    over the float32 rate."""
-    nbytes = geom.Pp * geom.L * 4 * 2 + geom.G * geom.K * 4 + geom.Pp * 4
+    larger of the bytes it must move (genomes of ``gene_bytes`` a gene
+    and ranks read once, children and scores written once) over the
+    memory rate, and its float32 operations (a crossover select and a
+    score add per gene) over the float32 rate."""
+    nbytes = geom.Pp * geom.L * gene_bytes * 2 + geom.G * geom.K * 4 + geom.Pp * 4
     ops = 2 * geom.Pp * geom.L
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -943,14 +1007,15 @@ def phase_fused_objectives(fs, device, results):
               flush=True)
 
 
-def multigen_bound(geom, steps: int) -> tuple:
+def multigen_bound(geom, steps: int, gene_bytes: int = 4) -> tuple:
     """Least time (ms) for one multigen launch and what sets it: the
-    larger of the bytes it must move whatever ``steps`` is (population
-    and scores read once and written once) over the memory rate, and the
-    float32 operations the function needs per sub-generation (K*log2(K)
-    compares to rank a deme, a crossover select and a score add per
-    gene; loads are not operations) over the float32 rate."""
-    nbytes = 2 * geom.Pp * geom.L * 4 + 2 * geom.Pp * 4
+    larger of the bytes it must move whatever ``steps`` is (population,
+    ``gene_bytes`` a gene, and scores read once and written once) over
+    the memory rate, and the float32 operations the function needs per
+    sub-generation (K*log2(K) compares to rank a deme, a crossover select
+    and a score add per gene; loads are not operations) over the float32
+    rate."""
+    nbytes = 2 * geom.Pp * geom.L * gene_bytes + 2 * geom.Pp * 4
     ops = steps * (geom.K * math.log2(geom.K) * geom.G + 2 * geom.Pp * geom.L)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -1257,14 +1322,14 @@ def expr_programs(port):
     return progs
 
 
-def expr_bound(geom, program) -> tuple:
+def expr_bound(geom, program, gene_bytes: int = 4) -> tuple:
     """Least time (ms) for one expression breed and what sets it: the
-    larger of the bytes it must move (genomes and ranks read once,
-    children and scores written once, the constant buffer read once)
-    over the memory rate, and its float32 operations (a select per gene
-    and every per-gene statement the generated hooks evaluate) over the
-    float32 rate."""
-    nbytes = (2 * geom.Pp * geom.L + 2 * geom.Pp) * 4 + program.consts.nbytes
+    larger of the bytes it must move (genomes of ``gene_bytes`` a gene
+    and ranks read once, children and scores written once, the constant
+    buffer read once) over the memory rate, and its float32 operations
+    (a select per gene and every per-gene statement the generated hooks
+    evaluate) over the float32 rate."""
+    nbytes = 2 * geom.Pp * geom.L * gene_bytes + 2 * geom.Pp * 4 + program.consts.nbytes
     ops = geom.Pp * geom.L * (2 + program.source.count("const float t"))
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -1473,15 +1538,15 @@ def expr_multigen_workloads():
     }
 
 
-def expr_multigen_bound(geom, program, steps: int) -> tuple:
+def expr_multigen_bound(geom, program, steps: int, gene_bytes: int = 4) -> tuple:
     """Least time (ms) for one expression multigen launch and what sets
     it: the larger of the bytes it must move whatever ``steps`` is
     (population and scores read once and written once, the constant
     buffer read once) over the memory rate, and per sub-generation the
     float32 operations the function needs (K*log2(K) compares to rank a
     deme, a select per gene and every per-gene statement the generated
-    hooks evaluate) over the float32 rate."""
-    nbytes = (2 * geom.Pp * geom.L + 2 * geom.Pp) * 4 + program.consts.nbytes
+    hooks evaluate) over the float32 rate; genes of ``gene_bytes``."""
+    nbytes = 2 * geom.Pp * geom.L * gene_bytes + 2 * geom.Pp * 4 + program.consts.nbytes
     per_gene = 2 + program.source.count("const float t")
     ops = steps * (geom.K * math.log2(geom.K) * geom.G + geom.Pp * geom.L * per_gene)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
@@ -2304,6 +2369,86 @@ def phase_island_run(port, kernels, results, single, multigen):
     port.pga_deinit(pga)
 
 
+def phase_island_expr(port, fs, kernels, device, results):
+    """Islands with an expression hook (the creep mutation) at bench.py's
+    8 x 131,072x100: each island is one launch of the expression kernel
+    (the island axis of the generated unit is not ported yet). Times that
+    loop of I launches by CUDA events beside I times the island's byte
+    bound and the plain version of the island breed; then 20 generations
+    of pga_run_islands, whose launches must be I per generation."""
+    import torch
+
+    from libpga_tpu_torch.objectives import onemax
+    from libpga_tpu_torch.ops import expr_cuda
+    from libpga_tpu_torch.ops.breed_expr import mutate_from_expression
+
+    I, S, L = ISLAND_RUN
+    creep = mutate_from_expression(CREEP, rate=0.05, sigma=0.1)
+    geom = fs.resolve_geometry(S, L)
+    program = expr_cuda.program_for(None, creep, None)
+    kw = dict(mutate=creep, obj_id=onemax.fused_id,
+              mparams=torch.tensor([0.05, 0.1], device=device))
+    gen = torch.Generator(device=device).manual_seed(S + 20)
+    g = torch.rand((I, geom.Pp, L), generator=gen, device=device)
+    s = g.sum(dim=2)
+    seeds = torch.randint(0, 2**62, (I,), generator=gen, device=device)
+    ranks = fs.compute_ranks(s, geom, 0, fs.draw_tie_words(gen, I * geom.Pp, device).view(I, -1))
+    out, G = torch.empty_like(g), geom.G
+    scores = torch.empty((I, geom.Pp), device=device)
+
+    def loop(keep=False):
+        for i in range(I):
+            got = fs.deme_breed(g[i], ranks[i * G:(i + 1) * G], geom, 0, seed=seeds[i:i + 1],
+                                out=out[i], **kw)
+            if keep:
+                scores[i] = got[1]
+
+    loop(keep=True)
+    want = fs.deme_breed_reference(g, ranks, geom, 0, fs.island_philox_draws(
+        seeds, G, geom.K, L, creep), **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(out, want[0]), "expression islands: genomes differ from the plain version")
+    real = torch.arange(geom.Pp, device=device) < S
+    check(bool(torch.isinf(scores[:, ~real]).all()), "expression islands: pad scores not -inf")
+    a, b = scores[:, real], want[1][:, real]
+    err = float((a - b).abs().max())
+    check(bool(torch.isclose(a, b, rtol=EXPR_RTOL, atol=EXPR_ATOL_PER_GENE * L).all()),
+          f"expression islands: score error {err}")
+    loop_ms = cuda_ms(loop, 20)
+    plain_ms = cuda_ms(lambda: fs.deme_breed_reference(g, ranks, geom, 0, fs.island_philox_draws(
+        seeds, G, geom.K, L, creep), **kw), 2)
+    bound_ms, bound_by = expr_bound(geom, program)
+    del g, s, out, scores, want, a, b
+    torch.cuda.empty_cache()
+    pga = island_solver(port, ISLAND_RUN, 12)
+    port.pga_set_mutate_function(pga, creep)
+    check(port.pga_run_islands(pga, ISLAND_M, ISLAND_M, ISLAND_PCT) == ISLAND_M,
+          "expression islands: warm-up")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    gens = port.pga_run_islands(pga, 2 * ISLAND_M, ISLAND_M, ISLAND_PCT)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check(gens == 2 * ISLAND_M and launches["expr"] == I * gens
+          and sum(launches.values()) == I * gens,
+          f"expression islands: launches {launches} for {gens} generations")
+    line = {"phase": "island_expr", "islands": I, "island_shape": [S, L], "mutate": CREEP,
+            "layout": geom.layout, "K": geom.K, "D": geom.D, "genomes_equal": True,
+            "max_abs_err": err, "score_rtol": EXPR_RTOL, "score_atol": EXPR_ATOL_PER_GENE * L,
+            "loop_ms": loop_ms,
+            "plain_ms": plain_ms, "bound_ms": I * bound_ms, "bound_by": bound_by,
+            "loop_over_bound": loop_ms / (I * bound_ms), "gens": gens, "launches": launches,
+            "gens_per_s": gens / seconds, "ms_per_gen": 1e3 * seconds / gens}
+    print(json.dumps(line), flush=True)
+    results.update(name=f"expr_breed[creep-{I}x{S},loop of {I} launches]", ms=loop_ms,
+                   plain_ms=plain_ms, bound_ms=I * bound_ms, bound_by=bound_by,
+                   max_abs_err=err, launches=launches["expr"], shape=[I, S, L],
+                   layout=geom.layout, K=geom.K, D=geom.D, gens_per_s=line["gens_per_s"])
+    port.pga_deinit(pga)
+
+
 def phase_rastrigin_islands(port, kernels):
     """The five annealing phases of tools/bench_rastrigin.py through
     pga_run_islands: 8 x 16,384 x 30 Rastrigin, elitism 2, gaussian
@@ -2348,6 +2493,403 @@ def phase_rastrigin_islands(port, kernels):
     check(launches["islands"] == total and sum(launches.values()) == total,
           f"rastrigin islands: launches {launches} for {total} generations")
     check(phases[-1]["best_every_100"][-1] > start, f"rastrigin islands: best {start} -> {best}")
+    port.pga_deinit(pga)
+
+
+def bf16_population(geom, gen, device, islands=None):
+    """bfloat16 genomes (uniform draws, rounded) with zero pad rows; a
+    leading island axis where ``islands`` is given."""
+    import torch
+
+    lead = () if islands is None else (islands,)
+    g = torch.rand(lead + (geom.Pp, geom.L), generator=gen, device=device).to(torch.bfloat16)
+    g[..., geom.P:, :] = 0
+    return g
+
+
+def bf16_check(tag, got, want, f32_rounded, P, rtol, atol, gene_ulps=0) -> float:
+    """A bf16 launch ``got`` against its plain version ``want``: genomes
+    bit for bit (or within ``gene_ulps`` bf16 ulps), scores within
+    rtol/atol, -inf on pad rows; and against the float32 kernel's
+    children rounded to bf16 (``f32_rounded``, bit for bit; None: not
+    compared). Returns the largest score difference."""
+    import torch
+
+    check(got[0].dtype == torch.bfloat16, f"{tag}: children are {got[0].dtype}")
+    if gene_ulps:
+        ulps = (got[0].view(torch.int16).to(torch.int32)
+                - want[0].view(torch.int16).to(torch.int32)).abs()
+        check(int(ulps.max()) <= gene_ulps, f"{tag}: genomes {int(ulps.max())} bf16 ulps apart")
+    else:
+        check(torch.equal(got[0], want[0]), f"{tag}: genomes differ from the plain version")
+    if f32_rounded is not None:
+        check(torch.equal(got[0], f32_rounded),
+              f"{tag}: genomes differ from the float32 kernel's children, rounded")
+    real = torch.arange(got[1].shape[-1], device=got[1].device) < P
+    check(bool(torch.isinf(got[1][..., ~real]).all()), f"{tag}: pad scores not -inf")
+    a, b = got[1][..., real], want[1][..., real]
+    err = float((a - b).abs().max())
+    check(bool(torch.isclose(a, b, rtol=rtol, atol=atol).all()), f"{tag}: score error {err}")
+    return err
+
+
+def phase_bf16_compare(port, fs, device, results):
+    """The bf16 cases of the deme, multigen, expression and island
+    launches against their plain versions and against the float32
+    kernels' children rounded, with injected and with Philox draws; times
+    each beside its 2-byte bound, the float32 kernel on the same shape and
+    the plain version."""
+    import torch
+
+    from libpga_tpu_torch import objectives as obj
+    from libpga_tpu_torch.ops import expr_cuda
+    from libpga_tpu_torch.ops.fused_step import is_expression
+
+    bf = torch.bfloat16
+
+    def record(name, geom, errs, ms, f32_ms, plain_ms, bound, steps=1, **extra):
+        r = results.setdefault(name, {})
+        r.update(max_abs_err=max(errs), ms=ms, f32_ms=f32_ms, plain_ms=plain_ms,
+                 bound_ms=bound[0], bound_by=bound[1], layout=geom.layout, K=geom.K, D=geom.D,
+                 steps=steps, **extra)
+        print(json.dumps({"phase": "bf16_compare", "case": name, "layout": geom.layout,
+                          "K": geom.K, "D": geom.D, "Pp": geom.Pp, "q": geom.q, "steps": steps,
+                          "genomes_equal": True, "f32_kernel_rounded_equal": True,
+                          "max_abs_err": max(errs), "kernel_ms": ms, "f32_kernel_ms": f32_ms,
+                          "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                          "kernel_over_bound": ms / bound[0], **extra}), flush=True)
+
+    # One generation: ping-pong at 1,048,576x100, riffle at 40,000x100, and
+    # gaussian mutation (whose clip can round to 1.0) at 65,536x100.
+    for name, (P, L), parities, layout, mutate in (
+        ("deme_breed[pingpong,bf16]", MAIN_SHAPES["pingpong"], (0, 1), "pingpong", "point"),
+        ("deme_breed[riffle,bf16]", MAIN_SHAPES["riffle"], (0,), "riffle", "point"),
+        ("gaussian-65536", (65_536, 100), (1,), "pingpong", "gaussian"),
+    ):
+        geom = fs.resolve_geometry(P, L, gene_dtype=bf)
+        check(geom.layout == layout and geom.q == 16, f"bf16 {name}: geometry {geom}")
+        gen = torch.Generator(device=device).manual_seed(P + 16)
+        g = bf16_population(geom, gen, device)
+        s = torch.full((geom.Pp,), -torch.inf, device=device)
+        s[:P] = g[:P].float().sum(dim=1)
+        gauss = mutate == "gaussian"
+        kw = dict(mutate=mutate, obj_id=obj.onemax.fused_id, mparams=torch.tensor(
+            [0.15, 0.05] if gauss else [0.05, 0.0], device=device))
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+        errs, ulps_seen = [], 0
+        for parity in parities:
+            ranks = fs.compute_ranks(s, geom, parity, fs.draw_tie_words(gen, geom.Pp, device))
+            G, K = geom.G, geom.K
+            injected = fs.Draws(
+                sel_u=torch.rand((G, K, 2), generator=gen, device=device),
+                cross=(torch.rand((G, K, L), generator=gen, device=device) < 0.5).to(torch.uint8),
+                mut_u=torch.rand((G, K, 4), generator=gen, device=device),
+                gauss=torch.rand((3, G, K, L), generator=gen, device=device) if gauss else None)
+            for mode, x in (("injected", dict(draws=injected)), ("philox", dict(seed=seed))):
+                got = fs.deme_breed(g, ranks, geom, parity, **x, **kw)
+                f32 = fs.deme_breed(g.float(), ranks, geom, parity, **x, **kw)[0].to(bf)
+                d = x.get("draws") or fs.philox_draws(seed, G, K, L, mutate)
+                want = fs.deme_breed_reference(g, ranks, geom, parity, d, **kw)
+                torch.cuda.synchronize()
+                # Gaussian genes: logf/cosf on the card against torch's may
+                # differ in the last float ulp, which can move a rounding.
+                errs.append(bf16_check(f"bf16 {name} parity {parity} {mode}", got, want, f32, P,
+                                       0.0, SCORE_ATOL, gene_ulps=1 if gauss else 0))
+                if gauss:
+                    ulps_seen = max(ulps_seen, int((got[0] != want[0]).sum()))
+                    check(bool((got[0] == 1.0).any()), f"bf16 {name}: no gene rounded to 1.0")
+                del got, want, f32, d
+        out = torch.empty_like(g)
+        g32, out32 = g.float(), torch.empty((geom.Pp, L), device=device)
+        ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seed, out=out, **kw), 50)
+        f32_ms = cuda_ms(lambda: fs.deme_breed(g32, ranks, geom, 0, seed=seed, out=out32, **kw), 50)
+        plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
+            g, ranks, geom, 0, fs.philox_draws(seed, geom.G, geom.K, L, mutate), **kw), 5)
+        record(name, geom, errs, ms, f32_ms, plain_ms, breed_bound(geom, 2), shape=[P, L],
+               f32_bound_ms=breed_bound(geom)[0], **({"genes_1_ulp_apart": ulps_seen} if gauss else {}))
+        del g, g32, out, out32, injected
+        torch.cuda.empty_cache()
+
+    # Several generations per launch: 1,048,576x100 (ping-pong, D=8) and
+    # 40,000x100 (riffle); 3 steps injected with per-deme elites, 8 and 1
+    # with Philox draws (1 step: against the float32 kernel rounded).
+    mparams = torch.tensor([0.05, 0.0], device=device)
+    for name, (P, L), layout in (
+        ("multigen_breed[pingpong,bf16]", MAIN_SHAPES["pingpong"], "pingpong"),
+        ("multigen_breed[riffle,bf16]", MAIN_SHAPES["riffle"], "riffle"),
+    ):
+        geom = fs.resolve_geometry(P, L, multigen=True, gene_dtype=bf)
+        check(geom.layout == layout, f"bf16 {name}: layout {geom.layout}")
+        gen = torch.Generator(device=device).manual_seed(P + 17)
+        g = bf16_population(geom, gen, device)
+        s = torch.full((geom.Pp,), -torch.inf, device=device)
+        s[:P] = g[:P].float().sum(dim=1)
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+        errs = []
+        for parity, steps, mode, e in ((geom.parities - 1, 3, "injected", 2),
+                                       (0, MULTIGEN_T, "philox", 0), (0, 1, "philox", 0)):
+            kw = dict(mparams=mparams, obj_id=obj.onemax.fused_id, elitism=e)
+            x = (dict(draws=multigen_draws(fs, geom, steps, gen, device)) if mode == "injected"
+                 else dict(seed=seed))
+            got = fs.multigen_breed(g, s, geom, parity, steps, None, **x, **kw)
+            want = fs.multigen_breed_reference(g, s, geom, parity, steps, math.inf, **x, **kw)
+            f32 = (fs.multigen_breed(g.float(), s, geom, parity, steps, None, **x, **kw)[0].to(bf)
+                   if steps == 1 else None)
+            torch.cuda.synchronize()
+            errs.append(bf16_check(f"bf16 {name} {steps} steps {mode}", got, want, f32, P,
+                                   0.0, SCORE_ATOL))
+            check(not torch.equal(got[0], g), f"bf16 {name}: nothing bred")
+            del got, want, f32, x
+        kw = dict(seed=seed, mparams=mparams, obj_id=obj.onemax.fused_id)
+        out, work = torch.empty_like(g), [torch.empty_like(g), torch.empty_like(g)]
+        g32 = g.float()
+        out32, work32 = torch.empty_like(g32), [torch.empty_like(g32), torch.empty_like(g32)]
+        reps = 10 if P > 100_000 else 50
+        ms = cuda_ms(lambda: fs.multigen_breed(g, s, geom, 0, MULTIGEN_T, None, out=out,
+                                               work=work, **kw), reps)
+        f32_ms = cuda_ms(lambda: fs.multigen_breed(g32, s, geom, 0, MULTIGEN_T, None, out=out32,
+                                                   work=work32, **kw), reps)
+        plain_ms = cuda_ms(lambda: fs.multigen_breed_reference(
+            g, s, geom, 0, MULTIGEN_T, math.inf, **kw), 2)
+        record(name, geom, errs, ms, f32_ms, plain_ms, multigen_bound(geom, MULTIGEN_T, 2),
+               steps=MULTIGEN_T, shape=[P, L], f32_bound_ms=multigen_bound(geom, MULTIGEN_T)[0])
+        del g, g32, out, work, out32, work32
+        torch.cuda.empty_cache()
+
+    # Expression hooks: the trap at 1,048,576x60 (both parities), OneMax with
+    # one-point crossover at 1,048,576x100; the trap at T = 8.
+    loads, mg_loads = expr_workloads(), expr_multigen_workloads()
+    for name, (P, L, objective, crossover, mutate), parities, steps in (
+        ("expr_breed[trap,bf16]", loads["trap"], (0, 1), None),
+        ("expr_breed[one_point,bf16]", loads["one_point"], (0,), None),
+        ("expr_multigen[trap,bf16]", mg_loads["trap-1M"], None, EXPR_MG_T),
+    ):
+        cross, mut, mp, expr_obj, obj_id = expr_kinds(port, objective, crossover, mutate)
+        program = expr_cuda.program_for(cross if is_expression(cross) else None,
+                                        mut if is_expression(mut) else None, expr_obj)
+        const = bool(getattr(expr_obj, "kernel_rowwise_consts", ()))
+        geom = fs.resolve_geometry(P, L, crossover=cross, const_carrying=const,
+                                   multigen=steps is not None, gene_dtype=bf)
+        gen = torch.Generator(device=device).manual_seed(P + L + 18)
+        g = bf16_population(geom, gen, device)
+        s = torch.full((geom.Pp,), -torch.inf, device=device)
+        s[:P] = objective(g[:P].float())
+        kw = dict(crossover=cross, mutate=mut, obj_id=obj_id, objective=expr_obj,
+                  mparams=torch.tensor(list(mp), dtype=torch.float32, device=device))
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+        tol = dict(rtol=EXPR_RTOL, atol=EXPR_ATOL_PER_GENE * L)
+        errs = []
+        if steps is None:
+            for parity in parities:
+                ranks = fs.compute_ranks(s, geom, parity, fs.draw_tie_words(gen, geom.Pp, device))
+                injected = expr_multigen_draws(fs, geom, 1, mut, cross, gen, device).at(0)
+                for mode, x in (("injected", dict(draws=injected)), ("philox", dict(seed=seed))):
+                    got = fs.deme_breed(g, ranks, geom, parity, **x, **kw)
+                    f32 = fs.deme_breed(g.float(), ranks, geom, parity, **x, **kw)[0].to(bf)
+                    d = x.get("draws") or fs.philox_draws(seed, geom.G, geom.K, L, mut, cross)
+                    want = fs.deme_breed_reference(g, ranks, geom, parity, d, **kw)
+                    torch.cuda.synchronize()
+                    errs.append(bf16_check(f"bf16 {name} parity {parity} {mode}", got, want, f32,
+                                           P, **tol))
+                    del got, want, f32, d
+
+            def launch(genomes, out):
+                return fs.deme_breed(genomes, ranks, geom, 0, seed=seed, out=out, **kw)
+
+            def plain():
+                return fs.deme_breed_reference(g, ranks, geom, 0, fs.philox_draws(
+                    seed, geom.G, geom.K, L, mut, cross), **kw)
+
+            bound, f32_bound = expr_bound(geom, program, 2), expr_bound(geom, program)
+        else:
+            for parity, t, mode in ((geom.parities - 1, 3, "injected"), (0, steps, "philox"),
+                                    (0, 1, "philox")):
+                x = (dict(draws=expr_multigen_draws(fs, geom, t, mut, cross, gen, device))
+                     if mode == "injected" else dict(seed=seed))
+                got = fs.multigen_breed(g, s, geom, parity, t, None, **x, **kw)
+                want = fs.multigen_breed_reference(g, s, geom, parity, t, math.inf, **x, **kw)
+                f32 = (fs.multigen_breed(g.float(), s, geom, parity, t, None, **x, **kw)[0].to(bf)
+                       if t == 1 else None)
+                torch.cuda.synchronize()
+                errs.append(bf16_check(f"bf16 {name} {t} steps {mode}", got, want, f32, P, **tol))
+                del got, want, f32, x
+            work = {}
+
+            def launch(genomes, out):
+                w = work.setdefault(genomes.dtype, [torch.empty_like(genomes) for _ in range(2)])
+                return fs.multigen_breed(genomes, s, geom, 0, steps, None, seed=seed, out=out,
+                                         work=w, **kw)
+
+            def plain():
+                return fs.multigen_breed_reference(g, s, geom, 0, steps, math.inf, seed=seed, **kw)
+
+            bound = expr_multigen_bound(geom, program, steps, 2)
+            f32_bound = expr_multigen_bound(geom, program, steps)
+        out, g32 = torch.empty_like(g), g.float()
+        out32 = torch.empty_like(g32)
+        reps = 5 if steps else 20
+        ms = cuda_ms(lambda: launch(g, out), reps)
+        f32_ms = cuda_ms(lambda: launch(g32, out32), reps)
+        plain_ms = cuda_ms(plain, 2)
+        record(name, geom, errs, ms, f32_ms, plain_ms, bound, steps=steps or 1, shape=[P, L],
+               f32_bound_ms=f32_bound[0])
+        del g, g32, out, out32
+        torch.cuda.empty_cache()
+
+    # Islands: bench.py's 8 x 131,072x100 in one launch, against the plain
+    # version, each island's single launch and the float32 island launch.
+    I, S, L = ISLAND_RUN
+    name = "deme_breed[islands,bf16]"
+    geom = fs.resolve_geometry(S, L, gene_dtype=bf)
+    gen = torch.Generator(device=device).manual_seed(S + 19)
+    g = bf16_population(geom, gen, device, islands=I)
+    s = torch.full((I, geom.Pp), -torch.inf, device=device)
+    s[:, :S] = g[:, :S].float().sum(dim=2)
+    seeds = torch.randint(0, 2**62, (I,), generator=gen, device=device)
+    tie = fs.draw_tie_words(gen, I * geom.Pp, device).view(I, geom.Pp)
+    kw = dict(mparams=mparams, obj_id=obj.onemax.fused_id)
+    G, K, errs = geom.G, geom.K, []
+    for parity in range(geom.parities):
+        ranks = fs.compute_ranks(s, geom, parity, tie)
+        draws = island_draws(fs, geom, I, 1, "uniform", "point", gen, device, False)
+        for mode, x in (("injected", dict(draws=draws)), ("philox", dict(seed=seeds))):
+            got = fs.deme_breed(g, ranks, geom, parity, islands=I, **x, **kw)
+            f32 = fs.deme_breed(g.float(), ranks, geom, parity, islands=I, **x, **kw)[0].to(bf)
+            d = x.get("draws") or fs.island_philox_draws(seeds, G, K, L)
+            want = fs.deme_breed_reference(g, ranks, geom, parity, d, **kw)
+            torch.cuda.synchronize()
+            tag = f"bf16 {name} parity {parity} {mode}"
+            errs.append(bf16_check(tag, got, want, f32, S, 0.0, SCORE_ATOL))
+            for i in range(I):
+                one = fs.deme_breed(g[i], ranks[i * G:(i + 1) * G], geom, parity, **(
+                    dict(draws=draws.island(i)) if mode == "injected" else dict(seed=seeds[i:i + 1])),
+                    **kw)
+                check(torch.equal(got[0][i], one[0]) and torch.equal(got[1][i], one[1]),
+                      f"{tag}: island {i} differs from its single-population launch")
+            del got, want, f32, d
+        del draws
+    out, g32 = torch.empty_like(g), g.float()
+    out32 = torch.empty_like(g32)
+
+    def single_launches():
+        for i in range(I):
+            fs.deme_breed(g[i], ranks[i * G:(i + 1) * G], geom, 0, seed=seeds[i:i + 1],
+                          out=out[i], **kw)
+
+    ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seeds, out=out, islands=I, **kw), 20)
+    f32_ms = cuda_ms(lambda: fs.deme_breed(g32, ranks, geom, 0, seed=seeds, out=out32, islands=I,
+                                           **kw), 20)
+    loop_ms = cuda_ms(single_launches, 20)
+    plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
+        g, ranks, geom, 0, fs.island_philox_draws(seeds, G, K, L), **kw), 2)
+    bound = breed_bound(geom, 2)
+    record(name, geom, errs, ms, f32_ms, plain_ms, (I * bound[0], bound[1]), shape=[I, S, L],
+           loop_ms=loop_ms, f32_bound_ms=I * breed_bound(geom)[0])
+    del g, g32, out, out32
+    torch.cuda.empty_cache()
+
+
+def phase_bf16_runs(port, kernels, results):
+    """PGA.run and PGA.run_islands at gene_dtype=bfloat16 through the
+    pga_* API, each the main-path run of its kernels-line entry (launches
+    of the bf16 kernel equal generations, ceil(gens / T) or island
+    generations, and nothing else launches; the genomes stay bf16; the
+    best rises; the scores are the stored genomes' objective), beside the
+    same configuration at float32 over as many generations, run just
+    before it; a torch.profiler window of the 1,048,576x100 OneMax run;
+    order crossover at bf16 takes the panmictic path."""
+    import torch
+
+    from libpga_tpu_torch.ops.crossover import order_preserving_crossover
+    from libpga_tpu_torch.ops.mutate import make_swap_mutate
+
+    loads = expr_workloads()
+    for name, load, P, L, T, I, counter, gens in BF16_RUNS:
+        objective, crossover = "onemax", None
+        if load != "onemax":
+            _, _, objective, crossover, _ = loads[load]
+        want = gens if T is None else -(-gens // T)
+
+        def timed(dtype):
+            """A solver of this case at ``dtype``, warmed up, then ``gens``
+            generations: (solver, generations run, seconds, launches by
+            counter, launches by the solver, best before the run)."""
+            pga = port.pga_init(seed=21, config=port.PGAConfig(
+                gene_dtype=dtype, generations_per_launch=T))
+            for _ in range(I or 1):
+                port.pga_create_population(pga, P, L)
+            port.pga_set_objective_function(pga, objective)
+            port.pga_set_crossover_function(pga, crossover)
+            check(pga.uses_deme_kernel(P, L), f"{dtype} {name}: not on the deme path")
+            start_best = max(float(pga._objective(p.genomes.float()).max())
+                             for p in pga._populations)
+
+            def run(n):
+                if I:
+                    return port.pga_run_islands(pga, n, ISLAND_M, ISLAND_PCT)
+                return port.pga_run(pga, n)
+
+            check(run(ISLAND_M if I else (T or WARMUP_GENS)) > 0, f"{dtype} {name}: warm-up")
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            before = pga.launches
+            t0 = time.perf_counter()
+            ran = run(gens)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            check(ran == gens, f"{dtype} {name}: ran {ran} generations")
+            check(sum(launches.values()) == want and pga.launches - before == want,
+                  f"{dtype} {name}: launches {launches} for {ran} generations, want {want}")
+            return pga, ran, seconds, launches, start_best
+
+        f32, f32_ran, f32_seconds, _, _ = timed(torch.float32)
+        port.pga_deinit(f32)
+        del f32
+        torch.cuda.empty_cache()
+        pga, ran, seconds, launches, start_best = timed(torch.bfloat16)
+        fn = pga._objective
+        end_best = max(pga.get_best_with_score(h)[1] for h in pga._handles())
+        f32_gens_per_s = f32_ran / f32_seconds
+        line = {"phase": "bf16_run", "case": name, "workload": load, "shape": [P, L],
+                "islands": I, "generations_per_launch": T, "gens": ran, "launches": launches,
+                "gens_per_s": ran / seconds, "ms_per_gen": 1e3 * seconds / ran,
+                "f32_gens": f32_ran, "f32_gens_per_s": f32_gens_per_s,
+                "bf16_over_f32": (ran / seconds) / f32_gens_per_s,
+                "start_best": start_best, "best": end_best}
+        check(launches[counter] == want,
+              f"bf16 {name}: launches {launches} for {ran} generations, want {want} of {counter}")
+        check(end_best > start_best, f"bf16 {name}: best {start_best} -> {end_best}")
+        for p in pga._populations:
+            check(p.genomes.dtype == torch.bfloat16, f"bf16 {name}: genomes are {p.genomes.dtype}")
+            check(bool(torch.isclose(p.scores, fn(p.genomes.float()), rtol=EXPR_RTOL,
+                                     atol=max(SCORE_ATOL, EXPR_ATOL_PER_GENE * L)).all()),
+                  f"bf16 {name}: scores are not the stored genomes' objective")
+        if name == "deme_breed[pingpong,bf16]":
+            line.update(profile_generations(port, pga, line["ms_per_gen"]))
+        print(json.dumps(line), flush=True)
+        results[name].update(launches=launches[counter], gens_per_s=line["gens_per_s"],
+                             f32_gens_per_s=f32_gens_per_s,
+                             device_busy_share=line.get("device_busy_share"))
+        port.pga_deinit(pga)
+        del pga
+        torch.cuda.empty_cache()
+
+    # Order crossover at bf16: declined by the deme path, as JAX declines it.
+    pga = port.pga_init(seed=22, config=port.PGAConfig(gene_dtype=torch.bfloat16))
+    h = port.pga_create_population(pga, 1000, 20)
+    port.pga_set_objective_function(pga, "onemax")
+    port.pga_set_crossover_function(pga, order_preserving_crossover)
+    port.pga_set_mutate_function(pga, make_swap_mutate(0.5))
+    kernels.reset_launches()
+    ran = port.pga_run(pga, 5)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "bf16_order_panmictic", "shape": [1000, 20], "gens": ran,
+                      "launches": dict(kernels.LAUNCHES),
+                      "dtype": str(pga.population(h).genomes.dtype)}), flush=True)
+    check(not pga.uses_deme_kernel(1000, 20) and ran == 5 and sum(kernels.LAUNCHES.values()) == 0
+          and pga.population(h).genomes.dtype == torch.bfloat16,
+          "bf16 order crossover: not the panmictic path")
     port.pga_deinit(pga)
 
 
@@ -2422,7 +2964,12 @@ def drive(torch, port, onemax, fs, kernels) -> int:
     island_results = {}
     phase_island_compare(fs, device, island_results)
     phase_island_run(port, kernels, island_results, results, mg_results)
+    island_expr = {}
+    phase_island_expr(port, fs, kernels, device, island_expr)
     phase_rastrigin_islands(port, kernels)
+    bf16_results = {}
+    phase_bf16_compare(port, fs, device, bf16_results)
+    phase_bf16_runs(port, kernels, bf16_results)
 
     entries = []
     for layout, r in results.items():
@@ -2528,6 +3075,38 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "loop_ms": r["loop_ms"], "library_ms": None, "case": r["case"], "shape": r["shape"],
             "steps": r["steps"], "rank_ms": r.get("rank_ms"),
             "other_cases": r.get("other_cases", {}),
+        })
+    # The expression kernel over islands: one single-population launch per
+    # island (the island axis of the generated unit is not ported), so the
+    # entry is that kernel's, ms the loop of I launches and the bound I
+    # islands' bytes.
+    entries.append({
+        "name": island_expr["name"], "route": "cuda",
+        "source": "libpga_tpu_torch/csrc/expr_breed.cu", "replaces": EXPR_ALSO_REPLACES,
+        "island_axis": "not ported: one launch per island",
+        **{k: island_expr[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by")},
+        "library_ms": None,
+        **{k: island_expr[k] for k in ("shape", "layout", "K", "D", "gens_per_s")},
+    })
+    for name, r in bf16_results.items():
+        # ms, plain_ms and the bound at the entry's shape (multigen: T = 8);
+        # launches from its bf16 run; f32_ms: the float32 kernel on the
+        # same shape in this call.
+        if name not in BF16_REPLACES:
+            continue
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "libpga_tpu_torch/csrc/" + (
+                "expr_breed.cu" if name.startswith("expr") else "deme_breed.cu"),
+            "replaces": BF16_REPLACES[name][0], "also_replaces": BF16_REPLACES[name][1],
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "gene_dtype": "bfloat16", "shape": r["shape"],
+            "layout": r["layout"], "K": r["K"], "D": r["D"], "steps": r["steps"],
+            "f32_ms": r["f32_ms"], "f32_bound_ms": r["f32_bound_ms"], "loop_ms": r.get("loop_ms"),
+            "gens_per_s": r["gens_per_s"], "f32_gens_per_s": r["f32_gens_per_s"],
+            "device_busy_share": r.get("device_busy_share"),
         })
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -1,7 +1,8 @@
 """libpga_tpu_torch: the PyTorch / CUDA port of libpga_tpu for one
 NVIDIA H100.
 
-``PGA.run`` on float32 genomes launches one hand-written CUDA kernel per
+``PGA.run`` on float32 or bfloat16 genomes
+(``PGAConfig(gene_dtype=...)``) launches one hand-written CUDA kernel per
 generation (``csrc/deme_breed.cu``: uniform crossover, or order
 crossover with the fused TSP score; with
 ``PGAConfig(generations_per_launch=T)`` one launch of the
@@ -12,7 +13,9 @@ takes the panmictic path (whole-population selection and operators in
 torch) for small populations and operators without a kernel form.
 ``PGA.run_islands`` evolves every population as an island with
 migration (``parallel/islands.py``): on the deme path one launch of the
-same kernels breeds every island, the islands a second grid axis. GP symbolic regression (``libpga_tpu_torch.gp``) runs on
+same kernels breeds every island, the islands a second grid axis. The
+kernels have bfloat16 cases (order crossover excepted, as in JAX): each
+child is bred in float32 and rounded once where it is stored. GP symbolic regression (``libpga_tpu_torch.gp``) runs on
 the panmictic path and scores every generation with one launch of the
 stack-machine kernel ``csrc/gp_eval.cu``. The JAX package ``libpga_tpu``
 stays the reference; nothing here imports it or JAX.

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from libpga_tpu_torch.ops.select import resolve_selection
+from libpga_tpu_torch.population import GENE_DTYPES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +55,11 @@ class PGAConfig:
         None (default) picks ping-pong where its mixing gate admits,
         else the riffle; "riffle" or "pingpong" forces one ("pingpong"
         raises where inadmissible).
-      gene_dtype: torch.float32 only in this slice.
+      gene_dtype: torch.float32 (default) or torch.bfloat16, the dtype
+        genomes are stored in. bfloat16 genomes breed in the kernels' bf16
+        cases: each child is computed in float32 and rounded once where it
+        is stored, and scored as stored (scores stay float32). Order
+        crossover at bfloat16 takes the panmictic path, as JAX's does.
       seed: base seed of the solver's ``torch.Generator``; None draws
         one from OS entropy.
       device: "cuda" (default) or "cpu". There is no automatic CPU
@@ -94,10 +99,10 @@ class PGAConfig:
             raise ValueError("generations_per_launch must be >= 1")
         if self.layout not in (None, "riffle", "pingpong"):
             raise ValueError("layout must be None, 'riffle' or 'pingpong'")
-        if self.gene_dtype != torch.float32:
-            raise NotImplementedError(
-                f"gene_dtype {self.gene_dtype} is not ported yet: bfloat16"
-                " genomes are a later slice (ROADMAP Queue B, B1/B3 bf16)"
+        if self.gene_dtype not in GENE_DTYPES:
+            raise ValueError(
+                f"gene_dtype {self.gene_dtype} is not supported: use torch.float32"
+                " or torch.bfloat16"
             )
         if torch.device(self.device).type not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', got {self.device!r}")

@@ -67,6 +67,25 @@
 // height 1) is the single-population launch, bit for bit, and an island
 // launch equals a single launch per island with that island's seed.
 //
+// bfloat16 genomes. deme_breed_kernel and multigen_breed_kernel<false> are
+// templates over the gene type (float or __nv_bfloat16), and the launchers
+// take gene_dtype (0 float32, 1 bfloat16); this replaces the three breed
+// pallas_calls at gene_dtype=bfloat16 (pallas_step.py:2257, :2526, :2872).
+// A bf16 kernel loads bf16 parents as float (exact: JAX's 0/1 one-hot
+// matmul of bf16 genes is exact too, :595-599), breeds the child in float
+// as the float32 kernel does, and rounds each child gene once to bf16
+// (round_gene, __float2bfloat16_rn) before it stores and scores it, as JAX
+// writes child.astype(bfloat16) (:1114, :1284, :1361, :1590, :1663) and
+// scores the stored genes (:1120-1125, :1373, :1667). So a bf16 child is
+// the float32 kernel's child on the same (widened) parents, rounded; the
+// multigen kernel's sub-generation t + 1 reads step t's rounded rows from
+// bf16 work buffers. Draws, draw counts and Philox streams are the float
+// kernel's. Bound: 2-byte genes halve the bytes, 2*Pp*L*2 + 8*Pp (0.128 ms
+// at 1,048,576x100); the loads stay one scalar per lane and gene (wider
+// loads are later work). Order crossover stays float32 only, as in JAX
+// (:1758): order_breed_kernel and multigen_breed_kernel<true> have no bf16
+// case, and the launchers refuse one.
+//
 // Built with --fmad=false so the float32 selection arithmetic is not
 // contracted into multiply-adds and rounds as the torch version does. The
 // row maps, selection, Philox and the draws shared with expr_breed.cu are in
@@ -77,16 +96,17 @@
 namespace {
 
 // One warp crosses parents p1 and p2 into `out`, mutates (unless
-// !may_mutate: an elite copy) and sums the objective's terms of the child as
-// written: each lane adds its genes l = lane, lane+32, ... in that order,
-// then the lanes combine through the warp_sum butterfly; the plain version
+// !may_mutate: an elite copy), rounds each gene to the gene type and sums the
+// objective's terms of the child as written: each lane adds its genes l =
+// lane, lane+32, ... in that order, then the lanes combine through the
+// warp_sum butterfly; the plain version
 // (fused_step.rowwise_scores(warp_order=True)) sums in the same order.
 // Returns the sums in `a` and `b` on every lane. ORDER: the child was walked
 // already (p1 == p2 == out, or an elite's parent): no crossover bits are
 // drawn, every gene is p1's.
-template <bool LDG, bool ORDER = false>
+template <bool LDG, bool ORDER = false, class Gene = float>
 __device__ __forceinline__ void breed_genes(
-    const BreedCtx& cx, const Draws& dr, const float* p1, const float* p2, float* out,
+    const BreedCtx& cx, const Draws& dr, const Gene* p1, const Gene* p2, Gene* out,
     ChildRand r, int k, int g, uint32_t t, int lane, size_t child, bool may_mutate,
     float& a, float& b) {
   const int L = cx.L, mutate = cx.mutate, obj = cx.obj;
@@ -98,14 +118,16 @@ __device__ __forceinline__ void breed_genes(
   a = 0.0f;
   b = 0.0f;
 
-  // Mutates gene l of the crossed child, writes it and adds its terms.
+  // Mutates gene l of the crossed child, rounds it to the gene type, writes
+  // it and adds its terms.
   auto finish = [&](int l, float c) {
     if (mutate == MUT_POINT) {
       if (fire && l == pos) c = r.mu2;
     } else if (mutate == MUT_GAUSSIAN) {
       c = gauss_mutate(cx, dr, c, k, g, t, l, child, may_mutate);
     }
-    out[l] = c;
+    c = round_gene<Gene>(c);
+    store_gene(out + l, c);
     obj_add(obj, c, a, b);
   };
   // A tile is 128 genes, four per lane. The lane fetches its four parent
@@ -157,7 +179,7 @@ __device__ __forceinline__ void breed_genes(
   if (mutate == MUT_SWAP && fire && pos < L && pj < L) {
     __syncwarp();
     if (lane == 0) {
-      const float x = out[pos], y = out[pj];
+      const Gene x = out[pos], y = out[pj];
       out[pos] = y;
       out[pj] = x;
     }
@@ -166,7 +188,7 @@ __device__ __forceinline__ void breed_genes(
       // The score is of the child as written: sum again after the swap.
       a = 0.0f;
       b = 0.0f;
-      for (int l = lane; l < L; l += 32) obj_add(obj, out[l], a, b);
+      for (int l = lane; l < L; l += 32) obj_add(obj, load_gene<false>(out + l), a, b);
     }
   }
   if (obj != OBJ_NONE) {
@@ -175,8 +197,9 @@ __device__ __forceinline__ void breed_genes(
   }
 }
 
+template <class Gene>
 __global__ void __launch_bounds__(THREADS) deme_breed_kernel(
-    const float* __restrict__ gin, float* __restrict__ gout, float* __restrict__ sout,
+    const Gene* __restrict__ gin, Gene* __restrict__ gout, float* __restrict__ sout,
     const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr0,
     Geometry geo, Selection sel, int mutate, int obj) {
   extern __shared__ int row_of_rank[];
@@ -210,8 +233,8 @@ __global__ void __launch_bounds__(THREADS) deme_breed_kernel(
     const int r2 = winner_rank(winner_fraction(sel, r.su1), V);
     const int s1 = min(max(row_of_rank[r1], 0), K - 1);
     const int s2 = min(max(row_of_rank[r2], 0), K - 1);
-    const float* p1 = gin + (size_t)read_row(geo, g, s1) * L;
-    const float* p2 = gin + (size_t)read_row(geo, g, s2) * L;
+    const Gene* p1 = gin + (size_t)read_row(geo, g, s1) * L;
+    const Gene* p2 = gin + (size_t)read_row(geo, g, s2) * L;
     const int orow = write_row(geo, g, k);
     float a, b;
     breed_genes<true>(cx, dr, p1, p2, gout + (size_t)orow * L, r, k, g, 0u, lane, child,
@@ -492,10 +515,10 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
 // sub-generations' draws are the same either way. Injected mode reads draw
 // tensors with a leading sub-generation axis.
 
-template <bool ORDER>
+template <bool ORDER, class Gene>
 __global__ void __launch_bounds__(MG_THREADS) multigen_breed_kernel(
-    MultigenIO io, const float* __restrict__ mparams, Draws dr0, Geometry geo, Selection sel,
-    int mutate, int obj, int elitism, int draw_steps) {
+    MultigenIO<Gene> io, const float* __restrict__ mparams, Draws dr0, Geometry geo,
+    Selection sel, int mutate, int obj, int elitism, int draw_steps) {
   extern __shared__ long long mg_smem[];
   io = island_io(io, geo);
   dr0 = island_draws(dr0, geo, draw_steps);
@@ -503,7 +526,7 @@ __global__ void __launch_bounds__(MG_THREADS) multigen_breed_kernel(
   if (ORDER) cx.ncalls = 2;  // selection and mutation: no crossover bits
   const int lane = threadIdx.x & 31;
   auto breed_child = [&](const Draws& dr, uint32_t t, int g, int k, size_t child,
-                         const float* p1, const float* p2, float* out, const ChildRand& r,
+                         const Gene* p1, const Gene* p2, Gene* out, const ChildRand& r,
                          bool elite) {
     float a, b;
     breed_genes<false, ORDER>(cx, dr, p1, p2, out, r, k, g, t, lane, child, !elite, a, b);
@@ -515,16 +538,29 @@ __global__ void __launch_bounds__(MG_THREADS) multigen_breed_kernel(
 
 }  // namespace
 
+// gene_dtype: GENE_F32 (0) or GENE_BF16 (1), the type of gin and gout.
 extern "C" int deme_breed_launch(
-    const float* gin, float* gout, float* sout, const int* ranks, const float* mparams,
+    const void* gin, void* gout, float* sout, const int* ranks, const float* mparams,
     const float* sel_u, const unsigned char* cross, const float* mut_u, const float* gauss,
     const long long* seed, int P, int Pp, int L, int K, int G, int mode, int S, int D, int q,
-    int sel_kind, int tk, float sel_param, int mutate, int obj, int islands, void* stream) {
+    int sel_kind, int tk, float sel_param, int mutate, int obj, int islands, int gene_dtype,
+    void* stream) {
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed};
-  deme_breed_kernel<<<dim3(G, islands), THREADS, K * sizeof(int), (cudaStream_t)stream>>>(
-      gin, gout, sout, ranks, mparams, dr, geo, sel, mutate, obj);
+  const dim3 grid(G, islands);
+  const size_t smem = K * sizeof(int);
+  if (gene_dtype == GENE_BF16) {
+    deme_breed_kernel<__nv_bfloat16><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        static_cast<const __nv_bfloat16*>(gin), static_cast<__nv_bfloat16*>(gout), sout, ranks,
+        mparams, dr, geo, sel, mutate, obj);
+  } else if (gene_dtype == GENE_F32) {
+    deme_breed_kernel<float><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        static_cast<const float*>(gin), static_cast<float*>(gout), sout, ranks, mparams, dr,
+        geo, sel, mutate, obj);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -558,29 +594,43 @@ extern "C" int order_breed_launch(
 }
 
 // cross_kind 0: uniform crossover (`cross` bits); 1: order crossover (`fill`
-// genes; D must be 1). draw_steps: the sub-generations each island's
-// injected draws hold (their stride; unread in production mode).
+// genes; D must be 1; float32 genes only). draw_steps: the sub-generations
+// each island's injected draws hold (their stride; unread in production
+// mode). gene_dtype: GENE_F32 or GENE_BF16, the type of gin, gout and the
+// work buffers.
 extern "C" int multigen_breed_launch(
-    const float* gin, const float* sin, float* gout, float* sout, float* work0, float* work1,
+    const void* gin, const float* sin, void* gout, float* sout, void* work0, void* work1,
     int steps, float target, const float* mparams, const float* sel_u,
     const unsigned char* cross, const float* fill, const float* mut_u, const float* gauss,
     const long long* tie, const long long* seed, int P, int Pp, int L, int K, int G, int mode,
     int S, int D, int q, int sel_kind, int tk, float sel_param, int cross_kind, int mutate,
-    int obj, int elitism, int draw_steps, int islands, void* stream) {
+    int obj, int elitism, int draw_steps, int islands, int gene_dtype, void* stream) {
   if (D < 1 || D > MG_MAX_D || (cross_kind && D != 1)) return (int)cudaErrorInvalidValue;
+  if ((gene_dtype != GENE_F32 && gene_dtype != GENE_BF16) || (cross_kind && gene_dtype != GENE_F32))
+    return (int)cudaErrorInvalidValue;
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed, tie, fill};
-  const MultigenIO io{gin, sin, gout, sout, work0, work1, steps, target};
   // Keys, scores, row_of_rank and alive flags of the group's D*K rows, then
   // (order crossover) the walkers' visited bitmasks.
   const int W = D * K;
+  if (gene_dtype == GENE_BF16) {
+    using B = __nv_bfloat16;
+    const MultigenIO<B> io{static_cast<const B*>(gin), sin, static_cast<B*>(gout), sout,
+                           static_cast<B*>(work0), static_cast<B*>(work1), steps, target};
+    return launch_with_smem(multigen_breed_kernel<false, B>, dim3(S, islands), MG_THREADS,
+                            (size_t)W * MG_ROW_BYTES, (cudaStream_t)stream, io, mparams, dr, geo,
+                            sel, mutate, obj, elitism, draw_steps);
+  }
+  const MultigenIO<float> io{static_cast<const float*>(gin), sin, static_cast<float*>(gout),
+                             sout, static_cast<float*>(work0), static_cast<float*>(work1),
+                             steps, target};
   if (cross_kind)
-    return launch_with_smem(multigen_breed_kernel<true>, dim3(S, islands), MG_THREADS,
+    return launch_with_smem(multigen_breed_kernel<true, float>, dim3(S, islands), MG_THREADS,
                             mg_rows_bytes(W) + mg_walk_bytes(W, L, MG_THREADS),
                             (cudaStream_t)stream, io, mparams, dr, geo, sel, mutate, obj, elitism,
                             draw_steps);
-  return launch_with_smem(multigen_breed_kernel<false>, dim3(S, islands), MG_THREADS,
+  return launch_with_smem(multigen_breed_kernel<false, float>, dim3(S, islands), MG_THREADS,
                           (size_t)W * MG_ROW_BYTES, (cudaStream_t)stream, io, mparams, dr, geo,
                           sel, mutate, obj, elitism, draw_steps);
 }

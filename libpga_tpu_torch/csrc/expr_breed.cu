@@ -56,6 +56,18 @@
 // store and two loads per gene. Blocks run 8 warps, fewer where the
 // per-warp rows would not fit in 227 KB of shared memory (the wrapper picks
 // the count).
+//
+// bfloat16 genomes. expr_breed_kernel and expr_multigen_kernel<false> are
+// templates over the gene type (float or __nv_bfloat16), and both launchers
+// take gene_dtype (0 float32, 1 bfloat16), as deme_breed.cu's do: a bf16
+// kernel loads the parents as float, the hooks take and return float as
+// they do for float32 genes, and each gene of the warp's shared child row is
+// rounded to bf16 (round_gene) as it is written there, so the stored child,
+// its score (the objective reads that row) and the next sub-generation's
+// parents are the rounded genes (pallas_step.py:1114-1125, :1663-1669).
+// The generated hooks do not depend on the gene type, so one unit holds both
+// instantiations. expr_order_kernel and expr_multigen_kernel<true> stay
+// float32 only (order crossover at bf16 is declined, as in JAX).
 
 #include "breed_core.cuh"
 
@@ -104,13 +116,14 @@ __device__ __forceinline__ void gene_draws(
 // through the read-only path: the one-generation kernel may, the
 // multi-generation kernel may not (its parents from t = 1 on are rows that
 // other warps of the block wrote earlier in the launch). Ends with the row
-// complete and the warp synchronised. ORDER: the child was walked already and
+// complete (each gene rounded to the gene type Gene) and the warp
+// synchronised. ORDER: the child was walked already and
 // p1 is that row (p2 unused): every gene is p1's, no crossover bit is drawn,
 // and only the mutation runs (a unit with order crossover has no crossover
 // hook).
-template <bool LDG, bool ORDER = false>
+template <bool LDG, bool ORDER = false, class Gene = float>
 __device__ __forceinline__ void expr_child(
-    const BreedCtx& cx, const Draws& dr, const ExprDraws& ex, const float* p1, const float* p2,
+    const BreedCtx& cx, const Draws& dr, const ExprDraws& ex, const Gene* p1, const Gene* p2,
     float* grow, const ChildRand& r, int k, int g, uint32_t t, int lane, size_t child,
     const float* __restrict__ cb) {
   const int L = cx.L;
@@ -169,7 +182,7 @@ __device__ __forceinline__ void expr_child(
         x = gauss_mutate(cx, dr, x, k, g, t, l, child, true);
       }
 #endif
-      grow[l] = x;
+      grow[l] = round_gene<Gene>(x);
     }
   };
 
@@ -238,8 +251,9 @@ __device__ __forceinline__ float expr_score(
 #endif
 }
 
+template <class Gene>
 __global__ void __launch_bounds__(THREADS) expr_breed_kernel(
-    const float* __restrict__ gin, float* __restrict__ gout, float* __restrict__ sout,
+    const Gene* __restrict__ gin, Gene* __restrict__ gout, float* __restrict__ sout,
     const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr, ExprDraws ex,
     const float* __restrict__ cb, Geometry geo, Selection sel, int mutate, int obj) {
   extern __shared__ int smem[];
@@ -273,12 +287,12 @@ __global__ void __launch_bounds__(THREADS) expr_breed_kernel(
     const int r2 = winner_rank(winner_fraction(sel, r.su1), V);
     const int s1 = min(max(row_of_rank[r1], 0), K - 1);
     const int s2 = min(max(row_of_rank[r2], 0), K - 1);
-    const float* p1 = gin + (size_t)read_row(geo, g, s1) * L;
-    const float* p2 = gin + (size_t)read_row(geo, g, s2) * L;
+    const Gene* p1 = gin + (size_t)read_row(geo, g, s1) * L;
+    const Gene* p2 = gin + (size_t)read_row(geo, g, s2) * L;
     const int orow = write_row(geo, g, k);
     expr_child<true>(cx, dr, ex, p1, p2, grow, r, k, g, 0u, lane, child, cb);
-    float* out = gout + (size_t)orow * L;
-    for (int l = lane; l < L; l += 32) out[l] = grow[l];
+    Gene* out = gout + (size_t)orow * L;
+    for (int l = lane; l < L; l += 32) store_gene(out + l, grow[l]);
     if (scored) {
       const float score = expr_score(grow, erows, obj, L, lane, cb);
       if (lane == 0) sout[orow] = orow < geo.P ? score : -INFINITY;
@@ -459,9 +473,9 @@ __global__ void __launch_bounds__(ORDER_THREADS) expr_order_kernel(
 // dependent steps per sub-generation on 256 of the block's threads at K =
 // 256, which is expected to set the time (65,536x200: 256 blocks on 132 SMs).
 
-template <bool ORDER>
+template <bool ORDER, class Gene>
 __global__ void __launch_bounds__(MG_THREADS) expr_multigen_kernel(
-    MultigenIO io, const float* __restrict__ mparams, Draws dr0, ExprDraws ex0,
+    MultigenIO<Gene> io, const float* __restrict__ mparams, Draws dr0, ExprDraws ex0,
     const float* __restrict__ cb, Geometry geo, Selection sel, int mutate, int obj,
     int elitism) {
   extern __shared__ long long mg_smem[];
@@ -474,10 +488,10 @@ __global__ void __launch_bounds__(MG_THREADS) expr_multigen_kernel(
   if (EXPR_CROSS || ORDER) cx.ncalls = 2;  // selection and mutation: no crossover bits
   const size_t GK = (size_t)geo.G * geo.K;
   auto breed_child = [&](const Draws& dr, uint32_t t, int g, int k, size_t child,
-                         const float* p1, const float* p2, float* out, const ChildRand& r,
+                         const Gene* p1, const Gene* p2, Gene* out, const ChildRand& r,
                          bool elite) {
     if (elite) {
-      for (int l = lane; l < L; l += 32) grow[l] = p1[l];
+      for (int l = lane; l < L; l += 32) grow[l] = load_gene<false>(p1 + l);
       __syncwarp();
     } else {
       ExprDraws ex = ex0;
@@ -487,7 +501,7 @@ __global__ void __launch_bounds__(MG_THREADS) expr_multigen_kernel(
       }
       expr_child<false, ORDER>(cx, dr, ex, p1, p2, grow, r, k, g, t, lane, child, cb);
     }
-    for (int l = lane; l < L; l += 32) out[l] = grow[l];
+    for (int l = lane; l < L; l += 32) store_gene(out + l, grow[l]);
     const float score = expr_score(grow, erows, obj, L, lane, cb);
     __syncwarp();  // the next child overwrites this warp's rows
     return score;
@@ -500,65 +514,88 @@ __global__ void __launch_bounds__(MG_THREADS) expr_multigen_kernel(
 // cross_kind 0: expr_breed_kernel (uniform crossover or the crossover
 // hook; `warps` warps per block); 1: expr_order_kernel (order crossover,
 // riffle only, `fill` genes, ORDER_THREADS threads per block; obj may be
-// OBJ_TSP with `coords` (C, 2) and `penalty`).
+// OBJ_TSP with `coords` (C, 2) and `penalty`; float32 genes only).
+// gene_dtype: GENE_F32 or GENE_BF16, the type of gin and gout.
 extern "C" int expr_breed_launch(
-    const float* gin, float* gout, float* sout, const int* ranks, const float* mparams,
+    const void* gin, void* gout, float* sout, const int* ranks, const float* mparams,
     const float* sel_u, const unsigned char* cross, const float* fill, const float* mut_u,
     const float* gauss, const float* xgene, const float* xrow, const long long* seed,
     const float* consts, const float* coords, int C, float penalty, int P, int Pp, int L, int K,
     int G, int mode, int S, int D, int q, int sel_kind, int tk, float sel_param, int cross_kind,
-    int mutate, int obj, int warps, void* stream) {
+    int mutate, int obj, int warps, int gene_dtype, void* stream) {
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed, nullptr, fill};
   const ExprDraws ex{xgene, xrow};
+  if (gene_dtype != GENE_F32 && gene_dtype != GENE_BF16) return (int)cudaErrorInvalidValue;
   if (cross_kind) {
-    if (EXPR_CROSS || mode != MODE_RIFFLE || K % ORDER_THREADS || (obj == OBJ_TSP && C < 1))
+    if (EXPR_CROSS || mode != MODE_RIFFLE || K % ORDER_THREADS || (obj == OBJ_TSP && C < 1) ||
+        gene_dtype != GENE_F32)
       return (int)cudaErrorInvalidValue;
     // row_of_rank, the bitmasks, the coordinates, each warp's rows.
     const int nw = (L + 31) / 32, Cs = obj == OBJ_TSP ? (C < L ? C : L) : 0;
     const size_t smem = (size_t)(K + nw * ORDER_THREADS) * 4 + (size_t)Cs * 8 +
                         (size_t)(ORDER_THREADS / 32) * (1 + EXPR_OBJ_ROWS) * L * 4;
     return launch_with_smem(expr_order_kernel, G * (K / ORDER_THREADS), ORDER_THREADS, smem,
-                            (cudaStream_t)stream, gin, gout, sout, ranks, mparams, dr, ex,
-                            consts, coords, C, penalty, geo, sel, mutate, obj);
+                            (cudaStream_t)stream, static_cast<const float*>(gin),
+                            static_cast<float*>(gout), sout, ranks, mparams, dr, ex, consts,
+                            coords, C, penalty, geo, sel, mutate, obj);
   }
   if (warps < 1 || warps > THREADS / 32) return (int)cudaErrorInvalidValue;
   // row_of_rank, then each warp's child row and objective rows.
   const size_t smem = (size_t)K * sizeof(int) + (size_t)warps * (1 + EXPR_OBJ_ROWS) * L * 4;
-  return launch_with_smem(expr_breed_kernel, G, warps * 32, smem, (cudaStream_t)stream, gin,
-                          gout, sout, ranks, mparams, dr, ex, consts, geo, sel, mutate, obj);
+  if (gene_dtype == GENE_BF16) {
+    using B = __nv_bfloat16;
+    return launch_with_smem(expr_breed_kernel<B>, G, warps * 32, smem, (cudaStream_t)stream,
+                            static_cast<const B*>(gin), static_cast<B*>(gout), sout, ranks,
+                            mparams, dr, ex, consts, geo, sel, mutate, obj);
+  }
+  return launch_with_smem(expr_breed_kernel<float>, G, warps * 32, smem, (cudaStream_t)stream,
+                          static_cast<const float*>(gin), static_cast<float*>(gout), sout, ranks,
+                          mparams, dr, ex, consts, geo, sel, mutate, obj);
 }
 
 // cross_kind 0: uniform crossover or the crossover hook; 1: order crossover
-// (`fill` genes, D = 1).
+// (`fill` genes, D = 1, float32 genes only). gene_dtype: GENE_F32 or
+// GENE_BF16, the type of gin, gout and the work buffers.
 extern "C" int expr_multigen_launch(
-    const float* gin, const float* sin, float* gout, float* sout, float* work0, float* work1,
+    const void* gin, const float* sin, void* gout, float* sout, void* work0, void* work1,
     int steps, float target, const float* mparams, const float* sel_u,
     const unsigned char* cross, const float* fill, const float* mut_u, const float* gauss,
     const long long* tie, const float* xgene, const float* xrow, const long long* seed,
     const float* consts, int P, int Pp, int L, int K, int G, int mode, int S, int D, int q,
     int sel_kind, int tk, float sel_param, int cross_kind, int mutate, int obj, int elitism,
-    int warps, void* stream) {
+    int warps, int gene_dtype, void* stream) {
   if (D < 1 || D > MG_MAX_D || warps < 1 || warps > MG_THREADS / 32 ||
-      (cross_kind && (EXPR_CROSS || D != 1)))
+      (cross_kind && (EXPR_CROSS || D != 1 || gene_dtype != GENE_F32)) ||
+      (gene_dtype != GENE_F32 && gene_dtype != GENE_BF16))
     return (int)cudaErrorInvalidValue;
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed, tie, fill};
   const ExprDraws ex{xgene, xrow};
-  const MultigenIO io{gin, sin, gout, sout, work0, work1, steps, target};
   // The group's keys, scores, row_of_rank and alive flags, (order) the
   // walkers' bitmasks, then each warp's child row and objective rows.
   const int threads = warps * 32;
   const size_t smem = mg_rows_bytes(D * K) +
                       (cross_kind ? mg_walk_bytes(D * K, L, threads) : 0) +
                       (size_t)warps * (1 + EXPR_OBJ_ROWS) * L * sizeof(float);
+  if (gene_dtype == GENE_BF16) {
+    using B = __nv_bfloat16;
+    const MultigenIO<B> io{static_cast<const B*>(gin), sin, static_cast<B*>(gout), sout,
+                           static_cast<B*>(work0), static_cast<B*>(work1), steps, target};
+    return launch_with_smem(expr_multigen_kernel<false, B>, S, threads, smem,
+                            (cudaStream_t)stream, io, mparams, dr, ex, consts, geo, sel, mutate,
+                            obj, elitism);
+  }
+  const MultigenIO<float> io{static_cast<const float*>(gin), sin, static_cast<float*>(gout),
+                             sout, static_cast<float*>(work0), static_cast<float*>(work1),
+                             steps, target};
   return cross_kind
-             ? launch_with_smem(expr_multigen_kernel<true>, S, threads, smem,
+             ? launch_with_smem(expr_multigen_kernel<true, float>, S, threads, smem,
                                 (cudaStream_t)stream, io, mparams, dr, ex, consts, geo, sel,
                                 mutate, obj, elitism)
-             : launch_with_smem(expr_multigen_kernel<false>, S, threads, smem,
+             : launch_with_smem(expr_multigen_kernel<false, float>, S, threads, smem,
                                 (cudaStream_t)stream, io, mparams, dr, ex, consts, geo, sel,
                                 mutate, obj, elitism);
 }

@@ -50,6 +50,13 @@ with an expression hook, one launch per island per generation; islands
 without a kernel kind, or under 128 rows, take the panmictic epoch.
 Unequal populations run epoch by epoch through ``run`` and ``migrate``.
 
+Genomes are stored in ``PGAConfig.gene_dtype``, float32 or bfloat16. A
+bfloat16 run launches the bf16 cases of the deme, multi-generation and
+expression kernels (each child bred in float32, rounded once where it is
+stored, scored as stored); order crossover at bfloat16 takes the
+panmictic path, as JAX's gate declines it. Best genomes come back as
+float32 numpy arrays holding the stored values.
+
 There is no fallback between device and CPU: the device is the
 config's, and a missing card is an error.
 """
@@ -162,10 +169,12 @@ class PGA:
     def create_population(
         self, size: int, genome_len: int, init: str = "random"
     ) -> PopulationHandle:
-        """Uniform [0, 1) genomes from the solver's generator."""
+        """Uniform [0, 1) genomes of the config's gene dtype from the
+        solver's generator."""
         self._check_population_cap()
         pop = create_population(
-            self.generator, size, genome_len, init=init, device=self.device
+            self.generator, size, genome_len, init=init, device=self.device,
+            dtype=self.config.gene_dtype,
         )
         self._populations.append(pop)
         return PopulationHandle(len(self._populations) - 1)
@@ -175,7 +184,9 @@ class PGA:
     ) -> PopulationHandle:
         """Install an explicit population: a :class:`Population` (e.g.
         from ``interop.state_from_numpy``) or a ``(size, genome_len)``
-        matrix, whose scores read -inf until the first run."""
+        matrix, whose scores read -inf until the first run. The genes are
+        stored in the config's gene dtype (rounded to nearest where that
+        is bfloat16 and they are not)."""
         if isinstance(genomes, Population):
             g, s = genomes.genomes, genomes.scores
         else:
@@ -189,7 +200,7 @@ class PGA:
                 "install_population needs a (size, genome_len) matrix;"
                 f" got shape {tuple(g.shape)}"
             )
-        g = g.to(self.device, torch.float32).contiguous()
+        g = g.to(self.device, self.config.gene_dtype).contiguous()
         s = s.to(self.device, torch.float32).contiguous()
         self._check_population_cap()
         self._populations.append(Population(genomes=g, scores=s))
@@ -343,6 +354,7 @@ class PGA:
                 tournament_size=c.tournament_size, selection=c.selection,
                 selection_param=c.selection_param, crossover=cross,
                 const_carrying=bool(getattr(expr_obj, "kernel_rowwise_consts", ())),
+                gene_dtype=c.gene_dtype,
             ) is not None
         )
 
@@ -386,6 +398,7 @@ class PGA:
             selection=c.selection, selection_param=c.selection_param,
             crossover=self._crossover_kind(), mutate=self._mutate_kind(),
             mparams=self._mutate_params(), layout=c.layout, device=self.device,
+            gene_dtype=c.gene_dtype,
         )
 
     def _panmictic_breed(self) -> Callable:
@@ -465,10 +478,11 @@ class PGA:
 
     def get_best_with_score(self, handle: PopulationHandle) -> Tuple[np.ndarray, float]:
         """Best genome and its score: the first row of
-        :meth:`get_best_top` (``ops/topk.py``)."""
+        :meth:`get_best_top` (``ops/topk.py``). Genomes come back as
+        float32 numpy arrays (a bfloat16 gene widens exactly)."""
         pop = self._populations[handle.index]
         g, s = best_genome(pop.genomes, pop.scores)
-        return g.cpu().numpy(), float(s)
+        return g.float().cpu().numpy(), float(s)
 
     def get_best(self, handle: PopulationHandle) -> np.ndarray:
         """Best genome of one population."""
@@ -479,7 +493,7 @@ class PGA:
         index first among equal scores); ``k`` is clamped to the size."""
         pop = self._populations[handle.index]
         g, _ = top_k_genomes(pop.genomes, pop.scores, min(k, pop.size))
-        return g.cpu().numpy()
+        return g.float().cpu().numpy()
 
     def get_best_all(self) -> np.ndarray:
         """Best genome across all populations (``pga.h:92``; a stub in the
@@ -501,7 +515,7 @@ class PGA:
         cands_g, cands_s = [], []
         for pop in self._populations:
             g, s = top_k_genomes(pop.genomes, pop.scores, min(k, pop.size))
-            cands_g.append(g.cpu().numpy())
+            cands_g.append(g.float().cpu().numpy())
             cands_s.append(s.cpu().numpy())
         if len({g.shape[1] for g in cands_g}) != 1:
             raise ValueError("get_best_top_all requires equal genome_len across populations")

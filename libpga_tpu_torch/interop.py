@@ -26,7 +26,7 @@ from libpga_tpu_torch.config import PGAConfig
 from libpga_tpu_torch.gp.encoding import GPConfig
 from libpga_tpu_torch.gp.optimize import EvalProgram
 from libpga_tpu_torch.objectives.expr import _CONSTANTS, _KEYWORDS, _tokenize, from_expression
-from libpga_tpu_torch.population import Population
+from libpga_tpu_torch.population import GENE_DTYPES, Population
 
 GP_FIELDS = (
     "max_nodes", "n_vars", "consts", "unary", "binary", "min_nodes",
@@ -51,20 +51,30 @@ def pga_config_from_fields(obj, device: str = "cuda") -> PGAConfig:
     """The port's :class:`PGAConfig` with the field values of ``obj``
     (for example the JAX package's ``PGAConfig``): ``pallas_deme_size``,
     ``pallas_generations_per_launch`` and ``pallas_layout`` lose their
-    prefix, and ``use_pallas`` (None = auto) becomes ``use_deme_kernel``
-    (True unless False). float32 genes only."""
+    prefix, ``use_pallas`` (None = auto) becomes ``use_deme_kernel``
+    (True unless False), and ``gene_dtype`` maps by its name ("float32",
+    "bfloat16"; float32 where ``obj`` has none)."""
     kw = {ours: getattr(obj, theirs) for ours, theirs in PGA_FIELDS.items()}
+    dt = getattr(obj, "gene_dtype", "float32")
     return PGAConfig(
         use_deme_kernel=getattr(obj, "use_pallas", None) is not False,
+        gene_dtype={"float32": torch.float32, "bfloat16": torch.bfloat16}[
+            getattr(dt, "__name__", str(dt))],
         device=device, **kw,
     )
 
 
 def state_from_numpy(
-    genomes: np.ndarray, scores: Optional[np.ndarray] = None, device="cuda"
+    genomes: np.ndarray, scores: Optional[np.ndarray] = None, device="cuda",
+    gene_dtype=torch.float32,
 ) -> Population:
-    """``(size, genome_len)`` genomes and ``(size,)`` scores (None:
-    -inf, unevaluated) as float32 tensors on ``device``."""
+    """``(size, genome_len)`` genomes as ``gene_dtype`` (torch.float32
+    or torch.bfloat16) and ``(size,)`` scores (None: -inf,
+    unevaluated) as float32, on ``device``. ``np.asarray`` of a JAX
+    bfloat16 array widens exactly to float32, and the narrowing back to
+    bfloat16 is exact too, so a bfloat16 population crosses unchanged."""
+    if gene_dtype not in GENE_DTYPES:
+        raise ValueError(f"gene_dtype {gene_dtype} is not one of {GENE_DTYPES}")
     g = np.asarray(genomes, dtype=np.float32)
     if g.ndim != 2:
         raise ValueError(f"genomes must be (size, genome_len); got {g.shape}")
@@ -75,7 +85,7 @@ def state_from_numpy(
         if s.shape != (g.shape[0],):
             raise ValueError(f"scores must be ({g.shape[0]},); got {s.shape}")
     return Population(
-        genomes=torch.from_numpy(g.copy()).to(device),
+        genomes=torch.from_numpy(g.copy()).to(device, gene_dtype),
         scores=torch.from_numpy(s.copy()).to(device),
     )
 

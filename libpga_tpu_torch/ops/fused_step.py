@@ -66,6 +66,18 @@ children of the expression breed. Both take order crossover too (one
 riffle deme per group, as JAX): each sub-generation walks every child
 before the mutation and the score.
 
+**bfloat16 genomes** (``PGAConfig(gene_dtype=torch.bfloat16)``): the deme,
+multi-generation and expression kernels have bf16 cases (order crossover
+stays float32, as in JAX, whose factories decline it). A bf16 breed
+computes each child in float32 from the widened parents, exactly as the
+float32 breed does, and rounds it once to bfloat16 where it is stored;
+its score is of the stored genes, and a multi-generation launch's next
+sub-generation reads the rounded rows (JAX's ``child.astype(bf16)`` then
+``child.astype(f32)``, ``pallas_step.py:1114-1125``). So one bf16
+generation is the float32 generation of the widened genomes, rounded.
+The geometry follows JAX's bf16 defaults: 2-byte genes in every fit, a
+ping-pong quantum of 16 rows and the demes-per-step defaults of 4.
+
 **Islands** (``PGA.run_islands``): I equal populations breed in ONE launch
 of the deme, order or multi-generation kernel, the islands a second grid
 axis (:func:`make_island_breed`, :func:`make_island_multigen`). Genomes
@@ -109,6 +121,7 @@ from libpga_tpu_torch.ops.select import (
     winner_ranks,
 )
 from libpga_tpu_torch.ops.topk import top_k
+from libpga_tpu_torch.population import GENE_DTYPES
 
 LANE = 128
 CROSSOVER_KINDS = ("uniform", "order")
@@ -277,7 +290,8 @@ def _pick_deme_size(
 
 def auto_deme_size(gene_dtype=torch.float32, const_carrying: bool = False) -> int:
     """The JAX package's deme default: 512, except 256 for float32
-    objectives that carry kernel constants."""
+    objectives that carry kernel constants (``auto_deme_size``,
+    ``pallas_step.py:372``)."""
     if const_carrying and gene_dtype != torch.bfloat16:
         return 256
     return 512
@@ -285,13 +299,21 @@ def auto_deme_size(gene_dtype=torch.float32, const_carrying: bool = False) -> in
 
 ONE_GEN_D_POOL = (32, 16, 8, 4, 2, 1)
 MULTIGEN_D_POOL = (16, 8, 4, 2, 1)
-MULTIGEN_D_DEFAULT = 8
 
 
 def one_gen_d_default(gene_dtype=torch.float32, const_carrying: bool = False) -> int:
+    """The one-generation demes-per-step default (``one_gen_d_default``,
+    ``pallas_step.py:1930``): 4 for bf16, 16 for const-carrying float32
+    objectives, else 8."""
     if gene_dtype == torch.bfloat16:
         return 4
     return 16 if const_carrying else 8
+
+
+def multigen_d_default(gene_dtype=torch.float32) -> int:
+    """The multi-generation demes-per-step default (``make_pallas_multigen``,
+    ``pallas_step.py:2783``): 4 for bf16, else 8."""
+    return 4 if gene_dtype == torch.bfloat16 else 8
 
 
 @dataclasses.dataclass
@@ -363,9 +385,12 @@ def resolve_geometry(
     elitism: int = 0,
     demes_per_step: Optional[int] = None,
     const_carrying: bool = False,
+    gene_dtype=torch.float32,
 ) -> Optional[Geometry]:
     """What ``make_pallas_breed`` (or, with ``multigen``,
-    ``make_pallas_multigen``) would build for float32 genes, a builtin
+    ``make_pallas_multigen``) would build for ``gene_dtype`` genes
+    (float32 or bfloat16: 2-byte genes in every fit, JAX's bf16 deme and
+    demes-per-step defaults and a ping-pong quantum of 16), a builtin
     crossover kind and a builtin mutation: the ``_kernel_shape`` gates
     and fit, then ``_resolve_layout`` (fused breeds take ping-pong
     whenever a D admits it; ``layout`` forces one; an explicit
@@ -391,7 +416,10 @@ def resolve_geometry(
 
     None where the JAX factory declines (tournament size outside 1..16,
     under 128 rows, only degenerate padded fits, no K whose order
-    scratch fits, or the multigen elitism gate)."""
+    scratch fits, order crossover on bfloat16 genes, or the multigen
+    elitism gate)."""
+    if gene_dtype not in GENE_DTYPES:
+        raise ValueError(f"gene_dtype {gene_dtype} is not one of {GENE_DTYPES}")
     if not 1 <= tournament_size <= 16:
         return None
     if is_expression(crossover):
@@ -408,21 +436,25 @@ def resolve_geometry(
         raise ValueError(
             "layout='pingpong' is not available here: order crossover is riffle-only"
         )
+    if order and gene_dtype != torch.float32:
+        return None
     if not deme_size:
-        deme_size = auto_deme_size(const_carrying=const_carrying)
+        deme_size = auto_deme_size(gene_dtype, const_carrying)
     Lp = math.ceil(genome_len / LANE) * LANE
+    gene_bytes = 2 if gene_dtype == torch.bfloat16 else 4
     blocks_fit = _multigen_blocks_fit if multigen else _blocks_fit
     d_pool = MULTIGEN_D_POOL if multigen else ONE_GEN_D_POOL
     d_default = (
-        MULTIGEN_D_DEFAULT if multigen else one_gen_d_default(const_carrying=const_carrying)
+        multigen_d_default(gene_dtype) if multigen
+        else one_gen_d_default(gene_dtype, const_carrying)
     )
 
     def fit(k: int, d: int) -> bool:
         extra = _order_scratch_bytes(k, genome_len, Lp) if order else 0
-        return blocks_fit(k, d, Lp, 4, extra)
+        return blocks_fit(k, d, Lp, gene_bytes, extra)
 
     K = _pick_deme_size(
-        pop_size, deme_size, genome_lanes=Lp, gene_bytes=4,
+        pop_size, deme_size, genome_lanes=Lp, gene_bytes=gene_bytes,
         fits=lambda k: fit(k, 1),
     )
     if K is None:
@@ -431,7 +463,7 @@ def resolve_geometry(
         return None
     G = math.ceil(pop_size / K)
     Pp = G * K
-    q = pingpong_quantum()
+    q = pingpong_quantum(gene_dtype)
     if order:
         return Geometry("riffle", pop_size, genome_len, K, G, 1, Pp, q)
     d_candidates = [d for d in d_pool if G % d == 0 and fit(K, d)] or [1]
@@ -759,7 +791,8 @@ def breed_children(
     children 0..e-1 verbatim copies of ranks 0..e-1 (the JAX core's
     per-deme elites; order crossover is not the identity on equal
     parents, so the elite child is set to parent 1 after the walk).
-    Returns (N, K, L)."""
+    Returns (N, K, L) float32: a bfloat16 breed widens its cohorts first
+    and rounds the children where it stores them."""
     N, K, L = cohorts.shape
     dev = cohorts.device
     rate, sigma = mparams[0], mparams[1]
@@ -938,7 +971,9 @@ def deme_breed_reference(
     1)`` are both this. ``coords``/``penalty`` serve ``FUSED_TSP``;
     ``objective`` (a ``from_expression`` objective) scores in place of
     ``obj_id``. Returns ``(children (Pp, L), scores (Pp,) or None)``; scores of pad
-    rows (>= P) are -inf.
+    rows (>= P) are -inf. bfloat16 ``genomes`` breed in float32 and the
+    children are rounded once to bfloat16; the scores are of the rounded
+    children.
 
     Islands: ``genomes`` (I, Pp, L), ``ranks`` (I*G, K) and ``draws``
     with a leading island axis breed every island's demes as the demes
@@ -950,18 +985,19 @@ def deme_breed_reference(
     n = genomes[..., 0, 0].numel()
     valid = torch.clamp((read < geom.P).sum(dim=1), min=1).to(torch.float32).repeat(n)
     child = breed_children(
-        genomes.reshape(n, Pp, L)[:, read].reshape(-1, geom.K, L), ranks, valid,
+        genomes.reshape(n, Pp, L)[:, read].reshape(-1, geom.K, L).float(), ranks, valid,
         draws.flat() if lead else draws,
         tournament_size=tournament_size, selection=selection,
         selection_param=selection_param, mutate=mutate, mparams=mparams,
         crossover=crossover,
-    )
+    ).to(genomes.dtype)
     if out is None:
         out = torch.empty_like(genomes)
     out.view(n, Pp, L)[:, write.reshape(-1)] = child.reshape(n, -1, L)
     if obj_id == FUSED_NONE and objective is None:
         return out, None
-    s = fused_scores(obj_id, child, coords, penalty, objective).reshape(n, geom.G, geom.K)
+    s = fused_scores(obj_id, child.float(), coords, penalty, objective).reshape(
+        n, geom.G, geom.K)
     s = torch.where(write >= geom.P, -torch.inf, s)
     scores = torch.empty(lead + (Pp,), device=genomes.device)
     scores.view(n, Pp)[:, write.reshape(-1)] = s.reshape(n, -1)
@@ -1057,7 +1093,10 @@ def multigen_breed_reference(
     applied) and scored in the kernel's summation order: a builtin
     rowwise-fused ``obj_id``, or the expression ``objective`` (a
     ``from_expression`` objective) through its ``kernel_rowwise(...,
-    warp_order=True)``. ``crossover`` / ``mutate`` are builtin kinds or
+    warp_order=True)``. bfloat16 ``genomes`` breed each child in float32
+    and store it rounded to bfloat16: its score, and the next
+    sub-generation's parents, are the rounded genes. ``crossover`` /
+    ``mutate`` are builtin kinds or
     expression operators (``ops/breed_expr.py``). The draws of
     sub-generation t are ``draws.at(t)`` (injected) or the Philox draws
     of ``seed`` with ``t`` as the fourth counter word, the same whether
@@ -1095,15 +1134,16 @@ def multigen_breed_reference(
             d = draw(seed, G, K, L, mutate, crossover, sub_generation=t, tie=True)
             d = d.flat() if lead else d
         child = breed_children(
-            g, kernel_ranks(s, d.tie, alive), valid, d,
+            g.float(), kernel_ranks(s, d.tie, alive), valid, d,
             tournament_size=tournament_size, selection=selection,
             selection_param=selection_param, mutate=mutate, mparams=mparams,
             elite_rows=elitism, crossover=crossover,
-        )
+        ).to(g.dtype)
+        stored = child.float()
         if objective is not None:
-            cs = objective.kernel_rowwise(child.reshape(-1, L), warp_order=True).reshape(n * G, K)
+            cs = objective.kernel_rowwise(stored.reshape(-1, L), warp_order=True).reshape(n * G, K)
         else:
-            cs = rowwise_scores(obj_id, child, warp_order=True)
+            cs = rowwise_scores(obj_id, stored, warp_order=True)
         s = torch.where(frozen, s, cs)
         g = torch.where(frozen[..., None], g, child)
     if out is None:
@@ -1183,6 +1223,7 @@ def make_fused_breed(
     elitism: int = 0,
     layout: Optional[str] = None,
     device="cuda",
+    gene_dtype=torch.float32,
 ):
     """One generation of the deme path for a fixed shape and objective,
     the counterpart of ``make_pallas_breed``'s breed: ranks, one launch
@@ -1192,7 +1233,9 @@ def make_fused_breed(
     fuses by its builtin ``fused_id`` or its expression form
     (``expr_fused``; one with kernel constants is const-carrying, which
     shapes the geometry as in JAX). ``mparams`` is the mutation's [rate,
-    sigma]; ``layout`` forces a row map (JAX's ``pallas_layout``). The
+    sigma]; ``layout`` forces a row map (JAX's ``pallas_layout``);
+    ``gene_dtype`` (float32 or bfloat16) shapes the geometry and is the
+    genomes' dtype. The
     fused TSP score pairs with order crossover only (with a builtin or
     an expression mutation): with uniform crossover that objective is
     scored by its rowwise form, as in JAX. Returns
@@ -1220,13 +1263,14 @@ def make_fused_breed(
         fused=obj_id != FUSED_NONE or expr_obj is not None,
         crossover=crossover, layout=layout,
         const_carrying=bool(getattr(expr_obj, "kernel_rowwise_consts", ())),
+        gene_dtype=gene_dtype,
     )
     if geom is None:
         raise ValueError(
             f"no deme geometry for {pop_size}x{genome_len}: the deme path"
             " needs >= 128 rows, a padded tail of >= K/4 rows, tournament_size"
-            " in 1..16 and, with order crossover, a K whose walk scratch fits"
-            " (PGA.run takes the panmictic path there)"
+            " in 1..16 and, with order crossover, float32 genes and a K whose"
+            " walk scratch fits (PGA.run takes the panmictic path there)"
         )
     kw = dict(
         tournament_size=tournament_size, selection=selection,
@@ -1274,7 +1318,7 @@ def make_fused_run(pop_size: int, genome_len: int, objective: Callable, **kw):
 
     def run(genomes, n, target, generator):
         P, Pp, L = geom.P, geom.Pp, geom.L
-        g = torch.zeros((Pp, L), device=genomes.device)
+        g = torch.zeros((Pp, L), device=genomes.device, dtype=genomes.dtype)
         g[:P] = genomes
         s = torch.full((Pp,), -torch.inf, device=genomes.device)
         s[:P] = evaluate(objective, genomes)
@@ -1306,9 +1350,11 @@ def make_fused_multigen(
     elitism: int = 0,
     layout: Optional[str] = None,
     device="cuda",
+    gene_dtype=torch.float32,
 ):
     """The multi-generation breed for a fixed shape and objective, the
-    counterpart of ``make_pallas_multigen``. ``crossover`` / ``mutate``
+    counterpart of ``make_pallas_multigen`` (``gene_dtype``: the genomes'
+    dtype, float32 or bfloat16, which shapes the geometry). ``crossover`` / ``mutate``
     are builtin kind names or expression operators; the objective fuses
     by its builtin rowwise ``fused_id`` or its expression form
     (``expr_fused``; one with kernel constants is const-carrying, which
@@ -1339,6 +1385,7 @@ def make_fused_multigen(
         selection_param=selection_param, crossover=crossover, layout=layout,
         multigen=True, elitism=elitism,
         const_carrying=bool(getattr(expr_obj, "kernel_rowwise_consts", ())),
+        gene_dtype=gene_dtype,
     )
     if geom is None:
         return None
@@ -1390,7 +1437,7 @@ def make_multigen_run(
 
     def run(genomes, n, target, generator):
         P, Pp, L = geom.P, geom.Pp, geom.L
-        g = torch.zeros((Pp, L), device=genomes.device)
+        g = torch.zeros((Pp, L), device=genomes.device, dtype=genomes.dtype)
         g[:P] = genomes
         s = torch.full((Pp,), -torch.inf, device=genomes.device)
         s[:P] = evaluate(objective, genomes)

@@ -22,7 +22,16 @@ kernel) and its multi-generation form ("expr_multigen";
 raw genomes with static trips), and an island launch of the deme, order
 or multi-generation breed once, whatever its island count ("islands",
 "islands_order", "islands_multigen", "islands_multigen_order"). A
+launch on bfloat16 genomes counts under the same name with "_bf16"
+appended ("pingpong_bf16", "riffle_bf16", "multigen_bf16", "expr_bf16",
+"expr_multigen_bf16", "islands_bf16", "islands_multigen_bf16"). A
 wrapper adds one where it launches its kernel and nowhere else.
+
+Genomes (and the children, ``out`` and the multi-generation work
+buffers, which take the genomes' dtype) are float32 or bfloat16; every
+other tensor a kernel takes is float32 (draws, scores, mparams,
+coordinates) or integer. The order-crossover kernels take float32 genomes
+only, as JAX declines order crossover at bfloat16.
 """
 
 from __future__ import annotations
@@ -54,13 +63,15 @@ LAUNCHES = {
     "pingpong": 0, "riffle": 0, "order": 0, "multigen": 0, "multigen_order": 0, "expr": 0,
     "expr_order": 0, "expr_multigen": 0, "expr_multigen_order": 0, "gp_eval_opt": 0,
     "gp_eval_static": 0, "islands": 0, "islands_order": 0, "islands_multigen": 0,
-    "islands_multigen_order": 0,
+    "islands_multigen_order": 0, "pingpong_bf16": 0, "riffle_bf16": 0, "multigen_bf16": 0,
+    "expr_bf16": 0, "expr_multigen_bf16": 0, "islands_bf16": 0, "islands_multigen_bf16": 0,
 }
 TEMPLATES = ("expr_breed",)  # sources built only with generated hooks in front
 
 SEL_IDS = {"tournament": 0, "truncation": 1, "linear_rank": 2}
 MUTATE_IDS = {"point": 0, "gaussian": 1, "swap": 2}
 CROSS_IDS = {"uniform": 0, "order": 1}  # the kernels' runtime crossover kind
+GENE_IDS = {torch.float32: 0, torch.bfloat16: 1}  # the launchers' gene_dtype
 ORDER_THREADS = 64  # children per block of order_breed_kernel and expr_order_kernel
 MULTIGEN_MAX_D = 16  # demes per block of the multi-generation kernels
 MULTIGEN_ROW_BYTES = 17  # their shared memory per group row (MG_ROW_BYTES)
@@ -75,6 +86,11 @@ _expr_libs: dict = {}  # generated source -> built library path
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _count(name: str, genomes: torch.Tensor) -> None:
+    """One launch of ``name`` on ``genomes``' gene dtype."""
+    LAUNCHES[name + ("_bf16" if genomes.dtype == torch.bfloat16 else "")] += 1
 
 
 def _nvcc() -> str:
@@ -177,7 +193,7 @@ def _bindings() -> dict:
                 i, i, i, i, i,          # P, Pp, L, K, G
                 i, i, i, i,             # mode, S, D, q
                 i, i, f,                # sel kind, tournament size, sel param
-                i, i, i,                # mutate kind, objective id, islands
+                i, i, i, i,             # mutate kind, objective id, islands, gene dtype
                 p,                      # stream
             ], i),
             "order_breed_launch": ([
@@ -197,7 +213,7 @@ def _bindings() -> dict:
                 i, i, i, i,             # mode, S, D, q
                 i, i, f,                # sel kind, tournament size, sel param
                 i, i, i, i,             # crossover kind, mutate kind, objective id, elitism
-                i, i,                   # draw steps, islands
+                i, i, i,                # draw steps, islands, gene dtype
                 p,                      # stream
             ], i),
             "deme_breed_error_string": ([i], s),
@@ -211,7 +227,8 @@ def _bindings() -> dict:
                 i, i, i, i, i,          # P, Pp, L, K, G
                 i, i, i, i,             # mode, S, D, q
                 i, i, f,                # sel kind, tournament size, sel param
-                i, i, i, i,             # crossover kind, mutate kind, objective id, warps
+                i, i, i, i, i,          # crossover kind, mutate kind, objective id, warps,
+                                        # gene dtype
                 p,                      # stream
             ], i),
             "expr_multigen_launch": ([
@@ -222,7 +239,8 @@ def _bindings() -> dict:
                 i, i, i, i, i,          # P, Pp, L, K, G
                 i, i, i, i,             # mode, S, D, q
                 i, i, f,                # sel kind, tournament size, sel param
-                i, i, i, i, i,          # crossover kind, mutate kind, objective id, elitism, warps
+                i, i, i, i, i, i,       # crossover kind, mutate kind, objective id, elitism,
+                                        # warps, gene dtype
                 p,                      # stream
             ], i),
             "expr_breed_error_string": ([i], s),
@@ -275,6 +293,19 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _check_genomes(genomes: torch.Tensor, shape, device, order: bool = False) -> int:
+    """``genomes`` checked as :func:`_check` does, float32 or bfloat16
+    (float32 only for ``order`` crossover); returns the launchers'
+    gene dtype id."""
+    allowed = (torch.float32,) if order else tuple(GENE_IDS)
+    if genomes.dtype not in allowed:
+        kinds = " or ".join(str(d) for d in allowed)
+        raise ValueError(f"genomes has dtype {genomes.dtype}, expected {kinds}"
+                         + (" (order crossover breeds float32 genes, as in JAX)" if order else ""))
+    _check(genomes, "genomes", genomes.dtype, shape, device)
+    return GENE_IDS[genomes.dtype]
+
+
 def _island_lead(islands: Optional[int]) -> tuple:
     """``(leading shape, island count)`` of a launch: ``((), 1)`` for a
     single population, ``((I,), I)`` for an island launch of I >= 1."""
@@ -306,7 +337,8 @@ def deme_breed_cuda(
     """Launch ``deme_breed_kernel`` of ``csrc/deme_breed.cu`` on the
     current stream: the kernel counterpart of
     ``fused_step.deme_breed_reference`` (same arguments, uniform
-    crossover).
+    crossover; float32 or bfloat16 genomes, its float or bf16 case, the
+    children in the genomes' dtype).
     Production mode takes ``seed`` (int64, one element, on the card);
     injected mode takes ``draws``. ``islands`` = I breeds I populations
     in one launch: genomes and ``out`` (I, Pp, L), ranks (I*G, K), one
@@ -326,7 +358,7 @@ def deme_breed_cuda(
     if not 1 <= tournament_size <= 16:
         raise ValueError(f"tournament_size {tournament_size} outside 1..16")
     lead, n = _island_lead(islands)
-    _check(genomes, "genomes", torch.float32, lead + (Pp, L), dev)
+    gene_id = _check_genomes(genomes, lead + (Pp, L), dev)
     _check(ranks, "ranks", torch.int32, (n * G, K), dev)
     _check(mparams, "mparams", torch.float32, (2,), dev)
     if mutate not in MUTATE_IDS:
@@ -334,7 +366,7 @@ def deme_breed_cuda(
     param = resolve_selection(selection, selection_param)
     if out is None:
         out = torch.empty_like(genomes)
-    _check(out, "out", torch.float32, lead + (Pp, L), dev)
+    _check(out, "out", genomes.dtype, lead + (Pp, L), dev)
     if out.data_ptr() == genomes.data_ptr():
         raise ValueError("out must not alias genomes: blocks read rows other blocks write")
     sel_u = cross = mut_u = gauss = None
@@ -358,11 +390,11 @@ def deme_breed_cuda(
         geom.mode(parity), geom.S, geom.D, geom.q,
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
-        MUTATE_IDS[mutate], int(obj_id), n,
+        MUTATE_IDS[mutate], int(obj_id), n, gene_id,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "deme_breed")
-    LAUNCHES[geom.layout if islands is None else "islands"] += 1
+    _count(geom.layout if islands is None else "islands", genomes)
     return out, scores
 
 
@@ -409,7 +441,7 @@ def order_breed_cuda(
     if not 1 <= tournament_size <= 16:
         raise ValueError(f"tournament_size {tournament_size} outside 1..16")
     lead, n = _island_lead(islands)
-    _check(genomes, "genomes", torch.float32, lead + (Pp, L), dev)
+    _check_genomes(genomes, lead + (Pp, L), dev, order=True)
     _check(ranks, "ranks", torch.int32, (n * G, K), dev)
     _check(mparams, "mparams", torch.float32, (2,), dev)
     if mutate not in MUTATE_IDS:
@@ -462,10 +494,11 @@ def order_breed_cuda(
 
 
 def _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mparams,
-                     order: bool, lead: tuple = ()) -> int:
+                     order: bool, lead: tuple = ()) -> tuple:
     """The checks both multi-generation wrappers make (``order``: order
     crossover, which takes one riffle deme per group; ``lead``: the
-    island axis of an island launch); returns ``steps`` as an int."""
+    island axis of an island launch); returns ``steps`` as an int and the
+    launchers' gene dtype id."""
     dev = genomes.device
     G, K, L, Pp, D = geom.G, geom.K, geom.L, geom.Pp, geom.D
     if not 1 <= K <= 1024:
@@ -481,28 +514,28 @@ def _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mpa
     steps = int(steps)
     if steps < 0:
         raise ValueError(f"steps {steps} is negative")
-    _check(genomes, "genomes", torch.float32, lead + (Pp, L), dev)
+    gene_id = _check_genomes(genomes, lead + (Pp, L), dev, order=order)
     _check(scores, "scores", torch.float32, lead + (Pp,), dev)
     _check(mparams, "mparams", torch.float32, (2,), dev)
-    return steps
+    return steps, gene_id
 
 
 def _multigen_buffers(genomes, out, work, steps: int):
     """``(out, [work0, work1])``: the children's buffer and the kernel's
     two scratch buffers (made where None and ``steps`` needs them: one
-    from 2 steps, two from 3; None where unused), none aliasing
-    ``genomes`` or each other."""
+    from 2 steps, two from 3; None where unused), of the genomes' dtype,
+    none aliasing ``genomes`` or each other."""
     dev, shape = genomes.device, tuple(genomes.shape)
     if out is None:
         out = torch.empty_like(genomes)
-    _check(out, "out", torch.float32, shape, dev)
+    _check(out, "out", genomes.dtype, shape, dev)
     if out.data_ptr() == genomes.data_ptr():
         raise ValueError("out must not alias genomes: blocks read rows other blocks write")
     work = list(work or ())
     while len(work) < min(max(steps - 1, 0), 2):
         work.append(torch.empty_like(genomes))
     for n, w in enumerate(work):
-        _check(w, f"work[{n}]", torch.float32, shape, dev)
+        _check(w, f"work[{n}]", genomes.dtype, shape, dev)
         if w.data_ptr() in (genomes.data_ptr(), out.data_ptr()):
             raise ValueError("a work buffer must not alias genomes or out")
     return out, work + [None, None]
@@ -569,7 +602,8 @@ def multigen_breed_cuda(
     """Launch ``multigen_breed_kernel`` of ``csrc/deme_breed.cu`` on the
     current stream: the kernel counterpart of
     ``fused_step.multigen_breed_reference`` (same arguments; uniform or
-    order crossover, the latter one riffle deme per group). ``steps``
+    order crossover, the latter one riffle deme per group and float32
+    genomes only; uniform crossover on float32 or bfloat16 genomes). ``steps``
     generations (0 = the row permutation only) of every group of
     ``geom`` in one launch, a group freezing once its best reaches
     ``target``. Production mode takes ``seed`` (int64, one element, on
@@ -595,8 +629,8 @@ def multigen_breed_cuda(
     G, K, L, Pp, D = geom.G, geom.K, geom.L, geom.Pp, geom.D
     order = crossover == "order"
     lead, n = _island_lead(islands)
-    steps = _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mparams,
-                             order, lead)
+    steps, gene_id = _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism,
+                                      mparams, order, lead)
     param = resolve_selection(selection, selection_param)
     out, work = _multigen_buffers(genomes, out, work, steps)
     draw_steps, (sel_u, cross, fill, mut_u, gauss, tie) = _multigen_draws(
@@ -614,12 +648,12 @@ def multigen_breed_cuda(
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
         CROSS_IDS[crossover], MUTATE_IDS[mutate], int(obj_id), int(elitism),
-        draw_steps, n,
+        draw_steps, n, gene_id,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "deme_breed")
     key = "multigen_order" if order else "multigen"
-    LAUNCHES[key if islands is None else "islands_" + key] += 1
+    _count(key if islands is None else "islands_" + key, genomes)
     return out, s_out
 
 
@@ -758,7 +792,8 @@ def expr_breed_cuda(
     which takes ``coords`` (C, 2) float32 on the card and ``penalty``).
     Uniform or order crossover and point / gaussian / swap mutation stay
     builtin where no expression replaces them; every row map (order
-    crossover: the riffle). Production mode takes ``seed``; injected
+    crossover: the riffle and float32 genomes; otherwise float32 or
+    bfloat16 genomes, the children in their dtype). Production mode takes ``seed``; injected
     mode takes ``draws`` with the expression planes ``expr_gene`` (4, G,
     K, L) and words ``expr_row`` (G, K, 4) where the hooks read them
     (order crossover: the ``fill`` plane). Raises on bad arguments or a
@@ -777,7 +812,7 @@ def expr_breed_cuda(
                          f" of {ORDER_THREADS}, not {geom.layout} K={K}")
     if not 1 <= tournament_size <= 16:
         raise ValueError(f"tournament_size {tournament_size} outside 1..16")
-    _check(genomes, "genomes", torch.float32, (Pp, L), dev)
+    gene_id = _check_genomes(genomes, (Pp, L), dev, order=order)
     _check(ranks, "ranks", torch.int32, (G, K), dev)
     _check(mparams, "mparams", torch.float32, (2,), dev)
     C = 0
@@ -791,7 +826,7 @@ def expr_breed_cuda(
     warps = expr_warps(K, L, program.obj_rows, order=order, cities=C)
     if out is None:
         out = torch.empty_like(genomes)
-    _check(out, "out", torch.float32, (Pp, L), dev)
+    _check(out, "out", genomes.dtype, (Pp, L), dev)
     if out.data_ptr() == genomes.data_ptr():
         raise ValueError("out must not alias genomes: blocks read rows other blocks write")
     sel_u = cross = fill = mut_u = gauss = xgene = xrow = None
@@ -826,11 +861,11 @@ def expr_breed_cuda(
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
         CROSS_IDS["order" if order else "uniform"], MUTATE_IDS.get(mutate, 0) if mut_op is None else 0,
-        int(obj_id), warps,
+        int(obj_id), warps, gene_id,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "expr_breed")
-    LAUNCHES["expr_order" if order else "expr"] += 1
+    _count("expr_order" if order else "expr", genomes)
     return out, scores
 
 
@@ -862,7 +897,7 @@ def expr_multigen_cuda(
     ``fused_step.multigen_breed_reference`` with an expression crossover,
     mutation or ``objective`` (same arguments as
     :func:`multigen_breed_cuda`, plus ``objective``; uniform, order or
-    expression crossover). Injected ``draws`` carry a leading axis of at
+    expression crossover; bfloat16 genomes as there). Injected ``draws`` carry a leading axis of at
     least ``steps`` sub-generations, the tie words (order crossover: the
     ``fill`` plane) and, where the hooks read them, ``expr_gene`` (T, 4,
     G, K, L) and ``expr_row`` (T, G, K, 4). Returns ``(genomes (Pp, L),
@@ -876,7 +911,8 @@ def expr_multigen_cuda(
     cross_op, mut_op, obj_id = _expr_hooks(crossover, mutate, objective, obj_id, L,
                                            "expr_multigen_cuda", multigen=True)
     order = crossover == "order"
-    steps = _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mparams, order)
+    steps, gene_id = _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism,
+                                      mparams, order)
     param = resolve_selection(selection, selection_param)
     program = expr_cuda.program_for(cross_op, mut_op, objective)
     warps = expr_warps(K, L, program.obj_rows, D=D, order=order)
@@ -900,11 +936,11 @@ def expr_multigen_cuda(
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
         CROSS_IDS["order" if order else "uniform"], MUTATE_IDS.get(mutate, 0) if mut_op is None else 0,
-        int(obj_id), int(elitism), warps,
+        int(obj_id), int(elitism), warps, gene_id,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "expr_breed")
-    LAUNCHES["expr_multigen_order" if order else "expr_multigen"] += 1
+    _count("expr_multigen_order" if order else "expr_multigen", genomes)
     return out, s_out
 
 

@@ -61,7 +61,12 @@ def gaussian_mutate(
     fires when its ``rand`` is below ``rate`` and gets N(0, sigma^2)
     noise, clipped to [0, 1). The Box-Muller radius and angle come from
     integer bit mixing of the same uniform (the JAX operator's streams),
-    so the operator reads one uniform per gene."""
+    so the operator reads one uniform per gene. ``sigma`` meets the
+    genome as a value of its dtype, as JAX's weak-typed Python scalar
+    does: on bfloat16 genes it is rounded to bfloat16 and the noise term
+    is a bfloat16 product (torch would otherwise multiply by the float32
+    ``sigma`` and round once, which differs from JAX in about 5% of the
+    fired genes at sigma = 0.1)."""
     bits = (rand * float(2**24)).to(torch.int64)
     m1 = (_mul32(bits, 2654435761) + 0x9E3779B9) & _MASK32
     m2 = (_mul32(m1, 2246822519) + 0x85EBCA6B) & _MASK32
@@ -69,6 +74,7 @@ def gaussian_mutate(
     u2 = (m2 & 0xFFFFFF).to(torch.float32) / float(2**24)
     u1 = torch.clamp(u1, 1e-7, 1.0 - 1e-7)
     normal = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
+    sigma = torch.tensor(sigma, dtype=genome.dtype, device=genome.device)
     out = torch.where(rand < rate, genome + sigma * normal.to(genome.dtype), genome)
     return torch.clamp(out, 0.0, 1.0 - 1e-7)
 

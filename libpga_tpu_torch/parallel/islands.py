@@ -52,7 +52,7 @@ def _pad(genomes: torch.Tensor, scores: torch.Tensor, Pp: int):
     I, S, L = genomes.shape
     if Pp == S:
         return genomes, scores
-    g = torch.zeros((I, Pp, L), device=genomes.device)
+    g = torch.zeros((I, Pp, L), device=genomes.device, dtype=genomes.dtype)
     g[:, :S] = genomes
     s = torch.full((I, Pp), -torch.inf, device=genomes.device)
     s[:, :S] = scores

@@ -82,8 +82,9 @@ def test_error_paths():
     port.pga_create_population(p, 256, 8)
     with pytest.raises(RuntimeError):
         port.pga_run(p, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.PGAConfig(gene_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        port.PGAConfig(gene_dtype=torch.float16)
+    assert port.PGAConfig(gene_dtype=torch.bfloat16).gene_dtype == torch.bfloat16
     with pytest.raises(ValueError):
         port.PGAConfig(tournament_size=0)
     assert port.PGAConfig(tournament_size=17).tournament_size == 17  # panmictic, as in JAX

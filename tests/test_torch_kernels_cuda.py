@@ -998,3 +998,167 @@ def test_engine_on_card_breeds_every_island_in_one_launch(cuda_device):
         assert p.launches == launches
         for pop in p._populations:
             torch.testing.assert_close(pop.scores, pop.genomes.sum(dim=1), rtol=0, atol=1e-3)
+
+
+# ---------------------------------------------------------------- bfloat16
+
+BF16 = torch.bfloat16
+
+# (kind, P, L, layout, mutate, expression case, steps, elitism, islands):
+# the bf16 cases of the deme, multi-generation and expression kernels, the
+# first two also with an island grid axis.
+BF16_VARIANTS = [
+    ("deme", 8192, 100, None, "point", None, 1, 0, None),
+    ("deme", 1000, 20, "riffle", "swap", None, 1, 0, None),
+    ("deme", 1000, 30, None, "gaussian", None, 1, 0, None),
+    ("deme", 4096, 100, None, "point", None, 1, 0, 4),
+    ("multigen", 8192, 100, None, "point", None, 3, 2, None),
+    ("multigen", 2100, 32, "riffle", "gaussian", None, 1, 0, None),
+    ("multigen", 4096, 32, None, "point", None, 3, 0, 4),
+    ("expr", 4096, 60, None, "point", "trap", 1, 0, None),
+    ("expr", 8192, 100, None, None, "one_point+creep", 1, 0, None),
+    ("expr_multigen", 4096, 60, None, "point", "trap", 3, 2, None),
+    ("expr_multigen", 8192, 100, None, None, "one_point+creep", 3, 0, None),
+]
+
+
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 units in the last place between non-negative ``a`` and ``b``."""
+    return (a.view(torch.int16).to(torch.int32) - b.view(torch.int16).to(torch.int32)).abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", BF16_VARIANTS,
+                         ids=lambda v: f"{v[0]}-{v[1]}x{v[2]}-{v[4] or v[5]}-s{v[6]}-i{v[8]}")
+def test_bf16_kernels_equal_plain_and_the_float32_kernel_rounded_on_card(cuda_device, variant):
+    """A bf16 launch equals its plain version bit for bit (gaussian genes
+    within one bf16 ulp: logf/cosf against torch's may move a rounding),
+    in production and injected mode, every parity; at one step its
+    children are the float32 kernel's on the widened genomes, rounded;
+    it counts under the kernel's "_bf16" key."""
+    kind, P, L, layout, mutate, case, steps, e, I = variant
+    multigen = kind in ("multigen", "expr_multigen")
+    cross, objective, obj_id = "uniform", None, onemax.fused_id
+    if case is not None:
+        cross, mutate, objective, obj_id = _expr_case(case)
+        obj_id = obj_id or (0 if objective is not None else onemax.fused_id)
+    geom = fs.resolve_geometry(
+        P, L, layout=layout, crossover=cross, multigen=multigen, elitism=e, gene_dtype=BF16,
+        const_carrying=bool(getattr(objective, "kernel_rowwise_consts", ())))
+    lead = () if I is None else (I,)
+    gen = torch.Generator(device=cuda_device).manual_seed(P + L + steps)
+    g = torch.rand(lead + (geom.Pp, L), generator=gen, device=cuda_device).to(BF16)
+    g[..., P:, :] = 0
+    s = g.float().sum(dim=-1)
+    s[..., P:] = -torch.inf
+    kw = dict(crossover=cross, mutate=mutate, obj_id=obj_id,
+              mparams=torch.tensor([0.3, 0.05], device=cuda_device))
+    if objective is not None:
+        kw.update(objective=objective)
+    if multigen:
+        kw.update(elitism=e)
+    seeds = torch.randint(0, 2**62, (I or 1,), generator=gen, device=cuda_device)
+    G, K = geom.G, geom.K
+    key = {"deme": "islands" if I else geom.layout, "multigen": "islands_multigen" if I else "multigen",
+           "expr": "expr", "expr_multigen": "expr_multigen"}[kind] + "_bf16"
+    for parity in range(geom.parities):
+        if multigen:
+            def sub(seed):
+                return fs.stack_draws([fs.philox_draws(seed, G, K, L, mutate, cross, sub_generation=t,
+                                                       tie=True) for t in range(steps)])
+
+            draws = sub(seeds) if I is None else fs.stack_draws(
+                [sub(seeds[i:i + 1]) for i in range(I)])
+            want = fs.multigen_breed_reference(g, s, geom, parity, steps, math.inf, draws=draws, **kw)
+
+            def launch(genomes, **x):
+                return fs.multigen_breed(genomes, s, geom, parity, steps, None, islands=I, **x, **kw)
+        else:
+            ranks = fs.compute_ranks(s, geom, parity, fs.draw_tie_words(
+                gen, (I or 1) * geom.Pp, cuda_device).view(*lead, geom.Pp))
+            draws = (fs.philox_draws(seeds, G, K, L, mutate, cross) if I is None
+                     else fs.island_philox_draws(seeds, G, K, L, mutate, cross))
+            want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
+
+            def launch(genomes, **x):
+                return fs.deme_breed(genomes, ranks, geom, parity, islands=I, **x, **kw)
+
+        before = kernels.LAUNCHES[key]
+        for x in (dict(seed=seeds), dict(draws=draws)):
+            got = launch(g, **x)
+            torch.cuda.synchronize()
+            assert got[0].dtype == BF16
+            if mutate == "gaussian":
+                assert int(_bf16_ulps(got[0], want[0]).max()) <= 1
+            else:
+                assert torch.equal(got[0], want[0])
+            real = torch.arange(geom.Pp, device=cuda_device) < P
+            assert bool(torch.isinf(got[1][..., ~real]).all())
+            torch.testing.assert_close(got[1][..., real], want[1][..., real], rtol=1e-5,
+                                       atol=1e-3 if objective is None else 1e-5 * L)
+            if steps == 1:
+                f32 = launch(g.float(), **x)
+                assert torch.equal(got[0], f32[0].to(BF16))
+        assert kernels.LAUNCHES[key] == before + 2
+
+
+@pytest.mark.cuda
+def test_engine_on_card_launches_the_bf16_kernels(cuda_device):
+    """PGA.run, run at T > 1 and run_islands at gene_dtype=bfloat16 launch
+    only the bf16 kernels; the genomes stay bf16 and each score is its
+    stored genome's; order crossover takes the panmictic path."""
+    from libpga_tpu_torch import PGAConfig, pga_init
+    from libpga_tpu_torch import objectives as po
+    from libpga_tpu_torch.ops.crossover import order_preserving_crossover
+    from libpga_tpu_torch.ops.mutate import make_swap_mutate
+
+    trap = po.make_deceptive_trap(5)
+    for T, objective, islands, gens, key, launches in (
+        (None, "onemax", 1, 6, "pingpong_bf16", 6),
+        (4, "onemax", 1, 8, "multigen_bf16", 2),
+        (None, trap, 1, 5, "expr_bf16", 5),
+        (4, trap, 1, 8, "expr_multigen_bf16", 2),
+        (None, "onemax", 4, 6, "islands_bf16", 6),
+    ):
+        p = pga_init(0, PGAConfig(gene_dtype=BF16, generations_per_launch=T))
+        for _ in range(islands):
+            p.create_population(4096, 60)
+        p.set_objective(objective)
+        kernels.reset_launches()
+        ran = p.run_islands(gens, 3, 0.05) if islands > 1 else p.run(gens)
+        torch.cuda.synchronize()
+        assert ran == gens
+        assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0), key: launches}
+        for pop in p._populations:
+            assert pop.genomes.dtype == BF16
+            torch.testing.assert_close(pop.scores, p._objective(pop.genomes.float()), rtol=1e-5,
+                                       atol=1e-3)
+    p = pga_init(0, PGAConfig(gene_dtype=BF16))
+    p.create_population(4096, 60)
+    p.set_objective("onemax")
+    p.set_crossover(order_preserving_crossover)
+    p.set_mutate(make_swap_mutate(0.5))
+    kernels.reset_launches()
+    assert p.run(3) == 3 and sum(kernels.LAUNCHES.values()) == 0
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_reject_bad_dtypes(cuda_device):
+    geom = fs.resolve_geometry(1024, 20, gene_dtype=BF16)
+    g = torch.rand((geom.Pp, 20), device=cuda_device).to(BF16)
+    ranks = torch.zeros((geom.G, geom.K), dtype=torch.int32, device=cuda_device)
+    seed = torch.tensor([1], dtype=torch.int64, device=cuda_device)
+    kw = dict(seed=seed, mparams=torch.tensor([0.01, 0.0], device=cuda_device), obj_id=1)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.deme_breed_cuda(g.half(), ranks, geom, 0, **kw)
+    with pytest.raises(ValueError, match="out"):
+        kernels.deme_breed_cuda(g, ranks, geom, 0, out=torch.empty_like(g, dtype=torch.float32),
+                                **kw)
+    riffle = fs.resolve_geometry(1024, 20, layout="riffle")
+    with pytest.raises(ValueError, match="order crossover breeds float32"):
+        kernels.order_breed_cuda(g, ranks[:riffle.G], riffle, 0, **kw)
+    mg = fs.resolve_geometry(1024, 20, multigen=True, gene_dtype=BF16)
+    s = g.float().sum(dim=1)
+    with pytest.raises(ValueError, match="work"):
+        kernels.multigen_breed_cuda(g, s, mg, 0, 3, math.inf,
+                                    work=[torch.empty((mg.Pp, 20), device=cuda_device)], **kw)
