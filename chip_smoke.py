@@ -162,11 +162,6 @@ Phases, each printing one line; any failure exits non-zero:
      1,048,576x100 run of phase 5 (12 at T = 8); a target run that stops at
      an epoch boundary (an epoch earlier the best was below it); TSP
      islands 4 x 8,192x200 for 50 generations through the order kernel;
-     island_expr: the same islands with the creep expression mutation,
-     one expression launch per island (the loop of 8 launches against its
-     plain version, genomes bit for bit and scores within the expression
-     gates, timed beside 8 times the island's byte bound), and
-     20 generations of pga_run_islands (8 launches a generation);
  22. rastrigin_islands: the five annealing phases of
      tools/bench_rastrigin.py (8 x 16,384x30, elitism 2, gaussian mutation,
      migration of 5% every 20 generations, 400 generations each): the
@@ -197,8 +192,31 @@ Phases, each printing one line; any failure exits non-zero:
      over as many generations, run just before it.
      Order crossover at bf16 runs on the panmictic path, launching
      nothing.
+ 25. island_expr_compare: the island launch of the expression kernels
+     (csrc/expr_breed.cu's expr_breed_kernel, expr_order_kernel and
+     expr_multigen_kernel<false/true>, the islands a second grid axis)
+     against its plain version (genomes bit for bit, scores within
+     EXPR_RTOL / EXPR_ATOL_PER_GENE * L, the coordinate TSP's within
+     TSP_RTOL), against I single-population launches bit for bit and, with
+     one island, against the single launch, injected and Philox draws,
+     every parity: the creep mutation at 8 x 131,072x100, NK (n=64, k=3)
+     at 8 x 524,288x64, the trap at 8 x 131,072x60, the tour expression
+     with swap at 4 x 16,384x200, the coordinate TSP with creep at
+     4 x 8,192x1,000, at T = 8 the trap, the creep and the tour, and the
+     trap at bf16 (T = 1 and 8). Times the island launch beside the loop
+     of I single launches, I times the island's bound and the plain
+     version;
+ 26. island_expr_runs: pga_run_islands of those ten cases (m = 10,
+     pct = 0.05, after a warm-up epoch): launches of the island expression
+     kernel equal the generations (T = 1) or ceil(10 / 8) per epoch and
+     nothing else launches, the best rises, the scores are the genomes'
+     objective; gens/s, ms/gen, the migration's ms per epoch and a
+     torch.profiler window's busy share beside the same configuration's
+     single-population run of this script; then a target run of the creep
+     islands that stops at an epoch boundary (an epoch earlier the best
+     was below it).
 The earlier OneMax, GP and TSP runs keep their depths; the whole script
-takes about two and a half minutes on the card. Then one JSON line of per-kernel numbers, the card's name and power
+takes about three minutes on the card. Then one JSON line of per-kernel numbers, the card's name and power
 limit, and last the result line. With --log FILE every line printed
 also goes to that file (a tool that shows only the end of a long output
 can bring the file back whole).
@@ -354,6 +372,49 @@ BF16_RUNS = [
     ("expr_multigen[trap,bf16]", "trap", 1 << 20, 60, 8, None, "expr_multigen_bf16", BF16_GENS),
     ("deme_breed[islands,bf16]", "onemax", 131_072, 100, None, 8, "islands_bf16", BF16_GENS),
 ]
+# Islands with expression hooks: (case, launch counter, islands, island
+# rows, genes, workload, steps, bf16). bench.py's 8 x 131,072 islands
+# (bench.py:341-351) with the creep mutation and the trap; NK at
+# examples/nk_landscape.py's 4,194,304 rows over 8 islands; the tour
+# expression at the order tour shape's 65,536 rows over 4 islands; the
+# coordinate TSP arm's 8,192 x 1,000 per island; T = 8 and bf16 cases of
+# the same islands. Each case is one kernels-line entry.
+ISLAND_EXPR_CASES = [
+    ("creep-8x131072", "expr", 8, 131_072, 100, "creep", 1, False),
+    ("nk-8x524288", "expr", 8, 524_288, 64, "nk", 1, False),
+    ("trap-8x131072", "expr", 8, 131_072, 60, "trap", 1, False),
+    ("tour-4x16384", "expr_order", 4, 16_384, 200, "tour", 1, False),
+    ("tsp_creep-4x8192", "expr_order", 4, 8_192, 1000, "tsp_creep", 1, False),
+    ("trap-8x131072-T8", "expr_multigen", 8, 131_072, 60, "trap", 8, False),
+    ("creep-8x131072-T8", "expr_multigen", 8, 131_072, 100, "creep", 8, False),
+    ("tour-4x16384-T8", "expr_multigen_order", 4, 16_384, 200, "tour", 8, False),
+    ("trap-8x131072-bf16", "expr", 8, 131_072, 60, "trap", 1, True),
+    ("trap-8x131072-T8-bf16", "expr_multigen", 8, 131_072, 60, "trap", 8, True),
+]
+# The kernels-line name of each launch counter, and the Pallas kernel the
+# island launch replaces (by layout) with the island epoch that vmaps it.
+ISLAND_EXPR_ENTRY = {"expr": "expr_breed", "expr_order": "expr_order",
+                     "expr_multigen": "expr_multigen",
+                     "expr_multigen_order": "expr_multigen_order"}
+ISLAND_EXPR_REPLACES = {"pingpong": "libpga_tpu/ops/pallas_step.py:1173",
+                        "riffle": "libpga_tpu/ops/pallas_step.py:946",
+                        "multigen": "libpga_tpu/ops/pallas_step.py:1460"}
+# The island runs (pga_run_islands, m = ISLAND_M, pct = ISLAND_PCT), each
+# the main-path run of its case: (case, generations, the single-population
+# run beside it: results dict and key).
+ISLAND_EXPR_RUNS = [
+    ("creep-8x131072", 200, "expr", "creep"),
+    ("creep-8x131072-T8", 200, "expr_mg", "creep-1M"),
+    ("nk-8x524288", 50, "expr", "nk"),
+    ("trap-8x131072", 100, "expr", "trap"),
+    ("trap-8x131072-T8", 100, "expr_mg", "trap-1M"),
+    ("tour-4x16384", 100, "order", "expr_order[tour]"),
+    ("tour-4x16384-T8", 100, "order", "expr_multigen_order[tour]"),
+    ("tsp_creep-4x8192", 50, "order", "expr_order[tsp_creep]"),
+    ("trap-8x131072-bf16", 100, "bf16", "expr_breed[trap,bf16]"),
+    ("trap-8x131072-T8-bf16", 100, "bf16", "expr_multigen[trap,bf16]"),
+]
+ISLAND_EXPR_TARGET = 70.0  # the creep islands' target run
 MEAN_RANK_BAND = (1 / 3 - 0.004, 1 / 3 + 0.002)  # E = 1/3 - O(1/K)
 CROSS_BAND = (0.495, 0.505)
 MUTATION_RATE = 0.01
@@ -2369,86 +2430,6 @@ def phase_island_run(port, kernels, results, single, multigen):
     port.pga_deinit(pga)
 
 
-def phase_island_expr(port, fs, kernels, device, results):
-    """Islands with an expression hook (the creep mutation) at bench.py's
-    8 x 131,072x100: each island is one launch of the expression kernel
-    (the island axis of the generated unit is not ported yet). Times that
-    loop of I launches by CUDA events beside I times the island's byte
-    bound and the plain version of the island breed; then 20 generations
-    of pga_run_islands, whose launches must be I per generation."""
-    import torch
-
-    from libpga_tpu_torch.objectives import onemax
-    from libpga_tpu_torch.ops import expr_cuda
-    from libpga_tpu_torch.ops.breed_expr import mutate_from_expression
-
-    I, S, L = ISLAND_RUN
-    creep = mutate_from_expression(CREEP, rate=0.05, sigma=0.1)
-    geom = fs.resolve_geometry(S, L)
-    program = expr_cuda.program_for(None, creep, None)
-    kw = dict(mutate=creep, obj_id=onemax.fused_id,
-              mparams=torch.tensor([0.05, 0.1], device=device))
-    gen = torch.Generator(device=device).manual_seed(S + 20)
-    g = torch.rand((I, geom.Pp, L), generator=gen, device=device)
-    s = g.sum(dim=2)
-    seeds = torch.randint(0, 2**62, (I,), generator=gen, device=device)
-    ranks = fs.compute_ranks(s, geom, 0, fs.draw_tie_words(gen, I * geom.Pp, device).view(I, -1))
-    out, G = torch.empty_like(g), geom.G
-    scores = torch.empty((I, geom.Pp), device=device)
-
-    def loop(keep=False):
-        for i in range(I):
-            got = fs.deme_breed(g[i], ranks[i * G:(i + 1) * G], geom, 0, seed=seeds[i:i + 1],
-                                out=out[i], **kw)
-            if keep:
-                scores[i] = got[1]
-
-    loop(keep=True)
-    want = fs.deme_breed_reference(g, ranks, geom, 0, fs.island_philox_draws(
-        seeds, G, geom.K, L, creep), **kw)
-    torch.cuda.synchronize()
-    check(torch.equal(out, want[0]), "expression islands: genomes differ from the plain version")
-    real = torch.arange(geom.Pp, device=device) < S
-    check(bool(torch.isinf(scores[:, ~real]).all()), "expression islands: pad scores not -inf")
-    a, b = scores[:, real], want[1][:, real]
-    err = float((a - b).abs().max())
-    check(bool(torch.isclose(a, b, rtol=EXPR_RTOL, atol=EXPR_ATOL_PER_GENE * L).all()),
-          f"expression islands: score error {err}")
-    loop_ms = cuda_ms(loop, 20)
-    plain_ms = cuda_ms(lambda: fs.deme_breed_reference(g, ranks, geom, 0, fs.island_philox_draws(
-        seeds, G, geom.K, L, creep), **kw), 2)
-    bound_ms, bound_by = expr_bound(geom, program)
-    del g, s, out, scores, want, a, b
-    torch.cuda.empty_cache()
-    pga = island_solver(port, ISLAND_RUN, 12)
-    port.pga_set_mutate_function(pga, creep)
-    check(port.pga_run_islands(pga, ISLAND_M, ISLAND_M, ISLAND_PCT) == ISLAND_M,
-          "expression islands: warm-up")
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    gens = port.pga_run_islands(pga, 2 * ISLAND_M, ISLAND_M, ISLAND_PCT)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    check(gens == 2 * ISLAND_M and launches["expr"] == I * gens
-          and sum(launches.values()) == I * gens,
-          f"expression islands: launches {launches} for {gens} generations")
-    line = {"phase": "island_expr", "islands": I, "island_shape": [S, L], "mutate": CREEP,
-            "layout": geom.layout, "K": geom.K, "D": geom.D, "genomes_equal": True,
-            "max_abs_err": err, "score_rtol": EXPR_RTOL, "score_atol": EXPR_ATOL_PER_GENE * L,
-            "loop_ms": loop_ms,
-            "plain_ms": plain_ms, "bound_ms": I * bound_ms, "bound_by": bound_by,
-            "loop_over_bound": loop_ms / (I * bound_ms), "gens": gens, "launches": launches,
-            "gens_per_s": gens / seconds, "ms_per_gen": 1e3 * seconds / gens}
-    print(json.dumps(line), flush=True)
-    results.update(name=f"expr_breed[creep-{I}x{S},loop of {I} launches]", ms=loop_ms,
-                   plain_ms=plain_ms, bound_ms=I * bound_ms, bound_by=bound_by,
-                   max_abs_err=err, launches=launches["expr"], shape=[I, S, L],
-                   layout=geom.layout, K=geom.K, D=geom.D, gens_per_s=line["gens_per_s"])
-    port.pga_deinit(pga)
-
-
 def phase_rastrigin_islands(port, kernels):
     """The five annealing phases of tools/bench_rastrigin.py through
     pga_run_islands: 8 x 16,384 x 30 Rastrigin, elitism 2, gaussian
@@ -2494,6 +2475,296 @@ def phase_rastrigin_islands(port, kernels):
           f"rastrigin islands: launches {launches} for {total} generations")
     check(phases[-1]["best_every_100"][-1] > start, f"rastrigin islands: best {start} -> {best}")
     port.pga_deinit(pga)
+
+
+def island_expr_workloads():
+    """name -> (objective, crossover, mutate) of the expression island
+    cases, as PGA.run_islands gets them."""
+    loads, order = expr_workloads(), order_workloads()
+    return {"creep": loads["creep"][2:], "nk": loads["nk"][2:], "trap": loads["trap"][2:],
+            "tour": order["tour"], "tsp_creep": order["tsp_creep"]}
+
+
+def island_expr_breed(port, fs, load, S, L, steps, bf16, device):
+    """(geometry, breed keywords, program, cities) of an island expression
+    case at island size S x L: what make_island_breed / make_island_multigen
+    build for it, the operators routed as the solver routes them."""
+    import torch
+
+    from libpga_tpu_torch.ops import expr_cuda
+
+    objective, crossover, mutate = island_expr_workloads()[load]
+    cross, mut, mparams, expr_obj, _ = expr_kinds(port, objective, crossover, mutate)
+    make = fs.make_fused_multigen if steps > 1 else fs.make_fused_breed
+    single = make(S, L, objective, crossover=cross, mutate=mut, mparams=mparams, device=device,
+                  gene_dtype=torch.bfloat16 if bf16 else torch.float32)
+    program = expr_cuda.program_for(cross if fs.is_expression(cross) else None,
+                                    mut if fs.is_expression(mut) else None, expr_obj)
+    cities = single.kw["coords"].shape[0] if "coords" in single.kw else 0
+    return single.geom, single.kw, program, cities
+
+
+def island_expr_draws(fs, geom, I, steps, cross, mut, gen, device):
+    """Random injected draws of an island expression launch: a leading
+    island axis (and, at several generations per launch, a sub-generation
+    axis after it), the expression planes and words where a breeding hook
+    reads them."""
+    import torch
+
+    lead = (I, steps) if steps > 1 else (I,)
+    G, K, L = geom.G, geom.K, geom.L
+    hooks = fs.is_expression(cross) or fs.is_expression(mut)
+
+    def rand(*shape):
+        return torch.rand(lead + shape, generator=gen, device=device)
+
+    return fs.Draws(
+        sel_u=rand(G, K, 2),
+        cross=torch.randint(0, 2, lead + (G, K, L), generator=gen, device=device,
+                            dtype=torch.uint8) if cross == "uniform" else None,
+        mut_u=rand(G, K, 4),
+        gauss=rand(3, G, K, L) if mut == "gaussian" else None,
+        fill=rand(G, K, L) if cross == "order" else None,
+        tie=torch.randint(0, 2**32, lead + (G, K), generator=gen, device=device)
+        if steps > 1 else None,
+        expr_gene=rand(4, G, K, L) if hooks else None,
+        expr_row=rand(G, K, 4) if hooks else None,
+    )
+
+
+def phase_island_expr_compare(port, fs, kernels, device, results):
+    """The island launch of the expression kernels (expr_breed_kernel,
+    expr_order_kernel, expr_multigen_kernel<false/true>; float32 and bf16)
+    against its plain version (genomes bit for bit, scores within the
+    expression gates), against I single-population launches (each with its
+    island's seed or slice of the injected draws: bit for bit) and, with
+    one island, against the single launch, with injected and with Philox
+    draws, every parity. Times the island launch by CUDA events beside the
+    loop of I single launches, I times the island's bound and the plain
+    version."""
+    import torch
+
+    from libpga_tpu_torch.ops.evaluate import evaluate
+
+    loads = island_expr_workloads()
+    for name, counter, I, S, L, load, steps, bf16 in ISLAND_EXPR_CASES:
+        objective = loads[load][0]
+        geom, kw, program, cities = island_expr_breed(port, fs, load, S, L, steps, bf16, device)
+        mut, cross = kw["mutate"], kw["crossover"]
+        multigen = steps > 1
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        key = "islands_" + counter + ("_bf16" if bf16 else "")
+        gen = torch.Generator(device=device).manual_seed(S + L + I + steps)
+        g = torch.rand((I, geom.Pp, L), generator=gen, device=device).to(dtype)
+        g[:, S:] = 0
+        s = torch.full((I, geom.Pp), -torch.inf, device=device)
+        s[:, :S] = evaluate(objective, g[:, :S].float().reshape(-1, L)).view(I, S)
+        seeds = torch.randint(0, 2**62, (I,), generator=gen, device=device)
+        tie = fs.draw_tie_words(gen, I * geom.Pp, device).view(I, geom.Pp)
+        G, K = geom.G, geom.K
+        real = torch.arange(geom.Pp, device=device) < S
+        rtol, atol = (TSP_RTOL, 0.0) if cities else (EXPR_RTOL, EXPR_ATOL_PER_GENE * L)
+        errs, launched = [], 0
+        for parity in range(geom.parities):
+            ranks = None if multigen else fs.compute_ranks(s, geom, parity, tie)
+
+            def launch(i, n=None, plain=False, **x):
+                """Islands i .. i + n - 1 in one launch (n given), or island
+                i in a single-population launch; ``plain``: the plain
+                version of the island launch."""
+                pick = slice(i, i + n) if n else i
+                if multigen:
+                    if plain:
+                        return fs.multigen_breed_reference(
+                            g[pick], s[pick], geom, parity, steps, math.inf, **x, **kw)
+                    return fs.multigen_breed(g[pick], s[pick], geom, parity, steps, None,
+                                             islands=n, **x, **kw)
+                r = ranks[i * G:(i + (n or 1)) * G]
+                if plain:
+                    d = x.get("draws") or fs.island_philox_draws(x["seed"], G, K, L, mut, cross)
+                    return fs.deme_breed_reference(g[pick], r, geom, parity, d, **kw)
+                return fs.deme_breed(g[pick], r, geom, parity, islands=n, **x, **kw)
+
+            draws = island_expr_draws(fs, geom, I, steps, cross, mut, gen, device)
+            for mode, x in (("injected", dict(draws=draws)), ("philox", dict(seed=seeds))):
+                before = kernels.LAUNCHES[key]
+                got = launch(0, I, **x)
+                launched += kernels.LAUNCHES[key] - before
+                want = launch(0, I, plain=True, **x)
+                torch.cuda.synchronize()
+                tag = f"expression islands {name} parity {parity} {mode}"
+                check(got[0].dtype == dtype and torch.equal(got[0], want[0]),
+                      f"{tag}: genomes differ from the plain version")
+                check(bool(torch.isinf(got[1][:, ~real]).all())
+                      and bool(torch.isfinite(got[1][:, real]).all()),
+                      f"{tag}: pad scores not -inf or real scores not finite")
+                a, b = got[1][:, real], want[1][:, real]
+                err = float((a - b).abs().max())
+                check(bool(torch.isclose(a, b, rtol=rtol, atol=atol).all()),
+                      f"{tag}: score error {err}")
+                errs.append(err)
+                del want
+                for i in range(I):
+                    one = launch(i, **(dict(draws=draws.island(i)) if mode == "injected"
+                                       else dict(seed=seeds[i:i + 1])))
+                    check(torch.equal(got[0][i], one[0]) and torch.equal(got[1][i], one[1]),
+                          f"{tag}: island {i} differs from its single-population launch")
+                del got
+            solo, one = launch(0, 1, seed=seeds[:1]), launch(0, seed=seeds[:1])
+            check(torch.equal(solo[0][0], one[0]) and torch.equal(solo[1][0], one[1]),
+                  f"expression islands {name}: one island differs from the single launch")
+            del draws, solo, one
+        check(launched == 2 * geom.parities,
+              f"expression islands {name}: {launched} launches under {key}")
+
+        # Times at parity 0 (the last parity's ranks serve the loop too).
+        out = torch.empty_like(g)
+        work = [torch.empty_like(g), torch.empty_like(g)] if multigen else None
+
+        def island_launch():
+            if multigen:
+                return fs.multigen_breed(g, s, geom, 0, steps, None, seed=seeds, out=out,
+                                         work=work, islands=I, **kw)
+            return fs.deme_breed(g, ranks, geom, 0, seed=seeds, out=out, islands=I, **kw)
+
+        def single_launches():
+            for i in range(I):
+                if multigen:
+                    fs.multigen_breed(g[i], s[i], geom, 0, steps, None, seed=seeds[i:i + 1],
+                                      out=out[i], work=[w[i] for w in work], **kw)
+                else:
+                    fs.deme_breed(g[i], ranks[i * G:(i + 1) * G], geom, 0,
+                                  seed=seeds[i:i + 1], out=out[i], **kw)
+
+        reps = 5 if multigen else 20
+        ms, loop_ms = cuda_ms(island_launch, reps), cuda_ms(single_launches, reps)
+        plain_ms = cuda_ms(lambda: launch(0, I, plain=True, seed=seeds), 1 if multigen else 2)
+        gene_bytes = 2 if bf16 else 4
+        chain = None
+        if cross == "order":
+            bound_ms, bound_by, chain = order_hooks_bound(geom, program, cities, steps)
+        elif multigen:
+            bound_ms, bound_by = expr_multigen_bound(geom, program, steps, gene_bytes)
+        else:
+            bound_ms, bound_by = expr_bound(geom, program, gene_bytes)
+        line = {"phase": "island_expr_compare", "case": name, "counter": key, "islands": I,
+                "island_shape": [S, L], "steps": steps, "gene_dtype": str(dtype)[6:],
+                "layout": geom.layout, "K": K, "D": geom.D, "Pp": geom.Pp,
+                "genomes_equal": True, "single_launches_equal": True, "one_island_equal": True,
+                "max_abs_err": max(errs), "score_rtol": rtol, "score_atol": atol,
+                "kernel_ms": ms, "loop_ms": loop_ms, "loop_over_island": loop_ms / ms,
+                "plain_ms": plain_ms, "bound_ms": I * bound_ms, "bound_by": bound_by,
+                "chain_steps": chain, "kernel_over_bound": ms / (I * bound_ms)}
+        print(json.dumps(line), flush=True)
+        results[name] = {"counter": counter, "ms": ms, "loop_ms": loop_ms, "plain_ms": plain_ms,
+                         "bound_ms": I * bound_ms, "bound_by": bound_by, "chain_steps": chain,
+                         "max_abs_err": max(errs), "shape": [I, S, L], "steps": steps,
+                         "layout": geom.layout, "K": K, "D": geom.D,
+                         "gene_dtype": str(dtype)[6:]}
+        del g, s, out, work, ranks
+        torch.cuda.empty_cache()
+
+
+def phase_island_expr_runs(port, kernels, results, refs):
+    """pga_run_islands with an expression hook, m = ISLAND_M, pct =
+    ISLAND_PCT, after a warm-up epoch, for every ISLAND_EXPR_RUNS entry:
+    launches of the island expression kernel equal the generations (T = 1)
+    or ceil(m / T) per epoch and nothing else launches, the best rises,
+    the scores are the genomes' objective; gens/s, ms/gen, the migration's
+    ms per epoch and the busy share of a torch.profiler window, beside the
+    same configuration's single-population run (``refs``: this script's
+    earlier results). Then a target run of the creep islands, which must
+    stop at an epoch boundary with the best below the target an epoch
+    earlier."""
+    import torch
+
+    from libpga_tpu_torch.parallel import islands as pis
+
+    cases = {c[0]: c for c in ISLAND_EXPR_CASES}
+    loads = island_expr_workloads()
+    for name, gens, src, ref_key in ISLAND_EXPR_RUNS:
+        _, counter, I, S, L, load, steps, bf16 = cases[name]
+        objective, crossover, mutate = loads[load]
+        T = steps if steps > 1 else None
+        key = "islands_" + counter + ("_bf16" if bf16 else "")
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        pga = island_solver(port, (I, S, L), 21, objective=objective, generations_per_launch=T,
+                            gene_dtype=dtype)
+        port.pga_set_crossover_function(pga, crossover)
+        port.pga_set_mutate_function(pga, mutate)
+        start_best = max(float(objective(p.genomes.float()).max()) for p in pga._populations)
+        check(port.pga_run_islands(pga, ISLAND_M, ISLAND_M, ISLAND_PCT) == ISLAND_M,
+              f"expression islands {name}: warm-up")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        before = pga.launches
+        t0 = time.perf_counter()
+        ran = port.pga_run_islands(pga, gens, ISLAND_M, ISLAND_PCT)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        want = gens if T is None else gens // ISLAND_M * math.ceil(ISLAND_M / T)
+        best = best_of(pga)
+        check(ran == gens, f"expression islands {name}: ran {ran} generations")
+        check(launches[key] == want and sum(launches.values()) == want
+              and pga.launches - before == want,
+              f"expression islands {name}: launches {launches} for {gens} generations, want {want}")
+        check(best > start_best, f"expression islands {name}: best {start_best} -> {best}")
+        rtol, atol = ((TSP_RTOL, 0.0) if load == "tsp_creep"
+                      else (EXPR_RTOL, EXPR_ATOL_PER_GENE * L))
+        for p in pga._populations:
+            check(p.genomes.dtype == dtype and bool(torch.isclose(
+                p.scores, objective(p.genomes.float()), rtol=rtol, atol=atol).all()),
+                f"expression islands {name}: scores are not the genomes' objective")
+        g = torch.stack([p.genomes for p in pga._populations])
+        s = torch.stack([p.scores for p in pga._populations])
+        migrate_ms = cuda_ms(lambda: pis.migrate_local(g, s, int(S * ISLAND_PCT), "ring"), 20)
+        del g, s
+        ms_per_gen = 1e3 * seconds / ran
+        ref = refs[src][ref_key]
+        single = ref["gens_per_s"] if "gens_per_s" in ref else 1e3 / ref["ms_per_gen"]
+        prof = profile_generations(port, pga, ms_per_gen, ISLAND_PROFILE_GENS,
+                                   run=lambda n: port.pga_run_islands(pga, n, ISLAND_M, ISLAND_PCT))
+        line = {"phase": "island_expr_run", "case": name, "islands": I, "island_shape": [S, L],
+                "m": ISLAND_M, "pct": ISLAND_PCT, "generations_per_launch": T,
+                "gene_dtype": str(dtype)[6:], "gens": ran, "launches": launches,
+                "gens_per_s": ran / seconds, "ms_per_gen": ms_per_gen,
+                "migrate_ms_per_epoch": migrate_ms, "single_run": ref_key,
+                "single_gens_per_s": single, "island_over_single": (ran / seconds) / single,
+                "start_best": start_best, "best": best, **prof}
+        print(json.dumps(line), flush=True)
+        results[name].update(launches=launches[key], gens_per_s=line["gens_per_s"],
+                             ms_per_gen=ms_per_gen, single_gens_per_s=single,
+                             migrate_ms_per_epoch=migrate_ms,
+                             device_busy_share=prof["device_busy_share"])
+        port.pga_deinit(pga)
+        del pga
+        torch.cuda.empty_cache()
+
+    # Target: the creep islands stop at an epoch boundary; an epoch earlier
+    # the best was below the target.
+    objective, crossover, mutate = loads["creep"]
+    _, _, I, S, L, _, _, _ = cases["creep-8x131072"]
+
+    def solver():
+        pga = island_solver(port, (I, S, L), 22)
+        port.pga_set_mutate_function(pga, mutate)
+        return pga
+
+    pga = solver()
+    gens = port.pga_run_islands(pga, 10_000, ISLAND_M, ISLAND_PCT, target=ISLAND_EXPR_TARGET)
+    best = best_of(pga)
+    port.pga_deinit(pga)
+    earlier = solver()
+    port.pga_run_islands(earlier, gens - ISLAND_M, ISLAND_M, ISLAND_PCT,
+                         target=ISLAND_EXPR_TARGET)
+    prev = best_of(earlier)
+    port.pga_deinit(earlier)
+    print(json.dumps({"phase": "island_expr_target", "islands": I, "island_shape": [S, L],
+                      "mutate": CREEP, "target": ISLAND_EXPR_TARGET, "m": ISLAND_M, "gens": gens,
+                      "best": best, "best_one_epoch_earlier": prev}), flush=True)
+    check(0 < gens < 10_000 and gens % ISLAND_M == 0 and best >= ISLAND_EXPR_TARGET > prev,
+          f"expression island target: {gens} generations, best {best}, an epoch earlier {prev}")
 
 
 def bf16_population(geom, gen, device, islands=None):
@@ -2964,12 +3235,15 @@ def drive(torch, port, onemax, fs, kernels) -> int:
     island_results = {}
     phase_island_compare(fs, device, island_results)
     phase_island_run(port, kernels, island_results, results, mg_results)
-    island_expr = {}
-    phase_island_expr(port, fs, kernels, device, island_expr)
     phase_rastrigin_islands(port, kernels)
     bf16_results = {}
     phase_bf16_compare(port, fs, device, bf16_results)
     phase_bf16_runs(port, kernels, bf16_results)
+    island_expr_results = {}
+    phase_island_expr_compare(port, fs, kernels, device, island_expr_results)
+    phase_island_expr_runs(port, kernels, island_expr_results, {
+        "expr": expr_results, "expr_mg": expr_mg_results, "order": order_results,
+        "bf16": bf16_results})
 
     entries = []
     for layout, r in results.items():
@@ -3076,19 +3350,6 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "steps": r["steps"], "rank_ms": r.get("rank_ms"),
             "other_cases": r.get("other_cases", {}),
         })
-    # The expression kernel over islands: one single-population launch per
-    # island (the island axis of the generated unit is not ported), so the
-    # entry is that kernel's, ms the loop of I launches and the bound I
-    # islands' bytes.
-    entries.append({
-        "name": island_expr["name"], "route": "cuda",
-        "source": "libpga_tpu_torch/csrc/expr_breed.cu", "replaces": EXPR_ALSO_REPLACES,
-        "island_axis": "not ported: one launch per island",
-        **{k: island_expr[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                       "bound_by")},
-        "library_ms": None,
-        **{k: island_expr[k] for k in ("shape", "layout", "K", "D", "gens_per_s")},
-    })
     for name, r in bf16_results.items():
         # ms, plain_ms and the bound at the entry's shape (multigen: T = 8);
         # launches from its bf16 run; f32_ms: the float32 kernel on the
@@ -3107,6 +3368,23 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "f32_ms": r["f32_ms"], "f32_bound_ms": r["f32_bound_ms"], "loop_ms": r.get("loop_ms"),
             "gens_per_s": r["gens_per_s"], "f32_gens_per_s": r["f32_gens_per_s"],
             "device_busy_share": r.get("device_busy_share"),
+        })
+    for name, r in island_expr_results.items():
+        # ms, plain_ms, loop_ms and the bound at the case's shape; launches
+        # and gens/s from its island run.
+        multigen = r["steps"] > 1
+        entries.append({
+            "name": f"{ISLAND_EXPR_ENTRY[r['counter']]}[islands,{name}]", "route": "cuda",
+            "source": "libpga_tpu_torch/csrc/expr_breed.cu",
+            "replaces": ISLAND_EXPR_REPLACES["multigen" if multigen else r["layout"]],
+            "also_replaces": "libpga_tpu/parallel/islands.py:" + ("192" if multigen else "110"),
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "loop_ms": r["loop_ms"], "shape": r["shape"],
+            "steps": r["steps"], "gene_dtype": r["gene_dtype"], "layout": r["layout"],
+            "K": r["K"], "D": r["D"], "chain_steps": r["chain_steps"],
+            "gens_per_s": r["gens_per_s"], "single_gens_per_s": r["single_gens_per_s"],
+            "device_busy_share": r["device_busy_share"],
         })
     print(json.dumps({"kernels": entries}))
     print(smi)

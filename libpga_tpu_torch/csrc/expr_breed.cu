@@ -68,6 +68,24 @@
 // The generated hooks do not depend on the gene type, so one unit holds both
 // instantiations. expr_order_kernel and expr_multigen_kernel<true> stay
 // float32 only (order crossover at bf16 is declined, as in JAX).
+//
+// Islands. All three kernels also breed I equal populations in one launch,
+// the islands of PGA.run_islands with an expression hook: blockIdx.y is the
+// island. This replaces the TPU's island path, which vmaps the breed kernels
+// _breed_kernel (:946), _pp_breed_kernel (:1173) and _multigen_kernel
+// (:1460) over the islands (libpga_tpu/parallel/islands.py:
+// make_stacked_pallas_epoch, :110; make_multigen_stacked_epoch, :192). A
+// block first moves every pointer to its island's slice, as deme_breed.cu's
+// kernels do (breed_core.cuh: island_slice, island_draws keyed by
+// seed[island], island_io; island_expr_draws below for the injected planes
+// (I, [T,] 4, G, K, L) and words (I, [T,] G, K, 4)). The constant tables cb
+// and the TSP coordinates are one objective's, shared by every island. The
+// Philox counters do not carry the island, so island i of a launch is, bit
+// for bit, the single launch of island i's tensors with seed[i], and a
+// launch of height 1 is the single launch. Shared memory per block does not
+// change with the island count, and the hook text does not either: one
+// generated unit serves single and island launches. Bound: I times the
+// island's bytes (8 x 131,072x100 is 1,048,576x100's 0.253 ms).
 
 #include "breed_core.cuh"
 
@@ -77,6 +95,16 @@ struct ExprDraws {
   const float* gene;  // (4, G, K, L): crossover r, r2, mutation r, r2 (injected mode)
   const float* row;   // (G, K, 4): crossover q, q2, mutation q, q2 (injected mode)
 };
+
+// The expression draws of island blockIdx.y: the injected planes and words
+// carry a leading island axis of T sub-generations each (T = 1 in the
+// one-generation kernels).
+__device__ __forceinline__ ExprDraws island_expr_draws(ExprDraws ex, const Geometry& geo, int T) {
+  const size_t rows = (size_t)T * geo.G * geo.K;
+  ex.gene = island_slice(ex.gene, rows * 4 * geo.L);
+  ex.row = island_slice(ex.row, rows * 4);
+  return ex;
+}
 
 // v[j][m]: per-gene plane j of gene 128*tile + lane + 32*m in sub-generation
 // t, for the planes the hooks read (EXPR_GENE_STREAMS), else 0.
@@ -254,11 +282,17 @@ __device__ __forceinline__ float expr_score(
 template <class Gene>
 __global__ void __launch_bounds__(THREADS) expr_breed_kernel(
     const Gene* __restrict__ gin, Gene* __restrict__ gout, float* __restrict__ sout,
-    const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr, ExprDraws ex,
+    const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr0, ExprDraws ex0,
     const float* __restrict__ cb, Geometry geo, Selection sel, int mutate, int obj) {
   extern __shared__ int smem[];
   __shared__ int s_valid;
   const int g = blockIdx.x, K = geo.K, L = geo.L;
+  gin = island_slice(gin, (size_t)geo.Pp * L);
+  gout = island_slice(gout, (size_t)geo.Pp * L);
+  sout = island_slice(sout, (size_t)geo.Pp);
+  ranks = island_slice(ranks, (size_t)geo.G * K);
+  const Draws dr = island_draws(dr0, geo, 1);
+  const ExprDraws ex = island_expr_draws(ex0, geo, 1);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   int* row_of_rank = smem;
   float* grow = reinterpret_cast<float*>(smem + K) + (size_t)warp * (1 + EXPR_OBJ_ROWS) * L;
@@ -346,11 +380,17 @@ __global__ void __launch_bounds__(THREADS) expr_breed_kernel(
 
 __global__ void __launch_bounds__(ORDER_THREADS) expr_order_kernel(
     const float* __restrict__ gin, float* __restrict__ gout, float* __restrict__ sout,
-    const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr, ExprDraws ex,
+    const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr0, ExprDraws ex0,
     const float* __restrict__ cb, const float* __restrict__ coords, int C, float penalty,
     Geometry geo, Selection sel, int mutate, int obj) {
   extern __shared__ int smem[];
   const int K = geo.K, L = geo.L, G = geo.G, tid = threadIdx.x;
+  gin = island_slice(gin, (size_t)geo.Pp * L);
+  gout = island_slice(gout, (size_t)geo.Pp * L);
+  sout = island_slice(sout, (size_t)geo.Pp);
+  ranks = island_slice(ranks, (size_t)G * K);
+  const Draws dr = island_draws(dr0, geo, 1);
+  const ExprDraws ex = island_expr_draws(ex0, geo, 1);
   const int lane = tid & 31, warp = tid >> 5;
   const int nw = (L + 31) / 32;
   const int per_deme = K / ORDER_THREADS;
@@ -477,8 +517,11 @@ template <bool ORDER, class Gene>
 __global__ void __launch_bounds__(MG_THREADS) expr_multigen_kernel(
     MultigenIO<Gene> io, const float* __restrict__ mparams, Draws dr0, ExprDraws ex0,
     const float* __restrict__ cb, Geometry geo, Selection sel, int mutate, int obj,
-    int elitism) {
+    int elitism, int draw_steps) {
   extern __shared__ long long mg_smem[];
+  io = island_io(io, geo);
+  dr0 = island_draws(dr0, geo, draw_steps);
+  ex0 = island_expr_draws(ex0, geo, draw_steps);
   const int L = geo.L, W = geo.D * geo.K, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t fixed = mg_rows_bytes(W) + (ORDER ? mg_walk_bytes(W, L, blockDim.x) : 0);
   float* grow = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(mg_smem) + fixed) +
@@ -515,19 +558,22 @@ __global__ void __launch_bounds__(MG_THREADS) expr_multigen_kernel(
 // hook; `warps` warps per block); 1: expr_order_kernel (order crossover,
 // riffle only, `fill` genes, ORDER_THREADS threads per block; obj may be
 // OBJ_TSP with `coords` (C, 2) and `penalty`; float32 genes only).
-// gene_dtype: GENE_F32 or GENE_BF16, the type of gin and gout.
+// islands: the grid's second axis (1: a single population), every tensor
+// but mparams, consts and coords with a leading island axis, one seed per
+// island. gene_dtype: GENE_F32 or GENE_BF16, the type of gin and gout.
 extern "C" int expr_breed_launch(
     const void* gin, void* gout, float* sout, const int* ranks, const float* mparams,
     const float* sel_u, const unsigned char* cross, const float* fill, const float* mut_u,
     const float* gauss, const float* xgene, const float* xrow, const long long* seed,
     const float* consts, const float* coords, int C, float penalty, int P, int Pp, int L, int K,
     int G, int mode, int S, int D, int q, int sel_kind, int tk, float sel_param, int cross_kind,
-    int mutate, int obj, int warps, int gene_dtype, void* stream) {
+    int mutate, int obj, int warps, int islands, int gene_dtype, void* stream) {
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed, nullptr, fill};
   const ExprDraws ex{xgene, xrow};
-  if (gene_dtype != GENE_F32 && gene_dtype != GENE_BF16) return (int)cudaErrorInvalidValue;
+  if ((gene_dtype != GENE_F32 && gene_dtype != GENE_BF16) || islands < 1 || islands > 65535)
+    return (int)cudaErrorInvalidValue;
   if (cross_kind) {
     if (EXPR_CROSS || mode != MODE_RIFFLE || K % ORDER_THREADS || (obj == OBJ_TSP && C < 1) ||
         gene_dtype != GENE_F32)
@@ -536,7 +582,8 @@ extern "C" int expr_breed_launch(
     const int nw = (L + 31) / 32, Cs = obj == OBJ_TSP ? (C < L ? C : L) : 0;
     const size_t smem = (size_t)(K + nw * ORDER_THREADS) * 4 + (size_t)Cs * 8 +
                         (size_t)(ORDER_THREADS / 32) * (1 + EXPR_OBJ_ROWS) * L * 4;
-    return launch_with_smem(expr_order_kernel, G * (K / ORDER_THREADS), ORDER_THREADS, smem,
+    return launch_with_smem(expr_order_kernel, dim3(G * (K / ORDER_THREADS), islands),
+                            ORDER_THREADS, smem,
                             (cudaStream_t)stream, static_cast<const float*>(gin),
                             static_cast<float*>(gout), sout, ranks, mparams, dr, ex, consts,
                             coords, C, penalty, geo, sel, mutate, obj);
@@ -546,18 +593,23 @@ extern "C" int expr_breed_launch(
   const size_t smem = (size_t)K * sizeof(int) + (size_t)warps * (1 + EXPR_OBJ_ROWS) * L * 4;
   if (gene_dtype == GENE_BF16) {
     using B = __nv_bfloat16;
-    return launch_with_smem(expr_breed_kernel<B>, G, warps * 32, smem, (cudaStream_t)stream,
+    return launch_with_smem(expr_breed_kernel<B>, dim3(G, islands), warps * 32, smem,
+                            (cudaStream_t)stream,
                             static_cast<const B*>(gin), static_cast<B*>(gout), sout, ranks,
                             mparams, dr, ex, consts, geo, sel, mutate, obj);
   }
-  return launch_with_smem(expr_breed_kernel<float>, G, warps * 32, smem, (cudaStream_t)stream,
+  return launch_with_smem(expr_breed_kernel<float>, dim3(G, islands), warps * 32, smem,
+                          (cudaStream_t)stream,
                           static_cast<const float*>(gin), static_cast<float*>(gout), sout, ranks,
                           mparams, dr, ex, consts, geo, sel, mutate, obj);
 }
 
 // cross_kind 0: uniform crossover or the crossover hook; 1: order crossover
-// (`fill` genes, D = 1, float32 genes only). gene_dtype: GENE_F32 or
-// GENE_BF16, the type of gin, gout and the work buffers.
+// (`fill` genes, D = 1, float32 genes only). draw_steps: the sub-generations
+// each island's injected draws hold (their stride; unread in production
+// mode). islands: the grid's second axis, as expr_breed_launch's.
+// gene_dtype: GENE_F32 or GENE_BF16, the type of gin, gout and the work
+// buffers.
 extern "C" int expr_multigen_launch(
     const void* gin, const float* sin, void* gout, float* sout, void* work0, void* work1,
     int steps, float target, const float* mparams, const float* sel_u,
@@ -565,10 +617,10 @@ extern "C" int expr_multigen_launch(
     const long long* tie, const float* xgene, const float* xrow, const long long* seed,
     const float* consts, int P, int Pp, int L, int K, int G, int mode, int S, int D, int q,
     int sel_kind, int tk, float sel_param, int cross_kind, int mutate, int obj, int elitism,
-    int warps, int gene_dtype, void* stream) {
+    int warps, int draw_steps, int islands, int gene_dtype, void* stream) {
   if (D < 1 || D > MG_MAX_D || warps < 1 || warps > MG_THREADS / 32 ||
       (cross_kind && (EXPR_CROSS || D != 1 || gene_dtype != GENE_F32)) ||
-      (gene_dtype != GENE_F32 && gene_dtype != GENE_BF16))
+      (gene_dtype != GENE_F32 && gene_dtype != GENE_BF16) || islands < 1 || islands > 65535)
     return (int)cudaErrorInvalidValue;
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
   const Selection sel{sel_kind, tk, sel_param};
@@ -584,20 +636,20 @@ extern "C" int expr_multigen_launch(
     using B = __nv_bfloat16;
     const MultigenIO<B> io{static_cast<const B*>(gin), sin, static_cast<B*>(gout), sout,
                            static_cast<B*>(work0), static_cast<B*>(work1), steps, target};
-    return launch_with_smem(expr_multigen_kernel<false, B>, S, threads, smem,
+    return launch_with_smem(expr_multigen_kernel<false, B>, dim3(S, islands), threads, smem,
                             (cudaStream_t)stream, io, mparams, dr, ex, consts, geo, sel, mutate,
-                            obj, elitism);
+                            obj, elitism, draw_steps);
   }
   const MultigenIO<float> io{static_cast<const float*>(gin), sin, static_cast<float*>(gout),
                              sout, static_cast<float*>(work0), static_cast<float*>(work1),
                              steps, target};
   return cross_kind
-             ? launch_with_smem(expr_multigen_kernel<true, float>, S, threads, smem,
-                                (cudaStream_t)stream, io, mparams, dr, ex, consts, geo, sel,
-                                mutate, obj, elitism)
-             : launch_with_smem(expr_multigen_kernel<false, float>, S, threads, smem,
-                                (cudaStream_t)stream, io, mparams, dr, ex, consts, geo, sel,
-                                mutate, obj, elitism);
+             ? launch_with_smem(expr_multigen_kernel<true, float>, dim3(S, islands), threads,
+                                smem, (cudaStream_t)stream, io, mparams, dr, ex, consts, geo,
+                                sel, mutate, obj, elitism, draw_steps)
+             : launch_with_smem(expr_multigen_kernel<false, float>, dim3(S, islands), threads,
+                                smem, (cudaStream_t)stream, io, mparams, dr, ex, consts, geo,
+                                sel, mutate, obj, elitism, draw_steps);
 }
 
 extern "C" const char* expr_breed_error_string(int code) {

@@ -44,10 +44,10 @@ package's ``_pallas_gate`` routes them (``engine.py:855-984``):
 ``run_islands`` evolves every population as an island, migrating the
 top ``pct`` every ``m`` generations (``parallel/islands.py``). Equal
 islands routed to the deme path breed in one launch per generation for
-all islands (the islands are the kernel's second grid axis; at
-``generations_per_launch`` = T > 1, ceil(m / T) launches per epoch);
-with an expression hook, one launch per island per generation; islands
-without a kernel kind, or under 128 rows, take the panmictic epoch.
+all islands, with builtin or expression hooks (the islands are the
+kernel's second grid axis; at ``generations_per_launch`` = T > 1,
+ceil(m / T) launches per epoch); islands without a kernel kind, or
+under 128 rows, take the panmictic epoch.
 Unequal populations run epoch by epoch through ``run`` and ``migrate``.
 
 Genomes are stored in ``PGAConfig.gene_dtype``, float32 or bfloat16. A
@@ -135,9 +135,8 @@ class PGA:
     ``launches`` counts the breed launches of the runs this solver
     returned: on the deme path one per generation, or one per
     ``generations_per_launch`` generations (the last launch of a run
-    may breed fewer); an island run one per generation for all islands
-    (with an expression hook one per island), or ceil(m / T) per epoch;
-    the panmictic path launches none.
+    may breed fewer); an island run one per generation for all islands,
+    or ceil(m / T) per epoch; the panmictic path launches none.
     """
 
     def __init__(self, seed: Optional[int] = None, config: Optional[PGAConfig] = None):
@@ -626,7 +625,8 @@ class PGA:
         ``config.migration_topology``, stopping at the first epoch whose
         best reaches ``target`` (the target is checked once per epoch).
         Equal populations run stacked (``parallel/islands.py``): on the
-        deme path one launch breeds every island; unequal ones run epoch by
+        deme path one launch breeds every island, with builtin or
+        expression hooks; unequal ones run epoch by
         epoch through :meth:`run` and :meth:`migrate`. Returns the
         generations run. ``mesh`` (sharded islands) is not ported yet."""
         if mesh is not None:

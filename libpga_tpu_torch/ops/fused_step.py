@@ -79,8 +79,9 @@ The geometry follows JAX's bf16 defaults: 2-byte genes in every fit, a
 ping-pong quantum of 16 rows and the demes-per-step defaults of 4.
 
 **Islands** (``PGA.run_islands``): I equal populations breed in ONE launch
-of the deme, order or multi-generation kernel, the islands a second grid
-axis (:func:`make_island_breed`, :func:`make_island_multigen`). Genomes
+of the kernel of the hooks (the deme, order or multi-generation kernel,
+or with an expression hook the expression kernels), the islands a second
+grid axis (:func:`make_island_breed`, :func:`make_island_multigen`). Genomes
 carry a leading island axis (I, Pp, L), the ranks of every island come
 from one sort over (I*G, K), each island has its own launch seed, and
 injected draws a leading island axis. Each island computes exactly what a
@@ -1023,22 +1024,19 @@ def deme_breed(
     fails; on a CPU tensor it runs the plain version. Exactly one of
     ``seed`` (int64 tensor of one element: production Philox mode) or
     ``draws`` (injected mode) is given. ``islands`` = I breeds I
-    populations in one launch of the deme- or order-breed kernel (see
-    :func:`deme_breed_reference`; one seed per island, (I,)); the
-    expression kernels take one population per launch."""
+    populations in one launch of that kernel (see
+    :func:`deme_breed_reference`; one seed per island, (I,))."""
     if (seed is None) == (draws is None):
         raise ValueError("pass exactly one of seed= or draws=")
     if genomes.is_cuda:
         if _expression_hooked(kw):
-            if islands is not None:
-                raise ValueError("the expression breed takes one population per launch")
             launch = kernels.expr_breed_cuda
+        elif kw.get("crossover") == "order":
+            launch = kernels.order_breed_cuda
         else:
-            launch = (kernels.order_breed_cuda if kw.get("crossover") == "order"
-                      else kernels.deme_breed_cuda)
-            kw["islands"] = islands
+            launch = kernels.deme_breed_cuda
         return launch(
-            genomes, ranks, geom, parity, seed=seed, draws=draws, out=out,
+            genomes, ranks, geom, parity, seed=seed, draws=draws, out=out, islands=islands,
             **kw,
         )
     if draws is None:
@@ -1176,19 +1174,14 @@ def multigen_breed(
     scratch buffers); on a CPU tensor it runs the plain version. Exactly
     one of ``seed=`` (production Philox mode) or ``draws=`` (injected
     mode, with a leading sub-generation axis) is given in ``kw``.
-    ``islands`` = I breeds I populations in one launch of
-    ``multigen_breed_kernel`` (one seed per island); the expression
-    kernel takes one population per launch."""
+    ``islands`` = I breeds I populations in one launch of that kernel
+    (one seed per island)."""
     target = math.inf if target is None else float(target)
     if genomes.is_cuda:
-        if _expression_hooked(kw):
-            if islands is not None:
-                raise ValueError("the expression breed takes one population per launch")
-            launch = kernels.expr_multigen_cuda
-        else:
-            launch = kernels.multigen_breed_cuda
-            kw["islands"] = islands
-        return launch(genomes, scores, geom, parity, steps, target, out=out, work=work, **kw)
+        launch = (kernels.expr_multigen_cuda if _expression_hooked(kw)
+                  else kernels.multigen_breed_cuda)
+        return launch(genomes, scores, geom, parity, steps, target, out=out, work=work,
+                      islands=islands, **kw)
     return multigen_breed_reference(genomes, scores, geom, parity, steps, target, out=out, **kw)
 
 
@@ -1472,10 +1465,10 @@ def make_island_breed(
     path's use of ``make_pallas_breed`` (``engine._pallas_island_breed``
     and ``islands.make_stacked_pallas_epoch``): one rank sort over every
     island's demes (:func:`compute_ranks` on (I, Pp) scores), one seed
-    per island, then ONE launch of the deme- or order-breed kernel with
-    the islands as a second grid axis. With an expression crossover,
-    mutation or objective the expression kernel breeds each island in a
-    launch of its own (I launches). An objective without a fused form is
+    per island, then ONE launch of the kernel of the hooks (the deme- or
+    order-breed kernel, or with an expression crossover, mutation or
+    objective the expression kernel) with the islands as a second grid
+    axis. An objective without a fused form is
     scored by its rowwise form on the real rows. Where the kernel scores
     the children (``breed.fused``), ``elitism`` carries each island's
     top-e into its rows 0..e-1 after the breed; otherwise the breed
@@ -1491,10 +1484,9 @@ def make_island_breed(
     ``breed.launches`` the kernel launches it has made."""
     single = make_fused_breed(island_size, genome_len, objective, device=device, **kw)
     geom, bkw = single.geom, single.kw
-    per_island = _expression_hooked(bkw)
     fused = bkw["obj_id"] != FUSED_NONE or "objective" in bkw
     carry = elitism if fused else 0
-    G, P, Pp, L = geom.G, geom.P, geom.Pp, geom.L
+    P, Pp, L = geom.P, geom.Pp, geom.L
 
     def breed(genomes, scores, parity, generator, out=None):
         dev = genomes.device
@@ -1503,14 +1495,9 @@ def make_island_breed(
         seeds = torch.randint(0, 2**63 - 1, (islands,), generator=generator, device=dev)
         if out is None:
             out = torch.empty_like(genomes)
-        if per_island:
-            s2 = [deme_breed(genomes[i], ranks[i * G:(i + 1) * G], geom, parity,
-                             seed=seeds[i:i + 1], out=out[i], **bkw)[1] for i in range(islands)]
-            s2 = None if s2[0] is None else torch.stack(s2)
-        else:
-            _, s2 = deme_breed(genomes, ranks, geom, parity, seed=seeds, out=out,
-                               islands=islands, **bkw)
-        breed.launches += islands if per_island else 1
+        _, s2 = deme_breed(genomes, ranks, geom, parity, seed=seeds, out=out,
+                           islands=islands, **bkw)
+        breed.launches += 1
         if s2 is None:
             s2 = torch.full((islands, Pp), -torch.inf, device=dev)
             s2[:, :P] = evaluate(objective, out[:, :P].reshape(-1, L)).view(islands, P)
@@ -1531,9 +1518,9 @@ def make_island_multigen(
 ):
     """Several generations of I equal islands per launch, the
     counterpart of the island path's ``make_pallas_multigen``: ONE
-    launch of the multi-generation kernel with the islands as a second
-    grid axis and one seed per island (with expression hooks, one launch
-    per island). ``kw`` and the geometry are :func:`make_fused_multigen`'s
+    launch of the multi-generation kernel of the hooks (builtin or
+    expression) with the islands as a second grid axis and one seed per
+    island. ``kw`` and the geometry are :func:`make_fused_multigen`'s
     at the island size; None where it declines.
 
     Returns ``launch(genomes (I, Pp, L), scores (I, Pp), parity, steps,
@@ -1544,22 +1531,15 @@ def make_island_multigen(
     if single is None:
         return None
     geom, mkw = single.geom, single.kw
-    per_island = _expression_hooked(mkw)
 
     def launch(genomes, scores, parity, steps, target, generator, out=None, work=None):
         seeds = torch.randint(0, 2**63 - 1, (islands,), generator=generator,
                               device=genomes.device)
         if out is None:
             out = torch.empty_like(genomes)
-        if per_island:
-            s2 = torch.stack([multigen_breed(
-                genomes[i], scores[i], geom, parity, steps, target, seed=seeds[i:i + 1],
-                out=out[i], work=None if work is None else [w[i] for w in work], **mkw,
-            )[1] for i in range(islands)])
-        else:
-            _, s2 = multigen_breed(genomes, scores, geom, parity, steps, target, seed=seeds,
-                                   out=out, work=work, islands=islands, **mkw)
-        launch.launches += islands if per_island else 1
+        _, s2 = multigen_breed(genomes, scores, geom, parity, steps, target, seed=seeds,
+                               out=out, work=work, islands=islands, **mkw)
+        launch.launches += 1
         return out, s2
 
     launch.geom = geom

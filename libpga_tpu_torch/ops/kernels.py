@@ -21,11 +21,15 @@ kernel) and its multi-generation form ("expr_multigen";
 "expr_multigen_order"), the GP evaluator by mode (compacted programs, or
 raw genomes with static trips), and an island launch of the deme, order
 or multi-generation breed once, whatever its island count ("islands",
-"islands_order", "islands_multigen", "islands_multigen_order"). A
-launch on bfloat16 genomes counts under the same name with "_bf16"
-appended ("pingpong_bf16", "riffle_bf16", "multigen_bf16", "expr_bf16",
-"expr_multigen_bf16", "islands_bf16", "islands_multigen_bf16"). A
-wrapper adds one where it launches its kernel and nowhere else.
+"islands_order", "islands_multigen", "islands_multigen_order"), and so
+an island launch of the expression kernels ("islands_expr",
+"islands_expr_order", "islands_expr_multigen",
+"islands_expr_multigen_order"). A launch on bfloat16 genomes counts
+under the same name with "_bf16" appended ("pingpong_bf16",
+"riffle_bf16", "multigen_bf16", "expr_bf16", "expr_multigen_bf16",
+"islands_bf16", "islands_multigen_bf16", "islands_expr_bf16",
+"islands_expr_multigen_bf16"). A wrapper adds one where it launches its
+kernel and nowhere else.
 
 Genomes (and the children, ``out`` and the multi-generation work
 buffers, which take the genomes' dtype) are float32 or bfloat16; every
@@ -65,6 +69,8 @@ LAUNCHES = {
     "gp_eval_static": 0, "islands": 0, "islands_order": 0, "islands_multigen": 0,
     "islands_multigen_order": 0, "pingpong_bf16": 0, "riffle_bf16": 0, "multigen_bf16": 0,
     "expr_bf16": 0, "expr_multigen_bf16": 0, "islands_bf16": 0, "islands_multigen_bf16": 0,
+    "islands_expr": 0, "islands_expr_order": 0, "islands_expr_multigen": 0,
+    "islands_expr_multigen_order": 0, "islands_expr_bf16": 0, "islands_expr_multigen_bf16": 0,
 }
 TEMPLATES = ("expr_breed",)  # sources built only with generated hooks in front
 
@@ -227,8 +233,8 @@ def _bindings() -> dict:
                 i, i, i, i, i,          # P, Pp, L, K, G
                 i, i, i, i,             # mode, S, D, q
                 i, i, f,                # sel kind, tournament size, sel param
-                i, i, i, i, i,          # crossover kind, mutate kind, objective id, warps,
-                                        # gene dtype
+                i, i, i, i,             # crossover kind, mutate kind, objective id, warps
+                i, i,                   # islands, gene dtype
                 p,                      # stream
             ], i),
             "expr_multigen_launch": ([
@@ -239,8 +245,9 @@ def _bindings() -> dict:
                 i, i, i, i, i,          # P, Pp, L, K, G
                 i, i, i, i,             # mode, S, D, q
                 i, i, f,                # sel kind, tournament size, sel param
-                i, i, i, i, i, i,       # crossover kind, mutate kind, objective id, elitism,
-                                        # warps, gene dtype
+                i, i, i, i, i,          # crossover kind, mutate kind, objective id, elitism,
+                                        # warps
+                i, i, i,                # draw steps, islands, gene dtype
                 p,                      # stream
             ], i),
             "expr_breed_error_string": ([i], s),
@@ -737,7 +744,8 @@ def _expr_hooks(crossover, mutate, objective, obj_id: int, L: int, who: str, mul
 def _expr_draws(draws, program, lead: tuple, geom, dev):
     """``(expr_gene, expr_row)`` of injected draws, checked where the
     hooks read them (else None): planes ``lead + (4, G, K, L)``, words
-    ``lead + (G, K, 4)``."""
+    ``lead + (G, K, 4)``; ``lead`` is the island axis and, at several
+    generations per launch, the sub-generation axis after it."""
     G, K, L = geom.G, geom.K, geom.L
     xgene = xrow = None
     if program.gene_planes:
@@ -779,6 +787,7 @@ def expr_breed_cuda(
     objective=None,
     coords: Optional[torch.Tensor] = None,
     penalty: float = 0.0,
+    islands: Optional[int] = None,
 ):
     """Launch ``expr_breed_kernel`` or, for order crossover,
     ``expr_order_kernel``, of the template ``csrc/expr_breed.cu`` with
@@ -796,9 +805,13 @@ def expr_breed_cuda(
     bfloat16 genomes, the children in their dtype). Production mode takes ``seed``; injected
     mode takes ``draws`` with the expression planes ``expr_gene`` (4, G,
     K, L) and words ``expr_row`` (G, K, 4) where the hooks read them
-    (order crossover: the ``fill`` plane). Raises on bad arguments or a
-    failed build or launch; never runs anything else in the kernel's
-    place."""
+    (order crossover: the ``fill`` plane). ``islands`` = I breeds I
+    populations in one launch, shaped as :func:`deme_breed_cuda`'s
+    (genomes and ``out`` (I, Pp, L), ranks (I*G, K), one seed per island
+    (I,), every injected tensor with a leading island axis, scores (I,
+    Pp)); the constant tables and ``coords`` are shared. Raises on bad
+    arguments or a failed build or launch; never runs anything else in
+    the kernel's place."""
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("expr_breed_cuda needs CUDA tensors")
@@ -812,8 +825,9 @@ def expr_breed_cuda(
                          f" of {ORDER_THREADS}, not {geom.layout} K={K}")
     if not 1 <= tournament_size <= 16:
         raise ValueError(f"tournament_size {tournament_size} outside 1..16")
-    gene_id = _check_genomes(genomes, (Pp, L), dev, order=order)
-    _check(ranks, "ranks", torch.int32, (G, K), dev)
+    lead, n = _island_lead(islands)
+    gene_id = _check_genomes(genomes, lead + (Pp, L), dev, order=order)
+    _check(ranks, "ranks", torch.int32, (n * G, K), dev)
     _check(mparams, "mparams", torch.float32, (2,), dev)
     C = 0
     if obj_id == FUSED_TSP:
@@ -826,29 +840,30 @@ def expr_breed_cuda(
     warps = expr_warps(K, L, program.obj_rows, order=order, cities=C)
     if out is None:
         out = torch.empty_like(genomes)
-    _check(out, "out", genomes.dtype, (Pp, L), dev)
+    _check(out, "out", genomes.dtype, lead + (Pp, L), dev)
     if out.data_ptr() == genomes.data_ptr():
         raise ValueError("out must not alias genomes: blocks read rows other blocks write")
     sel_u = cross = fill = mut_u = gauss = xgene = xrow = None
     if draws is not None:
         sel_u, mut_u = draws.sel_u, draws.mut_u
-        _check(sel_u, "sel_u", torch.float32, (G, K, 2), dev)
-        _check(mut_u, "mut_u", torch.float32, (G, K, 4), dev)
+        _check(sel_u, "sel_u", torch.float32, lead + (G, K, 2), dev)
+        _check(mut_u, "mut_u", torch.float32, lead + (G, K, 4), dev)
         if order:
             fill = draws.fill
             if fill is None:
                 raise ValueError("injected order draws need the fill plane")
-            _check(fill, "fill", torch.float32, (G, K, L), dev)
+            _check(fill, "fill", torch.float32, lead + (G, K, L), dev)
         elif cross_op is None:
             cross = draws.cross
-            _check(cross, "cross", torch.uint8, (G, K, L), dev)
+            _check(cross, "cross", torch.uint8, lead + (G, K, L), dev)
         if mutate == "gaussian":
             gauss = draws.gauss
-            _check(gauss, "gauss", torch.float32, (3, G, K, L), dev)
-        xgene, xrow = _expr_draws(draws, program, (), geom, dev)
+            _check(gauss, "gauss", torch.float32, lead + (3, G, K, L), dev)
+        xgene, xrow = _expr_draws(draws, program, lead, geom, dev)
     else:
-        _check(seed, "seed", torch.int64, (1,), dev)
-    scores = torch.empty(Pp, device=dev) if (objective is not None or obj_id) else None
+        _check(seed, "seed", torch.int64, (n,), dev)
+    scores = (torch.empty(lead + (Pp,), device=dev) if (objective is not None or obj_id)
+              else None)
     lib = _expr_library(program)
     rc = lib.expr_breed_launch(
         genomes.data_ptr(), out.data_ptr(), _ptr(scores), ranks.data_ptr(),
@@ -861,11 +876,12 @@ def expr_breed_cuda(
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
         CROSS_IDS["order" if order else "uniform"], MUTATE_IDS.get(mutate, 0) if mut_op is None else 0,
-        int(obj_id), warps, gene_id,
+        int(obj_id), warps, n, gene_id,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "expr_breed")
-    _count("expr_order" if order else "expr", genomes)
+    key = "expr_order" if order else "expr"
+    _count(key if islands is None else "islands_" + key, genomes)
     return out, scores
 
 
@@ -890,6 +906,7 @@ def expr_multigen_cuda(
     elitism: int = 0,
     crossover="uniform",
     objective=None,
+    islands: Optional[int] = None,
 ):
     """Launch ``expr_multigen_kernel``, the multi-generation entry of
     the expression breed's unit (the same build as :func:`expr_breed_cuda`
@@ -901,9 +918,11 @@ def expr_multigen_cuda(
     least ``steps`` sub-generations, the tie words (order crossover: the
     ``fill`` plane) and, where the hooks read them, ``expr_gene`` (T, 4,
     G, K, L) and ``expr_row`` (T, G, K, 4). Returns ``(genomes (Pp, L),
-    scores (Pp,))`` in physical row order. Raises on bad arguments or a
-    failed build or launch; never runs anything else in the kernel's
-    place."""
+    scores (Pp,))`` in physical row order. ``islands`` = I breeds I
+    populations in one launch, shaped as :func:`multigen_breed_cuda`'s
+    (injected draws (I, T, ...), the expression planes and words
+    included). Raises on bad arguments or a failed build or launch; never
+    runs anything else in the kernel's place."""
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("expr_multigen_cuda needs CUDA tensors")
@@ -911,18 +930,19 @@ def expr_multigen_cuda(
     cross_op, mut_op, obj_id = _expr_hooks(crossover, mutate, objective, obj_id, L,
                                            "expr_multigen_cuda", multigen=True)
     order = crossover == "order"
+    lead, n = _island_lead(islands)
     steps, gene_id = _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism,
-                                      mparams, order)
+                                      mparams, order, lead)
     param = resolve_selection(selection, selection_param)
     program = expr_cuda.program_for(cross_op, mut_op, objective)
     warps = expr_warps(K, L, program.obj_rows, D=D, order=order)
     out, work = _multigen_buffers(genomes, out, work, steps)
-    _, (sel_u, cross, fill, mut_u, gauss, tie) = _multigen_draws(
-        draws, seed, geom, steps, None if cross_op is not None else crossover, mutate, dev)
+    draw_steps, (sel_u, cross, fill, mut_u, gauss, tie) = _multigen_draws(
+        draws, seed, geom, steps, None if cross_op is not None else crossover, mutate, dev, lead)
     xgene = xrow = None
     if draws is not None:
-        xgene, xrow = _expr_draws(draws, program, (draws.sel_u.shape[0],), geom, dev)
-    s_out = torch.empty(Pp, device=dev)
+        xgene, xrow = _expr_draws(draws, program, lead + (draw_steps,), geom, dev)
+    s_out = torch.empty(lead + (Pp,), device=dev)
     lib = _expr_library(program)
     rc = lib.expr_multigen_launch(
         genomes.data_ptr(), scores.data_ptr(), out.data_ptr(), s_out.data_ptr(),
@@ -936,11 +956,12 @@ def expr_multigen_cuda(
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
         CROSS_IDS["order" if order else "uniform"], MUTATE_IDS.get(mutate, 0) if mut_op is None else 0,
-        int(obj_id), int(elitism), warps, gene_id,
+        int(obj_id), int(elitism), warps, draw_steps, n, gene_id,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "expr_breed")
-    _count("expr_multigen_order" if order else "expr_multigen", genomes)
+    key = "expr_multigen_order" if order else "expr_multigen"
+    _count(key if islands is None else "islands_" + key, genomes)
     return out, s_out
 
 

@@ -11,8 +11,9 @@ generations.
   chosen as JAX chooses them (:func:`_make_vepoch`): the stacked deme epoch
   (a fused deme breed: per generation one rank sort over every island's
   demes and ONE kernel launch that breeds every island, the islands a
-  second grid axis of the launch); the stacked multi-generation epoch
-  (ceil(m / T) launches of the multi-generation kernel over every island);
+  second grid axis of the launch, with builtin or expression hooks); the
+  stacked multi-generation epoch (ceil(m / T) launches of the builtin or
+  expression multi-generation kernel over every island);
   or :func:`make_island_epoch` (the panmictic breed island by island, or a
   deme breed whose kernel does not score the children, with the
   epoch-level elite carry).
@@ -31,7 +32,9 @@ generations.
   by its offspring unless elitism keeps it (JAX's ``islands.py:17-21``).
 
 Left out of this port so far (ROADMAP): the sharded runner, the batched
-island loop of serving, island telemetry and fault injection.
+island loop of serving, island telemetry and fault injection. Every
+island breed JAX runs in a Pallas kernel, expression hooks included,
+runs here in one launch over all islands.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """The CUDA kernels (libpga_tpu_torch/csrc/deme_breed.cu: its uniform,
-order and multi-generation breeds, each also with an island grid axis;
-expr_breed.cu with generated hooks; and gp_eval.cu) against their plain
+order and multi-generation breeds; expr_breed.cu with generated hooks;
+each breed also with an island grid axis; and gp_eval.cu) against their plain
 torch versions, on the card. These tests skip on a
 machine without one. They import neither JAX nor the JAX package, so
 they run where only torch is installed:
@@ -998,6 +998,185 @@ def test_engine_on_card_breeds_every_island_in_one_launch(cuda_device):
         assert p.launches == launches
         for pop in p._populations:
             torch.testing.assert_close(pop.scores, pop.genomes.sum(dim=1), rtol=0, atol=1e-3)
+
+
+# ------------------------------------------------- islands with expressions
+
+# (kernel, case, S, L, layout, steps, elitism, gene dtype): the island grid
+# axis of expr_breed_kernel, expr_order_kernel and expr_multigen_kernel
+# <false/true>, float32 and bf16.
+ISLAND_EXPR_VARIANTS = [
+    ("expr", "one_point+creep", 4096, 100, None, 1, 0, torch.float32),
+    ("expr", "nk", 1000, 64, "riffle", 1, 0, torch.float32),
+    ("expr", "trap", 4096, 60, None, 1, 0, torch.bfloat16),
+    ("expr_order", "tour+swap", 1024, 100, None, 1, 0, torch.float32),
+    ("expr_order", "tsp+creep", 1024, 200, None, 1, 0, torch.float32),
+    ("expr_multigen", "trap", 4096, 60, "riffle", 3, 2, torch.float32),
+    ("expr_multigen", "one_point+creep", 4096, 100, None, 3, 0, torch.float32),
+    ("expr_multigen", "trap", 4096, 60, None, 3, 1, torch.bfloat16),
+    ("expr_multigen_order", "tour+swap", 1024, 100, None, 3, 1, torch.float32),
+]
+
+
+def _island_expr_case(kernel, case, L, device):
+    """(crossover, kw) of an island expression case."""
+    order = kernel.endswith("order")
+    if order:
+        mut, objective, obj_id, coords, penalty = _order_case(case, L)
+        kw = dict(crossover="order", mutate=mut, obj_id=obj_id)
+        if coords is not None:
+            kw.update(coords=coords.to(device), penalty=penalty)
+    else:
+        cross, mut, objective, obj_id = _expr_case(case)
+        kw = dict(crossover=cross, mutate=mut, obj_id=obj_id)
+    if objective is not None:
+        kw.update(objective=objective)
+    kw.update(mparams=torch.tensor([0.3, 0.05], device=device))
+    return kw["crossover"], kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ISLAND_EXPR_VARIANTS,
+                         ids=lambda v: f"{v[0]}-{v[1]}-{v[2]}x{v[3]}-s{v[5]}-{str(v[7])[6:]}")
+def test_island_expr_launch_equals_plain_and_single_launches_on_card(cuda_device, variant):
+    """One island launch of the expression kernels (3 islands, the second
+    grid axis) equals its plain version (genomes bit for bit; scores
+    within rtol 1e-5 / atol 1e-5 * L at one generation, exactly at
+    several) and 3 single-population launches bit for bit, each with its
+    island's seed or slice of the injected draws; one island equals a
+    single launch; the launch counts once under its "islands_" key."""
+    kernel, case, S, L, layout, steps, e, dtype = variant
+    I = 3
+    multigen = kernel.startswith("expr_multigen")
+    cross, kw = _island_expr_case(kernel, case, L, cuda_device)
+    objective = kw.get("objective")
+    geom = fs.resolve_geometry(
+        S, L, layout=layout, crossover=cross, multigen=multigen, elitism=e, gene_dtype=dtype,
+        const_carrying=bool(getattr(objective, "kernel_rowwise_consts", ())))
+    if multigen:
+        kw.update(elitism=e)
+    gen = torch.Generator(device=cuda_device).manual_seed(S + L + steps)
+    g = torch.rand((I, geom.Pp, L), generator=gen, device=cuda_device).to(dtype)
+    g[:, S:] = 0
+    s = torch.rand((I, geom.Pp), generator=gen, device=cuda_device)
+    s[:, S:] = -torch.inf
+    seeds = torch.randint(0, 2**62, (I,), generator=gen, device=cuda_device)
+    G, K = geom.G, geom.K
+    mut = kw["mutate"]
+    key = "islands_" + kernel + ("_bf16" if dtype == torch.bfloat16 else "")
+    real = torch.arange(geom.Pp, device=cuda_device) < S
+    for parity in range(geom.parities):
+        if multigen:
+            target = float(s[:, :S].amax(dim=1).median())  # freezes some groups
+            draws = fs.stack_draws([fs.stack_draws([
+                fs.philox_draws(seeds[i:i + 1] + 5, G, K, L, mut, cross, sub_generation=t,
+                                tie=True) for t in range(steps)]) for i in range(I)])
+        else:
+            ranks = fs.compute_ranks(s, geom, parity, fs.draw_tie_words(
+                gen, I * geom.Pp, cuda_device).view(I, -1))
+            draws = fs.island_philox_draws(seeds + 5, G, K, L, mut, cross)
+
+        def launch(i, islands=None, plain=False, **x):
+            """Islands i .. i + islands - 1 in one launch (or its plain
+            version), or island i alone in a single-population launch."""
+            pick = slice(i, i + islands) if islands else i
+            if multigen:
+                if plain:
+                    return fs.multigen_breed_reference(g[pick], s[pick], geom, parity, steps,
+                                                       target, **x, **kw)
+                return fs.multigen_breed(g[pick], s[pick], geom, parity, steps, target,
+                                         islands=islands, **x, **kw)
+            r = ranks[i * G:(i + (islands or 1)) * G]
+            if plain:
+                d = x.get("draws") or fs.island_philox_draws(x["seed"], G, K, L, mut, cross)
+                return fs.deme_breed_reference(g[pick], r, geom, parity, d, **kw)
+            return fs.deme_breed(g[pick], r, geom, parity, islands=islands, **x, **kw)
+
+        before = kernels.LAUNCHES[key]
+        for x in (dict(seed=seeds), dict(draws=draws)):
+            got, want = launch(0, I, **x), launch(0, I, plain=True, **x)
+            torch.cuda.synchronize()
+            assert got[0].dtype == dtype and torch.equal(got[0], want[0])
+            assert bool(torch.isinf(got[1][:, ~real]).all())
+            if multigen:
+                assert torch.equal(got[1], want[1])
+            else:
+                torch.testing.assert_close(got[1][:, real], want[1][:, real], rtol=1e-5,
+                                           atol=1e-5 * L)
+            for i in range(I):
+                one = launch(i, **(dict(seed=seeds[i:i + 1]) if "seed" in x
+                                   else dict(draws=draws.island(i))))
+                assert torch.equal(got[0][i], one[0]) and torch.equal(got[1][i], one[1])
+        assert kernels.LAUNCHES[key] == before + 2
+        solo, one = launch(0, 1, seed=seeds[:1]), launch(0, seed=seeds[:1])
+        assert torch.equal(solo[0][0], one[0]) and torch.equal(solo[1][0], one[1])
+
+
+@pytest.mark.cuda
+def test_island_expr_kernels_reject_bad_arguments(cuda_device):
+    from libpga_tpu_torch.ops import breed_expr as bx
+
+    I = 2
+    geom = fs.resolve_geometry(1024, 20)
+    g = torch.rand((I, geom.Pp, 20), device=cuda_device)
+    ranks = torch.zeros((I * geom.G, geom.K), dtype=torch.int32, device=cuda_device)
+    seeds = torch.tensor([1, 2], dtype=torch.int64, device=cuda_device)
+    mx = bx.mutate_from_expression("where(r < rate, r2, g)")
+    kw = dict(mparams=torch.tensor([0.01, 0.0], device=cuda_device), mutate=mx, obj_id=1)
+    for bad in (0, 65_536):
+        with pytest.raises(ValueError, match="islands"):
+            kernels.expr_breed_cuda(g, ranks, geom, 0, seed=seeds, islands=bad, **kw)
+    with pytest.raises(ValueError, match="seed"):
+        kernels.expr_breed_cuda(g, ranks, geom, 0, seed=seeds[:1], islands=I, **kw)
+    with pytest.raises(ValueError, match="ranks"):
+        kernels.expr_breed_cuda(g, ranks[:geom.G], geom, 0, seed=seeds, islands=I, **kw)
+    draws = fs.island_philox_draws(seeds, geom.G, geom.K, 20, mx)
+    draws.expr_gene = draws.expr_gene[:1]  # one island's planes for two islands
+    with pytest.raises(ValueError, match="expr_gene"):
+        kernels.expr_breed_cuda(g, ranks, geom, 0, draws=draws, islands=I, **kw)
+    mg = fs.resolve_geometry(1024, 20, multigen=True)
+    gm = torch.rand((I, mg.Pp, 20), device=cuda_device)
+    sm = gm.sum(dim=2)
+    draws = fs.stack_draws([fs.stack_draws([fs.philox_draws(seeds[i:i + 1], mg.G, mg.K, 20, mx,
+                                                            sub_generation=t, tie=True)
+                                            for t in range(2)]) for i in range(I)])
+    draws.expr_gene = draws.expr_gene[:, :1]  # one sub-generation's planes for two
+    with pytest.raises(ValueError, match="expr_gene"):
+        kernels.expr_multigen_cuda(gm, sm, mg, 0, 2, math.inf, draws=draws, islands=I, **kw)
+    with pytest.raises(ValueError, match="islands"):
+        kernels.expr_multigen_cuda(gm, sm, mg, 0, 2, math.inf, seed=seeds, islands=0, **kw)
+
+
+@pytest.mark.cuda
+def test_engine_on_card_breeds_expression_islands_in_one_launch(cuda_device):
+    """run_islands with an expression hook: one island launch of the
+    expression kernel per generation, or ceil(m / T) per epoch, and
+    nothing else; scores are the genomes' objective."""
+    from libpga_tpu_torch import PGAConfig, pga_init
+    from libpga_tpu_torch import objectives as po
+    from libpga_tpu_torch.ops import breed_expr as bx
+
+    creep = bx.mutate_from_expression("where(r < rate, g + sigma * (2*r2 - 1), g)", rate=0.05,
+                                      sigma=0.1)
+    trap = po.make_deceptive_trap(5)
+    for T, objective, mut, gens, key, launches in (
+        (None, "onemax", creep, 12, "islands_expr", 12),
+        (None, trap, None, 12, "islands_expr", 12),
+        (4, trap, creep, 13, "islands_expr_multigen", 3 * 1 + 1),
+    ):
+        p = pga_init(0, PGAConfig(generations_per_launch=T))
+        for _ in range(4):
+            p.create_population(4096, 60)
+        p.set_objective(objective)
+        p.set_mutate(mut)
+        kernels.reset_launches()
+        assert p.run_islands(gens, 4, 0.05) == gens
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0), key: launches}
+        assert p.launches == launches
+        for pop in p._populations:
+            torch.testing.assert_close(pop.scores, p._objective(pop.genomes), rtol=1e-5,
+                                       atol=1e-3)
 
 
 # ---------------------------------------------------------------- bfloat16
