@@ -215,8 +215,26 @@ Phases, each printing one line; any failure exits non-zero:
      single-population run of this script; then a target run of the creep
      islands that stops at an epoch boundary (an epoch earlier the best
      was below it).
+ 27. floor_compare: the floor harness's cases (B7) of deme_breed_kernel
+     (the copies: riffle, contiguous, in place, scored; the floor, every
+     stage off; sel_const, no_matmul, no_cross and no_mut alone) at
+     1,048,576x100 and 40,000x100 float32 (the copies and the floor at
+     1,048,576x100 bf16 too) and of multigen_breed_kernel (no_freeze,
+     no_rank_cube) at T = 8 at 1,048,576x100, against their plain versions
+     with injected and Philox draws: genomes bit for bit, scores within
+     SCORE_ATOL, the copies equal to their row permutation (and to one
+     torch.index_select). Times each by CUDA events beside the production
+     kernel of the same call, the bound and the plain version;
+ 28. floor_partition: this slice's path, the port's harness
+     (libpga_tpu_torch/tools/ablate_floor.py with --dsweep and --tsweep) at
+     1,048,576x100 and 40,000x100 float32 and 1,048,576x100 bf16, then
+     tools/ablate_kernel.py at 1,048,576x100: every median, the partition of
+     the floor with its coverage, the demes-per-block sweeps (the running
+     warps held fixed, and at the breed's 8 warps a block) with their
+     slopes, and the T sweep;
+     every ablated kernel case must have launched in it.
 The earlier OneMax, GP and TSP runs keep their depths; the whole script
-takes about three minutes on the card. Then one JSON line of per-kernel numbers, the card's name and power
+takes about five minutes on the card. Then one JSON line of per-kernel numbers, the card's name and power
 limit, and last the result line. With --log FILE every line printed
 also goes to that file (a tool that shows only the end of a long output
 can bring the file back whole).
@@ -415,6 +433,32 @@ ISLAND_EXPR_RUNS = [
     ("trap-8x131072-T8-bf16", 100, "bf16", "expr_multigen[trap,bf16]"),
 ]
 ISLAND_EXPR_TARGET = 70.0  # the creep islands' target run
+# The floor harness (B7): (P, L, K) of each shape; the copy and stage cases
+# (name, ablate, scored); the multigen cases at T = 8; the harness's runs.
+FLOOR_SHAPES = {"1M": (1 << 20, 100, 512), "40k": (40_000, 100, 256)}
+FLOOR_COPY = ("copy_only", "no_rank_sort")
+FLOOR_STAGES = ("sel_const", "no_matmul", "no_cross", "no_mut")
+FLOOR_CASES = [
+    ("copy_riffle", FLOOR_COPY, False),
+    ("copy_contig", FLOOR_COPY + ("no_riffle",), False),
+    ("copy_alias", FLOOR_COPY + ("no_riffle", "alias_io"), False),
+    ("copy_riffle_score", FLOOR_COPY, True),
+    ("floor", FLOOR_STAGES, False),
+] + [(flag, (flag,), True) for flag in FLOOR_STAGES]
+FLOOR_BF16_CASES = ("copy_riffle", "copy_contig", "copy_alias", "floor")
+FLOOR_MULTIGEN_CASES = [("no_freeze", 58.0), ("no_rank_cube", None)]  # (flag, compare target)
+FLOOR_T = 8
+FLOOR_ROUNDS = 3
+FLOOR_RUNS = [["f32", "--pop", str(1 << 20), "--k", "512"], ["f32", "--pop", "40000", "--k", "256"],
+              ["bf16", "--pop", str(1 << 20), "--k", "512"]]
+FLOOR_REPLACES = {
+    "ablate_copy": ("libpga_tpu/ops/pallas_step.py:1009",  # _breed_kernel, copy_only
+                    "libpga_tpu/ops/pallas_step.py:2224"),  # no_riffle, alias_io
+    "ablate_breed": ("libpga_tpu/ops/pallas_step.py:514",   # _deme_child, sel_const
+                     "libpga_tpu/ops/pallas_step.py:592"),  # no_matmul; no_cross :634, no_mut :748
+    "ablate_multigen": ("libpga_tpu/ops/pallas_step.py:1617",  # _multigen_kernel, no_freeze
+                        "libpga_tpu/ops/pallas_step.py:1638"),  # no_rank_cube
+}
 MEAN_RANK_BAND = (1 / 3 - 0.004, 1 / 3 + 0.002)  # E = 1/3 - O(1/K)
 CROSS_BAND = (0.495, 0.505)
 MUTATION_RATE = 0.01
@@ -3164,6 +3208,223 @@ def phase_bf16_runs(port, kernels, results):
     port.pga_deinit(pga)
 
 
+def copy_bound(geom, gene_bytes: int, scored: bool) -> tuple:
+    """Least time (ms) of the copy and what sets it: the harness's
+    copy_bound_ms (every row read once and written once and, scored, the
+    handed scores read and the scores written; no operations)."""
+    from libpga_tpu_torch.tools.ablate_floor import copy_bound_ms
+
+    return copy_bound_ms(geom, gene_bytes, scored), "bytes"
+
+
+def stage_bound(geom, gene_bytes: int, ablate, scored: bool) -> tuple:
+    """Least time (ms) of a stage-ablated breed and what sets it: the
+    rows read and written once, the ranks read where selection reads them
+    (not under sel_const), the scores written where it is scored; its
+    float32 operations a crossover select per gene (not under no_cross)
+    and, scored, a score add per gene. The floor (all four stages off,
+    unscored) moves the copy's bytes."""
+    nbytes = (2 * geom.Pp * geom.L * gene_bytes + geom.Pp * 4 * scored
+              + geom.G * geom.K * 4 * ("sel_const" not in ablate))
+    ops = geom.Pp * geom.L * (("no_cross" not in ablate) + scored)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_floor_compare(fs, onemax, device, results):
+    """Each ablated case of the breed kernels (the floor harness, B7)
+    against its plain version on the same inputs: genomes bit for bit,
+    scores within SCORE_ATOL, copies equal to their row permutation;
+    timed by CUDA events beside the production kernel of the same call,
+    the bound and the plain version."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    mparams = (0.05, 0.0)
+    for shape, (P, L, K) in FLOOR_SHAPES.items():
+        for dtype in ((f32, bf16) if shape == "1M" else (f32,)):
+            gb = 2 if dtype == bf16 else 4
+            gen = torch.Generator(device=device).manual_seed(P + gb)
+            prod = fs.make_fused_breed(P, L, onemax, deme_size=K, device=device, gene_dtype=dtype,
+                                       mparams=mparams)
+            g = torch.rand((prod.geom.Pp, L), generator=gen, device=device).to(dtype)
+            g[P:] = 0
+            s = g.float().sum(dim=1)
+            s[P:] = -torch.inf
+            seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+            ranks = fs.compute_ranks(s, prod.geom, 0, fs.draw_tie_words(gen, prod.geom.Pp, device))
+            out = torch.empty_like(g)
+            full_ms = cuda_ms(lambda: fs.deme_breed(g, ranks, prod.geom, 0, seed=seed, out=out,
+                                                    **prod.kw), 20)
+            full_bound = breed_bound(prod.geom, gb)
+            for name, ablate, scored in FLOOR_CASES:
+                if dtype == bf16 and name not in FLOOR_BF16_CASES:
+                    continue
+                copy = "copy_only" in ablate
+                breed = fs.make_fused_breed(
+                    P, L, onemax if scored else None, deme_size=K, layout="riffle",
+                    device=device, gene_dtype=dtype, mparams=mparams, ablate=ablate)
+                geom, kw = breed.geom, breed.kw
+                tag = f"floor {name} {shape} {str(dtype)[6:]}"
+                errs, library_ms = [], None
+                if copy:
+                    handed = s.view(geom.G, geom.K)
+                    alias = "alias_io" in ablate
+                    src = g.clone() if alias else g
+                    want = fs.deme_breed_reference(g, handed, geom, 0, None, **kw)
+                    got = fs.deme_breed(src, handed, geom, 0, out=src if alias else None, **kw)
+                    torch.cuda.synchronize()
+                    _, write = geom.row_maps(0, device)
+                    check(torch.equal(got[0], want[0]), f"{tag}: genomes differ")
+                    check(torch.equal(got[0][write.reshape(-1)], g), f"{tag}: not the row map")
+                    errs.append(float((got[0].float() - want[0].float()).abs().max()))
+                    if scored:
+                        check(torch.equal(got[1], want[1]), f"{tag}: scores differ")
+                        fin = torch.isfinite(want[1])
+                        errs.append(float((got[1][fin] - want[1][fin]).abs().max()))
+                    dst = src if alias else torch.empty_like(g)
+                    ms = cuda_ms(lambda: fs.deme_breed(src, handed, geom, 0, out=dst, **kw), 20)
+                    plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
+                        g, handed, geom, 0, None, **kw), 3)
+                    bound_ms, bound_by = copy_bound(geom, gb, scored)
+                    if not scored and not alias:
+                        # One PyTorch call of the same function: index_select
+                        # of each output row's source row.
+                        read, _ = geom.row_maps(0, device)
+                        rows = torch.empty(geom.Pp, dtype=torch.long, device=device)
+                        rows[write.reshape(-1)] = read.reshape(-1)
+                        lib = torch.empty_like(g)
+                        check(torch.equal(torch.index_select(g, 0, rows, out=lib), got[0]),
+                              f"{tag}: index_select differs")
+                        library_ms = cuda_ms(lambda: torch.index_select(g, 0, rows, out=lib), 20)
+                else:
+                    r = fs.compute_ranks(s, geom, 0, fs.draw_tie_words(gen, geom.Pp, device))
+                    injected = fs.Draws(
+                        sel_u=torch.rand((geom.G, K, 2), generator=gen, device=device),
+                        cross=(torch.rand((geom.G, K, L), generator=gen, device=device)
+                               < 0.5).to(torch.uint8),
+                        mut_u=torch.rand((geom.G, K, 4), generator=gen, device=device))
+                    for mode, draws in (("injected", injected), ("philox", None)):
+                        if draws is None:
+                            got = fs.deme_breed(g, r, geom, 0, seed=seed, **kw)
+                            draws = fs.philox_draws(seed, geom.G, K, L)
+                        else:
+                            got = fs.deme_breed(g, r, geom, 0, draws=draws, **kw)
+                        want = fs.deme_breed_reference(g, r, geom, 0, draws, **kw)
+                        torch.cuda.synchronize()
+                        check(torch.equal(got[0], want[0]), f"{tag} {mode}: genomes differ")
+                        errs.append(float((got[0].float() - want[0].float()).abs().max()))
+                        if scored:
+                            real = torch.arange(geom.Pp, device=device) < P
+                            check(bool(torch.isinf(got[1][~real]).all()), f"{tag}: pad scores")
+                            errs.append(float((got[1][real] - want[1][real]).abs().max()))
+                            check(errs[-1] <= SCORE_ATOL, f"{tag} {mode}: score error {errs[-1]}")
+                    dst = torch.empty_like(g)
+                    ms = cuda_ms(lambda: fs.deme_breed(g, r, geom, 0, seed=seed, out=dst, **kw), 20)
+                    plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
+                        g, r, geom, 0, fs.philox_draws(seed, geom.G, K, L), **kw), 3)
+                    bound_ms, bound_by = stage_bound(geom, gb, ablate, scored)
+                line = {"phase": "floor_compare", "case": name, "shape": [P, L],
+                        "gene_dtype": str(dtype)[6:], "ablate": list(ablate),
+                        "layout": geom.layout, "K": geom.K, "Pp": geom.Pp,
+                        "genomes_equal": True, "max_abs_err": max(errs), "kernel_ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms, "production_ms": full_ms,
+                        "production_layout": prod.geom.layout,
+                        "production_bound_ms": full_bound[0]}
+                print(json.dumps(line), flush=True)
+                key = "ablate_copy" if copy else "ablate_breed"
+                entry = results.setdefault(key, {"max_abs_err": 0.0, "cases": {}})
+                entry["max_abs_err"] = max(entry["max_abs_err"], max(errs))
+                entry["cases"][f"{name}-{shape}-{str(dtype)[6:]}"] = {
+                    k: line[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "production_ms", "production_layout")}
+                if shape == "1M" and dtype == f32 and name in ("copy_riffle", "floor"):
+                    entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                 library_ms=library_ms, case=name, shape=[P, L])
+                del breed, got, want
+
+    # The multi-generation kernel's cases at T = 8, at 1,048,576x100.
+    P, L, K = FLOOR_SHAPES["1M"]
+    prod = fs.make_fused_multigen(P, L, onemax, deme_size=K, device=device, mparams=mparams)
+    geom = prod.geom
+    gen = torch.Generator(device=device).manual_seed(17)
+    g, s = population(geom, gen, device)
+    seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+    out = torch.empty_like(g)
+    work = [torch.empty_like(g), torch.empty_like(g)]
+    full_ms = cuda_ms(lambda: fs.multigen_breed(g, s, geom, 0, FLOOR_T, None, seed=seed, out=out,
+                                                work=work, **prod.kw), 10)
+    for flag, target in FLOOR_MULTIGEN_CASES:
+        launch = fs.make_fused_multigen(P, L, onemax, deme_size=K, device=device, mparams=mparams,
+                                        ablate=(flag,))
+        kw, tgt = launch.kw, math.inf if target is None else target
+        errs = []
+        for mode in (dict(draws=multigen_draws(fs, geom, FLOOR_T, gen, device)), dict(seed=seed)):
+            got = fs.multigen_breed(g, s, geom, 0, FLOOR_T, target, **mode, **kw)
+            want = fs.multigen_breed_reference(g, s, geom, 0, FLOOR_T, tgt, **mode, **kw)
+            torch.cuda.synchronize()
+            tag = f"floor multigen {flag} {'injected' if 'draws' in mode else 'philox'}"
+            check(torch.equal(got[0], want[0]), f"{tag}: genomes differ")
+            check(torch.equal(torch.isinf(got[1]), torch.isinf(want[1])), f"{tag}: -inf rows")
+            fin = torch.isfinite(want[1])
+            errs.append(float((got[1][fin] - want[1][fin]).abs().max()))
+            check(errs[-1] <= SCORE_ATOL, f"{tag}: score error {errs[-1]}")
+        ms = cuda_ms(lambda: fs.multigen_breed(g, s, geom, 0, FLOOR_T, None, seed=seed, out=out,
+                                               work=work, **kw), 10)
+        plain_ms = cuda_ms(lambda: fs.multigen_breed_reference(
+            g, s, geom, 0, FLOOR_T, math.inf, seed=seed, **kw), 2)
+        bound_ms, bound_by = multigen_bound(geom, FLOOR_T)
+        line = {"phase": "floor_compare", "case": f"multigen_{flag}", "shape": [P, L],
+                "steps": FLOOR_T, "compare_target": target, "layout": geom.layout, "K": geom.K,
+                "D": geom.D, "genomes_equal": True, "max_abs_err": max(errs), "kernel_ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "production_ms": full_ms}
+        print(json.dumps(line), flush=True)
+        entry = results.setdefault("ablate_multigen", {"max_abs_err": 0.0, "cases": {}})
+        entry["max_abs_err"] = max(entry["max_abs_err"], max(errs))
+        entry["cases"][flag] = {k: line[k] for k in ("kernel_ms", "plain_ms", "production_ms")}
+        if flag == "no_freeze":
+            entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         case=flag, shape=[P, L], steps=FLOOR_T)
+
+
+def phase_floor_partition(kernels, results):
+    """This slice's path: the port's floor harness
+    (libpga_tpu_torch/tools/ablate_floor.py with --dsweep and --tsweep) at
+    1,048,576x100 and 40,000x100 float32 and 1,048,576x100 bf16, then the
+    stage harness (tools/ablate_kernel.py) at 1,048,576x100, the launch
+    counts set to 0 just before and read just after: every kernel of the
+    path must have launched."""
+    from libpga_tpu_torch.tools import ablate_floor, ablate_kernel
+
+    kernels.reset_launches()
+    records = []
+    for argv in FLOOR_RUNS:
+        rec = ablate_floor.main(argv + ["--rounds", str(FLOOR_ROUNDS), "--dsweep", "--tsweep"])
+        records.append(rec)
+        print(json.dumps({"phase": "floor_partition", "args": argv, **{
+            k: rec[k] for k in ("medians_ms_per_gen", "copy_bound_ms", "floor_partition",
+                                "coverage", "floor_partition_out_of_place",
+                                "coverage_out_of_place", "dsweep_fixed_warps_ms",
+                                "dispatch_us_per_block", "dsweep_ms",
+                                "dsweep_8_warps_us_per_block", "tsweep_ms")}}), flush=True)
+    stages = ablate_kernel.main(["f32", "512", "--rounds", str(FLOOR_ROUNDS)])
+    launches = dict(kernels.LAUNCHES)
+    print(json.dumps({"phase": "floor_stages", "shape": [1 << 20, 100], "medians_ms_per_gen":
+                      stages, "launches": launches}), flush=True)
+    for key in ("ablate_copy", "ablate_breed", "ablate_multigen", "ablate_copy_bf16",
+                "ablate_breed_bf16", "ablate_multigen_bf16", "pingpong", "riffle", "multigen",
+                "pingpong_bf16", "multigen_bf16"):
+        check(launches[key] > 0, f"floor_partition: {key} never launched ({launches})")
+    for rec in records:
+        check(all(v == v for v in rec["medians_ms_per_gen"].values()),
+              f"floor_partition {rec['pop']} {rec['dtype']}: a median rests on no sample")
+    for key in ("ablate_copy", "ablate_breed", "ablate_multigen"):
+        results[key]["launches"] = launches[key]
+    results["partition"] = records
+
+
 def main() -> int:
     import torch
 
@@ -3244,6 +3505,9 @@ def drive(torch, port, onemax, fs, kernels) -> int:
     phase_island_expr_runs(port, kernels, island_expr_results, {
         "expr": expr_results, "expr_mg": expr_mg_results, "order": order_results,
         "bf16": bf16_results})
+    floor_results = {}
+    phase_floor_compare(fs, onemax, device, floor_results)
+    phase_floor_partition(kernels, floor_results)
 
     entries = []
     for layout, r in results.items():
@@ -3385,6 +3649,18 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "K": r["K"], "D": r["D"], "chain_steps": r["chain_steps"],
             "gens_per_s": r["gens_per_s"], "single_gens_per_s": r["single_gens_per_s"],
             "device_busy_share": r["device_busy_share"],
+        })
+    for name in ("ablate_copy", "ablate_breed", "ablate_multigen"):
+        # ms, plain_ms and the bound: copy_riffle, floor and no_freeze (T = 8)
+        # at 1,048,576x100 float32; launches from floor_partition.
+        r = floor_results[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": "libpga_tpu_torch/csrc/deme_breed.cu",
+            "replaces": FLOOR_REPLACES[name][0], "also_replaces": FLOOR_REPLACES[name][1],
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms"), "case": r["case"], "shape": r["shape"],
+            "steps": r.get("steps", 1), "cases": r["cases"],
         })
     print(json.dumps({"kernels": entries}))
     print(smi)

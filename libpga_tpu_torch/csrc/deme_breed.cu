@@ -86,6 +86,60 @@
 // (:1758): order_breed_kernel and multigen_breed_kernel<true> have no bf16
 // case, and the launchers refuse one.
 //
+// The floor harness (B7). deme_breed_kernel<Gene, ABLATE> and
+// multigen_breed_kernel<false, Gene, ABLATE> also build the ablated cases of
+// the TPU kernels' floor-attribution harness (pallas_step.py's _VALID_ABLATE,
+// :83-97, reached through make_pallas_breed / make_pallas_multigen(_ablate=)
+// and tools/ablate_floor.py, tools/ablate_kernel.py); the port's harness is
+// libpga_tpu_torch/tools/ablate_floor.py and ablate_kernel.py. ABLATE is a
+// compile-time bitmask (breed_core.cuh's ABL_*); ABLATE = 0 is the production
+// instantiation and its code is the code above. The flags, by JAX name:
+//   copy_only  (ABL_COPY; _breed_kernel :1009-1035) a pure copy: block b
+//              copies the rows of demes b*Dc .. b*Dc + Dc - 1 (Dc demes per
+//              block, 1 by default: the counterpart of _demes_per_step; Wb
+//              warps per block, the breed's THREADS / 32 by default, so a
+//              demes-per-block sweep can hold the running warps fixed with
+//              Wb = Dc) from read_row to write_row, one warp per row with
+//              breed_genes' loads (four genes of a tile in flight per lane,
+//              through the read-only path); no draws, no selection. With an
+//              objective each copied row's slot gets the score it was handed
+//              (the ranks argument holds float32 scores, as JAX's ranks input
+//              stands in for the scores; under no_rank_sort they are the raw
+//              scores, so s2 == rowsum(g2)).
+//   no_riffle  (:2224-2254) the contiguous row map MODE_CONTIG: child k of
+//              deme g at row g*K + k.
+//   alias_io   (:2246-2254) the copy writes in place (gout == gin); only with
+//              copy_only and no_riffle. A breeding warp would overwrite a parent
+//              row another warp of the block still reads (JAX loads the whole
+//              block into VMEM first), so the wrapper refuses it otherwise.
+//   no_rank_sort (:2306) a host-side flag: the caller skips the rank sort
+//              and hands the kernel the scores (copy) or identity ranks.
+//   sel_const  (ABL_SEL_CONST; _deme_child :514) no selection draws are read:
+//              p1 = p2 = slot k's row.
+//   no_matmul  (ABL_NO_GATHER; :592) no rank-space gather: p1 = p2 = slot k's
+//              row; the selection draws are still made.
+//   no_cross   (ABL_NO_CROSS; :634) child = p1, no crossover bits drawn.
+//   no_mut     (ABL_NO_MUT; :748) no mutation.
+//   no_freeze  (ABL_NO_FREEZE; _multigen_kernel :1617) no group freezes.
+//   no_rank_cube (ABL_NO_RANK_CUBE; :1638) no in-kernel ranks: rank r is slot r.
+//   serial_grid (:431-445) no meaning: CUDA blocks have no dimension
+//              semantics to choose; the wrapper raises.
+//   no_score_t (:2354) no meaning: each score is stored at its child's row,
+//              so there is no transpose to skip; raises.
+//   scatter_scores (:1157) no meaning: per-child score stores are already the
+//              production path; raises.
+// Elite rows of the multigen kernel keep their gathered parent only where
+// neither sel_const nor no_matmul is set (:740), as in JAX. In the
+// multi-generation kernel copy_only, no_riffle, alias_io and no_rank_sort
+// raise (JAX validates copy_only there and then ignores it); the flags are
+// refused with order crossover and expression hooks (ROADMAP Queue B 7 lists
+// those cases). The instantiated masks are 0, ABL_COPY, each stage bit alone
+// and all four stage bits (the floor) in deme_breed_kernel, and 0, each of the
+// six multigen and stage bits alone and the floor in multigen_breed_kernel,
+// at both gene types. Bound of the copy: the production bound, Pp*L*bytes read
+// and written (0.253 ms at 1,048,576x100 float32, 0.0097 ms at 40,000x100),
+// plus the handed scores when scored; the harness reads the copy beside it.
+//
 // Built with --fmad=false so the float32 selection arithmetic is not
 // contracted into multiply-adds and rounds as the torch version does. The
 // row maps, selection, Philox and the draws shared with expr_breed.cu are in
@@ -103,8 +157,10 @@ namespace {
 // (fused_step.rowwise_scores(warp_order=True)) sums in the same order.
 // Returns the sums in `a` and `b` on every lane. ORDER: the child was walked
 // already (p1 == p2 == out, or an elite's parent): no crossover bits are
-// drawn, every gene is p1's.
-template <bool LDG, bool ORDER = false, class Gene = float>
+// drawn, every gene is p1's. ABLATE (the floor harness): ABL_NO_CROSS draws
+// no crossover bits and takes every gene from p1, as ORDER does; ABL_NO_MUT
+// mutates nothing.
+template <bool LDG, bool ORDER = false, class Gene = float, unsigned ABLATE = 0u>
 __device__ __forceinline__ void breed_genes(
     const BreedCtx& cx, const Draws& dr, const Gene* p1, const Gene* p2, Gene* out,
     ChildRand r, int k, int g, uint32_t t, int lane, size_t child, bool may_mutate,
@@ -114,7 +170,9 @@ __device__ __forceinline__ void breed_genes(
   // exchange when mu2 < rate.
   const int pos = (int)floorf(r.mu0 * (float)L);
   const int pj = (int)floorf(r.mu1 * (float)L);
-  const bool fire = may_mutate && (mutate == MUT_SWAP ? r.mu2 < cx.rate : r.mu1 < cx.rate);
+  constexpr bool MUTATES = !(ABLATE & ABL_NO_MUT);
+  const bool fire =
+      MUTATES && may_mutate && (mutate == MUT_SWAP ? r.mu2 < cx.rate : r.mu1 < cx.rate);
   a = 0.0f;
   b = 0.0f;
 
@@ -123,7 +181,7 @@ __device__ __forceinline__ void breed_genes(
   auto finish = [&](int l, float c) {
     if (mutate == MUT_POINT) {
       if (fire && l == pos) c = r.mu2;
-    } else if (mutate == MUT_GAUSSIAN) {
+    } else if (MUTATES && mutate == MUT_GAUSSIAN) {
       c = gauss_mutate(cx, dr, c, k, g, t, l, child, may_mutate);
     }
     c = round_gene<Gene>(c);
@@ -146,7 +204,7 @@ __device__ __forceinline__ void breed_genes(
     if (l3 < L) finish(l3, c3);
   };
 
-  if constexpr (ORDER) {
+  if constexpr (ORDER || (ABLATE & ABL_NO_CROSS)) {
     for (int base = 0; base < L; base += 128) tile(base, 0u, 0u, 0u, 0u);
   } else if (cx.philox_mode) {
     uint4 w = r.w;
@@ -197,19 +255,55 @@ __device__ __forceinline__ void breed_genes(
   }
 }
 
-template <class Gene>
+// ABLATE is 0 in production; the floor harness's cases are described under
+// "The floor harness" below. In the ABL_COPY case block b copies demes
+// b*Dc .. b*Dc + Dc - 1 (Dc = demes_per_block; 1 in every other case) and
+// `ranks` holds float32 scores in cohort order, (G, K), the score each copied
+// row is handed.
+template <class Gene, unsigned ABLATE>
 __global__ void __launch_bounds__(THREADS) deme_breed_kernel(
     const Gene* __restrict__ gin, Gene* __restrict__ gout, float* __restrict__ sout,
     const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr0,
-    Geometry geo, Selection sel, int mutate, int obj) {
+    Geometry geo, Selection sel, int mutate, int obj, int demes_per_block) {
   extern __shared__ int row_of_rank[];
   __shared__ int s_valid;
   const int g = blockIdx.x, K = geo.K, L = geo.L;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   gin = island_slice(gin, (size_t)geo.Pp * L);
   gout = island_slice(gout, (size_t)geo.Pp * L);
   sout = island_slice(sout, (size_t)geo.Pp);
   ranks = island_slice(ranks, (size_t)geo.G * K);
+  if constexpr ((ABLATE & ABL_COPY) != 0u) {
+    // The breed's access pattern without the breed: a warp per row, each
+    // lane fetching its four genes of a 128-gene tile through the
+    // read-only path before it stores any (breed_genes' tile), the gene
+    // bits moved unchanged.
+    using Bits = std::conditional_t<sizeof(Gene) == 2, unsigned short, float>;
+    const float* handed = reinterpret_cast<const float*>(ranks);
+    const int W = demes_per_block * K;
+    for (int c = warp; c < W; c += nwarps) {
+      const int gg = g * demes_per_block + c / K, k = c % K;
+      const Bits* src = reinterpret_cast<const Bits*>(gin + (size_t)read_row(geo, gg, k) * L);
+      const int orow = write_row(geo, gg, k);
+      Bits* dst = reinterpret_cast<Bits*>(gout + (size_t)orow * L);
+      for (int base = 0; base < L; base += 128) {
+        Bits v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int l = base + lane + 32 * j;
+          if (l < L) v[j] = __ldg(src + l);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int l = base + lane + 32 * j;
+          if (l < L) dst[l] = v[j];
+        }
+      }
+      if (obj != OBJ_NONE && lane == 0)
+        sout[orow] = orow < geo.P ? handed[(size_t)gg * K + k] : -INFINITY;
+    }
+    return;
+  }
   const Draws dr = island_draws(dr0, geo, 1);
   if (threadIdx.x == 0) s_valid = 0;
   __syncthreads();
@@ -224,21 +318,25 @@ __global__ void __launch_bounds__(THREADS) deme_breed_kernel(
   __syncthreads();
 
   const float V = (float)max(s_valid, 1);
-  const BreedCtx cx = breed_ctx(dr, mparams, geo, mutate, obj);
+  BreedCtx cx = breed_ctx(dr, mparams, geo, mutate, obj);
+  if constexpr ((ABLATE & ABL_NO_CROSS) != 0u) cx.ncalls = 2;  // no crossover bits
 
-  for (int k = warp; k < K; k += blockDim.x >> 5) {
+  for (int k = warp; k < K; k += nwarps) {
     const size_t child = (size_t)g * K + k;
     const ChildRand r = child_rand(cx, dr, k, g, 0u, lane, child);
-    const int r1 = winner_rank(winner_fraction(sel, r.su0), V);
-    const int r2 = winner_rank(winner_fraction(sel, r.su1), V);
-    const int s1 = min(max(row_of_rank[r1], 0), K - 1);
-    const int s2 = min(max(row_of_rank[r2], 0), K - 1);
+    int s1 = k, s2 = k;  // sel_const, no_matmul: child k's parents are slot k
+    if constexpr ((ABLATE & (ABL_SEL_CONST | ABL_NO_GATHER)) == 0u) {
+      const int r1 = winner_rank(winner_fraction(sel, r.su0), V);
+      const int r2 = winner_rank(winner_fraction(sel, r.su1), V);
+      s1 = min(max(row_of_rank[r1], 0), K - 1);
+      s2 = min(max(row_of_rank[r2], 0), K - 1);
+    }
     const Gene* p1 = gin + (size_t)read_row(geo, g, s1) * L;
     const Gene* p2 = gin + (size_t)read_row(geo, g, s2) * L;
     const int orow = write_row(geo, g, k);
     float a, b;
-    breed_genes<true>(cx, dr, p1, p2, gout + (size_t)orow * L, r, k, g, 0u, lane, child,
-                      true, a, b);
+    breed_genes<true, false, Gene, ABLATE>(cx, dr, p1, p2, gout + (size_t)orow * L, r, k, g, 0u,
+                                           lane, child, true, a, b);
     if (obj != OBJ_NONE && lane == 0)
       sout[orow] = orow < geo.P ? obj_finish(obj, a, b, L) : -INFINITY;
   }
@@ -515,7 +613,7 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
 // sub-generations' draws are the same either way. Injected mode reads draw
 // tensors with a leading sub-generation axis.
 
-template <bool ORDER, class Gene>
+template <bool ORDER, class Gene, unsigned ABLATE = 0u>
 __global__ void __launch_bounds__(MG_THREADS) multigen_breed_kernel(
     MultigenIO<Gene> io, const float* __restrict__ mparams, Draws dr0, Geometry geo,
     Selection sel, int mutate, int obj, int elitism, int draw_steps) {
@@ -523,45 +621,98 @@ __global__ void __launch_bounds__(MG_THREADS) multigen_breed_kernel(
   io = island_io(io, geo);
   dr0 = island_draws(dr0, geo, draw_steps);
   BreedCtx cx = breed_ctx(dr0, mparams, geo, mutate, obj);
-  if (ORDER) cx.ncalls = 2;  // selection and mutation: no crossover bits
+  if (ORDER || (ABLATE & ABL_NO_CROSS)) cx.ncalls = 2;  // selection and mutation: no crossover bits
   const int lane = threadIdx.x & 31;
   auto breed_child = [&](const Draws& dr, uint32_t t, int g, int k, size_t child,
                          const Gene* p1, const Gene* p2, Gene* out, const ChildRand& r,
                          bool elite) {
     float a, b;
-    breed_genes<false, ORDER>(cx, dr, p1, p2, out, r, k, g, t, lane, child, !elite, a, b);
+    breed_genes<false, ORDER, Gene, ABLATE>(cx, dr, p1, p2, out, r, k, g, t, lane, child, !elite,
+                                            a, b);
     return obj_finish(obj, a, b, geo.L);
   };
-  multigen_group<ORDER>(io, geo, cx, dr0, sel, elitism, mg_smem, breed_child);
+  multigen_group<ORDER, ABLATE>(io, geo, cx, dr0, sel, elitism, mg_smem, breed_child);
 }
 
+
+// The ABLATE cases each kernel is built in, beside 0 (production). A launch
+// with another mask fails with cudaErrorInvalidValue; ops/kernels.py keeps the
+// same lists (ABLATE_DEME_MASKS, ABLATE_MULTIGEN_MASKS) and refuses first.
+constexpr unsigned ABL_FLOOR = ABL_STAGES;  // every stage off: the harness's floor
+
+template <class F>
+int dispatch_deme_ablate(unsigned ablate, F launch) {
+  switch (ablate) {
+    case 0u: return launch(std::integral_constant<unsigned, 0u>{});
+    case ABL_COPY: return launch(std::integral_constant<unsigned, ABL_COPY>{});
+    case ABL_SEL_CONST: return launch(std::integral_constant<unsigned, ABL_SEL_CONST>{});
+    case ABL_NO_GATHER: return launch(std::integral_constant<unsigned, ABL_NO_GATHER>{});
+    case ABL_NO_CROSS: return launch(std::integral_constant<unsigned, ABL_NO_CROSS>{});
+    case ABL_NO_MUT: return launch(std::integral_constant<unsigned, ABL_NO_MUT>{});
+    case ABL_FLOOR: return launch(std::integral_constant<unsigned, ABL_FLOOR>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <class F>
+int dispatch_multigen_ablate(unsigned ablate, F launch) {
+  switch (ablate) {
+    case 0u: return launch(std::integral_constant<unsigned, 0u>{});
+    case ABL_NO_FREEZE: return launch(std::integral_constant<unsigned, ABL_NO_FREEZE>{});
+    case ABL_NO_RANK_CUBE: return launch(std::integral_constant<unsigned, ABL_NO_RANK_CUBE>{});
+    case ABL_SEL_CONST: return launch(std::integral_constant<unsigned, ABL_SEL_CONST>{});
+    case ABL_NO_GATHER: return launch(std::integral_constant<unsigned, ABL_NO_GATHER>{});
+    case ABL_NO_CROSS: return launch(std::integral_constant<unsigned, ABL_NO_CROSS>{});
+    case ABL_NO_MUT: return launch(std::integral_constant<unsigned, ABL_NO_MUT>{});
+    case ABL_FLOOR: return launch(std::integral_constant<unsigned, ABL_FLOOR>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <class Gene>
+int deme_launch(const void* gin, void* gout, float* sout, const int* ranks, const float* mparams,
+                const Draws& dr, const Geometry& geo, const Selection& sel, int mutate, int obj,
+                int islands, unsigned ablate, int demes_per_block, int warps_per_block,
+                cudaStream_t stream) {
+  const size_t smem = geo.K * sizeof(int);
+  return dispatch_deme_ablate(ablate, [&](auto tag) {
+    constexpr unsigned A = decltype(tag)::value;
+    const int per_block = (A & ABL_COPY) ? demes_per_block : 1;
+    const int threads = (A & ABL_COPY) && warps_per_block ? 32 * warps_per_block : THREADS;
+    deme_breed_kernel<Gene, A><<<dim3(geo.G / per_block, islands), threads, smem, stream>>>(
+        static_cast<const Gene*>(gin), static_cast<Gene*>(gout), sout, ranks, mparams, dr, geo,
+        sel, mutate, obj, per_block);
+    return (int)cudaGetLastError();
+  });
+}
 
 }  // namespace
 
 // gene_dtype: GENE_F32 (0) or GENE_BF16 (1), the type of gin and gout.
+// ablate: 0, or an ABLATE case of the floor harness (ABL_COPY: demes_per_block
+// demes per block, dividing G, and warps_per_block warps per block, 1 to
+// THREADS / 32 or 0 for THREADS / 32; `ranks` then holds the handed float32
+// scores, and gout may be gin with mode MODE_CONTIG).
 extern "C" int deme_breed_launch(
     const void* gin, void* gout, float* sout, const int* ranks, const float* mparams,
     const float* sel_u, const unsigned char* cross, const float* mut_u, const float* gauss,
     const long long* seed, int P, int Pp, int L, int K, int G, int mode, int S, int D, int q,
     int sel_kind, int tk, float sel_param, int mutate, int obj, int islands, int gene_dtype,
-    void* stream) {
+    unsigned ablate, int demes_per_block, int warps_per_block, void* stream) {
+  if (demes_per_block < 1 || G % demes_per_block || warps_per_block < 0 ||
+      warps_per_block > THREADS / 32)
+    return (int)cudaErrorInvalidValue;
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed};
-  const dim3 grid(G, islands);
-  const size_t smem = K * sizeof(int);
-  if (gene_dtype == GENE_BF16) {
-    deme_breed_kernel<__nv_bfloat16><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        static_cast<const __nv_bfloat16*>(gin), static_cast<__nv_bfloat16*>(gout), sout, ranks,
-        mparams, dr, geo, sel, mutate, obj);
-  } else if (gene_dtype == GENE_F32) {
-    deme_breed_kernel<float><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        static_cast<const float*>(gin), static_cast<float*>(gout), sout, ranks, mparams, dr,
-        geo, sel, mutate, obj);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (gene_dtype == GENE_BF16)
+    return deme_launch<__nv_bfloat16>(gin, gout, sout, ranks, mparams, dr, geo, sel, mutate, obj,
+                                      islands, ablate, demes_per_block, warps_per_block, st);
+  if (gene_dtype == GENE_F32)
+    return deme_launch<float>(gin, gout, sout, ranks, mparams, dr, geo, sel, mutate, obj, islands,
+                              ablate, demes_per_block, warps_per_block, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* deme_breed_error_string(int code) {
@@ -604,10 +755,12 @@ extern "C" int multigen_breed_launch(
     const unsigned char* cross, const float* fill, const float* mut_u, const float* gauss,
     const long long* tie, const long long* seed, int P, int Pp, int L, int K, int G, int mode,
     int S, int D, int q, int sel_kind, int tk, float sel_param, int cross_kind, int mutate,
-    int obj, int elitism, int draw_steps, int islands, int gene_dtype, void* stream) {
+    int obj, int elitism, int draw_steps, int islands, int gene_dtype, unsigned ablate,
+    void* stream) {
   if (D < 1 || D > MG_MAX_D || (cross_kind && D != 1)) return (int)cudaErrorInvalidValue;
   if ((gene_dtype != GENE_F32 && gene_dtype != GENE_BF16) || (cross_kind && gene_dtype != GENE_F32))
     return (int)cudaErrorInvalidValue;
+  if (cross_kind && ablate) return (int)cudaErrorInvalidValue;
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed, tie, fill};
@@ -618,9 +771,12 @@ extern "C" int multigen_breed_launch(
     using B = __nv_bfloat16;
     const MultigenIO<B> io{static_cast<const B*>(gin), sin, static_cast<B*>(gout), sout,
                            static_cast<B*>(work0), static_cast<B*>(work1), steps, target};
-    return launch_with_smem(multigen_breed_kernel<false, B>, dim3(S, islands), MG_THREADS,
-                            (size_t)W * MG_ROW_BYTES, (cudaStream_t)stream, io, mparams, dr, geo,
-                            sel, mutate, obj, elitism, draw_steps);
+    return dispatch_multigen_ablate(ablate, [&](auto tag) {
+      return launch_with_smem(multigen_breed_kernel<false, B, decltype(tag)::value>,
+                              dim3(S, islands), MG_THREADS, (size_t)W * MG_ROW_BYTES,
+                              (cudaStream_t)stream, io, mparams, dr, geo, sel, mutate, obj,
+                              elitism, draw_steps);
+    });
   }
   const MultigenIO<float> io{static_cast<const float*>(gin), sin, static_cast<float*>(gout),
                              sout, static_cast<float*>(work0), static_cast<float*>(work1),
@@ -630,7 +786,10 @@ extern "C" int multigen_breed_launch(
                             mg_rows_bytes(W) + mg_walk_bytes(W, L, MG_THREADS),
                             (cudaStream_t)stream, io, mparams, dr, geo, sel, mutate, obj, elitism,
                             draw_steps);
-  return launch_with_smem(multigen_breed_kernel<false, float>, dim3(S, islands), MG_THREADS,
-                          (size_t)W * MG_ROW_BYTES, (cudaStream_t)stream, io, mparams, dr, geo,
-                          sel, mutate, obj, elitism, draw_steps);
+  return dispatch_multigen_ablate(ablate, [&](auto tag) {
+    return launch_with_smem(multigen_breed_kernel<false, float, decltype(tag)::value>,
+                            dim3(S, islands), MG_THREADS, (size_t)W * MG_ROW_BYTES,
+                            (cudaStream_t)stream, io, mparams, dr, geo, sel, mutate, obj,
+                            elitism, draw_steps);
+  });
 }

@@ -444,6 +444,16 @@ class PGA:
             self._runs[key] = (fn, per_launch)
         return self._runs[key]
 
+    def _check_elitism(self, size: int) -> None:
+        """Elites are the top ``elitism`` rows of a population, so a run
+        of ``size`` rows takes at most ``size`` of them (JAX's
+        ``lax.top_k`` raises past that; ``elitism == size`` copies the
+        population unchanged in both packages)."""
+        if self.config.elitism > size:
+            raise ValueError(
+                f"elitism {self.config.elitism} exceeds the population size {size}"
+            )
+
     def run(
         self,
         n: int,
@@ -466,6 +476,7 @@ class PGA:
         self._require_objective()
         handle = population or PopulationHandle(0)
         pop = self._populations[handle.index]
+        self._check_elitism(pop.size)
         fn, per_launch = self._run_fn(pop.size, pop.genome_len)
         genomes, scores, gens = fn(pop.genomes, int(n), target, self.generator)
         self._populations[handle.index] = Population(genomes=genomes, scores=scores)
@@ -636,6 +647,7 @@ class PGA:
         if not self._populations:
             raise RuntimeError("no populations")
         obj = self._require_objective()
+        self._check_elitism(min(p.size for p in self._populations))
         if len({(p.size, p.genome_len) for p in self._populations}) != 1:
             return self._run_islands_hetero(n, m, pct, target)
         stacked = torch.stack([p.genomes for p in self._populations])

@@ -40,10 +40,32 @@ PGA_FIELDS = {
     "selection_param": "selection_param",
     "mutation_rate": "mutation_rate",
     "elitism": "elitism",
+    "max_populations": "max_populations",
+    "migration_topology": "migration_topology",
     "seed": "seed",
     "deme_size": "pallas_deme_size",
     "generations_per_launch": "pallas_generations_per_launch",
     "layout": "pallas_layout",
+}
+# JAX fields carried under another form: use_pallas -> use_deme_kernel,
+# gene_dtype by its name.
+CONVERTED_FIELDS = ("use_pallas", "gene_dtype")
+# JAX fields accepted whatever their value, and why.
+ACCEPTED_FIELDS = {
+    "donate_buffers": "no port meaning: the run loops breed into the other of two"
+                      " buffers, so there is no buffer to donate",
+    "fallback": "the port has no fallback path: a failed kernel build or launch always"
+                " raises, which is JAX's 'raise'; JAX's default 'xla' degrade has no"
+                " counterpart (a degrade policy belongs to ROADMAP Queue A item 3,"
+                " robustness)",
+}
+# JAX fields the port lacks: (the values that mean "off", the ROADMAP item
+# that ports them). Any other value raises NotImplementedError.
+UNPORTED_FIELDS = {
+    "pop_shards": ((1,), "ROADMAP Queue A item 6 (sharding)"),
+    "pallas_subblock": ((None, 1), "ROADMAP Queue B item 8 (the sub-block pipeline)"),
+    "telemetry": ((None,), "ROADMAP Queue A item 3 (run state: telemetry)"),
+    "validate": ((False,), "ROADMAP Queue A item 3 (run state: validation)"),
 }
 
 
@@ -53,7 +75,14 @@ def pga_config_from_fields(obj, device: str = "cuda") -> PGAConfig:
     ``pallas_generations_per_launch`` and ``pallas_layout`` lose their
     prefix, ``use_pallas`` (None = auto) becomes ``use_deme_kernel``
     (True unless False), and ``gene_dtype`` maps by its name ("float32",
-    "bfloat16"; float32 where ``obj`` has none)."""
+    "bfloat16"; float32 where ``obj`` has none). ``ACCEPTED_FIELDS`` are
+    read past with the reason given there; a field of
+    ``UNPORTED_FIELDS`` set to anything but "off" raises
+    ``NotImplementedError`` naming the ROADMAP item that ports it."""
+    for name, (off, item) in UNPORTED_FIELDS.items():
+        value = getattr(obj, name, off[0])
+        if not any(value is v or value == v for v in off):
+            raise NotImplementedError(f"{name}={value!r} is not ported yet: {item}")
     kw = {ours: getattr(obj, theirs) for ours, theirs in PGA_FIELDS.items()}
     dt = getattr(obj, "gene_dtype", "float32")
     return PGAConfig(

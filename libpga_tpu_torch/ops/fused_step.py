@@ -144,6 +144,77 @@ def _expression_hooked(kw: dict) -> bool:
             or kw.get("objective") is not None)
 
 # ---------------------------------------------------------------------
+# The floor harness's ablation flags (copied from
+# libpga_tpu/ops/pallas_step.py:83-117; csrc/deme_breed.cu, "The floor
+# harness", gives each flag's meaning on the card)
+# ---------------------------------------------------------------------
+
+VALID_ABLATE = frozenset({
+    "copy_only",       # pure-copy kernel (floor harness)
+    "no_riffle",       # contiguous deme-major output layout
+    "alias_io",        # in-place output over the input buffer
+    "serial_grid",     # "arbitrary" grid dimension semantics
+    "no_rank_sort",    # skip the host-side rank sort (copy variants)
+    "no_score_t",      # skip the score transpose in padded_ranks
+    "scatter_scores",  # pre-round-5 per-deme score stores
+    "sel_const",       # identity selection (no sampling/one-hot build)
+    "no_matmul",       # skip the parent-gather matmul
+    "no_cross",        # skip crossover
+    "no_mut",          # skip mutation
+    "no_freeze",       # multigen: disable the target-freeze predicate
+    "no_rank_cube",    # multigen: identity in-kernel ranks
+})
+# Flags that change the output layout: riffle instruments.
+LAYOUT_ABLATE = frozenset({
+    "copy_only", "no_riffle", "alias_io", "no_score_t", "scatter_scores",
+})
+STAGE_ABLATE = frozenset({"sel_const", "no_matmul", "no_cross", "no_mut"})
+MULTIGEN_ABLATE = frozenset({"no_freeze", "no_rank_cube"})
+# Flags without a meaning on the card, and why.
+NO_CUDA_MEANING = {
+    "serial_grid": "CUDA blocks have no grid dimension semantics to choose",
+    "no_score_t": "each score is stored at its child's row, so there is no score"
+                  " transpose to skip",
+    "scatter_scores": "per-child score stores are already the production path",
+}
+
+
+def validate_ablate(ablate, multigen: bool = False) -> tuple:
+    """``ablate`` as a tuple, checked: an unknown name raises ValueError
+    naming the valid set (JAX's ``_validate_ablate``); so do a flag
+    without a meaning on the card (``NO_CUDA_MEANING``), a
+    multi-generation flag in a one-generation breed (``multigen``
+    False) or a copy, row-map or host flag in a multi-generation one,
+    and ``alias_io`` without ``copy_only`` and ``no_riffle`` (a breeding
+    warp would overwrite a parent row another warp of its block still
+    reads)."""
+    ablate = tuple(ablate)
+    flags = set(ablate)
+    unknown = sorted(flags - VALID_ABLATE)
+    if unknown:
+        raise ValueError(
+            f"unknown ablation flag(s) {unknown}; valid flags are {sorted(VALID_ABLATE)}"
+        )
+    for flag in sorted(flags & set(NO_CUDA_MEANING)):
+        raise ValueError(f"ablation flag {flag!r} has no meaning on the card:"
+                         f" {NO_CUDA_MEANING[flag]}")
+    if multigen and flags - STAGE_ABLATE - MULTIGEN_ABLATE:
+        raise ValueError(
+            f"ablation flag(s) {sorted(flags - STAGE_ABLATE - MULTIGEN_ABLATE)} are"
+            " one-generation only: the multi-generation kernel has no copy, row-map or"
+            " host rank-sort case"
+        )
+    if not multigen and flags & MULTIGEN_ABLATE:
+        raise ValueError(f"ablation flag(s) {sorted(flags & MULTIGEN_ABLATE)} are"
+                         " the multi-generation kernel's")
+    if "alias_io" in flags and not {"copy_only", "no_riffle"} <= flags:
+        raise ValueError("alias_io requires copy_only and no_riffle: in place, a breeding"
+                         " warp would overwrite a parent row another warp still reads, and"
+                         " the riffle writes rows other blocks read")
+    return ablate
+
+
+# ---------------------------------------------------------------------
 # Geometry (copied from libpga_tpu/ops/pallas_step.py:185-372, 1701-1932)
 # ---------------------------------------------------------------------
 
@@ -321,7 +392,9 @@ def multigen_d_default(gene_dtype=torch.float32) -> int:
 class Geometry:
     """Resolved breed geometry. ``G`` demes of ``K`` rows over ``Pp``
     padded rows; ``D`` demes per group (ping-pong: ``S`` groups of
-    ``W = D*K`` rows, parity-1 comb quantum ``q``)."""
+    ``W = D*K`` rows, parity-1 comb quantum ``q``). ``layout`` is
+    "pingpong", "riffle" or, for the floor harness's ``no_riffle``,
+    "contig" (the riffle's cohorts, child k of deme g at row g*K + k)."""
 
     layout: str
     P: int
@@ -344,8 +417,9 @@ class Geometry:
         return 2 if self.layout == "pingpong" else 1
 
     def mode(self, parity: int) -> int:
-        """Row-map id the kernel takes: 0/1 ping-pong parity, 2 riffle."""
-        return 2 if self.layout == "riffle" else parity
+        """Row-map id the kernel takes: 0/1 ping-pong parity, 2 riffle, 3
+        contiguous."""
+        return {"riffle": 2, "contig": 3}.get(self.layout, parity)
 
     def row_maps(self, parity: int, device) -> tuple:
         """``(read, write)`` int64 tensors of shape (G, K): the physical
@@ -354,7 +428,9 @@ class Geometry:
         key = (self.mode(parity), str(device))
         if key not in self._maps:
             K, G = self.K, self.G
-            if self.layout == "riffle":
+            if self.layout == "contig":
+                read = write = np.arange(self.Pp, dtype=np.int64)
+            elif self.layout == "riffle":
                 read = np.arange(self.Pp, dtype=np.int64)
                 write = (
                     np.arange(K, dtype=np.int64)[None, :] * G
@@ -387,6 +463,7 @@ def resolve_geometry(
     demes_per_step: Optional[int] = None,
     const_carrying: bool = False,
     gene_dtype=torch.float32,
+    ablate: Sequence[str] = (),
 ) -> Optional[Geometry]:
     """What ``make_pallas_breed`` (or, with ``multigen``,
     ``make_pallas_multigen``) would build for ``gene_dtype`` genes
@@ -413,7 +490,10 @@ def resolve_geometry(
     crossover is (JAX's ``_kernel_shape`` admits callable kinds).
     ``const_carrying`` (a fused objective with kernel constants: NK,
     knapsack) takes JAX's deme default of 256 rows and demes-per-step
-    default of 16.
+    default of 16. A layout flag of the floor harness in ``ablate``
+    (``LAYOUT_ABLATE``) pins the riffle, as ``_resolve_layout`` does
+    (``layout="pingpong"`` then raises); with ``no_riffle`` the riffle's
+    cohorts take the contiguous row map ("contig").
 
     None where the JAX factory declines (tournament size outside 1..16,
     under 128 rows, only degenerate padded fits, no K whose order
@@ -471,6 +551,15 @@ def resolve_geometry(
     D = next((d for d in d_candidates if d <= (demes_per_step or d_default)), 1)
     riffle = Geometry("riffle", pop_size, genome_len, K, G, D, Pp, q)
     explicit = layout == "pingpong"
+    if set(ablate) & LAYOUT_ABLATE:
+        if explicit:
+            raise ValueError(
+                "layout='pingpong' is not available here: layout ablation flags"
+                f" {sorted(set(ablate) & LAYOUT_ABLATE)} are riffle instruments"
+            )
+        if "no_riffle" in ablate:
+            return Geometry("contig", pop_size, genome_len, K, G, D, Pp, q)
+        return riffle
     if layout == "riffle" or not (explicit or fused or multigen):
         return riffle
     if multigen and Pp != pop_size and elitism > 0:
@@ -781,6 +870,7 @@ def breed_children(
     mparams: torch.Tensor,
     elite_rows: int = 0,
     crossover="uniform",
+    ablate: Sequence[str] = (),
 ) -> torch.Tensor:
     """Breed the K children of each of N demes: the torch counterpart of
     ``_deme_child`` (uniform, order or expression crossover; point,
@@ -793,7 +883,12 @@ def breed_children(
     per-deme elites; order crossover is not the identity on equal
     parents, so the elite child is set to parent 1 after the walk).
     Returns (N, K, L) float32: a bfloat16 breed widens its cohorts first
-    and rounds the children where it stores them."""
+    and rounds the children where it stores them.
+
+    ``ablate`` takes the floor harness's stage flags (JAX's ``_deme_child``
+    branches): ``sel_const`` and ``no_matmul`` make child k's parents
+    slot k's row, ``no_cross`` makes the child parent 1, ``no_mut``
+    mutates nothing."""
     N, K, L = cohorts.shape
     dev = cohorts.device
     rate, sigma = mparams[0], mparams[1]
@@ -810,9 +905,14 @@ def breed_children(
         1, ranks.to(torch.int64), row.expand(N, K)
     )
     n = torch.arange(N, device=dev)[:, None]
-    p1 = cohorts[n, torch.gather(row_of_rank, 1, wr[..., 0])]
-    p2 = cohorts[n, torch.gather(row_of_rank, 1, wr[..., 1])]
-    if is_expression(crossover):
+    if {"sel_const", "no_matmul"} & set(ablate):
+        p1 = p2 = cohorts
+    else:
+        p1 = cohorts[n, torch.gather(row_of_rank, 1, wr[..., 0])]
+        p2 = cohorts[n, torch.gather(row_of_rank, 1, wr[..., 1])]
+    if "no_cross" in ablate:
+        child = p1
+    elif is_expression(crossover):
         r, r2, q, q2 = _expr_inputs(draws, 0, N * K, L)
         child = crossover.kernel_rows(
             p1.reshape(N * K, L), p2.reshape(N * K, L), r, r2, q, q2, true_len=L,
@@ -830,6 +930,8 @@ def breed_children(
     if elite_rows:
         child = torch.where(elite, p1, child)
         may_mutate = may_mutate & (row >= elite_rows)[None, :]
+    if "no_mut" in ablate:
+        return child
     cols = torch.arange(L, device=dev)
     u = draws.mut_u
     if is_expression(mutate):
@@ -959,6 +1061,9 @@ def deme_breed_reference(
     coords: Optional[torch.Tensor] = None,
     penalty: float = 0.0,
     objective: Optional[Callable] = None,
+    ablate: Sequence[str] = (),
+    demes_per_block: int = 1,
+    warps_per_block: int = 0,
 ):
     """The plain version of the deme-breed kernels (uniform crossover:
     ``deme_breed_kernel``; order crossover: ``order_breed_kernel``; an
@@ -980,25 +1085,41 @@ def deme_breed_reference(
     with a leading island axis breed every island's demes as the demes
     of one population (island i's deme g is deme i*G + g) and give
     ``(children (I, Pp, L), scores (I, Pp) or None)``: island i's rows
-    are what the single-population breed of island i's tensors gives."""
+    are what the single-population breed of island i's tensors gives.
+
+    ``ablate`` (the floor harness, uniform crossover): with ``copy_only``
+    every cohort row is copied to its child's row, ``ranks`` holds the
+    float32 score each copied row is handed (the scores themselves under
+    ``no_rank_sort``) and ``draws`` is not read (``demes_per_block``
+    and ``warps_per_block``, the kernel's block shape, change nothing
+    here; ``out`` may be ``genomes``); the stage flags go to
+    :func:`breed_children`."""
+    del demes_per_block, warps_per_block
     read, write = geom.row_maps(parity, genomes.device)
     lead, Pp, L = genomes.shape[:-2], geom.Pp, geom.L
     n = genomes[..., 0, 0].numel()
-    valid = torch.clamp((read < geom.P).sum(dim=1), min=1).to(torch.float32).repeat(n)
-    child = breed_children(
-        genomes.reshape(n, Pp, L)[:, read].reshape(-1, geom.K, L).float(), ranks, valid,
-        draws.flat() if lead else draws,
-        tournament_size=tournament_size, selection=selection,
-        selection_param=selection_param, mutate=mutate, mparams=mparams,
-        crossover=crossover,
-    ).to(genomes.dtype)
+    cohorts = genomes.reshape(n, Pp, L)[:, read].reshape(-1, geom.K, L)
+    copy = "copy_only" in ablate
+    if copy:
+        child = cohorts
+    else:
+        valid = torch.clamp((read < geom.P).sum(dim=1), min=1).to(torch.float32).repeat(n)
+        child = breed_children(
+            cohorts.float(), ranks, valid, draws.flat() if lead else draws,
+            tournament_size=tournament_size, selection=selection,
+            selection_param=selection_param, mutate=mutate, mparams=mparams,
+            crossover=crossover, ablate=ablate,
+        ).to(genomes.dtype)
     if out is None:
         out = torch.empty_like(genomes)
     out.view(n, Pp, L)[:, write.reshape(-1)] = child.reshape(n, -1, L)
     if obj_id == FUSED_NONE and objective is None:
         return out, None
-    s = fused_scores(obj_id, child.float(), coords, penalty, objective).reshape(
-        n, geom.G, geom.K)
+    if copy:
+        s = ranks.reshape(n, geom.G, geom.K)
+    else:
+        s = fused_scores(obj_id, child.float(), coords, penalty, objective).reshape(
+            n, geom.G, geom.K)
     s = torch.where(write >= geom.P, -torch.inf, s)
     scores = torch.empty(lead + (Pp,), device=genomes.device)
     scores.view(n, Pp)[:, write.reshape(-1)] = s.reshape(n, -1)
@@ -1025,8 +1146,11 @@ def deme_breed(
     ``seed`` (int64 tensor of one element: production Philox mode) or
     ``draws`` (injected mode) is given. ``islands`` = I breeds I
     populations in one launch of that kernel (see
-    :func:`deme_breed_reference`; one seed per island, (I,))."""
-    if (seed is None) == (draws is None):
+    :func:`deme_breed_reference`; one seed per island, (I,)). The floor
+    harness's copy (``kw["ablate"]`` with ``copy_only``) draws nothing
+    and takes neither."""
+    copy = "copy_only" in kw.get("ablate", ())
+    if (seed is None) == (draws is None) and not copy:
         raise ValueError("pass exactly one of seed= or draws=")
     if genomes.is_cuda:
         if _expression_hooked(kw):
@@ -1039,7 +1163,7 @@ def deme_breed(
             genomes, ranks, geom, parity, seed=seed, draws=draws, out=out, islands=islands,
             **kw,
         )
-    if draws is None:
+    if draws is None and not copy:
         draw = philox_draws if islands is None else island_philox_draws
         draws = draw(
             seed, geom.G, geom.K, geom.L, kw.get("mutate", "point"),
@@ -1070,6 +1194,7 @@ def multigen_breed_reference(
     out: Optional[torch.Tensor] = None,
     crossover="uniform",
     objective: Optional[Callable] = None,
+    ablate: Sequence[str] = (),
 ):
     """The plain version of the multi-generation kernels
     (``multigen_breed_kernel``; with an expression crossover, mutation
@@ -1109,7 +1234,12 @@ def multigen_breed_reference(
     (I,) one per island, or injected ``draws`` (I, T, ...): every
     island's groups breed as the groups of one population, and island
     i's rows are what the single-population launch of island i's
-    tensors gives."""
+    tensors gives.
+
+    ``ablate`` (the floor harness, uniform crossover): ``no_freeze``
+    freezes no group, ``no_rank_cube`` ranks every deme in slot order
+    (rank r is slot r), and the stage flags go to
+    :func:`breed_children`."""
     if (seed is None) == (draws is None):
         raise ValueError("pass exactly one of seed= or draws=")
     if objective is None and obj_id not in ROWWISE_FUSED:
@@ -1125,17 +1255,23 @@ def multigen_breed_reference(
     for t in range(int(steps)):
         best = torch.where(alive, s, -torch.inf).reshape(n * geom.S, D * K).amax(dim=1)
         frozen = (best >= target).repeat_interleave(D)[:, None]  # (n*G, 1); NaN: False
+        if "no_freeze" in ablate:
+            frozen = torch.zeros_like(frozen)
         if draws is not None:
             d = draws.at(t, axis=1).flat() if lead else draws.at(t)
         else:
             draw = philox_draws if not lead else island_philox_draws
             d = draw(seed, G, K, L, mutate, crossover, sub_generation=t, tie=True)
             d = d.flat() if lead else d
+        if "no_rank_cube" in ablate:  # rank r is slot r
+            ranks = torch.arange(K, device=s.device, dtype=torch.int32).repeat(n * G, 1)
+        else:
+            ranks = kernel_ranks(s, d.tie, alive)
         child = breed_children(
-            g.float(), kernel_ranks(s, d.tie, alive), valid, d,
+            g.float(), ranks, valid, d,
             tournament_size=tournament_size, selection=selection,
             selection_param=selection_param, mutate=mutate, mparams=mparams,
-            elite_rows=elitism, crossover=crossover,
+            elite_rows=elitism, crossover=crossover, ablate=ablate,
         ).to(g.dtype)
         stored = child.float()
         if objective is not None:
@@ -1201,10 +1337,22 @@ def carry_elites(g_prev, s_prev, g2, s2, elitism: int) -> None:
 # ---------------------------------------------------------------------
 
 
+def _refuse_ablate_hooks(ablate, crossover, mutate, expr_obj) -> None:
+    """The floor harness's cases are the builtin kernels' (uniform
+    crossover, builtin mutation and objective), as JAX's harness reaches
+    them."""
+    if ablate and (is_expression(crossover) or is_expression(mutate)
+                   or expr_obj is not None or crossover != "uniform"):
+        raise NotImplementedError(
+            "ablate= with an expression hook or order crossover is not ported yet:"
+            " ROADMAP Queue B item 7 lists those cases"
+        )
+
+
 def make_fused_breed(
     pop_size: int,
     genome_len: int,
-    objective: Callable,
+    objective: Optional[Callable],
     *,
     deme_size: Optional[int] = None,
     tournament_size: int = 2,
@@ -1217,6 +1365,9 @@ def make_fused_breed(
     layout: Optional[str] = None,
     device="cuda",
     gene_dtype=torch.float32,
+    ablate: Sequence[str] = (),
+    demes_per_block: int = 1,
+    warps_per_block: int = 0,
 ):
     """One generation of the deme path for a fixed shape and objective,
     the counterpart of ``make_pallas_breed``'s breed: ranks, one launch
@@ -1235,7 +1386,22 @@ def make_fused_breed(
     ``breed(genomes (Pp, L), scores (Pp,), parity, generator, out=None)
     -> (genomes, scores)``, both in physical row order; children go into
     ``out`` when given (never ``genomes`` itself). ``breed.geom`` is the
-    geometry."""
+    geometry.
+
+    The floor harness (``libpga_tpu_torch/tools/ablate_floor.py``; JAX's
+    ``make_pallas_breed(_ablate=...)``): ``objective`` None breeds
+    without scoring (JAX's ``fused_obj=None``; the breed returns
+    ``(children, None)``), and ``ablate`` (flags of ``VALID_ABLATE``,
+    checked by :func:`validate_ablate`; builtin uniform crossover only)
+    launches an ablated case. ``copy_only`` copies every row to its
+    child's row, ``demes_per_block`` demes and ``warps_per_block`` warps
+    (0: the breed's 8) per block of the kernel, each copied row handed
+    the deme ranks as its score (the scores under ``no_rank_sort``);
+    ``no_riffle`` takes the contiguous row map and
+    ``alias_io`` copies in place; ``no_rank_sort`` skips the rank sort
+    (the breeding cases then get slot-order ranks); the stage flags
+    remove a part of the breed."""
+    ablate = validate_ablate(ablate)
     obj_id = getattr(objective, "fused_id", FUSED_NONE)
     expr_obj = getattr(objective, "expr_fused", None)
     if expr_obj is not None:
@@ -1249,6 +1415,13 @@ def make_fused_breed(
                 f"expression {op.expression!r} uses length-{pin} vector constants but"
                 f" the population genome length is {genome_len}"
             )
+    _refuse_ablate_hooks(ablate, crossover, mutate, expr_obj)
+    copy = "copy_only" in ablate
+    if (demes_per_block != 1 or warps_per_block) and not copy:
+        raise ValueError("demes_per_block and warps_per_block are the copy's"
+                         " (ablate copy_only)")
+    if elitism and objective is None:
+        raise ValueError("a breed without an objective scores nothing to carry elites by")
     geom = resolve_geometry(
         pop_size, genome_len, deme_size=deme_size,
         tournament_size=tournament_size, selection=selection,
@@ -1256,7 +1429,7 @@ def make_fused_breed(
         fused=obj_id != FUSED_NONE or expr_obj is not None,
         crossover=crossover, layout=layout,
         const_carrying=bool(getattr(expr_obj, "kernel_rowwise_consts", ())),
-        gene_dtype=gene_dtype,
+        gene_dtype=gene_dtype, ablate=ablate,
     )
     if geom is None:
         raise ValueError(
@@ -1275,16 +1448,31 @@ def make_fused_breed(
         kw.update(coords=objective.coords.to(device), penalty=objective.penalty)
     if expr_obj is not None:
         kw.update(objective=expr_obj)
+    if ablate:
+        kw.update(ablate=ablate, demes_per_block=demes_per_block,
+                  warps_per_block=warps_per_block)
+    slot_ranks = {}  # no_rank_sort's ranks of the breeding cases, per device
 
     def breed(genomes, scores, parity, generator, out=None):
-        tie = draw_tie_words(generator, geom.Pp, genomes.device)
-        ranks = compute_ranks(scores, geom, parity, tie)
-        seed = torch.randint(
-            0, 2**63 - 1, (1,), generator=generator, device=genomes.device,
+        dev = genomes.device
+        if "alias_io" in ablate:
+            out = genomes
+        if "no_rank_sort" not in ablate:
+            ranks = compute_ranks(scores, geom, parity, draw_tie_words(generator, geom.Pp, dev))
+            ranks = ranks.float() if copy else ranks
+        elif copy:
+            ranks = scores.view(geom.G, geom.K)
+        else:
+            if dev not in slot_ranks:
+                slot_ranks[dev] = torch.arange(
+                    geom.K, device=dev, dtype=torch.int32).repeat(geom.G, 1)
+            ranks = slot_ranks[dev]
+        seed = None if copy else torch.randint(
+            0, 2**63 - 1, (1,), generator=generator, device=dev,
         )
         g2, s2 = deme_breed(genomes, ranks, geom, parity, seed=seed, out=out, **kw)
-        if s2 is None:
-            s2 = torch.full((geom.Pp,), -torch.inf, device=genomes.device)
+        if s2 is None and objective is not None:
+            s2 = torch.full((geom.Pp,), -torch.inf, device=dev)
             s2[: geom.P] = evaluate(objective, g2[: geom.P])
         if elitism:
             carry_elites(genomes, scores, g2, s2, elitism)
@@ -1344,6 +1532,7 @@ def make_fused_multigen(
     layout: Optional[str] = None,
     device="cuda",
     gene_dtype=torch.float32,
+    ablate: Sequence[str] = (),
 ):
     """The multi-generation breed for a fixed shape and objective, the
     counterpart of ``make_pallas_multigen`` (``gene_dtype``: the genomes'
@@ -1360,7 +1549,13 @@ def make_fused_multigen(
     rowwise fused form nor an expression form (the coordinate TSP's
     fused score is gene-major, not rowwise), the geometry declines (for
     order crossover: no K whose walk scratch fits the multi-generation
-    model), or ``elitism >= K // 4``."""
+    model), or ``elitism >= K // 4``.
+
+    ``ablate`` (the floor harness; JAX's ``make_pallas_multigen(_ablate=
+    ...)``, builtin uniform crossover only): ``no_freeze``,
+    ``no_rank_cube`` or a stage flag, checked by
+    :func:`validate_ablate`."""
+    ablate = validate_ablate(ablate, multigen=True)
     expr_obj = getattr(objective, "expr_fused", None)
     obj_id = FUSED_NONE if expr_obj is not None else getattr(objective, "fused_id", FUSED_NONE)
     if expr_obj is None and obj_id not in ROWWISE_FUSED:
@@ -1372,6 +1567,7 @@ def make_fused_multigen(
                 f"expression {op.expression!r} uses length-{pin} vector constants but"
                 f" the population genome length is {genome_len}"
             )
+    _refuse_ablate_hooks(ablate, crossover, mutate, expr_obj)
     geom = resolve_geometry(
         pop_size, genome_len, deme_size=deme_size,
         tournament_size=tournament_size, selection=selection,
@@ -1390,6 +1586,8 @@ def make_fused_multigen(
     )
     if expr_obj is not None:
         kw.update(objective=expr_obj)
+    if ablate:
+        kw.update(ablate=ablate)
 
     def launch(genomes, scores, parity, steps, target, generator, out=None, work=None):
         seed = torch.randint(

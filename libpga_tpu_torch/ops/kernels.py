@@ -28,7 +28,11 @@ an island launch of the expression kernels ("islands_expr",
 under the same name with "_bf16" appended ("pingpong_bf16",
 "riffle_bf16", "multigen_bf16", "expr_bf16", "expr_multigen_bf16",
 "islands_bf16", "islands_multigen_bf16", "islands_expr_bf16",
-"islands_expr_multigen_bf16"). A wrapper adds one where it launches its
+"islands_expr_multigen_bf16"). The floor harness's ablated launches
+(``ablate=`` of the deme and multi-generation wrappers) count apart, so
+none counts as a production launch: "ablate_copy" (the copy case),
+"ablate_breed" (every other ablated one-generation launch) and
+"ablate_multigen" (and "_bf16"). A wrapper adds one where it launches its
 kernel and nowhere else.
 
 Genomes (and the children, ``out`` and the multi-generation work
@@ -71,6 +75,8 @@ LAUNCHES = {
     "expr_bf16": 0, "expr_multigen_bf16": 0, "islands_bf16": 0, "islands_multigen_bf16": 0,
     "islands_expr": 0, "islands_expr_order": 0, "islands_expr_multigen": 0,
     "islands_expr_multigen_order": 0, "islands_expr_bf16": 0, "islands_expr_multigen_bf16": 0,
+    "ablate_copy": 0, "ablate_breed": 0, "ablate_multigen": 0, "ablate_copy_bf16": 0,
+    "ablate_breed_bf16": 0, "ablate_multigen_bf16": 0,
 }
 TEMPLATES = ("expr_breed",)  # sources built only with generated hooks in front
 
@@ -84,6 +90,14 @@ MULTIGEN_ROW_BYTES = 17  # their shared memory per group row (MG_ROW_BYTES)
 EXPR_MAX_WARPS = 8  # warps per block of expr_breed_kernel (THREADS / 32)
 EXPR_MULTIGEN_MAX_WARPS = 32  # of expr_multigen_kernel (MG_THREADS / 32)
 SMEM_BLOCK_BYTES = 232_448  # shared memory a block may use on Hopper
+# The floor harness's kernel flags and their bits (csrc/breed_core.cuh's
+# ABL_*); the other flags are the host's (fused_step.VALID_ABLATE). The
+# masks each kernel is built in (csrc/deme_breed.cu's dispatch_*_ablate).
+ABLATE_BITS = {"copy_only": 1, "sel_const": 2, "no_matmul": 4, "no_cross": 8, "no_mut": 16,
+               "no_freeze": 32, "no_rank_cube": 64}
+ABLATE_FLOOR = 2 | 4 | 8 | 16
+ABLATE_DEME_MASKS = (0, 1, 2, 4, 8, 16, ABLATE_FLOOR)
+ABLATE_MULTIGEN_MASKS = (0, 32, 64, 2, 4, 8, 16, ABLATE_FLOOR)
 
 _libs: dict = {}
 _expr_libs: dict = {}  # generated source -> built library path
@@ -200,6 +214,7 @@ def _bindings() -> dict:
                 i, i, i, i,             # mode, S, D, q
                 i, i, f,                # sel kind, tournament size, sel param
                 i, i, i, i,             # mutate kind, objective id, islands, gene dtype
+                ctypes.c_uint, i, i,    # ablate mask, demes and warps per block
                 p,                      # stream
             ], i),
             "order_breed_launch": ([
@@ -220,6 +235,7 @@ def _bindings() -> dict:
                 i, i, f,                # sel kind, tournament size, sel param
                 i, i, i, i,             # crossover kind, mutate kind, objective id, elitism
                 i, i, i,                # draw steps, islands, gene dtype
+                ctypes.c_uint,          # ablate mask
                 p,                      # stream
             ], i),
             "deme_breed_error_string": ([i], s),
@@ -300,6 +316,18 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def ablate_mask(ablate, masks: tuple, who: str) -> int:
+    """The kernel bitmask of the flags ``ablate`` (names; the host's
+    flags add nothing), which must be one of ``masks``, the cases the
+    kernel is built in."""
+    mask = sum(ABLATE_BITS.get(f, 0) for f in set(ablate))
+    if mask not in masks:
+        cases = [sorted(f for f, b in ABLATE_BITS.items() if m & b) for m in masks if m]
+        raise ValueError(f"{who} is not built with the flags {sorted(set(ablate))}: its"
+                         f" ablated cases are {cases}")
+    return mask
+
+
 def _check_genomes(genomes: torch.Tensor, shape, device, order: bool = False) -> int:
     """``genomes`` checked as :func:`_check` does, float32 or bfloat16
     (float32 only for ``order`` crossover); returns the launchers'
@@ -340,12 +368,21 @@ def deme_breed_cuda(
     obj_id: int = 0,
     crossover: str = "uniform",
     islands: Optional[int] = None,
+    ablate: tuple = (),
+    demes_per_block: int = 1,
+    warps_per_block: int = 0,
 ):
     """Launch ``deme_breed_kernel`` of ``csrc/deme_breed.cu`` on the
     current stream: the kernel counterpart of
     ``fused_step.deme_breed_reference`` (same arguments, uniform
     crossover; float32 or bfloat16 genomes, its float or bf16 case, the
-    children in the genomes' dtype).
+    children in the genomes' dtype). ``ablate`` (flags checked by
+    ``fused_step.validate_ablate``) launches a case of the floor harness:
+    with "copy_only" the copy, ``demes_per_block`` demes and
+    ``warps_per_block`` warps per block (0: the breed's 8), ``ranks``
+    then the float32 scores each copied row is handed (cohort order,
+    (G, K)) and ``out`` may be ``genomes`` under "alias_io"; the
+    stage flags, one at a time or all four.
     Production mode takes ``seed`` (int64, one element, on the card);
     injected mode takes ``draws``. ``islands`` = I breeds I populations
     in one launch: genomes and ``out`` (I, Pp, L), ranks (I*G, K), one
@@ -364,9 +401,16 @@ def deme_breed_cuda(
         raise ValueError(f"deme size {K} outside 1..1024")
     if not 1 <= tournament_size <= 16:
         raise ValueError(f"tournament_size {tournament_size} outside 1..16")
+    mask = ablate_mask(ablate, ABLATE_DEME_MASKS, "deme_breed_kernel")
+    copy = bool(mask & ABLATE_BITS["copy_only"])
+    if demes_per_block < 1 or G % demes_per_block or (demes_per_block > 1 and not copy):
+        raise ValueError(f"demes_per_block {demes_per_block}: the copy's, dividing G={G}")
+    if not 0 <= warps_per_block <= 8 or (warps_per_block and not copy):
+        raise ValueError(f"warps_per_block {warps_per_block}: the copy's, 1 to 8 (0: 8)")
     lead, n = _island_lead(islands)
     gene_id = _check_genomes(genomes, lead + (Pp, L), dev)
-    _check(ranks, "ranks", torch.int32, (n * G, K), dev)
+    _check(ranks, "handed scores" if copy else "ranks", torch.float32 if copy else torch.int32,
+           (n * G, K), dev)
     _check(mparams, "mparams", torch.float32, (2,), dev)
     if mutate not in MUTATE_IDS:
         raise ValueError(f"unknown mutate kind {mutate!r}")
@@ -374,10 +418,13 @@ def deme_breed_cuda(
     if out is None:
         out = torch.empty_like(genomes)
     _check(out, "out", genomes.dtype, lead + (Pp, L), dev)
-    if out.data_ptr() == genomes.data_ptr():
+    if out.data_ptr() == genomes.data_ptr() and not (copy and "alias_io" in ablate
+                                                      and geom.layout == "contig"):
         raise ValueError("out must not alias genomes: blocks read rows other blocks write")
     sel_u = cross = mut_u = gauss = None
-    if draws is not None:
+    if copy:
+        seed = draws = None  # the copy draws nothing
+    elif draws is not None:
         sel_u, cross, mut_u, gauss = draws.sel_u, draws.cross, draws.mut_u, draws.gauss
         _check(sel_u, "sel_u", torch.float32, lead + (G, K, 2), dev)
         _check(cross, "cross", torch.uint8, lead + (G, K, L), dev)
@@ -397,11 +444,14 @@ def deme_breed_cuda(
         geom.mode(parity), geom.S, geom.D, geom.q,
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
-        MUTATE_IDS[mutate], int(obj_id), n, gene_id,
-        torch.cuda.current_stream(dev).cuda_stream,
+        MUTATE_IDS[mutate], int(obj_id), n, gene_id, mask, int(demes_per_block),
+        int(warps_per_block), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "deme_breed")
-    _count(geom.layout if islands is None else "islands", genomes)
+    if ablate:
+        _count("ablate_copy" if copy else "ablate_breed", genomes)
+    else:
+        _count(geom.layout if islands is None else "islands", genomes)
     return out, scores
 
 
@@ -605,6 +655,7 @@ def multigen_breed_cuda(
     elitism: int = 0,
     crossover: str = "uniform",
     islands: Optional[int] = None,
+    ablate: tuple = (),
 ):
     """Launch ``multigen_breed_kernel`` of ``csrc/deme_breed.cu`` on the
     current stream: the kernel counterpart of
@@ -622,11 +673,17 @@ def multigen_breed_cuda(
     scores (Pp,))`` in physical row order. ``islands`` = I breeds I
     populations in one launch: genomes, scores, ``out`` and ``work``
     with a leading island axis (I, Pp, L) / (I, Pp), one seed per island
-    (I,), injected draws (I, T, ...). Raises on bad arguments or a
-    failed launch; never runs anything else in the kernel's place."""
+    (I,), injected draws (I, T, ...). ``ablate`` (uniform crossover; flags
+    checked by ``fused_step.validate_ablate``) launches a case of the
+    floor harness: no_freeze, no_rank_cube or a stage flag alone, or the
+    four stage flags. Raises on bad arguments or a failed launch; never
+    runs anything else in the kernel's place."""
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("multigen_breed_cuda needs CUDA tensors")
+    mask = ablate_mask(ablate, ABLATE_MULTIGEN_MASKS, "multigen_breed_kernel")
+    if ablate and crossover != "uniform":
+        raise ValueError("the floor harness's multigen cases breed uniform crossover")
     if crossover not in CROSS_IDS:
         raise ValueError(f"multigen_breed_cuda breeds uniform or order crossover, not {crossover!r}")
     if obj_id not in ROWWISE_FUSED:
@@ -655,11 +712,11 @@ def multigen_breed_cuda(
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
         CROSS_IDS[crossover], MUTATE_IDS[mutate], int(obj_id), int(elitism),
-        draw_steps, n, gene_id,
+        draw_steps, n, gene_id, mask,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "deme_breed")
-    key = "multigen_order" if order else "multigen"
+    key = "ablate_multigen" if ablate else "multigen_order" if order else "multigen"
     _count(key if islands is None else "islands_" + key, genomes)
     return out, s_out
 

@@ -186,3 +186,21 @@ def test_cpu_run_counts_breeds_but_launches_no_kernel():
     assert p.run(7) == 7 and p.run(3) == 3
     assert p.launches == 10
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("size,elitism", [(8, 20), (1024, 2000), (8, 8)])
+def test_elitism_above_the_population_size_raises_in_both(size, elitism):
+    """Elitism above the size raises ValueError in both packages (JAX:
+    ``lax.top_k``); ``elitism == size`` runs in both."""
+    jp = libpga_tpu.PGA(seed=0, config=libpga_tpu.PGAConfig(elitism=elitism))
+    jp.create_population(size, 16)
+    jp.set_objective("onemax")
+    p, _ = _port_onemax(0, size=size, genome_len=16,
+                        config=port.PGAConfig(device="cpu", elitism=elitism))
+    if elitism > size:
+        with pytest.raises(ValueError):
+            jp.run(2)
+        with pytest.raises(ValueError, match="exceeds the population size"):
+            p.run(2)
+    else:
+        assert jp.run(2) == p.run(2) == 2

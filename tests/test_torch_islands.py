@@ -312,3 +312,23 @@ def test_island_errors_and_the_population_cap():
         p.run_islands(5, 0, 0.1)
     with pytest.raises(ValueError):
         port.PGAConfig(device="cpu", migration_topology="star")
+
+
+@pytest.mark.parametrize("size,elitism", [(8, 20), (1024, 2000), (8, 8)])
+def test_island_elitism_above_the_island_size_raises_in_both(size, elitism):
+    """``run_islands`` raises ValueError in both packages where elitism
+    exceeds an island's size; ``elitism == size`` runs in both."""
+    jp = libpga_tpu.PGA(seed=0, config=libpga_tpu.PGAConfig(elitism=elitism))
+    p = port.pga_init(0, port.PGAConfig(device="cpu", elitism=elitism))
+    for _ in range(3):
+        jp.create_population(size, 16)
+        port.pga_create_population(p, size, 16)
+    jp.set_objective("onemax")
+    port.pga_set_objective_function(p, "onemax")
+    if elitism > size:
+        with pytest.raises(ValueError):
+            jp.run_islands(4, 2, 0.1)
+        with pytest.raises(ValueError, match="exceeds the population size"):
+            p.run_islands(4, 2, 0.1)
+    else:
+        assert jp.run_islands(4, 2, 0.1) == p.run_islands(4, 2, 0.1) == 4

@@ -1341,3 +1341,192 @@ def test_bf16_kernels_reject_bad_dtypes(cuda_device):
     with pytest.raises(ValueError, match="work"):
         kernels.multigen_breed_cuda(g, s, mg, 0, 3, math.inf,
                                     work=[torch.empty((mg.Pp, 20), device=cuda_device)], **kw)
+
+
+# ------------------------------------------------- the floor harness (B7)
+
+ABLATE_COPY = ("copy_only", "no_rank_sort")
+ABLATE_FLOOR = ("sel_const", "no_matmul", "no_cross", "no_mut")
+# (name, ablate, P, L, scored, demes_per_block, warps_per_block)
+ABLATE_VARIANTS = [
+    ("copy_riffle", ABLATE_COPY, 8192, 100, False, 1, 0),
+    ("copy_riffle_dc4", ABLATE_COPY, 8192, 100, False, 4, 0),
+    ("copy_riffle_dc4_w4", ABLATE_COPY, 8192, 100, False, 4, 4),
+    ("copy_contig_w1", ABLATE_COPY + ("no_riffle",), 1000, 100, True, 1, 1),
+    ("copy_contig", ABLATE_COPY + ("no_riffle",), 8192, 100, False, 2, 0),
+    ("copy_alias", ABLATE_COPY + ("no_riffle", "alias_io"), 8192, 100, False, 1, 0),
+    ("copy_riffle_score", ABLATE_COPY, 1000, 100, True, 1, 0),
+    ("copy_ranks_score", ("copy_only",), 8192, 100, True, 8, 0),
+    ("floor", ABLATE_FLOOR, 1000, 100, False, 1, 0),
+    ("floor_scored", ABLATE_FLOOR, 8192, 100, True, 1, 0),
+    ("sel_const", ("sel_const",), 8192, 100, True, 1, 0),
+    ("no_matmul", ("no_matmul",), 1000, 300, True, 1, 0),
+    ("no_cross", ("no_cross",), 8192, 100, True, 1, 0),
+    ("no_mut", ("no_mut",), 2100, 100, True, 1, 0),
+    ("no_riffle_breed", ("no_riffle",), 1000, 100, True, 1, 0),
+    ("no_rank_sort_breed", ("no_rank_sort", "no_mut"), 8192, 100, True, 1, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant", ABLATE_VARIANTS, ids=lambda v: v[0])
+def test_ablated_breed_equals_plain_on_card(cuda_device, variant, dtype):
+    """Each ablated case of deme_breed_kernel equals its plain version,
+    in production (Philox) and injected mode, every parity; a copy equals
+    its row permutation; the launches count apart from production."""
+    name, ablate, P, L, scored, dc, wb = variant
+    obj = onemax if scored else None
+    breed = fs.make_fused_breed(P, L, obj, ablate=ablate, demes_per_block=dc, warps_per_block=wb,
+                                device=cuda_device, gene_dtype=dtype,
+                                mparams=(0.3, 0.0), mutate="swap" if name == "no_mut" else "point")
+    geom, kw = breed.geom, breed.kw
+    gen = torch.Generator(device=cuda_device).manual_seed(P + L)
+    g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device).to(dtype)
+    s = g.float().sum(dim=1)
+    s[P:] = -torch.inf
+    copy = "copy_only" in ablate
+    before = dict(kernels.LAUNCHES)
+    for parity in range(geom.parities):
+        if copy:
+            handed = s.view(geom.G, geom.K) if "no_rank_sort" in ablate else fs.compute_ranks(
+                s, geom, parity, fs.draw_tie_words(gen, geom.Pp, cuda_device)).float()
+            src = g.clone()
+            out = src if "alias_io" in ablate else None
+            want = fs.deme_breed_reference(g, handed, geom, parity, None, **kw)
+            got = fs.deme_breed(src, handed, geom, parity, out=out, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0])
+            _, write = geom.row_maps(parity, cuda_device)
+            assert torch.equal(got[0][write.reshape(-1)], g)  # the row permutation
+            if scored:
+                assert torch.equal(got[1], want[1])
+            continue
+        ranks = fs.compute_ranks(s, geom, parity, fs.draw_tie_words(gen, geom.Pp, cuda_device))
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=cuda_device)
+        draws = fs.philox_draws(seed, geom.G, geom.K, L, kw["mutate"])
+        want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
+        for got in (fs.deme_breed(g, ranks, geom, parity, seed=seed, **kw),
+                    fs.deme_breed(g, ranks, geom, parity, draws=draws, **kw)):
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0])
+            if scored:
+                torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-3)
+            else:
+                assert got[1] is None
+    key = ("ablate_copy" if copy else "ablate_breed") + ("_bf16" if dtype == torch.bfloat16 else "")
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    assert launched == {key: geom.parities * (1 if copy else 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ablate_zero_is_the_production_kernel(cuda_device, dtype):
+    """A factory given ``ablate=()`` launches the production instantiation
+    (ABLATE = 0), counts it as production, and breeds what the plain
+    version breeds (the plain version at ablate () is held unchanged
+    against JAX on the CPU): genomes bit for bit in Philox and injected
+    draws, every parity."""
+    P, L = 8192, 100
+    breed = fs.make_fused_breed(P, L, onemax, device=cuda_device, gene_dtype=dtype, ablate=(),
+                                mparams=(0.3, 0.0))
+    geom, kw = breed.geom, breed.kw
+    assert "ablate" not in kw
+    key = geom.layout + ("_bf16" if dtype == torch.bfloat16 else "")
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device).to(dtype)
+    s = g.float().sum(dim=1)
+    s[P:] = -torch.inf
+    for parity in range(geom.parities):
+        ranks = fs.compute_ranks(s, geom, parity, fs.draw_tie_words(gen, geom.Pp, cuda_device))
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=cuda_device)
+        draws = fs.philox_draws(seed, geom.G, geom.K, L, kw["mutate"])
+        want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
+        for mode in (dict(seed=seed), dict(draws=draws)):
+            before = dict(kernels.LAUNCHES)
+            got = fs.deme_breed(g, ranks, geom, parity, **mode, **kw)
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+            assert launched == {key: 1}
+            assert torch.equal(got[0], want[0])
+            torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-3)
+    before = kernels.LAUNCHES[key]
+    breed(g, s, 0, gen)
+    assert kernels.LAUNCHES[key] == before + 1
+
+
+# (ablate, P, L, layout, elitism, target, dtype)
+ABLATE_MULTIGEN_VARIANTS = [
+    (("no_freeze",), 40_000, 100, None, 2, 55.0, torch.float32),
+    (("no_rank_cube",), 40_000, 100, None, 2, None, torch.float32),
+    (("no_freeze",), 65_536, 100, None, 0, 60.0, torch.bfloat16),
+    (("no_rank_cube",), 65_536, 100, None, 0, None, torch.bfloat16),
+    (("sel_const",), 8192, 100, None, 2, None, torch.float32),
+    (("no_matmul",), 8192, 100, "riffle", 2, None, torch.float32),
+    (("no_cross",), 1000, 100, None, 0, 60.0, torch.float32),
+    (("no_mut",), 8192, 100, None, 2, None, torch.bfloat16),
+    (ABLATE_FLOOR, 8192, 100, None, 2, None, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ABLATE_MULTIGEN_VARIANTS,
+                         ids=lambda v: f"{'+'.join(v[0])}-{v[1]}-{v[6]}")
+def test_ablated_multigen_equals_plain_on_card(cuda_device, variant):
+    """Each ablated case of multigen_breed_kernel<false> equals its plain
+    version at 3 steps, in production and injected mode, every parity;
+    the launches count as "ablate_multigen"."""
+    ablate, P, L, layout, e, target, dtype = variant
+    launch = fs.make_fused_multigen(P, L, onemax, layout=layout, elitism=e, ablate=ablate,
+                                    device=cuda_device, gene_dtype=dtype, mparams=(0.3, 0.0))
+    geom, kw = launch.geom, launch.kw
+    gen = torch.Generator(device=cuda_device).manual_seed(P)
+    g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device).to(dtype)
+    s = torch.full((geom.Pp,), -torch.inf, device=cuda_device)
+    s[:P] = g[:P].float().sum(dim=1)
+    steps, G, K = 3, geom.G, geom.K
+    injected = fs.Draws(
+        sel_u=torch.rand((steps, G, K, 2), generator=gen, device=cuda_device),
+        cross=(torch.rand((steps, G, K, L), generator=gen, device=cuda_device) < 0.5).to(
+            torch.uint8),
+        mut_u=torch.rand((steps, G, K, 4), generator=gen, device=cuda_device),
+        tie=torch.randint(0, 2**32, (steps, G, K), generator=gen, device=cuda_device),
+    )
+    key = "ablate_multigen" + ("_bf16" if dtype == torch.bfloat16 else "")
+    for parity in range(geom.parities):
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=cuda_device)
+        for mode in (dict(seed=seed), dict(draws=injected)):
+            before = kernels.LAUNCHES[key]
+            got = fs.multigen_breed(g, s, geom, parity, steps, target, **mode, **kw)
+            assert kernels.LAUNCHES[key] == before + 1
+            want = fs.multigen_breed_reference(
+                g, s, geom, parity, steps, math.inf if target is None else target, **mode, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_ablated_kernels_reject_bad_arguments(cuda_device):
+    geom = fs.resolve_geometry(8192, 100, ablate=("copy_only",))
+    g = torch.rand((geom.Pp, 100), device=cuda_device)
+    s = g.sum(dim=1).view(geom.G, geom.K)
+    mp = torch.tensor([0.01, 0.0], device=cuda_device)
+    with pytest.raises(ValueError, match="alias"):  # in place needs no_riffle
+        kernels.deme_breed_cuda(g, s, geom, 0, out=g, mparams=mp, ablate=("copy_only", "alias_io"))
+    with pytest.raises(ValueError, match="handed scores"):
+        kernels.deme_breed_cuda(g, s.int(), geom, 0, mparams=mp, ablate=("copy_only",))
+    with pytest.raises(ValueError, match="demes_per_block"):
+        kernels.deme_breed_cuda(g, s, geom, 0, mparams=mp, ablate=("copy_only",),
+                                demes_per_block=3)
+    with pytest.raises(ValueError, match="warps_per_block"):
+        kernels.deme_breed_cuda(g, s, geom, 0, mparams=mp, ablate=("copy_only",),
+                                warps_per_block=9)
+    ranks = torch.zeros((geom.G, geom.K), dtype=torch.int32, device=cuda_device)
+    seed = torch.tensor([1], dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="ablated cases"):
+        kernels.deme_breed_cuda(g, ranks, geom, 0, seed=seed, mparams=mp,
+                                ablate=("no_mut", "no_cross"))
+    mg = fs.resolve_geometry(8192, 100, multigen=True)
+    with pytest.raises(ValueError, match="ablated cases"):
+        kernels.multigen_breed_cuda(g, g.sum(dim=1), mg, 0, 1, math.inf, seed=seed, mparams=mp,
+                                    obj_id=onemax.fused_id, ablate=("copy_only",))
