@@ -232,7 +232,23 @@ Phases, each printing one line; any failure exits non-zero:
      the floor with its coverage, the demes-per-block sweeps (the running
      warps held fixed, and at the breed's 8 warps a block) with their
      slopes, and the T sweep;
-     every ablated kernel case must have launched in it.
+     every ablated kernel case must have launched in it (the harness's
+     subblock variant included);
+ 29. subblock_compare: the sub-block pipeline (B8): deme_pipelined_kernel
+     (csrc/deme_breed.cu) at subblock=2 and 4 (1,048,576x100 float32), 2
+     (bf16) and 8 x 131,072x100 islands at 2, against its plain version and
+     against deme_breed_kernel at the same B-aware geometry, injected and
+     Philox draws, both parities: genomes bit for bit, scores within
+     SCORE_ATOL; timed beside deme_breed_kernel at the same geometry, B1
+     (subblock None) and the bound; a sweep of genome lengths that stage
+     1 to 8 gene slabs a deme (the pipelined kernel beside
+     deme_breed_kernel at 1,048,576 rows); and the creep expression at
+     B = 2 through expr_breed_kernel on the B-aware row maps;
+ 30. subblock_run: PGA.run of OneMax 1,048,576x100 at subblock=2 (200
+     generations float32, 100 bf16) and pga_run_islands at 8 x
+     131,072x100 (200 generations): launches of the pipelined kernel equal
+     generations and nothing else launches, the best rises; gens/s beside
+     the subblock=None runs of this call and a torch.profiler busy share.
 The earlier OneMax, GP and TSP runs keep their depths; the whole script
 takes about five minutes on the card. Then one JSON line of per-kernel numbers, the card's name and power
 limit, and last the result line. With --log FILE every line printed
@@ -252,7 +268,7 @@ import time
 from pathlib import Path
 
 SCORE_ATOL = 1e-3  # onemax of 100 genes in [0, 1): float32 sums reordered
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+H100_BYTES_PER_S = None  # the card's memory rate: ablate_floor.H100_BYTES_PER_S, set by main()
 H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 MAIN_SHAPES = {"pingpong": (1 << 20, 100), "riffle": (40_000, 100)}
 REPLACES = {
@@ -459,6 +475,19 @@ FLOOR_REPLACES = {
     "ablate_multigen": ("libpga_tpu/ops/pallas_step.py:1617",  # _multigen_kernel, no_freeze
                         "libpga_tpu/ops/pallas_step.py:1638"),  # no_rank_cube
 }
+# The sub-block pipeline (B8): (name, rows, genes, gene dtype, B, islands).
+SUBBLOCK_CASES = [
+    ("f32-B2", 1 << 20, 100, "float32", 2, None),
+    ("f32-B4", 1 << 20, 100, "float32", 4, None),
+    ("bf16-B2", 1 << 20, 100, "bfloat16", 2, None),
+    ("islands-B2", 131_072, 100, "float32", 2, 8),
+]
+SUBBLOCK_ENTRIES = {"f32-B2": "deme_pipelined[f32]", "bf16-B2": "deme_pipelined[bf16]",
+                    "islands-B2": "deme_pipelined[islands]"}
+SUBBLOCK_REPLACES = "libpga_tpu/ops/pallas_step.py:1287"  # _pp_breed_kernel, B > 1
+SUBBLOCK_RUN_GENS = 200
+# Genes -> gene slabs a K = 512 float32 deme stages in (deme_breed.cu's slab_plan).
+SUBBLOCK_SLAB_SWEEP = {32: 1, 64: 2, 100: 3, 128: 4, 256: 8}
 MEAN_RANK_BAND = (1 / 3 - 0.004, 1 / 3 + 0.002)  # E = 1/3 - O(1/K)
 CROSS_BAND = (0.495, 0.505)
 MUTATION_RATE = 0.01
@@ -3415,7 +3444,7 @@ def phase_floor_partition(kernels, results):
                       stages, "launches": launches}), flush=True)
     for key in ("ablate_copy", "ablate_breed", "ablate_multigen", "ablate_copy_bf16",
                 "ablate_breed_bf16", "ablate_multigen_bf16", "pingpong", "riffle", "multigen",
-                "pingpong_bf16", "multigen_bf16"):
+                "pingpong_bf16", "multigen_bf16", "deme_pipelined", "deme_pipelined_bf16"):
         check(launches[key] > 0, f"floor_partition: {key} never launched ({launches})")
     for rec in records:
         check(all(v == v for v in rec["medians_ms_per_gen"].values()),
@@ -3423,6 +3452,223 @@ def phase_floor_partition(kernels, results):
     for key in ("ablate_copy", "ablate_breed", "ablate_multigen"):
         results[key]["launches"] = launches[key]
     results["partition"] = records
+
+
+def phase_subblock_compare(port, fs, onemax, kernels, device, results):
+    """The pipelined deme breed (B8) against its plain version at full
+    width, injected and Philox draws, both parities: genomes bit for bit
+    (and equal to deme_breed_kernel's at the same geometry), scores within
+    SCORE_ATOL, pad scores -inf. Times it beside deme_breed_kernel at the
+    same B-aware geometry, B1 (the same rows at subblock None) and the plain
+    version, with the bound. Then the creep expression at B = 2 through
+    expr_breed_kernel on the B-aware maps."""
+    import torch
+
+    for name, P, L, dtype_name, B, islands in SUBBLOCK_CASES:
+        dtype = getattr(torch, dtype_name)
+        geom = fs.resolve_geometry(P, L, gene_dtype=dtype, subblock=B)
+        b1 = fs.resolve_geometry(P, L, gene_dtype=dtype)
+        check(geom.layout == "pingpong" and geom.B == B, f"subblock {name}: geometry {geom}")
+        n = islands or 1
+        lead = () if islands is None else (islands,)
+        gen = torch.Generator(device=device).manual_seed(P + B)
+        g = torch.rand(lead + (geom.Pp, L), generator=gen, device=device).to(dtype)
+        s = g.float().sum(dim=-1)
+        kw = dict(mparams=torch.tensor([0.05, 0.0], device=device), obj_id=onemax.fused_id)
+        key = ("deme_pipelined" if islands is None else "islands_deme_pipelined") + (
+            "_bf16" if dtype == torch.bfloat16 else "")
+        errs = []
+        for parity in (0, 1):
+            tie = fs.draw_tie_words(gen, n * geom.Pp, device).view(lead + (geom.Pp,))
+            ranks = fs.compute_ranks(s, geom, parity, tie)
+            seed = torch.randint(0, 2**62, (n,), generator=gen, device=device)
+            injected = fs.Draws(
+                sel_u=torch.rand(lead + (geom.G, geom.K, 2), generator=gen, device=device),
+                cross=(torch.rand(lead + (geom.G, geom.K, L), generator=gen, device=device)
+                       < 0.5).to(torch.uint8),
+                mut_u=torch.rand(lead + (geom.G, geom.K, 4), generator=gen, device=device),
+            )
+            draw = fs.philox_draws if islands is None else fs.island_philox_draws
+            for mode, draws in (("injected", injected), ("philox", None)):
+                before = kernels.LAUNCHES[key]
+                if draws is None:
+                    got = fs.deme_breed(g, ranks, geom, parity, seed=seed, islands=islands, **kw)
+                    draws = draw(seed, geom.G, geom.K, L)
+                else:
+                    got = fs.deme_breed(g, ranks, geom, parity, draws=draws, islands=islands,
+                                        **kw)
+                same_geom = kernels.deme_breed_cuda(g, ranks, geom, parity, draws=draws,
+                                                    islands=islands, **kw)
+                want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
+                torch.cuda.synchronize()
+                tag = f"subblock {name} parity {parity} {mode}"
+                check(kernels.LAUNCHES[key] == before + 1, f"{tag}: {key} did not launch")
+                check(torch.equal(got[0], want[0]), f"{tag}: genomes differ from the plain version")
+                check(torch.equal(got[0], same_geom[0]), f"{tag}: genomes differ from"
+                      " deme_breed_kernel at the same geometry")
+                real = torch.arange(geom.Pp, device=device) < P
+                check(bool(torch.isinf(got[1][..., ~real]).all()), f"{tag}: pad scores not -inf")
+                err = float((got[1][..., real] - want[1][..., real]).abs().max())
+                check(err <= SCORE_ATOL, f"{tag}: score error {err}")
+                errs.append(err)
+        out = torch.empty_like(g)
+        tie = fs.draw_tie_words(gen, n * geom.Pp, device).view(lead + (geom.Pp,))
+        ranks, ranks1 = fs.compute_ranks(s, geom, 0, tie), fs.compute_ranks(s, b1, 0, tie)
+        ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seed, islands=islands,
+                                           out=out, **kw), 50)
+        same_ms = cuda_ms(lambda: kernels.deme_breed_cuda(g, ranks, geom, 0, seed=seed,
+                                                          islands=islands, out=out, **kw), 50)
+        b1_ms = cuda_ms(lambda: fs.deme_breed(g, ranks1, b1, 0, seed=seed, islands=islands,
+                                              out=out, **kw), 50)
+        plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
+            g, ranks, geom, 0, draw(seed, geom.G, geom.K, L), **kw), 3)
+        bound_ms, bound_by = breed_bound(geom, 2 if dtype == torch.bfloat16 else 4)
+        bound_ms *= n
+        line = {"phase": "subblock_compare", "case": name, "shape": [P, L], "islands": islands,
+                "gene_dtype": dtype_name, "K": geom.K, "D": geom.D, "B": geom.B, "S": geom.S,
+                "b1_D": b1.D, "genomes_equal": True, "max_abs_err": max(errs),
+                "score_atol": SCORE_ATOL, "ms": ms, "deme_breed_same_geometry_ms": same_ms,
+                "b1_ms": b1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        print(json.dumps(line), flush=True)
+        results[name] = line
+        del g, s, out
+        torch.cuda.empty_cache()
+
+    # What a gene slab costs: the pipelined kernel beside deme_breed_kernel at
+    # the same geometry, 1,048,576 rows float32 at B = 2, over genome lengths
+    # that stage 1, 2, 3, 4 and 8 slabs a deme.
+    sweep = []
+    for L, slabs in SUBBLOCK_SLAB_SWEEP.items():
+        geom = fs.resolve_geometry(1 << 20, L, subblock=2)
+        gen = torch.Generator(device=device).manual_seed(L)
+        g = torch.rand((geom.Pp, L), generator=gen, device=device)
+        ranks = fs.compute_ranks(g.sum(dim=1), geom, 0, fs.draw_tie_words(gen, geom.Pp, device))
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+        kw = dict(mparams=torch.tensor([0.05, 0.0], device=device), obj_id=onemax.fused_id)
+        out = torch.empty_like(g)
+        sweep.append({"L": L, "slabs": slabs,
+                      "ms": cuda_ms(lambda: kernels.deme_breed_cuda(
+                          g, ranks, geom, 0, seed=seed, out=out, pipelined=True, **kw), 20),
+                      "deme_breed_same_geometry_ms": cuda_ms(lambda: kernels.deme_breed_cuda(
+                          g, ranks, geom, 0, seed=seed, out=out, **kw), 20),
+                      "bound_ms": breed_bound(geom)[0]})
+        del g, out
+    print(json.dumps({"phase": "subblock_compare", "case": "slab sweep f32 B=2",
+                      "rows": 1 << 20, "points": sweep}), flush=True)
+    results["slab_sweep"] = sweep
+    torch.cuda.empty_cache()
+
+    # The creep expression at B = 2: expr_breed_kernel on the B-aware maps.
+    op = port.mutate_from_expression(CREEP, rate=0.05, sigma=0.1)
+    geom = fs.resolve_geometry(1 << 20, 100, subblock=2)
+    gen = torch.Generator(device=device).manual_seed(13)
+    g = torch.rand((geom.Pp, 100), generator=gen, device=device)
+    s = g.sum(dim=1)
+    kw = dict(mparams=torch.tensor([0.05, 0.1], device=device), obj_id=onemax.fused_id, mutate=op)
+    errs = []
+    for parity in (0, 1):
+        ranks = fs.compute_ranks(s, geom, parity, fs.draw_tie_words(gen, geom.Pp, device))
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+        before = kernels.LAUNCHES["expr"]
+        got = fs.deme_breed(g, ranks, geom, parity, seed=seed, **kw)
+        want = fs.deme_breed_reference(g, ranks, geom, parity,
+                                       fs.philox_draws(seed, geom.G, geom.K, 100, op), **kw)
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES["expr"] == before + 1, "subblock creep: expr did not launch")
+        check(torch.equal(got[0], want[0]), f"subblock creep parity {parity}: genomes differ")
+        errs.append(float((got[1] - want[1]).abs().max()))
+        check(errs[-1] <= SCORE_ATOL, f"subblock creep parity {parity}: score error {errs[-1]}")
+    out = torch.empty_like(g)
+    ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 1, seed=seed, out=out, **kw), 20)
+    line = {"phase": "subblock_compare", "case": "creep-B2 (expr_breed_kernel)",
+            "shape": [1 << 20, 100], "K": geom.K, "D": geom.D, "B": geom.B,
+            "genomes_equal": True, "max_abs_err": max(errs), "ms": ms}
+    print(json.dumps(line), flush=True)
+    del g, s, out
+    torch.cuda.empty_cache()
+
+
+def phase_subblock_run(port, kernels, results, single, islands_single):
+    """PGA.run of OneMax 1,048,576x100 at subblock=2 (float32, 200
+    generations; bf16, 100) and pga_run_islands at 8 x 131,072x100 (200
+    generations, m = 10) after a warm-up, the counts set to 0 just before
+    and read just after: launches of the pipelined kernel equal the
+    generations and nothing else launches, the best rises, the scores are
+    the genomes' onemax. gens/s beside the subblock=None run of the same
+    shape in this call, and a torch.profiler window's busy share."""
+    import torch
+
+    for name, dtype_name, gens_want, key in (
+            ("f32-B2", "float32", SUBBLOCK_RUN_GENS, "deme_pipelined"),
+            ("bf16-B2", "bfloat16", SUBBLOCK_RUN_GENS // 2, "deme_pipelined_bf16")):
+        P, L = MAIN_SHAPES["pingpong"]
+        pga = port.pga_init(seed=1, config=port.PGAConfig(
+            subblock=2, gene_dtype=getattr(torch, dtype_name)))
+        h = port.pga_create_population(pga, P, L)
+        port.pga_set_objective_function(pga, "onemax")
+        start_best = float(pga.population(h).genomes.float().sum(dim=1).max())
+        check(port.pga_run(pga, WARMUP_GENS) == WARMUP_GENS, "subblock warm-up")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        gens = port.pga_run(pga, gens_want)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        pop = pga.population(h)
+        _, best = pga.get_best_with_score(h)
+        check(gens == gens_want, f"subblock run {name}: ran {gens} generations")
+        check(launches[key] == gens and sum(launches.values()) == gens,
+              f"subblock run {name}: launches {launches} for {gens} generations")
+        check(best > start_best + 10.0 and best < L, f"subblock run {name}: best {start_best} -> {best}")
+        check(bool(torch.isclose(pop.scores, pop.genomes.float().sum(dim=1), rtol=0,
+                                 atol=SCORE_ATOL).all()), f"subblock run {name}: scores")
+        ref = single["pingpong"]["gens_per_s"] if dtype_name == "float32" else None
+        line = {"phase": "subblock_run", "case": name, "shape": [P, L], "subblock": 2,
+                "gens": gens, "launches": launches, "gens_per_s": gens / seconds,
+                "ms_per_gen": 1e3 * seconds / gens, "subblock_none_gens_per_s": ref,
+                "start_best": start_best, "best": best,
+                **profile_generations(port, pga, 1e3 * seconds / gens)}
+        print(json.dumps(line), flush=True)
+        results[name].update(launches=launches[key], run=line)
+        port.pga_deinit(pga)
+        del pga, pop
+        torch.cuda.empty_cache()
+
+    I, S, L = ISLAND_RUN
+    pga = island_solver(port, ISLAND_RUN, 7, subblock=2)
+    start_best = max(float(p.genomes.sum(dim=1).max()) for p in pga._populations)
+    check(port.pga_run_islands(pga, ISLAND_M, ISLAND_M, ISLAND_PCT) == ISLAND_M,
+          "subblock island warm-up")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    gens = port.pga_run_islands(pga, SUBBLOCK_RUN_GENS, ISLAND_M, ISLAND_PCT)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    best = best_of(pga)
+    key = "islands_deme_pipelined"
+    check(gens == SUBBLOCK_RUN_GENS, f"subblock islands: ran {gens} generations")
+    check(launches[key] == gens and sum(launches.values()) == gens,
+          f"subblock islands: launches {launches} for {gens} generations")
+    check(best > start_best + 10.0 and best < L, f"subblock islands: best {start_best} -> {best}")
+    for p in pga._populations:
+        check(bool(torch.isclose(p.scores, p.genomes.sum(dim=1), rtol=0, atol=SCORE_ATOL).all()),
+              "subblock islands: scores are not the genomes' onemax")
+    ms_per_gen = 1e3 * seconds / gens
+    line = {"phase": "subblock_run", "case": "islands-B2", "islands": I, "island_shape": [S, L],
+            "m": ISLAND_M, "pct": ISLAND_PCT, "gens": gens, "launches": launches,
+            "gens_per_s": gens / seconds, "ms_per_gen": ms_per_gen,
+            "subblock_none_gens_per_s": islands_single, "start_best": start_best, "best": best,
+            **profile_generations(port, pga, ms_per_gen, ISLAND_PROFILE_GENS,
+                                  run=lambda n: port.pga_run_islands(pga, n, ISLAND_M,
+                                                                     ISLAND_PCT))}
+    print(json.dumps(line), flush=True)
+    results["islands-B2"].update(launches=launches[key], run=line)
+    port.pga_deinit(pga)
+    del pga
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3437,9 +3683,12 @@ def main() -> int:
         from libpga_tpu_torch.objectives import onemax
         from libpga_tpu_torch.ops import fused_step as fs
         from libpga_tpu_torch.ops import kernels
+        from libpga_tpu_torch.tools import ablate_floor
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
+    global H100_BYTES_PER_S
+    H100_BYTES_PER_S = ablate_floor.H100_BYTES_PER_S
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--log", type=Path, help="also write every printed line to this file")
@@ -3508,6 +3757,10 @@ def drive(torch, port, onemax, fs, kernels) -> int:
     floor_results = {}
     phase_floor_compare(fs, onemax, device, floor_results)
     phase_floor_partition(kernels, floor_results)
+    subblock_results = {}
+    phase_subblock_compare(port, fs, onemax, kernels, device, subblock_results)
+    phase_subblock_run(port, kernels, subblock_results, results,
+                       island_results["deme_breed"]["run"]["gens_per_s"])
 
     entries = []
     for layout, r in results.items():
@@ -3661,6 +3914,23 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "case": r["case"], "shape": r["shape"],
             "steps": r.get("steps", 1), "cases": r["cases"],
+        })
+    for case, name in SUBBLOCK_ENTRIES.items():
+        # ms, plain_ms and the bound at 1,048,576x100 (islands: 8 x
+        # 131,072x100) at parity 0; launches from its subblock_run.
+        r = subblock_results[case]
+        entries.append({
+            "name": name, "route": "cuda", "source": "libpga_tpu_torch/csrc/deme_breed.cu",
+            "replaces": SUBBLOCK_REPLACES, "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "shape": r["shape"], "islands": r["islands"], "gene_dtype": r["gene_dtype"],
+            "K": r["K"], "D": r["D"], "B": r["B"],
+            "deme_breed_same_geometry_ms": r["deme_breed_same_geometry_ms"],
+            "b1_ms": r["b1_ms"], "gens_per_s": r["run"]["gens_per_s"],
+            "subblock_none_gens_per_s": r["run"]["subblock_none_gens_per_s"],
+            "device_busy_share": r["run"]["device_busy_share"],
+            "b4_ms": subblock_results["f32-B4"]["ms"] if case == "f32-B2" else None,
         })
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -2,8 +2,8 @@
 
 The subset of ``libpga_tpu.config.PGAConfig`` that ``PGA.run`` and
 ``PGA.run_islands`` read, plus the device the solver runs on. Field names
-match the JAX package except ``deme_size``, ``generations_per_launch``
-and ``layout``, which drop the JAX package's ``pallas_`` prefix
+match the JAX package except ``deme_size``, ``generations_per_launch``,
+``layout`` and ``subblock``, which drop the JAX package's ``pallas_`` prefix
 (``deme_size``: rows per selection deme; on the GPU it fixes which rows
 form a cohort, not a VMEM block), and ``use_deme_kernel``, its
 ``use_pallas``.
@@ -55,6 +55,13 @@ class PGAConfig:
         None (default) picks ping-pong where its mixing gate admits,
         else the riffle; "riffle" or "pingpong" forces one ("pingpong"
         raises where inadmissible).
+      subblock: ping-pong sub-block depth B (JAX's ``pallas_subblock``):
+        None (default) or 1 keeps today's groups; B > 1 groups B
+        sub-blocks of D demes, which moves children to other rows (the
+        write interleave is per sub-block) and may change D, exactly as
+        JAX resolves it. Where it resolves to B > 1, the builtin breed
+        launches the pipelined deme kernel. The riffle, order crossover
+        and several generations per launch take B = 1. Below 1 raises.
       gene_dtype: torch.float32 (default) or torch.bfloat16, the dtype
         genomes are stored in. bfloat16 genomes breed in the kernels' bf16
         cases: each child is computed in float32 and rounded once where it
@@ -80,6 +87,7 @@ class PGAConfig:
     deme_size: Optional[int] = None
     generations_per_launch: Optional[int] = None
     layout: Optional[str] = None
+    subblock: Optional[int] = None
     gene_dtype: torch.dtype = torch.float32
     seed: Optional[int] = None
     device: str = "cuda"
@@ -99,6 +107,8 @@ class PGAConfig:
             raise ValueError("generations_per_launch must be >= 1")
         if self.layout not in (None, "riffle", "pingpong"):
             raise ValueError("layout must be None, 'riffle' or 'pingpong'")
+        if self.subblock is not None and self.subblock < 1:
+            raise ValueError("subblock must be >= 1")
         if self.gene_dtype not in GENE_DTYPES:
             raise ValueError(
                 f"gene_dtype {self.gene_dtype} is not supported: use torch.float32"

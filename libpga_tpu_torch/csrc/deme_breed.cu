@@ -1,8 +1,11 @@
-// deme_breed.cu: the fused deme breed on Hopper, in three kernels:
+// deme_breed.cu: the fused deme breed on Hopper, in four kernels:
 // deme_breed_kernel (one generation, uniform crossover), order_breed_kernel
-// (one generation, order crossover and the fused TSP score) and, at the end
-// of this file, multigen_breed_kernel (up to T generations per launch with
-// the ranks computed inside the kernel; uniform or order crossover).
+// (one generation, order crossover and the fused TSP score),
+// multigen_breed_kernel (up to T generations per launch with the ranks
+// computed inside the kernel; uniform or order crossover) and, at the end of
+// this file, deme_pipelined_kernel (deme_breed_kernel's function on a
+// persistent grid that stages each deme's parents in shared memory, for the
+// sub-block pipeline's geometries).
 //
 // deme_breed_kernel replaces, in libpga_tpu/ops/pallas_step.py:
 //   _pp_breed_kernel (ping-pong row maps, parity 0 and 1),
@@ -635,6 +638,380 @@ __global__ void __launch_bounds__(MG_THREADS) multigen_breed_kernel(
 }
 
 
+// ---------------------------------------------------------------------------
+// deme_pipelined_kernel: the sub-block pipeline (B8).
+//
+// Replaces, in libpga_tpu/ops/pallas_step.py, _pp_breed_kernel's B > 1 case
+// (:1287-1390, the pallas_call at :2526 built by make_pallas_breed(_subblock=B)):
+// the ping-pong breed of groups of B sub-blocks of D demes, whose rows stream
+// through a double-buffered VMEM pair by manual DMA, the next sub-block's
+// inbound copy in flight while the current one breeds. What it computes is
+// deme_breed_kernel's function at the B-aware geometry (breed_core.cuh's
+// read_row / write_row with geo.B): fused_step.deme_breed_reference, the
+// children bit for bit, with the same Philox counters (child k, deme g,
+// stream) and the same injected draws. Only the schedule differs.
+//
+// Why a schedule of its own. On the TPU B > 1 shrinks the grid B-fold to cut a
+// per-step dispatch cost; on the H100 no cost of a block shows (the floor
+// harness's fixed-warps sweep, PERF.md), and deme_breed_kernel's time above its
+// copy is the breed's own work, each parent gene fetched from L2 or device
+// memory once per selection. What B8 still means here is the overlap: stage a
+// deme's parents in shared memory ahead of its breed, so that the breed reads
+// no device memory and the loads of the next stage run under the breed of this
+// one.
+//
+// Design. A persistent grid sized to the card: blocks_per_SM x SMs blocks (the
+// occupancy API) shared by the islands, blockIdx.y the island; block j of an
+// island walks the contiguous run of demes [j*G/nb, (j+1)*G/nb) in deme order,
+// which is sub-block order. A deme's K rows of L genes do not fit twice in a
+// block's shared memory at float32 (K = 512, L = 100: 204,800 B a deme, 227 KB
+// a block), so a deme is staged in gene slabs: slab s holds genes [s*SG,
+// s*SG + len) of all K parent rows, and a short last slab that lies in the
+// same 128-gene tile as the one before is merged into it (slab_plan; at
+// L = 100 float32, SG = 32: slabs of 32, 32 and 36 genes). The block works
+// through (deme, slab) items with two slab buffers: while its warps breed item
+// n from one buffer, cp.async brings item n + 1 (the deme's next slab, or slab
+// 0 of the next deme with that deme's K ranks) into the other;
+// cp.async.wait_group 1 and a block barrier open each item, a barrier closes
+// it. A warp breeds PIPE_GROUPS = 4 children of a slab at once, PIPE_LANES = 8
+// lanes each over the slab's genes, the same lanes for a child across its
+// deme's slabs: a parent gene comes from shared memory, the child gene goes to
+// its write row in device memory. Four children a warp share each instruction
+// of the per-child work a slab repeats (its state, its crossover word, the
+// score's group sum), which a warp per child paid four times; at L = 100 that
+// work, not the loads, set the time. What a child carries across slabs sits in shared
+// memory (PipeChild, 52 B): its parent slots and write row, its mutation
+// draws, the crossover words of the current 128-gene tile and its score sums
+// so far.
+// Slab 0 draws them, the calls deme_breed_kernel makes (child_rand's, here
+// by the first three lanes of the child's group), after the block has
+// inverted the staged ranks into row_of_rank and counted the deme's alive
+// rows. A score is the sum over slabs of each slab's group sum,
+// so it may differ from deme_breed_kernel's in the last bits (both stay within
+// the chip check's SCORE_ATOL of the plain version's torch.sum); swap mutation
+// exchanges the two genes in device memory after the last slab and sums the
+// child again, as breed_genes does.
+//
+// Shared memory at K = 512, L = 100 float32: slab rows of 144 B (the merged
+// 36-gene slab) x 512 rows x 2 buffers = 147,456 B, the staged ranks 2 x 2,048,
+// row_of_rank 2,048, PipeChild 512 x 52 = 26,624: 180,224 B, so one block an
+// SM. bf16 (SG = 64, slabs of 64 and 36 genes): rows of 128 B, 131,072 +
+// 32,768 = 163,840 B. The launcher takes the widest SG of 128, 64, 32, 16, 8
+// genes whose layout fits a block (pipe_plan), and sizes the grid by
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor. The block has 32 warps (64
+// registers a thread, so an SM holds no more): the time is the warps'
+// per-child work, whose latency more warps hide. On the card 32 warps a block
+// ran faster than 16, narrower slabs slower (each slab repeats a child's
+// per-slab work), and 8 lanes a child faster than 32, 16 or 4 at L = 100.
+//
+// Alignment. cp.async copies 16 B where a row's bytes (L x gene bytes) are a
+// multiple of 16 (float32 at L = 100: 400 B rows), else 8 or 4 B: a bf16 row
+// of L = 100 is 200 B, so odd rows are only 8-byte aligned and take 8-byte
+// copies (the genome layout is not changed). A bf16 row of odd L is 2-byte
+// aligned and is staged by plain loads and stores. Slab starts are multiples
+// of 16 bytes, so every chunk is aligned.
+//
+// Bound. deme_breed_kernel's bytes: the population read once and written once,
+// the ranks read and the scores written (0.2529 ms at 1,048,576x100 float32,
+// 0.1277 ms bf16, at 3.35 TB/s). Here each parent byte is read from device
+// memory once, by the staging; the children's stores and the per-child work
+// of each slab (the draws, the gather from shared memory, a group sum) are what
+// remains beside it.
+
+constexpr int PIPE_THREADS = 1024;  // 32 warps a block
+constexpr int PIPE_LANES = 8;       // lanes a child in a slab
+constexpr int PIPE_GROUPS = 32 / PIPE_LANES;  // children a warp breeds at once
+constexpr size_t PIPE_SMEM_LIMIT = 232448 - 1024;  // a block's, beside the static arrays
+
+// The sum of v over the PIPE_LANES lanes of this lane's group, on each of them.
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = PIPE_LANES / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// What a child carries across the slabs of its deme.
+struct PipeChild {
+  int s1, s2, orow;  // its parents' slots; its write row
+  int pos, pj;       // the point / swap mutation's gene positions
+  float mu2, a, b;   // point mutation's value; the score's sums so far
+  int fire;          // the mutation fires
+  uint32_t w[4];     // the crossover words of the current 128-gene tile
+};
+
+// The gene slabs of a row of L genes: SG genes each from gene 0, the last one
+// shorter; a last slab under SG / 2 genes is merged into the one before where
+// both lie in one 128-gene tile. SG divides 128, so no slab crosses a tile.
+struct SlabPlan {
+  int SG, n, last;  // slab width, slab count, width of the last slab
+  __host__ __device__ int base(int s) const { return s * SG; }
+  __host__ __device__ int len(int s) const { return s == n - 1 ? last : SG; }
+  __host__ __device__ int widest() const { return n == 1 || last > SG ? last : SG; }
+};
+
+__host__ __device__ inline SlabPlan slab_plan(int L, int SG) {
+  SlabPlan p{SG, (L + SG - 1) / SG, 0};
+  p.last = L - (p.n - 1) * SG;
+  if (p.n > 1 && 2 * p.last < SG && ((p.n - 2) * SG) / 128 == (L - 1) / 128) {
+    p.n -= 1;
+    p.last += SG;
+  }
+  return p;
+}
+
+// Byte offsets of the dynamic shared memory: the two slab buffers (K rows of
+// row_bytes each) from 0, the two staged rank rows, row_of_rank, the children.
+struct PipeLayout {
+  size_t ranks, ror, kids, total;
+};
+
+__host__ __device__ inline size_t round16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+__host__ __device__ inline PipeLayout pipe_layout(int K, int row_bytes) {
+  PipeLayout y;
+  y.ranks = 2 * (size_t)K * row_bytes;
+  y.ror = y.ranks + round16(2 * (size_t)K * 4);
+  y.kids = y.ror + round16((size_t)K * 4);
+  y.total = y.kids + (size_t)K * sizeof(PipeChild);
+  return y;
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most one committed group of this thread is in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Issues the copies of slab s of deme g's K parent rows into `buf` (row k at
+// k * row_bytes), `cw` bytes a copy (0: plain 2-byte copies), and for slab 0
+// the deme's K ranks into `rk`.
+template <class Gene>
+__device__ __forceinline__ void pipe_stage(const Gene* gin, const int* ranks, const Geometry& geo,
+                                           const SlabPlan& plan, int g, int s, unsigned char* buf,
+                                           int row_bytes, int* rk, int cw) {
+  const int K = geo.K, tid = threadIdx.x, nthr = blockDim.x;
+  const size_t row_len = (size_t)geo.L * sizeof(Gene);
+  const int off = plan.base(s) * (int)sizeof(Gene), bytes = plan.len(s) * (int)sizeof(Gene);
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(gin) + off;
+  const int unit = cw ? cw : 2, per_row = bytes / unit;
+  for (int x = tid; x < K * per_row; x += nthr) {
+    const int k = x / per_row, c = (x - k * per_row) * unit;
+    const unsigned char* from = src + (size_t)read_row(geo, g, k) * row_len + c;
+    unsigned char* to = buf + (size_t)k * row_bytes + c;
+    if (cw) {
+      cp_async(to, from, cw);
+    } else {
+      *reinterpret_cast<unsigned short*>(to) = *reinterpret_cast<const unsigned short*>(from);
+    }
+  }
+  if (s == 0)
+    for (int x = tid; x < K / 4; x += nthr) cp_async(rk + 4 * x, ranks + (size_t)g * K + 4 * x, 16);
+}
+
+template <class Gene>
+__global__ void __launch_bounds__(PIPE_THREADS) deme_pipelined_kernel(
+    const Gene* __restrict__ gin, Gene* __restrict__ gout, float* __restrict__ sout,
+    const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr0, Geometry geo,
+    Selection sel, int mutate, int obj, SlabPlan plan, int row_bytes, int cw) {
+  extern __shared__ __align__(16) unsigned char pipe_smem[];
+  __shared__ int s_alive[32];
+  const int K = geo.K, L = geo.L, G = geo.G;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  gin = island_slice(gin, (size_t)geo.Pp * L);
+  gout = island_slice(gout, (size_t)geo.Pp * L);
+  sout = island_slice(sout, (size_t)geo.Pp);
+  ranks = island_slice(ranks, (size_t)G * K);
+  const Draws dr = island_draws(dr0, geo, 1);
+  const BreedCtx cx = breed_ctx(dr, mparams, geo, mutate, obj);
+  const PipeLayout lay = pipe_layout(K, row_bytes);
+  int* rks = reinterpret_cast<int*>(pipe_smem + lay.ranks);
+  int* row_of_rank = reinterpret_cast<int*>(pipe_smem + lay.ror);
+  PipeChild* kids = reinterpret_cast<PipeChild*>(pipe_smem + lay.kids);
+  const size_t buf_bytes = (size_t)K * row_bytes;
+
+  const int g0 = (int)((long long)blockIdx.x * G / gridDim.x);
+  const int g1 = (int)((long long)(blockIdx.x + 1) * G / gridDim.x);
+  const int items = (g1 - g0) * plan.n;
+  auto stage = [&](int n) {
+    const int d = n / plan.n;
+    pipe_stage(gin, ranks, geo, plan, g0 + d, n - d * plan.n, pipe_smem + (n & 1) * buf_bytes,
+               row_bytes, rks + (d & 1) * K, cw);
+  };
+  if (items > 0) stage(0);
+  cp_async_commit();
+  float V = 1.0f;
+  for (int n = 0; n < items; ++n) {
+    if (n + 1 < items) stage(n + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const int d = n / plan.n, s = n - d * plan.n, g = g0 + d;
+    const unsigned char* buf = pipe_smem + (n & 1) * buf_bytes;
+    if (s == 0) {
+      // The deme's ranks inverted, and its alive rows counted.
+      const int* rk = rks + (d & 1) * K;
+      int alive = 0;
+      for (int k = threadIdx.x; k < K; k += blockDim.x) {
+        const int r = rk[k];
+        if (r >= 0 && r < K) row_of_rank[r] = k;
+        alive += read_row(geo, g, k) < geo.P;
+      }
+      alive = warp_sum(alive);
+      if (lane == 0) s_alive[warp] = alive;
+      __syncthreads();
+      int v = 0;
+      for (int w = 0; w < nwarps; ++w) v += s_alive[w];
+      V = (float)max(v, 1);
+    }
+    const int base = plan.base(s), len = plan.len(s);
+    const bool last = s == plan.n - 1, tile_start = (base & 127) == 0;
+    // PIPE_GROUPS children a warp at once, PIPE_LANES lanes each: lane group h
+    // breeds child k, its sub-lane j0 the slab's genes j0, j0 + PIPE_LANES, ...
+    const int h = lane / PIPE_LANES, j0 = lane % PIPE_LANES, lead = h * PIPE_LANES;
+    for (int k0 = warp * PIPE_GROUPS; k0 < K; k0 += nwarps * PIPE_GROUPS) {
+      const int k = k0 + h;
+      PipeChild& st = kids[k];
+      const size_t child = (size_t)g * K + k;
+      int s1, s2, orow, pos, pj;
+      float mu2, a0 = 0.0f, b0 = 0.0f;
+      bool fire;
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (s == 0) {
+        // child_rand's draws for the group's child: sub-lane c computes
+        // Philox call c (0 selection, 1 mutation, 2 the first crossover tile).
+        float su0, su1, mu0, mu1;
+        if (cx.philox_mode) {
+          if (j0 < 3) w = philox(cx.k0, cx.k1, make_uint4(k, g, j0, 0u));
+          su0 = to_uniform(__shfl_sync(FULL, w.x, lead));
+          su1 = to_uniform(__shfl_sync(FULL, w.y, lead));
+          mu0 = to_uniform(__shfl_sync(FULL, w.x, lead + 1));
+          mu1 = to_uniform(__shfl_sync(FULL, w.y, lead + 1));
+          mu2 = to_uniform(__shfl_sync(FULL, w.z, lead + 1));
+          w = make_uint4(__shfl_sync(FULL, w.x, lead + STREAM_CROSS),
+                         __shfl_sync(FULL, w.y, lead + STREAM_CROSS),
+                         __shfl_sync(FULL, w.z, lead + STREAM_CROSS),
+                         __shfl_sync(FULL, w.w, lead + STREAM_CROSS));
+        } else {
+          su0 = dr.sel_u[child * 2];
+          su1 = dr.sel_u[child * 2 + 1];
+          mu0 = dr.mut_u[child * 4];
+          mu1 = dr.mut_u[child * 4 + 1];
+          mu2 = dr.mut_u[child * 4 + 2];
+        }
+        const int r1 = winner_rank(winner_fraction(sel, su0), V);
+        const int r2 = winner_rank(winner_fraction(sel, su1), V);
+        s1 = min(max(row_of_rank[r1], 0), K - 1);
+        s2 = min(max(row_of_rank[r2], 0), K - 1);
+        orow = write_row(geo, g, k);
+        pos = (int)floorf(mu0 * (float)L);
+        pj = (int)floorf(mu1 * (float)L);
+        fire = mutate == MUT_SWAP ? mu2 < cx.rate : mu1 < cx.rate;
+      } else {
+        s1 = st.s1;
+        s2 = st.s2;
+        orow = st.orow;
+        pos = st.pos;
+        pj = st.pj;
+        mu2 = st.mu2;
+        fire = st.fire != 0;
+        a0 = st.a;
+        if (obj == OBJ_ACKLEY) b0 = st.b;
+        if (cx.philox_mode)
+          w = tile_start ? philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_CROSS + (base >> 7), 0u))
+                         : make_uint4(st.w[0], st.w[1], st.w[2], st.w[3]);
+      }
+
+      // Cross, mutate, round, store and sum this slab's genes of child k.
+      const Gene* p1 = reinterpret_cast<const Gene*>(buf + (size_t)s1 * row_bytes);
+      const Gene* p2 = reinterpret_cast<const Gene*>(buf + (size_t)s2 * row_bytes);
+      Gene* out = gout + (size_t)orow * L;
+      float a = 0.0f, b = 0.0f;
+      for (int j = j0; j < len; j += PIPE_LANES) {
+        const int l = base + j;
+        uint32_t bit;
+        if (cx.philox_mode) {
+          const int wi = (l >> 5) & 3;
+          bit = ((wi == 0 ? w.x : wi == 1 ? w.y : wi == 2 ? w.z : w.w) >> (l & 31)) & 1u;
+        } else {
+          bit = dr.cross[child * L + l];
+        }
+        float c = load_gene<false>((bit ? p2 : p1) + j);
+        if (mutate == MUT_POINT) {
+          if (fire && l == pos) c = mu2;
+        } else if (mutate == MUT_GAUSSIAN) {
+          c = gauss_mutate(cx, dr, c, k, g, 0u, l, child, true);
+        }
+        c = round_gene<Gene>(c);
+        store_gene(out + l, c);
+        obj_add(obj, c, a, b);
+      }
+      if (obj != OBJ_NONE) a = a0 + group_sum(a);
+      if (obj == OBJ_ACKLEY) b = b0 + group_sum(b);  // its cosine sum; no other has a second
+      if (!last) {
+        if (j0 == 0) {
+          if (s == 0) {
+            st.s1 = s1;
+            st.s2 = s2;
+            st.orow = orow;
+            st.pos = pos;
+            st.pj = pj;
+            st.mu2 = mu2;
+            st.fire = fire;
+          }
+          st.a = a;
+          if (obj == OBJ_ACKLEY) st.b = b;
+          if (s == 0 || tile_start) {
+            st.w[0] = w.x;
+            st.w[1] = w.y;
+            st.w[2] = w.z;
+            st.w[3] = w.w;
+          }
+        }
+        continue;
+      }
+      if (mutate == MUT_SWAP) {
+        const bool swap = fire && pos < L && pj < L;
+        __syncwarp();
+        if (swap && j0 == 0) {
+          const Gene x = out[pos], y = out[pj];
+          out[pos] = y;
+          out[pj] = x;
+        }
+        __syncwarp();
+        if (obj != OBJ_NONE) {
+          // The score is of the child as written: sum again after the swap.
+          float a2 = 0.0f, b2 = 0.0f;
+          if (swap)
+            for (int l = j0; l < L; l += PIPE_LANES) obj_add(obj, load_gene<false>(out + l), a2, b2);
+          a2 = group_sum(a2);
+          if (obj == OBJ_ACKLEY) b2 = group_sum(b2);
+          if (swap) {
+            a = a2;
+            b = b2;
+          }
+        }
+      }
+      if (obj != OBJ_NONE && j0 == 0)
+        sout[orow] = orow < geo.P ? obj_finish(obj, a, b, L) : -INFINITY;
+    }
+    __syncthreads();
+  }
+}
+
+
 // The ABLATE cases each kernel is built in, beside 0 (production). A launch
 // with another mask fails with cudaErrorInvalidValue; ops/kernels.py keeps the
 // same lists (ABLATE_DEME_MASKS, ABLATE_MULTIGEN_MASKS) and refuses first.
@@ -686,6 +1063,48 @@ int deme_launch(const void* gin, void* gout, float* sout, const int* ranks, cons
   });
 }
 
+// The slab plan, staged row bytes and dynamic shared memory of a pipelined
+// launch: the widest slab of 128, 64, 32, 16 or 8 genes whose layout fits a
+// block. Returns the shared-memory bytes, 0 where none fits.
+inline size_t pipe_plan(int K, int L, int gene_bytes, SlabPlan& plan, int& row_bytes) {
+  for (int sg = 128; sg >= 8; sg >>= 1) {
+    plan = slab_plan(L, sg);
+    row_bytes = (int)round16((size_t)plan.widest() * gene_bytes);
+    const size_t smem = pipe_layout(K, row_bytes).total;
+    if (smem <= PIPE_SMEM_LIMIT) return smem;
+  }
+  return 0;
+}
+
+template <class Gene>
+int pipelined_launch(const void* gin, void* gout, float* sout, const int* ranks,
+                     const float* mparams, const Draws& dr, const Geometry& geo,
+                     const Selection& sel, int mutate, int obj, int islands, cudaStream_t stream) {
+  SlabPlan plan;
+  int row_bytes;
+  const size_t smem = pipe_plan(geo.K, geo.L, sizeof(Gene), plan, row_bytes);
+  if (!smem) return (int)cudaErrorInvalidValue;
+  const int rb = geo.L * (int)sizeof(Gene);
+  const int cw = rb % 16 == 0 ? 16 : rb % 8 == 0 ? 8 : rb % 4 == 0 ? 4 : 0;
+  auto kernel = deme_pipelined_kernel<Gene>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, PIPE_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int fill = per_sm * sms / islands;
+  const int blocks = fill < 1 ? 1 : fill < geo.G ? fill : geo.G;
+  kernel<<<dim3(blocks, islands), PIPE_THREADS, smem, stream>>>(
+      static_cast<const Gene*>(gin), static_cast<Gene*>(gout), sout, ranks, mparams, dr, geo, sel,
+      mutate, obj, plan, row_bytes, cw);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // gene_dtype: GENE_F32 (0) or GENE_BF16 (1), the type of gin and gout.
@@ -697,12 +1116,12 @@ extern "C" int deme_breed_launch(
     const void* gin, void* gout, float* sout, const int* ranks, const float* mparams,
     const float* sel_u, const unsigned char* cross, const float* mut_u, const float* gauss,
     const long long* seed, int P, int Pp, int L, int K, int G, int mode, int S, int D, int q,
-    int sel_kind, int tk, float sel_param, int mutate, int obj, int islands, int gene_dtype,
-    unsigned ablate, int demes_per_block, int warps_per_block, void* stream) {
+    int B, int sel_kind, int tk, float sel_param, int mutate, int obj, int islands,
+    int gene_dtype, unsigned ablate, int demes_per_block, int warps_per_block, void* stream) {
   if (demes_per_block < 1 || G % demes_per_block || warps_per_block < 0 ||
-      warps_per_block > THREADS / 32)
+      warps_per_block > THREADS / 32 || B < 1)
     return (int)cudaErrorInvalidValue;
-  const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
+  const Geometry geo{P, Pp, L, K, G, mode, S, D, q, B};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed};
   const cudaStream_t st = (cudaStream_t)stream;
@@ -712,6 +1131,29 @@ extern "C" int deme_breed_launch(
   if (gene_dtype == GENE_F32)
     return deme_launch<float>(gin, gout, sout, ranks, mparams, dr, geo, sel, mutate, obj, islands,
                               ablate, demes_per_block, warps_per_block, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// deme_pipelined_kernel at the geometry (any row map; the production path
+// launches it where the ping-pong sub-block depth B is above 1). K must be a
+// multiple of 4, and gin and ranks 16-byte aligned (the staging's copies).
+extern "C" int deme_pipelined_launch(
+    const void* gin, void* gout, float* sout, const int* ranks, const float* mparams,
+    const float* sel_u, const unsigned char* cross, const float* mut_u, const float* gauss,
+    const long long* seed, int P, int Pp, int L, int K, int G, int mode, int S, int D, int q,
+    int B, int sel_kind, int tk, float sel_param, int mutate, int obj, int islands,
+    int gene_dtype, void* stream) {
+  if (K % 4 || B < 1 || islands < 1 || islands > 65535) return (int)cudaErrorInvalidValue;
+  const Geometry geo{P, Pp, L, K, G, mode, S, D, q, B};
+  const Selection sel{sel_kind, tk, sel_param};
+  const Draws dr{sel_u, cross, mut_u, gauss, seed};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (gene_dtype == GENE_BF16)
+    return pipelined_launch<__nv_bfloat16>(gin, gout, sout, ranks, mparams, dr, geo, sel, mutate,
+                                           obj, islands, st);
+  if (gene_dtype == GENE_F32)
+    return pipelined_launch<float>(gin, gout, sout, ranks, mparams, dr, geo, sel, mutate, obj,
+                                   islands, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -725,7 +1167,7 @@ extern "C" int order_breed_launch(
     const long long* seed, const float* coords, int C, float penalty, int P, int Pp, int L,
     int K, int G, int sel_kind, int tk, float sel_param, int mutate, int obj, int islands,
     void* stream) {
-  const Geometry geo{P, Pp, L, K, G, MODE_RIFFLE, G, 1, 8};
+  const Geometry geo{P, Pp, L, K, G, MODE_RIFFLE, G, 1, 8, 1};
   const Selection sel{sel_kind, tk, sel_param};
   const OrderDraws dr{sel_u, fill, mut_u, gauss, seed};
   // Dynamic shared memory: row_of_rank, the visited bitmasks and, for
@@ -761,7 +1203,7 @@ extern "C" int multigen_breed_launch(
   if ((gene_dtype != GENE_F32 && gene_dtype != GENE_BF16) || (cross_kind && gene_dtype != GENE_F32))
     return (int)cudaErrorInvalidValue;
   if (cross_kind && ablate) return (int)cudaErrorInvalidValue;
-  const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
+  const Geometry geo{P, Pp, L, K, G, mode, S, D, q, 1};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed, tie, fill};
   // Keys, scores, row_of_rank and alive flags of the group's D*K rows, then

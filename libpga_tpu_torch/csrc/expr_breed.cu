@@ -566,13 +566,14 @@ extern "C" int expr_breed_launch(
     const float* sel_u, const unsigned char* cross, const float* fill, const float* mut_u,
     const float* gauss, const float* xgene, const float* xrow, const long long* seed,
     const float* consts, const float* coords, int C, float penalty, int P, int Pp, int L, int K,
-    int G, int mode, int S, int D, int q, int sel_kind, int tk, float sel_param, int cross_kind,
-    int mutate, int obj, int warps, int islands, int gene_dtype, void* stream) {
-  const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
+    int G, int mode, int S, int D, int q, int B, int sel_kind, int tk, float sel_param,
+    int cross_kind, int mutate, int obj, int warps, int islands, int gene_dtype, void* stream) {
+  const Geometry geo{P, Pp, L, K, G, mode, S, D, q, B};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed, nullptr, fill};
   const ExprDraws ex{xgene, xrow};
-  if ((gene_dtype != GENE_F32 && gene_dtype != GENE_BF16) || islands < 1 || islands > 65535)
+  if ((gene_dtype != GENE_F32 && gene_dtype != GENE_BF16) || islands < 1 || islands > 65535 ||
+      B < 1)
     return (int)cudaErrorInvalidValue;
   if (cross_kind) {
     if (EXPR_CROSS || mode != MODE_RIFFLE || K % ORDER_THREADS || (obj == OBJ_TSP && C < 1) ||
@@ -622,7 +623,7 @@ extern "C" int expr_multigen_launch(
       (cross_kind && (EXPR_CROSS || D != 1 || gene_dtype != GENE_F32)) ||
       (gene_dtype != GENE_F32 && gene_dtype != GENE_BF16) || islands < 1 || islands > 65535)
     return (int)cudaErrorInvalidValue;
-  const Geometry geo{P, Pp, L, K, G, mode, S, D, q};
+  const Geometry geo{P, Pp, L, K, G, mode, S, D, q, 1};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed, tie, fill};
   const ExprDraws ex{xgene, xrow};

@@ -57,6 +57,12 @@ stored, scored as stored); order crossover at bfloat16 takes the
 panmictic path, as JAX's gate declines it. Best genomes come back as
 float32 numpy arrays holding the stored values.
 
+``PGAConfig.subblock`` = B > 1 (JAX's ``pallas_subblock``) widens a
+ping-pong group to B sub-blocks of D demes: ``run`` and ``run_islands``
+then breed through the pipelined deme kernel (builtin hooks) or the
+expression kernel with the B-aware row maps; the riffle, order
+crossover and several generations per launch take B = 1, as in JAX.
+
 There is no fallback between device and CPU: the device is the
 config's, and a missing card is an error.
 """
@@ -353,7 +359,7 @@ class PGA:
                 tournament_size=c.tournament_size, selection=c.selection,
                 selection_param=c.selection_param, crossover=cross,
                 const_carrying=bool(getattr(expr_obj, "kernel_rowwise_consts", ())),
-                gene_dtype=c.gene_dtype,
+                gene_dtype=c.gene_dtype, subblock=c.subblock,
             ) is not None
         )
 
@@ -397,7 +403,7 @@ class PGA:
             selection=c.selection, selection_param=c.selection_param,
             crossover=self._crossover_kind(), mutate=self._mutate_kind(),
             mparams=self._mutate_params(), layout=c.layout, device=self.device,
-            gene_dtype=c.gene_dtype,
+            gene_dtype=c.gene_dtype, subblock=c.subblock,
         )
 
     def _panmictic_breed(self) -> Callable:

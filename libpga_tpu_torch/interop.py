@@ -46,6 +46,7 @@ PGA_FIELDS = {
     "deme_size": "pallas_deme_size",
     "generations_per_launch": "pallas_generations_per_launch",
     "layout": "pallas_layout",
+    "subblock": "pallas_subblock",
 }
 # JAX fields carried under another form: use_pallas -> use_deme_kernel,
 # gene_dtype by its name.
@@ -63,7 +64,6 @@ ACCEPTED_FIELDS = {
 # that ports them). Any other value raises NotImplementedError.
 UNPORTED_FIELDS = {
     "pop_shards": ((1,), "ROADMAP Queue A item 6 (sharding)"),
-    "pallas_subblock": ((None, 1), "ROADMAP Queue B item 8 (the sub-block pipeline)"),
     "telemetry": ((None,), "ROADMAP Queue A item 3 (run state: telemetry)"),
     "validate": ((False,), "ROADMAP Queue A item 3 (run state: validation)"),
 }
@@ -72,10 +72,11 @@ UNPORTED_FIELDS = {
 def pga_config_from_fields(obj, device: str = "cuda") -> PGAConfig:
     """The port's :class:`PGAConfig` with the field values of ``obj``
     (for example the JAX package's ``PGAConfig``): ``pallas_deme_size``,
-    ``pallas_generations_per_launch`` and ``pallas_layout`` lose their
-    prefix, ``use_pallas`` (None = auto) becomes ``use_deme_kernel``
-    (True unless False), and ``gene_dtype`` maps by its name ("float32",
-    "bfloat16"; float32 where ``obj`` has none). ``ACCEPTED_FIELDS`` are
+    ``pallas_generations_per_launch``, ``pallas_layout`` and
+    ``pallas_subblock`` lose their prefix, ``use_pallas`` (None = auto)
+    becomes ``use_deme_kernel`` (True unless False), and ``gene_dtype``
+    maps by its name ("float32", "bfloat16"; float32 where ``obj`` has
+    none). ``ACCEPTED_FIELDS`` are
     read past with the reason given there; a field of
     ``UNPORTED_FIELDS`` set to anything but "off" raises
     ``NotImplementedError`` naming the ROADMAP item that ports it."""

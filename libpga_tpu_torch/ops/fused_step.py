@@ -87,11 +87,22 @@ from one sort over (I*G, K), each island has its own launch seed, and
 injected draws a leading island axis. Each island computes exactly what a
 single-population launch of its tensors and seed computes; the plain
 versions breed the islands' demes as the demes of one population.
+
+**The sub-block pipeline** (``PGAConfig.subblock`` = B > 1, JAX's
+``pallas_subblock``, B8): a ping-pong group grows to ``B*D*K`` rows and
+children interleave within each sub-block of D demes, so B changes the
+row maps (and may change D) but not what a deme computes. Uniform
+crossover with builtin hooks launches ``deme_pipelined_kernel``, a
+persistent kernel that stages the next gene slab of its demes in shared
+memory while it breeds the current one; expression hooks launch the
+expression breed with the B-aware maps. The riffle, order crossover and
+the multi-generation kernels take B = 1.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional, Sequence
 
@@ -392,9 +403,13 @@ def multigen_d_default(gene_dtype=torch.float32) -> int:
 class Geometry:
     """Resolved breed geometry. ``G`` demes of ``K`` rows over ``Pp``
     padded rows; ``D`` demes per group (ping-pong: ``S`` groups of
-    ``W = D*K`` rows, parity-1 comb quantum ``q``). ``layout`` is
-    "pingpong", "riffle" or, for the floor harness's ``no_riffle``,
-    "contig" (the riffle's cohorts, child k of deme g at row g*K + k)."""
+    ``W = B*D*K`` rows, parity-1 comb quantum ``q``). ``B`` is the
+    ping-pong sub-block depth (JAX's ``subblock``): a group holds ``B``
+    sub-blocks of ``D`` demes, and children interleave within each
+    sub-block (:func:`pingpong_child_rows`); 1 everywhere else.
+    ``layout`` is "pingpong", "riffle" or, for the floor harness's
+    ``no_riffle``, "contig" (the riffle's cohorts, child k of deme g at
+    row g*K + k)."""
 
     layout: str
     P: int
@@ -404,13 +419,14 @@ class Geometry:
     D: int
     Pp: int
     q: int
+    B: int = 1
     _maps: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False
     )
 
     @property
     def S(self) -> int:
-        return self.Pp // (self.D * self.K)
+        return self.Pp // (self.B * self.D * self.K)
 
     @property
     def parities(self) -> int:
@@ -437,9 +453,9 @@ class Geometry:
                     + np.arange(G, dtype=np.int64)[:, None]
                 )
             else:
-                W = self.D * K
+                W = self.B * self.D * K
                 read = pingpong_perm(parity, self.Pp, W, self.q)
-                write = pingpong_child_rows(parity, self.Pp, K, self.q, self.D)
+                write = pingpong_child_rows(parity, self.Pp, K, self.q, self.D, self.B)
             self._maps[key] = (
                 torch.as_tensor(read.reshape(G, K), device=device),
                 torch.as_tensor(write.reshape(G, K), device=device),
@@ -464,6 +480,7 @@ def resolve_geometry(
     const_carrying: bool = False,
     gene_dtype=torch.float32,
     ablate: Sequence[str] = (),
+    subblock: Optional[int] = None,
 ) -> Optional[Geometry]:
     """What ``make_pallas_breed`` (or, with ``multigen``,
     ``make_pallas_multigen``) would build for ``gene_dtype`` genes
@@ -495,12 +512,22 @@ def resolve_geometry(
     (``layout="pingpong"`` then raises); with ``no_riffle`` the riffle's
     cohorts take the contiguous row map ("contig").
 
+    ``subblock`` (JAX's ``pallas_subblock``; None is 1) is the ping-pong
+    sub-block depth B: a D qualifies when ``G % (B*D) == 0`` and the
+    mixing gate admits groups of ``B*D*K`` rows, so B can change D as
+    well as the row maps. The riffle, order crossover, the layout
+    ablation flags and ``multigen`` (JAX's multi-generation factory
+    ignores it) give B = 1; below 1 raises.
+
     None where the JAX factory declines (tournament size outside 1..16,
     under 128 rows, only degenerate padded fits, no K whose order
     scratch fits, order crossover on bfloat16 genes, or the multigen
     elitism gate)."""
     if gene_dtype not in GENE_DTYPES:
         raise ValueError(f"gene_dtype {gene_dtype} is not one of {GENE_DTYPES}")
+    B = 1 if multigen else int(subblock or 1)
+    if B < 1:
+        raise ValueError(f"subblock depth must be >= 1, got {subblock}")
     if not 1 <= tournament_size <= 16:
         return None
     if is_expression(crossover):
@@ -571,12 +598,12 @@ def resolve_geometry(
         return riffle
     pool = [D] if demes_per_step else sorted(d for d in d_candidates if d >= D)
     for d2 in pool:
-        if G % d2 == 0 and pingpong_admissible(d2 * K, Pp, q):
-            return Geometry("pingpong", pop_size, genome_len, K, G, d2, Pp, q)
+        if G % (B * d2) == 0 and pingpong_admissible(B * d2 * K, Pp, q):
+            return Geometry("pingpong", pop_size, genome_len, K, G, d2, Pp, q, B)
     if explicit:
         raise ValueError(
             "layout='pingpong' requested but no demes-per-step"
-            f" satisfies the mixing gate (K={K}, G={G})"
+            f" satisfies the mixing gate (K={K}, G={G}, subblock={B})"
         )
     return riffle
 
@@ -1066,7 +1093,8 @@ def deme_breed_reference(
     warps_per_block: int = 0,
 ):
     """The plain version of the deme-breed kernels (uniform crossover:
-    ``deme_breed_kernel``; order crossover: ``order_breed_kernel``; an
+    ``deme_breed_kernel``, and ``deme_pipelined_kernel`` at a sub-block
+    geometry; order crossover: ``order_breed_kernel``; an
     expression crossover, mutation or ``objective``:
     ``expr_breed_kernel``, with order crossover ``expr_order_kernel``,
     which also takes the coordinate TSP after an expression mutation): one
@@ -1141,8 +1169,9 @@ def deme_breed(
     """One breed launch. On a CUDA tensor it launches the kernel of the
     hooks (an expression crossover, mutation or ``kw["objective"]``: the
     expression breed kernel; else by ``kw["crossover"]``: uniform, the
-    deme-breed kernel; order, the order-breed kernel) and raises if that
-    fails; on a CPU tensor it runs the plain version. Exactly one of
+    deme-breed kernel, or the pipelined deme breed where ``geom.B`` > 1;
+    order, the order-breed kernel) and raises if that fails; on a CPU
+    tensor it runs the plain version. Exactly one of
     ``seed`` (int64 tensor of one element: production Philox mode) or
     ``draws`` (injected mode) is given. ``islands`` = I breeds I
     populations in one launch of that kernel (see
@@ -1158,7 +1187,7 @@ def deme_breed(
         elif kw.get("crossover") == "order":
             launch = kernels.order_breed_cuda
         else:
-            launch = kernels.deme_breed_cuda
+            launch = functools.partial(kernels.deme_breed_cuda, pipelined=geom.B > 1)
         return launch(
             genomes, ranks, geom, parity, seed=seed, draws=draws, out=out, islands=islands,
             **kw,
@@ -1368,6 +1397,7 @@ def make_fused_breed(
     ablate: Sequence[str] = (),
     demes_per_block: int = 1,
     warps_per_block: int = 0,
+    subblock: Optional[int] = None,
 ):
     """One generation of the deme path for a fixed shape and objective,
     the counterpart of ``make_pallas_breed``'s breed: ranks, one launch
@@ -1379,8 +1409,10 @@ def make_fused_breed(
     shapes the geometry as in JAX). ``mparams`` is the mutation's [rate,
     sigma]; ``layout`` forces a row map (JAX's ``pallas_layout``);
     ``gene_dtype`` (float32 or bfloat16) shapes the geometry and is the
-    genomes' dtype. The
-    fused TSP score pairs with order crossover only (with a builtin or
+    genomes' dtype; ``subblock`` (JAX's ``pallas_subblock``) is the
+    ping-pong sub-block depth of :func:`resolve_geometry`, and where it
+    resolves to B > 1 the builtin hooks launch the pipelined deme breed.
+    The fused TSP score pairs with order crossover only (with a builtin or
     an expression mutation): with uniform crossover that objective is
     scored by its rowwise form, as in JAX. Returns
     ``breed(genomes (Pp, L), scores (Pp,), parity, generator, out=None)
@@ -1429,7 +1461,7 @@ def make_fused_breed(
         fused=obj_id != FUSED_NONE or expr_obj is not None,
         crossover=crossover, layout=layout,
         const_carrying=bool(getattr(expr_obj, "kernel_rowwise_consts", ())),
-        gene_dtype=gene_dtype, ablate=ablate,
+        gene_dtype=gene_dtype, ablate=ablate, subblock=subblock,
     )
     if geom is None:
         raise ValueError(
@@ -1533,10 +1565,13 @@ def make_fused_multigen(
     device="cuda",
     gene_dtype=torch.float32,
     ablate: Sequence[str] = (),
+    subblock: Optional[int] = None,
 ):
     """The multi-generation breed for a fixed shape and objective, the
     counterpart of ``make_pallas_multigen`` (``gene_dtype``: the genomes'
-    dtype, float32 or bfloat16, which shapes the geometry). ``crossover`` / ``mutate``
+    dtype, float32 or bfloat16, which shapes the geometry; ``subblock``
+    is accepted and ignored, as JAX's factory ignores ``_subblock``: the
+    sub-block pipeline is the one-generation kernel's). ``crossover`` / ``mutate``
     are builtin kind names or expression operators; the objective fuses
     by its builtin rowwise ``fused_id`` or its expression form
     (``expr_fused``; one with kernel constants is const-carrying, which
@@ -1555,6 +1590,7 @@ def make_fused_multigen(
     ...)``, builtin uniform crossover only): ``no_freeze``,
     ``no_rank_cube`` or a stage flag, checked by
     :func:`validate_ablate`."""
+    del subblock
     ablate = validate_ablate(ablate, multigen=True)
     expr_obj = getattr(objective, "expr_fused", None)
     obj_id = FUSED_NONE if expr_obj is not None else getattr(objective, "fused_id", FUSED_NONE)

@@ -32,8 +32,10 @@ under the same name with "_bf16" appended ("pingpong_bf16",
 (``ablate=`` of the deme and multi-generation wrappers) count apart, so
 none counts as a production launch: "ablate_copy" (the copy case),
 "ablate_breed" (every other ablated one-generation launch) and
-"ablate_multigen" (and "_bf16"). A wrapper adds one where it launches its
-kernel and nowhere else.
+"ablate_multigen" (and "_bf16"). The pipelined deme breed of the
+sub-block pipeline (``deme_breed_cuda(pipelined=True)``) counts as
+"deme_pipelined" ("islands_deme_pipelined"; and "_bf16"). A wrapper adds
+one where it launches its kernel and nowhere else.
 
 Genomes (and the children, ``out`` and the multi-generation work
 buffers, which take the genomes' dtype) are float32 or bfloat16; every
@@ -76,7 +78,8 @@ LAUNCHES = {
     "islands_expr": 0, "islands_expr_order": 0, "islands_expr_multigen": 0,
     "islands_expr_multigen_order": 0, "islands_expr_bf16": 0, "islands_expr_multigen_bf16": 0,
     "ablate_copy": 0, "ablate_breed": 0, "ablate_multigen": 0, "ablate_copy_bf16": 0,
-    "ablate_breed_bf16": 0, "ablate_multigen_bf16": 0,
+    "ablate_breed_bf16": 0, "ablate_multigen_bf16": 0, "deme_pipelined": 0,
+    "islands_deme_pipelined": 0, "deme_pipelined_bf16": 0, "islands_deme_pipelined_bf16": 0,
 }
 TEMPLATES = ("expr_breed",)  # sources built only with generated hooks in front
 
@@ -211,10 +214,19 @@ def _bindings() -> dict:
                 p, p, p, p, p,          # gin, gout, sout, ranks, mparams
                 p, p, p, p, p,          # sel_u, cross, mut_u, gauss, seed
                 i, i, i, i, i,          # P, Pp, L, K, G
-                i, i, i, i,             # mode, S, D, q
+                i, i, i, i, i,          # mode, S, D, q, B
                 i, i, f,                # sel kind, tournament size, sel param
                 i, i, i, i,             # mutate kind, objective id, islands, gene dtype
                 ctypes.c_uint, i, i,    # ablate mask, demes and warps per block
+                p,                      # stream
+            ], i),
+            "deme_pipelined_launch": ([
+                p, p, p, p, p,          # gin, gout, sout, ranks, mparams
+                p, p, p, p, p,          # sel_u, cross, mut_u, gauss, seed
+                i, i, i, i, i,          # P, Pp, L, K, G
+                i, i, i, i, i,          # mode, S, D, q, B
+                i, i, f,                # sel kind, tournament size, sel param
+                i, i, i, i,             # mutate kind, objective id, islands, gene dtype
                 p,                      # stream
             ], i),
             "order_breed_launch": ([
@@ -247,7 +259,7 @@ def _bindings() -> dict:
                 p, p, p, p,             # expression planes, row words, seed, consts
                 p, i, f,                # coords, C, penalty
                 i, i, i, i, i,          # P, Pp, L, K, G
-                i, i, i, i,             # mode, S, D, q
+                i, i, i, i, i,          # mode, S, D, q, B
                 i, i, f,                # sel kind, tournament size, sel param
                 i, i, i, i,             # crossover kind, mutate kind, objective id, warps
                 i, i,                   # islands, gene dtype
@@ -371,8 +383,11 @@ def deme_breed_cuda(
     ablate: tuple = (),
     demes_per_block: int = 1,
     warps_per_block: int = 0,
+    pipelined: bool = False,
 ):
-    """Launch ``deme_breed_kernel`` of ``csrc/deme_breed.cu`` on the
+    """Launch ``deme_breed_kernel`` (``pipelined``: ``deme_pipelined_kernel``,
+    the sub-block pipeline's persistent kernel, which computes the same
+    function; no ``ablate``) of ``csrc/deme_breed.cu`` on the
     current stream: the kernel counterpart of
     ``fused_step.deme_breed_reference`` (same arguments, uniform
     crossover; float32 or bfloat16 genomes, its float or bf16 case, the
@@ -402,6 +417,9 @@ def deme_breed_cuda(
     if not 1 <= tournament_size <= 16:
         raise ValueError(f"tournament_size {tournament_size} outside 1..16")
     mask = ablate_mask(ablate, ABLATE_DEME_MASKS, "deme_breed_kernel")
+    if pipelined and (ablate or K % 4):
+        raise ValueError("the pipelined deme breed takes no ablate flags and a deme size"
+                         f" that is a multiple of 4 (K={K})")
     copy = bool(mask & ABLATE_BITS["copy_only"])
     if demes_per_block < 1 or G % demes_per_block or (demes_per_block > 1 and not copy):
         raise ValueError(f"demes_per_block {demes_per_block}: the copy's, dividing G={G}")
@@ -435,18 +453,25 @@ def deme_breed_cuda(
         _check(seed, "seed", torch.int64, (n,), dev)
     scores = torch.empty(lead + (Pp,), device=dev) if obj_id else None
     lib = _library("deme_breed")
-    rc = lib.deme_breed_launch(
+    args = (
         genomes.data_ptr(), out.data_ptr(), _ptr(scores), ranks.data_ptr(),
         mparams.data_ptr(),
         _ptr(sel_u), _ptr(cross), _ptr(mut_u), _ptr(gauss),
         _ptr(seed if draws is None else None),
         geom.P, Pp, L, K, G,
-        geom.mode(parity), geom.S, geom.D, geom.q,
+        geom.mode(parity), geom.S, geom.D, geom.q, geom.B,
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
-        MUTATE_IDS[mutate], int(obj_id), n, gene_id, mask, int(demes_per_block),
-        int(warps_per_block), torch.cuda.current_stream(dev).cuda_stream,
+        MUTATE_IDS[mutate], int(obj_id), n, gene_id,
     )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if pipelined:
+        if genomes.data_ptr() % 16 or ranks.data_ptr() % 16:
+            raise ValueError("the pipelined deme breed stages 16-byte aligned genomes and ranks")
+        _raise_on(lib.deme_pipelined_launch(*args, stream), lib, "deme_breed")
+        _count("deme_pipelined" if islands is None else "islands_deme_pipelined", genomes)
+        return out, scores
+    rc = lib.deme_breed_launch(*args, mask, int(demes_per_block), int(warps_per_block), stream)
     _raise_on(rc, lib, "deme_breed")
     if ablate:
         _count("ablate_copy" if copy else "ablate_breed", genomes)
@@ -929,7 +954,7 @@ def expr_breed_cuda(
         _ptr(seed if draws is None else None), program.consts_on(dev).data_ptr(),
         _ptr(coords if C else None), C, float(penalty),
         geom.P, Pp, L, K, G,
-        geom.mode(parity), geom.S, geom.D, geom.q,
+        geom.mode(parity), geom.S, geom.D, geom.q, geom.B,
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
         CROSS_IDS["order" if order else "uniform"], MUTATE_IDS.get(mutate, 0) if mut_op is None else 0,

@@ -2,7 +2,7 @@
 
 Usage: python -m libpga_tpu_torch.tools.ablate_floor [f32|bf16] [--k 512]
            [--d 1] [--pop 1048576] [--len 100] [--rounds 5] [--dsweep]
-           [--tsweep] [--json PATH]
+           [--tsweep] [--subblock-b 2] [--json PATH]
 
 The port's counterpart of ``tools/ablate_floor.py``. A generation of
 ``PGA.run`` is a rank sort (torch, outside the kernel) and one launch of
@@ -29,6 +29,10 @@ production generation beside the kernel's ablated cases (the
   full / full_riffle  the production generation (ping-pong where its
                    mixing gate admits, as PGA.run breeds it) and the same
                    pinned to the riffle
+  subblock         the production generation on ping-pong at sub-block
+                   depth --subblock-b (default 2): groups of B*D demes,
+                   bred by the pipelined deme kernel (B8); left out, with
+                   the reason printed, where no D admits that depth
   --dsweep         copy_riffle at Dc = 1, 2, 4, 8 demes per block (those
                    dividing G) with Dc warps per block, so the running
                    warps stay G at every point and only the block count
@@ -47,8 +51,8 @@ production generation beside the kernel's ablated cases (the
 
 ``--d`` sets the copy variants' demes per block (the kernel's default is
 one deme per block, as the production breed launches). JAX's
-``full_serial``, ``full_nodonate`` and ``subblock`` variants print their
-reason and no number (``NOT_PORTED``).
+``full_serial`` and ``full_nodonate`` variants print their reason and no
+number (``NOT_PORTED``).
 
 Every variant is timed interleaved over ``--rounds`` rounds in a fixed
 order; each sample is a two-length subtraction (30 and 90 generations)
@@ -83,7 +87,6 @@ NOT_PORTED = {
                    " dimension semantics to choose",
     "full_nodonate": "buffer donation is a jit notion: the port always breeds into the"
                      " other of two buffers",
-    "subblock": "B8, not ported: decided from this harness's numbers (ROADMAP Queue B 8)",
 }
 GENE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -100,20 +103,21 @@ def _population(geom, dtype, device, seed=1):
 
 
 def build_variant(name, dtype, K, pop, L, ablate=(), fused=True, layout=None,
-                  demes_per_block=1, warps_per_block=0,
+                  demes_per_block=1, warps_per_block=0, subblock=None,
                   device="cuda") -> Callable[[int], None]:
     """``run(n)``: n generations of one variant, as ``PGA.run``'s loop
     breeds them (the parity alternating by generation, the children into
     the other buffer, in place under ``alias_io``); ``run.breed`` is the
     breed, ``run.geom`` its geometry. ``fused`` False breeds unscored
-    (the scores stay those of generation 0)."""
+    (the scores stay those of generation 0); ``subblock`` is the
+    ping-pong sub-block depth (JAX's ``_subblock``)."""
     from libpga_tpu_torch.objectives import onemax
     from libpga_tpu_torch.ops import fused_step as fs
 
     breed = fs.make_fused_breed(
         pop, L, onemax if fused else None, deme_size=K, layout=layout, device=device,
         gene_dtype=dtype, ablate=ablate, demes_per_block=demes_per_block,
-        warps_per_block=warps_per_block,
+        warps_per_block=warps_per_block, subblock=subblock,
     )
     geom = breed.geom
     g0, s0 = _population(geom, dtype, device)
@@ -322,6 +326,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--dsweep", action="store_true")
     ap.add_argument("--tsweep", action="store_true")
+    ap.add_argument("--subblock-b", type=int, default=2, dest="subblock_b",
+                    help="sub-block depth of the 'subblock' variant")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -332,12 +338,22 @@ def main(argv=None) -> dict:
     def mk(name, **kw):
         return build_variant(name, dtype, K, pop, L, **kw)
 
+    def mk_pp(name, **kw):
+        # The sub-block depth can be inadmissible at a swept shape (the
+        # mixing gate, G % (B*D)): leave the variant out, as JAX's tool does.
+        try:
+            return mk(name, **kw)
+        except ValueError as exc:
+            print(f"# {name}: skipped ({exc})", flush=True)
+            return None
+
     for name, reason in NOT_PORTED.items():
         print(f"# {name}: not measured ({reason})", flush=True)
     copy_kw = dict(fused=False, demes_per_block=Dc)
     runners = {
         "full": mk("full"),
         "full_riffle": mk("full_riffle", layout="riffle"),
+        "subblock": mk_pp("subblock", layout="pingpong", subblock=args.subblock_b),
         "floor": mk("floor", ablate=FLOOR_ABLATE, fused=False),
         "copy_riffle_score": mk("copy_riffle_score", ablate=COPY, demes_per_block=Dc),
         "copy_riffle": mk("copy_riffle", ablate=COPY, **copy_kw),
@@ -346,6 +362,7 @@ def main(argv=None) -> dict:
         "rank_sort": build_rank_sort(dtype, K, pop, L, layout="riffle"),
         "rank_sort_full": build_rank_sort(dtype, K, pop, L),
     }
+    runners = {name: run for name, run in runners.items() if run is not None}
     for run in runners.values():
         run(3)  # builds and first launches before the interleave
     med = measure_interleaved(runners, args.rounds)
@@ -418,7 +435,7 @@ def main(argv=None) -> dict:
         "device": torch.cuda.get_device_name(0), "dtype": args.dtype, "K": K,
         "demes_per_block": Dc, "pop": pop, "genome_len": L, "rounds": args.rounds,
         "variants": {n: {"layout": r.geom.layout, "K": r.geom.K, "D": r.geom.D,
-                         "blocks": getattr(r, "blocks", None)}
+                         "B": r.geom.B, "blocks": getattr(r, "blocks", None)}
                      for n, r in runners.items()},
         "medians_ms_per_gen": med, "dropped_samples": med.dropped,
         "copy_bound_ms": copy_bound_ms(geom, gene_bytes),

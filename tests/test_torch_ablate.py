@@ -450,3 +450,23 @@ def test_copy_bound_counts_the_copy_s_bytes(dtype, scored):
     assert port_af.copy_bound_ms(geom, gb, scored) == pytest.approx(want, rel=1e-12)
     if dtype == torch.float32 and not scored:
         assert round(port_af.copy_bound_ms(geom, gb), 4) == 0.2504
+
+
+def test_subblock_variant_builds_with_the_reduced_grid():
+    """The harness's ``subblock`` variant (JAX's ``tools/ablate_floor.py``
+    variant: ping-pong at ``--subblock-b``, default 2) breeds B*D demes a
+    group, so its grid (S groups) is half the ping-pong one's, as JAX's
+    ``kernel_plan`` says; JAX's own
+    ``test_subblock_variant_runs_with_reduced_grid`` fails under jax 0.9.0.
+    At this file's 512 rows no demes-per-step admits B = 2 without pinning
+    D (JAX's test pins D = 2; both resolvers refuse it unpinned), so the
+    variant runs at 2,048x16."""
+    pop = 2048
+    assert "subblock" not in port_af.NOT_PORTED
+    full = port_af.build_variant("full", torch.float32, K, pop, L, layout="pingpong", device="cpu")
+    run = port_af.build_variant("subblock", torch.float32, K, pop, L, layout="pingpong",
+                                subblock=2, device="cpu")
+    plan = ps.kernel_plan(pop, L, deme_size=K, layout="pingpong", subblock=2)
+    assert (run.geom.B, run.geom.S, run.geom.D) == (2, plan["grid_steps"], plan["demes_per_step"])
+    assert run.geom.S * 2 == full.geom.S
+    run(3)

@@ -94,6 +94,13 @@ def test_round_trip_of_a_non_default_field(field):
 @pytest.mark.parametrize("field,off", [("pallas_subblock", 1), ("pop_shards", 1),
                                        ("validate", False), ("telemetry", None)])
 def test_unported_fields_at_off_cross(field, off):
+    """An unported field at its "off" value crosses as the port's default.
+    ``pallas_subblock`` is ported now (the port's ``subblock``): it crosses
+    at any value >= 1, ``off`` among them."""
+    if field in interop.PGA_FIELDS.values():
+        for value in (off, 2, 4):
+            assert _port(**{field: value}) == PGAConfig(device="cpu", subblock=value)
+        return
     assert _port(**{field: off}) == PGAConfig(device="cpu")
 
 

@@ -1530,3 +1530,109 @@ def test_ablated_kernels_reject_bad_arguments(cuda_device):
     with pytest.raises(ValueError, match="ablated cases"):
         kernels.multigen_breed_cuda(g, g.sum(dim=1), mg, 0, 1, math.inf, seed=seed, mparams=mp,
                                     obj_id=onemax.fused_id, ablate=("copy_only",))
+
+
+# ------------------------------------------------- the sub-block pipeline
+
+# (P, L, gene dtype, B, islands, mutate, gene_atol): JAX's sub-block
+# geometries (resolve_geometry(subblock=B)); 8,000 rows pad; L = 33 at bf16
+# stages 2-byte-aligned rows by plain copies, L = 300 crosses 128-gene tiles.
+PIPE_VARIANTS = [
+    (65_536, 100, torch.float32, 2, None, "point", 0.0),
+    (65_536, 100, torch.float32, 4, None, "point", 0.0),
+    (65_536, 100, torch.bfloat16, 2, None, "point", 0.0),
+    (16_384, 100, torch.float32, 2, 8, "point", 0.0),
+    (16_384, 100, torch.bfloat16, 2, 8, "point", 0.0),
+    (65_536, 300, torch.float32, 2, None, "gaussian", 1e-6),
+    (65_536, 33, torch.bfloat16, 2, None, "swap", 0.0),
+    (8_000, 100, torch.float32, 2, None, "point", 0.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", PIPE_VARIANTS,
+                         ids=lambda v: f"{v[0]}x{v[1]}-{str(v[2])[6:]}-B{v[3]}-I{v[4]}-{v[5]}")
+def test_pipelined_kernel_equals_plain_on_card(cuda_device, variant):
+    """deme_pipelined_kernel equals its plain version (and deme_breed_kernel
+    at the same geometry) on the same inputs, Philox and injected draws,
+    both parities, one population or 8 islands; it launches where the
+    geometry's B is above 1 and counts under its own name."""
+    P, L, dtype, B, islands, mutate, atol = variant
+    geom = fs.resolve_geometry(P, L, gene_dtype=dtype, subblock=B)
+    assert geom.layout == "pingpong" and geom.B == B
+    n = islands or 1
+    lead = () if islands is None else (islands,)
+    gen = torch.Generator(device=cuda_device).manual_seed(P + L + B)
+    g = torch.rand(lead + (geom.Pp, L), generator=gen, device=cuda_device).to(dtype)
+    s = g.float().sum(dim=-1)
+    s[..., P:] = -torch.inf
+    kw = dict(tournament_size=3, mutate=mutate, obj_id=onemax.fused_id,
+              mparams=torch.tensor([0.3, 0.05], device=cuda_device))
+    key = ("deme_pipelined" if islands is None else "islands_deme_pipelined") + (
+        "_bf16" if dtype == torch.bfloat16 else "")
+    for parity in range(2):
+        tie = fs.draw_tie_words(gen, n * geom.Pp, cuda_device).view(lead + (geom.Pp,))
+        ranks = fs.compute_ranks(s, geom, parity, tie)
+        seed = torch.randint(0, 2**62, (n,), generator=gen, device=cuda_device)
+        draw = fs.philox_draws if islands is None else fs.island_philox_draws
+        draws = draw(seed, geom.G, geom.K, L, mutate)
+        want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
+        before = kernels.LAUNCHES[key]
+        for got in (fs.deme_breed(g, ranks, geom, parity, seed=seed, islands=islands, **kw),
+                    fs.deme_breed(g, ranks, geom, parity, draws=draws, islands=islands, **kw)):
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got[0], want[0], rtol=0, atol=atol)
+            torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-3)
+        assert kernels.LAUNCHES[key] == before + 2
+        base = kernels.deme_breed_cuda(g, ranks, geom, parity, seed=seed, islands=islands, **kw)
+        torch.testing.assert_close(
+            fs.deme_breed(g, ranks, geom, parity, seed=seed, islands=islands, **kw)[0], base[0],
+            rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_pipelined_kernel_rejects_bad_arguments(cuda_device):
+    geom = fs.resolve_geometry(65_536, 100, subblock=2)
+    g = torch.rand((geom.Pp, 100), device=cuda_device)
+    ranks = torch.zeros((geom.G, geom.K), dtype=torch.int32, device=cuda_device)
+    seed = torch.tensor([1], dtype=torch.int64, device=cuda_device)
+    mp = torch.tensor([0.01, 0.0], device=cuda_device)
+    with pytest.raises(ValueError, match="ablate"):
+        kernels.deme_breed_cuda(g, ranks, geom, 0, seed=seed, mparams=mp, pipelined=True,
+                                ablate=("no_mut",))
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.rand(geom.Pp * 100 + 1, device=cuda_device)
+        kernels.deme_breed_cuda(flat[1:].view(geom.Pp, 100), ranks, geom, 0, seed=seed,
+                                mparams=mp, pipelined=True)
+    with pytest.raises(ValueError, match="alias"):
+        kernels.deme_breed_cuda(g, ranks, geom, 0, seed=seed, mparams=mp, pipelined=True, out=g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_engine_on_card_runs_subblock_through_the_pipelined_kernel(cuda_device, dtype):
+    """``PGA.run`` and ``run_islands`` at ``subblock=2`` launch the pipelined
+    kernel once a generation and nothing else; the best rises."""
+    from libpga_tpu_torch import PGAConfig
+    from libpga_tpu_torch import pga_create_population, pga_init, pga_run, pga_run_islands
+    from libpga_tpu_torch import pga_set_objective_function
+
+    bf = "_bf16" if dtype == torch.bfloat16 else ""
+    p = pga_init(0, PGAConfig(subblock=2, gene_dtype=dtype))
+    h = pga_create_population(p, 65_536, 100)
+    pga_set_objective_function(p, "onemax")
+    start = float(p.population(h).genomes.float().sum(dim=1).max())
+    kernels.reset_launches()
+    assert pga_run(p, 12) == 12
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0), "deme_pipelined" + bf: 12}
+    assert p.get_best_with_score(h)[1] > start
+    q = pga_init(1, PGAConfig(subblock=2, gene_dtype=dtype))
+    for _ in range(4):
+        pga_create_population(q, 16_384, 100)
+    pga_set_objective_function(q, "onemax")
+    kernels.reset_launches()
+    assert pga_run_islands(q, 20, 10, 0.05) == 20
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0),
+                                "islands_deme_pipelined" + bf: 20}
