@@ -249,6 +249,24 @@ Phases, each printing one line; any failure exits non-zero:
      131,072x100 (200 generations): launches of the pipelined kernel equal
      generations and nothing else launches, the best rises; gens/s beside
      the subblock=None runs of this call and a torch.profiler busy share.
+ 31. shard_compare: population sharding (B9), the sharded run's launch of
+     the island breed over S shards at elitism 0 (deme_breed_kernel, or
+     expr_breed_kernel with the creep expression) at 1,048,576x128, S = 4
+     and 8 float32, 4 bf16 and 4 with creep, against its plain version on
+     Philox draws replayed from the solver's step and the same draws
+     injected, both parities: genomes bit for bit, scores within
+     SCORE_ATOL. Times the launch, the whole step, the plain version and
+     the unsharded deme_breed_kernel at 1,048,576x128 beside the bound;
+ 32. shard_run: PGA.run at pop_shards = S through the pga_* API: those four
+     cases and pop_shards=1 at 1,048,576x128 (100 generations; launches of
+     the sharded counter, or of the unsharded kernel, equal generations and
+     nothing else launches; the best rises; the scores are the onemax;
+     gens/s, a torch.profiler busy share at S = 1 and 4), the giant
+     16,777,216x128 at S = 8 (one step of its solver first, 32,768 blocks
+     in one launch and offsets past 2^31 bytes, shards 0 and 7 held
+     against the plain version on both parities; then 10 generations,
+     the best rises) and the panmictic route at 65,536x64, S = 4, which
+     launches nothing. The sharded launch counts as an island launch.
 The earlier OneMax, GP and TSP runs keep their depths; the whole script
 takes about five minutes on the card. Then one JSON line of per-kernel numbers, the card's name and power
 limit, and last the result line. With --log FILE every line printed
@@ -488,6 +506,17 @@ SUBBLOCK_REPLACES = "libpga_tpu/ops/pallas_step.py:1287"  # _pp_breed_kernel, B 
 SUBBLOCK_RUN_GENS = 200
 # Genes -> gene slabs a K = 512 float32 deme stages in (deme_breed.cu's slab_plan).
 SUBBLOCK_SLAB_SWEEP = {32: 1, 64: 2, 100: 3, 128: 4, 256: 8}
+# Population sharding (B9): OneMax at the kernel route's exact fit (L a
+# multiple of 128, no pad rows a shard). (case, shards, gene dtype,
+# mutation: None = point, or the creep expression), each also a run.
+SHARD_SHAPE = (1 << 20, 128)
+SHARD_CASES = [("S4-f32", 4, "float32", None), ("S8-f32", 8, "float32", None),
+               ("S4-bf16", 4, "bfloat16", None), ("S4-creep", 4, "float32", "creep")]
+SHARD_REPLACES = ("libpga_tpu/ops/pallas_step.py:1173",  # _pp_breed_kernel, at the shard shape
+                  "libpga_tpu/engine.py:1381")  # _sharded_local_step, which builds it
+SHARD_RUN_GENS = 100
+SHARD_GIANT, SHARD_GIANT_GENS = (1 << 24, 128, 8), 10  # P, L, S: 8.6 GB a buffer
+SHARD_PANMICTIC = (65_536, 64, 4)  # bench.py:88-91, the JAX bench's sharded arm
 MEAN_RANK_BAND = (1 / 3 - 0.004, 1 / 3 + 0.002)  # E = 1/3 - O(1/K)
 CROSS_BAND = (0.495, 0.505)
 MUTATION_RATE = 0.01
@@ -3671,6 +3700,213 @@ def phase_subblock_run(port, kernels, results, single, islands_single):
     torch.cuda.empty_cache()
 
 
+def shard_solver(port, P, L, S, dtype_name="float32", mutate=None, seed=1):
+    """A solver of one P x L OneMax population at ``pop_shards=S`` through
+    the pga_* API (``mutate`` "creep": the creep expression)."""
+    import torch
+
+    pga = port.pga_init(seed=seed, config=port.PGAConfig(
+        pop_shards=S, gene_dtype=getattr(torch, dtype_name)))
+    port.pga_create_population(pga, P, L)
+    port.pga_set_objective_function(pga, "onemax")
+    if mutate == "creep":
+        port.pga_set_mutate_function(pga, port.mutate_from_expression(CREEP, rate=0.05, sigma=0.1))
+    return pga
+
+
+def shard_key(dtype_name, mutate) -> str:
+    """The counter of a sharded run's launch: the island breed's."""
+    return ("islands_expr" if mutate else "islands") + ("_bf16" if dtype_name == "bfloat16" else "")
+
+
+def phase_shard_compare(port, fs, kernels, device, results):
+    """The sharded run's launch (B9: the island breed over the S shards,
+    elitism 0) at 1,048,576x128 against its plain version, both parities:
+    the step the solver builds, on Philox draws replayed from its
+    generator, and the same launch on those draws injected; genomes bit
+    for bit, scores within SCORE_ATOL. Times the launch, the whole step
+    (ranks and seeds included), the plain version and the unsharded
+    deme_breed_kernel at 1,048,576x128 by CUDA events, beside the bound
+    (breed_bound over each shard)."""
+    import torch
+
+    P, L = SHARD_SHAPE
+    for name, S, dtype_name, mutate in SHARD_CASES:
+        dtype = getattr(torch, dtype_name)
+        pga = shard_solver(port, P, L, S, dtype_name, mutate)
+        check(pga.sharded_kernel_route(P // S, L), f"shards {name}: not on the kernel route")
+        step, _ = pga._sharded_local_step(P // S, L)
+        geom, kw = step.breed.geom, step.breed.kw
+        key = shard_key(dtype_name, mutate)
+        gen = torch.Generator(device=device).manual_seed(S)
+        g = torch.rand((S, geom.Pp, L), generator=gen, device=device).to(dtype)
+        s = g.float().sum(dim=-1)
+        errs = []
+        for parity in range(geom.parities):
+            before = kernels.LAUNCHES[key]
+            got = step(g, s, parity, torch.Generator(device=device).manual_seed(parity))
+            replay = torch.Generator(device=device).manual_seed(parity)
+            tie = fs.draw_tie_words(replay, S * geom.Pp, device).view(S, geom.Pp)
+            ranks = fs.compute_ranks(s, geom, parity, tie)
+            seeds = torch.randint(0, 2**63 - 1, (S,), generator=replay, device=device)
+            draws = fs.island_philox_draws(seeds, geom.G, geom.K, L, kw["mutate"],
+                                           kw["crossover"])
+            injected = fs.deme_breed(g, ranks, geom, parity, draws=draws, islands=S, **kw)
+            want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
+            torch.cuda.synchronize()
+            tag = f"shards {name} parity {parity}"
+            check(kernels.LAUNCHES[key] == before + 2, f"{tag}: {key} did not launch")
+            for mode, out in (("philox", got), ("injected", injected)):
+                check(torch.equal(out[0], want[0]), f"{tag} {mode}: genomes differ")
+                err = float((out[1] - want[1]).abs().max())
+                check(err <= SCORE_ATOL, f"{tag} {mode}: score error {err}")
+                errs.append(err)
+        out = torch.empty_like(g)
+        ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seeds, islands=S, out=out,
+                                           **kw), 20)
+        step_ms = cuda_ms(lambda: step(g, s, 0, gen), 20)
+        plain_ms = cuda_ms(lambda: fs.deme_breed_reference(g, ranks, geom, 0, draws, **kw), 2)
+        one = fs.resolve_geometry(P, L, gene_dtype=dtype)
+        g1, out1 = g.view(P, L), out.view(P, L)
+        r1 = fs.compute_ranks(s.view(P), one, 0, fs.draw_tie_words(gen, P, device))
+        unsharded_ms = cuda_ms(lambda: fs.deme_breed(g1, r1, one, 0, seed=seeds[:1], out=out1,
+                                                     **kw), 20)
+        bound_ms, bound_by = breed_bound(geom, 2 if dtype == torch.bfloat16 else 4)
+        line = {"phase": "shard_compare", "case": name, "shape": [P, L], "shards": S,
+                "gene_dtype": dtype_name, "mutate": mutate or "point", "layout": geom.layout,
+                "K": geom.K, "D": geom.D, "shard_rows": geom.Pp, "genomes_equal": True,
+                "max_abs_err": max(errs), "score_atol": SCORE_ATOL, "ms": ms, "step_ms": step_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms * S, "bound_by": bound_by,
+                "unsharded_ms": unsharded_ms, "unsharded_layout": one.layout,
+                "unsharded_D": one.D}
+        print(json.dumps(line), flush=True)
+        results[name] = line
+        port.pga_deinit(pga)
+        del g, s, out, g1, out1, pga
+        torch.cuda.empty_cache()
+
+
+def shard_giant_check(port, fs, pga, P, L, S, device) -> float:
+    """One step of a sharded solver's kernel route on its own population
+    (at 16,777,216x128, S = 8: 32,768 blocks in one launch, shard 7 past
+    2^31 bytes), both parities, shards 0 and S-1 each held against the
+    plain version built from its slice of the genomes, its ranks and its
+    Philox draws: genomes bit for bit, scores within SCORE_ATOL. Returns
+    the largest score error."""
+    import torch
+
+    Ps = P // S
+    check(pga.sharded_kernel_route(Ps, L), "shard giant: not on the kernel route")
+    step, _ = pga._sharded_local_step(Ps, L)
+    geom, kw = step.breed.geom, step.breed.kw
+    g = pga.population(port.PopulationHandle(0)).genomes.view(S, Ps, L)
+    s = g.float().sum(dim=-1)
+    errs = []
+    for parity in range(geom.parities):
+        got_g, got_s = step(g, s, parity, torch.Generator(device=device).manual_seed(parity))
+        replay = torch.Generator(device=device).manual_seed(parity)
+        tie = fs.draw_tie_words(replay, S * geom.Pp, device).view(S, geom.Pp)
+        ranks = fs.compute_ranks(s, geom, parity, tie).view(S, geom.G, geom.K)
+        seeds = torch.randint(0, 2**63 - 1, (S,), generator=replay, device=device)
+        for i in (0, S - 1):
+            draws = fs.island_philox_draws(seeds[i:i + 1], geom.G, geom.K, L, kw["mutate"],
+                                           kw["crossover"])
+            want_g, want_s = fs.deme_breed_reference(g[i:i + 1], ranks[i], geom, parity, draws,
+                                                     **kw)
+            tag = f"shard giant parity {parity} shard {i}"
+            check(torch.equal(got_g[i], want_g[0]), f"{tag}: genomes differ")
+            err = float((got_s[i] - want_s[0]).abs().max())
+            check(err <= SCORE_ATOL, f"{tag}: score error {err}")
+            errs.append(err)
+            del draws, want_g, want_s
+        del got_g, got_s, tie, ranks
+        torch.cuda.empty_cache()
+    return max(errs)
+
+
+def phase_shard_run(port, fs, kernels, device, results):
+    """PGA.run at pop_shards > 1 through the pga_* API, the counts set to 0
+    just before each run and read just after: every SHARD_CASES case at
+    1,048,576x128 for 100 generations after a warm-up (launches of its
+    island counter equal the generations and nothing else launches; the
+    best rises; the scores are the genomes' onemax), S = 4 float32 beside
+    pop_shards=1 at the same shape with a torch.profiler window each; the
+    giant population 16,777,216x128 at S = 8, first one step against the
+    plain version (:func:`shard_giant_check`), then a run whose best must
+    rise; and the panmictic route at 65,536x64, S = 4, which launches
+    nothing."""
+    import torch
+
+    def timed(pga, gens, tag):
+        """Warm up (both parities), then ``gens`` generations: (seconds,
+        launches, best before, best after); the scores must be the genomes'
+        onemax."""
+        h = port.PopulationHandle(0)
+        start_best = float(pga.population(h).genomes.float().sum(dim=1).max())
+        check(port.pga_run(pga, WARMUP_GENS) == WARMUP_GENS, f"{tag}: warm-up")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        ran = port.pga_run(pga, gens)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        pop = pga.population(h)
+        _, best = pga.get_best_with_score(h)
+        check(ran == gens, f"{tag}: ran {ran} generations")
+        check(best > start_best, f"{tag}: best {start_best} -> {best}")
+        check(bool(torch.isclose(pop.scores, pop.genomes.float().sum(dim=1), rtol=0,
+                                 atol=SCORE_ATOL).all()), f"{tag}: scores are not the onemax")
+        return seconds, launches, start_best, best
+
+    P, L = SHARD_SHAPE
+    for name, S, dtype_name, mutate in [("S1-f32", 1, "float32", None), *SHARD_CASES]:
+        pga = shard_solver(port, P, L, S, dtype_name, mutate)
+        seconds, launches, start_best, best = timed(pga, SHARD_RUN_GENS, f"shard run {name}")
+        key = pga._deme_geometry(P, L).layout if S == 1 else shard_key(dtype_name, mutate)
+        check(launches == {key: SHARD_RUN_GENS}, f"shard run {name}: launches {launches}")
+        ms_per_gen = 1e3 * seconds / SHARD_RUN_GENS
+        line = {"phase": "shard_run", "case": name, "shape": [P, L], "shards": S,
+                "gene_dtype": dtype_name, "mutate": mutate or "point", "gens": SHARD_RUN_GENS,
+                "launches": launches, "gens_per_s": SHARD_RUN_GENS / seconds,
+                "ms_per_gen": ms_per_gen, "start_best": start_best, "best": best}
+        if name in ("S1-f32", "S4-f32"):
+            line.update(profile_generations(port, pga, ms_per_gen))
+        print(json.dumps(line), flush=True)
+        results.setdefault(name, {}).update(launches=launches[key], run=line)
+        port.pga_deinit(pga)
+        del pga
+        torch.cuda.empty_cache()
+
+    P, L, S = SHARD_GIANT
+    torch.cuda.reset_peak_memory_stats()
+    pga = shard_solver(port, P, L, S)
+    giant_err = shard_giant_check(port, fs, pga, P, L, S, device)
+    seconds, launches, start_best, best = timed(pga, SHARD_GIANT_GENS, "shard giant")
+    check(launches == {"islands": SHARD_GIANT_GENS}, f"shard giant: launches {launches}")
+    print(json.dumps({"phase": "shard_run", "case": "giant-S8", "shape": [P, L], "shards": S,
+                      "gens": SHARD_GIANT_GENS, "launches": launches, "checked_shards": [0, S - 1],
+                      "genomes_equal": True, "max_abs_err": giant_err,
+                      "gens_per_s": SHARD_GIANT_GENS / seconds,
+                      "ms_per_gen": 1e3 * seconds / SHARD_GIANT_GENS, "start_best": start_best,
+                      "best": best, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}),
+          flush=True)
+    port.pga_deinit(pga)
+    del pga
+    torch.cuda.empty_cache()
+
+    P, L, S = SHARD_PANMICTIC
+    pga = shard_solver(port, P, L, S)
+    check(not pga.sharded_kernel_route(P // S, L), "shard panmictic: on the kernel route")
+    seconds, launches, start_best, best = timed(pga, SHARD_RUN_GENS, "shard panmictic")
+    check(launches == {} and pga.launches == 0, f"shard panmictic: launches {launches}")
+    print(json.dumps({"phase": "shard_run", "case": "panmictic-S4", "shape": [P, L],
+                      "shards": S, "gens": SHARD_RUN_GENS, "launches": launches,
+                      "gens_per_s": SHARD_RUN_GENS / seconds, "start_best": start_best,
+                      "best": best}), flush=True)
+    port.pga_deinit(pga)
+
+
 def main() -> int:
     import torch
 
@@ -3761,6 +3997,9 @@ def drive(torch, port, onemax, fs, kernels) -> int:
     phase_subblock_compare(port, fs, onemax, kernels, device, subblock_results)
     phase_subblock_run(port, kernels, subblock_results, results,
                        island_results["deme_breed"]["run"]["gens_per_s"])
+    shard_results = {}
+    phase_shard_compare(port, fs, kernels, device, shard_results)
+    phase_shard_run(port, fs, kernels, device, shard_results)
 
     entries = []
     for layout, r in results.items():
@@ -3931,6 +4170,22 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "subblock_none_gens_per_s": r["run"]["subblock_none_gens_per_s"],
             "device_busy_share": r["run"]["device_busy_share"],
             "b4_ms": subblock_results["f32-B4"]["ms"] if case == "f32-B2" else None,
+        })
+    for name, _, _, mutate in SHARD_CASES:
+        # ms, plain_ms and the bound at 1,048,576x128, parity 0; launches
+        # from the case's shard_run.
+        r = shard_results[name]
+        entries.append({
+            "name": f"{'expr_breed' if mutate else 'deme_breed'}[shards,{name}]", "route": "cuda",
+            "source": "libpga_tpu_torch/csrc/" + ("expr_breed.cu" if mutate else "deme_breed.cu"),
+            "replaces": SHARD_REPLACES[0], "also_replaces": SHARD_REPLACES[1],
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "shape": r["shape"], "shards": r["shards"],
+            "gene_dtype": r["gene_dtype"], "K": r["K"], "D": r["D"], "step_ms": r["step_ms"],
+            "unsharded_ms": r["unsharded_ms"], "gens_per_s": r["run"]["gens_per_s"],
+            "unsharded_gens_per_s": shard_results["S1-f32"]["run"]["gens_per_s"],
+            "device_busy_share": r["run"].get("device_busy_share"),
         })
     print(json.dumps({"kernels": entries}))
     print(smi)

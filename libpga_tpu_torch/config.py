@@ -67,6 +67,12 @@ class PGAConfig:
         cases: each child is computed in float32 and rounded once where it
         is stored, and scored as stored (scores stay float32). Order
         crossover at bfloat16 takes the panmictic path, as JAX's does.
+      pop_shards: shards S of ``PGA.run``'s population (JAX's
+        ``pop_shards``): 1 (default) is the unsharded run; S > 1 splits
+        the population into S shards of P/S rows, stacked on the
+        solver's device, that breed apart and exchange a comb of P/S²
+        rows a generation (``parallel/shard_pop.py``). S² must divide
+        the population size; below 1 raises.
       seed: base seed of the solver's ``torch.Generator``; None draws
         one from OS entropy.
       device: "cuda" (default) or "cpu". There is no automatic CPU
@@ -89,6 +95,7 @@ class PGAConfig:
     layout: Optional[str] = None
     subblock: Optional[int] = None
     gene_dtype: torch.dtype = torch.float32
+    pop_shards: int = 1
     seed: Optional[int] = None
     device: str = "cuda"
     use_deme_kernel: bool = True
@@ -109,6 +116,8 @@ class PGAConfig:
             raise ValueError("layout must be None, 'riffle' or 'pingpong'")
         if self.subblock is not None and self.subblock < 1:
             raise ValueError("subblock must be >= 1")
+        if self.pop_shards < 1:
+            raise ValueError("pop_shards must be >= 1")
         if self.gene_dtype not in GENE_DTYPES:
             raise ValueError(
                 f"gene_dtype {self.gene_dtype} is not supported: use torch.float32"

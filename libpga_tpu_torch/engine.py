@@ -41,6 +41,17 @@ package's ``_pallas_gate`` routes them (``engine.py:855-984``):
   card warns once per cause, as JAX's ``_warn_xla_fallback`` does; the
   GP operators (``xla_only``) stay quiet.
 
+``PGAConfig.pop_shards`` = S > 1 (JAX's ``_run_sharded``) splits
+``run``'s population into S shards of P/S rows, stacked on the solver's
+device, under the sharded loop of ``parallel/shard_pop.py`` (local
+breed, comb mix, re-scoring, global elitism, rank-threshold sketch).
+The shards breed in one launch of the island breed at elitism 0 where
+JAX takes its fused per-shard kernel: the objective has a rowwise fused
+or expression form, both operators have a kernel kind, the shard
+geometry needs no pad rows and the genome length is a multiple of 128
+(JAX's exact fit, :meth:`PGA.sharded_kernel_route`). Every other shape
+breeds each shard with the panmictic breed and launches nothing.
+
 ``run_islands`` evolves every population as an island, migrating the
 top ``pct`` every ``m`` generations (``parallel/islands.py``). Equal
 islands routed to the deme path breed in one launch per generation for
@@ -100,6 +111,7 @@ from libpga_tpu_torch.ops.fused_step import (
 from libpga_tpu_torch.ops.mutate import make_point_mutate
 from libpga_tpu_torch.ops.step import make_breed, run_generations
 from libpga_tpu_torch.ops.topk import best_genome, top_k_genomes
+from libpga_tpu_torch.parallel import shard_pop
 from libpga_tpu_torch.parallel.islands import immigrate, run_islands_stacked
 from libpga_tpu_torch.population import Population, create_population
 
@@ -141,7 +153,8 @@ class PGA:
     ``launches`` counts the breed launches of the runs this solver
     returned: on the deme path one per generation, or one per
     ``generations_per_launch`` generations (the last launch of a run
-    may breed fewer); an island run one per generation for all islands,
+    may breed fewer); a sharded run's kernel route one per generation
+    for all shards; an island run one per generation for all islands,
     or ceil(m / T) per epoch; the panmictic path launches none.
     """
 
@@ -348,19 +361,23 @@ class PGA:
     def uses_deme_kernel(self, size: int, genome_len: int) -> bool:
         """Whether ``run`` takes the deme path for this shape (else the
         panmictic path; see the module docstring)."""
-        c = self.config
-        cross = self._crossover_kind()
-        expr_obj = getattr(self._objective, "expr_fused", None)
         return (
-            cross is not None and self._mutate_kind() is not None
-            and c.use_deme_kernel
-            and resolve_geometry(
-                size, genome_len, deme_size=c.deme_size,
-                tournament_size=c.tournament_size, selection=c.selection,
-                selection_param=c.selection_param, crossover=cross,
-                const_carrying=bool(getattr(expr_obj, "kernel_rowwise_consts", ())),
-                gene_dtype=c.gene_dtype, subblock=c.subblock,
-            ) is not None
+            self._crossover_kind() is not None and self._mutate_kind() is not None
+            and self.config.use_deme_kernel
+            and self._deme_geometry(size, genome_len) is not None
+        )
+
+    def _deme_geometry(self, size: int, genome_len: int):
+        """The deme geometry of a shape under the config and operators,
+        or None where the deme path declines it."""
+        c = self.config
+        expr_obj = getattr(self._objective, "expr_fused", None)
+        return resolve_geometry(
+            size, genome_len, deme_size=c.deme_size,
+            tournament_size=c.tournament_size, selection=c.selection,
+            selection_param=c.selection_param, crossover=self._crossover_kind() or "uniform",
+            const_carrying=bool(getattr(expr_obj, "kernel_rowwise_consts", ())),
+            gene_dtype=c.gene_dtype, subblock=c.subblock,
         )
 
     def _deme_backend_ok(self) -> bool:
@@ -406,9 +423,10 @@ class PGA:
             gene_dtype=c.gene_dtype, subblock=c.subblock,
         )
 
-    def _panmictic_breed(self) -> Callable:
+    def _panmictic_breed(self, elitism: Optional[int] = None) -> Callable:
         """``ops/step.make_breed`` of the active operators (uniform
-        crossover and point mutation where none is set)."""
+        crossover and point mutation where none is set), carrying
+        ``elitism`` elites (the config's where None)."""
         c = self.config
         return make_breed(
             self._crossover or uniform_crossover,
@@ -416,7 +434,7 @@ class PGA:
             tournament_size=c.tournament_size,
             selection_kind=c.selection,
             selection_param=c.selection_param,
-            elitism=c.elitism,
+            elitism=c.elitism if elitism is None else elitism,
         )
 
     def _run_fn(self, size: int, genome_len: int) -> Tuple[Callable, int]:
@@ -460,6 +478,70 @@ class PGA:
                 f"elitism {self.config.elitism} exceeds the population size {size}"
             )
 
+    # ------------------------------------------------------ sharded population
+
+    def sharded_kernel_route(self, shard_size: int, genome_len: int) -> bool:
+        """Whether a sharded run breeds its shards in the kernel (JAX's
+        ``_sharded_local_step``, ``engine.py:1381-1465``): the deme path
+        takes the shard shape, the objective has a rowwise fused or an
+        expression form (JAX's ``kernel_rowwise``), and the geometry is
+        an exact fit: no pad rows and ``genome_len % 128 == 0`` (JAX
+        needs ``Pp == P/S`` and ``Lp == L``, and pads L to 128 lanes)."""
+        obj = self._require_objective()
+        return (
+            (getattr(obj, "fused_id", None) in ROWWISE_FUSED
+             or getattr(obj, "expr_fused", None) is not None)
+            and genome_len % 128 == 0
+            and self.uses_deme_kernel(shard_size, genome_len)
+            and self._deme_geometry(shard_size, genome_len).Pp == shard_size
+        )
+
+    def _sharded_local_step(self, shard_size: int, genome_len: int) -> Tuple[Callable, int]:
+        """The step that breeds every shard of a sharded run at once,
+        ``(g (S, Ps, L), s (S, Ps), gen, generator) -> (g2, s2 | None)``,
+        without elites (the loop applies global elitism), and its
+        launches per generation. On the kernel route
+        (:meth:`sharded_kernel_route`) one launch of the island breed
+        over the S shards, its parity on ``gen & 1`` where the geometry
+        is ping-pong (``step.breed`` is that breed, and its launches
+        count as island launches in ``kernels.LAUNCHES``). Elsewhere the
+        panmictic breed, shard by shard, and no launch."""
+        S = self.config.pop_shards
+        if self.sharded_kernel_route(shard_size, genome_len):
+            breed = make_island_breed(shard_size, genome_len, self._objective, S,
+                                      elitism=0, **self._deme_kw())
+
+            def step(g, s, gen, generator):
+                return breed(g, s, gen % breed.geom.parities, generator)
+
+            step.breed = breed
+            return step, 1
+        breed0 = self._panmictic_breed(elitism=0)
+
+        def step(g, s, gen, generator):
+            return torch.stack([breed0(g[i], s[i], generator) for i in range(S)]), None
+
+        return step, 0
+
+    def _sharded_run(self, size: int, genome_len: int) -> Tuple[Callable, int]:
+        """The sharded run loop of a shape (``shard_pop.make_sharded_run``
+        over :meth:`_sharded_local_step`) and its launches per generation
+        (1 on the kernel route, else 0), cached like :meth:`_run_fn`
+        until the objective or an operator changes. An inadmissible
+        shard count, or more elites than a shard's rows, raises
+        ValueError before anything is built."""
+        S = self.config.pop_shards
+        key = ("shards", S, size, genome_len)
+        if key not in self._runs:
+            shard_pop.check_run(size, S, self.config.elitism)
+            step, per_gen = self._sharded_local_step(size // S, genome_len)
+            if not per_gen:
+                self._warn_panmictic_fallback()
+            fn = shard_pop.make_sharded_run(
+                self._objective, step, size, genome_len, S, elitism=self.config.elitism)
+            self._runs[key] = (fn, per_gen)
+        return self._runs[key]
+
     def run(
         self,
         n: int,
@@ -478,12 +560,20 @@ class PGA:
         hooks alike (objectives with a rowwise fused or an expression
         form; uniform, order or expression crossover); any other
         objective (the coordinate TSP among them) warns and breeds one
-        generation per launch."""
+        generation per launch.
+
+        With ``config.pop_shards`` = S > 1 the population breeds as S
+        shards (see the module docstring): an inadmissible S (S² must
+        divide the size) raises ValueError naming the valid counts, and
+        ``generations_per_launch`` is ignored, as JAX builds only its
+        one-generation breed there. The bred population is installed as
+        one (P, L) array; the target reads the global best."""
         self._require_objective()
         handle = population or PopulationHandle(0)
         pop = self._populations[handle.index]
         self._check_elitism(pop.size)
-        fn, per_launch = self._run_fn(pop.size, pop.genome_len)
+        sharded = self.config.pop_shards > 1
+        fn, per_launch = (self._sharded_run if sharded else self._run_fn)(pop.size, pop.genome_len)
         genomes, scores, gens = fn(pop.genomes, int(n), target, self.generator)
         self._populations[handle.index] = Population(genomes=genomes, scores=scores)
         if per_launch:

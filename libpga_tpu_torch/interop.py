@@ -47,6 +47,7 @@ PGA_FIELDS = {
     "generations_per_launch": "pallas_generations_per_launch",
     "layout": "pallas_layout",
     "subblock": "pallas_subblock",
+    "pop_shards": "pop_shards",
 }
 # JAX fields carried under another form: use_pallas -> use_deme_kernel,
 # gene_dtype by its name.
@@ -63,7 +64,6 @@ ACCEPTED_FIELDS = {
 # JAX fields the port lacks: (the values that mean "off", the ROADMAP item
 # that ports them). Any other value raises NotImplementedError.
 UNPORTED_FIELDS = {
-    "pop_shards": ((1,), "ROADMAP Queue A item 6 (sharding)"),
     "telemetry": ((None,), "ROADMAP Queue A item 3 (run state: telemetry)"),
     "validate": ((False,), "ROADMAP Queue A item 3 (run state: validation)"),
 }

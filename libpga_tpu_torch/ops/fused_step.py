@@ -1715,7 +1715,8 @@ def make_island_breed(
     generator, out=None) -> (genomes, scores)``, children into ``out``
     when given (never ``genomes`` itself). ``breed.geom`` is the island
     geometry, ``breed.fused`` whether the kernel scores the children,
-    ``breed.launches`` the kernel launches it has made."""
+    ``breed.launches`` the kernel launches it has made and ``breed.kw``
+    the keywords of its launch (:func:`deme_breed`'s)."""
     single = make_fused_breed(island_size, genome_len, objective, device=device, **kw)
     geom, bkw = single.geom, single.kw
     fused = bkw["obj_id"] != FUSED_NONE or "objective" in bkw
@@ -1740,6 +1741,7 @@ def make_island_breed(
         return out, s2
 
     breed.geom = geom
+    breed.kw = bkw
     breed.fused = fused
     breed.islands = islands
     breed.launches = 0

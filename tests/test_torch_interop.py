@@ -95,11 +95,13 @@ def test_round_trip_of_a_non_default_field(field):
                                        ("validate", False), ("telemetry", None)])
 def test_unported_fields_at_off_cross(field, off):
     """An unported field at its "off" value crosses as the port's default.
-    ``pallas_subblock`` is ported now (the port's ``subblock``): it crosses
-    at any value >= 1, ``off`` among them."""
-    if field in interop.PGA_FIELDS.values():
+    A field ported since (``pallas_subblock`` as the port's ``subblock``,
+    ``pop_shards`` under its own name) crosses at any value >= 1, ``off``
+    among them, under its port name."""
+    ours = {theirs: mine for mine, theirs in interop.PGA_FIELDS.items()}
+    if field in ours:
         for value in (off, 2, 4):
-            assert _port(**{field: value}) == PGAConfig(device="cpu", subblock=value)
+            assert _port(**{field: value}) == PGAConfig(device="cpu", **{ours[field]: value})
         return
     assert _port(**{field: off}) == PGAConfig(device="cpu")
 

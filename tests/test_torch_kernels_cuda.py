@@ -1636,3 +1636,83 @@ def test_engine_on_card_runs_subblock_through_the_pipelined_kernel(cuda_device, 
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0),
                                 "islands_deme_pipelined" + bf: 20}
+
+
+# (P, L, S, gene dtype): sharded runs on the kernel route (B9).
+SHARD_VARIANTS = [
+    (65_536, 128, 4, torch.float32),
+    (65_536, 128, 8, torch.float32),
+    (65_536, 128, 4, torch.bfloat16),
+    (262_144, 256, 8, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", SHARD_VARIANTS,
+                         ids=lambda v: f"{v[0]}x{v[1]}-S{v[2]}-{str(v[3])[6:]}")
+def test_sharded_launch_equals_plain_island_breed_on_card(cuda_device, variant):
+    """The sharded run's step on the kernel route, one launch of the island
+    breed over the S shards at elitism 0, equals the plain island breed on
+    the draws its generator gives (replayed), both parities; the injected
+    draws give the same children; it counts as an island launch."""
+    from libpga_tpu_torch import PGA, PGAConfig
+
+    P, L, S, dtype = variant
+    pp = PGA(seed=0, config=PGAConfig(pop_shards=S, gene_dtype=dtype, mutation_rate=0.05))
+    pp.set_objective("onemax")
+    step, _ = pp._sharded_local_step(P // S, L)
+    geom, kw = step.breed.geom, step.breed.kw
+    assert geom.Pp == P // S and geom.layout == "pingpong"
+    g = torch.rand((S, geom.Pp, L), device=cuda_device).to(dtype)
+    s = g.float().sum(dim=-1)
+    key = "islands" + ("_bf16" if dtype == torch.bfloat16 else "")
+    for gen in (0, 1):
+        before = kernels.LAUNCHES[key]
+        got = step(g, s, gen, torch.Generator(device=cuda_device).manual_seed(gen))
+        replay = torch.Generator(device=cuda_device).manual_seed(gen)
+        tie = fs.draw_tie_words(replay, S * geom.Pp, cuda_device).view(S, geom.Pp)
+        ranks = fs.compute_ranks(s, geom, gen, tie)
+        seeds = torch.randint(0, 2**63 - 1, (S,), generator=replay, device=cuda_device)
+        draws = fs.island_philox_draws(seeds, geom.G, geom.K, L)
+        want = fs.deme_breed_reference(g, ranks, geom, gen, draws, **kw)
+        injected = fs.deme_breed(g, ranks, geom, gen, draws=draws, islands=S, **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[key] == before + 2
+        for out in (got, injected):
+            assert torch.equal(out[0], want[0])
+            torch.testing.assert_close(out[1], want[1], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_engine_on_card_breeds_every_shard_in_one_launch(cuda_device, dtype):
+    """``PGA.run`` at ``pop_shards=4``: at 65,536x128 one launch a
+    generation for all shards and nothing else, the best rising and the
+    scores the genomes' onemax; the creep expression launches the
+    expression kernel the same way; at 65,536x64 (no exact fit) nothing
+    launches."""
+    from libpga_tpu_torch import PGAConfig, mutate_from_expression
+    from libpga_tpu_torch import pga_create_population, pga_init, pga_run
+    from libpga_tpu_torch import pga_set_mutate_function, pga_set_objective_function
+
+    bf = "_bf16" if dtype == torch.bfloat16 else ""
+    for L, mutate, key in ((128, None, "islands" + bf), (128, "creep", "islands_expr" + bf),
+                           (64, None, None)):
+        p = pga_init(0, PGAConfig(pop_shards=4, gene_dtype=dtype))
+        h = pga_create_population(p, 65_536, L)
+        pga_set_objective_function(p, "onemax")
+        if mutate:
+            pga_set_mutate_function(p, mutate_from_expression(
+                "where(r < rate, g + sigma * (2*r2 - 1), g)", rate=0.05, sigma=0.1))
+        start = float(p.population(h).genomes.float().sum(dim=1).max())
+        kernels.reset_launches()
+        assert pga_run(p, 12) == 12
+        torch.cuda.synchronize()
+        want = dict.fromkeys(kernels.LAUNCHES, 0)
+        if key:
+            want[key] = 12
+        assert kernels.LAUNCHES == want and p.launches == (12 if key else 0)
+        pop = p.population(h)
+        assert pop.genomes.shape == (65_536, L) and pop.genomes.dtype == dtype
+        torch.testing.assert_close(pop.scores, pop.genomes.float().sum(dim=1), rtol=0, atol=1e-3)
+        assert p.get_best_with_score(h)[1] > start
