@@ -234,6 +234,24 @@ Phases, each printing one line; any failure exits non-zero:
      slopes, and the T sweep;
      every ablated kernel case must have launched in it (the harness's
      subblock variant included);
+ 28a. hook_floor_compare: the floor harness with hooks (B7's hook cases):
+     each ablated case of expr_breed_kernel (creep 1,048,576x100, trap
+     1,048,576x60), expr_order_kernel (the tour 65,536x200 + swap),
+     order_breed_kernel (the coordinate TSP 8,192x1,000),
+     expr_multigen_kernel<false/true> (creep 1M, the tour, T = 8) and
+     multigen_breed_kernel<true> (OneMax 40,000x100 order + swap, T = 8),
+     and the builtin copy with the creep hook (HOOK_FLOOR_ROWS), against
+     its plain version, injected and Philox draws: genomes bit for bit,
+     scores within the objective's tolerance (multigen at T = 8, the T it
+     is timed at); timed by CUDA events beside the production launch of
+     the same call, the bound (breed_bound: every breed kernel's, the
+     hooks' operations counted from their lowering) and the plain
+     version;
+ 28b. hook_floor_partition: this slice's path, tools/ablate_kernel.py
+     --hooks over every row of HOOK_FLOOR_ROWS (--steps 8 for the T = 8
+     rows), the launch counts set to 0 just before and read just after:
+     every hook kernel's ablated cases and production launches must have
+     launched;
  29. subblock_compare: the sub-block pipeline (B8): deme_pipelined_kernel
      (csrc/deme_breed.cu) at subblock=2 and 4 (1,048,576x100 float32), 2
      (bf16) and 8 x 131,072x100 islands at 2, against its plain version and
@@ -268,7 +286,8 @@ Phases, each printing one line; any failure exits non-zero:
      the best rises) and the panmictic route at 65,536x64, S = 4, which
      launches nothing. The sharded launch counts as an island launch.
 The earlier OneMax, GP and TSP runs keep their depths; the whole script
-takes about five minutes on the card. Then one JSON line of per-kernel numbers, the card's name and power
+takes about five minutes on the card (about 300 s, its build about 60 s).
+Then one JSON line of per-kernel numbers, the card's name and power
 limit, and last the result line. With --log FILE every line printed
 also goes to that file (a tool that shows only the end of a long output
 can bring the file back whole).
@@ -517,6 +536,40 @@ SHARD_REPLACES = ("libpga_tpu/ops/pallas_step.py:1173",  # _pp_breed_kernel, at 
 SHARD_RUN_GENS = 100
 SHARD_GIANT, SHARD_GIANT_GENS = (1 << 24, 128, 8), 10  # P, L, S: 8.6 GB a buffer
 SHARD_PANMICTIC = (65_536, 64, 4)  # bench.py:88-91, the JAX bench's sharded arm
+# The floor harness with hooks (B7 with B6, B5 and B4): (row, hook set of
+# tools/ablate_kernel.hook_kinds, rows, genes, deme size PGA.run picks,
+# generations a launch, the kernels-line entry of its kernel, cases); a case
+# is a stage flag, "floor" (the four stage flags: the objective still runs)
+# or "copy" (deme_breed_kernel's copy at the hooks' geometry). Each entry:
+# what it replaces, what else, and the row-case whose numbers it carries.
+HOOK_FLOOR_ROWS = [
+    ("creep", "creep", 1 << 20, 100, 512, 1, "ablate_expr",
+     ("sel_const", "no_matmul", "no_cross", "no_mut", "floor", "copy")),
+    ("trap", "trap", 1 << 20, 60, 512, 1, "ablate_expr", ("no_mut", "no_cross", "floor")),
+    ("tour", "tour", 65_536, 200, 256, 1, "ablate_expr_order", ("no_cross", "no_mut", "floor")),
+    ("tsp", "tsp", 8192, 1000, 256, 1, "ablate_order",
+     ("sel_const", "no_matmul", "no_cross", "no_mut", "floor")),
+    ("creep-T8", "creep", 1 << 20, 100, 512, 8, "ablate_expr_multigen",
+     ("no_freeze", "no_rank_cube", "floor")),
+    ("tour-T8", "tour", 65_536, 200, 256, 8, "ablate_expr_multigen_order",
+     ("no_cross", "no_rank_cube")),
+    ("order-T8", "order", 40_000, 100, 256, 8, "ablate_multigen_order", ("no_cross", "no_freeze")),
+]
+HOOK_FLOOR_ROUNDS = 2
+HOOK_FLOOR_ENTRIES = {
+    "ablate_expr": ("libpga_tpu/ops/pallas_step.py:750",  # callable mutation
+                    "libpga_tpu/ops/pallas_step.py:634", "creep-floor"),  # no_cross first
+    "ablate_expr_order": ("libpga_tpu/ops/pallas_step.py:653",  # the order walk
+                          "libpga_tpu/ops/pallas_step.py:1143", "tour-floor"),  # const objective
+    "ablate_order": ("libpga_tpu/ops/pallas_step.py:653",
+                     "libpga_tpu/ops/pallas_step.py:819", "tsp-floor"),  # _tsp_eval_gene_major
+    "ablate_expr_multigen": ("libpga_tpu/ops/pallas_step.py:1617",  # no_freeze
+                             "libpga_tpu/ops/pallas_step.py:1638", "creep-T8-floor"),  # ranks
+    "ablate_expr_multigen_order": ("libpga_tpu/ops/pallas_step.py:1548",  # order_refs
+                                   "libpga_tpu/ops/pallas_step.py:1661", "tour-T8-no_cross"),
+    "ablate_multigen_order": ("libpga_tpu/ops/pallas_step.py:1548",
+                              "libpga_tpu/ops/pallas_step.py:1661", "order-T8-no_cross"),
+}
 MEAN_RANK_BAND = (1 / 3 - 0.004, 1 / 3 + 0.002)  # E = 1/3 - O(1/K)
 CROSS_BAND = (0.495, 0.505)
 MUTATION_RATE = 0.01
@@ -578,16 +631,61 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def breed_bound(geom, gene_bytes: int = 4) -> tuple:
-    """Least time (ms) for one breed on the card and what sets it: the
-    larger of the bytes it must move (genomes of ``gene_bytes`` a gene
-    and ranks read once, children and scores written once) over the
-    memory rate, and its float32 operations (a crossover select and a
-    score add per gene) over the float32 rate."""
-    nbytes = geom.Pp * geom.L * gene_bytes * 2 + geom.G * geom.K * 4 + geom.Pp * 4
-    ops = 2 * geom.Pp * geom.L
+def cuda_run(fn) -> tuple:
+    """(``fn()``, its milliseconds by CUDA events): one run, kept."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    got = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return got, start.elapsed_time(end)
+
+
+def breed_bound(geom, *, ablate=(), program=None, order: bool = False, n_cities: int = 0,
+                steps: int = 1, gene_bytes: int = 4, scored: bool = True) -> tuple:
+    """Least time (ms) of one breed launch on the card, what sets it and
+    each walker's dependent chain: the bound of every breed kernel, in
+    production (``ablate`` ()) and in the floor harness's stage cases.
+    The larger of the bytes it must move over the memory rate and its
+    float32 operations over the float32 rate. Bytes: the rows read and
+    written once (``gene_bytes`` a gene), where it is ``scored`` the
+    scores written (at ``steps`` > 1 read too), at one generation the
+    ranks where selection reads them (not under sel_const or no_matmul),
+    the constant buffer of the expression ``program`` and the
+    coordinates of the coordinate TSP (``n_cities``) read once.
+    Operations a gene and sub-generation, loads being none: scored, the
+    score's add and the objective hook's (``program.gene_ops``; the
+    coordinate TSP's ten in their place: a decode, two differences, two
+    squares, two adds, a sqrt and the sum); where crossover runs, a
+    select (``order``: the walk's two decodes and two tests) and the
+    crossover hook's; where mutation runs, the mutation hook's; at
+    ``steps`` > 1 K*log2(K) compares a deme to rank it, unless
+    no_rank_cube. The chain: L walk steps where the walk runs, plus L
+    scoring steps for the coordinate TSP."""
+    flags = set(ablate)
+    hook_ops = program.gene_ops if program is not None else {}
+    L, Pp, G, K = geom.L, geom.Pp, geom.G, geom.K
+    nbytes = 2 * Pp * L * gene_bytes + min(n_cities, L) * 8
+    nbytes += Pp * 4 * (2 if steps > 1 else 1) * scored
+    if steps == 1 and not flags & {"sel_const", "no_matmul"}:
+        nbytes += G * K * 4
+    if program is not None:
+        nbytes += program.consts.nbytes
+    crosses = "no_cross" not in flags
+    per_gene = (10 if n_cities else 1 + hook_ops.get("objective", 0)) if scored else 0
+    if crosses:
+        per_gene += (4 if order else 1) + hook_ops.get("crossover", 0)
+    if "no_mut" not in flags:
+        per_gene += hook_ops.get("mutate", 0)
+    ops = steps * Pp * L * per_gene
+    if steps > 1 and "no_rank_cube" not in flags:
+        ops += steps * K * math.log2(K) * G
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    chain = (L if order and crosses else 0) + (L if n_cities else 0)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", chain
 
 
 def population(geom, gen, device):
@@ -649,7 +747,7 @@ def phase_compare(fs, onemax, device, results):
                 g, ranks, geom, parity, fs.philox_draws(seed, geom.G, geom.K, L), **kw), 5)
             tie = fs.draw_tie_words(gen, geom.Pp, device)
             rank_ms = cuda_ms(lambda: fs.compute_ranks(s, geom, parity, tie), 50)
-            bound_ms, bound_by = breed_bound(geom)
+            bound_ms, bound_by, _ = breed_bound(geom)
             line.update(kernel_ms=ms, plain_ms=plain_ms, rank_ms=rank_ms,
                         bound_ms=bound_ms, bound_by=bound_by)
             results[geom.layout].update(ms=ms, plain_ms=plain_ms, rank_ms=rank_ms,
@@ -969,25 +1067,6 @@ def tsp_objective(shape: str):
     return obj.make_tsp(obj.random_tsp_matrix(L, seed=7))
 
 
-def order_bound(geom, fused: bool, n_cities: int) -> tuple:
-    """Least time (ms) for one order breed and what sets it: the larger
-    of the bytes it must move (genomes, ranks and coordinates read once,
-    children and scores written once) over the memory rate, and its
-    float32 operations (two decodes per gene in the walk; with the fused
-    score a decode, two differences, two squares, two adds, a sqrt and
-    the sum per gene) over the float32 rate. Also returns the dependent
-    chain of each thread: L walk steps, plus L scoring steps if fused."""
-    L = geom.L
-    nbytes = geom.Pp * L * 4 * 2 + geom.G * geom.K * 4
-    ops = geom.Pp * L * 4
-    if fused:
-        nbytes += geom.Pp * 4 + min(n_cities, L) * 8
-        ops += geom.Pp * L * 10
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
-    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            L * (2 if fused else 1))
-
-
 def phase_tsp_compare(fs, device, results):
     """The order kernel against its plain version at both TSP shapes,
     injected and Philox draws; times both."""
@@ -1043,7 +1122,8 @@ def phase_tsp_compare(fs, device, results):
         plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
             g, ranks, geom, 0, fs.philox_draws(seed, geom.G, geom.K, L, "swap", crossover="order"),
             **kw), 2)
-        bound_ms, bound_by, chain = order_bound(geom, fused, tsp.coords.shape[0] if fused else 0)
+        bound_ms, bound_by, chain = breed_bound(geom, order=True, scored=fused,
+                                                n_cities=tsp.coords.shape[0] if fused else 0)
         r = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                  chain_steps=chain, max_abs_err=max(errs), K=geom.K, G=geom.G, Pp=geom.Pp)
         if fused:
@@ -1170,20 +1250,6 @@ def phase_fused_objectives(fs, device, results):
               flush=True)
 
 
-def multigen_bound(geom, steps: int, gene_bytes: int = 4) -> tuple:
-    """Least time (ms) for one multigen launch and what sets it: the
-    larger of the bytes it must move whatever ``steps`` is (population,
-    ``gene_bytes`` a gene, and scores read once and written once) over
-    the memory rate, and the float32 operations the function needs per
-    sub-generation (K*log2(K) compares to rank a deme, a crossover select
-    and a score add per gene; loads are not operations) over the float32
-    rate."""
-    nbytes = 2 * geom.Pp * geom.L * gene_bytes + 2 * geom.Pp * 4
-    ops = steps * (geom.K * math.log2(geom.K) * geom.G + 2 * geom.Pp * geom.L)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 def multigen_draws(fs, geom, steps, gen, device):
     """Random injected draws of ``steps`` sub-generations."""
     import torch
@@ -1302,7 +1368,7 @@ def phase_multigen_compare(fs, kernels, device, results):
             for T in MULTIGEN_SWEEP:
                 ms = cuda_ms(lambda: fs.multigen_breed(
                     g, s, geom, 0, T, None, out=out, work=work, **kw), 10 if P > 100_000 else 50)
-                bound_ms, bound_by = multigen_bound(geom, T)
+                bound_ms, bound_by, _ = breed_bound(geom, steps=T)
                 sweep[T] = {"ms": ms, "ms_per_gen": ms / T, "bound_ms": bound_ms,
                             "bound_by": bound_by}
             plain = {T: cuda_ms(lambda: fs.multigen_breed_reference(
@@ -1485,19 +1551,6 @@ def expr_programs(port):
     return progs
 
 
-def expr_bound(geom, program, gene_bytes: int = 4) -> tuple:
-    """Least time (ms) for one expression breed and what sets it: the
-    larger of the bytes it must move (genomes of ``gene_bytes`` a gene
-    and ranks read once, children and scores written once, the constant
-    buffer read once) over the memory rate, and its float32 operations
-    (a select per gene and every per-gene statement the generated hooks
-    evaluate) over the float32 rate."""
-    nbytes = 2 * geom.Pp * geom.L * gene_bytes + 2 * geom.Pp * 4 + program.consts.nbytes
-    ops = geom.Pp * geom.L * (2 + program.source.count("const float t"))
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 def _ulps(a, b):
     import torch
 
@@ -1592,7 +1645,7 @@ def phase_expr_compare(port, fs, device, results):
             ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, parity, seed=seed, out=out, **kw), 20)
             plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
                 g, ranks, geom, parity, fs.philox_draws(seed, geom.G, geom.K, L, mut, cross), **kw), 3)
-            bound_ms, bound_by = expr_bound(geom, program)
+            bound_ms, bound_by, _ = breed_bound(geom, program=program)
             line.update(kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                         ms_over_bound=ms / bound_ms)
             r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -1699,21 +1752,6 @@ def expr_multigen_workloads():
         "gauss-40k": (40_000, 100, obj.onemax, None,
                       mutate_from_expression(GAUSS_EXPR, rate=0.05, sigma=0.1)),
     }
-
-
-def expr_multigen_bound(geom, program, steps: int, gene_bytes: int = 4) -> tuple:
-    """Least time (ms) for one expression multigen launch and what sets
-    it: the larger of the bytes it must move whatever ``steps`` is
-    (population and scores read once and written once, the constant
-    buffer read once) over the memory rate, and per sub-generation the
-    float32 operations the function needs (K*log2(K) compares to rank a
-    deme, a select per gene and every per-gene statement the generated
-    hooks evaluate) over the float32 rate; genes of ``gene_bytes``."""
-    nbytes = 2 * geom.Pp * geom.L * gene_bytes + 2 * geom.Pp * 4 + program.consts.nbytes
-    per_gene = 2 + program.source.count("const float t")
-    ops = steps * (geom.K * math.log2(geom.K) * geom.G + geom.Pp * geom.L * per_gene)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def expr_multigen_draws(fs, geom, steps, mut, cross, gen, device):
@@ -1842,7 +1880,7 @@ def phase_expr_multigen_compare(port, fs, device, results):
                 for T in (1, EXPR_MG_T)}
             plain_ms = cuda_ms(lambda: fs.multigen_breed_reference(
                 g, s, geom, 0, EXPR_MG_T, math.inf, seed=seed, **kw), 1)
-            bound_ms, bound_by = expr_multigen_bound(geom, program, EXPR_MG_T)
+            bound_ms, bound_by, _ = breed_bound(geom, program=program, steps=EXPR_MG_T)
             line.update(kernel_ms_by_steps=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, ms_over_bound=ms[EXPR_MG_T] / bound_ms)
             r.update(ms=ms[EXPR_MG_T], ms_at_1_step=ms[1], plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1942,31 +1980,6 @@ def order_workloads():
                       mutate_from_expression(CREEP, rate=0.05, sigma=0.1)),
         "onemax": (obj.onemax, order_preserving_crossover, make_swap_mutate(0.5)),
     }
-
-
-def order_hooks_bound(geom, program, n_cities: int, steps: int = 1) -> tuple:
-    """Least time (ms) for one order breed with hooks and what sets it:
-    the larger of the bytes it must move whatever ``steps`` is (genomes
-    and scores read once and written once, the constant buffer and the
-    coordinates read once) over the memory rate, and per sub-generation
-    its float32 operations (the walk's two decodes per gene, a select
-    and every per-gene statement of the generated hooks, the coordinate
-    TSP's ten per gene, K*log2(K) compares per deme at T > 1) over the
-    float32 rate. Also returns each walker's dependent chain per
-    sub-generation: L walk steps, plus L scoring steps for the
-    coordinate TSP."""
-    L = geom.L
-    nbytes = (2 * geom.Pp * L + 2 * geom.Pp) * 4 + min(n_cities, L) * 8
-    per_gene = 4 + (program.source.count("const float t") if program is not None else 0)
-    per_gene += 10 if n_cities else 0
-    ops = steps * geom.Pp * L * per_gene
-    if steps > 1:
-        ops += steps * geom.K * math.log2(geom.K) * geom.G
-    if program is not None:
-        nbytes += program.consts.nbytes
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
-    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            L * (2 if n_cities else 1))
 
 
 def order_kinds(port, name):
@@ -2080,7 +2093,8 @@ def phase_order_expr_compare(port, fs, device, results):
             ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seed, out=out, **kw), 20)
             plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
                 g, ranks, geom, 0, fs.philox_draws(seed, geom.G, geom.K, L, mut, "order"), **kw), 2)
-            bound_ms, bound_by, chain = order_hooks_bound(geom, program, n_cities)
+            bound_ms, bound_by, chain = breed_bound(geom, program=program, order=True,
+                                                    n_cities=n_cities)
             line.update(kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                         chain_steps=chain, ms_over_bound=ms / bound_ms)
             r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -2163,7 +2177,8 @@ def phase_order_multigen_compare(port, fs, device, results):
                 for T in (1, ORDER_T)}
             plain_ms = cuda_ms(lambda: fs.multigen_breed_reference(
                 g, s, geom, 0, ORDER_T, math.inf, seed=seed, **kw), 1)
-            bound_ms, bound_by, chain = order_hooks_bound(geom, program, 0, ORDER_T)
+            bound_ms, bound_by, chain = breed_bound(geom, program=program, order=True,
+                                                    steps=ORDER_T)
             line.update(kernel_ms_by_steps=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, chain_steps_per_generation=chain,
                         ms_over_bound=ms[ORDER_T] / bound_ms)
@@ -2379,12 +2394,13 @@ def phase_island_compare(fs, device, results):
         ms, loop_ms = cuda_ms(island_launch, reps), cuda_ms(single_launches, reps)
         plain_ms = cuda_ms(lambda: launch(0, I, plain=True, seed=seeds), 2)
         if multigen:
-            bound_ms, bound_by = multigen_bound(geom, steps)
+            bound_ms, bound_by, _ = breed_bound(geom, steps=steps)
             rank_ms = chain = None
         else:
             rank_ms = cuda_ms(lambda: fs.compute_ranks(s, geom, 0, tie), 20)
-            bound_ms, bound_by, chain = (order_bound(geom, True, L) if cross == "order"
-                                         else (*breed_bound(geom), None))
+            order = cross == "order"
+            bound_ms, bound_by, chain = breed_bound(geom, order=order, n_cities=L * order)
+            chain = chain if order else None
         line = {"phase": "island_compare", "case": name, "kernel": kernel, "islands": I,
                 "island_shape": [S, L], "layout": geom.layout, "K": K, "D": geom.D,
                 "Pp": geom.Pp, "steps": steps, "genomes_equal": mutate != "gaussian",
@@ -2743,12 +2759,10 @@ def phase_island_expr_compare(port, fs, kernels, device, results):
         plain_ms = cuda_ms(lambda: launch(0, I, plain=True, seed=seeds), 1 if multigen else 2)
         gene_bytes = 2 if bf16 else 4
         chain = None
-        if cross == "order":
-            bound_ms, bound_by, chain = order_hooks_bound(geom, program, cities, steps)
-        elif multigen:
-            bound_ms, bound_by = expr_multigen_bound(geom, program, steps, gene_bytes)
-        else:
-            bound_ms, bound_by = expr_bound(geom, program, gene_bytes)
+        bound_ms, bound_by, chain = breed_bound(geom, program=program, order=cross == "order",
+                                                n_cities=cities, steps=steps,
+                                                gene_bytes=gene_bytes)
+        chain = chain if cross == "order" else None
         line = {"phase": "island_expr_compare", "case": name, "counter": key, "islands": I,
                 "island_shape": [S, L], "steps": steps, "gene_dtype": str(dtype)[6:],
                 "layout": geom.layout, "K": K, "D": geom.D, "Pp": geom.Pp,
@@ -2978,8 +2992,8 @@ def phase_bf16_compare(port, fs, device, results):
         f32_ms = cuda_ms(lambda: fs.deme_breed(g32, ranks, geom, 0, seed=seed, out=out32, **kw), 50)
         plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
             g, ranks, geom, 0, fs.philox_draws(seed, geom.G, geom.K, L, mutate), **kw), 5)
-        record(name, geom, errs, ms, f32_ms, plain_ms, breed_bound(geom, 2), shape=[P, L],
-               f32_bound_ms=breed_bound(geom)[0], **({"genes_1_ulp_apart": ulps_seen} if gauss else {}))
+        record(name, geom, errs, ms, f32_ms, plain_ms, breed_bound(geom, gene_bytes=2),
+               shape=[P, L], f32_bound_ms=breed_bound(geom)[0], **({"genes_1_ulp_apart": ulps_seen} if gauss else {}))
         del g, g32, out, out32, injected
         torch.cuda.empty_cache()
 
@@ -3024,8 +3038,9 @@ def phase_bf16_compare(port, fs, device, results):
                                                    work=work32, **kw), reps)
         plain_ms = cuda_ms(lambda: fs.multigen_breed_reference(
             g, s, geom, 0, MULTIGEN_T, math.inf, **kw), 2)
-        record(name, geom, errs, ms, f32_ms, plain_ms, multigen_bound(geom, MULTIGEN_T, 2),
-               steps=MULTIGEN_T, shape=[P, L], f32_bound_ms=multigen_bound(geom, MULTIGEN_T)[0])
+        record(name, geom, errs, ms, f32_ms, plain_ms,
+               breed_bound(geom, steps=MULTIGEN_T, gene_bytes=2), steps=MULTIGEN_T, shape=[P, L],
+               f32_bound_ms=breed_bound(geom, steps=MULTIGEN_T)[0])
         del g, g32, out, work, out32, work32
         torch.cuda.empty_cache()
 
@@ -3073,7 +3088,8 @@ def phase_bf16_compare(port, fs, device, results):
                 return fs.deme_breed_reference(g, ranks, geom, 0, fs.philox_draws(
                     seed, geom.G, geom.K, L, mut, cross), **kw)
 
-            bound, f32_bound = expr_bound(geom, program, 2), expr_bound(geom, program)
+            bound = breed_bound(geom, program=program, gene_bytes=2)
+            f32_bound = breed_bound(geom, program=program)
         else:
             for parity, t, mode in ((geom.parities - 1, 3, "injected"), (0, steps, "philox"),
                                     (0, 1, "philox")):
@@ -3096,8 +3112,8 @@ def phase_bf16_compare(port, fs, device, results):
             def plain():
                 return fs.multigen_breed_reference(g, s, geom, 0, steps, math.inf, seed=seed, **kw)
 
-            bound = expr_multigen_bound(geom, program, steps, 2)
-            f32_bound = expr_multigen_bound(geom, program, steps)
+            bound = breed_bound(geom, program=program, steps=steps, gene_bytes=2)
+            f32_bound = breed_bound(geom, program=program, steps=steps)
         out, g32 = torch.empty_like(g), g.float()
         out32 = torch.empty_like(g32)
         reps = 5 if steps else 20
@@ -3155,7 +3171,7 @@ def phase_bf16_compare(port, fs, device, results):
     loop_ms = cuda_ms(single_launches, 20)
     plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
         g, ranks, geom, 0, fs.island_philox_draws(seeds, G, K, L), **kw), 2)
-    bound = breed_bound(geom, 2)
+    bound = breed_bound(geom, gene_bytes=2)
     record(name, geom, errs, ms, f32_ms, plain_ms, (I * bound[0], bound[1]), shape=[I, S, L],
            loop_ms=loop_ms, f32_bound_ms=I * breed_bound(geom)[0])
     del g, g32, out, out32
@@ -3275,20 +3291,6 @@ def copy_bound(geom, gene_bytes: int, scored: bool) -> tuple:
     return copy_bound_ms(geom, gene_bytes, scored), "bytes"
 
 
-def stage_bound(geom, gene_bytes: int, ablate, scored: bool) -> tuple:
-    """Least time (ms) of a stage-ablated breed and what sets it: the
-    rows read and written once, the ranks read where selection reads them
-    (not under sel_const), the scores written where it is scored; its
-    float32 operations a crossover select per gene (not under no_cross)
-    and, scored, a score add per gene. The floor (all four stages off,
-    unscored) moves the copy's bytes."""
-    nbytes = (2 * geom.Pp * geom.L * gene_bytes + geom.Pp * 4 * scored
-              + geom.G * geom.K * 4 * ("sel_const" not in ablate))
-    ops = geom.Pp * geom.L * (("no_cross" not in ablate) + scored)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 def phase_floor_compare(fs, onemax, device, results):
     """Each ablated case of the breed kernels (the floor harness, B7)
     against its plain version on the same inputs: genomes bit for bit,
@@ -3314,7 +3316,7 @@ def phase_floor_compare(fs, onemax, device, results):
             out = torch.empty_like(g)
             full_ms = cuda_ms(lambda: fs.deme_breed(g, ranks, prod.geom, 0, seed=seed, out=out,
                                                     **prod.kw), 20)
-            full_bound = breed_bound(prod.geom, gb)
+            full_bound = breed_bound(prod.geom, gene_bytes=gb)
             for name, ablate, scored in FLOOR_CASES:
                 if dtype == bf16 and name not in FLOOR_BF16_CASES:
                     continue
@@ -3381,7 +3383,8 @@ def phase_floor_compare(fs, onemax, device, results):
                     ms = cuda_ms(lambda: fs.deme_breed(g, r, geom, 0, seed=seed, out=dst, **kw), 20)
                     plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
                         g, r, geom, 0, fs.philox_draws(seed, geom.G, K, L), **kw), 3)
-                    bound_ms, bound_by = stage_bound(geom, gb, ablate, scored)
+                    bound_ms, bound_by, _ = breed_bound(geom, ablate=ablate, gene_bytes=gb,
+                                                        scored=scored)
                 line = {"phase": "floor_compare", "case": name, "shape": [P, L],
                         "gene_dtype": str(dtype)[6:], "ablate": list(ablate),
                         "layout": geom.layout, "K": geom.K, "Pp": geom.Pp,
@@ -3432,7 +3435,7 @@ def phase_floor_compare(fs, onemax, device, results):
                                                work=work, **kw), 10)
         plain_ms = cuda_ms(lambda: fs.multigen_breed_reference(
             g, s, geom, 0, FLOOR_T, math.inf, seed=seed, **kw), 2)
-        bound_ms, bound_by = multigen_bound(geom, FLOOR_T)
+        bound_ms, bound_by, _ = breed_bound(geom, steps=FLOOR_T)
         line = {"phase": "floor_compare", "case": f"multigen_{flag}", "shape": [P, L],
                 "steps": FLOOR_T, "compare_target": target, "layout": geom.layout, "K": geom.K,
                 "D": geom.D, "genomes_equal": True, "max_abs_err": max(errs), "kernel_ms": ms,
@@ -3481,6 +3484,199 @@ def phase_floor_partition(kernels, results):
     for key in ("ablate_copy", "ablate_breed", "ablate_multigen"):
         results[key]["launches"] = launches[key]
     results["partition"] = records
+
+
+def hook_floor_programs(fs) -> list:
+    """The generated units of the hook sets of HOOK_FLOOR_ROWS, whose
+    floor-harness units the build makes beside the production ones."""
+    from libpga_tpu_torch.ops import expr_cuda
+    from libpga_tpu_torch.tools.ablate_kernel import hook_kinds
+
+    progs = []
+    for _, hooks, P, L, K, T, _, _ in HOOK_FLOOR_ROWS:
+        kinds = hook_kinds(hooks, L)
+        expr_obj = getattr(kinds["objective"], "expr_fused", None)
+        mut = kinds["mutate"] if fs.is_expression(kinds["mutate"]) else None
+        if mut is None and expr_obj is None:
+            continue
+        prog = expr_cuda.program_for(None, mut, expr_obj)
+        if all(prog is not q for q in progs):
+            progs.append(prog)
+    return progs
+
+
+def hook_case_flags(case: str) -> tuple:
+    """The ablate flags of a hook-floor case name."""
+    return {"floor": FLOOR_STAGES, "copy": FLOOR_COPY}.get(case, (case,))
+
+
+def phase_hook_floor_compare(fs, device, results):
+    """Each ablated case of the hook kernels (the floor harness with an
+    expression hook or order crossover: expr_breed_kernel,
+    expr_order_kernel, order_breed_kernel, expr_multigen_kernel<false/true>,
+    multigen_breed_kernel<true>; and deme_breed_kernel's copy with the
+    creep hook) against its plain version at the shapes of the rows of
+    HOOK_FLOOR_ROWS, injected and Philox draws: genomes bit for bit, scores
+    within the tolerance of the objective (onemax SCORE_ATOL, expressions
+    EXPR_RTOL / EXPR_ATOL_PER_GENE * L, the coordinate TSP TSP_RTOL); a
+    multi-generation case at the row's T (8), as it is timed. Timed by
+    CUDA events beside the production launch of the same call, the bound
+    and the plain version (a multi-generation row's: its Philox-mode
+    comparison run)."""
+    import torch
+
+    from libpga_tpu_torch.ops import expr_cuda
+    from libpga_tpu_torch.ops.evaluate import evaluate
+    from libpga_tpu_torch.tools.ablate_kernel import hook_kinds
+
+    for row, hooks, P, L, K, T, entry_name, cases in HOOK_FLOOR_ROWS:
+        kinds = hook_kinds(hooks, L)
+        objective = kinds.pop("objective")
+        multigen = T > 1
+        make = fs.make_fused_multigen if multigen else fs.make_fused_breed
+        prod = make(P, L, objective, deme_size=K, device=device, **kinds)
+        geom, order = prod.geom, kinds["crossover"] == "order"
+        expr_obj = prod.kw.get("objective")
+        mut = kinds["mutate"]
+        program = None
+        if fs.is_expression(mut) or expr_obj is not None:
+            program = expr_cuda.program_for(None, mut if fs.is_expression(mut) else None,
+                                            expr_obj)
+        n_cities = L if getattr(objective, "fused_id", 0) == 3 and not multigen else 0
+        if expr_obj is not None:
+            rtol, atol = EXPR_RTOL, EXPR_ATOL_PER_GENE * L
+        elif n_cities:
+            rtol, atol = TSP_RTOL, 0.0
+        else:
+            rtol, atol = 0.0, SCORE_ATOL
+        gen = torch.Generator(device=device).manual_seed(P + L + T)
+        g = torch.zeros((geom.Pp, L), device=device)
+        g[:P] = torch.rand((P, L), generator=gen, device=device)
+        s = torch.full((geom.Pp,), -torch.inf, device=device)
+        s[:P] = evaluate(objective, g[:P])
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+        out = torch.empty_like(g)
+        work = [torch.empty_like(g), torch.empty_like(g)]
+        if multigen:
+            prod_ms = cuda_ms(lambda: fs.multigen_breed(g, s, geom, 0, T, None, seed=seed, out=out,
+                                                        work=work, **prod.kw), 5)
+        else:
+            ranks = fs.compute_ranks(s, geom, 0, fs.draw_tie_words(gen, geom.Pp, device))
+            prod_ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seed, out=out,
+                                                    **prod.kw), 20)
+        prod_bound = breed_bound(geom, program=program, order=order, n_cities=n_cities, steps=T)
+        for case in cases:
+            ablate = hook_case_flags(case)
+            tag = f"hook floor {row} {case}"
+            breed = make(P, L, objective, deme_size=K, device=device, ablate=ablate, **kinds)
+            cg, kw = breed.geom, breed.kw
+            errs = []
+            if case == "copy":
+                handed = s.view(cg.G, cg.K)
+                got = fs.deme_breed(g, handed, cg, 0, **kw)
+                want = fs.deme_breed_reference(g, handed, cg, 0, None, **kw)
+                torch.cuda.synchronize()
+                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                      f"{tag}: differs from the plain copy")
+                errs.append(float((got[0] - want[0]).abs().max()))
+                ms = cuda_ms(lambda: fs.deme_breed(g, handed, cg, 0, out=out, **kw), 20)
+                plain_ms = cuda_ms(lambda: fs.deme_breed_reference(g, handed, cg, 0, None, **kw), 2)
+                bound = (*copy_bound(cg, 4, True), 0)
+            elif multigen:
+                # At the T the launch is timed at; the Philox plain run is
+                # the one plain_ms times.
+                tgt = float(s[:P].min()) if case == "no_freeze" else None
+                draws = order_draws(fs, cg, mut, gen, device, steps=T) if order else \
+                    expr_multigen_draws(fs, cg, T, mut, kinds["crossover"], gen, device)
+                for mode in (dict(draws=draws), dict(seed=seed)):
+                    got = fs.multigen_breed(g, s, cg, 0, T, tgt, **mode, **kw)
+                    want, plain_ms = cuda_run(lambda: fs.multigen_breed_reference(
+                        g, s, cg, 0, T, math.inf if tgt is None else tgt, **mode, **kw))
+                    m = "injected" if "draws" in mode else "philox"
+                    check(torch.equal(got[0], want[0]), f"{tag} {m}: genomes differ")
+                    fin = torch.isfinite(want[1])
+                    check(torch.equal(fin, torch.isfinite(got[1])), f"{tag} {m}: -inf rows")
+                    errs.append(float((got[1][fin] - want[1][fin]).abs().max()))
+                    check(bool(torch.allclose(got[1][fin], want[1][fin], rtol=rtol, atol=atol)),
+                          f"{tag} {m}: score error {errs[-1]}")
+                del draws
+                ms = cuda_ms(lambda: fs.multigen_breed(g, s, cg, 0, T, None, seed=seed, out=out,
+                                                       work=work, **kw), 5)
+                bound = breed_bound(cg, ablate=ablate, program=program, order=order, steps=T)
+            else:
+                r = fs.compute_ranks(s, cg, 0, fs.draw_tie_words(gen, cg.Pp, device))
+                injected = order_draws(fs, cg, mut, gen, device) if order else \
+                    expr_multigen_draws(fs, cg, 1, mut, kinds["crossover"], gen, device).at(0)
+                philox = fs.philox_draws(seed, cg.G, cg.K, L, mut, kinds["crossover"])
+                for m, mode, draws in (("injected", dict(draws=injected), injected),
+                                       ("philox", dict(seed=seed), philox)):
+                    got = fs.deme_breed(g, r, cg, 0, **mode, **kw)
+                    want = fs.deme_breed_reference(g, r, cg, 0, draws, **kw)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got[0], want[0]), f"{tag} {m}: genomes differ")
+                    real = torch.arange(cg.Pp, device=device) < P
+                    check(bool(torch.isinf(got[1][~real]).all()), f"{tag}: pad scores")
+                    errs.append(float((got[1][real] - want[1][real]).abs().max()))
+                    check(bool(torch.allclose(got[1][real], want[1][real], rtol=rtol, atol=atol)),
+                          f"{tag} {m}: score error {errs[-1]}")
+                del injected
+                ms = cuda_ms(lambda: fs.deme_breed(g, r, cg, 0, seed=seed, out=out, **kw), 20)
+                plain_ms = cuda_ms(lambda: fs.deme_breed_reference(g, r, cg, 0, philox, **kw), 2)
+                bound = breed_bound(cg, ablate=ablate, program=program, order=order,
+                                    n_cities=n_cities)
+            line = {"phase": "hook_floor_compare", "row": row, "case": case, "ablate": list(ablate),
+                    "kernel": "deme_breed_copy" if case == "copy" else entry_name,
+                    "shape": [P, L], "steps": T, "layout": cg.layout, "K": cg.K, "D": cg.D,
+                    "genomes_equal": True, "max_abs_err": max(errs), "kernel_ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                    "chain_steps": bound[2], "production_ms": prod_ms,
+                    "production_bound_ms": prod_bound[0], "production_bound_by": prod_bound[1],
+                    "production_chain_steps": prod_bound[2]}
+            print(json.dumps(line), flush=True)
+            entry = results.setdefault(entry_name, {"max_abs_err": 0.0, "cases": {}})
+            entry["max_abs_err"] = max(entry["max_abs_err"], max(errs))
+            entry["cases"][f"{row}-{case}"] = {k: line[k] for k in (
+                "kernel_ms", "plain_ms", "bound_ms", "bound_by", "production_ms",
+                "production_bound_ms", "kernel")}
+            if f"{row}-{case}" == HOOK_FLOOR_ENTRIES[entry_name][2]:
+                entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                             case=f"{row}-{case}", shape=[P, L], steps=T,
+                             production_ms=prod_ms)
+            del breed, got, want
+        del prod, g, s, out, work
+
+
+def phase_hook_floor_partition(kernels, results):
+    """This slice's path: the stage harness (libpga_tpu_torch/tools/
+    ablate_kernel.py --hooks) over every row of HOOK_FLOOR_ROWS at its
+    shape, the launch counts set to 0 just before and read just after:
+    every hook kernel's ablated cases and production launches must have
+    launched. Prints each row's medians (ms a generation)."""
+    from libpga_tpu_torch.tools import ablate_kernel
+
+    kernels.reset_launches()
+    medians = {}
+    for row, hooks, P, L, K, T, _, _ in HOOK_FLOOR_ROWS:
+        t0 = time.perf_counter()
+        med = ablate_kernel.main(["f32", str(K), "--pop", str(P), "--len", str(L), "--hooks", hooks,
+                                  "--steps", str(T), "--rounds", str(HOOK_FLOOR_ROUNDS)])
+        medians[row] = med
+        print(json.dumps({"phase": "hook_floor_partition", "row": row, "hooks": hooks,
+                          "shape": [P, L], "K": K, "steps": T, "medians_ms_per_gen": med,
+                          "stage_ms": {k: med["full"] - v for k, v in med.items() if k != "full"},
+                          "seconds": time.perf_counter() - t0}), flush=True)
+    launches = dict(kernels.LAUNCHES)
+    print(json.dumps({"phase": "hook_floor_launches", "launches": launches}), flush=True)
+    for key in ("ablate_expr", "ablate_expr_order", "ablate_order", "ablate_expr_multigen",
+                "ablate_expr_multigen_order", "ablate_multigen_order", "ablate_copy", "expr",
+                "expr_order", "order", "expr_multigen", "expr_multigen_order", "multigen_order"):
+        check(launches[key] > 0, f"hook_floor_partition: {key} never launched ({launches})")
+    for row, med in medians.items():
+        check(all(v == v for v in med.values()), f"hook_floor_partition {row}: a median rests"
+              " on no sample")
+    for entry in HOOK_FLOOR_ENTRIES:
+        results[entry]["launches"] = launches[entry]
+    results["partition"] = medians
 
 
 def phase_subblock_compare(port, fs, onemax, kernels, device, results):
@@ -3551,7 +3747,7 @@ def phase_subblock_compare(port, fs, onemax, kernels, device, results):
                                               out=out, **kw), 50)
         plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
             g, ranks, geom, 0, draw(seed, geom.G, geom.K, L), **kw), 3)
-        bound_ms, bound_by = breed_bound(geom, 2 if dtype == torch.bfloat16 else 4)
+        bound_ms, bound_by, _ = breed_bound(geom, gene_bytes=2 if dtype == torch.bfloat16 else 4)
         bound_ms *= n
         line = {"phase": "subblock_compare", "case": name, "shape": [P, L], "islands": islands,
                 "gene_dtype": dtype_name, "K": geom.K, "D": geom.D, "B": geom.B, "S": geom.S,
@@ -3771,7 +3967,7 @@ def phase_shard_compare(port, fs, kernels, device, results):
         r1 = fs.compute_ranks(s.view(P), one, 0, fs.draw_tie_words(gen, P, device))
         unsharded_ms = cuda_ms(lambda: fs.deme_breed(g1, r1, one, 0, seed=seeds[:1], out=out1,
                                                      **kw), 20)
-        bound_ms, bound_by = breed_bound(geom, 2 if dtype == torch.bfloat16 else 4)
+        bound_ms, bound_by, _ = breed_bound(geom, gene_bytes=2 if dtype == torch.bfloat16 else 4)
         line = {"phase": "shard_compare", "case": name, "shape": [P, L], "shards": S,
                 "gene_dtype": dtype_name, "mutate": mutate or "point", "layout": geom.layout,
                 "K": geom.K, "D": geom.D, "shard_rows": geom.Pp, "genomes_equal": True,
@@ -3947,12 +4143,15 @@ def drive(torch, port, onemax, fs, kernels) -> int:
 
     t0 = time.perf_counter()
     programs = expr_programs(port)
-    unit_seconds = kernels.build_all(verbose=True, programs=programs)
+    unit_seconds = kernels.build_all(verbose=True, programs=programs,
+                                     harness=hook_floor_programs(fs))
     generated = {k: v for k, v in unit_seconds.items() if k.startswith("expr_breed")}
+    harness = {k: v for k, v in unit_seconds.items() if k.startswith("expr_harness")}
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(p.name for p in kernels.CSRC.glob("*.cu")),
                       "unit_seconds": unit_seconds, "generated_units": len(generated),
-                      "generated_seconds_max": max(generated.values())}), flush=True)
+                      "generated_seconds_max": max(generated.values()),
+                      "harness_units": len(harness), "harness_seconds": harness}), flush=True)
 
     results = {"pingpong": {}, "riffle": {}}
     phase_compare(fs, onemax, device, results)
@@ -3993,6 +4192,9 @@ def drive(torch, port, onemax, fs, kernels) -> int:
     floor_results = {}
     phase_floor_compare(fs, onemax, device, floor_results)
     phase_floor_partition(kernels, floor_results)
+    hook_floor_results = {}
+    phase_hook_floor_compare(fs, device, hook_floor_results)
+    phase_hook_floor_partition(kernels, hook_floor_results)
     subblock_results = {}
     phase_subblock_compare(port, fs, onemax, kernels, device, subblock_results)
     phase_subblock_run(port, kernels, subblock_results, results,
@@ -4153,6 +4355,22 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "case": r["case"], "shape": r["shape"],
             "steps": r.get("steps", 1), "cases": r["cases"],
+        })
+    for name, (replaces, also, _) in HOOK_FLOOR_ENTRIES.items():
+        # ms, plain_ms and the bound: the row-case HOOK_FLOOR_ENTRIES names
+        # (T = 8 for the multi-generation kernels); launches from
+        # hook_floor_partition; every case's numbers under "cases".
+        r = hook_floor_results[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "libpga_tpu_torch/csrc/" + (
+                "deme_breed.cu" if name in ("ablate_order", "ablate_multigen_order")
+                else "expr_breed.cu"),
+            "replaces": replaces, "also_replaces": also,
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "case": r["case"], "shape": r["shape"], "steps": r["steps"],
+            "production_ms": r["production_ms"], "cases": r["cases"],
         })
     for case, name in SUBBLOCK_ENTRIES.items():
         # ms, plain_ms and the bound at 1,048,576x100 (islands: 8 x

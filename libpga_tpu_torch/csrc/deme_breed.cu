@@ -89,11 +89,13 @@
 // (:1758): order_breed_kernel and multigen_breed_kernel<true> have no bf16
 // case, and the launchers refuse one.
 //
-// The floor harness (B7). deme_breed_kernel<Gene, ABLATE> and
-// multigen_breed_kernel<false, Gene, ABLATE> also build the ablated cases of
-// the TPU kernels' floor-attribution harness (pallas_step.py's _VALID_ABLATE,
-// :83-97, reached through make_pallas_breed / make_pallas_multigen(_ablate=)
-// and tools/ablate_floor.py, tools/ablate_kernel.py); the port's harness is
+// The floor harness (B7). deme_breed_kernel<Gene, ABLATE>,
+// order_breed_kernel<ABLATE> and multigen_breed_kernel<ORDER, Gene, ABLATE>
+// (and, with expression hooks, expr_breed.cu's kernels) also build the
+// ablated cases of the TPU kernels' floor-attribution harness
+// (pallas_step.py's _VALID_ABLATE, :83-97, reached through make_pallas_breed
+// / make_pallas_multigen(_ablate=) and tools/ablate_floor.py,
+// tools/ablate_kernel.py); the port's harness is
 // libpga_tpu_torch/tools/ablate_floor.py and ablate_kernel.py. ABLATE is a
 // compile-time bitmask (breed_core.cuh's ABL_*); ABLATE = 0 is the production
 // instantiation and its code is the code above. The flags, by JAX name:
@@ -121,7 +123,9 @@
 //              p1 = p2 = slot k's row.
 //   no_matmul  (ABL_NO_GATHER; :592) no rank-space gather: p1 = p2 = slot k's
 //              row; the selection draws are still made.
-//   no_cross   (ABL_NO_CROSS; :634) child = p1, no crossover bits drawn.
+//   no_cross   (ABL_NO_CROSS; :634) child = p1, no crossover bits drawn;
+//              with order crossover no walk runs and no fallback gene is
+//              drawn (JAX tests no_cross before the order branch, :653).
 //   no_mut     (ABL_NO_MUT; :748) no mutation.
 //   no_freeze  (ABL_NO_FREEZE; _multigen_kernel :1617) no group freezes.
 //   no_rank_cube (ABL_NO_RANK_CUBE; :1638) no in-kernel ranks: rank r is slot r.
@@ -132,16 +136,20 @@
 //   scatter_scores (:1157) no meaning: per-child score stores are already the
 //              production path; raises.
 // Elite rows of the multigen kernel keep their gathered parent only where
-// neither sel_const nor no_matmul is set (:740), as in JAX. In the
-// multi-generation kernel copy_only, no_riffle, alias_io and no_rank_sort
-// raise (JAX validates copy_only there and then ignores it); the flags are
-// refused with order crossover and expression hooks (ROADMAP Queue B 7 lists
-// those cases). The instantiated masks are 0, ABL_COPY, each stage bit alone
-// and all four stage bits (the floor) in deme_breed_kernel, and 0, each of the
-// six multigen and stage bits alone and the floor in multigen_breed_kernel,
-// at both gene types. Bound of the copy: the production bound, Pp*L*bytes read
-// and written (0.253 ms at 1,048,576x100 float32, 0.0097 ms at 40,000x100),
-// plus the handed scores when scored; the harness reads the copy beside it.
+// neither sel_const nor no_matmul is set (:736-745), as in JAX: under those
+// flags an elite is crossed (order crossover: walked) like any other child,
+// and left unmutated. In the multi-generation kernel copy_only, no_riffle,
+// alias_io and no_rank_sort raise (JAX validates copy_only there and then
+// ignores it). The copy is deme_breed_kernel's whatever the hooks (JAX's copy
+// branch returns before a hook runs), at the order geometry under order
+// crossover. The instantiated masks are 0, ABL_COPY, each stage bit alone
+// and all four stage bits (the floor) in deme_breed_kernel; the same but the
+// copy in order_breed_kernel; and 0, each of the six multigen and stage bits
+// alone and the floor in multigen_breed_kernel, uniform (both gene types) and
+// order crossover. Other combinations are ROADMAP Queue B item B10's. Bound
+// of the copy: the production bound, Pp*L*bytes read and written (0.253 ms
+// at 1,048,576x100 float32, 0.0097 ms at 40,000x100), plus the handed scores
+// when scored; the harness reads the copy beside it.
 //
 // Built with --fmad=false so the float32 selection arithmetic is not
 // contracted into multiply-adds and rounds as the torch version does. The
@@ -401,6 +409,11 @@ __global__ void __launch_bounds__(THREADS) deme_breed_kernel(
 // 0x40000000 + l = gaussian draws of gene l. Injected mode reads sel_u, fill,
 // mut_u and gauss. --fmad=false and IEEE sqrtf (no fast math) keep the
 // selection and the tour arithmetic rounding as torch does.
+//
+// ABLATE (the floor harness; 0 in production): ABL_SEL_CONST and
+// ABL_NO_GATHER walk slot k's row with itself (no selection draw is read);
+// ABL_NO_CROSS walks nothing, the child is parent 1 (mutated per gene as it
+// is copied); ABL_NO_MUT mutates nothing. The score always runs.
 
 struct OrderDraws {
   const float* sel_u;     // (G, K, 2)
@@ -410,6 +423,7 @@ struct OrderDraws {
   const long long* seed;  // production mode when non-null
 };
 
+template <unsigned ABLATE>
 __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
     const float* __restrict__ gin, float* __restrict__ gout, float* __restrict__ sout,
     const int* __restrict__ ranks, const float* __restrict__ mparams, OrderDraws dr,
@@ -470,10 +484,13 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
     mu1 = dr.mut_u[child * 4 + 1];
     mu2 = dr.mut_u[child * 4 + 2];
   }
-  const int r1 = winner_rank(winner_fraction(sel, su0), V);
-  const int r2 = winner_rank(winner_fraction(sel, su1), V);
-  const int s1 = min(max(row_of_rank[r1], 0), K - 1);
-  const int s2 = min(max(row_of_rank[r2], 0), K - 1);
+  int s1 = k, s2 = k;  // sel_const, no_matmul: child k walks slot k's row
+  if constexpr (!(ABLATE & (ABL_SEL_CONST | ABL_NO_GATHER))) {
+    const int r1 = winner_rank(winner_fraction(sel, su0), V);
+    const int r2 = winner_rank(winner_fraction(sel, su1), V);
+    s1 = min(max(row_of_rank[r1], 0), K - 1);
+    s2 = min(max(row_of_rank[r2], 0), K - 1);
+  }
   const float* p1 = gin + ((size_t)g * K + s1) * L;
   const float* p2 = gin + ((size_t)g * K + s2) * L;
   const int orow = k * G + g;
@@ -481,11 +498,13 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
 
   const int pos = (int)floorf(mu0 * (float)L);
   const int pj = (int)floorf(mu1 * (float)L);
-  const bool fire = mutate == MUT_SWAP ? mu2 < rate : mu1 < rate;
+  constexpr bool MUTATES = !(ABLATE & ABL_NO_MUT);
+  const bool fire = MUTATES && (mutate == MUT_SWAP ? mu2 < rate : mu1 < rate);
   const size_t plane = (size_t)G * K * L;
 
   // Point and gaussian mutation apply per gene as the walk writes it.
   auto mutate_gene = [=](int l, float c) {
+    if (!MUTATES) return c;
     if (mutate == MUT_POINT) {
       if (fire && l == pos) c = mu2;
     } else if (mutate == MUT_GAUSSIAN) {
@@ -508,8 +527,13 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
     }
     return c;
   };
-  const FillSource fill{philox_mode, k0, k1, k, g, 0u, philox_mode ? nullptr : dr.fill + child * L};
-  order_walk<true>(p1, p2, out, L, vis, ORDER_THREADS, fill, mutate_gene);
+  if constexpr ((ABLATE & ABL_NO_CROSS) != 0u) {
+    for (int l = 0; l < L; ++l) out[l] = mutate_gene(l, __ldg(p1 + l));
+  } else {
+    const FillSource fill{philox_mode, k0, k1, k, g, 0u,
+                          philox_mode ? nullptr : dr.fill + child * L};
+    order_walk<true>(p1, p2, out, L, vis, ORDER_THREADS, fill, mutate_gene);
+  }
   if (mutate == MUT_SWAP && fire) {
     const float a = out[pos], b = out[pj];
     out[pos] = b;
@@ -1014,7 +1038,8 @@ __global__ void __launch_bounds__(PIPE_THREADS) deme_pipelined_kernel(
 
 // The ABLATE cases each kernel is built in, beside 0 (production). A launch
 // with another mask fails with cudaErrorInvalidValue; ops/kernels.py keeps the
-// same lists (ABLATE_DEME_MASKS, ABLATE_MULTIGEN_MASKS) and refuses first.
+// same lists (ABLATE_DEME_MASKS, ABLATE_ORDER_MASKS, ABLATE_MULTIGEN_MASKS) and
+// refuses first.
 constexpr unsigned ABL_FLOOR = ABL_STAGES;  // every stage off: the harness's floor
 
 template <class F>
@@ -1022,6 +1047,19 @@ int dispatch_deme_ablate(unsigned ablate, F launch) {
   switch (ablate) {
     case 0u: return launch(std::integral_constant<unsigned, 0u>{});
     case ABL_COPY: return launch(std::integral_constant<unsigned, ABL_COPY>{});
+    case ABL_SEL_CONST: return launch(std::integral_constant<unsigned, ABL_SEL_CONST>{});
+    case ABL_NO_GATHER: return launch(std::integral_constant<unsigned, ABL_NO_GATHER>{});
+    case ABL_NO_CROSS: return launch(std::integral_constant<unsigned, ABL_NO_CROSS>{});
+    case ABL_NO_MUT: return launch(std::integral_constant<unsigned, ABL_NO_MUT>{});
+    case ABL_FLOOR: return launch(std::integral_constant<unsigned, ABL_FLOOR>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <class F>
+int dispatch_order_ablate(unsigned ablate, F launch) {
+  switch (ablate) {
+    case 0u: return launch(std::integral_constant<unsigned, 0u>{});
     case ABL_SEL_CONST: return launch(std::integral_constant<unsigned, ABL_SEL_CONST>{});
     case ABL_NO_GATHER: return launch(std::integral_constant<unsigned, ABL_NO_GATHER>{});
     case ABL_NO_CROSS: return launch(std::integral_constant<unsigned, ABL_NO_CROSS>{});
@@ -1161,12 +1199,13 @@ extern "C" const char* deme_breed_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// ablate: 0, or a stage case of the floor harness (dispatch_order_ablate).
 extern "C" int order_breed_launch(
     const float* gin, float* gout, float* sout, const int* ranks, const float* mparams,
     const float* sel_u, const float* fill, const float* mut_u, const float* gauss,
     const long long* seed, const float* coords, int C, float penalty, int P, int Pp, int L,
     int K, int G, int sel_kind, int tk, float sel_param, int mutate, int obj, int islands,
-    void* stream) {
+    unsigned ablate, void* stream) {
   const Geometry geo{P, Pp, L, K, G, MODE_RIFFLE, G, 1, 8, 1};
   const Selection sel{sel_kind, tk, sel_param};
   const OrderDraws dr{sel_u, fill, mut_u, gauss, seed};
@@ -1174,16 +1213,14 @@ extern "C" int order_breed_launch(
   // OBJ_TSP, the staged coordinates. Above 48 KB it needs the attribute;
   // past the block's 227 KB the attribute call fails and its error returns.
   const int W = (L + 31) / 32;
-  const int smem = (K + W * ORDER_THREADS) * 4 + (obj == OBJ_TSP ? (C < L ? C : L) * 8 : 0);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        order_breed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  order_breed_kernel<<<dim3(G * (K / ORDER_THREADS), islands), ORDER_THREADS, smem,
-                       (cudaStream_t)stream>>>(gin, gout, sout, ranks, mparams, dr, coords, C,
-                                               penalty, geo, sel, mutate, obj);
-  return (int)cudaGetLastError();
+  const size_t smem =
+      (size_t)(K + W * ORDER_THREADS) * 4 + (obj == OBJ_TSP ? (C < L ? C : L) * 8 : 0);
+  return dispatch_order_ablate(ablate, [&](auto tag) {
+    return launch_with_smem(order_breed_kernel<decltype(tag)::value>,
+                            dim3(G * (K / ORDER_THREADS), islands), ORDER_THREADS, smem,
+                            (cudaStream_t)stream, gin, gout, sout, ranks, mparams, dr, coords, C,
+                            penalty, geo, sel, mutate, obj);
+  });
 }
 
 // cross_kind 0: uniform crossover (`cross` bits); 1: order crossover (`fill`
@@ -1202,7 +1239,6 @@ extern "C" int multigen_breed_launch(
   if (D < 1 || D > MG_MAX_D || (cross_kind && D != 1)) return (int)cudaErrorInvalidValue;
   if ((gene_dtype != GENE_F32 && gene_dtype != GENE_BF16) || (cross_kind && gene_dtype != GENE_F32))
     return (int)cudaErrorInvalidValue;
-  if (cross_kind && ablate) return (int)cudaErrorInvalidValue;
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q, 1};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed, tie, fill};
@@ -1224,10 +1260,13 @@ extern "C" int multigen_breed_launch(
                              sout, static_cast<float*>(work0), static_cast<float*>(work1),
                              steps, target};
   if (cross_kind)
-    return launch_with_smem(multigen_breed_kernel<true, float>, dim3(S, islands), MG_THREADS,
-                            mg_rows_bytes(W) + mg_walk_bytes(W, L, MG_THREADS),
-                            (cudaStream_t)stream, io, mparams, dr, geo, sel, mutate, obj, elitism,
-                            draw_steps);
+    return dispatch_multigen_ablate(ablate, [&](auto tag) {
+      return launch_with_smem(multigen_breed_kernel<true, float, decltype(tag)::value>,
+                              dim3(S, islands), MG_THREADS,
+                              mg_rows_bytes(W) + mg_walk_bytes(W, L, MG_THREADS),
+                              (cudaStream_t)stream, io, mparams, dr, geo, sel, mutate, obj,
+                              elitism, draw_steps);
+    });
   return dispatch_multigen_ablate(ablate, [&](auto tag) {
     return launch_with_smem(multigen_breed_kernel<false, float, decltype(tag)::value>,
                             dim3(S, islands), MG_THREADS, (size_t)W * MG_ROW_BYTES,

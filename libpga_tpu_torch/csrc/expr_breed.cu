@@ -86,8 +86,38 @@
 // change with the island count, and the hook text does not either: one
 // generated unit serves single and island launches. Bound: I times the
 // island's bytes (8 x 131,072x100 is 1,048,576x100's 0.253 ms).
+//
+// The floor harness (B7; deme_breed.cu, "The floor harness", gives each
+// flag's meaning). All three kernels take an ABLATE template parameter,
+// breed_core.cuh's ABL_* stage bits (and, in expr_multigen_kernel,
+// ABL_NO_FREEZE and ABL_NO_RANK_CUBE); 0 is the production code above.
+// Replaces _deme_child's sel_const / no_matmul / no_cross / no_mut branches
+// (pallas_step.py:514, :592, :634, :748) with a crossover or mutation hook,
+// an objective hook or order crossover, in _breed_kernel (:946),
+// _pp_breed_kernel at B = 1 (:1173) and _multigen_kernel (:1460, :1617,
+// :1638, :1661). ABL_SEL_CONST and ABL_NO_GATHER breed child k from slot k's
+// row (an elite is then bred, not copied, and stays unmutated); ABL_NO_CROSS
+// runs neither the crossover hook nor the uniform bits nor the order walk
+// (the child is parent 1); ABL_NO_MUT runs no mutation; the objective always
+// runs. A removed stage draws nothing, and the streams of the stages that
+// remain keep their Philox counters, so the rest of the child is the
+// production kernel's bit for bit. The copy is deme_breed.cu's. The hooks are
+// generated per program, so the cases build per unit (ops/kernels.py,
+// expr_unit): the production unit instantiates ABLATE = 0 alone; a unit with
+// EXPR_HARNESS defined also the harness's cases (each stage bit alone, the
+// floor, and in the multi-generation kernel ABL_NO_FREEZE and
+// ABL_NO_RANK_CUBE); a unit with EXPR_ABLATE_EXTRA defined also that one
+// mask, any other combination. dispatch_expr_ablate picks the case at launch
+// and refuses a mask the unit does not hold.
 
 #include "breed_core.cuh"
+
+#ifndef EXPR_HARNESS
+#define EXPR_HARNESS 0
+#endif
+#ifndef EXPR_ABLATE_EXTRA
+#define EXPR_ABLATE_EXTRA 0u
+#endif
 
 namespace {
 
@@ -107,7 +137,9 @@ __device__ __forceinline__ ExprDraws island_expr_draws(ExprDraws ex, const Geome
 }
 
 // v[j][m]: per-gene plane j of gene 128*tile + lane + 32*m in sub-generation
-// t, for the planes the hooks read (EXPR_GENE_STREAMS), else 0.
+// t, for the planes in STREAMS (those the hooks read and the harness keeps),
+// else 0.
+template <unsigned STREAMS>
 __device__ __forceinline__ void gene_draws(
     const BreedCtx& cx, const ExprDraws& ex, int k, int g, uint32_t t, int tile, int lane,
     size_t child, float (&v)[4][4]) {
@@ -115,7 +147,7 @@ __device__ __forceinline__ void gene_draws(
   for (int j = 0; j < 4; ++j) {
 #pragma unroll
     for (int m = 0; m < 4; ++m) v[j][m] = 0.0f;
-    if (!((EXPR_GENE_STREAMS >> j) & 1)) continue;
+    if (!((STREAMS >> j) & 1u)) continue;
     if (cx.philox_mode) {
       const uint32_t call = STREAM_EXPR_GENE + ((uint32_t)j << 22) + 32u * tile + lane;
       const uint4 w = philox(cx.k0, cx.k1, make_uint4(k, g, call, t));
@@ -148,16 +180,27 @@ __device__ __forceinline__ void gene_draws(
 // synchronised. ORDER: the child was walked already and
 // p1 is that row (p2 unused): every gene is p1's, no crossover bit is drawn,
 // and only the mutation runs (a unit with order crossover has no crossover
-// hook).
-template <bool LDG, bool ORDER = false, class Gene = float>
+// hook). ABLATE (the floor harness): ABL_NO_CROSS takes every gene from p1
+// as ORDER does, with neither the hook nor its streams nor crossover bits;
+// ABL_NO_MUT runs no mutation and draws none of its streams. may_mutate
+// false (an elite bred under ABL_SEL_CONST or ABL_NO_GATHER) leaves the
+// crossed child unmutated.
+template <bool LDG, bool ORDER = false, class Gene = float, unsigned ABLATE = 0u>
 __device__ __forceinline__ void expr_child(
     const BreedCtx& cx, const Draws& dr, const ExprDraws& ex, const Gene* p1, const Gene* p2,
     float* grow, const ChildRand& r, int k, int g, uint32_t t, int lane, size_t child,
-    const float* __restrict__ cb) {
+    const float* __restrict__ cb, bool may_mutate = true) {
+  constexpr bool CROSSES = !(ABLATE & ABL_NO_CROSS);
+  constexpr bool MUTATES = !(ABLATE & ABL_NO_MUT);
+  // The streams that remain: planes / words 0-1 are the crossover's, 2-3
+  // the mutation's.
+  constexpr unsigned KEEP = (CROSSES ? 3u : 0u) | (MUTATES ? 12u : 0u);
+  constexpr unsigned GENE_STREAMS = (unsigned)(EXPR_GENE_STREAMS) & KEEP;
+  constexpr unsigned ROW_STREAMS = (unsigned)(EXPR_ROW_STREAMS) & KEEP;
   const int L = cx.L;
   (void)cb;
   float xq[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // crossover q, q2, mutation q, q2
-  if (EXPR_ROW_STREAMS) {
+  if (ROW_STREAMS) {
     if (cx.philox_mode) {
       const uint4 w = philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_EXPR_ROW, t));
       xq[0] = to_uniform(w.x);
@@ -167,20 +210,21 @@ __device__ __forceinline__ void expr_child(
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if ((EXPR_ROW_STREAMS >> j) & 1) xq[j] = ex.row[child * 4 + j];
+        if ((ROW_STREAMS >> j) & 1u) xq[j] = ex.row[child * 4 + j];
     }
   }
   // Builtin point / swap mutation: gene pos takes mu2 when mu1 < rate;
   // genes pos, pj exchange when mu2 < rate.
   const int pos = (int)floorf(r.mu0 * (float)L);
   const int pj = (int)floorf(r.mu1 * (float)L);
-  const bool fire = !EXPR_MUT && (cx.mutate == MUT_SWAP ? r.mu2 < cx.rate : r.mu1 < cx.rate);
+  const bool fire = MUTATES && !EXPR_MUT && may_mutate &&
+                    (cx.mutate == MUT_SWAP ? r.mu2 < cx.rate : r.mu1 < cx.rate);
 
   // Tile i: genes 128*i + lane + 32*m, m < 4; bit m of `bits` is the
   // uniform crossover's bit of gene m (set: parent 2).
   auto tile = [&](int i, uint32_t bits) {
     float gd[4][4];
-    gene_draws(cx, ex, k, g, t, i, lane, child, gd);
+    gene_draws<GENE_STREAMS>(cx, ex, k, g, t, i, lane, child, gd);
     (void)bits;
     float c[4];
 #pragma unroll
@@ -188,12 +232,16 @@ __device__ __forceinline__ void expr_child(
       const int l = 128 * i + lane + 32 * m;
       c[m] = 0.0f;
       if (l < L) {
+        if constexpr (!CROSSES) {
+          c[m] = load_gene<LDG>(p1 + l);
+        } else {
 #if EXPR_CROSS
-        c[m] = expr_crossover(load_gene<LDG>(p1 + l), load_gene<LDG>(p2 + l), gd[0][m],
-                              gd[1][m], xq[0], xq[1], l, L, cb);
+          c[m] = expr_crossover(load_gene<LDG>(p1 + l), load_gene<LDG>(p2 + l), gd[0][m],
+                                gd[1][m], xq[0], xq[1], l, L, cb);
 #else
-        c[m] = load_gene<LDG>((((bits >> m) & 1u) ? p2 : p1) + l);
+          c[m] = load_gene<LDG>((((bits >> m) & 1u) ? p2 : p1) + l);
 #endif
+        }
       }
     }
 #pragma unroll
@@ -201,23 +249,23 @@ __device__ __forceinline__ void expr_child(
       const int l = 128 * i + lane + 32 * m;
       if (l >= L) continue;
       float x = c[m];
+      if constexpr (MUTATES) {
 #if EXPR_MUT
-      x = expr_mutate(x, gd[2][m], gd[3][m], xq[2], xq[3], l, L, cx.rate, cx.sigma, cb);
+        if (may_mutate)
+          x = expr_mutate(x, gd[2][m], gd[3][m], xq[2], xq[3], l, L, cx.rate, cx.sigma, cb);
 #else
-      if (cx.mutate == MUT_POINT) {
-        if (fire && l == pos) x = r.mu2;
-      } else if (cx.mutate == MUT_GAUSSIAN) {
-        x = gauss_mutate(cx, dr, x, k, g, t, l, child, true);
-      }
+        if (cx.mutate == MUT_POINT) {
+          if (fire && l == pos) x = r.mu2;
+        } else if (cx.mutate == MUT_GAUSSIAN) {
+          x = gauss_mutate(cx, dr, x, k, g, t, l, child, may_mutate);
+        }
 #endif
+      }
       grow[l] = round_gene<Gene>(x);
     }
   };
 
-#if EXPR_CROSS
-  for (int i = 0; i < cx.ntiles; ++i) tile(i, 0u);
-#else
-  if constexpr (ORDER) {
+  if constexpr (EXPR_CROSS || ORDER || !CROSSES) {
     for (int i = 0; i < cx.ntiles; ++i) tile(i, 0u);
   } else if (cx.philox_mode) {
     // Crossover bits of tile i: call 2 + i, computed 32 calls at a time
@@ -250,7 +298,6 @@ __device__ __forceinline__ void expr_child(
       tile(i, b);
     }
   }
-#endif
   __syncwarp();
   if (!EXPR_MUT && cx.mutate == MUT_SWAP && fire && pos < L && pj < L) {
     if (lane == 0) {
@@ -279,7 +326,7 @@ __device__ __forceinline__ float expr_score(
 #endif
 }
 
-template <class Gene>
+template <class Gene, unsigned ABLATE>
 __global__ void __launch_bounds__(THREADS) expr_breed_kernel(
     const Gene* __restrict__ gin, Gene* __restrict__ gout, float* __restrict__ sout,
     const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr0, ExprDraws ex0,
@@ -311,20 +358,24 @@ __global__ void __launch_bounds__(THREADS) expr_breed_kernel(
 
   const float V = (float)max(s_valid, 1);
   BreedCtx cx = breed_ctx(dr, mparams, geo, mutate, obj);
-  if (EXPR_CROSS) cx.ncalls = 2;  // selection and mutation: no crossover bits
+  // Selection and mutation only: no crossover bits.
+  if (EXPR_CROSS || (ABLATE & ABL_NO_CROSS)) cx.ncalls = 2;
   const bool scored = EXPR_OBJ || obj != OBJ_NONE;
 
   for (int k = warp; k < K; k += nwarps) {
     const size_t child = (size_t)g * K + k;
     const ChildRand r = child_rand(cx, dr, k, g, 0u, lane, child);
-    const int r1 = winner_rank(winner_fraction(sel, r.su0), V);
-    const int r2 = winner_rank(winner_fraction(sel, r.su1), V);
-    const int s1 = min(max(row_of_rank[r1], 0), K - 1);
-    const int s2 = min(max(row_of_rank[r2], 0), K - 1);
+    int s1 = k, s2 = k;  // sel_const, no_matmul: child k's parents are slot k
+    if constexpr (!(ABLATE & (ABL_SEL_CONST | ABL_NO_GATHER))) {
+      const int r1 = winner_rank(winner_fraction(sel, r.su0), V);
+      const int r2 = winner_rank(winner_fraction(sel, r.su1), V);
+      s1 = min(max(row_of_rank[r1], 0), K - 1);
+      s2 = min(max(row_of_rank[r2], 0), K - 1);
+    }
     const Gene* p1 = gin + (size_t)read_row(geo, g, s1) * L;
     const Gene* p2 = gin + (size_t)read_row(geo, g, s2) * L;
     const int orow = write_row(geo, g, k);
-    expr_child<true>(cx, dr, ex, p1, p2, grow, r, k, g, 0u, lane, child, cb);
+    expr_child<true, false, Gene, ABLATE>(cx, dr, ex, p1, p2, grow, r, k, g, 0u, lane, child, cb);
     Gene* out = gout + (size_t)orow * L;
     for (int l = lane; l < L; l += 32) store_gene(out + l, grow[l]);
     if (scored) {
@@ -378,6 +429,7 @@ __global__ void __launch_bounds__(THREADS) expr_breed_kernel(
 // walked row makes a second round trip through L2: the chain, not the bytes,
 // is expected to set the time.
 
+template <unsigned ABLATE>
 __global__ void __launch_bounds__(ORDER_THREADS) expr_order_kernel(
     const float* __restrict__ gin, float* __restrict__ gout, float* __restrict__ sout,
     const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr0, ExprDraws ex0,
@@ -413,22 +465,28 @@ __global__ void __launch_bounds__(ORDER_THREADS) expr_order_kernel(
   const float V = (float)max(min(K, geo.P - g * K), 1);
   BreedCtx cx = breed_ctx(dr, mparams, geo, mutate, obj);
   cx.ncalls = 2;  // selection and mutation: no crossover bits
+  constexpr bool SAME = (ABLATE & (ABL_SEL_CONST | ABL_NO_GATHER)) != 0u;
+  constexpr bool WALK = !(ABLATE & ABL_NO_CROSS);
 
-  // Phase 1: this thread walks child `first + tid` into its physical row.
-  {
+  // Phase 1: this thread walks child `first + tid` into its physical row
+  // (under no_cross nothing is walked).
+  if constexpr (WALK) {
     const int k = first + tid;
     const size_t child = (size_t)g * K + k;
-    float su0, su1;
-    if (cx.philox_mode) {
-      const uint4 w = philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_SEL, 0u));
-      su0 = to_uniform(w.x);
-      su1 = to_uniform(w.y);
-    } else {
-      su0 = dr.sel_u[child * 2];
-      su1 = dr.sel_u[child * 2 + 1];
+    int s1 = k, s2 = k;  // sel_const, no_matmul: slot k's row with itself
+    if constexpr (!SAME) {
+      float su0, su1;
+      if (cx.philox_mode) {
+        const uint4 w = philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_SEL, 0u));
+        su0 = to_uniform(w.x);
+        su1 = to_uniform(w.y);
+      } else {
+        su0 = dr.sel_u[child * 2];
+        su1 = dr.sel_u[child * 2 + 1];
+      }
+      s1 = min(max(row_of_rank[winner_rank(winner_fraction(sel, su0), V)], 0), K - 1);
+      s2 = min(max(row_of_rank[winner_rank(winner_fraction(sel, su1), V)], 0), K - 1);
     }
-    const int s1 = min(max(row_of_rank[winner_rank(winner_fraction(sel, su0), V)], 0), K - 1);
-    const int s2 = min(max(row_of_rank[winner_rank(winner_fraction(sel, su1), V)], 0), K - 1);
     const FillSource fill{cx.philox_mode, cx.k0, cx.k1, k, g, 0u,
                           cx.philox_mode ? nullptr : dr.fill + child * L};
     order_walk<true>(gin + ((size_t)g * K + s1) * L, gin + ((size_t)g * K + s2) * L,
@@ -437,14 +495,23 @@ __global__ void __launch_bounds__(ORDER_THREADS) expr_order_kernel(
   }
   __syncthreads();
 
-  // Phase 2: one warp per child: mutation, write-back, score.
+  // Phase 2: one warp per child: mutation, write-back, score. Under no_cross
+  // the warp mutates parent 1 itself, selected from the same draws.
   const bool warp_scored = EXPR_OBJ || (obj != OBJ_NONE && obj != OBJ_TSP);
   for (int j = warp; j < ORDER_THREADS; j += ORDER_THREADS / 32) {
     const int k = first + j, orow = k * G + g;
     const size_t child = (size_t)g * K + k;
     float* out = gout + (size_t)orow * L;
     const ChildRand r = child_rand(cx, dr, k, g, 0u, lane, child);
-    expr_child<false, true>(cx, dr, ex, out, out, grow, r, k, g, 0u, lane, child, cb);
+    const float* p1 = out;
+    if constexpr (!WALK) {
+      int s1 = k;
+      if constexpr (!SAME)
+        s1 = min(max(row_of_rank[winner_rank(winner_fraction(sel, r.su0), V)], 0), K - 1);
+      p1 = gin + ((size_t)g * K + s1) * L;
+    }
+    expr_child<!WALK, true, float, ABLATE>(cx, dr, ex, p1, p1, grow, r, k, g, 0u, lane, child,
+                                            cb);
     for (int l = lane; l < L; l += 32) out[l] = grow[l];
     if (warp_scored) {
       const float score = expr_score(grow, erows, obj, L, lane, cb);
@@ -513,7 +580,7 @@ __global__ void __launch_bounds__(ORDER_THREADS) expr_order_kernel(
 // dependent steps per sub-generation on 256 of the block's threads at K =
 // 256, which is expected to set the time (65,536x200: 256 blocks on 132 SMs).
 
-template <bool ORDER, class Gene>
+template <bool ORDER, class Gene, unsigned ABLATE>
 __global__ void __launch_bounds__(MG_THREADS) expr_multigen_kernel(
     MultigenIO<Gene> io, const float* __restrict__ mparams, Draws dr0, ExprDraws ex0,
     const float* __restrict__ cb, Geometry geo, Selection sel, int mutate, int obj,
@@ -528,12 +595,15 @@ __global__ void __launch_bounds__(MG_THREADS) expr_multigen_kernel(
                 (size_t)warp * (1 + EXPR_OBJ_ROWS) * L;
   float* erows = grow + L;
   BreedCtx cx = breed_ctx(dr0, mparams, geo, mutate, obj);
-  if (EXPR_CROSS || ORDER) cx.ncalls = 2;  // selection and mutation: no crossover bits
+  // Selection and mutation only: no crossover bits.
+  if (EXPR_CROSS || ORDER || (ABLATE & ABL_NO_CROSS)) cx.ncalls = 2;
   const size_t GK = (size_t)geo.G * geo.K;
+  // sel_const, no_matmul: an elite is bred (and left unmutated), not copied.
+  constexpr bool SAME = (ABLATE & (ABL_SEL_CONST | ABL_NO_GATHER)) != 0u;
   auto breed_child = [&](const Draws& dr, uint32_t t, int g, int k, size_t child,
                          const Gene* p1, const Gene* p2, Gene* out, const ChildRand& r,
                          bool elite) {
-    if (elite) {
+    if (elite && !SAME) {
       for (int l = lane; l < L; l += 32) grow[l] = load_gene<false>(p1 + l);
       __syncwarp();
     } else {
@@ -542,14 +612,45 @@ __global__ void __launch_bounds__(MG_THREADS) expr_multigen_kernel(
         if (ex.gene) ex.gene += (size_t)t * 4 * cx.plane;
         if (ex.row) ex.row += (size_t)t * GK * 4;
       }
-      expr_child<false, ORDER>(cx, dr, ex, p1, p2, grow, r, k, g, t, lane, child, cb);
+      expr_child<false, ORDER, Gene, ABLATE>(cx, dr, ex, p1, p2, grow, r, k, g, t, lane, child,
+                                             cb, !(SAME && elite));
     }
     for (int l = lane; l < L; l += 32) store_gene(out + l, grow[l]);
     const float score = expr_score(grow, erows, obj, L, lane, cb);
     __syncwarp();  // the next child overwrites this warp's rows
     return score;
   };
-  multigen_group<ORDER>(io, geo, cx, dr0, sel, elitism, mg_smem, breed_child);
+  multigen_group<ORDER, ABLATE>(io, geo, cx, dr0, sel, elitism, mg_smem, breed_child);
+}
+
+// Launches `launch` at the ABLATE case `ablate` where this unit holds it:
+// 0 always; with EXPR_HARNESS each stage bit alone and the floor (and, for
+// the multi-generation kernel, ABL_NO_FREEZE and ABL_NO_RANK_CUBE); with
+// EXPR_ABLATE_EXTRA that mask. cudaErrorInvalidValue otherwise.
+template <bool MULTIGEN, class F>
+int dispatch_expr_ablate(unsigned ablate, F launch) {
+  using std::integral_constant;
+  if (ablate == 0u) return launch(integral_constant<unsigned, 0u>{});
+#if EXPR_HARNESS
+  switch (ablate) {
+    case ABL_SEL_CONST: return launch(integral_constant<unsigned, ABL_SEL_CONST>{});
+    case ABL_NO_GATHER: return launch(integral_constant<unsigned, ABL_NO_GATHER>{});
+    case ABL_NO_CROSS: return launch(integral_constant<unsigned, ABL_NO_CROSS>{});
+    case ABL_NO_MUT: return launch(integral_constant<unsigned, ABL_NO_MUT>{});
+    case ABL_STAGES: return launch(integral_constant<unsigned, ABL_STAGES>{});
+    default: break;
+  }
+  if constexpr (MULTIGEN) {
+    if (ablate == ABL_NO_FREEZE) return launch(integral_constant<unsigned, ABL_NO_FREEZE>{});
+    if (ablate == ABL_NO_RANK_CUBE)
+      return launch(integral_constant<unsigned, ABL_NO_RANK_CUBE>{});
+  }
+#endif
+#if EXPR_ABLATE_EXTRA
+  if (ablate == (unsigned)(EXPR_ABLATE_EXTRA))
+    return launch(integral_constant<unsigned, (unsigned)(EXPR_ABLATE_EXTRA)>{});
+#endif
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -561,13 +662,15 @@ __global__ void __launch_bounds__(MG_THREADS) expr_multigen_kernel(
 // islands: the grid's second axis (1: a single population), every tensor
 // but mparams, consts and coords with a leading island axis, one seed per
 // island. gene_dtype: GENE_F32 or GENE_BF16, the type of gin and gout.
+// ablate: 0, or a floor-harness case this unit holds (dispatch_expr_ablate).
 extern "C" int expr_breed_launch(
     const void* gin, void* gout, float* sout, const int* ranks, const float* mparams,
     const float* sel_u, const unsigned char* cross, const float* fill, const float* mut_u,
     const float* gauss, const float* xgene, const float* xrow, const long long* seed,
     const float* consts, const float* coords, int C, float penalty, int P, int Pp, int L, int K,
     int G, int mode, int S, int D, int q, int B, int sel_kind, int tk, float sel_param,
-    int cross_kind, int mutate, int obj, int warps, int islands, int gene_dtype, void* stream) {
+    int cross_kind, int mutate, int obj, int warps, int islands, int gene_dtype,
+    unsigned ablate, void* stream) {
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q, B};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed, nullptr, fill};
@@ -583,26 +686,31 @@ extern "C" int expr_breed_launch(
     const int nw = (L + 31) / 32, Cs = obj == OBJ_TSP ? (C < L ? C : L) : 0;
     const size_t smem = (size_t)(K + nw * ORDER_THREADS) * 4 + (size_t)Cs * 8 +
                         (size_t)(ORDER_THREADS / 32) * (1 + EXPR_OBJ_ROWS) * L * 4;
-    return launch_with_smem(expr_order_kernel, dim3(G * (K / ORDER_THREADS), islands),
-                            ORDER_THREADS, smem,
-                            (cudaStream_t)stream, static_cast<const float*>(gin),
-                            static_cast<float*>(gout), sout, ranks, mparams, dr, ex, consts,
-                            coords, C, penalty, geo, sel, mutate, obj);
+    return dispatch_expr_ablate<false>(ablate, [&](auto tag) {
+      return launch_with_smem(expr_order_kernel<decltype(tag)::value>,
+                              dim3(G * (K / ORDER_THREADS), islands), ORDER_THREADS, smem,
+                              (cudaStream_t)stream, static_cast<const float*>(gin),
+                              static_cast<float*>(gout), sout, ranks, mparams, dr, ex, consts,
+                              coords, C, penalty, geo, sel, mutate, obj);
+    });
   }
   if (warps < 1 || warps > THREADS / 32) return (int)cudaErrorInvalidValue;
   // row_of_rank, then each warp's child row and objective rows.
   const size_t smem = (size_t)K * sizeof(int) + (size_t)warps * (1 + EXPR_OBJ_ROWS) * L * 4;
-  if (gene_dtype == GENE_BF16) {
-    using B = __nv_bfloat16;
-    return launch_with_smem(expr_breed_kernel<B>, dim3(G, islands), warps * 32, smem,
+  return dispatch_expr_ablate<false>(ablate, [&](auto tag) {
+    constexpr unsigned A = decltype(tag)::value;
+    if (gene_dtype == GENE_BF16) {
+      using B = __nv_bfloat16;
+      return launch_with_smem(expr_breed_kernel<B, A>, dim3(G, islands), warps * 32, smem,
+                              (cudaStream_t)stream,
+                              static_cast<const B*>(gin), static_cast<B*>(gout), sout, ranks,
+                              mparams, dr, ex, consts, geo, sel, mutate, obj);
+    }
+    return launch_with_smem(expr_breed_kernel<float, A>, dim3(G, islands), warps * 32, smem,
                             (cudaStream_t)stream,
-                            static_cast<const B*>(gin), static_cast<B*>(gout), sout, ranks,
-                            mparams, dr, ex, consts, geo, sel, mutate, obj);
-  }
-  return launch_with_smem(expr_breed_kernel<float>, dim3(G, islands), warps * 32, smem,
-                          (cudaStream_t)stream,
-                          static_cast<const float*>(gin), static_cast<float*>(gout), sout, ranks,
-                          mparams, dr, ex, consts, geo, sel, mutate, obj);
+                            static_cast<const float*>(gin), static_cast<float*>(gout), sout,
+                            ranks, mparams, dr, ex, consts, geo, sel, mutate, obj);
+  });
 }
 
 // cross_kind 0: uniform crossover or the crossover hook; 1: order crossover
@@ -610,7 +718,7 @@ extern "C" int expr_breed_launch(
 // each island's injected draws hold (their stride; unread in production
 // mode). islands: the grid's second axis, as expr_breed_launch's.
 // gene_dtype: GENE_F32 or GENE_BF16, the type of gin, gout and the work
-// buffers.
+// buffers. ablate: as expr_breed_launch's.
 extern "C" int expr_multigen_launch(
     const void* gin, const float* sin, void* gout, float* sout, void* work0, void* work1,
     int steps, float target, const float* mparams, const float* sel_u,
@@ -618,7 +726,7 @@ extern "C" int expr_multigen_launch(
     const long long* tie, const float* xgene, const float* xrow, const long long* seed,
     const float* consts, int P, int Pp, int L, int K, int G, int mode, int S, int D, int q,
     int sel_kind, int tk, float sel_param, int cross_kind, int mutate, int obj, int elitism,
-    int warps, int draw_steps, int islands, int gene_dtype, void* stream) {
+    int warps, int draw_steps, int islands, int gene_dtype, unsigned ablate, void* stream) {
   if (D < 1 || D > MG_MAX_D || warps < 1 || warps > MG_THREADS / 32 ||
       (cross_kind && (EXPR_CROSS || D != 1 || gene_dtype != GENE_F32)) ||
       (gene_dtype != GENE_F32 && gene_dtype != GENE_BF16) || islands < 1 || islands > 65535)
@@ -633,24 +741,27 @@ extern "C" int expr_multigen_launch(
   const size_t smem = mg_rows_bytes(D * K) +
                       (cross_kind ? mg_walk_bytes(D * K, L, threads) : 0) +
                       (size_t)warps * (1 + EXPR_OBJ_ROWS) * L * sizeof(float);
-  if (gene_dtype == GENE_BF16) {
-    using B = __nv_bfloat16;
-    const MultigenIO<B> io{static_cast<const B*>(gin), sin, static_cast<B*>(gout), sout,
-                           static_cast<B*>(work0), static_cast<B*>(work1), steps, target};
-    return launch_with_smem(expr_multigen_kernel<false, B>, dim3(S, islands), threads, smem,
-                            (cudaStream_t)stream, io, mparams, dr, ex, consts, geo, sel, mutate,
-                            obj, elitism, draw_steps);
-  }
-  const MultigenIO<float> io{static_cast<const float*>(gin), sin, static_cast<float*>(gout),
-                             sout, static_cast<float*>(work0), static_cast<float*>(work1),
-                             steps, target};
-  return cross_kind
-             ? launch_with_smem(expr_multigen_kernel<true, float>, dim3(S, islands), threads,
-                                smem, (cudaStream_t)stream, io, mparams, dr, ex, consts, geo,
-                                sel, mutate, obj, elitism, draw_steps)
-             : launch_with_smem(expr_multigen_kernel<false, float>, dim3(S, islands), threads,
-                                smem, (cudaStream_t)stream, io, mparams, dr, ex, consts, geo,
-                                sel, mutate, obj, elitism, draw_steps);
+  return dispatch_expr_ablate<true>(ablate, [&](auto tag) {
+    constexpr unsigned A = decltype(tag)::value;
+    if (gene_dtype == GENE_BF16) {
+      using B = __nv_bfloat16;
+      const MultigenIO<B> io{static_cast<const B*>(gin), sin, static_cast<B*>(gout), sout,
+                             static_cast<B*>(work0), static_cast<B*>(work1), steps, target};
+      return launch_with_smem(expr_multigen_kernel<false, B, A>, dim3(S, islands), threads,
+                              smem, (cudaStream_t)stream, io, mparams, dr, ex, consts, geo, sel,
+                              mutate, obj, elitism, draw_steps);
+    }
+    const MultigenIO<float> io{static_cast<const float*>(gin), sin, static_cast<float*>(gout),
+                               sout, static_cast<float*>(work0), static_cast<float*>(work1),
+                               steps, target};
+    return cross_kind
+               ? launch_with_smem(expr_multigen_kernel<true, float, A>, dim3(S, islands),
+                                  threads, smem, (cudaStream_t)stream, io, mparams, dr, ex,
+                                  consts, geo, sel, mutate, obj, elitism, draw_steps)
+               : launch_with_smem(expr_multigen_kernel<false, float, A>, dim3(S, islands),
+                                  threads, smem, (cudaStream_t)stream, io, mparams, dr, ex,
+                                  consts, geo, sel, mutate, obj, elitism, draw_steps);
+  });
 }
 
 extern "C" const char* expr_breed_error_string(int code) {

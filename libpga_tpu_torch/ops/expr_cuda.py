@@ -239,6 +239,20 @@ class _Lowering:
             return True
         return any(self.per_gene[c] for c in _children(key))
 
+    def gene_ops(self) -> int:
+        """float32 operations one gene costs: each per-gene operator node
+        (arithmetic, comparison, negation, a function, ``where``) and, for
+        each reduction, its combine (``dot``: a multiply and an add).
+        Leaves (variables, constants, literals, roll and gather loads)
+        cost none, and per-row nodes run once a row, not a gene."""
+        ops = 0
+        for n, key in enumerate(self.graph.nodes):
+            if key[0] == "call" and key[1] in _REDUCTIONS + ("min1", "max1"):
+                ops += 2 if key[1] == "dot" else 1
+            elif key[0] in ("bin", "un", "call") and self.per_gene[n]:
+                ops += 1
+        return ops
+
     def uses_transcendental(self) -> bool:
         return any(
             (k[0] == "call" and k[1] in TRANSCENDENTAL) or (k[0] == "bin" and k[1] == "**")
@@ -288,9 +302,9 @@ class _Lowering:
 # ---------------------------------------------------------------------
 
 
-def _breeding_hook(role: str, op, consts: Dict[str, ConstSlot]) -> Tuple[str, bool]:
+def _breeding_hook(role: str, op, consts: Dict[str, ConstSlot]) -> Tuple[str, bool, int]:
     """(C text of ``expr_crossover`` / ``expr_mutate``, whether it calls
-    a transcendental, ``sqrt`` or ``**``)."""
+    a transcendental, ``sqrt`` or ``**``, its operations a gene)."""
     low = _Lowering(role, op.ast, consts)
     body: List[str] = []
     done: Dict[int, str] = {}
@@ -324,7 +338,7 @@ def _breeding_hook(role: str, op, consts: Dict[str, ConstSlot]) -> Tuple[str, bo
         f"  return expr_clip({result});",
         "}",
     ])
-    return text, low.uses_transcendental()
+    return text, low.uses_transcendental(), low.gene_ops()
 
 
 # ---------------------------------------------------------------------
@@ -332,8 +346,9 @@ def _breeding_hook(role: str, op, consts: Dict[str, ConstSlot]) -> Tuple[str, bo
 # ---------------------------------------------------------------------
 
 
-def _objective_hook(obj, consts: Dict[str, ConstSlot]) -> Tuple[str, int]:
-    """(C text of ``expr_objective``, rows of ``erows`` it needs)."""
+def _objective_hook(obj, consts: Dict[str, ConstSlot]) -> Tuple[str, int, int]:
+    """(C text of ``expr_objective``, rows of ``erows`` it needs, its
+    operations a gene)."""
     low = _Lowering("objective", obj.ast, consts, obj.table_kinds)
     nodes = low.graph.nodes
     level: Dict[int, int] = {}
@@ -477,7 +492,7 @@ def _objective_hook(obj, consts: Dict[str, ConstSlot]) -> Tuple[str, int]:
         f"  return {result};",
         "}",
     ])
-    return text, len(materialised)
+    return text, len(materialised), low.gene_ops()
 
 
 # ---------------------------------------------------------------------
@@ -495,7 +510,10 @@ class ExprProgram:
     streams (``gene_planes``, ``row_words``: indices as in
     ``GENE_PLANES`` / ``ROW_WORDS``) and whether a breeding hook calls a
     transcendental, ``sqrt`` or ``**`` (``transcendental``: the genes it
-    writes may then differ from torch's in the last ulps)."""
+    writes may then differ from torch's in the last ulps). ``gene_ops``
+    is each hook's float32 operations a gene (``_Lowering.gene_ops``),
+    by role ("objective", "crossover", "mutate"; 0 without that hook):
+    what a bound on the breed counts."""
 
     source: str
     consts: np.ndarray
@@ -506,6 +524,7 @@ class ExprProgram:
     has_mutate: bool
     has_objective: bool
     transcendental: bool
+    gene_ops: Dict[str, int]
     _on_device: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     def consts_on(self, device):
@@ -543,11 +562,12 @@ def generate(crossover=None, mutate=None, objective=None) -> ExprProgram:
                                    ("mutate", mutate)) if op is not None]
     slots, buf = _layout(parts)
     hooks, obj_rows, trans = [], 0, False
+    gene_ops = {"objective": 0, "crossover": 0, "mutate": 0}
     for role, op in parts:
         if role == "objective":
-            text, obj_rows = _objective_hook(op, slots[role])
+            text, obj_rows, gene_ops[role] = _objective_hook(op, slots[role])
         else:
-            text, calls = _breeding_hook(role, op, slots[role])
+            text, calls, gene_ops[role] = _breeding_hook(role, op, slots[role])
             trans |= calls
         hooks.append(text)
     planes, words = streams(crossover, mutate)
@@ -564,7 +584,7 @@ def generate(crossover=None, mutate=None, objective=None) -> ExprProgram:
         source=source, consts=buf, obj_rows=obj_rows,
         gene_planes=planes, row_words=words,
         has_crossover=crossover is not None, has_mutate=mutate is not None,
-        has_objective=objective is not None, transcendental=trans,
+        has_objective=objective is not None, transcendental=trans, gene_ops=gene_ops,
     )
 
 

@@ -112,6 +112,7 @@ import torch
 from libpga_tpu_torch.objectives.classic import (
     FUSED_ACKLEY,
     FUSED_NONE,
+    FUSED_ONEMAX,
     FUSED_ONEMAX_BITS,
     FUSED_RASTRIGIN,
     FUSED_SPHERE,
@@ -510,7 +511,8 @@ def resolve_geometry(
     default of 16. A layout flag of the floor harness in ``ablate``
     (``LAYOUT_ABLATE``) pins the riffle, as ``_resolve_layout`` does
     (``layout="pingpong"`` then raises); with ``no_riffle`` the riffle's
-    cohorts take the contiguous row map ("contig").
+    cohorts take the contiguous row map ("contig"), order crossover's
+    too.
 
     ``subblock`` (JAX's ``pallas_subblock``; None is 1) is the ping-pong
     sub-block depth B: a D qualifies when ``G % (B*D) == 0`` and the
@@ -573,7 +575,8 @@ def resolve_geometry(
     Pp = G * K
     q = pingpong_quantum(gene_dtype)
     if order:
-        return Geometry("riffle", pop_size, genome_len, K, G, 1, Pp, q)
+        layout = "contig" if "no_riffle" in ablate else "riffle"
+        return Geometry(layout, pop_size, genome_len, K, G, 1, Pp, q)
     d_candidates = [d for d in d_pool if G % d == 0 and fit(K, d)] or [1]
     D = next((d for d in d_candidates if d <= (demes_per_step or d_default)), 1)
     riffle = Geometry("riffle", pop_size, genome_len, K, G, D, Pp, q)
@@ -913,9 +916,12 @@ def breed_children(
     and rounds the children where it stores them.
 
     ``ablate`` takes the floor harness's stage flags (JAX's ``_deme_child``
-    branches): ``sel_const`` and ``no_matmul`` make child k's parents
-    slot k's row, ``no_cross`` makes the child parent 1, ``no_mut``
-    mutates nothing."""
+    branches), with any crossover and mutation: ``sel_const`` and
+    ``no_matmul`` make child k's parents slot k's row, and then an elite
+    child is bred like any other (crossed, not reset to parent 1; still
+    unmutated), as JAX resets elites only without those flags;
+    ``no_cross`` makes the child parent 1 (no walk, no crossover hook);
+    ``no_mut`` mutates nothing."""
     N, K, L = cohorts.shape
     dev = cohorts.device
     rate, sigma = mparams[0], mparams[1]
@@ -955,7 +961,8 @@ def breed_children(
         raise ValueError(f"unknown crossover kind {crossover!r}; one of {CROSSOVER_KINDS}")
     may_mutate = torch.ones((N, K), dtype=torch.bool, device=dev)
     if elite_rows:
-        child = torch.where(elite, p1, child)
+        if not {"sel_const", "no_matmul"} & set(ablate):
+            child = torch.where(elite, p1, child)
         may_mutate = may_mutate & (row >= elite_rows)[None, :]
     if "no_mut" in ablate:
         return child
@@ -1115,8 +1122,8 @@ def deme_breed_reference(
     ``(children (I, Pp, L), scores (I, Pp) or None)``: island i's rows
     are what the single-population breed of island i's tensors gives.
 
-    ``ablate`` (the floor harness, uniform crossover): with ``copy_only``
-    every cohort row is copied to its child's row, ``ranks`` holds the
+    ``ablate`` (the floor harness): with ``copy_only``, whatever the
+    hooks, every cohort row is copied to its child's row, ``ranks`` holds the
     float32 score each copied row is handed (the scores themselves under
     ``no_rank_sort``) and ``draws`` is not read (``demes_per_block``
     and ``warps_per_block``, the kernel's block shape, change nothing
@@ -1176,8 +1183,9 @@ def deme_breed(
     ``draws`` (injected mode) is given. ``islands`` = I breeds I
     populations in one launch of that kernel (see
     :func:`deme_breed_reference`; one seed per island, (I,)). The floor
-    harness's copy (``kw["ablate"]`` with ``copy_only``) draws nothing
-    and takes neither."""
+    harness's copy (``kw["ablate"]`` with ``copy_only``, the builtin
+    hooks: ``make_fused_breed`` routes every hook set's copy there) draws
+    nothing and takes neither."""
     copy = "copy_only" in kw.get("ablate", ())
     if (seed is None) == (draws is None) and not copy:
         raise ValueError("pass exactly one of seed= or draws=")
@@ -1265,10 +1273,9 @@ def multigen_breed_reference(
     i's rows are what the single-population launch of island i's
     tensors gives.
 
-    ``ablate`` (the floor harness, uniform crossover): ``no_freeze``
-    freezes no group, ``no_rank_cube`` ranks every deme in slot order
-    (rank r is slot r), and the stage flags go to
-    :func:`breed_children`."""
+    ``ablate`` (the floor harness): ``no_freeze`` freezes no group,
+    ``no_rank_cube`` ranks every deme in slot order (rank r is slot r),
+    and the stage flags go to :func:`breed_children`."""
     if (seed is None) == (draws is None):
         raise ValueError("pass exactly one of seed= or draws=")
     if objective is None and obj_id not in ROWWISE_FUSED:
@@ -1366,18 +1373,6 @@ def carry_elites(g_prev, s_prev, g2, s2, elitism: int) -> None:
 # ---------------------------------------------------------------------
 
 
-def _refuse_ablate_hooks(ablate, crossover, mutate, expr_obj) -> None:
-    """The floor harness's cases are the builtin kernels' (uniform
-    crossover, builtin mutation and objective), as JAX's harness reaches
-    them."""
-    if ablate and (is_expression(crossover) or is_expression(mutate)
-                   or expr_obj is not None or crossover != "uniform"):
-        raise NotImplementedError(
-            "ablate= with an expression hook or order crossover is not ported yet:"
-            " ROADMAP Queue B item 7 lists those cases"
-        )
-
-
 def make_fused_breed(
     pop_size: int,
     genome_len: int,
@@ -1420,19 +1415,22 @@ def make_fused_breed(
     ``out`` when given (never ``genomes`` itself). ``breed.geom`` is the
     geometry.
 
-    The floor harness (``libpga_tpu_torch/tools/ablate_floor.py``; JAX's
-    ``make_pallas_breed(_ablate=...)``): ``objective`` None breeds
-    without scoring (JAX's ``fused_obj=None``; the breed returns
-    ``(children, None)``), and ``ablate`` (flags of ``VALID_ABLATE``,
-    checked by :func:`validate_ablate`; builtin uniform crossover only)
-    launches an ablated case. ``copy_only`` copies every row to its
-    child's row, ``demes_per_block`` demes and ``warps_per_block`` warps
-    (0: the breed's 8) per block of the kernel, each copied row handed
-    the deme ranks as its score (the scores under ``no_rank_sort``);
-    ``no_riffle`` takes the contiguous row map and
-    ``alias_io`` copies in place; ``no_rank_sort`` skips the rank sort
-    (the breeding cases then get slot-order ranks); the stage flags
-    remove a part of the breed."""
+    The floor harness (``libpga_tpu_torch/tools/ablate_floor.py``,
+    ``ablate_kernel.py``; JAX's ``make_pallas_breed(_ablate=...)``):
+    ``objective`` None breeds without scoring (JAX's ``fused_obj=None``;
+    the breed returns ``(children, None)``), and ``ablate`` (flags of
+    ``VALID_ABLATE``, checked by :func:`validate_ablate`) launches an
+    ablated case, with any crossover, mutation and objective.
+    ``copy_only`` copies every row to its child's row whatever the hooks
+    (the builtin copy, as JAX's copy branch returns before a hook runs;
+    under order crossover at the order geometry), ``demes_per_block``
+    demes and ``warps_per_block`` warps (0: the breed's 8) per block of
+    the kernel, each copied row handed the deme ranks as its score (the
+    scores under ``no_rank_sort``); ``no_riffle`` takes the contiguous
+    row map and ``alias_io`` copies in place; ``no_rank_sort`` skips the
+    rank sort (the breeding cases then get slot-order ranks); the stage
+    flags remove a part of the breed (:func:`breed_children`) and raise
+    ``NotImplementedError`` where ``subblock`` resolves to B > 1."""
     ablate = validate_ablate(ablate)
     obj_id = getattr(objective, "fused_id", FUSED_NONE)
     expr_obj = getattr(objective, "expr_fused", None)
@@ -1447,7 +1445,6 @@ def make_fused_breed(
                 f"expression {op.expression!r} uses length-{pin} vector constants but"
                 f" the population genome length is {genome_len}"
             )
-    _refuse_ablate_hooks(ablate, crossover, mutate, expr_obj)
     copy = "copy_only" in ablate
     if (demes_per_block != 1 or warps_per_block) and not copy:
         raise ValueError("demes_per_block and warps_per_block are the copy's"
@@ -1470,6 +1467,11 @@ def make_fused_breed(
             " in 1..16 and, with order crossover, float32 genes and a K whose"
             " walk scratch fits (PGA.run takes the panmictic path there)"
         )
+    if geom.B > 1 and set(ablate) & STAGE_ABLATE:
+        raise NotImplementedError(
+            f"ablate= stage flags at subblock > 1 (B={geom.B}) are not ported yet:"
+            " ROADMAP Queue B item B10 lists them"
+        )
     kw = dict(
         tournament_size=tournament_size, selection=selection,
         selection_param=selection_param, mutate=mutate, obj_id=obj_id,
@@ -1481,8 +1483,13 @@ def make_fused_breed(
     if expr_obj is not None:
         kw.update(objective=expr_obj)
     if ablate:
-        kw.update(ablate=ablate, demes_per_block=demes_per_block,
-                  warps_per_block=warps_per_block)
+        kw.update(ablate=ablate)
+    if copy:
+        # The builtin copy runs no hook: of the breed it replaces it keeps
+        # only whether it is scored, which any rowwise objective id says.
+        scored = obj_id != FUSED_NONE or expr_obj is not None
+        kw = dict(mparams=kw["mparams"], obj_id=FUSED_ONEMAX if scored else FUSED_NONE,
+                  ablate=ablate, demes_per_block=demes_per_block, warps_per_block=warps_per_block)
     slot_ranks = {}  # no_rank_sort's ranks of the breeding cases, per device
 
     def breed(genomes, scores, parity, generator, out=None):
@@ -1587,8 +1594,8 @@ def make_fused_multigen(
     model), or ``elitism >= K // 4``.
 
     ``ablate`` (the floor harness; JAX's ``make_pallas_multigen(_ablate=
-    ...)``, builtin uniform crossover only): ``no_freeze``,
-    ``no_rank_cube`` or a stage flag, checked by
+    ...)``, with any crossover, mutation and objective): ``no_freeze``,
+    ``no_rank_cube`` and the stage flags, checked by
     :func:`validate_ablate`."""
     del subblock
     ablate = validate_ablate(ablate, multigen=True)
@@ -1603,7 +1610,6 @@ def make_fused_multigen(
                 f"expression {op.expression!r} uses length-{pin} vector constants but"
                 f" the population genome length is {genome_len}"
             )
-    _refuse_ablate_hooks(ablate, crossover, mutate, expr_obj)
     geom = resolve_geometry(
         pop_size, genome_len, deme_size=deme_size,
         tournament_size=tournament_size, selection=selection,

@@ -9,8 +9,13 @@ source and the headers it includes, so an edited source is rebuilt.
 gets its own unit, the hooks that ``ops/expr_cuda.py`` generates followed
 by the template, written to ``_build/expr_breed-<hash>.cu`` and built the
 same way (:func:`build_expr`); the unit holds both the one-generation and
-the multi-generation kernel of those hooks. Nothing here runs at import time: this
-module imports on machines without ``nvcc`` or a card.
+the multi-generation kernel of those hooks. The floor harness's cases of
+those kernels build in units of their own (:func:`expr_unit`): a harness
+unit (one more macro line) holds the harness's masks, and any other
+combination of the flags gets a unit keyed by its mask, so the
+production unit's text never changes with the harness. Nothing here runs
+at import time: this module imports on machines without ``nvcc`` or a
+card.
 
 ``LAUNCHES`` counts kernel launches: the uniform-crossover deme breed
 by row-map layout ("pingpong", "riffle"), the order-crossover breed
@@ -29,11 +34,14 @@ under the same name with "_bf16" appended ("pingpong_bf16",
 "riffle_bf16", "multigen_bf16", "expr_bf16", "expr_multigen_bf16",
 "islands_bf16", "islands_multigen_bf16", "islands_expr_bf16",
 "islands_expr_multigen_bf16"). The floor harness's ablated launches
-(``ablate=`` of the deme and multi-generation wrappers) count apart, so
-none counts as a production launch: "ablate_copy" (the copy case),
-"ablate_breed" (every other ablated one-generation launch) and
-"ablate_multigen" (and "_bf16"). The pipelined deme breed of the
-sub-block pipeline (``deme_breed_cuda(pipelined=True)``) counts as
+(``ablate=`` of every breed wrapper) count apart, so none counts as a
+production launch: "ablate_copy" (the copy case, whatever the hooks),
+"ablate_breed" (every other ablated launch of the deme kernel),
+"ablate_multigen" (of the multi-generation kernel), "ablate_order" and
+"ablate_multigen_order" (the order kernels), "ablate_expr",
+"ablate_expr_order", "ablate_expr_multigen" and
+"ablate_expr_multigen_order" (the expression kernels), and "_bf16". The
+pipelined deme breed of the sub-block pipeline (``deme_breed_cuda(pipelined=True)``) counts as
 "deme_pipelined" ("islands_deme_pipelined"; and "_bf16"). A wrapper adds
 one where it launches its kernel and nowhere else.
 
@@ -78,7 +86,10 @@ LAUNCHES = {
     "islands_expr": 0, "islands_expr_order": 0, "islands_expr_multigen": 0,
     "islands_expr_multigen_order": 0, "islands_expr_bf16": 0, "islands_expr_multigen_bf16": 0,
     "ablate_copy": 0, "ablate_breed": 0, "ablate_multigen": 0, "ablate_copy_bf16": 0,
-    "ablate_breed_bf16": 0, "ablate_multigen_bf16": 0, "deme_pipelined": 0,
+    "ablate_breed_bf16": 0, "ablate_multigen_bf16": 0, "ablate_order": 0,
+    "ablate_multigen_order": 0, "ablate_expr": 0, "ablate_expr_bf16": 0, "ablate_expr_order": 0,
+    "ablate_expr_multigen": 0, "ablate_expr_multigen_bf16": 0, "ablate_expr_multigen_order": 0,
+    "deme_pipelined": 0,
     "islands_deme_pipelined": 0, "deme_pipelined_bf16": 0, "islands_deme_pipelined_bf16": 0,
 }
 TEMPLATES = ("expr_breed",)  # sources built only with generated hooks in front
@@ -95,15 +106,21 @@ EXPR_MULTIGEN_MAX_WARPS = 32  # of expr_multigen_kernel (MG_THREADS / 32)
 SMEM_BLOCK_BYTES = 232_448  # shared memory a block may use on Hopper
 # The floor harness's kernel flags and their bits (csrc/breed_core.cuh's
 # ABL_*); the other flags are the host's (fused_step.VALID_ABLATE). The
-# masks each kernel is built in (csrc/deme_breed.cu's dispatch_*_ablate).
+# masks each builtin kernel is built in (csrc/deme_breed.cu's
+# dispatch_*_ablate; the order kernels': ABLATE_ORDER_MASKS and, at several
+# generations, ABLATE_MULTIGEN_MASKS), and the masks of an expression
+# harness unit (csrc/expr_breed.cu's dispatch_expr_ablate; the
+# one-generation kernels take the stage masks among them).
 ABLATE_BITS = {"copy_only": 1, "sel_const": 2, "no_matmul": 4, "no_cross": 8, "no_mut": 16,
                "no_freeze": 32, "no_rank_cube": 64}
 ABLATE_FLOOR = 2 | 4 | 8 | 16
 ABLATE_DEME_MASKS = (0, 1, 2, 4, 8, 16, ABLATE_FLOOR)
+ABLATE_ORDER_MASKS = (0, 2, 4, 8, 16, ABLATE_FLOOR)
 ABLATE_MULTIGEN_MASKS = (0, 32, 64, 2, 4, 8, 16, ABLATE_FLOOR)
+EXPR_HARNESS_MASKS = (2, 4, 8, 16, ABLATE_FLOOR, 32, 64)
 
 _libs: dict = {}
-_expr_libs: dict = {}  # generated source -> built library path
+_expr_libs: dict = {}  # (generated source, unit macro) -> built library path
 
 
 def reset_launches() -> None:
@@ -160,17 +177,31 @@ def build(name: str = "deme_breed", verbose: bool = False) -> Path:
     return _compile(src, BUILD / f"lib{name}-{_digest(src.read_bytes())}.so", verbose)
 
 
-def expr_unit(program) -> str:
+def _unit_macro(ablate: int) -> str:
+    """The macro line that picks the unit of a floor-harness mask:
+    ``EXPR_HARNESS`` where the mask is one of ``EXPR_HARNESS_MASKS`` (one
+    unit holds them all), else ``EXPR_ABLATE_EXTRA`` with the mask (a
+    unit of its own); none for 0, the production unit."""
+    if ablate in EXPR_HARNESS_MASKS:
+        return "#define EXPR_HARNESS 1\n"
+    return f"#define EXPR_ABLATE_EXTRA {int(ablate)}u\n" if ablate else ""
+
+
+def expr_unit(program, ablate: int = 0) -> str:
     """The text of an expression breed's unit: the generated hooks
-    (``program.source``), then the template ``csrc/expr_breed.cu``."""
-    return program.source + "\n" + (CSRC / "expr_breed.cu").read_text()
+    (``program.source``), then the template ``csrc/expr_breed.cu``, with
+    the macro line of the floor-harness mask ``ablate`` (an
+    :func:`expr_ablate_mask`) between them; mask 0 is the production
+    unit, which no mask changes."""
+    return program.source + "\n" + _unit_macro(ablate) + (CSRC / "expr_breed.cu").read_text()
 
 
-def build_expr(program, verbose: bool = False) -> Path:
-    """Compile an expression breed's unit into
-    ``_build/libexpr_breed-<hash>.so`` unless that file exists; the unit's
-    text is kept beside it as ``expr_breed-<hash>.cu``."""
-    text = expr_unit(program)
+def build_expr(program, verbose: bool = False, ablate: int = 0) -> Path:
+    """Compile an expression breed's unit (``ablate``: of that harness
+    mask, :func:`expr_unit`) into ``_build/libexpr_breed-<hash>.so``
+    unless that file exists; the unit's text is kept beside it as
+    ``expr_breed-<hash>.cu``."""
+    text = expr_unit(program, ablate)
     digest = _digest(text.encode())
     lib = BUILD / f"libexpr_breed-{digest}.so"
     if lib.exists():
@@ -183,23 +214,33 @@ def build_expr(program, verbose: bool = False) -> Path:
     return _compile(src, lib, verbose)
 
 
-def build_all(verbose: bool = False, programs=()) -> dict:
+def build_all(verbose: bool = False, programs=(), harness=()) -> dict:
     """Build every kernel source (the templates only through
-    ``programs``, expression units from ``ops/expr_cuda.generate``), one
+    ``programs``, expression units from ``ops/expr_cuda.generate``, and
+    ``harness``, programs whose floor-harness unit is built too), one
     nvcc per unit, all started together. Returns the seconds each unit's
-    build took (0 where its library existed), by source name or
-    ``expr_breed[i]`` for ``programs[i]``."""
+    build took (0 where its library existed), by source name,
+    ``expr_breed[i]`` for ``programs[i]`` or ``expr_harness[i]`` for
+    ``harness[i]``."""
     names = sorted(p.stem for p in CSRC.glob("*.cu") if p.stem not in TEMPLATES)
 
-    def timed(fn, arg):
+    def timed(fn, *args):
         t0 = time.perf_counter()
-        fn(arg, verbose)
+        fn(*args)
         return time.perf_counter() - t0
 
-    jobs = [(n, build, n) for n in names]
-    jobs += [(f"expr_breed[{i}]", build_expr, p) for i, p in enumerate(programs)]
+    jobs = [(n, build, (n, verbose)) for n in names]
+    # One job a unit: two threads of one process building the same unit
+    # would share its temporary file.
+    units = {}
+    for i, p in enumerate(programs):
+        units.setdefault((p.source, 0), (f"expr_breed[{i}]", build_expr, (p, verbose)))
+    for i, p in enumerate(harness):
+        mask = EXPR_HARNESS_MASKS[0]
+        units.setdefault((p.source, mask), (f"expr_harness[{i}]", build_expr, (p, verbose, mask)))
+    jobs += list(units.values())
     with ThreadPoolExecutor(max_workers=max(len(jobs), 1)) as pool:
-        futs = {key: pool.submit(timed, fn, arg) for key, fn, arg in jobs}
+        futs = {key: pool.submit(timed, fn, *args) for key, fn, args in jobs}
         return {key: fut.result() for key, fut in futs.items()}
 
 
@@ -236,6 +277,7 @@ def _bindings() -> dict:
                 i, i, i, i, i,          # P, Pp, L, K, G
                 i, i, f,                # sel kind, tournament size, sel param
                 i, i, i,                # mutate kind, objective id, islands
+                ctypes.c_uint,          # ablate mask
                 p,                      # stream
             ], i),
             "multigen_breed_launch": ([
@@ -263,6 +305,7 @@ def _bindings() -> dict:
                 i, i, f,                # sel kind, tournament size, sel param
                 i, i, i, i,             # crossover kind, mutate kind, objective id, warps
                 i, i,                   # islands, gene dtype
+                ctypes.c_uint,          # ablate mask
                 p,                      # stream
             ], i),
             "expr_multigen_launch": ([
@@ -276,6 +319,7 @@ def _bindings() -> dict:
                 i, i, i, i, i,          # crossover kind, mutate kind, objective id, elitism,
                                         # warps
                 i, i, i,                # draw steps, islands, gene dtype
+                ctypes.c_uint,          # ablate mask
                 p,                      # stream
             ], i),
             "expr_breed_error_string": ([i], s),
@@ -338,6 +382,21 @@ def ablate_mask(ablate, masks: tuple, who: str) -> int:
         raise ValueError(f"{who} is not built with the flags {sorted(set(ablate))}: its"
                          f" ablated cases are {cases}")
     return mask
+
+
+def expr_ablate_mask(ablate, multigen: bool = False) -> int:
+    """The kernel bitmask of the flags ``ablate`` for an expression
+    kernel, which takes any combination of the stage flags (and, with
+    ``multigen``, no_freeze and no_rank_cube): the unit that holds its
+    case is picked by :func:`expr_unit`. The copy is deme_breed_kernel's
+    whatever the hooks, so copy_only raises here."""
+    flags = set(ablate)
+    if "copy_only" in flags:
+        raise ValueError("copy_only launches deme_breed_kernel's copy, not an expression kernel")
+    if not multigen and flags & {"no_freeze", "no_rank_cube"}:
+        raise ValueError(f"ablation flag(s) {sorted(flags & {'no_freeze', 'no_rank_cube'})} are"
+                         " the multi-generation kernel's")
+    return sum(ABLATE_BITS.get(f, 0) for f in flags)
 
 
 def _check_genomes(genomes: torch.Tensor, shape, device, order: bool = False) -> int:
@@ -417,9 +476,12 @@ def deme_breed_cuda(
     if not 1 <= tournament_size <= 16:
         raise ValueError(f"tournament_size {tournament_size} outside 1..16")
     mask = ablate_mask(ablate, ABLATE_DEME_MASKS, "deme_breed_kernel")
-    if pipelined and (ablate or K % 4):
-        raise ValueError("the pipelined deme breed takes no ablate flags and a deme size"
-                         f" that is a multiple of 4 (K={K})")
+    if pipelined and ablate:
+        raise ValueError("the pipelined deme breed takes no ablate flags: stage flags at"
+                         " subblock > 1 are ROADMAP Queue B item B10")
+    if pipelined and K % 4:
+        raise ValueError(f"the pipelined deme breed takes a deme size that is a multiple of 4"
+                         f" (K={K})")
     copy = bool(mask & ABLATE_BITS["copy_only"])
     if demes_per_block < 1 or G % demes_per_block or (demes_per_block > 1 and not copy):
         raise ValueError(f"demes_per_block {demes_per_block}: the copy's, dividing G={G}")
@@ -499,6 +561,7 @@ def order_breed_cuda(
     coords: Optional[torch.Tensor] = None,
     penalty: float = 0.0,
     islands: Optional[int] = None,
+    ablate: tuple = (),
 ):
     """Launch ``order_breed_kernel`` of ``csrc/deme_breed.cu`` on the
     current stream: the kernel counterpart of
@@ -508,6 +571,8 @@ def order_breed_cuda(
     with the ``fill`` plane. ``obj_id`` 3 (fused TSP) takes ``coords``
     (C, 2) float32 on the card and ``penalty``. ``islands`` = I breeds
     I populations in one launch, shaped as :func:`deme_breed_cuda`'s.
+    ``ablate`` launches a stage case of the floor harness (a stage flag
+    alone or all four, ``ABLATE_ORDER_MASKS``; no_cross walks nothing).
     Raises on bad arguments or a failed launch; never runs anything else
     in the kernel's place."""
     dev = genomes.device
@@ -522,6 +587,7 @@ def order_breed_cuda(
         raise ValueError(f"deme size {K} is not a multiple of {ORDER_THREADS} in 1..1024")
     if not 1 <= tournament_size <= 16:
         raise ValueError(f"tournament_size {tournament_size} outside 1..16")
+    mask = ablate_mask(ablate, ABLATE_ORDER_MASKS, "order_breed_kernel")
     lead, n = _island_lead(islands)
     _check_genomes(genomes, lead + (Pp, L), dev, order=True)
     _check(ranks, "ranks", torch.int32, (n * G, K), dev)
@@ -567,11 +633,11 @@ def order_breed_cuda(
         geom.P, Pp, L, K, G,
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
-        MUTATE_IDS[mutate], int(obj_id), n,
+        MUTATE_IDS[mutate], int(obj_id), n, mask,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "deme_breed")
-    LAUNCHES["order" if islands is None else "islands_order"] += 1
+    LAUNCHES["ablate_order" if ablate else "order" if islands is None else "islands_order"] += 1
     return out, scores
 
 
@@ -698,17 +764,15 @@ def multigen_breed_cuda(
     scores (Pp,))`` in physical row order. ``islands`` = I breeds I
     populations in one launch: genomes, scores, ``out`` and ``work``
     with a leading island axis (I, Pp, L) / (I, Pp), one seed per island
-    (I,), injected draws (I, T, ...). ``ablate`` (uniform crossover; flags
-    checked by ``fused_step.validate_ablate``) launches a case of the
-    floor harness: no_freeze, no_rank_cube or a stage flag alone, or the
-    four stage flags. Raises on bad arguments or a failed launch; never
-    runs anything else in the kernel's place."""
+    (I,), injected draws (I, T, ...). ``ablate`` (flags checked by
+    ``fused_step.validate_ablate``; uniform or order crossover) launches
+    a case of the floor harness: no_freeze, no_rank_cube or a stage flag
+    alone, or the four stage flags. Raises on bad arguments or a failed
+    launch; never runs anything else in the kernel's place."""
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("multigen_breed_cuda needs CUDA tensors")
     mask = ablate_mask(ablate, ABLATE_MULTIGEN_MASKS, "multigen_breed_kernel")
-    if ablate and crossover != "uniform":
-        raise ValueError("the floor harness's multigen cases breed uniform crossover")
     if crossover not in CROSS_IDS:
         raise ValueError(f"multigen_breed_cuda breeds uniform or order crossover, not {crossover!r}")
     if obj_id not in ROWWISE_FUSED:
@@ -741,8 +805,11 @@ def multigen_breed_cuda(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "deme_breed")
-    key = "ablate_multigen" if ablate else "multigen_order" if order else "multigen"
-    _count(key if islands is None else "islands_" + key, genomes)
+    if ablate:
+        _count("ablate_multigen_order" if order else "ablate_multigen", genomes)
+    else:
+        key = "multigen_order" if order else "multigen"
+        _count(key if islands is None else "islands_" + key, genomes)
     return out, s_out
 
 
@@ -843,11 +910,13 @@ def _expr_draws(draws, program, lead: tuple, geom, dev):
     return xgene, xrow
 
 
-def _expr_library(program) -> ctypes.CDLL:
-    """The loaded unit of ``program``'s hooks, built at first use."""
-    if program.source not in _expr_libs:
-        _expr_libs[program.source] = build_expr(program)
-    return _library("expr_breed", _expr_libs[program.source])
+def _expr_library(program, ablate: int = 0) -> ctypes.CDLL:
+    """The loaded unit of ``program``'s hooks (of the floor-harness mask
+    ``ablate``: :func:`expr_unit`), built at first use."""
+    key = (program.source, _unit_macro(ablate))
+    if key not in _expr_libs:
+        _expr_libs[key] = build_expr(program, ablate=ablate)
+    return _library("expr_breed", _expr_libs[key])
 
 
 def expr_breed_cuda(
@@ -870,6 +939,7 @@ def expr_breed_cuda(
     coords: Optional[torch.Tensor] = None,
     penalty: float = 0.0,
     islands: Optional[int] = None,
+    ablate: tuple = (),
 ):
     """Launch ``expr_breed_kernel`` or, for order crossover,
     ``expr_order_kernel``, of the template ``csrc/expr_breed.cu`` with
@@ -891,14 +961,17 @@ def expr_breed_cuda(
     populations in one launch, shaped as :func:`deme_breed_cuda`'s
     (genomes and ``out`` (I, Pp, L), ranks (I*G, K), one seed per island
     (I,), every injected tensor with a leading island axis, scores (I,
-    Pp)); the constant tables and ``coords`` are shared. Raises on bad
-    arguments or a failed build or launch; never runs anything else in
-    the kernel's place."""
+    Pp)); the constant tables and ``coords`` are shared. ``ablate``
+    (stage flags of the floor harness, any combination) launches that
+    case from the hooks' harness unit or a unit of its own
+    (:func:`expr_unit`). Raises on bad arguments or a failed build or
+    launch; never runs anything else in the kernel's place."""
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("expr_breed_cuda needs CUDA tensors")
     G, K, L, Pp = geom.G, geom.K, geom.L, geom.Pp
     cross_op, mut_op, obj_id = _expr_hooks(crossover, mutate, objective, obj_id, L, "expr_breed_cuda")
+    mask = expr_ablate_mask(ablate)
     order = crossover == "order"
     if not 1 <= K <= 1024:
         raise ValueError(f"deme size {K} outside 1..1024")
@@ -946,7 +1019,7 @@ def expr_breed_cuda(
         _check(seed, "seed", torch.int64, (n,), dev)
     scores = (torch.empty(lead + (Pp,), device=dev) if (objective is not None or obj_id)
               else None)
-    lib = _expr_library(program)
+    lib = _expr_library(program, mask)
     rc = lib.expr_breed_launch(
         genomes.data_ptr(), out.data_ptr(), _ptr(scores), ranks.data_ptr(),
         mparams.data_ptr(),
@@ -958,12 +1031,12 @@ def expr_breed_cuda(
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
         CROSS_IDS["order" if order else "uniform"], MUTATE_IDS.get(mutate, 0) if mut_op is None else 0,
-        int(obj_id), warps, n, gene_id,
+        int(obj_id), warps, n, gene_id, mask,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "expr_breed")
     key = "expr_order" if order else "expr"
-    _count(key if islands is None else "islands_" + key, genomes)
+    _count("ablate_" + key if ablate else key if islands is None else "islands_" + key, genomes)
     return out, scores
 
 
@@ -989,6 +1062,7 @@ def expr_multigen_cuda(
     crossover="uniform",
     objective=None,
     islands: Optional[int] = None,
+    ablate: tuple = (),
 ):
     """Launch ``expr_multigen_kernel``, the multi-generation entry of
     the expression breed's unit (the same build as :func:`expr_breed_cuda`
@@ -1003,14 +1077,17 @@ def expr_multigen_cuda(
     scores (Pp,))`` in physical row order. ``islands`` = I breeds I
     populations in one launch, shaped as :func:`multigen_breed_cuda`'s
     (injected draws (I, T, ...), the expression planes and words
-    included). Raises on bad arguments or a failed build or launch; never
-    runs anything else in the kernel's place."""
+    included). ``ablate`` (the floor harness's no_freeze, no_rank_cube
+    and stage flags, any combination) launches that case, as
+    :func:`expr_breed_cuda`'s. Raises on bad arguments or a failed build
+    or launch; never runs anything else in the kernel's place."""
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("expr_multigen_cuda needs CUDA tensors")
     G, K, L, Pp, D = geom.G, geom.K, geom.L, geom.Pp, geom.D
     cross_op, mut_op, obj_id = _expr_hooks(crossover, mutate, objective, obj_id, L,
                                            "expr_multigen_cuda", multigen=True)
+    mask = expr_ablate_mask(ablate, multigen=True)
     order = crossover == "order"
     lead, n = _island_lead(islands)
     steps, gene_id = _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism,
@@ -1025,7 +1102,7 @@ def expr_multigen_cuda(
     if draws is not None:
         xgene, xrow = _expr_draws(draws, program, lead + (draw_steps,), geom, dev)
     s_out = torch.empty(lead + (Pp,), device=dev)
-    lib = _expr_library(program)
+    lib = _expr_library(program, mask)
     rc = lib.expr_multigen_launch(
         genomes.data_ptr(), scores.data_ptr(), out.data_ptr(), s_out.data_ptr(),
         _ptr(work[0]), _ptr(work[1]),
@@ -1038,12 +1115,12 @@ def expr_multigen_cuda(
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
         CROSS_IDS["order" if order else "uniform"], MUTATE_IDS.get(mutate, 0) if mut_op is None else 0,
-        int(obj_id), int(elitism), warps, draw_steps, n, gene_id,
+        int(obj_id), int(elitism), warps, draw_steps, n, gene_id, mask,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "expr_breed")
     key = "expr_multigen_order" if order else "expr_multigen"
-    _count(key if islands is None else "islands_" + key, genomes)
+    _count("ablate_" + key if ablate else key if islands is None else "islands_" + key, genomes)
     return out, s_out
 
 

@@ -92,35 +92,48 @@ GENE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 
 
-def _population(geom, dtype, device, seed=1):
-    """Uniform genomes of ``dtype`` and their onemax scores (-inf on pad
-    rows), as the run loop keeps them."""
+def _population(geom, dtype, device, objective=None, seed=1):
+    """Uniform genomes of ``dtype`` and their scores (-inf on pad rows),
+    as the run loop keeps them: onemax's, or ``objective``'s."""
+    from libpga_tpu_torch.ops.evaluate import evaluate
+
     gen = torch.Generator(device=device).manual_seed(seed)
     g = torch.rand((geom.Pp, geom.L), generator=gen, device=device).to(dtype)
-    s = g.float().sum(dim=1)
+    s = g.float().sum(dim=1) if objective is None else evaluate(objective, g)
     s[geom.P:] = -torch.inf
     return g, s
 
 
+def _kinds(kinds):
+    """(objective, factory keywords) of a hook set (``ablate_kernel``'s
+    ``hook_kinds``); None is onemax with the factory's builtin hooks."""
+    from libpga_tpu_torch.objectives import onemax
+
+    kw = dict(kinds or {"objective": onemax})
+    return kw.pop("objective"), kw
+
+
 def build_variant(name, dtype, K, pop, L, ablate=(), fused=True, layout=None,
                   demes_per_block=1, warps_per_block=0, subblock=None,
-                  device="cuda") -> Callable[[int], None]:
+                  device="cuda", kinds=None) -> Callable[[int], None]:
     """``run(n)``: n generations of one variant, as ``PGA.run``'s loop
     breeds them (the parity alternating by generation, the children into
     the other buffer, in place under ``alias_io``); ``run.breed`` is the
     breed, ``run.geom`` its geometry. ``fused`` False breeds unscored
     (the scores stay those of generation 0); ``subblock`` is the
-    ping-pong sub-block depth (JAX's ``_subblock``)."""
-    from libpga_tpu_torch.objectives import onemax
+    ping-pong sub-block depth (JAX's ``_subblock``); ``kinds`` the
+    objective, crossover, mutation and mparams of a hook set (None:
+    onemax with the builtin hooks)."""
     from libpga_tpu_torch.ops import fused_step as fs
 
+    objective, kw = _kinds(kinds)
     breed = fs.make_fused_breed(
-        pop, L, onemax if fused else None, deme_size=K, layout=layout, device=device,
+        pop, L, objective if fused else None, deme_size=K, layout=layout, device=device,
         gene_dtype=dtype, ablate=ablate, demes_per_block=demes_per_block,
-        warps_per_block=warps_per_block, subblock=subblock,
+        warps_per_block=warps_per_block, subblock=subblock, **kw,
     )
     geom = breed.geom
-    g0, s0 = _population(geom, dtype, device)
+    g0, s0 = _population(geom, dtype, device, None if kinds is None else objective)
     gen = torch.Generator(device=device).manual_seed(0)
     state = {"g": g0, "s": s0, "spare": torch.empty_like(g0), "gen": 0}
 
@@ -134,7 +147,7 @@ def build_variant(name, dtype, K, pop, L, ablate=(), fused=True, layout=None,
             if s2 is not None:
                 state["s"] = s2
 
-    run.name, run.breed, run.geom = name, breed, geom
+    run.name, run.breed, run.geom, run.gens_per_call = name, breed, geom, 1
     run.blocks = geom.G // demes_per_block
     return run
 
@@ -158,16 +171,20 @@ def build_rank_sort(dtype, K, pop, L, layout=None, device="cuda") -> Callable[[i
     return run
 
 
-def build_tsweep_variant(dtype, K, pop, L, T, ablate=(), device="cuda") -> Callable[[int], None]:
+def build_tsweep_variant(dtype, K, pop, L, T, ablate=(), device="cuda",
+                         kinds=None) -> Callable[[int], None]:
     """n launches of the multi-generation kernel at T steps each
-    (``run.gens_per_call`` = T), with the multigen ``ablate`` flags."""
-    from libpga_tpu_torch.objectives import onemax
+    (``run.gens_per_call`` = T), with the multigen ``ablate`` flags and
+    the hook set ``kinds`` (as :func:`build_variant`'s)."""
     from libpga_tpu_torch.ops import fused_step as fs
 
-    launch = fs.make_fused_multigen(pop, L, onemax, deme_size=K, gene_dtype=dtype, device=device,
-                                    ablate=ablate)
+    objective, kw = _kinds(kinds)
+    launch = fs.make_fused_multigen(pop, L, objective, deme_size=K, gene_dtype=dtype, device=device,
+                                    ablate=ablate, **kw)
+    if launch is None:
+        raise ValueError(f"no multi-generation geometry at {pop}x{L} for these hooks")
     geom = launch.geom
-    g0, s0 = _population(geom, dtype, device)
+    g0, s0 = _population(geom, dtype, device, None if kinds is None else objective)
     gen = torch.Generator(device=device).manual_seed(0)
     work = [torch.empty_like(g0) for _ in range(min(T - 1, 2))]
     state = {"g": g0, "s": s0, "spare": torch.empty_like(g0), "launch": 0}

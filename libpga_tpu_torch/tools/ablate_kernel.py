@@ -1,7 +1,8 @@
-"""Stage ablation of the port's one-generation breed kernel on one CUDA card.
+"""Stage ablation of the port's breed kernels on one CUDA card.
 
 Usage: python -m libpga_tpu_torch.tools.ablate_kernel [f32|bf16] [K]
            [--pop 1048576] [--len 100] [--rounds 3]
+           [--hooks builtin|creep|trap|tour|tsp|order] [--steps T]
 
 The port's counterpart of ``tools/ablate_kernel.py``: the generation of
 ``PGA.run`` (rank sort + ``deme_breed_kernel``) with the kernel's stages
@@ -17,6 +18,22 @@ the differences share one layout:
   no_matmul  no rank-space gather: p1 = p2 = slot k's row (draws made)
   floor      all of the above off              -> memory, blocks, ranks
 
+``--hooks`` breeds another hook set through the same flags, on the
+geometry ``PGA.run`` gives it: ``creep`` (OneMax with the creep mutation
+expression, ``expr_breed_kernel``), ``trap`` (the trap(5) objective
+expression), ``tour`` (the tour expression over ``random_tsp_coords(L,
+seed=2)`` with order crossover and swap, ``expr_order_kernel``), ``tsp``
+(the coordinate TSP scored gene-major with order crossover and swap,
+``order_breed_kernel``) and ``order`` (OneMax with order crossover and
+swap). Every variant is then scored (an objective hook always runs, as in
+JAX): ``full``, each stage flag alone, ``floor`` (the four stages off)
+and ``copy`` (the builtin copy at the hooks' geometry, each row handed
+its score). With ``--steps T`` above 1 the variants are the
+multi-generation kernel's at T steps a launch (``expr_multigen_kernel``,
+``multigen_breed_kernel<true>`` for ``order``): ``full``, ``no_freeze``,
+``no_rank_cube``, each stage flag alone and ``floor``; the times are per
+generation.
+
 Timed as ``ablate_floor`` times (interleaved rounds of a two-length
 subtraction by CUDA events, medians). Needs a CUDA card.
 """
@@ -28,8 +45,11 @@ import argparse
 import torch
 
 from libpga_tpu_torch.tools.ablate_floor import (
+    COPY,
     FLOOR_ABLATE,
     GENE_DTYPES,
+    TSWEEP_ABLATE,
+    build_tsweep_variant,
     build_variant,
     measure_interleaved,
 )
@@ -43,6 +63,67 @@ STAGES = [
     ("no_matmul", ("no_matmul",), True),
     ("floor", FLOOR_ABLATE, False),
 ]
+HOOK_SETS = ("builtin", "creep", "trap", "tour", "tsp", "order")
+CREEP = "where(r < rate, g + sigma * (2*r2 - 1), g)"
+TOUR = ("c = floor(g * L);"
+        "x = gather(X, c); y = gather(Y, c);"
+        "dx = roll(x, 1) - x; dy = roll(y, 1) - y;"
+        "-sum(where(i < L - 1, sqrt(dx*dx + dy*dy + 1e-12), 0))")
+
+
+def hook_kinds(hooks: str, L: int) -> dict:
+    """The factory keywords of a hook set at genome length ``L``:
+    ``objective``, ``crossover``, ``mutate`` and ``mparams``."""
+    from libpga_tpu_torch import objectives as po
+    from libpga_tpu_torch.ops.breed_expr import mutate_from_expression
+
+    kw = dict(objective=po.onemax, crossover="uniform", mutate="point", mparams=(0.01, 0.0))
+    if hooks == "creep":
+        kw.update(mutate=mutate_from_expression(CREEP, rate=0.05, sigma=0.1), mparams=(0.05, 0.1))
+    elif hooks == "trap":
+        kw.update(objective=po.make_deceptive_trap(5))
+    elif hooks in ("tour", "tsp", "order"):
+        kw.update(crossover="order", mutate="swap", mparams=(0.5, 0.0))
+        c = po.random_tsp_coords(L, seed=2)
+        if hooks == "tour":
+            kw.update(objective=po.from_expression(TOUR, X=c[:, 0], Y=c[:, 1]))
+        elif hooks == "tsp":
+            kw.update(objective=po.make_tsp_coords(c, duplicate_mode="genes"))
+    elif hooks != "builtin":
+        raise ValueError(f"unknown hook set {hooks!r}; one of {HOOK_SETS}")
+    return kw
+
+
+def variants(hooks: str, steps: int = 1) -> list:
+    """(label, ablate, scored) of every variant timed: ``STAGES`` for the
+    builtin hooks at one generation a launch; else each of them scored
+    (an objective hook always runs, as in JAX) but ``no_eval``, and the
+    copy at one generation a launch, or no_freeze and no_rank_cube after
+    ``full`` at several."""
+    if hooks == "builtin" and steps == 1:
+        return STAGES
+    scored = [(label, ablate, True) for label, ablate, _ in STAGES if label != "no_eval"]
+    if steps == 1:
+        return scored + [("copy", COPY, True)]
+    return scored[:1] + [(flag, (flag,), True) for flag in TSWEEP_ABLATE] + scored[1:]
+
+
+def build_runners(hooks, dtype, K, pop, L, steps=1, device="cuda") -> dict:
+    """``{label: run}`` of every variant of ``variants(hooks, steps)``:
+    ``ablate_floor``'s runners, one generation a launch (the builtin
+    hooks on the riffle, a hook set on the geometry ``PGA.run`` gives
+    it) or the multi-generation kernel at ``steps``."""
+    kinds = None if hooks == "builtin" and steps == 1 else hook_kinds(hooks, L)
+    runners = {}
+    for label, ablate, scored in variants(hooks, steps):
+        if steps > 1:
+            runners[label] = build_tsweep_variant(dtype, K, pop, L, steps, ablate=ablate,
+                                                  device=device, kinds=kinds)
+        else:
+            runners[label] = build_variant(label, dtype, K, pop, L, ablate=ablate, fused=scored,
+                                           layout="riffle" if kinds is None else None,
+                                           device=device, kinds=kinds)
+    return runners
 
 
 def main(argv=None) -> dict:
@@ -54,22 +135,22 @@ def main(argv=None) -> dict:
     ap.add_argument("--pop", type=int, default=1 << 20)
     ap.add_argument("--len", type=int, default=100, dest="length")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--hooks", default="builtin", choices=HOOK_SETS)
+    ap.add_argument("--steps", type=int, default=1, help="generations a launch (multigen)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("stage costs are a card's quantity: run this where CUDA is available")
     dtype = GENE_DTYPES[args.dtype]
-    runners = {
-        label: build_variant(label, dtype, args.k, args.pop, args.length, ablate=ablate,
-                             fused=fused, layout="riffle")
-        for label, ablate, fused in STAGES
-    }
+    lo, hi = (30, 90) if args.steps == 1 else (10, 30)
+    runners = build_runners(args.hooks, dtype, args.k, args.pop, args.length, args.steps)
     for run in runners.values():
         run(3)
-    med = measure_interleaved(runners, args.rounds)
+    med = measure_interleaved(runners, args.rounds, lo=lo, hi=hi)
     base = med["full"]
+    tag = f"{args.dtype} {args.hooks} K={args.k} T={args.steps}"
     for label in runners:
         delta = "" if label == "full" else f"  (stage ~ {base - med[label]:+.4f} ms)"
-        print(f"{args.dtype} K={args.k} {label:10s} {med[label]:8.4f} ms/gen{delta}", flush=True)
+        print(f"{tag} {label:12s} {med[label]:8.4f} ms/gen{delta}", flush=True)
     return dict(med)
 
 

@@ -339,15 +339,24 @@ def test_layout_flags_pin_the_riffle_as_jax_does():
         _jax_breed(COPY, True, P=8192, dps=None, layout="pingpong")
 
 
-def test_ablate_with_order_or_expression_hooks_is_not_ported():
-    creep = mutate_from_expression("where(r < rate, g + sigma * (2*r2 - 1), g)", rate=0.05,
-                                   sigma=0.1)
-    with pytest.raises(NotImplementedError, match="Queue B item 7"):
-        fs.make_fused_breed(POP, L, onemax, deme_size=K, mutate=creep, ablate=("no_cross",),
+@pytest.mark.parametrize("mutate", ["point", "creep"])
+def test_stage_flags_at_subblock_above_one_raise_naming_their_roadmap_item(mutate):
+    """The stage flags at a sub-block depth B > 1 are not ported yet
+    (ROADMAP Queue B item B10): the factory raises, with a builtin or an
+    expression hook; at B = 1 (the riffle at 4,096 rows) they breed."""
+    if mutate == "creep":
+        mutate = mutate_from_expression("where(r < rate, g + sigma * (2*r2 - 1), g)", rate=0.05,
+                                        sigma=0.1)
+    assert fs.resolve_geometry(16_384, L, subblock=2).B == 2
+    with pytest.raises(NotImplementedError, match="Queue B item B10"):
+        fs.make_fused_breed(16_384, L, onemax, mutate=mutate, ablate=("no_cross",), subblock=2,
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue B item 7"):
-        fs.make_fused_multigen(POP, L, onemax, deme_size=K, crossover="order",
-                               mutate="swap", ablate=("no_freeze",), device="cpu")
+    breed = fs.make_fused_breed(4096, L, onemax, mutate=mutate, ablate=("no_cross",),
+                                subblock=2, device="cpu")
+    assert breed.geom.B == 1
+    copy = fs.make_fused_breed(16_384, L, onemax, mutate=mutate, ablate=COPY, subblock=2,
+                               device="cpu")
+    assert copy.geom.B == 1  # a layout flag pins the riffle
 
 
 def test_demes_per_block_is_the_copy_s():
@@ -376,6 +385,18 @@ def test_kernel_masks_cover_the_harness_and_refuse_the_rest():
     assert mg(("no_freeze",)) == 32 and mg(("no_rank_cube",)) == 64
     with pytest.raises(ValueError, match="ablated cases"):
         mg(("no_freeze", "no_rank_cube"))
+    # The order kernels: order_breed_kernel's stage cases (no copy: the
+    # copy is deme_breed_kernel's), multigen_breed_kernel<true>'s the
+    # multigen list.
+    order = lambda flags: kernels.ablate_mask(flags, kernels.ABLATE_ORDER_MASKS, "order")
+    for label, ablate, _ in port_ak.STAGES:
+        order(ablate)
+    assert order(FLOOR) == kernels.ABLATE_FLOOR
+    assert set(kernels.ABLATE_ORDER_MASKS) == set(kernels.ABLATE_DEME_MASKS) - {1}
+    with pytest.raises(ValueError, match="ablated cases"):
+        order(("copy_only",))
+    with pytest.raises(ValueError, match="ablated cases"):
+        order(("sel_const", "no_mut"))
 
 
 # ----------------------------------------------------- harness arithmetic

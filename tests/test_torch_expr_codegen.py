@@ -166,3 +166,24 @@ def test_generated_text_is_deterministic_and_value_free():
     assert (p.gene_planes, p.row_words) == ((0, 2, 3), ())
     assert expr_cuda.program_for(cx, mx) is expr_cuda.program_for(cx, mx)
     assert expr_cuda.flit(0.1) == "0x1.99999a0000000p-4f" and expr_cuda.flit(-2.0) == "(-0x1.0000000000000p+1f)"
+
+
+@pytest.mark.parametrize("role,expr,ops", [
+    ("mutate", "where(r < rate, g + sigma * (2*r2 - 1), g)", 6),
+    ("crossover", "where(i < floor(q * L), p1, p2)", 2),  # q * L and floor: once a row
+    ("crossover", "r * p1 + (1 - r) * p2", 4),
+    ("objective", "sum(g * g)", 2),
+    ("objective", "c = floor(g * L); dx = roll(c, 1) - c; -sum(where(i < L - 1, sqrt(dx*dx), 0))",
+     8),
+])
+def test_gene_ops_count_operators_not_loads(role, expr, ops):
+    """``gene_ops`` (what the card's bounds count) is a hook's per-gene
+    operator nodes and reductions: no statement of a variable, constant,
+    literal or roll load, and no per-row node."""
+    if role == "objective":
+        program = expr_cuda.generate(objective=from_expression(expr).expr_fused)
+    elif role == "crossover":
+        program = expr_cuda.generate(crossover=pbx.crossover_from_expression(expr))
+    else:
+        program = expr_cuda.generate(mutate=pbx.mutate_from_expression(expr))
+    assert program.gene_ops == {"objective": 0, "crossover": 0, "mutate": 0, role: ops}

@@ -1532,6 +1532,264 @@ def test_ablated_kernels_reject_bad_arguments(cuda_device):
                                     obj_id=onemax.fused_id, ablate=("copy_only",))
 
 
+# ------------------------------------- the floor harness with hooks (B7)
+
+HOOK_FLOOR = ("sel_const", "no_matmul", "no_cross", "no_mut")
+
+
+def _hook_case(name, L):
+    """``(objective, crossover, mutate)`` of a hook set for the factories:
+    creep (an expression mutation), half (an expression crossover, 0.5 *
+    p1 + 0.25, not the identity on equal parents), trap (an expression
+    objective), tour (order crossover, swap,
+    the tour expression), tsp and tsp_creep (order crossover, the
+    coordinate TSP fused gene-major, swap or creep), order_onemax (order
+    crossover, swap, onemax)."""
+    from libpga_tpu_torch import objectives as po
+    from libpga_tpu_torch.ops import breed_expr as bx
+
+    creep = bx.mutate_from_expression("where(r < rate, g + sigma * (2*r2 - 1), g)",
+                                      rate=0.05, sigma=0.1)
+    c = random_tsp_coords(L, seed=1)
+    return {
+        "creep": lambda: (onemax, "uniform", creep),
+        "half": lambda: (onemax, bx.crossover_from_expression("0.5 * p1 + 0.25"), "point"),
+        "trap": lambda: (po.make_deceptive_trap(5), "uniform", "point"),
+        "tour": lambda: (po.from_expression(TOUR, X=c[:, 0], Y=c[:, 1]), "order", "swap"),
+        "tsp": lambda: (make_tsp_coords(c, duplicate_mode="genes"), "order", "swap"),
+        "tsp_creep": lambda: (make_tsp_coords(c, duplicate_mode="genes"), "order", creep),
+        "order_onemax": lambda: (onemax, "order", "swap"),
+    }[name]()
+
+
+def _hook_key(kw, multigen, dtype):
+    """The LAUNCHES name of an ablated launch of these keywords."""
+    hooked = (fs.is_expression(kw["crossover"]) or fs.is_expression(kw["mutate"])
+              or "objective" in kw)
+    order = kw["crossover"] == "order"
+    parts = ["ablate"] + ["expr"] * hooked + ["multigen"] * multigen + ["order"] * order
+    if len(parts) == 1:
+        parts.append("breed")
+    return "_".join(parts) + ("_bf16" if dtype == torch.bfloat16 else "")
+
+
+def _random_draws(geom, L, kw, device, steps=None):
+    """Random injected draws for the keywords' hooks (every stream any
+    stage of them may read)."""
+    z = fs.zero_draws(geom.G, geom.K, L, kw["mutate"], device, kw["crossover"], steps=steps)
+    for f in ("sel_u", "mut_u", "fill", "expr_gene", "expr_row", "gauss"):
+        if getattr(z, f) is not None:
+            setattr(z, f, torch.rand_like(getattr(z, f)))
+    if z.cross is not None:
+        z.cross = (torch.rand_like(z.cross, dtype=torch.float32) < 0.5).to(torch.uint8)
+    if z.tie is not None:
+        z.tie = torch.randint(0, 2**32, z.tie.shape, device=device)
+    return z
+
+
+# (hooks, ablate, P, L, gene dtype)
+HOOK_ABLATE_VARIANTS = [
+    ("creep", ("sel_const",), 8192, 100, torch.float32),
+    ("creep", ("no_matmul",), 1000, 100, torch.float32),
+    ("creep", ("no_cross",), 8192, 100, torch.bfloat16),
+    ("creep", ("no_mut",), 2100, 130, torch.float32),
+    ("creep", HOOK_FLOOR, 8192, 100, torch.float32),
+    ("creep", ("no_cross", "no_mut"), 4096, 100, torch.float32),  # a unit of its own
+    ("half", ("no_cross",), 8192, 100, torch.float32),
+    ("half", HOOK_FLOOR, 1000, 100, torch.bfloat16),
+    ("trap", ("no_mut",), 4096, 60, torch.float32),
+    ("trap", HOOK_FLOOR, 4096, 60, torch.float32),
+    ("tour", ("sel_const",), 4096, 200, torch.float32),
+    ("tour", ("no_cross",), 4096, 200, torch.float32),
+    ("tour", ("no_mut",), 1000, 200, torch.float32),
+    ("tour", HOOK_FLOOR, 4096, 200, torch.float32),
+    ("tsp_creep", ("no_cross",), 2048, 1000, torch.float32),
+    ("tsp", ("sel_const",), 4096, 100, torch.float32),
+    ("tsp", ("no_matmul",), 1000, 100, torch.float32),
+    ("tsp", ("no_cross",), 4096, 100, torch.float32),
+    ("tsp", ("no_mut",), 4096, 100, torch.float32),
+    ("tsp", HOOK_FLOOR, 2048, 1000, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", HOOK_ABLATE_VARIANTS,
+                         ids=lambda v: f"{v[0]}-{'+'.join(v[1])}-{v[2]}x{v[3]}-{str(v[4])[6:]}")
+def test_hook_ablated_breed_equals_plain_on_card(cuda_device, variant):
+    """Each ablated case of expr_breed_kernel, expr_order_kernel and
+    order_breed_kernel equals its plain version, in production (Philox)
+    and injected mode, every parity: genomes bit for bit, scores within
+    rtol 1e-5 / atol 1e-5 * L; the launches count apart from production."""
+    hooks, ablate, P, L, dtype = variant
+    objective, cross, mut = _hook_case(hooks, L)
+    breed = fs.make_fused_breed(P, L, objective, crossover=cross, mutate=mut, ablate=ablate,
+                                device=cuda_device, gene_dtype=dtype, mparams=(0.3, 0.05))
+    geom, kw = breed.geom, breed.kw
+    gen = torch.Generator(device=cuda_device).manual_seed(P + L)
+    g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device).to(dtype)
+    s = torch.rand(geom.Pp, generator=gen, device=cuda_device)
+    s[P:] = -torch.inf
+    key = _hook_key(kw, False, dtype)
+    before = dict(kernels.LAUNCHES)
+    for parity in range(geom.parities):
+        ranks = fs.compute_ranks(s, geom, parity, fs.draw_tie_words(gen, geom.Pp, cuda_device))
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=cuda_device)
+        philox = fs.philox_draws(seed, geom.G, geom.K, L, mut, cross)
+        injected = _random_draws(geom, L, kw, cuda_device)
+        for mode, draws in ((dict(seed=seed), philox), (dict(draws=injected), injected)):
+            got = fs.deme_breed(g, ranks, geom, parity, **mode, **kw)
+            want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0])
+            assert bool(torch.isinf(got[1][P:]).all())
+            torch.testing.assert_close(got[1][:P], want[1][:P], rtol=1e-5, atol=1e-5 * L)
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    assert launched == {key: 2 * geom.parities}
+
+
+# (hooks, ablate, P, L, elitism, freeze every group, gene dtype)
+HOOK_MULTIGEN_VARIANTS = [
+    ("creep", ("no_freeze",), 8192, 100, 2, True, torch.float32),
+    ("creep", ("no_rank_cube",), 8192, 100, 0, False, torch.float32),
+    ("creep", ("no_mut",), 4096, 100, 2, False, torch.bfloat16),
+    ("creep", HOOK_FLOOR, 8192, 100, 0, False, torch.float32),
+    ("creep", ("no_cross", "no_mut"), 4096, 100, 0, True, torch.float32),  # its own unit
+    ("half", ("sel_const",), 8192, 100, 2, False, torch.float32),
+    ("half", ("no_matmul",), 1000, 100, 2, False, torch.float32),
+    ("trap", ("no_cross",), 4096, 60, 0, False, torch.float32),
+    ("tour", ("no_cross",), 4096, 200, 2, False, torch.float32),
+    ("tour", ("no_rank_cube",), 4096, 200, 0, False, torch.float32),
+    ("tour", ("sel_const",), 4096, 200, 2, False, torch.float32),
+    ("order_onemax", ("no_cross",), 4096, 100, 2, False, torch.float32),
+    ("order_onemax", ("no_freeze",), 4096, 100, 0, True, torch.float32),
+    ("order_onemax", ("sel_const",), 4096, 100, 2, False, torch.float32),
+    ("order_onemax", HOOK_FLOOR, 1000, 130, 0, False, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", HOOK_MULTIGEN_VARIANTS,
+                         ids=lambda v: f"{v[0]}-{'+'.join(v[1])}-{v[2]}x{v[3]}-e{v[4]}")
+def test_hook_ablated_multigen_equals_plain_on_card(cuda_device, variant):
+    """Each ablated case of expr_multigen_kernel<false/true> and
+    multigen_breed_kernel<true> equals its plain version at 3 steps,
+    Philox and injected draws, every parity: genomes and scores exactly.
+    Under sel_const and no_matmul the elites are crossed or walked, not
+    copied (C7); ``freeze``: a target every group has reached."""
+    hooks, ablate, P, L, e, freeze, dtype = variant
+    objective, cross, mut = _hook_case(hooks, L)
+    launch = fs.make_fused_multigen(P, L, objective, crossover=cross, mutate=mut, elitism=e,
+                                    ablate=ablate, device=cuda_device, gene_dtype=dtype,
+                                    mparams=(0.3, 0.05))
+    geom, kw = launch.geom, launch.kw
+    gen = torch.Generator(device=cuda_device).manual_seed(P + L + e)
+    g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device).to(dtype)
+    s = torch.full((geom.Pp,), -torch.inf, device=cuda_device)
+    s[:P] = torch.rand(P, generator=gen, device=cuda_device)
+    target = float(s[:P].min()) if freeze else None
+    key = _hook_key(kw, True, dtype)
+    steps = 3
+    draws = _random_draws(geom, L, kw, cuda_device, steps=steps)
+    before = kernels.LAUNCHES[key]
+    for parity in range(geom.parities):
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=cuda_device)
+        for mode in (dict(seed=seed), dict(draws=draws)):
+            got = fs.multigen_breed(g, s, geom, parity, steps, target, **mode, **kw)
+            want = fs.multigen_breed_reference(
+                g, s, geom, parity, steps, math.inf if target is None else target, **mode, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert kernels.LAUNCHES[key] == before + 2 * geom.parities
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hooks,L", [("creep", 100), ("trap", 60), ("tsp", 1000), ("tour", 200)])
+def test_copy_with_hooks_launches_the_builtin_copy_on_card(cuda_device, hooks, L):
+    """copy_only with any hooks is deme_breed_kernel's copy, at the hooks'
+    geometry (order crossover: riffle, D = 1): the row permutation, each
+    row handed its score, counted as "ablate_copy"."""
+    objective, cross, mut = _hook_case(hooks, L)
+    breed = fs.make_fused_breed(8192, L, objective, crossover=cross, mutate=mut,
+                                ablate=("copy_only", "no_rank_sort"), device=cuda_device)
+    geom, kw = breed.geom, breed.kw
+    g = torch.rand((geom.Pp, L), device=cuda_device)
+    s = torch.rand(geom.Pp, device=cuda_device)
+    handed = s.view(geom.G, geom.K)
+    before = dict(kernels.LAUNCHES)
+    got = fs.deme_breed(g, handed, geom, 0, **kw)
+    want = fs.deme_breed_reference(g, handed, geom, 0, None, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _, write = geom.row_maps(0, cuda_device)
+    assert torch.equal(got[0][write.reshape(-1)], g)
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    assert launched == {"ablate_copy": 1}
+
+
+# (hooks, multigen, P, L): a no_mut child is the production child before
+# mutation, which the production kernel breeds at mutation rate 0.
+NO_MUT_VARIANTS = [
+    ("point", False, 8192, 100), ("creep", False, 8192, 100), ("tsp", False, 4096, 100),
+    ("tour", False, 4096, 200), ("creep", True, 8192, 100), ("order_onemax", True, 4096, 100),
+    ("tour", True, 4096, 200),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", NO_MUT_VARIANTS, ids=lambda v: f"{v[0]}-mg{int(v[1])}")
+def test_removing_mutation_changes_only_mutation_on_card(cuda_device, variant):
+    """Removing a stage changes that stage alone: the no_mut kernel at
+    rate 0.3 breeds, bit for bit, the production kernel's children at
+    rate 0 (no mutation fires; point, swap and the creep hook draw the
+    same), scores included, with the same seed: the Philox counters of
+    the stages that remain are unchanged."""
+    hooks, multigen, P, L = variant
+    objective, cross, mut = ((onemax, "uniform", "point") if hooks == "point"
+                             else _hook_case(hooks, L))
+    make = fs.make_fused_multigen if multigen else fs.make_fused_breed
+    prod = make(P, L, objective, crossover=cross, mutate=mut, device=cuda_device,
+                mparams=(0.0, 0.05))
+    ablated = make(P, L, objective, crossover=cross, mutate=mut, device=cuda_device,
+                   mparams=(0.3, 0.05), ablate=("no_mut",))
+    geom = prod.geom
+    gen = torch.Generator(device=cuda_device).manual_seed(P)
+    g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device)
+    s = torch.full((geom.Pp,), -torch.inf, device=cuda_device)
+    s[:P] = torch.rand(P, generator=gen, device=cuda_device)
+    seed = torch.randint(0, 2**62, (1,), generator=gen, device=cuda_device)
+    if multigen:
+        a = fs.multigen_breed(g, s, geom, 0, 3, None, seed=seed, **prod.kw)
+        b = fs.multigen_breed(g, s, geom, 0, 3, None, seed=seed, **ablated.kw)
+    else:
+        ranks = fs.compute_ranks(s, geom, 0, fs.draw_tie_words(gen, geom.Pp, cuda_device))
+        a = fs.deme_breed(g, ranks, geom, 0, seed=seed, **prod.kw)
+        b = fs.deme_breed(g, ranks, geom, 0, seed=seed, **ablated.kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_hook_ablated_kernels_reject_bad_arguments(cuda_device):
+    objective, cross, mut = _hook_case("tsp", 100)
+    geom = fs.resolve_geometry(4096, 100, crossover="order")
+    g = torch.rand((geom.Pp, 100), device=cuda_device)
+    ranks = torch.zeros((geom.G, geom.K), dtype=torch.int32, device=cuda_device)
+    seed = torch.tensor([1], dtype=torch.int64, device=cuda_device)
+    mp = torch.tensor([0.01, 0.0], device=cuda_device)
+    with pytest.raises(ValueError, match="ablated cases"):  # B10: combinations
+        kernels.order_breed_cuda(g, ranks, geom, 0, seed=seed, mparams=mp,
+                                 obj_id=objective.fused_id, coords=objective.coords.to(cuda_device),
+                                 ablate=("sel_const", "no_mut"))
+    creep = _hook_case("creep", 100)[2]
+    with pytest.raises(ValueError, match="copy"):
+        kernels.expr_breed_cuda(g, ranks, fs.resolve_geometry(4096, 100), 0, seed=seed,
+                                mparams=mp, mutate=creep, obj_id=onemax.fused_id,
+                                ablate=("copy_only",))
+    with pytest.raises(NotImplementedError, match="B10"):
+        fs.make_fused_breed(65_536, 100, onemax, mutate=creep, subblock=2, ablate=("no_mut",),
+                            device=cuda_device)
+
+
 # ------------------------------------------------- the sub-block pipeline
 
 # (P, L, gene dtype, B, islands, mutate, gene_atol): JAX's sub-block
