@@ -2,7 +2,8 @@
 """Time ``PGA.run`` of two checkouts of the port on one card, in turns
 (A, B, B, A), each in its own process:
 
-    python3 ab_run.py PARENT_DIR [CHANGE_DIR] [--generations-per-launch T] [--tsp | --creep]
+    python3 ab_run.py PARENT_DIR [CHANGE_DIR] [--generations-per-launch T] [--subblock B]
+                      [--tsp | --creep]
 
 CHANGE_DIR defaults to the checkout holding this script. Prints one JSON
 line per turn: wall milliseconds per generation of three 200-generation
@@ -16,7 +17,10 @@ kernel with the fused tour score); with ``--creep`` OneMax with the
 creep mutation expression (``where(r < rate, g + sigma * (2*r2 - 1),
 g)``, rate 0.05, sigma 0.1: the expression breed kernel). With
 ``--generations-per-launch T`` both checkouts run
-``PGAConfig(generations_per_launch=T)``, the multi-generation kernel.
+``PGAConfig(generations_per_launch=T)``, the multi-generation kernel;
+with ``--subblock B`` ``PGAConfig(subblock=B)``, the sub-block pipeline's
+``deme_pipelined_kernel`` (with ``--creep`` the expression breed on the
+B-aware row maps).
 Each turn also prints ``digest``, a hash of every shape's final genomes
 and scores: from the same seed the runs of two checkouts whose kernels
 compute the same function end on the same digest, and the last line
@@ -37,13 +41,17 @@ CHILD = r"""
 import hashlib, json, re, sys, time
 sys.path.insert(0, sys.argv[1])
 T, tsp, creep = int(sys.argv[2]), sys.argv[3] == "tsp", sys.argv[3] == "creep"
+B = int(sys.argv[4])
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 import libpga_tpu_torch as port
 out, kernel_ms, digest = {}, {}, hashlib.sha256()
 for P, L in %r if tsp else %r:
-    config = port.PGAConfig(generations_per_launch=T) if T > 1 else None
+    knobs = dict(generations_per_launch=T) if T > 1 else {}
+    if B > 1:
+        knobs["subblock"] = B
+    config = port.PGAConfig(**knobs) if knobs else None
     pga = port.pga_init(seed=1, config=config)
     h = port.pga_create_population(pga, P, L)
     if tsp:
@@ -73,9 +81,10 @@ for P, L in %r if tsp else %r:
         port.pga_run(pga, 48)
         torch.cuda.synchronize()
     kernel_ms["%%dx%%d" %% (P, L)] = {
-        re.search(r"\w*breed_kernel", e.key).group(): e.self_device_time_total / 1e3 / e.count
+        re.search(r"\w*(breed|pipelined)_kernel", e.key).group():
+            e.self_device_time_total / 1e3 / e.count
         for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and "breed_kernel" in e.key}
+        if e.device_type == DeviceType.CUDA and re.search(r"(breed|pipelined)_kernel", e.key)}
     pop = pga.population(h)
     digest.update(pop.genomes.cpu().numpy().tobytes() + pop.scores.cpu().numpy().tobytes())
 print(json.dumps({"ms_per_gen": out, "kernel_ms": kernel_ms, "digest": digest.hexdigest()[:16]}))
@@ -84,13 +93,15 @@ print(json.dumps({"ms_per_gen": out, "kernel_ms": kernel_ms, "digest": digest.he
 
 def main() -> int:
     args = sys.argv[1:]
-    per_launch = 1
+    knobs = {"--generations-per-launch": 1, "--subblock": 1}
     workload = "tsp" if "--tsp" in args else "creep" if "--creep" in args else "onemax"
     args = [a for a in args if a not in ("--tsp", "--creep")]
-    if "--generations-per-launch" in args:
-        at = args.index("--generations-per-launch")
-        per_launch = int(args[at + 1])
-        del args[at : at + 2]
+    for flag in knobs:
+        if flag in args:
+            at = args.index(flag)
+            knobs[flag] = int(args[at + 1])
+            del args[at : at + 2]
+    per_launch, subblock = knobs["--generations-per-launch"], knobs["--subblock"]
     if not args:
         print(__doc__, file=sys.stderr)
         return 2
@@ -100,7 +111,8 @@ def main() -> int:
     digests = []
     for turn in "ABBA":
         res = subprocess.run(
-            [sys.executable, "-c", CHILD, str(roots[turn]), str(per_launch), workload],
+            [sys.executable, "-c", CHILD, str(roots[turn]), str(per_launch), workload,
+             str(subblock)],
             capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
             print(res.stderr[-2000:], file=sys.stderr)
@@ -108,9 +120,10 @@ def main() -> int:
         line = json.loads(res.stdout)
         digests.append(line["digest"])
         print(json.dumps({"turn": turn, "root": roots[turn].name, "workload": workload,
-                          "generations_per_launch": per_launch, **line}), flush=True)
+                          "generations_per_launch": per_launch, "subblock": subblock, **line}),
+              flush=True)
     print(json.dumps({"workload": workload, "generations_per_launch": per_launch,
-                      "same_digest": len(set(digests)) == 1}), flush=True)
+                      "subblock": subblock, "same_digest": len(set(digests)) == 1}), flush=True)
     return 0
 
 

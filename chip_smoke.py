@@ -241,7 +241,8 @@ Phases, each printing one line; any failure exits non-zero:
      expr_multigen_kernel<false/true> (creep 1M, the tour, T = 8) and
      multigen_breed_kernel<true> (OneMax 40,000x100 order + swap, T = 8),
      and the builtin copy with the creep hook (HOOK_FLOOR_ROWS), against
-     its plain version, injected and Philox draws: genomes bit for bit,
+     its plain version, injected and Philox draws, each launch the
+     kernel's case of that mask, once: genomes bit for bit,
      scores within the objective's tolerance (multigen at T = 8, the T it
      is timed at); timed by CUDA events beside the production launch of
      the same call, the bound (breed_bound: every breed kernel's, the
@@ -285,8 +286,30 @@ Phases, each printing one line; any failure exits non-zero:
      against the plain version on both parities; then 10 generations,
      the best rises) and the panmictic route at 65,536x64, S = 4, which
      launches nothing. The sharded launch counts as an island launch.
+ 33. subblock_floor_compare: the floor harness at B > 1 (B10):
+     deme_pipelined_kernel's stage cases (each flag alone and the floor,
+     scored and unscored) at subblock_compare's 1,048,576x100 geometries
+     (float32 B = 2 and 4, bf16 B = 2) against the plain version at the
+     same geometry, injected and Philox draws, both parities: genomes bit
+     for bit, scores within SCORE_ATOL. Timed beside the production launch
+     of the same call, the bound and the plain version; the unscored
+     floor, a row permutation, also beside one torch.index_select;
+ 34. ablate_combo_compare, hook_floor_compare's checks over
+     B10_HOOK_ROWS: the creep hook's no_mut and floor through
+     expr_breed_kernel at B = 2 (both parities), and flag combinations
+     outside the production unit's masks (deme_breed_kernel,
+     order_breed_kernel, multigen_breed_kernel<false/true> and
+     deme_pipelined_kernel, each from a deme_breed.cu unit of its own,
+     built in parallel after the production build and reported apart),
+     and copy_only with no_mut, which must launch the copy;
+ 35. subblock_floor_partition: this slice's path, the stage harness
+     (tools/ablate_kernel.py) at --subblock 2 (float32 with a combination,
+     bf16, the creep hook) and with the other kernels' combinations, the
+     launch counts set to 0 just before and read just after: every case of
+     those kernels must have launched.
 The earlier OneMax, GP and TSP runs keep their depths; the whole script
-takes about five minutes on the card (about 300 s, its build about 60 s).
+takes about six minutes on the card (its build 60-70 s, the B10
+units 10-13 s more).
 Then one JSON line of per-kernel numbers, the card's name and power
 limit, and last the result line. With --log FILE every line printed
 also goes to that file (a tool that shows only the end of a long output
@@ -538,22 +561,24 @@ SHARD_GIANT, SHARD_GIANT_GENS = (1 << 24, 128, 8), 10  # P, L, S: 8.6 GB a buffe
 SHARD_PANMICTIC = (65_536, 64, 4)  # bench.py:88-91, the JAX bench's sharded arm
 # The floor harness with hooks (B7 with B6, B5 and B4): (row, hook set of
 # tools/ablate_kernel.hook_kinds, rows, genes, deme size PGA.run picks,
-# generations a launch, the kernels-line entry of its kernel, cases); a case
-# is a stage flag, "floor" (the four stage flags: the objective still runs)
-# or "copy" (deme_breed_kernel's copy at the hooks' geometry). Each entry:
-# what it replaces, what else, and the row-case whose numbers it carries.
+# generations a launch, sub-block depth, the LAUNCHES name and kernels-line
+# entry of its kernel, cases); a case is a stage flag, "floor" (the four
+# stage flags: the objective still runs), "copy" (deme_breed_kernel's copy
+# at the hooks' geometry) or a tuple of flags. Each entry: what it
+# replaces, what else, and the row-case whose numbers it carries.
 HOOK_FLOOR_ROWS = [
-    ("creep", "creep", 1 << 20, 100, 512, 1, "ablate_expr",
+    ("creep", "creep", 1 << 20, 100, 512, 1, 1, "ablate_expr",
      ("sel_const", "no_matmul", "no_cross", "no_mut", "floor", "copy")),
-    ("trap", "trap", 1 << 20, 60, 512, 1, "ablate_expr", ("no_mut", "no_cross", "floor")),
-    ("tour", "tour", 65_536, 200, 256, 1, "ablate_expr_order", ("no_cross", "no_mut", "floor")),
-    ("tsp", "tsp", 8192, 1000, 256, 1, "ablate_order",
+    ("trap", "trap", 1 << 20, 60, 512, 1, 1, "ablate_expr", ("no_mut", "no_cross", "floor")),
+    ("tour", "tour", 65_536, 200, 256, 1, 1, "ablate_expr_order", ("no_cross", "no_mut", "floor")),
+    ("tsp", "tsp", 8192, 1000, 256, 1, 1, "ablate_order",
      ("sel_const", "no_matmul", "no_cross", "no_mut", "floor")),
-    ("creep-T8", "creep", 1 << 20, 100, 512, 8, "ablate_expr_multigen",
+    ("creep-T8", "creep", 1 << 20, 100, 512, 8, 1, "ablate_expr_multigen",
      ("no_freeze", "no_rank_cube", "floor")),
-    ("tour-T8", "tour", 65_536, 200, 256, 8, "ablate_expr_multigen_order",
+    ("tour-T8", "tour", 65_536, 200, 256, 8, 1, "ablate_expr_multigen_order",
      ("no_cross", "no_rank_cube")),
-    ("order-T8", "order", 40_000, 100, 256, 8, "ablate_multigen_order", ("no_cross", "no_freeze")),
+    ("order-T8", "order", 40_000, 100, 256, 8, 1, "ablate_multigen_order",
+     ("no_cross", "no_freeze")),
 ]
 HOOK_FLOOR_ROUNDS = 2
 HOOK_FLOOR_ENTRIES = {
@@ -570,6 +595,61 @@ HOOK_FLOOR_ENTRIES = {
     "ablate_multigen_order": ("libpga_tpu/ops/pallas_step.py:1548",
                               "libpga_tpu/ops/pallas_step.py:1661", "order-T8-no_cross"),
 }
+# The floor harness at B > 1 (B10): subblock_compare's single-population
+# geometries (case, rows, genes, gene dtype, B); each stage flag alone and
+# the floor, scored and unscored.
+SUBBLOCK_FLOOR_CASES = [c[:5] for c in SUBBLOCK_CASES if c[5] is None]
+SUBBLOCK_FLOOR_FLAGS = [(flag, (flag,)) for flag in FLOOR_STAGES] + [("floor", FLOOR_STAGES)]
+SUBBLOCK_FLOOR_REPLACES = ("libpga_tpu/ops/pallas_step.py:1359",  # B > 1 hands ablate on
+                           "libpga_tpu/ops/pallas_step.py:1331")  # no_cross: no mask words
+# B10's rows of HOOK_FLOOR_ROWS' form: the creep hook at B = 2, and the
+# flag combinations outside the production unit's masks, each launched
+# from a unit of its own (copy_only with a stage flag is the copy).
+B10_HOOK_ROWS = [
+    ("creep-B2", "creep", 1 << 20, 100, 512, 1, 2, "ablate_expr", ("no_mut", "floor")),
+    ("deme", "builtin", 40_000, 100, 256, 1, 1, "ablate_breed",
+     (("sel_const", "no_cross"), ("no_cross", "no_mut"), ("copy_only", "no_mut"))),
+    ("order", "tsp", 8192, 1000, 256, 1, 1, "ablate_order", (("no_matmul", "no_mut"),)),
+    ("multigen", "builtin", 40_000, 100, 256, 8, 1, "ablate_multigen",
+     (("no_freeze", "no_rank_cube"),)),
+    ("multigen_order", "order", 40_000, 100, 256, 8, 1, "ablate_multigen_order",
+     (("no_freeze", "no_cross"),)),
+    ("pipelined", "builtin", 1 << 20, 100, 512, 1, 2, "ablate_pipelined",
+     (("sel_const", "no_cross"),)),
+]
+# Each combination: (row-case, LAUNCHES name, flags).
+ABLATE_COMBOS = [(f"{row}-{'+'.join(c)}", "ablate_copy" if "copy_only" in c else entry, c)
+                 for row, *_, entry, cases in B10_HOOK_ROWS for c in cases if isinstance(c, tuple)]
+COMBO_UNITS = {"ablate_breed": "deme", "ablate_order": "order", "ablate_multigen": "multigen",
+               "ablate_multigen_order": "multigen",
+               "ablate_pipelined": "pipelined"}  # kernels.deme_macro's kernel of a counter
+ABLATE_COMBO_REPLACES = {  # each combination's kernel: what it replaces, what else
+    "ablate_breed": ("libpga_tpu/ops/pallas_step.py:514",  # _deme_child, sel_const
+                     "libpga_tpu/ops/pallas_step.py:634"),  # no_cross (no_mut :748)
+    "ablate_order": ("libpga_tpu/ops/pallas_step.py:592",  # no_matmul
+                     "libpga_tpu/ops/pallas_step.py:653"),  # the order branch
+    "ablate_multigen": ("libpga_tpu/ops/pallas_step.py:1617",  # _multigen_kernel, no_freeze
+                        "libpga_tpu/ops/pallas_step.py:1638"),  # no_rank_cube
+    "ablate_multigen_order": ("libpga_tpu/ops/pallas_step.py:1617",
+                              "libpga_tpu/ops/pallas_step.py:1548"),  # order_refs
+    "ablate_pipelined": SUBBLOCK_FLOOR_REPLACES,
+    "ablate_copy": ("libpga_tpu/ops/pallas_step.py:1009",  # copy_only returns first
+                    "libpga_tpu/ops/pallas_step.py:106"),  # _validate_ablate: any set
+}
+# The harness runs of this slice's path (ablate_kernel's arguments).
+SUBBLOCK_FLOOR_RUNS = [
+    ["f32", "512", "--subblock", "2", "--combo", "sel_const,no_cross"],
+    ["bf16", "512", "--subblock", "2"],
+    ["f32", "512", "--subblock", "2", "--hooks", "creep"],
+    ["f32", "256", "--pop", "40000", "--combo", "sel_const,no_cross", "--combo", "no_cross,no_mut",
+     "--combo", "copy_only,no_mut"],
+    ["f32", "256", "--pop", "8192", "--len", "1000", "--hooks", "tsp", "--combo",
+     "no_matmul,no_mut"],
+    ["f32", "256", "--pop", "40000", "--steps", "8", "--combo", "no_freeze,no_rank_cube"],
+    ["f32", "256", "--pop", "40000", "--steps", "8", "--hooks", "order", "--combo",
+     "no_freeze,no_cross"],
+]
+SUBBLOCK_FLOOR_ROUNDS = 2
 MEAN_RANK_BAND = (1 / 3 - 0.004, 1 / 3 + 0.002)  # E = 1/3 - O(1/K)
 CROSS_BAND = (0.495, 0.505)
 MUTATION_RATE = 0.01
@@ -3493,7 +3573,7 @@ def hook_floor_programs(fs) -> list:
     from libpga_tpu_torch.tools.ablate_kernel import hook_kinds
 
     progs = []
-    for _, hooks, P, L, K, T, _, _ in HOOK_FLOOR_ROWS:
+    for _, hooks, P, L, K, T, _, _, _ in HOOK_FLOOR_ROWS:
         kinds = hook_kinds(hooks, L)
         expr_obj = getattr(kinds["objective"], "expr_fused", None)
         mut = kinds["mutate"] if fs.is_expression(kinds["mutate"]) else None
@@ -3505,37 +3585,55 @@ def hook_floor_programs(fs) -> list:
     return progs
 
 
-def hook_case_flags(case: str) -> tuple:
-    """The ablate flags of a hook-floor case name."""
+def hook_case_flags(case) -> tuple:
+    """The ablate flags of a hook-floor case: a name or a tuple of flags."""
+    if isinstance(case, tuple):
+        return case
     return {"floor": FLOOR_STAGES, "copy": FLOOR_COPY}.get(case, (case,))
 
 
-def phase_hook_floor_compare(fs, device, results):
-    """Each ablated case of the hook kernels (the floor harness with an
-    expression hook or order crossover: expr_breed_kernel,
+def launched_once(kernels, key: str, mask: int, fn, tag: str):
+    """``fn()``, checking that it launched kernel ``key``'s case ``mask``
+    (kernels.MASK_LAUNCHES) exactly once."""
+    before = kernels.MASK_LAUNCHES.get((key, mask), 0)
+    out = fn()
+    check(kernels.MASK_LAUNCHES.get((key, mask), 0) == before + 1,
+          f"{tag}: {key} of mask {mask} did not launch once")
+    return out
+
+
+def phase_hook_floor_compare(fs, kernels, device, results, rows=HOOK_FLOOR_ROWS,
+                             phase="hook_floor_compare"):
+    """Each ablated case of ``rows`` (HOOK_FLOOR_ROWS: the floor harness
+    with an expression hook or order crossover: expr_breed_kernel,
     expr_order_kernel, order_breed_kernel, expr_multigen_kernel<false/true>,
-    multigen_breed_kernel<true>; and deme_breed_kernel's copy with the
-    creep hook) against its plain version at the shapes of the rows of
-    HOOK_FLOOR_ROWS, injected and Philox draws: genomes bit for bit, scores
-    within the tolerance of the objective (onemax SCORE_ATOL, expressions
-    EXPR_RTOL / EXPR_ATOL_PER_GENE * L, the coordinate TSP TSP_RTOL); a
-    multi-generation case at the row's T (8), as it is timed. Timed by
-    CUDA events beside the production launch of the same call, the bound
-    and the plain version (a multi-generation row's: its Philox-mode
-    comparison run)."""
+    multigen_breed_kernel<true>, and deme_breed_kernel's copy with the
+    creep hook; B10_HOOK_ROWS: the creep hook at B = 2 and the builtin
+    kernels' flag combinations) against its plain version at the row's
+    shape, injected and Philox draws (at B > 1 both parities): each
+    launch is the kernel's case of that mask, once; genomes bit for bit,
+    scores within the tolerance of the objective (onemax SCORE_ATOL,
+    expressions EXPR_RTOL / EXPR_ATOL_PER_GENE * L, the coordinate TSP
+    TSP_RTOL); a multi-generation case at the row's T (8), as it is timed;
+    a combination from a DEME_ABLATE_EXTRA unit. Timed by CUDA events
+    beside the production launch of the same call, the bound and the
+    plain version (a multi-generation row's: its Philox-mode comparison
+    run). Each line printed is labelled ``phase``."""
     import torch
 
     from libpga_tpu_torch.ops import expr_cuda
     from libpga_tpu_torch.ops.evaluate import evaluate
     from libpga_tpu_torch.tools.ablate_kernel import hook_kinds
 
-    for row, hooks, P, L, K, T, entry_name, cases in HOOK_FLOOR_ROWS:
+    for row, hooks, P, L, K, T, B, entry_name, cases in rows:
         kinds = hook_kinds(hooks, L)
         objective = kinds.pop("objective")
         multigen = T > 1
+        kinds["subblock"] = B  # the multi-generation factory ignores it, as JAX's does
         make = fs.make_fused_multigen if multigen else fs.make_fused_breed
         prod = make(P, L, objective, deme_size=K, device=device, **kinds)
         geom, order = prod.geom, kinds["crossover"] == "order"
+        check(geom.B == B, f"hook floor {row}: {geom}")
         expr_obj = prod.kw.get("objective")
         mut = kinds["mutate"]
         program = None
@@ -3567,16 +3665,26 @@ def phase_hook_floor_compare(fs, device, results):
         prod_bound = breed_bound(geom, program=program, order=order, n_cities=n_cities, steps=T)
         for case in cases:
             ablate = hook_case_flags(case)
-            tag = f"hook floor {row} {case}"
+            name = "+".join(case) if isinstance(case, tuple) else case
+            tag = f"hook floor {row} {name}"
+            copy = "copy_only" in ablate
+            key = "ablate_copy" if copy else entry_name
+            mask = kernels.ablate_mask(ablate, multigen=True)
+            if isinstance(case, tuple) and not copy:
+                check(kernels.deme_macro(COMBO_UNITS[key], mask).startswith(
+                      "#define DEME_ABLATE_EXTRA"), f"{tag}: mask {mask} is not an extra unit's")
             breed = make(P, L, objective, deme_size=K, device=device, ablate=ablate, **kinds)
             cg, kw = breed.geom, breed.kw
             errs = []
-            if case == "copy":
+            if copy:
                 handed = s.view(cg.G, cg.K)
-                got = fs.deme_breed(g, handed, cg, 0, **kw)
+                got = launched_once(kernels, key, mask,
+                                    lambda: fs.deme_breed(g, handed, cg, 0, **kw), tag)
                 want = fs.deme_breed_reference(g, handed, cg, 0, None, **kw)
                 torch.cuda.synchronize()
-                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                _, write = cg.row_maps(0, device)
+                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                      and torch.equal(got[0][write.reshape(-1)], g),
                       f"{tag}: differs from the plain copy")
                 errs.append(float((got[0] - want[0]).abs().max()))
                 ms = cuda_ms(lambda: fs.deme_breed(g, handed, cg, 0, out=out, **kw), 20)
@@ -3585,14 +3693,15 @@ def phase_hook_floor_compare(fs, device, results):
             elif multigen:
                 # At the T the launch is timed at; the Philox plain run is
                 # the one plain_ms times.
-                tgt = float(s[:P].min()) if case == "no_freeze" else None
+                tgt = float(s[:P].min()) if "no_freeze" in ablate else None
                 draws = order_draws(fs, cg, mut, gen, device, steps=T) if order else \
                     expr_multigen_draws(fs, cg, T, mut, kinds["crossover"], gen, device)
                 for mode in (dict(draws=draws), dict(seed=seed)):
-                    got = fs.multigen_breed(g, s, cg, 0, T, tgt, **mode, **kw)
+                    m = "injected" if "draws" in mode else "philox"
+                    got = launched_once(kernels, key, mask, lambda: fs.multigen_breed(
+                        g, s, cg, 0, T, tgt, **mode, **kw), f"{tag} {m}")
                     want, plain_ms = cuda_run(lambda: fs.multigen_breed_reference(
                         g, s, cg, 0, T, math.inf if tgt is None else tgt, **mode, **kw))
-                    m = "injected" if "draws" in mode else "philox"
                     check(torch.equal(got[0], want[0]), f"{tag} {m}: genomes differ")
                     fin = torch.isfinite(want[1])
                     check(torch.equal(fin, torch.isfinite(got[1])), f"{tag} {m}: -inf rows")
@@ -3604,46 +3713,54 @@ def phase_hook_floor_compare(fs, device, results):
                                                        work=work, **kw), 5)
                 bound = breed_bound(cg, ablate=ablate, program=program, order=order, steps=T)
             else:
-                r = fs.compute_ranks(s, cg, 0, fs.draw_tie_words(gen, cg.Pp, device))
                 injected = order_draws(fs, cg, mut, gen, device) if order else \
                     expr_multigen_draws(fs, cg, 1, mut, kinds["crossover"], gen, device).at(0)
                 philox = fs.philox_draws(seed, cg.G, cg.K, L, mut, kinds["crossover"])
-                for m, mode, draws in (("injected", dict(draws=injected), injected),
-                                       ("philox", dict(seed=seed), philox)):
-                    got = fs.deme_breed(g, r, cg, 0, **mode, **kw)
-                    want = fs.deme_breed_reference(g, r, cg, 0, draws, **kw)
-                    torch.cuda.synchronize()
-                    check(torch.equal(got[0], want[0]), f"{tag} {m}: genomes differ")
-                    real = torch.arange(cg.Pp, device=device) < P
-                    check(bool(torch.isinf(got[1][~real]).all()), f"{tag}: pad scores")
-                    errs.append(float((got[1][real] - want[1][real]).abs().max()))
-                    check(bool(torch.allclose(got[1][real], want[1][real], rtol=rtol, atol=atol)),
-                          f"{tag} {m}: score error {errs[-1]}")
+                # At B > 1 the row maps differ by parity: both are checked.
+                r = [fs.compute_ranks(s, cg, parity, fs.draw_tie_words(gen, cg.Pp, device))
+                     for parity in ((0, 1) if B > 1 else (0,))]
+                real = torch.arange(cg.Pp, device=device) < P
+                for parity, rp in enumerate(r):
+                    for m, mode, draws in (("injected", dict(draws=injected), injected),
+                                           ("philox", dict(seed=seed), philox)):
+                        m += f" parity {parity}" if B > 1 else ""
+                        got = launched_once(kernels, key, mask, lambda: fs.deme_breed(
+                            g, rp, cg, parity, **mode, **kw), f"{tag} {m}")
+                        want = fs.deme_breed_reference(g, rp, cg, parity, draws, **kw)
+                        torch.cuda.synchronize()
+                        check(torch.equal(got[0], want[0]), f"{tag} {m}: genomes differ")
+                        check(bool(torch.isinf(got[1][~real]).all()), f"{tag}: pad scores")
+                        errs.append(float((got[1][real] - want[1][real]).abs().max()))
+                        check(bool(torch.allclose(got[1][real], want[1][real], rtol=rtol,
+                                                  atol=atol)), f"{tag} {m}: score error {errs[-1]}")
                 del injected
-                ms = cuda_ms(lambda: fs.deme_breed(g, r, cg, 0, seed=seed, out=out, **kw), 20)
-                plain_ms = cuda_ms(lambda: fs.deme_breed_reference(g, r, cg, 0, philox, **kw), 2)
+                ms = cuda_ms(lambda: fs.deme_breed(g, r[0], cg, 0, seed=seed, out=out, **kw), 20)
+                plain_ms = cuda_ms(lambda: fs.deme_breed_reference(g, r[0], cg, 0, philox, **kw),
+                                   2)
                 bound = breed_bound(cg, ablate=ablate, program=program, order=order,
                                     n_cities=n_cities)
-            line = {"phase": "hook_floor_compare", "row": row, "case": case, "ablate": list(ablate),
-                    "kernel": "deme_breed_copy" if case == "copy" else entry_name,
+            line = {"phase": phase, "row": row, "case": name, "ablate": list(ablate),
+                    "kernel": "deme_breed_copy" if copy else entry_name, "mask": mask,
                     "shape": [P, L], "steps": T, "layout": cg.layout, "K": cg.K, "D": cg.D,
-                    "genomes_equal": True, "max_abs_err": max(errs), "kernel_ms": ms,
+                    "B": cg.B, "genomes_equal": True, "max_abs_err": max(errs), "kernel_ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
                     "chain_steps": bound[2], "production_ms": prod_ms,
                     "production_bound_ms": prod_bound[0], "production_bound_by": prod_bound[1],
                     "production_chain_steps": prod_bound[2]}
             print(json.dumps(line), flush=True)
+            results.setdefault("lines", {})[f"{row}-{name}"] = line
             entry = results.setdefault(entry_name, {"max_abs_err": 0.0, "cases": {}})
             entry["max_abs_err"] = max(entry["max_abs_err"], max(errs))
-            entry["cases"][f"{row}-{case}"] = {k: line[k] for k in (
+            entry["cases"][f"{row}-{name}"] = {k: line[k] for k in (
                 "kernel_ms", "plain_ms", "bound_ms", "bound_by", "production_ms",
                 "production_bound_ms", "kernel")}
-            if f"{row}-{case}" == HOOK_FLOOR_ENTRIES[entry_name][2]:
+            if f"{row}-{name}" == HOOK_FLOOR_ENTRIES.get(entry_name, (None,) * 3)[2]:
                 entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
-                             case=f"{row}-{case}", shape=[P, L], steps=T,
+                             case=f"{row}-{name}", shape=[P, L], steps=T,
                              production_ms=prod_ms)
             del breed, got, want
         del prod, g, s, out, work
+        torch.cuda.empty_cache()
 
 
 def phase_hook_floor_partition(kernels, results):
@@ -3656,7 +3773,7 @@ def phase_hook_floor_partition(kernels, results):
 
     kernels.reset_launches()
     medians = {}
-    for row, hooks, P, L, K, T, _, _ in HOOK_FLOOR_ROWS:
+    for row, hooks, P, L, K, T, _, _, _ in HOOK_FLOOR_ROWS:
         t0 = time.perf_counter()
         med = ablate_kernel.main(["f32", str(K), "--pop", str(P), "--len", str(L), "--hooks", hooks,
                                   "--steps", str(T), "--rounds", str(HOOK_FLOOR_ROUNDS)])
@@ -3805,12 +3922,28 @@ def phase_subblock_compare(port, fs, onemax, kernels, device, results):
         check(errs[-1] <= SCORE_ATOL, f"subblock creep parity {parity}: score error {errs[-1]}")
     out = torch.empty_like(g)
     ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 1, seed=seed, out=out, **kw), 20)
+    # The same hook on the same rows at B = 1 (subblock None), in turns.
+    b1 = fs.resolve_geometry(1 << 20, 100)
+    ranks1 = fs.compute_ranks(s, b1, 1, fs.draw_tie_words(gen, b1.Pp, device))
+    b1_ms = cuda_ms(lambda: fs.deme_breed(g, ranks1, b1, 1, seed=seed, out=out, **kw), 20)
+    ms_again = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 1, seed=seed, out=out, **kw), 20)
+    b1_again = cuda_ms(lambda: fs.deme_breed(g, ranks1, b1, 1, seed=seed, out=out, **kw), 20)
     line = {"phase": "subblock_compare", "case": "creep-B2 (expr_breed_kernel)",
             "shape": [1 << 20, 100], "K": geom.K, "D": geom.D, "B": geom.B,
-            "genomes_equal": True, "max_abs_err": max(errs), "ms": ms}
+            "genomes_equal": True, "max_abs_err": max(errs), "ms": ms, "ms_again": ms_again,
+            "b1_ms": b1_ms, "b1_ms_again": b1_again, "b1_D": b1.D,
+            "bound_ms": breed_bound(geom, program=op_program(op))[0]}
     print(json.dumps(line), flush=True)
+    results["creep-B2"] = line
     del g, s, out
     torch.cuda.empty_cache()
+
+
+def op_program(op):
+    """The generated hooks of an expression mutation (for its bound)."""
+    from libpga_tpu_torch.ops import expr_cuda
+
+    return expr_cuda.program_for(None, op, None)
 
 
 def phase_subblock_run(port, kernels, results, single, islands_single):
@@ -3894,6 +4027,150 @@ def phase_subblock_run(port, kernels, results, single, islands_single):
     port.pga_deinit(pga)
     del pga
     torch.cuda.empty_cache()
+
+
+def phase_subblock_floor_compare(fs, onemax, device, results):
+    """The floor harness at B > 1 (B10): every stage case of
+    deme_pipelined_kernel (each flag alone and the floor, scored and
+    unscored) at subblock_compare's geometries against the plain version
+    at the same geometry, injected and Philox draws, both parities:
+    genomes bit for bit, scores within SCORE_ATOL. Timed by CUDA events
+    beside the production launch of the same call, the bound and the plain
+    version; the unscored floor, a row permutation, also beside one
+    torch.index_select of the same rows."""
+    import torch
+
+    mparams = (0.05, 0.0)
+    for name, P, L, dtype_name, B in SUBBLOCK_FLOOR_CASES:
+        dtype = getattr(torch, dtype_name)
+        gb = 2 if dtype == torch.bfloat16 else 4
+        prod = fs.make_fused_breed(P, L, onemax, device=device, gene_dtype=dtype, subblock=B,
+                                   mparams=mparams)
+        geom = prod.geom
+        check(geom.layout == "pingpong" and geom.B == B, f"subblock floor {name}: {geom}")
+        gen = torch.Generator(device=device).manual_seed(P + B + gb)
+        g = torch.rand((geom.Pp, L), generator=gen, device=device).to(dtype)
+        s = g.float().sum(dim=1)
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+        injected = fs.Draws(
+            sel_u=torch.rand((geom.G, geom.K, 2), generator=gen, device=device),
+            cross=(torch.rand((geom.G, geom.K, L), generator=gen, device=device) < 0.5).to(
+                torch.uint8),
+            mut_u=torch.rand((geom.G, geom.K, 4), generator=gen, device=device))
+        philox = fs.philox_draws(seed, geom.G, geom.K, L)
+        ranks = [fs.compute_ranks(s, geom, parity, fs.draw_tie_words(gen, geom.Pp, device))
+                 for parity in (0, 1)]
+        out = torch.empty_like(g)
+        prod_ms = cuda_ms(lambda: fs.deme_breed(g, ranks[0], geom, 0, seed=seed, out=out,
+                                                **prod.kw), 20)
+        prod_bound = breed_bound(geom, gene_bytes=gb)
+        cases = {}
+        for flag_name, flags in SUBBLOCK_FLOOR_FLAGS:
+            for scored in (True, False):
+                breed = fs.make_fused_breed(P, L, onemax if scored else None, device=device,
+                                            gene_dtype=dtype, subblock=B, layout="pingpong",
+                                            mparams=mparams, ablate=flags)
+                cg, kw = breed.geom, breed.kw
+                check((cg.B, cg.D) == (geom.B, geom.D), f"subblock floor {name}: {cg}")
+                tag = f"subblock floor {name} {flag_name} {'scored' if scored else 'unscored'}"
+                errs = []
+                for parity in (0, 1):
+                    for mode, draws in (("injected", injected), ("philox", philox)):
+                        arg = dict(draws=injected) if mode == "injected" else dict(seed=seed)
+                        got = fs.deme_breed(g, ranks[parity], cg, parity, **arg, **kw)
+                        want = fs.deme_breed_reference(g, ranks[parity], cg, parity, draws, **kw)
+                        torch.cuda.synchronize()
+                        check(torch.equal(got[0], want[0]),
+                              f"{tag} parity {parity} {mode}: genomes differ")
+                        errs.append(float((got[0].float() - want[0].float()).abs().max()))
+                        if scored:
+                            err = float((got[1] - want[1]).abs().max())
+                            check(err <= SCORE_ATOL, f"{tag} parity {parity} {mode}: score"
+                                  f" error {err}")
+                            errs.append(err)
+                        else:
+                            check(got[1] is None, f"{tag}: scored an unscored breed")
+                        del got, want
+                ms = cuda_ms(lambda: fs.deme_breed(g, ranks[0], cg, 0, seed=seed, out=out, **kw),
+                             20)
+                plain_ms = cuda_ms(lambda: fs.deme_breed_reference(g, ranks[0], cg, 0, philox,
+                                                                   **kw), 3)
+                bound_ms, bound_by, _ = breed_bound(cg, ablate=flags, gene_bytes=gb,
+                                                    scored=scored)
+                library_ms = None
+                if flag_name == "floor" and not scored:
+                    # Child (g, k) is slot k's staged row: out[write] =
+                    # g[read], one index_select of each output row's source.
+                    read, write = cg.row_maps(0, device)
+                    rows = torch.empty(cg.Pp, dtype=torch.long, device=device)
+                    rows[write.reshape(-1)] = read.reshape(-1)
+                    lib = torch.empty_like(g)
+                    got = fs.deme_breed(g, ranks[0], cg, 0, seed=seed, **kw)
+                    check(torch.equal(torch.index_select(g, 0, rows, out=lib), got[0]),
+                          f"{tag}: index_select differs")
+                    library_ms = cuda_ms(lambda: torch.index_select(g, 0, rows, out=lib), 20)
+                    del got, lib, rows
+                line = {"phase": "subblock_floor_compare", "case": name, "flags": flag_name,
+                        "scored": scored, "shape": [P, L], "gene_dtype": dtype_name,
+                        "K": cg.K, "D": cg.D, "B": cg.B, "genomes_equal": True,
+                        "max_abs_err": max(errs), "kernel_ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                        "production_ms": prod_ms, "production_bound_ms": prod_bound[0]}
+                print(json.dumps(line), flush=True)
+                cases[f"{flag_name}-{'scored' if scored else 'unscored'}"] = {
+                    k: line[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "max_abs_err")}
+                del breed
+        results[name] = {"cases": cases, "production_ms": prod_ms, "K": geom.K, "D": geom.D,
+                         "B": B, "shape": [P, L], "gene_dtype": dtype_name}
+        del g, s, out, injected, philox
+        torch.cuda.empty_cache()
+
+
+def phase_subblock_floor_partition(kernels, results):
+    """This slice's path: the stage harness (libpga_tpu_torch/tools/
+    ablate_kernel.py) at --subblock 2 (float32 with a combination, bf16,
+    the creep hook) and with the combinations of the other builtin kernels
+    (SUBBLOCK_FLOOR_RUNS), the launch counts set to 0 just before and read
+    just after: the pipelined kernel's cases, the creep hook's at B = 2
+    and every combination's unit must have launched. Prints each run's
+    medians (ms a generation)."""
+    from libpga_tpu_torch.tools import ablate_kernel
+
+    kernels.reset_launches()
+    medians = []
+    for argv in SUBBLOCK_FLOOR_RUNS:
+        t0 = time.perf_counter()
+        med = ablate_kernel.main(argv + ["--rounds", str(SUBBLOCK_FLOOR_ROUNDS)])
+        medians.append({"args": argv, "medians_ms_per_gen": med})
+        print(json.dumps({"phase": "subblock_floor_partition", "args": argv,
+                          "medians_ms_per_gen": med,
+                          "stage_ms": {k: med["full"] - v for k, v in med.items() if k != "full"},
+                          "seconds": time.perf_counter() - t0}), flush=True)
+    launches = dict(kernels.LAUNCHES)
+    by_mask = {f"{k}:{m}": v for (k, m), v in sorted(kernels.MASK_LAUNCHES.items())}
+    print(json.dumps({"phase": "subblock_floor_launches", "launches": launches,
+                      "by_mask": by_mask}), flush=True)
+    for key in ("ablate_pipelined", "ablate_pipelined_bf16", "deme_pipelined",
+                "deme_pipelined_bf16", "ablate_expr", "expr"):
+        check(launches[key] > 0, f"subblock_floor_partition: {key} never launched ({launches})")
+    floor = kernels.ABLATE_FLOOR
+    for key in ("ablate_pipelined", "ablate_pipelined_bf16"):
+        for mask in kernels.PIPELINED_HARNESS_MASKS:
+            check(kernels.MASK_LAUNCHES.get((key, mask), 0) > 0,
+                  f"subblock_floor_partition: {key} mask {mask} never launched")
+    check(kernels.MASK_LAUNCHES.get(("ablate_expr", floor), 0) > 0,
+          "subblock_floor_partition: the creep floor never launched")
+    for case, key, flags, *_ in ABLATE_COMBOS:
+        mask = kernels.ablate_mask(flags, multigen=True)
+        check(kernels.MASK_LAUNCHES.get((key, mask), 0) > 0,
+              f"subblock_floor_partition: {case} ({key} mask {mask}) never launched")
+    for rec in medians:
+        check(all(v == v for v in rec["medians_ms_per_gen"].values()),
+              f"subblock_floor_partition {rec['args']}: a median rests on no sample")
+    results["launches"] = launches
+    results["mask_launches"] = dict(kernels.MASK_LAUNCHES)
+    results["partition"] = medians
 
 
 def shard_solver(port, P, L, S, dtype_name="float32", mutate=None, seed=1):
@@ -4103,6 +4380,68 @@ def phase_shard_run(port, fs, kernels, device, results):
     port.pga_deinit(pga)
 
 
+def b10_entries(b10_results, lines) -> list:
+    """The kernels-line entries of B10: the pipelined kernel's stage cases
+    (float32, bf16), the creep hook's at B = 2 and one entry a combination
+    (``lines``: B10_HOOK_ROWS' hook_floor_compare lines by row-case)."""
+    entries = []
+    mask_launches = b10_results["mask_launches"]
+    for name, case in (("ablate_pipelined", "f32-B2"), ("ablate_pipelined_bf16", "bf16-B2")):
+        # ms, plain_ms, library_ms and the bound: the floor (unscored) at
+        # 1,048,576x100; launches from subblock_floor_partition; every case
+        # (B = 4 too) under "cases".
+        r = b10_results[case]
+        floor = r["cases"]["floor-unscored"]
+        cases = {f"{c[0]}-{k}": v for c in SUBBLOCK_FLOOR_CASES if c[3] == r["gene_dtype"]
+                 for k, v in b10_results[c[0]]["cases"].items()}
+        entries.append({
+            "name": name, "route": "cuda", "source": "libpga_tpu_torch/csrc/deme_breed.cu",
+            "replaces": SUBBLOCK_FLOOR_REPLACES[0], "also_replaces": SUBBLOCK_FLOOR_REPLACES[1],
+            "launches": b10_results["launches"][name],
+            "max_abs_err": max(v["max_abs_err"] for v in cases.values()),
+            "ms": floor["kernel_ms"], "plain_ms": floor["plain_ms"],
+            "bound_ms": floor["bound_ms"], "bound_by": floor["bound_by"],
+            "library_ms": floor["library_ms"],
+            "case": f"{case}-floor-unscored", "shape": r["shape"], "K": r["K"], "D": r["D"],
+            "B": r["B"], "production_ms": r["production_ms"],
+            "launches_by_mask": {str(m): v for (n, m), v in sorted(mask_launches.items())
+                                 if n == name},
+            "cases": cases,
+        })
+    creep = {c: lines[f"creep-B2-{c}"] for c in ("no_mut", "floor")}
+    r = creep["floor"]
+    entries.append({
+        "name": "ablate_expr[creep-B2]", "route": "cuda",
+        "source": "libpga_tpu_torch/csrc/expr_breed.cu",
+        "replaces": SUBBLOCK_FLOOR_REPLACES[0],
+        "also_replaces": "libpga_tpu/ops/pallas_step.py:750",  # the callable mutation
+        "launches": b10_results["launches"]["ablate_expr"],
+        "max_abs_err": max(v["max_abs_err"] for v in creep.values()),
+        "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None, "case": "creep-B2-floor",
+        "shape": r["shape"], "K": r["K"], "D": r["D"], "B": r["B"],
+        "production_ms": r["production_ms"],
+        "cases": {c: {k: v[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                          "max_abs_err")} for c, v in creep.items()},
+    })
+    for case, key, _ in ABLATE_COMBOS:
+        # One entry a combination: its ms beside its production launch;
+        # launches of its kernel bitmask from subblock_floor_partition.
+        r = lines[case]
+        entries.append({
+            "name": f"{key}[{case}]", "route": "cuda",
+            "source": "libpga_tpu_torch/csrc/deme_breed.cu",
+            "replaces": ABLATE_COMBO_REPLACES[key][0],
+            "also_replaces": ABLATE_COMBO_REPLACES[key][1],
+            "launches": mask_launches.get((key, r["mask"]), 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "mask": r["mask"], "shape": r["shape"], "steps": r["steps"], "layout": r["layout"],
+            "K": r["K"], "D": r["D"], "B": r["B"], "production_ms": r["production_ms"],
+        })
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -4152,6 +4491,16 @@ def drive(torch, port, onemax, fs, kernels) -> int:
                       "unit_seconds": unit_seconds, "generated_units": len(generated),
                       "generated_seconds_max": max(generated.values()),
                       "harness_units": len(harness), "harness_seconds": harness}), flush=True)
+    # The deme_breed.cu units of B10, after the production build and apart
+    # from it: the pipelined kernel's harness unit and the combinations'.
+    t0 = time.perf_counter()
+    b10_units = [kernels.deme_macro("pipelined", kernels.ABLATE_FLOOR)] + sorted({
+        kernels.deme_macro(COMBO_UNITS[key], kernels.ablate_mask(flags, multigen=True))
+        for _, key, flags, *_ in ABLATE_COMBOS if key != "ablate_copy"})
+    b10_seconds = kernels.build_all(deme_units=b10_units)
+    print(json.dumps({"phase": "build_b10", "seconds": time.perf_counter() - t0,
+                      "units": {m.strip(): b10_seconds[f"deme_unit[{i}]"]
+                                for i, m in enumerate(b10_units)}}), flush=True)
 
     results = {"pingpong": {}, "riffle": {}}
     phase_compare(fs, onemax, device, results)
@@ -4193,7 +4542,7 @@ def drive(torch, port, onemax, fs, kernels) -> int:
     phase_floor_compare(fs, onemax, device, floor_results)
     phase_floor_partition(kernels, floor_results)
     hook_floor_results = {}
-    phase_hook_floor_compare(fs, device, hook_floor_results)
+    phase_hook_floor_compare(fs, kernels, device, hook_floor_results)
     phase_hook_floor_partition(kernels, hook_floor_results)
     subblock_results = {}
     phase_subblock_compare(port, fs, onemax, kernels, device, subblock_results)
@@ -4202,6 +4551,11 @@ def drive(torch, port, onemax, fs, kernels) -> int:
     shard_results = {}
     phase_shard_compare(port, fs, kernels, device, shard_results)
     phase_shard_run(port, fs, kernels, device, shard_results)
+    b10_results, b10_hook_results = {}, {}
+    phase_subblock_floor_compare(fs, onemax, device, b10_results)
+    phase_hook_floor_compare(fs, kernels, device, b10_hook_results, B10_HOOK_ROWS,
+                             "ablate_combo_compare")
+    phase_subblock_floor_partition(kernels, b10_results)
 
     entries = []
     for layout, r in results.items():
@@ -4405,6 +4759,7 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "unsharded_gens_per_s": shard_results["S1-f32"]["run"]["gens_per_s"],
             "device_busy_share": r["run"].get("device_busy_share"),
         })
+    entries += b10_entries(b10_results, b10_hook_results["lines"])
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -142,11 +142,16 @@
 // alias_io and no_rank_sort raise (JAX validates copy_only there and then
 // ignores it). The copy is deme_breed_kernel's whatever the hooks (JAX's copy
 // branch returns before a hook runs), at the order geometry under order
-// crossover. The instantiated masks are 0, ABL_COPY, each stage bit alone
-// and all four stage bits (the floor) in deme_breed_kernel; the same but the
-// copy in order_breed_kernel; and 0, each of the six multigen and stage bits
-// alone and the floor in multigen_breed_kernel, uniform (both gene types) and
-// order crossover. Other combinations are ROADMAP Queue B item B10's. Bound
+// crossover. Any set of flags JAX takes (_validate_ablate, :106-117) is a
+// case: copy_only with stage flags is the copy (JAX's copy branch returns
+// before any stage runs, :1009-1035); the stage bits combine freely, and in
+// multigen_breed_kernel with ABL_NO_FREEZE and ABL_NO_RANK_CUBE; each kernel
+// tests each bit on its own under if constexpr, as _deme_child (:514, :592,
+// :634, :748) and _multigen_kernel (:1617, :1638, :1661) do. The harness's
+// usual cases build in the production unit, the pipelined kernel's and the
+// other combinations in units of their own ("The ABLATE cases each unit
+// builds", at the end of this file). deme_pipelined_kernel takes the stage
+// bits at the sub-block geometries (its section). Bound
 // of the copy: the production bound, Pp*L*bytes read and written (0.253 ms
 // at 1,048,576x100 float32, 0.0097 ms at 40,000x100), plus the handed scores
 // when scored; the harness reads the copy beside it.
@@ -157,6 +162,15 @@
 // breed_core.cuh.
 
 #include "breed_core.cuh"
+
+// The unit's floor-harness cases (see "The ABLATE cases each unit builds"
+// at the end): none but production unless ops/kernels.py defines one.
+#ifndef DEME_HARNESS
+#define DEME_HARNESS 0
+#endif
+#ifndef DEME_ABLATE_EXTRA
+#define DEME_ABLATE_EXTRA 0u
+#endif
 
 namespace {
 
@@ -741,6 +755,19 @@ __global__ void __launch_bounds__(MG_THREADS) multigen_breed_kernel(
 // memory once, by the staging; the children's stores and the per-child work
 // of each slab (the draws, the gather from shared memory, a group sum) are what
 // remains beside it.
+//
+// The floor harness at B > 1 (B10; _pp_breed_kernel's B > 1 case hands
+// `ablate` to _deme_child, :1359, and skips the crossover mask words under
+// no_cross, :1331). ABLATE takes the stage bits, with deme_breed_kernel's
+// meaning; 0 is the production code above. ABL_SEL_CONST and ABL_NO_GATHER:
+// p1 = p2 = slot k's staged row (under ABL_SEL_CONST no selection call is
+// made and no injected selection draw read; under ABL_NO_GATHER they are).
+// ABL_NO_CROSS: no STREAM_CROSS call, neither sub-lane 2's at slab 0 nor a
+// later slab's at a tile start, PipeChild::w neither stored nor read, no
+// injected bit read; every gene is p1's. ABL_NO_MUT: no mutation call, no
+// mutation. The other stages' Philox counters are unchanged, so a no_mut
+// child is the production child at mutation rate 0, bit for bit. The staging,
+// the ranks and the row maps are the production schedule's in every case.
 
 constexpr int PIPE_THREADS = 1024;  // 32 warps a block
 constexpr int PIPE_LANES = 8;       // lanes a child in a slab
@@ -845,11 +872,19 @@ __device__ __forceinline__ void pipe_stage(const Gene* gin, const int* ranks, co
     for (int x = tid; x < K / 4; x += nthr) cp_async(rk + 4 * x, ranks + (size_t)g * K + 4 * x, 16);
 }
 
-template <class Gene>
+template <class Gene, unsigned ABLATE>
 __global__ void __launch_bounds__(PIPE_THREADS) deme_pipelined_kernel(
     const Gene* __restrict__ gin, Gene* __restrict__ gout, float* __restrict__ sout,
     const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr0, Geometry geo,
     Selection sel, int mutate, int obj, SlabPlan plan, int row_bytes, int cw) {
+  // The stages this case runs (all of them at ABLATE = 0); bit c of CALLS:
+  // Philox call c of slab 0 (0 selection, 1 mutation, 2 the first crossover
+  // tile) is made.
+  constexpr bool SAME = (ABLATE & (ABL_SEL_CONST | ABL_NO_GATHER)) != 0u;
+  constexpr bool DRAWS_SEL = !(ABLATE & ABL_SEL_CONST);
+  constexpr bool CROSSES = !(ABLATE & ABL_NO_CROSS);
+  constexpr bool MUTATES = !(ABLATE & ABL_NO_MUT);
+  constexpr unsigned CALLS = (DRAWS_SEL ? 1u : 0u) | (MUTATES ? 2u : 0u) | (CROSSES ? 4u : 0u);
   extern __shared__ __align__(16) unsigned char pipe_smem[];
   __shared__ int s_alive[32];
   const int K = geo.K, L = geo.L, G = geo.G;
@@ -915,34 +950,50 @@ __global__ void __launch_bounds__(PIPE_THREADS) deme_pipelined_kernel(
       uint4 w = make_uint4(0u, 0u, 0u, 0u);
       if (s == 0) {
         // child_rand's draws for the group's child: sub-lane c computes
-        // Philox call c (0 selection, 1 mutation, 2 the first crossover tile).
-        float su0, su1, mu0, mu1;
+        // Philox call c (0 selection, 1 mutation, 2 the first crossover
+        // tile), where its stage runs.
+        float su0 = 0.0f, su1 = 0.0f, mu0 = 0.0f, mu1 = 0.0f;
+        mu2 = 0.0f;
         if (cx.philox_mode) {
-          if (j0 < 3) w = philox(cx.k0, cx.k1, make_uint4(k, g, j0, 0u));
-          su0 = to_uniform(__shfl_sync(FULL, w.x, lead));
-          su1 = to_uniform(__shfl_sync(FULL, w.y, lead));
-          mu0 = to_uniform(__shfl_sync(FULL, w.x, lead + 1));
-          mu1 = to_uniform(__shfl_sync(FULL, w.y, lead + 1));
-          mu2 = to_uniform(__shfl_sync(FULL, w.z, lead + 1));
-          w = make_uint4(__shfl_sync(FULL, w.x, lead + STREAM_CROSS),
-                         __shfl_sync(FULL, w.y, lead + STREAM_CROSS),
-                         __shfl_sync(FULL, w.z, lead + STREAM_CROSS),
-                         __shfl_sync(FULL, w.w, lead + STREAM_CROSS));
+          if (j0 < 3 && (CALLS == 7u || ((CALLS >> j0) & 1u)))
+            w = philox(cx.k0, cx.k1, make_uint4(k, g, j0, 0u));
+          if constexpr (DRAWS_SEL) {
+            su0 = to_uniform(__shfl_sync(FULL, w.x, lead));
+            su1 = to_uniform(__shfl_sync(FULL, w.y, lead));
+          }
+          if constexpr (MUTATES) {
+            mu0 = to_uniform(__shfl_sync(FULL, w.x, lead + 1));
+            mu1 = to_uniform(__shfl_sync(FULL, w.y, lead + 1));
+            mu2 = to_uniform(__shfl_sync(FULL, w.z, lead + 1));
+          }
+          if constexpr (CROSSES) {
+            w = make_uint4(__shfl_sync(FULL, w.x, lead + STREAM_CROSS),
+                           __shfl_sync(FULL, w.y, lead + STREAM_CROSS),
+                           __shfl_sync(FULL, w.z, lead + STREAM_CROSS),
+                           __shfl_sync(FULL, w.w, lead + STREAM_CROSS));
+          }
         } else {
-          su0 = dr.sel_u[child * 2];
-          su1 = dr.sel_u[child * 2 + 1];
-          mu0 = dr.mut_u[child * 4];
-          mu1 = dr.mut_u[child * 4 + 1];
-          mu2 = dr.mut_u[child * 4 + 2];
+          if constexpr (DRAWS_SEL) {
+            su0 = dr.sel_u[child * 2];
+            su1 = dr.sel_u[child * 2 + 1];
+          }
+          if constexpr (MUTATES) {
+            mu0 = dr.mut_u[child * 4];
+            mu1 = dr.mut_u[child * 4 + 1];
+            mu2 = dr.mut_u[child * 4 + 2];
+          }
         }
-        const int r1 = winner_rank(winner_fraction(sel, su0), V);
-        const int r2 = winner_rank(winner_fraction(sel, su1), V);
-        s1 = min(max(row_of_rank[r1], 0), K - 1);
-        s2 = min(max(row_of_rank[r2], 0), K - 1);
+        s1 = s2 = k;  // sel_const, no_matmul: child k's parents are slot k
+        if constexpr (!SAME) {
+          const int r1 = winner_rank(winner_fraction(sel, su0), V);
+          const int r2 = winner_rank(winner_fraction(sel, su1), V);
+          s1 = min(max(row_of_rank[r1], 0), K - 1);
+          s2 = min(max(row_of_rank[r2], 0), K - 1);
+        }
         orow = write_row(geo, g, k);
         pos = (int)floorf(mu0 * (float)L);
         pj = (int)floorf(mu1 * (float)L);
-        fire = mutate == MUT_SWAP ? mu2 < cx.rate : mu1 < cx.rate;
+        fire = MUTATES && (mutate == MUT_SWAP ? mu2 < cx.rate : mu1 < cx.rate);
       } else {
         s1 = st.s1;
         s2 = st.s2;
@@ -953,7 +1004,7 @@ __global__ void __launch_bounds__(PIPE_THREADS) deme_pipelined_kernel(
         fire = st.fire != 0;
         a0 = st.a;
         if (obj == OBJ_ACKLEY) b0 = st.b;
-        if (cx.philox_mode)
+        if (CROSSES && cx.philox_mode)
           w = tile_start ? philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_CROSS + (base >> 7), 0u))
                          : make_uint4(st.w[0], st.w[1], st.w[2], st.w[3]);
       }
@@ -965,17 +1016,19 @@ __global__ void __launch_bounds__(PIPE_THREADS) deme_pipelined_kernel(
       float a = 0.0f, b = 0.0f;
       for (int j = j0; j < len; j += PIPE_LANES) {
         const int l = base + j;
-        uint32_t bit;
-        if (cx.philox_mode) {
-          const int wi = (l >> 5) & 3;
-          bit = ((wi == 0 ? w.x : wi == 1 ? w.y : wi == 2 ? w.z : w.w) >> (l & 31)) & 1u;
-        } else {
-          bit = dr.cross[child * L + l];
+        uint32_t bit = 0u;  // no_cross: every gene from p1
+        if constexpr (CROSSES) {
+          if (cx.philox_mode) {
+            const int wi = (l >> 5) & 3;
+            bit = ((wi == 0 ? w.x : wi == 1 ? w.y : wi == 2 ? w.z : w.w) >> (l & 31)) & 1u;
+          } else {
+            bit = dr.cross[child * L + l];
+          }
         }
         float c = load_gene<false>((bit ? p2 : p1) + j);
         if (mutate == MUT_POINT) {
           if (fire && l == pos) c = mu2;
-        } else if (mutate == MUT_GAUSSIAN) {
+        } else if (MUTATES && mutate == MUT_GAUSSIAN) {
           c = gauss_mutate(cx, dr, c, k, g, 0u, l, child, true);
         }
         c = round_gene<Gene>(c);
@@ -997,7 +1050,7 @@ __global__ void __launch_bounds__(PIPE_THREADS) deme_pipelined_kernel(
           }
           st.a = a;
           if (obj == OBJ_ACKLEY) st.b = b;
-          if (s == 0 || tile_start) {
+          if (CROSSES && (s == 0 || tile_start)) {
             st.w[0] = w.x;
             st.w[1] = w.y;
             st.w[2] = w.z;
@@ -1006,7 +1059,7 @@ __global__ void __launch_bounds__(PIPE_THREADS) deme_pipelined_kernel(
         }
         continue;
       }
-      if (mutate == MUT_SWAP) {
+      if (MUTATES && mutate == MUT_SWAP) {
         const bool swap = fire && pos < L && pj < L;
         __syncwarp();
         if (swap && j0 == 0) {
@@ -1036,52 +1089,93 @@ __global__ void __launch_bounds__(PIPE_THREADS) deme_pipelined_kernel(
 }
 
 
-// The ABLATE cases each kernel is built in, beside 0 (production). A launch
-// with another mask fails with cudaErrorInvalidValue; ops/kernels.py keeps the
-// same lists (ABLATE_DEME_MASKS, ABLATE_ORDER_MASKS, ABLATE_MULTIGEN_MASKS) and
-// refuses first.
+// The ABLATE cases each unit builds (ops/kernels.py, deme_unit). A launch
+// with a mask its unit does not hold fails with cudaErrorInvalidValue;
+// ops/kernels.py keeps the same lists (ABLATE_DEME_MASKS, ABLATE_ORDER_MASKS,
+// ABLATE_MULTIGEN_MASKS, PIPELINED_HARNESS_MASKS) and picks the unit first.
+//   the production unit (no macro): in deme_breed_kernel 0, ABL_COPY, each
+//     stage bit alone and all four (the floor); in order_breed_kernel the
+//     same but the copy; in multigen_breed_kernel (uniform, both gene types,
+//     and order crossover) 0, ABL_NO_FREEZE, ABL_NO_RANK_CUBE, each stage bit
+//     alone and the floor; in deme_pipelined_kernel 0 alone;
+//   the harness unit (DEME_HARNESS): deme_pipelined_kernel's stage cases
+//     (each stage bit alone and the floor), nothing else;
+//   an extra unit (DEME_ABLATE_EXTRA = a mask outside those lists, never
+//     ABL_COPY: the copy with stage flags is the copy): that mask in every
+//     kernel it has a meaning in (the multigen bits only in
+//     multigen_breed_kernel), nothing else.
+// So the production unit's text is the same whatever the harness builds,
+// and a harness or extra unit compiles only its own cases.
 constexpr unsigned ABL_FLOOR = ABL_STAGES;  // every stage off: the harness's floor
+#define DEME_PRODUCTION (!DEME_HARNESS && !DEME_ABLATE_EXTRA)
+// An extra mask without the multigen bits (ABL_NO_FREEZE | ABL_NO_RANK_CUBE).
+#define DEME_EXTRA_ONE_GEN (DEME_ABLATE_EXTRA && !((DEME_ABLATE_EXTRA) & 96u))
+constexpr unsigned ABL_EXTRA = DEME_ABLATE_EXTRA;
+
+template <unsigned A, class F>
+int launch_case(F& launch) {
+  return launch(std::integral_constant<unsigned, A>{});
+}
+
+// The stage cases of the harness: each stage bit alone and the floor.
+template <class F>
+int dispatch_stage_ablate(unsigned ablate, F& launch) {
+  switch (ablate) {
+    case ABL_SEL_CONST: return launch_case<ABL_SEL_CONST>(launch);
+    case ABL_NO_GATHER: return launch_case<ABL_NO_GATHER>(launch);
+    case ABL_NO_CROSS: return launch_case<ABL_NO_CROSS>(launch);
+    case ABL_NO_MUT: return launch_case<ABL_NO_MUT>(launch);
+    case ABL_FLOOR: return launch_case<ABL_FLOOR>(launch);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 template <class F>
 int dispatch_deme_ablate(unsigned ablate, F launch) {
-  switch (ablate) {
-    case 0u: return launch(std::integral_constant<unsigned, 0u>{});
-    case ABL_COPY: return launch(std::integral_constant<unsigned, ABL_COPY>{});
-    case ABL_SEL_CONST: return launch(std::integral_constant<unsigned, ABL_SEL_CONST>{});
-    case ABL_NO_GATHER: return launch(std::integral_constant<unsigned, ABL_NO_GATHER>{});
-    case ABL_NO_CROSS: return launch(std::integral_constant<unsigned, ABL_NO_CROSS>{});
-    case ABL_NO_MUT: return launch(std::integral_constant<unsigned, ABL_NO_MUT>{});
-    case ABL_FLOOR: return launch(std::integral_constant<unsigned, ABL_FLOOR>{});
-    default: return (int)cudaErrorInvalidValue;
-  }
+#if DEME_PRODUCTION
+  if (ablate == 0u) return launch_case<0u>(launch);
+  if (ablate == ABL_COPY) return launch_case<ABL_COPY>(launch);
+  return dispatch_stage_ablate(ablate, launch);
+#elif DEME_EXTRA_ONE_GEN
+  if (ablate == ABL_EXTRA) return launch_case<ABL_EXTRA>(launch);
+#endif
+  return (int)cudaErrorInvalidValue;
 }
 
 template <class F>
 int dispatch_order_ablate(unsigned ablate, F launch) {
-  switch (ablate) {
-    case 0u: return launch(std::integral_constant<unsigned, 0u>{});
-    case ABL_SEL_CONST: return launch(std::integral_constant<unsigned, ABL_SEL_CONST>{});
-    case ABL_NO_GATHER: return launch(std::integral_constant<unsigned, ABL_NO_GATHER>{});
-    case ABL_NO_CROSS: return launch(std::integral_constant<unsigned, ABL_NO_CROSS>{});
-    case ABL_NO_MUT: return launch(std::integral_constant<unsigned, ABL_NO_MUT>{});
-    case ABL_FLOOR: return launch(std::integral_constant<unsigned, ABL_FLOOR>{});
-    default: return (int)cudaErrorInvalidValue;
-  }
+#if DEME_PRODUCTION
+  if (ablate == 0u) return launch_case<0u>(launch);
+  return dispatch_stage_ablate(ablate, launch);
+#elif DEME_EXTRA_ONE_GEN
+  if (ablate == ABL_EXTRA) return launch_case<ABL_EXTRA>(launch);
+#endif
+  return (int)cudaErrorInvalidValue;
 }
 
 template <class F>
 int dispatch_multigen_ablate(unsigned ablate, F launch) {
-  switch (ablate) {
-    case 0u: return launch(std::integral_constant<unsigned, 0u>{});
-    case ABL_NO_FREEZE: return launch(std::integral_constant<unsigned, ABL_NO_FREEZE>{});
-    case ABL_NO_RANK_CUBE: return launch(std::integral_constant<unsigned, ABL_NO_RANK_CUBE>{});
-    case ABL_SEL_CONST: return launch(std::integral_constant<unsigned, ABL_SEL_CONST>{});
-    case ABL_NO_GATHER: return launch(std::integral_constant<unsigned, ABL_NO_GATHER>{});
-    case ABL_NO_CROSS: return launch(std::integral_constant<unsigned, ABL_NO_CROSS>{});
-    case ABL_NO_MUT: return launch(std::integral_constant<unsigned, ABL_NO_MUT>{});
-    case ABL_FLOOR: return launch(std::integral_constant<unsigned, ABL_FLOOR>{});
-    default: return (int)cudaErrorInvalidValue;
-  }
+#if DEME_PRODUCTION
+  if (ablate == 0u) return launch_case<0u>(launch);
+  if (ablate == ABL_NO_FREEZE) return launch_case<ABL_NO_FREEZE>(launch);
+  if (ablate == ABL_NO_RANK_CUBE) return launch_case<ABL_NO_RANK_CUBE>(launch);
+  return dispatch_stage_ablate(ablate, launch);
+#elif DEME_ABLATE_EXTRA
+  if (ablate == ABL_EXTRA) return launch_case<ABL_EXTRA>(launch);
+#endif
+  return (int)cudaErrorInvalidValue;
+}
+
+template <class F>
+int dispatch_pipelined_ablate(unsigned ablate, F launch) {
+#if DEME_PRODUCTION
+  if (ablate == 0u) return launch_case<0u>(launch);
+#elif DEME_HARNESS
+  return dispatch_stage_ablate(ablate, launch);
+#elif DEME_EXTRA_ONE_GEN
+  if (ablate == ABL_EXTRA) return launch_case<ABL_EXTRA>(launch);
+#endif
+  return (int)cudaErrorInvalidValue;
 }
 
 template <class Gene>
@@ -1117,30 +1211,33 @@ inline size_t pipe_plan(int K, int L, int gene_bytes, SlabPlan& plan, int& row_b
 template <class Gene>
 int pipelined_launch(const void* gin, void* gout, float* sout, const int* ranks,
                      const float* mparams, const Draws& dr, const Geometry& geo,
-                     const Selection& sel, int mutate, int obj, int islands, cudaStream_t stream) {
+                     const Selection& sel, int mutate, int obj, int islands, unsigned ablate,
+                     cudaStream_t stream) {
   SlabPlan plan;
   int row_bytes;
   const size_t smem = pipe_plan(geo.K, geo.L, sizeof(Gene), plan, row_bytes);
   if (!smem) return (int)cudaErrorInvalidValue;
   const int rb = geo.L * (int)sizeof(Gene);
   const int cw = rb % 16 == 0 ? 16 : rb % 8 == 0 ? 8 : rb % 4 == 0 ? 4 : 0;
-  auto kernel = deme_pipelined_kernel<Gene>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, PIPE_THREADS, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int fill = per_sm * sms / islands;
-  const int blocks = fill < 1 ? 1 : fill < geo.G ? fill : geo.G;
-  kernel<<<dim3(blocks, islands), PIPE_THREADS, smem, stream>>>(
-      static_cast<const Gene*>(gin), static_cast<Gene*>(gout), sout, ranks, mparams, dr, geo, sel,
-      mutate, obj, plan, row_bytes, cw);
-  return (int)cudaGetLastError();
+  return dispatch_pipelined_ablate(ablate, [&](auto tag) {
+    auto kernel = deme_pipelined_kernel<Gene, decltype(tag)::value>;
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, PIPE_THREADS, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const int fill = per_sm * sms / islands;
+    const int blocks = fill < 1 ? 1 : fill < geo.G ? fill : geo.G;
+    kernel<<<dim3(blocks, islands), PIPE_THREADS, smem, stream>>>(
+        static_cast<const Gene*>(gin), static_cast<Gene*>(gout), sout, ranks, mparams, dr, geo,
+        sel, mutate, obj, plan, row_bytes, cw);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -1175,12 +1272,14 @@ extern "C" int deme_breed_launch(
 // deme_pipelined_kernel at the geometry (any row map; the production path
 // launches it where the ping-pong sub-block depth B is above 1). K must be a
 // multiple of 4, and gin and ranks 16-byte aligned (the staging's copies).
+// ablate: 0, or a stage case of the floor harness this unit holds
+// (dispatch_pipelined_ablate).
 extern "C" int deme_pipelined_launch(
     const void* gin, void* gout, float* sout, const int* ranks, const float* mparams,
     const float* sel_u, const unsigned char* cross, const float* mut_u, const float* gauss,
     const long long* seed, int P, int Pp, int L, int K, int G, int mode, int S, int D, int q,
     int B, int sel_kind, int tk, float sel_param, int mutate, int obj, int islands,
-    int gene_dtype, void* stream) {
+    int gene_dtype, unsigned ablate, void* stream) {
   if (K % 4 || B < 1 || islands < 1 || islands > 65535) return (int)cudaErrorInvalidValue;
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q, B};
   const Selection sel{sel_kind, tk, sel_param};
@@ -1188,10 +1287,10 @@ extern "C" int deme_pipelined_launch(
   const cudaStream_t st = (cudaStream_t)stream;
   if (gene_dtype == GENE_BF16)
     return pipelined_launch<__nv_bfloat16>(gin, gout, sout, ranks, mparams, dr, geo, sel, mutate,
-                                           obj, islands, st);
+                                           obj, islands, ablate, st);
   if (gene_dtype == GENE_F32)
     return pipelined_launch<float>(gin, gout, sout, ranks, mparams, dr, geo, sel, mutate, obj,
-                                   islands, st);
+                                   islands, ablate, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1429,8 +1429,10 @@ def make_fused_breed(
     scores under ``no_rank_sort``); ``no_riffle`` takes the contiguous
     row map and ``alias_io`` copies in place; ``no_rank_sort`` skips the
     rank sort (the breeding cases then get slot-order ranks); the stage
-    flags remove a part of the breed (:func:`breed_children`) and raise
-    ``NotImplementedError`` where ``subblock`` resolves to B > 1."""
+    flags, in any combination, remove parts of the breed
+    (:func:`breed_children`), at B > 1 too: there the builtin hooks
+    launch the pipelined deme breed's case of the flags and expression
+    hooks the expression breed's, on the B-aware row maps."""
     ablate = validate_ablate(ablate)
     obj_id = getattr(objective, "fused_id", FUSED_NONE)
     expr_obj = getattr(objective, "expr_fused", None)
@@ -1466,11 +1468,6 @@ def make_fused_breed(
             " needs >= 128 rows, a padded tail of >= K/4 rows, tournament_size"
             " in 1..16 and, with order crossover, float32 genes and a K whose"
             " walk scratch fits (PGA.run takes the panmictic path there)"
-        )
-    if geom.B > 1 and set(ablate) & STAGE_ABLATE:
-        raise NotImplementedError(
-            f"ablate= stage flags at subblock > 1 (B={geom.B}) are not ported yet:"
-            " ROADMAP Queue B item B10 lists them"
         )
     kw = dict(
         tournament_size=tournament_size, selection=selection,

@@ -13,9 +13,12 @@ the multi-generation kernel of those hooks. The floor harness's cases of
 those kernels build in units of their own (:func:`expr_unit`): a harness
 unit (one more macro line) holds the harness's masks, and any other
 combination of the flags gets a unit keyed by its mask, so the
-production unit's text never changes with the harness. Nothing here runs
-at import time: this module imports on machines without ``nvcc`` or a
-card.
+production unit's text never changes with the harness. ``deme_breed.cu``
+does the same for the builtin kernels (:func:`deme_macro`): its
+production unit holds the harness's usual masks, a harness unit the
+pipelined kernel's stage cases, and any other combination a unit of its
+own. Nothing here runs at import time: this module imports on machines
+without ``nvcc`` or a card.
 
 ``LAUNCHES`` counts kernel launches: the uniform-crossover deme breed
 by row-map layout ("pingpong", "riffle"), the order-crossover breed
@@ -40,7 +43,9 @@ production launch: "ablate_copy" (the copy case, whatever the hooks),
 "ablate_multigen" (of the multi-generation kernel), "ablate_order" and
 "ablate_multigen_order" (the order kernels), "ablate_expr",
 "ablate_expr_order", "ablate_expr_multigen" and
-"ablate_expr_multigen_order" (the expression kernels), and "_bf16". The
+"ablate_expr_multigen_order" (the expression kernels), "ablate_pipelined"
+(the pipelined deme breed's stage cases), and "_bf16"; ``MASK_LAUNCHES``
+counts each ablated launch again under ``(name, kernel bitmask)``. The
 pipelined deme breed of the sub-block pipeline (``deme_breed_cuda(pipelined=True)``) counts as
 "deme_pipelined" ("islands_deme_pipelined"; and "_bf16"). A wrapper adds
 one where it launches its kernel and nowhere else.
@@ -91,7 +96,9 @@ LAUNCHES = {
     "ablate_expr_multigen": 0, "ablate_expr_multigen_bf16": 0, "ablate_expr_multigen_order": 0,
     "deme_pipelined": 0,
     "islands_deme_pipelined": 0, "deme_pipelined_bf16": 0, "islands_deme_pipelined_bf16": 0,
+    "ablate_pipelined": 0, "ablate_pipelined_bf16": 0,
 }
+MASK_LAUNCHES: dict = {}  # (LAUNCHES name, kernel bitmask) -> ablated launches
 TEMPLATES = ("expr_breed",)  # sources built only with generated hooks in front
 
 SEL_IDS = {"tournament": 0, "truncation": 1, "linear_rank": 2}
@@ -106,31 +113,43 @@ EXPR_MULTIGEN_MAX_WARPS = 32  # of expr_multigen_kernel (MG_THREADS / 32)
 SMEM_BLOCK_BYTES = 232_448  # shared memory a block may use on Hopper
 # The floor harness's kernel flags and their bits (csrc/breed_core.cuh's
 # ABL_*); the other flags are the host's (fused_step.VALID_ABLATE). The
-# masks each builtin kernel is built in (csrc/deme_breed.cu's
-# dispatch_*_ablate; the order kernels': ABLATE_ORDER_MASKS and, at several
-# generations, ABLATE_MULTIGEN_MASKS), and the masks of an expression
-# harness unit (csrc/expr_breed.cu's dispatch_expr_ablate; the
-# one-generation kernels take the stage masks among them).
+# masks each builtin kernel is built in in the production unit of
+# csrc/deme_breed.cu (its dispatch_*_ablate; the order kernels':
+# ABLATE_ORDER_MASKS and, at several generations, ABLATE_MULTIGEN_MASKS),
+# the pipelined kernel's stage cases of its harness unit, and the masks of
+# an expression harness unit (csrc/expr_breed.cu's dispatch_expr_ablate;
+# the one-generation kernels take the stage masks among them). Any other
+# mask builds a unit of its own (deme_macro, expr_unit).
 ABLATE_BITS = {"copy_only": 1, "sel_const": 2, "no_matmul": 4, "no_cross": 8, "no_mut": 16,
                "no_freeze": 32, "no_rank_cube": 64}
 ABLATE_FLOOR = 2 | 4 | 8 | 16
 ABLATE_DEME_MASKS = (0, 1, 2, 4, 8, 16, ABLATE_FLOOR)
 ABLATE_ORDER_MASKS = (0, 2, 4, 8, 16, ABLATE_FLOOR)
 ABLATE_MULTIGEN_MASKS = (0, 32, 64, 2, 4, 8, 16, ABLATE_FLOOR)
+PIPELINED_HARNESS_MASKS = (2, 4, 8, 16, ABLATE_FLOOR)
 EXPR_HARNESS_MASKS = (2, 4, 8, 16, ABLATE_FLOOR, 32, 64)
+# The production unit's masks of each builtin kernel (deme_macro's kinds).
+DEME_UNIT_MASKS = {"deme": ABLATE_DEME_MASKS, "order": ABLATE_ORDER_MASKS,
+                   "multigen": ABLATE_MULTIGEN_MASKS, "pipelined": (0,)}
 
 _libs: dict = {}
 _expr_libs: dict = {}  # (generated source, unit macro) -> built library path
+_deme_libs: dict = {}  # deme_breed.cu unit macro -> built library path
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    MASK_LAUNCHES.clear()
 
 
-def _count(name: str, genomes: torch.Tensor) -> None:
-    """One launch of ``name`` on ``genomes``' gene dtype."""
-    LAUNCHES[name + ("_bf16" if genomes.dtype == torch.bfloat16 else "")] += 1
+def _count(name: str, genomes: torch.Tensor, mask: Optional[int] = None) -> None:
+    """One launch of ``name`` on ``genomes``' gene dtype; an ablated one
+    (``mask``, its kernel bitmask) also under ``MASK_LAUNCHES``."""
+    name += "_bf16" if genomes.dtype == torch.bfloat16 else ""
+    LAUNCHES[name] += 1
+    if mask is not None:
+        MASK_LAUNCHES[(name, mask)] = MASK_LAUNCHES.get((name, mask), 0) + 1
 
 
 def _nvcc() -> str:
@@ -177,6 +196,53 @@ def build(name: str = "deme_breed", verbose: bool = False) -> Path:
     return _compile(src, BUILD / f"lib{name}-{_digest(src.read_bytes())}.so", verbose)
 
 
+def _build_unit(stem: str, text: str, verbose: bool) -> Path:
+    """Compile the unit ``text`` into ``_build/lib<stem>-<hash>.so``
+    unless that file exists; the text is kept beside it as
+    ``<stem>-<hash>.cu`` (its includes resolve in ``csrc/``)."""
+    digest = _digest(text.encode())
+    lib = BUILD / f"lib{stem}-{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD.mkdir(parents=True, exist_ok=True)
+    src = BUILD / f"{stem}-{digest}.cu"
+    tmp = src.with_suffix(f".{os.getpid()}.tmp")
+    tmp.write_text(text)
+    os.replace(tmp, src)
+    return _compile(src, lib, verbose)
+
+
+def deme_macro(kernel: str, mask: int) -> str:
+    """The macro line of the ``csrc/deme_breed.cu`` unit that holds the
+    floor-harness case ``mask`` of a builtin kernel (``kernel``: "deme",
+    "order", "multigen" or "pipelined"): none where the production unit
+    holds it (``DEME_UNIT_MASKS``), ``DEME_HARNESS`` for the pipelined
+    kernel's stage cases (``PIPELINED_HARNESS_MASKS``, one unit), else
+    ``DEME_ABLATE_EXTRA`` with the mask (a unit of its own, holding that
+    mask in every builtin kernel it has a meaning in)."""
+    if mask in DEME_UNIT_MASKS[kernel]:
+        return ""
+    if kernel == "pipelined" and mask in PIPELINED_HARNESS_MASKS:
+        return "#define DEME_HARNESS 1\n"
+    return f"#define DEME_ABLATE_EXTRA {int(mask)}u\n"
+
+
+def deme_unit(macro: str = "") -> str:
+    """The text of a ``deme_breed.cu`` unit: the macro line of
+    :func:`deme_macro`, then the source; "" is the production unit, the
+    source itself."""
+    return macro + (CSRC / "deme_breed.cu").read_text()
+
+
+def build_deme(macro: str = "", verbose: bool = False) -> Path:
+    """Compile the ``deme_breed.cu`` unit of ``macro`` (:func:`deme_unit`):
+    the production unit as :func:`build` does, any other into
+    ``_build/libdeme_breed-<hash>.so`` with its text beside it."""
+    if not macro:
+        return build("deme_breed", verbose)
+    return _build_unit("deme_breed", deme_unit(macro), verbose)
+
+
 def _unit_macro(ablate: int) -> str:
     """The macro line that picks the unit of a floor-harness mask:
     ``EXPR_HARNESS`` where the mask is one of ``EXPR_HARNESS_MASKS`` (one
@@ -201,27 +267,19 @@ def build_expr(program, verbose: bool = False, ablate: int = 0) -> Path:
     mask, :func:`expr_unit`) into ``_build/libexpr_breed-<hash>.so``
     unless that file exists; the unit's text is kept beside it as
     ``expr_breed-<hash>.cu``."""
-    text = expr_unit(program, ablate)
-    digest = _digest(text.encode())
-    lib = BUILD / f"libexpr_breed-{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD.mkdir(parents=True, exist_ok=True)
-    src = BUILD / f"expr_breed-{digest}.cu"
-    tmp = src.with_suffix(f".{os.getpid()}.tmp")
-    tmp.write_text(text)
-    os.replace(tmp, src)
-    return _compile(src, lib, verbose)
+    return _build_unit("expr_breed", expr_unit(program, ablate), verbose)
 
 
-def build_all(verbose: bool = False, programs=(), harness=()) -> dict:
+def build_all(verbose: bool = False, programs=(), harness=(), deme_units=()) -> dict:
     """Build every kernel source (the templates only through
     ``programs``, expression units from ``ops/expr_cuda.generate``, and
-    ``harness``, programs whose floor-harness unit is built too), one
-    nvcc per unit, all started together. Returns the seconds each unit's
-    build took (0 where its library existed), by source name,
-    ``expr_breed[i]`` for ``programs[i]`` or ``expr_harness[i]`` for
-    ``harness[i]``."""
+    ``harness``, programs whose floor-harness unit is built too), and the
+    ``deme_breed.cu`` units of the macro lines ``deme_units``
+    (:func:`deme_macro`), one nvcc per unit, all started together.
+    Returns the seconds each unit's build took (0 where its library
+    existed), by source name, ``expr_breed[i]`` for ``programs[i]``,
+    ``expr_harness[i]`` for ``harness[i]`` or ``deme_unit[i]`` for
+    ``deme_units[i]``."""
     names = sorted(p.stem for p in CSRC.glob("*.cu") if p.stem not in TEMPLATES)
 
     def timed(fn, *args):
@@ -238,6 +296,8 @@ def build_all(verbose: bool = False, programs=(), harness=()) -> dict:
     for i, p in enumerate(harness):
         mask = EXPR_HARNESS_MASKS[0]
         units.setdefault((p.source, mask), (f"expr_harness[{i}]", build_expr, (p, verbose, mask)))
+    for i, macro in enumerate(deme_units):
+        units.setdefault(("deme", macro), (f"deme_unit[{i}]", build_deme, (macro, verbose)))
     jobs += list(units.values())
     with ThreadPoolExecutor(max_workers=max(len(jobs), 1)) as pool:
         futs = {key: pool.submit(timed, fn, *args) for key, fn, args in jobs}
@@ -268,6 +328,7 @@ def _bindings() -> dict:
                 i, i, i, i, i,          # mode, S, D, q, B
                 i, i, f,                # sel kind, tournament size, sel param
                 i, i, i, i,             # mutate kind, objective id, islands, gene dtype
+                ctypes.c_uint,          # ablate mask
                 p,                      # stream
             ], i),
             "order_breed_launch": ([
@@ -372,16 +433,30 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def ablate_mask(ablate, masks: tuple, who: str) -> int:
+def ablate_mask(ablate, multigen: bool = False) -> int:
     """The kernel bitmask of the flags ``ablate`` (names; the host's
-    flags add nothing), which must be one of ``masks``, the cases the
-    kernel is built in."""
-    mask = sum(ABLATE_BITS.get(f, 0) for f in set(ablate))
-    if mask not in masks:
-        cases = [sorted(f for f, b in ABLATE_BITS.items() if m & b) for m in masks if m]
-        raise ValueError(f"{who} is not built with the flags {sorted(set(ablate))}: its"
-                         f" ablated cases are {cases}")
-    return mask
+    flags add nothing): any combination of the stage flags (and, with
+    ``multigen``, no_freeze and no_rank_cube), or with copy_only the
+    copy's bit alone, as JAX's copy branch returns before any stage runs.
+    :func:`deme_macro` names the unit that holds it."""
+    flags = set(ablate)
+    if not multigen and flags & {"no_freeze", "no_rank_cube"}:
+        raise ValueError(f"ablation flag(s) {sorted(flags & {'no_freeze', 'no_rank_cube'})} are"
+                         " the multi-generation kernel's")
+    if "copy_only" in flags:
+        return ABLATE_BITS["copy_only"]
+    return sum(ABLATE_BITS.get(f, 0) for f in flags)
+
+
+def _deme_library(kernel: str, mask: int) -> ctypes.CDLL:
+    """The loaded ``deme_breed.cu`` unit that holds ``kernel``'s case
+    ``mask`` (:func:`deme_macro`), built at first use."""
+    macro = deme_macro(kernel, mask)
+    if not macro:
+        return _library("deme_breed")
+    if macro not in _deme_libs:
+        _deme_libs[macro] = build_deme(macro)
+    return _library("deme_breed", _deme_libs[macro])
 
 
 def expr_ablate_mask(ablate, multigen: bool = False) -> int:
@@ -390,13 +465,9 @@ def expr_ablate_mask(ablate, multigen: bool = False) -> int:
     ``multigen``, no_freeze and no_rank_cube): the unit that holds its
     case is picked by :func:`expr_unit`. The copy is deme_breed_kernel's
     whatever the hooks, so copy_only raises here."""
-    flags = set(ablate)
-    if "copy_only" in flags:
+    if "copy_only" in ablate:
         raise ValueError("copy_only launches deme_breed_kernel's copy, not an expression kernel")
-    if not multigen and flags & {"no_freeze", "no_rank_cube"}:
-        raise ValueError(f"ablation flag(s) {sorted(flags & {'no_freeze', 'no_rank_cube'})} are"
-                         " the multi-generation kernel's")
-    return sum(ABLATE_BITS.get(f, 0) for f in flags)
+    return ablate_mask(ablate, multigen)
 
 
 def _check_genomes(genomes: torch.Tensor, shape, device, order: bool = False) -> int:
@@ -446,17 +517,19 @@ def deme_breed_cuda(
 ):
     """Launch ``deme_breed_kernel`` (``pipelined``: ``deme_pipelined_kernel``,
     the sub-block pipeline's persistent kernel, which computes the same
-    function; no ``ablate``) of ``csrc/deme_breed.cu`` on the
+    function) of ``csrc/deme_breed.cu`` on the
     current stream: the kernel counterpart of
     ``fused_step.deme_breed_reference`` (same arguments, uniform
     crossover; float32 or bfloat16 genomes, its float or bf16 case, the
     children in the genomes' dtype). ``ablate`` (flags checked by
     ``fused_step.validate_ablate``) launches a case of the floor harness:
-    with "copy_only" the copy, ``demes_per_block`` demes and
+    with "copy_only" the copy whatever the stage flags beside it (not
+    pipelined: the copy pins the riffle), ``demes_per_block`` demes and
     ``warps_per_block`` warps per block (0: the breed's 8), ``ranks``
     then the float32 scores each copied row is handed (cohort order,
     (G, K)) and ``out`` may be ``genomes`` under "alias_io"; the
-    stage flags, one at a time or all four.
+    stage flags, in any combination, from the unit that holds the mask
+    (:func:`deme_macro`).
     Production mode takes ``seed`` (int64, one element, on the card);
     injected mode takes ``draws``. ``islands`` = I breeds I populations
     in one launch: genomes and ``out`` (I, Pp, L), ranks (I*G, K), one
@@ -475,14 +548,13 @@ def deme_breed_cuda(
         raise ValueError(f"deme size {K} outside 1..1024")
     if not 1 <= tournament_size <= 16:
         raise ValueError(f"tournament_size {tournament_size} outside 1..16")
-    mask = ablate_mask(ablate, ABLATE_DEME_MASKS, "deme_breed_kernel")
-    if pipelined and ablate:
-        raise ValueError("the pipelined deme breed takes no ablate flags: stage flags at"
-                         " subblock > 1 are ROADMAP Queue B item B10")
+    mask = ablate_mask(ablate)
+    copy = mask == ABLATE_BITS["copy_only"]
+    if pipelined and copy:
+        raise ValueError("the pipelined deme breed has no copy: copy_only pins the riffle")
     if pipelined and K % 4:
         raise ValueError(f"the pipelined deme breed takes a deme size that is a multiple of 4"
                          f" (K={K})")
-    copy = bool(mask & ABLATE_BITS["copy_only"])
     if demes_per_block < 1 or G % demes_per_block or (demes_per_block > 1 and not copy):
         raise ValueError(f"demes_per_block {demes_per_block}: the copy's, dividing G={G}")
     if not 0 <= warps_per_block <= 8 or (warps_per_block and not copy):
@@ -514,7 +586,7 @@ def deme_breed_cuda(
     else:
         _check(seed, "seed", torch.int64, (n,), dev)
     scores = torch.empty(lead + (Pp,), device=dev) if obj_id else None
-    lib = _library("deme_breed")
+    lib = _deme_library("pipelined" if pipelined else "deme", mask)
     args = (
         genomes.data_ptr(), out.data_ptr(), _ptr(scores), ranks.data_ptr(),
         mparams.data_ptr(),
@@ -530,13 +602,16 @@ def deme_breed_cuda(
     if pipelined:
         if genomes.data_ptr() % 16 or ranks.data_ptr() % 16:
             raise ValueError("the pipelined deme breed stages 16-byte aligned genomes and ranks")
-        _raise_on(lib.deme_pipelined_launch(*args, stream), lib, "deme_breed")
-        _count("deme_pipelined" if islands is None else "islands_deme_pipelined", genomes)
+        _raise_on(lib.deme_pipelined_launch(*args, mask, stream), lib, "deme_breed")
+        if ablate:
+            _count("ablate_pipelined", genomes, mask)
+        else:
+            _count("deme_pipelined" if islands is None else "islands_deme_pipelined", genomes)
         return out, scores
     rc = lib.deme_breed_launch(*args, mask, int(demes_per_block), int(warps_per_block), stream)
     _raise_on(rc, lib, "deme_breed")
     if ablate:
-        _count("ablate_copy" if copy else "ablate_breed", genomes)
+        _count("ablate_copy" if copy else "ablate_breed", genomes, mask)
     else:
         _count(geom.layout if islands is None else "islands", genomes)
     return out, scores
@@ -571,8 +646,9 @@ def order_breed_cuda(
     with the ``fill`` plane. ``obj_id`` 3 (fused TSP) takes ``coords``
     (C, 2) float32 on the card and ``penalty``. ``islands`` = I breeds
     I populations in one launch, shaped as :func:`deme_breed_cuda`'s.
-    ``ablate`` launches a stage case of the floor harness (a stage flag
-    alone or all four, ``ABLATE_ORDER_MASKS``; no_cross walks nothing).
+    ``ablate`` launches a stage case of the floor harness (any
+    combination of the stage flags, from the unit that holds it; no_cross
+    walks nothing; the copy is :func:`deme_breed_cuda`'s).
     Raises on bad arguments or a failed launch; never runs anything else
     in the kernel's place."""
     dev = genomes.device
@@ -587,7 +663,9 @@ def order_breed_cuda(
         raise ValueError(f"deme size {K} is not a multiple of {ORDER_THREADS} in 1..1024")
     if not 1 <= tournament_size <= 16:
         raise ValueError(f"tournament_size {tournament_size} outside 1..16")
-    mask = ablate_mask(ablate, ABLATE_ORDER_MASKS, "order_breed_kernel")
+    mask = ablate_mask(ablate)
+    if mask == ABLATE_BITS["copy_only"]:
+        raise ValueError("copy_only launches deme_breed_kernel's copy, not order_breed_kernel")
     lead, n = _island_lead(islands)
     _check_genomes(genomes, lead + (Pp, L), dev, order=True)
     _check(ranks, "ranks", torch.int32, (n * G, K), dev)
@@ -623,7 +701,7 @@ def order_breed_cuda(
     else:
         _check(seed, "seed", torch.int64, (n,), dev)
     scores = torch.empty(lead + (Pp,), device=dev) if obj_id else None
-    lib = _library("deme_breed")
+    lib = _deme_library("order", mask)
     rc = lib.order_breed_launch(
         genomes.data_ptr(), out.data_ptr(), _ptr(scores), ranks.data_ptr(),
         mparams.data_ptr(),
@@ -637,7 +715,10 @@ def order_breed_cuda(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "deme_breed")
-    LAUNCHES["ablate_order" if ablate else "order" if islands is None else "islands_order"] += 1
+    if ablate:
+        _count("ablate_order", genomes, mask)
+    else:
+        _count("order" if islands is None else "islands_order", genomes)
     return out, scores
 
 
@@ -766,13 +847,16 @@ def multigen_breed_cuda(
     with a leading island axis (I, Pp, L) / (I, Pp), one seed per island
     (I,), injected draws (I, T, ...). ``ablate`` (flags checked by
     ``fused_step.validate_ablate``; uniform or order crossover) launches
-    a case of the floor harness: no_freeze, no_rank_cube or a stage flag
-    alone, or the four stage flags. Raises on bad arguments or a failed
-    launch; never runs anything else in the kernel's place."""
+    a case of the floor harness: any combination of no_freeze,
+    no_rank_cube and the stage flags, from the unit that holds it. Raises
+    on bad arguments or a failed launch; never runs anything else in the
+    kernel's place."""
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("multigen_breed_cuda needs CUDA tensors")
-    mask = ablate_mask(ablate, ABLATE_MULTIGEN_MASKS, "multigen_breed_kernel")
+    mask = ablate_mask(ablate, multigen=True)
+    if mask == ABLATE_BITS["copy_only"]:
+        raise ValueError("the multi-generation kernel has no copy case")
     if crossover not in CROSS_IDS:
         raise ValueError(f"multigen_breed_cuda breeds uniform or order crossover, not {crossover!r}")
     if obj_id not in ROWWISE_FUSED:
@@ -789,7 +873,7 @@ def multigen_breed_cuda(
     draw_steps, (sel_u, cross, fill, mut_u, gauss, tie) = _multigen_draws(
         draws, seed, geom, steps, crossover, mutate, dev, lead)
     s_out = torch.empty(lead + (Pp,), device=dev)
-    lib = _library("deme_breed")
+    lib = _deme_library("multigen", mask)
     rc = lib.multigen_breed_launch(
         genomes.data_ptr(), scores.data_ptr(), out.data_ptr(), s_out.data_ptr(),
         _ptr(work[0]), _ptr(work[1]),
@@ -806,7 +890,7 @@ def multigen_breed_cuda(
     )
     _raise_on(rc, lib, "deme_breed")
     if ablate:
-        _count("ablate_multigen_order" if order else "ablate_multigen", genomes)
+        _count("ablate_multigen_order" if order else "ablate_multigen", genomes, mask)
     else:
         key = "multigen_order" if order else "multigen"
         _count(key if islands is None else "islands_" + key, genomes)
@@ -1036,7 +1120,10 @@ def expr_breed_cuda(
     )
     _raise_on(rc, lib, "expr_breed")
     key = "expr_order" if order else "expr"
-    _count("ablate_" + key if ablate else key if islands is None else "islands_" + key, genomes)
+    if ablate:
+        _count("ablate_" + key, genomes, mask)
+    else:
+        _count(key if islands is None else "islands_" + key, genomes)
     return out, scores
 
 
@@ -1120,7 +1207,10 @@ def expr_multigen_cuda(
     )
     _raise_on(rc, lib, "expr_breed")
     key = "expr_multigen_order" if order else "expr_multigen"
-    _count("ablate_" + key if ablate else key if islands is None else "islands_" + key, genomes)
+    if ablate:
+        _count("ablate_" + key, genomes, mask)
+    else:
+        _count(key if islands is None else "islands_" + key, genomes)
     return out, s_out
 
 

@@ -21,7 +21,10 @@ import torch
 def top_k(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(values, indices)`` of the ``k`` best of ``scores`` (float32)
     along its last axis (one population's (P,), or islands' (I, S)),
-    best first: ``lax.top_k``'s rows in its order."""
+    best first: ``lax.top_k``'s rows in its order. A negative ``k``
+    raises ``lax.top_k``'s ValueError."""
+    if k < 0:
+        raise ValueError("k argument to top_k must be nonnegative")
     bits = scores.contiguous().view(torch.int32).to(torch.int64)
     key = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # monotone in the total order
     idx = torch.sort(key, dim=-1, descending=True, stable=True).indices[..., :k]

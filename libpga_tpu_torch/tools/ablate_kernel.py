@@ -3,6 +3,7 @@
 Usage: python -m libpga_tpu_torch.tools.ablate_kernel [f32|bf16] [K]
            [--pop 1048576] [--len 100] [--rounds 3]
            [--hooks builtin|creep|trap|tour|tsp|order] [--steps T]
+           [--subblock B] [--combo FLAG,FLAG ...]
 
 The port's counterpart of ``tools/ablate_kernel.py``: the generation of
 ``PGA.run`` (rank sort + ``deme_breed_kernel``) with the kernel's stages
@@ -33,6 +34,14 @@ multi-generation kernel's at T steps a launch (``expr_multigen_kernel``,
 ``multigen_breed_kernel<true>`` for ``order``): ``full``, ``no_freeze``,
 ``no_rank_cube``, each stage flag alone and ``floor``; the times are per
 generation.
+
+``--subblock B`` breeds every one-generation variant on ping-pong with B
+sub-blocks a group (``PGAConfig(subblock=B)``'s geometry, the unscored
+variants included): the builtin hooks through
+``deme_pipelined_kernel``'s cases, an expression hook through
+``expr_breed_kernel``'s on the B-aware row maps (the copy stays the
+riffle's). Each ``--combo`` adds a variant of that set of flags (any
+combination JAX's harness takes, e.g. ``sel_const,no_cross``), scored.
 
 Timed as ``ablate_floor`` times (interleaved rounds of a two-length
 subtraction by CUDA events, medians). Needs a CUDA card.
@@ -94,35 +103,44 @@ def hook_kinds(hooks: str, L: int) -> dict:
     return kw
 
 
-def variants(hooks: str, steps: int = 1) -> list:
+def variants(hooks: str, steps: int = 1, combos=()) -> list:
     """(label, ablate, scored) of every variant timed: ``STAGES`` for the
     builtin hooks at one generation a launch; else each of them scored
     (an objective hook always runs, as in JAX) but ``no_eval``, and the
     copy at one generation a launch, or no_freeze and no_rank_cube after
-    ``full`` at several."""
+    ``full`` at several; then one scored variant a flag set of
+    ``combos``, labelled by its flags joined with "+"."""
+    extra = [("+".join(flags), tuple(flags), True) for flags in combos]
     if hooks == "builtin" and steps == 1:
-        return STAGES
+        return STAGES + extra
     scored = [(label, ablate, True) for label, ablate, _ in STAGES if label != "no_eval"]
     if steps == 1:
-        return scored + [("copy", COPY, True)]
-    return scored[:1] + [(flag, (flag,), True) for flag in TSWEEP_ABLATE] + scored[1:]
+        return scored + [("copy", COPY, True)] + extra
+    return scored[:1] + [(flag, (flag,), True) for flag in TSWEEP_ABLATE] + scored[1:] + extra
 
 
-def build_runners(hooks, dtype, K, pop, L, steps=1, device="cuda") -> dict:
-    """``{label: run}`` of every variant of ``variants(hooks, steps)``:
-    ``ablate_floor``'s runners, one generation a launch (the builtin
-    hooks on the riffle, a hook set on the geometry ``PGA.run`` gives
-    it) or the multi-generation kernel at ``steps``."""
+def build_runners(hooks, dtype, K, pop, L, steps=1, device="cuda", subblock=None,
+                  combos=()) -> dict:
+    """``{label: run}`` of every variant of ``variants(hooks, steps,
+    combos)``: ``ablate_floor``'s runners, one generation a launch (the
+    builtin hooks on the riffle, a hook set on the geometry ``PGA.run``
+    gives it; at ``subblock`` B both on ``PGA.run``'s geometry at that
+    depth) or the multi-generation kernel at ``steps``."""
     kinds = None if hooks == "builtin" and steps == 1 else hook_kinds(hooks, L)
     runners = {}
-    for label, ablate, scored in variants(hooks, steps):
+    for label, ablate, scored in variants(hooks, steps, combos):
         if steps > 1:
             runners[label] = build_tsweep_variant(dtype, K, pop, L, steps, ablate=ablate,
                                                   device=device, kinds=kinds)
         else:
+            # An unscored breed takes the riffle unless a layout is named;
+            # a copy is a riffle instrument at any depth.
+            layout = "riffle" if kinds is None else None
+            if subblock is not None:
+                layout = "riffle" if "copy_only" in ablate else "pingpong"
             runners[label] = build_variant(label, dtype, K, pop, L, ablate=ablate, fused=scored,
-                                           layout="riffle" if kinds is None else None,
-                                           device=device, kinds=kinds)
+                                           layout=layout, device=device, kinds=kinds,
+                                           subblock=subblock)
     return runners
 
 
@@ -137,20 +155,26 @@ def main(argv=None) -> dict:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--hooks", default="builtin", choices=HOOK_SETS)
     ap.add_argument("--steps", type=int, default=1, help="generations a launch (multigen)")
+    ap.add_argument("--subblock", type=int, default=None,
+                    help="ping-pong sub-block depth of the one-generation variants")
+    ap.add_argument("--combo", action="append", default=[],
+                    help="one more variant: a comma-separated set of flags")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("stage costs are a card's quantity: run this where CUDA is available")
     dtype = GENE_DTYPES[args.dtype]
     lo, hi = (30, 90) if args.steps == 1 else (10, 30)
-    runners = build_runners(args.hooks, dtype, args.k, args.pop, args.length, args.steps)
+    combos = [tuple(c.split(",")) for c in args.combo]
+    runners = build_runners(args.hooks, dtype, args.k, args.pop, args.length, args.steps,
+                            subblock=args.subblock, combos=combos)
     for run in runners.values():
         run(3)
     med = measure_interleaved(runners, args.rounds, lo=lo, hi=hi)
     base = med["full"]
     tag = f"{args.dtype} {args.hooks} K={args.k} T={args.steps}"
-    for label in runners:
+    for label, run in runners.items():
         delta = "" if label == "full" else f"  (stage ~ {base - med[label]:+.4f} ms)"
-        print(f"{tag} {label:12s} {med[label]:8.4f} ms/gen{delta}", flush=True)
+        print(f"{tag} B={run.geom.B} {label:12s} {med[label]:8.4f} ms/gen{delta}", flush=True)
     return dict(med)
 
 

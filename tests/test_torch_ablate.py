@@ -18,6 +18,7 @@ held bit for bit; the other stage cases within the gather tolerance
 L * 1e-5 a fused score)."""
 
 import importlib.util
+import itertools
 import pathlib
 
 import jax
@@ -341,20 +342,34 @@ def test_layout_flags_pin_the_riffle_as_jax_does():
 
 @pytest.mark.parametrize("mutate", ["point", "creep"])
 def test_stage_flags_at_subblock_above_one_raise_naming_their_roadmap_item(mutate):
-    """The stage flags at a sub-block depth B > 1 are not ported yet
-    (ROADMAP Queue B item B10): the factory raises, with a builtin or an
-    expression hook; at B = 1 (the riffle at 4,096 rows) they breed."""
+    """The stage flags at a sub-block depth B > 1 (B10) no longer raise:
+    the factory builds at B = 2 with a builtin or an expression hook and
+    breeds what the plain version breeds at that geometry from the same
+    generator (ranks, seed, Philox draws); at 4,096 rows no D admits B = 2
+    and the riffle breeds; a layout flag pins the riffle."""
+    rate, sigma = 0.05, 0.1
     if mutate == "creep":
-        mutate = mutate_from_expression("where(r < rate, g + sigma * (2*r2 - 1), g)", rate=0.05,
-                                        sigma=0.1)
-    assert fs.resolve_geometry(16_384, L, subblock=2).B == 2
-    with pytest.raises(NotImplementedError, match="Queue B item B10"):
-        fs.make_fused_breed(16_384, L, onemax, mutate=mutate, ablate=("no_cross",), subblock=2,
-                            device="cpu")
-    breed = fs.make_fused_breed(4096, L, onemax, mutate=mutate, ablate=("no_cross",),
+        mutate = mutate_from_expression("where(r < rate, g + sigma * (2*r2 - 1), g)", rate=rate,
+                                        sigma=sigma)
+    P, ablate = 16_384, ("no_cross",)
+    breed = fs.make_fused_breed(P, L, onemax, mutate=mutate, mparams=(rate, sigma), ablate=ablate,
                                 subblock=2, device="cpu")
+    geom = breed.geom
+    assert (geom.layout, geom.B) == ("pingpong", 2) and breed.kw["ablate"] == ablate
+    g, s = _population(geom.Pp, P, seed=4)
+    g, s = torch.from_numpy(g), torch.from_numpy(s)
+    gen = torch.Generator().manual_seed(6)
+    twin = torch.Generator().set_state(gen.get_state())
+    got = breed(g, s, 1, gen)
+    ranks = fs.compute_ranks(s, geom, 1, fs.draw_tie_words(twin, geom.Pp, "cpu"))
+    seed = torch.randint(0, 2**63 - 1, (1,), generator=twin)
+    want = fs.deme_breed_reference(g, ranks, geom, 1, fs.philox_draws(seed, geom.G, geom.K, L,
+                                                                       mutate), **breed.kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    breed = fs.make_fused_breed(4096, L, onemax, mutate=mutate, ablate=ablate, subblock=2,
+                                device="cpu")
     assert breed.geom.B == 1
-    copy = fs.make_fused_breed(16_384, L, onemax, mutate=mutate, ablate=COPY, subblock=2,
+    copy = fs.make_fused_breed(P, L, onemax, mutate=mutate, ablate=COPY, subblock=2,
                                device="cpu")
     assert copy.geom.B == 1  # a layout flag pins the riffle
 
@@ -372,31 +387,46 @@ def test_warps_per_block_is_the_copy_s():
 
 
 def test_kernel_masks_cover_the_harness_and_refuse_the_rest():
-    """The wrappers' bitmask: every case the harness builds is
-    instantiated; another combination raises before any launch."""
-    deme = lambda flags: kernels.ablate_mask(flags, kernels.ABLATE_DEME_MASKS, "deme")
-    assert deme(COPY + ("no_riffle", "alias_io")) == 1
-    assert deme(FLOOR) == kernels.ABLATE_FLOOR
+    """Every set of flags JAX's harness takes resolves to a kernel
+    bitmask and a deme_breed.cu unit: the harness's usual cases to the
+    production unit (no macro line), the pipelined kernel's stage cases
+    to its harness unit, every other combination to a unit of its own;
+    copy_only with stage flags is the copy. The production unit's text
+    is the source itself."""
+    stage = ("sel_const", "no_matmul", "no_cross", "no_mut")
+    bits = kernels.ABLATE_BITS
+    for flags in (COPY + ("no_riffle", "alias_io"), ("copy_only", "no_mut"), COPY + stage):
+        assert kernels.ablate_mask(flags) == 1 and kernels.deme_macro("deme", 1) == ""
     for label, ablate, _ in port_ak.STAGES:
-        deme(ablate)
-    with pytest.raises(ValueError, match="ablated cases"):
-        deme(("no_mut", "no_cross"))
-    mg = lambda flags: kernels.ablate_mask(flags, kernels.ABLATE_MULTIGEN_MASKS, "multigen")
-    assert mg(("no_freeze",)) == 32 and mg(("no_rank_cube",)) == 64
-    with pytest.raises(ValueError, match="ablated cases"):
-        mg(("no_freeze", "no_rank_cube"))
-    # The order kernels: order_breed_kernel's stage cases (no copy: the
-    # copy is deme_breed_kernel's), multigen_breed_kernel<true>'s the
-    # multigen list.
-    order = lambda flags: kernels.ablate_mask(flags, kernels.ABLATE_ORDER_MASKS, "order")
-    for label, ablate, _ in port_ak.STAGES:
-        order(ablate)
-    assert order(FLOOR) == kernels.ABLATE_FLOOR
-    assert set(kernels.ABLATE_ORDER_MASKS) == set(kernels.ABLATE_DEME_MASKS) - {1}
-    with pytest.raises(ValueError, match="ablated cases"):
-        order(("copy_only",))
-    with pytest.raises(ValueError, match="ablated cases"):
-        order(("sel_const", "no_mut"))
+        assert kernels.deme_macro("deme", kernels.ablate_mask(ablate)) == ""
+        assert kernels.deme_macro("order", kernels.ablate_mask(ablate)) == ""
+    assert kernels.ablate_mask(FLOOR) == kernels.ABLATE_FLOOR
+    for r in range(len(stage) + 1):
+        for flags in itertools.combinations(stage, r):
+            mask = kernels.ablate_mask(flags + ("no_rank_sort",))
+            assert mask == sum(bits[f] for f in flags)
+            usual = r in (1, len(stage))
+            for kernel in ("deme", "order"):
+                assert kernels.deme_macro(kernel, mask) == (
+                    "" if usual or r == 0 else f"#define DEME_ABLATE_EXTRA {mask}u\n")
+            assert kernels.deme_macro("pipelined", mask) == (
+                "" if r == 0 else "#define DEME_HARNESS 1\n" if usual
+                else f"#define DEME_ABLATE_EXTRA {mask}u\n")
+    multigen = stage + ("no_freeze", "no_rank_cube")
+    with pytest.raises(ValueError, match="multi-generation"):
+        kernels.ablate_mask(("no_freeze", "no_mut"))  # a one-generation kernel's
+    units = set()
+    for r in range(len(multigen) + 1):
+        for flags in itertools.combinations(multigen, r):
+            mask = kernels.ablate_mask(flags, multigen=True)
+            macro = kernels.deme_macro("multigen", mask)
+            assert (macro == "") == (mask in kernels.ABLATE_MULTIGEN_MASKS)
+            units.add(macro)
+    assert len(units) == 2 ** len(multigen) - len(kernels.ABLATE_MULTIGEN_MASKS) + 1
+    source = (kernels.CSRC / "deme_breed.cu").read_text()
+    assert kernels.deme_unit("") == source
+    extra = kernels.deme_macro("deme", bits["sel_const"] | bits["no_cross"])
+    assert kernels.deme_unit(extra) == "#define DEME_ABLATE_EXTRA 10u\n" + source
 
 
 # ----------------------------------------------------- harness arithmetic

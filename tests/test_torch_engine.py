@@ -204,3 +204,38 @@ def test_elitism_above_the_population_size_raises_in_both(size, elitism):
             p.run(2)
     else:
         assert jp.run(2) == p.run(2) == 2
+
+
+def _two_populations(pkg, seed, config):
+    pga = pkg.pga_init(seed, config)
+    handles = [pkg.pga_create_population(pga, 64, 8) for _ in range(2)]
+    pkg.pga_set_objective_function(pga, "onemax")
+    for h in handles:
+        assert pga.run(2, population=h) == 2
+    return pga, handles[0]
+
+
+TOP_CALLS = {
+    "get_best_top": lambda pkg, pga, h, k: pga.get_best_top(h, k),
+    "get_best_top_all": lambda pkg, pga, h, k: pga.get_best_top_all(k),
+    "pga_get_best_top": lambda pkg, pga, h, k: pkg.pga_get_best_top(pga, h, k),
+    "pga_get_best_top_all": lambda pkg, pga, h, k: pkg.pga_get_best_top_all(pga, k),
+}
+
+
+@pytest.mark.parametrize("k", [-1, -64])
+@pytest.mark.parametrize("call", sorted(TOP_CALLS))
+def test_negative_top_k_raises_jax_s_value_error(call, k):
+    """A negative k raises ``lax.top_k``'s ValueError in both packages,
+    in the four top-k calls (two 64x8 populations after 2 generations);
+    at k = 3 both return 3 (or, across populations, 3) rows."""
+    fn = TOP_CALLS[call]
+    jp, jh = _two_populations(libpga_tpu, 0, None)
+    p, h = _two_populations(port, 0, CPU)
+    with pytest.raises(ValueError) as want:
+        fn(libpga_tpu, jp, jh, k)
+    with pytest.raises(ValueError) as got:
+        fn(port, p, h, k)
+    assert "must be nonnegative" in str(want.value)
+    assert str(got.value) == "k argument to top_k must be nonnegative"
+    assert fn(libpga_tpu, jp, jh, 3).shape == fn(port, p, h, 3).shape == (3, 8)

@@ -1521,13 +1521,12 @@ def test_ablated_kernels_reject_bad_arguments(cuda_device):
     with pytest.raises(ValueError, match="warps_per_block"):
         kernels.deme_breed_cuda(g, s, geom, 0, mparams=mp, ablate=("copy_only",),
                                 warps_per_block=9)
-    ranks = torch.zeros((geom.G, geom.K), dtype=torch.int32, device=cuda_device)
     seed = torch.tensor([1], dtype=torch.int64, device=cuda_device)
-    with pytest.raises(ValueError, match="ablated cases"):
-        kernels.deme_breed_cuda(g, ranks, geom, 0, seed=seed, mparams=mp,
-                                ablate=("no_mut", "no_cross"))
+    ranks = torch.zeros((geom.G, geom.K), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="multi-generation"):
+        kernels.deme_breed_cuda(g, ranks, geom, 0, seed=seed, mparams=mp, ablate=("no_freeze",))
     mg = fs.resolve_geometry(8192, 100, multigen=True)
-    with pytest.raises(ValueError, match="ablated cases"):
+    with pytest.raises(ValueError, match="no copy"):
         kernels.multigen_breed_cuda(g, g.sum(dim=1), mg, 0, 1, math.inf, seed=seed, mparams=mp,
                                     obj_id=onemax.fused_id, ablate=("copy_only",))
 
@@ -1776,18 +1775,15 @@ def test_hook_ablated_kernels_reject_bad_arguments(cuda_device):
     ranks = torch.zeros((geom.G, geom.K), dtype=torch.int32, device=cuda_device)
     seed = torch.tensor([1], dtype=torch.int64, device=cuda_device)
     mp = torch.tensor([0.01, 0.0], device=cuda_device)
-    with pytest.raises(ValueError, match="ablated cases"):  # B10: combinations
+    with pytest.raises(ValueError, match="copy"):  # the copy is deme_breed_kernel's
         kernels.order_breed_cuda(g, ranks, geom, 0, seed=seed, mparams=mp,
                                  obj_id=objective.fused_id, coords=objective.coords.to(cuda_device),
-                                 ablate=("sel_const", "no_mut"))
+                                 ablate=("copy_only", "no_mut"))
     creep = _hook_case("creep", 100)[2]
     with pytest.raises(ValueError, match="copy"):
         kernels.expr_breed_cuda(g, ranks, fs.resolve_geometry(4096, 100), 0, seed=seed,
                                 mparams=mp, mutate=creep, obj_id=onemax.fused_id,
                                 ablate=("copy_only",))
-    with pytest.raises(NotImplementedError, match="B10"):
-        fs.make_fused_breed(65_536, 100, onemax, mutate=creep, subblock=2, ablate=("no_mut",),
-                            device=cuda_device)
 
 
 # ------------------------------------------------- the sub-block pipeline
@@ -1855,9 +1851,9 @@ def test_pipelined_kernel_rejects_bad_arguments(cuda_device):
     ranks = torch.zeros((geom.G, geom.K), dtype=torch.int32, device=cuda_device)
     seed = torch.tensor([1], dtype=torch.int64, device=cuda_device)
     mp = torch.tensor([0.01, 0.0], device=cuda_device)
-    with pytest.raises(ValueError, match="ablate"):
-        kernels.deme_breed_cuda(g, ranks, geom, 0, seed=seed, mparams=mp, pipelined=True,
-                                ablate=("no_mut",))
+    with pytest.raises(ValueError, match="no copy"):
+        kernels.deme_breed_cuda(g, ranks.float(), geom, 0, mparams=mp, pipelined=True,
+                                ablate=("copy_only", "no_mut"))
     with pytest.raises(ValueError, match="aligned"):
         flat = torch.rand(geom.Pp * 100 + 1, device=cuda_device)
         kernels.deme_breed_cuda(flat[1:].view(geom.Pp, 100), ranks, geom, 0, seed=seed,
@@ -1894,6 +1890,195 @@ def test_engine_on_card_runs_subblock_through_the_pipelined_kernel(cuda_device, 
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0),
                                 "islands_deme_pipelined" + bf: 20}
+
+
+# ------------------- the floor harness at B > 1 and its combinations (B10)
+
+# (flags, P, L, gene dtype, B, mutate): deme_pipelined_kernel's stage cases
+# (the harness unit) and a combination (a unit of its own), at JAX's
+# sub-block geometries; 8,000 rows pad, L = 300 crosses 128-gene tiles.
+PIPE_ABLATE_VARIANTS = [
+    (("sel_const",), 65_536, 100, torch.float32, 2, "point"),
+    (("no_matmul",), 65_536, 100, torch.float32, 4, "point"),
+    (("no_cross",), 65_536, 300, torch.float32, 2, "gaussian"),
+    (("no_mut",), 65_536, 33, torch.bfloat16, 2, "swap"),
+    (("sel_const", "no_matmul", "no_cross", "no_mut"), 65_536, 100, torch.bfloat16, 2, "point"),
+    (("sel_const", "no_matmul", "no_cross", "no_mut"), 8_000, 100, torch.float32, 2, "point"),
+    (("sel_const", "no_cross"), 65_536, 100, torch.float32, 2, "point"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", PIPE_ABLATE_VARIANTS,
+                         ids=lambda v: f"{'+'.join(v[0])}-{v[1]}x{v[2]}-{str(v[3])[6:]}-B{v[4]}")
+def test_pipelined_ablated_breed_equals_plain_on_card(cuda_device, variant):
+    """``make_fused_breed(ablate=..., subblock=B)`` launches
+    deme_pipelined_kernel's case of the flags, which equals its plain
+    version in Philox and injected draws, both parities, and counts as
+    "ablate_pipelined" (and under its mask)."""
+    ablate, P, L, dtype, B, mutate = variant
+    breed = fs.make_fused_breed(P, L, onemax, ablate=ablate, subblock=B, device=cuda_device,
+                                gene_dtype=dtype, mutate=mutate, mparams=(0.3, 0.05),
+                                tournament_size=3)
+    geom, kw = breed.geom, breed.kw
+    assert geom.layout == "pingpong" and geom.B == B
+    gen = torch.Generator(device=cuda_device).manual_seed(P + L + B)
+    g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device).to(dtype)
+    s = g.float().sum(dim=1)
+    s[P:] = -torch.inf
+    key = "ablate_pipelined" + ("_bf16" if dtype == torch.bfloat16 else "")
+    mask = kernels.ablate_mask(ablate)
+    for parity in range(2):
+        ranks = fs.compute_ranks(s, geom, parity, fs.draw_tie_words(gen, geom.Pp, cuda_device))
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=cuda_device)
+        draws = fs.philox_draws(seed, geom.G, geom.K, L, mutate)
+        want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
+        before = dict(kernels.LAUNCHES)
+        masked = kernels.MASK_LAUNCHES.get((key, mask), 0)
+        for got in (fs.deme_breed(g, ranks, geom, parity, seed=seed, **kw),
+                    fs.deme_breed(g, ranks, geom, parity, draws=draws, **kw)):
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got[0], want[0], rtol=0,
+                                       atol=1e-6 if mutate == "gaussian" else 0.0)
+            torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-3)
+        launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+        assert launched == {key: 2}
+        assert kernels.MASK_LAUNCHES[(key, mask)] == masked + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_pipelined_no_mut_is_the_production_child_at_rate_zero_on_card(cuda_device, dtype):
+    """The pipelined no_mut case at rate 0.3 breeds the production
+    pipelined kernel's children at rate 0, bit for bit, scores included:
+    the other stages keep their Philox counters; and ABLATE = 0 is the
+    production launch, counted as such."""
+    P, L = 65_536, 100
+    prod = fs.make_fused_breed(P, L, onemax, subblock=2, device=cuda_device, gene_dtype=dtype,
+                               mparams=(0.0, 0.0), ablate=())
+    ablated = fs.make_fused_breed(P, L, onemax, subblock=2, device=cuda_device, gene_dtype=dtype,
+                                  mparams=(0.3, 0.0), ablate=("no_mut",))
+    geom = prod.geom
+    assert geom.B == 2 and "ablate" not in prod.kw
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device).to(dtype)
+    s = g.float().sum(dim=1)
+    ranks = fs.compute_ranks(s, geom, 1, fs.draw_tie_words(gen, geom.Pp, cuda_device))
+    seed = torch.randint(0, 2**62, (1,), generator=gen, device=cuda_device)
+    before = dict(kernels.LAUNCHES)
+    a = fs.deme_breed(g, ranks, geom, 1, seed=seed, **prod.kw)
+    b = fs.deme_breed(g, ranks, geom, 1, seed=seed, **ablated.kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    bf = "_bf16" if dtype == torch.bfloat16 else ""
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    assert launched == {"deme_pipelined" + bf: 1, "ablate_pipelined" + bf: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ablate", [("no_mut",), ("sel_const", "no_matmul", "no_cross", "no_mut"),
+                                    ("no_cross", "no_mut")], ids="+".join)
+def test_expression_hook_ablated_at_subblock_equals_plain_on_card(cuda_device, ablate):
+    """With the creep hook at B = 2 the factory launches expr_breed_kernel's
+    case of the flags on the B-aware maps (its harness unit, or a unit of
+    its own for a combination), equal to its plain version, both
+    parities, Philox and injected draws."""
+    objective, cross, mut = _hook_case("creep", 100)
+    P, L = 65_536, 100
+    breed = fs.make_fused_breed(P, L, objective, crossover=cross, mutate=mut, subblock=2,
+                                ablate=ablate, device=cuda_device, mparams=(0.3, 0.1))
+    geom, kw = breed.geom, breed.kw
+    assert geom.B == 2
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device)
+    s = g.sum(dim=1)
+    for parity in range(2):
+        ranks = fs.compute_ranks(s, geom, parity, fs.draw_tie_words(gen, geom.Pp, cuda_device))
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=cuda_device)
+        draws = fs.philox_draws(seed, geom.G, geom.K, L, mut)
+        want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
+        before = kernels.LAUNCHES["ablate_expr"]
+        for got in (fs.deme_breed(g, ranks, geom, parity, seed=seed, **kw),
+                    fs.deme_breed(g, ranks, geom, parity, draws=draws, **kw)):
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0])
+            torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-3)
+        assert kernels.LAUNCHES["ablate_expr"] == before + 2
+
+
+# (kernel, flags, hooks, P, L, steps, elitism): combinations outside the
+# production unit's masks, each launched from a unit of its own.
+COMBO_VARIANTS = [
+    ("deme", ("sel_const", "no_cross"), "point", 8192, 100, 1, 0),
+    ("deme", ("no_cross", "no_mut"), "point", 1000, 100, 1, 0),
+    ("order", ("no_matmul", "no_mut"), "tsp", 4096, 100, 1, 0),
+    ("multigen", ("no_freeze", "no_rank_cube"), "point", 8192, 100, 3, 2),
+    ("multigen", ("sel_const", "no_mut"), "point", 8192, 100, 3, 2),
+    ("multigen_order", ("no_freeze", "no_cross"), "order_onemax", 4096, 100, 3, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", COMBO_VARIANTS, ids=lambda v: f"{v[0]}-{'+'.join(v[1])}")
+def test_combo_ablated_kernels_equal_plain_on_card(cuda_device, variant):
+    """A combination of flags outside the production unit's masks builds a
+    deme_breed.cu unit of its own (DEME_ABLATE_EXTRA) and equals its plain
+    version, Philox and injected draws; copy_only with a stage flag
+    launches the copy."""
+    kernel, ablate, hooks, P, L, steps, e = variant
+    objective, cross, mut = (onemax, "uniform", "point") if hooks == "point" else \
+        _hook_case(hooks, L)
+    mask = kernels.ablate_mask(ablate, multigen=True)
+    unit = "multigen" if kernel.startswith("multigen") else kernel
+    assert kernels.deme_macro(unit, mask) == f"#define DEME_ABLATE_EXTRA {mask}u\n"
+    gen = torch.Generator(device=cuda_device).manual_seed(P + mask)
+    key = "ablate_" + {"deme": "breed", "order": "order"}.get(kernel, kernel)
+    if steps > 1:
+        launch = fs.make_fused_multigen(P, L, objective, crossover=cross, mutate=mut, elitism=e,
+                                        ablate=ablate, device=cuda_device, mparams=(0.3, 0.0))
+        geom, kw = launch.geom, launch.kw
+        g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device)
+        s = torch.full((geom.Pp,), -torch.inf, device=cuda_device)
+        s[:P] = g[:P].sum(dim=1)
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=cuda_device)
+        target = float(s[:P].min()) if "no_freeze" in ablate else None
+        before = kernels.MASK_LAUNCHES.get((key, mask), 0)
+        got = fs.multigen_breed(g, s, geom, 0, steps, target, seed=seed, **kw)
+        want = fs.multigen_breed_reference(g, s, geom, 0, steps,
+                                           math.inf if target is None else target, seed=seed, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert kernels.MASK_LAUNCHES[(key, mask)] == before + 1
+        return
+    breed = fs.make_fused_breed(P, L, objective, crossover=cross, mutate=mut, ablate=ablate,
+                                device=cuda_device, mparams=(0.3, 0.0))
+    geom, kw = breed.geom, breed.kw
+    g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device)
+    s = torch.full((geom.Pp,), -torch.inf, device=cuda_device)
+    s[:P] = g[:P].sum(dim=1)
+    for parity in range(geom.parities):
+        ranks = fs.compute_ranks(s, geom, parity, fs.draw_tie_words(gen, geom.Pp, cuda_device))
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=cuda_device)
+        draws = fs.philox_draws(seed, geom.G, geom.K, L, mut, cross)
+        want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
+        before = kernels.MASK_LAUNCHES.get((key, mask), 0)
+        for got in (fs.deme_breed(g, ranks, geom, parity, seed=seed, **kw),
+                    fs.deme_breed(g, ranks, geom, parity, draws=draws, **kw)):
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0])
+            fin = torch.isfinite(want[1])
+            torch.testing.assert_close(got[1][fin], want[1][fin], rtol=1e-5, atol=1e-3)
+        assert kernels.MASK_LAUNCHES[(key, mask)] == before + 2
+    copy = fs.make_fused_breed(P, L, objective, crossover=cross, mutate=mut, device=cuda_device,
+                               ablate=("copy_only", "no_rank_sort") + ablate)
+    g = torch.rand((copy.geom.Pp, L), generator=gen, device=cuda_device)
+    before = dict(kernels.LAUNCHES)
+    out, _ = copy(g, g.sum(dim=1), 0, gen)
+    torch.cuda.synchronize()
+    read, write = copy.geom.row_maps(0, cuda_device)
+    assert torch.equal(out[write.reshape(-1)], g[read.reshape(-1)])
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    assert launched == {"ablate_copy": 1}
 
 
 # (P, L, S, gene dtype): sharded runs on the kernel route (B9).
