@@ -4,6 +4,7 @@
 
     python3 ab_run.py PARENT_DIR [CHANGE_DIR] [--generations-per-launch T] [--subblock B]
                       [--tsp | --creep]
+    python3 ab_run.py PARENT_DIR [CHANGE_DIR] --sass
 
 CHANGE_DIR defaults to the checkout holding this script. Prints one JSON
 line per turn: wall milliseconds per generation of three 200-generation
@@ -25,11 +26,18 @@ Each turn also prints ``digest``, a hash of every shape's final genomes
 and scores: from the same seed the runs of two checkouts whose kernels
 compute the same function end on the same digest, and the last line
 says whether all four turns did.
+
+With ``--sass`` it runs no turn: it builds each checkout's production
+``csrc/deme_breed.cu`` unit and compares ``cuobjdump -sass`` of the two,
+kernel by kernel (names with the unit's hash digits masked), and prints
+which kernels' code is the same, which differs and which one checkout
+alone has.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -91,8 +99,48 @@ print(json.dumps({"ms_per_gen": out, "kernel_ms": kernel_ms, "digest": digest.he
 """ % (TSP_SHAPES, SHAPES)
 
 
+BUILD_UNIT = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+from libpga_tpu_torch.ops import kernels
+print(kernels.build("deme_breed"))
+"""
+
+
+def sass_by_kernel(root: Path) -> dict:
+    """{kernel name: its SASS} of ``root``'s production deme_breed.cu unit."""
+    lib = subprocess.run([sys.executable, "-c", BUILD_UNIT, str(root)], capture_output=True,
+                         text=True, check=True, timeout=900).stdout.strip().splitlines()[-1]
+    text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    mask = re.compile(r"(?<=_)[0-9a-f]{8}(?=_)")  # the unit's hash in internal names
+    out = {}
+    for chunk in text.split("Function : ")[1:]:
+        name, _, body = chunk.partition("\n")
+        out[mask.sub("H", name.strip())] = mask.sub("H", body.split(".........")[0])
+    return out
+
+
 def main() -> int:
     args = sys.argv[1:]
+    if "--sass" in args:
+        dirs = [a for a in args if a != "--sass"]
+        parent = sass_by_kernel(Path(dirs[0]).resolve())
+        change = sass_by_kernel(Path(dirs[1]).resolve() if len(dirs) > 1
+                                else Path(__file__).resolve().parent)
+        both = sorted(parent.keys() & change.keys())
+        differ = {}
+        for k in both:
+            a, b = parent[k].splitlines(), change[k].splitlines()
+            pairs = [(x, y) for x, y in zip(a, b) if x != y]
+            if pairs or len(a) != len(b):
+                differ[k] = {"lines": [len(a), len(b)], "differing": len(pairs),
+                             "first": pairs[:4]}
+        print(json.dumps({"sass": {
+            "same": [k for k in both if k not in differ], "differ": differ,
+            "parent_only": sorted(parent.keys() - change.keys()),
+            "change_only": sorted(change.keys() - parent.keys())}}), flush=True)
+        return 0
     knobs = {"--generations-per-launch": 1, "--subblock": 1}
     workload = "tsp" if "--tsp" in args else "creep" if "--creep" in args else "onemax"
     args = [a for a in args if a not in ("--tsp", "--creep")]

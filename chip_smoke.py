@@ -255,14 +255,19 @@ Phases, each printing one line; any failure exits non-zero:
      launched;
  29. subblock_compare: the sub-block pipeline (B8): deme_pipelined_kernel
      (csrc/deme_breed.cu) at subblock=2 and 4 (1,048,576x100 float32), 2
-     (bf16) and 8 x 131,072x100 islands at 2, against its plain version and
+     (bf16), 8 x 131,072x100 islands at 2 and 1,048,576x128 at 2: clusters
+     of 1 (bf16), 2 and 4 blocks a deme; against its plain version and
      against deme_breed_kernel at the same B-aware geometry, injected and
-     Philox draws, both parities: genomes bit for bit, scores within
-     SCORE_ATOL; timed beside deme_breed_kernel at the same geometry, B1
-     (subblock None) and the bound; a sweep of genome lengths that stage
-     1 to 8 gene slabs a deme (the pipelined kernel beside
-     deme_breed_kernel at 1,048,576 rows); and the creep expression at
-     B = 2 through expr_breed_kernel on the B-aware row maps;
+     Philox draws, both parities: genomes bit for bit, scores equal to the
+     children's warp-order sums; timed beside deme_breed_kernel at the
+     same geometry, B1 (subblock None), its floor (every stage off,
+     unscored) and one torch.index_select of the floor's rows, with C,
+     the bytes a block stages and the bound; a sweep of genome lengths
+     that take clusters of 1, 2, 4 and 8 blocks (beside
+     deme_breed_kernel); 131,072x1,024 at 2, which no cluster holds and
+     which must breed through deme_breed_kernel, bit for bit; and the
+     creep expression at B = 2 through expr_breed_kernel on the B-aware
+     row maps;
  30. subblock_run: PGA.run of OneMax 1,048,576x100 at subblock=2 (200
      generations float32, 100 bf16) and pga_run_islands at 8 x
      131,072x100 (200 generations): launches of the pipelined kernel equal
@@ -291,9 +296,10 @@ Phases, each printing one line; any failure exits non-zero:
      scored and unscored) at subblock_compare's 1,048,576x100 geometries
      (float32 B = 2 and 4, bf16 B = 2) against the plain version at the
      same geometry, injected and Philox draws, both parities: genomes bit
-     for bit, scores within SCORE_ATOL. Timed beside the production launch
-     of the same call, the bound and the plain version; the unscored
-     floor, a row permutation, also beside one torch.index_select;
+     for bit, scores equal to the warp-order sums. Timed beside the
+     production launch of the same call, the bound and the plain version,
+     with C and the bytes a block stages; the unscored floor, a row
+     permutation, also beside one torch.index_select;
  34. ablate_combo_compare, hook_floor_compare's checks over
      B10_HOOK_ROWS: the creep hook's no_mut and floor through
      expr_breed_kernel at B = 2 (both parities), and flag combinations
@@ -308,8 +314,8 @@ Phases, each printing one line; any failure exits non-zero:
      launch counts set to 0 just before and read just after: every case of
      those kernels must have launched.
 The earlier OneMax, GP and TSP runs keep their depths; the whole script
-takes about six minutes on the card (its build 60-70 s, the B10
-units 10-13 s more).
+takes about six minutes on the card (its build 50-75 s, the B10
+units 10-30 s more).
 Then one JSON line of per-kernel numbers, the card's name and power
 limit, and last the result line. With --log FILE every line printed
 also goes to that file (a tool that shows only the end of a long output
@@ -541,13 +547,18 @@ SUBBLOCK_CASES = [
     ("f32-B4", 1 << 20, 100, "float32", 4, None),
     ("bf16-B2", 1 << 20, 100, "bfloat16", 2, None),
     ("islands-B2", 131_072, 100, "float32", 2, 8),
+    ("f32-L128-B2", 1 << 20, 128, "float32", 2, None),  # a cluster of four blocks
 ]
 SUBBLOCK_ENTRIES = {"f32-B2": "deme_pipelined[f32]", "bf16-B2": "deme_pipelined[bf16]",
                     "islands-B2": "deme_pipelined[islands]"}
 SUBBLOCK_REPLACES = "libpga_tpu/ops/pallas_step.py:1287"  # _pp_breed_kernel, B > 1
 SUBBLOCK_RUN_GENS = 200
-# Genes -> gene slabs a K = 512 float32 deme stages in (deme_breed.cu's slab_plan).
-SUBBLOCK_SLAB_SWEEP = {32: 1, 64: 2, 100: 3, 128: 4, 256: 8}
+# Genes -> the blocks a cluster of the pipelined kernel shares a K = 512
+# float32 deme among (csrc/pipe_plan.cuh).
+SUBBLOCK_CLUSTER_SWEEP = {32: 1, 64: 2, 100: 2, 128: 4, 256: 8}
+SUBBLOCK_NO_CLUSTER = (131_072, 1024)  # B = 2: K = 256 rows of 4 KB, 1 MB a deme
+# What the sub-block phases print of subblock_compare's line beside their own.
+SUBBLOCK_PLAN_KEYS = ("C", "staged_bytes_per_block", "ms", "floor_ms", "library_ms")
 # Population sharding (B9): OneMax at the kernel route's exact fit (L a
 # multiple of 128, no pad rows a shard). (case, shards, gene dtype,
 # mutation: None = point, or the creep expression), each also a run.
@@ -598,7 +609,7 @@ HOOK_FLOOR_ENTRIES = {
 # The floor harness at B > 1 (B10): subblock_compare's single-population
 # geometries (case, rows, genes, gene dtype, B); each stage flag alone and
 # the floor, scored and unscored.
-SUBBLOCK_FLOOR_CASES = [c[:5] for c in SUBBLOCK_CASES if c[5] is None]
+SUBBLOCK_FLOOR_CASES = [c[:5] for c in SUBBLOCK_CASES if c[5] is None and c[2] == 100]
 SUBBLOCK_FLOOR_FLAGS = [(flag, (flag,)) for flag in FLOOR_STAGES] + [("floor", FLOOR_STAGES)]
 SUBBLOCK_FLOOR_REPLACES = ("libpga_tpu/ops/pallas_step.py:1359",  # B > 1 hands ablate on
                            "libpga_tpu/ops/pallas_step.py:1331")  # no_cross: no mask words
@@ -3796,13 +3807,62 @@ def phase_hook_floor_partition(kernels, results):
     results["partition"] = medians
 
 
+def warp_order_scores(fs, genomes, P, obj_id):
+    """The breed kernels' scores of ``genomes`` as stored: each child's
+    terms summed in a warp's lane order (pad rows, at and past ``P``,
+    -inf)."""
+    s = fs.rowwise_scores(obj_id, genomes.float(), warp_order=True)
+    s[..., P:] = -math.inf
+    return s
+
+
+def pipe_info(kernels, geom, dtype) -> dict:
+    """The pipelined kernel's plan at ``geom``: blocks a cluster, the
+    bytes a block stages a deme (its parent rows and the deme's ranks),
+    its shared memory."""
+    plan = kernels.pipelined_plan(geom.K, geom.L, 2 if "bfloat16" in str(dtype) else 4, geom.q)
+    return {"C": plan.C, "staged_bytes_per_block": plan.staged, "smem_bytes": plan.smem}
+
+
+def floor_and_library_ms(fs, onemax, g, geom, dtype, device, reps=20) -> tuple:
+    """(ms of the pipelined kernel's floor, every stage off and unscored;
+    ms of one torch.index_select of the same row permutation, checked
+    equal to the floor's children) at parity 0."""
+    import torch
+
+    floor = fs.make_fused_breed(geom.P, geom.L, None, device=device, gene_dtype=dtype,
+                                subblock=geom.B, layout="pingpong", mparams=(0.05, 0.0),
+                                ablate=FLOOR_STAGES)
+    check((floor.geom.B, floor.geom.D) == (geom.B, geom.D), f"subblock floor geometry {floor.geom}")
+    geom = floor.geom
+    gen = torch.Generator(device=device).manual_seed(geom.L)
+    ranks = fs.compute_ranks(g.float().sum(dim=1), geom, 0, fs.draw_tie_words(gen, geom.Pp, device))
+    seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+    out = torch.empty_like(g)
+    read, write = geom.row_maps(0, device)
+    rows = torch.empty(geom.Pp, dtype=torch.long, device=device)
+    rows[write.reshape(-1)] = read.reshape(-1)
+    got = fs.deme_breed(g, ranks, geom, 0, seed=seed, **floor.kw)
+    check(torch.equal(torch.index_select(g, 0, rows, out=out), got[0]),
+          f"subblock floor {geom.P}x{geom.L}: index_select differs from the floor")
+    floor_ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seed, out=out, **floor.kw),
+                       reps)
+    library_ms = cuda_ms(lambda: torch.index_select(g, 0, rows, out=out), reps)
+    return floor_ms, library_ms
+
+
 def phase_subblock_compare(port, fs, onemax, kernels, device, results):
     """The pipelined deme breed (B8) against its plain version at full
     width, injected and Philox draws, both parities: genomes bit for bit
-    (and equal to deme_breed_kernel's at the same geometry), scores within
-    SCORE_ATOL, pad scores -inf. Times it beside deme_breed_kernel at the
-    same B-aware geometry, B1 (the same rows at subblock None) and the plain
-    version, with the bound. Then the creep expression at B = 2 through
+    (and equal to deme_breed_kernel's at the same geometry), scores equal
+    to the children's warp-order sums bit for bit, pad scores -inf; every
+    cluster size the cells reach (C = 1 bf16, 2 float32 and the islands, 4
+    at L = 128). Times it beside deme_breed_kernel at the same B-aware
+    geometry, B1 (the same rows at subblock None), its floor (every stage
+    off, unscored), one torch.index_select of the floor's row permutation
+    and the plain version, with the bound. A sweep of genome lengths that
+    take each cluster size; a shape no cluster holds, which must breed
+    through deme_breed_kernel; the creep expression at B = 2 through
     expr_breed_kernel on the B-aware maps."""
     import torch
 
@@ -3811,6 +3871,7 @@ def phase_subblock_compare(port, fs, onemax, kernels, device, results):
         geom = fs.resolve_geometry(P, L, gene_dtype=dtype, subblock=B)
         b1 = fs.resolve_geometry(P, L, gene_dtype=dtype)
         check(geom.layout == "pingpong" and geom.B == B, f"subblock {name}: geometry {geom}")
+        check(kernels.pipelined_holds(geom, dtype), f"subblock {name}: no cluster holds a deme")
         n = islands or 1
         lead = () if islands is None else (islands,)
         gen = torch.Generator(device=device).manual_seed(P + B)
@@ -3819,7 +3880,7 @@ def phase_subblock_compare(port, fs, onemax, kernels, device, results):
         kw = dict(mparams=torch.tensor([0.05, 0.0], device=device), obj_id=onemax.fused_id)
         key = ("deme_pipelined" if islands is None else "islands_deme_pipelined") + (
             "_bf16" if dtype == torch.bfloat16 else "")
-        errs = []
+        errs, sum_errs = [], []
         for parity in (0, 1):
             tie = fs.draw_tie_words(gen, n * geom.Pp, device).view(lead + (geom.Pp,))
             ranks = fs.compute_ranks(s, geom, parity, tie)
@@ -3848,11 +3909,15 @@ def phase_subblock_compare(port, fs, onemax, kernels, device, results):
                 check(torch.equal(got[0], want[0]), f"{tag}: genomes differ from the plain version")
                 check(torch.equal(got[0], same_geom[0]), f"{tag}: genomes differ from"
                       " deme_breed_kernel at the same geometry")
+                wo = warp_order_scores(fs, want[0], P, onemax.fused_id)
+                check(torch.equal(got[1], wo),
+                      f"{tag}: scores differ from the plain version's warp-order sums")
+                check(torch.equal(got[1], same_geom[1]), f"{tag}: scores differ from"
+                      " deme_breed_kernel's")
                 real = torch.arange(geom.Pp, device=device) < P
-                check(bool(torch.isinf(got[1][..., ~real]).all()), f"{tag}: pad scores not -inf")
-                err = float((got[1][..., real] - want[1][..., real]).abs().max())
-                check(err <= SCORE_ATOL, f"{tag}: score error {err}")
-                errs.append(err)
+                errs.append(max(float((got[0].float() - want[0].float()).abs().max()),
+                                float((got[1][..., real] - wo[..., real]).abs().max())))
+                sum_errs.append(float((got[1][..., real] - want[1][..., real]).abs().max()))
         out = torch.empty_like(g)
         tie = fs.draw_tie_words(gen, n * geom.Pp, device).view(lead + (geom.Pp,))
         ranks, ranks1 = fs.compute_ranks(s, geom, 0, tie), fs.compute_ranks(s, b1, 0, tie)
@@ -3862,42 +3927,94 @@ def phase_subblock_compare(port, fs, onemax, kernels, device, results):
                                                           islands=islands, out=out, **kw), 50)
         b1_ms = cuda_ms(lambda: fs.deme_breed(g, ranks1, b1, 0, seed=seed, islands=islands,
                                               out=out, **kw), 50)
+        ms_again = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seed, islands=islands,
+                                                 out=out, **kw), 50)
         plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
             g, ranks, geom, 0, draw(seed, geom.G, geom.K, L), **kw), 3)
+        floor_ms = library_ms = None
+        if islands is None:
+            floor_ms, library_ms = floor_and_library_ms(fs, onemax, g, geom, dtype, device)
         bound_ms, bound_by, _ = breed_bound(geom, gene_bytes=2 if dtype == torch.bfloat16 else 4)
         bound_ms *= n
         line = {"phase": "subblock_compare", "case": name, "shape": [P, L], "islands": islands,
                 "gene_dtype": dtype_name, "K": geom.K, "D": geom.D, "B": geom.B, "S": geom.S,
-                "b1_D": b1.D, "genomes_equal": True, "max_abs_err": max(errs),
-                "score_atol": SCORE_ATOL, "ms": ms, "deme_breed_same_geometry_ms": same_ms,
-                "b1_ms": b1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+                **pipe_info(kernels, geom, dtype), "b1_D": b1.D, "genomes_equal": True,
+                "scores_equal": True, "max_abs_err": max(errs),
+                "score_err_to_torch_sum": max(sum_errs), "ms": ms, "ms_again": ms_again,
+                "floor_ms": floor_ms, "library_ms": library_ms,
+                "library_call": "torch.index_select of the floor's row permutation",
+                "deme_breed_same_geometry_ms": same_ms, "b1_ms": b1_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
         print(json.dumps(line), flush=True)
         results[name] = line
         del g, s, out
         torch.cuda.empty_cache()
 
-    # What a gene slab costs: the pipelined kernel beside deme_breed_kernel at
-    # the same geometry, 1,048,576 rows float32 at B = 2, over genome lengths
-    # that stage 1, 2, 3, 4 and 8 slabs a deme.
+    # Each cluster size: the pipelined kernel beside deme_breed_kernel at the
+    # same geometry, 1,048,576 rows float32 at B = 2, over genome lengths
+    # that take clusters of 1, 2, 4 and 8 blocks.
     sweep = []
-    for L, slabs in SUBBLOCK_SLAB_SWEEP.items():
+    for L, C in SUBBLOCK_CLUSTER_SWEEP.items():
         geom = fs.resolve_geometry(1 << 20, L, subblock=2)
+        info = pipe_info(kernels, geom, torch.float32)
+        check(info["C"] == C, f"cluster sweep L={L}: C {info['C']}, expected {C}")
         gen = torch.Generator(device=device).manual_seed(L)
         g = torch.rand((geom.Pp, L), generator=gen, device=device)
         ranks = fs.compute_ranks(g.sum(dim=1), geom, 0, fs.draw_tie_words(gen, geom.Pp, device))
         seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
         kw = dict(mparams=torch.tensor([0.05, 0.0], device=device), obj_id=onemax.fused_id)
         out = torch.empty_like(g)
-        sweep.append({"L": L, "slabs": slabs,
+        got = kernels.deme_breed_cuda(g, ranks, geom, 0, seed=seed, pipelined=True, **kw)
+        want = kernels.deme_breed_cuda(g, ranks, geom, 0, seed=seed, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"cluster sweep L={L}: the pipelined kernel differs from deme_breed_kernel")
+        del got, want
+        sweep.append({"L": L, "K": geom.K, **info,
                       "ms": cuda_ms(lambda: kernels.deme_breed_cuda(
                           g, ranks, geom, 0, seed=seed, out=out, pipelined=True, **kw), 20),
                       "deme_breed_same_geometry_ms": cuda_ms(lambda: kernels.deme_breed_cuda(
                           g, ranks, geom, 0, seed=seed, out=out, **kw), 20),
                       "bound_ms": breed_bound(geom)[0]})
         del g, out
-    print(json.dumps({"phase": "subblock_compare", "case": "slab sweep f32 B=2",
+    print(json.dumps({"phase": "subblock_compare", "case": "cluster sweep f32 B=2",
                       "rows": 1 << 20, "points": sweep}), flush=True)
-    results["slab_sweep"] = sweep
+    results["cluster_sweep"] = sweep
+    torch.cuda.empty_cache()
+
+    # A deme no cluster holds: deme_breed_kernel breeds it, counted as such.
+    P, L = SUBBLOCK_NO_CLUSTER
+    geom = fs.resolve_geometry(P, L, subblock=2)
+    check(geom.B == 2 and not kernels.pipelined_holds(geom, torch.float32),
+          f"subblock no-cluster: {geom} is held")
+    gen = torch.Generator(device=device).manual_seed(L)
+    g = torch.rand((geom.Pp, L), generator=gen, device=device)
+    kw = dict(mparams=torch.tensor([0.05, 0.0], device=device), obj_id=onemax.fused_id)
+    for parity in (0, 1):
+        ranks = fs.compute_ranks(g.sum(dim=1), geom, parity,
+                                 fs.draw_tie_words(gen, geom.Pp, device))
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+        before = dict(kernels.LAUNCHES)
+        got = fs.deme_breed(g, ranks, geom, parity, seed=seed, **kw)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+        check(launched == {"pingpong": 1}, f"subblock no-cluster: launches {launched}")
+        want = fs.deme_breed_reference(g, ranks, geom, parity,
+                                       fs.philox_draws(seed, geom.G, geom.K, L), **kw)
+        check(torch.equal(got[0], want[0]), f"subblock no-cluster parity {parity}: genomes")
+        check(torch.equal(got[1], warp_order_scores(fs, want[0], P, onemax.fused_id)),
+              f"subblock no-cluster parity {parity}: scores")
+        del got, want
+    out = torch.empty_like(g)
+    line = {"phase": "subblock_compare", "case": "no cluster holds a deme", "shape": [P, L],
+            "K": geom.K, "D": geom.D, "B": geom.B,
+            "deme_bytes": geom.K * L * 4, "launched": "deme_breed_kernel (pingpong)",
+            "genomes_equal": True, "scores_equal": True,
+            "ms": cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 1, seed=seed, out=out, **kw), 20),
+            "bound_ms": breed_bound(geom)[0]}
+    print(json.dumps(line), flush=True)
+    results["no_cluster"] = line
+    del g, out
     torch.cuda.empty_cache()
 
     # The creep expression at B = 2: expr_breed_kernel on the B-aware maps.
@@ -3983,6 +4100,7 @@ def phase_subblock_run(port, kernels, results, single, islands_single):
                                  atol=SCORE_ATOL).all()), f"subblock run {name}: scores")
         ref = single["pingpong"]["gens_per_s"] if dtype_name == "float32" else None
         line = {"phase": "subblock_run", "case": name, "shape": [P, L], "subblock": 2,
+                **{k: results[name][k] for k in SUBBLOCK_PLAN_KEYS},
                 "gens": gens, "launches": launches, "gens_per_s": gens / seconds,
                 "ms_per_gen": 1e3 * seconds / gens, "subblock_none_gens_per_s": ref,
                 "start_best": start_best, "best": best,
@@ -4016,6 +4134,7 @@ def phase_subblock_run(port, kernels, results, single, islands_single):
               "subblock islands: scores are not the genomes' onemax")
     ms_per_gen = 1e3 * seconds / gens
     line = {"phase": "subblock_run", "case": "islands-B2", "islands": I, "island_shape": [S, L],
+            **{k: results["islands-B2"][k] for k in SUBBLOCK_PLAN_KEYS},
             "m": ISLAND_M, "pct": ISLAND_PCT, "gens": gens, "launches": launches,
             "gens_per_s": gens / seconds, "ms_per_gen": ms_per_gen,
             "subblock_none_gens_per_s": islands_single, "start_best": start_best, "best": best,
@@ -4029,15 +4148,15 @@ def phase_subblock_run(port, kernels, results, single, islands_single):
     torch.cuda.empty_cache()
 
 
-def phase_subblock_floor_compare(fs, onemax, device, results):
+def phase_subblock_floor_compare(fs, onemax, kernels, device, results):
     """The floor harness at B > 1 (B10): every stage case of
     deme_pipelined_kernel (each flag alone and the floor, scored and
     unscored) at subblock_compare's geometries against the plain version
     at the same geometry, injected and Philox draws, both parities:
-    genomes bit for bit, scores within SCORE_ATOL. Timed by CUDA events
-    beside the production launch of the same call, the bound and the plain
-    version; the unscored floor, a row permutation, also beside one
-    torch.index_select of the same rows."""
+    genomes bit for bit, scores equal to the children's warp-order sums.
+    Timed by CUDA events beside the production launch of the same call,
+    the bound and the plain version; the unscored floor, a row
+    permutation, also beside one torch.index_select of the same rows."""
     import torch
 
     mparams = (0.05, 0.0)
@@ -4084,10 +4203,10 @@ def phase_subblock_floor_compare(fs, onemax, device, results):
                               f"{tag} parity {parity} {mode}: genomes differ")
                         errs.append(float((got[0].float() - want[0].float()).abs().max()))
                         if scored:
-                            err = float((got[1] - want[1]).abs().max())
-                            check(err <= SCORE_ATOL, f"{tag} parity {parity} {mode}: score"
-                                  f" error {err}")
-                            errs.append(err)
+                            wo = warp_order_scores(fs, want[0], P, onemax.fused_id)
+                            check(torch.equal(got[1], wo), f"{tag} parity {parity} {mode}:"
+                                  " scores differ from the warp-order sums")
+                            errs.append(float((got[1] - wo).abs().nan_to_num().max()))
                         else:
                             check(got[1] is None, f"{tag}: scored an unscored breed")
                         del got, want
@@ -4112,7 +4231,8 @@ def phase_subblock_floor_compare(fs, onemax, device, results):
                     del got, lib, rows
                 line = {"phase": "subblock_floor_compare", "case": name, "flags": flag_name,
                         "scored": scored, "shape": [P, L], "gene_dtype": dtype_name,
-                        "K": cg.K, "D": cg.D, "B": cg.B, "genomes_equal": True,
+                        "K": cg.K, "D": cg.D, "B": cg.B, **pipe_info(kernels, cg, dtype),
+                        "genomes_equal": True,
                         "max_abs_err": max(errs), "kernel_ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                         "production_ms": prod_ms, "production_bound_ms": prod_bound[0]}
@@ -4122,7 +4242,8 @@ def phase_subblock_floor_compare(fs, onemax, device, results):
                                          "library_ms", "max_abs_err")}
                 del breed
         results[name] = {"cases": cases, "production_ms": prod_ms, "K": geom.K, "D": geom.D,
-                         "B": B, "shape": [P, L], "gene_dtype": dtype_name}
+                         "B": B, "shape": [P, L], "gene_dtype": dtype_name,
+                         **pipe_info(kernels, geom, dtype)}
         del g, s, out, injected, philox
         torch.cuda.empty_cache()
 
@@ -4149,8 +4270,14 @@ def phase_subblock_floor_partition(kernels, results):
                           "seconds": time.perf_counter() - t0}), flush=True)
     launches = dict(kernels.LAUNCHES)
     by_mask = {f"{k}:{m}": v for (k, m), v in sorted(kernels.MASK_LAUNCHES.items())}
+    plans = {c[0]: {"C": results[c[0]]["C"],
+                    "staged_bytes_per_block": results[c[0]]["staged_bytes_per_block"],
+                    "production_ms": results[c[0]]["production_ms"],
+                    "floor_ms": results[c[0]]["cases"]["floor-unscored"]["kernel_ms"],
+                    "library_ms": results[c[0]]["cases"]["floor-unscored"]["library_ms"]}
+             for c in SUBBLOCK_FLOOR_CASES}
     print(json.dumps({"phase": "subblock_floor_launches", "launches": launches,
-                      "by_mask": by_mask}), flush=True)
+                      "by_mask": by_mask, "plans": plans}), flush=True)
     for key in ("ablate_pipelined", "ablate_pipelined_bf16", "deme_pipelined",
                 "deme_pipelined_bf16", "ablate_expr", "expr"):
         check(launches[key] > 0, f"subblock_floor_partition: {key} never launched ({launches})")
@@ -4403,7 +4530,8 @@ def b10_entries(b10_results, lines) -> list:
             "bound_ms": floor["bound_ms"], "bound_by": floor["bound_by"],
             "library_ms": floor["library_ms"],
             "case": f"{case}-floor-unscored", "shape": r["shape"], "K": r["K"], "D": r["D"],
-            "B": r["B"], "production_ms": r["production_ms"],
+            "B": r["B"], "C": r["C"], "staged_bytes_per_block": r["staged_bytes_per_block"],
+            "production_ms": r["production_ms"],
             "launches_by_mask": {str(m): v for (n, m), v in sorted(mask_launches.items())
                                  if n == name},
             "cases": cases,
@@ -4552,7 +4680,7 @@ def drive(torch, port, onemax, fs, kernels) -> int:
     phase_shard_compare(port, fs, kernels, device, shard_results)
     phase_shard_run(port, fs, kernels, device, shard_results)
     b10_results, b10_hook_results = {}, {}
-    phase_subblock_floor_compare(fs, onemax, device, b10_results)
+    phase_subblock_floor_compare(fs, onemax, kernels, device, b10_results)
     phase_hook_floor_compare(fs, kernels, device, b10_hook_results, B10_HOOK_ROWS,
                              "ablate_combo_compare")
     phase_subblock_floor_partition(kernels, b10_results)
@@ -4728,20 +4856,28 @@ def drive(torch, port, onemax, fs, kernels) -> int:
         })
     for case, name in SUBBLOCK_ENTRIES.items():
         # ms, plain_ms and the bound at 1,048,576x100 (islands: 8 x
-        # 131,072x100) at parity 0; launches from its subblock_run.
+        # 131,072x100) at parity 0; launches from its subblock_run. No one
+        # call computes the breed; floor_library_ms is the index_select of
+        # its floor's row permutation.
         r = subblock_results[case]
         entries.append({
             "name": name, "route": "cuda", "source": "libpga_tpu_torch/csrc/deme_breed.cu",
             "replaces": SUBBLOCK_REPLACES, "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "floor_ms": r["floor_ms"], "floor_library_ms": r["library_ms"],
             "shape": r["shape"], "islands": r["islands"], "gene_dtype": r["gene_dtype"],
-            "K": r["K"], "D": r["D"], "B": r["B"],
+            "K": r["K"], "D": r["D"], "B": r["B"], "C": r["C"],
+            "staged_bytes_per_block": r["staged_bytes_per_block"],
             "deme_breed_same_geometry_ms": r["deme_breed_same_geometry_ms"],
             "b1_ms": r["b1_ms"], "gens_per_s": r["run"]["gens_per_s"],
             "subblock_none_gens_per_s": r["run"]["subblock_none_gens_per_s"],
             "device_busy_share": r["run"]["device_busy_share"],
             "b4_ms": subblock_results["f32-B4"]["ms"] if case == "f32-B2" else None,
+            "other_cases": {c: {k: subblock_results[c][k] for k in (
+                "ms", "floor_ms", "library_ms", "bound_ms", "C", "staged_bytes_per_block")}
+                for c in ("f32-B4", "f32-L128-B2") if case == "f32-B2"},
+            "cluster_sweep": subblock_results["cluster_sweep"] if case == "f32-B2" else None,
         })
     for name, _, _, mutate in SHARD_CASES:
         # ms, plain_ms and the bound at 1,048,576x128, parity 0; launches

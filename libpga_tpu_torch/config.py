@@ -60,8 +60,10 @@ class PGAConfig:
         sub-blocks of D demes, which moves children to other rows (the
         write interleave is per sub-block) and may change D, exactly as
         JAX resolves it. Where it resolves to B > 1, the builtin breed
-        launches the pipelined deme kernel. The riffle, order crossover
-        and several generations per launch take B = 1. Below 1 raises.
+        launches the pipelined deme kernel (a deme no cluster of blocks
+        holds: the deme kernel at the same geometry). The riffle, order
+        crossover and several generations per launch take B = 1. Below 1
+        raises.
       gene_dtype: torch.float32 (default) or torch.bfloat16, the dtype
         genomes are stored in. bfloat16 genomes breed in the kernels' bf16
         cases: each child is computed in float32 and rounded once where it

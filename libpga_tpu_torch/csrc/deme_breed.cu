@@ -4,8 +4,8 @@
 // multigen_breed_kernel (up to T generations per launch with the ranks
 // computed inside the kernel; uniform or order crossover) and, at the end of
 // this file, deme_pipelined_kernel (deme_breed_kernel's function on a
-// persistent grid that stages each deme's parents in shared memory, for the
-// sub-block pipeline's geometries).
+// persistent grid of thread-block clusters that stage each deme's parent rows
+// whole in shared memory by TMA, for the sub-block pipeline's geometries).
 //
 // deme_breed_kernel replaces, in libpga_tpu/ops/pallas_step.py:
 //   _pp_breed_kernel (ping-pong row maps, parity 0 and 1),
@@ -161,7 +161,10 @@
 // row maps, selection, Philox and the draws shared with expr_breed.cu are in
 // breed_core.cuh.
 
+#include <cooperative_groups.h>
+
 #include "breed_core.cuh"
+#include "pipe_plan.cuh"
 
 // The unit's floor-harness cases (see "The ABLATE cases each unit builds"
 // at the end): none but production unless ops/kernels.py defines one.
@@ -687,74 +690,67 @@ __global__ void __launch_bounds__(MG_THREADS) multigen_breed_kernel(
 // deme_breed_kernel's function at the B-aware geometry (breed_core.cuh's
 // read_row / write_row with geo.B): fused_step.deme_breed_reference, the
 // children bit for bit, with the same Philox counters (child k, deme g,
-// stream) and the same injected draws. Only the schedule differs.
-//
-// Why a schedule of its own. On the TPU B > 1 shrinks the grid B-fold to cut a
-// per-step dispatch cost; on the H100 no cost of a block shows (the floor
-// harness's fixed-warps sweep, PERF.md), and deme_breed_kernel's time above its
-// copy is the breed's own work, each parent gene fetched from L2 or device
-// memory once per selection. What B8 still means here is the overlap: stage a
-// deme's parents in shared memory ahead of its breed, so that the breed reads
-// no device memory and the loads of the next stage run under the breed of this
-// one.
-//
-// Design. A persistent grid sized to the card: blocks_per_SM x SMs blocks (the
-// occupancy API) shared by the islands, blockIdx.y the island; block j of an
-// island walks the contiguous run of demes [j*G/nb, (j+1)*G/nb) in deme order,
-// which is sub-block order. A deme's K rows of L genes do not fit twice in a
-// block's shared memory at float32 (K = 512, L = 100: 204,800 B a deme, 227 KB
-// a block), so a deme is staged in gene slabs: slab s holds genes [s*SG,
-// s*SG + len) of all K parent rows, and a short last slab that lies in the
-// same 128-gene tile as the one before is merged into it (slab_plan; at
-// L = 100 float32, SG = 32: slabs of 32, 32 and 36 genes). The block works
-// through (deme, slab) items with two slab buffers: while its warps breed item
-// n from one buffer, cp.async brings item n + 1 (the deme's next slab, or slab
-// 0 of the next deme with that deme's K ranks) into the other;
-// cp.async.wait_group 1 and a block barrier open each item, a barrier closes
-// it. A warp breeds PIPE_GROUPS = 4 children of a slab at once, PIPE_LANES = 8
-// lanes each over the slab's genes, the same lanes for a child across its
-// deme's slabs: a parent gene comes from shared memory, the child gene goes to
-// its write row in device memory. Four children a warp share each instruction
-// of the per-child work a slab repeats (its state, its crossover word, the
-// score's group sum), which a warp per child paid four times; at L = 100 that
-// work, not the loads, set the time. What a child carries across slabs sits in shared
-// memory (PipeChild, 52 B): its parent slots and write row, its mutation
-// draws, the crossover words of the current 128-gene tile and its score sums
-// so far.
-// Slab 0 draws them, the calls deme_breed_kernel makes (child_rand's, here
-// by the first three lanes of the child's group), after the block has
-// inverted the staged ranks into row_of_rank and counted the deme's alive
-// rows. A score is the sum over slabs of each slab's group sum,
-// so it may differ from deme_breed_kernel's in the last bits (both stay within
-// the chip check's SCORE_ATOL of the plain version's torch.sum); swap mutation
-// exchanges the two genes in device memory after the last slab and sums the
-// child again, as breed_genes does.
-//
-// Shared memory at K = 512, L = 100 float32: slab rows of 144 B (the merged
-// 36-gene slab) x 512 rows x 2 buffers = 147,456 B, the staged ranks 2 x 2,048,
-// row_of_rank 2,048, PipeChild 512 x 52 = 26,624: 180,224 B, so one block an
-// SM. bf16 (SG = 64, slabs of 64 and 36 genes): rows of 128 B, 131,072 +
-// 32,768 = 163,840 B. The launcher takes the widest SG of 128, 64, 32, 16, 8
-// genes whose layout fits a block (pipe_plan), and sizes the grid by
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor. The block has 32 warps (64
-// registers a thread, so an SM holds no more): the time is the warps'
-// per-child work, whose latency more warps hide. On the card 32 warps a block
-// ran faster than 16, narrower slabs slower (each slab repeats a child's
-// per-slab work), and 8 lanes a child faster than 32, 16 or 4 at L = 100.
-//
-// Alignment. cp.async copies 16 B where a row's bytes (L x gene bytes) are a
-// multiple of 16 (float32 at L = 100: 400 B rows), else 8 or 4 B: a bf16 row
-// of L = 100 is 200 B, so odd rows are only 8-byte aligned and take 8-byte
-// copies (the genome layout is not changed). A bf16 row of odd L is 2-byte
-// aligned and is staged by plain loads and stores. Slab starts are multiples
-// of 16 bytes, so every chunk is aligned.
+// stream, 0) and the same injected draws. Each score is summed in
+// breed_genes' order, so it equals deme_breed_kernel's and
+// fused_step.rowwise_scores(warp_order=True) bit for bit. Only the schedule
+// differs.
 //
 // Bound. deme_breed_kernel's bytes: the population read once and written once,
 // the ranks read and the scores written (0.2529 ms at 1,048,576x100 float32,
-// 0.1277 ms bf16, at 3.35 TB/s). Here each parent byte is read from device
-// memory once, by the staging; the children's stores and the per-child work
-// of each slab (the draws, the gather from shared memory, a group sum) are what
-// remains beside it.
+// 0.1277 ms bf16, at 3.35 TB/s). The operations (a few a gene, three Philox
+// calls a child) are far below the card's rate. Each parent byte is read from
+// device memory once, by the staging.
+//
+// Why this schedule. The first one (PR 13) staged each deme in gene slabs
+// (32, 32 and 36 genes at L = 100 float32) by 16-byte cp.async from every
+// thread, opened and closed each (deme, slab) with block barriers and carried
+// each child's state across the slabs in shared memory. It took 0.7586 ms at
+// 1,048,576x100 float32 B = 2 and 0.5731 ms bf16 (PERF.md, PR 16), slower
+// than one torch.index_select of the same rows (0.6358, 0.3163 ms), and kept
+// 97% of its time with every stage off: the schedule was the cost. Here a
+// deme's rows are staged whole by TMA bulk copies, and each child is bred in
+// one pass with its state in registers:
+//   - A cluster of C blocks shares a deme (pipe_plan.cuh: the least C of 1, 2,
+//     4, 8 whose two buffers of K/C rows fit a block; at K = 512, L = 100, C =
+//     2 float32 and 1 bf16). Block c stages slots [c*R, (c+1)*R), R = K/C,
+//     breeds their children, and reads each parent gene from the block that
+//     staged the parent's slot, through distributed shared memory.
+//   - Warp 0 stages: one cp.async.bulk a run of contiguous rows (the block's
+//     whole run at parity 0; at parity 1 R/q runs of q rows, one a lane), each
+//     32*L bytes times a whole number, so 16-byte aligned at any L, and one
+//     for the deme's K ranks, all completing on the buffer's mbarrier
+//     (expect_tx). Deme n + 1 is staged while deme n breeds.
+//   - One cluster barrier a deme. Each block waits on its buffer's barrier,
+//     inverts the deme's ranks into row_of_rank and counts the deme's alive
+//     rows, then arrives. Past the barrier every block's rows of deme n have
+//     landed and every block is done with deme n - 1, whose buffers the
+//     elected thread then refills with deme n + 1. row_of_rank and the alive
+//     counts are double-buffered, so no other barrier is needed.
+//   - 8 lanes a child, four children a warp, 16 warps a block (measured
+//     against a warp or 16 lanes a child and 8 to 32 warps a block: PERF.md,
+//     PR 18). The child's three Philox
+//     calls run on three of its lanes; its selection, mutation decision and
+//     score sums stay in registers for the whole row. Where L is a multiple
+//     of 4 sub-lane j takes four consecutive genes at a time (one 16-byte
+//     float4, or 8 bytes of bf16) at 4*j, 4*j + 32, ..., so a group reads and
+//     writes 32 consecutive genes an instruction; it keeps one score partial
+//     for each of its warp-lane positions 4*j .. 4*j + 3, which combine in
+//     warp_sum's butterfly order (pipe_sum4). Other lengths take one gene a
+//     lane (pipe_sum). Gaussian mutation and the transcendental objectives
+//     are out of line (pipe_gauss, pipe_terms): inlined into the unrolled
+//     loop they spilled its registers.
+//   - Each deme's read and write maps are computed once in closed form
+//     (RowMap: runs of q rows by shifts), not per child.
+//   - Children go from registers to their write row. Swap mutation exchanges
+//     its two genes in device memory after the row is written and sums the
+//     child again, as breed_genes does.
+// The grid is persistent: as many clusters as the card holds at once
+// (cudaOccupancyMaxActiveClusters; one block an SM), shared by the islands
+// (blockIdx.y); cluster j of an island walks its contiguous run of demes.
+// Where no cluster holds a deme (K*L*gene bytes above about 880 KB)
+// fused_step.breed_launcher sends the launch to deme_breed_kernel at the same
+// geometry, decided from the shape before any launch; this launcher refuses
+// such a shape.
 //
 // The floor harness at B > 1 (B10; _pp_breed_kernel's B > 1 case hands
 // `ablate` to _deme_child, :1359, and skips the crossover mask words under
@@ -762,330 +758,485 @@ __global__ void __launch_bounds__(MG_THREADS) multigen_breed_kernel(
 // meaning; 0 is the production code above. ABL_SEL_CONST and ABL_NO_GATHER:
 // p1 = p2 = slot k's staged row (under ABL_SEL_CONST no selection call is
 // made and no injected selection draw read; under ABL_NO_GATHER they are).
-// ABL_NO_CROSS: no STREAM_CROSS call, neither sub-lane 2's at slab 0 nor a
-// later slab's at a tile start, PipeChild::w neither stored nor read, no
-// injected bit read; every gene is p1's. ABL_NO_MUT: no mutation call, no
-// mutation. The other stages' Philox counters are unchanged, so a no_mut
-// child is the production child at mutation rate 0, bit for bit. The staging,
-// the ranks and the row maps are the production schedule's in every case.
+// ABL_NO_CROSS: no STREAM_CROSS call and no injected bit read; every gene is
+// p1's. ABL_NO_MUT: no mutation call, no mutation. The other stages' Philox
+// counters are unchanged, so a no_mut child is the production child at
+// mutation rate 0, bit for bit. The staging, the ranks and the row maps are
+// the production schedule's in every case.
 
-constexpr int PIPE_THREADS = 1024;  // 32 warps a block
-constexpr int PIPE_LANES = 8;       // lanes a child in a slab
-constexpr int PIPE_GROUPS = 32 / PIPE_LANES;  // children a warp breeds at once
-constexpr size_t PIPE_SMEM_LIMIT = 232448 - 1024;  // a block's, beside the static arrays
+constexpr int PIPE_LANES = 8;   // lanes a child
+constexpr int PIPE_WARPS = 16;  // warps a block: 128 registers a thread, none spilled
+constexpr int PIPE_THREADS = 32 * PIPE_WARPS;
+constexpr int PIPE_KIDS = 32 / PIPE_LANES;  // children a warp breeds at once
+constexpr int PIPE_LOADS = 4;               // genes a lane has in flight
 
-// The sum of v over the PIPE_LANES lanes of this lane's group, on each of them.
-__device__ __forceinline__ float group_sum(float v) {
+// Partition cases that tools/pipelined_variants.py builds with -DPIPE_PART=n
+// and times beside production (0): 1 breeds no child (the staging, the rank
+// inversion and the cluster barrier alone), 2 reads every parent from the
+// block's own buffer (slot s taken as this block's row s % R: no distributed
+// shared memory; the children are not the function), 3 writes every child to
+// row blockIdx.x.
+#ifndef PIPE_PART
+#define PIPE_PART 0
+#endif
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// A full barrier of one arrival (lane 0 of warp 0, with expect_tx) and the
+// bytes its bulk copies bring.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "PIPE_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra PIPE_WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// A TMA bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into this block's shared memory, completing
+// on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// warp_sum of a child's terms from its lane group's partials, one gene a lane:
+// v[m] is the sum of warp-lane position j + 8*m (j the sub-lane). The
+// butterfly's steps 16 and 8 pair partials inside the lane, 4, 2 and 1 the
+// group's lanes; every lane of the group gets the sum.
+__device__ __forceinline__ float pipe_sum(const float (&v)[4]) {
+  float s = (v[0] + v[2]) + (v[1] + v[3]);
 #pragma unroll
-  for (int o = PIPE_LANES / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
+  for (int o = 4; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+  return s;
 }
 
-// What a child carries across the slabs of its deme.
-struct PipeChild {
-  int s1, s2, orow;  // its parents' slots; its write row
-  int pos, pj;       // the point / swap mutation's gene positions
-  float mu2, a, b;   // point mutation's value; the score's sums so far
-  int fire;          // the mutation fires
-  uint32_t w[4];     // the crossover words of the current 128-gene tile
-};
-
-// The gene slabs of a row of L genes: SG genes each from gene 0, the last one
-// shorter; a last slab under SG / 2 genes is merged into the one before where
-// both lie in one 128-gene tile. SG divides 128, so no slab crosses a tile.
-struct SlabPlan {
-  int SG, n, last;  // slab width, slab count, width of the last slab
-  __host__ __device__ int base(int s) const { return s * SG; }
-  __host__ __device__ int len(int s) const { return s == n - 1 ? last : SG; }
-  __host__ __device__ int widest() const { return n == 1 || last > SG ? last : SG; }
-};
-
-__host__ __device__ inline SlabPlan slab_plan(int L, int SG) {
-  SlabPlan p{SG, (L + SG - 1) / SG, 0};
-  p.last = L - (p.n - 1) * SG;
-  if (p.n > 1 && 2 * p.last < SG && ((p.n - 2) * SG) / 128 == (L - 1) / 128) {
-    p.n -= 1;
-    p.last += SG;
+// The same, four genes a lane: on the group's first eight lanes v[i] is the
+// sum of warp-lane position 4*j + i (j the sub-lane). Steps 16, 8 and 4 pair
+// those lanes (j ^ 4, j ^ 2, j ^ 1), steps 2 and 1 pair the lane's own
+// partials. The sum is on the group's first eight lanes.
+__device__ __forceinline__ float pipe_sum4(const float (&v)[4]) {
+  float x[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[i] = v[i];
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) x[i] = x[i] + __shfl_xor_sync(FULL, x[i], o);
   }
-  return p;
+  return (x[0] + x[2]) + (x[1] + x[3]);
 }
 
-// Byte offsets of the dynamic shared memory: the two slab buffers (K rows of
-// row_bytes each) from 0, the two staged rank rows, row_of_rank, the children.
-struct PipeLayout {
-  size_t ranks, ror, kids, total;
+// Out of the breed's loop, so that its registers stay the point mutation's
+// and onemax's: gaussian mutation of gene l (gauss_mutate), and a gene's
+// terms of the other objectives, (a's, b's), which obj_add adds.
+__device__ __noinline__ float pipe_gauss(BreedCtx cx, Draws dr, float x, int k, int g, int l,
+                                         size_t child) {
+  return gauss_mutate(cx, dr, x, k, g, 0u, l, child, true);
+}
+
+__device__ __noinline__ float2 pipe_terms(int obj, float c) {
+  float a = 0.0f, b = 0.0f;
+  if (obj == OBJ_ONEMAX_BITS) {
+    a = c >= 0.5f ? 1.0f : 0.0f;
+  } else if (obj == OBJ_SPHERE) {
+    const float x = -5.12f + c * 10.24f;
+    a = x * x;
+  } else if (obj == OBJ_RASTRIGIN) {
+    const float x = -5.12f + c * 10.24f;
+    a = x * x - 10.0f * cosf(TWO_PI * x);
+  } else if (obj == OBJ_ACKLEY) {
+    const float x = -32.768f + c * 65.536f;
+    a = x * x;
+    b = cosf(TWO_PI * x);
+  } else {
+    a = c;
+  }
+  return make_float2(a, b);
+}
+
+// Four consecutive genes as float, from a 16-byte (float) or 8-byte (bf16)
+// aligned address; and four genes, already rounded to the gene type, stored
+// there.
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  x[0] = __uint_as_float(v.x << 16);
+  x[1] = __uint_as_float(v.x & 0xffff0000u);
+  x[2] = __uint_as_float(v.y << 16);
+  x[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&x)[4]) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2((__float_as_uint(x[0]) >> 16) | (__float_as_uint(x[1]) & 0xffff0000u),
+                 (__float_as_uint(x[2]) >> 16) | (__float_as_uint(x[3]) & 0xffff0000u));
+}
+
+// A deme's row map in closed form (read_row / write_row of breed_core.cuh
+// for one deme, with the quantum q = 2^shift a power of two): slot or child
+// k's physical row is base + (k >> shift) * stride + (k & mask). Ping-pong
+// moves runs of q rows; the riffle and the contiguous map single rows.
+struct RowMap {
+  int base, stride, shift, mask;
+  __device__ __forceinline__ int operator()(int k) const {
+    return base + (k >> shift) * stride + (k & mask);
+  }
 };
 
-__host__ __device__ inline size_t round16(size_t n) { return (n + 15) & ~(size_t)15; }
-
-__host__ __device__ inline PipeLayout pipe_layout(int K, int row_bytes) {
-  PipeLayout y;
-  y.ranks = 2 * (size_t)K * row_bytes;
-  y.ror = y.ranks + round16(2 * (size_t)K * 4);
-  y.kids = y.ror + round16((size_t)K * 4);
-  y.total = y.kids + (size_t)K * sizeof(PipeChild);
-  return y;
+// The rows deme g reads (read_row): consecutive, but at parity 1 runs of q
+// at stride S*q.
+__device__ __forceinline__ RowMap read_map(const Geometry& geo, int g, int qs) {
+  if (geo.mode != MODE_PP1) return RowMap{g * geo.K, 1, 0, 0};
+  const int BD = geo.B * geo.D;
+  return RowMap{(g % BD) * (geo.K >> qs) * geo.S * geo.q + (g / BD) * geo.q, geo.S * geo.q, qs,
+                geo.q - 1};
 }
 
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-  else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+// The rows deme g's children are written to (write_row).
+__device__ __forceinline__ RowMap write_map(const Geometry& geo, int g, int qs) {
+  if (geo.mode == MODE_RIFFLE) return RowMap{g, geo.G, 0, 0};
+  if (geo.mode == MODE_CONTIG) return RowMap{g * geo.K, 1, 0, 0};
+  const int BD = geo.B * geo.D, i = g / BD, b = (g % BD) / geo.D, d = (g % BD) % geo.D;
+  if (geo.mode == MODE_PP0)
+    return RowMap{i * BD * geo.K + b * geo.D * geo.K + d * geo.q, geo.D * geo.q, qs, geo.q - 1};
+  return RowMap{(b * geo.D * (geo.K >> qs) + d) * geo.S * geo.q + i * geo.q,
+                geo.D * geo.S * geo.q, qs, geo.q - 1};
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most one committed group of this thread is in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Issues the copies of slab s of deme g's K parent rows into `buf` (row k at
-// k * row_bytes), `cw` bytes a copy (0: plain 2-byte copies), and for slab 0
-// the deme's K ranks into `rk`.
+// Warp 0 stages slots [c*R, (c+1)*R) of deme g (rows `rd`) and the deme's K
+// ranks into buffer b: one bulk copy a run of contiguous rows (the whole
+// slot range, or at parity 1 runs of q, one a lane) and one for the ranks,
+// all completing on the buffer's barrier.
 template <class Gene>
-__device__ __forceinline__ void pipe_stage(const Gene* gin, const int* ranks, const Geometry& geo,
-                                           const SlabPlan& plan, int g, int s, unsigned char* buf,
-                                           int row_bytes, int* rk, int cw) {
-  const int K = geo.K, tid = threadIdx.x, nthr = blockDim.x;
-  const size_t row_len = (size_t)geo.L * sizeof(Gene);
-  const int off = plan.base(s) * (int)sizeof(Gene), bytes = plan.len(s) * (int)sizeof(Gene);
-  const unsigned char* src = reinterpret_cast<const unsigned char*>(gin) + off;
-  const int unit = cw ? cw : 2, per_row = bytes / unit;
-  for (int x = tid; x < K * per_row; x += nthr) {
-    const int k = x / per_row, c = (x - k * per_row) * unit;
-    const unsigned char* from = src + (size_t)read_row(geo, g, k) * row_len + c;
-    unsigned char* to = buf + (size_t)k * row_bytes + c;
-    if (cw) {
-      cp_async(to, from, cw);
-    } else {
-      *reinterpret_cast<unsigned short*>(to) = *reinterpret_cast<const unsigned short*>(from);
-    }
-  }
-  if (s == 0)
-    for (int x = tid; x < K / 4; x += nthr) cp_async(rk + 4 * x, ranks + (size_t)g * K + 4 * x, 16);
+__device__ __forceinline__ void stage_deme(const Gene* gin, const int* ranks, const Geometry& geo,
+                                           const PipePlan& plan, unsigned char* smem,
+                                           uint64_t* full, const RowMap& rd, int g, int b, int c,
+                                           int lane) {
+  const int R = plan.rows, run = rd.shift ? rd.mask + 1 : R;
+  const size_t row_bytes = (size_t)geo.L * sizeof(Gene), kb = (plan.ror - plan.ranks) / 2;
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(gin);
+  unsigned char* buf = smem + b * plan.buf;
+  if (lane == 0) mbar_expect(&full[b], (unsigned)(R * row_bytes + (size_t)geo.K * 4));
+  __syncwarp();
+  for (int u = lane * run; u < R; u += 32 * run)
+    bulk_load(buf + u * row_bytes, src + (size_t)rd(c * R + u) * row_bytes,
+              (unsigned)(run * row_bytes), &full[b]);
+  if (lane == 0)
+    bulk_load(smem + plan.ranks + b * kb, ranks + (size_t)g * geo.K, (unsigned)(geo.K * 4),
+              &full[b]);
 }
 
 template <class Gene, unsigned ABLATE>
-__global__ void __launch_bounds__(PIPE_THREADS) deme_pipelined_kernel(
+__global__ void __launch_bounds__(PIPE_THREADS, 1) deme_pipelined_kernel(
     const Gene* __restrict__ gin, Gene* __restrict__ gout, float* __restrict__ sout,
     const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr0, Geometry geo,
-    Selection sel, int mutate, int obj, SlabPlan plan, int row_bytes, int cw) {
+    Selection sel, int mutate, int obj, PipePlan plan) {
   // The stages this case runs (all of them at ABLATE = 0); bit c of CALLS:
-  // Philox call c of slab 0 (0 selection, 1 mutation, 2 the first crossover
-  // tile) is made.
+  // Philox call c (0 selection, 1 mutation, 2 the first crossover tile) is
+  // made.
   constexpr bool SAME = (ABLATE & (ABL_SEL_CONST | ABL_NO_GATHER)) != 0u;
   constexpr bool DRAWS_SEL = !(ABLATE & ABL_SEL_CONST);
   constexpr bool CROSSES = !(ABLATE & ABL_NO_CROSS);
   constexpr bool MUTATES = !(ABLATE & ABL_NO_MUT);
   constexpr unsigned CALLS = (DRAWS_SEL ? 1u : 0u) | (MUTATES ? 2u : 0u) | (CROSSES ? 4u : 0u);
+  namespace cg = cooperative_groups;
+  // 16-byte aligned (the bulk copies' need); every kernel's dynamic shared
+  // memory is one symbol, so a wider alignment would move theirs too.
   extern __shared__ __align__(16) unsigned char pipe_smem[];
-  __shared__ int s_alive[32];
-  const int K = geo.K, L = geo.L, G = geo.G;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  __shared__ int s_alive[2][PIPE_WARPS];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int K = geo.K, L = geo.L, G = geo.G, C = plan.C, R = plan.rows;
+  const int c = (int)cluster.block_rank();
+  const int qs = __ffs(geo.q) - 1, rs = __ffs(R) - 1;  // both powers of two (pipe_plan)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   gin = island_slice(gin, (size_t)geo.Pp * L);
   gout = island_slice(gout, (size_t)geo.Pp * L);
   sout = island_slice(sout, (size_t)geo.Pp);
   ranks = island_slice(ranks, (size_t)G * K);
   const Draws dr = island_draws(dr0, geo, 1);
   const BreedCtx cx = breed_ctx(dr, mparams, geo, mutate, obj);
-  const PipeLayout lay = pipe_layout(K, row_bytes);
-  int* rks = reinterpret_cast<int*>(pipe_smem + lay.ranks);
-  int* row_of_rank = reinterpret_cast<int*>(pipe_smem + lay.ror);
-  PipeChild* kids = reinterpret_cast<PipeChild*>(pipe_smem + lay.kids);
-  const size_t buf_bytes = (size_t)K * row_bytes;
+  const size_t kb = (plan.ror - plan.ranks) / 2;  // a rank row's (or row_of_rank's) bytes
+  uint64_t* full = reinterpret_cast<uint64_t*>(pipe_smem + plan.bars);
+  // This block's cluster j of nc walks demes [g0, g0 + nd).
+  const int nc = gridDim.x / C, j = blockIdx.x / C;
+  const int g0 = (int)((long long)j * G / nc);
+  const int nd = (int)((long long)(j + 1) * G / nc) - g0;
 
-  const int g0 = (int)((long long)blockIdx.x * G / gridDim.x);
-  const int g1 = (int)((long long)(blockIdx.x + 1) * G / gridDim.x);
-  const int items = (g1 - g0) * plan.n;
-  auto stage = [&](int n) {
-    const int d = n / plan.n;
-    pipe_stage(gin, ranks, geo, plan, g0 + d, n - d * plan.n, pipe_smem + (n & 1) * buf_bytes,
-               row_bytes, rks + (d & 1) * K, cw);
-  };
-  if (items > 0) stage(0);
-  cp_async_commit();
-  float V = 1.0f;
-  for (int n = 0; n < items; ++n) {
-    if (n + 1 < items) stage(n + 1);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const int d = n / plan.n, s = n - d * plan.n, g = g0 + d;
-    const unsigned char* buf = pipe_smem + (n & 1) * buf_bytes;
-    if (s == 0) {
-      // The deme's ranks inverted, and its alive rows counted.
-      const int* rk = rks + (d & 1) * K;
-      int alive = 0;
-      for (int k = threadIdx.x; k < K; k += blockDim.x) {
-        const int r = rk[k];
-        if (r >= 0 && r < K) row_of_rank[r] = k;
-        alive += read_row(geo, g, k) < geo.P;
-      }
-      alive = warp_sum(alive);
-      if (lane == 0) s_alive[warp] = alive;
-      __syncthreads();
-      int v = 0;
-      for (int w = 0; w < nwarps; ++w) v += s_alive[w];
-      V = (float)max(v, 1);
+  if (threadIdx.x == 0) {
+    mbar_init(&full[0]);
+    mbar_init(&full[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 0 && nd > 0)
+    stage_deme(gin, ranks, geo, plan, pipe_smem, full, read_map(geo, g0, qs), g0, 0, c, lane);
+
+  // Lane group h of the warp breeds one child: its sub-lane jl four genes
+  // at a time (4*jl + 0..3, + 32, ...) where L is a multiple of 4, else the
+  // genes jl, jl + 8, ...
+  const int h = lane / PIPE_LANES, jl = lane % PIPE_LANES, lead = h * PIPE_LANES;
+  for (int n = 0; n < nd; ++n) {
+    const int g = g0 + n, b = n & 1;
+    mbar_wait(&full[b], (n >> 1) & 1);
+    // The deme's ranks inverted, and its alive rows counted.
+    const int* rk = reinterpret_cast<const int*>(pipe_smem + plan.ranks + b * kb);
+    int* row_of_rank = reinterpret_cast<int*>(pipe_smem + plan.ror + b * kb);
+    const RowMap rd = read_map(geo, g, qs), wr = write_map(geo, g, qs);
+    int alive = 0;
+    for (int k = threadIdx.x; k < K; k += PIPE_THREADS) {
+      const int r = rk[k];
+      if (r >= 0 && r < K) row_of_rank[r] = k;
+      alive += rd(k) < geo.P;
     }
-    const int base = plan.base(s), len = plan.len(s);
-    const bool last = s == plan.n - 1, tile_start = (base & 127) == 0;
-    // PIPE_GROUPS children a warp at once, PIPE_LANES lanes each: lane group h
-    // breeds child k, its sub-lane j0 the slab's genes j0, j0 + PIPE_LANES, ...
-    const int h = lane / PIPE_LANES, j0 = lane % PIPE_LANES, lead = h * PIPE_LANES;
-    for (int k0 = warp * PIPE_GROUPS; k0 < K; k0 += nwarps * PIPE_GROUPS) {
+    alive = warp_sum(alive);
+    if (lane == 0) s_alive[b][warp] = alive;
+    // Every block's rows of deme n are in; every block is done with deme n - 1.
+    cluster.sync();
+    if (warp == 0 && n + 1 < nd)
+      stage_deme(gin, ranks, geo, plan, pipe_smem, full, read_map(geo, g + 1, qs), g + 1, b ^ 1,
+                 c, lane);
+    int v = 0;
+    for (int w = 0; w < PIPE_WARPS; ++w) v += s_alive[b][w];
+    const float V = (float)max(v, 1);
+    Gene* staged = reinterpret_cast<Gene*>(pipe_smem + b * plan.buf);
+    if (PIPE_PART == 1) continue;
+
+    for (int k0 = c * R + warp * PIPE_KIDS; k0 < (c + 1) * R; k0 += PIPE_WARPS * PIPE_KIDS) {
       const int k = k0 + h;
-      PipeChild& st = kids[k];
       const size_t child = (size_t)g * K + k;
-      int s1, s2, orow, pos, pj;
-      float mu2, a0 = 0.0f, b0 = 0.0f;
-      bool fire;
+      // child_rand's draws: sub-lane jl computes Philox call jl where its
+      // stage runs.
+      float su0 = 0.0f, su1 = 0.0f, mu0 = 0.0f, mu1 = 0.0f, mu2 = 0.0f;
       uint4 w = make_uint4(0u, 0u, 0u, 0u);
-      if (s == 0) {
-        // child_rand's draws for the group's child: sub-lane c computes
-        // Philox call c (0 selection, 1 mutation, 2 the first crossover
-        // tile), where its stage runs.
-        float su0 = 0.0f, su1 = 0.0f, mu0 = 0.0f, mu1 = 0.0f;
-        mu2 = 0.0f;
-        if (cx.philox_mode) {
-          if (j0 < 3 && (CALLS == 7u || ((CALLS >> j0) & 1u)))
-            w = philox(cx.k0, cx.k1, make_uint4(k, g, j0, 0u));
-          if constexpr (DRAWS_SEL) {
-            su0 = to_uniform(__shfl_sync(FULL, w.x, lead));
-            su1 = to_uniform(__shfl_sync(FULL, w.y, lead));
-          }
-          if constexpr (MUTATES) {
-            mu0 = to_uniform(__shfl_sync(FULL, w.x, lead + 1));
-            mu1 = to_uniform(__shfl_sync(FULL, w.y, lead + 1));
-            mu2 = to_uniform(__shfl_sync(FULL, w.z, lead + 1));
-          }
-          if constexpr (CROSSES) {
-            w = make_uint4(__shfl_sync(FULL, w.x, lead + STREAM_CROSS),
-                           __shfl_sync(FULL, w.y, lead + STREAM_CROSS),
-                           __shfl_sync(FULL, w.z, lead + STREAM_CROSS),
-                           __shfl_sync(FULL, w.w, lead + STREAM_CROSS));
+      if (cx.philox_mode) {
+        if (jl < 3 && ((CALLS >> jl) & 1u)) w = philox(cx.k0, cx.k1, make_uint4(k, g, jl, 0u));
+        if constexpr (DRAWS_SEL) {
+          su0 = to_uniform(__shfl_sync(FULL, w.x, lead));
+          su1 = to_uniform(__shfl_sync(FULL, w.y, lead));
+        }
+        if constexpr (MUTATES) {
+          mu0 = to_uniform(__shfl_sync(FULL, w.x, lead + 1));
+          mu1 = to_uniform(__shfl_sync(FULL, w.y, lead + 1));
+          mu2 = to_uniform(__shfl_sync(FULL, w.z, lead + 1));
+        }
+        if constexpr (CROSSES) {
+          w = make_uint4(__shfl_sync(FULL, w.x, lead + STREAM_CROSS),
+                         __shfl_sync(FULL, w.y, lead + STREAM_CROSS),
+                         __shfl_sync(FULL, w.z, lead + STREAM_CROSS),
+                         __shfl_sync(FULL, w.w, lead + STREAM_CROSS));
+        }
+      } else {
+        if constexpr (DRAWS_SEL) {
+          su0 = dr.sel_u[child * 2];
+          su1 = dr.sel_u[child * 2 + 1];
+        }
+        if constexpr (MUTATES) {
+          mu0 = dr.mut_u[child * 4];
+          mu1 = dr.mut_u[child * 4 + 1];
+          mu2 = dr.mut_u[child * 4 + 2];
+        }
+      }
+      int s1 = k, s2 = k;  // sel_const, no_matmul: child k's parents are slot k
+      if constexpr (!SAME) {
+        s1 = min(max(row_of_rank[winner_rank(winner_fraction(sel, su0), V)], 0), K - 1);
+        s2 = min(max(row_of_rank[winner_rank(winner_fraction(sel, su1), V)], 0), K - 1);
+      }
+      const int orow = wr(k);
+      const int pos = (int)floorf(mu0 * (float)L);
+      const int pj = (int)floorf(mu1 * (float)L);
+      const bool fire = MUTATES && (mutate == MUT_SWAP ? mu2 < cx.rate : mu1 < cx.rate);
+      // Slot s is row s % R of the buffer of the cluster's block s / R: this
+      // block's through its own shared memory, a peer's through the cluster's.
+      if (PIPE_PART == 2) {
+        s1 = c * R + (s1 & (R - 1));
+        s2 = c * R + (s2 & (R - 1));
+      }
+      const int o1 = s1 >> rs, o2 = s2 >> rs;
+      const Gene* p1 = (o1 == c ? staged : cluster.map_shared_rank(staged, o1)) +
+                       (size_t)(s1 & (R - 1)) * L;
+      const Gene* p2 = (o2 == c ? staged : cluster.map_shared_rank(staged, o2)) +
+                       (size_t)(s2 & (R - 1)) * L;
+      Gene* out = gout + (size_t)(PIPE_PART == 3 ? (int)blockIdx.x : orow) * L;
+      // Mutates gene l of the crossed child (x) and rounds it to the gene type.
+      auto finish = [&](int l, float x) {
+        if (mutate == MUT_POINT) {
+          if (fire && l == pos) x = mu2;
+        } else if (MUTATES && mutate == MUT_GAUSSIAN) {
+          x = pipe_gauss(cx, dr, x, k, g, l, child);
+        }
+        return round_gene<Gene>(x);
+      };
+      // Adds gene x's terms to the score partials, as obj_add does.
+      const bool plain = obj == OBJ_ONEMAX;
+      auto add = [&](float x, float& sa, float& se) {
+        if (plain) {
+          sa += x;
+        } else {
+          const float2 d = pipe_terms(obj, x);
+          sa += d.x;
+          se += d.y;
+        }
+      };
+
+      // Cross, mutate, round, store and sum the child, 128 genes (one
+      // crossover call) a tile.
+      // The score's partials (ackley's cosine sums in e): four genes a lane,
+      // one a warp-lane position 4*j + i; one gene a lane, j + 8*m.
+      float a[4], e[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = e[i] = 0.0f;
+      // Four genes a lane where rows are whole vectors (L a multiple of 4):
+      // group lane j takes genes 32*i + 4*j + 0..3, warp-lane positions
+      // 4*j + 0..3, and adds them in gene order.
+      auto add4 = [&](const float (&x)[4], int l0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (l0 + i < L) add(x[i], a[i], e[i]);
+      };
+      const bool vec = L % 4 == 0;
+      for (int t = 0; 128 * t < L; ++t) {
+        if (CROSSES && cx.philox_mode && t > 0)
+          w = philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_CROSS + t, 0u));
+        if (vec) {
+#pragma unroll
+          for (int it = 0; it < 4; ++it) {  // crossover word it: genes 32*it .. of the tile
+            const int l0 = 128 * t + 32 * it + 4 * jl;
+            float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            if (l0 < L) {
+              load4(p1 + l0, x);
+              if constexpr (CROSSES) {
+                uint32_t bits;  // gene l0 + i takes p2's gene where bit i is set
+                if (cx.philox_mode) {
+                  bits = (it == 0 ? w.x : it == 1 ? w.y : it == 2 ? w.z : w.w) >> (4 * jl);
+                } else {
+                  const uint32_t u = *reinterpret_cast<const uint32_t*>(dr.cross + child * L + l0);
+                  bits = ((u & 0xffu) != 0u) | (((u >> 8) & 0xffu) != 0u) << 1 |
+                         (((u >> 16) & 0xffu) != 0u) << 2 | ((u >> 24) != 0u) << 3;
+                }
+                float y[4];
+                load4(p2 + l0, y);
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                  if ((bits >> i) & 1u) x[i] = y[i];
+              }
+              if (mutate == MUT_POINT) {
+                if (fire && (unsigned)(pos - l0) < 4u) {
+#pragma unroll
+                  for (int i = 0; i < 4; ++i)
+                    if (l0 + i == pos) x[i] = mu2;
+                }
+              } else if (MUTATES && mutate == MUT_GAUSSIAN) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) x[i] = pipe_gauss(cx, dr, x[i], k, g, l0 + i, child);
+              }
+#pragma unroll
+              for (int i = 0; i < 4; ++i) x[i] = round_gene<Gene>(x[i]);
+              store4(out + l0, x);
+            }
+            if (obj != OBJ_NONE) add4(x, l0);
           }
         } else {
-          if constexpr (DRAWS_SEL) {
-            su0 = dr.sel_u[child * 2];
-            su1 = dr.sel_u[child * 2 + 1];
-          }
-          if constexpr (MUTATES) {
-            mu0 = dr.mut_u[child * 4];
-            mu1 = dr.mut_u[child * 4 + 1];
-            mu2 = dr.mut_u[child * 4 + 2];
-          }
-        }
-        s1 = s2 = k;  // sel_const, no_matmul: child k's parents are slot k
-        if constexpr (!SAME) {
-          const int r1 = winner_rank(winner_fraction(sel, su0), V);
-          const int r2 = winner_rank(winner_fraction(sel, su1), V);
-          s1 = min(max(row_of_rank[r1], 0), K - 1);
-          s2 = min(max(row_of_rank[r2], 0), K - 1);
-        }
-        orow = write_row(geo, g, k);
-        pos = (int)floorf(mu0 * (float)L);
-        pj = (int)floorf(mu1 * (float)L);
-        fire = MUTATES && (mutate == MUT_SWAP ? mu2 < cx.rate : mu1 < cx.rate);
-      } else {
-        s1 = st.s1;
-        s2 = st.s2;
-        orow = st.orow;
-        pos = st.pos;
-        pj = st.pj;
-        mu2 = st.mu2;
-        fire = st.fire != 0;
-        a0 = st.a;
-        if (obj == OBJ_ACKLEY) b0 = st.b;
-        if (CROSSES && cx.philox_mode)
-          w = tile_start ? philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_CROSS + (base >> 7), 0u))
-                         : make_uint4(st.w[0], st.w[1], st.w[2], st.w[3]);
-      }
-
-      // Cross, mutate, round, store and sum this slab's genes of child k.
-      const Gene* p1 = reinterpret_cast<const Gene*>(buf + (size_t)s1 * row_bytes);
-      const Gene* p2 = reinterpret_cast<const Gene*>(buf + (size_t)s2 * row_bytes);
-      Gene* out = gout + (size_t)orow * L;
-      float a = 0.0f, b = 0.0f;
-      for (int j = j0; j < len; j += PIPE_LANES) {
-        const int l = base + j;
-        uint32_t bit = 0u;  // no_cross: every gene from p1
-        if constexpr (CROSSES) {
-          if (cx.philox_mode) {
-            const int wi = (l >> 5) & 3;
-            bit = ((wi == 0 ? w.x : wi == 1 ? w.y : wi == 2 ? w.z : w.w) >> (l & 31)) & 1u;
-          } else {
-            bit = dr.cross[child * L + l];
+#pragma unroll
+          for (int i0 = 0; i0 < 128 / PIPE_LANES; i0 += PIPE_LOADS) {
+            if (128 * t + PIPE_LANES * i0 < L) {
+              float cv[PIPE_LOADS];
+#pragma unroll
+              for (int u = 0; u < PIPE_LOADS; ++u) {
+                const int lt = jl + PIPE_LANES * (i0 + u), l = 128 * t + lt;
+                uint32_t bit = 0u;  // no_cross: every gene from p1
+                if constexpr (CROSSES) {
+                  if (cx.philox_mode) {
+                    const int wi = lt >> 5;
+                    bit = ((wi == 0 ? w.x : wi == 1 ? w.y : wi == 2 ? w.z : w.w) >> (lt & 31)) & 1u;
+                  } else if (l < L) {
+                    bit = dr.cross[child * L + l];
+                  }
+                }
+                cv[u] = l < L ? load_gene<false>((bit ? p2 : p1) + l) : 0.0f;
+              }
+#pragma unroll
+              for (int u = 0; u < PIPE_LOADS; ++u) {
+                const int l = 128 * t + jl + PIPE_LANES * (i0 + u);
+                if (l < L) {
+                  const float x = finish(l, cv[u]);
+                  store_gene(out + l, x);
+                  add(x, a[(i0 + u) % 4], e[(i0 + u) % 4]);
+                }
+              }
+            }
           }
         }
-        float c = load_gene<false>((bit ? p2 : p1) + j);
-        if (mutate == MUT_POINT) {
-          if (fire && l == pos) c = mu2;
-        } else if (MUTATES && mutate == MUT_GAUSSIAN) {
-          c = gauss_mutate(cx, dr, c, k, g, 0u, l, child, true);
-        }
-        c = round_gene<Gene>(c);
-        store_gene(out + l, c);
-        obj_add(obj, c, a, b);
-      }
-      if (obj != OBJ_NONE) a = a0 + group_sum(a);
-      if (obj == OBJ_ACKLEY) b = b0 + group_sum(b);  // its cosine sum; no other has a second
-      if (!last) {
-        if (j0 == 0) {
-          if (s == 0) {
-            st.s1 = s1;
-            st.s2 = s2;
-            st.orow = orow;
-            st.pos = pos;
-            st.pj = pj;
-            st.mu2 = mu2;
-            st.fire = fire;
-          }
-          st.a = a;
-          if (obj == OBJ_ACKLEY) st.b = b;
-          if (CROSSES && (s == 0 || tile_start)) {
-            st.w[0] = w.x;
-            st.w[1] = w.y;
-            st.w[2] = w.z;
-            st.w[3] = w.w;
-          }
-        }
-        continue;
       }
       if (MUTATES && mutate == MUT_SWAP) {
         const bool swap = fire && pos < L && pj < L;
         __syncwarp();
-        if (swap && j0 == 0) {
+        if (swap && jl == 0) {
           const Gene x = out[pos], y = out[pj];
           out[pos] = y;
           out[pj] = x;
         }
         __syncwarp();
-        if (obj != OBJ_NONE) {
+        if (swap && obj != OBJ_NONE) {
           // The score is of the child as written: sum again after the swap.
-          float a2 = 0.0f, b2 = 0.0f;
-          if (swap)
-            for (int l = j0; l < L; l += PIPE_LANES) obj_add(obj, load_gene<false>(out + l), a2, b2);
-          a2 = group_sum(a2);
-          if (obj == OBJ_ACKLEY) b2 = group_sum(b2);
-          if (swap) {
-            a = a2;
-            b = b2;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = e[i] = 0.0f;
+          if (vec) {
+            for (int l0 = 4 * jl; l0 < L; l0 += 32) {
+              float x[4];
+              load4(out + l0, x);
+              add4(x, l0);
+            }
+          } else {
+            for (int i0 = 0; PIPE_LANES * i0 < L; i0 += 4) {
+#pragma unroll
+              for (int m = 0; m < 4; ++m) {
+                const int l = jl + PIPE_LANES * (i0 + m);
+                if (l < L) add(load_gene<false>(out + l), a[m], e[m]);
+              }
+            }
           }
         }
       }
-      if (obj != OBJ_NONE && j0 == 0)
-        sout[orow] = orow < geo.P ? obj_finish(obj, a, b, L) : -INFINITY;
+      if (obj != OBJ_NONE) {
+        const float sa = vec ? pipe_sum4(a) : pipe_sum(a);
+        float se = 0.0f;  // ackley's cosine sum; no other objective has a second
+        if (obj == OBJ_ACKLEY) se = vec ? pipe_sum4(e) : pipe_sum(e);
+        if (jl == 0) sout[orow] = orow < geo.P ? obj_finish(obj, sa, se, L) : -INFINITY;
+      }
     }
-    __syncthreads();
   }
+  cluster.sync();  // no block leaves while another may still read its buffers
 }
 
 
@@ -1195,47 +1346,42 @@ int deme_launch(const void* gin, void* gout, float* sout, const int* ranks, cons
   });
 }
 
-// The slab plan, staged row bytes and dynamic shared memory of a pipelined
-// launch: the widest slab of 128, 64, 32, 16 or 8 genes whose layout fits a
-// block. Returns the shared-memory bytes, 0 where none fits.
-inline size_t pipe_plan(int K, int L, int gene_bytes, SlabPlan& plan, int& row_bytes) {
-  for (int sg = 128; sg >= 8; sg >>= 1) {
-    plan = slab_plan(L, sg);
-    row_bytes = (int)round16((size_t)plan.widest() * gene_bytes);
-    const size_t smem = pipe_layout(K, row_bytes).total;
-    if (smem <= PIPE_SMEM_LIMIT) return smem;
-  }
-  return 0;
-}
-
+// deme_pipelined_kernel's launch: the plan of pipe_plan.cuh (C = 0, no cluster
+// holds a deme: refused), clusters of C blocks, as many as the card holds at
+// once (at most G an island), blockIdx.y the island.
 template <class Gene>
 int pipelined_launch(const void* gin, void* gout, float* sout, const int* ranks,
                      const float* mparams, const Draws& dr, const Geometry& geo,
                      const Selection& sel, int mutate, int obj, int islands, unsigned ablate,
                      cudaStream_t stream) {
-  SlabPlan plan;
-  int row_bytes;
-  const size_t smem = pipe_plan(geo.K, geo.L, sizeof(Gene), plan, row_bytes);
-  if (!smem) return (int)cudaErrorInvalidValue;
-  const int rb = geo.L * (int)sizeof(Gene);
-  const int cw = rb % 16 == 0 ? 16 : rb % 8 == 0 ? 8 : rb % 4 == 0 ? 4 : 0;
+  const PipePlan plan = pipe_plan(geo.K, geo.L, (int)sizeof(Gene), geo.q);
+  if (!plan.C) return (int)cudaErrorInvalidValue;
   return dispatch_pipelined_ablate(ablate, [&](auto tag) {
     auto kernel = deme_pipelined_kernel<Gene, decltype(tag)::value>;
     cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
     if (e != cudaSuccess) return (int)e;
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, PIPE_THREADS, smem);
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = plan.C;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(plan.C, 1, 1);
+    cfg.blockDim = dim3(PIPE_THREADS, 1, 1);
+    cfg.dynamicSmemBytes = plan.smem;
+    cfg.stream = stream;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    int held = 0;
+    if ((e = cudaOccupancyMaxActiveClusters(&held, kernel, &cfg)) != cudaSuccess) return (int)e;
+    if (held < 1) return (int)cudaErrorInvalidConfiguration;
+    const int per = held / islands;
+    const int nc = per < 1 ? 1 : per < geo.G ? per : geo.G;
+    cfg.gridDim = dim3(nc * plan.C, islands, 1);
+    e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const Gene*>(gin), static_cast<Gene*>(gout),
+                           sout, ranks, mparams, dr, geo, sel, mutate, obj, plan);
     if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    const int fill = per_sm * sms / islands;
-    const int blocks = fill < 1 ? 1 : fill < geo.G ? fill : geo.G;
-    kernel<<<dim3(blocks, islands), PIPE_THREADS, smem, stream>>>(
-        static_cast<const Gene*>(gin), static_cast<Gene*>(gout), sout, ranks, mparams, dr, geo,
-        sel, mutate, obj, plan, row_bytes, cw);
     return (int)cudaGetLastError();
   });
 }
@@ -1270,9 +1416,10 @@ extern "C" int deme_breed_launch(
 }
 
 // deme_pipelined_kernel at the geometry (any row map; the production path
-// launches it where the ping-pong sub-block depth B is above 1). K must be a
-// multiple of 4, and gin and ranks 16-byte aligned (the staging's copies).
-// ablate: 0, or a stage case of the floor harness this unit holds
+// launches it where the ping-pong sub-block depth B is above 1 and a cluster
+// holds a deme, pipe_plan.cuh; a shape none holds fails with
+// cudaErrorInvalidValue). gin and ranks must be 16-byte aligned (the TMA
+// copies). ablate: 0, or a stage case of the floor harness this unit holds
 // (dispatch_pipelined_ablate).
 extern "C" int deme_pipelined_launch(
     const void* gin, void* gout, float* sout, const int* ranks, const float* mparams,
@@ -1280,7 +1427,7 @@ extern "C" int deme_pipelined_launch(
     const long long* seed, int P, int Pp, int L, int K, int G, int mode, int S, int D, int q,
     int B, int sel_kind, int tk, float sel_param, int mutate, int obj, int islands,
     int gene_dtype, unsigned ablate, void* stream) {
-  if (K % 4 || B < 1 || islands < 1 || islands > 65535) return (int)cudaErrorInvalidValue;
+  if (B < 1 || islands < 1 || islands > 65535) return (int)cudaErrorInvalidValue;
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q, B};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed};

@@ -70,7 +70,8 @@ float32 numpy arrays holding the stored values.
 
 ``PGAConfig.subblock`` = B > 1 (JAX's ``pallas_subblock``) widens a
 ping-pong group to B sub-blocks of D demes: ``run`` and ``run_islands``
-then breed through the pipelined deme kernel (builtin hooks) or the
+then breed through the pipelined deme kernel (builtin hooks; the deme
+kernel where no cluster of blocks holds a deme) or the
 expression kernel with the B-aware row maps; the riffle, order
 crossover and several generations per launch take B = 1, as in JAX.
 

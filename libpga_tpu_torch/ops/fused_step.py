@@ -93,9 +93,11 @@ versions breed the islands' demes as the demes of one population.
 children interleave within each sub-block of D demes, so B changes the
 row maps (and may change D) but not what a deme computes. Uniform
 crossover with builtin hooks launches ``deme_pipelined_kernel``, a
-persistent kernel that stages the next gene slab of its demes in shared
-memory while it breeds the current one; expression hooks launch the
-expression breed with the B-aware maps. The riffle, order crossover and
+persistent kernel whose thread-block clusters stage a deme's parent rows
+whole in shared memory (TMA) while they breed the one before; a deme no
+cluster holds goes to ``deme_breed_kernel`` at the same geometry
+(:func:`breed_launcher`). Expression hooks launch the expression breed
+with the B-aware maps. The riffle, order crossover and
 the multi-generation kernels take B = 1.
 """
 
@@ -1161,6 +1163,23 @@ def deme_breed_reference(
     return out, scores
 
 
+def breed_launcher(geom: Geometry, gene_dtype, kw: dict) -> Callable:
+    """The kernel wrapper a breed of CUDA genomes launches, chosen from the
+    hooks in ``kw`` and the shape alone, before any launch: with an
+    expression hook the expression breed, with order crossover the order
+    breed, else the deme breed, pipelined (``deme_pipelined_kernel``) where
+    the geometry's sub-block depth B is above 1 and a cluster of blocks
+    holds a deme (``kernels.pipelined_holds``). A deme no cluster holds is
+    bred by ``deme_breed_kernel`` at the same geometry, which computes the
+    same function and counts under its own name."""
+    if _expression_hooked(kw):
+        return kernels.expr_breed_cuda
+    if kw.get("crossover") == "order":
+        return kernels.order_breed_cuda
+    return functools.partial(kernels.deme_breed_cuda,
+                             pipelined=kernels.pipelined_holds(geom, gene_dtype))
+
+
 def deme_breed(
     genomes: torch.Tensor,
     ranks: torch.Tensor,
@@ -1174,11 +1193,8 @@ def deme_breed(
     **kw,
 ):
     """One breed launch. On a CUDA tensor it launches the kernel of the
-    hooks (an expression crossover, mutation or ``kw["objective"]``: the
-    expression breed kernel; else by ``kw["crossover"]``: uniform, the
-    deme-breed kernel, or the pipelined deme breed where ``geom.B`` > 1;
-    order, the order-breed kernel) and raises if that fails; on a CPU
-    tensor it runs the plain version. Exactly one of
+    hooks and the shape (:func:`breed_launcher`) and raises if that fails;
+    on a CPU tensor it runs the plain version. Exactly one of
     ``seed`` (int64 tensor of one element: production Philox mode) or
     ``draws`` (injected mode) is given. ``islands`` = I breeds I
     populations in one launch of that kernel (see
@@ -1190,13 +1206,7 @@ def deme_breed(
     if (seed is None) == (draws is None) and not copy:
         raise ValueError("pass exactly one of seed= or draws=")
     if genomes.is_cuda:
-        if _expression_hooked(kw):
-            launch = kernels.expr_breed_cuda
-        elif kw.get("crossover") == "order":
-            launch = kernels.order_breed_cuda
-        else:
-            launch = functools.partial(kernels.deme_breed_cuda, pipelined=geom.B > 1)
-        return launch(
+        return breed_launcher(geom, genomes.dtype, kw)(
             genomes, ranks, geom, parity, seed=seed, draws=draws, out=out, islands=islands,
             **kw,
         )
@@ -1406,8 +1416,8 @@ def make_fused_breed(
     ``gene_dtype`` (float32 or bfloat16) shapes the geometry and is the
     genomes' dtype; ``subblock`` (JAX's ``pallas_subblock``) is the
     ping-pong sub-block depth of :func:`resolve_geometry`, and where it
-    resolves to B > 1 the builtin hooks launch the pipelined deme breed.
-    The fused TSP score pairs with order crossover only (with a builtin or
+    resolves to B > 1 the builtin hooks launch the pipelined deme breed
+    where a cluster holds a deme (:func:`breed_launcher`). The fused TSP score pairs with order crossover only (with a builtin or
     an expression mutation): with uniform crossover that objective is
     scored by its rowwise form, as in JAX. Returns
     ``breed(genomes (Pp, L), scores (Pp,), parity, generator, out=None)

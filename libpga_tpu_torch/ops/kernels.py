@@ -60,6 +60,7 @@ only, as JAX declines order crossover at bfloat16.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -131,6 +132,13 @@ EXPR_HARNESS_MASKS = (2, 4, 8, 16, ABLATE_FLOOR, 32, 64)
 # The production unit's masks of each builtin kernel (deme_macro's kinds).
 DEME_UNIT_MASKS = {"deme": ABLATE_DEME_MASKS, "order": ABLATE_ORDER_MASKS,
                    "multigen": ABLATE_MULTIGEN_MASKS, "pipelined": (0,)}
+
+# The sub-block pipeline's launch plan: csrc/pipe_plan.cuh's constants,
+# mirrored by pipelined_plan (tests/test_torch_pipelined_plan.py builds the
+# header with the host compiler and holds the two together).
+PIPE_MAX_CLUSTER = 8  # the portable cluster size
+PIPE_SMEM_LIMIT = SMEM_BLOCK_BYTES - 1024  # a block's, beside its static arrays
+PIPE_ALIGN = 128  # each shared-memory region's alignment
 
 _libs: dict = {}
 _expr_libs: dict = {}  # (generated source, unit macro) -> built library path
@@ -470,6 +478,54 @@ def expr_ablate_mask(ablate, multigen: bool = False) -> int:
     return ablate_mask(ablate, multigen)
 
 
+@dataclasses.dataclass(frozen=True)
+class PipePlan:
+    """``deme_pipelined_kernel``'s plan for a deme (``csrc/pipe_plan.cuh``):
+    ``C`` blocks a cluster share it; each stages ``rows`` = K / C parent
+    rows, in ``chunks`` TMA bulk copies at parity 1 (runs of q rows; at
+    parity 0 one run), ``staged`` bytes a deme with the deme's K ranks, in
+    ``smem`` bytes of dynamic shared memory (two buffers of rows, two rank
+    rows, two row_of_rank arrays, two barriers)."""
+
+    C: int
+    rows: int
+    chunks: int
+    staged: int
+    smem: int
+
+
+def pipelined_plan(K: int, L: int, gene_bytes: int, q: int) -> Optional[PipePlan]:
+    """The least cluster of 1, 2, 4 or 8 blocks that holds a deme of ``K``
+    rows of ``L`` genes of ``gene_bytes`` each: K / C a power of two and a
+    multiple of the ping-pong quantum ``q`` (a power of two) and the
+    block's layout within ``PIPE_SMEM_LIMIT``; None where none does
+    (``pipe_plan`` in ``csrc/pipe_plan.cuh``, which the launcher uses)."""
+    def aligned(n: int) -> int:
+        return -(-n // PIPE_ALIGN) * PIPE_ALIGN
+
+    def pow2(n: int) -> bool:
+        return n > 0 and n & (n - 1) == 0
+
+    C = 1
+    while C <= PIPE_MAX_CLUSTER and pow2(q):
+        if K % C == 0 and (K // C) % q == 0 and pow2(K // C):
+            rows = K // C
+            smem = 2 * aligned(rows * L * gene_bytes) + 4 * aligned(K * 4) + PIPE_ALIGN
+            if smem <= PIPE_SMEM_LIMIT:
+                return PipePlan(C, rows, rows // q, rows * L * gene_bytes + K * 4, smem)
+        C *= 2
+    return None
+
+
+def pipelined_holds(geom, gene_dtype) -> bool:
+    """Whether a breed at ``geom`` with builtin hooks launches
+    ``deme_pipelined_kernel``: a sub-block geometry (B > 1) whose deme a
+    cluster holds (:func:`pipelined_plan`). Elsewhere ``deme_breed_kernel``
+    computes the same function at the same geometry."""
+    gene_bytes = 2 if gene_dtype == torch.bfloat16 else 4
+    return geom.B > 1 and pipelined_plan(geom.K, geom.L, gene_bytes, geom.q) is not None
+
+
 def _check_genomes(genomes: torch.Tensor, shape, device, order: bool = False) -> int:
     """``genomes`` checked as :func:`_check` does, float32 or bfloat16
     (float32 only for ``order`` crossover); returns the launchers'
@@ -552,15 +608,16 @@ def deme_breed_cuda(
     copy = mask == ABLATE_BITS["copy_only"]
     if pipelined and copy:
         raise ValueError("the pipelined deme breed has no copy: copy_only pins the riffle")
-    if pipelined and K % 4:
-        raise ValueError(f"the pipelined deme breed takes a deme size that is a multiple of 4"
-                         f" (K={K})")
     if demes_per_block < 1 or G % demes_per_block or (demes_per_block > 1 and not copy):
         raise ValueError(f"demes_per_block {demes_per_block}: the copy's, dividing G={G}")
     if not 0 <= warps_per_block <= 8 or (warps_per_block and not copy):
         raise ValueError(f"warps_per_block {warps_per_block}: the copy's, 1 to 8 (0: 8)")
     lead, n = _island_lead(islands)
     gene_id = _check_genomes(genomes, lead + (Pp, L), dev)
+    if pipelined and not pipelined_holds(geom, genomes.dtype):
+        raise ValueError(f"no cluster of at most {PIPE_MAX_CLUSTER} blocks holds a deme of {K}"
+                         f" rows of {L} genes (or B is 1): deme_breed_kernel breeds it"
+                         " (fused_step.breed_launcher)")
     _check(ranks, "handed scores" if copy else "ranks", torch.float32 if copy else torch.int32,
            (n * G, K), dev)
     _check(mparams, "mparams", torch.float32, (2,), dev)
@@ -600,8 +657,9 @@ def deme_breed_cuda(
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
     if pipelined:
-        if genomes.data_ptr() % 16 or ranks.data_ptr() % 16:
-            raise ValueError("the pipelined deme breed stages 16-byte aligned genomes and ranks")
+        if genomes.data_ptr() % 16 or ranks.data_ptr() % 16 or out.data_ptr() % 16:
+            raise ValueError("the pipelined deme breed stages 16-byte aligned genomes and ranks"
+                             " and stores 16-byte aligned children")
         _raise_on(lib.deme_pipelined_launch(*args, mask, stream), lib, "deme_breed")
         if ablate:
             _count("ablate_pipelined", genomes, mask)

@@ -1789,18 +1789,32 @@ def test_hook_ablated_kernels_reject_bad_arguments(cuda_device):
 # ------------------------------------------------- the sub-block pipeline
 
 # (P, L, gene dtype, B, islands, mutate, gene_atol): JAX's sub-block
-# geometries (resolve_geometry(subblock=B)); 8,000 rows pad; L = 33 at bf16
-# stages 2-byte-aligned rows by plain copies, L = 300 crosses 128-gene tiles.
+# geometries (resolve_geometry(subblock=B)), clusters of 1 (bf16 at L = 100;
+# L = 33 at bf16, 2-byte-aligned rows: one gene a lane), 2 (float32 at
+# L = 100), 4 (L = 128) and 8 blocks (L = 300, which also crosses 128-gene
+# tiles); swap mutation re-sums a child four genes a lane and one; 8,000
+# rows pad.
 PIPE_VARIANTS = [
     (65_536, 100, torch.float32, 2, None, "point", 0.0),
     (65_536, 100, torch.float32, 4, None, "point", 0.0),
     (65_536, 100, torch.bfloat16, 2, None, "point", 0.0),
     (16_384, 100, torch.float32, 2, 8, "point", 0.0),
     (16_384, 100, torch.bfloat16, 2, 8, "point", 0.0),
+    (65_536, 128, torch.float32, 2, None, "point", 0.0),
     (65_536, 300, torch.float32, 2, None, "gaussian", 1e-6),
     (65_536, 33, torch.bfloat16, 2, None, "swap", 0.0),
+    (65_536, 100, torch.float32, 2, None, "swap", 0.0),
+    (65_536, 100, torch.bfloat16, 4, None, "swap", 0.0),
     (8_000, 100, torch.float32, 2, None, "point", 0.0),
 ]
+
+
+def warp_order_scores(genomes, P, obj_id=onemax.fused_id):
+    """The breed kernels' scores of ``genomes`` as stored (pad rows -inf):
+    each child's terms summed in a warp's lane order."""
+    s = fs.rowwise_scores(obj_id, genomes.float(), warp_order=True)
+    s[..., P:] = -torch.inf
+    return s
 
 
 @pytest.mark.cuda
@@ -1809,11 +1823,13 @@ PIPE_VARIANTS = [
 def test_pipelined_kernel_equals_plain_on_card(cuda_device, variant):
     """deme_pipelined_kernel equals its plain version (and deme_breed_kernel
     at the same geometry) on the same inputs, Philox and injected draws,
-    both parities, one population or 8 islands; it launches where the
-    geometry's B is above 1 and counts under its own name."""
+    both parities, one population or 8 islands, its scores the warp-order
+    sums of the children bit for bit; it launches where the geometry's B is
+    above 1 and counts under its own name."""
     P, L, dtype, B, islands, mutate, atol = variant
     geom = fs.resolve_geometry(P, L, gene_dtype=dtype, subblock=B)
     assert geom.layout == "pingpong" and geom.B == B
+    assert kernels.pipelined_holds(geom, dtype)
     n = islands or 1
     lead = () if islands is None else (islands,)
     gen = torch.Generator(device=cuda_device).manual_seed(P + L + B)
@@ -1837,11 +1853,41 @@ def test_pipelined_kernel_equals_plain_on_card(cuda_device, variant):
             torch.cuda.synchronize()
             torch.testing.assert_close(got[0], want[0], rtol=0, atol=atol)
             torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-3)
+            assert torch.equal(got[1], warp_order_scores(got[0], P))
         assert kernels.LAUNCHES[key] == before + 2
         base = kernels.deme_breed_cuda(g, ranks, geom, parity, seed=seed, islands=islands, **kw)
-        torch.testing.assert_close(
-            fs.deme_breed(g, ranks, geom, parity, seed=seed, islands=islands, **kw)[0], base[0],
-            rtol=0, atol=atol)
+        got = fs.deme_breed(g, ranks, geom, parity, seed=seed, islands=islands, **kw)
+        torch.testing.assert_close(got[0], base[0], rtol=0, atol=atol)
+        if atol == 0.0:
+            assert torch.equal(got[1], base[1])
+
+
+@pytest.mark.cuda
+def test_deme_no_cluster_holds_breeds_through_deme_breed_kernel_on_card(cuda_device):
+    """At 131,072x1,024 float32, B = 2 (K = 256: 1 MB a deme) no cluster
+    of at most 8 blocks holds a deme: the breed launches deme_breed_kernel
+    at the B-aware geometry, counted under its layout, bit for bit against
+    the plain version; the pipelined wrapper refuses the shape."""
+    P, L = 131_072, 1024
+    geom = fs.resolve_geometry(P, L, subblock=2)
+    assert geom.B == 2 and geom.K == 256 and not kernels.pipelined_holds(geom, torch.float32)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device)
+    kw = dict(obj_id=onemax.fused_id, mparams=torch.tensor([0.05, 0.0], device=cuda_device))
+    for parity in range(2):
+        ranks = fs.compute_ranks(g.sum(dim=1), geom, parity,
+                                 fs.draw_tie_words(gen, geom.Pp, cuda_device))
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=cuda_device)
+        kernels.reset_launches()
+        got = fs.deme_breed(g, ranks, geom, parity, seed=seed, **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0), "pingpong": 1}
+        want = fs.deme_breed_reference(g, ranks, geom, parity,
+                                       fs.philox_draws(seed, geom.G, geom.K, L), **kw)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], warp_order_scores(got[0], P))
+    with pytest.raises(ValueError, match="no cluster"):
+        kernels.deme_breed_cuda(g, ranks, geom, 0, seed=seed, pipelined=True, **kw)
 
 
 @pytest.mark.cuda
@@ -1941,6 +1987,7 @@ def test_pipelined_ablated_breed_equals_plain_on_card(cuda_device, variant):
             torch.testing.assert_close(got[0], want[0], rtol=0,
                                        atol=1e-6 if mutate == "gaussian" else 0.0)
             torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-3)
+            assert torch.equal(got[1], warp_order_scores(got[0], P))
         launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
         assert launched == {key: 2}
         assert kernels.MASK_LAUNCHES[(key, mask)] == masked + 2
