@@ -89,10 +89,11 @@ for P, L in %r if tsp else %r:
         port.pga_run(pga, 48)
         torch.cuda.synchronize()
     kernel_ms["%%dx%%d" %% (P, L)] = {
-        re.search(r"\w*(breed|pipelined)_kernel", e.key).group():
+        re.search(r"\w*(breed|pipelined|multigen)_kernel", e.key).group():
             e.self_device_time_total / 1e3 / e.count
         for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and re.search(r"(breed|pipelined)_kernel", e.key)}
+        if e.device_type == DeviceType.CUDA
+        and re.search(r"(breed|pipelined|multigen)_kernel", e.key)}
     pop = pga.population(h)
     digest.update(pop.genomes.cpu().numpy().tobytes() + pop.scores.cpu().numpy().tobytes())
 print(json.dumps({"ms_per_gen": out, "kernel_ms": kernel_ms, "digest": digest.hexdigest()[:16]}))
@@ -113,7 +114,10 @@ def sass_by_kernel(root: Path) -> dict:
                          text=True, check=True, timeout=900).stdout.strip().splitlines()[-1]
     text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
-    mask = re.compile(r"(?<=_)[0-9a-f]{8}(?=_)")  # the unit's hash in internal names
+    # The unit's hashes in internal names: the anonymous namespace's, and the
+    # one after the file name, which moves with the unit's first external
+    # definition.
+    mask = re.compile(r"(?<=_)[0-9a-f]{8}(?=_)|(?<=_cu_)[0-9a-f]{8}")
     out = {}
     for chunk in text.split("Function : ")[1:]:
         name, _, body = chunk.partition("\n")

@@ -313,9 +313,22 @@ Phases, each printing one line; any failure exits non-zero:
      bf16, the creep hook) and with the other kernels' combinations, the
      launch counts set to 0 just before and read just after: every case of
      those kernels must have launched.
+Every phase that launches multigen_breed_kernel<false>
+(multigen_compare and multigen_times, multigen_run, island_compare,
+bf16_compare, floor_compare) also prints each launch's schedule (the
+cluster of csrc/mg_plan.cuh: C and the rows a block holds, or the
+one-block schedule), holds the cluster schedule's children and scores
+against the one-block schedule's (cluster=False) bit for bit, times the
+one-block schedule at the same geometry beside it, and checks that every
+builtin multi-generation cell of the main path takes the cluster route
+(kernels.CLUSTER_LAUNCHES). The phases of expr_multigen_kernel
+(expr_multigen_compare and expr_multigen_run, island_expr_compare,
+bf16_compare's expression case, hook_floor_compare) print its schedule,
+the one-block one (it has no other), and check that none of its launches
+took the cluster route.
 The earlier OneMax, GP and TSP runs keep their depths; the whole script
-takes about six minutes on the card (its build 50-75 s, the B10
-units 10-30 s more).
+takes about seven and a half minutes on the card (its build 70-130 s, the
+B10 units 10-30 s more).
 Then one JSON line of per-kernel numbers, the card's name and power
 limit, and last the result line. With --log FILE every line printed
 also goes to that file (a tool that shows only the end of a long output
@@ -1354,6 +1367,36 @@ def multigen_draws(fs, geom, steps, gen, device):
     )
 
 
+def mg_route(kernels, geom, dtype, kw) -> dict:
+    """The schedule a multi-generation launch of these keywords takes at
+    ``geom``: expression hooks the one-block schedule (expr_multigen_kernel
+    has no other); else multigen_breed_kernel's route, the plan of
+    csrc/mg_plan.cuh read from the built unit: the cluster's C and rows a
+    block, or the one-block schedule."""
+    from libpga_tpu_torch.ops import fused_step as fs
+
+    plan = None
+    if not fs.is_expression(kw.get("crossover")) and not fs.is_expression(kw.get("mutate")) \
+            and kw.get("objective") is None:
+        plan = kernels.multigen_cluster_plan(geom, dtype, kw.get("crossover", "uniform"))
+    if plan is None:
+        return {"route": "one_block"}
+    return {"route": "cluster", "C": plan.C, "rows_per_block": plan.rows,
+            "smem_per_block": plan.smem}
+
+
+def same_schedules(fs, got, g, s, geom, parity, steps, target, tag, **kw):
+    """The one-block schedule's launch of the same inputs (cluster=False),
+    held against ``got`` (the cluster schedule's): children and scores bit
+    for bit."""
+    import torch
+
+    old = fs.multigen_breed(g, s, geom, parity, steps, target, cluster=False, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], old[0]) and torch.equal(got[1], old[1]),
+          f"{tag}: the cluster and one-block schedules differ")
+
+
 def phase_multigen_compare(fs, kernels, device, results):
     """The multigen kernel against its plain version; times the kernel
     over a sweep of step counts and the plain version at 3 steps."""
@@ -1390,11 +1433,13 @@ def phase_multigen_compare(fs, kernels, device, results):
         seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
         tgt = float("inf") if target is None else target
         errs, frozen = [], None
+        route = mg_route(kernels, geom, torch.float32, kw)
         for mode in (dict(draws=multigen_draws(fs, geom, steps, gen, device)), dict(seed=seed)):
             got = fs.multigen_breed(g, s, geom, parity, steps, target, **mode, **kw)
             want = fs.multigen_breed_reference(g, s, geom, parity, steps, tgt, **mode, **kw)
             torch.cuda.synchronize()
             tag = f"{name} {'injected' if 'draws' in mode else 'philox'}"
+            same_schedules(fs, got, g, s, geom, parity, steps, target, tag, **mode, **kw)
             check(torch.equal(got[0], want[0]), f"{tag}: genomes differ")
             check(torch.equal(torch.isinf(got[1]), torch.isinf(want[1]))
                   and bool(torch.isinf(got[1][P:]).all()), f"{tag}: -inf rows differ")
@@ -1411,6 +1456,7 @@ def phase_multigen_compare(fs, kernels, device, results):
                 check(not torch.equal(got[0], g), f"{tag}: nothing bred")
         print(json.dumps({"phase": "multigen_compare", "case": name, "shape": [P, L],
                           "layout": geom.layout, "K": geom.K, "D": geom.D, "S": geom.S,
+                          **route, "same_as_one_block": True,
                           "Pp": geom.Pp, "steps": steps, "elitism": e, "target": target,
                           "groups_frozen_at_entry": frozen, "objective": oname,
                           "genomes_equal": True, "scores_equal": max(errs) == 0.0,
@@ -1455,25 +1501,32 @@ def phase_multigen_compare(fs, kernels, device, results):
             kw = dict(seed=seed, mparams=mparams, obj_id=obj.onemax.fused_id)
             out = torch.empty_like(g)
             work = [torch.empty_like(g), torch.empty_like(g)]
+            reps = 10 if P > 100_000 else 50
+            route = mg_route(kernels, geom, torch.float32, kw)
+            check(route["route"] == "cluster", f"multigen {P}x{L}: {route}")
             sweep = {}
             for T in MULTIGEN_SWEEP:
                 ms = cuda_ms(lambda: fs.multigen_breed(
-                    g, s, geom, 0, T, None, out=out, work=work, **kw), 10 if P > 100_000 else 50)
+                    g, s, geom, 0, T, None, out=out, **kw), reps)
                 bound_ms, bound_by, _ = breed_bound(geom, steps=T)
                 sweep[T] = {"ms": ms, "ms_per_gen": ms / T, "bound_ms": bound_ms,
                             "bound_by": bound_by}
+            # The one-block schedule at the same geometry (its work buffers).
+            one_block = {T: cuda_ms(lambda: fs.multigen_breed(
+                g, s, geom, 0, T, None, out=out, work=work, cluster=False, **kw), reps)
+                for T in (1, MULTIGEN_T)}
             plain = {T: cuda_ms(lambda: fs.multigen_breed_reference(
                 g, s, geom, 0, T, float("inf"), **kw), 2) for T in (3, MULTIGEN_T)}
             print(json.dumps({"phase": "multigen_times", "shape": [P, L], "layout": geom.layout,
-                              "K": geom.K, "D": geom.D, "S": geom.S,
-                              "kernel_by_steps": sweep,
+                              "K": geom.K, "D": geom.D, "S": geom.S, **route,
+                              "kernel_by_steps": sweep, "one_block_ms_by_steps": one_block,
                               "plain_ms_by_steps": plain}),
                   flush=True)
             results[layout].setdefault("shapes", {})[P] = dict(
                 ms=sweep[MULTIGEN_T]["ms"], bound_ms=sweep[MULTIGEN_T]["bound_ms"],
                 bound_by=sweep[MULTIGEN_T]["bound_by"], plain_ms=plain[MULTIGEN_T],
-                plain_ms_at_3_steps=plain[3],
-                ms_by_steps={T: v["ms"] for T, v in sweep.items()})
+                plain_ms_at_3_steps=plain[3], one_block_ms=one_block[MULTIGEN_T],
+                ms_by_steps={T: v["ms"] for T, v in sweep.items()}, **route)
 
 
 def multigen_solver(port, P, L, T, seed=1):
@@ -1514,6 +1567,8 @@ def phase_multigen_run(port, kernels, results):
             check(gens == RUN_GENS, f"multigen {P}: ran {gens} generations")
             check(launches["multigen"] == RUN_GENS // T and sum(launches.values()) == RUN_GENS // T,
                   f"multigen {P}: launches {launches} for {gens} generations at T={T}")
+            check(kernels.CLUSTER_LAUNCHES == {"multigen": RUN_GENS // T},
+                  f"multigen {P}: cluster-schedule launches {kernels.CLUSTER_LAUNCHES}")
             check(best > start_best + 10.0 and best < L, f"multigen {P}: best {start_best} -> {best}")
             check(bool(torch.isclose(pop.scores, pop.genomes.sum(dim=1), rtol=0, atol=SCORE_ATOL).all()),
                   f"multigen {P}: scores are not the genomes' onemax")
@@ -1959,13 +2014,15 @@ def phase_expr_multigen_compare(port, fs, device, results):
                 "D": geom.D, "S": geom.S, "Pp": geom.Pp, "genomes_equal": ulps == 0,
                 "genome_max_ulps": ulps, "scores_equal": max(errs) == 0.0,
                 "max_abs_err": max(errs), "obj_rows": program.obj_rows,
-                "warps_per_block": fs.kernels.expr_warps(geom.K, L, program.obj_rows, D=geom.D)}
+                "warps_per_block": fs.kernels.expr_warps(geom.K, L, program.obj_rows, D=geom.D),
+                **mg_route(fs.kernels, geom, torch.float32, kw)}
         r = results.setdefault(load, {})
         r["max_abs_err"] = max(r.get("max_abs_err", 0.0), max(errs))
         if timed:
             out = torch.empty_like(g)
             work = [torch.empty_like(g), torch.empty_like(g)]
             big = geom.Pp * L > 10_000_000
+            check(line["route"] == "one_block", f"expr multigen {name}: {line['route']}")
             ms = {T: cuda_ms(lambda: fs.multigen_breed(
                 g, s, geom, 0, T, None, seed=seed, out=out, work=work, **kw), 10 if big else 50)
                 for T in (1, EXPR_MG_T)}
@@ -2017,6 +2074,8 @@ def phase_expr_multigen_runs(port, kernels, results):
         check(ran == gens, f"{name}: ran {ran} generations")
         check(launches["expr_multigen"] == -(-gens // T) and sum(launches.values()) == -(-gens // T),
               f"{name}: launches {launches} for {gens} generations at T={T}")
+        check(not kernels.CLUSTER_LAUNCHES,
+              f"{name}: cluster-schedule launches {kernels.CLUSTER_LAUNCHES}")
         check(bool(torch.isfinite(pop.scores).all()) and bool(torch.isclose(
             pop.scores, rescored, rtol=EXPR_RTOL, atol=EXPR_ATOL_PER_GENE * L).all()),
               f"{name}: scores are not the genomes' objective")
@@ -2438,6 +2497,9 @@ def phase_island_compare(fs, device, results):
                 got, want = launch(0, I, **x), launch(0, I, plain=True, **x)
                 torch.cuda.synchronize()
                 tag = f"islands {name} parity {parity} {mode}"
+                if multigen:
+                    same_schedules(fs, got, g, s, geom, parity, steps, None, tag, islands=I,
+                                   **x, **kw)
                 if mutate == "gaussian":
                     check(bool(torch.isclose(got[0], want[0], rtol=0, atol=GAUSS_ATOL).all()),
                           f"{tag}: genomes differ beyond {GAUSS_ATOL}")
@@ -2484,9 +2546,15 @@ def phase_island_compare(fs, device, results):
         reps = 10 if multigen else 20
         ms, loop_ms = cuda_ms(island_launch, reps), cuda_ms(single_launches, reps)
         plain_ms = cuda_ms(lambda: launch(0, I, plain=True, seed=seeds), 2)
+        route = one_block_ms = None
         if multigen:
             bound_ms, bound_by, _ = breed_bound(geom, steps=steps)
             rank_ms = chain = None
+            route = mg_route(fs.kernels, geom, torch.float32, kw)
+            check(route["route"] == "cluster", f"islands {name}: {route}")
+            one_block_ms = cuda_ms(lambda: fs.multigen_breed(
+                g, s, geom, 0, steps, None, seed=seeds, out=out, work=work, islands=I,
+                cluster=False, **kw), reps)
         else:
             rank_ms = cuda_ms(lambda: fs.compute_ranks(s, geom, 0, tie), 20)
             order = cross == "order"
@@ -2499,10 +2567,12 @@ def phase_island_compare(fs, device, results):
                 "max_err": max(errs), "kernel_ms": ms, "loop_ms": loop_ms,
                 "loop_over_island": loop_ms / ms, "plain_ms": plain_ms, "rank_ms": rank_ms,
                 "bound_ms": I * bound_ms, "bound_by": bound_by, "chain_steps": chain,
-                "kernel_over_bound": ms / (I * bound_ms)}
+                "kernel_over_bound": ms / (I * bound_ms), "schedule": route,
+                "one_block_ms": one_block_ms}
         print(json.dumps(line), flush=True)
         r = {k: line[k] for k in ("case", "ms", "loop_ms", "plain_ms", "rank_ms", "bound_ms",
-                                  "bound_by", "layout", "K", "D", "steps")
+                                  "bound_by", "layout", "K", "D", "steps", "schedule",
+                                  "one_block_ms")
              if k in line} | {"ms": ms, "max_abs_err": max(errs), "shape": [I, S, L]}
         if kernel in results:
             results[kernel].setdefault("other_cases", {})[name] = r
@@ -2848,6 +2918,10 @@ def phase_island_expr_compare(port, fs, kernels, device, results):
         reps = 5 if multigen else 20
         ms, loop_ms = cuda_ms(island_launch, reps), cuda_ms(single_launches, reps)
         plain_ms = cuda_ms(lambda: launch(0, I, plain=True, seed=seeds), 1 if multigen else 2)
+        route = None
+        if multigen:
+            route = mg_route(kernels, geom, dtype, kw)
+            check(route["route"] == "one_block", f"expression islands {name}: {route}")
         gene_bytes = 2 if bf16 else 4
         chain = None
         bound_ms, bound_by, chain = breed_bound(geom, program=program, order=cross == "order",
@@ -2861,9 +2935,11 @@ def phase_island_expr_compare(port, fs, kernels, device, results):
                 "max_abs_err": max(errs), "score_rtol": rtol, "score_atol": atol,
                 "kernel_ms": ms, "loop_ms": loop_ms, "loop_over_island": loop_ms / ms,
                 "plain_ms": plain_ms, "bound_ms": I * bound_ms, "bound_by": bound_by,
-                "chain_steps": chain, "kernel_over_bound": ms / (I * bound_ms)}
+                "chain_steps": chain, "kernel_over_bound": ms / (I * bound_ms),
+                "schedule": route}
         print(json.dumps(line), flush=True)
         results[name] = {"counter": counter, "ms": ms, "loop_ms": loop_ms, "plain_ms": plain_ms,
+                         "schedule": route,
                          "bound_ms": I * bound_ms, "bound_by": bound_by, "chain_steps": chain,
                          "max_abs_err": max(errs), "shape": [I, S, L], "steps": steps,
                          "layout": geom.layout, "K": K, "D": geom.D,
@@ -3116,6 +3192,7 @@ def phase_bf16_compare(port, fs, device, results):
             torch.cuda.synchronize()
             errs.append(bf16_check(f"bf16 {name} {steps} steps {mode}", got, want, f32, P,
                                    0.0, SCORE_ATOL))
+            same_schedules(fs, got, g, s, geom, parity, steps, None, f"bf16 {name}", **x, **kw)
             check(not torch.equal(got[0], g), f"bf16 {name}: nothing bred")
             del got, want, f32, x
         kw = dict(seed=seed, mparams=mparams, obj_id=obj.onemax.fused_id)
@@ -3123,15 +3200,21 @@ def phase_bf16_compare(port, fs, device, results):
         g32 = g.float()
         out32, work32 = torch.empty_like(g32), [torch.empty_like(g32), torch.empty_like(g32)]
         reps = 10 if P > 100_000 else 50
+        route = mg_route(fs.kernels, geom, bf, kw)
+        check(route["route"] == "cluster", f"bf16 {name}: {route}")
         ms = cuda_ms(lambda: fs.multigen_breed(g, s, geom, 0, MULTIGEN_T, None, out=out,
-                                               work=work, **kw), reps)
+                                               **kw), reps)
+        one_block_ms = cuda_ms(lambda: fs.multigen_breed(g, s, geom, 0, MULTIGEN_T, None,
+                                                         out=out, work=work, cluster=False,
+                                                         **kw), reps)
         f32_ms = cuda_ms(lambda: fs.multigen_breed(g32, s, geom, 0, MULTIGEN_T, None, out=out32,
                                                    work=work32, **kw), reps)
         plain_ms = cuda_ms(lambda: fs.multigen_breed_reference(
             g, s, geom, 0, MULTIGEN_T, math.inf, **kw), 2)
         record(name, geom, errs, ms, f32_ms, plain_ms,
                breed_bound(geom, steps=MULTIGEN_T, gene_bytes=2), steps=MULTIGEN_T, shape=[P, L],
-               f32_bound_ms=breed_bound(geom, steps=MULTIGEN_T)[0])
+               f32_bound_ms=breed_bound(geom, steps=MULTIGEN_T)[0], schedule=route,
+               one_block_ms=one_block_ms)
         del g, g32, out, work, out32, work32
         torch.cuda.empty_cache()
 
@@ -3211,8 +3294,12 @@ def phase_bf16_compare(port, fs, device, results):
         ms = cuda_ms(lambda: launch(g, out), reps)
         f32_ms = cuda_ms(lambda: launch(g32, out32), reps)
         plain_ms = cuda_ms(plain, 2)
+        extra = {}
+        if steps:
+            extra["schedule"] = mg_route(fs.kernels, geom, bf, kw)
+            check(extra["schedule"]["route"] == "one_block", f"bf16 {name}: {extra['schedule']}")
         record(name, geom, errs, ms, f32_ms, plain_ms, bound, steps=steps or 1, shape=[P, L],
-               f32_bound_ms=f32_bound[0])
+               f32_bound_ms=f32_bound[0], **extra)
         del g, g32, out, out32
         torch.cuda.empty_cache()
 
@@ -3506,7 +3593,11 @@ def phase_floor_compare(fs, onemax, device, results):
     out = torch.empty_like(g)
     work = [torch.empty_like(g), torch.empty_like(g)]
     full_ms = cuda_ms(lambda: fs.multigen_breed(g, s, geom, 0, FLOOR_T, None, seed=seed, out=out,
-                                                work=work, **prod.kw), 10)
+                                                **prod.kw), 10)
+    full_one_block_ms = cuda_ms(lambda: fs.multigen_breed(
+        g, s, geom, 0, FLOOR_T, None, seed=seed, out=out, work=work, cluster=False, **prod.kw), 10)
+    route = mg_route(fs.kernels, geom, torch.float32, prod.kw)
+    check(route["route"] == "cluster", f"floor multigen: {route}")
     for flag, target in FLOOR_MULTIGEN_CASES:
         launch = fs.make_fused_multigen(P, L, onemax, deme_size=K, device=device, mparams=mparams,
                                         ablate=(flag,))
@@ -3522,20 +3613,25 @@ def phase_floor_compare(fs, onemax, device, results):
             fin = torch.isfinite(want[1])
             errs.append(float((got[1][fin] - want[1][fin]).abs().max()))
             check(errs[-1] <= SCORE_ATOL, f"{tag}: score error {errs[-1]}")
+            same_schedules(fs, got, g, s, geom, 0, FLOOR_T, target, tag, **mode, **kw)
         ms = cuda_ms(lambda: fs.multigen_breed(g, s, geom, 0, FLOOR_T, None, seed=seed, out=out,
-                                               work=work, **kw), 10)
+                                               **kw), 10)
+        one_block_ms = cuda_ms(lambda: fs.multigen_breed(
+            g, s, geom, 0, FLOOR_T, None, seed=seed, out=out, work=work, cluster=False, **kw), 10)
         plain_ms = cuda_ms(lambda: fs.multigen_breed_reference(
             g, s, geom, 0, FLOOR_T, math.inf, seed=seed, **kw), 2)
         bound_ms, bound_by, _ = breed_bound(geom, steps=FLOOR_T)
         line = {"phase": "floor_compare", "case": f"multigen_{flag}", "shape": [P, L],
                 "steps": FLOOR_T, "compare_target": target, "layout": geom.layout, "K": geom.K,
-                "D": geom.D, "genomes_equal": True, "max_abs_err": max(errs), "kernel_ms": ms,
+                "D": geom.D, **route, "genomes_equal": True, "same_as_one_block": True,
+                "max_abs_err": max(errs), "kernel_ms": ms, "one_block_ms": one_block_ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "production_ms": full_ms}
+                "production_ms": full_ms, "production_one_block_ms": full_one_block_ms}
         print(json.dumps(line), flush=True)
         entry = results.setdefault("ablate_multigen", {"max_abs_err": 0.0, "cases": {}})
         entry["max_abs_err"] = max(entry["max_abs_err"], max(errs))
-        entry["cases"][flag] = {k: line[k] for k in ("kernel_ms", "plain_ms", "production_ms")}
+        entry["cases"][flag] = {k: line[k] for k in ("kernel_ms", "one_block_ms", "plain_ms",
+                                                     "production_ms", "production_one_block_ms")}
         if flag == "no_freeze":
             entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                          case=flag, shape=[P, L], steps=FLOOR_T)
@@ -3666,13 +3762,19 @@ def phase_hook_floor_compare(fs, kernels, device, results, rows=HOOK_FLOOR_ROWS,
         seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
         out = torch.empty_like(g)
         work = [torch.empty_like(g), torch.empty_like(g)]
+        route = None
         if multigen:
             prod_ms = cuda_ms(lambda: fs.multigen_breed(g, s, geom, 0, T, None, seed=seed, out=out,
                                                         work=work, **prod.kw), 5)
+            route = mg_route(kernels, geom, torch.float32, prod.kw)
+            builtin = not order and program is None  # the builtin uniform kernel's route
+            check(route["route"] == ("cluster" if builtin else "one_block"),
+                  f"hook floor {row}: {route}")
         else:
             ranks = fs.compute_ranks(s, geom, 0, fs.draw_tie_words(gen, geom.Pp, device))
             prod_ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seed, out=out,
                                                     **prod.kw), 20)
+        cluster = route is not None and route["route"] == "cluster"
         prod_bound = breed_bound(geom, program=program, order=order, n_cities=n_cities, steps=T)
         for case in cases:
             ablate = hook_case_flags(case)
@@ -3686,7 +3788,7 @@ def phase_hook_floor_compare(fs, kernels, device, results, rows=HOOK_FLOOR_ROWS,
                       "#define DEME_ABLATE_EXTRA"), f"{tag}: mask {mask} is not an extra unit's")
             breed = make(P, L, objective, deme_size=K, device=device, ablate=ablate, **kinds)
             cg, kw = breed.geom, breed.kw
-            errs = []
+            errs, one_block_ms = [], None
             if copy:
                 handed = s.view(cg.G, cg.K)
                 got = launched_once(kernels, key, mask,
@@ -3719,9 +3821,15 @@ def phase_hook_floor_compare(fs, kernels, device, results, rows=HOOK_FLOOR_ROWS,
                     errs.append(float((got[1][fin] - want[1][fin]).abs().max()))
                     check(bool(torch.allclose(got[1][fin], want[1][fin], rtol=rtol, atol=atol)),
                           f"{tag} {m}: score error {errs[-1]}")
+                    if cluster:
+                        same_schedules(fs, got, g, s, cg, 0, T, tgt, f"{tag} {m}", **mode, **kw)
                 del draws
                 ms = cuda_ms(lambda: fs.multigen_breed(g, s, cg, 0, T, None, seed=seed, out=out,
                                                        work=work, **kw), 5)
+                if cluster:
+                    one_block_ms = cuda_ms(lambda: fs.multigen_breed(
+                        g, s, cg, 0, T, None, seed=seed, out=out, work=work, cluster=False, **kw),
+                        5)
                 bound = breed_bound(cg, ablate=ablate, program=program, order=order, steps=T)
             else:
                 injected = order_draws(fs, cg, mut, gen, device) if order else \
@@ -3757,14 +3865,15 @@ def phase_hook_floor_compare(fs, kernels, device, results, rows=HOOK_FLOOR_ROWS,
                     "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
                     "chain_steps": bound[2], "production_ms": prod_ms,
                     "production_bound_ms": prod_bound[0], "production_bound_by": prod_bound[1],
-                    "production_chain_steps": prod_bound[2]}
+                    "production_chain_steps": prod_bound[2], "schedule": route,
+                    "one_block_ms": one_block_ms}
             print(json.dumps(line), flush=True)
             results.setdefault("lines", {})[f"{row}-{name}"] = line
             entry = results.setdefault(entry_name, {"max_abs_err": 0.0, "cases": {}})
             entry["max_abs_err"] = max(entry["max_abs_err"], max(errs))
             entry["cases"][f"{row}-{name}"] = {k: line[k] for k in (
                 "kernel_ms", "plain_ms", "bound_ms", "bound_by", "production_ms",
-                "production_bound_ms", "kernel")}
+                "production_bound_ms", "kernel", "schedule", "one_block_ms")}
             if f"{row}-{name}" == HOOK_FLOOR_ENTRIES.get(entry_name, (None,) * 3)[2]:
                 entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
                              case=f"{row}-{name}", shape=[P, L], steps=T,
@@ -4603,6 +4712,7 @@ def drive(torch, port, onemax, fs, kernels) -> int:
     """Every phase, then the kernels line, the card's line and the
     result line."""
     device = torch.device("cuda", 0)
+    started = time.perf_counter()
     smi = nvidia_smi()
     print(json.dumps({"phase": "device", "name": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi, "count": torch.cuda.device_count(),
@@ -4707,7 +4817,9 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "max_abs_err": r["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": None,
-            "shape": [P, L], "steps": MULTIGEN_T,
+            "shape": [P, L], "steps": MULTIGEN_T, "schedule": first["route"], "C": first["C"],
+            "one_block_ms": first["one_block_ms"],
+            "deme_breed_x8_ms": 8 * results["pingpong"]["ms"] if P == 1 << 20 else None,
             "plain_ms_at_3_steps": first["plain_ms_at_3_steps"],
             "ms_by_steps": first["ms_by_steps"],
             "other_shapes": {str(p): r["shapes"][p] for p, _ in rest},
@@ -4755,7 +4867,7 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "shape": r["shape"], "layout": r["layout"], "steps": EXPR_MG_T,
-            "ms_at_1_step": r["ms_at_1_step"], "ms_per_gen": r["ms_per_gen"],
+            "schedule": "one_block", "ms_at_1_step": r["ms_at_1_step"], "ms_per_gen": r["ms_per_gen"],
             "one_per_launch_ms_per_gen": r["one_per_launch_ms_per_gen"],
             "device_busy_share": r["device_busy_share"], "best": r["best"],
         })
@@ -4787,7 +4899,8 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "loop_ms": r["loop_ms"], "library_ms": None, "case": r["case"], "shape": r["shape"],
-            "steps": r["steps"], "rank_ms": r.get("rank_ms"),
+            "steps": r["steps"], "rank_ms": r.get("rank_ms"), "schedule": r.get("schedule"),
+            "one_block_ms": r.get("one_block_ms"),
             "other_cases": r.get("other_cases", {}),
         })
     for name, r in bf16_results.items():
@@ -4806,6 +4919,7 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "library_ms": None, "gene_dtype": "bfloat16", "shape": r["shape"],
             "layout": r["layout"], "K": r["K"], "D": r["D"], "steps": r["steps"],
             "f32_ms": r["f32_ms"], "f32_bound_ms": r["f32_bound_ms"], "loop_ms": r.get("loop_ms"),
+            "schedule": r.get("schedule"), "one_block_ms": r.get("one_block_ms"),
             "gens_per_s": r["gens_per_s"], "f32_gens_per_s": r["f32_gens_per_s"],
             "device_busy_share": r.get("device_busy_share"),
         })
@@ -4821,7 +4935,7 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "loop_ms": r["loop_ms"], "shape": r["shape"],
-            "steps": r["steps"], "gene_dtype": r["gene_dtype"], "layout": r["layout"],
+            "schedule": r["schedule"], "steps": r["steps"], "gene_dtype": r["gene_dtype"], "layout": r["layout"],
             "K": r["K"], "D": r["D"], "chain_steps": r["chain_steps"],
             "gens_per_s": r["gens_per_s"], "single_gens_per_s": r["single_gens_per_s"],
             "device_busy_share": r["device_busy_share"],
@@ -4896,6 +5010,7 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "device_busy_share": r["run"].get("device_busy_share"),
         })
     entries += b10_entries(b10_results, b10_hook_results["lines"])
+    print(json.dumps({"phase": "total", "seconds": time.perf_counter() - started}), flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

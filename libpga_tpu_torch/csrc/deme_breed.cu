@@ -5,7 +5,9 @@
 // computed inside the kernel; uniform or order crossover) and, at the end of
 // this file, deme_pipelined_kernel (deme_breed_kernel's function on a
 // persistent grid of thread-block clusters that stage each deme's parent rows
-// whole in shared memory by TMA, for the sub-block pipeline's geometries).
+// whole in shared memory by TMA, for the sub-block pipeline's geometries) and
+// multigen_breed_kernel<false>'s cluster schedule (a group held in a
+// thread-block cluster's shared memory for a whole launch).
 //
 // deme_breed_kernel replaces, in libpga_tpu/ops/pallas_step.py:
 //   _pp_breed_kernel (ping-pong row maps, parity 0 and 1),
@@ -81,8 +83,9 @@
 // writes child.astype(bfloat16) (:1114, :1284, :1361, :1590, :1663) and
 // scores the stored genes (:1120-1125, :1373, :1667). So a bf16 child is
 // the float32 kernel's child on the same (widened) parents, rounded; the
-// multigen kernel's sub-generation t + 1 reads step t's rounded rows from
-// bf16 work buffers. Draws, draw counts and Philox streams are the float
+// multigen kernel's sub-generation t + 1 reads step t's rounded rows (from
+// the cluster's bf16 copy in shared memory, or on the one-block schedule
+// from bf16 work buffers). Draws, draw counts and Philox streams are the float
 // kernel's. Bound: 2-byte genes halve the bytes, 2*Pp*L*2 + 8*Pp (0.128 ms
 // at 1,048,576x100); the loads stay one scalar per lane and gene (wider
 // loads are later work). Order crossover stays float32 only, as in JAX
@@ -630,8 +633,10 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
 // <= 35 KB). __syncthreads() between the phases is the only synchronisation;
 // `steps` is a kernel argument, so every thread runs the same trips. One warp
 // per child with lanes over genes, as deme_breed_kernel; blocks of 1,024
-// threads measured faster than 256 or 512 at every shape tried. Keeping a
-// K = 256 deme's two copies in shared memory is later work.
+// threads measured faster than 256 or 512 at every shape tried. This
+// one-block schedule now runs order crossover and the groups no cluster
+// holds: uniform crossover keeps a group in a thread-block cluster's shared
+// memory ("multigen_breed_kernel<false>'s cluster schedule", below).
 //
 // Order crossover (multigen_breed_kernel<true>; _multigen_kernel's order_refs,
 // :1548, passed to _deme_child, :1659). D is 1 and the row map the riffle, as
@@ -779,46 +784,6 @@ constexpr int PIPE_LOADS = 4;               // genes a lane has in flight
 #ifndef PIPE_PART
 #define PIPE_PART 0
 #endif
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// A full barrier of one arrival (lane 0 of warp 0, with expect_tx) and the
-// bytes its bulk copies bring.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "PIPE_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@!P1 bra PIPE_WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// A TMA bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
-// aligned) from device memory into this block's shared memory, completing
-// on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // warp_sum of a child's terms from its lane group's partials, one gene a lane:
 // v[m] is the sum of warp-lane position j + 8*m (j the sub-lane). The
@@ -1239,6 +1204,298 @@ __global__ void __launch_bounds__(PIPE_THREADS, 1) deme_pipelined_kernel(
   cluster.sync();  // no block leaves while another may still read its buffers
 }
 
+// ---------------------------------------------------------------------------
+// multigen_breed_kernel<false>'s cluster schedule (B4 redesigned for Hopper).
+//
+// The same function as the one-block schedule above (multigen_group):
+// fused_step.multigen_breed_reference, children and scores bit for bit, with
+// the same Philox counters (child k, deme g, stream, sub-generation t) and
+// injected draws. Only the schedule differs.
+//
+// Why. The one-block schedule could not keep a group on the chip: two
+// copies of a K = 512, L = 100 group exceed a block's 227 KB, so every
+// sub-generation read its parents from a global work buffer and wrote its
+// children to the other, and at 1,048,576x100 each of the T sub-generations
+// streamed the population through device memory; each deme was ranked by a
+// K*K count (512 compares a row); and one warp a child in blocks of 1,024
+// threads was instruction-bound. A T = 8 launch cost more than eight
+// one-generation launches (7.075 against 8 x 0.7934 ms at 1M, PERF.md).
+//
+// The cluster schedule (breed_core.cuh's multigen_cluster; mg_plan.cuh):
+//   - A cluster of C blocks holds a group of W = D*K rows in shared memory
+//     for the whole launch, C the least of 1, 2, 4, 8 whose two copies of
+//     the group fit (at 1,048,576x100 float32, riffle K = 512 D = 4: C = 8,
+//     256 rows a block). Block c holds slots [c*R, (c+1)*R), R = W/C.
+//   - The grid is persistent: as many clusters as the card holds at once
+//     (cudaOccupancyMaxActiveClusters); cluster j walks its run of the
+//     groups of every island (the island is part of the group index). A
+//     group's rows are staged from gin through read_row by TMA bulk copies
+//     on an mbarrier, the next group's while this one is written back.
+//   - Each sub-generation reads its parents from one copy, through
+//     distributed shared memory where a parent is a peer's, and writes its
+//     children into the other; only the last writes gout, through write_row.
+//     No work buffer, and no genome traffic between the launch's first read
+//     and last write.
+//   - The freeze flag is a cluster reduction: each warp publishes the
+//     maximum and the NaN flag of its rows' alive scores, and every warp
+//     reads all of them through distributed shared memory after the one
+//     cluster barrier a sub-generation (keys, maxima and the previous
+//     children are all in by then; the published keys and maxima are
+//     double-buffered by t, so no other cluster barrier is needed). A frozen
+//     group stays frozen (its scores no longer change), so the cluster stops
+//     breeding it.
+//   - Ranks by sorting: the 64-bit keys of a deme are distinct (the tie word
+//     carries k in its low 10 bits), so any exact sort gives the count's
+//     order, and row_of_rank[rank] is the key's low 10 bits. mg_rank merge
+//     sorts a deme: each warp sorts runs of 32 keys in its registers (a
+//     bitonic network of shuffles), then a key's rank is its place in its
+//     run plus a binary search in each other run of the deme. A first
+//     version sorted the deme by a whole bitonic network (45 dependent
+//     stages, 10 through shared memory): on the critical path of every
+//     sub-generation it cost more than the K*K count it replaced (PERF.md
+//     section 5). Where a deme spans blocks (R < K) each of its blocks gathers
+//     the deme's published keys and ranks them; else a block ranks its
+//     demes.
+//   - The breed of a child is deme_pipelined_kernel's: 8 lanes a child, four
+//     genes a lane (16-byte shared loads and stores; one gene a lane where
+//     L % 4 != 0), 16 warps a block, scores in warp_sum's order (pipe_sum4,
+//     pipe_sum), gaussian mutation and the transcendental objectives out of
+//     line. Children and scores go to shared memory.
+// Groups no cluster holds (mg_plan.cuh: C = 0) and order crossover
+// (multigen_breed_kernel<true>) keep the one-block schedule above: the route
+// is decided from the shape before any launch (kernels.multigen_breed_cuda),
+// and a cluster launch of a shape no cluster holds fails. The expression
+// kernel (expr_breed.cu) keeps the one-block schedule everywhere: a cluster
+// version with one warp a child through the hooks measured slower than it
+// (PERF.md section 5).
+//
+// Bound: the one-block schedule's (the population and its scores read once
+// and written once). The floor harness's cases (ABL_NO_FREEZE,
+// ABL_NO_RANK_CUBE: each deme's rank r is slot r; the stage bits, with
+// deme_pipelined_kernel's meaning) run on this schedule wherever the plan
+// holds the group.
+
+// Gaussian mutation of gene l of child k of deme g in sub-generation t, out
+// of the breed's loop (pipe_gauss's reason).
+__device__ __noinline__ float mg_gauss(BreedCtx cx, Draws dr, float x, int k, int g, uint32_t t,
+                                       int l, size_t child) {
+  return gauss_mutate(cx, dr, x, k, g, t, l, child, true);
+}
+
+template <bool ORDER, class Gene, unsigned ABLATE = 0u>
+__global__ void __launch_bounds__(MGC_THREADS, 1) multigen_breed_kernel(
+    MultigenIO<Gene> io, const float* __restrict__ mparams, Draws dr0, Geometry geo,
+    Selection sel, int mutate, int obj, int elitism, int draw_steps, int islands, MgPlan plan) {
+  static_assert(!ORDER, "order crossover breeds on the one-block schedule");
+  constexpr bool SAME = (ABLATE & (ABL_SEL_CONST | ABL_NO_GATHER)) != 0u;
+  constexpr bool DRAWS_SEL = !(ABLATE & ABL_SEL_CONST);
+  constexpr bool CROSSES = !(ABLATE & ABL_NO_CROSS);
+  constexpr bool MUTATES = !(ABLATE & ABL_NO_MUT);
+  constexpr unsigned CALLS = (DRAWS_SEL ? 1u : 0u) | (MUTATES ? 2u : 0u) | (CROSSES ? 4u : 0u);
+  extern __shared__ __align__(16) unsigned char mgc_smem[];
+  const int K = geo.K, L = geo.L;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // Lane group h of the warp breeds one child, sub-lane jl four genes at a
+  // time (4*jl + 0..3, + 32, ...) where L is a multiple of 4, else the genes
+  // jl, jl + 8, ...
+  const int h = lane / PIPE_LANES, jl = lane % PIPE_LANES, lead = h * PIPE_LANES;
+  const bool vec = L % 4 == 0;
+
+  auto breed = [&](const MgStep<Gene>& st, const cg::cluster_group& cl) {
+    const BreedCtx& cx = st.cx;
+    const Draws& dr = st.dr;
+    const uint32_t t = st.t;
+    for (int x0 = warp * PIPE_KIDS; x0 < st.R; x0 += MGC_THREADS / 32 * PIPE_KIDS) {
+      const int xl = x0 + h, x = st.c * st.R + xl, k = x & (K - 1);
+      const int g = st.i * geo.D + (x >> st.ks);
+      const size_t child = (size_t)g * K + k;
+      // child_rand's draws: sub-lane jl computes Philox call jl where its
+      // stage runs.
+      float su0 = 0.0f, su1 = 0.0f, mu0 = 0.0f, mu1 = 0.0f, mu2 = 0.0f;
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (cx.philox_mode) {
+        if (jl < 3 && ((CALLS >> jl) & 1u)) w = philox(cx.k0, cx.k1, make_uint4(k, g, jl, t));
+        if constexpr (DRAWS_SEL) {
+          su0 = to_uniform(__shfl_sync(FULL, w.x, lead));
+          su1 = to_uniform(__shfl_sync(FULL, w.y, lead));
+        }
+        if constexpr (MUTATES) {
+          mu0 = to_uniform(__shfl_sync(FULL, w.x, lead + 1));
+          mu1 = to_uniform(__shfl_sync(FULL, w.y, lead + 1));
+          mu2 = to_uniform(__shfl_sync(FULL, w.z, lead + 1));
+        }
+        if constexpr (CROSSES) {
+          w = make_uint4(__shfl_sync(FULL, w.x, lead + STREAM_CROSS),
+                         __shfl_sync(FULL, w.y, lead + STREAM_CROSS),
+                         __shfl_sync(FULL, w.z, lead + STREAM_CROSS),
+                         __shfl_sync(FULL, w.w, lead + STREAM_CROSS));
+        }
+      } else {
+        if constexpr (DRAWS_SEL) {
+          su0 = dr.sel_u[child * 2];
+          su1 = dr.sel_u[child * 2 + 1];
+        }
+        if constexpr (MUTATES) {
+          mu0 = dr.mut_u[child * 4];
+          mu1 = dr.mut_u[child * 4 + 1];
+          mu2 = dr.mut_u[child * 4 + 2];
+        }
+      }
+      // An elite is its rank-k parent verbatim (SAME: bred from slot k
+      // alone); either way it is not mutated.
+      const bool elite = k < elitism;
+      const int2 s = mg_parents<SAME>(st, sel, x, elite, su0, su1);
+      const Gene* p1 = mg_parent(st, cl, s.x, L);
+      const Gene* p2 = mg_parent(st, cl, s.y, L);
+      Gene* out = st.next + (size_t)xl * L;
+      const int pos = (int)floorf(mu0 * (float)L);
+      const int pj = (int)floorf(mu1 * (float)L);
+      const bool fire = MUTATES && !elite && (mutate == MUT_SWAP ? mu2 < cx.rate : mu1 < cx.rate);
+      const bool gauss = MUTATES && !elite && mutate == MUT_GAUSSIAN;
+      // Adds gene x's terms to the score partials, as obj_add does.
+      const bool plain = obj == OBJ_ONEMAX;
+      auto add = [&](float x, float& sa, float& se) {
+        if (plain) {
+          sa += x;
+        } else {
+          const float2 d = pipe_terms(obj, x);
+          sa += d.x;
+          se += d.y;
+        }
+      };
+      // The score's partials (ackley's cosine sums in e): four genes a lane,
+      // one a warp-lane position 4*j + i; one gene a lane, j + 8*m.
+      float a[4], e[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = e[i] = 0.0f;
+      auto add4 = [&](const float (&x)[4], int l0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (l0 + i < L) add(x[i], a[i], e[i]);
+      };
+      // Cross, mutate, round, store and sum the child, 128 genes (one
+      // crossover call) a tile.
+      for (int tile = 0; 128 * tile < L; ++tile) {
+        if (CROSSES && cx.philox_mode && tile > 0)
+          w = philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_CROSS + tile, t));
+        if (vec) {
+#pragma unroll
+          for (int it = 0; it < 4; ++it) {  // crossover word it: genes 32*it .. of the tile
+            const int l0 = 128 * tile + 32 * it + 4 * jl;
+            float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            if (l0 < L) {
+              load4(p1 + l0, x);
+              if constexpr (CROSSES) {
+                uint32_t bits;  // gene l0 + i takes p2's gene where bit i is set
+                if (cx.philox_mode) {
+                  bits = (it == 0 ? w.x : it == 1 ? w.y : it == 2 ? w.z : w.w) >> (4 * jl);
+                } else {
+                  const uint32_t u = *reinterpret_cast<const uint32_t*>(dr.cross + child * L + l0);
+                  bits = ((u & 0xffu) != 0u) | (((u >> 8) & 0xffu) != 0u) << 1 |
+                         (((u >> 16) & 0xffu) != 0u) << 2 | ((u >> 24) != 0u) << 3;
+                }
+                float y[4];
+                load4(p2 + l0, y);
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                  if ((bits >> i) & 1u) x[i] = y[i];
+              }
+              if (mutate == MUT_POINT) {
+                if (fire && (unsigned)(pos - l0) < 4u) {
+#pragma unroll
+                  for (int i = 0; i < 4; ++i)
+                    if (l0 + i == pos) x[i] = mu2;
+                }
+              } else if (gauss) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) x[i] = mg_gauss(cx, dr, x[i], k, g, t, l0 + i, child);
+              }
+#pragma unroll
+              for (int i = 0; i < 4; ++i) x[i] = round_gene<Gene>(x[i]);
+              store4(out + l0, x);
+            }
+            if (obj != OBJ_NONE) add4(x, l0);
+          }
+        } else {
+#pragma unroll
+          for (int i0 = 0; i0 < 128 / PIPE_LANES; i0 += PIPE_LOADS) {
+            if (128 * tile + PIPE_LANES * i0 < L) {
+              float cv[PIPE_LOADS];
+#pragma unroll
+              for (int u = 0; u < PIPE_LOADS; ++u) {
+                const int lt = jl + PIPE_LANES * (i0 + u), l = 128 * tile + lt;
+                uint32_t bit = 0u;  // no_cross: every gene from p1
+                if constexpr (CROSSES) {
+                  if (cx.philox_mode) {
+                    const int wi = lt >> 5;
+                    bit = ((wi == 0 ? w.x : wi == 1 ? w.y : wi == 2 ? w.z : w.w) >> (lt & 31)) & 1u;
+                  } else if (l < L) {
+                    bit = dr.cross[child * L + l];
+                  }
+                }
+                cv[u] = l < L ? load_gene<false>((bit ? p2 : p1) + l) : 0.0f;
+              }
+#pragma unroll
+              for (int u = 0; u < PIPE_LOADS; ++u) {
+                const int l = 128 * tile + jl + PIPE_LANES * (i0 + u);
+                if (l < L) {
+                  float x = cv[u];
+                  if (mutate == MUT_POINT) {
+                    if (fire && l == pos) x = mu2;
+                  } else if (gauss) {
+                    x = mg_gauss(cx, dr, x, k, g, t, l, child);
+                  }
+                  x = round_gene<Gene>(x);
+                  store_gene(out + l, x);
+                  add(x, a[(i0 + u) % 4], e[(i0 + u) % 4]);
+                }
+              }
+            }
+          }
+        }
+      }
+      if (MUTATES && mutate == MUT_SWAP) {
+        const bool swap = fire && pos < L && pj < L;
+        __syncwarp();
+        if (swap && jl == 0) {
+          const Gene x = out[pos], y = out[pj];
+          out[pos] = y;
+          out[pj] = x;
+        }
+        __syncwarp();
+        if (swap && obj != OBJ_NONE) {
+          // The score is of the child as written: sum again after the swap.
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = e[i] = 0.0f;
+          if (vec) {
+            for (int l0 = 4 * jl; l0 < L; l0 += 32) {
+              float x[4];
+              load4(out + l0, x);
+              add4(x, l0);
+            }
+          } else {
+            for (int i0 = 0; PIPE_LANES * i0 < L; i0 += 4) {
+#pragma unroll
+              for (int m = 0; m < 4; ++m) {
+                const int l = jl + PIPE_LANES * (i0 + m);
+                if (l < L) add(load_gene<false>(out + l), a[m], e[m]);
+              }
+            }
+          }
+        }
+      }
+      if (obj != OBJ_NONE) {
+        const float sa = vec ? pipe_sum4(a) : pipe_sum(a);
+        float se = 0.0f;  // ackley's cosine sum; no other objective has a second
+        if (obj == OBJ_ACKLEY) se = vec ? pipe_sum4(e) : pipe_sum(e);
+        if (jl == 0) st.score[xl] = obj_finish(obj, sa, se, L);
+      }
+    }
+  };
+  multigen_cluster<ABLATE, MGC_THREADS>(io, geo, plan, dr0, mparams, mutate, obj, draw_steps,
+                                        islands, !CROSSES, mgc_smem, breed);
+}
+
 
 // The ABLATE cases each unit builds (ops/kernels.py, deme_unit). A launch
 // with a mask its unit does not hold fails with cudaErrorInvalidValue;
@@ -1469,11 +1726,43 @@ extern "C" int order_breed_launch(
   });
 }
 
+namespace {
+
+// The one-block schedule's kernel of crossover ORDER (multigen_group), apart
+// from the cluster schedule's overload of the same template.
+template <bool ORDER, class Gene, unsigned ABLATE>
+auto multigen_one_block() {
+  return static_cast<void (*)(MultigenIO<Gene>, const float*, Draws, Geometry, Selection, int,
+                              int, int, int)>(multigen_breed_kernel<ORDER, Gene, ABLATE>);
+}
+
+// multigen_breed_kernel<false>'s cluster schedule at the geometry: the plan
+// of mg_plan.cuh (C = 0, no cluster holds a group: refused).
+template <class Gene>
+int multigen_cluster_launch(const MultigenIO<Gene>& io, const float* mparams, const Draws& dr,
+                            const Geometry& geo, const Selection& sel, int mutate, int obj,
+                            int elitism, int draw_steps, int islands, unsigned ablate,
+                            cudaStream_t stream) {
+  const MgPlan plan = mg_plan(geo.D, geo.K, geo.L, (int)sizeof(Gene), geo.q);
+  if (!plan.C) return (int)cudaErrorInvalidValue;
+  return dispatch_multigen_ablate(ablate, [&](auto tag) {
+    constexpr unsigned A = decltype(tag)::value;
+    return launch_clusters(
+        static_cast<void (*)(MultigenIO<Gene>, const float*, Draws, Geometry, Selection, int, int,
+                             int, int, int, MgPlan)>(multigen_breed_kernel<false, Gene, A>),
+        plan.C, plan.smem, MGC_THREADS, islands * geo.S, stream, io, mparams, dr, geo, sel,
+        mutate, obj, elitism, draw_steps, islands, plan);
+  });
+}
+
+}  // namespace
+
 // cross_kind 0: uniform crossover (`cross` bits); 1: order crossover (`fill`
 // genes; D must be 1; float32 genes only). draw_steps: the sub-generations
 // each island's injected draws hold (their stride; unread in production
 // mode). gene_dtype: GENE_F32 or GENE_BF16, the type of gin, gout and the
-// work buffers.
+// work buffers. cluster: uniform crossover on the cluster schedule (the plan
+// must hold the group; no work buffers), else the one-block schedule.
 extern "C" int multigen_breed_launch(
     const void* gin, const float* sin, void* gout, float* sout, void* work0, void* work1,
     int steps, float target, const float* mparams, const float* sel_u,
@@ -1481,13 +1770,15 @@ extern "C" int multigen_breed_launch(
     const long long* tie, const long long* seed, int P, int Pp, int L, int K, int G, int mode,
     int S, int D, int q, int sel_kind, int tk, float sel_param, int cross_kind, int mutate,
     int obj, int elitism, int draw_steps, int islands, int gene_dtype, unsigned ablate,
-    void* stream) {
+    int cluster, void* stream) {
   if (D < 1 || D > MG_MAX_D || (cross_kind && D != 1)) return (int)cudaErrorInvalidValue;
   if ((gene_dtype != GENE_F32 && gene_dtype != GENE_BF16) || (cross_kind && gene_dtype != GENE_F32))
     return (int)cudaErrorInvalidValue;
+  if (cluster && (cross_kind || islands < 1 || islands > 65535)) return (int)cudaErrorInvalidValue;
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q, 1};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed, tie, fill};
+  const cudaStream_t st = (cudaStream_t)stream;
   // Keys, scores, row_of_rank and alive flags of the group's D*K rows, then
   // (order crossover) the walkers' visited bitmasks.
   const int W = D * K;
@@ -1495,28 +1786,31 @@ extern "C" int multigen_breed_launch(
     using B = __nv_bfloat16;
     const MultigenIO<B> io{static_cast<const B*>(gin), sin, static_cast<B*>(gout), sout,
                            static_cast<B*>(work0), static_cast<B*>(work1), steps, target};
+    if (cluster)
+      return multigen_cluster_launch(io, mparams, dr, geo, sel, mutate, obj, elitism, draw_steps,
+                                     islands, ablate, st);
     return dispatch_multigen_ablate(ablate, [&](auto tag) {
-      return launch_with_smem(multigen_breed_kernel<false, B, decltype(tag)::value>,
-                              dim3(S, islands), MG_THREADS, (size_t)W * MG_ROW_BYTES,
-                              (cudaStream_t)stream, io, mparams, dr, geo, sel, mutate, obj,
-                              elitism, draw_steps);
+      return launch_with_smem(multigen_one_block<false, B, decltype(tag)::value>(),
+                              dim3(S, islands), MG_THREADS, (size_t)W * MG_ROW_BYTES, st, io,
+                              mparams, dr, geo, sel, mutate, obj, elitism, draw_steps);
     });
   }
   const MultigenIO<float> io{static_cast<const float*>(gin), sin, static_cast<float*>(gout),
                              sout, static_cast<float*>(work0), static_cast<float*>(work1),
                              steps, target};
+  if (cluster)
+    return multigen_cluster_launch(io, mparams, dr, geo, sel, mutate, obj, elitism, draw_steps,
+                                   islands, ablate, st);
   if (cross_kind)
     return dispatch_multigen_ablate(ablate, [&](auto tag) {
-      return launch_with_smem(multigen_breed_kernel<true, float, decltype(tag)::value>,
+      return launch_with_smem(multigen_one_block<true, float, decltype(tag)::value>(),
                               dim3(S, islands), MG_THREADS,
-                              mg_rows_bytes(W) + mg_walk_bytes(W, L, MG_THREADS),
-                              (cudaStream_t)stream, io, mparams, dr, geo, sel, mutate, obj,
-                              elitism, draw_steps);
+                              mg_rows_bytes(W) + mg_walk_bytes(W, L, MG_THREADS), st, io,
+                              mparams, dr, geo, sel, mutate, obj, elitism, draw_steps);
     });
   return dispatch_multigen_ablate(ablate, [&](auto tag) {
-    return launch_with_smem(multigen_breed_kernel<false, float, decltype(tag)::value>,
-                            dim3(S, islands), MG_THREADS, (size_t)W * MG_ROW_BYTES,
-                            (cudaStream_t)stream, io, mparams, dr, geo, sel, mutate, obj,
-                            elitism, draw_steps);
+    return launch_with_smem(multigen_one_block<false, float, decltype(tag)::value>(),
+                            dim3(S, islands), MG_THREADS, (size_t)W * MG_ROW_BYTES, st, io,
+                            mparams, dr, geo, sel, mutate, obj, elitism, draw_steps);
   });
 }

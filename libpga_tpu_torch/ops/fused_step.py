@@ -1352,18 +1352,21 @@ def multigen_breed(
     (see :func:`multigen_breed_reference`). On a CUDA tensor it launches
     the kernel of the hooks (an expression crossover, mutation or
     ``kw["objective"]``: ``expr_multigen_kernel``; else
-    ``multigen_breed_kernel``) and raises if that fails (``work``: its
-    scratch buffers); on a CPU tensor it runs the plain version. Exactly
-    one of ``seed=`` (production Philox mode) or ``draws=`` (injected
-    mode, with a leading sub-generation axis) is given in ``kw``.
-    ``islands`` = I breeds I populations in one launch of that kernel
-    (one seed per island)."""
+    ``multigen_breed_kernel``, whose wrapper picks its schedule from the
+    shape) and raises if that fails (``work``: the one-block schedule's
+    scratch buffers, made by the wrapper where None; ``kw["cluster"]``
+    names the builtin kernel's schedule, for tests and comparisons); on a
+    CPU tensor it runs the plain version. Exactly one of ``seed=``
+    (production Philox mode) or ``draws=`` (injected mode, with a leading
+    sub-generation axis) is given in ``kw``. ``islands`` = I breeds I
+    populations in one launch of that kernel (one seed per island)."""
     target = math.inf if target is None else float(target)
     if genomes.is_cuda:
         launch = (kernels.expr_multigen_cuda if _expression_hooked(kw)
                   else kernels.multigen_breed_cuda)
         return launch(genomes, scores, geom, parity, steps, target, out=out, work=work,
                       islands=islands, **kw)
+    kw.pop("cluster", None)
     return multigen_breed_reference(genomes, scores, geom, parity, steps, target, out=out, **kw)
 
 
@@ -1666,8 +1669,10 @@ def make_multigen_run(
     kernel's group freeze.
 
     A launch's children go to the buffer that held the launch before,
-    and the kernel's work buffers are neither, so the previous launch is
-    intact when its stop flag is read one launch late
+    and the kernel's work buffers (the one-block schedule's alone, made
+    by the wrapper at each launch: the cluster schedule keeps a group in
+    shared memory) are neither, so the previous launch is intact when its
+    stop flag is read one launch late
     (``ops/step.run_generations``)."""
     T = int(generations_per_launch)
     launch = make_fused_multigen(pop_size, genome_len, objective, **kw)
@@ -1682,12 +1687,11 @@ def make_multigen_run(
         s = torch.full((Pp,), -torch.inf, device=genomes.device)
         s[:P] = evaluate(objective, genomes)
         spare = [torch.empty_like(g)]
-        work = [torch.empty_like(g) for _ in range(min(T - 1, 2))] if g.is_cuda else None
 
         def step(g, s, gen):
             g2, s2 = launch(
                 g, s, (gen // T) % geom.parities, min(T, n - gen), target,
-                generator, out=spare[0], work=work,
+                generator, out=spare[0],
             )
             spare[0] = g
             return g2, s2

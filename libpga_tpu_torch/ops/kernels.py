@@ -45,7 +45,9 @@ production launch: "ablate_copy" (the copy case, whatever the hooks),
 "ablate_expr_order", "ablate_expr_multigen" and
 "ablate_expr_multigen_order" (the expression kernels), "ablate_pipelined"
 (the pipelined deme breed's stage cases), and "_bf16"; ``MASK_LAUNCHES``
-counts each ablated launch again under ``(name, kernel bitmask)``. The
+counts each ablated launch again under ``(name, kernel bitmask)``, and
+``CLUSTER_LAUNCHES`` each multi-generation launch on the cluster schedule
+again under its name (the one-block schedule's are the rest). The
 pipelined deme breed of the sub-block pipeline (``deme_breed_cuda(pipelined=True)``) counts as
 "deme_pipelined" ("islands_deme_pipelined"; and "_bf16"). A wrapper adds
 one where it launches its kernel and nowhere else.
@@ -61,6 +63,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -100,6 +103,7 @@ LAUNCHES = {
     "ablate_pipelined": 0, "ablate_pipelined_bf16": 0,
 }
 MASK_LAUNCHES: dict = {}  # (LAUNCHES name, kernel bitmask) -> ablated launches
+CLUSTER_LAUNCHES: dict = {}  # LAUNCHES name -> its launches on the multigen cluster schedule
 TEMPLATES = ("expr_breed",)  # sources built only with generated hooks in front
 
 SEL_IDS = {"tournament": 0, "truncation": 1, "linear_rank": 2}
@@ -149,15 +153,20 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     MASK_LAUNCHES.clear()
+    CLUSTER_LAUNCHES.clear()
 
 
-def _count(name: str, genomes: torch.Tensor, mask: Optional[int] = None) -> None:
+def _count(name: str, genomes: torch.Tensor, mask: Optional[int] = None,
+           cluster: bool = False) -> None:
     """One launch of ``name`` on ``genomes``' gene dtype; an ablated one
-    (``mask``, its kernel bitmask) also under ``MASK_LAUNCHES``."""
+    (``mask``, its kernel bitmask) also under ``MASK_LAUNCHES``, one on the
+    multi-generation cluster schedule also under ``CLUSTER_LAUNCHES``."""
     name += "_bf16" if genomes.dtype == torch.bfloat16 else ""
     LAUNCHES[name] += 1
     if mask is not None:
         MASK_LAUNCHES[(name, mask)] = MASK_LAUNCHES.get((name, mask), 0) + 1
+    if cluster:
+        CLUSTER_LAUNCHES[name] = CLUSTER_LAUNCHES.get(name, 0) + 1
 
 
 def _nvcc() -> str:
@@ -358,8 +367,12 @@ def _bindings() -> dict:
                 i, i, f,                # sel kind, tournament size, sel param
                 i, i, i, i,             # crossover kind, mutate kind, objective id, elitism
                 i, i, i,                # draw steps, islands, gene dtype
-                ctypes.c_uint,          # ablate mask
+                ctypes.c_uint, i,       # ablate mask, cluster schedule
                 p,                      # stream
+            ], i),
+            "multigen_cluster_plan": ([
+                i, i, i, i, i,          # D, K, L, gene bytes, q
+                p,                      # out: C, rows, keys sorted, shared bytes
             ], i),
             "deme_breed_error_string": ([i], s),
         },
@@ -524,6 +537,42 @@ def pipelined_holds(geom, gene_dtype) -> bool:
     computes the same function at the same geometry."""
     gene_bytes = 2 if gene_dtype == torch.bfloat16 else 4
     return geom.B > 1 and pipelined_plan(geom.K, geom.L, gene_bytes, geom.q) is not None
+
+
+@dataclasses.dataclass(frozen=True)
+class MultigenPlan:
+    """The cluster schedule's plan for a group of
+    ``multigen_breed_kernel<false>`` (``csrc/mg_plan.cuh``): ``C`` blocks
+    a cluster hold it, each ``rows`` of its slots; a block sorts ``sort``
+    keys and takes ``smem`` bytes of dynamic shared memory."""
+
+    C: int
+    rows: int
+    sort: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def _multigen_plan(D: int, K: int, L: int, gene_bytes: int, q: int) -> Optional[MultigenPlan]:
+    out = (ctypes.c_longlong * 4)()
+    lib = _library("deme_breed")
+    if not lib.multigen_cluster_plan(D, K, L, gene_bytes, q, out):
+        return None
+    return MultigenPlan(*(int(x) for x in out))
+
+
+def multigen_cluster_plan(geom, gene_dtype, crossover="uniform") -> Optional[MultigenPlan]:
+    """The cluster plan of a ``multigen_breed_kernel`` launch at ``geom``
+    on ``gene_dtype`` genes, as ``csrc/mg_plan.cuh`` makes it, read from
+    the built production unit of ``csrc/deme_breed.cu``
+    (``multigen_cluster_plan``; built at first use); None where the launch
+    breeds on the one-block schedule: order crossover (its walk stays
+    there) or a group no cluster holds. Both schedules compute the same
+    function. ``expr_multigen_kernel`` has the one-block schedule alone."""
+    if crossover == "order":
+        return None
+    gene_bytes = 2 if gene_dtype == torch.bfloat16 else 4
+    return _multigen_plan(geom.D, geom.K, geom.L, gene_bytes, geom.q)
 
 
 def _check_genomes(genomes: torch.Tensor, shape, device, order: bool = False) -> int:
@@ -807,17 +856,20 @@ def _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mpa
     return steps, gene_id
 
 
-def _multigen_buffers(genomes, out, work, steps: int):
-    """``(out, [work0, work1])``: the children's buffer and the kernel's
-    two scratch buffers (made where None and ``steps`` needs them: one
-    from 2 steps, two from 3; None where unused), of the genomes' dtype,
-    none aliasing ``genomes`` or each other."""
+def _multigen_buffers(genomes, out, work, steps: int, cluster: bool):
+    """``(out, [work0, work1])``: the children's buffer and the one-block
+    schedule's two scratch buffers (made where None and ``steps`` needs
+    them: one from 2 steps, two from 3; None where unused, and always on
+    the cluster schedule, which keeps a group in shared memory), of the
+    genomes' dtype, none aliasing ``genomes`` or each other."""
     dev, shape = genomes.device, tuple(genomes.shape)
     if out is None:
         out = torch.empty_like(genomes)
     _check(out, "out", genomes.dtype, shape, dev)
     if out.data_ptr() == genomes.data_ptr():
         raise ValueError("out must not alias genomes: blocks read rows other blocks write")
+    if cluster:
+        return out, [None, None]
     work = list(work or ())
     while len(work) < min(max(steps - 1, 0), 2):
         work.append(torch.empty_like(genomes))
@@ -886,6 +938,7 @@ def multigen_breed_cuda(
     crossover: str = "uniform",
     islands: Optional[int] = None,
     ablate: tuple = (),
+    cluster: Optional[bool] = None,
 ):
     """Launch ``multigen_breed_kernel`` of ``csrc/deme_breed.cu`` on the
     current stream: the kernel counterpart of
@@ -897,9 +950,17 @@ def multigen_breed_cuda(
     ``target``. Production mode takes ``seed`` (int64, one element, on
     the card); injected mode takes ``draws`` whose tensors carry a
     leading axis of at least ``steps`` sub-generations and the ``tie``
-    words (order crossover: the ``fill`` plane). ``work`` is a pair of
-    (Pp, L) scratch tensors (made here when None and ``steps`` needs
-    them: one from 2 steps, two from 3). Returns ``(genomes (Pp, L),
+    words (order crossover: the ``fill`` plane). ``cluster`` picks the
+    schedule: None the plan's route, decided here from the shape before
+    the launch (:func:`multigen_cluster_plan`; what production takes),
+    True the cluster schedule (uniform crossover; a group some cluster
+    holds, or the launch raises), False the one-block schedule (what
+    tests and ``chip_smoke.py`` compare it with). The cluster schedule
+    stages 16-byte aligned ``genomes`` and stores 16-byte aligned ``out``
+    (else ValueError). ``work`` is a pair of (Pp, L) scratch tensors of
+    the one-block schedule (made here when None and ``steps`` needs
+    them: one from 2 steps, two from 3; unread on the cluster
+    schedule). Returns ``(genomes (Pp, L),
     scores (Pp,))`` in physical row order. ``islands`` = I breeds I
     populations in one launch: genomes, scores, ``out`` and ``work``
     with a leading island axis (I, Pp, L) / (I, Pp), one seed per island
@@ -927,7 +988,12 @@ def multigen_breed_cuda(
     steps, gene_id = _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism,
                                       mparams, order, lead)
     param = resolve_selection(selection, selection_param)
-    out, work = _multigen_buffers(genomes, out, work, steps)
+    if cluster is None:
+        cluster = multigen_cluster_plan(geom, genomes.dtype, crossover) is not None
+    out, work = _multigen_buffers(genomes, out, work, steps, cluster)
+    if cluster and (genomes.data_ptr() % 16 or out.data_ptr() % 16):
+        raise ValueError("the multi-generation cluster schedule stages 16-byte aligned genomes"
+                         " and stores 16-byte aligned children")
     draw_steps, (sel_u, cross, fill, mut_u, gauss, tie) = _multigen_draws(
         draws, seed, geom, steps, crossover, mutate, dev, lead)
     s_out = torch.empty(lead + (Pp,), device=dev)
@@ -943,15 +1009,15 @@ def multigen_breed_cuda(
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
         CROSS_IDS[crossover], MUTATE_IDS[mutate], int(obj_id), int(elitism),
-        draw_steps, n, gene_id, mask,
+        draw_steps, n, gene_id, mask, int(cluster),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "deme_breed")
     if ablate:
-        _count("ablate_multigen_order" if order else "ablate_multigen", genomes, mask)
+        _count("ablate_multigen_order" if order else "ablate_multigen", genomes, mask, cluster)
     else:
         key = "multigen_order" if order else "multigen"
-        _count(key if islands is None else "islands_" + key, genomes)
+        _count(key if islands is None else "islands_" + key, genomes, cluster=cluster)
     return out, s_out
 
 
@@ -1224,8 +1290,9 @@ def expr_multigen_cuda(
     (injected draws (I, T, ...), the expression planes and words
     included). ``ablate`` (the floor harness's no_freeze, no_rank_cube
     and stage flags, any combination) launches that case, as
-    :func:`expr_breed_cuda`'s. Raises on bad arguments or a failed build
-    or launch; never runs anything else in the kernel's place."""
+    :func:`expr_breed_cuda`'s. It breeds on the one-block schedule
+    (``multigen_group``; ``work`` as :func:`multigen_breed_cuda`'s). Raises on bad arguments or a failed build or launch; never runs
+    anything else in the kernel's place."""
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("expr_multigen_cuda needs CUDA tensors")
@@ -1240,7 +1307,7 @@ def expr_multigen_cuda(
     param = resolve_selection(selection, selection_param)
     program = expr_cuda.program_for(cross_op, mut_op, objective)
     warps = expr_warps(K, L, program.obj_rows, D=D, order=order)
-    out, work = _multigen_buffers(genomes, out, work, steps)
+    out, work = _multigen_buffers(genomes, out, work, steps, cluster=False)
     draw_steps, (sel_u, cross, fill, mut_u, gauss, tie) = _multigen_draws(
         draws, seed, geom, steps, None if cross_op is not None else crossover, mutate, dev, lead)
     xgene = xrow = None

@@ -161,12 +161,11 @@ def make_multigen_stacked_epoch(bm: Callable, m: int) -> Callable:
         S = genomes.shape[1]
         g, s = _pad(genomes, scores, geom.Pp)
         bufs = [torch.empty_like(g), torch.empty_like(g)]
-        work = [torch.empty_like(g) for _ in range(min(T - 1, 2))] if g.is_cuda else None
         done = launch = 0
         while done < m:
             t = min(T, m - done)
             parity = launch % 2 if geom.parities > 1 else 0
-            g, s = bm(g, s, parity, t, math.inf, generator, out=bufs[launch % 2], work=work)
+            g, s = bm(g, s, parity, t, math.inf, generator, out=bufs[launch % 2])
             done += t
             launch += 1
         return g[:, :S], s[:, :S]

@@ -186,14 +186,13 @@ def build_tsweep_variant(dtype, K, pop, L, T, ablate=(), device="cuda",
     geom = launch.geom
     g0, s0 = _population(geom, dtype, device, None if kinds is None else objective)
     gen = torch.Generator(device=device).manual_seed(0)
-    work = [torch.empty_like(g0) for _ in range(min(T - 1, 2))]
     state = {"g": g0, "s": s0, "spare": torch.empty_like(g0), "launch": 0}
 
     def run(n):
         for _ in range(n):
             g = state["g"]
             g2, s2 = launch(g, state["s"], state["launch"] % geom.parities, T, None, gen,
-                            out=state["spare"], work=work)
+                            out=state["spare"])
             state.update(g=g2, s=s2, spare=g, launch=state["launch"] + 1)
 
     run.name, run.geom, run.gens_per_call = "_".join((f"t{T}",) + tuple(ablate)), geom, T

@@ -2,7 +2,7 @@
 
 Usage: python -m libpga_tpu_torch.tools.ablate_kernel [f32|bf16] [K]
            [--pop 1048576] [--len 100] [--rounds 3]
-           [--hooks builtin|creep|trap|tour|tsp|order] [--steps T]
+           [--hooks builtin|creep|trap|nk|tour|tsp|order] [--steps T]
            [--subblock B] [--combo FLAG,FLAG ...]
 
 The port's counterpart of ``tools/ablate_kernel.py``: the generation of
@@ -22,8 +22,10 @@ the differences share one layout:
 ``--hooks`` breeds another hook set through the same flags, on the
 geometry ``PGA.run`` gives it: ``creep`` (OneMax with the creep mutation
 expression, ``expr_breed_kernel``), ``trap`` (the trap(5) objective
-expression), ``tour`` (the tour expression over ``random_tsp_coords(L,
-seed=2)`` with order crossover and swap, ``expr_order_kernel``), ``tsp``
+expression), ``nk`` (the NK landscape of ``examples/nk_landscape.py``,
+n = L, k = 3, seed 0), ``tour`` (the tour expression over
+``random_tsp_coords(L, seed=2)`` with order crossover and swap,
+``expr_order_kernel``), ``tsp``
 (the coordinate TSP scored gene-major with order crossover and swap,
 ``order_breed_kernel``) and ``order`` (OneMax with order crossover and
 swap). Every variant is then scored (an objective hook always runs, as in
@@ -72,7 +74,7 @@ STAGES = [
     ("no_matmul", ("no_matmul",), True),
     ("floor", FLOOR_ABLATE, False),
 ]
-HOOK_SETS = ("builtin", "creep", "trap", "tour", "tsp", "order")
+HOOK_SETS = ("builtin", "creep", "trap", "nk", "tour", "tsp", "order")
 CREEP = "where(r < rate, g + sigma * (2*r2 - 1), g)"
 TOUR = ("c = floor(g * L);"
         "x = gather(X, c); y = gather(Y, c);"
@@ -91,6 +93,8 @@ def hook_kinds(hooks: str, L: int) -> dict:
         kw.update(mutate=mutate_from_expression(CREEP, rate=0.05, sigma=0.1), mparams=(0.05, 0.1))
     elif hooks == "trap":
         kw.update(objective=po.make_deceptive_trap(5))
+    elif hooks == "nk":
+        kw.update(objective=po.make_nk_landscape(L, 3, seed=0))
     elif hooks in ("tour", "tsp", "order"):
         kw.update(crossover="order", mutate="swap", mparams=(0.5, 0.0))
         c = po.random_tsp_coords(L, seed=2)

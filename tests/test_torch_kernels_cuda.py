@@ -314,8 +314,8 @@ def test_multigen_kernel_rejects_bad_arguments(cuda_device):
     kw = dict(seed=seed, mparams=torch.tensor([0.01, 0.0], device=cuda_device), obj_id=1)
     with pytest.raises(ValueError, match="alias"):
         fs.multigen_breed(g, s, geom, 0, 2, out=g, **kw)
-    with pytest.raises(ValueError, match="work"):
-        fs.multigen_breed(g, s, geom, 0, 3, work=[g], **kw)
+    with pytest.raises(ValueError, match="work"):  # the one-block schedule's buffers
+        fs.multigen_breed(g, s, geom, 0, 3, work=[g], cluster=False, **kw)
     with pytest.raises(ValueError, match="scores"):
         fs.multigen_breed(g, s[:100].contiguous(), geom, 0, 2, **kw)
     with pytest.raises(ValueError, match="rowwise"):
@@ -1338,8 +1338,8 @@ def test_bf16_kernels_reject_bad_dtypes(cuda_device):
         kernels.order_breed_cuda(g, ranks[:riffle.G], riffle, 0, **kw)
     mg = fs.resolve_geometry(1024, 20, multigen=True, gene_dtype=BF16)
     s = g.float().sum(dim=1)
-    with pytest.raises(ValueError, match="work"):
-        kernels.multigen_breed_cuda(g, s, mg, 0, 3, math.inf,
+    with pytest.raises(ValueError, match="work"):  # the one-block schedule's buffers
+        kernels.multigen_breed_cuda(g, s, mg, 0, 3, math.inf, cluster=False,
                                     work=[torch.empty((mg.Pp, 20), device=cuda_device)], **kw)
 
 
@@ -2206,3 +2206,221 @@ def test_engine_on_card_breeds_every_shard_in_one_launch(cuda_device, dtype):
         assert pop.genomes.shape == (65_536, L) and pop.genomes.dtype == dtype
         torch.testing.assert_close(pop.scores, pop.genomes.float().sum(dim=1), rtol=0, atol=1e-3)
         assert p.get_best_with_score(h)[1] > start
+
+
+# The multi-generation cluster schedule: multigen_breed_kernel<false>
+# holding each group in a thread-block cluster's shared memory
+# (csrc/mg_plan.cuh), against the plain version and against the one-block
+# schedule (cluster=False), children and scores bit for bit; and the
+# expression kernel, which breeds on the one-block schedule alone, at the
+# same shapes. (hooks, P, L, dtype, layout, steps, elitism, scores,
+# islands, ablate): scores "objective" are the genomes' own, "freeze" with
+# a target some groups reach mid-launch, "nan" with NaN among them.
+CLUSTER_VARIANTS = [
+    ("onemax", 65_536, 100, torch.float32, None, 3, 0, "objective", None, ()),
+    ("onemax", 65_536, 100, torch.float32, "riffle", 8, 2, "objective", None, ()),
+    ("onemax", 65_536, 100, torch.float32, None, 0, 0, "objective", None, ()),
+    ("onemax", 65_536, 100, torch.float32, None, 1, 2, "objective", None, ()),
+    ("onemax", 65_536, 100, torch.float32, None, 2, 0, "freeze", None, ()),
+    ("onemax", 65_536, 100, torch.float32, None, 8, 0, "freeze", None, ()),
+    ("onemax", 65_536, 100, torch.float32, None, 3, 0, "nan", None, ()),
+    ("onemax", 65_000, 100, torch.float32, None, 3, 0, "objective", None, ()),  # riffle tail
+    ("onemax", 1000, 20, torch.float32, None, 3, 0, "freeze", None, ()),  # ping-pong pad rows
+    ("onemax", 40_000, 100, torch.float32, None, 3, 2, "objective", None, ()),  # C = 1
+    ("onemax", 8192, 130, torch.float32, None, 3, 2, "objective", None, ()),  # L % 4, two tiles
+    ("swap", 8192, 100, torch.float32, None, 3, 2, "objective", None, ()),
+    ("gaussian", 8192, 100, torch.float32, None, 2, 0, "objective", None, ()),
+    ("rastrigin", 4096, 30, torch.float32, None, 2, 0, "objective", None, ()),
+    ("onemax", 65_536, 100, torch.bfloat16, None, 3, 2, "objective", None, ()),
+    ("onemax", 65_536, 100, torch.bfloat16, None, 8, 0, "freeze", None, ()),
+    ("onemax", 16_384, 100, torch.float32, None, 3, 0, "freeze", 4, ()),
+    ("onemax", 16_384, 100, torch.bfloat16, None, 3, 2, "objective", 3, ()),
+    *[("onemax", 65_536, 100, dt, None, 3, 2, sc, None, a)
+      for a, dt, sc in ((("no_freeze",), torch.float32, "freeze"),
+                        (("no_rank_cube",), torch.float32, "objective"),
+                        (("sel_const",), torch.float32, "objective"),
+                        (("no_matmul",), torch.bfloat16, "objective"),
+                        (("no_cross",), torch.float32, "objective"),
+                        (("no_mut",), torch.float32, "objective"),
+                        (ABLATE_FLOOR, torch.float32, "objective"),
+                        (("no_cross", "no_mut"), torch.float32, "objective"))],
+]
+EXPR_ONE_BLOCK_VARIANTS = [
+    ("creep", 65_536, 100, torch.float32, None, 3, 2, "objective", None, ()),
+    ("creep", 65_536, 100, torch.bfloat16, None, 8, 0, "freeze", None, ()),
+    ("creep", 16_384, 100, torch.float32, None, 3, 0, "objective", 4, ()),
+    ("one_point", 65_536, 100, torch.float32, None, 3, 2, "objective", None, ()),
+    ("nk", 16_384, 64, torch.float32, None, 3, 0, "objective", None, ()),
+    ("trap", 65_536, 60, torch.float32, None, 3, 2, "nan", None, ()),
+    ("trap", 16_384, 60, torch.bfloat16, None, 3, 0, "objective", 2, ()),
+    ("knapsack", 4096, 6, torch.float32, None, 3, 2, "objective", None, ()),
+    ("creep", 65_536, 100, torch.float32, None, 3, 2, "freeze", None, ("no_freeze",)),
+]
+_VARIANT_ID = (lambda v: f"{v[0]}-{v[1]}x{v[2]}-{str(v[3])[6:]}-{v[4]}-s{v[5]}-e{v[6]}-{v[7]}"
+                         f"-i{v[8]}-{'+'.join(v[9]) or 'prod'}")
+
+
+def _cluster_case(hooks):
+    """``(objective, crossover, mutate, mparams, exact)`` of a hook set;
+    ``exact`` False where a transcendental may differ in the last ulp from
+    torch's (the two schedules still agree bit for bit)."""
+    from libpga_tpu_torch import objectives as po
+    from libpga_tpu_torch.ops import breed_expr as bx
+
+    creep = bx.mutate_from_expression("where(r < rate, g + sigma * (2*r2 - 1), g)",
+                                      rate=0.05, sigma=0.1)
+    one_point = bx.crossover_from_expression("where(i < floor(q * L), p1, p2)")
+    return {
+        "onemax": (onemax, "uniform", "point", (0.3, 0.0), True),
+        "swap": (onemax, "uniform", "swap", (0.5, 0.0), True),
+        "gaussian": (onemax, "uniform", "gaussian", (0.3, 0.05), False),
+        "rastrigin": (rastrigin, "uniform", "point", (0.3, 0.0), False),
+        "creep": (onemax, "uniform", creep, (0.05, 0.1), True),
+        "one_point": (onemax, one_point, "point", (0.3, 0.0), True),
+        "nk": (po.make_nk_landscape(64, 3, seed=0), "uniform", "point", (0.3, 0.0), True),
+        "trap": (po.make_deceptive_trap(5), "uniform", "point", (0.3, 0.0), True),
+        "knapsack": (po.default_knapsack, "uniform", "point", (0.3, 0.0), True),
+    }[hooks]
+
+
+def _multigen_against_plain(device, variant, cluster: bool):
+    """Launches ``variant`` through ``fs.multigen_breed`` at every parity,
+    Philox and injected draws, and holds it against the plain version:
+    genomes and scores bit for bit (within 2 ulp / rtol 1e-5 after a
+    transcendental at one step). ``cluster``: each launch takes the
+    cluster route, counted under CLUSTER_LAUNCHES, and equals the
+    one-block schedule (cluster=False), whose launches are not counted
+    there; else no launch takes the cluster route."""
+    from libpga_tpu_torch.ops.evaluate import evaluate
+
+    hooks, P, L, dtype, layout, steps, e, scores, islands, ablate = variant
+    objective, cross, mut, mparams, exact = _cluster_case(hooks)
+    launch = fs.make_fused_multigen(P, L, objective, crossover=cross, mutate=mut, elitism=e,
+                                    layout=layout, ablate=ablate, device=device,
+                                    gene_dtype=dtype, mparams=mparams)
+    geom, kw = launch.geom, launch.kw
+    if cluster:
+        assert kernels.multigen_cluster_plan(geom, dtype, cross)
+    gen = torch.Generator(device=device).manual_seed(P + L + steps + e)
+    lead = () if islands is None else (islands,)
+    g = torch.rand(lead + (geom.Pp, L), generator=gen, device=device).to(dtype)
+    s = torch.full(lead + (geom.Pp,), -torch.inf, device=device)
+    s[..., :P] = evaluate(objective, g[..., :P, :].float().reshape(-1, L)).view(lead + (P,))
+    target = None
+    if scores == "freeze":  # reached by some groups after a generation or two
+        target = float(s[..., :P].max()) + 1.0
+    elif scores == "nan":
+        s[..., 0:P:7] = float("nan")
+        target = float(s[..., :P].nan_to_num(-1.0).max())  # the NaN groups never freeze
+    T = max(steps, 1)
+    draws = _random_draws(geom, L, kw, device, steps=T)
+    if islands is not None:
+        draws = fs.stack_draws([_random_draws(geom, L, kw, device, steps=T)
+                                for _ in range(islands)])
+    key = _hook_key(kw, True, dtype) if ablate else (
+        ("expr_" if "objective" in kw or fs.is_expression(cross) or fs.is_expression(mut) else "")
+        + "multigen" + ("_bf16" if dtype == torch.bfloat16 else ""))
+    if islands is not None and not ablate:
+        key = "islands_" + key
+    for parity in range(geom.parities):
+        seed = torch.randint(0, 2**62, lead or (1,), generator=gen, device=device)
+        for mode in (dict(seed=seed), dict(draws=draws)):
+            before = kernels.CLUSTER_LAUNCHES.get(key, 0)
+            launched = kernels.LAUNCHES[key]
+            got = fs.multigen_breed(g, s, geom, parity, steps, target, islands=islands, **mode,
+                                    **kw)
+            assert kernels.LAUNCHES[key] == launched + 1
+            assert kernels.CLUSTER_LAUNCHES.get(key, 0) == before + cluster
+            if cluster:
+                old = fs.multigen_breed(g, s, geom, parity, steps, target, islands=islands,
+                                        cluster=False, **mode, **kw)
+                assert kernels.CLUSTER_LAUNCHES[key] == before + 1
+            want = fs.multigen_breed_reference(
+                g, s, geom, parity, steps, math.inf if target is None else target, **mode, **kw)
+            torch.cuda.synchronize()
+            if cluster:
+                assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
+            if exact or steps == 0:
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            elif steps == 1:
+                assert int(_ulps(got[0].float(), want[0].float()).max()) <= 2
+                torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5 * L)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", CLUSTER_VARIANTS, ids=_VARIANT_ID)
+def test_multigen_cluster_schedule_equals_plain_on_card(cuda_device, variant):
+    """The cluster schedule equals the plain version and the one-block
+    schedule at the same inputs, Philox and injected draws, every parity:
+    genomes and scores bit for bit (within 2 ulp / rtol 1e-5 of the plain
+    version after a transcendental at one step). Each launch takes the
+    cluster route, counted under CLUSTER_LAUNCHES; the one-block launches
+    are not."""
+    _multigen_against_plain(cuda_device, variant, cluster=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", EXPR_ONE_BLOCK_VARIANTS, ids=_VARIANT_ID)
+def test_expr_multigen_breeds_on_one_block_on_card(cuda_device, variant):
+    """The expression kernel at the cluster cases' shapes (creep,
+    one-point, NK, trap, knapsack; bf16, islands, freeze, NaN, no_freeze)
+    takes the one-block schedule, its only one, and equals the plain
+    version bit for bit; no launch is counted on the cluster route."""
+    _multigen_against_plain(cuda_device, variant, cluster=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["genomes", "out"])
+def test_multigen_cluster_rejects_misaligned_rows_on_card(cuda_device, which):
+    """The cluster schedule stages genomes by TMA bulk copies and stores
+    16-byte words: a contiguous view at an offset that is no multiple of
+    16 bytes raises ValueError before any launch, and the context stays
+    usable (the aligned rows then breed as the plain version does)."""
+    geom = fs.resolve_geometry(40_000, 100, multigen=True)
+    assert kernels.multigen_cluster_plan(geom, torch.float32)
+    n = geom.Pp * 100
+    a = torch.rand(n + 1, device=cuda_device)
+    b = torch.empty(n + 1, device=cuda_device)
+    g, out = a[:n].view(geom.Pp, 100), b[:n].view(geom.Pp, 100)
+    if which == "genomes":
+        g = a[1:].view(geom.Pp, 100)
+    else:
+        out = b[1:].view(geom.Pp, 100)
+    assert g.is_contiguous() and out.is_contiguous()
+    s = g.sum(dim=1)
+    kw = dict(seed=torch.tensor([5], dtype=torch.int64, device=cuda_device),
+              mparams=torch.tensor([0.3, 0.0], device=cuda_device), obj_id=onemax.fused_id)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fs.multigen_breed(g, s, geom, 0, 3, None, out=out, **kw)
+    assert kernels.LAUNCHES["multigen"] == 0
+    g, out = a[:n].view(geom.Pp, 100), b[:n].view(geom.Pp, 100)
+    s = g.sum(dim=1)
+    got = fs.multigen_breed(g, s, geom, 0, 3, None, out=out, **kw)
+    assert kernels.CLUSTER_LAUNCHES == {"multigen": 1}
+    want = fs.multigen_breed_reference(g, s, geom, 0, 3, math.inf, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_multigen_cluster_route_by_shape_on_card(cuda_device):
+    """A group no cluster holds (16,384x300: 1,024 rows of 1,200 bytes a
+    group) breeds on the one-block schedule, chosen before the launch; a
+    cluster launch of that shape raises and runs nothing in its place."""
+    geom = fs.resolve_geometry(16_384, 300, multigen=True)
+    assert kernels.multigen_cluster_plan(geom, torch.float32) is None
+    g = torch.rand((geom.Pp, 300), device=cuda_device)
+    s = g.sum(dim=1)
+    kw = dict(seed=torch.tensor([3], dtype=torch.int64, device=cuda_device),
+              mparams=torch.tensor([0.3, 0.0], device=cuda_device), obj_id=onemax.fused_id)
+    kernels.reset_launches()
+    got = fs.multigen_breed(g, s, geom, 0, 3, None, **kw)
+    want = fs.multigen_breed_reference(g, s, geom, 0, 3, math.inf, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert kernels.LAUNCHES["multigen"] == 1 and not kernels.CLUSTER_LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fs.multigen_breed(g, s, geom, 0, 3, None, cluster=True, **kw)
+    assert kernels.LAUNCHES["multigen"] == 1
+    order = fs.resolve_geometry(40_000, 100, multigen=True, crossover="order")
+    assert kernels.multigen_cluster_plan(order, torch.float32, "order") is None
