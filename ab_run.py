@@ -4,7 +4,7 @@
 
     python3 ab_run.py PARENT_DIR [CHANGE_DIR] [--generations-per-launch T] [--subblock B]
                       [--tsp | --creep]
-    python3 ab_run.py PARENT_DIR [CHANGE_DIR] --sass
+    python3 ab_run.py PARENT_DIR [CHANGE_DIR] --sass [--creep]
 
 CHANGE_DIR defaults to the checkout holding this script. Prints one JSON
 line per turn: wall milliseconds per generation of three 200-generation
@@ -28,10 +28,12 @@ compute the same function end on the same digest, and the last line
 says whether all four turns did.
 
 With ``--sass`` it runs no turn: it builds each checkout's production
-``csrc/deme_breed.cu`` unit and compares ``cuobjdump -sass`` of the two,
-kernel by kernel (names with the unit's hash digits masked), and prints
-which kernels' code is the same, which differs and which one checkout
-alone has.
+``csrc/deme_breed.cu`` unit (with ``--creep``: the expression unit of the
+creep mutation's hooks, ``csrc/expr_breed.cu`` with the hooks each
+checkout generates) and compares ``cuobjdump -sass`` of the two, kernel
+by kernel (names with the unit's hash digits masked), and prints which
+kernels' code is the same, which differs and which one checkout alone
+has.
 """
 
 from __future__ import annotations
@@ -104,20 +106,28 @@ BUILD_UNIT = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
 from libpga_tpu_torch.ops import kernels
-print(kernels.build("deme_breed"))
+if sys.argv[2] == "creep":
+    from libpga_tpu_torch.ops import expr_cuda
+    from libpga_tpu_torch.ops.breed_expr import mutate_from_expression
+    creep = mutate_from_expression("where(r < rate, g + sigma * (2*r2 - 1), g)", rate=0.05,
+                                   sigma=0.1)
+    print(kernels.build_expr(expr_cuda.program_for(None, creep, None)))
+else:
+    print(kernels.build("deme_breed"))
 """
 
 
-def sass_by_kernel(root: Path) -> dict:
-    """{kernel name: its SASS} of ``root``'s production deme_breed.cu unit."""
-    lib = subprocess.run([sys.executable, "-c", BUILD_UNIT, str(root)], capture_output=True,
+def sass_by_kernel(root: Path, unit: str = "deme_breed") -> dict:
+    """{kernel name: its SASS} of ``root``'s production deme_breed.cu unit
+    (``unit`` "creep": its expression unit of the creep mutation)."""
+    lib = subprocess.run([sys.executable, "-c", BUILD_UNIT, str(root), unit], capture_output=True,
                          text=True, check=True, timeout=900).stdout.strip().splitlines()[-1]
     text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
-    # The unit's hashes in internal names: the anonymous namespace's, and the
+    # The unit's hashes in internal names: the anonymous namespace's, the
     # one after the file name, which moves with the unit's first external
-    # definition.
-    mask = re.compile(r"(?<=_)[0-9a-f]{8}(?=_)|(?<=_cu_)[0-9a-f]{8}")
+    # definition, and a generated unit's file name's own.
+    mask = re.compile(r"(?<=_)[0-9a-f]{8}(?=_)|(?<=_cu_)[0-9a-f]{8}|(?<=_)[0-9a-f]{16}(?=_cu)")
     out = {}
     for chunk in text.split("Function : ")[1:]:
         name, _, body = chunk.partition("\n")
@@ -128,10 +138,11 @@ def sass_by_kernel(root: Path) -> dict:
 def main() -> int:
     args = sys.argv[1:]
     if "--sass" in args:
-        dirs = [a for a in args if a != "--sass"]
-        parent = sass_by_kernel(Path(dirs[0]).resolve())
+        unit = "creep" if "--creep" in args else "deme_breed"
+        dirs = [a for a in args if a not in ("--sass", "--creep")]
+        parent = sass_by_kernel(Path(dirs[0]).resolve(), unit)
         change = sass_by_kernel(Path(dirs[1]).resolve() if len(dirs) > 1
-                                else Path(__file__).resolve().parent)
+                                else Path(__file__).resolve().parent, unit)
         both = sorted(parent.keys() & change.keys())
         differ = {}
         for k in both:
@@ -141,7 +152,7 @@ def main() -> int:
                 differ[k] = {"lines": [len(a), len(b)], "differing": len(pairs),
                              "first": pairs[:4]}
         print(json.dumps({"sass": {
-            "same": [k for k in both if k not in differ], "differ": differ,
+            "unit": unit, "same": [k for k in both if k not in differ], "differ": differ,
             "parent_only": sorted(parent.keys() - change.keys()),
             "change_only": sorted(change.keys() - parent.keys())}}), flush=True)
         return 0

@@ -385,6 +385,12 @@ EXPR_ATOL_PER_GENE = 1e-5
 EXPR_REPLACES = "libpga_tpu/ops/pallas_step.py:946"  # _breed_kernel, expression branches
 EXPR_ALSO_REPLACES = "libpga_tpu/ops/pallas_step.py:1173"  # _pp_breed_kernel, same branches
 EXPR_GENS = {"nk": 50, "trap": 50, "knapsack": 30, "ops": 50}
+# The kernels-line name of each one-generation expression counter, with or
+# without "islands_" / "_bf16" (the island and bf16 entries keep theirs).
+EXPR_ENTRY = {"expr": "expr_breed", "expr_pipelined": "expr_pipelined",
+              "islands_expr": "expr_breed", "islands_expr_pipelined": "expr_pipelined",
+              "expr_bf16": "expr_breed", "expr_pipelined_bf16": "expr_pipelined",
+              "islands_expr_bf16": "expr_breed", "islands_expr_pipelined_bf16": "expr_pipelined"}
 CREEP = "where(r < rate, g + sigma * (2*r2 - 1), g)"
 EXPR_MG_T = 8
 EXPR_MG_REPLACES = "libpga_tpu/ops/pallas_step.py:1460"  # _multigen_kernel, expression cases
@@ -506,7 +512,8 @@ ISLAND_EXPR_CASES = [
 ]
 # The kernels-line name of each launch counter, and the Pallas kernel the
 # island launch replaces (by layout) with the island epoch that vmaps it.
-ISLAND_EXPR_ENTRY = {"expr": "expr_breed", "expr_order": "expr_order",
+ISLAND_EXPR_ENTRY = {"expr": "expr_breed", "expr_pipelined": "expr_pipelined",
+                     "expr_order": "expr_order",
                      "expr_multigen": "expr_multigen",
                      "expr_multigen_order": "expr_multigen_order"}
 ISLAND_EXPR_REPLACES = {"pingpong": "libpga_tpu/ops/pallas_step.py:1173",
@@ -591,9 +598,10 @@ SHARD_PANMICTIC = (65_536, 64, 4)  # bench.py:88-91, the JAX bench's sharded arm
 # at the hooks' geometry) or a tuple of flags. Each entry: what it
 # replaces, what else, and the row-case whose numbers it carries.
 HOOK_FLOOR_ROWS = [
-    ("creep", "creep", 1 << 20, 100, 512, 1, 1, "ablate_expr",
+    ("creep", "creep", 1 << 20, 100, 512, 1, 1, "ablate_expr_pipelined",
      ("sel_const", "no_matmul", "no_cross", "no_mut", "floor", "copy")),
-    ("trap", "trap", 1 << 20, 60, 512, 1, 1, "ablate_expr", ("no_mut", "no_cross", "floor")),
+    ("trap", "trap", 1 << 20, 60, 512, 1, 1, "ablate_expr_pipelined",
+     ("no_mut", "no_cross", "floor")),
     ("tour", "tour", 65_536, 200, 256, 1, 1, "ablate_expr_order", ("no_cross", "no_mut", "floor")),
     ("tsp", "tsp", 8192, 1000, 256, 1, 1, "ablate_order",
      ("sel_const", "no_matmul", "no_cross", "no_mut", "floor")),
@@ -606,8 +614,8 @@ HOOK_FLOOR_ROWS = [
 ]
 HOOK_FLOOR_ROUNDS = 2
 HOOK_FLOOR_ENTRIES = {
-    "ablate_expr": ("libpga_tpu/ops/pallas_step.py:750",  # callable mutation
-                    "libpga_tpu/ops/pallas_step.py:634", "creep-floor"),  # no_cross first
+    "ablate_expr_pipelined": ("libpga_tpu/ops/pallas_step.py:750",  # callable mutation
+                              "libpga_tpu/ops/pallas_step.py:634", "creep-floor"),  # no_cross
     "ablate_expr_order": ("libpga_tpu/ops/pallas_step.py:653",  # the order walk
                           "libpga_tpu/ops/pallas_step.py:1143", "tour-floor"),  # const objective
     "ablate_order": ("libpga_tpu/ops/pallas_step.py:653",
@@ -630,7 +638,7 @@ SUBBLOCK_FLOOR_REPLACES = ("libpga_tpu/ops/pallas_step.py:1359",  # B > 1 hands 
 # flag combinations outside the production unit's masks, each launched
 # from a unit of its own (copy_only with a stage flag is the copy).
 B10_HOOK_ROWS = [
-    ("creep-B2", "creep", 1 << 20, 100, 512, 1, 2, "ablate_expr", ("no_mut", "floor")),
+    ("creep-B2", "creep", 1 << 20, 100, 512, 1, 2, "ablate_expr_pipelined", ("no_mut", "floor")),
     ("deme", "builtin", 40_000, 100, 256, 1, 1, "ablate_breed",
      (("sel_const", "no_cross"), ("no_cross", "no_mut"), ("copy_only", "no_mut"))),
     ("order", "tsp", 8192, 1000, 256, 1, 1, "ablate_order", (("no_matmul", "no_mut"),)),
@@ -1707,10 +1715,45 @@ def _ulps(a, b):
     return (key(a) - key(b)).abs()
 
 
+def expr_counter(kernels, counter, program, geom, dtype, mutate) -> str:
+    """The launch counter of a one-generation expression breed
+    (``counter``: an ``expr_breed_kernel`` counter, "expr", "islands_expr"
+    or "ablate_expr", with "_bf16"): its "expr_pipelined" twin where
+    ``kernels.expr_breed_cuda`` routes the shape to
+    ``expr_pipelined_kernel`` (``kernels.expr_pipelined_holds``, from the
+    shape alone), else ``counter``."""
+    mut_id = 0 if callable(mutate) else kernels.MUTATE_IDS[mutate]
+    if kernels.expr_pipelined_holds(program, geom, dtype, mut_id):
+        return counter.replace("expr", "expr_pipelined", 1)
+    return counter
+
+
+def against_expr_breed(got, old, transcendental: bool, tag: str) -> int:
+    """``expr_pipelined_kernel``'s (children, scores) ``got`` against
+    ``expr_breed_kernel``'s ``old`` on the same inputs: children bit for
+    bit (within 2 ulp where a hook calls a transcendental, whose code nvcc
+    may inline differently), scores bit for bit (where the children are).
+    Returns the children's largest distance in ulp."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got[0].dtype == torch.float32:
+        ulps = int(_ulps(got[0], old[0]).max())
+    else:
+        ulps = 0 if torch.equal(got[0], old[0]) else 3
+    check(ulps == 0 or (transcendental and ulps <= 2),
+          f"{tag}: children {ulps} ulp from expr_breed_kernel's")
+    if ulps == 0 and got[1] is not None:
+        check(torch.equal(got[1], old[1]), f"{tag}: scores differ from expr_breed_kernel's")
+    return ulps
+
+
 def phase_expr_compare(port, fs, device, results):
     """The expression breed against its plain version on the same inputs,
     injected and Philox draws, every row map; times both at the
-    workloads' shapes."""
+    workloads' shapes. Where the shape routes to ``expr_pipelined_kernel``
+    it is also held against ``expr_breed_kernel`` on the same inputs
+    (children and scores bit for bit) and both are timed."""
     import torch
 
     from libpga_tpu_torch.ops import expr_cuda
@@ -1756,13 +1799,20 @@ def phase_expr_compare(port, fs, device, results):
             injected.expr_gene = torch.rand(injected.expr_gene.shape, generator=gen, device=device)
             injected.expr_row = torch.rand(injected.expr_row.shape, generator=gen, device=device)
         seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
-        errs, ulps = [], 0
+        counter = expr_counter(fs.kernels, "expr", program, geom, torch.float32, mut)
+        pipelined = counter == "expr_pipelined"
+        errs, ulps, old_ulps = [], 0, 0
         for mode, draws in (("injected", injected), ("philox", None)):
+            x = dict(seed=seed) if draws is None else dict(draws=draws)
+            before = fs.kernels.LAUNCHES[counter]
+            got = fs.deme_breed(g, ranks, geom, parity, **x, **kw)
+            check(fs.kernels.LAUNCHES[counter] == before + 1, f"expr {name}: not on {counter}")
+            if pipelined:
+                old_ulps = max(old_ulps, against_expr_breed(
+                    got, fs.deme_breed(g, ranks, geom, parity, pipelined=False, **x, **kw),
+                    program.transcendental, f"expr {name} {mode}"))
             if draws is None:
-                got = fs.deme_breed(g, ranks, geom, parity, seed=seed, **kw)
                 draws = fs.philox_draws(seed, geom.G, geom.K, L, mut, cross)
-            else:
-                got = fs.deme_breed(g, ranks, geom, parity, draws=draws, **kw)
             want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
             torch.cuda.synchronize()
             if program.transcendental:
@@ -1783,22 +1833,45 @@ def phase_expr_compare(port, fs, device, results):
                 "genomes_equal": ulps == 0, "genome_max_ulps": ulps, "max_abs_err": max(errs),
                 "score_rtol": EXPR_RTOL, "score_atol": EXPR_ATOL_PER_GENE * L,
                 "obj_rows": program.obj_rows, "warps_per_block": fs.kernels.expr_warps(
-                    geom.K, L, program.obj_rows)}
+                    geom.K, L, program.obj_rows), "kernel": counter,
+                "expr_breed_max_ulps": old_ulps if pipelined else None}
+        if pipelined:
+            plan = fs.kernels.expr_pipelined_plan(program, geom, torch.float32,
+                                                  0 if callable(mut) else fs.kernels.MUTATE_IDS[mut])
+            line.update(C=plan.C, child_rows=plan.child_rows, smem=plan.smem)
         r = results.setdefault(load, {})
         r["max_abs_err"] = max(r.get("max_abs_err", 0.0), max(errs))
         if timed:
             out = torch.empty_like(g)
             ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, parity, seed=seed, out=out, **kw), 20)
+            old_ms = (cuda_ms(lambda: fs.deme_breed(g, ranks, geom, parity, seed=seed, out=out,
+                                                    pipelined=False, **kw), 20)
+                      if pipelined else None)
             plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
                 g, ranks, geom, parity, fs.philox_draws(seed, geom.G, geom.K, L, mut, cross), **kw), 3)
             bound_ms, bound_by, _ = breed_bound(geom, program=program)
-            line.update(kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                        ms_over_bound=ms / bound_ms)
-            r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                     shape=[P, L], layout=geom.layout, K=geom.K, D=geom.D)
+            line.update(kernel_ms=ms, expr_breed_ms=old_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, ms_over_bound=ms / bound_ms)
+            r.update(ms=ms, expr_breed_ms=old_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, shape=[P, L], layout=geom.layout, K=geom.K, D=geom.D,
+                     counter=counter)
         print(json.dumps(line), flush=True)
         del g, s, ranks, injected
         torch.cuda.empty_cache()
+
+
+def phase_expr_pipelined_floor():
+    """The floor the expression breed's pipelined kernel starts from:
+    ``deme_pipelined_kernel`` (builtin hooks) at the B = 1 geometries of
+    the expression cells beside ``deme_breed_kernel``, ``index_select`` of
+    the rows and the bound (``tools/pipelined_variants.b1_floor``, two
+    rounds; the two kernels first held equal bit for bit)."""
+    from libpga_tpu_torch.tools import pipelined_variants
+
+    t0 = time.perf_counter()
+    shapes = pipelined_variants.b1_floor(rounds=2, reps=20)
+    print(json.dumps({"phase": "expr_pipelined_step0", "shapes": shapes,
+                      "seconds": time.perf_counter() - t0}), flush=True)
 
 
 def phase_expr_runs(port, kernels, results):
@@ -1833,14 +1906,15 @@ def phase_expr_runs(port, kernels, results):
         if name == "knapsack":
             line.update(optimum=285.0, best_counts=[int(x) for x in (genome * 2.0).astype("int64")])
         print(json.dumps(line), flush=True)
+        counter = results[name]["counter"]
         check(ran == gens, f"{name}: ran {ran} generations")
-        check(launches["expr"] == gens and sum(launches.values()) == gens,
-              f"{name}: launches {launches} for {gens} generations")
+        check(launches[counter] == gens and sum(launches.values()) == gens,
+              f"{name}: launches {launches} for {gens} generations of {counter}")
         check(math.isfinite(best) and abs(line["best_rescored"] - best) <= EXPR_ATOL_PER_GENE * L
               + EXPR_RTOL * abs(best), f"{name}: best {best} is not its genome's score")
         if name in ("nk", "trap"):
             check(best > start_best, f"{name}: best {start_best} -> {best}")
-        results[name]["launches"] = launches["expr"]
+        results[name]["launches"] = launches[counter]
         results[name]["ms_per_gen"] = line["ms_per_gen"]
         if name != "knapsack":
             # As many generations as the timed run: each pga_run scores its
@@ -2086,7 +2160,9 @@ def phase_expr_multigen_runs(port, kernels, results):
         port.pga_run(one, 2)
         kernels.reset_launches()
         ran1, seconds1 = timed_run(port, one, gens)
-        check(kernels.LAUNCHES["expr"] == gens, f"{name}: one per launch {kernels.LAUNCHES}")
+        one_launches = kernels.LAUNCHES["expr"] + kernels.LAUNCHES["expr_pipelined"]
+        check(one_launches == gens and sum(kernels.LAUNCHES.values()) == gens,
+              f"{name}: one per launch {kernels.LAUNCHES}")
         port.pga_deinit(one)
         r = results[name]
         line = {"phase": "expr_multigen_run", "workload": name, "shape": [P, L],
@@ -2832,7 +2908,11 @@ def phase_island_expr_compare(port, fs, kernels, device, results):
         mut, cross = kw["mutate"], kw["crossover"]
         multigen = steps > 1
         dtype = torch.bfloat16 if bf16 else torch.float32
+        if counter == "expr":
+            counter = expr_counter(kernels, counter, program, geom, dtype, mut)
         key = "islands_" + counter + ("_bf16" if bf16 else "")
+        pipelined = counter == "expr_pipelined"
+        old_ulps = 0
         gen = torch.Generator(device=device).manual_seed(S + L + I + steps)
         g = torch.rand((I, geom.Pp, L), generator=gen, device=device).to(dtype)
         g[:, S:] = 0
@@ -2869,9 +2949,13 @@ def phase_island_expr_compare(port, fs, kernels, device, results):
                 before = kernels.LAUNCHES[key]
                 got = launch(0, I, **x)
                 launched += kernels.LAUNCHES[key] - before
+                tag = f"expression islands {name} parity {parity} {mode}"
+                if pipelined:
+                    old_ulps = max(old_ulps, against_expr_breed(
+                        got, fs.deme_breed(g, ranks, geom, parity, islands=I, pipelined=False,
+                                           **x, **kw), program.transcendental, tag))
                 want = launch(0, I, plain=True, **x)
                 torch.cuda.synchronize()
-                tag = f"expression islands {name} parity {parity} {mode}"
                 check(got[0].dtype == dtype and torch.equal(got[0], want[0]),
                       f"{tag}: genomes differ from the plain version")
                 check(bool(torch.isinf(got[1][:, ~real]).all())
@@ -2917,6 +3001,8 @@ def phase_island_expr_compare(port, fs, kernels, device, results):
 
         reps = 5 if multigen else 20
         ms, loop_ms = cuda_ms(island_launch, reps), cuda_ms(single_launches, reps)
+        old_ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seeds, out=out, islands=I,
+                                               pipelined=False, **kw), reps) if pipelined else None
         plain_ms = cuda_ms(lambda: launch(0, I, plain=True, seed=seeds), 1 if multigen else 2)
         route = None
         if multigen:
@@ -2936,10 +3022,11 @@ def phase_island_expr_compare(port, fs, kernels, device, results):
                 "kernel_ms": ms, "loop_ms": loop_ms, "loop_over_island": loop_ms / ms,
                 "plain_ms": plain_ms, "bound_ms": I * bound_ms, "bound_by": bound_by,
                 "chain_steps": chain, "kernel_over_bound": ms / (I * bound_ms),
-                "schedule": route}
+                "schedule": route, "expr_breed_ms": old_ms,
+                "expr_breed_max_ulps": old_ulps if pipelined else None}
         print(json.dumps(line), flush=True)
         results[name] = {"counter": counter, "ms": ms, "loop_ms": loop_ms, "plain_ms": plain_ms,
-                         "schedule": route,
+                         "schedule": route, "expr_breed_ms": old_ms,
                          "bound_ms": I * bound_ms, "bound_by": bound_by, "chain_steps": chain,
                          "max_abs_err": max(errs), "shape": [I, S, L], "steps": steps,
                          "layout": geom.layout, "K": K, "D": geom.D,
@@ -2966,7 +3053,8 @@ def phase_island_expr_runs(port, kernels, results, refs):
     cases = {c[0]: c for c in ISLAND_EXPR_CASES}
     loads = island_expr_workloads()
     for name, gens, src, ref_key in ISLAND_EXPR_RUNS:
-        _, counter, I, S, L, load, steps, bf16 = cases[name]
+        _, _, I, S, L, load, steps, bf16 = cases[name]
+        counter = results[name]["counter"]  # the route island_expr_compare found
         objective, crossover, mutate = loads[load]
         T = steps if steps > 1 else None
         key = "islands_" + counter + ("_bf16" if bf16 else "")
@@ -3240,13 +3328,21 @@ def phase_bf16_compare(port, fs, device, results):
                   mparams=torch.tensor(list(mp), dtype=torch.float32, device=device))
         seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
         tol = dict(rtol=EXPR_RTOL, atol=EXPR_ATOL_PER_GENE * L)
-        errs = []
+        errs, extra = [], {}
         if steps is None:
+            counter = expr_counter(fs.kernels, "expr_bf16", program, geom, bf, mut)
+            pipelined = counter == "expr_pipelined_bf16"
+            extra["counter"] = counter
             for parity in parities:
                 ranks = fs.compute_ranks(s, geom, parity, fs.draw_tie_words(gen, geom.Pp, device))
                 injected = expr_multigen_draws(fs, geom, 1, mut, cross, gen, device).at(0)
                 for mode, x in (("injected", dict(draws=injected)), ("philox", dict(seed=seed))):
                     got = fs.deme_breed(g, ranks, geom, parity, **x, **kw)
+                    if pipelined:
+                        against_expr_breed(got, fs.deme_breed(g, ranks, geom, parity,
+                                                              pipelined=False, **x, **kw),
+                                           program.transcendental,
+                                           f"bf16 {name} parity {parity} {mode}")
                     f32 = fs.deme_breed(g.float(), ranks, geom, parity, **x, **kw)[0].to(bf)
                     d = x.get("draws") or fs.philox_draws(seed, geom.G, geom.K, L, mut, cross)
                     want = fs.deme_breed_reference(g, ranks, geom, parity, d, **kw)
@@ -3255,13 +3351,16 @@ def phase_bf16_compare(port, fs, device, results):
                                            P, **tol))
                     del got, want, f32, d
 
-            def launch(genomes, out):
-                return fs.deme_breed(genomes, ranks, geom, 0, seed=seed, out=out, **kw)
+            def launch(genomes, out, **how):
+                return fs.deme_breed(genomes, ranks, geom, 0, seed=seed, out=out, **how, **kw)
 
             def plain():
                 return fs.deme_breed_reference(g, ranks, geom, 0, fs.philox_draws(
                     seed, geom.G, geom.K, L, mut, cross), **kw)
 
+            if pipelined:
+                out = torch.empty_like(g)
+                extra["expr_breed_ms"] = cuda_ms(lambda: launch(g, out, pipelined=False), 20)
             bound = breed_bound(geom, program=program, gene_bytes=2)
             f32_bound = breed_bound(geom, program=program)
         else:
@@ -3294,7 +3393,6 @@ def phase_bf16_compare(port, fs, device, results):
         ms = cuda_ms(lambda: launch(g, out), reps)
         f32_ms = cuda_ms(lambda: launch(g32, out32), reps)
         plain_ms = cuda_ms(plain, 2)
-        extra = {}
         if steps:
             extra["schedule"] = mg_route(fs.kernels, geom, bf, kw)
             check(extra["schedule"]["route"] == "one_block", f"bf16 {name}: {extra['schedule']}")
@@ -3372,6 +3470,7 @@ def phase_bf16_runs(port, kernels, results):
 
     loads = expr_workloads()
     for name, load, P, L, T, I, counter, gens in BF16_RUNS:
+        counter = results[name].get("counter", counter)  # the route bf16_compare found
         objective, crossover = "onemax", None
         if load != "onemax":
             _, _, objective, crossover, _ = loads[load]
@@ -3775,6 +3874,10 @@ def phase_hook_floor_compare(fs, kernels, device, results, rows=HOOK_FLOOR_ROWS,
             prod_ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seed, out=out,
                                                     **prod.kw), 20)
         cluster = route is not None and route["route"] == "cluster"
+        pipelined = entry_name == "ablate_expr_pipelined"
+        if pipelined:  # the route's kernel, from the shape
+            check(expr_counter(kernels, "ablate_expr", program, geom, torch.float32, mut)
+                  == entry_name, f"hook floor {row}: not on {entry_name}")
         prod_bound = breed_bound(geom, program=program, order=order, n_cities=n_cities, steps=T)
         for case in cases:
             ablate = hook_case_flags(case)
@@ -3788,7 +3891,7 @@ def phase_hook_floor_compare(fs, kernels, device, results, rows=HOOK_FLOOR_ROWS,
                       "#define DEME_ABLATE_EXTRA"), f"{tag}: mask {mask} is not an extra unit's")
             breed = make(P, L, objective, deme_size=K, device=device, ablate=ablate, **kinds)
             cg, kw = breed.geom, breed.kw
-            errs, one_block_ms = [], None
+            errs, one_block_ms, old_ms = [], None, None
             if copy:
                 handed = s.view(cg.G, cg.K)
                 got = launched_once(kernels, key, mask,
@@ -3845,6 +3948,10 @@ def phase_hook_floor_compare(fs, kernels, device, results, rows=HOOK_FLOOR_ROWS,
                         m += f" parity {parity}" if B > 1 else ""
                         got = launched_once(kernels, key, mask, lambda: fs.deme_breed(
                             g, rp, cg, parity, **mode, **kw), f"{tag} {m}")
+                        if pipelined and not copy:  # expr_breed_kernel's case of the mask
+                            against_expr_breed(got, fs.deme_breed(
+                                g, rp, cg, parity, pipelined=False, **mode, **kw),
+                                program.transcendental, f"{tag} {m}")
                         want = fs.deme_breed_reference(g, rp, cg, parity, draws, **kw)
                         torch.cuda.synchronize()
                         check(torch.equal(got[0], want[0]), f"{tag} {m}: genomes differ")
@@ -3854,6 +3961,9 @@ def phase_hook_floor_compare(fs, kernels, device, results, rows=HOOK_FLOOR_ROWS,
                                                   atol=atol)), f"{tag} {m}: score error {errs[-1]}")
                 del injected
                 ms = cuda_ms(lambda: fs.deme_breed(g, r[0], cg, 0, seed=seed, out=out, **kw), 20)
+                if pipelined:
+                    old_ms = cuda_ms(lambda: fs.deme_breed(g, r[0], cg, 0, seed=seed, out=out,
+                                                           pipelined=False, **kw), 20)
                 plain_ms = cuda_ms(lambda: fs.deme_breed_reference(g, r[0], cg, 0, philox, **kw),
                                    2)
                 bound = breed_bound(cg, ablate=ablate, program=program, order=order,
@@ -3866,14 +3976,14 @@ def phase_hook_floor_compare(fs, kernels, device, results, rows=HOOK_FLOOR_ROWS,
                     "chain_steps": bound[2], "production_ms": prod_ms,
                     "production_bound_ms": prod_bound[0], "production_bound_by": prod_bound[1],
                     "production_chain_steps": prod_bound[2], "schedule": route,
-                    "one_block_ms": one_block_ms}
+                    "one_block_ms": one_block_ms, "expr_breed_ms": old_ms}
             print(json.dumps(line), flush=True)
             results.setdefault("lines", {})[f"{row}-{name}"] = line
             entry = results.setdefault(entry_name, {"max_abs_err": 0.0, "cases": {}})
             entry["max_abs_err"] = max(entry["max_abs_err"], max(errs))
             entry["cases"][f"{row}-{name}"] = {k: line[k] for k in (
                 "kernel_ms", "plain_ms", "bound_ms", "bound_by", "production_ms",
-                "production_bound_ms", "kernel", "schedule", "one_block_ms")}
+                "production_bound_ms", "kernel", "schedule", "one_block_ms", "expr_breed_ms")}
             if f"{row}-{name}" == HOOK_FLOOR_ENTRIES.get(entry_name, (None,) * 3)[2]:
                 entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
                              case=f"{row}-{name}", shape=[P, L], steps=T,
@@ -3904,9 +4014,10 @@ def phase_hook_floor_partition(kernels, results):
                           "seconds": time.perf_counter() - t0}), flush=True)
     launches = dict(kernels.LAUNCHES)
     print(json.dumps({"phase": "hook_floor_launches", "launches": launches}), flush=True)
-    for key in ("ablate_expr", "ablate_expr_order", "ablate_order", "ablate_expr_multigen",
-                "ablate_expr_multigen_order", "ablate_multigen_order", "ablate_copy", "expr",
-                "expr_order", "order", "expr_multigen", "expr_multigen_order", "multigen_order"):
+    for key in ("ablate_expr_pipelined", "ablate_expr_order", "ablate_order",
+                "ablate_expr_multigen", "ablate_expr_multigen_order", "ablate_multigen_order",
+                "ablate_copy", "expr_pipelined", "expr_order", "order", "expr_multigen",
+                "expr_multigen_order", "multigen_order"):
         check(launches[key] > 0, f"hook_floor_partition: {key} never launched ({launches})")
     for row, med in medians.items():
         check(all(v == v for v in med.values()), f"hook_floor_partition {row}: a median rests"
@@ -4126,37 +4237,45 @@ def phase_subblock_compare(port, fs, onemax, kernels, device, results):
     del g, out
     torch.cuda.empty_cache()
 
-    # The creep expression at B = 2: expr_breed_kernel on the B-aware maps.
+    # The creep expression at B = 2: expr_pipelined_kernel on the B-aware
+    # maps, against expr_breed_kernel on the same inputs.
     op = port.mutate_from_expression(CREEP, rate=0.05, sigma=0.1)
     geom = fs.resolve_geometry(1 << 20, 100, subblock=2)
     gen = torch.Generator(device=device).manual_seed(13)
     g = torch.rand((geom.Pp, 100), generator=gen, device=device)
     s = g.sum(dim=1)
     kw = dict(mparams=torch.tensor([0.05, 0.1], device=device), obj_id=onemax.fused_id, mutate=op)
+    counter = expr_counter(kernels, "expr", op_program(op), geom, torch.float32, op)
+    check(counter == "expr_pipelined", f"subblock creep: routed to {counter}")
     errs = []
     for parity in (0, 1):
         ranks = fs.compute_ranks(s, geom, parity, fs.draw_tie_words(gen, geom.Pp, device))
         seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
-        before = kernels.LAUNCHES["expr"]
+        before = kernels.LAUNCHES[counter]
         got = fs.deme_breed(g, ranks, geom, parity, seed=seed, **kw)
+        check(kernels.LAUNCHES[counter] == before + 1, f"subblock creep: {counter} did not launch")
+        against_expr_breed(got, fs.deme_breed(g, ranks, geom, parity, seed=seed, pipelined=False,
+                                              **kw), False, f"subblock creep parity {parity}")
         want = fs.deme_breed_reference(g, ranks, geom, parity,
                                        fs.philox_draws(seed, geom.G, geom.K, 100, op), **kw)
         torch.cuda.synchronize()
-        check(kernels.LAUNCHES["expr"] == before + 1, "subblock creep: expr did not launch")
         check(torch.equal(got[0], want[0]), f"subblock creep parity {parity}: genomes differ")
         errs.append(float((got[1] - want[1]).abs().max()))
         check(errs[-1] <= SCORE_ATOL, f"subblock creep parity {parity}: score error {errs[-1]}")
     out = torch.empty_like(g)
     ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 1, seed=seed, out=out, **kw), 20)
+    old_ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 1, seed=seed, out=out, pipelined=False,
+                                           **kw), 20)
     # The same hook on the same rows at B = 1 (subblock None), in turns.
     b1 = fs.resolve_geometry(1 << 20, 100)
     ranks1 = fs.compute_ranks(s, b1, 1, fs.draw_tie_words(gen, b1.Pp, device))
     b1_ms = cuda_ms(lambda: fs.deme_breed(g, ranks1, b1, 1, seed=seed, out=out, **kw), 20)
     ms_again = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 1, seed=seed, out=out, **kw), 20)
     b1_again = cuda_ms(lambda: fs.deme_breed(g, ranks1, b1, 1, seed=seed, out=out, **kw), 20)
-    line = {"phase": "subblock_compare", "case": "creep-B2 (expr_breed_kernel)",
+    line = {"phase": "subblock_compare", "case": "creep-B2 (expr_pipelined_kernel)",
             "shape": [1 << 20, 100], "K": geom.K, "D": geom.D, "B": geom.B,
             "genomes_equal": True, "max_abs_err": max(errs), "ms": ms, "ms_again": ms_again,
+            "expr_breed_ms": old_ms,
             "b1_ms": b1_ms, "b1_ms_again": b1_again, "b1_D": b1.D,
             "bound_ms": breed_bound(geom, program=op_program(op))[0]}
     print(json.dumps(line), flush=True)
@@ -4388,14 +4507,14 @@ def phase_subblock_floor_partition(kernels, results):
     print(json.dumps({"phase": "subblock_floor_launches", "launches": launches,
                       "by_mask": by_mask, "plans": plans}), flush=True)
     for key in ("ablate_pipelined", "ablate_pipelined_bf16", "deme_pipelined",
-                "deme_pipelined_bf16", "ablate_expr", "expr"):
+                "deme_pipelined_bf16", "ablate_expr_pipelined", "expr_pipelined"):
         check(launches[key] > 0, f"subblock_floor_partition: {key} never launched ({launches})")
     floor = kernels.ABLATE_FLOOR
     for key in ("ablate_pipelined", "ablate_pipelined_bf16"):
         for mask in kernels.PIPELINED_HARNESS_MASKS:
             check(kernels.MASK_LAUNCHES.get((key, mask), 0) > 0,
                   f"subblock_floor_partition: {key} mask {mask} never launched")
-    check(kernels.MASK_LAUNCHES.get(("ablate_expr", floor), 0) > 0,
+    check(kernels.MASK_LAUNCHES.get(("ablate_expr_pipelined", floor), 0) > 0,
           "subblock_floor_partition: the creep floor never launched")
     for case, key, flags, *_ in ABLATE_COMBOS:
         mask = kernels.ablate_mask(flags, multigen=True)
@@ -4447,6 +4566,9 @@ def phase_shard_compare(port, fs, kernels, device, results):
         step, _ = pga._sharded_local_step(P // S, L)
         geom, kw = step.breed.geom, step.breed.kw
         key = shard_key(dtype_name, mutate)
+        if mutate:
+            key = expr_counter(kernels, key, op_program(kw["mutate"]), geom, dtype, kw["mutate"])
+        pipelined = "expr_pipelined" in key
         gen = torch.Generator(device=device).manual_seed(S)
         g = torch.rand((S, geom.Pp, L), generator=gen, device=device).to(dtype)
         s = g.float().sum(dim=-1)
@@ -4461,10 +4583,17 @@ def phase_shard_compare(port, fs, kernels, device, results):
             draws = fs.island_philox_draws(seeds, geom.G, geom.K, L, kw["mutate"],
                                            kw["crossover"])
             injected = fs.deme_breed(g, ranks, geom, parity, draws=draws, islands=S, **kw)
-            want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
-            torch.cuda.synchronize()
             tag = f"shards {name} parity {parity}"
             check(kernels.LAUNCHES[key] == before + 2, f"{tag}: {key} did not launch")
+            if pipelined:
+                against_expr_breed(got, fs.deme_breed(g, ranks, geom, parity, seed=seeds,
+                                                      islands=S, pipelined=False, **kw),
+                                   False, f"{tag} philox")
+                against_expr_breed(injected, fs.deme_breed(g, ranks, geom, parity, draws=draws,
+                                                           islands=S, pipelined=False, **kw),
+                                   False, f"{tag} injected")
+            want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
+            torch.cuda.synchronize()
             for mode, out in (("philox", got), ("injected", injected)):
                 check(torch.equal(out[0], want[0]), f"{tag} {mode}: genomes differ")
                 err = float((out[1] - want[1]).abs().max())
@@ -4474,6 +4603,8 @@ def phase_shard_compare(port, fs, kernels, device, results):
         ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seeds, islands=S, out=out,
                                            **kw), 20)
         step_ms = cuda_ms(lambda: step(g, s, 0, gen), 20)
+        old_ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seeds, islands=S, out=out,
+                                               pipelined=False, **kw), 20) if pipelined else None
         plain_ms = cuda_ms(lambda: fs.deme_breed_reference(g, ranks, geom, 0, draws, **kw), 2)
         one = fs.resolve_geometry(P, L, gene_dtype=dtype)
         g1, out1 = g.view(P, L), out.view(P, L)
@@ -4487,7 +4618,7 @@ def phase_shard_compare(port, fs, kernels, device, results):
                 "max_abs_err": max(errs), "score_atol": SCORE_ATOL, "ms": ms, "step_ms": step_ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms * S, "bound_by": bound_by,
                 "unsharded_ms": unsharded_ms, "unsharded_layout": one.layout,
-                "unsharded_D": one.D}
+                "unsharded_D": one.D, "counter": key, "expr_breed_ms": old_ms}
         print(json.dumps(line), flush=True)
         results[name] = line
         port.pga_deinit(pga)
@@ -4572,7 +4703,7 @@ def phase_shard_run(port, fs, kernels, device, results):
     for name, S, dtype_name, mutate in [("S1-f32", 1, "float32", None), *SHARD_CASES]:
         pga = shard_solver(port, P, L, S, dtype_name, mutate)
         seconds, launches, start_best, best = timed(pga, SHARD_RUN_GENS, f"shard run {name}")
-        key = pga._deme_geometry(P, L).layout if S == 1 else shard_key(dtype_name, mutate)
+        key = pga._deme_geometry(P, L).layout if S == 1 else results[name]["counter"]
         check(launches == {key: SHARD_RUN_GENS}, f"shard run {name}: launches {launches}")
         ms_per_gen = 1e3 * seconds / SHARD_RUN_GENS
         line = {"phase": "shard_run", "case": name, "shape": [P, L], "shards": S,
@@ -4648,11 +4779,11 @@ def b10_entries(b10_results, lines) -> list:
     creep = {c: lines[f"creep-B2-{c}"] for c in ("no_mut", "floor")}
     r = creep["floor"]
     entries.append({
-        "name": "ablate_expr[creep-B2]", "route": "cuda",
+        "name": "ablate_expr_pipelined[creep-B2]", "route": "cuda",
         "source": "libpga_tpu_torch/csrc/expr_breed.cu",
         "replaces": SUBBLOCK_FLOOR_REPLACES[0],
         "also_replaces": "libpga_tpu/ops/pallas_step.py:750",  # the callable mutation
-        "launches": b10_results["launches"]["ablate_expr"],
+        "launches": b10_results["launches"]["ablate_expr_pipelined"],
         "max_abs_err": max(v["max_abs_err"] for v in creep.values()),
         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None, "case": "creep-B2-floor",
@@ -4756,6 +4887,7 @@ def drive(torch, port, onemax, fs, kernels) -> int:
     phase_multigen_run(port, kernels, mg_results)
     expr_results = {}
     phase_expr_compare(port, fs, device, expr_results)
+    phase_expr_pipelined_floor()
     phase_expr_runs(port, kernels, expr_results)
     expr_mg_results = {}
     phase_expr_multigen_compare(port, fs, device, expr_mg_results)
@@ -4849,13 +4981,17 @@ def drive(torch, port, onemax, fs, kernels) -> int:
                                                    "chain_steps", "launches")},
     })
     for name, r in expr_results.items():
+        # The kernel the workload's run launched: expr_pipelined_kernel,
+        # with expr_breed_kernel's time at the same call beside it, or
+        # expr_breed_kernel.
         entries.append({
-            "name": f"expr_breed[{name}]", "route": "cuda",
+            "name": f"{EXPR_ENTRY[r['counter']]}[{name}]", "route": "cuda",
             "source": "libpga_tpu_torch/csrc/expr_breed.cu",
             "replaces": EXPR_REPLACES, "also_replaces": EXPR_ALSO_REPLACES,
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "shape": r["shape"], "layout": r["layout"],
+            "expr_breed_ms": r["expr_breed_ms"],
             "ms_per_gen": r["ms_per_gen"], "device_busy_share": r.get("device_busy_share"),
         })
     for name in EXPR_MG_GENS:
@@ -4910,7 +5046,8 @@ def drive(torch, port, onemax, fs, kernels) -> int:
         if name not in BF16_REPLACES:
             continue
         entries.append({
-            "name": name, "route": "cuda",
+            "name": name.replace("expr_breed", EXPR_ENTRY[r.get("counter", "expr_bf16")]),
+            "route": "cuda",
             "source": "libpga_tpu_torch/csrc/" + (
                 "expr_breed.cu" if name.startswith("expr") else "deme_breed.cu"),
             "replaces": BF16_REPLACES[name][0], "also_replaces": BF16_REPLACES[name][1],
@@ -4919,6 +5056,7 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "library_ms": None, "gene_dtype": "bfloat16", "shape": r["shape"],
             "layout": r["layout"], "K": r["K"], "D": r["D"], "steps": r["steps"],
             "f32_ms": r["f32_ms"], "f32_bound_ms": r["f32_bound_ms"], "loop_ms": r.get("loop_ms"),
+            "expr_breed_ms": r.get("expr_breed_ms"),
             "schedule": r.get("schedule"), "one_block_ms": r.get("one_block_ms"),
             "gens_per_s": r["gens_per_s"], "f32_gens_per_s": r["f32_gens_per_s"],
             "device_busy_share": r.get("device_busy_share"),
@@ -4935,6 +5073,7 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "loop_ms": r["loop_ms"], "shape": r["shape"],
+            "expr_breed_ms": r["expr_breed_ms"],
             "schedule": r["schedule"], "steps": r["steps"], "gene_dtype": r["gene_dtype"], "layout": r["layout"],
             "K": r["K"], "D": r["D"], "chain_steps": r["chain_steps"],
             "gens_per_s": r["gens_per_s"], "single_gens_per_s": r["single_gens_per_s"],
@@ -4998,14 +5137,16 @@ def drive(torch, port, onemax, fs, kernels) -> int:
         # from the case's shard_run.
         r = shard_results[name]
         entries.append({
-            "name": f"{'expr_breed' if mutate else 'deme_breed'}[shards,{name}]", "route": "cuda",
+            "name": f"{EXPR_ENTRY[r['counter']] if mutate else 'deme_breed'}[shards,{name}]",
+            "route": "cuda",
             "source": "libpga_tpu_torch/csrc/" + ("expr_breed.cu" if mutate else "deme_breed.cu"),
             "replaces": SHARD_REPLACES[0], "also_replaces": SHARD_REPLACES[1],
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "shape": r["shape"], "shards": r["shards"],
             "gene_dtype": r["gene_dtype"], "K": r["K"], "D": r["D"], "step_ms": r["step_ms"],
-            "unsharded_ms": r["unsharded_ms"], "gens_per_s": r["run"]["gens_per_s"],
+            "unsharded_ms": r["unsharded_ms"], "expr_breed_ms": r["expr_breed_ms"],
+            "gens_per_s": r["run"]["gens_per_s"],
             "unsharded_gens_per_s": shard_results["S1-f32"]["run"]["gens_per_s"],
             "device_busy_share": r["run"].get("device_busy_share"),
         })

@@ -167,7 +167,7 @@
 #include <cooperative_groups.h>
 
 #include "breed_core.cuh"
-#include "pipe_plan.cuh"
+#include "pipe_core.cuh"
 
 // The unit's floor-harness cases (see "The ABLATE cases each unit builds"
 // at the end): none but production unless ops/kernels.py defines one.
@@ -767,13 +767,9 @@ __global__ void __launch_bounds__(MG_THREADS) multigen_breed_kernel(
 // p1's. ABL_NO_MUT: no mutation call, no mutation. The other stages' Philox
 // counters are unchanged, so a no_mut child is the production child at
 // mutation rate 0, bit for bit. The staging, the ranks and the row maps are
-// the production schedule's in every case.
-
-constexpr int PIPE_LANES = 8;   // lanes a child
-constexpr int PIPE_WARPS = 16;  // warps a block: 128 registers a thread, none spilled
-constexpr int PIPE_THREADS = 32 * PIPE_WARPS;
-constexpr int PIPE_KIDS = 32 / PIPE_LANES;  // children a warp breeds at once
-constexpr int PIPE_LOADS = 4;               // genes a lane has in flight
+// the production schedule's in every case. The lane layout, the staging,
+// the row maps and the score sums are pipe_core.cuh's, which
+// expr_pipelined_kernel (expr_breed.cu) shares.
 
 // Partition cases that tools/pipelined_variants.py builds with -DPIPE_PART=n
 // and times beside production (0): 1 breeds no child (the staging, the rank
@@ -784,143 +780,6 @@ constexpr int PIPE_LOADS = 4;               // genes a lane has in flight
 #ifndef PIPE_PART
 #define PIPE_PART 0
 #endif
-
-// warp_sum of a child's terms from its lane group's partials, one gene a lane:
-// v[m] is the sum of warp-lane position j + 8*m (j the sub-lane). The
-// butterfly's steps 16 and 8 pair partials inside the lane, 4, 2 and 1 the
-// group's lanes; every lane of the group gets the sum.
-__device__ __forceinline__ float pipe_sum(const float (&v)[4]) {
-  float s = (v[0] + v[2]) + (v[1] + v[3]);
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
-  return s;
-}
-
-// The same, four genes a lane: on the group's first eight lanes v[i] is the
-// sum of warp-lane position 4*j + i (j the sub-lane). Steps 16, 8 and 4 pair
-// those lanes (j ^ 4, j ^ 2, j ^ 1), steps 2 and 1 pair the lane's own
-// partials. The sum is on the group's first eight lanes.
-__device__ __forceinline__ float pipe_sum4(const float (&v)[4]) {
-  float x[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    x[i] = v[i];
-#pragma unroll
-    for (int o = 4; o > 0; o >>= 1) x[i] = x[i] + __shfl_xor_sync(FULL, x[i], o);
-  }
-  return (x[0] + x[2]) + (x[1] + x[3]);
-}
-
-// Out of the breed's loop, so that its registers stay the point mutation's
-// and onemax's: gaussian mutation of gene l (gauss_mutate), and a gene's
-// terms of the other objectives, (a's, b's), which obj_add adds.
-__device__ __noinline__ float pipe_gauss(BreedCtx cx, Draws dr, float x, int k, int g, int l,
-                                         size_t child) {
-  return gauss_mutate(cx, dr, x, k, g, 0u, l, child, true);
-}
-
-__device__ __noinline__ float2 pipe_terms(int obj, float c) {
-  float a = 0.0f, b = 0.0f;
-  if (obj == OBJ_ONEMAX_BITS) {
-    a = c >= 0.5f ? 1.0f : 0.0f;
-  } else if (obj == OBJ_SPHERE) {
-    const float x = -5.12f + c * 10.24f;
-    a = x * x;
-  } else if (obj == OBJ_RASTRIGIN) {
-    const float x = -5.12f + c * 10.24f;
-    a = x * x - 10.0f * cosf(TWO_PI * x);
-  } else if (obj == OBJ_ACKLEY) {
-    const float x = -32.768f + c * 65.536f;
-    a = x * x;
-    b = cosf(TWO_PI * x);
-  } else {
-    a = c;
-  }
-  return make_float2(a, b);
-}
-
-// Four consecutive genes as float, from a 16-byte (float) or 8-byte (bf16)
-// aligned address; and four genes, already rounded to the gene type, stored
-// there.
-__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = v.x;
-  x[1] = v.y;
-  x[2] = v.z;
-  x[3] = v.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  x[0] = __uint_as_float(v.x << 16);
-  x[1] = __uint_as_float(v.x & 0xffff0000u);
-  x[2] = __uint_as_float(v.y << 16);
-  x[3] = __uint_as_float(v.y & 0xffff0000u);
-}
-
-__device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&x)[4]) {
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2((__float_as_uint(x[0]) >> 16) | (__float_as_uint(x[1]) & 0xffff0000u),
-                 (__float_as_uint(x[2]) >> 16) | (__float_as_uint(x[3]) & 0xffff0000u));
-}
-
-// A deme's row map in closed form (read_row / write_row of breed_core.cuh
-// for one deme, with the quantum q = 2^shift a power of two): slot or child
-// k's physical row is base + (k >> shift) * stride + (k & mask). Ping-pong
-// moves runs of q rows; the riffle and the contiguous map single rows.
-struct RowMap {
-  int base, stride, shift, mask;
-  __device__ __forceinline__ int operator()(int k) const {
-    return base + (k >> shift) * stride + (k & mask);
-  }
-};
-
-// The rows deme g reads (read_row): consecutive, but at parity 1 runs of q
-// at stride S*q.
-__device__ __forceinline__ RowMap read_map(const Geometry& geo, int g, int qs) {
-  if (geo.mode != MODE_PP1) return RowMap{g * geo.K, 1, 0, 0};
-  const int BD = geo.B * geo.D;
-  return RowMap{(g % BD) * (geo.K >> qs) * geo.S * geo.q + (g / BD) * geo.q, geo.S * geo.q, qs,
-                geo.q - 1};
-}
-
-// The rows deme g's children are written to (write_row).
-__device__ __forceinline__ RowMap write_map(const Geometry& geo, int g, int qs) {
-  if (geo.mode == MODE_RIFFLE) return RowMap{g, geo.G, 0, 0};
-  if (geo.mode == MODE_CONTIG) return RowMap{g * geo.K, 1, 0, 0};
-  const int BD = geo.B * geo.D, i = g / BD, b = (g % BD) / geo.D, d = (g % BD) % geo.D;
-  if (geo.mode == MODE_PP0)
-    return RowMap{i * BD * geo.K + b * geo.D * geo.K + d * geo.q, geo.D * geo.q, qs, geo.q - 1};
-  return RowMap{(b * geo.D * (geo.K >> qs) + d) * geo.S * geo.q + i * geo.q,
-                geo.D * geo.S * geo.q, qs, geo.q - 1};
-}
-
-// Warp 0 stages slots [c*R, (c+1)*R) of deme g (rows `rd`) and the deme's K
-// ranks into buffer b: one bulk copy a run of contiguous rows (the whole
-// slot range, or at parity 1 runs of q, one a lane) and one for the ranks,
-// all completing on the buffer's barrier.
-template <class Gene>
-__device__ __forceinline__ void stage_deme(const Gene* gin, const int* ranks, const Geometry& geo,
-                                           const PipePlan& plan, unsigned char* smem,
-                                           uint64_t* full, const RowMap& rd, int g, int b, int c,
-                                           int lane) {
-  const int R = plan.rows, run = rd.shift ? rd.mask + 1 : R;
-  const size_t row_bytes = (size_t)geo.L * sizeof(Gene), kb = (plan.ror - plan.ranks) / 2;
-  const unsigned char* src = reinterpret_cast<const unsigned char*>(gin);
-  unsigned char* buf = smem + b * plan.buf;
-  if (lane == 0) mbar_expect(&full[b], (unsigned)(R * row_bytes + (size_t)geo.K * 4));
-  __syncwarp();
-  for (int u = lane * run; u < R; u += 32 * run)
-    bulk_load(buf + u * row_bytes, src + (size_t)rd(c * R + u) * row_bytes,
-              (unsigned)(run * row_bytes), &full[b]);
-  if (lane == 0)
-    bulk_load(smem + plan.ranks + b * kb, ranks + (size_t)g * geo.K, (unsigned)(geo.K * 4),
-              &full[b]);
-}
 
 template <class Gene, unsigned ABLATE>
 __global__ void __launch_bounds__(PIPE_THREADS, 1) deme_pipelined_kernel(
@@ -1614,32 +1473,9 @@ int pipelined_launch(const void* gin, void* gout, float* sout, const int* ranks,
   const PipePlan plan = pipe_plan(geo.K, geo.L, (int)sizeof(Gene), geo.q);
   if (!plan.C) return (int)cudaErrorInvalidValue;
   return dispatch_pipelined_ablate(ablate, [&](auto tag) {
-    auto kernel = deme_pipelined_kernel<Gene, decltype(tag)::value>;
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
-    if (e != cudaSuccess) return (int)e;
-    cudaLaunchAttribute cluster[1];
-    cluster[0].id = cudaLaunchAttributeClusterDimension;
-    cluster[0].val.clusterDim.x = plan.C;
-    cluster[0].val.clusterDim.y = 1;
-    cluster[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(plan.C, 1, 1);
-    cfg.blockDim = dim3(PIPE_THREADS, 1, 1);
-    cfg.dynamicSmemBytes = plan.smem;
-    cfg.stream = stream;
-    cfg.attrs = cluster;
-    cfg.numAttrs = 1;
-    int held = 0;
-    if ((e = cudaOccupancyMaxActiveClusters(&held, kernel, &cfg)) != cudaSuccess) return (int)e;
-    if (held < 1) return (int)cudaErrorInvalidConfiguration;
-    const int per = held / islands;
-    const int nc = per < 1 ? 1 : per < geo.G ? per : geo.G;
-    cfg.gridDim = dim3(nc * plan.C, islands, 1);
-    e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const Gene*>(gin), static_cast<Gene*>(gout),
-                           sout, ranks, mparams, dr, geo, sel, mutate, obj, plan);
-    if (e != cudaSuccess) return (int)e;
-    return (int)cudaGetLastError();
+    return pipe_launch(deme_pipelined_kernel<Gene, decltype(tag)::value>, plan.C, plan.smem, geo.G,
+                       islands, stream, static_cast<const Gene*>(gin), static_cast<Gene*>(gout),
+                       sout, ranks, mparams, dr, geo, sel, mutate, obj, plan);
   });
 }
 

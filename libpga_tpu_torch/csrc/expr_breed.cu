@@ -1,14 +1,17 @@
 // expr_breed.cu: the deme breed with expression hooks (B6), a template, in
-// three kernels: expr_breed_kernel (one generation), expr_order_kernel (its
-// order-crossover case) and, at the end of this file, expr_multigen_kernel
-// (up to T generations per launch, B6 x B4, uniform or order crossover); one
-// build of a hook set serves all three: the crossover kind is a runtime
-// argument. ops/expr_cuda.py writes the hooks (expr_crossover,
-// expr_mutate, expr_objective) and the macros EXPR_CROSS, EXPR_MUT,
-// EXPR_OBJ, EXPR_OBJ_ROWS, EXPR_GENE_STREAMS and EXPR_ROW_STREAMS in front
-// of this text; ops/kernels.py compiles the whole with nvcc (-I csrc,
-// --fmad=false, no fast math), keyed by a hash of it. This file alone does
-// not compile.
+// four kernels: expr_breed_kernel (one generation, a warp a child),
+// expr_pipelined_kernel (its function on deme_pipelined_kernel's schedule,
+// 8 lanes a child: the route of every shape its plan holds, see its
+// section), expr_order_kernel (the order-crossover case) and, at the end of
+// this file, expr_multigen_kernel (up to T generations per launch, B6 x B4,
+// uniform or order crossover); one build of a hook set serves all four: the
+// crossover kind and the schedule are runtime arguments. ops/expr_cuda.py
+// writes the hooks (expr_crossover, expr_mutate, expr_objective and the
+// objective's eight-lane form expr_objective8) and the macros EXPR_CROSS,
+// EXPR_MUT, EXPR_OBJ, EXPR_OBJ_ROWS, EXPR_OBJ_CHILD, EXPR_GENE_STREAMS and
+// EXPR_ROW_STREAMS in front of this text; ops/kernels.py compiles the whole
+// with nvcc (-I csrc, --fmad=false, no fast math), keyed by a hash of it.
+// This file alone does not compile.
 //
 // Replaces, in libpga_tpu/ops/pallas_step.py, the expression branches of
 // _deme_child (callable crossover :636-647, callable mutation :750-763) and
@@ -31,11 +34,13 @@
 //   objective: expr_objective over the child as written, else a builtin
 //              rowwise-fused id (onemax, onemax_bits, sphere, rastrigin,
 //              ackley) or none.
-// Each warp breeds one child into its row of shared memory (swap mutation
-// exchanges two genes there), writes it to its physical row with coalesced
-// stores, then scores it from that row; expr_objective may use EXPR_OBJ_ROWS
-// more rows of L floats per warp for values that roll() reads. Pad children
-// (row >= P) score -inf.
+// In expr_breed_kernel each warp breeds one child into its row of shared
+// memory (swap mutation exchanges two genes there), writes it to its
+// physical row with coalesced stores, then scores it from that row;
+// expr_objective may use EXPR_OBJ_ROWS more rows of L floats per warp for
+// values that roll() reads. expr_pipelined_kernel breeds 8 lanes a child
+// with the child in registers (its section). Pad children (row >= P) score
+// -inf.
 //
 // Randomness. Production mode: the deme kernel's Philox streams (selection
 // 0, mutation 1, crossover bits 2+t, gaussian 0x40000000+l) and, only for
@@ -51,11 +56,13 @@
 // 4,194,304x64, 0.153 ms for the trap at 1,048,576x60, 0.253 ms for OneMax
 // at 1,048,576x100 at 3.35 TB/s. The arithmetic of these expressions (a
 // few operations per gene, one Philox call per four genes per stream) is
-// far below the card's rate. The design is deme_breed_kernel's: one block
-// per deme, one warp per child, lanes over genes; the shared row adds a
-// store and two loads per gene. Blocks run 8 warps, fewer where the
-// per-warp rows would not fit in 227 KB of shared memory (the wrapper picks
-// the count).
+// far below the card's rate. expr_breed_kernel's design is
+// deme_breed_kernel's: one block per deme, one warp per child, lanes over
+// genes; the shared row adds a store and two loads per gene. Blocks run 8
+// warps, fewer where the per-warp rows would not fit in 227 KB of shared
+// memory (the wrapper picks the count). It breeds the shapes
+// expr_pipelined_kernel's plan does not hold (L not a multiple of 4, a
+// deme no cluster holds), and every comparison of the two.
 //
 // bfloat16 genomes. expr_breed_kernel and expr_multigen_kernel<false> are
 // templates over the gene type (float or __nv_bfloat16), and both launchers
@@ -111,6 +118,8 @@
 // and refuses a mask the unit does not hold.
 
 #include "breed_core.cuh"
+#include "expr_plan.cuh"
+#include "pipe_core.cuh"
 
 #ifndef EXPR_HARNESS
 #define EXPR_HARNESS 0
@@ -387,6 +396,345 @@ __global__ void __launch_bounds__(THREADS) expr_breed_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// expr_pipelined_kernel: expr_breed_kernel's function on the pipelined
+// schedule (B6 redesigned for Hopper).
+//
+// Replaces, in libpga_tpu/ops/pallas_step.py, the same expression branches as
+// expr_breed_kernel: _deme_child's callable crossover (:636-647) and callable
+// mutation (:750-763) and the fused kernel_rowwise objectives that carry
+// constants (:1143-1146), in _breed_kernel (:946, riffle) and _pp_breed_kernel
+// (:1173, ping-pong parities 0 and 1, and its B > 1 case :1287-1390 at the
+// sub-block geometries). It computes exactly expr_breed_kernel's function:
+// the children bit for bit (a hook that calls a transcendental within 2 ulp:
+// nvcc may inline it differently), the scores bit for bit, with the same
+// Philox counters and injected draws. The plain version is
+// fused_step.deme_breed_reference with the hooks.
+//
+// Bound. expr_breed_kernel's: the population read once and written once plus
+// the scores (0.651 ms for NK at 4,194,304x64, 0.153 ms for the trap at
+// 1,048,576x60, 0.253 ms at 1,048,576x100; half the genome bytes at bf16).
+// The operations (one Philox call a plane for four genes, a few operations a
+// gene for each hook statement) stay below it.
+//
+// Why. expr_breed_kernel breeds a warp a child through a shared row (a store
+// and two loads a gene) in blocks of 8 warps, and each per-gene random plane
+// costs it one Philox call for four genes plus 16 shuffles and selects a tile
+// to bring each word to the lane of its gene: with every stage off it still
+// took 0.62 of its 1.31 ms for creep at 1M x 100 (PERF.md). This kernel is
+// deme_pipelined_kernel's schedule (pipe_core.cuh: pipe_demes, the deme
+// staged whole by TMA across a cluster of C blocks, one cluster barrier a
+// deme, closed-form row maps, a persistent grid shared by the islands,
+// 16 warps of 512 threads) with its child: 8 lanes a child, four children a
+// warp, sub-lane jl taking genes 128*t + 32*it + 4*jl + 0..3 as a 16-byte
+// (bf16: 8-byte) vector, the child in registers from the parents' staged
+// rows to its write row. Sub-lane jl's four genes of a chunk are exactly the
+// four words of Philox call 32*t + 8*it + jl of each expression plane, so
+// each lane computes its own calls (STREAM_EXPR_GENE + (j << 22) + call, at
+// counter (k, g, call, 0)) with no shuffle; sub-lane 3 computes the row
+// words (STREAM_EXPR_ROW), sub-lanes 0-2 the selection, mutation and first
+// crossover calls, as deme_pipelined_kernel. The hooks are the generated
+// ones: expr_crossover and expr_mutate per gene, and the objective's
+// eight-lane form (ops/expr_cuda.py: expr_obj8_genes, expr_objective8), whose
+// reductions keep a partial a warp-lane position 4*jl + i and combine in
+// warp_sum's butterfly order, so each score is expr_breed_kernel's. Its first
+// stage is fused into the breed (four genes as they are written); its later
+// stages loop over the lane's genes, reading back the materialised rows
+// (EXPR_OBJ_ROWS a child, written before a sync of the warp) and, where the
+// objective reads the child back (EXPR_OBJ_CHILD) or a builtin swap mutation
+// must re-score it, the child's own row. Those rows are expr_plan.cuh's:
+// PIPE_CHILDREN children in flight, after pipe_plan.cuh's layout, at an odd
+// stride, so that a warp's four children hit distinct banks (at a stride of
+// a multiple of 4 floats every access was 4-way conflicted); the plan takes
+// the least cluster that holds them too. The builtin crossover bits,
+// selection, point / gaussian / swap mutation and builtin rowwise objectives
+// are deme_pipelined_kernel's (swap exchanges its genes in the written row,
+// and in the child's row, then re-scores the child).
+//
+// Route. expr_plan.cuh holds the rule: four genes a lane need L % 4 == 0 (the
+// knapsack's L = 6 stays on expr_breed_kernel), and a cluster of at most 8
+// blocks must hold the deme and the children's rows; elsewhere
+// kernels.expr_breed_cuda launches expr_breed_kernel, decided from the shape
+// before any launch. Order crossover stays on expr_order_kernel.
+//
+// ABLATE: expr_breed_kernel's meaning (the stage bits; the copy is
+// deme_breed_kernel's); the harness and extra units instantiate its cases as
+// they do expr_breed_kernel's (dispatch_expr_ablate).
+
+// Plane j of genes l0 .. l0 + 3 (Philox call `call` of the plane), for the
+// planes in STREAMS, else 0.
+template <unsigned STREAMS>
+__device__ __forceinline__ void pipe_gene_draws(const BreedCtx& cx, const ExprDraws& ex, int k,
+                                                int g, uint32_t call, size_t child, int l0,
+                                                float (&v)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[j][i] = 0.0f;
+    if (!((STREAMS >> j) & 1u)) continue;
+    if (cx.philox_mode) {
+      const uint4 w =
+          philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_EXPR_GENE + ((uint32_t)j << 22) + call, 0u));
+      v[j][0] = to_uniform(w.x);
+      v[j][1] = to_uniform(w.y);
+      v[j][2] = to_uniform(w.z);
+      v[j][3] = to_uniform(w.w);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[j][i] = ex.gene[(size_t)j * cx.plane + child * cx.L + l0 + i];
+    }
+  }
+}
+
+// ROWED: each child in flight keeps its own row in shared memory (the
+// objective reads it back, EXPR_OBJ_CHILD, or a builtin swap re-scores it);
+// a template parameter, so that the breed's loop has one path: a runtime
+// choice between the two spilled 88 bytes of its 128 registers.
+template <class Gene, unsigned ABLATE, bool ROWED>
+__global__ void __launch_bounds__(PIPE_THREADS, 1) expr_pipelined_kernel(
+    const Gene* __restrict__ gin, Gene* __restrict__ gout, float* __restrict__ sout,
+    const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr0, ExprDraws ex0,
+    const float* __restrict__ cb, Geometry geo, Selection sel, int mutate, int obj,
+    ExprPipePlan plan) {
+  constexpr bool SAME = (ABLATE & (ABL_SEL_CONST | ABL_NO_GATHER)) != 0u;
+  constexpr bool DRAWS_SEL = !(ABLATE & ABL_SEL_CONST);
+  constexpr bool CROSSES = !(ABLATE & ABL_NO_CROSS);
+  constexpr bool MUTATES = !(ABLATE & ABL_NO_MUT);
+  constexpr bool BITS = CROSSES && !EXPR_CROSS;        // the builtin crossover's bits
+  constexpr bool BUILTIN_MUT = MUTATES && !EXPR_MUT;  // point / gaussian / swap
+  // The streams that remain: planes / words 0-1 are the crossover's, 2-3
+  // the mutation's.
+  constexpr unsigned KEEP = (CROSSES ? 3u : 0u) | (MUTATES ? 12u : 0u);
+  constexpr unsigned GENE_STREAMS = (unsigned)(EXPR_GENE_STREAMS) & KEEP;
+  constexpr unsigned ROW_STREAMS = (unsigned)(EXPR_ROW_STREAMS) & KEEP;
+  // Bit c: sub-lane c makes its call (0 selection, 1 mutation, 2 the first
+  // crossover tile, 3 the row words).
+  constexpr unsigned CALLS = (DRAWS_SEL ? 1u : 0u) | (BUILTIN_MUT ? 2u : 0u) |
+                             (BITS ? 4u : 0u) | (ROW_STREAMS ? 8u : 0u);
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char pipe_smem[];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int K = geo.K, L = geo.L, R = plan.pipe.rows;
+  const int c = (int)cluster.block_rank(), rs = __ffs(R) - 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  gin = island_slice(gin, (size_t)geo.Pp * L);
+  gout = island_slice(gout, (size_t)geo.Pp * L);
+  sout = island_slice(sout, (size_t)geo.Pp);
+  ranks = island_slice(ranks, (size_t)geo.G * K);
+  const Draws dr = island_draws(dr0, geo, 1);
+  const ExprDraws ex = island_expr_draws(ex0, geo, 1);
+  const BreedCtx cx = breed_ctx(dr, mparams, geo, mutate, obj);
+  (void)cb;
+  (void)ex;
+  // Lane group h of the warp breeds one child, its sub-lane jl four genes at
+  // a time (4*jl + 0..3, + 32, ...).
+  const int h = lane / PIPE_LANES, jl = lane % PIPE_LANES, lead = h * PIPE_LANES;
+#if EXPR_OBJ
+  // The child's rows in shared memory (expr_plan.cuh): its own where ROWED,
+  // then the objective's.
+  float* crow = reinterpret_cast<float*>(pipe_smem + plan.rows_at) +
+                (size_t)(warp * PIPE_KIDS + h) * plan.stride;
+  float* erows = crow + (ROWED ? L : 0);
+#endif
+
+  auto breed = [&](int g, const Gene* staged, const int* row_of_rank, float V, const RowMap& wr) {
+    for (int k0 = c * R + warp * PIPE_KIDS; k0 < (c + 1) * R; k0 += PIPE_WARPS * PIPE_KIDS) {
+      const int k = k0 + h;
+      const size_t child = (size_t)g * K + k;
+      float su0 = 0.0f, su1 = 0.0f, mu0 = 0.0f, mu1 = 0.0f, mu2 = 0.0f;
+      float xq[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // crossover q, q2, mutation q, q2
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (cx.philox_mode) {
+        if (jl < 4 && ((CALLS >> jl) & 1u))
+          w = philox(cx.k0, cx.k1, make_uint4(k, g, jl == 3 ? STREAM_EXPR_ROW : (uint32_t)jl, 0u));
+        if constexpr (DRAWS_SEL) {
+          su0 = to_uniform(__shfl_sync(FULL, w.x, lead));
+          su1 = to_uniform(__shfl_sync(FULL, w.y, lead));
+        }
+        if constexpr (BUILTIN_MUT) {
+          mu0 = to_uniform(__shfl_sync(FULL, w.x, lead + 1));
+          mu1 = to_uniform(__shfl_sync(FULL, w.y, lead + 1));
+          mu2 = to_uniform(__shfl_sync(FULL, w.z, lead + 1));
+        }
+        if constexpr (ROW_STREAMS != 0u) {
+          xq[0] = to_uniform(__shfl_sync(FULL, w.x, lead + 3));
+          xq[1] = to_uniform(__shfl_sync(FULL, w.y, lead + 3));
+          xq[2] = to_uniform(__shfl_sync(FULL, w.z, lead + 3));
+          xq[3] = to_uniform(__shfl_sync(FULL, w.w, lead + 3));
+        }
+        if constexpr (BITS) {
+          w = make_uint4(__shfl_sync(FULL, w.x, lead + STREAM_CROSS),
+                         __shfl_sync(FULL, w.y, lead + STREAM_CROSS),
+                         __shfl_sync(FULL, w.z, lead + STREAM_CROSS),
+                         __shfl_sync(FULL, w.w, lead + STREAM_CROSS));
+        }
+      } else {
+        if constexpr (DRAWS_SEL) {
+          su0 = dr.sel_u[child * 2];
+          su1 = dr.sel_u[child * 2 + 1];
+        }
+        if constexpr (BUILTIN_MUT) {
+          mu0 = dr.mut_u[child * 4];
+          mu1 = dr.mut_u[child * 4 + 1];
+          mu2 = dr.mut_u[child * 4 + 2];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if ((ROW_STREAMS >> j) & 1u) xq[j] = ex.row[child * 4 + j];
+      }
+      int s1 = k, s2 = k;  // sel_const, no_matmul: child k's parents are slot k
+      if constexpr (!SAME) {
+        s1 = min(max(row_of_rank[winner_rank(winner_fraction(sel, su0), V)], 0), K - 1);
+        s2 = min(max(row_of_rank[winner_rank(winner_fraction(sel, su1), V)], 0), K - 1);
+      }
+      const int orow = wr(k);
+      const int pos = (int)floorf(mu0 * (float)L);
+      const int pj = (int)floorf(mu1 * (float)L);
+      const bool fire = BUILTIN_MUT && (mutate == MUT_SWAP ? mu2 < cx.rate : mu1 < cx.rate);
+      // Slot s is row s % R of the buffer of the cluster's block s / R.
+      const int o1 = s1 >> rs, o2 = s2 >> rs;
+      const Gene* p1 = (o1 == c ? staged : cluster.map_shared_rank(staged, o1)) +
+                       (size_t)(s1 & (R - 1)) * L;
+      const Gene* p2 = (o2 == c ? staged : cluster.map_shared_rank(staged, o2)) +
+                       (size_t)(s2 & (R - 1)) * L;
+      Gene* out = gout + (size_t)orow * L;
+#if EXPR_OBJ
+      ExprAcc8 acc[1];
+      expr_obj8_begin(acc[0]);
+#endif
+      // The builtin objective's partials (ackley's cosine sums in e), one a
+      // warp-lane position 4*jl + i.
+      float a[4], e[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = e[i] = 0.0f;
+      auto add4 = [&](const float (&x)[4]) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (obj == OBJ_ONEMAX) {
+            a[i] += x[i];
+          } else {
+            const float2 d = pipe_terms(obj, x[i]);
+            a[i] += d.x;
+            e[i] += d.y;
+          }
+        }
+      };
+
+      // Cross, mutate, round, store and score the child, 128 genes (one
+      // crossover call) a tile, four a lane a step.
+      for (int t = 0; 128 * t < L; ++t) {
+        if (BITS && cx.philox_mode && t > 0)
+          w = philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_CROSS + t, 0u));
+#pragma unroll
+        for (int it = 0; it < 4; ++it) {
+          const int l0 = 128 * t + 32 * it + 4 * jl;
+          if (l0 >= L) continue;
+          float x[4];
+          load4(p1 + l0, x);
+          float gd[4][4];
+          pipe_gene_draws<GENE_STREAMS>(cx, ex, k, g, 32u * t + 8u * it + jl, child, l0, gd);
+          if constexpr (CROSSES) {
+            float y[4];
+            load4(p2 + l0, y);
+#if EXPR_CROSS
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              x[i] = expr_crossover(x[i], y[i], gd[0][i], gd[1][i], xq[0], xq[1], l0 + i, L, cb);
+#else
+            uint32_t bits;  // gene l0 + i takes p2's gene where bit i is set
+            if (cx.philox_mode) {
+              bits = (it == 0 ? w.x : it == 1 ? w.y : it == 2 ? w.z : w.w) >> (4 * jl);
+            } else {
+              const uint32_t u = *reinterpret_cast<const uint32_t*>(dr.cross + child * L + l0);
+              bits = ((u & 0xffu) != 0u) | (((u >> 8) & 0xffu) != 0u) << 1 |
+                     (((u >> 16) & 0xffu) != 0u) << 2 | ((u >> 24) != 0u) << 3;
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if ((bits >> i) & 1u) x[i] = y[i];
+#endif
+          }
+          if constexpr (MUTATES) {
+#if EXPR_MUT
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              x[i] = expr_mutate(x[i], gd[2][i], gd[3][i], xq[2], xq[3], l0 + i, L, cx.rate,
+                                 cx.sigma, cb);
+#else
+            if (mutate == MUT_POINT) {
+              if (fire && (unsigned)(pos - l0) < 4u) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                  if (l0 + i == pos) x[i] = mu2;
+              }
+            } else if (mutate == MUT_GAUSSIAN) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) x[i] = pipe_gauss(cx, dr, x[i], k, g, l0 + i, child);
+            }
+#endif
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) x[i] = round_gene<Gene>(x[i]);
+          store4(out + l0, x);
+#if EXPR_OBJ
+          if constexpr (ROWED) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) crow[l0 + i] = x[i];
+          } else {
+            expr_obj8_genes(acc[0], x, l0, L, crow, erows, cb);
+          }
+#else
+          if (obj != OBJ_NONE) add4(x);
+#endif
+        }
+      }
+      if (BUILTIN_MUT && mutate == MUT_SWAP) {
+        const bool swap = fire && pos < L && pj < L;
+        __syncwarp();
+        if (swap && jl == 0) {
+          const Gene x = out[pos], y = out[pj];
+          out[pos] = y;
+          out[pj] = x;
+#if EXPR_OBJ
+          if constexpr (ROWED) {
+            const float u = crow[pos];
+            crow[pos] = crow[pj];
+            crow[pj] = u;
+          }
+#endif
+        }
+        __syncwarp();
+#if !EXPR_OBJ
+        if (swap && obj != OBJ_NONE) {
+          // The score is of the child as written: sum again after the swap.
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = e[i] = 0.0f;
+          for (int l0 = 4 * jl; l0 < L; l0 += 32) {
+            float x[4];
+            load4(out + l0, x);
+            add4(x);
+          }
+        }
+#endif
+      }
+#if EXPR_OBJ
+      if constexpr (ROWED) __syncwarp();  // the child's row is whole
+      const float score = expr_objective8<!ROWED>(acc, crow, erows, L, jl, cb);
+      if (jl == 0) sout[orow] = orow < geo.P ? score : -INFINITY;
+      __syncwarp();  // the next child overwrites the group's rows
+#else
+      if (obj != OBJ_NONE) {
+        const float sa = pipe_sum4(a);
+        float se = 0.0f;  // ackley's cosine sum; no other objective has a second
+        if (obj == OBJ_ACKLEY) se = pipe_sum4(e);
+        if (jl == 0) sout[orow] = orow < geo.P ? obj_finish(obj, sa, se, L) : -INFINITY;
+      }
+#endif
+    }
+  };
+  pipe_demes(gin, ranks, geo, plan.pipe, pipe_smem, breed);
+}
+
+// ---------------------------------------------------------------------------
 // expr_order_kernel: one generation with order crossover and expression hooks
 // (cases of B5 x B6).
 //
@@ -653,10 +1001,41 @@ int dispatch_expr_ablate(unsigned ablate, F launch) {
   return (int)cudaErrorInvalidValue;
 }
 
+// expr_pipelined_kernel's launch: the plan of expr_plan.cuh (C = 0: refused),
+// clusters of C blocks, as many as the card holds at once (at most G an
+// island), blockIdx.y the island.
+template <class Gene>
+int expr_pipelined_launch(const void* gin, void* gout, float* sout, const int* ranks,
+                          const float* mparams, const Draws& dr, const ExprDraws& ex,
+                          const float* consts, const Geometry& geo, const Selection& sel,
+                          int mutate, int obj, int islands, unsigned ablate,
+                          cudaStream_t stream) {
+  const ExprPipePlan plan =
+      expr_pipe_plan(geo.K, geo.L, (int)sizeof(Gene), geo.q, expr_child_rows(mutate));
+  if (!plan.pipe.C) return (int)cudaErrorInvalidValue;
+  return dispatch_expr_ablate<false>(ablate, [&](auto tag) {
+    constexpr unsigned A = decltype(tag)::value;
+    auto launch = [&](auto kernel) {
+      return pipe_launch(kernel, plan.pipe.C, plan.pipe.smem, geo.G, islands, stream,
+                         static_cast<const Gene*>(gin), static_cast<Gene*>(gout), sout, ranks,
+                         mparams, dr, ex, consts, geo, sel, mutate, obj, plan);
+    };
+    // The child's own row: always where the objective reads it back; with a
+    // builtin swap mutation where it re-scores it (expr_child_rows).
+    if constexpr (EXPR_OBJ && !EXPR_OBJ_CHILD && !EXPR_MUT) {
+      if (mutate == MUT_SWAP) return launch(expr_pipelined_kernel<Gene, A, true>);
+    }
+    return launch(expr_pipelined_kernel<Gene, A, (bool)(EXPR_OBJ && EXPR_OBJ_CHILD)>);
+  });
+}
+
 }  // namespace
 
 // cross_kind 0: expr_breed_kernel (uniform crossover or the crossover
-// hook; `warps` warps per block); 1: expr_order_kernel (order crossover,
+// hook; `warps` warps per block) or, with `pipelined`, expr_pipelined_kernel
+// (the shape must be one expr_plan.cuh's plan holds; gin and ranks 16-byte
+// aligned for the TMA copies, gout for the vector stores; `warps` unread);
+// 1: expr_order_kernel (order crossover,
 // riffle only, `fill` genes, ORDER_THREADS threads per block; obj may be
 // OBJ_TSP with `coords` (C, 2) and `penalty`; float32 genes only).
 // islands: the grid's second axis (1: a single population), every tensor
@@ -670,7 +1049,7 @@ extern "C" int expr_breed_launch(
     const float* consts, const float* coords, int C, float penalty, int P, int Pp, int L, int K,
     int G, int mode, int S, int D, int q, int B, int sel_kind, int tk, float sel_param,
     int cross_kind, int mutate, int obj, int warps, int islands, int gene_dtype,
-    unsigned ablate, void* stream) {
+    unsigned ablate, int pipelined, void* stream) {
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q, B};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed, nullptr, fill};
@@ -678,6 +1057,16 @@ extern "C" int expr_breed_launch(
   if ((gene_dtype != GENE_F32 && gene_dtype != GENE_BF16) || islands < 1 || islands > 65535 ||
       B < 1)
     return (int)cudaErrorInvalidValue;
+  if (pipelined) {
+    if (cross_kind) return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (gene_dtype == GENE_BF16)
+      return expr_pipelined_launch<__nv_bfloat16>(gin, gout, sout, ranks, mparams, dr, ex,
+                                                  consts, geo, sel, mutate, obj, islands, ablate,
+                                                  st);
+    return expr_pipelined_launch<float>(gin, gout, sout, ranks, mparams, dr, ex, consts, geo, sel,
+                                        mutate, obj, islands, ablate, st);
+  }
   if (cross_kind) {
     if (EXPR_CROSS || mode != MODE_RIFFLE || K % ORDER_THREADS || (obj == OBJ_TSP && C < 1) ||
         gene_dtype != GENE_F32)

@@ -60,6 +60,8 @@ PRELUDE = r"""// ---- expression prelude (generated by libpga_tpu_torch/ops/expr
 #define EXPR_LDG(p) __ldg(p)
 #define EXPR_SYNCWARP() __syncwarp()
 #define EXPR_SHFL_XOR(v, o) __shfl_xor_sync(0xffffffffu, (v), (o))
+#define EXPR_G 1
+#define EXPR_SYNCGROUP() __syncwarp()
 #else
 #define __device__
 #define __forceinline__ inline
@@ -67,6 +69,8 @@ PRELUDE = r"""// ---- expression prelude (generated by libpga_tpu_torch/ops/expr
 #define EXPR_LDG(p) (*(p))
 #define EXPR_SYNCWARP()
 #define EXPR_SHFL_XOR(v, o) (v)
+#define EXPR_G 8
+#define EXPR_SYNCGROUP()
 #endif
 
 __device__ __forceinline__ float expr_mod(float a, float b) {
@@ -101,6 +105,35 @@ __device__ __forceinline__ float expr_lanes_max(float v) {
   if (EXPR_LANES > 1)
     for (int o = 16; o > 0; o >>= 1) v = expr_max(v, EXPR_SHFL_XOR(v, o));
   return v;
+}
+// The eight-lane form's reductions: v[s][i] is the partial of warp-lane
+// position 4*jl + i (jl the sub-lane: the lane itself on the card, where
+// EXPR_G is 1; all eight, s = jl, on the host). OP 0 sums, 1 min, 2 max,
+// each pair taken (own, partner) as the warp form's butterfly takes it:
+// steps 16, 8 and 4 pair the group's lanes, 2 and 1 the lane's partials.
+// Returns warp-lane position 0's value.
+template <int OP>
+__device__ __forceinline__ float expr_comb(float a, float b) {
+  return OP == 0 ? a + b : OP == 1 ? expr_min(a, b) : expr_max(a, b);
+}
+template <int OP>
+__device__ __forceinline__ float expr_group(float (&v)[EXPR_G][4]) {
+#ifdef __CUDACC__
+  float x[4];
+  for (int i = 0; i < 4; ++i) {
+    x[i] = v[0][i];
+    for (int o = 4; o > 0; o >>= 1) x[i] = expr_comb<OP>(x[i], EXPR_SHFL_XOR(x[i], o));
+  }
+  return expr_comb<OP>(expr_comb<OP>(x[0], x[2]), expr_comb<OP>(x[1], x[3]));
+#else
+  float p[32], q[32];
+  for (int n = 0; n < 32; ++n) p[n] = v[n / 4][n % 4];
+  for (int o = 16; o > 0; o >>= 1) {
+    for (int n = 0; n < 32; ++n) q[n] = expr_comb<OP>(p[n], p[n ^ o]);
+    for (int n = 0; n < 32; ++n) p[n] = q[n];
+  }
+  return p[0];
+#endif
 }
 """
 
@@ -346,9 +379,26 @@ def _breeding_hook(role: str, op, consts: Dict[str, ConstSlot]) -> Tuple[str, bo
 # ---------------------------------------------------------------------
 
 
-def _objective_hook(obj, consts: Dict[str, ConstSlot]) -> Tuple[str, int, int]:
-    """(C text of ``expr_objective``, rows of ``erows`` it needs, its
-    operations a gene)."""
+@dataclasses.dataclass
+class _ObjectiveStages:
+    """An objective's nodes in stages: ``level[n]`` is the loop after
+    which node n is ready (a reduction, or a ``roll`` of a per-gene value
+    other than ``g``, ends a loop); ``materialised`` maps each per-gene
+    node that ``roll`` reads to its row of ``erows``; ``reductions`` are
+    the reduction nodes, each computed by loop ``stage_of(n)``; ``stages``
+    the loops, in order."""
+
+    low: _Lowering
+    level: Dict[int, int]
+    materialised: Dict[int, int]
+    reductions: List[int]
+    stages: List[int]
+
+    def stage_of(self, n: int) -> int:  # the loop that computes a barrier's operand
+        return max(self.level[c] for c in _children(self.low.graph.nodes[n]))
+
+
+def _objective_stages(obj, consts: Dict[str, ConstSlot]) -> _ObjectiveStages:
     low = _Lowering("objective", obj.ast, consts, obj.table_kinds)
     nodes = low.graph.nodes
     level: Dict[int, int] = {}
@@ -366,13 +416,21 @@ def _objective_hook(obj, consts: Dict[str, ConstSlot]) -> Tuple[str, int, int]:
                 lv += 1
         level[n] = lv
 
-    def stage_of(n):  # the loop that computes a barrier's operand
-        key = nodes[n]
-        return max(level[c] for c in _children(key))
-
     reductions = [n for n, k in enumerate(nodes)
                   if k[0] == "call" and k[1] in _REDUCTIONS + ("min1", "max1")]
-    stages = sorted({stage_of(n) for n in reductions} | {level[n] for n in materialised})
+    plan = _ObjectiveStages(low, level, materialised, reductions, [])
+    plan.stages = sorted({plan.stage_of(n) for n in reductions}
+                         | {level[n] for n in materialised})
+    return plan
+
+
+def _objective_hook(obj, consts: Dict[str, ConstSlot]) -> Tuple[str, int, int]:
+    """(C text of ``expr_objective``, rows of ``erows`` it needs, its
+    operations a gene)."""
+    st = _objective_stages(obj, consts)
+    low, level, materialised = st.low, st.level, st.materialised
+    nodes = low.graph.nodes
+    stage_of, reductions, stages = st.stage_of, st.reductions, st.stages
     out: List[str] = []
     uniform: Dict[int, str] = {}
     rolls: Dict[int, str] = {}
@@ -496,6 +554,211 @@ def _objective_hook(obj, consts: Dict[str, ConstSlot]) -> Tuple[str, int, int]:
 
 
 # ---------------------------------------------------------------------
+# Objective hook, eight lanes a child (expr_pipelined_kernel)
+# ---------------------------------------------------------------------
+
+_INIT = {"min1": "INFINITY", "max1": "-INFINITY"}
+_GROUP_OP = {"min1": 1, "max1": 2}  # expr_group's combine; 0 the sum
+
+
+def _objective_hook8(obj, consts: Dict[str, ConstSlot]) -> Tuple[str, bool]:
+    """(C text of the objective's eight-lane form, whether it reads the
+    child back from a row: ``EXPR_OBJ_CHILD``).
+
+    A lane of the group holds genes ``4*jl + 32*m + 0..3`` (``jl`` its
+    sub-lane). The first stage runs four genes at a time in
+    ``expr_obj8_genes``, which the breed calls as it writes the child
+    (fused) or ``expr_objective8<false>`` calls over the child's row; each
+    reduction keeps a partial for each of the lane's warp-lane positions
+    ``4*jl + i`` (``ExprAcc8``), combined in ``warp_sum``'s butterfly order
+    (``expr_group``), so every score is the warp form's bit for bit. The
+    later stages loop over the lane's genes in ``expr_objective8``; a
+    materialised value is read back from its row, at its own gene too.
+    The child is read back from ``crow`` where ``roll`` reads it or a
+    later stage reads it directly (the text sets ``EXPR_OBJ_CHILD``);
+    else the breed keeps no child row and fuses the first stage."""
+    st = _objective_stages(obj, consts)
+    low, level, materialised = st.low, st.level, st.materialised
+    nodes = low.graph.nodes
+    first = st.stages[0]
+    child = any(k[0] == "roll" and nodes[k[2]] == ("var", "g") for k in nodes)
+
+    def scope():
+        return {"out": [], "uniform": {}, "rolls": {}}
+
+    def roll_shift(sc, k: int) -> str:
+        if k not in sc["rolls"]:
+            sc["rolls"][k] = f"sh{len(sc['rolls'])}"
+            sc["out"].append(f"  const int {sc['rolls'][k]} = (({k} % L) + L) % L;")
+        return sc["rolls"][k]
+
+    def ensure_uniform(sc, n: int) -> str:
+        uniform = sc["uniform"]
+        if n in uniform:
+            return uniform[n]
+        key = nodes[n]
+        for c in _children(key):
+            if not low.per_gene[c]:
+                ensure_uniform(sc, c)
+        if key[0] == "roll":
+            uniform[n] = ensure_uniform(sc, key[2])
+            return uniform[n]
+
+        def leaf(m, k):
+            if k[0] == "var":
+                return "(float)L"
+            if k[0] == "const":
+                return low.const_leaf(k[1], "0")
+            slot = low.consts[k[1]]
+            return (f"EXPR_LDG(cb + {slot.offset} + expr_code({uniform[k[2]]},"
+                    f" {slot.shape[0]}))")
+
+        sc["out"].append(f"  const float u{n} = {low.expr(n, lambda c: uniform[c], leaf)};")
+        uniform[n] = f"u{n}"
+        return uniform[n]
+
+    def body(sc, s: int, reds, mats, g_expr: str, acc) -> List[str]:
+        nonlocal child
+        lines: List[str] = []
+        done: Dict[int, str] = {}
+
+        def leaf(n, key):
+            nonlocal child
+            kind = key[0]
+            if kind == "var":
+                if key[1] == "i":
+                    return "(float)l"
+                child |= g_expr == "crow[l]"
+                return g_expr
+            if kind == "const":
+                return low.const_leaf(key[1], "l")
+            if kind == "roll":
+                src = key[2]
+                sh = roll_shift(sc, key[1])
+                base = "crow" if nodes[src] == ("var", "g") else f"(erows + {materialised[src]} * L)"
+                return f"{base}[(l + {sh}) < L ? (l + {sh}) : (l + {sh} - L)]"
+            slot = low.consts[key[1]]
+            idx = gene(key[2])
+            if low.table_kinds.get(key[1]) == "per_locus":
+                return f"EXPR_LDG(cb + {slot.offset} + expr_code({idx}, {slot.shape[0]}) * L + l)"
+            return f"EXPR_LDG(cb + {slot.offset} + expr_code({idx}, {slot.shape[0]}))"
+
+        def gene(n: int) -> str:
+            if not low.per_gene[n]:
+                return ensure_uniform(sc, n)
+            if n in done:
+                return done[n]
+            if n in materialised and level[n] < s:  # written by an earlier loop
+                done[n] = f"erows[{materialised[n]} * L + l]"
+                return done[n]
+            key = nodes[n]
+            if key[0] != "roll":
+                for c in _children(key):
+                    gene(c)
+            lines.append(f"const float t{n} = {low.expr(n, gene, leaf)};")
+            done[n] = f"t{n}"
+            return done[n]
+
+        for n in mats:
+            lines.append(f"erows[{materialised[n]} * L + l] = {gene(n)};")
+        for n in reds:
+            key = nodes[n]
+            if key[1] == "dot":
+                lines.append(f"{acc(n)} += {gene(key[2])} * {gene(key[3])};")
+            elif key[1] in ("sum", "mean"):
+                lines.append(f"{acc(n)} += {gene(key[2])};")
+            else:
+                lines.append(f"{acc(n)} = expr_{key[1][:3]}({acc(n)}, {gene(key[2])});")
+        return lines
+
+    def combined(n: int, parts: str) -> str:
+        val = f"expr_group<{_GROUP_OP.get(nodes[n][1], 0)}>({parts})"
+        return f"{val} / (float)L" if nodes[n][1] == "mean" else val
+
+    def stage_nodes(s):
+        return ([n for n in st.reductions if st.stage_of(n) == s],
+                [n for n in materialised if level[n] == s])
+
+    reds0, mats0 = stage_nodes(first)
+    sc0 = scope()
+    genes = body(sc0, first, reds0, mats0, "x[i]", lambda n: f"A.a{n}[i]")
+    sc = scope()
+    out = sc["out"]
+    for n in reds0:
+        out += [f"  float v{n}[EXPR_G][4];",
+                "  for (int s = 0; s < EXPR_G; ++s)",
+                f"    for (int i = 0; i < 4; ++i) v{n}[s][i] = A[s].a{n}[i];",
+                f"  const float u{n} = {combined(n, f'v{n}')};"]
+        sc["uniform"][n] = f"u{n}"
+    if mats0:
+        out.append("  EXPR_SYNCGROUP();")
+    for s in st.stages[1:]:
+        reds, mats = stage_nodes(s)
+        loop = body(sc, s, reds, mats, "crow[l]", lambda n: f"acc{n}[s][i]")
+        out.extend(f"  float acc{n}[EXPR_G][4];" for n in reds)
+        out.extend(["  for (int s = 0; s < EXPR_G; ++s) {",
+                    "    const int sj = EXPR_G > 1 ? s : jl;"])
+        out.extend(f"    for (int i = 0; i < 4; ++i) acc{n}[s][i] ="
+                   f" {_INIT.get(nodes[n][1], '0.0f')};" for n in reds)
+        out.extend(["    for (int l0 = 4 * sj; l0 < L; l0 += 32) {",
+                    "      for (int i = 0; i < 4; ++i) {",
+                    "        const int l = l0 + i;",
+                    "        (void)l;",
+                    *("        " + x for x in loop),
+                    "      }",
+                    "    }",
+                    "  }"])
+        for n in reds:
+            out.append(f"  const float u{n} = {combined(n, f'acc{n}')};")
+            sc["uniform"][n] = f"u{n}"
+        if mats:
+            out.append("  EXPR_SYNCGROUP();")
+    result = ensure_uniform(sc, low.root)
+    text = "\n".join([
+        f"// objective, eight lanes a child: {obj.expression}",
+        f"#define EXPR_OBJ_CHILD {int(child)}",
+        "struct ExprAcc8 {",
+        *(f"  float a{n}[4];" for n in reds0),
+        "};",
+        "__device__ __forceinline__ void expr_obj8_begin(ExprAcc8& A) {",
+        "  (void)A;",
+        *(f"  for (int i = 0; i < 4; ++i) A.a{n}[i] = {_INIT.get(nodes[n][1], '0.0f')};"
+          for n in reds0),
+        "}",
+        "__device__ __forceinline__ void expr_obj8_genes(ExprAcc8& A, const float (&x)[4], int l0,"
+        " int L, const float* __restrict__ crow, float* __restrict__ erows,"
+        " const float* __restrict__ cb) {",
+        "  (void)A; (void)x; (void)crow; (void)erows; (void)cb;",
+        *sc0["out"],
+        "  for (int i = 0; i < 4; ++i) {",
+        "    const int l = l0 + i;",
+        "    (void)l;",
+        *("    " + x for x in genes),
+        "  }",
+        "}",
+        "template <bool FUSED>",
+        "__device__ __forceinline__ float expr_objective8(ExprAcc8 (&A)[EXPR_G],"
+        " const float* __restrict__ crow, float* __restrict__ erows, int L, int jl,"
+        " const float* __restrict__ cb) {",
+        "  (void)crow; (void)erows; (void)jl; (void)cb;",
+        "  if (!FUSED) {",
+        "    for (int s = 0; s < EXPR_G; ++s) {",
+        "      const int sj = EXPR_G > 1 ? s : jl;",
+        "      expr_obj8_begin(A[s]);",
+        "      for (int l0 = 4 * sj; l0 < L; l0 += 32) {",
+        "        const float x[4] = {crow[l0], crow[l0 + 1], crow[l0 + 2], crow[l0 + 3]};",
+        "        expr_obj8_genes(A[s], x, l0, L, crow, erows, cb);",
+        "      }",
+        "    }",
+        "  }",
+        *out,
+        f"  return {result};",
+        "}",
+    ])
+    return text, child
+
+
+# ---------------------------------------------------------------------
 # The whole generated unit
 # ---------------------------------------------------------------------
 
@@ -506,7 +769,9 @@ class ExprProgram:
     breed: ``source`` (prelude, macros and hooks; the template follows
     it), ``consts`` (the float32 constant buffer, objective then
     crossover then mutation constants, each flattened as registered),
-    ``obj_rows`` (per-warp rows the objective materialises), the random
+    ``obj_rows`` (per-warp rows the objective materialises),
+    ``obj_child`` (whether its eight-lane form reads the child back from
+    a row, ``EXPR_OBJ_CHILD``), the random
     streams (``gene_planes``, ``row_words``: indices as in
     ``GENE_PLANES`` / ``ROW_WORDS``) and whether a breeding hook calls a
     transcendental, ``sqrt`` or ``**`` (``transcendental``: the genes it
@@ -518,6 +783,7 @@ class ExprProgram:
     source: str
     consts: np.ndarray
     obj_rows: int
+    obj_child: bool
     gene_planes: Tuple[int, ...]
     row_words: Tuple[int, ...]
     has_crossover: bool
@@ -563,9 +829,12 @@ def generate(crossover=None, mutate=None, objective=None) -> ExprProgram:
     slots, buf = _layout(parts)
     hooks, obj_rows, trans = [], 0, False
     gene_ops = {"objective": 0, "crossover": 0, "mutate": 0}
+    obj_child = False
     for role, op in parts:
         if role == "objective":
             text, obj_rows, gene_ops[role] = _objective_hook(op, slots[role])
+            text8, obj_child = _objective_hook8(op, slots[role])
+            text = f"{text}\n{text8}"
         else:
             text, calls, gene_ops[role] = _breeding_hook(role, op, slots[role])
             trans |= calls
@@ -576,12 +845,13 @@ def generate(crossover=None, mutate=None, objective=None) -> ExprProgram:
         f"#define EXPR_MUT {int(mutate is not None)}",
         f"#define EXPR_OBJ {int(objective is not None)}",
         f"#define EXPR_OBJ_ROWS {obj_rows}",
+        *([] if objective is not None else ["#define EXPR_OBJ_CHILD 0"]),
         f"#define EXPR_GENE_STREAMS {sum(1 << j for j in planes)}",
         f"#define EXPR_ROW_STREAMS {sum(1 << j for j in words)}",
     ]
     source = "\n".join([PRELUDE, *macros, "", *hooks, ""])
     return ExprProgram(
-        source=source, consts=buf, obj_rows=obj_rows,
+        source=source, consts=buf, obj_rows=obj_rows, obj_child=obj_child,
         gene_planes=planes, row_words=words,
         has_crossover=crossover is not None, has_mutate=mutate is not None,
         has_objective=objective is not None, transcendental=trans, gene_ops=gene_ops,
@@ -638,6 +908,31 @@ extern "C" void host_mutate(const float* g, const float* r, const float* r2, con
 extern "C" void host_objective(const float* g, int P, int L, const float* cb, float* out) {
   float* rows = (float*)malloc(sizeof(float) * (size_t)(EXPR_OBJ_ROWS + 1) * L);
   for (int p = 0; p < P; ++p) out[p] = expr_objective(g + (size_t)p * L, rows, L, 0, cb);
+  free(rows);
+}
+// The eight-lane form, the group's lanes run one after the other between
+// its syncs: fused, as the breed calls it where it keeps no child row (each
+// sub-lane s runs the first stage over its genes 4*s + 32*m + 0..3), or
+// over the child's row.
+extern "C" void host_objective8(const float* g, int P, int L, int fused, const float* cb,
+                                float* out) {
+  float* rows = (float*)malloc(sizeof(float) * (size_t)(EXPR_OBJ_ROWS + 1) * L);
+  for (int p = 0; p < P; ++p) {
+    const float* row = g + (size_t)p * L;
+    ExprAcc8 A[EXPR_G];
+    if (fused) {
+      for (int s = 0; s < EXPR_G; ++s) {
+        expr_obj8_begin(A[s]);
+        for (int l0 = 4 * s; l0 < L; l0 += 32) {
+          const float x[4] = {row[l0], row[l0 + 1], row[l0 + 2], row[l0 + 3]};
+          expr_obj8_genes(A[s], x, l0, L, nullptr, rows, cb);
+        }
+      }
+      out[p] = expr_objective8<true>(A, row, rows, L, 0, cb);
+    } else {
+      out[p] = expr_objective8<false>(A, row, rows, L, 0, cb);
+    }
+  }
   free(rows);
 }
 #endif

@@ -97,8 +97,11 @@ persistent kernel whose thread-block clusters stage a deme's parent rows
 whole in shared memory (TMA) while they breed the one before; a deme no
 cluster holds goes to ``deme_breed_kernel`` at the same geometry
 (:func:`breed_launcher`). Expression hooks launch the expression breed
-with the B-aware maps. The riffle, order crossover and
-the multi-generation kernels take B = 1.
+with the B-aware maps: at any B, ``expr_pipelined_kernel`` (the same
+schedule with the hooks) where its plan holds the deme, else
+``expr_breed_kernel`` (``kernels.expr_breed_cuda`` decides from the
+shape). The riffle, order crossover and the multi-generation kernels
+take B = 1.
 """
 
 from __future__ import annotations
@@ -1166,7 +1169,10 @@ def deme_breed_reference(
 def breed_launcher(geom: Geometry, gene_dtype, kw: dict) -> Callable:
     """The kernel wrapper a breed of CUDA genomes launches, chosen from the
     hooks in ``kw`` and the shape alone, before any launch: with an
-    expression hook the expression breed, with order crossover the order
+    expression hook the expression breed (``kernels.expr_breed_cuda``,
+    which picks ``expr_pipelined_kernel`` or ``expr_breed_kernel`` from
+    the shape in the same way: ``kernels.expr_pipelined_holds``), with
+    order crossover the order
     breed, else the deme breed, pipelined (``deme_pipelined_kernel``) where
     the geometry's sub-block depth B is above 1 and a cluster of blocks
     holds a deme (``kernels.pipelined_holds``). A deme no cluster holds is

@@ -49,8 +49,12 @@ counts each ablated launch again under ``(name, kernel bitmask)``, and
 ``CLUSTER_LAUNCHES`` each multi-generation launch on the cluster schedule
 again under its name (the one-block schedule's are the rest). The
 pipelined deme breed of the sub-block pipeline (``deme_breed_cuda(pipelined=True)``) counts as
-"deme_pipelined" ("islands_deme_pipelined"; and "_bf16"). A wrapper adds
-one where it launches its kernel and nowhere else.
+"deme_pipelined" ("islands_deme_pipelined"; and "_bf16"), and the
+expression breed on the pipelined schedule (``expr_pipelined_kernel``,
+where ``expr_breed_cuda`` routes a shape to it) as "expr_pipelined"
+("islands_expr_pipelined", "ablate_expr_pipelined"; and "_bf16") in place
+of "expr". A wrapper adds one where it launches its kernel and nowhere
+else.
 
 Genomes (and the children, ``out`` and the multi-generation work
 buffers, which take the genomes' dtype) are float32 or bfloat16; every
@@ -101,6 +105,9 @@ LAUNCHES = {
     "deme_pipelined": 0,
     "islands_deme_pipelined": 0, "deme_pipelined_bf16": 0, "islands_deme_pipelined_bf16": 0,
     "ablate_pipelined": 0, "ablate_pipelined_bf16": 0,
+    "expr_pipelined": 0, "islands_expr_pipelined": 0, "expr_pipelined_bf16": 0,
+    "islands_expr_pipelined_bf16": 0, "ablate_expr_pipelined": 0,
+    "ablate_expr_pipelined_bf16": 0,
 }
 MASK_LAUNCHES: dict = {}  # (LAUNCHES name, kernel bitmask) -> ablated launches
 CLUSTER_LAUNCHES: dict = {}  # LAUNCHES name -> its launches on the multigen cluster schedule
@@ -387,8 +394,12 @@ def _bindings() -> dict:
                 i, i, f,                # sel kind, tournament size, sel param
                 i, i, i, i,             # crossover kind, mutate kind, objective id, warps
                 i, i,                   # islands, gene dtype
-                ctypes.c_uint,          # ablate mask
+                ctypes.c_uint, i,       # ablate mask, pipelined schedule
                 p,                      # stream
+            ], i),
+            "expr_pipelined_plan": ([
+                i, i, i, i, i,          # K, L, gene bytes, q, mutate kind
+                p,                      # out: C, rows, child rows, shared bytes
             ], i),
             "expr_multigen_launch": ([
                 p, p, p, p, p, p,       # gin, sin, gout, sout, work0, work1
@@ -573,6 +584,54 @@ def multigen_cluster_plan(geom, gene_dtype, crossover="uniform") -> Optional[Mul
         return None
     gene_bytes = 2 if gene_dtype == torch.bfloat16 else 4
     return _multigen_plan(geom.D, geom.K, geom.L, gene_bytes, geom.q)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExprPipelinedPlan:
+    """``expr_pipelined_kernel``'s plan for a deme (``csrc/expr_plan.cuh``
+    over ``csrc/pipe_plan.cuh``): ``C`` blocks a cluster share it, each
+    stages ``rows`` = K / C parent rows, every child in flight keeps
+    ``child_rows`` rows of L floats, in ``smem`` bytes of dynamic shared
+    memory a block."""
+
+    C: int
+    rows: int
+    child_rows: int
+    smem: int
+
+
+_expr_plans: dict = {}  # (unit key, K, L, gene bytes, q, mutate id) -> plan or None
+
+
+def expr_pipelined_plan(program, geom, gene_dtype, mutate_id: int,
+                        ablate: int = 0) -> Optional[ExprPipelinedPlan]:
+    """The plan of an ``expr_pipelined_kernel`` launch of ``program``'s
+    hooks at ``geom`` on ``gene_dtype`` genes with the builtin mutate id
+    ``mutate_id`` (read where no mutation hook replaces it), as
+    ``csrc/expr_plan.cuh`` makes it, read from the built unit of the mask
+    ``ablate`` (``expr_pipelined_plan``; built at first use); None where
+    ``expr_breed_kernel`` breeds the shape: a genome length that is not a
+    multiple of 4, or a deme and its children's rows no cluster holds."""
+    gene_bytes = 2 if gene_dtype == torch.bfloat16 else 4
+    key = (program.source, _unit_macro(ablate), geom.K, geom.L, gene_bytes, geom.q, mutate_id)
+    if key not in _expr_plans:
+        out = (ctypes.c_longlong * 4)()
+        lib = _expr_library(program, ablate)
+        held = lib.expr_pipelined_plan(geom.K, geom.L, gene_bytes, geom.q, mutate_id, out)
+        _expr_plans[key] = ExprPipelinedPlan(*(int(x) for x in out)) if held else None
+    return _expr_plans[key]
+
+
+def expr_pipelined_holds(program, geom, gene_dtype, mutate_id: int, order: bool = False,
+                         ablate: int = 0) -> bool:
+    """Whether an expression breed launches ``expr_pipelined_kernel``:
+    uniform or expression crossover (order crossover stays on
+    ``expr_order_kernel``) at a shape whose plan holds
+    (:func:`expr_pipelined_plan`), at any sub-block depth B. Elsewhere
+    ``expr_breed_kernel`` computes the same function at the same geometry.
+    Decided from the shape alone, before any launch."""
+    return not order and expr_pipelined_plan(program, geom, gene_dtype, mutate_id,
+                                             ablate) is not None
 
 
 def _check_genomes(genomes: torch.Tensor, shape, device, order: bool = False) -> int:
@@ -1148,8 +1207,12 @@ def expr_breed_cuda(
     penalty: float = 0.0,
     islands: Optional[int] = None,
     ablate: tuple = (),
+    pipelined: bool = True,
 ):
-    """Launch ``expr_breed_kernel`` or, for order crossover,
+    """Launch ``expr_breed_kernel``, ``expr_pipelined_kernel`` (the same
+    function on the pipelined schedule: where :func:`expr_pipelined_holds`,
+    unless ``pipelined`` is False, which comparisons with
+    ``expr_breed_kernel`` pass) or, for order crossover,
     ``expr_order_kernel``, of the template ``csrc/expr_breed.cu`` with
     the hooks generated for this breed (``expr_cuda.program_for``; built
     at first use, :func:`build_expr`), on the current stream: the kernel
@@ -1227,6 +1290,12 @@ def expr_breed_cuda(
         _check(seed, "seed", torch.int64, (n,), dev)
     scores = (torch.empty(lead + (Pp,), device=dev) if (objective is not None or obj_id)
               else None)
+    mut_id = MUTATE_IDS.get(mutate, 0) if mut_op is None else 0
+    pipelined = pipelined and expr_pipelined_holds(program, geom, genomes.dtype, mut_id, order,
+                                                   mask)
+    if pipelined and (genomes.data_ptr() % 16 or ranks.data_ptr() % 16 or out.data_ptr() % 16):
+        raise ValueError("the pipelined expression breed stages 16-byte aligned genomes and"
+                         " ranks and stores 16-byte aligned children")
     lib = _expr_library(program, mask)
     rc = lib.expr_breed_launch(
         genomes.data_ptr(), out.data_ptr(), _ptr(scores), ranks.data_ptr(),
@@ -1238,12 +1307,12 @@ def expr_breed_cuda(
         geom.mode(parity), geom.S, geom.D, geom.q, geom.B,
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
-        CROSS_IDS["order" if order else "uniform"], MUTATE_IDS.get(mutate, 0) if mut_op is None else 0,
-        int(obj_id), warps, n, gene_id, mask,
+        CROSS_IDS["order" if order else "uniform"], mut_id,
+        int(obj_id), warps, n, gene_id, mask, int(pipelined),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "expr_breed")
-    key = "expr_order" if order else "expr"
+    key = "expr_order" if order else "expr_pipelined" if pipelined else "expr"
     if ablate:
         _count("ablate_" + key, genomes, mask)
     else:

@@ -1,7 +1,7 @@
 """Partition cases of the sub-block pipeline's kernel on one CUDA card.
 
 Usage: python -m libpga_tpu_torch.tools.pipelined_variants [--rounds 3]
-           [--reps 20] [--json PATH]
+           [--reps 20] [--json PATH] [--b1]
 
 Times ``deme_pipelined_kernel`` built with each partition case of its
 source (``PIPE_PART`` in ``csrc/deme_breed.cu``), beside the production
@@ -25,6 +25,14 @@ the row permutation (the pipelined kernel's unscored floor).
 
 so the staging, the distributed reads and the child stores fall out by
 subtraction. Needs a CUDA card and nvcc.
+
+With ``--b1`` it times instead the production ``deme_pipelined_kernel`` at
+the B = 1 geometries of the expression breed's cells (``B1_SHAPES``: the
+floor its expression form starts from), through the unit's C launcher
+(``kernels.deme_breed_cuda`` routes only B > 1 there), beside
+``deme_breed_kernel`` at the same geometry, ``torch.index_select`` of the
+rows and the bound, after holding its children and scores bit for bit
+against ``deme_breed_kernel``'s (:func:`b1_floor`).
 """
 
 from __future__ import annotations
@@ -46,6 +54,12 @@ from libpga_tpu_torch.ops import kernels
 SHAPES = [("f32-B2", 1 << 20, 100, torch.float32, 2), ("f32-B4", 1 << 20, 100, torch.float32, 4),
           ("bf16-B2", 1 << 20, 100, torch.bfloat16, 2),
           ("f32-L128-B2", 1 << 20, 128, torch.float32, 2)]
+# The B = 1 geometries of the expression breed's cells (PERF.md section 4):
+# (name, rows, genes, gene dtype, constant-carrying objective, parities).
+B1_SHAPES = [("pingpong-1Mx100", 1 << 20, 100, torch.float32, False, (0, 1)),
+             ("riffle-4Mx64", 1 << 22, 64, torch.float32, True, (0,)),
+             ("pingpong-1Mx60", 1 << 20, 60, torch.float32, False, (0,)),
+             ("pingpong-1Mx100-bf16", 1 << 20, 100, torch.bfloat16, False, (0,))]
 # name: the PIPE_PART case (0 is production).
 VARIANTS = {"production": 0, "no_breed": 1, "local_parents": 2, "dummy_stores": 3}
 
@@ -110,6 +124,77 @@ def launcher(lib_path: Path, geom, parity, g, ranks, seed, out, kw):
     return run
 
 
+def pipelined_b1(g, ranks, geom, parity, seed, out, scores, mparams, obj_id) -> None:
+    """One launch of the production ``deme_pipelined_kernel`` at a B = 1
+    geometry (tournament of 2, point mutation) through the unit's C
+    launcher, which takes any B >= 1."""
+    lib = kernels._library("deme_breed")
+    rc = lib.deme_pipelined_launch(
+        g.data_ptr(), out.data_ptr(), scores.data_ptr(), ranks.data_ptr(), mparams.data_ptr(),
+        None, None, None, None, seed.data_ptr(), geom.P, geom.Pp, geom.L, geom.K, geom.G,
+        geom.mode(parity), geom.S, geom.D, geom.q, geom.B, kernels.SEL_IDS["tournament"], 2, 0.0,
+        kernels.MUTATE_IDS["point"], int(obj_id), 1, kernels.GENE_IDS[g.dtype], 0,
+        torch.cuda.current_stream().cuda_stream)
+    kernels._raise_on(rc, lib, "deme_breed")
+
+
+def b1_floor(rounds: int = 3, reps: int = 20) -> dict:
+    """``{shape: {parity: medians}}`` of ``deme_pipelined_kernel`` at each
+    ``B1_SHAPES`` geometry (OneMax scored, point mutation at 0.05, Philox
+    draws), ``deme_breed_kernel`` at the same geometry, ``index_select`` of
+    the row permutation and the bound (the rows read and written once, the
+    ranks read and the scores written, at the H100's 3.35 TB/s), in
+    interleaved rounds of ``reps`` launches each. The two kernels'
+    children and scores are first held equal bit for bit."""
+    from libpga_tpu_torch.tools.ablate_floor import H100_BYTES_PER_S
+
+    device = torch.device("cuda")
+    mparams = torch.tensor([0.05, 0.0], device=device)
+    out = {}
+    for name, P, L, dtype, const, parities in B1_SHAPES:
+        geom = fs.resolve_geometry(P, L, gene_dtype=dtype, const_carrying=const)
+        gb = 2 if dtype == torch.bfloat16 else 4
+        plan = kernels.pipelined_plan(geom.K, L, gb, geom.q)
+        gen = torch.Generator(device=device).manual_seed(P + L)
+        g = torch.rand((geom.Pp, L), generator=gen, device=device).to(dtype)
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
+        child, scores = torch.empty_like(g), torch.empty(geom.Pp, device=device)
+        nbytes = 2 * geom.Pp * L * gb + geom.Pp * 4 + geom.G * geom.K * 4
+        rec = {"P": P, "L": L, "layout": geom.layout, "K": geom.K, "D": geom.D, "B": geom.B,
+               "C": plan.C if plan else None, "bound_ms": 1e3 * nbytes / H100_BYTES_PER_S}
+        for parity in parities:
+            ranks = fs.compute_ranks(g.float().sum(dim=1), geom, parity,
+                                     fs.draw_tie_words(gen, geom.Pp, device))
+            want = kernels.deme_breed_cuda(g, ranks, geom, parity, seed=seed, mparams=mparams,
+                                           obj_id=onemax.fused_id)
+            pipelined_b1(g, ranks, geom, parity, seed, child, scores, mparams, onemax.fused_id)
+            torch.cuda.synchronize()
+            if not (torch.equal(child, want[0]) and torch.equal(scores, want[1])):
+                raise RuntimeError(f"{name} parity {parity}: deme_pipelined_kernel at B = 1"
+                                   " differs from deme_breed_kernel")
+            read, write = geom.row_maps(parity, device)
+            rows = torch.empty(geom.Pp, dtype=torch.long, device=device)
+            rows[write.reshape(-1)] = read.reshape(-1)
+            runners = {
+                "pipelined_b1": functools.partial(pipelined_b1, g, ranks, geom, parity, seed, child,
+                                                  scores, mparams, onemax.fused_id),
+                "deme_breed_kernel": functools.partial(
+                    kernels.deme_breed_cuda, g, ranks, geom, parity, seed=seed, out=child,
+                    mparams=mparams, obj_id=onemax.fused_id),
+                "index_select": functools.partial(torch.index_select, g, 0, rows, out=child),
+            }
+            samples = {k: [] for k in runners}
+            for _ in range(rounds):
+                for k, run in runners.items():
+                    samples[k].append(mean_ms(run, reps))
+            rec[f"parity{parity}"] = {k: statistics.median(v) for k, v in samples.items()}
+            del want, ranks, rows, runners
+        out[name] = rec
+        del g, child, scores
+        torch.cuda.empty_cache()
+    return out
+
+
 def mean_ms(fn, reps: int) -> float:
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -127,9 +212,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--json", type=Path, default=None)
+    ap.add_argument("--b1", action="store_true",
+                    help="time the production kernel at the B = 1 geometries (b1_floor)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel times are a card's quantity: run this where CUDA is available")
+    if args.b1:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True).stdout
+        record = {"tool": "pipelined_variants --b1", "nvidia_smi": smi.strip(),
+                  "shapes": b1_floor(args.rounds, args.reps)}
+        print(json.dumps(record), flush=True)
+        return record
     libs, ptxas = build_variants()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()

@@ -447,7 +447,26 @@ def _expr_case(name):
         "arithmetic+swap": (arith, "swap", None, onemax_bits.fused_id),
         "uniform+creep+sin": ("uniform", creep, po.from_expression("sum(sin(g * 3)) + max(g)"), 0),
         "all+unscored": (arith, bx.mutate_from_expression("where(q2 < 0.5, g, r)"), None, 0),
+        "swap+nk": ("uniform", "swap", po.make_nk_landscape(64, 3, seed=0).expr_fused, 0),
+        "gaussian+trap": ("uniform", "gaussian", po.make_deceptive_trap(5).expr_fused, 0),
+        "point+rolled": (one_point, "point", po.from_expression(
+            "a = roll(g, -3); x = max(a) - min(g);"
+            " sum(where(g < 0.3, a % 0.25, round(g*4.5))) + mean(g*g) * x + dot(i, g) / L"), 0),
     }[name]
+
+
+def _expr_counter(cross, mut, objective, geom, dtype=torch.float32, base="expr"):
+    """The counter a one-generation expression breed counts under:
+    ``base``'s "expr_pipelined" twin where ``kernels.expr_breed_cuda``
+    routes the shape to ``expr_pipelined_kernel``, else ``base``."""
+    from libpga_tpu_torch.ops import expr_cuda
+
+    program = expr_cuda.program_for(cross if fs.is_expression(cross) else None,
+                                    mut if fs.is_expression(mut) else None, objective)
+    mut_id = 0 if fs.is_expression(mut) else kernels.MUTATE_IDS[mut]
+    if kernels.expr_pipelined_holds(program, geom, dtype, mut_id):
+        return base.replace("expr", "expr_pipelined", 1)
+    return base
 
 
 EXPR_VARIANTS = [
@@ -471,7 +490,8 @@ def test_expr_kernel_equals_plain_on_card(cuda_device, variant):
     same inputs, in production (Philox) and injected mode, every parity
     of the layout: genomes exactly (within 2 ulp where a hook calls a
     transcendental or ``**``), scores within rtol 1e-5 / atol 1e-5 * L,
-    -inf on pad rows; one launch counted in LAUNCHES["expr"]."""
+    -inf on pad rows; one launch counted in LAUNCHES["expr"], or
+    LAUNCHES["expr_pipelined"] where the shape routes there."""
     from libpga_tpu_torch.ops import expr_cuda
 
     name, P, L, layout = variant
@@ -505,7 +525,8 @@ def test_expr_kernel_equals_plain_on_card(cuda_device, variant):
             injected.gauss = torch.rand((3, geom.G, geom.K, L), generator=gen, device=cuda_device)
         injected.cross = (torch.rand((geom.G, geom.K, L), device=cuda_device) < 0.5).to(torch.uint8)
         want_inj = fs.deme_breed_reference(g, ranks, geom, parity, injected, **kw)
-        before = kernels.LAUNCHES["expr"]
+        key = _expr_counter(cross, mut, objective, geom)
+        before = kernels.LAUNCHES[key]
         for got, ref in ((fs.deme_breed(g, ranks, geom, parity, seed=seed, **kw), want),
                          (fs.deme_breed(g, ranks, geom, parity, draws=injected, **kw), want_inj)):
             torch.cuda.synchronize()
@@ -521,8 +542,95 @@ def test_expr_kernel_equals_plain_on_card(cuda_device, variant):
             real = torch.arange(geom.Pp, device=cuda_device) < P
             assert bool(torch.isinf(got[1][~real]).all())
             torch.testing.assert_close(got[1][real], ref[1][real], rtol=1e-5, atol=1e-5 * L)
-        assert kernels.LAUNCHES["expr"] == before + 2
+        assert kernels.LAUNCHES[key] == before + 2
         assert expr_ops or objective is not None
+
+
+# (case, P, L, layout, B, gene dtype, islands): expr_pipelined_kernel's
+# shapes, each row map, both gene types, an island grid axis, every hook
+# kind (the objective's child row: swap re-scoring, roll of g and a later
+# stage reading g), and the knapsack's L = 6, which stays on
+# expr_breed_kernel.
+EXPR_PIPELINED_VARIANTS = [
+    ("nk", 4096, 64, None, 1, torch.float32, None),
+    ("nk", 1000, 64, "riffle", 1, torch.float32, None),
+    ("trap", 4096, 60, None, 1, torch.bfloat16, None),
+    ("one_point+creep", 16_384, 100, None, 2, torch.float32, None),
+    ("one_point+creep", 4096, 100, None, 1, torch.bfloat16, 3),
+    ("uniform+creep+sin", 4096, 40, None, 1, torch.float32, 3),
+    ("all+unscored", 1000, 20, None, 1, torch.float32, None),
+    ("swap+nk", 4096, 64, None, 1, torch.float32, None),
+    ("gaussian+trap", 4096, 60, "riffle", 1, torch.float32, None),
+    ("point+rolled", 2100, 24, None, 1, torch.float32, None),
+    ("knapsack", 1000, 6, None, 1, torch.float32, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", EXPR_PIPELINED_VARIANTS,
+                         ids=lambda v: f"{v[0]}-{v[1]}x{v[2]}-{v[3]}-B{v[4]}-{str(v[5])[6:]}-i{v[6]}")
+def test_expr_pipelined_kernel_equals_expr_breed_kernel_on_card(cuda_device, variant):
+    """Where its plan holds the shape, ``expr_breed_cuda`` launches
+    expr_pipelined_kernel (counted under "expr_pipelined"), whose children
+    and scores equal expr_breed_kernel's (``pipelined=False``) on the same
+    inputs bit for bit (children within 2 ulp where a hook calls a
+    transcendental) and whose children equal the plain version's, Philox
+    and injected draws, every parity; elsewhere (L = 6) it launches
+    expr_breed_kernel."""
+    from libpga_tpu_torch.ops import expr_cuda
+
+    name, P, L, layout, B, dtype, I = variant
+    cross, mut, objective, obj_id = _expr_case(name)
+    program = expr_cuda.program_for(cross if fs.is_expression(cross) else None,
+                                    mut if fs.is_expression(mut) else None, objective)
+    geom = fs.resolve_geometry(P, L, layout=layout, crossover=cross, subblock=B, gene_dtype=dtype,
+                               const_carrying=bool(getattr(objective, "kernel_rowwise_consts", ())))
+    assert geom.B == B
+    held = L % 4 == 0
+    lead = () if I is None else (I,)
+    base = ("islands_expr" if I else "expr") + ("_bf16" if dtype == torch.bfloat16 else "")
+    key = base.replace("expr", "expr_pipelined", 1) if held else base
+    assert _expr_counter(cross, mut, objective, geom, dtype) == ("expr_pipelined" if held else "expr")
+    gen = torch.Generator(device=cuda_device).manual_seed(P + L + B)
+    g = torch.rand(lead + (geom.Pp, L), generator=gen, device=cuda_device).to(dtype)
+    s = torch.rand(lead + (geom.Pp,), generator=gen, device=cuda_device)
+    s[..., P:] = -torch.inf
+    kw = dict(crossover=cross, mutate=mut, obj_id=obj_id, objective=objective,
+              mparams=torch.tensor([0.3, 0.05], device=cuda_device))
+    seeds = torch.randint(0, 2**62, (I or 1,), generator=gen, device=cuda_device)
+    for parity in range(geom.parities):
+        ranks = fs.compute_ranks(s, geom, parity, fs.draw_tie_words(
+            gen, (I or 1) * geom.Pp, cuda_device).view(*lead, geom.Pp))
+        injected = fs.zero_draws(geom.G, geom.K, L, mut, cuda_device, cross)
+        if I:
+            injected = fs.stack_draws([injected] * I)
+        for f in ("sel_u", "mut_u", "expr_row", "expr_gene", "gauss"):
+            if getattr(injected, f) is not None:
+                setattr(injected, f, torch.rand_like(getattr(injected, f)))
+        if injected.cross is not None:
+            injected.cross = (torch.rand_like(injected.cross, dtype=torch.float32) < 0.5).to(
+                torch.uint8)
+        philox = (fs.philox_draws(seeds, geom.G, geom.K, L, mut, cross) if I is None
+                  else fs.island_philox_draws(seeds, geom.G, geom.K, L, mut, cross))
+        for x, draws in ((dict(seed=seeds), philox), (dict(draws=injected), injected)):
+            before = kernels.LAUNCHES[key]
+            got = fs.deme_breed(g, ranks, geom, parity, islands=I, **x, **kw)
+            assert kernels.LAUNCHES[key] == before + 1
+            old = fs.deme_breed(g, ranks, geom, parity, islands=I, pipelined=False, **x, **kw)
+            want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
+            torch.cuda.synchronize()
+            if program.transcendental and dtype == torch.float32:
+                assert int(_ulps(got[0], old[0]).max()) <= 2
+            else:
+                assert torch.equal(got[0], old[0])
+            if torch.equal(got[0], old[0]) and got[1] is not None:
+                assert torch.equal(got[1], old[1])
+            if mut == "gaussian":  # log and cos of two libraries
+                torch.testing.assert_close(got[0].float(), want[0].float(), rtol=0, atol=1e-6)
+            elif program.transcendental:
+                assert int(_ulps(got[0].float(), want[0].float()).max()) <= 2
+            else:
+                assert torch.equal(got[0], want[0])
 
 
 @pytest.mark.cuda
@@ -597,7 +705,7 @@ def test_engine_on_card_runs_expressions_through_the_expr_kernel(cuda_device):
         kernels.reset_launches()
         assert pga.run(7) == 7
         torch.cuda.synchronize()
-        assert kernels.LAUNCHES["expr"] == 7 and sum(kernels.LAUNCHES.values()) == 7
+        assert kernels.LAUNCHES["expr_pipelined"] == 7 and sum(kernels.LAUNCHES.values()) == 7
         pop = pga.population(h)
         want = pga._objective(pop.genomes)
         torch.testing.assert_close(pop.scores, want, rtol=1e-5, atol=1e-4)
@@ -1063,7 +1171,10 @@ def test_island_expr_launch_equals_plain_and_single_launches_on_card(cuda_device
     seeds = torch.randint(0, 2**62, (I,), generator=gen, device=cuda_device)
     G, K = geom.G, geom.K
     mut = kw["mutate"]
-    key = "islands_" + kernel + ("_bf16" if dtype == torch.bfloat16 else "")
+    base = "islands_" + kernel
+    if kernel == "expr":
+        base = _expr_counter(cross, mut, objective, geom, dtype, base)
+    key = base + ("_bf16" if dtype == torch.bfloat16 else "")
     real = torch.arange(geom.Pp, device=cuda_device) < S
     for parity in range(geom.parities):
         if multigen:
@@ -1160,8 +1271,8 @@ def test_engine_on_card_breeds_expression_islands_in_one_launch(cuda_device):
                                       sigma=0.1)
     trap = po.make_deceptive_trap(5)
     for T, objective, mut, gens, key, launches in (
-        (None, "onemax", creep, 12, "islands_expr", 12),
-        (None, trap, None, 12, "islands_expr", 12),
+        (None, "onemax", creep, 12, "islands_expr_pipelined", 12),
+        (None, trap, None, 12, "islands_expr_pipelined", 12),
         (4, trap, creep, 13, "islands_expr_multigen", 3 * 1 + 1),
     ):
         p = pga_init(0, PGAConfig(generations_per_launch=T))
@@ -1239,7 +1350,8 @@ def test_bf16_kernels_equal_plain_and_the_float32_kernel_rounded_on_card(cuda_de
     seeds = torch.randint(0, 2**62, (I or 1,), generator=gen, device=cuda_device)
     G, K = geom.G, geom.K
     key = {"deme": "islands" if I else geom.layout, "multigen": "islands_multigen" if I else "multigen",
-           "expr": "expr", "expr_multigen": "expr_multigen"}[kind] + "_bf16"
+           "expr": _expr_counter(cross, mutate, objective, geom, BF16),
+           "expr_multigen": "expr_multigen"}[kind] + "_bf16"
     for parity in range(geom.parities):
         if multigen:
             def sub(seed):
@@ -1295,7 +1407,7 @@ def test_engine_on_card_launches_the_bf16_kernels(cuda_device):
     for T, objective, islands, gens, key, launches in (
         (None, "onemax", 1, 6, "pingpong_bf16", 6),
         (4, "onemax", 1, 8, "multigen_bf16", 2),
-        (None, trap, 1, 5, "expr_bf16", 5),
+        (None, trap, 1, 5, "expr_pipelined_bf16", 5),
         (4, trap, 1, 8, "expr_multigen_bf16", 2),
         (None, "onemax", 4, 6, "islands_bf16", 6),
     ):
@@ -1561,15 +1673,20 @@ def _hook_case(name, L):
     }[name]()
 
 
-def _hook_key(kw, multigen, dtype):
-    """The LAUNCHES name of an ablated launch of these keywords."""
+def _hook_key(kw, multigen, dtype, geom=None):
+    """The LAUNCHES name of an ablated launch of these keywords (at
+    ``geom``: a one-generation expression breed counts under
+    "ablate_expr_pipelined" where its shape routes there)."""
     hooked = (fs.is_expression(kw["crossover"]) or fs.is_expression(kw["mutate"])
               or "objective" in kw)
     order = kw["crossover"] == "order"
     parts = ["ablate"] + ["expr"] * hooked + ["multigen"] * multigen + ["order"] * order
     if len(parts) == 1:
         parts.append("breed")
-    return "_".join(parts) + ("_bf16" if dtype == torch.bfloat16 else "")
+    key = "_".join(parts)
+    if key == "ablate_expr" and geom is not None:
+        key = _expr_counter(kw["crossover"], kw["mutate"], kw.get("objective"), geom, dtype, key)
+    return key + ("_bf16" if dtype == torch.bfloat16 else "")
 
 
 def _random_draws(geom, L, kw, device, steps=None):
@@ -1615,10 +1732,11 @@ HOOK_ABLATE_VARIANTS = [
 @pytest.mark.parametrize("variant", HOOK_ABLATE_VARIANTS,
                          ids=lambda v: f"{v[0]}-{'+'.join(v[1])}-{v[2]}x{v[3]}-{str(v[4])[6:]}")
 def test_hook_ablated_breed_equals_plain_on_card(cuda_device, variant):
-    """Each ablated case of expr_breed_kernel, expr_order_kernel and
-    order_breed_kernel equals its plain version, in production (Philox)
-    and injected mode, every parity: genomes bit for bit, scores within
-    rtol 1e-5 / atol 1e-5 * L; the launches count apart from production."""
+    """Each ablated case of expr_breed_kernel (expr_pipelined_kernel where
+    the shape routes there), expr_order_kernel and order_breed_kernel
+    equals its plain version, in production (Philox) and injected mode,
+    every parity: genomes bit for bit, scores within rtol 1e-5 / atol
+    1e-5 * L; the launches count apart from production."""
     hooks, ablate, P, L, dtype = variant
     objective, cross, mut = _hook_case(hooks, L)
     breed = fs.make_fused_breed(P, L, objective, crossover=cross, mutate=mut, ablate=ablate,
@@ -1628,7 +1746,7 @@ def test_hook_ablated_breed_equals_plain_on_card(cuda_device, variant):
     g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device).to(dtype)
     s = torch.rand(geom.Pp, generator=gen, device=cuda_device)
     s[P:] = -torch.inf
-    key = _hook_key(kw, False, dtype)
+    key = _hook_key(kw, False, dtype, geom)
     before = dict(kernels.LAUNCHES)
     for parity in range(geom.parities):
         ranks = fs.compute_ranks(s, geom, parity, fs.draw_tie_words(gen, geom.Pp, cuda_device))
@@ -2026,10 +2144,10 @@ def test_pipelined_no_mut_is_the_production_child_at_rate_zero_on_card(cuda_devi
 @pytest.mark.parametrize("ablate", [("no_mut",), ("sel_const", "no_matmul", "no_cross", "no_mut"),
                                     ("no_cross", "no_mut")], ids="+".join)
 def test_expression_hook_ablated_at_subblock_equals_plain_on_card(cuda_device, ablate):
-    """With the creep hook at B = 2 the factory launches expr_breed_kernel's
-    case of the flags on the B-aware maps (its harness unit, or a unit of
-    its own for a combination), equal to its plain version, both
-    parities, Philox and injected draws."""
+    """With the creep hook at B = 2 the factory launches
+    expr_pipelined_kernel's case of the flags on the B-aware maps (its
+    harness unit, or a unit of its own for a combination), equal to its
+    plain version, both parities, Philox and injected draws."""
     objective, cross, mut = _hook_case("creep", 100)
     P, L = 65_536, 100
     breed = fs.make_fused_breed(P, L, objective, crossover=cross, mutate=mut, subblock=2,
@@ -2044,13 +2162,13 @@ def test_expression_hook_ablated_at_subblock_equals_plain_on_card(cuda_device, a
         seed = torch.randint(0, 2**62, (1,), generator=gen, device=cuda_device)
         draws = fs.philox_draws(seed, geom.G, geom.K, L, mut)
         want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
-        before = kernels.LAUNCHES["ablate_expr"]
+        before = kernels.LAUNCHES["ablate_expr_pipelined"]
         for got in (fs.deme_breed(g, ranks, geom, parity, seed=seed, **kw),
                     fs.deme_breed(g, ranks, geom, parity, draws=draws, **kw)):
             torch.cuda.synchronize()
             assert torch.equal(got[0], want[0])
             torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-3)
-        assert kernels.LAUNCHES["ablate_expr"] == before + 2
+        assert kernels.LAUNCHES["ablate_expr_pipelined"] == before + 2
 
 
 # (kernel, flags, hooks, P, L, steps, elitism): combinations outside the
@@ -2186,7 +2304,8 @@ def test_engine_on_card_breeds_every_shard_in_one_launch(cuda_device, dtype):
     from libpga_tpu_torch import pga_set_mutate_function, pga_set_objective_function
 
     bf = "_bf16" if dtype == torch.bfloat16 else ""
-    for L, mutate, key in ((128, None, "islands" + bf), (128, "creep", "islands_expr" + bf),
+    for L, mutate, key in ((128, None, "islands" + bf),
+                           (128, "creep", "islands_expr_pipelined" + bf),
                            (64, None, None)):
         p = pga_init(0, PGAConfig(pop_shards=4, gene_dtype=dtype))
         h = pga_create_population(p, 65_536, L)
