@@ -3,7 +3,7 @@
 (A, B, B, A), each in its own process:
 
     python3 ab_run.py PARENT_DIR [CHANGE_DIR] [--generations-per-launch T] [--subblock B]
-                      [--tsp | --creep]
+                      [--tsp | --creep | --nk] [--shape PxL] [--bf16] [--rounds N]
     python3 ab_run.py PARENT_DIR [CHANGE_DIR] --sass [--creep]
 
 CHANGE_DIR defaults to the checkout holding this script. Prints one JSON
@@ -16,12 +16,17 @@ more generations under torch.profiler. The workload is OneMax at
 "genes")``, order crossover, swap mutation at 0.5: the order-breed
 kernel with the fused tour score); with ``--creep`` OneMax with the
 creep mutation expression (``where(r < rate, g + sigma * (2*r2 - 1),
-g)``, rate 0.05, sigma 0.1: the expression breed kernel). With
+g)``, rate 0.05, sigma 0.1: the expression breed kernel); with ``--nk``
+the NK landscape (n = 64, k = 3, seed 0) at 4,194,304x64, an expression
+objective with builtin crossover and mutation. With
 ``--generations-per-launch T`` both checkouts run
 ``PGAConfig(generations_per_launch=T)``, the multi-generation kernel;
 with ``--subblock B`` ``PGAConfig(subblock=B)``, the sub-block pipeline's
 ``deme_pipelined_kernel`` (with ``--creep`` the expression breed on the
-B-aware row maps).
+B-aware row maps). ``--shape PxL`` (repeatable) runs those shapes in
+place of the workload's; ``--bf16`` stores the genomes in bfloat16
+(``PGAConfig(gene_dtype=torch.bfloat16)``); ``--rounds N`` runs the
+four turns N times over (N A B B A rounds in a row, 2N pairs).
 Each turn also prints ``digest``, a hash of every shape's final genomes
 and scores: from the same seed the runs of two checkouts whose kernels
 compute the same function end on the same digest, and the last line
@@ -46,21 +51,27 @@ from pathlib import Path
 
 SHAPES = ((1 << 20, 100), (40_000, 100))
 TSP_SHAPES = ((8192, 1000),)
+NK_SHAPES = ((1 << 22, 64),)
 
 CHILD = r"""
 import hashlib, json, re, sys, time
 sys.path.insert(0, sys.argv[1])
-T, tsp, creep = int(sys.argv[2]), sys.argv[3] == "tsp", sys.argv[3] == "creep"
+T, tsp, creep, nk = (int(sys.argv[2]), sys.argv[3] == "tsp", sys.argv[3] == "creep",
+                    sys.argv[3] == "nk")
 B = int(sys.argv[4])
+shapes = [tuple(x) for x in json.loads(sys.argv[5])]
 import torch
+bf16 = sys.argv[6] == "bf16"
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 import libpga_tpu_torch as port
 out, kernel_ms, digest = {}, {}, hashlib.sha256()
-for P, L in %r if tsp else %r:
+for P, L in shapes:
     knobs = dict(generations_per_launch=T) if T > 1 else {}
     if B > 1:
         knobs["subblock"] = B
+    if bf16:
+        knobs["gene_dtype"] = torch.bfloat16
     config = port.PGAConfig(**knobs) if knobs else None
     pga = port.pga_init(seed=1, config=config)
     h = port.pga_create_population(pga, P, L)
@@ -72,6 +83,9 @@ for P, L in %r if tsp else %r:
             pga, make_tsp_coords(random_tsp_coords(L, seed=2), duplicate_mode="genes"))
         port.pga_set_crossover_function(pga, order_preserving_crossover)
         port.pga_set_mutate_function(pga, make_swap_mutate(0.5))
+    elif nk:
+        from libpga_tpu_torch.objectives import make_nk_landscape
+        port.pga_set_objective_function(pga, make_nk_landscape(64, 3, seed=0))
     else:
         port.pga_set_objective_function(pga, "onemax")
     if creep:
@@ -86,20 +100,20 @@ for P, L in %r if tsp else %r:
         port.pga_run(pga, 200)
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0) / 200)
-    out["%%dx%%d" %% (P, L)] = ms
+    out["%dx%d" % (P, L)] = ms
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         port.pga_run(pga, 48)
         torch.cuda.synchronize()
-    kernel_ms["%%dx%%d" %% (P, L)] = {
+    kernel_ms["%dx%d" % (P, L)] = {
         re.search(r"\w*(breed|pipelined|multigen)_kernel", e.key).group():
             e.self_device_time_total / 1e3 / e.count
         for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA
         and re.search(r"(breed|pipelined|multigen)_kernel", e.key)}
     pop = pga.population(h)
-    digest.update(pop.genomes.cpu().numpy().tobytes() + pop.scores.cpu().numpy().tobytes())
+    digest.update(pop.genomes.cpu().float().numpy().tobytes() + pop.scores.cpu().numpy().tobytes())
 print(json.dumps({"ms_per_gen": out, "kernel_ms": kernel_ms, "digest": digest.hexdigest()[:16]}))
-""" % (TSP_SHAPES, SHAPES)
+"""
 
 
 BUILD_UNIT = r"""
@@ -131,7 +145,10 @@ def sass_by_kernel(root: Path, unit: str = "deme_breed") -> dict:
     out = {}
     for chunk in text.split("Function : ")[1:]:
         name, _, body = chunk.partition("\n")
-        out[mask.sub("H", name.strip())] = mask.sub("H", body.split(".........")[0])
+        # cuobjdump pads its comment column to the unit's longest line: compare
+        # each line's words, not its spacing.
+        lines = mask.sub("H", body.split(".........")[0]).splitlines()
+        out[mask.sub("H", name.strip())] = "\n".join(" ".join(x.split()) for x in lines)
     return out
 
 
@@ -156,14 +173,22 @@ def main() -> int:
             "parent_only": sorted(parent.keys() - change.keys()),
             "change_only": sorted(change.keys() - parent.keys())}}), flush=True)
         return 0
-    knobs = {"--generations-per-launch": 1, "--subblock": 1}
-    workload = "tsp" if "--tsp" in args else "creep" if "--creep" in args else "onemax"
-    args = [a for a in args if a not in ("--tsp", "--creep")]
+    knobs = {"--generations-per-launch": 1, "--subblock": 1, "--rounds": 1}
+    workload = ("tsp" if "--tsp" in args else "creep" if "--creep" in args
+                else "nk" if "--nk" in args else "onemax")
+    dtype = "bf16" if "--bf16" in args else "f32"
+    args = [a for a in args if a not in ("--tsp", "--creep", "--nk", "--bf16")]
     for flag in knobs:
         if flag in args:
             at = args.index(flag)
             knobs[flag] = int(args[at + 1])
             del args[at : at + 2]
+    shapes = []
+    while "--shape" in args:
+        at = args.index("--shape")
+        shapes.append([int(x) for x in args[at + 1].split("x")])
+        del args[at : at + 2]
+    shapes = shapes or {"tsp": TSP_SHAPES, "nk": NK_SHAPES}.get(workload, SHAPES)
     per_launch, subblock = knobs["--generations-per-launch"], knobs["--subblock"]
     if not args:
         print(__doc__, file=sys.stderr)
@@ -172,10 +197,10 @@ def main() -> int:
              "B": Path(args[1]).resolve() if len(args) > 1
              else Path(__file__).resolve().parent}
     digests = []
-    for turn in "ABBA":
+    for turn in "ABBA" * knobs["--rounds"]:
         res = subprocess.run(
             [sys.executable, "-c", CHILD, str(roots[turn]), str(per_launch), workload,
-             str(subblock)],
+             str(subblock), json.dumps(shapes), dtype],
             capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
             print(res.stderr[-2000:], file=sys.stderr)
@@ -183,10 +208,11 @@ def main() -> int:
         line = json.loads(res.stdout)
         digests.append(line["digest"])
         print(json.dumps({"turn": turn, "root": roots[turn].name, "workload": workload,
-                          "generations_per_launch": per_launch, "subblock": subblock, **line}),
-              flush=True)
+                          "generations_per_launch": per_launch, "subblock": subblock,
+                          "genes": dtype, **line}), flush=True)
     print(json.dumps({"workload": workload, "generations_per_launch": per_launch,
-                      "subblock": subblock, "same_digest": len(set(digests)) == 1}), flush=True)
+                      "subblock": subblock, "genes": dtype,
+                      "same_digest": len(set(digests)) == 1}), flush=True)
     return 0
 
 

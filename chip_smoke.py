@@ -323,9 +323,20 @@ one-block schedule at the same geometry beside it, and checks that every
 builtin multi-generation cell of the main path takes the cluster route
 (kernels.CLUSTER_LAUNCHES). The phases of expr_multigen_kernel
 (expr_multigen_compare and expr_multigen_run, island_expr_compare,
-bf16_compare's expression case, hook_floor_compare) print its schedule,
-the one-block one (it has no other), and check that none of its launches
-took the cluster route.
+bf16_compare's expression case, hook_floor_compare) do the same for its
+cluster schedule (csrc/expr_plan.cuh's expr_mg_plan, with the eight-lane
+expression child): every uniform or expression crossover case but the
+knapsack's L = 6 takes it, held bit for bit against the one-block
+schedule; order crossover stays on one block.
+PGA.run at B = 1 launches deme_pipelined_kernel wherever a cluster holds
+the deme (every OneMax, island, bf16 and shard cell): compare,
+island_compare, bf16_compare, shard_compare and floor_compare hold each
+such launch bit for bit against deme_breed_kernel (pipelined=False) of
+the same inputs, which meets every check against the plain version that
+the production launch meets, and time deme_breed_kernel beside it; the
+run phases count the launches under "deme_pipelined" (and
+"islands_deme_pipelined", "ablate_pipelined", "_bf16"); the floor
+harness's copy stays on deme_breed_kernel.
 The earlier OneMax, GP and TSP runs keep their depths; the whole script
 takes about seven and a half minutes on the card (its build 70-130 s, the
 B10 units 10-30 s more).
@@ -556,8 +567,8 @@ FLOOR_RUNS = [["f32", "--pop", str(1 << 20), "--k", "512"], ["f32", "--pop", "40
 FLOOR_REPLACES = {
     "ablate_copy": ("libpga_tpu/ops/pallas_step.py:1009",  # _breed_kernel, copy_only
                     "libpga_tpu/ops/pallas_step.py:2224"),  # no_riffle, alias_io
-    "ablate_breed": ("libpga_tpu/ops/pallas_step.py:514",   # _deme_child, sel_const
-                     "libpga_tpu/ops/pallas_step.py:592"),  # no_matmul; no_cross :634, no_mut :748
+    "ablate_stages": ("libpga_tpu/ops/pallas_step.py:514",   # _deme_child, sel_const
+                      "libpga_tpu/ops/pallas_step.py:592"),  # no_matmul; no_cross :634, no_mut :748
     "ablate_multigen": ("libpga_tpu/ops/pallas_step.py:1617",  # _multigen_kernel, no_freeze
                         "libpga_tpu/ops/pallas_step.py:1638"),  # no_rank_cube
 }
@@ -639,7 +650,7 @@ SUBBLOCK_FLOOR_REPLACES = ("libpga_tpu/ops/pallas_step.py:1359",  # B > 1 hands 
 # from a unit of its own (copy_only with a stage flag is the copy).
 B10_HOOK_ROWS = [
     ("creep-B2", "creep", 1 << 20, 100, 512, 1, 2, "ablate_expr_pipelined", ("no_mut", "floor")),
-    ("deme", "builtin", 40_000, 100, 256, 1, 1, "ablate_breed",
+    ("deme", "builtin", 40_000, 100, 256, 1, 1, "ablate_pipelined",
      (("sel_const", "no_cross"), ("no_cross", "no_mut"), ("copy_only", "no_mut"))),
     ("order", "tsp", 8192, 1000, 256, 1, 1, "ablate_order", (("no_matmul", "no_mut"),)),
     ("multigen", "builtin", 40_000, 100, 256, 8, 1, "ablate_multigen",
@@ -811,8 +822,40 @@ def population(geom, gen, device):
     return g, s
 
 
+def deme_key(kernels, geom, dtype=None, islands=False) -> str:
+    """The LAUNCHES name of a builtin one-generation launch at ``geom``:
+    deme_pipelined_kernel's wherever a cluster holds the deme
+    (kernels.pipelined_holds, B = 1 included), else deme_breed_kernel's."""
+    import torch
+
+    dtype = dtype or torch.float32
+    if kernels.pipelined_holds(geom, dtype):
+        key = "islands_deme_pipelined" if islands else "deme_pipelined"
+    else:
+        key = "islands" if islands else geom.layout
+    return key + ("_bf16" if dtype == torch.bfloat16 else "")
+
+
+def same_deme_kernels(fs, got, g, ranks, geom, parity, tag, **kw):
+    """deme_breed_kernel's launch of the same inputs (pipelined=False),
+    held against ``got``, the production launch (deme_pipelined_kernel
+    where a cluster holds the deme): children and scores bit for bit, so
+    deme_breed_kernel meets every check ``got`` meets against the plain
+    version."""
+    import torch
+
+    check(fs.kernels.pipelined_holds(geom, g.dtype), f"{tag}: no cluster holds the deme")
+    old = fs.kernels.deme_breed_cuda(g, ranks, geom, parity, pipelined=False, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(got[0], old[0]) and (
+        got[1] is old[1] is None or torch.equal(got[1], old[1]))
+    check(same, f"{tag}: deme_pipelined_kernel and deme_breed_kernel differ")
+
+
 def phase_compare(fs, onemax, device, results):
-    """Kernel vs plain on the same inputs; times both at the main shapes."""
+    """The production B = 1 launch (deme_pipelined_kernel) and
+    deme_breed_kernel against their plain version on the same inputs, and
+    against each other bit for bit; times all three at the main shapes."""
     import torch
 
     cases = [
@@ -844,26 +887,33 @@ def phase_compare(fs, onemax, device, results):
             want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
             torch.cuda.synchronize()
             check(torch.equal(got[0], want[0]), f"{name} {mode}: genomes differ")
+            same_deme_kernels(fs, got, g, ranks, geom, parity, f"{name} {mode}",
+                              **({"seed": seed} if mode == "philox" else {"draws": draws}), **kw)
             real = torch.arange(geom.Pp, device=device) < P
             check(bool(torch.isinf(got[1][~real]).all()), f"{name} {mode}: pad scores not -inf")
             err = float((got[1][real] - want[1][real]).abs().max())
             check(err <= SCORE_ATOL, f"{name} {mode}: score error {err}")
             errs.append(err)
+        plan = fs.kernels.pipelined_plan(geom.K, L, 4, geom.q)
         line = {"phase": "compare", "case": name, "shape": [P, L], "layout": geom.layout,
-                "K": geom.K, "D": geom.D, "Pp": geom.Pp, "genomes_equal": True,
+                "K": geom.K, "D": geom.D, "Pp": geom.Pp, "kernel": deme_key(fs.kernels, geom),
+                "C": plan.C, "genomes_equal": True, "deme_breed_kernel_equal": True,
                 "max_abs_err": max(errs), "score_atol": SCORE_ATOL}
         if (P, L) == MAIN_SHAPES[geom.layout] and parity == 0:
             out = torch.empty_like(g)
             ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, parity, seed=seed, out=out, **kw), 50)
+            deme_ms = cuda_ms(lambda: fs.kernels.deme_breed_cuda(
+                g, ranks, geom, parity, seed=seed, out=out, pipelined=False, **kw), 50)
             plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
                 g, ranks, geom, parity, fs.philox_draws(seed, geom.G, geom.K, L), **kw), 5)
             tie = fs.draw_tie_words(gen, geom.Pp, device)
             rank_ms = cuda_ms(lambda: fs.compute_ranks(s, geom, parity, tie), 50)
             bound_ms, bound_by, _ = breed_bound(geom)
-            line.update(kernel_ms=ms, plain_ms=plain_ms, rank_ms=rank_ms,
+            line.update(kernel_ms=ms, deme_breed_ms=deme_ms, plain_ms=plain_ms, rank_ms=rank_ms,
                         bound_ms=bound_ms, bound_by=bound_by)
-            results[geom.layout].update(ms=ms, plain_ms=plain_ms, rank_ms=rank_ms,
-                                        bound_ms=bound_ms, bound_by=bound_by)
+            results[geom.layout].update(ms=ms, deme_breed_ms=deme_ms, plain_ms=plain_ms,
+                                        rank_ms=rank_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                        C=plan.C)
         results[geom.layout]["max_abs_err"] = max(
             results[geom.layout].get("max_abs_err", 0.0), max(errs))
         print(json.dumps(line), flush=True)
@@ -939,8 +989,11 @@ def profile_generations(port, pga, wall_ms_per_gen: float, gens: int = PROFILE_G
 
 
 def phase_run(port, kernels, results):
-    """PGA.run through the pga_* API at both main shapes."""
+    """PGA.run through the pga_* API at both main shapes: every launch is
+    deme_pipelined_kernel's."""
     import torch
+
+    from libpga_tpu_torch.ops import fused_step as fs
 
     for layout, (P, L) in MAIN_SHAPES.items():
         pga = port.pga_init(seed=1)
@@ -964,10 +1017,12 @@ def phase_run(port, kernels, results):
                 "bound_ms_per_gen": results[layout].get("bound_ms"),
                 "start_best": start_best, "best": best}
         print(json.dumps(line), flush=True)
-        results[layout]["launches"] = launches[layout]
+        key = deme_key(kernels, fs.resolve_geometry(P, L))
+        check(key == "deme_pipelined", f"{layout}: PGA.run launches {key}")
+        results[layout]["launches"] = launches[key]
         results[layout]["gens_per_s"] = gens / seconds
         check(gens == RUN_GENS, f"{layout}: ran {gens} generations")
-        check(launches[layout] == gens and sum(launches.values()) == gens,
+        check(launches[key] == gens and sum(launches.values()) == gens,
               f"{layout}: launches {launches} for {gens} generations")
         check(best > start_best + 10.0 and best < L, f"{layout}: best {start_best} -> {best}")
         print(json.dumps({"phase": "profile", "layout": layout, "shape": [P, L],
@@ -1377,20 +1432,33 @@ def multigen_draws(fs, geom, steps, gen, device):
 
 def mg_route(kernels, geom, dtype, kw) -> dict:
     """The schedule a multi-generation launch of these keywords takes at
-    ``geom``: expression hooks the one-block schedule (expr_multigen_kernel
-    has no other); else multigen_breed_kernel's route, the plan of
-    csrc/mg_plan.cuh read from the built unit: the cluster's C and rows a
-    block, or the one-block schedule."""
+    ``geom``, read from the built unit as its wrapper reads it: with
+    expression hooks expr_multigen_kernel's route (csrc/expr_plan.cuh's
+    expr_mg_plan: the cluster's C, rows a block and the rows of L floats a
+    child keeps, or the one-block schedule: order crossover, L % 4 != 0,
+    a group no cluster holds); else multigen_breed_kernel's (csrc/
+    mg_plan.cuh: the cluster's C and rows a block, or the one-block
+    schedule)."""
+    from libpga_tpu_torch.ops import expr_cuda
     from libpga_tpu_torch.ops import fused_step as fs
 
-    plan = None
-    if not fs.is_expression(kw.get("crossover")) and not fs.is_expression(kw.get("mutate")) \
-            and kw.get("objective") is None:
-        plan = kernels.multigen_cluster_plan(geom, dtype, kw.get("crossover", "uniform"))
+    cross, mut = kw.get("crossover", "uniform"), kw.get("mutate", "point")
+    expr = fs.is_expression(cross) or fs.is_expression(mut) or kw.get("objective") is not None
+    if expr:
+        program = expr_cuda.program_for(cross if fs.is_expression(cross) else None,
+                                        mut if fs.is_expression(mut) else None,
+                                        kw.get("objective"))
+        mut_id = 0 if fs.is_expression(mut) else kernels.MUTATE_IDS[mut]
+        plan = (None if cross == "order"
+                else kernels.expr_multigen_plan(program, geom, dtype, mut_id))
+    else:
+        plan = kernels.multigen_cluster_plan(geom, dtype, cross)
+    kernel = "expr_multigen" if expr else "multigen"
     if plan is None:
-        return {"route": "one_block"}
-    return {"route": "cluster", "C": plan.C, "rows_per_block": plan.rows,
-            "smem_per_block": plan.smem}
+        return {"route": "one_block", "kernel": kernel}
+    return {"route": "cluster", "kernel": kernel, "C": plan.C, "rows_per_block": plan.rows,
+            "smem_per_block": plan.smem,
+            **({"child_rows": plan.child_rows} if expr else {})}
 
 
 def same_schedules(fs, got, g, s, geom, parity, steps, target, tag, **kw):
@@ -1944,7 +2012,7 @@ def phase_expr_runs(port, kernels, results):
                       "gens": ran, "launches": launches, "gens_per_s": ran / seconds,
                       "ms_per_gen": 1e3 * seconds / ran,
                       "best": pga.get_best_with_score(port.PopulationHandle(0))[1]}), flush=True)
-    check(launches["pingpong"] == ran and sum(launches.values()) == ran,
+    check(launches["deme_pipelined"] == ran and sum(launches.values()) == ran,
           f"builtin run: launches {launches}")
     port.pga_deinit(pga)
 
@@ -2059,6 +2127,11 @@ def phase_expr_multigen_compare(port, fs, device, results):
         tgt = math.inf if target is None else target
         seed = torch.randint(0, 2**62, (1,), generator=gen, device=device)
         errs, ulps = [], 0
+        # The cluster schedule wherever its plan holds the group (L a
+        # multiple of 4 at these shapes), held against the one-block one.
+        route = mg_route(fs.kernels, geom, torch.float32, kw)
+        check(route["route"] == ("one_block" if L % 4 else "cluster"),
+              f"expr multigen {name}: {route}")
         for mode in (dict(draws=expr_multigen_draws(fs, geom, steps, mut, cross, gen, device)),
                      dict(seed=seed)):
             tag = f"expr multigen {name} {'injected' if 'draws' in mode else 'philox'}"
@@ -2081,6 +2154,8 @@ def phase_expr_multigen_compare(port, fs, device, results):
             errs.append(float((got[1][fin] - want[1][fin]).abs().max()))
             if steps:
                 check(not torch.equal(got[0], g), f"{tag}: nothing bred")
+            if route["route"] == "cluster":
+                same_schedules(fs, got, g, s, geom, parity, steps, target, tag, **mode, **kw)
             del got, want
         line = {"phase": "expr_multigen_compare", "case": name, "workload": load, "shape": [P, L],
                 "parity": parity, "steps": steps, "elitism": e, "target": target,
@@ -2088,25 +2163,32 @@ def phase_expr_multigen_compare(port, fs, device, results):
                 "D": geom.D, "S": geom.S, "Pp": geom.Pp, "genomes_equal": ulps == 0,
                 "genome_max_ulps": ulps, "scores_equal": max(errs) == 0.0,
                 "max_abs_err": max(errs), "obj_rows": program.obj_rows,
-                "warps_per_block": fs.kernels.expr_warps(geom.K, L, program.obj_rows, D=geom.D),
-                **mg_route(fs.kernels, geom, torch.float32, kw)}
+                "same_as_one_block": route["route"] == "cluster",
+                "one_block_warps": fs.kernels.expr_warps(geom.K, L, program.obj_rows, D=geom.D),
+                **route}
         r = results.setdefault(load, {})
         r["max_abs_err"] = max(r.get("max_abs_err", 0.0), max(errs))
         if timed:
             out = torch.empty_like(g)
             work = [torch.empty_like(g), torch.empty_like(g)]
             big = geom.Pp * L > 10_000_000
-            check(line["route"] == "one_block", f"expr multigen {name}: {line['route']}")
             ms = {T: cuda_ms(lambda: fs.multigen_breed(
                 g, s, geom, 0, T, None, seed=seed, out=out, work=work, **kw), 10 if big else 50)
                 for T in (1, EXPR_MG_T)}
+            one_block_ms = None
+            if route["route"] == "cluster":
+                one_block_ms = cuda_ms(lambda: fs.multigen_breed(
+                    g, s, geom, 0, EXPR_MG_T, None, seed=seed, out=out, work=work, cluster=False,
+                    **kw), 10 if big else 50)
             plain_ms = cuda_ms(lambda: fs.multigen_breed_reference(
                 g, s, geom, 0, EXPR_MG_T, math.inf, seed=seed, **kw), 1)
             bound_ms, bound_by, _ = breed_bound(geom, program=program, steps=EXPR_MG_T)
-            line.update(kernel_ms_by_steps=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, ms_over_bound=ms[EXPR_MG_T] / bound_ms)
+            line.update(kernel_ms_by_steps=ms, one_block_ms=one_block_ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        ms_over_bound=ms[EXPR_MG_T] / bound_ms)
             r.update(ms=ms[EXPR_MG_T], ms_at_1_step=ms[1], plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, shape=[P, L], layout=geom.layout, K=geom.K, D=geom.D)
+                     bound_by=bound_by, shape=[P, L], layout=geom.layout, K=geom.K, D=geom.D,
+                     schedule=route["route"], C=route.get("C"), one_block_ms=one_block_ms)
             del out, work
         print(json.dumps(line), flush=True)
         del g, s
@@ -2148,7 +2230,8 @@ def phase_expr_multigen_runs(port, kernels, results):
         check(ran == gens, f"{name}: ran {ran} generations")
         check(launches["expr_multigen"] == -(-gens // T) and sum(launches.values()) == -(-gens // T),
               f"{name}: launches {launches} for {gens} generations at T={T}")
-        check(not kernels.CLUSTER_LAUNCHES,
+        on_cluster = results[name]["schedule"] == "cluster"
+        check(kernels.CLUSTER_LAUNCHES == ({"expr_multigen": -(-gens // T)} if on_cluster else {}),
               f"{name}: cluster-schedule launches {kernels.CLUSTER_LAUNCHES}")
         check(bool(torch.isfinite(pop.scores).all()) and bool(torch.isclose(
             pop.scores, rescored, rtol=EXPR_RTOL, atol=EXPR_ATOL_PER_GENE * L).all()),
@@ -2576,6 +2659,8 @@ def phase_island_compare(fs, device, results):
                 if multigen:
                     same_schedules(fs, got, g, s, geom, parity, steps, None, tag, islands=I,
                                    **x, **kw)
+                elif kernel == "deme_breed":
+                    same_deme_kernels(fs, got, g, ranks, geom, parity, tag, islands=I, **x, **kw)
                 if mutate == "gaussian":
                     check(bool(torch.isclose(got[0], want[0], rtol=0, atol=GAUSS_ATOL).all()),
                           f"{tag}: genomes differ beyond {GAUSS_ATOL}")
@@ -2622,7 +2707,10 @@ def phase_island_compare(fs, device, results):
         reps = 10 if multigen else 20
         ms, loop_ms = cuda_ms(island_launch, reps), cuda_ms(single_launches, reps)
         plain_ms = cuda_ms(lambda: launch(0, I, plain=True, seed=seeds), 2)
-        route = one_block_ms = None
+        route = one_block_ms = deme_ms = None
+        if kernel == "deme_breed":
+            deme_ms = cuda_ms(lambda: fs.kernels.deme_breed_cuda(
+                g, ranks, geom, 0, seed=seeds, out=out, islands=I, pipelined=False, **kw), reps)
         if multigen:
             bound_ms, bound_by, _ = breed_bound(geom, steps=steps)
             rank_ms = chain = None
@@ -2644,11 +2732,13 @@ def phase_island_compare(fs, device, results):
                 "loop_over_island": loop_ms / ms, "plain_ms": plain_ms, "rank_ms": rank_ms,
                 "bound_ms": I * bound_ms, "bound_by": bound_by, "chain_steps": chain,
                 "kernel_over_bound": ms / (I * bound_ms), "schedule": route,
-                "one_block_ms": one_block_ms}
+                "one_block_ms": one_block_ms, "deme_breed_ms": deme_ms,
+                "counter": deme_key(fs.kernels, geom, islands=True)
+                if kernel == "deme_breed" else None}
         print(json.dumps(line), flush=True)
         r = {k: line[k] for k in ("case", "ms", "loop_ms", "plain_ms", "rank_ms", "bound_ms",
                                   "bound_by", "layout", "K", "D", "steps", "schedule",
-                                  "one_block_ms")
+                                  "one_block_ms", "deme_breed_ms")
              if k in line} | {"ms": ms, "max_abs_err": max(errs), "shape": [I, S, L]}
         if kernel in results:
             results[kernel].setdefault("other_cases", {})[name] = r
@@ -2686,8 +2776,12 @@ def phase_island_run(port, kernels, results, single, multigen):
     from libpga_tpu_torch.ops.mutate import make_swap_mutate
     from libpga_tpu_torch.parallel import islands as pis
 
+    from libpga_tpu_torch.ops import fused_step as fs
+
     I, S, L = ISLAND_RUN
-    for T, key in ((None, "islands"), (ISLAND_T, "islands_multigen")):
+    deme = deme_key(kernels, fs.resolve_geometry(S, L), islands=True)
+    check(deme == "islands_deme_pipelined", f"islands: {deme}")
+    for T, key in ((None, deme), (ISLAND_T, "islands_multigen")):
         pga = island_solver(port, ISLAND_RUN, 7, generations_per_launch=T)
         start_best = max(float(p.genomes.sum(dim=1).max()) for p in pga._populations)
         check(port.pga_run_islands(pga, ISLAND_M, ISLAND_M, ISLAND_PCT) == ISLAND_M, "island warm-up")
@@ -2826,7 +2920,7 @@ def phase_rastrigin_islands(port, kernels):
                       "launches": launches, "seconds": seconds, "gens_per_s": total / seconds,
                       "start_best": start, "phases": phases, "best_rastrigin": best,
                       "genes_at_half": float((best_genome - 0.5).abs().mean())}), flush=True)
-    check(launches["islands"] == total and sum(launches.values()) == total,
+    check(launches["islands_deme_pipelined"] == total and sum(launches.values()) == total,
           f"rastrigin islands: launches {launches} for {total} generations")
     check(phases[-1]["best_every_100"][-1] > start, f"rastrigin islands: best {start} -> {best}")
     port.pga_deinit(pga)
@@ -2950,6 +3044,9 @@ def phase_island_expr_compare(port, fs, kernels, device, results):
                 got = launch(0, I, **x)
                 launched += kernels.LAUNCHES[key] - before
                 tag = f"expression islands {name} parity {parity} {mode}"
+                if multigen and cross != "order":
+                    same_schedules(fs, got, g, s, geom, parity, steps, None, tag, islands=I,
+                                   **x, **kw)
                 if pipelined:
                     old_ulps = max(old_ulps, against_expr_breed(
                         got, fs.deme_breed(g, ranks, geom, parity, islands=I, pipelined=False,
@@ -3004,10 +3101,15 @@ def phase_island_expr_compare(port, fs, kernels, device, results):
         old_ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seeds, out=out, islands=I,
                                                pipelined=False, **kw), reps) if pipelined else None
         plain_ms = cuda_ms(lambda: launch(0, I, plain=True, seed=seeds), 1 if multigen else 2)
-        route = None
+        route = one_block_ms = None
         if multigen:
             route = mg_route(kernels, geom, dtype, kw)
-            check(route["route"] == "one_block", f"expression islands {name}: {route}")
+            check(route["route"] == ("one_block" if cross == "order" else "cluster"),
+                  f"expression islands {name}: {route}")
+            if route["route"] == "cluster":
+                one_block_ms = cuda_ms(lambda: fs.multigen_breed(
+                    g, s, geom, 0, steps, None, seed=seeds, out=out, work=work, islands=I,
+                    cluster=False, **kw), reps)
         gene_bytes = 2 if bf16 else 4
         chain = None
         bound_ms, bound_by, chain = breed_bound(geom, program=program, order=cross == "order",
@@ -3022,11 +3124,11 @@ def phase_island_expr_compare(port, fs, kernels, device, results):
                 "kernel_ms": ms, "loop_ms": loop_ms, "loop_over_island": loop_ms / ms,
                 "plain_ms": plain_ms, "bound_ms": I * bound_ms, "bound_by": bound_by,
                 "chain_steps": chain, "kernel_over_bound": ms / (I * bound_ms),
-                "schedule": route, "expr_breed_ms": old_ms,
+                "schedule": route, "one_block_ms": one_block_ms, "expr_breed_ms": old_ms,
                 "expr_breed_max_ulps": old_ulps if pipelined else None}
         print(json.dumps(line), flush=True)
         results[name] = {"counter": counter, "ms": ms, "loop_ms": loop_ms, "plain_ms": plain_ms,
-                         "schedule": route, "expr_breed_ms": old_ms,
+                         "schedule": route, "expr_breed_ms": old_ms, "one_block_ms": one_block_ms,
                          "bound_ms": I * bound_ms, "bound_by": bound_by, "chain_steps": chain,
                          "max_abs_err": max(errs), "shape": [I, S, L], "steps": steps,
                          "layout": geom.layout, "K": K, "D": geom.D,
@@ -3237,6 +3339,8 @@ def phase_bf16_compare(port, fs, device, results):
                 # differ in the last float ulp, which can move a rounding.
                 errs.append(bf16_check(f"bf16 {name} parity {parity} {mode}", got, want, f32, P,
                                        0.0, SCORE_ATOL, gene_ulps=1 if gauss else 0))
+                same_deme_kernels(fs, got, g, ranks, geom, parity,
+                                  f"bf16 {name} parity {parity} {mode}", **x, **kw)
                 if gauss:
                     ulps_seen = max(ulps_seen, int((got[0] != want[0]).sum()))
                     check(bool((got[0] == 1.0).any()), f"bf16 {name}: no gene rounded to 1.0")
@@ -3244,11 +3348,15 @@ def phase_bf16_compare(port, fs, device, results):
         out = torch.empty_like(g)
         g32, out32 = g.float(), torch.empty((geom.Pp, L), device=device)
         ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seed, out=out, **kw), 50)
+        deme_ms = cuda_ms(lambda: fs.kernels.deme_breed_cuda(
+            g, ranks, geom, 0, seed=seed, out=out, pipelined=False, **kw), 50)
         f32_ms = cuda_ms(lambda: fs.deme_breed(g32, ranks, geom, 0, seed=seed, out=out32, **kw), 50)
         plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
             g, ranks, geom, 0, fs.philox_draws(seed, geom.G, geom.K, L, mutate), **kw), 5)
         record(name, geom, errs, ms, f32_ms, plain_ms, breed_bound(geom, gene_bytes=2),
-               shape=[P, L], f32_bound_ms=breed_bound(geom)[0], **({"genes_1_ulp_apart": ulps_seen} if gauss else {}))
+               shape=[P, L], f32_bound_ms=breed_bound(geom)[0], deme_breed_ms=deme_ms,
+               counter=deme_key(fs.kernels, geom, bf),
+               **({"genes_1_ulp_apart": ulps_seen} if gauss else {}))
         del g, g32, out, out32, injected
         torch.cuda.empty_cache()
 
@@ -3374,6 +3482,8 @@ def phase_bf16_compare(port, fs, device, results):
                        if t == 1 else None)
                 torch.cuda.synchronize()
                 errs.append(bf16_check(f"bf16 {name} {t} steps {mode}", got, want, f32, P, **tol))
+                same_schedules(fs, got, g, s, geom, parity, t, None, f"bf16 {name} {t} steps",
+                               **x, **kw)
                 del got, want, f32, x
             work = {}
 
@@ -3395,7 +3505,10 @@ def phase_bf16_compare(port, fs, device, results):
         plain_ms = cuda_ms(plain, 2)
         if steps:
             extra["schedule"] = mg_route(fs.kernels, geom, bf, kw)
-            check(extra["schedule"]["route"] == "one_block", f"bf16 {name}: {extra['schedule']}")
+            check(extra["schedule"]["route"] == "cluster", f"bf16 {name}: {extra['schedule']}")
+            extra["one_block_ms"] = cuda_ms(lambda: fs.multigen_breed(
+                g, s, geom, 0, steps, None, seed=seed, out=out,
+                work=[torch.empty_like(g), torch.empty_like(g)], cluster=False, **kw), reps)
         record(name, geom, errs, ms, f32_ms, plain_ms, bound, steps=steps or 1, shape=[P, L],
                f32_bound_ms=f32_bound[0], **extra)
         del g, g32, out, out32
@@ -3425,6 +3538,7 @@ def phase_bf16_compare(port, fs, device, results):
             torch.cuda.synchronize()
             tag = f"bf16 {name} parity {parity} {mode}"
             errs.append(bf16_check(tag, got, want, f32, S, 0.0, SCORE_ATOL))
+            same_deme_kernels(fs, got, g, ranks, geom, parity, tag, islands=I, **x, **kw)
             for i in range(I):
                 one = fs.deme_breed(g[i], ranks[i * G:(i + 1) * G], geom, parity, **(
                     dict(draws=draws.island(i)) if mode == "injected" else dict(seed=seeds[i:i + 1])),
@@ -3445,11 +3559,14 @@ def phase_bf16_compare(port, fs, device, results):
     f32_ms = cuda_ms(lambda: fs.deme_breed(g32, ranks, geom, 0, seed=seeds, out=out32, islands=I,
                                            **kw), 20)
     loop_ms = cuda_ms(single_launches, 20)
+    deme_ms = cuda_ms(lambda: fs.kernels.deme_breed_cuda(
+        g, ranks, geom, 0, seed=seeds, out=out, islands=I, pipelined=False, **kw), 20)
     plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
         g, ranks, geom, 0, fs.island_philox_draws(seeds, G, K, L), **kw), 2)
     bound = breed_bound(geom, gene_bytes=2)
     record(name, geom, errs, ms, f32_ms, plain_ms, (I * bound[0], bound[1]), shape=[I, S, L],
-           loop_ms=loop_ms, f32_bound_ms=I * breed_bound(geom)[0])
+           loop_ms=loop_ms, f32_bound_ms=I * breed_bound(geom)[0], deme_breed_ms=deme_ms,
+           counter=deme_key(fs.kernels, geom, bf, islands=True))
     del g, g32, out, out32
     torch.cuda.empty_cache()
 
@@ -3603,7 +3720,7 @@ def phase_floor_compare(fs, onemax, device, results):
                     device=device, gene_dtype=dtype, mparams=mparams, ablate=ablate)
                 geom, kw = breed.geom, breed.kw
                 tag = f"floor {name} {shape} {str(dtype)[6:]}"
-                errs, library_ms = [], None
+                errs, library_ms, deme_ms = [], None, None
                 if copy:
                     handed = s.view(geom.G, geom.K)
                     alias = "alias_io" in ablate
@@ -3643,13 +3760,18 @@ def phase_floor_compare(fs, onemax, device, results):
                         mut_u=torch.rand((geom.G, K, 4), generator=gen, device=device))
                     for mode, draws in (("injected", injected), ("philox", None)):
                         if draws is None:
-                            got = fs.deme_breed(g, r, geom, 0, seed=seed, **kw)
+                            x = dict(seed=seed)
+                            got = fs.deme_breed(g, r, geom, 0, **x, **kw)
                             draws = fs.philox_draws(seed, geom.G, K, L)
                         else:
-                            got = fs.deme_breed(g, r, geom, 0, draws=draws, **kw)
+                            x = dict(draws=draws)
+                            got = fs.deme_breed(g, r, geom, 0, **x, **kw)
                         want = fs.deme_breed_reference(g, r, geom, 0, draws, **kw)
                         torch.cuda.synchronize()
                         check(torch.equal(got[0], want[0]), f"{tag} {mode}: genomes differ")
+                        # The stage harness follows the route: deme_pipelined_kernel's
+                        # case; deme_breed_kernel's case of the mask is held to it.
+                        same_deme_kernels(fs, got, g, r, geom, 0, f"{tag} {mode}", **x, **kw)
                         errs.append(float((got[0].float() - want[0].float()).abs().max()))
                         if scored:
                             real = torch.arange(geom.Pp, device=device) < P
@@ -3658,6 +3780,8 @@ def phase_floor_compare(fs, onemax, device, results):
                             check(errs[-1] <= SCORE_ATOL, f"{tag} {mode}: score error {errs[-1]}")
                     dst = torch.empty_like(g)
                     ms = cuda_ms(lambda: fs.deme_breed(g, r, geom, 0, seed=seed, out=dst, **kw), 20)
+                    deme_ms = cuda_ms(lambda: fs.kernels.deme_breed_cuda(
+                        g, r, geom, 0, seed=seed, out=dst, pipelined=False, **kw), 20)
                     plain_ms = cuda_ms(lambda: fs.deme_breed_reference(
                         g, r, geom, 0, fs.philox_draws(seed, geom.G, K, L), **kw), 3)
                     bound_ms, bound_by, _ = breed_bound(geom, ablate=ablate, gene_bytes=gb,
@@ -3669,17 +3793,20 @@ def phase_floor_compare(fs, onemax, device, results):
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": library_ms, "production_ms": full_ms,
                         "production_layout": prod.geom.layout,
-                        "production_bound_ms": full_bound[0]}
+                        "production_bound_ms": full_bound[0], "deme_breed_ms": deme_ms,
+                        "kernel": "deme_breed_copy" if copy else "deme_pipelined"}
                 print(json.dumps(line), flush=True)
-                key = "ablate_copy" if copy else "ablate_breed"
+                key = "ablate_copy" if copy else "ablate_stages"
                 entry = results.setdefault(key, {"max_abs_err": 0.0, "cases": {}})
                 entry["max_abs_err"] = max(entry["max_abs_err"], max(errs))
                 entry["cases"][f"{name}-{shape}-{str(dtype)[6:]}"] = {
                     k: line[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms", "production_ms", "production_layout")}
+                                         "library_ms", "production_ms", "production_layout",
+                                         "deme_breed_ms")}
                 if shape == "1M" and dtype == f32 and name in ("copy_riffle", "floor"):
                     entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                 library_ms=library_ms, case=name, shape=[P, L])
+                                 library_ms=library_ms, case=name, shape=[P, L],
+                                 deme_breed_ms=deme_ms)
                 del breed, got, want
 
     # The multi-generation kernel's cases at T = 8, at 1,048,576x100.
@@ -3760,15 +3887,16 @@ def phase_floor_partition(kernels, results):
     launches = dict(kernels.LAUNCHES)
     print(json.dumps({"phase": "floor_stages", "shape": [1 << 20, 100], "medians_ms_per_gen":
                       stages, "launches": launches}), flush=True)
-    for key in ("ablate_copy", "ablate_breed", "ablate_multigen", "ablate_copy_bf16",
-                "ablate_breed_bf16", "ablate_multigen_bf16", "pingpong", "riffle", "multigen",
-                "pingpong_bf16", "multigen_bf16", "deme_pipelined", "deme_pipelined_bf16"):
+    for key in ("ablate_copy", "ablate_pipelined", "ablate_multigen", "ablate_copy_bf16",
+                "ablate_pipelined_bf16", "ablate_multigen_bf16", "multigen", "multigen_bf16",
+                "deme_pipelined", "deme_pipelined_bf16"):
         check(launches[key] > 0, f"floor_partition: {key} never launched ({launches})")
     for rec in records:
         check(all(v == v for v in rec["medians_ms_per_gen"].values()),
               f"floor_partition {rec['pop']} {rec['dtype']}: a median rests on no sample")
-    for key in ("ablate_copy", "ablate_breed", "ablate_multigen"):
-        results[key]["launches"] = launches[key]
+    for key, counter in (("ablate_copy", "ablate_copy"), ("ablate_stages", "ablate_pipelined"),
+                         ("ablate_multigen", "ablate_multigen")):
+        results[key]["launches"] = launches[counter]
     results["partition"] = records
 
 
@@ -3866,8 +3994,8 @@ def phase_hook_floor_compare(fs, kernels, device, results, rows=HOOK_FLOOR_ROWS,
             prod_ms = cuda_ms(lambda: fs.multigen_breed(g, s, geom, 0, T, None, seed=seed, out=out,
                                                         work=work, **prod.kw), 5)
             route = mg_route(kernels, geom, torch.float32, prod.kw)
-            builtin = not order and program is None  # the builtin uniform kernel's route
-            check(route["route"] == ("cluster" if builtin else "one_block"),
+            # Uniform crossover takes the cluster schedule, hooks or not.
+            check(route["route"] == ("one_block" if order else "cluster"),
                   f"hook floor {row}: {route}")
         else:
             ranks = fs.compute_ranks(s, geom, 0, fs.draw_tie_words(gen, geom.Pp, device))
@@ -4542,9 +4670,15 @@ def shard_solver(port, P, L, S, dtype_name="float32", mutate=None, seed=1):
     return pga
 
 
-def shard_key(dtype_name, mutate) -> str:
-    """The counter of a sharded run's launch: the island breed's."""
-    return ("islands_expr" if mutate else "islands") + ("_bf16" if dtype_name == "bfloat16" else "")
+def shard_key(kernels, geom, dtype_name, mutate) -> str:
+    """The counter of a sharded run's launch: the island breed's (the
+    builtin hooks: deme_pipelined_kernel's where a cluster holds the
+    shard's deme)."""
+    import torch
+
+    if not mutate:
+        return deme_key(kernels, geom, getattr(torch, dtype_name), islands=True)
+    return "islands_expr" + ("_bf16" if dtype_name == "bfloat16" else "")
 
 
 def phase_shard_compare(port, fs, kernels, device, results):
@@ -4565,7 +4699,7 @@ def phase_shard_compare(port, fs, kernels, device, results):
         check(pga.sharded_kernel_route(P // S, L), f"shards {name}: not on the kernel route")
         step, _ = pga._sharded_local_step(P // S, L)
         geom, kw = step.breed.geom, step.breed.kw
-        key = shard_key(dtype_name, mutate)
+        key = shard_key(kernels, geom, dtype_name, mutate)
         if mutate:
             key = expr_counter(kernels, key, op_program(kw["mutate"]), geom, dtype, kw["mutate"])
         pipelined = "expr_pipelined" in key
@@ -4592,6 +4726,11 @@ def phase_shard_compare(port, fs, kernels, device, results):
                 against_expr_breed(injected, fs.deme_breed(g, ranks, geom, parity, draws=draws,
                                                            islands=S, pipelined=False, **kw),
                                    False, f"{tag} injected")
+            else:
+                same_deme_kernels(fs, got, g, ranks, geom, parity, f"{tag} philox", seed=seeds,
+                                  islands=S, **kw)
+                same_deme_kernels(fs, injected, g, ranks, geom, parity, f"{tag} injected",
+                                  draws=draws, islands=S, **kw)
             want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
             torch.cuda.synchronize()
             for mode, out in (("philox", got), ("injected", injected)):
@@ -4605,6 +4744,8 @@ def phase_shard_compare(port, fs, kernels, device, results):
         step_ms = cuda_ms(lambda: step(g, s, 0, gen), 20)
         old_ms = cuda_ms(lambda: fs.deme_breed(g, ranks, geom, 0, seed=seeds, islands=S, out=out,
                                                pipelined=False, **kw), 20) if pipelined else None
+        deme_ms = None if mutate else cuda_ms(lambda: kernels.deme_breed_cuda(
+            g, ranks, geom, 0, seed=seeds, islands=S, out=out, pipelined=False, **kw), 20)
         plain_ms = cuda_ms(lambda: fs.deme_breed_reference(g, ranks, geom, 0, draws, **kw), 2)
         one = fs.resolve_geometry(P, L, gene_dtype=dtype)
         g1, out1 = g.view(P, L), out.view(P, L)
@@ -4618,7 +4759,8 @@ def phase_shard_compare(port, fs, kernels, device, results):
                 "max_abs_err": max(errs), "score_atol": SCORE_ATOL, "ms": ms, "step_ms": step_ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms * S, "bound_by": bound_by,
                 "unsharded_ms": unsharded_ms, "unsharded_layout": one.layout,
-                "unsharded_D": one.D, "counter": key, "expr_breed_ms": old_ms}
+                "unsharded_D": one.D, "counter": key, "expr_breed_ms": old_ms,
+                "deme_breed_ms": deme_ms}
         print(json.dumps(line), flush=True)
         results[name] = line
         port.pga_deinit(pga)
@@ -4703,7 +4845,8 @@ def phase_shard_run(port, fs, kernels, device, results):
     for name, S, dtype_name, mutate in [("S1-f32", 1, "float32", None), *SHARD_CASES]:
         pga = shard_solver(port, P, L, S, dtype_name, mutate)
         seconds, launches, start_best, best = timed(pga, SHARD_RUN_GENS, f"shard run {name}")
-        key = pga._deme_geometry(P, L).layout if S == 1 else results[name]["counter"]
+        key = (deme_key(kernels, pga._deme_geometry(P, L)) if S == 1
+               else results[name]["counter"])
         check(launches == {key: SHARD_RUN_GENS}, f"shard run {name}: launches {launches}")
         ms_per_gen = 1e3 * seconds / SHARD_RUN_GENS
         line = {"phase": "shard_run", "case": name, "shape": [P, L], "shards": S,
@@ -4723,7 +4866,8 @@ def phase_shard_run(port, fs, kernels, device, results):
     pga = shard_solver(port, P, L, S)
     giant_err = shard_giant_check(port, fs, pga, P, L, S, device)
     seconds, launches, start_best, best = timed(pga, SHARD_GIANT_GENS, "shard giant")
-    check(launches == {"islands": SHARD_GIANT_GENS}, f"shard giant: launches {launches}")
+    giant = shard_key(kernels, pga._sharded_local_step(P // S, L)[0].breed.geom, "float32", None)
+    check(launches == {giant: SHARD_GIANT_GENS}, f"shard giant: launches {launches}")
     print(json.dumps({"phase": "shard_run", "case": "giant-S8", "shape": [P, L], "shards": S,
                       "gens": SHARD_GIANT_GENS, "launches": launches, "checked_shards": [0, S - 1],
                       "genomes_equal": True, "max_abs_err": giant_err,
@@ -4794,13 +4938,15 @@ def b10_entries(b10_results, lines) -> list:
     })
     for case, key, _ in ABLATE_COMBOS:
         # One entry a combination: its ms beside its production launch;
-        # launches of its kernel bitmask from subblock_floor_partition.
+        # launches of its kernel bitmask from subblock_floor_partition. At
+        # B = 1 the pipelined kernel's combinations replace _deme_child's.
         r = lines[case]
+        replaces = ABLATE_COMBO_REPLACES[
+            "ablate_breed" if key == "ablate_pipelined" and r["B"] == 1 else key]
         entries.append({
             "name": f"{key}[{case}]", "route": "cuda",
             "source": "libpga_tpu_torch/csrc/deme_breed.cu",
-            "replaces": ABLATE_COMBO_REPLACES[key][0],
-            "also_replaces": ABLATE_COMBO_REPLACES[key][1],
+            "replaces": replaces[0], "also_replaces": replaces[1],
             "launches": mask_launches.get((key, r["mask"]), 0),
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
@@ -4929,12 +5075,15 @@ def drive(torch, port, onemax, fs, kernels) -> int:
 
     entries = []
     for layout, r in results.items():
+        # PGA.run's B = 1 launch: deme_pipelined_kernel, deme_breed_kernel's
+        # time of the same call beside it.
         entries.append({
-            "name": f"deme_breed[{layout}]", "route": "cuda",
+            "name": f"deme_pipelined[{layout}]", "route": "cuda",
             "source": "libpga_tpu_torch/csrc/deme_breed.cu",
             "replaces": REPLACES[layout], "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "C": r["C"], "deme_breed_ms": r["deme_breed_ms"],
             "fused_objective_rel_err": r["fused_objective_rel_err"],
         })
     for layout, r in mg_results.items():
@@ -5003,7 +5152,8 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "shape": r["shape"], "layout": r["layout"], "steps": EXPR_MG_T,
-            "schedule": "one_block", "ms_at_1_step": r["ms_at_1_step"], "ms_per_gen": r["ms_per_gen"],
+            "schedule": r["schedule"], "C": r["C"], "one_block_ms": r["one_block_ms"],
+            "ms_at_1_step": r["ms_at_1_step"], "ms_per_gen": r["ms_per_gen"],
             "one_per_launch_ms_per_gen": r["one_per_launch_ms_per_gen"],
             "device_busy_share": r["device_busy_share"], "best": r["best"],
         })
@@ -5029,14 +5179,15 @@ def drive(torch, port, onemax, fs, kernels) -> int:
         # ms, plain_ms, bound and loop_ms at the kernel's first case;
         # launches from the island run at that shape.
         entries.append({
-            "name": f"{kernel}[islands]", "route": "cuda",
-            "source": "libpga_tpu_torch/csrc/deme_breed.cu",
+            "name": ("deme_pipelined[islands,b1]" if kernel == "deme_breed"
+                     else f"{kernel}[islands]"),
+            "route": "cuda", "source": "libpga_tpu_torch/csrc/deme_breed.cu",
             "replaces": ISLAND_REPLACES[kernel][0], "also_replaces": ISLAND_REPLACES[kernel][1],
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "loop_ms": r["loop_ms"], "library_ms": None, "case": r["case"], "shape": r["shape"],
             "steps": r["steps"], "rank_ms": r.get("rank_ms"), "schedule": r.get("schedule"),
-            "one_block_ms": r.get("one_block_ms"),
+            "one_block_ms": r.get("one_block_ms"), "deme_breed_ms": r.get("deme_breed_ms"),
             "other_cases": r.get("other_cases", {}),
         })
     for name, r in bf16_results.items():
@@ -5045,8 +5196,10 @@ def drive(torch, port, onemax, fs, kernels) -> int:
         # same shape in this call.
         if name not in BF16_REPLACES:
             continue
+        counter = r.get("counter", "expr_bf16")
         entries.append({
-            "name": name.replace("expr_breed", EXPR_ENTRY[r.get("counter", "expr_bf16")]),
+            "name": name.replace("expr_breed", EXPR_ENTRY.get(counter, "expr_breed")).replace(
+                "deme_breed", "deme_pipelined" if "deme_pipelined" in counter else "deme_breed"),
             "route": "cuda",
             "source": "libpga_tpu_torch/csrc/" + (
                 "expr_breed.cu" if name.startswith("expr") else "deme_breed.cu"),
@@ -5056,7 +5209,7 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "library_ms": None, "gene_dtype": "bfloat16", "shape": r["shape"],
             "layout": r["layout"], "K": r["K"], "D": r["D"], "steps": r["steps"],
             "f32_ms": r["f32_ms"], "f32_bound_ms": r["f32_bound_ms"], "loop_ms": r.get("loop_ms"),
-            "expr_breed_ms": r.get("expr_breed_ms"),
+            "expr_breed_ms": r.get("expr_breed_ms"), "deme_breed_ms": r.get("deme_breed_ms"),
             "schedule": r.get("schedule"), "one_block_ms": r.get("one_block_ms"),
             "gens_per_s": r["gens_per_s"], "f32_gens_per_s": r["f32_gens_per_s"],
             "device_busy_share": r.get("device_busy_share"),
@@ -5073,23 +5226,28 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "loop_ms": r["loop_ms"], "shape": r["shape"],
-            "expr_breed_ms": r["expr_breed_ms"],
-            "schedule": r["schedule"], "steps": r["steps"], "gene_dtype": r["gene_dtype"], "layout": r["layout"],
+            "expr_breed_ms": r["expr_breed_ms"], "one_block_ms": r["one_block_ms"],
+            "schedule": r["schedule"], "steps": r["steps"], "gene_dtype": r["gene_dtype"],
+            "layout": r["layout"],
             "K": r["K"], "D": r["D"], "chain_steps": r["chain_steps"],
             "gens_per_s": r["gens_per_s"], "single_gens_per_s": r["single_gens_per_s"],
             "device_busy_share": r["device_busy_share"],
         })
-    for name in ("ablate_copy", "ablate_breed", "ablate_multigen"):
+    for name, key in (("ablate_copy", "ablate_copy"), ("ablate_pipelined[b1]", "ablate_stages"),
+                      ("ablate_multigen", "ablate_multigen")):
         # ms, plain_ms and the bound: copy_riffle, floor and no_freeze (T = 8)
-        # at 1,048,576x100 float32; launches from floor_partition.
-        r = floor_results[name]
+        # at 1,048,576x100 float32; launches from floor_partition. The stage
+        # cases at B = 1 follow the route to deme_pipelined_kernel's harness
+        # unit, deme_breed_kernel's case of the same call beside them.
+        r = floor_results[key]
         entries.append({
             "name": name, "route": "cuda", "source": "libpga_tpu_torch/csrc/deme_breed.cu",
-            "replaces": FLOOR_REPLACES[name][0], "also_replaces": FLOOR_REPLACES[name][1],
+            "replaces": FLOOR_REPLACES[key][0], "also_replaces": FLOOR_REPLACES[key][1],
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "case": r["case"], "shape": r["shape"],
-            "steps": r.get("steps", 1), "cases": r["cases"],
+            "steps": r.get("steps", 1), "deme_breed_ms": r.get("deme_breed_ms"),
+            "cases": r["cases"],
         })
     for name, (replaces, also, _) in HOOK_FLOOR_ENTRIES.items():
         # ms, plain_ms and the bound: the row-case HOOK_FLOOR_ENTRIES names
@@ -5137,7 +5295,8 @@ def drive(torch, port, onemax, fs, kernels) -> int:
         # from the case's shard_run.
         r = shard_results[name]
         entries.append({
-            "name": f"{EXPR_ENTRY[r['counter']] if mutate else 'deme_breed'}[shards,{name}]",
+            "name": (EXPR_ENTRY[r["counter"]] if mutate else "deme_pipelined"
+                     if "deme_pipelined" in r["counter"] else "deme_breed") + f"[shards,{name}]",
             "route": "cuda",
             "source": "libpga_tpu_torch/csrc/" + ("expr_breed.cu" if mutate else "deme_breed.cu"),
             "replaces": SHARD_REPLACES[0], "also_replaces": SHARD_REPLACES[1],
@@ -5146,6 +5305,7 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "library_ms": None, "shape": r["shape"], "shards": r["shards"],
             "gene_dtype": r["gene_dtype"], "K": r["K"], "D": r["D"], "step_ms": r["step_ms"],
             "unsharded_ms": r["unsharded_ms"], "expr_breed_ms": r["expr_breed_ms"],
+            "deme_breed_ms": r["deme_breed_ms"],
             "gens_per_s": r["run"]["gens_per_s"],
             "unsharded_gens_per_s": shard_results["S1-f32"]["run"]["gens_per_s"],
             "device_busy_share": r["run"].get("device_busy_share"),

@@ -1124,22 +1124,16 @@ __global__ void __launch_bounds__(PIPE_THREADS, 1) deme_pipelined_kernel(
 // (multigen_breed_kernel<true>) keep the one-block schedule above: the route
 // is decided from the shape before any launch (kernels.multigen_breed_cuda),
 // and a cluster launch of a shape no cluster holds fails. The expression
-// kernel (expr_breed.cu) keeps the one-block schedule everywhere: a cluster
-// version with one warp a child through the hooks measured slower than it
-// (PERF.md section 5).
+// kernel (expr_breed.cu, expr_multigen_kernel<false>) runs this schedule with
+// the eight-lane expression child where its plan (expr_plan.cuh) holds the
+// group; a first version with one warp a child through the hooks measured
+// slower than the one-block schedule (PERF.md section 5).
 //
 // Bound: the one-block schedule's (the population and its scores read once
 // and written once). The floor harness's cases (ABL_NO_FREEZE,
 // ABL_NO_RANK_CUBE: each deme's rank r is slot r; the stage bits, with
 // deme_pipelined_kernel's meaning) run on this schedule wherever the plan
 // holds the group.
-
-// Gaussian mutation of gene l of child k of deme g in sub-generation t, out
-// of the breed's loop (pipe_gauss's reason).
-__device__ __noinline__ float mg_gauss(BreedCtx cx, Draws dr, float x, int k, int g, uint32_t t,
-                                       int l, size_t child) {
-  return gauss_mutate(cx, dr, x, k, g, t, l, child, true);
-}
 
 template <bool ORDER, class Gene, unsigned ABLATE = 0u>
 __global__ void __launch_bounds__(MGC_THREADS, 1) multigen_breed_kernel(

@@ -4,8 +4,10 @@
 // 8 lanes a child: the route of every shape its plan holds, see its
 // section), expr_order_kernel (the order-crossover case) and, at the end of
 // this file, expr_multigen_kernel (up to T generations per launch, B6 x B4,
-// uniform or order crossover); one build of a hook set serves all four: the
-// crossover kind and the schedule are runtime arguments. ops/expr_cuda.py
+// uniform or order crossover, on one block a group or, with the pipelined
+// kernel's eight-lane child, on a thread-block cluster); one build of a hook
+// set serves all four: the crossover kind and the schedule are runtime
+// arguments. ops/expr_cuda.py
 // writes the hooks (expr_crossover, expr_mutate, expr_objective and the
 // objective's eight-lane form expr_objective8) and the macros EXPR_CROSS,
 // EXPR_MUT, EXPR_OBJ, EXPR_OBJ_ROWS, EXPR_OBJ_CHILD, EXPR_GENE_STREAMS and
@@ -460,12 +462,12 @@ __global__ void __launch_bounds__(THREADS) expr_breed_kernel(
 // deme_breed_kernel's); the harness and extra units instantiate its cases as
 // they do expr_breed_kernel's (dispatch_expr_ablate).
 
-// Plane j of genes l0 .. l0 + 3 (Philox call `call` of the plane), for the
-// planes in STREAMS, else 0.
+// Plane j of genes l0 .. l0 + 3 in sub-generation t (Philox call `call` of
+// the plane), for the planes in STREAMS, else 0.
 template <unsigned STREAMS>
 __device__ __forceinline__ void pipe_gene_draws(const BreedCtx& cx, const ExprDraws& ex, int k,
-                                                int g, uint32_t call, size_t child, int l0,
-                                                float (&v)[4][4]) {
+                                                int g, uint32_t t, uint32_t call, size_t child,
+                                                int l0, float (&v)[4][4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
 #pragma unroll
@@ -473,7 +475,7 @@ __device__ __forceinline__ void pipe_gene_draws(const BreedCtx& cx, const ExprDr
     if (!((STREAMS >> j) & 1u)) continue;
     if (cx.philox_mode) {
       const uint4 w =
-          philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_EXPR_GENE + ((uint32_t)j << 22) + call, 0u));
+          philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_EXPR_GENE + ((uint32_t)j << 22) + call, t));
       v[j][0] = to_uniform(w.x);
       v[j][1] = to_uniform(w.y);
       v[j][2] = to_uniform(w.z);
@@ -485,16 +487,50 @@ __device__ __forceinline__ void pipe_gene_draws(const BreedCtx& cx, const ExprDr
   }
 }
 
-// ROWED: each child in flight keeps its own row in shared memory (the
-// objective reads it back, EXPR_OBJ_CHILD, or a builtin swap re-scores it);
-// a template parameter, so that the breed's loop has one path: a runtime
-// choice between the two spilled 88 bytes of its 128 registers.
-template <class Gene, unsigned ABLATE, bool ROWED>
-__global__ void __launch_bounds__(PIPE_THREADS, 1) expr_pipelined_kernel(
-    const Gene* __restrict__ gin, Gene* __restrict__ gout, float* __restrict__ sout,
-    const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr0, ExprDraws ex0,
-    const float* __restrict__ cb, Geometry geo, Selection sel, int mutate, int obj,
-    ExprPipePlan plan) {
+// A child's two parent rows, as the caller's selection gives them, the row
+// it is written to, and where its score goes: `score` (nullptr where nothing
+// is scored), -inf in place of the score where `real` is false (a pad row).
+template <class Gene>
+struct ChildRows {
+  const Gene* p1;
+  const Gene* p2;
+  Gene* out;
+  float* score;
+  bool real;
+};
+
+// The eight-lane expression child, which expr_pipelined_kernel and
+// expr_multigen_kernel<false>'s cluster schedule both breed: lane group h of
+// the warp breeds child k of deme g in sub-generation t (`child` = g*K + k
+// indexes the injected draws, `dr` and `ex` at sub-generation t), its
+// sub-lane jl four genes at a time (128*tile + 32*it + 4*jl + 0..3; L, the
+// genome length, a multiple of 4), the child in registers. Sub-lanes 0-3
+// make the selection, mutation, first crossover and row-word calls (counter
+// (k, g, stream, t)); a sub-lane's four genes of a chunk are the four words
+// of Philox call 32*tile + 8*it + jl of each expression plane, so it
+// computes its own calls with no shuffle. rows(su0, su1) gives the two
+// parent rows from the selection draws, the child's row `out` and where its
+// score goes (ChildRows), asked for after the draws so that none of them is
+// live across their Philox calls.
+// The crossover hook, else uniform crossover's bits; the mutation hook, else
+// point / gaussian / swap; each gene rounded to the gene type and stored to
+// `out`; then the score: the objective hook's eight-lane form
+// (expr_objective8; its first stage fused into the breed unless ROWED, when
+// its stages read the child back from its float row; its materialised rows
+// in `erows`) or the builtin rowwise objective `obj`, summed in warp_sum's
+// order (pipe_sum4). OWN_ROW: the child is also written to `crow`, its own
+// float row; else `out` is its float row (float genes), or none is read.
+// elite (the multi-generation kernel's k < elitism): the child is its
+// parent verbatim, no hook run on it, unless SAME (sel_const, no_matmul:
+// then crossed from slot k alone); either way it is not mutated. The group's
+// first lane (jl == 0) stores the score here: returned to the caller, it
+// cost expr_pipelined_kernel 10 more registers and 4% at creep 1M (PERF.md
+// section 5).
+template <class Gene, unsigned ABLATE, bool ROWED, bool OWN_ROW, class Rows>
+__device__ __forceinline__ void expr_child8(
+    const BreedCtx& cx, const Draws& dr, const ExprDraws& ex, const float* __restrict__ cb, int L,
+    int k, int g, uint32_t t, size_t child, int mutate, int obj, bool elite, float* crow,
+    float* erows, const Rows& rows) {
   constexpr bool SAME = (ABLATE & (ABL_SEL_CONST | ABL_NO_GATHER)) != 0u;
   constexpr bool DRAWS_SEL = !(ABLATE & ABL_SEL_CONST);
   constexpr bool CROSSES = !(ABLATE & ABL_NO_CROSS);
@@ -510,6 +546,214 @@ __global__ void __launch_bounds__(PIPE_THREADS, 1) expr_pipelined_kernel(
   // crossover tile, 3 the row words).
   constexpr unsigned CALLS = (DRAWS_SEL ? 1u : 0u) | (BUILTIN_MUT ? 2u : 0u) |
                              (BITS ? 4u : 0u) | (ROW_STREAMS ? 8u : 0u);
+  const int lane = threadIdx.x & 31, jl = lane % PIPE_LANES, lead = lane - jl;
+  const bool copy = elite && !SAME;  // the parent verbatim: no hook, no mutation
+  (void)cb;
+  (void)ex;
+  (void)crow;
+  (void)erows;
+  (void)copy;
+  float su0 = 0.0f, su1 = 0.0f, mu0 = 0.0f, mu1 = 0.0f, mu2 = 0.0f;
+  float xq[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // crossover q, q2, mutation q, q2
+  uint4 w = make_uint4(0u, 0u, 0u, 0u);
+  if (cx.philox_mode) {
+    if (jl < 4 && ((CALLS >> jl) & 1u))
+      w = philox(cx.k0, cx.k1, make_uint4(k, g, jl == 3 ? STREAM_EXPR_ROW : (uint32_t)jl, t));
+    if constexpr (DRAWS_SEL) {
+      su0 = to_uniform(__shfl_sync(FULL, w.x, lead));
+      su1 = to_uniform(__shfl_sync(FULL, w.y, lead));
+    }
+    if constexpr (BUILTIN_MUT) {
+      mu0 = to_uniform(__shfl_sync(FULL, w.x, lead + 1));
+      mu1 = to_uniform(__shfl_sync(FULL, w.y, lead + 1));
+      mu2 = to_uniform(__shfl_sync(FULL, w.z, lead + 1));
+    }
+    if constexpr (ROW_STREAMS != 0u) {
+      xq[0] = to_uniform(__shfl_sync(FULL, w.x, lead + 3));
+      xq[1] = to_uniform(__shfl_sync(FULL, w.y, lead + 3));
+      xq[2] = to_uniform(__shfl_sync(FULL, w.z, lead + 3));
+      xq[3] = to_uniform(__shfl_sync(FULL, w.w, lead + 3));
+    }
+    if constexpr (BITS) {
+      w = make_uint4(__shfl_sync(FULL, w.x, lead + STREAM_CROSS),
+                     __shfl_sync(FULL, w.y, lead + STREAM_CROSS),
+                     __shfl_sync(FULL, w.z, lead + STREAM_CROSS),
+                     __shfl_sync(FULL, w.w, lead + STREAM_CROSS));
+    }
+  } else {
+    if constexpr (DRAWS_SEL) {
+      su0 = dr.sel_u[child * 2];
+      su1 = dr.sel_u[child * 2 + 1];
+    }
+    if constexpr (BUILTIN_MUT) {
+      mu0 = dr.mut_u[child * 4];
+      mu1 = dr.mut_u[child * 4 + 1];
+      mu2 = dr.mut_u[child * 4 + 2];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if ((ROW_STREAMS >> j) & 1u) xq[j] = ex.row[child * 4 + j];
+  }
+  const ChildRows<Gene> cr = rows(su0, su1);
+  const Gene* p1 = cr.p1;
+  const Gene* p2 = cr.p2;
+  Gene* out = cr.out;
+  if constexpr (!OWN_ROW) crow = reinterpret_cast<float*>(out);
+  const int pos = (int)floorf(mu0 * (float)L);
+  const int pj = (int)floorf(mu1 * (float)L);
+  const bool fire =
+      BUILTIN_MUT && !elite && (mutate == MUT_SWAP ? mu2 < cx.rate : mu1 < cx.rate);
+#if EXPR_OBJ
+  ExprAcc8 acc[1];
+  expr_obj8_begin(acc[0]);
+#endif
+  // The builtin objective's partials (ackley's cosine sums in e), one a
+  // warp-lane position 4*jl + i.
+  float a[4], e[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = e[i] = 0.0f;
+  auto add4 = [&](const float (&x)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (obj == OBJ_ONEMAX) {
+        a[i] += x[i];
+      } else {
+        const float2 d = pipe_terms(obj, x[i]);
+        a[i] += d.x;
+        e[i] += d.y;
+      }
+    }
+  };
+
+  // Cross, mutate, round, store and score the child, 128 genes (one
+  // crossover call) a tile, four a lane a step.
+  for (int tile = 0; 128 * tile < L; ++tile) {
+    if (BITS && cx.philox_mode && tile > 0)
+      w = philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_CROSS + tile, t));
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int l0 = 128 * tile + 32 * it + 4 * jl;
+      if (l0 >= L) continue;
+      float x[4];
+      load4(p1 + l0, x);
+      float gd[4][4];
+      pipe_gene_draws<GENE_STREAMS>(cx, ex, k, g, t, 32u * tile + 8u * it + jl, child, l0, gd);
+      if constexpr (CROSSES) {
+        float y[4];
+        load4(p2 + l0, y);
+#if EXPR_CROSS
+        if (!copy) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            x[i] = expr_crossover(x[i], y[i], gd[0][i], gd[1][i], xq[0], xq[1], l0 + i, L, cb);
+        }
+#else
+        uint32_t bits;  // gene l0 + i takes p2's gene where bit i is set
+        if (cx.philox_mode) {
+          bits = (it == 0 ? w.x : it == 1 ? w.y : it == 2 ? w.z : w.w) >> (4 * jl);
+        } else {
+          const uint32_t u = *reinterpret_cast<const uint32_t*>(dr.cross + child * L + l0);
+          bits = ((u & 0xffu) != 0u) | (((u >> 8) & 0xffu) != 0u) << 1 |
+                 (((u >> 16) & 0xffu) != 0u) << 2 | ((u >> 24) != 0u) << 3;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if ((bits >> i) & 1u) x[i] = y[i];
+#endif
+      }
+      if constexpr (MUTATES) {
+#if EXPR_MUT
+        if (!elite) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            x[i] = expr_mutate(x[i], gd[2][i], gd[3][i], xq[2], xq[3], l0 + i, L, cx.rate,
+                               cx.sigma, cb);
+        }
+#else
+        if (mutate == MUT_POINT) {
+          if (fire && (unsigned)(pos - l0) < 4u) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (l0 + i == pos) x[i] = mu2;
+          }
+        } else if (mutate == MUT_GAUSSIAN && !elite) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) x[i] = mg_gauss(cx, dr, x[i], k, g, t, l0 + i, child);
+        }
+#endif
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = round_gene<Gene>(x[i]);
+      store4(out + l0, x);
+#if EXPR_OBJ
+      if constexpr (ROWED) {
+        if constexpr (OWN_ROW) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) crow[l0 + i] = x[i];
+        }
+      } else {
+        expr_obj8_genes(acc[0], x, l0, L, crow, erows, cb);
+      }
+#else
+      if (obj != OBJ_NONE) add4(x);
+#endif
+    }
+  }
+  if (BUILTIN_MUT && mutate == MUT_SWAP) {
+    const bool swap = fire && pos < L && pj < L;
+    __syncwarp();
+    if (swap && jl == 0) {
+      const Gene x = out[pos], y = out[pj];
+      out[pos] = y;
+      out[pj] = x;
+#if EXPR_OBJ
+      if constexpr (ROWED && OWN_ROW) {
+        const float u = crow[pos];
+        crow[pos] = crow[pj];
+        crow[pj] = u;
+      }
+#endif
+    }
+    __syncwarp();
+#if !EXPR_OBJ
+    if (swap && obj != OBJ_NONE) {
+      // The score is of the child as written: sum again after the swap.
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = e[i] = 0.0f;
+      for (int l0 = 4 * jl; l0 < L; l0 += 32) {
+        float x[4];
+        load4(out + l0, x);
+        add4(x);
+      }
+    }
+#endif
+  }
+#if EXPR_OBJ
+  if constexpr (ROWED) __syncwarp();  // the child's row is whole
+  const float score = expr_objective8<!ROWED>(acc, crow, erows, L, jl, cb);
+  if (jl == 0) *cr.score = cr.real ? score : -INFINITY;
+  __syncwarp();  // the next child overwrites the group's rows
+#else
+  if (obj != OBJ_NONE) {
+    const float sa = pipe_sum4(a);
+    float se = 0.0f;  // ackley's cosine sum; no other objective has a second
+    if (obj == OBJ_ACKLEY) se = pipe_sum4(e);
+    if (jl == 0) *cr.score = cr.real ? obj_finish(obj, sa, se, L) : -INFINITY;
+  }
+#endif
+}
+
+// ROWED: each child in flight keeps its own row in shared memory (the
+// objective reads it back, EXPR_OBJ_CHILD, or a builtin swap re-scores it);
+// a template parameter, so that the breed's loop has one path: a runtime
+// choice between the two spilled 88 bytes of its 128 registers.
+template <class Gene, unsigned ABLATE, bool ROWED>
+__global__ void __launch_bounds__(PIPE_THREADS, 1) expr_pipelined_kernel(
+    const Gene* __restrict__ gin, Gene* __restrict__ gout, float* __restrict__ sout,
+    const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr0, ExprDraws ex0,
+    const float* __restrict__ cb, Geometry geo, Selection sel, int mutate, int obj,
+    ExprPipePlan plan) {
+  constexpr bool SAME = (ABLATE & (ABL_SEL_CONST | ABL_NO_GATHER)) != 0u;
   namespace cg = cooperative_groups;
   extern __shared__ __align__(16) unsigned char pipe_smem[];
   const cg::cluster_group cluster = cg::this_cluster();
@@ -523,212 +767,36 @@ __global__ void __launch_bounds__(PIPE_THREADS, 1) expr_pipelined_kernel(
   const Draws dr = island_draws(dr0, geo, 1);
   const ExprDraws ex = island_expr_draws(ex0, geo, 1);
   const BreedCtx cx = breed_ctx(dr, mparams, geo, mutate, obj);
-  (void)cb;
-  (void)ex;
-  // Lane group h of the warp breeds one child, its sub-lane jl four genes at
-  // a time (4*jl + 0..3, + 32, ...).
-  const int h = lane / PIPE_LANES, jl = lane % PIPE_LANES, lead = h * PIPE_LANES;
+  const bool scored = EXPR_OBJ || obj != OBJ_NONE;
+  // Lane group h of the warp breeds one child.
+  const int h = lane / PIPE_LANES;
+  float* crow = nullptr;  // the child's rows in shared memory (expr_plan.cuh): its own
+  float* erows = nullptr;  // where ROWED, then the objective's
 #if EXPR_OBJ
-  // The child's rows in shared memory (expr_plan.cuh): its own where ROWED,
-  // then the objective's.
-  float* crow = reinterpret_cast<float*>(pipe_smem + plan.rows_at) +
-                (size_t)(warp * PIPE_KIDS + h) * plan.stride;
-  float* erows = crow + (ROWED ? L : 0);
+  crow = reinterpret_cast<float*>(pipe_smem + plan.rows_at) +
+         (size_t)(warp * PIPE_KIDS + h) * plan.stride;
+  erows = crow + (ROWED ? L : 0);
 #endif
 
   auto breed = [&](int g, const Gene* staged, const int* row_of_rank, float V, const RowMap& wr) {
     for (int k0 = c * R + warp * PIPE_KIDS; k0 < (c + 1) * R; k0 += PIPE_WARPS * PIPE_KIDS) {
       const int k = k0 + h;
-      const size_t child = (size_t)g * K + k;
-      float su0 = 0.0f, su1 = 0.0f, mu0 = 0.0f, mu1 = 0.0f, mu2 = 0.0f;
-      float xq[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // crossover q, q2, mutation q, q2
-      uint4 w = make_uint4(0u, 0u, 0u, 0u);
-      if (cx.philox_mode) {
-        if (jl < 4 && ((CALLS >> jl) & 1u))
-          w = philox(cx.k0, cx.k1, make_uint4(k, g, jl == 3 ? STREAM_EXPR_ROW : (uint32_t)jl, 0u));
-        if constexpr (DRAWS_SEL) {
-          su0 = to_uniform(__shfl_sync(FULL, w.x, lead));
-          su1 = to_uniform(__shfl_sync(FULL, w.y, lead));
-        }
-        if constexpr (BUILTIN_MUT) {
-          mu0 = to_uniform(__shfl_sync(FULL, w.x, lead + 1));
-          mu1 = to_uniform(__shfl_sync(FULL, w.y, lead + 1));
-          mu2 = to_uniform(__shfl_sync(FULL, w.z, lead + 1));
-        }
-        if constexpr (ROW_STREAMS != 0u) {
-          xq[0] = to_uniform(__shfl_sync(FULL, w.x, lead + 3));
-          xq[1] = to_uniform(__shfl_sync(FULL, w.y, lead + 3));
-          xq[2] = to_uniform(__shfl_sync(FULL, w.z, lead + 3));
-          xq[3] = to_uniform(__shfl_sync(FULL, w.w, lead + 3));
-        }
-        if constexpr (BITS) {
-          w = make_uint4(__shfl_sync(FULL, w.x, lead + STREAM_CROSS),
-                         __shfl_sync(FULL, w.y, lead + STREAM_CROSS),
-                         __shfl_sync(FULL, w.z, lead + STREAM_CROSS),
-                         __shfl_sync(FULL, w.w, lead + STREAM_CROSS));
-        }
-      } else {
-        if constexpr (DRAWS_SEL) {
-          su0 = dr.sel_u[child * 2];
-          su1 = dr.sel_u[child * 2 + 1];
-        }
-        if constexpr (BUILTIN_MUT) {
-          mu0 = dr.mut_u[child * 4];
-          mu1 = dr.mut_u[child * 4 + 1];
-          mu2 = dr.mut_u[child * 4 + 2];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if ((ROW_STREAMS >> j) & 1u) xq[j] = ex.row[child * 4 + j];
-      }
-      int s1 = k, s2 = k;  // sel_const, no_matmul: child k's parents are slot k
-      if constexpr (!SAME) {
-        s1 = min(max(row_of_rank[winner_rank(winner_fraction(sel, su0), V)], 0), K - 1);
-        s2 = min(max(row_of_rank[winner_rank(winner_fraction(sel, su1), V)], 0), K - 1);
-      }
-      const int orow = wr(k);
-      const int pos = (int)floorf(mu0 * (float)L);
-      const int pj = (int)floorf(mu1 * (float)L);
-      const bool fire = BUILTIN_MUT && (mutate == MUT_SWAP ? mu2 < cx.rate : mu1 < cx.rate);
       // Slot s is row s % R of the buffer of the cluster's block s / R.
-      const int o1 = s1 >> rs, o2 = s2 >> rs;
-      const Gene* p1 = (o1 == c ? staged : cluster.map_shared_rank(staged, o1)) +
-                       (size_t)(s1 & (R - 1)) * L;
-      const Gene* p2 = (o2 == c ? staged : cluster.map_shared_rank(staged, o2)) +
-                       (size_t)(s2 & (R - 1)) * L;
-      Gene* out = gout + (size_t)orow * L;
-#if EXPR_OBJ
-      ExprAcc8 acc[1];
-      expr_obj8_begin(acc[0]);
-#endif
-      // The builtin objective's partials (ackley's cosine sums in e), one a
-      // warp-lane position 4*jl + i.
-      float a[4], e[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = e[i] = 0.0f;
-      auto add4 = [&](const float (&x)[4]) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (obj == OBJ_ONEMAX) {
-            a[i] += x[i];
-          } else {
-            const float2 d = pipe_terms(obj, x[i]);
-            a[i] += d.x;
-            e[i] += d.y;
-          }
+      auto rows = [&](float su0, float su1) {
+        int s1 = k, s2 = k;  // sel_const, no_matmul: child k's parents are slot k
+        if constexpr (!SAME) {
+          s1 = min(max(row_of_rank[winner_rank(winner_fraction(sel, su0), V)], 0), K - 1);
+          s2 = min(max(row_of_rank[winner_rank(winner_fraction(sel, su1), V)], 0), K - 1);
         }
+        const int o1 = s1 >> rs, o2 = s2 >> rs;
+        const int orow = wr(k);
+        return ChildRows<Gene>{
+            (o1 == c ? staged : cluster.map_shared_rank(staged, o1)) + (size_t)(s1 & (R - 1)) * L,
+            (o2 == c ? staged : cluster.map_shared_rank(staged, o2)) + (size_t)(s2 & (R - 1)) * L,
+            gout + (size_t)orow * L, scored ? sout + orow : nullptr, orow < geo.P};
       };
-
-      // Cross, mutate, round, store and score the child, 128 genes (one
-      // crossover call) a tile, four a lane a step.
-      for (int t = 0; 128 * t < L; ++t) {
-        if (BITS && cx.philox_mode && t > 0)
-          w = philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_CROSS + t, 0u));
-#pragma unroll
-        for (int it = 0; it < 4; ++it) {
-          const int l0 = 128 * t + 32 * it + 4 * jl;
-          if (l0 >= L) continue;
-          float x[4];
-          load4(p1 + l0, x);
-          float gd[4][4];
-          pipe_gene_draws<GENE_STREAMS>(cx, ex, k, g, 32u * t + 8u * it + jl, child, l0, gd);
-          if constexpr (CROSSES) {
-            float y[4];
-            load4(p2 + l0, y);
-#if EXPR_CROSS
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              x[i] = expr_crossover(x[i], y[i], gd[0][i], gd[1][i], xq[0], xq[1], l0 + i, L, cb);
-#else
-            uint32_t bits;  // gene l0 + i takes p2's gene where bit i is set
-            if (cx.philox_mode) {
-              bits = (it == 0 ? w.x : it == 1 ? w.y : it == 2 ? w.z : w.w) >> (4 * jl);
-            } else {
-              const uint32_t u = *reinterpret_cast<const uint32_t*>(dr.cross + child * L + l0);
-              bits = ((u & 0xffu) != 0u) | (((u >> 8) & 0xffu) != 0u) << 1 |
-                     (((u >> 16) & 0xffu) != 0u) << 2 | ((u >> 24) != 0u) << 3;
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              if ((bits >> i) & 1u) x[i] = y[i];
-#endif
-          }
-          if constexpr (MUTATES) {
-#if EXPR_MUT
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              x[i] = expr_mutate(x[i], gd[2][i], gd[3][i], xq[2], xq[3], l0 + i, L, cx.rate,
-                                 cx.sigma, cb);
-#else
-            if (mutate == MUT_POINT) {
-              if (fire && (unsigned)(pos - l0) < 4u) {
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-                  if (l0 + i == pos) x[i] = mu2;
-              }
-            } else if (mutate == MUT_GAUSSIAN) {
-#pragma unroll
-              for (int i = 0; i < 4; ++i) x[i] = pipe_gauss(cx, dr, x[i], k, g, l0 + i, child);
-            }
-#endif
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) x[i] = round_gene<Gene>(x[i]);
-          store4(out + l0, x);
-#if EXPR_OBJ
-          if constexpr (ROWED) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) crow[l0 + i] = x[i];
-          } else {
-            expr_obj8_genes(acc[0], x, l0, L, crow, erows, cb);
-          }
-#else
-          if (obj != OBJ_NONE) add4(x);
-#endif
-        }
-      }
-      if (BUILTIN_MUT && mutate == MUT_SWAP) {
-        const bool swap = fire && pos < L && pj < L;
-        __syncwarp();
-        if (swap && jl == 0) {
-          const Gene x = out[pos], y = out[pj];
-          out[pos] = y;
-          out[pj] = x;
-#if EXPR_OBJ
-          if constexpr (ROWED) {
-            const float u = crow[pos];
-            crow[pos] = crow[pj];
-            crow[pj] = u;
-          }
-#endif
-        }
-        __syncwarp();
-#if !EXPR_OBJ
-        if (swap && obj != OBJ_NONE) {
-          // The score is of the child as written: sum again after the swap.
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = e[i] = 0.0f;
-          for (int l0 = 4 * jl; l0 < L; l0 += 32) {
-            float x[4];
-            load4(out + l0, x);
-            add4(x);
-          }
-        }
-#endif
-      }
-#if EXPR_OBJ
-      if constexpr (ROWED) __syncwarp();  // the child's row is whole
-      const float score = expr_objective8<!ROWED>(acc, crow, erows, L, jl, cb);
-      if (jl == 0) sout[orow] = orow < geo.P ? score : -INFINITY;
-      __syncwarp();  // the next child overwrites the group's rows
-#else
-      if (obj != OBJ_NONE) {
-        const float sa = pipe_sum4(a);
-        float se = 0.0f;  // ackley's cosine sum; no other objective has a second
-        if (obj == OBJ_ACKLEY) se = pipe_sum4(e);
-        if (jl == 0) sout[orow] = orow < geo.P ? obj_finish(obj, sa, se, L) : -INFINITY;
-      }
-#endif
+      expr_child8<Gene, ABLATE, ROWED, ROWED>(cx, dr, ex, cb, L, k, g, 0u, (size_t)g * K + k,
+                                              mutate, obj, false, crow, erows, rows);
     }
   };
   pipe_demes(gin, ranks, geo, plan.pipe, pipe_smem, breed);
@@ -912,11 +980,27 @@ __global__ void __launch_bounds__(ORDER_THREADS) expr_order_kernel(
 // statement of the hooks, per sub-generation) stay below that at T = 8 for
 // these expressions (chip_smoke.py's expr_multigen_bound counts them).
 //
-// Design. Parents are read with plain loads (see expr_child). Shared memory
-// holds the group's keys, scores, row_of_rank and alive flags (17 bytes per
-// row) and, after them, each warp's child row and EXPR_OBJ_ROWS objective
-// rows of L floats; the wrapper picks the warp count (up to 32) that fits in
-// 227 KB. Blocks are of up to 1,024 threads, as the builtin kernel's.
+// Two schedules compute that function. Where expr_plan.cuh's expr_mg_plan
+// holds the group (L a multiple of 4, uniform or expression crossover, the
+// group and its children's objective rows within a cluster of at most 8
+// blocks) the route (kernels.expr_multigen_cuda, from the shape before any
+// launch) takes the cluster schedule, the overload after this kernel:
+// multigen_breed_kernel<false>'s (a group held in a cluster's shared memory
+// for the launch, ranks by a merge of warp-sorted runs, one cluster barrier a
+// sub-generation; deme_breed.cu describes it) with expr_pipelined_kernel's
+// eight-lane child (expr_child8). Its first version, a warp a child through
+// the hooks' warp forms, was issue-bound and slower than the one-block
+// schedule at every cell (PERF.md); the eight-lane hooks it lacked came with
+// expr_pipelined_kernel. Elsewhere (order crossover, the
+// knapsack's L = 6, a group no cluster holds) the one-block schedule: one
+// block a group (multigen_group), a warp a child through its shared row.
+//
+// Design of the one-block schedule. Parents are read with plain loads (see
+// expr_child). Shared memory holds the group's keys, scores, row_of_rank and
+// alive flags (17 bytes per row) and, after them, each warp's child row and
+// EXPR_OBJ_ROWS objective rows of L floats; the wrapper picks the warp count
+// (up to 32) that fits in 227 KB. Blocks are of up to 1,024 threads, as the
+// builtin kernel's.
 //
 // Order crossover (expr_multigen_kernel<true>, _multigen_kernel's
 // order_refs, :1548): multigen_group<true> walks every child of the group
@@ -969,6 +1053,86 @@ __global__ void __launch_bounds__(MG_THREADS) expr_multigen_kernel(
     return score;
   };
   multigen_group<ORDER, ABLATE>(io, geo, cx, dr0, sel, elitism, mg_smem, breed_child);
+}
+
+// expr_multigen_kernel<false>'s cluster schedule: the one-block schedule's
+// function (above) on multigen_breed_kernel<false>'s schedule
+// (breed_core.cuh's multigen_cluster, plan expr_mg_plan in expr_plan.cuh):
+// a cluster of plan.mg.C blocks holds a group in shared memory for the whole
+// launch, and each sub-generation breeds the block's children from one copy
+// of the group into the other with the eight-lane expression child
+// (expr_child8: 8 lanes a child, four genes a lane, the hooks' eight-lane
+// forms), its parents read through mg_parent (a peer block's through
+// distributed shared memory), its score into the block's score row. An
+// elite (k < elitism) is its rank-k parent verbatim, no hook run on it (SAME:
+// crossed from slot k alone, unmutated). The expression draws carry the
+// sub-generation t as Philox's fourth counter word; in injected mode the
+// planes and row words are island `st.island`'s at t. The objective's
+// materialised rows are the plan's, a child's at an odd stride; where the
+// objective reads the child back (ROWED) a float child is read from its row
+// of the group's copy and a bf16 one from a float row of its own. Children
+// and scores are the one-block schedule's bit for bit.
+template <bool ORDER, class Gene, unsigned ABLATE, bool ROWED>
+__global__ void __launch_bounds__(MGC_THREADS, 1) expr_multigen_kernel(
+    MultigenIO<Gene> io, const float* __restrict__ mparams, Draws dr0, ExprDraws ex0,
+    const float* __restrict__ cb, Geometry geo, Selection sel, int mutate, int obj, int elitism,
+    int draw_steps, int islands, ExprMgPlan plan) {
+  static_assert(!ORDER, "order crossover breeds on the one-block schedule");
+  constexpr bool SAME = (ABLATE & (ABL_SEL_CONST | ABL_NO_GATHER)) != 0u;
+  constexpr bool BITS = !(ABLATE & ABL_NO_CROSS) && !EXPR_CROSS;
+  constexpr bool OWN_ROW = ROWED && !std::is_same_v<Gene, float>;
+  extern __shared__ __align__(16) unsigned char pipe_smem[];
+  const int K = geo.K, L = geo.L;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, h = lane / PIPE_LANES;
+  const size_t GK = (size_t)geo.G * K;
+  float* crow = nullptr;   // a bf16 child's own float row (OWN_ROW)
+  float* erows = nullptr;  // then the objective's materialised rows
+#if EXPR_OBJ
+  crow = reinterpret_cast<float*>(pipe_smem + plan.rows_at) +
+         (size_t)(warp * PIPE_KIDS + h) * plan.stride;
+  erows = crow + (OWN_ROW ? L : 0);
+#endif
+
+  auto breed = [&](const MgStep<Gene>& st, const cg::cluster_group& cl) {
+    ExprDraws ex = ex0;
+    if (!st.cx.philox_mode) {
+      const size_t at = (size_t)st.island * draw_steps + st.t;
+      if (ex.gene) ex.gene += at * 4 * GK * L;
+      if (ex.row) ex.row += at * GK * 4;
+    }
+    for (int x0 = warp * PIPE_KIDS; x0 < st.R; x0 += MGC_THREADS / 32 * PIPE_KIDS) {
+      const int xl = x0 + h, x = st.c * st.R + xl, k = x & (K - 1);
+      const int g = st.i * geo.D + (x >> st.ks);
+      const bool elite = k < elitism;
+      auto rows = [&](float su0, float su1) {
+        const int2 s = mg_parents<SAME>(st, sel, x, elite, su0, su1);
+        // A pad row's score is the write-back's -inf.
+        return ChildRows<Gene>{mg_parent(st, cl, s.x, L), mg_parent(st, cl, s.y, L),
+                               st.next + (size_t)xl * L, st.score + xl, true};
+      };
+      expr_child8<Gene, ABLATE, ROWED, OWN_ROW>(st.cx, st.dr, ex, cb, L, k, g, st.t,
+                                                (size_t)g * K + k, mutate, obj, elite, crow,
+                                                erows, rows);
+    }
+  };
+  multigen_cluster<ABLATE, MGC_THREADS>(io, geo, plan.mg, dr0, mparams, mutate, obj, draw_steps,
+                                        islands, !BITS, pipe_smem, breed);
+}
+
+// The one-block schedule's kernel of crossover ORDER and the cluster
+// schedule's of ROWED, apart from each other (two overloads of the template).
+template <bool ORDER, class Gene, unsigned ABLATE>
+auto expr_multigen_one_block() {
+  return static_cast<void (*)(MultigenIO<Gene>, const float*, Draws, ExprDraws, const float*,
+                              Geometry, Selection, int, int, int, int)>(
+      expr_multigen_kernel<ORDER, Gene, ABLATE>);
+}
+
+template <class Gene, unsigned ABLATE, bool ROWED>
+auto expr_multigen_cluster() {
+  return static_cast<void (*)(MultigenIO<Gene>, const float*, Draws, ExprDraws, const float*,
+                              Geometry, Selection, int, int, int, int, int, ExprMgPlan)>(
+      expr_multigen_kernel<false, Gene, ABLATE, ROWED>);
 }
 
 // Launches `launch` at the ABLATE case `ablate` where this unit holds it:
@@ -1026,6 +1190,34 @@ int expr_pipelined_launch(const void* gin, void* gout, float* sout, const int* r
       if (mutate == MUT_SWAP) return launch(expr_pipelined_kernel<Gene, A, true>);
     }
     return launch(expr_pipelined_kernel<Gene, A, (bool)(EXPR_OBJ && EXPR_OBJ_CHILD)>);
+  });
+}
+
+// expr_multigen_kernel<false>'s cluster schedule at the geometry: the plan
+// of expr_plan.cuh (C = 0, the one-block schedule's group: refused), as many
+// clusters as the card holds at once, each walking its run of the groups of
+// every island.
+template <class Gene>
+int expr_multigen_cluster_launch(const MultigenIO<Gene>& io, const float* mparams,
+                                 const Draws& dr, const ExprDraws& ex, const float* consts,
+                                 const Geometry& geo, const Selection& sel, int mutate, int obj,
+                                 int elitism, int draw_steps, int islands, unsigned ablate,
+                                 cudaStream_t stream) {
+  const ExprMgPlan plan = expr_mg_plan(geo.D, geo.K, geo.L, (int)sizeof(Gene), geo.q, mutate);
+  if (!plan.mg.C) return (int)cudaErrorInvalidValue;
+  return dispatch_expr_ablate<true>(ablate, [&](auto tag) {
+    constexpr unsigned A = decltype(tag)::value;
+    auto launch = [&](auto kernel) {
+      return launch_clusters(kernel, plan.mg.C, plan.mg.smem, MGC_THREADS, islands * geo.S,
+                             stream, io, mparams, dr, ex, consts, geo, sel, mutate, obj, elitism,
+                             draw_steps, islands, plan);
+    };
+    // The child read back: always where the objective reads it; with a
+    // builtin swap mutation where it re-scores it (expr_child_rows).
+    if constexpr (EXPR_OBJ && !EXPR_OBJ_CHILD && !EXPR_MUT) {
+      if (mutate == MUT_SWAP) return launch(expr_multigen_cluster<Gene, A, true>());
+    }
+    return launch(expr_multigen_cluster<Gene, A, (bool)(EXPR_OBJ && EXPR_OBJ_CHILD)>());
   });
 }
 
@@ -1107,7 +1299,10 @@ extern "C" int expr_breed_launch(
 // each island's injected draws hold (their stride; unread in production
 // mode). islands: the grid's second axis, as expr_breed_launch's.
 // gene_dtype: GENE_F32 or GENE_BF16, the type of gin, gout and the work
-// buffers. ablate: as expr_breed_launch's.
+// buffers. ablate: as expr_breed_launch's. cluster: the cluster schedule
+// (uniform or expression crossover; the plan must hold the group; gin and
+// gout 16-byte aligned; no work buffers, `warps` unread), else the one-block
+// schedule (`warps` warps a block).
 extern "C" int expr_multigen_launch(
     const void* gin, const float* sin, void* gout, float* sout, void* work0, void* work1,
     int steps, float target, const float* mparams, const float* sel_u,
@@ -1115,15 +1310,30 @@ extern "C" int expr_multigen_launch(
     const long long* tie, const float* xgene, const float* xrow, const long long* seed,
     const float* consts, int P, int Pp, int L, int K, int G, int mode, int S, int D, int q,
     int sel_kind, int tk, float sel_param, int cross_kind, int mutate, int obj, int elitism,
-    int warps, int draw_steps, int islands, int gene_dtype, unsigned ablate, void* stream) {
-  if (D < 1 || D > MG_MAX_D || warps < 1 || warps > MG_THREADS / 32 ||
-      (cross_kind && (EXPR_CROSS || D != 1 || gene_dtype != GENE_F32)) ||
+    int warps, int draw_steps, int islands, int gene_dtype, unsigned ablate, int cluster,
+    void* stream) {
+  if (D < 1 || D > MG_MAX_D || (!cluster && (warps < 1 || warps > MG_THREADS / 32)) ||
+      (cross_kind && (cluster || EXPR_CROSS || D != 1 || gene_dtype != GENE_F32)) ||
       (gene_dtype != GENE_F32 && gene_dtype != GENE_BF16) || islands < 1 || islands > 65535)
     return (int)cudaErrorInvalidValue;
   const Geometry geo{P, Pp, L, K, G, mode, S, D, q, 1};
   const Selection sel{sel_kind, tk, sel_param};
   const Draws dr{sel_u, cross, mut_u, gauss, seed, tie, fill};
   const ExprDraws ex{xgene, xrow};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (cluster && gene_dtype == GENE_BF16) {
+    using B = __nv_bfloat16;
+    const MultigenIO<B> io{static_cast<const B*>(gin), sin, static_cast<B*>(gout), sout,
+                           nullptr, nullptr, steps, target};
+    return expr_multigen_cluster_launch(io, mparams, dr, ex, consts, geo, sel, mutate, obj,
+                                        elitism, draw_steps, islands, ablate, st);
+  }
+  if (cluster) {
+    const MultigenIO<float> io{static_cast<const float*>(gin), sin, static_cast<float*>(gout),
+                               sout, nullptr, nullptr, steps, target};
+    return expr_multigen_cluster_launch(io, mparams, dr, ex, consts, geo, sel, mutate, obj,
+                                        elitism, draw_steps, islands, ablate, st);
+  }
   // The group's keys, scores, row_of_rank and alive flags, (order) the
   // walkers' bitmasks, then each warp's child row and objective rows.
   const int threads = warps * 32;
@@ -1136,20 +1346,20 @@ extern "C" int expr_multigen_launch(
       using B = __nv_bfloat16;
       const MultigenIO<B> io{static_cast<const B*>(gin), sin, static_cast<B*>(gout), sout,
                              static_cast<B*>(work0), static_cast<B*>(work1), steps, target};
-      return launch_with_smem(expr_multigen_kernel<false, B, A>, dim3(S, islands), threads,
-                              smem, (cudaStream_t)stream, io, mparams, dr, ex, consts, geo, sel,
-                              mutate, obj, elitism, draw_steps);
+      return launch_with_smem(expr_multigen_one_block<false, B, A>(), dim3(S, islands),
+                              threads, smem, st, io, mparams, dr, ex, consts, geo, sel, mutate,
+                              obj, elitism, draw_steps);
     }
     const MultigenIO<float> io{static_cast<const float*>(gin), sin, static_cast<float*>(gout),
                                sout, static_cast<float*>(work0), static_cast<float*>(work1),
                                steps, target};
     return cross_kind
-               ? launch_with_smem(expr_multigen_kernel<true, float, A>, dim3(S, islands),
-                                  threads, smem, (cudaStream_t)stream, io, mparams, dr, ex,
-                                  consts, geo, sel, mutate, obj, elitism, draw_steps)
-               : launch_with_smem(expr_multigen_kernel<false, float, A>, dim3(S, islands),
-                                  threads, smem, (cudaStream_t)stream, io, mparams, dr, ex,
-                                  consts, geo, sel, mutate, obj, elitism, draw_steps);
+               ? launch_with_smem(expr_multigen_one_block<true, float, A>(), dim3(S, islands),
+                                  threads, smem, st, io, mparams, dr, ex, consts, geo, sel,
+                                  mutate, obj, elitism, draw_steps)
+               : launch_with_smem(expr_multigen_one_block<false, float, A>(), dim3(S, islands),
+                                  threads, smem, st, io, mparams, dr, ex, consts, geo, sel,
+                                  mutate, obj, elitism, draw_steps);
   });
 }
 

@@ -1,6 +1,8 @@
 // mg_plan.cuh: the launch plan of the multi-generation kernel's cluster
 // schedule (multigen_breed_kernel<false> in deme_breed.cu, over
-// multigen_cluster in breed_core.cuh). Plain C++ with no CUDA in it, so the
+// multigen_cluster in breed_core.cuh; with expression hooks
+// expr_multigen_kernel<false> of expr_breed.cu, whose plan expr_mg_plan in
+// expr_plan.cuh adds its children's rows). Plain C++ with no CUDA in it, so the
 // host compiler builds it too: tests/test_torch_multigen_plan.py pins it,
 // and Python reads it only through multigen_cluster_plan below, from the
 // built deme_breed.cu unit.
@@ -42,8 +44,9 @@ inline size_t mg_round(size_t n) { return (n + MG_ALIGN - 1) / MG_ALIGN * MG_ALI
 inline bool mg_pow2(long n) { return n > 0 && (n & (n - 1)) == 0; }
 
 // The plan for D demes of K rows of L genes of gene_bytes each, ping-pong
-// quantum q.
-inline MgPlan mg_plan(int D, int K, int L, int gene_bytes, int q) {
+// quantum q, with `extra` more bytes a block after the barrier (the
+// expression kernel's rows of its children in flight, expr_plan.cuh).
+inline MgPlan mg_plan_with(int D, int K, int L, int gene_bytes, int q, size_t extra) {
   const long W = (long)D * K;
   if (!mg_pow2(W) || !mg_pow2(K) || !mg_pow2(q) || K < 32 || K > 1024 || L < 1)
     return MgPlan{0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
@@ -61,10 +64,14 @@ inline MgPlan mg_plan(int D, int K, int L, int gene_bytes, int q) {
     p.score = p.ror + mg_round((size_t)N * 4);
     p.alive = p.score + mg_round((size_t)R * 4);
     p.bar = p.alive + mg_round((size_t)R);
-    p.smem = p.bar + MG_ALIGN;  // one 8-byte barrier
+    p.smem = p.bar + MG_ALIGN + mg_round(extra);  // one 8-byte barrier
     if (p.smem <= MG_SMEM_LIMIT) return p;
   }
   return MgPlan{0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+}
+
+inline MgPlan mg_plan(int D, int K, int L, int gene_bytes, int q) {
+  return mg_plan_with(D, K, L, gene_bytes, q, 0);
 }
 
 // The plan's C entry, for Python (ops/kernels.py, ctypes): out[0..3] = C, the

@@ -57,6 +57,14 @@ __device__ __noinline__ float pipe_gauss(BreedCtx cx, Draws dr, float x, int k, 
   return gauss_mutate(cx, dr, x, k, g, 0u, l, child, true);
 }
 
+// The same in sub-generation t, for the children of the multi-generation
+// cluster schedule (deme_breed.cu's builtin child, expr_breed.cu's
+// expr_child8, which also breeds expr_pipelined_kernel's children at t = 0).
+__device__ __noinline__ float mg_gauss(BreedCtx cx, Draws dr, float x, int k, int g, uint32_t t,
+                                       int l, size_t child) {
+  return gauss_mutate(cx, dr, x, k, g, t, l, child, true);
+}
+
 __device__ __noinline__ float2 pipe_terms(int obj, float c) {
   float a = 0.0f, b = 0.0f;
   if (obj == OBJ_ONEMAX_BITS) {
@@ -227,13 +235,11 @@ __device__ __forceinline__ void pipe_demes(const Gene* gin, const int* ranks, co
 
 // Launches a pipelined breed `kernel` (PIPE_THREADS threads a block, `smem`
 // bytes of dynamic shared memory) in clusters of C blocks, as many as the
-// card holds at once and at most G an island, with blockIdx.y the island.
+// card holds at once (cluster_setup) and at most G an island, with
+// blockIdx.y the island.
 template <class... Params, class... Args>
 int pipe_launch(void (*kernel)(Params...), int C, size_t smem, int G, int islands,
                 cudaStream_t stream, Args... args) {
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
   cluster[0].val.clusterDim.x = C;
@@ -247,7 +253,8 @@ int pipe_launch(void (*kernel)(Params...), int C, size_t smem, int G, int island
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
   int held = 0;
-  if ((e = cudaOccupancyMaxActiveClusters(&held, kernel, &cfg)) != cudaSuccess) return (int)e;
+  cudaError_t e = cluster_setup(kernel, cfg, C, &held);
+  if (e != cudaSuccess) return (int)e;
   if (held < 1) return (int)cudaErrorInvalidConfiguration;
   const int per = held / islands;
   const int nc = per < 1 ? 1 : per < G ? per : G;

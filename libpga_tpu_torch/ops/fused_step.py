@@ -92,10 +92,11 @@ versions breed the islands' demes as the demes of one population.
 ``pallas_subblock``, B8): a ping-pong group grows to ``B*D*K`` rows and
 children interleave within each sub-block of D demes, so B changes the
 row maps (and may change D) but not what a deme computes. Uniform
-crossover with builtin hooks launches ``deme_pipelined_kernel``, a
-persistent kernel whose thread-block clusters stage a deme's parent rows
-whole in shared memory (TMA) while they breed the one before; a deme no
-cluster holds goes to ``deme_breed_kernel`` at the same geometry
+crossover with builtin hooks launches ``deme_pipelined_kernel`` at every
+B, 1 included, and every row map: a persistent kernel whose thread-block
+clusters stage a deme's parent rows whole in shared memory (TMA) while
+they breed the one before; a deme no cluster holds, and the floor
+harness's copy, go to ``deme_breed_kernel`` at the same geometry
 (:func:`breed_launcher`). Expression hooks launch the expression breed
 with the B-aware maps: at any B, ``expr_pipelined_kernel`` (the same
 schedule with the hooks) where its plan holds the deme, else
@@ -1105,8 +1106,7 @@ def deme_breed_reference(
     warps_per_block: int = 0,
 ):
     """The plain version of the deme-breed kernels (uniform crossover:
-    ``deme_breed_kernel``, and ``deme_pipelined_kernel`` at a sub-block
-    geometry; order crossover: ``order_breed_kernel``; an
+    ``deme_breed_kernel`` and ``deme_pipelined_kernel``; order crossover: ``order_breed_kernel``; an
     expression crossover, mutation or ``objective``:
     ``expr_breed_kernel``, with order crossover ``expr_order_kernel``,
     which also takes the coordinate TSP after an expression mutation): one
@@ -1173,17 +1173,19 @@ def breed_launcher(geom: Geometry, gene_dtype, kw: dict) -> Callable:
     which picks ``expr_pipelined_kernel`` or ``expr_breed_kernel`` from
     the shape in the same way: ``kernels.expr_pipelined_holds``), with
     order crossover the order
-    breed, else the deme breed, pipelined (``deme_pipelined_kernel``) where
-    the geometry's sub-block depth B is above 1 and a cluster of blocks
-    holds a deme (``kernels.pipelined_holds``). A deme no cluster holds is
-    bred by ``deme_breed_kernel`` at the same geometry, which computes the
-    same function and counts under its own name."""
+    breed, else the deme breed, pipelined (``deme_pipelined_kernel``) at
+    any sub-block depth B where a cluster of blocks holds a deme
+    (``kernels.pipelined_holds``). A deme no cluster holds, and the floor
+    harness's copy (``copy_only``, which pins the riffle), are bred by
+    ``deme_breed_kernel`` at the same geometry, which computes the same
+    function and counts under its own name."""
     if _expression_hooked(kw):
         return kernels.expr_breed_cuda
     if kw.get("crossover") == "order":
         return kernels.order_breed_cuda
+    copy = "copy_only" in kw.get("ablate", ())
     return functools.partial(kernels.deme_breed_cuda,
-                             pipelined=kernels.pipelined_holds(geom, gene_dtype))
+                             pipelined=not copy and kernels.pipelined_holds(geom, gene_dtype))
 
 
 def deme_breed(
@@ -1358,10 +1360,10 @@ def multigen_breed(
     (see :func:`multigen_breed_reference`). On a CUDA tensor it launches
     the kernel of the hooks (an expression crossover, mutation or
     ``kw["objective"]``: ``expr_multigen_kernel``; else
-    ``multigen_breed_kernel``, whose wrapper picks its schedule from the
+    ``multigen_breed_kernel``; each wrapper picks its schedule from the
     shape) and raises if that fails (``work``: the one-block schedule's
     scratch buffers, made by the wrapper where None; ``kw["cluster"]``
-    names the builtin kernel's schedule, for tests and comparisons); on a
+    names either kernel's schedule, for tests and comparisons); on a
     CPU tensor it runs the plain version. Exactly one of ``seed=``
     (production Philox mode) or ``draws=`` (injected mode, with a leading
     sub-generation axis) is given in ``kw``. ``islands`` = I breeds I
@@ -1424,9 +1426,9 @@ def make_fused_breed(
     sigma]; ``layout`` forces a row map (JAX's ``pallas_layout``);
     ``gene_dtype`` (float32 or bfloat16) shapes the geometry and is the
     genomes' dtype; ``subblock`` (JAX's ``pallas_subblock``) is the
-    ping-pong sub-block depth of :func:`resolve_geometry`, and where it
-    resolves to B > 1 the builtin hooks launch the pipelined deme breed
-    where a cluster holds a deme (:func:`breed_launcher`). The fused TSP score pairs with order crossover only (with a builtin or
+    ping-pong sub-block depth of :func:`resolve_geometry`; at any B the
+    builtin hooks launch the pipelined deme breed where a cluster holds a
+    deme (:func:`breed_launcher`). The fused TSP score pairs with order crossover only (with a builtin or
     an expression mutation): with uniform crossover that objective is
     scored by its rowwise form, as in JAX. Returns
     ``breed(genomes (Pp, L), scores (Pp,), parity, generator, out=None)
@@ -1449,9 +1451,10 @@ def make_fused_breed(
     row map and ``alias_io`` copies in place; ``no_rank_sort`` skips the
     rank sort (the breeding cases then get slot-order ranks); the stage
     flags, in any combination, remove parts of the breed
-    (:func:`breed_children`), at B > 1 too: there the builtin hooks
-    launch the pipelined deme breed's case of the flags and expression
-    hooks the expression breed's, on the B-aware row maps."""
+    (:func:`breed_children`), at any B: the builtin hooks launch the
+    pipelined deme breed's case of the flags where a cluster holds the
+    deme, and expression hooks the expression breed's, on the B-aware row
+    maps."""
     ablate = validate_ablate(ablate)
     obj_id = getattr(objective, "fused_id", FUSED_NONE)
     expr_obj = getattr(objective, "expr_fused", None)

@@ -47,8 +47,11 @@ production launch: "ablate_copy" (the copy case, whatever the hooks),
 (the pipelined deme breed's stage cases), and "_bf16"; ``MASK_LAUNCHES``
 counts each ablated launch again under ``(name, kernel bitmask)``, and
 ``CLUSTER_LAUNCHES`` each multi-generation launch on the cluster schedule
-again under its name (the one-block schedule's are the rest). The
-pipelined deme breed of the sub-block pipeline (``deme_breed_cuda(pipelined=True)``) counts as
+again under its name (the one-block schedule's are the rest; the
+builtin and the expression multi-generation kernels alike). The
+pipelined deme breed (``deme_breed_cuda(pipelined=True)``: ``PGA.run``'s
+builtin breed at any sub-block depth wherever a cluster holds the deme,
+:func:`pipelined_holds`) counts as
 "deme_pipelined" ("islands_deme_pipelined"; and "_bf16"), and the
 expression breed on the pipelined schedule (``expr_pipelined_kernel``,
 where ``expr_breed_cuda`` routes a shape to it) as "expr_pipelined"
@@ -412,8 +415,12 @@ def _bindings() -> dict:
                 i, i, i, i, i,          # crossover kind, mutate kind, objective id, elitism,
                                         # warps
                 i, i, i,                # draw steps, islands, gene dtype
-                ctypes.c_uint,          # ablate mask
+                ctypes.c_uint, i,       # ablate mask, cluster schedule
                 p,                      # stream
+            ], i),
+            "expr_multigen_cluster_plan": ([
+                i, i, i, i, i, i,       # D, K, L, gene bytes, q, mutate kind
+                p,                      # out: C, rows, keys sorted, child rows, shared bytes
             ], i),
             "expr_breed_error_string": ([i], s),
         },
@@ -518,6 +525,7 @@ class PipePlan:
     smem: int
 
 
+@functools.lru_cache(maxsize=None)
 def pipelined_plan(K: int, L: int, gene_bytes: int, q: int) -> Optional[PipePlan]:
     """The least cluster of 1, 2, 4 or 8 blocks that holds a deme of ``K``
     rows of ``L`` genes of ``gene_bytes`` each: K / C a power of two and a
@@ -543,11 +551,12 @@ def pipelined_plan(K: int, L: int, gene_bytes: int, q: int) -> Optional[PipePlan
 
 def pipelined_holds(geom, gene_dtype) -> bool:
     """Whether a breed at ``geom`` with builtin hooks launches
-    ``deme_pipelined_kernel``: a sub-block geometry (B > 1) whose deme a
-    cluster holds (:func:`pipelined_plan`). Elsewhere ``deme_breed_kernel``
-    computes the same function at the same geometry."""
+    ``deme_pipelined_kernel``: any geometry, at any sub-block depth B >= 1
+    and any row map, whose deme a cluster holds (:func:`pipelined_plan`).
+    Elsewhere ``deme_breed_kernel`` computes the same function at the same
+    geometry."""
     gene_bytes = 2 if gene_dtype == torch.bfloat16 else 4
-    return geom.B > 1 and pipelined_plan(geom.K, geom.L, gene_bytes, geom.q) is not None
+    return pipelined_plan(geom.K, geom.L, gene_bytes, geom.q) is not None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -579,7 +588,8 @@ def multigen_cluster_plan(geom, gene_dtype, crossover="uniform") -> Optional[Mul
     (``multigen_cluster_plan``; built at first use); None where the launch
     breeds on the one-block schedule: order crossover (its walk stays
     there) or a group no cluster holds. Both schedules compute the same
-    function. ``expr_multigen_kernel`` has the one-block schedule alone."""
+    function. ``expr_multigen_kernel``'s plan, with the rows its hooks
+    keep, is :func:`expr_multigen_plan`."""
     if crossover == "order":
         return None
     gene_bytes = 2 if gene_dtype == torch.bfloat16 else 4
@@ -600,7 +610,7 @@ class ExprPipelinedPlan:
     smem: int
 
 
-_expr_plans: dict = {}  # (unit key, K, L, gene bytes, q, mutate id) -> plan or None
+_expr_plans: dict = {}  # (["multigen",] unit key, [D,] K, L, gene bytes, q, mutate id) -> plan
 
 
 def expr_pipelined_plan(program, geom, gene_dtype, mutate_id: int,
@@ -632,6 +642,54 @@ def expr_pipelined_holds(program, geom, gene_dtype, mutate_id: int, order: bool 
     Decided from the shape alone, before any launch."""
     return not order and expr_pipelined_plan(program, geom, gene_dtype, mutate_id,
                                              ablate) is not None
+
+
+@dataclasses.dataclass(frozen=True)
+class ExprMultigenPlan:
+    """The cluster schedule's plan for a group of
+    ``expr_multigen_kernel<false>`` (``expr_mg_plan`` of
+    ``csrc/expr_plan.cuh`` over ``csrc/mg_plan.cuh``): ``C`` blocks a
+    cluster hold it, each ``rows`` of its slots, sorting ``sort`` keys;
+    every child in flight keeps ``child_rows`` rows of L floats; ``smem``
+    bytes of dynamic shared memory a block."""
+
+    C: int
+    rows: int
+    sort: int
+    child_rows: int
+    smem: int
+
+
+def expr_multigen_plan(program, geom, gene_dtype, mutate_id: int,
+                       ablate: int = 0) -> Optional[ExprMultigenPlan]:
+    """The cluster plan of an ``expr_multigen_kernel`` launch of
+    ``program``'s hooks at ``geom`` on ``gene_dtype`` genes with the builtin
+    mutate id ``mutate_id``, as ``csrc/expr_plan.cuh`` makes it, read from
+    the built unit of the mask ``ablate`` (``expr_multigen_cluster_plan``;
+    built at first use); None where the one-block schedule breeds the
+    group: a genome length that is not a multiple of 4, or a group and its
+    children's rows no cluster holds."""
+    gene_bytes = 2 if gene_dtype == torch.bfloat16 else 4
+    key = ("multigen", program.source, _unit_macro(ablate), geom.D, geom.K, geom.L, gene_bytes,
+           geom.q, mutate_id)
+    if key not in _expr_plans:
+        out = (ctypes.c_longlong * 5)()
+        lib = _expr_library(program, ablate)
+        held = lib.expr_multigen_cluster_plan(geom.D, geom.K, geom.L, gene_bytes, geom.q,
+                                              mutate_id, out)
+        _expr_plans[key] = ExprMultigenPlan(*(int(x) for x in out)) if held else None
+    return _expr_plans[key]
+
+
+def expr_multigen_holds(program, geom, gene_dtype, mutate_id: int, order: bool = False,
+                        ablate: int = 0) -> bool:
+    """Whether an expression multigen launch takes the cluster schedule:
+    uniform or expression crossover (order crossover walks on one block) at
+    a shape whose plan holds the group (:func:`expr_multigen_plan`).
+    Elsewhere the one-block schedule computes the same function. Decided
+    from the shape alone, before any launch."""
+    return not order and expr_multigen_plan(program, geom, gene_dtype, mutate_id,
+                                            ablate) is not None
 
 
 def _check_genomes(genomes: torch.Tensor, shape, device, order: bool = False) -> int:
@@ -680,8 +738,9 @@ def deme_breed_cuda(
     pipelined: bool = False,
 ):
     """Launch ``deme_breed_kernel`` (``pipelined``: ``deme_pipelined_kernel``,
-    the sub-block pipeline's persistent kernel, which computes the same
-    function) of ``csrc/deme_breed.cu`` on the
+    the persistent cluster kernel that ``PGA.run`` takes wherever a
+    cluster holds a deme, :func:`pipelined_holds`, and which computes the
+    same function) of ``csrc/deme_breed.cu`` on the
     current stream: the kernel counterpart of
     ``fused_step.deme_breed_reference`` (same arguments, uniform
     crossover; float32 or bfloat16 genomes, its float or bf16 case, the
@@ -724,7 +783,7 @@ def deme_breed_cuda(
     gene_id = _check_genomes(genomes, lead + (Pp, L), dev)
     if pipelined and not pipelined_holds(geom, genomes.dtype):
         raise ValueError(f"no cluster of at most {PIPE_MAX_CLUSTER} blocks holds a deme of {K}"
-                         f" rows of {L} genes (or B is 1): deme_breed_kernel breeds it"
+                         f" rows of {L} genes: deme_breed_kernel breeds it"
                          " (fused_step.breed_launcher)")
     _check(ranks, "handed scores" if copy else "ranks", torch.float32 if copy else torch.int32,
            (n * G, K), dev)
@@ -1343,6 +1402,7 @@ def expr_multigen_cuda(
     objective=None,
     islands: Optional[int] = None,
     ablate: tuple = (),
+    cluster: Optional[bool] = None,
 ):
     """Launch ``expr_multigen_kernel``, the multi-generation entry of
     the expression breed's unit (the same build as :func:`expr_breed_cuda`
@@ -1359,9 +1419,18 @@ def expr_multigen_cuda(
     (injected draws (I, T, ...), the expression planes and words
     included). ``ablate`` (the floor harness's no_freeze, no_rank_cube
     and stage flags, any combination) launches that case, as
-    :func:`expr_breed_cuda`'s. It breeds on the one-block schedule
-    (``multigen_group``; ``work`` as :func:`multigen_breed_cuda`'s). Raises on bad arguments or a failed build or launch; never runs
-    anything else in the kernel's place."""
+    :func:`expr_breed_cuda`'s. ``cluster`` picks the schedule, as
+    :func:`multigen_breed_cuda`'s does: None the plan's route, decided here
+    from the shape before the launch (:func:`expr_multigen_holds`: the
+    cluster schedule with the eight-lane expression child where
+    ``csrc/expr_plan.cuh`` holds the group; what production takes), True
+    the cluster schedule (not for order crossover; a group no cluster
+    holds raises), False the one-block schedule (``multigen_group``; what
+    tests and ``chip_smoke.py`` compare it with; ``work`` as
+    :func:`multigen_breed_cuda`'s). The cluster schedule stages 16-byte
+    aligned ``genomes`` and stores 16-byte aligned ``out`` (else
+    ValueError). Raises on bad arguments or a failed build or launch;
+    never runs anything else in the kernel's place."""
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("expr_multigen_cuda needs CUDA tensors")
@@ -1375,8 +1444,16 @@ def expr_multigen_cuda(
                                       mparams, order, lead)
     param = resolve_selection(selection, selection_param)
     program = expr_cuda.program_for(cross_op, mut_op, objective)
-    warps = expr_warps(K, L, program.obj_rows, D=D, order=order)
-    out, work = _multigen_buffers(genomes, out, work, steps, cluster=False)
+    mut_id = MUTATE_IDS.get(mutate, 0) if mut_op is None else 0
+    if cluster is None:
+        cluster = expr_multigen_holds(program, geom, genomes.dtype, mut_id, order, mask)
+    elif cluster and order:
+        raise ValueError("order crossover walks on the one-block schedule (cluster=False)")
+    warps = 0 if cluster else expr_warps(K, L, program.obj_rows, D=D, order=order)
+    out, work = _multigen_buffers(genomes, out, work, steps, cluster)
+    if cluster and (genomes.data_ptr() % 16 or out.data_ptr() % 16):
+        raise ValueError("the multi-generation cluster schedule stages 16-byte aligned genomes"
+                         " and stores 16-byte aligned children")
     draw_steps, (sel_u, cross, fill, mut_u, gauss, tie) = _multigen_draws(
         draws, seed, geom, steps, None if cross_op is not None else crossover, mutate, dev, lead)
     xgene = xrow = None
@@ -1395,16 +1472,16 @@ def expr_multigen_cuda(
         geom.mode(parity), geom.S, D, geom.q,
         SEL_IDS[selection], tournament_size,
         0.0 if param is None else float(param),
-        CROSS_IDS["order" if order else "uniform"], MUTATE_IDS.get(mutate, 0) if mut_op is None else 0,
-        int(obj_id), int(elitism), warps, draw_steps, n, gene_id, mask,
+        CROSS_IDS["order" if order else "uniform"], mut_id,
+        int(obj_id), int(elitism), warps, draw_steps, n, gene_id, mask, int(cluster),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "expr_breed")
     key = "expr_multigen_order" if order else "expr_multigen"
     if ablate:
-        _count("ablate_" + key, genomes, mask)
+        _count("ablate_" + key, genomes, mask, cluster)
     else:
-        _count(key if islands is None else "islands_" + key, genomes)
+        _count(key if islands is None else "islands_" + key, genomes, cluster=cluster)
     return out, s_out
 
 

@@ -6,7 +6,8 @@ Usage: python -m libpga_tpu_torch.tools.ablate_floor [f32|bf16] [--k 512]
 
 The port's counterpart of ``tools/ablate_floor.py``. A generation of
 ``PGA.run`` is a rank sort (torch, outside the kernel) and one launch of
-``deme_breed_kernel`` (``csrc/deme_breed.cu``). This tool times the
+``deme_pipelined_kernel`` (``csrc/deme_breed.cu``; ``deme_breed_kernel``
+where no cluster holds the deme, and for the copy). This tool times the
 production generation beside the kernel's ablated cases (the
 ``ablate=`` of ``ops/fused_step.make_fused_breed``) and partitions the
 "floor" (every breeding stage off) into named components:

@@ -6,7 +6,8 @@ Usage: python -m libpga_tpu_torch.tools.ablate_kernel [f32|bf16] [K]
            [--subblock B] [--combo FLAG,FLAG ...]
 
 The port's counterpart of ``tools/ablate_kernel.py``: the generation of
-``PGA.run`` (rank sort + ``deme_breed_kernel``) with the kernel's stages
+``PGA.run`` (rank sort + ``deme_pipelined_kernel``, or ``deme_breed_kernel``
+where no cluster holds the deme) with the kernel's stages
 removed one at a time (``make_fused_breed(ablate=...)``), so each stage's
 cost falls out by subtraction. Every variant is on the riffle row map, so
 the differences share one layout:

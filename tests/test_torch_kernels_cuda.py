@@ -9,6 +9,7 @@ they run where only torch is installed:
 """
 
 import math
+from typing import Optional
 
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from libpga_tpu_torch.gp.optimize import optimize_for_eval
 from libpga_tpu_torch.objectives import (
     ackley, make_tsp_coords, onemax, onemax_bits, random_tsp_coords, rastrigin, sphere,
 )
+from libpga_tpu_torch.ops import expr_cuda
 from libpga_tpu_torch.ops import fused_step as fs
 from libpga_tpu_torch.ops import kernels
 from libpga_tpu_torch.ops.gp_eval import gp_eval_reference, make_gp_eval
@@ -31,6 +33,18 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+def _deme_key(geom, dtype=torch.float32, islands=False, ablate=False):
+    """The LAUNCHES name of a builtin one-generation breed at ``geom``:
+    deme_pipelined_kernel's wherever a cluster holds the deme
+    (kernels.pipelined_holds, at any B), else deme_breed_kernel's."""
+    if kernels.pipelined_holds(geom, dtype):
+        key = ("ablate_pipelined" if ablate else "islands_deme_pipelined" if islands
+               else "deme_pipelined")
+    else:
+        key = "ablate_breed" if ablate else "islands" if islands else geom.layout
+    return key + ("_bf16" if dtype == torch.bfloat16 else "")
 
 
 # (P, L, layout, selection, selection_param, k, mutate, objective, gene_atol)
@@ -97,9 +111,10 @@ def test_kernel_rejects_bad_arguments(cuda_device):
         fs.deme_breed(g, ranks, geom, 0, seed=seed, mparams=mp, out=g)
     with pytest.raises(ValueError, match="genomes"):
         fs.deme_breed(g[:, :10].contiguous(), ranks, geom, 0, seed=seed, mparams=mp)
-    before = kernels.LAUNCHES["pingpong"]
+    key = _deme_key(geom)
+    before = kernels.LAUNCHES[key]
     fs.deme_breed(g, ranks, geom, 0, seed=seed, mparams=mp)
-    assert kernels.LAUNCHES["pingpong"] == before + 1
+    assert kernels.LAUNCHES[key] == before + 1
 
 
 @pytest.mark.cuda
@@ -113,7 +128,8 @@ def test_engine_on_card_counts_one_launch_per_generation(cuda_device):
     kernels.reset_launches()
     assert pga_run(p, 12) == 12
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0), "riffle": 12}
+    key = _deme_key(fs.resolve_geometry(40_000, 100))
+    assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0), key: 12}
 
 
 # ------------------------------------------------------------ order breed
@@ -1058,7 +1074,7 @@ def test_island_launch_equals_plain_and_single_launches_on_card(cuda_device, var
             ranks = fs.compute_ranks(s, geom, parity, tie)
             draws = fs.island_philox_draws(seeds, G, K, L, mutate, cross)
             want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
-            key = "islands_order" if cross == "order" else "islands"
+            key = "islands_order" if cross == "order" else _deme_key(geom, islands=True)
 
         def launch(i, islands=None, **x):
             """Islands i .. i + islands - 1 in one launch, or island i alone
@@ -1094,7 +1110,8 @@ def test_engine_on_card_breeds_every_island_in_one_launch(cuda_device):
     from libpga_tpu_torch import PGAConfig, pga_create_population, pga_init
     from libpga_tpu_torch import pga_run_islands, pga_set_objective_function
 
-    for T, launches, key in ((None, 12, "islands"), (4, 3 * 1 + 1, "islands_multigen")):
+    deme = _deme_key(fs.resolve_geometry(4096, 32), islands=True)
+    for T, launches, key in ((None, 12, deme), (4, 3 * 1 + 1, "islands_multigen")):
         p = pga_init(0, PGAConfig(generations_per_launch=T))
         for _ in range(4):
             pga_create_population(p, 4096, 32)
@@ -1349,7 +1366,8 @@ def test_bf16_kernels_equal_plain_and_the_float32_kernel_rounded_on_card(cuda_de
         kw.update(elitism=e)
     seeds = torch.randint(0, 2**62, (I or 1,), generator=gen, device=cuda_device)
     G, K = geom.G, geom.K
-    key = {"deme": "islands" if I else geom.layout, "multigen": "islands_multigen" if I else "multigen",
+    key = {"deme": _deme_key(geom, BF16, islands=bool(I)).removesuffix("_bf16"),
+           "multigen": "islands_multigen" if I else "multigen",
            "expr": _expr_counter(cross, mutate, objective, geom, BF16),
            "expr_multigen": "expr_multigen"}[kind] + "_bf16"
     for parity in range(geom.parities):
@@ -1404,12 +1422,13 @@ def test_engine_on_card_launches_the_bf16_kernels(cuda_device):
     from libpga_tpu_torch.ops.mutate import make_swap_mutate
 
     trap = po.make_deceptive_trap(5)
+    deme = fs.resolve_geometry(4096, 60, gene_dtype=BF16)
     for T, objective, islands, gens, key, launches in (
-        (None, "onemax", 1, 6, "pingpong_bf16", 6),
+        (None, "onemax", 1, 6, _deme_key(deme, BF16), 6),
         (4, "onemax", 1, 8, "multigen_bf16", 2),
         (None, trap, 1, 5, "expr_pipelined_bf16", 5),
         (4, trap, 1, 8, "expr_multigen_bf16", 2),
-        (None, "onemax", 4, 6, "islands_bf16", 6),
+        (None, "onemax", 4, 6, _deme_key(deme, BF16, islands=True), 6),
     ):
         p = pga_init(0, PGAConfig(gene_dtype=BF16, generations_per_launch=T))
         for _ in range(islands):
@@ -1526,7 +1545,8 @@ def test_ablated_breed_equals_plain_on_card(cuda_device, variant, dtype):
                 torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-3)
             else:
                 assert got[1] is None
-    key = ("ablate_copy" if copy else "ablate_breed") + ("_bf16" if dtype == torch.bfloat16 else "")
+    key = ("ablate_copy" + ("_bf16" if dtype == torch.bfloat16 else "") if copy
+           else _deme_key(geom, dtype, ablate=True))
     launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
     assert launched == {key: geom.parities * (1 if copy else 2)}
 
@@ -1544,7 +1564,7 @@ def test_ablate_zero_is_the_production_kernel(cuda_device, dtype):
                                 mparams=(0.3, 0.0))
     geom, kw = breed.geom, breed.kw
     assert "ablate" not in kw
-    key = geom.layout + ("_bf16" if dtype == torch.bfloat16 else "")
+    key = _deme_key(geom, dtype)
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device).to(dtype)
     s = g.float().sum(dim=1)
@@ -1980,6 +2000,63 @@ def test_pipelined_kernel_equals_plain_on_card(cuda_device, variant):
             assert torch.equal(got[1], base[1])
 
 
+# (P, L, gene dtype, islands, mutate, objective, gene_atol): PGA.run's B = 1
+# cells at small sizes: the padded riffle (40,000 rows: 192 pad rows, 157
+# demes), ping-pong with pad rows, bf16, the Rastrigin islands' L = 30 (one
+# gene a lane) with gaussian mutation, a shard launch of L = 128 (C = 4).
+B1_VARIANTS = [
+    (40_000, 100, torch.float32, None, "point", onemax, 0.0),
+    (1000, 20, torch.float32, None, "swap", onemax, 0.0),
+    (65_536, 100, torch.bfloat16, None, "point", onemax, 0.0),
+    (16_384, 30, torch.float32, 8, "gaussian", rastrigin, 1e-6),
+    (16_384, 128, torch.float32, 4, "point", onemax, 0.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", B1_VARIANTS,
+                         ids=lambda v: f"{v[0]}x{v[1]}-{str(v[2])[6:]}-I{v[3]}-{v[4]}")
+def test_b1_breed_launches_the_pipelined_kernel_on_card(cuda_device, variant):
+    """At B = 1 the builtin breed launches deme_pipelined_kernel wherever a
+    cluster holds the deme, counted under its own name, and equals
+    deme_breed_kernel (pipelined=False) at the same geometry bit for bit,
+    children and scores, and its plain version, Philox and injected draws,
+    every parity."""
+    P, L, dtype, islands, mutate, obj, atol = variant
+    geom = fs.resolve_geometry(P, L, gene_dtype=dtype)
+    assert geom.B == 1 and kernels.pipelined_holds(geom, dtype)
+    n = islands or 1
+    lead = () if islands is None else (islands,)
+    gen = torch.Generator(device=cuda_device).manual_seed(P + L)
+    g = torch.rand(lead + (geom.Pp, L), generator=gen, device=cuda_device).to(dtype)
+    g[..., P:, :] = 0
+    s = g.float().sum(dim=-1)
+    s[..., P:] = -torch.inf
+    kw = dict(tournament_size=2, mutate=mutate, obj_id=obj.fused_id,
+              mparams=torch.tensor([0.3, 0.05], device=cuda_device))
+    key = _deme_key(geom, dtype, islands=islands is not None)
+    for parity in range(geom.parities):
+        tie = fs.draw_tie_words(gen, n * geom.Pp, cuda_device).view(lead + (geom.Pp,))
+        ranks = fs.compute_ranks(s, geom, parity, tie)
+        seed = torch.randint(0, 2**62, (n,), generator=gen, device=cuda_device)
+        draw = fs.philox_draws if islands is None else fs.island_philox_draws
+        draws = draw(seed, geom.G, geom.K, L, mutate)
+        want = fs.deme_breed_reference(g, ranks, geom, parity, draws, **kw)
+        for mode in (dict(seed=seed), dict(draws=draws)):
+            before = kernels.LAUNCHES[key]
+            got = fs.deme_breed(g, ranks, geom, parity, islands=islands, **mode, **kw)
+            old = kernels.deme_breed_cuda(g, ranks, geom, parity, islands=islands,
+                                          pipelined=False, **mode, **kw)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES[key] == before + 1
+            assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
+            torch.testing.assert_close(got[0], want[0], rtol=0, atol=atol)
+            real = torch.arange(geom.Pp, device=cuda_device) < P
+            assert bool(torch.isinf(got[1][..., ~real]).all())
+            torch.testing.assert_close(got[1][..., real], want[1][..., real], rtol=1e-5,
+                                       atol=1e-3)
+
+
 @pytest.mark.cuda
 def test_deme_no_cluster_holds_breeds_through_deme_breed_kernel_on_card(cuda_device):
     """At 131,072x1,024 float32, B = 2 (K = 256: 1 MB a deme) no cluster
@@ -2218,6 +2295,8 @@ def test_combo_ablated_kernels_equal_plain_on_card(cuda_device, variant):
     breed = fs.make_fused_breed(P, L, objective, crossover=cross, mutate=mut, ablate=ablate,
                                 device=cuda_device, mparams=(0.3, 0.0))
     geom, kw = breed.geom, breed.kw
+    if kernel == "deme":
+        key = _deme_key(geom, ablate=True)
     g = torch.rand((geom.Pp, L), generator=gen, device=cuda_device)
     s = torch.full((geom.Pp,), -torch.inf, device=cuda_device)
     s[:P] = g[:P].sum(dim=1)
@@ -2273,7 +2352,7 @@ def test_sharded_launch_equals_plain_island_breed_on_card(cuda_device, variant):
     assert geom.Pp == P // S and geom.layout == "pingpong"
     g = torch.rand((S, geom.Pp, L), device=cuda_device).to(dtype)
     s = g.float().sum(dim=-1)
-    key = "islands" + ("_bf16" if dtype == torch.bfloat16 else "")
+    key = _deme_key(geom, dtype, islands=True)
     for gen in (0, 1):
         before = kernels.LAUNCHES[key]
         got = step(g, s, gen, torch.Generator(device=cuda_device).manual_seed(gen))
@@ -2304,7 +2383,8 @@ def test_engine_on_card_breeds_every_shard_in_one_launch(cuda_device, dtype):
     from libpga_tpu_torch import pga_set_mutate_function, pga_set_objective_function
 
     bf = "_bf16" if dtype == torch.bfloat16 else ""
-    for L, mutate, key in ((128, None, "islands" + bf),
+    shard = fs.resolve_geometry(16_384, 128, gene_dtype=dtype)
+    for L, mutate, key in ((128, None, _deme_key(shard, dtype, islands=True)),
                            (128, "creep", "islands_expr_pipelined" + bf),
                            (64, None, None)):
         p = pga_init(0, PGAConfig(pop_shards=4, gene_dtype=dtype))
@@ -2364,16 +2444,28 @@ CLUSTER_VARIANTS = [
                         (ABLATE_FLOOR, torch.float32, "objective"),
                         (("no_cross", "no_mut"), torch.float32, "objective"))],
 ]
-EXPR_ONE_BLOCK_VARIANTS = [
+EXPR_VARIANTS = [
     ("creep", 65_536, 100, torch.float32, None, 3, 2, "objective", None, ()),
     ("creep", 65_536, 100, torch.bfloat16, None, 8, 0, "freeze", None, ()),
     ("creep", 16_384, 100, torch.float32, None, 3, 0, "objective", 4, ()),
+    ("creep", 40_000, 100, torch.float32, None, 8, 2, "freeze", None, ()),  # C = 1, pad rows
+    ("creep", 65_536, 100, torch.float32, "riffle", 0, 0, "objective", None, ()),
+    ("creep", 65_536, 100, torch.float32, None, 1, 2, "objective", None, ()),
     ("one_point", 65_536, 100, torch.float32, None, 3, 2, "objective", None, ()),
     ("nk", 16_384, 64, torch.float32, None, 3, 0, "objective", None, ()),
+    ("nk", 16_384, 64, torch.float32, None, 8, 2, "freeze", None, ()),
     ("trap", 65_536, 60, torch.float32, None, 3, 2, "nan", None, ()),
     ("trap", 16_384, 60, torch.bfloat16, None, 3, 0, "objective", 2, ()),
-    ("knapsack", 4096, 6, torch.float32, None, 3, 2, "objective", None, ()),
+    ("trap_swap", 16_384, 60, torch.float32, None, 3, 2, "objective", None, ()),  # ROWED
+    ("trap_swap", 16_384, 60, torch.bfloat16, None, 3, 2, "objective", None, ()),  # own row
+    ("trap_gauss", 16_384, 60, torch.float32, None, 2, 0, "objective", None, ()),
+    ("rolled", 16_384, 64, torch.bfloat16, None, 3, 0, "objective", None, ()),
+    ("knapsack", 4096, 6, torch.float32, None, 3, 2, "objective", None, ()),  # one block
     ("creep", 65_536, 100, torch.float32, None, 3, 2, "freeze", None, ("no_freeze",)),
+    *[(h, 65_536, L, torch.float32, None, 3, 2, "objective", None, a)
+      for h, L, a in (("creep", 100, ("sel_const",)), ("one_point", 100, ("no_matmul",)),
+                      ("one_point", 100, ("no_cross",)), ("creep", 100, ("no_mut",)),
+                      ("trap", 60, ("no_rank_cube",)), ("trap", 60, ABLATE_FLOOR))],
 ]
 _VARIANT_ID = (lambda v: f"{v[0]}-{v[1]}x{v[2]}-{str(v[3])[6:]}-{v[4]}-s{v[5]}-e{v[6]}-{v[7]}"
                          f"-i{v[8]}-{'+'.join(v[9]) or 'prod'}")
@@ -2398,18 +2490,23 @@ def _cluster_case(hooks):
         "one_point": (onemax, one_point, "point", (0.3, 0.0), True),
         "nk": (po.make_nk_landscape(64, 3, seed=0), "uniform", "point", (0.3, 0.0), True),
         "trap": (po.make_deceptive_trap(5), "uniform", "point", (0.3, 0.0), True),
+        "trap_swap": (po.make_deceptive_trap(5), "uniform", "swap", (0.5, 0.0), True),
+        "trap_gauss": (po.make_deceptive_trap(5), "uniform", "gaussian", (0.3, 0.05), False),
+        "rolled": (po.from_expression("sum(roll(g, 1) * g)"), "uniform", "point", (0.3, 0.0),
+                   True),
         "knapsack": (po.default_knapsack, "uniform", "point", (0.3, 0.0), True),
     }[hooks]
 
 
-def _multigen_against_plain(device, variant, cluster: bool):
+def _multigen_against_plain(device, variant, cluster: Optional[bool]):
     """Launches ``variant`` through ``fs.multigen_breed`` at every parity,
     Philox and injected draws, and holds it against the plain version:
     genomes and scores bit for bit (within 2 ulp / rtol 1e-5 after a
     transcendental at one step). ``cluster``: each launch takes the
     cluster route, counted under CLUSTER_LAUNCHES, and equals the
     one-block schedule (cluster=False), whose launches are not counted
-    there; else no launch takes the cluster route."""
+    there; False: no launch takes the cluster route; None: the expression
+    kernel's plan decides which (kernels.expr_multigen_holds)."""
     from libpga_tpu_torch.ops.evaluate import evaluate
 
     hooks, P, L, dtype, layout, steps, e, scores, islands, ablate = variant
@@ -2418,7 +2515,14 @@ def _multigen_against_plain(device, variant, cluster: bool):
                                     layout=layout, ablate=ablate, device=device,
                                     gene_dtype=dtype, mparams=mparams)
     geom, kw = launch.geom, launch.kw
-    if cluster:
+    if cluster is None:
+        program = expr_cuda.program_for(*(op if fs.is_expression(op) else None
+                                          for op in (cross, mut)), kw.get("objective"))
+        mut_id = 0 if fs.is_expression(mut) else kernels.MUTATE_IDS[mut]
+        cluster = kernels.expr_multigen_holds(program, geom, dtype, mut_id,
+                                              ablate=kernels.ablate_mask(ablate, multigen=True))
+        assert cluster == (L % 4 == 0)  # every variant's group fits a cluster
+    elif cluster:
         assert kernels.multigen_cluster_plan(geom, dtype, cross)
     gen = torch.Generator(device=device).manual_seed(P + L + steps + e)
     lead = () if islands is None else (islands,)
@@ -2479,13 +2583,15 @@ def test_multigen_cluster_schedule_equals_plain_on_card(cuda_device, variant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", EXPR_ONE_BLOCK_VARIANTS, ids=_VARIANT_ID)
-def test_expr_multigen_breeds_on_one_block_on_card(cuda_device, variant):
-    """The expression kernel at the cluster cases' shapes (creep,
-    one-point, NK, trap, knapsack; bf16, islands, freeze, NaN, no_freeze)
-    takes the one-block schedule, its only one, and equals the plain
-    version bit for bit; no launch is counted on the cluster route."""
-    _multigen_against_plain(cuda_device, variant, cluster=False)
+@pytest.mark.parametrize("variant", EXPR_VARIANTS, ids=_VARIANT_ID)
+def test_expr_multigen_schedules_equal_plain_on_card(cuda_device, variant):
+    """The expression kernel (creep, one-point, NK, trap with point, swap
+    and gaussian mutation, roll(g), knapsack; bf16, islands, freeze, NaN,
+    0 and 1 steps, the harness's flags) takes the cluster schedule with the
+    eight-lane child wherever its plan holds the group (the knapsack's
+    L = 6 stays on one block), counted under CLUSTER_LAUNCHES, and equals
+    the one-block schedule and the plain version bit for bit."""
+    _multigen_against_plain(cuda_device, variant, cluster=None)
 
 
 @pytest.mark.cuda

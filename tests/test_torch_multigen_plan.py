@@ -10,7 +10,8 @@ is held against it through ctypes; and the factories are shown to hand
 every builtin launch to ``multigen_breed_cuda`` to route from the shape,
 which sends a group no cluster holds, and every order case, to the
 one-block schedule before any launch, and every expression launch to
-``expr_multigen_cuda``, which has the one-block schedule alone.
+``expr_multigen_cuda``, which routes from the shape in the same way
+(its own plan: tests/test_torch_expr_multigen_plan.py).
 """
 
 import ctypes
@@ -22,6 +23,7 @@ import pytest
 import torch
 
 from libpga_tpu_torch import objectives as po
+from libpga_tpu_torch.ops import expr_cuda
 from libpga_tpu_torch.ops import fused_step as fs
 from libpga_tpu_torch.ops import kernels
 from libpga_tpu_torch.ops.breed_expr import mutate_from_expression
@@ -47,9 +49,10 @@ def _geometry(P, L, dtype, hooks):
 
 # The multi-generation cells of PERF.md section 4 (islands: one island's
 # rows), (P, L, dtype, hooks) -> (layout, K, D) and the plan's (C, rows a
-# block, keys it sorts, shared bytes a block) at that geometry. The
-# expression cells (nk, trap, creep, knapsack) breed on the one-block
-# schedule all the same: the plan is the builtin kernel's.
+# block, keys it sorts, shared bytes a block) at that geometry. For the
+# expression cells (nk, trap, creep, knapsack) this is the builtin kernel's
+# plan at their geometry; the expression kernel's adds its children's
+# objective rows (tests/test_torch_expr_multigen_plan.py).
 PINNED = [
     ((1 << 20, 100, F32, "onemax"), ("riffle", 512, 4), (8, 256, 512, 216_448)),
     ((40_000, 100, F32, "onemax"), ("riffle", 256, 1), (1, 256, 256, 211_328)),
@@ -193,12 +196,16 @@ class _Recorder:
 
 @pytest.fixture
 def fake_plan(monkeypatch):
-    """A fake plan (a cluster holds every group of at most 100 genes) and
-    recorders in place of both multigen wrappers."""
+    """A fake plan of each kernel (a cluster holds every group of at most
+    100 genes) and recorders in place of both multigen wrappers."""
     def plan(D, K, L, gene_bytes, q):
         return kernels.MultigenPlan(8, 256, 512, 216_448) if L <= 100 else None
 
+    def expr_plan(program, geom, gene_dtype, mutate_id, ablate=0):
+        return kernels.ExprMultigenPlan(8, 256, 512, 0, 216_448) if geom.L <= 100 else None
+
     monkeypatch.setattr(kernels, "_multigen_plan", plan)
+    monkeypatch.setattr(kernels, "expr_multigen_plan", expr_plan)
     rec = {"builtin": _Recorder(), "expr": _Recorder()}
     monkeypatch.setattr(kernels, "multigen_breed_cuda", rec["builtin"])
     monkeypatch.setattr(kernels, "expr_multigen_cuda", rec["expr"])
@@ -213,7 +220,7 @@ def _cuda_like(dtype=F32):
     (100, "uniform", "point", True),
     (128, "uniform", "point", False),  # no cluster holds the group
     (100, "order", "swap", False),     # order crossover walks on one block
-    (100, "uniform", CREEP, False),    # the expression kernel: one block alone
+    (100, "uniform", CREEP, True),     # the expression kernel's eight-lane cluster schedule
     (128, "uniform", CREEP, False),
 ], ids=["f32", "long", "order", "creep", "creep-long"])
 def test_make_fused_multigen_routes_by_shape(fake_plan, L, crossover, mutate, cluster):
@@ -225,7 +232,10 @@ def test_make_fused_multigen_routes_by_shape(fake_plan, L, crossover, mutate, cl
     expr = callable(mutate)
     assert fake_plan["expr" if expr else "builtin"].calls == [(L, crossover, None, None)]
     assert not fake_plan["builtin" if expr else "expr"].calls
-    if not expr:  # the builtin wrapper's route at this shape
+    if expr:  # the expression wrapper's route at this shape
+        program = expr_cuda.program_for(None, mutate, None)
+        assert kernels.expr_multigen_holds(program, launch.geom, F32, 0) == cluster
+    else:  # the builtin wrapper's route at this shape
         assert (kernels.multigen_cluster_plan(launch.geom, F32, crossover) is not None) == cluster
 
 

@@ -3,10 +3,13 @@
 ``deme_pipelined_kernel`` (csrc/deme_breed.cu) shares each deme among a
 cluster of C blocks; csrc/pipe_plan.cuh picks C and lays out a block's
 shared memory, and ``kernels.pipelined_plan`` mirrors it. Here the mirror
-is pinned at the shapes the card runs and at the edges of the plan, held
-against the header itself (built with the host compiler), and
-``fused_step.breed_launcher`` is shown to send a deme no cluster holds to
-``deme_breed_kernel``, from the shape and before any launch.
+is pinned at the shapes the card runs, at B > 1 and at B = 1 (where
+``PGA.run`` breeds OneMax, the islands and the shards), and at the edges
+of the plan, held against the header itself (built with the host
+compiler), and ``fused_step.breed_launcher`` is shown to send every shape
+a cluster holds to the pipelined kernel and a deme no cluster holds, and
+the floor harness's copy, to ``deme_breed_kernel``, from the shape and
+before any launch.
 """
 
 import functools
@@ -34,6 +37,18 @@ PINNED = [
     ((65_536, 300, F32, 2), (8, 64, 8, 161_920)),
     ((65_536, 33, BF16, 2), (1, 512, 32, 75_904)),
     ((131_072, 1024, F32, 2), None),
+]
+
+# The B = 1 cells of PGA.run (rows, genes, gene dtype) -> (layout, C, rows a
+# block, chunks a block at parity 1, shared bytes a block): OneMax at
+# 1,048,576x100 (float32 and bf16), the reference driver's padded riffle, the
+# Rastrigin islands' 16,384x30 and a shard of 1,048,576x128 at S = 4.
+PINNED_B1 = [
+    ((1 << 20, 100, F32), ("pingpong", 2, 256, 32, 213_120)),
+    ((40_000, 100, F32), ("riffle", 1, 256, 32, 209_024)),
+    ((1 << 20, 100, BF16), ("pingpong", 1, 512, 32, 213_120)),
+    ((16_384, 30, F32), ("pingpong", 1, 512, 64, 131_200)),
+    ((262_144, 128, F32), ("pingpong", 4, 128, 16, 139_392)),
 ]
 
 # The plan's edges, (K, L, gene bytes, q) -> C (None: no cluster): where
@@ -69,6 +84,17 @@ def test_plan_at_the_card_shapes(shape, want):
     # a multiple of 16 bytes.
     assert (geom.q * geom.L * gene_bytes) % 16 == 0 and plan.rows % geom.q == 0
     assert plan.smem <= kernels.PIPE_SMEM_LIMIT and C * rows == geom.K
+
+
+@pytest.mark.parametrize("shape, want", PINNED_B1, ids=lambda v: str(v))
+def test_plan_at_the_b1_cells(shape, want):
+    P, L, dtype = shape
+    geom = fs.resolve_geometry(P, L, gene_dtype=dtype)
+    assert geom.B == 1
+    gene_bytes = 2 if dtype == BF16 else 4
+    plan = kernels.pipelined_plan(geom.K, L, gene_bytes, geom.q)
+    assert (geom.layout, plan.C, plan.rows, plan.chunks, plan.smem) == want
+    assert plan.C * plan.rows == geom.K and kernels.pipelined_holds(geom, dtype)
 
 
 @pytest.mark.parametrize("args, C", EDGES, ids=lambda v: str(v))
@@ -129,7 +155,12 @@ def test_mirror_constants_are_the_headers():
     ((1 << 20, 128, F32, 2), True),
     ((65_536, 300, F32, 2), True),
     ((131_072, 1024, F32, 2), False),  # K = 256 of 4 KB rows: 1 MB a deme
-    ((1 << 20, 100, F32, None), False),  # B = 1
+    ((1 << 20, 100, F32, None), True),  # B = 1: PGA.run's OneMax
+    ((40_000, 100, F32, None), True),  # B = 1, the padded riffle
+    ((1 << 20, 100, BF16, None), True),
+    ((16_384, 30, F32, None), True),  # L % 4 != 0: one gene a lane
+    ((262_144, 128, F32, None), True),  # a shard of 4
+    ((131_072, 1024, F32, None), False),  # B = 1, riffle K = 256: 1 MB a deme
 ], ids=lambda v: str(v))
 def test_breed_launcher_routes_by_shape(shape, pipelined):
     P, L, dtype, B = shape
@@ -137,6 +168,23 @@ def test_breed_launcher_routes_by_shape(shape, pipelined):
     launch = fs.breed_launcher(geom, dtype, {"mutate": "point"})
     assert launch.func is kernels.deme_breed_cuda and launch.keywords == {"pipelined": pipelined}
     assert kernels.pipelined_holds(geom, dtype) == pipelined
+
+
+@pytest.mark.parametrize("ablate, pipelined", [
+    (("copy_only",), False),
+    (("copy_only", "no_rank_sort"), False),
+    (("copy_only", "no_mut"), False),  # the copy whatever the stage flags
+    (("no_mut",), True),
+    (("sel_const", "no_matmul", "no_cross", "no_mut"), True),
+], ids=lambda v: str(v))
+def test_the_floor_harness_follows_the_route(ablate, pipelined):
+    """At B = 1 the floor harness's stage cases take the pipelined kernel
+    where a cluster holds the deme, as at B > 1; its copy stays on
+    deme_breed_kernel, which alone has one."""
+    for P, B in ((40_000, None), (1 << 20, None), (1 << 20, 2)):
+        geom = fs.resolve_geometry(P, 100, subblock=B)
+        launch = fs.breed_launcher(geom, F32, {"mutate": "point", "ablate": ablate})
+        assert launch.keywords == {"pipelined": pipelined}
 
 
 def test_breed_launcher_keeps_the_hook_kernels():
