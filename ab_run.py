@@ -3,7 +3,8 @@
 (A, B, B, A), each in its own process:
 
     python3 ab_run.py PARENT_DIR [CHANGE_DIR] [--generations-per-launch T] [--subblock B]
-                      [--tsp | --creep | --nk] [--shape PxL] [--bf16] [--rounds N]
+                      [--tsp | --order-expr | --creep | --nk] [--shape PxL] [--bf16]
+                      [--rounds N]
     python3 ab_run.py PARENT_DIR [CHANGE_DIR] --sass [--creep]
 
 CHANGE_DIR defaults to the checkout holding this script. Prints one JSON
@@ -14,7 +15,12 @@ more generations under torch.profiler. The workload is OneMax at
 1,048,576x100 and 40,000x100; with ``--tsp`` the TSP at 8,192x1,000
 (``make_tsp_coords(random_tsp_coords(1000, seed=2), duplicate_mode=
 "genes")``, order crossover, swap mutation at 0.5: the order-breed
-kernel with the fused tour score); with ``--creep`` OneMax with the
+kernel with the fused tour score); with ``--order-expr`` the order
+crossover's expression kernel at its two cells: the tour written as an
+expression over ``random_tsp_coords(200, seed=2)`` at 65,536x200 with
+swap mutation at 0.5, and the coordinate TSP of ``--tsp`` at 8,192x1,000
+with the creep expression (rate 0.05, sigma 0.1) as its mutation (no
+``--shape``); with ``--creep`` OneMax with the
 creep mutation expression (``where(r < rate, g + sigma * (2*r2 - 1),
 g)``, rate 0.05, sigma 0.1: the expression breed kernel); with ``--nk``
 the NK landscape (n = 64, k = 3, seed 0) at 4,194,304x64, an expression
@@ -51,6 +57,7 @@ from pathlib import Path
 
 SHAPES = ((1 << 20, 100), (40_000, 100))
 TSP_SHAPES = ((8192, 1000),)
+ORDER_EXPR_SHAPES = ((65_536, 200, "tour"), (8192, 1000, "tsp_creep"))
 NK_SHAPES = ((1 << 22, 64),)
 
 CHILD = r"""
@@ -58,6 +65,10 @@ import hashlib, json, re, sys, time
 sys.path.insert(0, sys.argv[1])
 T, tsp, creep, nk = (int(sys.argv[2]), sys.argv[3] == "tsp", sys.argv[3] == "creep",
                     sys.argv[3] == "nk")
+TOUR = ("c = floor(g * L); x = gather(X, c); y = gather(Y, c);"
+        " dx = roll(x, 1) - x; dy = roll(y, 1) - y;"
+        " -sum(where(i < L - 1, sqrt(dx*dx + dy*dy + 1e-12), 0))")
+CREEP = "where(r < rate, g + sigma * (2*r2 - 1), g)"
 B = int(sys.argv[4])
 shapes = [tuple(x) for x in json.loads(sys.argv[5])]
 import torch
@@ -66,7 +77,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 import libpga_tpu_torch as port
 out, kernel_ms, digest = {}, {}, hashlib.sha256()
-for P, L in shapes:
+for P, L, *case in shapes:
     knobs = dict(generations_per_launch=T) if T > 1 else {}
     if B > 1:
         knobs["subblock"] = B
@@ -75,7 +86,21 @@ for P, L in shapes:
     config = port.PGAConfig(**knobs) if knobs else None
     pga = port.pga_init(seed=1, config=config)
     h = port.pga_create_population(pga, P, L)
-    if tsp:
+    if case:  # the order expression kernel's cells
+        from libpga_tpu_torch.objectives import (from_expression, make_tsp_coords,
+                                                 random_tsp_coords)
+        from libpga_tpu_torch.ops.breed_expr import mutate_from_expression
+        from libpga_tpu_torch.ops.crossover import order_preserving_crossover
+        from libpga_tpu_torch.ops.mutate import make_swap_mutate
+        xy = random_tsp_coords(L, seed=2)
+        if case[0] == "tour":
+            port.pga_set_objective_function(pga, from_expression(TOUR, X=xy[:, 0], Y=xy[:, 1]))
+            port.pga_set_mutate_function(pga, make_swap_mutate(0.5))
+        else:
+            port.pga_set_objective_function(pga, make_tsp_coords(xy, duplicate_mode="genes"))
+            port.pga_set_mutate_function(pga, mutate_from_expression(CREEP, rate=0.05, sigma=0.1))
+        port.pga_set_crossover_function(pga, order_preserving_crossover)
+    elif tsp:
         from libpga_tpu_torch.objectives import make_tsp_coords, random_tsp_coords
         from libpga_tpu_torch.ops.crossover import order_preserving_crossover
         from libpga_tpu_torch.ops.mutate import make_swap_mutate
@@ -105,11 +130,11 @@ for P, L in shapes:
         port.pga_run(pga, 48)
         torch.cuda.synchronize()
     kernel_ms["%dx%d" % (P, L)] = {
-        re.search(r"\w*(breed|pipelined|multigen)_kernel", e.key).group():
+        re.search(r"\w*(breed|pipelined|multigen|order)_kernel", e.key).group():
             e.self_device_time_total / 1e3 / e.count
         for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA
-        and re.search(r"(breed|pipelined|multigen)_kernel", e.key)}
+        and re.search(r"(breed|pipelined|multigen|order)_kernel", e.key)}
     pop = pga.population(h)
     digest.update(pop.genomes.cpu().float().numpy().tobytes() + pop.scores.cpu().numpy().tobytes())
 print(json.dumps({"ms_per_gen": out, "kernel_ms": kernel_ms, "digest": digest.hexdigest()[:16]}))
@@ -174,10 +199,10 @@ def main() -> int:
             "change_only": sorted(change.keys() - parent.keys())}}), flush=True)
         return 0
     knobs = {"--generations-per-launch": 1, "--subblock": 1, "--rounds": 1}
-    workload = ("tsp" if "--tsp" in args else "creep" if "--creep" in args
-                else "nk" if "--nk" in args else "onemax")
+    workload = ("tsp" if "--tsp" in args else "order_expr" if "--order-expr" in args
+                else "creep" if "--creep" in args else "nk" if "--nk" in args else "onemax")
     dtype = "bf16" if "--bf16" in args else "f32"
-    args = [a for a in args if a not in ("--tsp", "--creep", "--nk", "--bf16")]
+    args = [a for a in args if a not in ("--tsp", "--order-expr", "--creep", "--nk", "--bf16")]
     for flag in knobs:
         if flag in args:
             at = args.index(flag)
@@ -188,6 +213,8 @@ def main() -> int:
         at = args.index("--shape")
         shapes.append([int(x) for x in args[at + 1].split("x")])
         del args[at : at + 2]
+    if workload == "order_expr":
+        shapes = ORDER_EXPR_SHAPES
     shapes = shapes or {"tsp": TSP_SHAPES, "nk": NK_SHAPES}.get(workload, SHAPES)
     per_launch, subblock = knobs["--generations-per-launch"], knobs["--subblock"]
     if not args:

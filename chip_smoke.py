@@ -43,7 +43,9 @@ Phases, each printing one line; any failure exits non-zero:
      random_tsp_coords(1000, seed=2)) and 1,000x100 (unfused, padded to
      1,024 rows), with injected and with Philox draws: genomes equal,
      scores within TSP_RTOL and -inf on the same rows. Times both with
-     CUDA events beside the byte bound and the walk's dependent chain;
+     CUDA events beside the byte bound and the walk's dependent chain,
+     in steps and in ms at a walk step the card measures
+     (kernels.walk_step_probe: walk_step_ns, chain_ms);
   9. tsp_run: PGA.run through pga_init, pga_create_population,
      pga_set_objective_function, pga_set_crossover_function
      (order_preserving_crossover) and pga_set_mutate_function
@@ -811,6 +813,29 @@ def breed_bound(geom, *, ablate=(), program=None, order: bool = False, n_cities:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", chain
 
 
+WALK_PROBE_STEPS = 1 << 20  # the walk-step probe's dependent steps a thread
+_walk_step_ms: dict = {}
+
+
+def walk_step_ms(L: int) -> float:
+    """Milliseconds one walk step costs on the card at genome length L:
+    ``kernels.walk_step_probe`` (the order walk's step alone on shared
+    memory, one block, ``WALK_PROBE_STEPS`` dependent steps a thread)
+    by CUDA events over its steps, measured once a length."""
+    from libpga_tpu_torch.ops import kernels
+
+    if L not in _walk_step_ms:
+        _walk_step_ms[L] = cuda_ms(
+            lambda: kernels.walk_step_probe(L, WALK_PROBE_STEPS, "cuda"), 3) / WALK_PROBE_STEPS
+    return _walk_step_ms[L]
+
+
+def chain_ms(chain, L: int):
+    """A walker's chain of ``chain`` steps priced at the measured walk
+    step (None where no walk runs)."""
+    return chain * walk_step_ms(L) if chain else None
+
+
 def population(geom, gen, device):
     """Uniform genomes with zero pad rows, onemax scores with -inf pads."""
     import torch
@@ -1292,7 +1317,9 @@ def phase_tsp_compare(fs, device, results):
         bound_ms, bound_by, chain = breed_bound(geom, order=True, scored=fused,
                                                 n_cities=tsp.coords.shape[0] if fused else 0)
         r = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 chain_steps=chain, max_abs_err=max(errs), K=geom.K, G=geom.G, Pp=geom.Pp)
+                 chain_steps=chain, chain_ms=chain_ms(chain, L),
+                 walk_step_ns=1e6 * walk_step_ms(L), max_abs_err=max(errs), K=geom.K, G=geom.G,
+                 Pp=geom.Pp)
         if fused:
             # The walk alone (no score: half the dependent chain), and the
             # fused launch on permutation parents (no fallback draws).
@@ -2405,9 +2432,10 @@ def phase_order_expr_compare(port, fs, device, results):
             bound_ms, bound_by, chain = breed_bound(geom, program=program, order=True,
                                                     n_cities=n_cities)
             line.update(kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                        chain_steps=chain, ms_over_bound=ms / bound_ms)
+                        chain_steps=chain, chain_ms=chain_ms(chain, L),
+                        ms_over_bound=ms / bound_ms)
             r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                     chain_steps=chain, shape=[P, L], K=geom.K)
+                     chain_steps=chain, chain_ms=chain_ms(chain, L), shape=[P, L], K=geom.K)
         print(json.dumps(line), flush=True)
         del g, s, ranks
         torch.cuda.empty_cache()
@@ -2731,14 +2759,15 @@ def phase_island_compare(fs, device, results):
                 "max_err": max(errs), "kernel_ms": ms, "loop_ms": loop_ms,
                 "loop_over_island": loop_ms / ms, "plain_ms": plain_ms, "rank_ms": rank_ms,
                 "bound_ms": I * bound_ms, "bound_by": bound_by, "chain_steps": chain,
+                "chain_ms": chain_ms(chain, L),
                 "kernel_over_bound": ms / (I * bound_ms), "schedule": route,
                 "one_block_ms": one_block_ms, "deme_breed_ms": deme_ms,
                 "counter": deme_key(fs.kernels, geom, islands=True)
                 if kernel == "deme_breed" else None}
         print(json.dumps(line), flush=True)
         r = {k: line[k] for k in ("case", "ms", "loop_ms", "plain_ms", "rank_ms", "bound_ms",
-                                  "bound_by", "layout", "K", "D", "steps", "schedule",
-                                  "one_block_ms", "deme_breed_ms")
+                                  "bound_by", "chain_steps", "chain_ms", "layout", "K", "D",
+                                  "steps", "schedule", "one_block_ms", "deme_breed_ms")
              if k in line} | {"ms": ms, "max_abs_err": max(errs), "shape": [I, S, L]}
         if kernel in results:
             results[kernel].setdefault("other_cases", {})[name] = r
@@ -3123,13 +3152,15 @@ def phase_island_expr_compare(port, fs, kernels, device, results):
                 "max_abs_err": max(errs), "score_rtol": rtol, "score_atol": atol,
                 "kernel_ms": ms, "loop_ms": loop_ms, "loop_over_island": loop_ms / ms,
                 "plain_ms": plain_ms, "bound_ms": I * bound_ms, "bound_by": bound_by,
-                "chain_steps": chain, "kernel_over_bound": ms / (I * bound_ms),
+                "chain_steps": chain, "chain_ms": chain_ms(chain, L),
+                "kernel_over_bound": ms / (I * bound_ms),
                 "schedule": route, "one_block_ms": one_block_ms, "expr_breed_ms": old_ms,
                 "expr_breed_max_ulps": old_ulps if pipelined else None}
         print(json.dumps(line), flush=True)
         results[name] = {"counter": counter, "ms": ms, "loop_ms": loop_ms, "plain_ms": plain_ms,
                          "schedule": route, "expr_breed_ms": old_ms, "one_block_ms": one_block_ms,
                          "bound_ms": I * bound_ms, "bound_by": bound_by, "chain_steps": chain,
+                         "chain_ms": chain_ms(chain, L),
                          "max_abs_err": max(errs), "shape": [I, S, L], "steps": steps,
                          "layout": geom.layout, "K": K, "D": geom.D,
                          "gene_dtype": str(dtype)[6:]}
@@ -5126,8 +5157,9 @@ def drive(torch, port, onemax, fs, kernels) -> int:
         "launches": main_r["launches"], "max_abs_err": max(main_r["max_abs_err"], ref_r["max_abs_err"]),
         "ms": main_r["ms"], "plain_ms": main_r["plain_ms"], "bound_ms": main_r["bound_ms"],
         "bound_by": main_r["bound_by"], "library_ms": None, "chain_steps": main_r["chain_steps"],
+        "chain_ms": main_r["chain_ms"], "walk_step_ns": main_r["walk_step_ns"],
         "reference_shape": {k: ref_r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                   "chain_steps", "launches")},
+                                                   "chain_steps", "chain_ms", "launches")},
     })
     for name, r in expr_results.items():
         # The kernel the workload's run launched: expr_pipelined_kernel,
@@ -5170,7 +5202,8 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "shape": r["shape"], "K": r["K"],
             "steps": 1 if kernel == "expr_order" else ORDER_T,
-            "chain_steps": r["chain_steps"], "ms_at_1_step": r.get("ms_at_1_step"),
+            "chain_steps": r["chain_steps"], "chain_ms": r.get("chain_ms"),
+            "ms_at_1_step": r.get("ms_at_1_step"),
             "ms_per_gen": r["ms_per_gen"], "gens_per_s": r["gens_per_s"],
             "device_busy_share": r["device_busy_share"], "best": r["best"],
             "best_distinct_cities": r["best_distinct_cities"],

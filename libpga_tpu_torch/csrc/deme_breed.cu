@@ -393,8 +393,8 @@ __global__ void __launch_bounds__(THREADS) deme_breed_kernel(
 // never marks the fallback; fallback duplicates are what the penalty selects
 // against). Point and gaussian mutation apply per gene as the walk writes it;
 // swap mutation exchanges genes pi = floor(u0*L) and pj = floor(u1*L) after
-// the walk (no clamp: u < 1). Then, for OBJ_TSP, a second walk over the child
-// scores -(open-path length + penalty * (L - distinct cities)), each edge
+// the walk (no clamp: u < 1). Then, for OBJ_TSP, the child as stored scores
+// -(open-path length + penalty * (L - distinct cities)), each edge
 // sqrtf(dx*dx + dy*dy + 1e-12f), summed in l order with the coordinate lookup
 // clamped to C-1; the rowwise-fused objectives (onemax, onemax_bits, sphere,
 // rastrigin, ackley) sum the child's terms in l order.
@@ -404,24 +404,29 @@ __global__ void __launch_bounds__(THREADS) deme_breed_kernel(
 // hi/lo one-hot matmul (the MXU cannot gather; ~1e-3 accurate). Here the walk
 // is one thread's sequential loop: one thread per child, ORDER_THREADS
 // children of one deme per block (so a G = 32 population still fills ~128
-// SMs), the deme's row_of_rank[K] rebuilt by each of its blocks. Each child's
-// visited-city bitmask is ceil(L/32) words in shared memory laid out
-// [word][child], so a warp's lanes hit distinct banks; the coordinates (the
-// first min(C, L) cities, the only ones a decode in [0, L) reaches) are staged
-// in shared memory as float2 and gathered exactly. The walk (order_walk) and
-// the score (tsp_walk_score) are breed_core.cuh's, which the expression and
-// multi-generation kernels' order cases share. Parent reads and child
-// writes are per-thread strided (each lane its own row): the lines of a row
-// are reused from L1 over 32 steps, and at 8,192x1,000 the 32.8 MB population
-// stays in the 50 MB L2. Coalescing them through shared-memory tiles is later
-// work.
+// SMs), the deme's row_of_rank[K] rebuilt by each of its blocks, and the
+// block walks its children in step on shared-memory tiles (breed_core.cuh's
+// order_tiles, layout order_plan.cuh): both parents' next tile staged by
+// cp.async copies while the block walks this one, the child written over
+// parent 1's staged genes and stored with coalesced stores. Each child's
+// visited-city bitmask is ceil(L/32) words laid out [word][child], so a
+// warp's lanes hit distinct banks; the coordinates (the first min(C, L)
+// cities, the only ones a decode in [0, L) reaches) are staged as float2
+// and gathered exactly. The score rides on the walk: each gene's city marks a
+// second bitmask (the duplicates are a count, the same in any order, so a
+// swap moves none), and the edges and the rowwise terms are added as the
+// walk writes genes that are final: all of them where no scored child of
+// the block swaps, else those before the first gene a swap of the block
+// moves (a bound the whole block shares, so a warp adds each edge once);
+// the rest of the sums read the children back as stored on the same tiles
+// (order_rescan). Both sums keep l order.
 //
 // Bound. Bytes: the population read once and written once, 2*Pp*L*4 bytes
 // (65.5 MB at 8,192x1,000, >= 19.6 us at 3.35 TB/s). Operations: a few integer
 // operations per gene plus a sqrtf per edge, far below the card's rate. But
 // each thread's walk is a dependent chain of L steps through its bitmask
-// (shared-memory load, test, store), and a second chain of L steps scores the
-// child: at 1,000 cities that chain, not the bytes, is expected to set the time.
+// (shared-memory loads, a test and a store), and the score's edge sum a chain
+// of L adds: at 1,000 cities those chains, not the bytes, set the time.
 //
 // Randomness. Production mode: Philox4x32-10 keyed by the launch seed, counter
 // (k, g, stream, 0): stream 0 = selection, 1 = mutation, 0x20000000 + l/4 =
@@ -448,16 +453,19 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
     const float* __restrict__ gin, float* __restrict__ gout, float* __restrict__ sout,
     const int* __restrict__ ranks, const float* __restrict__ mparams, OrderDraws dr,
     const float* __restrict__ coords, int C, float penalty, Geometry geo, Selection sel,
-    int mutate, int obj) {
-  extern __shared__ int smem[];
+    int mutate, int obj, OrderPlan plan, int vec) {
+  extern __shared__ __align__(16) unsigned char order_smem[];
+  __shared__ int s_from;  // the first gene a swap moves in a scored child of the block (L: none)
   const int K = geo.K, L = geo.L, G = geo.G;
-  const int W = (L + 31) / 32;
   const int per_deme = K / ORDER_THREADS;
-  const int g = blockIdx.x / per_deme;
-  const int k = (blockIdx.x % per_deme) * ORDER_THREADS + threadIdx.x;
-  int* row_of_rank = smem;                                          // K
-  unsigned* vis = reinterpret_cast<unsigned*>(smem + K) + threadIdx.x;  // [W][ORDER_THREADS]
-  float2* xy = reinterpret_cast<float2*>(smem + K + W * ORDER_THREADS);
+  const int g = blockIdx.x / per_deme, first = (blockIdx.x % per_deme) * ORDER_THREADS;
+  const int k = first + threadIdx.x;
+  float* const bufs = reinterpret_cast<float*>(order_smem);
+  float2* const xy = reinterpret_cast<float2*>(order_smem + plan.xy);
+  unsigned* const vis = reinterpret_cast<unsigned*>(order_smem + plan.vis) + threadIdx.x;
+  unsigned* const seen = reinterpret_cast<unsigned*>(order_smem + plan.seen) + threadIdx.x;
+  int* const row_of_rank = reinterpret_cast<int*>(order_smem + plan.ror);
+  int* const srow = reinterpret_cast<int*>(order_smem + plan.srow);
   const int Cs = obj == OBJ_TSP ? min(C, L) : 0;
   const size_t rows = (size_t)G * K;
   gin = island_slice(gin, (size_t)geo.Pp * L);
@@ -476,6 +484,7 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
   }
   for (int i = threadIdx.x; i < Cs; i += ORDER_THREADS)
     xy[i] = make_float2(coords[2 * i], coords[2 * i + 1]);
+  if (threadIdx.x == 0) s_from = L;
   __syncthreads();
 
   const float V = (float)max(min(K, geo.P - g * K), 1);
@@ -511,65 +520,144 @@ __global__ void __launch_bounds__(ORDER_THREADS) order_breed_kernel(
     s1 = min(max(row_of_rank[r1], 0), K - 1);
     s2 = min(max(row_of_rank[r2], 0), K - 1);
   }
-  const float* p1 = gin + ((size_t)g * K + s1) * L;
-  const float* p2 = gin + ((size_t)g * K + s2) * L;
+  srow[threadIdx.x] = g * K + s1;
+  srow[ORDER_THREADS + threadIdx.x] = g * K + s2;
   const int orow = k * G + g;
-  float* out = gout + (size_t)orow * L;
 
   const int pos = (int)floorf(mu0 * (float)L);
   const int pj = (int)floorf(mu1 * (float)L);
   constexpr bool MUTATES = !(ABLATE & ABL_NO_MUT);
   const bool fire = MUTATES && (mutate == MUT_SWAP ? mu2 < rate : mu1 < rate);
+  const bool swaps = mutate == MUT_SWAP && fire;
+  const bool tsp = obj == OBJ_TSP, scored = obj != OBJ_NONE;
+  // A swap moves genes pos and pj: the genes before the first gene a swap
+  // moves in any scored child of the block are final as the walk writes
+  // them.
+  if (scored && swaps) atomicMin(&s_from, min(pos, pj));
+  if (tsp)
+    for (int w = 0; w < (L + 31) / 32; ++w) seen[w * ORDER_THREADS] = 0u;
   const size_t plane = (size_t)G * K * L;
+  __syncthreads();  // srow, s_from
+  const int from = s_from;
 
   // Point and gaussian mutation apply per gene as the walk writes it.
-  auto mutate_gene = [=](int l, float c) {
-    if (!MUTATES) return c;
-    if (mutate == MUT_POINT) {
-      if (fire && l == pos) c = mu2;
-    } else if (mutate == MUT_GAUSSIAN) {
-      float gate, u1, u2;
-      if (philox_mode) {
-        const uint4 z = philox(k0, k1, make_uint4(k, g, STREAM_GAUSS + l, 0u));
-        gate = to_uniform(z.x);
-        u1 = to_uniform(z.y);
-        u2 = to_uniform(z.z);
-      } else {
-        const size_t at = child * L + l;
-        gate = dr.gauss[at];
-        u1 = dr.gauss[plane + at];
-        u2 = dr.gauss[2 * plane + at];
-      }
-      u1 = fminf(fmaxf(u1, 1e-7f), U1_HI);
-      const float normal = sqrtf(-2.0f * logf(u1)) * cosf(TWO_PI * u2);
-      const float m = fminf(fmaxf(c + sigma * normal, 0.0f), U1_HI);
-      if (gate < rate) c = m;
+  auto gauss_gene = [=](int l, float c) {
+    float gate, u1, u2;
+    if (philox_mode) {
+      const uint4 z = philox(k0, k1, make_uint4(k, g, STREAM_GAUSS + l, 0u));
+      gate = to_uniform(z.x);
+      u1 = to_uniform(z.y);
+      u2 = to_uniform(z.z);
+    } else {
+      const size_t at = child * L + l;
+      gate = dr.gauss[at];
+      u1 = dr.gauss[plane + at];
+      u2 = dr.gauss[2 * plane + at];
     }
-    return c;
+    u1 = fminf(fmaxf(u1, 1e-7f), U1_HI);
+    const float normal = sqrtf(-2.0f * logf(u1)) * cosf(TWO_PI * u2);
+    const float m = fminf(fmaxf(c + sigma * normal, 0.0f), U1_HI);
+    return gate < rate ? m : c;
   };
-  if constexpr ((ABLATE & ABL_NO_CROSS) != 0u) {
-    for (int l = 0; l < L; ++l) out[l] = mutate_gene(l, __ldg(p1 + l));
-  } else {
-    const FillSource fill{philox_mode, k0, k1, k, g, 0u,
-                          philox_mode ? nullptr : dr.fill + child * L};
-    order_walk<true>(p1, p2, out, L, vis, ORDER_THREADS, fill, mutate_gene);
-  }
-  if (mutate == MUT_SWAP && fire) {
-    const float a = out[pos], b = out[pj];
-    out[pos] = b;
-    out[pj] = a;
+  TourScore tour;
+  float a = 0.0f, b = 0.0f;           // a rowwise objective's sums
+  float at_pos = 0.0f, at_pj = 0.0f;  // the genes a swap exchanges
+  auto finish = [&](int l0, float(&x)[4], int m) {
+    if (MUTATES && mutate == MUT_POINT) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = fire && l0 + i == pos ? mu2 : x[i];
+    } else if (MUTATES && mutate == MUT_GAUSSIAN) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i < m) x[i] = gauss_gene(l0 + i, x[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      at_pos = l0 + i == pos ? x[i] : at_pos;
+      at_pj = l0 + i == pj ? x[i] : at_pj;
+    }
+    if (tsp) {
+      tour.chunk<true>(x, l0, m, L, seen, xy, C, 0, from);
+    } else if (scored && l0 < from) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i < m && l0 + i < from) obj_add(obj, x[i], a, b);
+    }
+  };
+  const FillSource fill{philox_mode, k0, k1, k, g, 0u, philox_mode ? nullptr : dr.fill + child * L};
+  auto src_row = [=](int r) { return srow[r]; };
+  auto out_row = [=](int r) { return (first + r) * G + g; };
+  // no_cross: nothing is walked, the child is parent 1 (mutated per gene as
+  // it is copied).
+  constexpr bool WALK = !(ABLATE & ABL_NO_CROSS);
+  constexpr int NT = ORDER_THREADS;
+  if (philox_mode)
+    order_tiles<WALK, true, NT>(bufs, gin, gout, src_row, out_row, L, vec != 0, vis, fill, finish);
+  else
+    order_tiles<WALK, false, NT>(bufs, gin, gout, src_row, out_row, L, vec != 0, vis, fill, finish);
+  __syncthreads();  // every child's row stored
+  float* const out = gout + (size_t)orow * L;
+  if (swaps) {
+    out[pos] = at_pj;
+    out[pj] = at_pos;
   }
   if (obj == OBJ_NONE) return;
 
-  float score = 0.0f;
-  if (obj == OBJ_TSP) {
-    score = tsp_walk_score(out, L, vis, ORDER_THREADS, xy, C, penalty);
-  } else {
-    float a = 0.0f, b = 0.0f;
-    for (int l = 0; l < L; ++l) obj_add(obj, out[l], a, b);
-    score = obj_finish(obj, a, b, L);
+  if (from < L) {
+    __syncthreads();  // the swaps stored
+    // The rest of the sums, from gene `from` on, over the children as stored.
+    order_rescan<NT>(bufs, gout, out_row, L, vec != 0, from / ORDER_TILE,
+                 [&](int l0, const float(&x)[4], int m) {
+                   if (tsp) {
+                     tour.chunk<false>(x, l0, m, L, seen, xy, C, from, L);
+                   } else {
+#pragma unroll
+                     for (int i = 0; i < 4; ++i)
+                       if (i < m && l0 + i >= from) obj_add(obj, x[i], a, b);
+                   }
+                 });
   }
+  const float score =
+      tsp ? tour.score(penalty, TourScore::duplicates(seen, L)) : obj_finish(obj, a, b, L);
   sout[orow] = orow < geo.P ? score : -INFINITY;
+}
+
+
+// An instrument, not a port of a TPU kernel (chip_smoke.py's tsp_compare):
+// the walk's steps alone (decode_chunk, fill_chunk and walk_chunk, as
+// order_tiles runs them, Philox fallback draws included), so that a
+// walker's chain can be priced in steps the card measures. Each of one
+// block's ORDER_THREADS threads walks `steps` genes (a multiple of 4) on its
+// own [word][thread] bitmask column of ceil(L/32) words, cleared every L
+// genes, both parents' genes hashed from (gene, thread): no tile, no load
+// but the bitmask's. The launch's time over `steps` is a walk step's;
+// out[thread] keeps the sum of its child's genes.
+__global__ void __launch_bounds__(ORDER_THREADS) walk_step_probe(int L, int steps, float* out) {
+  extern __shared__ unsigned probe_vis[];
+  unsigned* const vis = probe_vis + threadIdx.x;
+  const unsigned vis_at = smem_u32(vis);
+  const int nw = (L + 31) / 32;
+  const FillSource fill{true, 0x243F6A88u, 0x85A308D3u, (int)threadIdx.x, 0, 0u, nullptr};
+  float sum = 0.0f;
+  for (int s = 0, left = 0; s < steps; s += 4, left -= 4) {
+    if (left <= 0) {
+      for (int w = 0; w < nw; ++w) vis[w * ORDER_THREADS] = 0u;
+      left = L;
+    }
+    float x[4], b[4], f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t h = ((uint32_t)(s + i) * 0x9E3779B9u) ^ (threadIdx.x * 0x85EBCA6Bu);
+      h = (h ^ (h >> 16)) * 0x7FEB352Du;
+      h = (h ^ (h >> 15)) * 0x846CA68Bu;
+      x[i] = to_uniform(h);
+      b[i] = to_uniform(h * 0x2545F491u);
+    }
+    fill_chunk<true, true>(f, s, 4, fill);
+    walk_chunk<true>(x, b, f, decode_chunk(x, b, L, vis_at), 4);
+    sum += (x[0] + x[1]) + (x[2] + x[3]);
+  }
+  out[threadIdx.x] = sum;
 }
 
 
@@ -1542,17 +1630,19 @@ extern "C" int order_breed_launch(
   const Geometry geo{P, Pp, L, K, G, MODE_RIFFLE, G, 1, 8, 1};
   const Selection sel{sel_kind, tk, sel_param};
   const OrderDraws dr{sel_u, fill, mut_u, gauss, seed};
-  // Dynamic shared memory: row_of_rank, the visited bitmasks and, for
-  // OBJ_TSP, the staged coordinates. Above 48 KB it needs the attribute;
-  // past the block's 227 KB the attribute call fails and its error returns.
-  const int W = (L + 31) / 32;
-  const size_t smem =
-      (size_t)(K + W * ORDER_THREADS) * 4 + (obj == OBJ_TSP ? (C < L ? C : L) * 8 : 0);
+  // Dynamic shared memory: order_plan.cuh's layout (the tile buffers, for
+  // OBJ_TSP the staged coordinates and the score's bitmasks). Above 48 KB it
+  // needs the attribute.
+  const bool tsp = obj == OBJ_TSP;
+  const OrderPlan plan = order_plan(K, L, tsp ? (C < L ? C : L) : 0, tsp, 0);
+  if (plan.smem > ORDER_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  // 16-byte copies and stores where every row is 16-byte aligned.
+  const int vec = L % 4 == 0 && (uintptr_t)gin % 16 == 0 && (uintptr_t)gout % 16 == 0;
   return dispatch_order_ablate(ablate, [&](auto tag) {
     return launch_with_smem(order_breed_kernel<decltype(tag)::value>,
-                            dim3(G * (K / ORDER_THREADS), islands), ORDER_THREADS, smem,
+                            dim3(G * (K / ORDER_THREADS), islands), ORDER_THREADS, plan.smem,
                             (cudaStream_t)stream, gin, gout, sout, ranks, mparams, dr, coords, C,
-                            penalty, geo, sel, mutate, obj);
+                            penalty, geo, sel, mutate, obj, plan, vec);
   });
 }
 
@@ -1586,6 +1676,15 @@ int multigen_cluster_launch(const MultigenIO<Gene>& io, const float* mparams, co
 }
 
 }  // namespace
+
+// The walk step's instrument: one block, `steps` steps a thread (a multiple
+// of 4); out holds ORDER_THREADS floats.
+extern "C" int walk_step_probe_launch(float* out, int L, int steps, void* stream) {
+  if (L < 1 || steps < 4 || steps % 4) return (int)cudaErrorInvalidValue;
+  return launch_with_smem(walk_step_probe, dim3(1), ORDER_THREADS,
+                          (size_t)((L + 31) / 32) * ORDER_THREADS * 4, (cudaStream_t)stream, L,
+                          steps, out);
+}
 
 // cross_kind 0: uniform crossover (`cross` bits); 1: order crossover (`fill`
 // genes; D must be 1; float32 genes only). draw_steps: the sub-generations

@@ -815,7 +815,7 @@ __global__ void __launch_bounds__(PIPE_THREADS, 1) expr_pipelined_kernel(
 // only (JAX pins D = 1 and the riffle for order crossover).
 //
 // What it computes, per child: order_breed_kernel's selection and walk
-// (breed_core.cuh's order_walk, fallback genes from stream 0x20000000 + l/4
+// (breed_core.cuh's order_tiles, fallback genes from stream 0x20000000 + l/4
 // or the injected plane), then the mutation: the hook per gene (its planes
 // and row words as expr_breed_kernel draws them, lane i of tile m computing
 // the call of genes 128*m + 4i .. 4i+3), else point / gaussian / swap; then
@@ -827,31 +827,36 @@ __global__ void __launch_bounds__(PIPE_THREADS, 1) expr_pipelined_kernel(
 // child; the hooks run one warp per child with lanes over genes and a shared
 // child row. So a block holds ORDER_THREADS children of one deme (as
 // order_breed_kernel: 8,192x1,000 still fills ~128 SMs) and works in phases:
-// every thread walks its child straight into the child's physical row (its
-// visited bitmask [word][child] in shared memory); a block barrier; then each
-// of the two warps takes its children in turn, reads the walked row back with
-// plain loads into its shared row, mutates it there (swap exchanges two genes
-// there), writes it back with coalesced stores and scores it from the shared
-// row; for OBJ_TSP a second barrier and each thread scores its own child from
-// the row (tsp_walk_score, the coordinates staged as float2). Shared memory:
-// row_of_rank, the bitmasks, the coordinates and each warp's child and
-// objective rows.
+// the block walks its children in step on shared-memory tiles
+// (breed_core.cuh's order_tiles, layout order_plan.cuh: both parents' next
+// tile staged by cp.async copies while the block walks this one, the child
+// stored with coalesced stores into its physical row; the block's third and
+// fourth warps share the copies and walk nothing); a block barrier; then each
+// warp with rows (all four where their rows fit) takes its children in turn,
+// reads the walked row
+// back with coalesced loads into its shared row, mutates it there (swap
+// exchanges two genes there), writes it back with coalesced stores and
+// scores it from the shared row; for OBJ_TSP a second barrier and the block
+// reads the children back on the same tiles (order_rescan), each thread
+// scoring its own (its edges added in l order, its duplicate genes counted
+// on its bitmask column, the coordinates staged as float2). Shared memory:
+// order_plan's layout with each warp's child and objective rows.
 //
 // Bound. Bytes: the population read once and written once plus the scores,
 // (2*Pp*L + 2*Pp)*4 (0.0313 ms at 65,536x200, 0.0196 ms at 8,192x1,000 at 3.35
 // TB/s). Operations: a few per gene for the walk and the hooks, far below the
-// card's rate. As in order_breed_kernel, each thread's walk (and the TSP
-// score's) is a chain of L dependent steps through shared memory, and the
-// walked row makes a second round trip through L2: the chain, not the bytes,
-// is expected to set the time.
+// card's rate. As in order_breed_kernel, each thread's walk is a chain of L
+// dependent steps through shared memory and the TSP score's edge sum a chain
+// of L adds: the chains, not the bytes, are expected to set the time.
 
 template <unsigned ABLATE>
-__global__ void __launch_bounds__(ORDER_THREADS) expr_order_kernel(
+__global__ void __launch_bounds__(2 * ORDER_THREADS) expr_order_kernel(
     const float* __restrict__ gin, float* __restrict__ gout, float* __restrict__ sout,
     const int* __restrict__ ranks, const float* __restrict__ mparams, Draws dr0, ExprDraws ex0,
     const float* __restrict__ cb, const float* __restrict__ coords, int C, float penalty,
-    Geometry geo, Selection sel, int mutate, int obj) {
-  extern __shared__ int smem[];
+    Geometry geo, Selection sel, int mutate, int obj, OrderPlan plan, int vec, int warps) {
+  extern __shared__ __align__(16) unsigned char order_smem[];
+  constexpr int NT = 2 * ORDER_THREADS;  // the block: the walk's two warps and two more
   const int K = geo.K, L = geo.L, G = geo.G, tid = threadIdx.x;
   gin = island_slice(gin, (size_t)geo.Pp * L);
   gout = island_slice(gout, (size_t)geo.Pp * L);
@@ -860,21 +865,24 @@ __global__ void __launch_bounds__(ORDER_THREADS) expr_order_kernel(
   const Draws dr = island_draws(dr0, geo, 1);
   const ExprDraws ex = island_expr_draws(ex0, geo, 1);
   const int lane = tid & 31, warp = tid >> 5;
-  const int nw = (L + 31) / 32;
+  const bool walker = tid < ORDER_THREADS;  // the walk's threads; `warps` warps run phase 2
   const int per_deme = K / ORDER_THREADS;
   const int g = blockIdx.x / per_deme, first = (blockIdx.x % per_deme) * ORDER_THREADS;
   const int Cs = obj == OBJ_TSP ? min(C, L) : 0;
-  int* row_of_rank = smem;                                          // K
-  unsigned* vis = reinterpret_cast<unsigned*>(smem + K) + tid;      // [nw][ORDER_THREADS]
-  float2* xy = reinterpret_cast<float2*>(smem + K + nw * ORDER_THREADS);  // Cs
-  float* grow = reinterpret_cast<float*>(xy + Cs) + (size_t)warp * (1 + EXPR_OBJ_ROWS) * L;
-  float* erows = grow + L;
+  float* const bufs = reinterpret_cast<float*>(order_smem);
+  float2* const xy = reinterpret_cast<float2*>(order_smem + plan.xy);
+  unsigned* const vis = reinterpret_cast<unsigned*>(order_smem + plan.vis) + tid;
+  // Phase 2's rows share the tile buffers' bytes (order_plan.cuh).
+  float* const grow = reinterpret_cast<float*>(order_smem) + (size_t)warp * (1 + EXPR_OBJ_ROWS) * L;
+  float* const erows = grow + L;
+  int* const row_of_rank = reinterpret_cast<int*>(order_smem + plan.ror);
+  int* const srow = reinterpret_cast<int*>(order_smem + plan.srow);
 
-  for (int i = tid; i < K; i += ORDER_THREADS) {
+  for (int i = tid; i < K; i += NT) {
     const int r = ranks[(size_t)g * K + i];
     if (r >= 0 && r < K) row_of_rank[r] = i;
   }
-  for (int i = tid; i < Cs; i += ORDER_THREADS)
+  for (int i = tid; i < Cs; i += NT)
     xy[i] = make_float2(coords[2 * i], coords[2 * i + 1]);
   __syncthreads();
 
@@ -883,14 +891,15 @@ __global__ void __launch_bounds__(ORDER_THREADS) expr_order_kernel(
   cx.ncalls = 2;  // selection and mutation: no crossover bits
   constexpr bool SAME = (ABLATE & (ABL_SEL_CONST | ABL_NO_GATHER)) != 0u;
   constexpr bool WALK = !(ABLATE & ABL_NO_CROSS);
+  auto out_row = [=](int r) { return (first + r) * G + g; };
 
-  // Phase 1: this thread walks child `first + tid` into its physical row
-  // (under no_cross nothing is walked).
+  // Phase 1: the block walks its children into their physical rows (under
+  // no_cross nothing is walked).
   if constexpr (WALK) {
-    const int k = first + tid;
+    const int k = first + tid % ORDER_THREADS;
     const size_t child = (size_t)g * K + k;
     int s1 = k, s2 = k;  // sel_const, no_matmul: slot k's row with itself
-    if constexpr (!SAME) {
+    if (!SAME && walker) {
       float su0, su1;
       if (cx.philox_mode) {
         const uint4 w = philox(cx.k0, cx.k1, make_uint4(k, g, STREAM_SEL, 0u));
@@ -903,18 +912,28 @@ __global__ void __launch_bounds__(ORDER_THREADS) expr_order_kernel(
       s1 = min(max(row_of_rank[winner_rank(winner_fraction(sel, su0), V)], 0), K - 1);
       s2 = min(max(row_of_rank[winner_rank(winner_fraction(sel, su1), V)], 0), K - 1);
     }
+    if (walker) {
+      srow[tid] = g * K + s1;
+      srow[ORDER_THREADS + tid] = g * K + s2;
+    }
+    __syncthreads();  // srow
     const FillSource fill{cx.philox_mode, cx.k0, cx.k1, k, g, 0u,
                           cx.philox_mode ? nullptr : dr.fill + child * L};
-    order_walk<true>(gin + ((size_t)g * K + s1) * L, gin + ((size_t)g * K + s2) * L,
-                     gout + ((size_t)k * G + g) * L, L, vis, ORDER_THREADS, fill,
-                     [](int, float x) { return x; });
+    auto src_row = [=](int r) { return srow[r]; };
+    auto as_walked = [](int, float(&)[4], int) {};
+    if (cx.philox_mode)
+      order_tiles<true, true, NT>(bufs, gin, gout, src_row, out_row, L, vec != 0, vis, fill,
+                                  as_walked);
+    else
+      order_tiles<true, false, NT>(bufs, gin, gout, src_row, out_row, L, vec != 0, vis, fill,
+                                   as_walked);
   }
   __syncthreads();
 
   // Phase 2: one warp per child: mutation, write-back, score. Under no_cross
   // the warp mutates parent 1 itself, selected from the same draws.
   const bool warp_scored = EXPR_OBJ || (obj != OBJ_NONE && obj != OBJ_TSP);
-  for (int j = warp; j < ORDER_THREADS; j += ORDER_THREADS / 32) {
+  for (int j = warp; warp < warps && j < ORDER_THREADS; j += warps) {
     const int k = first + j, orow = k * G + g;
     const size_t child = (size_t)g * K + k;
     float* out = gout + (size_t)orow * L;
@@ -936,13 +955,21 @@ __global__ void __launch_bounds__(ORDER_THREADS) expr_order_kernel(
     __syncwarp();  // the next child overwrites this warp's rows
   }
 
-  // Phase 3 (OBJ_TSP): this thread scores its child from its row.
+  // Phase 3 (OBJ_TSP): each thread scores its child as phase 2 stored it,
+  // read back on the tiles.
   if (obj == OBJ_TSP) {
-    __syncthreads();
-    const int orow = (first + tid) * G + g;
-    const float score = tsp_walk_score(gout + (size_t)orow * L, L, vis, ORDER_THREADS, xy, C,
-                                       penalty);
-    sout[orow] = orow < geo.P ? score : -INFINITY;
+    if (walker)
+      for (int w = 0; w < (L + 31) / 32; ++w) vis[w * ORDER_THREADS] = 0u;
+    __syncthreads();  // every child stored
+    TourScore tour;
+    order_rescan<NT>(bufs, gout, out_row, L, vec != 0, 0, [&](int l0, const float(&x)[4], int m) {
+      tour.chunk<true>(x, l0, m, L, vis, xy, C, 0, L);
+    });
+    if (walker) {
+      const int orow = out_row(tid);
+      const float score = tour.score(penalty, TourScore::duplicates(vis, L));
+      sout[orow] = orow < geo.P ? score : -INFINITY;
+    }
   }
 }
 
@@ -1228,8 +1255,9 @@ int expr_multigen_cluster_launch(const MultigenIO<Gene>& io, const float* mparam
 // (the shape must be one expr_plan.cuh's plan holds; gin and ranks 16-byte
 // aligned for the TMA copies, gout for the vector stores; `warps` unread);
 // 1: expr_order_kernel (order crossover,
-// riffle only, `fill` genes, ORDER_THREADS threads per block; obj may be
-// OBJ_TSP with `coords` (C, 2) and `penalty`; float32 genes only).
+// riffle only, `fill` genes, ORDER_THREADS children a block of four warps,
+// `warps` of them (2 or 4) with rows for phase 2; obj may be OBJ_TSP with
+// `coords` (C, 2) and `penalty`; float32 genes only).
 // islands: the grid's second axis (1: a single population), every tensor
 // but mparams, consts and coords with a leading island axis, one seed per
 // island. gene_dtype: GENE_F32 or GENE_BF16, the type of gin and gout.
@@ -1263,16 +1291,23 @@ extern "C" int expr_breed_launch(
     if (EXPR_CROSS || mode != MODE_RIFFLE || K % ORDER_THREADS || (obj == OBJ_TSP && C < 1) ||
         gene_dtype != GENE_F32)
       return (int)cudaErrorInvalidValue;
-    // row_of_rank, the bitmasks, the coordinates, each warp's rows.
-    const int nw = (L + 31) / 32, Cs = obj == OBJ_TSP ? (C < L ? C : L) : 0;
-    const size_t smem = (size_t)(K + nw * ORDER_THREADS) * 4 + (size_t)Cs * 8 +
-                        (size_t)(ORDER_THREADS / 32) * (1 + EXPR_OBJ_ROWS) * L * 4;
+    // Blocks of four warps; `warps` of them (2 or 4: where their rows fit,
+    // all) run phase 2. order_plan.cuh's layout with each such warp's child
+    // and objective rows.
+    if (warps != ORDER_THREADS / 32 && warps != 2 * ORDER_THREADS / 32)
+      return (int)cudaErrorInvalidValue;
+    const int Cs = obj == OBJ_TSP ? (C < L ? C : L) : 0;
+    const OrderPlan plan =
+        order_plan(K, L, Cs, false, (size_t)warps * (1 + EXPR_OBJ_ROWS) * L * 4);
+    if (plan.smem > ORDER_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    // 16-byte copies and stores where every row is 16-byte aligned.
+    const int vec = L % 4 == 0 && (uintptr_t)gin % 16 == 0 && (uintptr_t)gout % 16 == 0;
     return dispatch_expr_ablate<false>(ablate, [&](auto tag) {
       return launch_with_smem(expr_order_kernel<decltype(tag)::value>,
-                              dim3(G * (K / ORDER_THREADS), islands), ORDER_THREADS, smem,
+                              dim3(G * (K / ORDER_THREADS), islands), 2 * ORDER_THREADS, plan.smem,
                               (cudaStream_t)stream, static_cast<const float*>(gin),
                               static_cast<float*>(gout), sout, ranks, mparams, dr, ex, consts,
-                              coords, C, penalty, geo, sel, mutate, obj);
+                              coords, C, penalty, geo, sel, mutate, obj, plan, vec, warps);
     });
   }
   if (warps < 1 || warps > THREADS / 32) return (int)cudaErrorInvalidValue;

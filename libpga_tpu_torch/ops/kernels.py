@@ -154,6 +154,15 @@ PIPE_MAX_CLUSTER = 8  # the portable cluster size
 PIPE_SMEM_LIMIT = SMEM_BLOCK_BYTES - 1024  # a block's, beside its static arrays
 PIPE_ALIGN = 128  # each shared-memory region's alignment
 
+# The one-generation order kernels' shared-memory layout: csrc/order_plan.cuh's
+# constants, mirrored by order_plan (tests/test_torch_order_plan.py builds the
+# header with the host compiler and holds the two together).
+ORDER_TILE = 16  # genes a tile of the walk
+ORDER_STRIDE = ORDER_TILE + 4  # floats a staged row
+ORDER_ROWS = 2 * ORDER_THREADS  # staged rows: every child's two parents
+ORDER_STAGES = 2  # tile buffers in the ring
+ORDER_SMEM_LIMIT = SMEM_BLOCK_BYTES - 1024  # a block's, beside its static arrays
+
 _libs: dict = {}
 _expr_libs: dict = {}  # (generated source, unit macro) -> built library path
 _deme_libs: dict = {}  # deme_breed.cu unit macro -> built library path
@@ -368,6 +377,7 @@ def _bindings() -> dict:
                 ctypes.c_uint,          # ablate mask
                 p,                      # stream
             ], i),
+            "walk_step_probe_launch": ([p, i, i, p], i),  # out, L, steps, stream
             "multigen_breed_launch": ([
                 p, p, p, p, p, p,       # gin, sin, gout, sout, work0, work1
                 i, f, p,                # steps, target, mparams
@@ -547,6 +557,47 @@ def pipelined_plan(K: int, L: int, gene_bytes: int, q: int) -> Optional[PipePlan
                 return PipePlan(C, rows, rows // q, rows * L * gene_bytes + K * 4, smem)
         C *= 2
     return None
+
+
+@dataclasses.dataclass(frozen=True)
+class OrderPlan:
+    """The shared-memory layout of an ``order_breed_kernel`` or
+    ``expr_order_kernel`` block (``csrc/order_plan.cuh``): byte offsets,
+    after the ``ORDER_STAGES`` tile buffers and the warps' rows (which share
+    their bytes, at 0), of the staged coordinates, the walk's visited bitmasks,
+    the score's seen bitmasks, row_of_rank and the staged rows' population
+    rows; ``smem`` the dynamic shared memory the block takes."""
+
+    xy: int
+    vis: int
+    seen: int
+    ror: int
+    srow: int
+    smem: int
+
+
+def order_plan(K: int, L: int, cities: int = 0, seen: bool = False,
+               warp_bytes: int = 0) -> OrderPlan:
+    """The layout of a block that walks ``ORDER_THREADS`` children of a
+    deme of ``K`` rows of ``L`` genes on shared-memory tiles, with
+    min(``cities``, L) staged coordinates, the score's ``seen`` bitmasks
+    (``order_breed_kernel`` with the fused TSP score) and ``warp_bytes``
+    of warp rows (``expr_order_kernel``): ``order_plan`` of
+    ``csrc/order_plan.cuh``, which the launchers use."""
+    mask = _round16(-(-L // 32) * ORDER_THREADS * 4)
+    xy = _round16(max(ORDER_STAGES * ORDER_ROWS * ORDER_STRIDE * 4, warp_bytes))
+    vis = xy + _round16(min(cities, L) * 8)
+    seen_at = vis + mask
+    ror = seen_at + (mask if seen else 0)
+    srow = ror + _round16(K * 4)
+    return OrderPlan(xy, vis, seen_at, ror, srow, srow + ORDER_ROWS * 4)
+
+
+def order_holds(K: int, L: int, cities: int = 0, seen: bool = False,
+                warp_bytes: int = 0) -> bool:
+    """Whether a block of that layout (:func:`order_plan`) fits the
+    shared memory a block may use; a launcher refuses any other."""
+    return order_plan(K, L, cities, seen, warp_bytes).smem <= ORDER_SMEM_LIMIT
 
 
 def pipelined_holds(geom, gene_dtype) -> bool:
@@ -873,9 +924,11 @@ def order_breed_cuda(
     I populations in one launch, shaped as :func:`deme_breed_cuda`'s.
     ``ablate`` launches a stage case of the floor harness (any
     combination of the stage flags, from the unit that holds it; no_cross
-    walks nothing; the copy is :func:`deme_breed_cuda`'s).
-    Raises on bad arguments or a failed launch; never runs anything else
-    in the kernel's place."""
+    walks nothing; the copy is :func:`deme_breed_cuda`'s). A block walks
+    ``ORDER_THREADS`` children in step on shared-memory tiles, in the
+    layout of :func:`order_plan`, which holds every shape the deme path
+    admits. Raises on bad arguments or a failed launch; never runs
+    anything else in the kernel's place."""
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("order_breed_cuda needs CUDA tensors")
@@ -945,6 +998,26 @@ def order_breed_cuda(
     else:
         _count("order" if islands is None else "islands_order", genomes)
     return out, scores
+
+
+def walk_step_probe(L: int, steps: int, device) -> torch.Tensor:
+    """Launch ``walk_step_probe`` of ``csrc/deme_breed.cu`` on the current
+    stream: an instrument, not a port of a TPU kernel. One block of
+    ``ORDER_THREADS`` threads takes ``steps`` dependent steps a thread of
+    the order walk's steps alone (``decode_chunk``, ``fill_chunk`` and
+    ``walk_chunk`` of ``csrc/breed_core.cuh`` as the kernels run them, on a
+    bitmask of ceil(L/32) words in shared memory, with their Philox
+    fallback draws; the parents' genes hashed from the step, no tile), so
+    that its time over ``steps`` (a multiple of 4) prices a walker's
+    chain. Returns each thread's sum of its child's genes."""
+    if torch.device(device).type != "cuda":
+        raise ValueError("walk_step_probe needs the card")
+    out = torch.empty(ORDER_THREADS, dtype=torch.float32, device=device)
+    lib = _deme_library("order", 0)
+    _raise_on(lib.walk_step_probe_launch(out.data_ptr(), L, steps,
+                                         torch.cuda.current_stream(device).cuda_stream),
+              lib, "deme_breed")
+    return out
 
 
 def _multigen_checks(genomes, scores, geom, steps, tournament_size, elitism, mparams,
@@ -1147,9 +1220,10 @@ def expr_warps(K: int, L: int, obj_rows: int, D: Optional[int] = None, order: bo
                cities: int = 0) -> int:
     """Warps per block of ``expr_breed_kernel`` (``D`` None: up to 8,
     beside ``row_of_rank``), of ``expr_order_kernel`` (``D`` None and
-    ``order``: always ``ORDER_THREADS / 32``, beside ``row_of_rank``,
-    the walkers' visited bitmasks of ceil(L/32) words each and
-    min(``cities``, L) staged TSP coordinates) or of
+    ``order``: ``2 * ORDER_THREADS / 32`` (the walk's two warps and two
+    more for the hooks) where their rows fit beside the rest of
+    :func:`order_plan`'s layout with min(``cities``, L) staged TSP
+    coordinates, else ``ORDER_THREADS / 32``) or of
     ``expr_multigen_kernel`` (a group of ``D`` demes: up to 32, beside
     the group's 17 bytes per row and, with ``order``, ceil(L/32) words
     of bitmask for each child walking at once, min(D*K, threads)): fewer
@@ -1160,9 +1234,9 @@ def expr_warps(K: int, L: int, obj_rows: int, D: Optional[int] = None, order: bo
     words = -(-L // 32)
     limit = SMEM_BLOCK_BYTES - 1024
     if D is None and order:
-        most = ORDER_THREADS // 32
-        fixed = (K + words * ORDER_THREADS) * 4 + min(cities, L) * 8
-        warps = most if fixed + most * per_warp <= limit else 0
+        fixed = order_plan(K, L, cities).smem
+        warps = next((w for w in (2 * ORDER_THREADS // 32, ORDER_THREADS // 32)
+                      if order_holds(K, L, cities, warp_bytes=w * per_warp)), 0)
     elif D is None:
         fixed = 4 * K
         warps = min(EXPR_MAX_WARPS, (limit - fixed) // per_warp)

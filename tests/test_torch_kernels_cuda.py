@@ -927,6 +927,124 @@ def test_expr_order_kernel_equals_plain_on_card(cuda_device, variant):
     assert kernels.LAUNCHES["expr_order"] == before + 2
 
 
+# The edges of the tiled walk of order_breed_kernel (builtin hooks) and
+# expr_order_kernel ("expr:"): (hooks "objective+mutation", parents, swap
+# positions, P, L, cities, islands). Parents "uniform" are random genes,
+# "permutation" tours, "collide" genes that all decode to city 0, so that
+# every step after the first takes the fallback. Swaps (injected draws, all
+# firing): "same" pos == pj, "adjacent" |pos - pj| == 1 (across tile
+# boundaries too), "random" the draws as drawn; None: no swap mutation.
+# Genome lengths that are no multiple of 4 (copies of 4 bytes) or of the
+# tile (a partial last tile), cities fewer and more than genes, an island
+# launch, and a rowwise objective and none beside the TSP.
+TILE_VARIANTS = [
+    ("tsp+swap", "permutation", "random", 1024, 100, 100, 1),
+    ("tsp+swap", "collide", "random", 1024, 100, 100, 1),
+    ("tsp+swap", "uniform", "same", 1024, 130, 130, 1),
+    ("tsp+swap", "uniform", "adjacent", 1024, 64, 64, 1),
+    ("tsp+swap", "uniform", "adjacent", 1024, 97, 50, 2),
+    ("tsp+gaussian", "uniform", None, 1024, 100, 130, 1),
+    ("onemax+swap", "uniform", "adjacent", 1024, 66, 0, 1),
+    ("unscored+swap", "collide", "same", 1024, 33, 0, 1),
+    ("expr:tour+swap", "uniform", "adjacent", 1024, 130, 0, 1),
+    ("expr:tour+swap", "permutation", "same", 1024, 200, 0, 2),
+    ("expr:tsp+creep", "collide", None, 1024, 100, 100, 1),
+    ("expr:tsp+creep", "uniform", None, 1024, 98, 60, 2),
+]
+
+
+def _tile_case(hooks, L, cities, device):
+    """(breed keywords, scored, score tolerance) of a TILE_VARIANTS case."""
+    from libpga_tpu_torch import objectives as po
+    from libpga_tpu_torch.ops import breed_expr as bx
+
+    name, mut = hooks.removeprefix("expr:").split("+")
+    if mut == "creep":
+        mut = bx.mutate_from_expression("where(r < rate, g + sigma * (2*r2 - 1), g)",
+                                        rate=0.3, sigma=0.1)
+    kw = dict(crossover="order", mutate=mut, mparams=torch.tensor([0.3, 0.05], device=device))
+    if name == "tsp":
+        tsp = make_tsp_coords(random_tsp_coords(cities, seed=2), duplicate_mode="genes")
+        kw.update(obj_id=tsp.fused_id, coords=tsp.coords.to(device), penalty=tsp.penalty)
+        return kw, True, dict(rtol=1e-5, atol=0.0)
+    if name == "tour":
+        c = random_tsp_coords(L, seed=1)
+        kw.update(objective=po.from_expression(TOUR, X=c[:, 0], Y=c[:, 1]))
+        return kw, True, dict(rtol=1e-5, atol=1e-5 * L)
+    if name == "onemax":
+        kw.update(obj_id=onemax.fused_id)
+        return kw, True, dict(rtol=0.0, atol=1e-3)
+    return kw, False, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", TILE_VARIANTS,
+                         ids=lambda v: f"{v[0]}-{v[1]}-{v[2]}-{v[3]}x{v[4]}-C{v[5]}-I{v[6]}")
+def test_order_kernels_on_tiles_equal_plain_on_card(cuda_device, variant):
+    """order_breed_kernel and expr_order_kernel, which walk a block's
+    children in step on shared-memory tiles, equal their plain version at
+    the tiled walk's edges, with Philox and injected draws: children bit
+    for bit (gaussian within 1e-6: log and cos of two libraries), scores
+    within the kernels' tolerances (the TSP rtol 1e-5), -inf on pad rows;
+    each call counts one launch of its kernel."""
+    hooks, parents, swap, P, L, cities, I = variant
+    kw, scored, tol = _tile_case(hooks, L, cities, cuda_device)
+    geom = fs.resolve_geometry(P, L, crossover="order", fused=scored,
+                               const_carrying="objective" in kw)
+    G, K, Pp = geom.G, geom.K, geom.Pp
+    gen = torch.Generator(device=cuda_device).manual_seed(P + L + I)
+    lead = (I,) if I > 1 else ()
+    if parents == "permutation":
+        g = (torch.argsort(torch.rand(lead + (Pp, L), generator=gen, device=cuda_device), dim=-1)
+             .to(torch.float32) + 0.5) / L
+    elif parents == "collide":
+        g = torch.full(lead + (Pp, L), 0.3 / L, device=cuda_device)
+    else:
+        g = torch.rand(lead + (Pp, L), generator=gen, device=cuda_device)
+    s = torch.rand(lead + (Pp,), generator=gen, device=cuda_device)
+    s[..., P:] = -torch.inf
+    tie = fs.draw_tie_words(gen, I * Pp, cuda_device).view(lead + (Pp,))
+    ranks = fs.compute_ranks(s, geom, 0, tie)
+    seeds = torch.randint(0, 2**62, (I,), generator=gen, device=cuda_device)
+    mut = kw["mutate"]
+    if I > 1:
+        philox = fs.island_philox_draws(seeds, G, K, L, mut, "order")
+        injected = fs.stack_draws([_order_draws(geom, L, mut, cuda_device) for _ in range(I)])
+    else:
+        philox = fs.philox_draws(seeds, G, K, L, mut, "order")
+        injected = _order_draws(geom, L, mut, cuda_device)
+    u = injected.mut_u
+    if swap in ("same", "adjacent"):
+        u[..., 2] = 0.0  # every swap fires
+        if swap == "same":
+            u[..., 1] = u[..., 0]
+        else:
+            p = torch.randint(0, L - 1, u.shape[:-1], generator=gen, device=cuda_device)
+            flip = torch.rand(u.shape[:-1], generator=gen, device=cuda_device) < 0.5
+            u[..., 0] = (p + torch.where(flip, 1.5, 0.5)) / L
+            u[..., 1] = (p + torch.where(flip, 0.5, 1.5)) / L
+            assert bool(((u[..., 0] * L).floor() - (u[..., 1] * L).floor()).abs().eq(1).all())
+    expr = hooks.startswith("expr:")
+    key = ("islands_" if I > 1 else "") + ("expr_order" if expr else "order")
+    before = kernels.LAUNCHES[key]
+    isl = dict(islands=I) if I > 1 else {}
+    for mode, draws in ((dict(seed=seeds), philox), (dict(draws=injected), injected)):
+        got = fs.deme_breed(g, ranks, geom, 0, **mode, **isl, **kw)
+        want = fs.deme_breed_reference(g, ranks, geom, 0, draws, **kw)
+        torch.cuda.synchronize()
+        if mut == "gaussian":
+            torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
+        else:
+            assert torch.equal(got[0], want[0])
+        if not scored:
+            assert got[1] is None and want[1] is None
+            continue
+        assert bool(torch.isinf(got[1][..., P:]).all())
+        assert bool(torch.isfinite(got[1][..., :P]).all())
+        torch.testing.assert_close(got[1][..., :P], want[1][..., :P], **tol)
+    assert kernels.LAUNCHES[key] == before + 2
+
+
 ORDER_MULTIGEN_VARIANTS = [
     # (case, P, L, steps, elitism, freeze)
     ("tour+swap", 4096, 200, 3, 2, True),
