@@ -3,7 +3,8 @@
 (A, B, B, A), each in its own process:
 
     python3 ab_run.py PARENT_DIR [CHANGE_DIR] [--generations-per-launch T] [--subblock B]
-                      [--tsp | --order-expr | --creep | --nk] [--shape PxL] [--bf16]
+                      [--tsp | --order-expr | --onemax-order | --creep | --nk]
+                      [--shape PxL] [--bf16]
                       [--rounds N]
     python3 ab_run.py PARENT_DIR [CHANGE_DIR] --sass [--creep]
 
@@ -20,7 +21,11 @@ crossover's expression kernel at its two cells: the tour written as an
 expression over ``random_tsp_coords(200, seed=2)`` at 65,536x200 with
 swap mutation at 0.5, and the coordinate TSP of ``--tsp`` at 8,192x1,000
 with the creep expression (rate 0.05, sigma 0.1) as its mutation (no
-``--shape``); with ``--creep`` OneMax with the
+``--shape``; at ``--generations-per-launch`` T > 1 the tour alone, on
+``expr_multigen_kernel<true>``: the coordinate TSP declines T > 1); with
+``--onemax-order`` OneMax at 40,000x100 with order crossover, swap
+mutation at 0.5 and elitism 2 (at T > 1 ``multigen_breed_kernel<true>``;
+no ``--shape``); with ``--creep`` OneMax with the
 creep mutation expression (``where(r < rate, g + sigma * (2*r2 - 1),
 g)``, rate 0.05, sigma 0.1: the expression breed kernel); with ``--nk``
 the NK landscape (n = 64, k = 3, seed 0) at 4,194,304x64, an expression
@@ -58,6 +63,7 @@ from pathlib import Path
 SHAPES = ((1 << 20, 100), (40_000, 100))
 TSP_SHAPES = ((8192, 1000),)
 ORDER_EXPR_SHAPES = ((65_536, 200, "tour"), (8192, 1000, "tsp_creep"))
+ONEMAX_ORDER_SHAPES = ((40_000, 100, "onemax_order"),)
 NK_SHAPES = ((1 << 22, 64),)
 
 CHILD = r"""
@@ -79,6 +85,8 @@ import libpga_tpu_torch as port
 out, kernel_ms, digest = {}, {}, hashlib.sha256()
 for P, L, *case in shapes:
     knobs = dict(generations_per_launch=T) if T > 1 else {}
+    if case == ["onemax_order"]:
+        knobs["elitism"] = 2
     if B > 1:
         knobs["subblock"] = B
     if bf16:
@@ -86,14 +94,17 @@ for P, L, *case in shapes:
     config = port.PGAConfig(**knobs) if knobs else None
     pga = port.pga_init(seed=1, config=config)
     h = port.pga_create_population(pga, P, L)
-    if case:  # the order expression kernel's cells
+    if case:  # the order kernels' cells
         from libpga_tpu_torch.objectives import (from_expression, make_tsp_coords,
                                                  random_tsp_coords)
         from libpga_tpu_torch.ops.breed_expr import mutate_from_expression
         from libpga_tpu_torch.ops.crossover import order_preserving_crossover
         from libpga_tpu_torch.ops.mutate import make_swap_mutate
         xy = random_tsp_coords(L, seed=2)
-        if case[0] == "tour":
+        if case[0] == "onemax_order":
+            port.pga_set_objective_function(pga, "onemax")
+            port.pga_set_mutate_function(pga, make_swap_mutate(0.5))
+        elif case[0] == "tour":
             port.pga_set_objective_function(pga, from_expression(TOUR, X=xy[:, 0], Y=xy[:, 1]))
             port.pga_set_mutate_function(pga, make_swap_mutate(0.5))
         else:
@@ -200,9 +211,11 @@ def main() -> int:
         return 0
     knobs = {"--generations-per-launch": 1, "--subblock": 1, "--rounds": 1}
     workload = ("tsp" if "--tsp" in args else "order_expr" if "--order-expr" in args
+                else "onemax_order" if "--onemax-order" in args
                 else "creep" if "--creep" in args else "nk" if "--nk" in args else "onemax")
     dtype = "bf16" if "--bf16" in args else "f32"
-    args = [a for a in args if a not in ("--tsp", "--order-expr", "--creep", "--nk", "--bf16")]
+    args = [a for a in args
+            if a not in ("--tsp", "--order-expr", "--onemax-order", "--creep", "--nk", "--bf16")]
     for flag in knobs:
         if flag in args:
             at = args.index(flag)
@@ -214,7 +227,10 @@ def main() -> int:
         shapes.append([int(x) for x in args[at + 1].split("x")])
         del args[at : at + 2]
     if workload == "order_expr":
-        shapes = ORDER_EXPR_SHAPES
+        # The coordinate TSP breeds one generation a launch at any T.
+        shapes = ORDER_EXPR_SHAPES[:1] if knobs["--generations-per-launch"] > 1 else ORDER_EXPR_SHAPES
+    elif workload == "onemax_order":
+        shapes = ONEMAX_ORDER_SHAPES
     shapes = shapes or {"tsp": TSP_SHAPES, "nk": NK_SHAPES}.get(workload, SHAPES)
     per_launch, subblock = knobs["--generations-per-launch"], knobs["--subblock"]
     if not args:

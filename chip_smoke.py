@@ -2446,7 +2446,9 @@ def phase_order_multigen_compare(port, fs, device, results):
     with the tour; 4: the builtin kernel with OneMax) against the plain
     version, injected and Philox draws, at 0, 1, 3 and 8 steps, with
     per-deme elites and half the groups frozen at entry; times the kernel
-    at 1 and 8 steps and the plain version at 8 at the full shapes."""
+    at 1 and 8 steps, its no_cross case at 8 (nothing walked: the walk
+    alone is the difference, priced a step) and the plain version at 8 at
+    the full shapes."""
     import torch
 
     # (case, workload, steps, elitism, freeze, P override)
@@ -2512,15 +2514,30 @@ def phase_order_multigen_compare(port, fs, device, results):
             ms = {T: cuda_ms(lambda: fs.multigen_breed(
                 g, s, geom, 0, T, None, seed=seed, out=out, work=work, **kw), 20)
                 for T in (1, ORDER_T)}
+            # The walk alone: production less the harness's no_cross case
+            # (nothing walked), in this run, priced a step over the launch's
+            # waves (one 1,024-thread block an SM) beside the probe's step.
+            no_cross_ms = cuda_ms(lambda: fs.multigen_breed(
+                g, s, geom, 0, ORDER_T, None, seed=seed, out=out, work=work,
+                ablate=("no_cross",), **kw), 20)
+            waves = -(-geom.S // torch.cuda.get_device_properties(0).multi_processor_count)
+            walk_ms = ms[ORDER_T] - no_cross_ms
+            plan = fs.kernels.multigen_order_plan(
+                geom, program if expr_obj is not None else None)
             plain_ms = cuda_ms(lambda: fs.multigen_breed_reference(
                 g, s, geom, 0, ORDER_T, math.inf, seed=seed, **kw), 1)
             bound_ms, bound_by, chain = breed_bound(geom, program=program, order=True,
                                                     steps=ORDER_T)
+            walk = dict(no_cross_ms=no_cross_ms, walk_ms=walk_ms, waves=waves,
+                        walk_ns_per_step=1e6 * walk_ms / (ORDER_T * L * waves),
+                        walk_step_ns=1e6 * walk_step_ms(L), walkers_per_pass=plan.P,
+                        breeding_warps=plan.warps, smem=plan.smem)
             line.update(kernel_ms_by_steps=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, chain_steps_per_generation=chain,
-                        ms_over_bound=ms[ORDER_T] / bound_ms)
+                        ms_over_bound=ms[ORDER_T] / bound_ms, **walk)
             r.update(ms=ms[ORDER_T], ms_at_1_step=ms[1], plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, chain_steps=chain * ORDER_T, shape=[P, L], K=geom.K)
+                     bound_by=bound_by, chain_steps=chain * ORDER_T, shape=[P, L], K=geom.K,
+                     **walk)
             del out, work
         print(json.dumps(line), flush=True)
         del g, s
@@ -5207,6 +5224,9 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "ms_per_gen": r["ms_per_gen"], "gens_per_s": r["gens_per_s"],
             "device_busy_share": r["device_busy_share"], "best": r["best"],
             "best_distinct_cities": r["best_distinct_cities"],
+            # the multigen entries' walk: production less no_cross, a step
+            **{k: r[k] for k in ("no_cross_ms", "walk_ms", "walk_ns_per_step", "walk_step_ns",
+                                 "walkers_per_pass") if k in r},
         })
     for kernel, r in island_results.items():
         # ms, plain_ms, bound and loop_ms at the kernel's first case;

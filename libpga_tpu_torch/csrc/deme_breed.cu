@@ -727,22 +727,32 @@ __global__ void __launch_bounds__(ORDER_THREADS) walk_step_probe(int L, int step
 // memory ("multigen_breed_kernel<false>'s cluster schedule", below).
 //
 // Order crossover (multigen_breed_kernel<true>; _multigen_kernel's order_refs,
-// :1548, passed to _deme_child, :1659). D is 1 and the row map the riffle, as
-// in JAX. Each sub-generation, after the ranks, every thread walks one child
-// of the group at a time (breed_core.cuh's order_walk: its visited bitmask in
-// shared memory after the group's arrays, [word][walker]) straight into the
-// child's row of the work buffer or of gout; a block barrier; then one warp
-// per child reads that row back with plain loads, applies point / gaussian /
-// swap mutation and sums the score, as breed_genes<false, true>. An elite
-// child (k < elitism) is not walked: it is its rank-k parent verbatim, as
-// JAX sets elite rows to p1 after the walk. The fallback genes are stream
-// 0x20000000 + l/4 with t as the fourth counter word, or the injected (T, G,
-// K, L) plane. Bound: the bytes above, as for uniform crossover; but each
-// sub-generation holds every walker on a dependent chain of L steps through
-// its bitmask (order_breed_kernel's), and a K = 256 group walks on 256 of the
-// block's 1,024 threads, so at L = 200 that chain, not the bytes, is
-// expected to set the time.
-//
+// :1548, passed to _deme_child, :1659, which walks in VMEM scratch with the
+// children on the lanes, :653-732). D is 1 and the row map the riffle, as in
+// JAX. Each sub-generation, after the ranks, the block walks the group's
+// children in step on shared-memory tiles (multigen_group<true> over
+// order_tiles, breed_core.cuh; layout order_plan.cuh's mg_order_plan): passes
+// of P children (all K = 256 of a group in one pass at the cells measured),
+// one thread a child; for each walker both parents' next 16-gene tile is
+// staged by cp.async into a ring while the block walks this one (parent rows
+// from gin through read_row at t = 0, later from the work buffer), the child
+// written over parent 1's staged genes and stored with coalesced stores to
+// its row of the work buffer or, at the last sub-generation, of gout through
+// write_row. The step is the one-generation kernels' (decode_chunk,
+// fill_chunk, walk_chunk: the chain two shared-memory loads, a test and a
+// store). A block barrier; then one warp per child reads that row back with
+// plain loads, applies point / gaussian / swap mutation and sums the score,
+// as breed_genes<false, true>. An elite child (k < elitism) is not walked:
+// it is its rank-k parent verbatim, as JAX sets elite rows to p1 after the
+// walk. The fallback genes are stream 0x20000000 + l/4 with t as the fourth
+// counter word, or the injected (T, G, K, L) plane. Bound: the bytes above,
+// as for uniform crossover; but each sub-generation holds every walker on a
+// dependent chain of L steps through its bitmask, so at L = 100-200 that
+// chain and the warps' breed, not the bytes, set the time. The tiles keep
+// the chain's loads in shared memory (a walker loading both genes from L2
+// took about 0.37 us a step at 40,000x100), and the threads that do not
+// walk copy the next tile while the walkers walk this one.
+
 // Randomness. Philox4x32-10 keyed by the launch seed, counter (k, g, stream,
 // t) with the streams of deme_breed_kernel and 0x60000000 for the tie word
 // (word x of the call); t = 0 reproduces the one-generation kernels' draws.
@@ -768,7 +778,11 @@ __global__ void __launch_bounds__(MG_THREADS) multigen_breed_kernel(
                                             a, b);
     return obj_finish(obj, a, b, geo.L);
   };
-  multigen_group<ORDER, ABLATE>(io, geo, cx, dr0, sel, elitism, mg_smem, breed_child);
+  // Order crossover: the walk's layout, no warp rows (order_plan.cuh); none
+  // where nothing is walked (every warp breeds, as without the walk).
+  constexpr bool WALK = ORDER && !(ABLATE & ABL_NO_CROSS);
+  const MgOrderPlan walk = WALK ? mg_walk_plan(geo.D * geo.K, geo.L, 0) : MgOrderPlan{};
+  multigen_group<ORDER, ABLATE>(io, geo, cx, dr0, sel, elitism, mg_smem, breed_child, walk);
 }
 
 
@@ -1677,6 +1691,18 @@ int multigen_cluster_launch(const MultigenIO<Gene>& io, const float* mparams, co
 
 }  // namespace
 
+// multigen_breed_kernel<true>'s walk at a group of K rows of L genes (D = 1,
+// order_plan.cuh's mg_order_plan, no warp rows): out = (children a pass,
+// warps that breed, dynamic shared bytes). Returns the children a pass (0: no
+// layout holds, and the launcher refuses the shape).
+extern "C" int multigen_order_plan(int K, int L, long long* out) {
+  const MgOrderPlan p = mg_walk_plan(K, L, 0);
+  out[0] = p.P;
+  out[1] = p.warps;
+  out[2] = (long long)p.smem;
+  return p.P;
+}
+
 // The walk step's instrument: one block, `steps` steps a thread (a multiple
 // of 4); out holds ORDER_THREADS floats.
 extern "C" int walk_step_probe_launch(float* out, int L, int steps, void* stream) {
@@ -1709,7 +1735,7 @@ extern "C" int multigen_breed_launch(
   const Draws dr{sel_u, cross, mut_u, gauss, seed, tie, fill};
   const cudaStream_t st = (cudaStream_t)stream;
   // Keys, scores, row_of_rank and alive flags of the group's D*K rows, then
-  // (order crossover) the walkers' visited bitmasks.
+  // (order crossover) the walk's layout (mg_walk_plan).
   const int W = D * K;
   if (gene_dtype == GENE_BF16) {
     using B = __nv_bfloat16;
@@ -1730,13 +1756,15 @@ extern "C" int multigen_breed_launch(
   if (cluster)
     return multigen_cluster_launch(io, mparams, dr, geo, sel, mutate, obj, elitism, draw_steps,
                                    islands, ablate, st);
-  if (cross_kind)
+  if (cross_kind) {
+    const MgOrderPlan walk = mg_walk_plan(W, L, 0);
+    if (!walk.P) return (int)cudaErrorInvalidValue;
     return dispatch_multigen_ablate(ablate, [&](auto tag) {
       return launch_with_smem(multigen_one_block<true, float, decltype(tag)::value>(),
-                              dim3(S, islands), MG_THREADS,
-                              mg_rows_bytes(W) + mg_walk_bytes(W, L, MG_THREADS), st, io,
-                              mparams, dr, geo, sel, mutate, obj, elitism, draw_steps);
+                              dim3(S, islands), MG_THREADS, walk.smem, st, io, mparams, dr, geo,
+                              sel, mutate, obj, elitism, draw_steps);
     });
+  }
   return dispatch_multigen_ablate(ablate, [&](auto tag) {
     return launch_with_smem(multigen_one_block<false, float, decltype(tag)::value>(),
                             dim3(S, islands), MG_THREADS, (size_t)W * MG_ROW_BYTES, st, io,

@@ -1030,14 +1030,25 @@ __global__ void __launch_bounds__(2 * ORDER_THREADS) expr_order_kernel(
 // builtin kernel's.
 //
 // Order crossover (expr_multigen_kernel<true>, _multigen_kernel's
-// order_refs, :1548): multigen_group<true> walks every child of the group
-// (one thread per child, the visited bitmasks after the group's arrays) into
-// its row before the warps run; each warp then reads its walked child into
-// its shared row (expr_child<false, true>), mutates and scores it there. An
-// elite child is its rank-k parent verbatim. D is 1 and the row map the
-// riffle, as in JAX. Bound: the bytes above; but the walk is a chain of L
-// dependent steps per sub-generation on 256 of the block's threads at K =
-// 256, which is expected to set the time (65,536x200: 256 blocks on 132 SMs).
+// order_refs, :1548, walked in VMEM by _deme_child, :653-732): the block is
+// of MG_THREADS threads, and multigen_group<true> walks the group's children
+// in step on shared-memory tiles (order_tiles; layout order_plan.cuh's
+// mg_order_plan: passes of P children, one thread a child, both parents'
+// next tile staged by cp.async beside the walk of this one, the child
+// stored with coalesced stores to its row); after a block barrier each
+// breeding warp reads its walked child into its shared row (expr_child<false,
+// true>), mutates and scores it there. Those rows share the ring's bytes,
+// their phases apart, and the layout gives as many warps as their rows fit
+// (all 32 at the tour, 65,536x200); a shape where not even one warp's rows
+// fit beside the walk is refused from the shape before the launch
+// (kernels.multigen_order_plan). The block's thread count is fixed so that
+// the walk's copy loops keep a stride known at compile time (a stride read
+// from blockDim slowed the one-generation walk, PERF.md). An elite child is
+// its rank-k parent verbatim. D is 1 and the row map the riffle, as in JAX.
+// Bound: the bytes above; but the walk is a chain of L dependent steps per
+// sub-generation on the group's K = 256 walkers, which with the warps' breed
+// sets the time (65,536x200: 256 blocks of one group on 132 SMs); the tiles
+// keep the chain's loads in shared memory, off L2.
 
 template <bool ORDER, class Gene, unsigned ABLATE>
 __global__ void __launch_bounds__(MG_THREADS) expr_multigen_kernel(
@@ -1049,7 +1060,11 @@ __global__ void __launch_bounds__(MG_THREADS) expr_multigen_kernel(
   dr0 = island_draws(dr0, geo, draw_steps);
   ex0 = island_expr_draws(ex0, geo, draw_steps);
   const int L = geo.L, W = geo.D * geo.K, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const size_t fixed = mg_rows_bytes(W) + (ORDER ? mg_walk_bytes(W, L, blockDim.x) : 0);
+  // Order crossover: the walk's layout, whose ring the warps' rows share
+  // (order_plan.cuh); else the rows follow the group's arrays.
+  const MgOrderPlan walk =
+      ORDER ? mg_walk_plan(W, L, (size_t)(1 + EXPR_OBJ_ROWS) * L * sizeof(float)) : MgOrderPlan{};
+  const size_t fixed = ORDER ? walk.ring : mg_rows_bytes(W);
   float* grow = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(mg_smem) + fixed) +
                 (size_t)warp * (1 + EXPR_OBJ_ROWS) * L;
   float* erows = grow + L;
@@ -1079,7 +1094,7 @@ __global__ void __launch_bounds__(MG_THREADS) expr_multigen_kernel(
     __syncwarp();  // the next child overwrites this warp's rows
     return score;
   };
-  multigen_group<ORDER, ABLATE>(io, geo, cx, dr0, sel, elitism, mg_smem, breed_child);
+  multigen_group<ORDER, ABLATE>(io, geo, cx, dr0, sel, elitism, mg_smem, breed_child, walk);
 }
 
 // expr_multigen_kernel<false>'s cluster schedule: the one-block schedule's
@@ -1337,7 +1352,8 @@ extern "C" int expr_breed_launch(
 // buffers. ablate: as expr_breed_launch's. cluster: the cluster schedule
 // (uniform or expression crossover; the plan must hold the group; gin and
 // gout 16-byte aligned; no work buffers, `warps` unread), else the one-block
-// schedule (`warps` warps a block).
+// schedule (`warps` warps a block; order crossover: a block of MG_THREADS
+// threads, whose warps that breed the walk's layout picks, `warps` unread).
 extern "C" int expr_multigen_launch(
     const void* gin, const float* sin, void* gout, float* sout, void* work0, void* work1,
     int steps, float target, const float* mparams, const float* sel_u,
@@ -1347,7 +1363,8 @@ extern "C" int expr_multigen_launch(
     int sel_kind, int tk, float sel_param, int cross_kind, int mutate, int obj, int elitism,
     int warps, int draw_steps, int islands, int gene_dtype, unsigned ablate, int cluster,
     void* stream) {
-  if (D < 1 || D > MG_MAX_D || (!cluster && (warps < 1 || warps > MG_THREADS / 32)) ||
+  if (D < 1 || D > MG_MAX_D ||
+      (!cluster && !cross_kind && (warps < 1 || warps > MG_THREADS / 32)) ||
       (cross_kind && (cluster || EXPR_CROSS || D != 1 || gene_dtype != GENE_F32)) ||
       (gene_dtype != GENE_F32 && gene_dtype != GENE_BF16) || islands < 1 || islands > 65535)
     return (int)cudaErrorInvalidValue;
@@ -1369,12 +1386,14 @@ extern "C" int expr_multigen_launch(
     return expr_multigen_cluster_launch(io, mparams, dr, ex, consts, geo, sel, mutate, obj,
                                         elitism, draw_steps, islands, ablate, st);
   }
-  // The group's keys, scores, row_of_rank and alive flags, (order) the
-  // walkers' bitmasks, then each warp's child row and objective rows.
-  const int threads = warps * 32;
-  const size_t smem = mg_rows_bytes(D * K) +
-                      (cross_kind ? mg_walk_bytes(D * K, L, threads) : 0) +
-                      (size_t)warps * (1 + EXPR_OBJ_ROWS) * L * sizeof(float);
+  // The group's keys, scores, row_of_rank and alive flags, then each warp's
+  // child row and objective rows; with order crossover the walk's layout
+  // (mg_walk_plan), whose ring the rows share, in a block of MG_THREADS.
+  const size_t warp_bytes = (size_t)(1 + EXPR_OBJ_ROWS) * L * sizeof(float);
+  const MgOrderPlan walk = cross_kind ? mg_walk_plan(D * K, L, warp_bytes) : MgOrderPlan{};
+  if (cross_kind && !walk.P) return (int)cudaErrorInvalidValue;
+  const int threads = cross_kind ? MG_THREADS : warps * 32;
+  const size_t smem = cross_kind ? walk.smem : mg_rows_bytes(D * K) + (size_t)warps * warp_bytes;
   return dispatch_expr_ablate<true>(ablate, [&](auto tag) {
     constexpr unsigned A = decltype(tag)::value;
     if (gene_dtype == GENE_BF16) {
@@ -1396,6 +1415,18 @@ extern "C" int expr_multigen_launch(
                                   threads, smem, st, io, mparams, dr, ex, consts, geo, sel,
                                   mutate, obj, elitism, draw_steps);
   });
+}
+
+// expr_multigen_kernel<true>'s walk at a group of K rows of L genes (D = 1,
+// order_plan.cuh's mg_order_plan with these hooks' warp rows): out =
+// (children a pass, warps that breed, dynamic shared bytes). Returns the
+// children a pass (0: no layout holds, and the launcher refuses the shape).
+extern "C" int expr_multigen_order_plan(int K, int L, long long* out) {
+  const MgOrderPlan p = mg_walk_plan(K, L, (size_t)(1 + EXPR_OBJ_ROWS) * L * sizeof(float));
+  out[0] = p.P;
+  out[1] = p.warps;
+  out[2] = (long long)p.smem;
+  return p.P;
 }
 
 extern "C" const char* expr_breed_error_string(int code) {

@@ -394,6 +394,7 @@ def _bindings() -> dict:
                 i, i, i, i, i,          # D, K, L, gene bytes, q
                 p,                      # out: C, rows, keys sorted, shared bytes
             ], i),
+            "multigen_order_plan": ([i, i, p], i),  # K, L, out: P, warps, shared bytes
             "deme_breed_error_string": ([i], s),
         },
         "expr_breed": {
@@ -432,6 +433,7 @@ def _bindings() -> dict:
                 i, i, i, i, i, i,       # D, K, L, gene bytes, q, mutate kind
                 p,                      # out: C, rows, keys sorted, child rows, shared bytes
             ], i),
+            "expr_multigen_order_plan": ([i, i, p], i),  # K, L, out: P, warps, shared bytes
             "expr_breed_error_string": ([i], s),
         },
         "gp_eval": {
@@ -661,7 +663,9 @@ class ExprPipelinedPlan:
     smem: int
 
 
-_expr_plans: dict = {}  # (["multigen",] unit key, [D,] K, L, gene bytes, q, mutate id) -> plan
+# (["multigen",] unit key, [D,] K, L, gene bytes, q, mutate id) -> plan; the
+# order walk's: ("order", hooks or None, unit macro, K, L) -> plan
+_expr_plans: dict = {}
 
 
 def expr_pipelined_plan(program, geom, gene_dtype, mutate_id: int,
@@ -730,6 +734,51 @@ def expr_multigen_plan(program, geom, gene_dtype, mutate_id: int,
                                               mutate_id, out)
         _expr_plans[key] = ExprMultigenPlan(*(int(x) for x in out)) if held else None
     return _expr_plans[key]
+
+
+@dataclasses.dataclass(frozen=True)
+class MultigenOrderPlan:
+    """The walk of a multi-generation order launch (``multigen_group<true>``
+    over ``order_tiles``; ``mg_order_plan`` of ``csrc/order_plan.cuh``): a
+    block of ``MG_THREADS`` threads walks its group's children in passes of
+    ``P``, one thread a child, then ``warps`` of its warps breed them; it
+    takes ``smem`` bytes of dynamic shared memory."""
+
+    P: int
+    warps: int
+    smem: int
+
+
+def multigen_order_plan(geom, program=None, ablate: int = 0) -> Optional[MultigenOrderPlan]:
+    """The walk's layout of an order-crossover ``multigen_breed_kernel``
+    launch at ``geom`` (``program`` None) or of ``expr_multigen_kernel``
+    with ``program``'s hooks (whose warps keep their child and objective
+    rows in the ring's bytes), read from the built unit (the production
+    ``csrc/deme_breed.cu`` unit's ``multigen_order_plan``, or the hooks'
+    unit of the mask ``ablate``'s ``expr_multigen_order_plan``; built at
+    first use); None where no layout holds the group: the wrappers then
+    refuse the shape before any launch."""
+    key = ("order", None if program is None else program.source, _unit_macro(ablate), geom.K,
+           geom.L)
+    if key not in _expr_plans:
+        out = (ctypes.c_longlong * 3)()
+        if program is None:
+            held = _library("deme_breed").multigen_order_plan(geom.K, geom.L, out)
+        else:
+            held = _expr_library(program, ablate).expr_multigen_order_plan(geom.K, geom.L, out)
+        _expr_plans[key] = MultigenOrderPlan(*(int(x) for x in out)) if held else None
+    return _expr_plans[key]
+
+
+def _order_walk_plan(geom, program=None, ablate: int = 0) -> MultigenOrderPlan:
+    """:func:`multigen_order_plan`, or ValueError where none holds."""
+    plan = multigen_order_plan(geom, program, ablate)
+    if plan is None:
+        raise ValueError(f"no shared-memory layout holds the order walk of a group of {geom.K}"
+                         f" rows of {geom.L} genes"
+                         + ("" if program is None else
+                            f" beside one warp's {1 + program.obj_rows} rows of the hooks"))
+    return plan
 
 
 def expr_multigen_holds(program, geom, gene_dtype, mutate_id: int, order: bool = False,
@@ -1181,6 +1230,8 @@ def multigen_breed_cuda(
     param = resolve_selection(selection, selection_param)
     if cluster is None:
         cluster = multigen_cluster_plan(geom, genomes.dtype, crossover) is not None
+    if order:
+        _order_walk_plan(geom)
     out, work = _multigen_buffers(genomes, out, work, steps, cluster)
     if cluster and (genomes.data_ptr() % 16 or out.data_ptr() % 16):
         raise ValueError("the multi-generation cluster schedule stages 16-byte aligned genomes"
@@ -1224,14 +1275,13 @@ def expr_warps(K: int, L: int, obj_rows: int, D: Optional[int] = None, order: bo
     more for the hooks) where their rows fit beside the rest of
     :func:`order_plan`'s layout with min(``cities``, L) staged TSP
     coordinates, else ``ORDER_THREADS / 32``) or of
-    ``expr_multigen_kernel`` (a group of ``D`` demes: up to 32, beside
-    the group's 17 bytes per row and, with ``order``, ceil(L/32) words
-    of bitmask for each child walking at once, min(D*K, threads)): fewer
-    where each warp's child row and ``obj_rows`` objective rows of L
+    ``expr_multigen_kernel``'s uniform or expression crossover on one
+    block (a group of ``D`` demes: up to 32, beside the group's 17 bytes
+    per row; its order case takes :func:`multigen_order_plan`'s warps):
+    fewer where each warp's child row and ``obj_rows`` objective rows of L
     floats do not fit in a block's shared memory (1 KB kept for the
     kernel's static arrays). Raises where not even one warp fits."""
     per_warp = (1 + obj_rows) * L * 4
-    words = -(-L // 32)
     limit = SMEM_BLOCK_BYTES - 1024
     if D is None and order:
         fixed = order_plan(K, L, cities).smem
@@ -1241,15 +1291,8 @@ def expr_warps(K: int, L: int, obj_rows: int, D: Optional[int] = None, order: bo
         fixed = 4 * K
         warps = min(EXPR_MAX_WARPS, (limit - fixed) // per_warp)
     else:
-        W = D * K
-        rows = _round16(W * MULTIGEN_ROW_BYTES)
-        warps = EXPR_MULTIGEN_MAX_WARPS
-        while warps:
-            walk = _round16(words * min(W, 32 * warps) * 4) if order else 0
-            fixed = rows + walk
-            if fixed + warps * per_warp <= limit:
-                break
-            warps -= 1
+        fixed = _round16(D * K * MULTIGEN_ROW_BYTES)
+        warps = min(EXPR_MULTIGEN_MAX_WARPS, (limit - fixed) // per_warp)
     if warps < 1:
         raise ValueError(
             f"genome length {L} with {obj_rows} objective rows needs {per_warp} bytes of"
@@ -1503,8 +1546,11 @@ def expr_multigen_cuda(
     tests and ``chip_smoke.py`` compare it with; ``work`` as
     :func:`multigen_breed_cuda`'s). The cluster schedule stages 16-byte
     aligned ``genomes`` and stores 16-byte aligned ``out`` (else
-    ValueError). Raises on bad arguments or a failed build or launch;
-    never runs anything else in the kernel's place."""
+    ValueError). Order crossover walks in the layout of
+    :func:`multigen_order_plan`; a group it cannot hold beside one warp's
+    rows of the hooks raises ValueError before the launch. Raises on bad
+    arguments or a failed build or launch; never runs anything else in
+    the kernel's place."""
     dev = genomes.device
     if dev.type != "cuda":
         raise ValueError("expr_multigen_cuda needs CUDA tensors")
@@ -1523,7 +1569,9 @@ def expr_multigen_cuda(
         cluster = expr_multigen_holds(program, geom, genomes.dtype, mut_id, order, mask)
     elif cluster and order:
         raise ValueError("order crossover walks on the one-block schedule (cluster=False)")
-    warps = 0 if cluster else expr_warps(K, L, program.obj_rows, D=D, order=order)
+    if order:
+        _order_walk_plan(geom, program, mask)
+    warps = 0 if cluster or order else expr_warps(K, L, program.obj_rows, D=D)
     out, work = _multigen_buffers(genomes, out, work, steps, cluster)
     if cluster and (genomes.data_ptr() % 16 or out.data_ptr() % 16):
         raise ValueError("the multi-generation cluster schedule stages 16-byte aligned genomes"

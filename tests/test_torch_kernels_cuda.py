@@ -1102,6 +1102,108 @@ def test_order_multigen_kernels_equal_plain_on_card(cuda_device, variant):
     assert kernels.LAUNCHES[key] == before + 2
 
 
+# The multi-generation walk on shared-memory tiles (multigen_group<true>):
+# (case, P, L, K or None (the geometry's), steps, elitism, freeze, islands,
+# ablate). freeze "entry": a target half the groups start above; "mid": a
+# target some group first reaches after one sub-generation. K = 1,024 at
+# L = 200 walks a group in more than one pass (kernels.multigen_order_plan).
+WALK_VARIANTS = [
+    ("onemax+swap", 40_000, 100, None, 8, 2, None, None, ()),
+    ("tour+swap", 4096, 200, None, 8, 0, None, None, ()),
+    ("onemax+swap", 4096, 100, None, 0, 2, None, None, ()),
+    ("tour+swap", 4096, 200, None, 1, 2, None, None, ()),
+    ("onemax+point", 4096, 200, None, 2, 0, "mid", None, ()),
+    ("tour+creep", 4096, 200, None, 3, 2, "mid", None, ()),
+    ("onemax+swap", 4096, 37, None, 3, 2, "entry", None, ()),
+    ("tour+swap", 4096, 37, None, 8, 0, "entry", None, ()),
+    ("onemax+swap", 2048, 1000, None, 3, 2, None, None, ()),
+    ("onemax+swap", 4096, 200, 1024, 3, 2, "mid", None, ()),
+    ("tour+swap", 4096, 200, 1024, 2, 0, None, None, ()),
+    ("onemax+swap", 4096, 100, None, 3, 2, "entry", 2, ()),
+    ("tour+swap", 4096, 200, None, 8, 2, None, 2, ()),
+    *[(case, 4096, L, None, 3, 2, None, None, (flag,))
+      for case, L in (("onemax+swap", 100), ("tour+swap", 200))
+      for flag in ("sel_const", "no_matmul", "no_cross")],
+]
+
+
+def _walk_id(v):
+    return (f"{v[0]}-{v[1]}x{v[2]}-K{v[3]}-s{v[4]}-e{v[5]}-{v[6]}-i{v[7]}"
+            f"-{'+'.join(v[8]) or 'prod'}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", WALK_VARIANTS, ids=_walk_id)
+def test_order_multigen_walk_on_tiles_equals_plain_on_card(cuda_device, variant):
+    """multigen_breed_kernel<true> (builtin hooks) and
+    expr_multigen_kernel<true> (the tour expression), which walk a group's
+    children in step on shared-memory tiles, equal the plain version with
+    Philox and injected draws: genomes and scores bit for bit, at 0-8
+    steps, elitism 0 and 2, a group frozen at entry or mid-launch, L % 4
+    != 0, a group walked in two passes, two islands (each island against
+    its own plain launch) and the harness's sel_const, no_matmul and
+    no_cross; each call counts one launch of its kernel."""
+    import dataclasses
+
+    name, P, L, K, steps, e, freeze, I, ablate = variant
+    mut, objective, obj_id, _, _ = _order_case(name, L)
+    geom = fs.resolve_geometry(P, L, crossover="order", multigen=True, elitism=e,
+                               const_carrying=objective is not None, ablate=ablate)
+    if K is not None:  # a hand-made group the launchers admit (K <= 1,024)
+        geom = dataclasses.replace(geom, K=K, G=geom.Pp // K, _maps={})
+        assert kernels.multigen_order_plan(
+            geom, None if objective is None else expr_cuda.program_for(None, None, objective)
+        ).P < K
+    kw = dict(crossover="order", mutate=mut, obj_id=obj_id, elitism=e,
+              mparams=torch.tensor([0.3, 0.05], device=cuda_device))
+    if objective is not None:
+        kw.update(objective=objective)
+    if ablate:
+        kw.update(ablate=ablate)
+    gen = torch.Generator(device=cuda_device).manual_seed(P + L + steps)
+    lead = (I,) if I else ()
+    g = torch.rand(lead + (geom.Pp, L), generator=gen, device=cuda_device)
+    # The genomes' own scores, so that a sub-generation's best can rise
+    # above them; -inf on pad rows.
+    s = (objective(g.view(-1, L)) if objective is not None
+         else g.view(-1, L).sum(dim=1)).view(lead + (geom.Pp,))
+    s[..., P:] = -torch.inf
+    seeds = torch.randint(0, 2**62, (I or 1,), generator=gen, device=cuda_device)
+    draws = [_order_draws(geom, L, mut, cuda_device, steps=max(steps, 1)) for _ in range(I or 1)]
+    read, write = geom.row_maps(0, cuda_device)
+
+    def group_best(scores, rows):
+        return torch.where(rows < P, scores[..., rows], -torch.inf).amax(dim=-1)
+
+    target = math.inf
+    if freeze == "entry":
+        target = float(group_best(s, read).median())
+    elif freeze == "mid":
+        one = fs.multigen_breed_reference(g[0] if I else g, s[0] if I else s, geom, 0, 1,
+                                          math.inf, seed=seeds[:1], **kw)[1]
+        before, after = group_best(s[0] if I else s, read), group_best(one, write)
+        rose = after > before
+        assert bool(rose.any())
+        target = float(after[rose].min())
+        assert bool((before < target).any())
+    expr = objective is not None or fs.is_expression(mut)
+    key = ("ablate_" if ablate else "islands_" if I else "") + (
+        "expr_multigen_order" if expr else "multigen_order")
+    launches = kernels.LAUNCHES[key]
+    for mode in ("philox", "injected"):
+        x = (dict(seed=seeds) if mode == "philox"
+             else dict(draws=fs.stack_draws(draws) if I else draws[0]))
+        got = fs.multigen_breed(g, s, geom, 0, steps, target, islands=I, **x, **kw)
+        for i in range(I or 1):
+            y = dict(seed=seeds[i:i + 1]) if mode == "philox" else dict(draws=draws[i])
+            want = fs.multigen_breed_reference(g[i] if I else g, s[i] if I else s, geom, 0,
+                                               steps, target, **y, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0][i] if I else got[0], want[0]), f"{mode}: genomes differ"
+            assert torch.equal(got[1][i] if I else got[1], want[1]), f"{mode}: scores differ"
+    assert kernels.LAUNCHES[key] == launches + 2
+
+
 @pytest.mark.cuda
 def test_engine_on_card_breeds_order_crossover_through_the_order_kernels(cuda_device):
     """PGA.run with order crossover: the tour expression at T = 1

@@ -1,4 +1,4 @@
-"""The one-generation order kernels' shared-memory layout, on the CPU.
+"""The order walk's shared-memory layouts, on the CPU.
 
 ``order_breed_kernel`` (csrc/deme_breed.cu) and ``expr_order_kernel``
 (csrc/expr_breed.cu) walk a block's children in step on shared-memory
@@ -9,6 +9,15 @@ the deme geometry; the layout is shown to fit a block at every shape the
 deme path admits with order crossover, and ``kernels.expr_warps`` to
 refuse, from the shape and before any launch, the one kind of shape it
 does not hold (expression objectives whose rows leave no room).
+
+The multi-generation kernels' order case (``multigen_group<true>``) walks
+a group's children on the same tiles, in the layout of the header's
+``mg_order_plan``, which Python reads only through the built units
+(``kernels.multigen_order_plan``): here it is built with the host compiler
+and pinned at the cells, shown to hold every group the launchers admit
+(K 32-1,024, L up to 2,304) without warp rows and with the expression
+kernel's, to walk a group of 1,024 rows in more than one pass, and to
+refuse, from the shape, a group where not even one warp's rows fit.
 """
 
 import shutil
@@ -202,3 +211,124 @@ def test_tsp_coordinates_beyond_the_genome_are_not_staged():
     assert tsp.coords.shape[0] == 200
     small, large = kernels.order_plan(256, 130, 130, True), kernels.order_plan(256, 130, 200, True)
     assert small == large
+
+
+# ------------------------------------------- the multi-generation walk
+
+MG_THREADS = kernels.EXPR_MULTIGEN_MAX_WARPS * 32  # a block of the order case
+
+
+def _mg_base(W):
+    """multigen_group's arrays before the walk's layout (mg_rows_bytes)."""
+    return -(-W * kernels.MULTIGEN_ROW_BYTES // 16) * 16
+
+
+@pytest.fixture(scope="module")
+def walk_plan(tmp_path_factory):
+    """``plan(cases) -> [(P, warps, ring, vis, srow, smem)]`` for cases
+    (W, L, warp bytes): mg_order_plan() of csrc/order_plan.cuh as the
+    kernels call it (mg_walk_plan: after multigen_group's arrays, in a
+    block of MG_THREADS), built with the host compiler."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    out = tmp_path_factory.mktemp("mg_order_plan")
+    src, exe = out / "walk.cpp", out / "walk"
+    src.write_text(
+        '#include <cstdio>\n#include <cstdlib>\n#include "order_plan.cuh"\n'
+        "int main(int argc, char** argv) {\n"
+        "  for (int i = 1; i + 3 < argc; i += 4) {\n"
+        "    const MgOrderPlan p = mg_order_plan(atoi(argv[i]), atoi(argv[i + 1]),\n"
+        "                                        (size_t)atol(argv[i + 2]), %d,\n"
+        "                                        (size_t)atol(argv[i + 3]));\n"
+        '    printf("%%d %%d %%zu %%zu %%zu %%zu\\n", p.P, p.warps, p.ring, p.vis, p.srow,\n'
+        "           p.smem);\n"
+        "  }\n}\n" % MG_THREADS)
+    res = subprocess.run([cxx, "-std=c++17", "-Wall", "-I", str(kernels.CSRC), "-o", str(exe),
+                          str(src)], capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr
+
+    def plan(cases):
+        argv = [str(int(x)) for W, L, warp in cases for x in (W, L, _mg_base(W), warp)]
+        res = subprocess.run([str(exe), *argv], capture_output=True, text=True, check=True)
+        return [tuple(int(x) for x in line.split()) for line in res.stdout.splitlines()]
+
+    return plan
+
+
+def _walk_rows(L, obj_rows):
+    """One warp's rows in expr_multigen_kernel: its child and objective rows."""
+    return (1 + obj_rows) * L * 4
+
+
+def _check_walk(plan, W, L, warp):
+    """The layout's rules: P a multiple of 64, as many as cover the group
+    where that fits, else the most that fit; the ring first (the warps' rows
+    in its bytes), every region 16-byte aligned, the whole within a block;
+    as many warps as fit."""
+    P, warps, ring, vis, srow, smem = plan
+    words = -(-L // 32)
+    tiles = kernels.ORDER_STAGES * 2 * P * kernels.ORDER_STRIDE * 4
+    assert P % 64 == 0 and 64 <= P <= min(-(-W // 64) * 64, MG_THREADS)
+    assert ring == _mg_base(W) and all(x % 16 == 0 for x in (ring, vis, srow, smem))
+    assert vis - ring == max(tiles, -(-warps * warp // 16) * 16)
+    assert srow - vis == -(-words * P * 4 // 16) * 16 and smem - srow == -(-12 * P // 16) * 16
+    assert smem <= kernels.ORDER_SMEM_LIMIT
+    assert 1 <= warps <= 32 and (warps == 32 or warp == 0 or
+                                 smem - (vis - ring) + max(tiles, (warps + 1) * warp)
+                                 > kernels.ORDER_SMEM_LIMIT)
+
+
+# (case, W, L, warp rows: None for multigen_breed_kernel<true>, "tour" for
+# the tour expression's) -> (P, warps, smem)
+WALK_CELLS = [
+    ("tour 65,536x200 and its islands", 256, 200, "tour", (256, 32, 96_512)),
+    ("onemax 40,000x100 order + swap", 256, 100, None, (256, 32, 93_440)),
+    ("two passes", 1024, 200, None, (576, 32, 224_768)),
+    ("four passes", 1024, 2304, None, (320, 32, 215_808)),
+]
+
+
+@pytest.mark.parametrize("cell", WALK_CELLS, ids=lambda v: v[0])
+def test_walk_plan_at_the_cells(walk_plan, cell):
+    _, W, L, rows, want = cell
+    warp = 0 if rows is None else _walk_rows(L, _tour_rows(L))
+    (got,) = walk_plan([(W, L, warp)])
+    _check_walk(got, W, L, warp)
+    assert (got[0], got[1], got[5]) == want
+
+
+@pytest.mark.parametrize("W", [32, 64, 128, 256, 512, 1024])
+def test_walk_plan_holds_every_group_the_launchers_admit(walk_plan, W):
+    """Every group of K rows (D = 1) and L <= 2,304 genes: without warp
+    rows (the builtin kernel, every warp breeding), and with up to 19
+    objective rows a warp (the expression kernel, one warp at least)."""
+    Ls = (4, 37, 100, 200, 500, 1000, 1537, 2048, 2304)
+    cases = [(W, L, _walk_rows(L, rows) if rows >= 0 else 0)
+             for L in Ls for rows in (-1, 0, 3, 9, 19)]
+    for case, got in zip(cases, walk_plan(cases)):
+        _check_walk(got, *case)
+        assert case[2] or got[1] == 32
+        if W <= 512 and case[1] <= 500:  # every admitted cell walks its group in one pass
+            assert got[0] >= W
+
+
+def test_walk_plan_refuses_a_group_no_layout_holds(walk_plan):
+    """One warp's rows that do not fit beside the least pass: refused (P =
+    0), which the wrappers turn into a ValueError before the launch."""
+    cases = [(W, 2304, _walk_rows(2304, 22)) for W in (32, 256, 1024)]
+    assert [got[0] for got in walk_plan(cases)] == [0, 0, 0]
+    assert walk_plan([(0, 100, 0), (256, 0, 0)]) == [(0, 0, 0, 0, 0, 0)] * 2
+
+
+def test_walk_plan_is_the_kernels():
+    """The kernels and launchers read mg_order_plan as this file builds it:
+    after multigen_group's 17 bytes a row, in a block of MG_THREADS."""
+    core = (kernels.CSRC / "breed_core.cuh").read_text()
+    for line in ("constexpr int MG_THREADS = %d;" % MG_THREADS,
+                 "constexpr int MG_ROW_BYTES = 8 + 4 + 4 + 1;",
+                 "return ((size_t)W * MG_ROW_BYTES + 15) & ~(size_t)15;",
+                 "return mg_order_plan(W, L, mg_rows_bytes(W), MG_THREADS, warp_bytes);"):
+        assert line in core
+    assert kernels.MULTIGEN_ROW_BYTES == 17
+    assert "constexpr int MG_WALK_GRAIN = 64;" in (kernels.CSRC / "order_plan.cuh").read_text()
