@@ -6,6 +6,7 @@
                       [--tsp | --order-expr | --onemax-order | --creep | --nk]
                       [--shape PxL] [--bf16]
                       [--rounds N]
+    python3 ab_run.py PARENT_DIR [CHANGE_DIR] --gp [--rounds N]
     python3 ab_run.py PARENT_DIR [CHANGE_DIR] --sass [--creep]
 
 CHANGE_DIR defaults to the checkout holding this script. Prints one JSON
@@ -42,6 +43,20 @@ Each turn also prints ``digest``, a hash of every shape's final genomes
 and scores: from the same seed the runs of two checkouts whose kernels
 compute the same function end on the same digest, and the last line
 says whether all four turns did.
+
+With ``--gp`` each turn runs GP symbolic regression of Nguyen-12 at
+65,536 programs x 32 tokens x 1,024 samples as ``chip_smoke.py``'s
+gp_run sets it up (seed 3, truncation selection, elitism 2), with
+``GPConfig.optimize`` on (the evaluator's compacted mode) and off (its
+static mode): wall milliseconds per generation over 10 generations after
+one, and, under ``kernel_ms``, the evaluator kernel's device
+milliseconds per launch over 2 more generations under torch.profiler.
+Its ``digest`` hashes each run's final genomes and scores and the scores
+of one evaluator call on each of ``chip_smoke.gp_populations``' three
+populations in both modes (``chip_smoke.py`` of the checkout under
+test). Under ``eval_ms`` it times that evaluator on the well-formed
+population (compacted first in its compacted mode) by CUDA events: the
+median of 5 windows of 20 launches.
 
 With ``--sass`` it runs no turn: it builds each checkout's production
 ``csrc/deme_breed.cu`` unit (with ``--creep``: the expression unit of the
@@ -151,6 +166,59 @@ for P, L, *case in shapes:
 print(json.dumps({"ms_per_gen": out, "kernel_ms": kernel_ms, "digest": digest.hexdigest()[:16]}))
 """
 
+CHILD_GP = r"""
+import hashlib, json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+import libpga_tpu_torch as port
+from libpga_tpu_torch import gp as gpmod
+from libpga_tpu_torch.ops import gp_eval as ge
+from chip_smoke import GP_SHAPES, gp_populations, gp_solver, nguyen12
+GENS = 10
+P, T, B = GP_SHAPES["main"]
+X, y = gpmod.make_dataset(nguyen12, n_samples=B, n_vars=2, seed=0)
+out, kernel_ms, eval_ms, digest = {}, {}, {}, hashlib.sha256()
+for mode, optimize in (("opt", True), ("static", False)):
+    gp = gpmod.GPConfig(max_nodes=T, n_vars=2, optimize=optimize)
+    pga, h = gp_solver(port, gpmod, gp, P, X, y, seed=3, selection="truncation", elitism=2)
+    pga.run(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pga.run(GENS)
+    torch.cuda.synchronize()
+    out[mode] = 1e3 * (time.perf_counter() - t0) / GENS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pga.run(2)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and "gp_eval_kernel" in e.key]
+    kernel_ms[mode] = sum(e.self_device_time_total for e in ev) / 1e3 / max(1, sum(e.count for e in ev))
+    pop = pga.population(h)
+    digest.update(pop.genomes.cpu().numpy().tobytes() + pop.scores.cpu().numpy().tobytes())
+    port.pga_deinit(pga)
+    gen = torch.Generator(device="cuda").manual_seed(P + T)
+    for name, pgp, g in gp_populations(gpmod, P, T, gen, torch.device("cuda")):
+        fn = ge.make_gp_eval(pgp, X, y, optimize=optimize)
+        digest.update(fn(g).cpu().numpy().tobytes())
+        if name == "well_formed":
+            arg = gpmod.optimize_for_eval(g, pgp) if optimize else g
+            fn(arg)
+            windows = []
+            for _ in range(5):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(20):
+                    fn(arg)
+                end.record()
+                torch.cuda.synchronize()
+                windows.append(start.elapsed_time(end) / 20)
+            eval_ms[mode] = sorted(windows)[2]
+print(json.dumps({"ms_per_gen": out, "kernel_ms": kernel_ms, "eval_ms": eval_ms,
+                  "digest": digest.hexdigest()[:16]}))
+"""
+
 
 BUILD_UNIT = r"""
 import sys
@@ -212,10 +280,11 @@ def main() -> int:
     knobs = {"--generations-per-launch": 1, "--subblock": 1, "--rounds": 1}
     workload = ("tsp" if "--tsp" in args else "order_expr" if "--order-expr" in args
                 else "onemax_order" if "--onemax-order" in args
-                else "creep" if "--creep" in args else "nk" if "--nk" in args else "onemax")
+                else "creep" if "--creep" in args else "nk" if "--nk" in args
+                else "gp" if "--gp" in args else "onemax")
     dtype = "bf16" if "--bf16" in args else "f32"
-    args = [a for a in args
-            if a not in ("--tsp", "--order-expr", "--onemax-order", "--creep", "--nk", "--bf16")]
+    args = [a for a in args if a not in (
+        "--tsp", "--order-expr", "--onemax-order", "--creep", "--nk", "--gp", "--bf16")]
     for flag in knobs:
         if flag in args:
             at = args.index(flag)
@@ -241,10 +310,10 @@ def main() -> int:
              else Path(__file__).resolve().parent}
     digests = []
     for turn in "ABBA" * knobs["--rounds"]:
-        res = subprocess.run(
-            [sys.executable, "-c", CHILD, str(roots[turn]), str(per_launch), workload,
-             str(subblock), json.dumps(shapes), dtype],
-            capture_output=True, text=True, timeout=600)
+        cmd = ([sys.executable, "-c", CHILD_GP, str(roots[turn])] if workload == "gp" else
+               [sys.executable, "-c", CHILD, str(roots[turn]), str(per_launch), workload,
+                str(subblock), json.dumps(shapes), dtype])
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
             print(res.stderr[-2000:], file=sys.stderr)
             return 1

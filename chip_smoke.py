@@ -27,7 +27,14 @@ Phases, each printing one line; any failure exits non-zero:
      and the bench shape (1,024 x 16 x 64), for two knob settings and
      both dispatch modes of the plain version, on well-formed, noise and
      overflow populations: within GP_TOL, -inf where the plain version
-     has -inf. Times both with CUDA events beside the bound;
+     has -inf. Times both with CUDA events beside the bound and per
+     executed token-sample, with the SM clock read under the kernel's
+     load; prints each population's share of programs at each
+     samples-a-pass V, as the kernel reports it; then gp_bit_exact: on
+     programs of the IEEE-exact function set (no libm call) the kernel
+     equals the plain predictions summed in the kernel's order
+     (ops/gp_eval.py::kernel_order_scores) bit for bit, timed as above,
+     and gp_ptxas: ptxas's registers and spills of the kernel;
   7. gp_run: PGA.run symbolic regression of Nguyen-12 at the main shape
      through the public API (symbolic_regression, subtree crossover,
      gp_mutate, install_population of random programs): evaluator
@@ -1105,6 +1112,7 @@ def phase_gp_compare(device, results):
     from libpga_tpu_torch.gp.encoding import program_structure
     from libpga_tpu_torch.ops import gp_eval as ge
 
+    ptxas = gp_ptxas_start()
     for shape, (P, T, B) in GP_SHAPES.items():
         X, y = gpmod.make_dataset(lambda a, b: a * b + a, n_samples=B, n_vars=2, seed=0)
         xt = torch.from_numpy(X.T.copy()).to(device)
@@ -1153,28 +1161,159 @@ def phase_gp_compare(device, results):
                             (prog.length if mode == "opt" else live).float().mean())}
                 r = results.setdefault(mode, {})
                 r["max_abs_err"] = max(r.get("max_abs_err", 0.0), max(errs))
+                arg = prog if mode == "opt" else g
+                plan = ge.gp_eval_plan(P, gp, B)
+                line.update(v_share=gp_v_share(gp, xt, yt, arg, plan, mode))
                 if pop_name == "well_formed":
                     fn = ge.make_gp_eval(gp, X, y, optimize=mode == "opt")
-                    arg = prog if mode == "opt" else g
                     ms = cuda_ms(lambda: fn(arg), 20)
                     if mode == "opt":
                         plain = lambda: ge.gp_eval_reference(prog, xt, yt, gp, seg_rows=8192)  # noqa: E731
                     else:
                         plain = lambda: ge.gp_eval_reference(g, xt, yt, gp)  # noqa: E731
                     plain_ms = cuda_ms(plain, 2)
-                    n = ge.token_counts(prog if mode == "opt" else g, gp)
-                    cost = ge.gp_plan_cost(fn.plan(P), P, gp, B, live_tokens=n["live"],
+                    n = ge.token_counts(arg, gp)
+                    cost = ge.gp_plan_cost(plan, P, gp, B, live_tokens=n["live"],
                                            function_tokens=n["functions"],
                                            optimize=mode == "opt")
+                    ns = 1e6 * ms / (n["live"] * B)
+                    issue = gp_issue(fn, arg, ms, n["live"] * B) if shape == "main" else {}
                     line.update(kernel_ms=ms, plain_ms=plain_ms, bound_ms=1e3 * cost["bound_s"],
                                 bound_by=cost["bound_by"], bound_bytes=cost["bytes"],
                                 bound_operations=cost["operations"],
-                                mean_function_tokens=n["functions"] / P, plan=fn.plan(P))
+                                mean_function_tokens=n["functions"] / P,
+                                ns_per_token_sample=ns, **issue, plan=plan)
                     r[shape] = dict(ms=ms, plain_ms=plain_ms, bound_ms=1e3 * cost["bound_s"],
                                     bound_by=cost["bound_by"],
                                     mean_live_length=line["mean_live_length"],
-                                    mean_function_tokens=n["functions"] / P)
+                                    mean_function_tokens=n["functions"] / P,
+                                    ns_per_token_sample=ns, **issue, v_share=line["v_share"])
                 print(json.dumps(line), flush=True)
+    summary = gp_ptxas(ptxas)
+    for mode in ("opt", "static"):
+        results[mode].update(bit_exact=gp_bit_exact(gpmod, ge, device, mode), ptxas=summary)
+
+
+def gp_v_share(gp, xt, yt, arg, plan, mode) -> dict:
+    """The share of programs at each samples-a-pass V (4, 2, 1), as the
+    kernel reports it through its v_out."""
+    import torch
+
+    from libpga_tpu_torch.ops import gp_eval as ge
+    from libpga_tpu_torch.ops import kernels
+
+    v = torch.zeros(plan["pop"], dtype=torch.int32, device=yt.device)
+    kernels.gp_eval_cuda(
+        xt=xt, y=yt, consts=yt.new_tensor(gp.consts),
+        fids=yt.new_tensor(ge.function_ids(gp), dtype=torch.int32), plan=plan,
+        max_nodes=gp.max_nodes, n_ops=gp.n_ops, v_out=v,
+        **({"prog": arg} if mode == "opt" else {"genomes": arg}))
+    return {str(w): float((v == w).float().mean()) for w in (4, 2, 1)}
+
+
+def gp_issue(fn, arg, ms: float, token_samples: int) -> dict:
+    """The SM clock nvidia-smi reads while ``fn(arg)`` runs back to back
+    (the median of its readings every 50 ms while launches are queued
+    for 2.5 s of wall time, the card's highest clock beside it), and the thread
+    instructions a token-sample that ``ms`` a launch allows if issue set
+    the pace: ms x clock x 4 schedulers an SM x SMs x 32 lanes over the
+    token-samples."""
+    import statistics
+
+    import torch
+
+    query = ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"]
+    fn(arg)
+    torch.cuda.synchronize()
+    smi = subprocess.Popen([*query, "--loop-ms=50"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                           text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 2.5:
+            fn(arg)
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=60)
+    rows = [[float(x) for x in r.split(",")] for r in out.strip().splitlines() if r.strip()]
+    check(len(rows) > 0, "nvidia-smi read no SM clock")
+    mhz = statistics.median(r[0] for r in rows)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"sm_clock_mhz": mhz, "sm_clock_max_mhz": rows[0][1], "sm_clock_readings": len(rows),
+            "thread_instructions_per_token_sample":
+                1e-3 * ms * 1e6 * mhz * 4 * sms * 32 / token_samples}
+
+
+def gp_bit_exact(gpmod, ge, device, mode):
+    """The kernel against the plain predictions reduced in the kernel's
+    order (ops/gp_eval.py::kernel_order_scores), bit for bit, on programs
+    of the arithmetic set (add, sub, mul, div, min, max, neg, abs: exact
+    in both, and no libm call) at the main shape; the plain version on
+    the GP_PLAIN_ROWS first rows. Times the kernel there as gp_compare
+    does at the default set. Returns the rows compared, the rows that
+    differ and the times."""
+    import torch
+
+    from libpga_tpu_torch.gp.interpreter import stack_predict, stack_predict_program
+
+    P, T, B = GP_SHAPES["main"]
+    gp = gpmod.GPConfig(max_nodes=T, n_vars=2, unary=("neg", "abs"),
+                        binary=("add", "sub", "mul", "div", "min", "max"))
+    X, y = gpmod.make_dataset(lambda a, b: a * b - a, n_samples=B, n_vars=2, seed=1)
+    xt = torch.from_numpy(X.T.copy()).to(device)
+    yt = torch.from_numpy(y).to(device)
+    g = gpmod.random_population(torch.Generator(device=device).manual_seed(11), P, gp)
+    fn = ge.make_gp_eval(gp, X, y, optimize=mode == "opt")
+    arg = gpmod.optimize_for_eval(g, gp) if mode == "opt" else g
+    got = fn(arg)[:GP_PLAIN_ROWS]
+    if mode == "opt":
+        sub = gpmod.EvalProgram(*(x[:GP_PLAIN_ROWS] for x in arg))
+        preds = stack_predict_program(sub, xt, gp)
+    else:
+        preds = stack_predict(g[:GP_PLAIN_ROWS], xt, gp)
+    want = ge.kernel_order_scores(preds, yt, fn.plan(P)["threads_per_program"])
+    torch.cuda.synchronize()
+    differ = int((got != want).sum())
+    ms = cuda_ms(lambda: fn(arg), 20)
+    n = ge.token_counts(arg, gp)
+    line = {"phase": "gp_bit_exact", "mode": mode, "P": P, "T": T, "B": B,
+            "compared_rows": GP_PLAIN_ROWS, "rows_differing": differ,
+            "neg_inf_rows": int(torch.isinf(want).sum()), "kernel_ms": ms,
+            "mean_live_length": n["live"] / P, "mean_function_tokens": n["functions"] / P,
+            "ns_per_token_sample": 1e6 * ms / (n["live"] * B),
+            **gp_issue(fn, arg, ms, n["live"] * B)}
+    print(json.dumps(line), flush=True)
+    check(differ == 0, f"gp {mode}: {differ} arithmetic programs' scores differ from the kernel-order sum")
+    return line
+
+
+def gp_ptxas_start():
+    """Start nvcc -Xptxas -v on csrc/gp_eval.cu (into _build/, apart from
+    the production library); gp_ptxas reads it."""
+    from libpga_tpu_torch.ops import kernels
+
+    kernels.BUILD.mkdir(parents=True, exist_ok=True)
+    cmd = [kernels._nvcc(), *kernels.ARCH_FLAGS, *kernels.NVCC_FLAGS, "-Xptxas", "-v",
+           "-o", str(kernels.BUILD / "gp_eval_ptxas.so"), str(kernels.CSRC / "gp_eval.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def gp_ptxas(proc) -> dict:
+    """ptxas's registers, stack frame and spill bytes of gp_eval_kernel.
+    Every walk<V> is inlined into it, so the count is that of its
+    costliest V and the spills those of every V."""
+    import re
+
+    out, _ = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"nvcc -Xptxas -v gp_eval.cu failed:\n{out[-2000:]}")
+    m = re.search(r"Compiling entry function '\w*gp_eval_kernel\w*'.*?"
+                  r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads"
+                  r".*?Used (\d+) registers", out, re.S)
+    check(m is not None, f"ptxas -v printed no resources of gp_eval_kernel:\n{out[-2000:]}")
+    summary = {"registers": int(m.group(4)), "stack_frame": int(m.group(1)),
+               "spill_stores": int(m.group(2)), "spill_loads": int(m.group(3))}
+    print(json.dumps({"phase": "gp_ptxas", "gp_eval_kernel": summary}), flush=True)
+    return summary
 
 
 def gp_solver(port, gpmod, gp, P, X, y, seed, **config):
@@ -5163,8 +5302,17 @@ def drive(torch, port, onemax, fs, kernels) -> int:
             "bound_ms": main_r["bound_ms"], "bound_by": main_r["bound_by"], "library_ms": None,
             "mean_live_length": main_r["mean_live_length"],
             "mean_function_tokens": main_r["mean_function_tokens"],
-            "bench_shape": {k: bench_r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                   "mean_live_length", "mean_function_tokens")},
+            "ns_per_token_sample": main_r["ns_per_token_sample"], "v_share": main_r["v_share"],
+            "sm_clock_mhz": main_r["sm_clock_mhz"],
+            "thread_instructions_per_token_sample": main_r["thread_instructions_per_token_sample"],
+            "bit_exact_rows_differing": r["bit_exact"]["rows_differing"],
+            "arithmetic_set": {k: r["bit_exact"][k] for k in (
+                "kernel_ms", "mean_live_length", "mean_function_tokens", "ns_per_token_sample",
+                "sm_clock_mhz", "thread_instructions_per_token_sample")},
+            "ptxas": r["ptxas"],
+            "bench_shape": {k: bench_r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "mean_live_length",
+                "mean_function_tokens", "ns_per_token_sample")},
         })
     main_r, ref_r = tsp_results["main"], tsp_results["reference"]
     entries.append({

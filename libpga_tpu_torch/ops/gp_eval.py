@@ -23,7 +23,7 @@ from libpga_tpu_torch.gp.encoding import (
     decode_ops,
     program_structure,
 )
-from libpga_tpu_torch.gp.interpreter import DeviceData, gp_eval_reference, samples
+from libpga_tpu_torch.gp.interpreter import DeviceData, gp_eval_reference, samples, sanitize
 from libpga_tpu_torch.gp.optimize import EvalProgram, optimize_for_eval
 from libpga_tpu_torch.ops import kernels
 
@@ -62,7 +62,15 @@ def gp_eval_plan(
     Threads per program (``tpp``) cover the samples up to 256, in whole
     warps; programs per block (``ppb``) fill a 256-thread block when the
     samples are few. The value stack takes ``ppb * T * tpp`` floats of
-    shared memory; both shrink until it fits 64 KB."""
+    shared memory; both shrink until it fits 64 KB. A block resolves a
+    round of ``programs_per_round`` programs (one a warp) and walks them
+    ``ppb`` at a time, one block a round; a thread owns
+    ``samples_per_thread`` samples. ``smem_bytes`` is the kernel's
+    ``smem_bytes_for``: the value stack, ``T * 32`` floats a warp, a
+    round's executed-token lists of 8 bytes a token, the opcode and
+    constant tables, each round program's count and depth and the warps'
+    partial sums. ``grid`` is the count of program slots,
+    ``ceil(pop / ppb)``."""
     if pop < 1 or n_samples < 1:
         return None
     required = gp.required_stack()
@@ -94,7 +102,8 @@ def gp_eval_plan(
         ppb //= 2
     while tpp > 32 and T * tpp * 4 > STACK_SMEM_LIMIT:
         tpp //= 2
-    smem = 4 * (ppb * T * tpp + 2 * ppb * T + MAX_FIDS + MAX_CONSTS + ppb * tpp // 32)
+    W = tpp * ppb // 32
+    smem = 4 * (W * T * 32) + 8 * W * T + 4 * (MAX_FIDS + MAX_CONSTS) + 8 * W + 4 * W * (tpp // 32)
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"max_nodes {T} needs {smem} bytes of shared memory per block"
@@ -111,9 +120,39 @@ def gp_eval_plan(
         "programs_per_block": ppb,
         "block_threads": tpp * ppb,
         "grid": -(-pop // ppb),
+        "programs_per_round": tpp * ppb // 32,
+        "samples_per_thread": -(-n_samples // tpp),
         "smem_bytes": smem,
         "path": "cuda",
     }
+
+
+def kernel_order_scores(preds: torch.Tensor, y: torch.Tensor, threads_per_program: int) -> torch.Tensor:
+    """``-RMSE`` of ``(P, B)`` predictions summed in the kernel's order:
+    thread ``lane`` adds the squared errors of samples ``lane + j * tpp``
+    in j order, each warp folds its 32 lanes by the ``__shfl_down_sync``
+    tree (offsets 16, 8, 4, 2, 1), the warps' sums are added in warp
+    order, then ``-sqrt(sq / B)``, non-finite as ``-inf``. Only tests
+    and ``chip_smoke.py`` call it: it pins the kernel's sum bit for bit
+    where the predictions are exact."""
+    P, B = preds.shape
+    tpp = int(threads_per_program)
+    J = -(-B // tpp)
+    err = preds.float() - y.float()[None, :]
+    sq = torch.zeros((P, J * tpp), dtype=torch.float32, device=preds.device)
+    sq[:, :B] = err * err  # a sample past B adds +0.0, which leaves every sum as it is
+    acc = sq[:, :tpp]
+    for j in range(1, J):
+        acc = acc + sq[:, j * tpp:(j + 1) * tpp]
+    acc = acc.reshape(P, tpp // 32, 32)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc[..., :o] + acc[..., o:2 * o]
+    total = acc[:, 0, 0]
+    for w in range(1, tpp // 32):
+        total = total + acc[:, w, 0]
+    # A division by a full tensor: on CUDA, torch divides by a scalar as a
+    # product with its reciprocal, which is not sq / B rounded once.
+    return sanitize(-torch.sqrt(total / torch.full_like(total, float(B))))
 
 
 def gp_plan_cost(

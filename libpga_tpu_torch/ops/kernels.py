@@ -442,6 +442,7 @@ def _bindings() -> dict:
                 p, p, p, p, p,          # xt, y, consts, fids, out
                 i, i, i, i, i, i, i,    # P, T, B, n_vars, n_consts, n_ops, S
                 i, i, i,                # tpp, ppb, shared-memory bytes
+                p,                      # v_out: samples a pass of each program, or NULL
                 p,                      # stream
             ], i),
             "gp_eval_error_string": ([i], s),
@@ -1618,14 +1619,17 @@ def gp_eval_cuda(
     prog=None,
     max_nodes: int,
     n_ops: int,
+    v_out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch ``csrc/gp_eval.cu`` on the current stream: the kernel
     counterpart of ``ops/gp_eval.py``'s plain scorers. Exactly one of
     ``genomes`` (P, 2T) float32 (static trips, ``LAUNCHES["gp_eval_static"]``)
     or ``prog`` (an ``EvalProgram``, ``LAUNCHES["gp_eval_opt"]``) is
-    given. ``plan`` is a ``gp_eval_plan`` dict for this P and B. Returns
-    (P,) float32 scores. Raises on bad arguments or a failed launch;
-    never runs anything else in the kernel's place."""
+    given. ``plan`` is a ``gp_eval_plan`` dict for this P and B.
+    ``v_out``, a (P,) int32 tensor, receives the samples each program
+    walked a pass (4, 2 or 1). Returns (P,) float32 scores. Raises on
+    bad arguments or a failed launch; never runs anything else in the
+    kernel's place."""
     if (genomes is None) == (prog is None):
         raise ValueError("pass exactly one of genomes= or prog=")
     first = genomes if genomes is not None else prog.ops
@@ -1653,6 +1657,8 @@ def gp_eval_cuda(
         mode = "gp_eval_opt"
     if plan["samples"] != B or plan["pop"] != P or plan["max_nodes"] != T:
         raise ValueError(f"plan is for {plan['pop']}x{plan['max_nodes']}x{plan['samples']}, not {P}x{T}x{B}")
+    if v_out is not None:
+        _check(v_out, "v_out", torch.int32, (P,), dev)
     out = torch.empty(P, device=dev)
     lib = _library("gp_eval")
     rc = lib.gp_eval_launch(
@@ -1661,7 +1667,7 @@ def gp_eval_cuda(
         out.data_ptr(),
         P, T, B, n_vars, n_consts, n_ops, int(plan["stack_depth"]),
         int(plan["threads_per_program"]), int(plan["programs_per_block"]),
-        int(plan["smem_bytes"]),
+        int(plan["smem_bytes"]), _ptr(v_out),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "gp_eval")

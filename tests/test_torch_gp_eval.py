@@ -21,7 +21,7 @@ from libpga_tpu.gp.sr import symbolic_regression as jax_sr
 from libpga_tpu.ops import gp_eval as jge
 from libpga_tpu_torch import interop
 from libpga_tpu_torch.gp import encoding as enc
-from libpga_tpu_torch.gp.interpreter import make_eval_rows
+from libpga_tpu_torch.gp.interpreter import make_eval_rows, rmse_scores, sanitize
 from libpga_tpu_torch.gp.optimize import optimize_for_eval
 from libpga_tpu_torch.gp.reference import reference_scores
 from libpga_tpu_torch.gp.sr import make_dataset, symbolic_regression
@@ -211,3 +211,82 @@ def test_cuda_wrapper_refuses_cpu_tensors():
             consts=torch.ones(5), fids=torch.zeros(gp.n_ops + 1, dtype=torch.int32),
             plan=plan, genomes=torch.rand(4, 16), max_nodes=8, n_ops=gp.n_ops,
         )
+
+
+def _lane_loop_scores(preds, y, tpp):
+    """The kernel's sum written out one float32 add at a time: thread
+    lane's samples in j order, the shuffle tree, the warps in order."""
+    P, B = preds.shape
+    out = []
+    for p in range(P):
+        lanes = []
+        for lane in range(tpp):
+            sq = np.float32(0)
+            for s in range(lane, B, tpp):
+                e = np.float32(preds[p, s] - y[s])
+                sq = np.float32(sq + e * e)
+            lanes.append(sq)
+        warps = []
+        for w in range(tpp // 32):
+            a = lanes[32 * w:32 * (w + 1)]
+            for o in (16, 8, 4, 2, 1):
+                a = [np.float32(a[i] + a[i + o]) if i + o < 32 else a[i] for i in range(32)]
+            warps.append(a[0])
+        sq = warps[0]
+        for w in warps[1:]:
+            sq = np.float32(sq + w)
+        s = np.float32(-np.sqrt(np.float32(sq / np.float32(B))))
+        out.append(s if np.isfinite(s) else -np.inf)
+    return np.array(out, np.float32)
+
+
+def test_kernel_order_scores_reproduce_a_hand_summed_case():
+    """B = 33 at 32 threads: thread 0 adds 2^24 and 1 (the 1 is lost),
+    the tree adds the other lanes' ones in pairs, so the sum is
+    16,777,246 where one sequential pass would give 2^24."""
+    y = torch.zeros(33)
+    preds = torch.ones(1, 33)
+    preds[0, 0] = 4096.0
+    got = ge.kernel_order_scores(preds, y, 32)
+    want = np.float32(-np.sqrt(np.float32(16_777_246) / np.float32(33)))
+    assert got.item() == want != np.float32(-np.sqrt(np.float32(2**24) / np.float32(33)))
+    rng = np.random.default_rng(8)
+    for B, tpp in ((130, 64), (70, 32), (1000, 256)):
+        p = (rng.standard_normal((3, B)) * rng.choice([1.0, 1e4], (3, B))).astype(np.float32)
+        t = rng.standard_normal(B).astype(np.float32)
+        got = ge.kernel_order_scores(torch.from_numpy(p), torch.from_numpy(t), tpp).numpy()
+        np.testing.assert_array_equal(got, _lane_loop_scores(p, t, tpp))
+
+
+@pytest.mark.parametrize("shape", [(65_536, 32, 1024), (1024, 16, 64)], ids=["main", "bench"])
+def test_kernel_order_scores_agree_with_rmse(shape):
+    P, T, B = shape
+    plan = ge.gp_eval_plan(P, enc.GPConfig(max_nodes=T, n_vars=2), B)
+    rng = np.random.default_rng(B)
+    preds = torch.from_numpy(rng.standard_normal((16, B)).astype(np.float32))
+    preds[3, 5] = np.inf
+    preds[4, 0] = np.nan
+    y = torch.from_numpy(rng.standard_normal(B).astype(np.float32))
+    got = ge.kernel_order_scores(preds, y, plan["threads_per_program"])
+    want = sanitize(rmse_scores(preds, y))
+    _close(got, want)
+    assert np.isneginf(got[3:5].numpy()).all()
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((65_536, 32, 1024), (256, 1, 8, 4, 35_520)),
+    ((1024, 16, 64), (64, 4, 8, 1, 17_920)),
+    ((100, 32, 8192), (256, 1, 8, 32, 35_520)),
+], ids=["main", "bench", "wide"])
+def test_plan_rounds_and_shared_memory(shape, want):
+    """tpp, ppb, a block's round of programs (one a warp), the samples a
+    thread owns, and the kernel's shared-memory bytes (the stack, T * 32
+    floats a warp; the round's token lists; the tables; the round's
+    counts and depths; the warps' sums): under 48 KB at the main shape,
+    so an SM holds as many blocks as before."""
+    P, T, B = shape
+    plan = ge.gp_eval_plan(P, enc.GPConfig(max_nodes=T, n_vars=2), B)
+    got = (plan["threads_per_program"], plan["programs_per_block"], plan["programs_per_round"],
+           plan["samples_per_thread"], plan["smem_bytes"])
+    assert got == want
+    assert plan["smem_bytes"] <= 48 * 1024 and plan["grid"] == -(-P // plan["programs_per_block"])

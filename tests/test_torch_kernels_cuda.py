@@ -435,6 +435,133 @@ def test_gp_eval_kernel_rejects_bad_arguments(cuda_device):
         fn(torch.zeros((4, 10), device=cuda_device))
 
 
+# add, sub, mul, div, min, max, neg and abs are IEEE-exact in the kernel
+# and in torch's kernels alike, so on these programs the kernel's scores
+# equal the plain predictions summed in the kernel's order bit for bit.
+ARITH_GP = GPConfig(max_nodes=16, n_vars=2, unary=("neg", "abs"),
+                    binary=("add", "sub", "mul", "div", "min", "max"))
+
+
+def _arith_populations(B, device):
+    """(xt, y, genomes, program) on the card from a seed: well-formed
+    programs, uniform-noise genes and leaf chains (depths 3, 7, 9 and
+    T: V = 4, 2, 1 at four samples a thread), P = 20,000 (2,500 rounds);
+    the program also holds hand-built rows of lengths 0, T, -3 and T + 5,
+    a chain of T leaves among them."""
+    gp, T = ARITH_GP, ARITH_GP.max_nodes
+    rng = np.random.default_rng(B)
+    X = rng.uniform(-2, 2, (B, 2)).astype(np.float32)
+    y = (X[:, 0] * X[:, 1] - X[:, 0]).astype(np.float32)
+    P = 20_000
+    rand = rng.uniform(0, 1, (P // 2, enc.grow_rand_cols(gp))).astype(np.float32)
+    well = enc.random_program_genes(torch.from_numpy(rand), gp).numpy()
+    noise = rng.uniform(0, 1, (P - P // 2, gp.genome_len)).astype(np.float32)
+    chains = [enc.encode_program([("var", i % 2) for i in range(k)] + ["add"] * (k - 1), gp)
+              for k in (3, 7, 8)] + [enc.encode_program([("var", 0)] * T, gp)]
+    noise[: len(chains)] = np.stack(chains)
+    g = torch.from_numpy(np.concatenate([well, noise])).to(device)
+    prog = optimize_for_eval(g, gp)
+    var, lit = gp.op_names().index("var"), gp.n_ops
+    ops = torch.zeros((4, T), dtype=torch.int32, device=device)
+    ops[1], ops[3, ::2], ops[3, 1::2] = var, var, lit
+    args = torch.rand((4, T), generator=torch.Generator().manual_seed(B)).to(device)
+    length = torch.tensor([0, T, -3, T + 5], dtype=torch.int32, device=device)
+    prog = type(prog)(torch.cat([prog.ops, ops]), torch.cat([prog.args, args]),
+                      torch.cat([prog.length, length]))
+    xt = torch.from_numpy(np.ascontiguousarray(X.T)).to(device)
+    return xt, torch.from_numpy(y).to(device), g, prog
+
+
+def _samples_a_pass(m, gp, J):
+    """(P,) the V the kernel should pick for each program: its greatest
+    stack depth D under the skip rule (an EvalProgram's first ``length``
+    tokens over the extended table, LIT a leaf, an opcode outside it a
+    pad; raw genomes every token), then the largest of 4, 2, 1 with
+    V * (D - 1) <= T and V <= J, the samples a thread owns."""
+    T, S = gp.max_nodes, gp.required_stack()
+    arity = torch.tensor([1 << 20] + list(gp.op_arities())[1:] + [0], device=m[0].device)
+    if isinstance(m, torch.Tensor):
+        ops = enc.decode_ops(m, gp).long()
+        valid = ops != enc.PAD_OP
+    else:
+        ops = m.ops.long()
+        valid = ((torch.arange(T, device=ops.device)[None, :] < m.length[:, None])
+                 & (ops >= 0) & (ops <= gp.n_ops))
+    ar = torch.where(valid, arity[ops.clamp(0, gp.n_ops)], 1 << 20)
+    sp = torch.zeros(ops.shape[0], dtype=torch.int64, device=ops.device)
+    depth = sp.clone()
+    for t in range(T):
+        ex = (sp >= ar[:, t]) & (sp - ar[:, t] < S)
+        sp = torch.where(ex, sp - ar[:, t] + 1, sp)
+        depth = torch.maximum(depth, sp)
+    v = torch.ones_like(depth)
+    for w in (2, 4):
+        if w <= J:
+            v = torch.where(w * (depth - 1) <= T, w, v)
+    return v.to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1024, 1000, 64, 20, 1])
+@pytest.mark.parametrize("optimize", [True, False], ids=["compacted", "static"])
+def test_gp_eval_kernel_bit_exact_on_arithmetic_programs(cuda_device, B, optimize):
+    """Scores equal the plain predictions (stack_predict_program /
+    stack_predict on the card) reduced by kernel_order_scores, bit for
+    bit, over the whole population (many rounds) and at P = 1; the
+    samples a pass the kernel reports follow each program's depth, and
+    cover V = 4, 2 and 1 where a thread owns four samples."""
+    from libpga_tpu_torch.gp.interpreter import stack_predict, stack_predict_program
+    from libpga_tpu_torch.ops import gp_eval as ge
+
+    gp, T = ARITH_GP, ARITH_GP.max_nodes
+    xt, y, g, prog = _arith_populations(B, cuda_device)
+    m = prog if optimize else g
+    preds = stack_predict_program(m, xt, gp) if optimize else stack_predict(m, xt, gp)
+    P = preds.shape[0]
+    plan = ge.gp_eval_plan(P, gp, B)
+    want = ge.kernel_order_scores(preds, y, plan["threads_per_program"])
+    consts = torch.tensor(gp.consts, device=cuda_device)
+    fids = torch.tensor(ge.function_ids(gp), dtype=torch.int32, device=cuda_device)
+    kw = dict(xt=xt, y=y, consts=consts, fids=fids, max_nodes=T, n_ops=gp.n_ops)
+
+    def run(rows, p, v_out=None):
+        sub = (type(prog)(*(x[rows] for x in prog)) if optimize else g[rows])
+        return kernels.gp_eval_cuda(plan=p, v_out=v_out,
+                                    **({"prog": sub} if optimize else {"genomes": sub}), **kw)
+
+    v = torch.zeros(P, dtype=torch.int32, device=cuda_device)
+    got = run(torch.arange(P, device=cuda_device), plan, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+    J = plan["samples_per_thread"]
+    assert torch.equal(v, _samples_a_pass(m, gp, J))
+    assert set(v.tolist()) == ({1, 2, 4} if J >= 4 else {1})
+    one = ge.gp_eval_plan(1, gp, B)
+    for row in (0, P - 1):
+        got = run(torch.tensor([row], device=cuda_device), one)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want[row:row + 1])
+
+
+@pytest.mark.cuda
+def test_gp_eval_kernel_reads_out_of_range_opcodes_as_pads(cuda_device):
+    """An opcode outside [0, n_ops] of a compacted program is a pad: the
+    kernel scores such rows as the same rows with pads in their place."""
+    from libpga_tpu_torch.ops import gp_eval as ge
+
+    gp = ARITH_GP
+    xt, y, _, prog = _arith_populations(64, cuda_device)
+    ops = prog.ops.clone()
+    bad = torch.rand(ops.shape, device=cuda_device) < 0.2
+    ops[bad] = torch.where(torch.rand(ops.shape, device=cuda_device)[bad] < 0.5, -1,
+                           gp.n_ops + 3).to(ops.dtype)
+    fn = make_gp_eval(gp, xt.T.cpu().numpy(), y.cpu().numpy())
+    got = fn(type(prog)(ops, prog.args, prog.length))
+    want = fn(type(prog)(torch.where(bad, 0, prog.ops), prog.args, prog.length))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 # ------------------------------------------------------- expression breed
 
 
